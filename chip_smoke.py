@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit, no result line) when
+it goes wrong:
+
+1. device: name, count and ``nvidia-smi`` name / power limit;
+2. build: every CUDA kernel from ``megatron_llm_tpu_torch/csrc`` with one
+   ``nvcc`` per source, all started together (the Triton kernel compiles
+   at its first launch);
+3. kernels: each kernel's wrapper against its plain PyTorch version on
+   the card, in bf16, at the serving path's shapes, with its time (CUDA
+   events), its bound on an H100 and one PyTorch library call for the same
+   function as a yardstick (the port never calls those);
+4. reference: Llama-2-7B widths cut to 2 layers, bf16, prefill then paged
+   decode steps through the kernels, against the plain fp32 full forward;
+5. serve: Llama-2-7B at full width and depth, random weights from a seed,
+   behind ``MegatronServer``; 8 concurrent greedy PUT /api requests of
+   64-1024 prompt tokens over 4 slots, one repeated; every kernel's launch
+   counter is reset just before the traffic and must have risen after it.
+
+The line before the last is the ``{"kernels": [...]}`` JSON object; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
+# operations/s
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_OPS_S = 989e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed between CUDA events, so the host's launch cost
+    (a Triton launch takes longer than a small kernel runs) is not timed.
+    Inputs stay where the previous call left them (L2-warm)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(least milliseconds, "bytes" | "operations") on an H100."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_BF16_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def close_enough(torch, out, ref, atol: float, rtol: float):
+    """(max |out - ref|, whether |out - ref| <= atol + rtol |ref| holds)."""
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    return float(diff.max()), ok
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# bf16 outputs of fp32 math: the kernel and the plain version each round
+# once, so they may differ by a bf16 rounding step of the result (2^-7
+# relative) plus the fp32 reassociation of the sums below it; 2^-6 allows
+# two steps
+BF16_RTOL = 2.0 ** -6
+BF16_ATOL = 2e-3
+
+
+def check_flash_attention(torch, F, fa, dev, gen):
+    """K1 at the prefill shape of Llama-2-7B, plus GQA and segment ids."""
+    cases = [("prefill b1 s1024 h32 causal", 1, 1024, 1024, 32, 32, False),
+             ("gqa b1 s1024 hq32 hk8 causal", 1, 1024, 1024, 32, 8, False),
+             ("segments b2 s512 h32", 2, 512, 512, 32, 32, True)]
+    head = None
+    for name, b, sq, sk, hq, hk, segs in cases:
+        d = 128
+        q = torch.randn(b, sq, hq, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k = torch.randn(b, sk, hk, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn(b, sk, hk, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        seg = None
+        if segs:  # 4 packed sequences per row at random boundaries
+            cuts = torch.sort(torch.randint(1, sq, (b, 3), generator=gen,
+                                            device=dev), dim=1).values
+            pos = torch.arange(sq, device=dev)
+            seg = (pos[None, :, None] >= cuts[:, None, :]).sum(-1)
+            seg = seg.to(torch.int32).contiguous()
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                        segment_ids=seg)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=True,
+                                                  segment_ids=seg)
+        err_o, ok_o = close_enough(torch, o, o_ref, BF16_ATOL, BF16_RTOL)
+        # lse is fp32 on both sides: only summation order differs
+        err_l, ok_l = close_enough(torch, lse, lse_ref, 1e-4, 1e-5)
+        if not (ok_o and ok_l):
+            raise RuntimeError(f"flash_attention {name}: O err {err_o}, "
+                               f"lse err {err_l} beyond tolerance")
+        ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, segment_ids=seg))
+        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, segment_ids=seg), iters=5)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if seg is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=hq != hk)
+        else:
+            pos = torch.arange(sq, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])[None]
+                    & (seg[:, :, None] == seg[:, None, :]))[:, None]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+        library_ms = cuda_ms(torch, lib)
+        # visible (row, key) pairs this run's inputs need
+        i = torch.arange(sq, device=dev)[:, None]
+        j = torch.arange(sk, device=dev)[None, :]
+        keep = (j <= i + (sk - sq))[None]
+        if seg is not None:
+            keep = keep & (seg[:, :, None] == seg[:, None, :])
+        pairs = float(keep.expand(b, sq, sk).sum()) * hq
+        nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
+            + lse.numel() * 4 + (seg.numel() * 4 if seg is not None else 0)
+        bms, by = bound_ms(nbytes, 4.0 * d * pairs)
+        log(f"kernel flash_attention_fwd [{name}]: max_abs_err O {err_o:.3e} "
+            f"lse {err_l:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}; "
+            f"lse atol 1e-4) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"sdpa_ms {library_ms:.4f} bound_ms {bms:.4f} ({by})")
+        if head is None:
+            head = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+    return head
+
+
+def check_flash_decode(torch, F, fd, dev, gen):
+    """K8 at the serving decode shape (4 slots, max_len 2048, ragged)."""
+    cases = [("decode b4 h32 kv32 max_len2048 ragged", 4, 32, 32),
+             ("gqa b4 hq32 kv8 max_len2048 ragged", 4, 32, 8)]
+    head = None
+    for name, b, nq, kv in cases:
+        d, max_len = 128, 2048
+        q = torch.randn(b, nq, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        kc = torch.randn(b, kv, max_len, d, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        vc = torch.randn(b, kv, max_len, d, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        lens = torch.tensor([1, 97, 1056, 2048][:b], dtype=torch.int32,
+                            device=dev)
+        out = fd.flash_decode(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        ref = fd.flash_decode_plain(q, kc, vc, lens)
+        err, ok = close_enough(torch, out, ref, BF16_ATOL, BF16_RTOL)
+        if not ok:
+            raise RuntimeError(f"flash_decode {name}: err {err} beyond "
+                               "tolerance")
+        ms = cuda_ms(torch, lambda: fd.flash_decode(q, kc, vc, lens))
+        plain_ms = cuda_ms(torch, lambda: fd.flash_decode_plain(
+            q, kc, vc, lens), iters=5)
+        mask = (torch.arange(max_len, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=nq != kv)
+        library_ms = cuda_ms(torch, lib)
+        fill = float(lens.sum())
+        # q read and out written once, each row's K and V up to its fill
+        nbytes = (2 * q.numel() + 2 * fill * kv * d) * 2 + b * 4
+        bms, by = bound_ms(nbytes, 4.0 * fill * nq * d)
+        log(f"kernel flash_decode [{name}]: max_abs_err {err:.3e} (tol atol "
+            f"{BF16_ATOL} rtol {BF16_RTOL:.4f}) ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} sdpa_ms {library_ms:.4f} bound_ms {bms:.4f} "
+            f"({by})")
+        if head is None:
+            head = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+    return head
+
+
+def check_rmsnorm(torch, F, rn, dev, gen):
+    """K4 at rows=4096, plus the serving prefill (1024) and decode (4)
+    row counts, hidden 4096."""
+    head = None
+    for rows in (4096, 1024, 4):
+        h = 4096
+        x = torch.randn(rows, h, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        t0 = time.perf_counter()
+        y, rstd = rn.rmsnorm_fwd(x, w, 1e-5)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        y_ref, rstd_ref = rn.rmsnorm_plain(x, w, 1e-5)
+        err, ok = close_enough(torch, y, y_ref, BF16_ATOL, BF16_RTOL)
+        err_r, ok_r = close_enough(torch, rstd, rstd_ref, 0.0, 1e-5)
+        if not (ok and ok_r):
+            raise RuntimeError(f"rmsnorm rows={rows}: y err {err}, rstd err "
+                               f"{err_r} beyond tolerance")
+        ms = cuda_ms(torch, lambda: rn.rmsnorm_fwd(x, w, 1e-5))
+        plain_ms = cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w, 1e-5))
+        library_ms = cuda_ms(torch, lambda: F.rms_norm(x, (h,), w, 1e-5))
+        nbytes = 2 * x.numel() * 2 + h * 2 + rows * 4
+        bms, by = bound_ms(nbytes, 4.0 * rows * h)
+        log(f"kernel rmsnorm_fwd [rows {rows} h {h}]: max_abs_err {err:.3e} "
+            f"rstd {err_r:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}; "
+            f"rstd rtol 1e-5) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"rms_norm_ms {library_ms:.4f} bound_ms {bms:.4f} ({by}) "
+            f"first_call_s {first_s:.2f}")
+        if head is None:
+            head = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+    return head
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the kernel path against the plain fp32 forward, 7B widths
+# ---------------------------------------------------------------------------
+
+
+def check_reference(torch, M, cfg_full, dev, n_pre=192, n_dec=8, bk=64,
+                    width=256):
+    """Prefill 192 tokens and take 8 paged decode steps at Llama-2-7B
+    widths (2 layers) through the kernels, and compare every logit row
+    with the plain fp32 full forward over the same tokens."""
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    params = M.init_params(cfg, seed=1, device=dev)
+    ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
+                                  attention_impl="dot", norm_impl="xla")
+
+    def to32(t):
+        return ({k: to32(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.float())
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_pre + n_dec),
+                         generator=gen, device=dev)
+    with torch.no_grad():
+        k, v = M.init_kv_cache(cfg, 1, width, device=dev)
+        pre, k, v = M.forward_cached(cfg, params, toks[:, :n_pre], k, v, 0,
+                                     empty_cache=True)
+        n_blocks = 1 + width // bk
+        k_pool, v_pool = M.init_kv_pool(cfg, n_blocks, bk, device=dev)
+        bids = torch.arange(1, n_blocks, device=dev)
+        M.cache_scatter_blocks(k_pool, k, bids)
+        M.cache_scatter_blocks(v_pool, v, bids)
+        tables = bids[None, :]
+        steps = [pre[:, -1]]
+        for i in range(n_dec):
+            fill = torch.tensor([n_pre + i], device=dev)
+            lg, _, _ = M.forward_cached_paged(
+                cfg, params, toks[:, n_pre + i:n_pre + i + 1], k_pool,
+                v_pool, tables, fill)
+            steps.append(lg[:, 0])
+        got = torch.cat(steps)                          # [1 + n_dec, V]
+        del k, v, k_pool, v_pool
+        ref = M.forward(ref_cfg, to32(params), toks)[0]
+        ref = ref[n_pre - 1:n_pre + n_dec]
+    diff = (got - ref).abs()
+    # bf16 weights and activations against fp32: the plain bf16 forward
+    # differs from the fp32 one by mean 0.014 / max 0.094 on logits of std
+    # 1.28 at these widths (CPU); fp8 would be ~16x that
+    mean_err, max_err = float(diff.mean()), float(diff.max())
+    ok = bool(torch.isfinite(got).all()) and mean_err <= 0.03 \
+        and max_err <= 0.25
+    log(f"reference [llama2-7b widths, 2 layers, bf16 kernel path vs fp32 "
+        f"plain forward, {n_pre}-token prefill + {n_dec} paged decode "
+        f"steps]: logit std {float(ref.std()):.3f} mean_abs_err "
+        f"{mean_err:.4f} (tol 0.03) max_abs_err {max_err:.4f} (tol 0.25)")
+    if not ok:
+        raise RuntimeError("kernel path disagrees with the fp32 reference")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serve Llama-2-7B
+# ---------------------------------------------------------------------------
+
+
+def put(port: int, body: dict, timeout: float = 600.0):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/api", data=json.dumps(body).encode(),
+        method="PUT", headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def serve(torch, cfg, dev, counters, smi,
+          lens=(64, 1024, 200, 512, 96, 777, 330, 1000), new=32):
+    from megatron_llm_tpu_torch.generation import MegatronServer
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.tokenizer import NullTokenizer
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"serve: llama2-7b params {M.num_params(params) / 1e9:.3f}e9 "
+        f"({cfg.params_dtype}) initialised in {time.perf_counter() - t0:.1f}s")
+    server = MegatronServer(cfg, params, NullTokenizer(cfg.vocab_size),
+                            max_batch_size=4, engine_max_seq_len=2048,
+                            prefill_bucket=64, kv_block_size=64,
+                            prefix_cache_blocks=0, trace=False, device=dev)
+    server.run("127.0.0.1", 0, block=False)
+    try:
+        port = server.port
+        gen = torch.Generator().manual_seed(3)
+        prompts = [" ".join(str(int(t)) for t in torch.randint(
+            0, cfg.vocab_size, (n,), generator=gen)) for n in lens]
+        def body(p):  # greedy (top_k = top_p = 0), no EOS stop
+            return {"prompts": [p], "tokens_to_generate": new,
+                    "no_early_termination": True}
+
+        # warm the engine (Triton compile, cuBLAS handles) before counting
+        status, _ = put(port, body(prompts[0]))
+        if status != 200:
+            raise RuntimeError(f"warm-up request answered {status}")
+        for fn in counters.values():
+            fn.launches = 0
+        engine = server.service.engine
+        m0 = engine.metrics.snapshot()
+        results = [None] * len(prompts)
+
+        def client(i):
+            try:
+                results[i] = put(port, body(prompts[i]))
+            except Exception as e:  # noqa: BLE001 - reported below
+                results[i] = (None, repr(e))
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t1
+        launches = {name: fn.launches for name, fn in counters.items()}
+        m1 = engine.metrics.snapshot()
+        for i, (n, res) in enumerate(zip(lens, results)):
+            if res is None or res[0] != 200:
+                raise RuntimeError(f"request {i} failed: {res}")
+            out = res[1]["text"][0].split()
+            if len(out) != n + new or len(res[1]["segments"][0]) != n + new:
+                raise RuntimeError(f"request {i}: {len(out)} tokens, want "
+                                   f"{n} + {new}")
+            if not all(0 <= int(t) < cfg.vocab_size for t in out):
+                raise RuntimeError(f"request {i}: token out of vocab")
+        again = put(port, body(prompts[2]))
+        if again[0] != 200 or again[1]["text"] != results[2][1]["text"]:
+            raise RuntimeError("repeated greedy request changed its text")
+        if m1["max_decode_batch"] < 2:
+            raise RuntimeError("no two requests shared a decode step")
+        pre_s = m1["timers_s"]["serving-prefill"] \
+            - m0["timers_s"]["serving-prefill"]
+        dec_s = m1["timers_s"]["serving-decode"] \
+            - m0["timers_s"]["serving-decode"]
+        dec_tok = m1["decode_tokens"] - m0["decode_tokens"]
+        log(f"serve: {len(lens)} requests ({sum(lens)} prompt tokens, "
+            f"{new} new each) over 4 slots in {wall:.2f}s; prefill "
+            f"{sum(lens) / pre_s:.1f} tok/s ({pre_s:.3f}s in admission "
+            f"prefill), decode {dec_tok / dec_s:.1f} tok/s ({dec_tok} "
+            f"tokens in {m1['decode_iterations'] - m0['decode_iterations']} "
+            f"steps, {dec_s:.3f}s), max_decode_batch "
+            f"{m1['max_decode_batch']}; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; host "
+            f"clock; card {smi}")
+        log("kernels " + json.dumps(launches))
+        missing = [n for n, c in launches.items() if c < 1]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the main path: "
+                               f"{missing}")
+        return launches
+    finally:
+        server.shutdown()
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from megatron_llm_tpu_torch.config import llama2_config
+    from megatron_llm_tpu_torch.kernels import build, launch_counters
+    from megatron_llm_tpu_torch.kernels import flash_attention as fa
+    from megatron_llm_tpu_torch.kernels import flash_decode as fd
+    from megatron_llm_tpu_torch.kernels import rmsnorm as rn
+    from megatron_llm_tpu_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"device: {name} x{count}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
+    log(smi)
+
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"build: {', '.join(build.SOURCES)} with nvcc in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        rows = {
+            "flash_attention_fwd": check_flash_attention(torch, F, fa, dev,
+                                                         gen),
+            "flash_decode": check_flash_decode(torch, F, fd, dev, gen),
+            "rmsnorm_fwd": check_rmsnorm(torch, F, rn, dev, gen),
+        }
+    cfg = llama2_config("7b", params_dtype="bfloat16", attention_impl="flash",
+                        norm_impl="pallas", fused_decode=False)
+    check_reference(torch, M, cfg, dev)
+    torch.cuda.empty_cache()
+
+    counters = launch_counters()
+    launches = serve(torch, cfg, dev, counters, smi)
+
+    meta = {
+        "flash_attention_fwd": (
+            "cuda", "megatron_llm_tpu_torch/csrc/flash_attention.cu",
+            "megatron_llm_tpu/kernels/flash_attention.py:91"),
+        "flash_decode": (
+            "cuda", "megatron_llm_tpu_torch/csrc/flash_decode.cu",
+            "megatron_llm_tpu/kernels/flash_decode.py:45"),
+        "rmsnorm_fwd": (
+            "triton", "megatron_llm_tpu_torch/kernels/rmsnorm_triton.py",
+            "megatron_llm_tpu/kernels/rmsnorm.py:56"),
+    }
+    kernels = []
+    for kname, (route, source, replaces) in meta.items():
+        kernels.append(dict(name=kname, route=route, source=source,
+                            replaces=replaces, launches=launches[kname],
+                            **rows[kname]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

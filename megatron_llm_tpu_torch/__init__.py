@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of ``megatron_llm_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package stays beside this one as the reference every slice is
+tested against; this package imports ``torch`` and never ``jax`` or
+anything of ``megatron_llm_tpu``.  The module layout and names mirror the
+JAX package's so each counterpart is easy to find.
+
+The first slice is the serving path: ``generation.server.MegatronServer``
+→ ``serving.engine.ServingEngine`` → ``models.model`` →
+``models.transformer`` → ``ops`` → the hand-written kernels in
+``kernels/`` (flash-attention forward and flash decode in CUDA C++ under
+``csrc/``, RMSNorm forward in Triton).  Entry points run on ``cuda``
+unless the caller passes a CPU device; on CPU tensors every kernel
+wrapper runs its plain PyTorch version.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,22 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+- ``flash_attention.py``: flash-attention forward (``csrc/flash_attention.cu``).
+- ``flash_decode.py``: single-token decode attention over a dense cache
+  (``csrc/flash_decode.cu``).
+- ``rmsnorm.py``: RMSNorm forward (Triton, ``rmsnorm_triton.py``).
+- ``build.py``: ``nvcc`` into ``build/kernels/`` and ``ctypes`` loading.
+
+Each wrapper counts its launches in a ``launches`` attribute.
+"""
+
+
+def launch_counters() -> dict:
+    """``{kernel name: wrapper}`` of every kernel wrapper with a launch
+    counter (read and reset through ``wrapper.launches``)."""
+    from .flash_attention import flash_attention_fwd
+    from .flash_decode import flash_decode
+    from .rmsnorm import rmsnorm_fwd
+
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_decode": flash_decode,
+            "rmsnorm_fwd": rmsnorm_fwd}

@@ -1,0 +1,268 @@
+"""Causal language model for inference: embedding → decoder stack → lm head
+(mirror of ``megatron_llm_tpu/models/model.py``), plus the KV-cache and
+paged block-pool helpers the serving engine drives.
+
+Cache layouts are the JAX package's: dense ``[L, b, kv_heads, max_len, d]``
+and pool ``[L, n_blocks, kv_heads, block, d]`` (block 0 = trash).  Where
+the JAX functions return updated arrays, these update the caches IN
+PLACE and return them, which saves a full cache copy per call; callers
+that need the old contents pass a copy.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..config import ModelConfig, PositionEmbeddingType
+from ..ops.norms import norm_apply, norm_init
+from .transformer import (
+    AttnSideInputs,
+    Params,
+    init_stack_params,
+    rope_tables,
+    stack_forward,
+    stack_forward_cached,
+)
+
+
+def default_device(device=None) -> torch.device:
+    """The port runs on the card unless the caller asks for another
+    device (the tests pass ``"cpu"``)."""
+    return torch.device("cuda" if device is None else device)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                tp: int = 1) -> Params:
+    """Random parameters with the JAX package's distributions (normal, std
+    ``init_method_std``; output layers scaled by ``1/sqrt(2 L)``; norms 1),
+    drawn on ``device`` (default ``cuda``) from a ``torch.Generator``
+    seeded with ``seed``.  The numbers differ from ``jax.random``'s; tests
+    that compare with JAX copy JAX's weights with ``params_from_jax``."""
+    device = default_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    h, dtype, std = cfg.hidden_size, cfg.dtype, cfg.init_method_std
+    v = cfg.padded_vocab_size(tp)
+
+    def normal(shape):
+        return (std * torch.randn(shape, generator=gen, device=device,
+                                  dtype=torch.float32)).to(dtype)
+
+    params: Params = {
+        "embedding": {"word": normal((v, h))},
+        "layers": init_stack_params(cfg, gen, device),
+        "final_norm": norm_init(cfg.norm_type, h, dtype, device),
+    }
+    if cfg.position_embedding_type == PositionEmbeddingType.ABSOLUTE:
+        params["embedding"]["position"] = normal(
+            (cfg.max_position_embeddings, h))
+    if cfg.tokentype_size:
+        params["embedding"]["tokentype"] = normal((cfg.tokentype_size, h))
+    if not cfg.tie_embed_logits:
+        params["lm_head"] = normal((h, v))
+    return params
+
+
+def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+          position_ids: Optional[torch.Tensor] = None,
+          tokentype_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    word = params["embedding"]["word"]
+    if isinstance(word, dict):
+        raise NotImplementedError("the int8 embedding table is not ported "
+                                  "yet (ROADMAP.md, Queue 1: precision "
+                                  "policies)")
+    x = word[tokens].to(cfg.dtype)
+    if "position" in params["embedding"]:
+        if position_ids is None:
+            position_ids = torch.arange(tokens.shape[1],
+                                        device=tokens.device)[None, :]
+        x = x + params["embedding"]["position"][position_ids]
+    if tokentype_ids is not None and "tokentype" in params["embedding"]:
+        x = x + params["embedding"]["tokentype"][tokentype_ids]
+    return x
+
+
+def unembed_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    if cfg.tie_embed_logits:
+        return params["embedding"]["word"].T
+    return params["lm_head"]
+
+
+def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ unembed_weight(cfg, params)
+
+
+def _rope(cfg, params, rope):
+    if rope is not None:
+        return rope
+    return rope_tables(cfg, device=params["embedding"]["word"].device)
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            position_ids: Optional[torch.Tensor] = None,
+            segment_ids: Optional[torch.Tensor] = None,
+            tokentype_ids: Optional[torch.Tensor] = None,
+            rope: Optional[tuple] = None) -> torch.Tensor:
+    """Full forward to logits ``[b, s, padded_vocab]`` (fp32)."""
+    cos, sin = _rope(cfg, params, rope)
+    x = embed(cfg, params, tokens, position_ids, tokentype_ids)
+    side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
+                          position_ids=position_ids, segment_ids=segment_ids)
+    x = stack_forward(cfg, params["layers"], x, side)
+    x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
+                   impl=cfg.norm_impl)
+    return unembed(cfg, params, x).float()
+
+
+def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len,
+                   *, rope: Optional[tuple] = None, empty_cache: bool = False,
+                   last_logit_only: bool = False,
+                   logit_rows: Optional[torch.Tensor] = None):
+    """Incremental forward: consume ``tokens`` [b, s] at positions
+    ``cache_len .. cache_len + s`` (``cache_len`` an int or a [b] tensor of
+    per-row fills), write their K/V into the caches in place, and return
+    ``(logits [b, s or 1, vocab] fp32, k_cache, v_cache)``.
+
+    ``empty_cache=True`` promises ``cache_len == 0``: attention is then
+    plain causal attention over the window (the flash kernel under
+    ``attention_impl="flash"``).  ``logit_rows`` [b] unembeds one row per
+    batch row; ``last_logit_only`` the last.  The JAX package's fused
+    whole-stack decode kernel is a later slice, so this is always the
+    composed per-layer path (the one JAX itself takes at 7B width)."""
+    cos, sin = _rope(cfg, params, rope)
+    b, s = tokens.shape
+    offs = torch.arange(s, device=tokens.device, dtype=torch.long)
+    if isinstance(cache_len, int):
+        position_ids = (cache_len + offs)[None, :].expand(b, s)
+    else:
+        cache_len = torch.as_tensor(cache_len, device=tokens.device)
+        position_ids = (cache_len.to(torch.long).reshape(-1, 1)
+                        + offs[None, :]).expand(b, s)
+    x = embed(cfg, params, tokens, position_ids)
+    side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
+                          position_ids=position_ids,
+                          cache_is_empty=empty_cache)
+    x, k_cache, v_cache = stack_forward_cached(
+        cfg, params["layers"], x, side, k_cache, v_cache, cache_len)
+    if last_logit_only:
+        x = x[:, -1:]
+    elif logit_rows is not None:
+        rows = torch.as_tensor(logit_rows, device=x.device).to(torch.long)
+        x = torch.gather(x, 1, rows.reshape(b, 1, 1).expand(b, 1, x.shape[2]))
+    x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
+                   impl=cfg.norm_impl)
+    return unembed(cfg, params, x).float(), k_cache, v_cache
+
+
+def forward_cached_paged(cfg: ModelConfig, params: Params,
+                         tokens: torch.Tensor,   # [b, 1] pending tokens
+                         k_pool: torch.Tensor,   # [L, n_blocks, kv, blk, d]
+                         v_pool: torch.Tensor,
+                         tables: torch.Tensor,   # [b, T] int block tables
+                         fills: torch.Tensor,    # [b] fill levels
+                         *, rope: Optional[tuple] = None,
+                         use_fused: bool = False):
+    """Single-token decode over the paged pool, the JAX package's composed
+    route: gather the tables into a dense working view, run
+    ``forward_cached`` over it (the flash-decode kernel per layer on the
+    card), and scatter each row's new K/V back to block
+    ``tables[s, fill // blk]`` at offset ``fill % blk``.  Returns
+    ``(logits [b, 1, vocab] fp32, k_pool, v_pool)``; the pools are
+    updated in place."""
+    if use_fused:
+        raise NotImplementedError(
+            "the fused whole-stack paged decode kernel is not ported yet "
+            "(ROADMAP.md, Queue 2: decode_step.py)")
+    fills = torch.as_tensor(fills, device=tokens.device).to(torch.long)
+    tables = torch.as_tensor(tables, device=tokens.device).to(torch.long)
+    bk = k_pool.shape[3]
+    bids = torch.gather(tables, 1, (fills // bk)[:, None])[:, 0]
+    offs = fills % bk
+    k_dense = cache_gather_blocks(k_pool, tables)
+    v_dense = cache_gather_blocks(v_pool, tables)
+    logits, k_dense, v_dense = forward_cached(
+        cfg, params, tokens, k_dense, v_dense, fills, rope=rope)
+    cache_append_rows(k_pool, cache_rows_at(k_dense, fills), bids, offs)
+    cache_append_rows(v_pool, cache_rows_at(v_dense, fills), bids, offs)
+    return logits, k_pool, v_pool
+
+
+def init_kv_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+                  dtype=None, device=None):
+    """Empty stacked KV cache ``[L, b, kv_heads, max_len, d]`` x2."""
+    if cfg.kv_cache_quant == "int8":
+        from ..ops.kv_quant import _INT8_TODO
+
+        raise NotImplementedError(_INT8_TODO)
+    shape = (cfg.num_layers, batch_size, cfg.kv_heads, max_len, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    device = default_device(device)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_kv_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
+                 dtype=None, device=None):
+    """Empty paged pool ``[L, n_blocks, kv_heads, block, d]`` x2 (the
+    cache layout with the batch axis read as the block axis)."""
+    return init_kv_cache(cfg, n_blocks, block_size, dtype, device)
+
+
+def cache_gather_blocks(pool: torch.Tensor,
+                        tables: torch.Tensor) -> torch.Tensor:
+    """Per-slot block tables ``[S, T]`` → dense ``[L, S, kv, T*blk, d]``
+    (a new tensor).  Rows from trash or past-fill blocks hold finite
+    garbage that decode attention masks."""
+    S, T = tables.shape
+    L, _, kv, bk = pool.shape[:4]
+    tail = tuple(pool.shape[4:])
+    x = pool.index_select(1, tables.reshape(-1).to(torch.long))
+    x = x.view((L, S, T, kv, bk) + tail).transpose(2, 3)
+    return x.reshape((L, S, kv, T * bk) + tail)
+
+
+def cache_scatter_blocks(pool: torch.Tensor, dense: torch.Tensor,
+                         bids) -> torch.Tensor:
+    """Publish a batch-1 dense cache ``[L, 1, kv, T*blk, d]``: its block i
+    lands in pool block ``bids[i]`` (trash entries skip a block).  In
+    place; returns the pool."""
+    bids = torch.as_tensor(bids, device=pool.device).to(torch.long)
+    L, _, kv, W = dense.shape[:4]
+    tail = tuple(dense.shape[4:])
+    bk = pool.shape[3]
+    x = dense[:, 0].reshape((L, kv, W // bk, bk) + tail).transpose(1, 2)
+    pool[:, bids] = x.to(pool.dtype)
+    return pool
+
+
+def cache_append_rows(pool: torch.Tensor, rows: torch.Tensor, bids,
+                      offs) -> torch.Tensor:
+    """Scatter one new row per slot: ``rows`` ``[L, S, kv, 1, d]``, slot s's
+    row to offset ``offs[s]`` of block ``bids[s]``.  In place."""
+    bids = torch.as_tensor(bids, device=pool.device).to(torch.long)
+    offs = torch.as_tensor(offs, device=pool.device).to(torch.long)
+    # pool[:, bids, :, offs]: separated advanced indices put the slot axis
+    # first, so the update is [S, L, kv, d]
+    pool[:, bids, :, offs] = rows[:, :, :, 0].transpose(0, 1).to(pool.dtype)
+    return pool
+
+
+def cache_rows_at(dense: torch.Tensor, fills) -> torch.Tensor:
+    """Each slot's row at its own fill: ``[L, S, kv, W, d]`` →
+    ``[L, S, kv, 1, d]``."""
+    fills = torch.as_tensor(fills, device=dense.device).to(torch.long)
+    L, S, kv = dense.shape[:3]
+    tail = tuple(dense.shape[4:])
+    idx = fills.reshape((1, S, 1, 1) + (1,) * len(tail))
+    idx = idx.expand((L, S, kv, 1) + tail)
+    return torch.gather(dense, 3, idx)
+
+
+def num_params(params: Params) -> int:
+    total = 0
+    for v in params.values():
+        total += num_params(v) if isinstance(v, dict) else v.numel()
+    return total

@@ -1,0 +1,279 @@
+"""Decoder transformer stack for inference (mirror of
+``megatron_llm_tpu/models/transformer.py``).
+
+Parameters keep the JAX package's stacked layout: a dict whose leaves
+carry a leading layer axis ``[L, ...]`` (``x @ w`` with w ``[in, out]``),
+so ``convert.params_from_jax`` is a plain leaf-for-leaf copy.  The stack is
+a Python loop over layers in place of ``lax.scan``.
+
+This slice is the serving path: the deterministic forward only, so
+dropout and drop-path (training-time) do not apply.  MoE layers and
+quantized weights belong to later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..config import ModelConfig, PositionEmbeddingType
+from ..ops.activations import get_activation, is_glu
+from ..ops.attention import attention, decode_attention
+from ..ops.kv_quant import cache_update
+from ..ops.norms import norm_apply, norm_init
+from ..ops.rope import apply_rope, precompute_rope_freqs
+
+Params = dict
+
+
+def proj(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
+    """Projection matmul: plain ``x @ w`` (a large product, left to
+    torch.matmul as the JAX package left it to XLA)."""
+    if isinstance(w, dict) or cfg.quantize_matmuls != "none":
+        raise NotImplementedError(
+            "quantized weights / int8 training matmuls are not ported yet "
+            "(ROADMAP.md, Queue 1: precision policies)")
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Initialization (std 0.02; output layers scaled by 1/sqrt(2 L))
+# ---------------------------------------------------------------------------
+
+
+def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
+    return (std * torch.randn(shape, generator=generator, device=device,
+                              dtype=torch.float32)).to(dtype)
+
+
+def init_stack_params(cfg: ModelConfig, generator: torch.Generator,
+                      device, num_layers: Optional[int] = None) -> Params:
+    """All layers stacked on a leading axis; each layer is drawn on its
+    own so the fp32 draw never holds more than one layer."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE layers are not ported yet "
+                                  "(ROADMAP.md, Queue 1: MoE)")
+    n = num_layers if num_layers is not None else cfg.num_layers
+    h, d = cfg.hidden_size, cfg.head_dim
+    nq, nkv, ffn = cfg.num_attention_heads, cfg.kv_heads, cfg.ffn_size
+    dtype, std = cfg.dtype, cfg.init_method_std
+    out_std = std / (2.0 * cfg.num_layers) ** 0.5 if cfg.use_scaled_init \
+        else std
+    shapes = {("attn", "wq"): ((h, nq * d), std),
+              ("attn", "wk"): ((h, nkv * d), std),
+              ("attn", "wv"): ((h, nkv * d), std),
+              ("attn", "wo"): ((nq * d, h), out_std)}
+    if is_glu(cfg.activation):
+        shapes[("mlp", "w_gate")] = ((h, ffn), std)
+    shapes[("mlp", "w_up")] = ((h, ffn), std)
+    shapes[("mlp", "w_down")] = ((ffn, h), out_std)
+    layers: Params = {"attn": {}, "mlp": {}}
+    for (group, name), (shape, s) in shapes.items():
+        w = torch.empty((n,) + shape, dtype=dtype, device=device)
+        for i in range(n):
+            w[i] = _normal(shape, s, dtype, generator, device)
+        layers[group][name] = w
+
+    def zeros(size):
+        return torch.zeros(n, size, dtype=dtype, device=device)
+
+    if cfg.use_bias or cfg.qkv_bias:
+        layers["attn"].update(bq=zeros(nq * d), bk=zeros(nkv * d),
+                              bv=zeros(nkv * d))
+    if cfg.use_bias:
+        layers["attn"]["bo"] = zeros(h)
+        if is_glu(cfg.activation):
+            layers["mlp"]["b_gate"] = zeros(ffn)
+        layers["mlp"]["b_up"] = zeros(ffn)
+        layers["mlp"]["b_down"] = zeros(h)
+
+    def stacked_norm():
+        return {k: v.expand(n, h).clone()
+                for k, v in norm_init(cfg.norm_type, h, dtype, device).items()}
+
+    layers["input_norm"] = stacked_norm()
+    if cfg.parallel_attn:
+        if cfg.parallel_layernorm:
+            layers["mlp_norm"] = stacked_norm()
+    else:
+        layers["post_attn_norm"] = stacked_norm()
+    return layers
+
+
+def layer_params(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s view of the stacked parameter dict."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSideInputs:
+    """Non-parameter inputs shared by all layers."""
+
+    rope_cos: Optional[torch.Tensor] = None
+    rope_sin: Optional[torch.Tensor] = None
+    position_ids: Optional[torch.Tensor] = None  # [b, s]
+    segment_ids: Optional[torch.Tensor] = None   # [b, s]
+    causal: bool = True
+    attn_bias: Optional[torch.Tensor] = None
+    # the caller's promise that the KV cache holds no valid rows yet (first
+    # prefill): cached attention is then ordinary causal attention over
+    # the window (the flash kernel)
+    cache_is_empty: bool = False
+
+
+def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    side: AttnSideInputs, kv_cache: Optional[tuple] = None):
+    """QKV projection → RoPE → attention → output projection.
+
+    ``kv_cache`` is ``(k_cache, v_cache, cache_len)`` with head-major
+    caches ``[b, nkv, max_len, d]``; the new rows are written into the
+    caches in place (``ops/kv_quant.cache_update``) and the call returns
+    ``(out, (new_k_rows, new_v_rows))`` as in JAX."""
+    b, s, _ = x.shape
+    d = cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.kv_heads
+    q = proj(cfg, x, p["wq"])
+    k = proj(cfg, x, p["wk"])
+    v = proj(cfg, x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, s, nq, d)
+    k = k.reshape(b, s, nkv, d)
+    v = v.reshape(b, s, nkv, d)
+    position_ids = side.position_ids
+    if kv_cache is not None and position_ids is None:
+        raise ValueError("kv_cache requires explicit position_ids "
+                         "(forward_cached supplies them)")
+    if cfg.position_embedding_type == PositionEmbeddingType.ROTARY:
+        q = apply_rope(q, side.rope_cos, side.rope_sin, position_ids)
+        k = apply_rope(k, side.rope_cos, side.rope_sin, position_ids)
+    softmax_scale = 1.0 / (d ** 0.5)
+
+    new_rows = None
+    if kv_cache is not None:
+        k_cache, v_cache, cache_len = kv_cache
+        new_k = k.transpose(1, 2)               # [b, nkv, s, d]
+        new_v = v.transpose(1, 2)
+        cache_update(k_cache, new_k, cache_len)
+        cache_update(v_cache, new_v, cache_len)
+        new_rows = (new_k, new_v)
+        if side.cache_is_empty and s > 1:
+            ctx = attention(q, k.contiguous(), v.contiguous(),
+                            impl=cfg.attention_impl, causal=True,
+                            softmax_scale=softmax_scale)
+        else:
+            ctx = decode_attention(q, k_cache, v_cache, cache_len,
+                                   softmax_scale=softmax_scale)
+    else:
+        ctx = attention(q, k.contiguous(), v.contiguous(),
+                        impl=cfg.attention_impl, causal=side.causal,
+                        segment_ids=side.segment_ids,
+                        softmax_scale=softmax_scale, bias=side.attn_bias)
+    out = proj(cfg, ctx.reshape(b, s, nq * d), p["wo"])
+    if "bo" in p:
+        out = out + p["bo"]
+    if kv_cache is not None:
+        return out, new_rows
+    return out
+
+
+def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """(Gated) MLP with the GLU split as two projections."""
+    act = get_activation(cfg.activation)
+    if is_glu(cfg.activation):
+        gate = proj(cfg, x, p["w_gate"])
+        up = proj(cfg, x, p["w_up"])
+        if "b_gate" in p:
+            gate = gate + p["b_gate"]
+            up = up + p["b_up"]
+        hidden = act(torch.cat([gate, up], dim=-1))
+    else:
+        hidden = proj(cfg, x, p["w_up"])
+        if "b_up" in p:
+            hidden = hidden + p["b_up"]
+        hidden = act(hidden)
+    out = proj(cfg, hidden, p["w_down"])
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
+
+
+def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  side: AttnSideInputs, kv_cache: Optional[tuple] = None):
+    """One pre-LN residual block (sequential or Falcon-parallel), inference
+    only.  Returns ``out``, or ``(out, new_rows)`` with ``kv_cache``."""
+    residual = x
+    h1 = norm_apply(cfg.norm_type, x, p["input_norm"], cfg.norm_eps,
+                    impl=cfg.norm_impl)
+    new_rows = None
+    if kv_cache is not None:
+        attn_out, new_rows = attention_block(cfg, p["attn"], h1, side,
+                                             kv_cache)
+    else:
+        attn_out = attention_block(cfg, p["attn"], h1, side)
+    if cfg.parallel_attn:
+        mlp_in = h1
+        if cfg.parallel_layernorm:
+            mlp_in = norm_apply(cfg.norm_type, x, p["mlp_norm"], cfg.norm_eps,
+                                impl=cfg.norm_impl)
+        result = residual + (attn_out + mlp_block(cfg, p["mlp"], mlp_in))
+    else:
+        x = residual + attn_out
+        h2 = norm_apply(cfg.norm_type, x, p["post_attn_norm"], cfg.norm_eps,
+                        impl=cfg.norm_impl)
+        result = x + mlp_block(cfg, p["mlp"], h2)
+    if kv_cache is not None:
+        return result, new_rows
+    return result
+
+
+def stack_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
+                  side: AttnSideInputs) -> torch.Tensor:
+    """All layers, in order."""
+    n = next(iter(stacked["input_norm"].values())).shape[0]
+    for i in range(n):
+        x = layer_forward(cfg, layer_params(stacked, i), x, side)
+    return x
+
+
+def stack_forward_cached(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
+                         side: AttnSideInputs,
+                         k_cache: torch.Tensor,  # [L, b, nkv, max_len, d]
+                         v_cache: torch.Tensor, cache_len):
+    """All layers threading the stacked KV cache: layer ``i`` writes its
+    new rows into ``k_cache[i]``/``v_cache[i]`` in place.  Returns
+    ``(hidden, k_cache, v_cache)``; the caller advances ``cache_len``."""
+    for i in range(k_cache.shape[0]):
+        x, _ = layer_forward(cfg, layer_params(stacked, i), x, side,
+                             kv_cache=(k_cache[i], v_cache[i], cache_len))
+    return x, k_cache, v_cache
+
+
+def rope_tables(cfg: ModelConfig, dtype=torch.float32, device=None):
+    if cfg.position_embedding_type != PositionEmbeddingType.ROTARY:
+        return None, None
+    return precompute_rope_freqs(
+        cfg.head_dim,
+        cfg.max_position_embeddings,
+        theta=cfg.rope_theta,
+        scaling_factor=cfg.rope_scaling_factor,
+        scaling_type=cfg.rope_scaling_type,
+        low_freq_factor=cfg.rope_low_freq_factor,
+        high_freq_factor=cfg.rope_high_freq_factor,
+        original_max_positions=cfg.rope_original_max_positions,
+        beta_fast=cfg.rope_beta_fast,
+        beta_slow=cfg.rope_beta_slow,
+        attention_factor=cfg.rope_attention_factor,
+        dtype=dtype,
+        device=device,
+    )

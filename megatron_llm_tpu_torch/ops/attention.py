@@ -1,0 +1,141 @@
+"""Attention math (mirror of ``megatron_llm_tpu/ops/attention.py``).
+
+Activations are ``[batch, seq, heads, head_dim]``; GQA groups are folded
+by reshaping Q to ``[b, s, kv_heads, group, d]`` so K/V are never tiled
+up.  ``attention`` dispatches ``impl="flash"`` to the flash kernel module
+(CUDA kernel on CUDA tensors, its plain version on CPU tensors) and
+``impl="dot"`` to the einsum path.  ``decode_attention`` takes the
+flash-decode kernel when ``decode_kernel_eligible`` says the CUDA kernel
+takes the operands, else the einsum path, as the JAX package takes its
+Pallas kernel only on a TPU.
+
+Not in this slice: ring attention (context parallelism), the paged and
+int8 decode kernels, and sharded dispatch under a mesh.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def decode_kernel_eligible(q, k_cache) -> bool:
+    """The port's predicate for the decode fast path: one new token per
+    row (q ``[b, 1, h, d]``) on CUDA tensors the flash-decode kernel takes
+    (dtype, head size, GQA group)."""
+    from ..kernels.flash_decode import kernel_takes
+
+    return q.shape[1] == 1 and kernel_takes(q[:, 0], k_cache)
+
+
+def make_causal_mask(seq_q: int, seq_k: int, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """Additive causal mask [1, 1, seq_q, seq_k] (0 keep / -inf drop)."""
+    i = torch.arange(seq_q, device=device)[:, None]
+    j = torch.arange(seq_k, device=device)[None, :]
+    keep = j <= (i + (seq_k - seq_q))
+    zero = torch.zeros((), dtype=dtype, device=device)
+    ninf = torch.full((), float("-inf"), dtype=dtype, device=device)
+    return torch.where(keep, zero, ninf)[None, None]
+
+
+def _decode_keep_mask(cache_len, s: int, max_len: int, device):
+    """[b or 1, s, max_len] keep-mask: column j is visible to new token i
+    when j <= cache_len + i (cache_len scalar or [b])."""
+    cl = torch.as_tensor(cache_len, device=device).to(torch.long)
+    i = torch.arange(s, device=device)
+    j = torch.arange(max_len, device=device)
+    if cl.ndim == 0:
+        return (j[None, :] <= (cl + i[:, None]))[None]
+    return j[None, None, :] <= (cl[:, None, None] + i[None, :, None])
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     softmax_scale: float | None = None) -> torch.Tensor:
+    """Incremental-decode attention over a head-major KV cache.
+
+    q ``[b, s, n_heads, d]`` (the new tokens), caches ``[b, kv_heads,
+    max_len, d]`` already holding the new rows, ``cache_len`` the position
+    of q's first token (scalar or ``[b]``).  Columns past
+    ``cache_len + i`` hold garbage and are masked."""
+    from .kv_quant import _INT8_TODO, is_quantized_cache
+
+    if is_quantized_cache(k_cache):
+        raise NotImplementedError(_INT8_TODO)
+    b, s, n_heads, d = q.shape
+    _, kv_heads, max_len, _ = k_cache.shape
+    group = n_heads // kv_heads
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    if decode_kernel_eligible(q, k_cache):
+        from ..kernels.flash_decode import flash_decode
+
+        lens = torch.as_tensor(cache_len, device=q.device) + 1
+        out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, lens,
+                           softmax_scale=softmax_scale)
+        return out[:, None]
+    # [b, kv, group·s, d]: fold the GQA group and the new-token dim
+    qg = q.reshape(b, s, kv_heads, group, d).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(b, kv_heads, group * s, d)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qg.float(),
+                          k_cache.float()) * softmax_scale
+    keep = _decode_keep_mask(cache_len, s, max_len, q.device)
+    keep = keep.repeat(1, group, 1)                # [b or 1, g·s, max_len]
+    scores = scores.masked_fill(~keep[:, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v_cache)
+    out = out.reshape(b, kv_heads, group, s, d).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, s, n_heads, d)
+
+
+def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
+                          segment_ids=None, softmax_scale=None) -> torch.Tensor:
+    """Einsum attention, q ``[b, sq, hq, d]``, k/v ``[b, sk, hk, d]``, with
+    an fp32 softmax.  (Attention dropout is training-time and comes with the
+    training slice.)"""
+    b, sq, n_heads, d = q.shape
+    _, sk, kv_heads, _ = k.shape
+    group = n_heads // kv_heads
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, kv_heads, group, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = scores * softmax_scale
+    if causal:
+        scores = scores + make_causal_mask(sq, sk, scores.dtype, q.device)
+    if segment_ids is not None:
+        seg_mask = segment_ids[:, :sq, None] == segment_ids[:, None, :sk]
+        scores = scores.masked_fill(~seg_mask[:, None, None], float("-inf"))
+    if bias is not None:
+        bias_ = bias
+        if bias_.shape[1] == n_heads:
+            bias_ = bias_.reshape(b, kv_heads, group, sq, sk)
+        else:
+            bias_ = bias_[:, :, None]
+        scores = scores + bias_
+    probs = torch.softmax(scores.float(), dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
+    probs = probs.to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, n_heads, d)
+
+
+def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
+              segment_ids=None, softmax_scale=None, bias=None,
+              cp_axis: str | None = None, mesh=None) -> torch.Tensor:
+    """Dispatcher: ``"flash"`` → the flash kernel module, ``"dot"`` → the
+    einsum path.  A bias rules the flash kernel out (as in JAX)."""
+    if cp_axis is not None or mesh is not None:
+        raise NotImplementedError(
+            "ring attention / context parallelism is not ported yet "
+            "(ROADMAP.md, Queue 1: pipeline, context and expert parallelism)")
+    if impl == "flash" and bias is None:
+        from ..kernels.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal,
+                               segment_ids=segment_ids,
+                               softmax_scale=softmax_scale)
+    return dot_product_attention(
+        q, k, v, causal=causal, segment_ids=segment_ids,
+        softmax_scale=softmax_scale, bias=bias)

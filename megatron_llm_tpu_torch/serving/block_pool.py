@@ -1,0 +1,121 @@
+"""Device-resident paged KV block pool with host-side bookkeeping (mirror of
+``megatron_llm_tpu/serving/block_pool.py``'s ``BlockPool``).
+
+The pool owns two tensors (K and V) ``[L, n_blocks, kv_heads, block, d]``;
+free list, ref counts and reservations live on the host.  Block 0 is the
+permanently allocated trash block that unused table entries point at;
+decode attention masks everything past a row's fill, so trash contents
+never reach an output.  Reservations make admission sound: a request
+reserves its worst-case block count up front and per-step allocation
+draws from it, so a decode step never runs out of blocks.
+
+Not in this slice: copy-on-write of shared blocks (it comes with the
+prefix cache), block export/import for shipping and the host-RAM tier
+(``HostKVTier``).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from ..models import model as model_lib
+
+
+class BlockPool:
+    """Fixed pool of KV blocks + free-list / ref-count / reservation state.
+    ``n_blocks`` includes the trash block 0."""
+
+    TRASH = 0
+
+    def __init__(self, cfg, n_blocks: int, block_size: int, device=None):
+        if n_blocks < 2:
+            raise ValueError("BlockPool needs at least 2 blocks "
+                             "(one is the reserved trash block)")
+        self.cfg = cfg
+        self.n_blocks = int(n_blocks)
+        self.block_size = int(block_size)
+        self.k_pool, self.v_pool = model_lib.init_kv_pool(
+            cfg, n_blocks, block_size, device=device)
+        self._ref = np.zeros(n_blocks, dtype=np.int32)
+        self._ref[self.TRASH] = 1  # permanently pinned
+        self._free: List[int] = list(range(n_blocks - 1, 0, -1))
+        self._reserved = 0
+
+    # -- capacity / reservations ------------------------------------------
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.n_blocks - 1 - len(self._free)
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.n_blocks - 1
+
+    @property
+    def reserved_blocks(self) -> int:
+        return self._reserved
+
+    def can_reserve(self, n: int) -> bool:
+        return len(self._free) - self._reserved >= n
+
+    def reserve(self, n: int) -> bool:
+        """Set aside ``n`` blocks for future allocation; False if the pool
+        cannot guarantee them right now."""
+        if not self.can_reserve(n):
+            return False
+        self._reserved += n
+        return True
+
+    def unreserve(self, n: int) -> None:
+        if self._reserved < n:
+            raise RuntimeError("unreserve() exceeds reservation")
+        self._reserved -= n
+
+    # -- alloc / ref counting ----------------------------------------------
+    def alloc_reserved(self) -> int:
+        """Allocate one block against an existing reservation."""
+        if self._reserved <= 0:
+            raise RuntimeError("alloc_reserved() without reservation")
+        self._reserved -= 1
+        if not self._free:
+            raise RuntimeError("BlockPool exhausted despite reservation")
+        bid = self._free.pop()
+        self._ref[bid] = 1
+        return bid
+
+    def incref(self, bid: int) -> None:
+        if bid == self.TRASH or self._ref[bid] <= 0:
+            raise RuntimeError(f"incref on unallocated block {bid}")
+        self._ref[bid] += 1
+
+    def decref(self, bid: int) -> None:
+        if bid == self.TRASH:
+            return
+        if self._ref[bid] <= 0:
+            raise RuntimeError(f"double free of block {bid}")
+        self._ref[bid] -= 1
+        if self._ref[bid] == 0:
+            self._free.append(bid)
+
+    # -- introspection -------------------------------------------------------
+    def stats(self) -> dict:
+        used = self.used_blocks
+        usable = self.usable_blocks
+        return {
+            "n_blocks": self.n_blocks,
+            "block_size": self.block_size,
+            "blocks_free": self.free_blocks,
+            "blocks_used": used,
+            "blocks_reserved": self._reserved,
+            "kv_cache_util": (used / usable) if usable else 0.0,
+        }
+
+    def ref_counts(self) -> dict:
+        """Non-zero ref counts by block id (trash excluded)."""
+        return {int(b): int(self._ref[b])
+                for b in np.nonzero(self._ref)[0] if b != self.TRASH}

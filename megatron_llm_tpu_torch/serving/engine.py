@@ -1,0 +1,862 @@
+"""Continuous-batching serving engine over a paged KV pool (mirror of
+``megatron_llm_tpu/serving/engine.py`` in its base configuration).
+
+One scheduler thread owns the device state and interleaves, per
+iteration:
+
+1. **admission**: while a slot is free, the queue has work and the pool
+   can reserve the request's worst-case block count, prefill the prompt
+   (padded up to a multiple of ``prefill_bucket``) into a batch-1 dense
+   cache with one ``forward_cached(empty_cache=True)`` and publish it into
+   freshly allocated pool blocks;
+2. **one batched decode step** over every slot (free slots ride along
+   against the trash block): ``forward_cached_paged`` with per-slot fills,
+   then per-slot greedy / temperature / top-k / top-p sampling whose
+   randomness is a per-REQUEST stream keyed on (seed, token counter), so a
+   request samples the same tokens whatever slot it lands in and whoever
+   shares its batch;
+3. **retirement** on EOS, token budget, cancel or deadline.
+
+With ``pipeline_decode`` (the default) step N's sampled tokens stay on the
+device and feed step N+1 directly while their host copy streams back;
+retirement then lags one step and the extra token sampled for a finished
+request is masked, never committed, so committed trajectories are the
+same as with ``pipeline_decode=False``.
+
+Greedy decoding reproduces the JAX engine's tokens (tests compare them).
+Sampled decoding cannot match ``jax.random`` draw for draw; it keeps the
+JAX engine's invariants instead (same seed → same output, independent of
+slot and batch).
+
+Not in this slice, and refused at construction with ``NotImplementedError``
+naming the ROADMAP item: chunked prefill, the prefix cache, speculative
+decoding and draft models, LoRA adapters, the host KV tier,
+disaggregated roles, span tracing, sanitizers, meshes, the int8 KV cache,
+quantized weights and the fused whole-stack decode kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import threading
+import time
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..models import model as model_lib
+from .block_pool import BlockPool
+from .metrics import ServingMetrics
+from .queue import QueueFull, RequestQueue  # noqa: F401  (re-exported)
+from .slots import SlotAllocator
+
+NEG_INF = -1.0e10  # the JAX package's sampling mask value
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Tuning knobs: every field and default of the JAX ``EngineConfig``
+    (documented there and in docs/serving.md).  The fields of features
+    this slice does not port must stay at their "off" values: see
+    ``_refuse_unported``."""
+    max_batch_size: int = 8
+    max_seq_len: int = 1024
+    max_queue_size: int = 32
+    prefill_bucket: int = 1
+    retry_after_s: float = 1.0
+    idle_wait_s: float = 0.02
+    pipeline_decode: bool = True
+    prefill_chunk: Optional[int] = None
+    default_deadline_s: Optional[float] = None
+    prefix_cache_blocks: int = 256
+    trace: bool = True
+    trace_capacity: int = 8192
+    kv_block_size: int = 0
+    kv_pool_blocks: int = 0
+    spec_draft_len: int = 0
+    spec_ngram: int = 3
+    spec_reprobe_interval: int = 16
+    sanitize: bool = False
+    adapter_cache_slots: int = 0
+    host_kv_blocks: int = 0
+    role: str = "mixed"
+
+
+def _refuse_unported(cfg: ModelConfig, params, ec: EngineConfig, *, mesh,
+                     draft_cfg, adapters) -> None:
+    """Raise for every configuration this slice of the port does not run,
+    rather than silently ignoring it."""
+    todo = [
+        (ec.prefill_chunk, "prefill_chunk (chunked prefill)",
+         "Queue 1: serving engine, chunked prefill"),
+        (ec.prefix_cache_blocks > 0, "prefix_cache_blocks > 0 (set it to 0)",
+         "Queue 1: serving engine, prefix cache"),
+        (ec.spec_draft_len > 0, "spec_draft_len > 0",
+         "Queue 1: serving engine, speculative decoding"),
+        (draft_cfg is not None, "a resident draft model",
+         "Queue 1: serving engine, speculative decoding"),
+        (ec.adapter_cache_slots > 0 or adapters is not None, "LoRA adapters",
+         "Queue 1: serving engine, multi-tenant LoRA"),
+        (ec.host_kv_blocks > 0, "host_kv_blocks > 0 (tiered KV)",
+         "Queue 1: serving engine, tiered KV"),
+        (ec.role != "mixed", f"role={ec.role!r}",
+         "Queue 1: multi-GPU serving, disaggregated prefill/decode"),
+        (ec.trace, "trace=True (span tracing; set trace=False)",
+         "Queue 1: serving engine, observability"),
+        (ec.sanitize or os.environ.get("MEGATRON_SANITIZE") == "1",
+         "sanitize=True", "Queue 1: serving engine, sanitizers"),
+        (mesh is not None, "a device mesh", "Queue 1: multi-GPU serving"),
+        (cfg.kv_cache_quant == "int8", "kv_cache_quant='int8'",
+         "Queue 1: int8 KV cache; Queue 2: flash_decode_int8"),
+        (_has_quantized(params), "quantized weights",
+         "Queue 1: precision policies"),
+        (cfg.fused_decode, "cfg.fused_decode=True (set it to False)",
+         "Queue 2: decode_step.py fused whole-stack decode"),
+    ]
+    for bad, what, item in todo:
+        if bad:
+            raise NotImplementedError(
+                f"ServingEngine: {what} is not ported yet (ROADMAP.md, "
+                f"{item})")
+
+
+def _has_quantized(tree) -> bool:
+    if isinstance(tree, dict):
+        if set(tree) == {"q", "scale"}:
+            return True
+        return any(_has_quantized(v) for v in tree.values())
+    return False
+
+
+@dataclasses.dataclass
+class FinishedRequest:
+    tokens: List[int]             # prompt + generated (EOS included)
+    prompt_len: int
+    finish_reason: str            # "eos" | "length" | "cancelled" |
+    #                               "timeout" | "error"
+    logprobs: Optional[List[float]] = None  # [len-1] incl. prompt positions
+
+
+class _Request:
+    """Internal request record; the public face is ``RequestHandle``."""
+
+    _ids = iter(range(1, 1 << 62))
+
+    def __init__(self, prompt: Sequence[int], max_new_tokens: int, *,
+                 eos_id: int = 2, temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 0.0, seed: Optional[int] = None,
+                 use_eos_stop: bool = True, return_logprobs: bool = False,
+                 on_token: Optional[Callable[[int], None]] = None,
+                 deadline_s: Optional[float] = None,
+                 adapter_id: Optional[str] = None,
+                 priority: int = 0):
+        self.id = next(self._ids)
+        self.rid = f"req-{self.id}"
+        self.prompt = [int(t) for t in prompt]
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_id = int(eos_id)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.greedy = top_k == 0 and top_p == 0.0
+        if seed is None:
+            seed = int.from_bytes(os.urandom(4), "little")
+        self.seed = int(seed) & 0xFFFFFFFF
+        self.use_eos_stop = bool(use_eos_stop)
+        self.return_logprobs = bool(return_logprobs)
+        self.on_token = on_token
+        self.adapter_id = adapter_id
+        self.priority = int(priority)
+        self.generated: List[int] = []
+        self.logprobs: List[float] = []
+        self.cancel_flag = threading.Event()
+        self.done_event = threading.Event()
+        self.result: Optional[FinishedRequest] = None
+        self.submit_time = time.perf_counter()
+        self.first_token_time: Optional[float] = None
+        self.deadline: Optional[float] = (
+            None if deadline_s is None
+            else self.submit_time + float(deadline_s))
+
+
+class RequestHandle:
+    """Client-side view of a submitted request."""
+
+    def __init__(self, req: _Request, engine: "ServingEngine"):
+        self._req = req
+        self._engine = engine
+
+    @property
+    def request_id(self) -> int:
+        return self._req.id
+
+    @property
+    def rid(self) -> str:
+        return self._req.rid
+
+    def done(self) -> bool:
+        return self._req.done_event.is_set()
+
+    def cancel(self) -> None:
+        """Drop the request at the next iteration boundary (or now, if it
+        is still queued)."""
+        self._engine._cancel(self._req)
+
+    def result(self, timeout: Optional[float] = None) -> FinishedRequest:
+        if not self._req.done_event.wait(timeout):
+            raise TimeoutError(
+                f"request {self._req.id} not finished within {timeout}s")
+        if self._req.result.finish_reason == "error":
+            raise RuntimeError(
+                "serving engine scheduler failed: "
+                f"{self._engine._scheduler_error!r}")
+        return self._req.result
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+
+def _stream_seed(seed: int, counter: int) -> int:
+    """The per-request random stream's seed for its ``counter``-th sampled
+    token (the port's ``fold_in(key(seed), counter)``): a splitmix64 hash
+    of both, so every bit of the result depends on both (the CPU generator
+    keeps only the low 32 bits of its seed)."""
+    mask = (1 << 64) - 1
+    z = ((int(seed) & 0xFFFFFFFF) << 32) | (int(counter) & 0xFFFFFFFF)
+    z = (z + 0x9E3779B97F4A7C15) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return (z ^ (z >> 31)) >> 1  # a non-negative int64
+
+
+def _sample_slots(logits: torch.Tensor, seeds, counters, greedy, temps,
+                  top_ks, top_ps, vocab: int):
+    """Per-slot mixed-mode sampling over ``[S, V]`` fp32 logits → ``(tok
+    [S] int64, tok_logprob [S] fp32)`` on the logits' device.
+
+    The knob vectors are host numpy arrays.  Greedy slots take the
+    padded-vocab-masked argmax; the rest apply temperature, a dynamic
+    per-slot top-k rank mask and a per-slot nucleus (top-p) threshold,
+    then draw by Gumbel-max from a generator seeded by
+    ``_stream_seed(seed, counter)``: the draw depends only on the request
+    and its token index."""
+    S, V = logits.shape
+    dev = logits.device
+    pad = torch.arange(V, device=dev) >= vocab
+    logits = logits.masked_fill(pad[None, :], NEG_INF)
+    tok = torch.argmax(logits, dim=-1)
+    sampled_rows = [i for i in range(S) if not greedy[i]]
+    if sampled_rows:
+        temps_t = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
+        top_ks_t = torch.as_tensor(np.asarray(top_ks, np.int64), device=dev)
+        top_ps_t = torch.as_tensor(np.asarray(top_ps, np.float32), device=dev)
+        scaled = logits / torch.clamp(temps_t, min=1e-6)[:, None]
+        ranks = torch.argsort(torch.argsort(-scaled, dim=-1, stable=True),
+                              dim=-1, stable=True)
+        kmask = (top_ks_t[:, None] > 0) & (ranks >= top_ks_t[:, None])
+        scaled = scaled.masked_fill(kmask, NEG_INF)
+        p_eff = torch.where(top_ps_t > 0.0, top_ps_t,
+                            torch.ones_like(top_ps_t))[:, None]
+        sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+        sorted_probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(sorted_probs, dim=-1)
+        kept = sorted_logits.masked_fill((cum - sorted_probs) > p_eff,
+                                         float("inf"))
+        threshold = kept.min(dim=-1, keepdim=True).values
+        scaled = scaled.masked_fill(scaled < threshold, NEG_INF)
+        for i in sampled_rows:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(_stream_seed(seeds[i], counters[i]))
+            u = torch.rand(V, generator=gen, device=dev)
+            gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+            tok[i] = torch.argmax(scaled[i] + gumbel)
+    lp = torch.log_softmax(logits, dim=-1)
+    tok_lp = torch.gather(lp, 1, tok[:, None])[:, 0]
+    return tok, tok_lp
+
+
+class _SlotState:
+    """Host-side per-slot bookkeeping.  ``fill`` and ``count`` advance at
+    dispatch; ``pending`` is the host copy of the slot's last sampled
+    token, and ``fresh`` marks slots whose host value must override the
+    device-resident token vector at the next dispatch."""
+
+    def __init__(self, req: _Request, fill: int, pending: int):
+        self.req = req
+        self.fill = fill
+        self.count = 1
+        self.pending = pending
+        self.fresh = True
+
+
+class _Inflight:
+    """A dispatched-but-unprocessed decode step: device token vectors, the
+    slot → state snapshot taken at dispatch (identity-checked at
+    processing, so tokens of a slot that retired meanwhile are masked),
+    and the pending host copies."""
+
+    __slots__ = ("tok", "tok_lp", "host_tok", "host_lp", "ready", "slots",
+                 "t_dispatch")
+
+    def __init__(self, tok, tok_lp, slots, t_dispatch):
+        self.tok = tok
+        self.tok_lp = tok_lp
+        self.slots = slots
+        self.t_dispatch = t_dispatch
+        if tok.is_cuda:  # start the host copies now; they overlap the next
+            self.host_tok = torch.empty(tok.shape, dtype=tok.dtype,
+                                        pin_memory=True)
+            self.host_lp = torch.empty(tok_lp.shape, dtype=tok_lp.dtype,
+                                       pin_memory=True)
+            self.host_tok.copy_(tok, non_blocking=True)
+            self.host_lp.copy_(tok_lp, non_blocking=True)
+            self.ready = torch.cuda.Event()
+            self.ready.record()
+        else:
+            self.host_tok, self.host_lp, self.ready = tok, tok_lp, None
+
+    def fetch(self):
+        """Wait for the host copies: ``(tok, tok_lp)`` numpy arrays."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return self.host_tok.numpy(), self.host_lp.numpy()
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+
+class ServingEngine:
+    """Continuous-batching engine over a fixed set of KV slots.
+
+    ``submit`` / ``submit_many`` are thread-safe and non-blocking (they
+    raise ``QueueFull`` under backpressure); all device work happens on
+    the scheduler thread.  ``device`` defaults to ``cuda``; pass ``"cpu"``
+    to run the plain versions of the kernels (the tests do)."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 engine_config: Optional[EngineConfig] = None,
+                 metrics: Optional[ServingMetrics] = None,
+                 mesh=None, draft_cfg: Optional[ModelConfig] = None,
+                 draft_params=None, adapters=None, device=None):
+        self.cfg = cfg
+        self.params = params
+        self.config = engine_config or EngineConfig()
+        _refuse_unported(cfg, params, self.config, mesh=mesh,
+                         draft_cfg=draft_cfg, adapters=adapters)
+        if self.config.max_seq_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"max_seq_len {self.config.max_seq_len} exceeds the model's "
+                f"max_position_embeddings {cfg.max_position_embeddings}")
+        self.device = model_lib.default_device(device)
+        self.metrics = metrics or ServingMetrics(self.config.max_batch_size)
+        self.metrics.set_gauges(num_slots=self.config.max_batch_size)
+        self.queue = RequestQueue(self.config.max_queue_size,
+                                  self.config.retry_after_s)
+        self.slots: Optional[SlotAllocator] = None  # allocated on start
+        self._rope = None
+        self._active: dict[int, _SlotState] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._admitting: Optional[_Request] = None
+        self._held: Optional[_Request] = None  # parked on pool pressure
+        self._inflight: Optional[_Inflight] = None
+        self._scheduler_error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._paused = threading.Event()
+        self._draining = threading.Event()
+        self._lock = threading.Lock()
+        self._wake = threading.Condition()
+        self._drain_cond = threading.Condition()
+        self._last_dispatch_t: Optional[float] = None
+        self._last_ready_t: Optional[float] = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "ServingEngine":
+        with self._lock:
+            if self._thread is None:
+                ec = self.config
+                bk = int(ec.kv_block_size or max(1, ec.prefill_bucket))
+                bk = max(1, min(bk, ec.max_seq_len))
+                table_blocks = -(-ec.max_seq_len // bk)
+                n_blocks = int(ec.kv_pool_blocks) or (
+                    1 + ec.max_batch_size * table_blocks)
+                pool = BlockPool(self.cfg, n_blocks, bk, device=self.device)
+                self.slots = SlotAllocator(self.cfg, ec.max_batch_size,
+                                           ec.max_seq_len, pool)
+                self._rope = model_lib.rope_tables(self.cfg,
+                                                   device=self.device)
+                self._update_pool_gauges()
+                self._thread = threading.Thread(
+                    target=self._loop, name="serving-engine", daemon=True)
+                self._thread.start()
+        return self
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        with self._lock:
+            if self._thread is None:
+                return
+            self._stop.set()
+            self.queue.notify()
+            with self._wake:
+                self._wake.notify_all()
+            self._thread.join(timeout)
+            self._thread = None
+            with self._drain_cond:
+                self._drain_cond.notify_all()
+
+    def pause(self) -> None:
+        """Stop admitting and decoding (requests keep queueing)."""
+        self._paused.set()
+
+    def resume(self) -> None:
+        self._paused.clear()
+        with self._wake:
+            self._wake.notify_all()
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Stop admitting (submissions get ``QueueFull``), let everything in
+        flight finish; True once idle, False on timeout."""
+        self._draining.set()
+        self.queue.notify()
+        if self._thread is None:
+            return True
+        deadline = (None if timeout is None
+                    else time.perf_counter() + float(timeout))
+        with self._drain_cond:
+            while True:
+                idle = self._is_idle()
+                if idle or self._stop.is_set():
+                    return idle
+                remaining = (None if deadline is None
+                             else deadline - time.perf_counter())
+                if remaining is not None and remaining <= 0:
+                    return False
+                self._drain_cond.wait(remaining)
+
+    def _is_idle(self) -> bool:
+        return (not self._active and self._admitting is None
+                and self._inflight is None and self._held is None
+                and len(self.queue) == 0)
+
+    def _notify_drain(self) -> None:
+        with self._drain_cond:
+            self._drain_cond.notify_all()
+
+    # -- submission (any thread) ------------------------------------------
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
+               eos_id: int = 2, temperature: float = 1.0, top_k: int = 0,
+               top_p: float = 0.0, seed: Optional[int] = None,
+               use_eos_stop: bool = True, return_logprobs: bool = False,
+               on_token: Optional[Callable[[int], None]] = None,
+               deadline_s: Optional[float] = None,
+               adapter_id: Optional[str] = None,
+               priority: int = 0) -> RequestHandle:
+        return self.submit_many([dict(
+            prompt=prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
+            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+            use_eos_stop=use_eos_stop, return_logprobs=return_logprobs,
+            on_token=on_token, deadline_s=deadline_s,
+            adapter_id=adapter_id, priority=priority)])[0]
+
+    def submit_many(self, specs: Sequence[dict]) -> List[RequestHandle]:
+        """Validate + enqueue a batch of requests all-or-nothing.  Raises
+        ``ValueError`` for a request that can never fit and ``QueueFull``
+        under backpressure."""
+        self.start()
+        if self._draining.is_set():
+            self.metrics.inc("rejected_draining", by=len(specs))
+            raise QueueFull(
+                "engine is draining (shutting down); not accepting requests",
+                retry_after_s=self.config.retry_after_s)
+        reqs = []
+        for spec in specs:
+            spec = dict(spec)
+            if spec.get("deadline_s") is None:
+                spec["deadline_s"] = self.config.default_deadline_s
+            req = _Request(**spec)
+            if len(req.prompt) < 1:
+                self.metrics.inc("rejected_invalid")
+                raise ValueError("empty prompt")
+            if req.max_new_tokens < 1:
+                self.metrics.inc("rejected_invalid")
+                raise ValueError("max_new_tokens must be >= 1")
+            if len(req.prompt) + req.max_new_tokens > self.config.max_seq_len:
+                self.metrics.inc("rejected_invalid")
+                raise ValueError(
+                    f"prompt ({len(req.prompt)} tokens) + max_new_tokens "
+                    f"({req.max_new_tokens}) exceeds the per-slot sequence "
+                    f"budget ({self.config.max_seq_len})")
+            if req.adapter_id is not None:
+                self.metrics.inc("rejected_invalid")
+                raise ValueError(
+                    f"request names adapter {req.adapter_id!r} but "
+                    "the engine has no adapter registry")
+            pool = self.slots.pool
+            need = -(-(len(req.prompt) + req.max_new_tokens)
+                     // pool.block_size)
+            if need > pool.usable_blocks:
+                self.metrics.inc("rejected_invalid")
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool only has "
+                    f"{pool.usable_blocks} (kv_pool_blocks too small for "
+                    f"this sequence budget)")
+            reqs.append(req)
+        try:
+            self.queue.put_many(reqs)
+        except QueueFull:
+            self.metrics.inc("rejected_queue_full", by=len(reqs))
+            raise
+        self.metrics.inc("submitted", by=len(reqs))
+        self.metrics.set_gauges(queue_depth=len(self.queue))
+        return [RequestHandle(r, self) for r in reqs]
+
+    def _cancel(self, req: _Request) -> None:
+        req.cancel_flag.set()
+        if self.queue.remove(req):  # still queued: finish it right here
+            self._finish(req, "cancelled")
+            self.metrics.set_gauges(queue_depth=len(self.queue))
+
+    # -- scheduler loop (engine thread only) -------------------------------
+
+    def _loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        try:
+            with torch.no_grad():
+                while not self._stop.is_set():
+                    self._drain_cancellations()
+                    self._expire_deadlines()
+                    if self._paused.is_set():
+                        self._flush_inflight()
+                        self._last_dispatch_t = self._last_ready_t = None
+                        with self._wake:
+                            if (self._paused.is_set()
+                                    and not self._stop.is_set()):
+                                self._wake.wait(self.config.idle_wait_s)
+                        continue
+                    self._admit()
+                    if self._active:
+                        self._step()
+                    elif self._inflight is not None:
+                        # every slot retired while the step was in flight:
+                        # its tokens are all speculative
+                        self._flush_inflight()
+                    else:
+                        self._last_dispatch_t = self._last_ready_t = None
+                        self._notify_drain()
+                        self.queue.wait_for_work(self.config.idle_wait_s)
+        except Exception as e:  # noqa: BLE001 — a dead scheduler must not
+            # leave submitters blocked on result() forever
+            logging.getLogger(__name__).exception(
+                "serving engine scheduler died: %s", e)
+            self._scheduler_error = e
+            self._inflight = None
+            if self._admitting is not None:
+                self._finish(self._admitting, "error")
+                self._admitting = None
+            if self._held is not None:
+                self._finish(self._held, "error")
+                self._held = None
+            for slot in list(self._active):
+                self._finish(self._active.pop(slot).req, "error")
+            while True:
+                req = self.queue.pop()
+                if req is None:
+                    break
+                self._finish(req, "error")
+            self._stop.set()
+            self._notify_drain()
+
+    def _drain_cancellations(self) -> None:
+        for slot in [s for s, st in self._active.items()
+                     if st.req.cancel_flag.is_set()]:
+            self._retire(slot, "cancelled")
+        if self._held is not None and self._held.cancel_flag.is_set():
+            req, self._held = self._held, None
+            self._finish(req, "cancelled")
+
+    def _expire_deadlines(self) -> None:
+        now = time.perf_counter()
+
+        def expired(req: _Request) -> bool:
+            return req.deadline is not None and now >= req.deadline
+
+        for slot in [s for s, st in self._active.items() if expired(st.req)]:
+            self._retire(slot, "timeout")
+        if self._held is not None and expired(self._held):
+            req, self._held = self._held, None
+            self._finish(req, "timeout")
+        for req in self.queue.remove_if(expired):
+            self._finish(req, "timeout")
+        self.metrics.set_gauges(queue_depth=len(self.queue))
+
+    def _next_admission(self) -> Optional[_Request]:
+        """The parked request first (FIFO under pool pressure), else a
+        fresh queue pop."""
+        if self._held is not None:
+            req, self._held = self._held, None
+            return req
+        req = self.queue.pop()
+        if req is not None:
+            self.metrics.set_gauges(queue_depth=len(self.queue))
+        return req
+
+    def _admit(self) -> None:
+        while self.slots.free_slots:
+            req = self._next_admission()
+            if req is None:
+                break
+            if req.cancel_flag.is_set():
+                self._finish(req, "cancelled")
+                continue
+            self._admitting = req
+            admitted = self._prefill_into_slot(req)
+            self._admitting = None
+            if not admitted:  # parked in _held: pool pressure
+                break
+        self._update_pool_gauges()
+        self.metrics.set_gauges(slots_active=self.slots.active_slots,
+                                queue_depth=len(self.queue))
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        """Host array → device tensor without stalling the stream (pinned
+        staging + non-blocking copy on the card)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _prefill(self, tokens: np.ndarray, plen: int, want_logprobs: bool):
+        """Prefill one request (batch 1, bucket-padded) into a fresh dense
+        cache ``[L, 1, kv, width, d]``: ``(last_logits [1, V], picked
+        prompt logprobs or None, k, v)``.  Rows past ``plen`` hold pad-token
+        K/V that the slot's fill masks."""
+        cfg = self.cfg
+        toks = self._tensor(tokens.astype(np.int64))
+        k, v = model_lib.init_kv_cache(cfg, 1, self.slots.width,
+                                       device=self.device)
+        if want_logprobs:
+            logits, k, v = model_lib.forward_cached(
+                cfg, self.params, toks, k, v, 0, rope=self._rope,
+                empty_cache=True)
+            lp = torch.log_softmax(logits, dim=-1)
+            picked = torch.gather(lp[:, :-1], 2, toks[:, 1:, None])[..., 0]
+            return logits[:, plen - 1], picked, k, v
+        logits, k, v = model_lib.forward_cached(
+            cfg, self.params, toks, k, v, 0, rope=self._rope,
+            empty_cache=True, logit_rows=torch.tensor([plen - 1]))
+        return logits[:, 0], None, k, v
+
+    def _prefill_into_slot(self, req: _Request) -> bool:
+        """Whole-prompt admission.  False (request parked in ``_held``,
+        nothing allocated) when the pool cannot reserve the request's
+        worst-case block count."""
+        slot = self.slots.alloc()
+        plen = len(req.prompt)
+        bucket = max(1, self.config.prefill_bucket)
+        bk = self.slots.pool.block_size
+        need = -(-(plen + req.max_new_tokens) // bk)
+        if not self.slots.pool.reserve(need):
+            self.slots.release(slot)
+            self._held = req
+            return False
+        self.slots.set_reservation(slot, need)
+        t = self.metrics.timers("serving-prefill")
+        t.start()
+        padded = min(-(-plen // bucket) * bucket, self.config.max_seq_len)
+        tokens = np.zeros((1, padded), np.int64)
+        tokens[0, :plen] = req.prompt
+        last_logits, picked, k_small, v_small = self._prefill(
+            tokens, plen, req.return_logprobs)
+        if req.return_logprobs:
+            req.logprobs.extend(picked[0, :plen - 1].cpu().tolist())
+        self.slots.insert(slot, k_small, v_small, plen)
+        # first generated token: the decode step's per-request sampling rule
+        tok, tok_lp = _sample_slots(
+            last_logits, [req.seed], [0], [req.greedy], [req.temperature],
+            [req.top_k], [req.top_p], self.cfg.vocab_size)
+        first = int(tok[0])
+        first_lp = float(tok_lp[0])
+        t.stop()
+        self.metrics.inc("admitted")
+        self.metrics.inc("prefills")
+        st = _SlotState(req, fill=plen, pending=first)
+        self._active[slot] = st
+        self._commit_token(slot, first, first_lp)
+        return True
+
+    def _step(self) -> None:
+        """One decode iteration: dispatch step N+1, then process step N's
+        tokens (computed, and streaming back, meanwhile).  Without
+        ``pipeline_decode`` the same step is dispatched and processed."""
+        it0 = time.perf_counter()
+        t = self.metrics.timers("serving-decode")
+        t.start()
+        inflight = self._dispatch_decode()
+        prev, self._inflight = self._inflight, inflight
+        wait_s = 0.0
+        if prev is not None:
+            wait_s += self._process_step_results(prev)
+        if not self.config.pipeline_decode:
+            cur, self._inflight = self._inflight, None
+            wait_s += self._process_step_results(cur)
+        t.stop()
+        host_s = max(0.0, (time.perf_counter() - it0) - wait_s)
+        self.metrics.observe_step_breakdown(host_s=host_s)
+        self.metrics.set_gauges(slots_active=self.slots.active_slots)
+
+    def _dispatch_decode(self) -> _Inflight:
+        S = self.config.max_batch_size
+        overrides = np.zeros((S,), np.int64)
+        override_mask = np.zeros((S,), bool)
+        fills = np.zeros((S,), np.int64)
+        seeds = np.zeros((S,), np.int64)
+        counters = np.zeros((S,), np.int64)
+        greedy = np.ones((S,), bool)
+        temps = np.ones((S,), np.float32)
+        top_ks = np.zeros((S,), np.int64)
+        top_ps = np.zeros((S,), np.float32)
+        for slot, st in self._active.items():
+            fills[slot] = st.fill
+            seeds[slot] = st.req.seed
+            counters[slot] = st.count
+            greedy[slot] = st.req.greedy
+            temps[slot] = st.req.temperature
+            top_ks[slot] = st.req.top_k
+            top_ps[slot] = st.req.top_p
+            overrides[slot] = st.pending
+            if st.fresh:
+                override_mask[slot] = True
+                st.fresh = False
+            # lazy paged growth: the block receiving this step's row must
+            # exist before the tables are snapshotted (reservation-backed)
+            self.slots.append_block_id(slot, st.fill)
+
+        t0 = time.perf_counter()
+        if self._last_dispatch_t is not None:
+            wall = t0 - self._last_dispatch_t
+            if wall > 0:
+                gap = (0.0 if self._inflight is not None
+                       or self._last_ready_t is None
+                       else min(wall, t0 - self._last_ready_t))
+                self.metrics.observe_step_breakdown(gap_frac=gap / wall)
+        self._last_dispatch_t = t0
+
+        if self._inflight is None:
+            # no device-resident tokens: every pending value is host-known
+            pending = self._tensor(overrides)
+        elif override_mask.any():
+            pending = torch.where(self._tensor(override_mask),
+                                  self._tensor(overrides), self._inflight.tok)
+        else:
+            pending = self._inflight.tok  # pure device-to-device handoff
+        pool = self.slots.pool
+        logits, _, _ = model_lib.forward_cached_paged(
+            self.cfg, self.params, pending[:, None], pool.k_pool,
+            pool.v_pool, self._tensor(self.slots.tables.astype(np.int64)),
+            self._tensor(fills), rope=self._rope)
+        tok, tok_lp = _sample_slots(logits[:, 0], seeds, counters, greedy,
+                                    temps, top_ks, top_ps,
+                                    self.cfg.vocab_size)
+        snapshot = dict(self._active)
+        for st in snapshot.values():
+            st.fill += 1   # the fed token's K/V row lands this step
+            st.count += 1  # one more token sampled (possibly speculative)
+        return _Inflight(tok, tok_lp, snapshot, t0)
+
+    def _process_step_results(self, step: _Inflight) -> float:
+        """Bring a dispatched step's tokens to the host and commit them.
+        Returns the wall time spent waiting on the device."""
+        t_fetch = time.perf_counter()
+        tok, tok_lp = step.fetch()
+        t_ready = time.perf_counter()
+        self._last_ready_t = t_ready
+        committed = 0
+        for slot, st in step.slots.items():
+            if self._active.get(slot) is not st:
+                # retired or re-admitted since dispatch: the token is
+                # speculative — masked, never committed
+                continue
+            committed += 1
+            st.pending = int(tok[slot])
+            st.fresh = self._inflight is None
+            self._commit_token(slot, st.pending, float(tok_lp[slot]))
+        device_s = t_ready - step.t_dispatch
+        self.metrics.observe_decode_iteration(committed, device_s)
+        self.metrics.observe_step_breakdown(device_s=device_s)
+        return t_ready - t_fetch
+
+    def _flush_inflight(self) -> None:
+        """Drain the in-flight step (pause/idle paths); a step whose slots
+        all retired is dropped without syncing."""
+        prev, self._inflight = self._inflight, None
+        if prev is None:
+            return
+        if any(self._active.get(s) is st for s, st in prev.slots.items()):
+            self._process_step_results(prev)
+
+    def _commit_token(self, slot: int, token: int, logprob: float) -> None:
+        """Append a sampled token, stream it, retire on EOS / budget."""
+        st = self._active[slot]
+        req = st.req
+        req.generated.append(token)
+        if req.return_logprobs:
+            req.logprobs.append(logprob)
+        if req.first_token_time is None:
+            req.first_token_time = time.perf_counter()
+            self.metrics.observe_ttft(req.first_token_time - req.submit_time)
+        if req.on_token is not None:
+            try:
+                req.on_token(token)
+            except Exception:  # noqa: BLE001 — a client callback must not
+                logging.getLogger(__name__).exception(  # stop the scheduler
+                    "on_token callback of %s failed", req.rid)
+        if req.use_eos_stop and token == req.eos_id:
+            self._retire(slot, "eos")
+        elif len(req.generated) >= req.max_new_tokens:
+            self._retire(slot, "length")
+
+    def _retire(self, slot: int, reason: str) -> None:
+        st = self._active.pop(slot)
+        self.slots.release(slot)
+        self._finish(st.req, reason)
+        self._update_pool_gauges()
+        self.metrics.set_gauges(slots_active=self.slots.active_slots)
+
+    def _update_pool_gauges(self) -> None:
+        s = self.slots.pool.stats()
+        self.metrics.set_gauges(blocks_free=s["blocks_free"],
+                                blocks_used=s["blocks_used"],
+                                kv_cache_util=s["kv_cache_util"])
+
+    def kv_snapshot(self) -> dict:
+        """Debug view of the paged KV state (pool stats, tables, fills)."""
+        if self.slots is None:
+            return {"pool": None, "slots": {}}
+        fills = {s: st.fill for s, st in dict(self._active).items()}
+        return self.slots.snapshot(fills)
+
+    def _finish(self, req: _Request, reason: str) -> None:
+        req.result = FinishedRequest(
+            tokens=req.prompt + req.generated,
+            prompt_len=len(req.prompt),
+            finish_reason=reason,
+            logprobs=list(req.logprobs) if req.return_logprobs else None)
+        if reason == "cancelled":
+            self.metrics.inc("cancelled")
+        elif reason == "timeout":
+            self.metrics.inc("timeouts")
+        elif reason != "error":
+            self.metrics.inc("completed")
+            self.metrics.observe_e2e(time.perf_counter() - req.submit_time)
+        req.done_event.set()
+        self._notify_drain()

@@ -1,0 +1,187 @@
+"""Serving counters, gauges and latency reservoirs (the part of
+``megatron_llm_tpu/serving/metrics.py`` that the engine and GET /metrics
+use).  Host-side and lock-guarded: the scheduler thread and HTTP threads
+write, tests and pollers read.  The Prometheus exposition, SLO tracker
+and the counters of features this slice does not port (prefix cache,
+speculation, adapters, shipping, tiered KV) come with those features.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+
+class LatencyHistogram:
+    """Bounded reservoir of recent samples with mean / percentile readout;
+    ``total_count`` / ``total`` are all-time aggregates."""
+
+    def __init__(self, max_samples: int = 4096):
+        self.max_samples = max_samples
+        self._samples: list[float] = []
+        self._count = 0
+        self._total = 0.0
+
+    def observe(self, seconds: float) -> None:
+        self._count += 1
+        self._total += seconds
+        self._samples.append(seconds)
+        if len(self._samples) > self.max_samples:
+            del self._samples[:len(self._samples) - self.max_samples]
+
+    @property
+    def total_count(self) -> int:
+        return self._count
+
+    @property
+    def total(self) -> float:
+        return self._total
+
+    def mean(self) -> float:
+        return sum(self._samples) / len(self._samples) if self._samples \
+            else 0.0
+
+    def percentile(self, p: float) -> float:
+        """p in [0, 100], nearest-rank over the retained window."""
+        if not self._samples:
+            return 0.0
+        xs = sorted(self._samples)
+        idx = min(len(xs) - 1, max(0, int(round(p / 100.0 * (len(xs) - 1)))))
+        return xs[idx]
+
+    def snapshot(self, suffix: str = "_s") -> dict:
+        out = {"count": len(self._samples), "total_count": self._count,
+               f"mean{suffix}": self.mean()}
+        for p in (50, 95, 99):
+            out[f"p{p}{suffix}"] = self.percentile(p)
+        return out
+
+
+class Timer:
+    """Accumulating wall-clock timer (``start``/``stop`` pairs)."""
+
+    def __init__(self):
+        self.elapsed_s = 0.0
+        self.count = 0
+        self._t0: Optional[float] = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self._t0 is not None:
+            self.elapsed_s += time.perf_counter() - self._t0
+            self.count += 1
+            self._t0 = None
+
+
+_COUNTERS = (
+    "submitted", "admitted", "completed", "cancelled", "timeouts",
+    "rejected_queue_full", "rejected_invalid", "rejected_draining",
+    "prefills", "decode_iterations", "decode_tokens",
+)
+
+
+class ServingMetrics:
+    """Thread-safe serving counter / gauge / histogram set."""
+
+    def __init__(self, num_slots: int = 0):
+        self._lock = threading.Lock()
+        self.counters = {name: 0 for name in _COUNTERS}
+        self.num_slots = num_slots
+        self.slots_active = 0
+        self.queue_depth = 0
+        self.max_decode_batch = 0
+        self.blocks_free = 0
+        self.blocks_used = 0
+        self.kv_cache_util = 0.0
+        self.ttft = LatencyHistogram()
+        self.per_token = LatencyHistogram()
+        self.e2e = LatencyHistogram()
+        # dispatch -> tokens on host, and Python bookkeeping, per iteration;
+        # device_idle_frac = EWMA of the share of inter-dispatch wall time
+        # the device waited on the host
+        self.device_step = LatencyHistogram()
+        self.sched_host = LatencyHistogram()
+        self.device_idle_frac: Optional[float] = None
+        self._timers: dict = {}
+
+    def inc(self, name: str, by: int = 1) -> None:
+        with self._lock:
+            self.counters[name] += by
+
+    def timers(self, name: str) -> Timer:
+        with self._lock:
+            return self._timers.setdefault(name, Timer())
+
+    def set_gauges(self, *, slots_active: Optional[int] = None,
+                   queue_depth: Optional[int] = None,
+                   blocks_free: Optional[int] = None,
+                   blocks_used: Optional[int] = None,
+                   kv_cache_util: Optional[float] = None,
+                   num_slots: Optional[int] = None) -> None:
+        with self._lock:
+            for name, value in (("slots_active", slots_active),
+                                ("queue_depth", queue_depth),
+                                ("blocks_free", blocks_free),
+                                ("blocks_used", blocks_used),
+                                ("kv_cache_util", kv_cache_util),
+                                ("num_slots", num_slots)):
+                if value is not None:
+                    setattr(self, name, value)
+
+    def observe_decode_iteration(self, batch: int, seconds: float) -> None:
+        with self._lock:
+            self.counters["decode_iterations"] += 1
+            self.counters["decode_tokens"] += batch
+            self.max_decode_batch = max(self.max_decode_batch, batch)
+            for _ in range(batch):
+                self.per_token.observe(seconds)
+
+    def observe_step_breakdown(self, *, device_s: Optional[float] = None,
+                               host_s: Optional[float] = None,
+                               gap_frac: Optional[float] = None) -> None:
+        with self._lock:
+            if device_s is not None:
+                self.device_step.observe(device_s)
+            if host_s is not None:
+                self.sched_host.observe(host_s)
+            if gap_frac is not None:
+                gap_frac = min(1.0, max(0.0, gap_frac))
+                self.device_idle_frac = (
+                    gap_frac if self.device_idle_frac is None
+                    else 0.9 * self.device_idle_frac + 0.1 * gap_frac)
+
+    def observe_ttft(self, seconds: float) -> None:
+        with self._lock:
+            self.ttft.observe(seconds)
+
+    def observe_e2e(self, seconds: float) -> None:
+        with self._lock:
+            self.e2e.observe(seconds)
+
+    def snapshot(self) -> dict:
+        """Point-in-time dict of every counter, gauge and histogram."""
+        with self._lock:
+            out = dict(self.counters)
+            out.update({
+                "running": self.slots_active,
+                "queued": self.queue_depth,
+                "slots_total": self.num_slots,
+                "slot_occupancy": (self.slots_active / self.num_slots
+                                   if self.num_slots else 0.0),
+                "max_decode_batch": self.max_decode_batch,
+                "ttft": self.ttft.snapshot(),
+                "per_token_latency": self.per_token.snapshot(),
+                "e2e_latency": self.e2e.snapshot(),
+                "device_step_time": self.device_step.snapshot(),
+                "sched_host_time": self.sched_host.snapshot(),
+                "device_idle_frac": self.device_idle_frac or 0.0,
+                "blocks_free": self.blocks_free,
+                "blocks_used": self.blocks_used,
+                "kv_cache_util": self.kv_cache_util,
+                "timers_s": {name: t.elapsed_s
+                             for name, t in sorted(self._timers.items())},
+            })
+        return out

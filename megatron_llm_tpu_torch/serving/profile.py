@@ -1,0 +1,175 @@
+"""Where a served request's device time goes, on one CUDA card.
+
+    python3 -m megatron_llm_tpu_torch.serving.profile [--layers N]
+
+Serves Llama-2-7B widths (bf16, random weights from a seed, the flash /
+RMSNorm kernels, 4 slots, 64-token KV blocks: the configuration
+``chip_smoke.py`` serves) through ``ServingEngine`` and traces two windows
+with ``torch.profiler`` (CUDA activity only):
+
+1. **prefill**: the admission of one 1024-token prompt;
+2. **decode**: steady batched decode of 4 requests (prompts of 512-1024
+   tokens), every slot busy.
+
+For each window it prints the host-clock window, the device's busy time
+(the union of its kernel and copy intervals) and idle share, and the
+device time by kernel family (the port's three kernels, cuBLAS matmuls,
+copies, the largest other kernels), per prefill or per decode step.  The
+profiler slows the host's launches, so where the host bounds the step
+the traced window, and with it the idle share, is longer than an
+untraced run's; the device times are not.  The traces go to
+``build/profile/`` (not kept by git).  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..config import llama2_config
+from ..models import model as model_lib
+from .engine import EngineConfig, ServingEngine
+
+TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_FAMILIES = (("flash_attention_fwd", ("flash_fwd_kernel",)),
+             ("flash_decode", ("flash_decode_kernel",)),
+             ("rmsnorm_fwd", ("rms_fwd_kernel",)),
+             ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet")))
+
+
+def _family(name: str, cat: str) -> str:
+    if cat != "kernel":
+        return cat
+    low = name.lower()
+    for family, keys in _FAMILIES:
+        if any(k in low for k in keys):
+            return family
+    return "other"
+
+
+def device_summary(trace: Path, window_s: float, units: int) -> dict:
+    """Busy time, idle share and time by family from a chrome trace."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
+    if not events:
+        raise RuntimeError("the profiler recorded no device activity")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy_us, end = 0.0, -np.inf
+    for a, b in spans:  # union of intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    families, others = {}, {}
+    for e in events:
+        fam = _family(e["name"], e["cat"])
+        families[fam] = families.get(fam, 0.0) + e["dur"]
+        if fam == "other":
+            others[e["name"]] = others.get(e["name"], 0.0) + e["dur"]
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+    per = 1e3 * units  # us -> ms per unit
+    return {
+        "window_ms_per_unit": window_s * 1e3 / units,
+        "device_busy_ms_per_unit": busy_us / per,
+        "device_idle_share": max(0.0, 1.0 - busy_us / (window_s * 1e6)),
+        "ms_per_unit_by_family": {k: v / per for k, v in
+                                  sorted(families.items(),
+                                         key=lambda kv: -kv[1])},
+        "largest_other_kernels_ms_per_unit": {k[:90]: v / per
+                                              for k, v in top},
+    }
+
+
+def _traced(name: str, run):
+    """Run ``run()`` under the profiler → (trace path, host seconds,
+    whatever ``run`` returned)."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    path = TRACE_DIR / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    return path, window_s, out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=32,
+                    help="depth (Llama-2-7B has 32)")
+    ap.add_argument("--decode-steps", type=int, default=48)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    cfg = llama2_config("7b", params_dtype="bfloat16", attention_impl="flash",
+                        norm_impl="pallas", fused_decode=False,
+                        num_layers=args.layers)
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
+        kv_block_size=64, prefix_cache_blocks=0, trace=False), device=dev)
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    try:
+        # warm-up: Triton compile, cuBLAS handles, pinned staging buffers
+        for h in engine.submit_many([dict(prompt=prompt(n), max_new_tokens=8,
+                                          use_eos_stop=False)
+                                     for n in (64, 1024)]):
+            h.result(600)
+
+        pre_path, pre_s, _ = _traced("prefill", lambda: engine.submit(
+            prompt(1024), 1, use_eos_stop=False).result(600))
+        report = {"prefill_1024": device_summary(pre_path, pre_s, 1)}
+
+        new = args.decode_steps + 40
+        snap0 = engine.metrics.snapshot()
+        handles = engine.submit_many([dict(prompt=prompt(n), max_new_tokens=new,
+                                           use_eos_stop=False)
+                                      for n in (512, 640, 768, 1024)])
+        while True:  # all four admitted, decode under way
+            snap = engine.metrics.snapshot()
+            if snap["admitted"] >= snap0["admitted"] + 4 and \
+                    snap["decode_iterations"] >= snap0["decode_iterations"] + 4:
+                break
+            time.sleep(0.005)
+
+        def decode_window():
+            it0 = engine.metrics.snapshot()["decode_iterations"]
+            while engine.metrics.snapshot()["decode_iterations"] \
+                    < it0 + args.decode_steps:
+                time.sleep(0.001)
+            return engine.metrics.snapshot()["decode_iterations"] - it0
+
+        dec_path, dec_s, steps = _traced("decode", decode_window)
+        for h in handles:
+            h.result(600)
+        report["decode_step_batch4"] = device_summary(dec_path, dec_s, steps)
+    finally:
+        engine.shutdown()
+    print(f"card: {smi}; llama2-7b widths, {args.layers} layers, bf16; "
+          f"traces in {TRACE_DIR}")
+    print(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

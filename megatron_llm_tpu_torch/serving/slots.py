@@ -1,0 +1,139 @@
+"""Paged slot management: per-slot block tables over a shared block pool
+(mirror of ``megatron_llm_tpu/serving/slots.py``).
+
+A slot is a row of the decode batch that owns an int32 block table of
+``T = ceil(max_seq_len / block)`` entries; unused entries point at the
+trash block, so gathers and scatters always run at fixed arity.
+``insert`` publishes an admission prefill's dense batch-1 cache into
+freshly allocated pool blocks in one scatter.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..models import model as model_lib
+from .block_pool import BlockPool
+
+
+class SlotAllocator:
+    """Slot occupancy and per-slot block tables over a ``BlockPool``.
+    Only the scheduler thread touches it."""
+
+    def __init__(self, cfg, num_slots: int, max_seq_len: int,
+                 pool: BlockPool):
+        if num_slots < 1 or max_seq_len < 2:
+            raise ValueError("need num_slots >= 1 and max_seq_len >= 2")
+        self.cfg = cfg
+        self.num_slots = num_slots
+        self.max_seq_len = max_seq_len
+        self.pool = pool
+        bk = pool.block_size
+        self.table_blocks = -(-max_seq_len // bk)
+        self.width = self.table_blocks * bk
+        self.tables = np.zeros((num_slots, self.table_blocks), dtype=np.int32)
+        # this slot's share of the pool's outstanding reservation
+        self.reserved = np.zeros(num_slots, dtype=np.int64)
+        self._free = list(range(num_slots - 1, -1, -1))  # pop() -> slot 0
+
+    # -- occupancy ---------------------------------------------------------
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_slots(self) -> int:
+        return self.num_slots - len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        """Claim a free slot index, or None when all are occupied."""
+        return self._free.pop() if self._free else None
+
+    def release(self, slot: int) -> None:
+        """Return a slot: drop one ref on every table entry, hand back any
+        unused reservation, reset the row."""
+        if not 0 <= slot < self.num_slots or slot in self._free:
+            raise RuntimeError(f"release of a free or unknown slot {slot}")
+        for bid in self.tables[slot]:
+            self.pool.decref(int(bid))
+        self.tables[slot] = BlockPool.TRASH
+        if self.reserved[slot]:
+            self.pool.unreserve(int(self.reserved[slot]))
+            self.reserved[slot] = 0
+        self._free.append(slot)
+
+    def set_reservation(self, slot: int, n: int) -> None:
+        """Record that ``n`` of the pool's reserved blocks belong to this
+        slot (the engine already called ``pool.reserve(n)``)."""
+        if self.reserved[slot]:
+            raise RuntimeError(f"slot {slot} already holds a reservation")
+        self.reserved[slot] = n
+
+    # -- cache views ---------------------------------------------------------
+    @property
+    def k_pool(self):
+        return self.pool.k_pool
+
+    @property
+    def v_pool(self):
+        return self.pool.v_pool
+
+    # -- admission -----------------------------------------------------------
+    def insert(self, slot: int, k_small, v_small, n_tokens: int) -> None:
+        """Publish a dense batch-1 cache ``[L, 1, kv, width, d]`` into the
+        slot's table: the blocks covering ``n_tokens`` are allocated from
+        the slot's reservation and written in one scatter."""
+        pool = self.pool
+        covered = -(-n_tokens // pool.block_size)
+        if covered > self.table_blocks:
+            raise ValueError("insert beyond the slot's table")
+        table = np.full(self.table_blocks, BlockPool.TRASH, dtype=np.int32)
+        for i in range(covered):
+            table[i] = pool.alloc_reserved()
+            self.reserved[slot] -= 1
+        self.tables[slot] = table
+        model_lib.cache_scatter_blocks(pool.k_pool, k_small, table)
+        model_lib.cache_scatter_blocks(pool.v_pool, v_small, table)
+
+    # -- decode-time lazy growth -----------------------------------------------
+    def append_block_id(self, slot: int, fill: int) -> int:
+        """The block that will receive the row at position ``fill``,
+        allocated lazily from the slot's reservation.  (Every block has one
+        owner in this slice: sharing comes with the prefix cache.)"""
+        pool = self.pool
+        i = fill // pool.block_size
+        bid = int(self.tables[slot][i])
+        if bid == BlockPool.TRASH:
+            bid = pool.alloc_reserved()
+            self.reserved[slot] -= 1
+            self.tables[slot][i] = bid
+        if self.reserved[slot] < 0:
+            raise RuntimeError(f"slot {slot} allocated past its reservation")
+        return bid
+
+    # -- introspection -----------------------------------------------------------
+    def snapshot(self, fills: Optional[dict] = None) -> dict:
+        """Host-side debug view: pool stats, tables, fragmentation."""
+        pool = self.pool
+        bk = pool.block_size
+        slots = {}
+        live_tokens = 0
+        free = set(self._free)
+        for s in range(self.num_slots):
+            if s in free:
+                continue
+            row = [int(b) for b in self.tables[s]]
+            fill = int(fills.get(s, 0)) if fills else 0
+            live_tokens += fill
+            slots[str(s)] = {"table": row, "fill": fill,
+                             "blocks": sum(1 for b in row
+                                           if b != BlockPool.TRASH)}
+        used_tokens = pool.used_blocks * bk
+        frag = (1.0 - live_tokens / used_tokens) if used_tokens else 0.0
+        return {"pool": pool.stats(),
+                "ref_counts": {str(k): v
+                               for k, v in pool.ref_counts().items()},
+                "slots": slots, "table_blocks": self.table_blocks,
+                "block_size": bk, "fragmentation": frag}

@@ -1,0 +1,157 @@
+"""The hand-written kernels on the card, each against its plain version.
+
+Every test here is marked ``cuda`` and skips without a CUDA device.  The
+file imports no JAX (the machine with the card has none), so it runs there
+on its own, without the suite's JAX conftest::
+
+    pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from megatron_llm_tpu_torch.config import tiny_config
+from megatron_llm_tpu_torch.kernels import flash_attention as tfa
+from megatron_llm_tpu_torch.kernels import flash_decode as tfd
+from megatron_llm_tpu_torch.kernels import launch_counters
+from megatron_llm_tpu_torch.kernels import rmsnorm as trn
+from megatron_llm_tpu_torch.models import model as tm
+
+torch.set_num_threads(1)
+
+# bf16 outputs of fp32 math: the kernel and the plain version each round
+# the result to bf16 once (2^-8 relative), and their fp32 sums run in
+# another order; 2^-6 relative allows two rounding steps
+CARD_TOL = dict(rtol=2 ** -6, atol=2e-3)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _card(shape, gen, dev, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hk,sq,sk,segs,dtype", [
+    (8, 8, 200, 200, False, torch.bfloat16),
+    (8, 2, 77, 300, False, torch.bfloat16),     # causal offset, GQA, ragged
+    (4, 4, 256, 256, True, torch.bfloat16),     # segment ids
+    (4, 1, 130, 130, False, torch.float32)])    # MQA, fp32
+def test_flash_attention_matches_plain(cuda_device, hq, hk, sq, sk, segs,
+                                       dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = _card((2, sq, hq, 128), gen, cuda_device, dtype)
+    k = _card((2, sk, hk, 128), gen, cuda_device, dtype)
+    v = _card((2, sk, hk, 128), gen, cuda_device, dtype)
+    seg = None
+    if segs:
+        seg = (torch.arange(sq, device=cuda_device) // 50).repeat(2, 1)
+        seg = seg.to(torch.int32).contiguous()
+    before = tfa.flash_attention_fwd.launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=True,
+                                               segment_ids=seg)
+    # fp32 inputs: only the order of fp32 sums differs
+    tol = CARD_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(o.float(), o_ref.float(), **tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,kv,d", [(32, 32, 128), (32, 8, 128), (8, 1, 128),
+                                     (4, 2, 64)])
+def test_flash_decode_matches_plain(cuda_device, nq, kv, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = _card((3, nq, d), gen, cuda_device)
+    kc = _card((3, kv, 512, d), gen, cuda_device)
+    vc = _card((3, kv, 512, d), gen, cuda_device)
+    lens = torch.tensor([0, 129, 512], dtype=torch.int32, device=cuda_device)
+    before = tfd.flash_decode.launches
+    out = tfd.flash_decode(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode.launches == before + 1
+    torch.testing.assert_close(out.float(),
+                               tfd.flash_decode_plain(q, kc, vc, lens).float(),
+                               **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h", [(37, 4096), (1, 64), (300, 5120)])
+def test_rmsnorm_matches_plain(cuda_device, rows, h):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = _card((rows, h), gen, cuda_device)
+    w = _card((h,), gen, cuda_device)
+    y, rstd = trn.rmsnorm_fwd(x, w, 1e-5)
+    y_ref, rstd_ref = trn.rmsnorm_plain(x, w, 1e-5)
+    torch.testing.assert_close(y.float(), y_ref.float(), **CARD_TOL)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = _card((1, 16, 2, 96), gen, cuda_device)     # head dim 96
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q, q, q)
+    x = _card((4, 64, 2, 128), gen, cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(x, x, x)             # not contiguous
+    with pytest.raises(TypeError):
+        trn.rmsnorm_fwd(_card((4, 64), gen, cuda_device, torch.float64),
+                        _card((64,), gen, cuda_device))
+    qd = _card((2, 4, 128), gen, cuda_device)
+    kd = _card((2, 4, 64, 128), gen, cuda_device, torch.float32)
+    with pytest.raises(ValueError):
+        tfd.flash_decode(qd, kd, kd, 3)              # mixed dtypes
+
+
+@pytest.mark.cuda
+def test_model_path_on_the_card_matches_cpu(cuda_device):
+    """A prefill and paged decode steps of a small fp32 model (head dim
+    128) through the three kernels on the card, against the same model's
+    plain path on the CPU."""
+    cfg = tiny_config(hidden_size=256, num_attention_heads=2, num_kv_heads=1,
+                      ffn_hidden_size=512, attention_impl="flash",
+                      norm_impl="pallas", fused_decode=False)
+    params = tm.init_params(cfg, seed=0, device="cpu")
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    toks = torch.randint(0, cfg.vocab_size, (1, 24),
+                         generator=torch.Generator().manual_seed(0))
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        p = to(params, dev)
+        k, v = tm.init_kv_cache(cfg, 1, 32, device=dev)
+        pre, k, v = tm.forward_cached(cfg, p, toks[:, :20].to(dev), k, v, 0,
+                                      empty_cache=True)
+        k_pool, v_pool = tm.init_kv_pool(cfg, 5, 8, device=dev)
+        bids = torch.arange(1, 5, device=dev)
+        tm.cache_scatter_blocks(k_pool, k, bids)
+        tm.cache_scatter_blocks(v_pool, v, bids)
+        steps = [pre[:, -1]]
+        for i in range(4):
+            lg, _, _ = tm.forward_cached_paged(
+                cfg, p, toks[:, 20 + i:21 + i].to(dev), k_pool, v_pool,
+                bids[None], torch.tensor([20 + i], device=dev))
+            steps.append(lg[:, 0])
+        outs[dev.type] = torch.cat(steps).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    assert launches == {"flash_attention_fwd": cfg.num_layers,
+                        "flash_decode": 4 * cfg.num_layers,
+                        "rmsnorm_fwd": 5 * (2 * cfg.num_layers + 1)}, launches
