@@ -11,24 +11,34 @@ it goes wrong:
    ``nvcc`` per source, all started together (the Triton kernel compiles
    at its first launch);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
-   the card, in bf16, at the serving path's shapes, with its time (CUDA
-   events), its bound on an H100 and one PyTorch library call for the same
-   function as a yardstick (the port never calls those);
+   the card, in bf16, at the serving and training paths' shapes, with its
+   time (CUDA events), its bound on an H100 and one PyTorch library call
+   for the same function as a yardstick (the port never calls those);
 4. reference: Llama-2-7B widths cut to 2 layers, bf16, prefill then paged
    decode steps through the kernels, against the plain fp32 full forward;
 5. serve: Llama-2-7B at full width and depth, random weights from a seed,
    behind ``MegatronServer``; 8 concurrent greedy PUT /api requests of
-   64-1024 prompt tokens over 4 slots, one repeated; every kernel's launch
-   counter is reset just before the traffic and must have risen after it.
+   64-1024 prompt tokens over 4 slots, one repeated;
+6. train-reference: Llama-2-7B widths cut to 2 layers, seq 1024: the loss
+   and every gradient of the bf16 kernel path against the fp32 plain path
+   from the same weights;
+7. train: Llama-2-7B widths cut to 8 layers, bf16, seq 4096, global batch
+   2 (two microbatches), AdamW, 6 iterations on mock data through
+   ``training.driver.pretrain``, the path ``finetune.main`` takes.
 
-The line before the last is the ``{"kernels": [...]}`` JSON object; the
-last line is ``{"ok": true, "device": {...}}``.
+Phases 5 and 7 are the two main paths: every kernel's launch counter is
+reset just before each and read just after, and each kernel of a path
+must have been launched in it.  The line before the last is the
+``{"kernels": [...]}`` JSON object (``launches`` sums the two paths'
+counts); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -66,6 +76,23 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def event_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
+    """Mean device milliseconds of ``fn`` between CUDA events, without a
+    graph (for calls that run autograd, whose launches take far less time
+    than their kernels here)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -244,6 +271,156 @@ def check_rmsnorm(torch, F, rn, dev, gen):
     return head
 
 
+def _segments(torch, b, s, gen, dev):
+    """4 packed sequences per row at random boundaries, int32 [b, s]."""
+    cuts = torch.sort(torch.randint(1, s, (b, 3), generator=gen,
+                                    device=dev), dim=1).values
+    pos = torch.arange(s, device=dev)
+    return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(
+        torch.int32).contiguous()
+
+
+def _visible_pairs(torch, b, sq, sk, seg, dev):
+    i = torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(sk, device=dev)[None, :]
+    keep = (j <= i + (sk - sq))[None]
+    if seg is not None:
+        keep = keep & (seg[:, :, None] == seg[:, None, :])
+    return float(keep.expand(b, sq, sk).sum())
+
+
+def check_flash_attention_bwd(torch, F, fa, dev, gen):
+    """K2 (dQ) and K3 (dK, dV) at the training shape of Llama-2-7B (b1
+    s4096 h32 d128 causal), plus GQA and segment ids, against
+    ``flash_attention_bwd_plain`` on K1's own O and lse."""
+    cases = [("train b1 s4096 h32 causal", 1, 4096, 32, 32, False),
+             ("gqa b1 s4096 hq32 hk8 causal", 1, 4096, 32, 8, False),
+             ("segments b2 s2048 h32", 2, 2048, 32, 32, True)]
+    heads = {}
+    for name, b, s, hq, hk, segs in cases:
+        d = 128
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+
+        q, k, v, do = (rnd(b, s, hq, d), rnd(b, s, hk, d), rnd(b, s, hk, d),
+                       rnd(b, s, hq, d))
+        seg = _segments(torch, b, s, gen, dev) if segs else None
+        kw = dict(causal=True, segment_ids=seg)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        errs = [close_enough(torch, g, w, BF16_ATOL, BF16_RTOL)
+                for g, w in zip((dq, dk, dv), ref)]
+        if not all(ok for _, ok in errs):
+            raise RuntimeError(
+                f"flash_attention backward {name}: dq/dk/dv err "
+                f"{[e for e, _ in errs]} beyond tolerance")
+        del ref
+        ms_dq = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, **kw), iters=5)
+        ms_dkv = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, **kw), iters=5)
+        plain_ms = event_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, **kw), iters=2, warmup=1)
+        # SDPA forward + backward minus its forward: its backward alone
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        if seg is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=hq != hk)
+        else:
+            pos = torch.arange(s, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])[None]
+                    & (seg[:, :, None] == seg[:, None, :]))[:, None]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        fwd_ms = event_ms(torch, sdpa)
+        with torch.enable_grad():
+            library_ms = event_ms(torch, lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), dot)) - fwd_ms
+        del qt, kt, vt, dot
+        pairs = _visible_pairs(torch, b, s, s, seg, dev) * hq
+        # inputs q, k, v, dO, lse, delta (and seg) read once; outputs once
+        common = ((q.numel() + k.numel() + v.numel() + do.numel()) * 2
+                  + (lse.numel() + delta.numel()) * 4
+                  + (seg.numel() * 4 if seg is not None else 0))
+        b_dq = bound_ms(common + dq.numel() * 2, 6.0 * d * pairs)
+        b_dkv = bound_ms(common + (dk.numel() + dv.numel()) * 2,
+                         8.0 * d * pairs)
+        log(f"kernel flash_attention_bwd_dq [{name}]: max_abs_err "
+            f"{errs[0][0]:.3e} ms {ms_dq:.4f} bound_ms {b_dq[0]:.4f} "
+            f"({b_dq[1]})")
+        log(f"kernel flash_attention_bwd_dkv [{name}]: max_abs_err dk "
+            f"{errs[1][0]:.3e} dv {errs[2][0]:.3e} ms {ms_dkv:.4f} bound_ms "
+            f"{b_dkv[0]:.4f} ({b_dkv[1]})")
+        log(f"  (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}) plain backward "
+            f"(dq, dk, dv together) ms {plain_ms:.4f}; SDPA backward ms "
+            f"{library_ms:.4f} (forward {fwd_ms:.4f})")
+        if not heads:
+            heads["flash_attention_bwd_dq"] = dict(
+                max_abs_err=errs[0][0], ms=ms_dq, plain_ms=plain_ms,
+                bound_ms=b_dq[0], bound_by=b_dq[1], library_ms=library_ms)
+            heads["flash_attention_bwd_dkv"] = dict(
+                max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_dkv,
+                plain_ms=plain_ms, bound_ms=b_dkv[0], bound_by=b_dkv[1],
+                library_ms=library_ms)
+        del q, k, v, do, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    return heads
+
+
+def check_rmsnorm_bwd(torch, F, rn, dev, gen):
+    """K5 at the training shape: 4096 rows x 4096, bf16."""
+    rows, h = 4096, 4096
+    x = torch.randn(rows, h, generator=gen, device=dev, dtype=torch.bfloat16)
+    dy = torch.randn(rows, h, generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    _, rstd = rn.rmsnorm_fwd(x, w, 1e-5)
+    dx, dw = rn.rmsnorm_bwd(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    dx_ref, dw_ref = rn.rmsnorm_bwd_plain(x, w, rstd, dy)
+    err, ok = close_enough(torch, dx, dx_ref, BF16_ATOL, BF16_RTOL)
+    err_w, ok_w = close_enough(torch, dw, dw_ref, BF16_ATOL, BF16_RTOL)
+    if not (ok and ok_w):
+        raise RuntimeError(f"rmsnorm backward: dx err {err}, dw err {err_w} "
+                           "beyond tolerance")
+    ms = cuda_ms(torch, lambda: rn.rmsnorm_bwd(x, w, rstd, dy))
+    dx_ms = cuda_ms(torch, lambda: rn.launch_bwd_dx(x, w, rstd, dy))
+    plain_ms = cuda_ms(torch, lambda: rn.rmsnorm_bwd_plain(x, w, rstd, dy))
+    xr = x.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+
+    def lib():
+        return torch.autograd.grad(F.rms_norm(xr, (h,), wr, 1e-5), (xr, wr),
+                                   dy)
+
+    with torch.no_grad():
+        fwd_ms = event_ms(torch, lambda: F.rms_norm(xr, (h,), wr, 1e-5),
+                          iters=20)
+    library_ms = event_ms(torch, lib, iters=20) - fwd_ms
+    # x, dy read and dx written once; w and rstd read once; dw written
+    nbytes = 3 * x.numel() * 2 + 2 * h * 2 + rows * 4
+    bms, by = bound_ms(nbytes, 6.0 * rows * h)
+    log(f"kernel rmsnorm_bwd [rows {rows} h {h}]: max_abs_err dx {err:.3e} "
+        f"dw {err_w:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}) ms "
+        f"{ms:.4f} (dx kernel {dx_ms:.4f} + dw reduction) plain_ms "
+        f"{plain_ms:.4f} "
+        f"rms_norm_backward_ms {library_ms:.4f} bound_ms {bms:.4f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the kernel path against the plain fp32 forward, 7B widths
 # ---------------------------------------------------------------------------
@@ -394,14 +571,152 @@ def serve(torch, cfg, dev, counters, smi,
             f"{m1['max_decode_batch']}; peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; host "
             f"clock; card {smi}")
-        log("kernels " + json.dumps(launches))
-        missing = [n for n, c in launches.items() if c < 1]
+        log("serve kernels " + json.dumps(launches))
+        missing = [n for n in ("flash_attention_fwd", "flash_decode",
+                               "rmsnorm_fwd") if launches[n] < 1]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: "
                                f"{missing}")
         return launches
     finally:
         server.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the training kernel path against the fp32 plain path, 7B widths
+# ---------------------------------------------------------------------------
+
+# bf16 weights and activations against fp32 from the same weights: each
+# bf16 rounding is 2^-9 relative, and two layers' forward and backward
+# compound a few hundred of them; the limits leave room for that and
+# catch a wrong gradient (an error of order 1)
+TRAIN_LOSS_TOL = 0.02
+TRAIN_GRAD_RTOL = 0.05
+
+
+def check_train_reference(torch, M, dev, seq=1024):
+    from megatron_llm_tpu_torch.config import RuntimeConfig, llama2_config
+    from megatron_llm_tpu_torch.models.transformer import rope_tables
+    from megatron_llm_tpu_torch.training.step import _accumulate_grads
+    from megatron_llm_tpu_torch.utils.tree import (
+        tree_leaves_with_path,
+        tree_map,
+    )
+
+    cfg = llama2_config("7b", num_layers=2, params_dtype="bfloat16",
+                        attention_impl="flash", norm_impl="pallas",
+                        recompute="selective")
+    ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
+                                  attention_impl="dot", norm_impl="xla",
+                                  recompute="none")
+    params = M.init_params(cfg, seed=3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 1, seq + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "loss_mask": torch.ones(1, 1, seq, device=dev)}
+    out = {}
+    for c, p in ((cfg, params),
+                 (ref_cfg, tree_map(lambda t: t.float(), params))):
+        grads, loss = _accumulate_grads(RuntimeConfig(model=c), p, batch,
+                                        rope_tables(c, device=dev), 1.0)
+        out[c.params_dtype] = (float(loss), tree_leaves_with_path(grads))
+        del grads
+    loss, grads = out["bfloat16"]
+    ref_loss, ref_grads = out["float32"]
+    worst = ("", 0.0)
+    for (path, g), (_, r) in zip(grads, ref_grads):
+        err = float(torch.linalg.vector_norm(g - r)
+                    / torch.linalg.vector_norm(r))
+        if not math.isfinite(err) or err > worst[1]:
+            worst = (".".join(path), err)
+    d_loss = abs(loss - ref_loss)
+    log(f"train-reference [llama2-7b widths, 2 layers, seq {seq}, bf16 "
+        f"kernel path vs fp32 plain path]: loss {loss:.5f} vs {ref_loss:.5f}"
+        f" |d| {d_loss:.5f} (tol {TRAIN_LOSS_TOL}); worst grad rel. "
+        f"Frobenius err {worst[1]:.4f} at {worst[0]} (tol "
+        f"{TRAIN_GRAD_RTOL}, {len(grads)} leaves)")
+    if not (d_loss <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_RTOL):
+        raise RuntimeError("training kernel path disagrees with the fp32 "
+                           "plain path")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: train Llama-2-7B widths (8 layers) through pretrain
+# ---------------------------------------------------------------------------
+
+
+def train(torch, dev, counters, smi, iters=6, seq=4096, layers=8):
+    from megatron_llm_tpu_torch.config import (
+        OptimizerConfig,
+        RuntimeConfig,
+        TrainConfig,
+        llama2_config,
+    )
+    from megatron_llm_tpu_torch.finetune import _MockDataset
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.training.driver import pretrain
+
+    cfg = RuntimeConfig(
+        model=llama2_config("7b", num_layers=layers,
+                            params_dtype="bfloat16", attention_impl="flash",
+                            norm_impl="pallas", recompute="selective"),
+        optimizer=OptimizerConfig(lr_warmup_iters=2),
+        train=TrainConfig(train_iters=iters, micro_batch_size=1,
+                          global_batch_size=2, seq_length=seq,
+                          log_interval=1)).validate()
+    params = M.init_params(cfg.model, seed=cfg.train.seed, device=dev)
+    # bf16 matmul weights (|w| ~ 0.02, bf16 spacing ~1e-4) move visibly
+    # under lr 3e-4; norm scales at 1.0 (spacing 2^-7) move in the fp32
+    # master first
+    watch = {"wq": params["layers"]["attn"]["wq"][0, :4],
+             "lm_head": params["lm_head"][:4]}
+    before = {k: v.clone() for k, v in watch.items()}
+    n_params = M.num_params(params)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    pretrain(cfg, _MockDataset(cfg.model.vocab_size, seq,
+                               seed=cfg.train.seed),
+             params=params, device=dev,
+             on_step=lambda it, m, sec: steps.append(
+                 (float(m["loss"]), float(m["grad_norm"]), int(m["skipped"]),
+                  sec)))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log("train kernels " + json.dumps(launches))
+    if len(steps) != iters:
+        raise RuntimeError(f"train: {len(steps)} steps, want {iters}")
+    for i, (loss, norm, skipped, _) in enumerate(steps):
+        if not (math.isfinite(loss) and math.isfinite(norm)) or skipped:
+            raise RuntimeError(f"train step {i + 1}: loss {loss}, grad norm "
+                               f"{norm}, skipped {skipped}")
+    unchanged = [k for k, v in watch.items() if torch.equal(v, before[k])]
+    if unchanged:
+        raise RuntimeError(f"train: params unchanged after {iters} steps: "
+                           f"{unchanged}")
+    missing = [n for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "rmsnorm_fwd",
+                           "rmsnorm_bwd") if launches[n] < 1]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the training path: "
+                           f"{missing}")
+    # steady steps: the first one compiles the Triton kernels
+    step_s = sorted(sec for *_, sec in steps[1:])[(iters - 1) // 2]
+    tokens = cfg.train.global_batch_size * seq
+    tflops = tokens / step_s * 3.0 * M.flops_per_token(cfg.model, seq) / 1e12
+    log(f"train: llama2-7b widths, {layers} layers ({n_params / 1e9:.3f}e9 "
+        f"params, bf16, fp32 master + AdamW), seq {seq}, global batch 2 "
+        f"(2 microbatches), {iters} steps; losses "
+        f"{[round(x[0], 4) for x in steps]}, grad norms "
+        f"{[round(x[1], 3) for x in steps]}; step (median of steps 2-{iters}) "
+        f"{step_s * 1e3:.1f} ms, first step {steps[0][3] * 1e3:.1f} ms; "
+        f"{tokens / step_s:.1f} tokens/s; model {tflops:.1f} TFLOP/s, MFU "
+        f"{tflops / (PEAK_BF16_OPS_S / 1e12):.4f} of 989 TFLOP/s; peak "
+        f"memory {peak / 2**30:.1f} GiB; host clock; card {smi}")
+    return launches
 
 
 def main() -> int:
@@ -446,29 +761,49 @@ def main() -> int:
             "flash_decode": check_flash_decode(torch, F, fd, dev, gen),
             "rmsnorm_fwd": check_rmsnorm(torch, F, rn, dev, gen),
         }
+        rows.update(check_flash_attention_bwd(torch, F, fa, dev, gen))
+    rows["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, F, rn, dev, gen)
+    torch.cuda.empty_cache()
     cfg = llama2_config("7b", params_dtype="bfloat16", attention_impl="flash",
                         norm_impl="pallas", fused_decode=False)
     check_reference(torch, M, cfg, dev)
     torch.cuda.empty_cache()
 
     counters = launch_counters()
-    launches = serve(torch, cfg, dev, counters, smi)
+    served = serve(torch, cfg, dev, counters, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    check_train_reference(torch, M, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train(torch, dev, counters, smi)
 
     meta = {
         "flash_attention_fwd": (
             "cuda", "megatron_llm_tpu_torch/csrc/flash_attention.cu",
             "megatron_llm_tpu/kernels/flash_attention.py:91"),
+        "flash_attention_bwd_dq": (
+            "cuda", "megatron_llm_tpu_torch/csrc/flash_attention_bwd.cu",
+            "megatron_llm_tpu/kernels/flash_attention.py:225"),
+        "flash_attention_bwd_dkv": (
+            "cuda", "megatron_llm_tpu_torch/csrc/flash_attention_bwd.cu",
+            "megatron_llm_tpu/kernels/flash_attention.py:268"),
         "flash_decode": (
             "cuda", "megatron_llm_tpu_torch/csrc/flash_decode.cu",
             "megatron_llm_tpu/kernels/flash_decode.py:45"),
         "rmsnorm_fwd": (
             "triton", "megatron_llm_tpu_torch/kernels/rmsnorm_triton.py",
             "megatron_llm_tpu/kernels/rmsnorm.py:56"),
+        "rmsnorm_bwd": (
+            "triton", "megatron_llm_tpu_torch/kernels/rmsnorm_triton.py",
+            "megatron_llm_tpu/kernels/rmsnorm.py:87"),
     }
     kernels = []
     for kname, (route, source, replaces) in meta.items():
         kernels.append(dict(name=kname, route=route, source=source,
-                            replaces=replaces, launches=launches[kname],
+                            replaces=replaces,
+                            launches=served[kname] + trained[kname],
                             **rows[kname]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,17 @@ tested against; this package imports ``torch`` and never ``jax`` or
 anything of ``megatron_llm_tpu``.  The module layout and names mirror the
 JAX package's so each counterpart is easy to find.
 
-The first slice is the serving path: ``generation.server.MegatronServer``
-→ ``serving.engine.ServingEngine`` → ``models.model`` →
+Two paths are ported.  Serving: ``generation.server.MegatronServer`` →
+``serving.engine.ServingEngine`` → ``models.model`` →
 ``models.transformer`` → ``ops`` → the hand-written kernels in
-``kernels/`` (flash-attention forward and flash decode in CUDA C++ under
-``csrc/``, RMSNorm forward in Triton).  Entry points run on ``cuda``
-unless the caller passes a CPU device; on CPU tensors every kernel
-wrapper runs its plain PyTorch version.
+``kernels/``.  Training on one device: ``finetune`` →
+``training.driver.pretrain`` → ``training.step`` → the same model, its
+backward through autograd, ``parallel.cross_entropy``,
+``resilience.anomaly`` and ``training.optimizer``.  The kernels:
+flash-attention forward and backward (dQ; dK/dV) and flash decode in CUDA
+C++ under ``csrc/``, RMSNorm forward and backward in Triton.  Entry points
+run on ``cuda`` unless the caller passes a CPU device; on CPU tensors
+every kernel wrapper runs its plain PyTorch version.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,16 +1,21 @@
-"""Model configuration for the PyTorch/CUDA port.
+"""Configuration for the PyTorch/CUDA port.
 
-A copy of ``megatron_llm_tpu/config.py``'s ``ModelConfig`` and presets
-with torch dtypes: every field, default and preset is the same, so a
-config built here describes the same network as its JAX twin.  The
-parallel, optimizer and runtime configs belong to the training slices
-of the port and are not here yet.
+A copy of ``megatron_llm_tpu/config.py``: ``ModelConfig`` and its presets
+with torch dtypes, and the ``ParallelConfig``, ``OptimizerConfig``,
+``TrainConfig`` and ``RuntimeConfig`` of the training path.  Every field,
+default and preset is the same, so a config built here describes the same
+run as its JAX twin.  ``RuntimeConfig.validate`` refuses, with
+``NotImplementedError`` naming the ROADMAP item, what the single-device
+training slice does not run: parallel degrees above 1, dropout and
+drop-path, and the fused LM head.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -160,6 +165,174 @@ class ModelConfig:
             raise ValueError(
                 f"unknown quantize_matmuls {self.quantize_matmuls!r}")
         return self
+
+
+# ---------------------------------------------------------------------------
+# Parallel, optimizer and training configuration (the JAX package's, field
+# for field)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Parallel degrees; see the JAX ``ParallelConfig`` for each knob.  The
+    port trains on one device: every degree above 1 is refused by
+    ``RuntimeConfig.validate``."""
+
+    data_parallel: int = 1
+    pipeline_parallel: int = 1
+    tensor_parallel: int = 1
+    fsdp: int = 1
+    sequence_parallel: bool = False
+    virtual_pipeline_stages: int = 1
+    expert_parallel: int = 1
+    context_parallel: int = 1
+    context_parallel_layout: str = "contiguous"
+    num_microbatches: int = 1
+    pipeline_remat_window: int = 0
+    use_distributed_optimizer: bool = False
+    pipeline_split_rank: Optional[int] = None
+
+    @property
+    def world_size(self) -> int:
+        return (self.data_parallel * self.fsdp * self.pipeline_parallel
+                * self.tensor_parallel * self.context_parallel
+                * self.expert_parallel)
+
+    def validate(self) -> "ParallelConfig":
+        if self.fsdp < 1:
+            raise ValueError(f"fsdp must be >= 1, got {self.fsdp}")
+        if self.context_parallel_layout not in ("contiguous", "zigzag"):
+            raise ValueError(f"unknown context_parallel_layout "
+                             f"{self.context_parallel_layout!r}")
+        dp_tp = {"data_parallel": self.data_parallel,
+                 "tensor_parallel": self.tensor_parallel,
+                 "fsdp": self.fsdp}
+        pp_cp_ep = {"pipeline_parallel": self.pipeline_parallel,
+                    "virtual_pipeline_stages": self.virtual_pipeline_stages,
+                    "context_parallel": self.context_parallel,
+                    "expert_parallel": self.expert_parallel}
+        for degrees, item in (
+                (dp_tp, "data, tensor and sequence parallel training"),
+                (pp_cp_ep, "pipeline, context and expert parallelism")):
+            above = {k: v for k, v in degrees.items() if v > 1}
+            if above:
+                raise NotImplementedError(
+                    f"parallel training ({above}) is not ported yet: the port "
+                    f"trains on one device (ROADMAP.md, Queue 1: {item})")
+        if self.sequence_parallel or self.use_distributed_optimizer:
+            raise NotImplementedError(
+                "sequence parallelism and ZeRO-1 are not ported yet "
+                "(ROADMAP.md, Queue 1: data, tensor and sequence parallel "
+                "training)")
+        return self
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    optimizer: str = "adamw"  # "adamw" | "sgd"
+    lr: float = 3e-4
+    min_lr: float = 3e-5
+    weight_decay: float = 0.1
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.95
+    adam_eps: float = 1e-8
+    sgd_momentum: float = 0.9
+    clip_grad: float = 1.0
+    # constant | linear | cosine | inverse-square-root
+    lr_decay_style: str = "cosine"
+    lr_warmup_iters: int = 0
+    lr_warmup_fraction: Optional[float] = None
+    lr_decay_iters: Optional[int] = None
+    start_weight_decay: Optional[float] = None
+    end_weight_decay: Optional[float] = None
+    weight_decay_incr_style: str = "constant"
+    # loss scaling for fp16 (bf16 needs none)
+    loss_scale: Optional[float] = None
+    initial_loss_scale: float = 2.0**32
+    min_loss_scale: float = 1.0
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    main_params_dtype: str = "float32"
+    use_fp32_grad_accum: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    train_iters: int = 1000
+    micro_batch_size: int = 1
+    global_batch_size: int = 1
+    rampup_batch_size: Optional[Sequence[int]] = None
+    seq_length: int = 4096
+    seed: int = 1234
+    eval_interval: int = 1000
+    eval_iters: int = 10
+    save: Optional[str] = None
+    load: Optional[str] = None
+    save_interval: int = 1000
+    keep_latest_checkpoints: int = 0
+    checkpoint_retries: int = 3
+    anomaly_z_threshold: float = 0.0
+    anomaly_ewma_alpha: float = 0.02
+    anomaly_warmup_steps: int = 20
+    anomaly_rollback_after: int = 0
+    anomaly_max_rollbacks: int = 10
+    log_interval: int = 10
+    tensorboard_dir: Optional[str] = None
+    wandb_project: Optional[str] = None
+    wandb_name: Optional[str] = None
+    exit_interval: Optional[int] = None
+    exit_duration_mins: Optional[float] = None
+    data_path: Optional[Sequence[Any]] = None
+    split: str = "969,30,1"
+    metrics: Sequence[str] = ()
+    skip_iters: Sequence[int] = ()
+    profile_dir: Optional[str] = None
+    profile_step_start: int = 11
+    profile_step_end: int = 13
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """Top-level bundle threaded through the training path."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def validate(self) -> "RuntimeConfig":
+        m = self.model
+        if m.fused_lm_head:
+            raise NotImplementedError(
+                "fused_lm_head (fused_linear_cross_entropy) is not ported "
+                "yet (ROADMAP.md, Queue 1: decoder forward and backward)")
+        if (m.hidden_dropout or m.attention_dropout or m.lima_dropout
+                or m.drop_path_rate):
+            raise NotImplementedError(
+                "dropout, LIMA dropout and drop-path are not ported yet: the "
+                "port trains deterministically (ROADMAP.md, Queue 1: "
+                "decoder forward and backward)")
+        m.validate()
+        self.parallel.validate()
+        mb = self.train.micro_batch_size
+        gb = self.train.global_batch_size
+        dp = self.parallel.data_parallel
+        if gb % (mb * dp):
+            raise ValueError(f"global_batch_size {gb} must divide by "
+                             f"micro_batch {mb} * dp {dp}")
+        return self
+
+    @property
+    def grad_accum_steps(self) -> int:
+        return self.train.global_batch_size // (
+            self.train.micro_batch_size * self.parallel.data_parallel)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, default=str)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-- ``flash_attention.py``: flash-attention forward (``csrc/flash_attention.cu``).
+- ``flash_attention.py``: flash-attention forward (``csrc/flash_attention.cu``)
+  and backward, dQ and dK/dV (``csrc/flash_attention_bwd.cu``).
 - ``flash_decode.py``: single-token decode attention over a dense cache
   (``csrc/flash_decode.cu``).
-- ``rmsnorm.py``: RMSNorm forward (Triton, ``rmsnorm_triton.py``).
+- ``rmsnorm.py``: RMSNorm forward and dx (Triton, ``rmsnorm_triton.py``).
 - ``build.py``: ``nvcc`` into ``build/kernels/`` and ``ctypes`` loading.
 
 Each wrapper counts its launches in a ``launches`` attribute.
@@ -13,10 +14,17 @@ Each wrapper counts its launches in a ``launches`` attribute.
 def launch_counters() -> dict:
     """``{kernel name: wrapper}`` of every kernel wrapper with a launch
     counter (read and reset through ``wrapper.launches``)."""
-    from .flash_attention import flash_attention_fwd
+    from .flash_attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
     from .flash_decode import flash_decode
-    from .rmsnorm import rmsnorm_fwd
+    from .rmsnorm import rmsnorm_bwd, rmsnorm_fwd
 
     return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "flash_decode": flash_decode,
-            "rmsnorm_fwd": rmsnorm_fwd}
+            "rmsnorm_fwd": rmsnorm_fwd,
+            "rmsnorm_bwd": rmsnorm_bwd}

@@ -1,16 +1,19 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_attention.cu`` and
-its plain PyTorch version.
+"""Flash attention, forward and backward: the CUDA kernels
+``csrc/flash_attention.cu`` (O and lse) and ``csrc/flash_attention_bwd.cu``
+(dQ; dK and dV), each beside its plain PyTorch version, and the autograd
+Function that joins them.
 
-Replaces the TPU kernel ``megatron_llm_tpu/kernels/flash_attention.py``
-(``_fwd_kernel`` via ``flash_attention``).  Layout as in JAX: q
-``[b, sq, hq, d]``, k/v ``[b, sk, hk, d]``; returns O ``[b, sq, hq, d]`` in
-q's dtype and, from ``flash_attention_fwd``, the fp32 logsumexp
-``[b, hq, sq]``.  What bounds the kernel on the H100 and how it is laid out
-is written at the top of the CUDA source.
+Replaces the TPU kernels of ``megatron_llm_tpu/kernels/flash_attention.py``:
+``_fwd_kernel`` (via ``_fwd``), ``_dq_kernel`` and ``_dkv_kernel`` (via
+``_bwd_impl``), joined there by ``jax.custom_vjp``.  Layout as in JAX: q
+``[b, sq, hq, d]``, k/v ``[b, sk, hk, d]``; O ``[b, sq, hq, d]`` in q's
+dtype and the fp32 logsumexp ``[b, hq, sq]``.  The backward kernels take
+the forward's layout and its lse; ``delta = rowsum(dO * O)`` is computed in
+fp32 outside them, as the JAX wrapper does.  What bounds each kernel on the
+H100 and how it is laid out is written at the top of its CUDA source.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises on a dtype, head size or layout the kernel does not take.  The
-backward kernels (dQ, dK/dV) are a later slice.
+raises on a dtype, head size or layout the kernel does not take.
 """
 
 from __future__ import annotations
@@ -39,6 +42,11 @@ def _keep_mask(sq: int, sk: int, causal: bool, segment_ids, device):
     return keep
 
 
+def _acc_dtype(x):
+    """fp32 math, or fp64 for fp64 inputs (the gradient checks)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           segment_ids=None, softmax_scale=None):
     """The kernel's function in plain torch: ``(O, lse)`` with fp32 math."""
@@ -47,15 +55,16 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     group = hq // hk
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
-    qf = q.float().reshape(b, sq, hk, group, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * softmax_scale
+    acc = _acc_dtype(q)
+    qf = q.to(acc).reshape(b, sq, hk, group, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(acc)) * softmax_scale
     keep = _keep_mask(sq, sk, causal, segment_ids, q.device)
     s = s.masked_fill(~keep[:, None, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(acc))
     l_q = l.permute(0, 3, 1, 2, 4)  # [b, sq, hk, g, 1]
     o = torch.where(l_q > 0, o / torch.where(l_q > 0, l_q, 1.0), 0.0)
     lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
@@ -127,12 +136,151 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, segment_ids=None,
 flash_attention_fwd.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              segment_ids=None, softmax_scale=None):
+    """The backward kernels' function in plain torch: ``(dQ, dK, dV)`` in
+    the inputs' dtypes, with P recomputed from ``lse`` as the kernels do
+    (fp32 math; a pair the mask drops has P = 0 exactly)."""
+    b, sq, hq, d = q.shape
+    _, sk, hk, _ = k.shape
+    group = hq // hk
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    acc = _acc_dtype(q)
+    qf = q.to(acc).reshape(b, sq, hk, group, d)
+    dof = do.to(acc).reshape(b, sq, hk, group, d)
+    kf, vf = k.to(acc), v.to(acc)
+    delta = (dof * o.to(acc).reshape(b, sq, hk, group, d)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)[..., None]          # [b, hk, g, sq, 1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * softmax_scale
+    keep = _keep_mask(sq, sk, causal, segment_ids, q.device)[:, None, None]
+    lse = lse.to(acc).reshape(b, hk, group, sq, 1)
+    p = torch.where(keep, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta) * softmax_scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q, k, v, do, lse, delta, segment_ids):
+    _check(q, k, v, segment_ids)
+    if do.shape != q.shape or do.dtype != q.dtype \
+            or not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("flash_attention backward: dO must match q in "
+                         "shape and dtype, contiguous and 16-byte aligned")
+    rows = (q.shape[0], q.shape[2], q.shape[1])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != rows \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} must be a "
+                             f"contiguous fp32 {list(rows)} tensor on q's "
+                             "device")
+
+
+def _bwd_args(q, k, segment_ids, softmax_scale):
+    b, sq, hq, d = q.shape
+    _, sk, hk, _ = k.shape
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    seg_ptr = segment_ids.data_ptr() if segment_ids is not None else None
+    return (seg_ptr, b, sq, sk, hq, hk, d, float(softmax_scale))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                           segment_ids=None, softmax_scale=None):
+    """dQ from the CUDA kernel K2 (CUDA tensors only; ``delta`` fp32
+    ``[b, hq, sq]``, ``segment_ids`` contiguous int32 or None)."""
+    _check_bwd(q, k, v, do, lse, delta, segment_ids)
+    seg_ptr, *dims = _bwd_args(q, k, segment_ids, softmax_scale)
+    dq = torch.empty_like(q)
+    err = _bwd_lib().flash_attention_bwd_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), seg_ptr, dq.data_ptr(), *dims,
+        int(causal), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                            segment_ids=None, softmax_scale=None):
+    """``(dK, dV)`` from the CUDA kernel K3, summed over each kv head's
+    q-head group (CUDA tensors only; arguments as ``_dq``)."""
+    _check_bwd(q, k, v, do, lse, delta, segment_ids)
+    seg_ptr, *dims = _bwd_args(q, k, segment_ids, softmax_scale)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = _bwd_lib().flash_attention_bwd_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), seg_ptr, dk.data_ptr(),
+        dv.data_ptr(), *dims, int(causal), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        segment_ids=None, softmax_scale=None):
+    """``(dQ, dK, dV)``: delta in fp32, then K2 and K3 for CUDA tensors;
+    the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         segment_ids=segment_ids,
+                                         softmax_scale=softmax_scale)
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(torch.int32).contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    kw = dict(causal=causal, segment_ids=segment_ids,
+              softmax_scale=softmax_scale)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """O = attention(q, k, v) with the forward kernel K1 and, backward, the
+    kernels K2 and K3 (the JAX package's ``_flash`` custom_vjp).  It saves
+    q, k, v, O and lse, as the JAX residuals do."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal, softmax_scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     segment_ids=segment_ids,
+                                     softmax_scale=softmax_scale)
+        ctx.save_for_backward(q, k, v, o, lse, segment_ids)
+        ctx.causal, ctx.softmax_scale = causal, softmax_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            segment_ids=segment_ids, softmax_scale=ctx.softmax_scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, segment_ids=None,
                     softmax_scale=None):
-    """Blockwise fused attention → O (drop-in for ops.attention's layout)."""
-    return flash_attention_fwd(q, k, v, causal=causal,
-                               segment_ids=segment_ids,
-                               softmax_scale=softmax_scale)[0]
+    """Blockwise fused attention → O (drop-in for ops.attention's layout),
+    differentiable through the backward kernels."""
+    return FlashAttentionFunction.apply(q, k, v, segment_ids, causal,
+                                        softmax_scale)
 
 
 def _lib():
@@ -143,4 +291,19 @@ def _lib():
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, ctypes.c_float,
                        I, I, P]
         fn.restype = I
+    return lib
+
+
+def _bwd_lib():
+    lib = build.load("flash_attention_bwd")
+    for name, n_out in (("flash_attention_bwd_dq_launch", 1),
+                        ("flash_attention_bwd_dkv_launch", 2)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            P, I = ctypes.c_void_p, ctypes.c_int
+            # q k v dO lse delta seg + outputs; b sq sk hq hk d; scale;
+            # causal dtype; stream
+            fn.argtypes = ([P] * (7 + n_out) + [I] * 6 + [ctypes.c_float]
+                           + [I, I, P])
+            fn.restype = I
     return lib

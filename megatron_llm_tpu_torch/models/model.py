@@ -1,6 +1,9 @@
-"""Causal language model for inference: embedding → decoder stack → lm head
-(mirror of ``megatron_llm_tpu/models/model.py``), plus the KV-cache and
-paged block-pool helpers the serving engine drives.
+"""Causal language model: embedding → decoder stack → lm head (mirror of
+``megatron_llm_tpu/models/model.py``).  ``forward`` serves inference and
+training (differentiable through the kernels' autograd Functions);
+``forward_cached`` / ``forward_cached_paged`` and the KV-cache and paged
+block-pool helpers are what the serving engine drives; ``flops_per_token``
+is the analytic count the training log reports against.
 
 Cache layouts are the JAX package's: dense ``[L, b, kv_heads, max_len, d]``
 and pool ``[L, n_blocks, kv_heads, block, d]`` (block 0 = trash).  Where
@@ -104,8 +107,11 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             position_ids: Optional[torch.Tensor] = None,
             segment_ids: Optional[torch.Tensor] = None,
             tokentype_ids: Optional[torch.Tensor] = None,
-            rope: Optional[tuple] = None) -> torch.Tensor:
-    """Full forward to logits ``[b, s, padded_vocab]`` (fp32)."""
+            rope: Optional[tuple] = None, return_aux: bool = False):
+    """Full forward to logits ``[b, s, padded_vocab]`` (fp32).
+
+    With ``return_aux`` also returns the MoE load-balance aux loss, as in
+    JAX: a 0 scalar for the dense models the port runs."""
     cos, sin = _rope(cfg, params, rope)
     x = embed(cfg, params, tokens, position_ids, tokentype_ids)
     side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
@@ -113,7 +119,11 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     x = stack_forward(cfg, params["layers"], x, side)
     x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
                    impl=cfg.norm_impl)
-    return unembed(cfg, params, x).float()
+    logits = unembed(cfg, params, x).float()
+    if return_aux:
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+    return logits
 
 
 def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -266,3 +276,26 @@ def num_params(params: Params) -> int:
     for v in params.values():
         total += num_params(v) if isinstance(v, dict) else v.numel()
     return total
+
+
+def flops_per_token(cfg: ModelConfig, seq_len: int) -> float:
+    """Analytic forward FLOPs per token, the JAX package's count (reference
+    FLOP estimate: megatron/model/language_model.py:370-384); a training
+    step does three times this (forward, and a backward of twice it)."""
+    h = cfg.hidden_size
+    d = cfg.head_dim
+    nq = cfg.num_attention_heads
+    nkv = cfg.kv_heads
+    n_mlp_mat = 3 if cfg.is_glu else 2
+    mlp_mult = cfg.moe_top_k if cfg.num_experts > 0 else 1
+    router = 2 * h * cfg.num_experts if cfg.num_experts > 0 else 0
+    per_layer = (
+        2 * h * (nq * d)  # wq
+        + 2 * h * (nkv * d) * 2  # wk, wv
+        + 2 * (nq * d) * h  # wo
+        + 2 * 2 * nq * d * seq_len  # attention scores + context
+        + mlp_mult * n_mlp_mat * 2 * h * cfg.ffn_size  # mlp matmuls
+        + router
+    )
+    return float(cfg.num_layers * per_layer
+                 + 2 * h * cfg.padded_vocab_size())

@@ -1,4 +1,4 @@
-"""Decoder transformer stack for inference (mirror of
+"""Decoder transformer stack (mirror of
 ``megatron_llm_tpu/models/transformer.py``).
 
 Parameters keep the JAX package's stacked layout: a dict whose leaves
@@ -6,17 +6,29 @@ carry a leading layer axis ``[L, ...]`` (``x @ w`` with w ``[in, out]``),
 so ``convert.params_from_jax`` is a plain leaf-for-leaf copy.  The stack is
 a Python loop over layers in place of ``lax.scan``.
 
-This slice is the serving path: the deterministic forward only, so
-dropout and drop-path (training-time) do not apply.  MoE layers and
-quantized weights belong to later slices and raise here.
+``stack_forward`` serves inference and training.  Under autograd each
+layer runs inside ``torch.utils.checkpoint`` as ``cfg.recompute`` says:
+``"full"`` recomputes the whole layer in the backward, ``"selective"``
+saves the projection matmuls' outputs (``aten.mm``) and recomputes the
+rest, as JAX's ``dots_with_no_batch_dims_saveable`` policy does, and
+``"none"`` saves everything.  The policy changes memory and time, not the
+numbers.  The forward is deterministic: dropout and drop-path are refused
+by ``RuntimeConfig.validate``.  MoE layers and quantized weights belong to
+later slices and raise here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..config import ModelConfig, PositionEmbeddingType
 from ..ops.activations import get_activation, is_glu
@@ -102,10 +114,15 @@ def init_stack_params(cfg: ModelConfig, generator: torch.Generator,
     return layers
 
 
-def layer_params(stacked: Params, i: int) -> Params:
-    """Layer ``i``'s view of the stacked parameter dict."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
+def unstack_layers(stacked: Params) -> list:
+    """Every layer's view of the stacked dict, from one ``unbind`` per
+    leaf: autograd then joins the layers' grads into one ``[L, ...]`` grad
+    per leaf, where a slice per layer would build a full-size grad for
+    every layer."""
+    parts = {k: unstack_layers(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in stacked.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +227,8 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                   side: AttnSideInputs, kv_cache: Optional[tuple] = None):
-    """One pre-LN residual block (sequential or Falcon-parallel), inference
-    only.  Returns ``out``, or ``(out, new_rows)`` with ``kv_cache``."""
+    """One pre-LN residual block (sequential or Falcon-parallel), without
+    dropout.  Returns ``out``, or ``(out, new_rows)`` with ``kv_cache``."""
     residual = x
     h1 = norm_apply(cfg.norm_type, x, p["input_norm"], cfg.norm_eps,
                     impl=cfg.norm_impl)
@@ -237,12 +254,40 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return result
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The selective policy: keep the projection matmuls' outputs (a 3-D
+    ``x @ w`` reaches autograd as ``aten.mm`` on a view), recompute the
+    rest (norms, RoPE, attention, activations)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_runner(cfg: ModelConfig):
+    """``run(fn, x, p)`` for one layer under ``cfg.recompute``."""
+    if cfg.recompute not in ("none", "selective", "full"):
+        raise ValueError(f"unknown recompute {cfg.recompute!r} "
+                         "(want 'none'|'selective'|'full')")
+    if cfg.recompute == "none" or not torch.is_grad_enabled():
+        return lambda fn, x, p: fn(x, p)
+    kwargs = {"use_reentrant": False}
+    if cfg.recompute == "selective":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return lambda fn, x, p: checkpoint(fn, x, p, **kwargs)
+
+
 def stack_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
                   side: AttnSideInputs) -> torch.Tensor:
-    """All layers, in order."""
-    n = next(iter(stacked["input_norm"].values())).shape[0]
-    for i in range(n):
-        x = layer_forward(cfg, layer_params(stacked, i), x, side)
+    """All layers, in order, each checkpointed as ``cfg.recompute`` says
+    when autograd is on."""
+    run = _layer_runner(cfg)
+
+    def layer(h, p):
+        return layer_forward(cfg, p, h, side)
+
+    for p in unstack_layers(stacked):
+        x = run(layer, x, p)
     return x
 
 
@@ -253,8 +298,8 @@ def stack_forward_cached(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
     """All layers threading the stacked KV cache: layer ``i`` writes its
     new rows into ``k_cache[i]``/``v_cache[i]`` in place.  Returns
     ``(hidden, k_cache, v_cache)``; the caller advances ``cache_len``."""
-    for i in range(k_cache.shape[0]):
-        x, _ = layer_forward(cfg, layer_params(stacked, i), x, side,
+    for i, p in enumerate(unstack_layers(stacked)):
+        x, _ = layer_forward(cfg, p, x, side,
                              kv_cache=(k_cache[i], v_cache[i], cache_len))
     return x, k_cache, v_cache
 

@@ -2,9 +2,10 @@
 
 Activations are ``[batch, seq, heads, head_dim]``; GQA groups are folded
 by reshaping Q to ``[b, s, kv_heads, group, d]`` so K/V are never tiled
-up.  ``attention`` dispatches ``impl="flash"`` to the flash kernel module
-(CUDA kernel on CUDA tensors, its plain version on CPU tensors) and
-``impl="dot"`` to the einsum path.  ``decode_attention`` takes the
+up.  ``attention`` dispatches ``impl="flash"`` to the flash-attention
+autograd Function (the CUDA forward and backward kernels on CUDA tensors,
+their plain versions on CPU tensors), so the same call serves inference
+and training, and ``impl="dot"`` to the einsum path.  ``decode_attention`` takes the
 flash-decode kernel when ``decode_kernel_eligible`` says the CUDA kernel
 takes the operands, else the einsum path, as the JAX package takes its
 Pallas kernel only on a TPU.
@@ -92,8 +93,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
 def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
                           segment_ids=None, softmax_scale=None) -> torch.Tensor:
     """Einsum attention, q ``[b, sq, hq, d]``, k/v ``[b, sk, hk, d]``, with
-    an fp32 softmax.  (Attention dropout is training-time and comes with the
-    training slice.)"""
+    an fp32 softmax.  (Attention dropout is refused by
+    ``RuntimeConfig.validate``: the port trains deterministically.)"""
     b, sq, n_heads, d = q.shape
     _, sk, kv_heads, _ = k.shape
     group = n_heads // kv_heads

@@ -3,9 +3,11 @@
 
 ``impl="xla"`` is the plain torch math (the JAX package's XLA path);
 ``impl="pallas"`` keeps the JAX package's name and selects the port's
-RMSNorm kernel (``kernels/rmsnorm.py``: Triton on CUDA tensors, its plain
-version on CPU tensors).  LayerNorm has no kernel in the port yet: under
-``impl="pallas"`` it raises rather than silently running plain math.
+RMSNorm autograd Function (``kernels/rmsnorm.py``: the Triton forward and
+dx kernels on CUDA tensors, their plain versions on CPU tensors), so the
+same call serves inference and training.  LayerNorm has no kernel in the
+port yet: under ``impl="pallas"`` it raises rather than silently running
+plain math.
 """
 
 from __future__ import annotations

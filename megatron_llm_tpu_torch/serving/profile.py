@@ -46,18 +46,21 @@ _FAMILIES = (("flash_attention_fwd", ("flash_fwd_kernel",)),
              ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet")))
 
 
-def _family(name: str, cat: str) -> str:
+def _family(name: str, cat: str, families=_FAMILIES) -> str:
     if cat != "kernel":
         return cat
     low = name.lower()
-    for family, keys in _FAMILIES:
+    for family, keys in families:
         if any(k in low for k in keys):
             return family
     return "other"
 
 
-def device_summary(trace: Path, window_s: float, units: int) -> dict:
-    """Busy time, idle share and time by family from a chrome trace."""
+def device_summary(trace: Path, window_s: float, units: int,
+                   families=_FAMILIES) -> dict:
+    """Busy time, idle share and time by family (``families``: ``(name,
+    substrings of kernel names)`` pairs, first match wins) from a chrome
+    trace."""
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
     if not events:
@@ -68,10 +71,10 @@ def device_summary(trace: Path, window_s: float, units: int) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    families, others = {}, {}
+    by_family, others = {}, {}
     for e in events:
-        fam = _family(e["name"], e["cat"])
-        families[fam] = families.get(fam, 0.0) + e["dur"]
+        fam = _family(e["name"], e["cat"], families)
+        by_family[fam] = by_family.get(fam, 0.0) + e["dur"]
         if fam == "other":
             others[e["name"]] = others.get(e["name"], 0.0) + e["dur"]
     top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
@@ -81,7 +84,7 @@ def device_summary(trace: Path, window_s: float, units: int) -> dict:
         "device_busy_ms_per_unit": busy_us / per,
         "device_idle_share": max(0.0, 1.0 - busy_us / (window_s * 1e6)),
         "ms_per_unit_by_family": {k: v / per for k, v in
-                                  sorted(families.items(),
+                                  sorted(by_family.items(),
                                          key=lambda kv: -kv[1])},
         "largest_other_kernels_ms_per_unit": {k[:90]: v / per
                                               for k, v in top},

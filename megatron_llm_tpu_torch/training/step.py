@@ -1,0 +1,175 @@
+"""The train step: forward and backward over the microbatches, fp32 grad
+accumulation, unscale, clip, the anomaly guard and the optimizer update
+(mirror of ``megatron_llm_tpu/training/step.py``; reference
+megatron/training.py:393-459 ``train_step``).
+
+Per microbatch, autograd gives each param's grad in the param's dtype; it
+is cast to fp32 and summed (a single microbatch is cast once), then the
+sum is divided by the microbatch count.  Then: unscale → global norm →
+guard → clip → lr and wd from the schedule at ``opt.step`` (successful
+updates only) → the in-place optimizer update.  An anomalous step
+(non-finite grads or loss, or a loss spike) is decided on the host (the
+step's one synchronization) and leaves params and optimizer state bitwise
+untouched; only the guard, the counters and the loss scaler move.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from ..config import RuntimeConfig
+from ..models import model as model_lib
+from ..models.transformer import rope_tables
+from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
+from ..resilience.anomaly import GuardState, guard_update, init_guard_state
+from ..utils.tree import tree_leaves, tree_unflatten
+from . import optimizer as opt_lib
+from . import schedule
+
+PyTree = Any
+
+
+class TrainState(NamedTuple):
+    params: PyTree
+    opt: opt_lib.OptState
+    iteration: int  # completed train steps, skipped ones included
+    skipped: int    # anomalous steps skipped
+    guard: GuardState
+
+
+def init_train_state(cfg: RuntimeConfig, params: PyTree) -> TrainState:
+    use_scaler = cfg.model.params_dtype in ("float16", "fp16")
+    device = tree_leaves(params)[0].device
+    return TrainState(
+        params=params,
+        opt=opt_lib.init_opt_state(params, cfg.optimizer,
+                                   use_fp16_scaler=use_scaler),
+        iteration=0,
+        skipped=0,
+        guard=init_guard_state(device),
+    )
+
+
+def compute_loss(cfg: RuntimeConfig, params, batch: dict, rope=None):
+    """Forward + masked LM loss for one microbatch: ``batch`` holds tokens,
+    labels and a float loss_mask ``[b, s]``, optionally position_ids and
+    segment_ids."""
+    logits, _ = model_lib.forward(
+        cfg.model, params, batch["tokens"],
+        position_ids=batch.get("position_ids"),
+        segment_ids=batch.get("segment_ids"),
+        rope=rope, return_aux=True)
+    per_token = cross_entropy(logits, batch["labels"],
+                              vocab_size=cfg.model.vocab_size)
+    return masked_mean_loss(per_token, batch["loss_mask"])
+
+
+def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
+                      loss_scale: float, loss_fn=None):
+    """``(fp32 grads, mean loss)`` over the ``[accum, micro_batch, ...]``
+    batch.  ``loss_fn(cfg, params, microbatch)`` overrides the decoder-LM
+    loss, as in JAX."""
+    accum = batch["tokens"].shape[0]
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    live = tree_unflatten(params, leaves)
+    grads = None
+    loss_sum = None
+    for i in range(accum):
+        mb = {k: v[i] for k, v in batch.items()}
+        if loss_fn is not None:
+            loss = loss_fn(cfg, live, mb)
+        else:
+            loss = compute_loss(cfg, live, mb, rope=rope)
+        step_grads = torch.autograd.grad(loss * loss_scale, leaves)
+        if grads is None:  # the first cast copies, the rest add in place
+            grads = [g.to(torch.float32, copy=True) for g in step_grads]
+        else:
+            for acc, g in zip(grads, step_grads):
+                acc.add_(g)
+        del step_grads
+        loss = loss.detach()
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+    if accum > 1:
+        inv = 1.0 / accum
+        for g in grads:
+            g.mul_(inv)
+        loss_sum = loss_sum * inv
+    return tree_unflatten(params, grads), loss_sum
+
+
+def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
+               rope=None, loss_fn=None):
+    """One optimizer step over the batch's microbatches → ``(new_state,
+    metrics)``.  Params and optimizer state are updated in place."""
+    scaler = state.opt.scaler
+    loss_scale = scaler.scale if scaler is not None else 1.0
+    grads, loss = _accumulate_grads(cfg, state.params, batch, rope,
+                                    loss_scale, loss_fn)
+    if loss_scale != 1.0:
+        for g in tree_leaves(grads):
+            g.div_(loss_scale)
+    grad_norm = opt_lib.global_grad_norm(grads)
+    found_inf = ~torch.isfinite(grad_norm)
+    guard, anomalous, data_anomaly = guard_update(
+        state.guard, loss, found_inf,
+        z_threshold=cfg.train.anomaly_z_threshold,
+        alpha=cfg.train.anomaly_ewma_alpha,
+        warmup_steps=cfg.train.anomaly_warmup_steps)
+    skip = bool(anomalous)  # the step's one host synchronization
+
+    train_iters = cfg.train.train_iters
+    lr = schedule.learning_rate(cfg.optimizer, state.opt.step, train_iters)
+    wd = schedule.weight_decay(cfg.optimizer, state.opt.step, train_iters)
+    params, opt = state.params, state.opt
+    if not skip:
+        if cfg.optimizer.clip_grad > 0:
+            opt_lib.clip_by_global_norm(grads, cfg.optimizer.clip_grad,
+                                        norm=grad_norm)
+        params, opt = opt_lib.optimizer_step(cfg.optimizer, params, grads,
+                                             opt, lr, wd)
+    del grads
+    if scaler is not None:
+        # the scaler reacts to overflow only, not to a data anomaly
+        opt = opt._replace(scaler=opt_lib.scaler_update(
+            scaler, bool(found_inf), cfg.optimizer))
+    new_state = TrainState(params=params, opt=opt,
+                           iteration=state.iteration + 1,
+                           skipped=state.skipped + int(skip), guard=guard)
+    metrics = {
+        "loss": loss,
+        "grad_norm": grad_norm,
+        "lr": lr,
+        "weight_decay": wd,
+        "skipped": int(skip),
+        "anomaly": data_anomaly.to(torch.int32),
+        "anomaly_run": guard.run,
+        "loss_scale": loss_scale,
+    }
+    return new_state, metrics
+
+
+def make_train_step(cfg: RuntimeConfig, device=None, loss_fn=None):
+    """``step(state, batch) -> (state, metrics)`` with the RoPE tables
+    built once on ``device`` (default ``cuda``) and closed over, as the
+    JAX step closes over them as constants."""
+    device = model_lib.default_device(device)
+    rope = rope_tables(cfg.model, device=device)
+
+    def step(state: TrainState, batch: dict):
+        return train_step(cfg, state, batch, rope=rope, loss_fn=loss_fn)
+
+    return step
+
+
+def to_device_batch(batch: dict, device) -> dict:
+    """numpy ``[accum, micro, ...]`` batch → tensors on ``device`` (token
+    ids as int64 for indexing, the loss mask as fp32)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        t = t.float() if k == "loss_mask" else t.long()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+

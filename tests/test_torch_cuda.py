@@ -1,4 +1,5 @@
-"""The hand-written kernels on the card, each against its plain version.
+"""The hand-written kernels on the card, each against its plain version,
+and the model and train step through them against the CPU's plain path.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -153,5 +154,140 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                                atol=1e-4)
     launches = {n: fn.launches for n, fn in counters.items()}
     assert launches == {"flash_attention_fwd": cfg.num_layers,
+                        "flash_attention_bwd_dq": 0,
+                        "flash_attention_bwd_dkv": 0,
                         "flash_decode": 4 * cfg.num_layers,
-                        "rmsnorm_fwd": 5 * (2 * cfg.num_layers + 1)}, launches
+                        "rmsnorm_fwd": 5 * (2 * cfg.num_layers + 1),
+                        "rmsnorm_bwd": 0}, launches
+
+
+def _bwd_inputs(gen, dev, b, sq, sk, hq, hk, d, dtype, segs):
+    q = _card((b, sq, hq, d), gen, dev, dtype)
+    k = _card((b, sk, hk, d), gen, dev, dtype)
+    v = _card((b, sk, hk, d), gen, dev, dtype)
+    do = _card((b, sq, hq, d), gen, dev, dtype)
+    seg = None
+    if segs:
+        seg = (torch.arange(sq, device=dev) // 50).repeat(b, 1)
+        seg = seg.to(torch.int32).contiguous()
+    return q, k, v, do, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hk,sq,sk,d,causal,segs,dtype", [
+    (8, 8, 200, 200, 128, True, False, torch.bfloat16),
+    (8, 2, 77, 300, 128, True, False, torch.bfloat16),   # offset, GQA, ragged
+    (4, 4, 256, 256, 128, True, True, torch.bfloat16),   # segment ids
+    (4, 1, 130, 130, 64, False, False, torch.float32),   # MQA, d 64, fp32
+    (4, 2, 300, 70, 128, True, False, torch.float32)])   # rows with no key
+def test_flash_attention_bwd_matches_plain(cuda_device, hq, hk, sq, sk, d,
+                                           causal, segs, dtype):
+    """K2 (dQ) and K3 (dK, dV) against ``flash_attention_bwd_plain`` on the
+    forward kernel's own O and lse."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, do, seg = _bwd_inputs(gen, cuda_device, 2, sq, sk, hq, hk, d,
+                                   dtype, segs)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    n_dq = tfa.flash_attention_bwd_dq.launches
+    n_dkv = tfa.flash_attention_bwd_dkv.launches
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  segment_ids=seg)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dq.launches == n_dq + 1
+    assert tfa.flash_attention_bwd_dkv.launches == n_dkv + 1
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         segment_ids=seg)
+    # grads are sums over up to sk (dQ) or group * sq (dK, dV) terms of
+    # O(1) products: bf16 rounds the result once on each side; fp32 only
+    # reorders the sums
+    tol = (dict(rtol=2 ** -6, atol=2e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), w.float(), **tol, msg=name)
+    if sq > sk:  # causal rows that see no key get dQ = 0 exactly
+        assert not got[0][:, :sq - sk].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h,dtype", [(37, 4096, torch.bfloat16),
+                                          (1, 64, torch.bfloat16),
+                                          (300, 5120, torch.float32)])
+def test_rmsnorm_bwd_matches_plain(cuda_device, rows, h, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = _card((rows, h), gen, cuda_device, dtype)
+    w = _card((h,), gen, cuda_device, dtype)
+    dy = _card((rows, h), gen, cuda_device, dtype)
+    _, rstd = trn.rmsnorm_fwd(x, w, 1e-5)
+    before = trn.rmsnorm_bwd.launches
+    dx, dw = trn.rmsnorm_bwd(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    assert trn.rmsnorm_bwd.launches == before + 1
+    dx_ref, dw_ref = trn.rmsnorm_bwd_plain(x, w, rstd, dy)
+    tol = CARD_TOL if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dx.float(), dx_ref.float(), **tol)
+    torch.testing.assert_close(dw.float(), dw_ref.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_cpu(cuda_device):
+    """Two train steps of a small fp32 model (head dim 128, grad_accum 2)
+    through the forward and backward kernels on the card, against the same
+    steps on the CPU's plain path."""
+    from megatron_llm_tpu_torch.config import (
+        OptimizerConfig,
+        RuntimeConfig,
+        TrainConfig,
+    )
+    from megatron_llm_tpu_torch.training import step as tstep
+
+    cfg = RuntimeConfig(
+        model=tiny_config(hidden_size=256, num_attention_heads=2,
+                          num_kv_heads=1, ffn_hidden_size=512,
+                          attention_impl="flash", norm_impl="pallas",
+                          recompute="selective"),
+        optimizer=OptimizerConfig(lr=1e-3, lr_warmup_iters=1),
+        train=TrainConfig(train_iters=2, micro_batch_size=2,
+                          global_batch_size=4, seq_length=24)).validate()
+    params = tm.init_params(cfg.model, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.model.vocab_size, (2, 2, 2, 25),
+                         generator=torch.Generator().manual_seed(0))
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        state = tstep.init_train_state(cfg, _to_dev(params, dev))
+        step = tstep.make_train_step(cfg, dev)
+        losses = []
+        for it in range(2):
+            t = toks[it]
+            batch = {"tokens": t[..., :-1].to(dev),
+                     "labels": t[..., 1:].to(dev),
+                     "loss_mask": torch.ones(2, 2, 24, device=dev)}
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        out[dev.type] = (losses, _to_dev(state.params, "cpu"))
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    # Adam divides each grad by its own running RMS, so where a grad is
+    # near zero the fp32 reordering of its sums can move that param's
+    # update by a few percent of lr (1e-3)
+    for a, b in zip(_leaves(out["cuda"][1]), _leaves(out["cpu"][1])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=5e-5)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd"):
+        assert launches[name] > 0, launches
+
+
+def _to_dev(tree, dev):
+    """A copy of the tree on ``dev`` (the optimizer updates in place)."""
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
