@@ -124,6 +124,26 @@ BF16_RTOL = 2.0 ** -6
 BF16_ATOL = 2e-3
 
 
+def _segments(torch, b, s, gen, dev):
+    """4 packed sequences per row at random boundaries, int32 [b, s]."""
+    cuts = torch.sort(torch.randint(1, s, (b, 3), generator=gen,
+                                    device=dev), dim=1).values
+    pos = torch.arange(s, device=dev)
+    return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(
+        torch.int32).contiguous()
+
+
+def _visible_pairs(torch, b, sq, sk, seg, dev):
+    """(row, key) pairs a causal mask and the segment ids leave visible:
+    the work this run's inputs need."""
+    i = torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(sk, device=dev)[None, :]
+    keep = (j <= i + (sk - sq))[None]
+    if seg is not None:
+        keep = keep & (seg[:, :, None] == seg[:, None, :])
+    return float(keep.expand(b, sq, sk).sum())
+
+
 def check_flash_attention(torch, F, fa, dev, gen):
     """K1 at the prefill shape of Llama-2-7B, plus GQA and segment ids."""
     cases = [("prefill b1 s1024 h32 causal", 1, 1024, 1024, 32, 32, False),
@@ -138,13 +158,7 @@ def check_flash_attention(torch, F, fa, dev, gen):
                         dtype=torch.bfloat16)
         v = torch.randn(b, sk, hk, d, generator=gen, device=dev,
                         dtype=torch.bfloat16)
-        seg = None
-        if segs:  # 4 packed sequences per row at random boundaries
-            cuts = torch.sort(torch.randint(1, sq, (b, 3), generator=gen,
-                                            device=dev), dim=1).values
-            pos = torch.arange(sq, device=dev)
-            seg = (pos[None, :, None] >= cuts[:, None, :]).sum(-1)
-            seg = seg.to(torch.int32).contiguous()
+        seg = _segments(torch, b, sq, gen, dev) if segs else None
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
                                         segment_ids=seg)
         torch.cuda.synchronize()
@@ -171,13 +185,7 @@ def check_flash_attention(torch, F, fa, dev, gen):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask)
         library_ms = cuda_ms(torch, lib)
-        # visible (row, key) pairs this run's inputs need
-        i = torch.arange(sq, device=dev)[:, None]
-        j = torch.arange(sk, device=dev)[None, :]
-        keep = (j <= i + (sk - sq))[None]
-        if seg is not None:
-            keep = keep & (seg[:, :, None] == seg[:, None, :])
-        pairs = float(keep.expand(b, sq, sk).sum()) * hq
+        pairs = _visible_pairs(torch, b, sq, sk, seg, dev) * hq
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
             + lse.numel() * 4 + (seg.numel() * 4 if seg is not None else 0)
         bms, by = bound_ms(nbytes, 4.0 * d * pairs)
@@ -271,24 +279,6 @@ def check_rmsnorm(torch, F, rn, dev, gen):
     return head
 
 
-def _segments(torch, b, s, gen, dev):
-    """4 packed sequences per row at random boundaries, int32 [b, s]."""
-    cuts = torch.sort(torch.randint(1, s, (b, 3), generator=gen,
-                                    device=dev), dim=1).values
-    pos = torch.arange(s, device=dev)
-    return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(
-        torch.int32).contiguous()
-
-
-def _visible_pairs(torch, b, sq, sk, seg, dev):
-    i = torch.arange(sq, device=dev)[:, None]
-    j = torch.arange(sk, device=dev)[None, :]
-    keep = (j <= i + (sk - sq))[None]
-    if seg is not None:
-        keep = keep & (seg[:, :, None] == seg[:, None, :])
-    return float(keep.expand(b, sq, sk).sum())
-
-
 def check_flash_attention_bwd(torch, F, fa, dev, gen):
     """K2 (dQ) and K3 (dK, dV) at the training shape of Llama-2-7B (b1
     s4096 h32 d128 causal), plus GQA and segment ids, against
@@ -325,8 +315,11 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
             q, k, v, do, lse, delta, **kw), iters=5)
         ms_dkv = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(
             q, k, v, do, lse, delta, **kw), iters=5)
-        plain_ms = event_ms(torch, lambda: fa.flash_attention_bwd_plain(
+        plain_dq_ms = event_ms(torch, lambda: fa.flash_attention_bwd_dq_plain(
             q, k, v, o, lse, do, **kw), iters=2, warmup=1)
+        plain_dkv_ms = event_ms(
+            torch, lambda: fa.flash_attention_bwd_dkv_plain(
+                q, k, v, o, lse, do, **kw), iters=2, warmup=1)
         # SDPA forward + backward minus its forward: its backward alone
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
@@ -357,22 +350,26 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
         b_dkv = bound_ms(common + (dk.numel() + dv.numel()) * 2,
                          8.0 * d * pairs)
         log(f"kernel flash_attention_bwd_dq [{name}]: max_abs_err "
-            f"{errs[0][0]:.3e} ms {ms_dq:.4f} bound_ms {b_dq[0]:.4f} "
-            f"({b_dq[1]})")
+            f"{errs[0][0]:.3e} ms {ms_dq:.4f} plain_ms {plain_dq_ms:.4f} "
+            f"bound_ms {b_dq[0]:.4f} ({b_dq[1]})")
         log(f"kernel flash_attention_bwd_dkv [{name}]: max_abs_err dk "
-            f"{errs[1][0]:.3e} dv {errs[2][0]:.3e} ms {ms_dkv:.4f} bound_ms "
-            f"{b_dkv[0]:.4f} ({b_dkv[1]})")
-        log(f"  (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}) plain backward "
-            f"(dq, dk, dv together) ms {plain_ms:.4f}; SDPA backward ms "
-            f"{library_ms:.4f} (forward {fwd_ms:.4f})")
+            f"{errs[1][0]:.3e} dv {errs[2][0]:.3e} ms {ms_dkv:.4f} plain_ms "
+            f"{plain_dkv_ms:.4f} bound_ms {b_dkv[0]:.4f} ({b_dkv[1]})")
+        log(f"  (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}) SDPA backward "
+            f"(dq, dk, dv in one call) ms {library_ms:.4f} (forward "
+            f"{fwd_ms:.4f})")
         if not heads:
+            # SDPA's backward computes dQ, dK and dV in one call; no library
+            # call computes one half, so both rows carry the whole and say so
+            lib_of = "dq+dk+dv (scaled_dot_product_attention backward)"
             heads["flash_attention_bwd_dq"] = dict(
-                max_abs_err=errs[0][0], ms=ms_dq, plain_ms=plain_ms,
-                bound_ms=b_dq[0], bound_by=b_dq[1], library_ms=library_ms)
+                max_abs_err=errs[0][0], ms=ms_dq, plain_ms=plain_dq_ms,
+                bound_ms=b_dq[0], bound_by=b_dq[1], library_ms=library_ms,
+                library_computes=lib_of)
             heads["flash_attention_bwd_dkv"] = dict(
                 max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_dkv,
-                plain_ms=plain_ms, bound_ms=b_dkv[0], bound_by=b_dkv[1],
-                library_ms=library_ms)
+                plain_ms=plain_dkv_ms, bound_ms=b_dkv[0], bound_by=b_dkv[1],
+                library_ms=library_ms, library_computes=lib_of)
         del q, k, v, do, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
     return heads

@@ -12,9 +12,6 @@ training matmuls.
 
     python -m megatron_llm_tpu_torch.finetune --model tiny --mock_data \\
         --train_iters 10 --device cpu --log_interval 1
-    python -m megatron_llm_tpu_torch.finetune --model llama2 --model_size 7b \\
-        --num_layers 8 --norm_impl pallas --mock_data --seq_length 4096 \\
-        --global_batch_size 2 --train_iters 6
 """
 
 from __future__ import annotations
@@ -35,8 +32,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["llama", "llama2", "llama3", "llama3.1",
                             "codellama", "falcon", "gpt", "tiny"])
     g.add_argument("--model_size", default="7b")
-    g.add_argument("--num_layers", type=int, default=None,
-                   help="cut the preset's depth (widths stay published)")
     g.add_argument("--seq_length", type=int, default=None)
     g.add_argument("--rope_scaling_factor", type=float, default=1.0)
     g.add_argument("--rope_scaling_type", default=None,
@@ -50,10 +45,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["float32", "bfloat16", "float16"])
     g.add_argument("--attention_impl", default="flash",
                    choices=["flash", "dot"])
-    g.add_argument("--norm_impl", default=None, choices=["pallas", "xla"],
-                   help="'pallas' selects the RMSNorm kernels (the JAX "
-                        "package's name for its kernel path); default: the "
-                        "preset's ('xla', as the JAX entry trains)")
     g.add_argument("--recompute", default="selective",
                    choices=["none", "selective", "full"])
     g.add_argument("--quantize_matmuls", default="none",
@@ -164,10 +155,6 @@ def build_config(args):
         recompute=args.recompute,
         quantize_matmuls=args.quantize_matmuls,
     )
-    if args.norm_impl:
-        overrides["norm_impl"] = args.norm_impl
-    if args.num_layers:
-        overrides["num_layers"] = args.num_layers
     if args.seq_length:
         overrides["seq_length"] = args.seq_length
     if args.rope_scaling_factor != 1.0:

@@ -141,11 +141,11 @@ flash_attention_fwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              segment_ids=None, softmax_scale=None):
-    """The backward kernels' function in plain torch: ``(dQ, dK, dV)`` in
-    the inputs' dtypes, with P recomputed from ``lse`` as the kernels do
-    (fp32 math; a pair the mask drops has P = 0 exactly)."""
+def _bwd_plain_parts(q, k, v, o, lse, do, causal, segment_ids,
+                     softmax_scale):
+    """What both plain backward halves recompute: P from ``lse`` (a pair
+    the mask drops has P = 0 exactly) and dS, in fp32 math, plus the
+    upcast operands."""
     b, sq, hq, d = q.shape
     _, sk, hk, _ = k.shape
     group = hq // hk
@@ -163,10 +163,37 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     p = torch.where(keep, torch.exp(s - lse), 0.0)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
     ds = p * (dp - delta) * softmax_scale
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    return qf, kf, dof, p, ds
+
+
+def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                                 segment_ids=None, softmax_scale=None):
+    """K2's function in plain torch: dQ in q's dtype."""
+    _, kf, _, _, ds = _bwd_plain_parts(q, k, v, o, lse, do, causal,
+                                       segment_ids, softmax_scale)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(q.shape)
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                                  segment_ids=None, softmax_scale=None):
+    """K3's function in plain torch: ``(dK, dV)`` in k's and v's dtypes,
+    summed over each kv head's q-head group."""
+    qf, _, dof, p, ds = _bwd_plain_parts(q, k, v, o, lse, do, causal,
+                                         segment_ids, softmax_scale)
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              segment_ids=None, softmax_scale=None):
+    """The backward kernels' function in plain torch: ``(dQ, dK, dV)`` in
+    the inputs' dtypes, from the two halves above."""
+    kw = dict(causal=causal, segment_ids=segment_ids,
+              softmax_scale=softmax_scale)
+    return (flash_attention_bwd_dq_plain(q, k, v, o, lse, do, **kw),
+            *flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, **kw))
 
 
 def _check_bwd(q, k, v, do, lse, delta, segment_ids):

@@ -124,8 +124,6 @@ def rmsnorm_bwd(x, weight, rstd, dy):
         raise ValueError("rmsnorm backward: rstd must be the forward's "
                          "contiguous fp32 [rows, 1]")
     dx = launch_bwd_dx(x, weight, rstd, dy)
-    if x.numel():
-        rmsnorm_bwd.launches += 1
     xhat = x.float() * rstd
     return dx, _dweight(dy.float(), xhat, weight)
 
@@ -134,8 +132,9 @@ rmsnorm_bwd.launches = 0
 
 
 def launch_bwd_dx(x, weight, rstd, dy):
-    """dx from one launch of the Triton kernel K5 (checked CUDA operands;
-    ``rmsnorm_bwd`` is the counted entry)."""
+    """dx from one launch of the Triton kernel K5, counted in
+    ``rmsnorm_bwd.launches`` (CUDA operands as ``rmsnorm_bwd`` checks
+    them)."""
     hidden = x.shape[-1]
     rows = x.numel() // hidden
     dx = torch.empty_like(x)
@@ -149,6 +148,7 @@ def launch_bwd_dx(x, weight, rstd, dy):
             rms_bwd_kernel[(rows,)](x, weight, dy, rstd, dx, hidden,
                                     BLOCK=block,
                                     num_warps=max(1, min(16, block // 256)))
+        rmsnorm_bwd.launches += 1
     return dx
 
 

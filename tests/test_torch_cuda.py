@@ -227,6 +227,9 @@ def test_rmsnorm_bwd_matches_plain(cuda_device, rows, h, dtype):
     tol = CARD_TOL if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(dx.float(), dx_ref.float(), **tol)
     torch.testing.assert_close(dw.float(), dw_ref.float(), **tol)
+    # the dx launch counts where it is made, whoever calls it
+    assert torch.equal(trn.launch_bwd_dx(x, w, rstd, dy), dx)
+    assert trn.rmsnorm_bwd.launches == before + 2
 
 
 @pytest.mark.cuda

@@ -352,23 +352,30 @@ def test_train_steps_match_jax_fp32_flash_pallas():
 def test_train_steps_match_jax_bf16_with_fp32_master():
     """bf16 params with fp32 master weights: the forward and backward run
     in bf16 on both sides, which round at different places (2^-8
-    relative per rounding), so losses agree within 1e-2, and the fp32
-    masters within 1e-2 relative (Frobenius).  Per element, Adam moves a
-    param by about lr (1e-3) a step whatever the grad's size, so where a
-    small grad's sign differs between the two bf16 paths the masters part
-    by up to 2 lr a step: 6e-3 over three steps."""
-    jstate, tstate, out = _run_both(dict(params_dtype="bfloat16",
-                                         attention_impl="flash",
-                                         norm_impl="pallas"))
+    relative per rounding), so losses agree within 1e-2.  Three steps
+    move a master by far less than its size (0.2 % for the norm scales),
+    so the masters themselves would agree under any update; each leaf's
+    change from its initial value is held against JAX's instead, within
+    0.1 relative (Frobenius).  Adam moves an element by about lr a step
+    whatever its grad's size, so where a small grad's sign differs
+    between the two bf16 paths the changes part: 0.07 for the embedding,
+    under 0.01 for the norm scales on this input."""
+    model_kw = dict(params_dtype="bfloat16", attention_impl="flash",
+                    norm_impl="pallas")
+    jc, _ = _cfgs(model_kw)
+    init = jax.tree.leaves(_np_tree(jm.init_params(jax.random.key(0),
+                                                   jc.model)))
+    jstate, tstate, out = _run_both(model_kw)
     for t_loss, j_loss, t_norm, j_norm in out:
         assert t_loss == pytest.approx(j_loss, rel=1e-2)
         assert t_norm == pytest.approx(j_norm, rel=5e-2)
     masters = zip(tree_leaves(tstate.opt.master),
-                  jax.tree.leaves(_np_tree(jstate.opt.master)))
-    for t, j in masters:
-        np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=6e-3)
-        rel = float(np.linalg.norm(t.numpy() - j) / np.linalg.norm(j))
-        assert rel <= 1e-2, rel
+                  jax.tree.leaves(_np_tree(jstate.opt.master)), init)
+    for t, j, i in masters:
+        i = i.astype(np.float32)
+        t_move, j_move = t.numpy() - i, j - i
+        rel = float(np.linalg.norm(t_move - j_move) / np.linalg.norm(j_move))
+        assert rel <= 0.1, rel
 
 
 @pytest.mark.parametrize("attn,norm,recompute", [
@@ -511,7 +518,7 @@ def test_finetune_main_trains_tiny_on_cpu(capsys):
          "--device", "cpu", "--log_interval", "1", "--seq_length", "32",
          "--global_batch_size", "4", "--micro_batch_size", "2",
          "--params_dtype", "float32", "--attention_impl", "flash",
-         "--norm_impl", "pallas", "--eval_iters", "1"], capsys)
+         "--eval_iters", "1"], capsys)
     assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
     assert "training finished" in out and "validation loss" in out
 
