@@ -11,9 +11,10 @@ it goes wrong:
    ``nvcc`` per source, all started together (the Triton kernel compiles
    at its first launch);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
-   the card, in bf16, at the serving and training paths' shapes, with its
-   time (CUDA events), its bound on an H100 and one PyTorch library call
-   for the same function as a yardstick (the port never calls those);
+   the card, in bf16, at the serving and training paths' shapes (Llama-2-7B
+   and Falcon-7B's; LayerNorm at GPT-1.3B's too), with its time (CUDA
+   events), its bound on an H100 and one PyTorch library call for the same
+   function as a yardstick (the port never calls those);
 4. reference: Llama-2-7B widths cut to 2 layers, bf16, prefill then paged
    decode steps through the kernels, against the plain fp32 full forward;
 5. serve: Llama-2-7B at full width and depth, random weights from a seed,
@@ -24,13 +25,22 @@ it goes wrong:
    from the same weights;
 7. train: Llama-2-7B widths cut to 8 layers, bf16, seq 4096, global batch
    2 (two microbatches), AdamW, 6 iterations on mock data through
-   ``training.driver.pretrain``, the path ``finetune.main`` takes.
+   ``training.driver.pretrain``, the path ``finetune.main`` takes;
+8. falcon-reference: phases 4 and 6 at Falcon-7B widths (2 layers; the
+   gradients at seq 1024);
+9. falcon-serve: phase 5 with Falcon-7B at full width and depth (MQA,
+   head dim 64, LayerNorm);
+10. falcon-train: phase 7 with Falcon-7B widths cut to 8 layers, seq 2048;
+11. gpt-train: GPT-1.3B at full width and depth with hidden and attention
+    dropout 0.1, seq 1024, 4 iterations, then the first step again from
+    the same seed, which must give the same loss.
 
-Phases 5 and 7 are the two main paths: every kernel's launch counter is
-reset just before each and read just after, and each kernel of a path
-must have been launched in it.  The line before the last is the
-``{"kernels": [...]}`` JSON object (``launches`` sums the two paths'
-counts); the last line is ``{"ok": true, "device": {...}}``.
+Phases 5, 7, 9, 10 and 11 are the main paths: every kernel's launch
+counter is reset just before each and read just after, and each kernel of
+a path must have been launched in it.  The line before the last is the
+``{"kernels": [...]}`` JSON object (``launches`` sums the paths' counts,
+``launches_by_path`` lists them); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # operations/s
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_OPS_S = 989e12
+PEAK_FP32_OPS_S = 67e12  # outside the tensor cores (norms' fp32 math)
 
 
 def log(msg: str) -> None:
@@ -98,10 +109,10 @@ def event_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_OPS_S):
     """(least milliseconds, "bytes" | "operations") on an H100."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_BF16_OPS_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -145,13 +156,17 @@ def _visible_pairs(torch, b, sq, sk, seg, dev):
 
 
 def check_flash_attention(torch, F, fa, dev, gen):
-    """K1 at the prefill shape of Llama-2-7B, plus GQA and segment ids."""
-    cases = [("prefill b1 s1024 h32 causal", 1, 1024, 1024, 32, 32, False),
-             ("gqa b1 s1024 hq32 hk8 causal", 1, 1024, 1024, 32, 8, False),
-             ("segments b2 s512 h32", 2, 512, 512, 32, 32, True)]
+    """K1 at the prefill shape of Llama-2-7B, plus GQA, segment ids and
+    Falcon-7B's (MQA over 71 heads, head dim 64)."""
+    cases = [("prefill b1 s1024 h32 causal", 1, 1024, 1024, 32, 32, 128,
+              False),
+             ("gqa b1 s1024 hq32 hk8 causal", 1, 1024, 1024, 32, 8, 128,
+              False),
+             ("segments b2 s512 h32", 2, 512, 512, 32, 32, 128, True),
+             ("falcon b1 s2048 hq71 hk1 d64 causal", 1, 2048, 2048, 71, 1,
+              64, False)]
     head = None
-    for name, b, sq, sk, hq, hk, segs in cases:
-        d = 128
+    for name, b, sq, sk, hq, hk, d, segs in cases:
         q = torch.randn(b, sq, hq, d, generator=gen, device=dev,
                         dtype=torch.bfloat16)
         k = torch.randn(b, sk, hk, d, generator=gen, device=dev,
@@ -283,12 +298,13 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
     """K2 (dQ) and K3 (dK, dV) at the training shape of Llama-2-7B (b1
     s4096 h32 d128 causal), plus GQA and segment ids, against
     ``flash_attention_bwd_plain`` on K1's own O and lse."""
-    cases = [("train b1 s4096 h32 causal", 1, 4096, 32, 32, False),
-             ("gqa b1 s4096 hq32 hk8 causal", 1, 4096, 32, 8, False),
-             ("segments b2 s2048 h32", 2, 2048, 32, 32, True)]
+    cases = [("train b1 s4096 h32 causal", 1, 4096, 32, 32, 128, False),
+             ("gqa b1 s4096 hq32 hk8 causal", 1, 4096, 32, 8, 128, False),
+             ("segments b2 s2048 h32", 2, 2048, 32, 32, 128, True),
+             ("falcon b1 s2048 hq71 hk1 d64 causal", 1, 2048, 71, 1, 64,
+              False)]
     heads = {}
-    for name, b, s, hq, hk, segs in cases:
-        d = 128
+    for name, b, s, hq, hk, d, segs in cases:
 
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device=dev,
@@ -418,14 +434,105 @@ def check_rmsnorm_bwd(torch, F, rn, dev, gen):
                 bound_by=by, library_ms=library_ms)
 
 
+def _ln_inputs(torch, rows, h, gen, dev):
+    x = (2.0 * torch.randn(rows, h, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    b = (0.1 * torch.randn(h, generator=gen, device=dev)).to(torch.bfloat16)
+    return x, w, b
+
+
+LN_SHAPES = (("falcon-7b rows 2048 h 4544", 2048, 4544),
+             ("gpt-1.3b rows 4096 h 2048", 4096, 2048))
+
+
+def check_layernorm(torch, F, rn, dev, gen):
+    """K6 at Falcon-7B's training rows (2048 x 4544, a hidden size that is
+    not a power of two) and GPT-1.3B's (4096 x 2048), with bias."""
+    head = None
+    for name, rows, h in LN_SHAPES:
+        x, w, b = _ln_inputs(torch, rows, h, gen, dev)
+        y, mean, rstd = rn.layernorm_fwd(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        y_ref, mean_ref, rstd_ref = rn.layernorm_plain(x, w, b, 1e-5)
+        err, ok = close_enough(torch, y, y_ref, BF16_ATOL, BF16_RTOL)
+        err_m, ok_m = close_enough(torch, mean, mean_ref, 1e-5, 1e-5)
+        err_r, ok_r = close_enough(torch, rstd, rstd_ref, 0.0, 1e-5)
+        if not (ok and ok_m and ok_r):
+            raise RuntimeError(f"layernorm {name}: y err {err}, mean err "
+                               f"{err_m}, rstd err {err_r} beyond tolerance")
+        ms = cuda_ms(torch, lambda: rn.layernorm_fwd(x, w, b, 1e-5))
+        plain_ms = cuda_ms(torch, lambda: rn.layernorm_plain(x, w, b, 1e-5))
+        library_ms = cuda_ms(torch, lambda: F.layer_norm(x, (h,), w, b, 1e-5))
+        # x read and y written once, w and b read, mean and rstd written
+        nbytes = 2 * x.numel() * 2 + 2 * h * 2 + 2 * rows * 4
+        bms, by = bound_ms(nbytes, 8.0 * rows * h, PEAK_FP32_OPS_S)
+        log(f"kernel layernorm_fwd [{name}]: max_abs_err {err:.3e} mean "
+            f"{err_m:.3e} rstd {err_r:.3e} (tol atol {BF16_ATOL} rtol "
+            f"{BF16_RTOL:.4f}; mean 1e-5, rstd rtol 1e-5) ms {ms:.4f} "
+            f"plain_ms {plain_ms:.4f} layer_norm_ms {library_ms:.4f} "
+            f"bound_ms {bms:.4f} ({by})")
+        if head is None:
+            head = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+    return head
+
+
+def check_layernorm_bwd(torch, F, rn, dev, gen):
+    """K7 (with dweight and dbias beside it) at the shapes of K6."""
+    head = None
+    for name, rows, h in LN_SHAPES:
+        x, w, b = _ln_inputs(torch, rows, h, gen, dev)
+        dy = torch.randn(rows, h, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        _, mean, rstd = rn.layernorm_fwd(x, w, b, 1e-5)
+        got = rn.layernorm_bwd(x, w, mean, rstd, dy)
+        torch.cuda.synchronize()
+        want = rn.layernorm_bwd_plain(x, w, mean, rstd, dy)
+        errs = [close_enough(torch, g, r, BF16_ATOL, BF16_RTOL)
+                for g, r in zip(got, want)]
+        if not all(ok for _, ok in errs):
+            raise RuntimeError(f"layernorm backward {name}: dx/dw/db err "
+                               f"{[e for e, _ in errs]} beyond tolerance")
+        ms = cuda_ms(torch, lambda: rn.layernorm_bwd(x, w, mean, rstd, dy))
+        dx_ms = cuda_ms(torch, lambda: rn.launch_ln_bwd_dx(x, w, mean, rstd,
+                                                           dy))
+        plain_ms = cuda_ms(torch, lambda: rn.layernorm_bwd_plain(
+            x, w, mean, rstd, dy))
+        xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
+
+        def lib():
+            return torch.autograd.grad(F.layer_norm(xr, (h,), wr, br, 1e-5),
+                                       (xr, wr, br), dy)
+
+        with torch.no_grad():
+            fwd_ms = event_ms(torch, lambda: F.layer_norm(xr, (h,), wr, br,
+                                                          1e-5), iters=20)
+        library_ms = event_ms(torch, lib, iters=20) - fwd_ms
+        # x, dy read and dx written once; w, mean, rstd read; dw, db written
+        nbytes = 3 * x.numel() * 2 + 3 * h * 2 + 2 * rows * 4
+        bms, by = bound_ms(nbytes, 12.0 * rows * h, PEAK_FP32_OPS_S)
+        log(f"kernel layernorm_bwd [{name}]: max_abs_err dx {errs[0][0]:.3e} "
+            f"dw {errs[1][0]:.3e} db {errs[2][0]:.3e} (tol atol {BF16_ATOL} "
+            f"rtol {BF16_RTOL:.4f}) ms {ms:.4f} (dx kernel {dx_ms:.4f} + "
+            f"dw, db reductions) plain_ms {plain_ms:.4f} "
+            f"layer_norm_backward_ms {library_ms:.4f} bound_ms {bms:.4f} "
+            f"({by})")
+        if head is None:
+            head = dict(max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+    return head
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the kernel path against the plain fp32 forward, 7B widths
 # ---------------------------------------------------------------------------
 
 
-def check_reference(torch, M, cfg_full, dev, n_pre=192, n_dec=8, bk=64,
-                    width=256):
-    """Prefill 192 tokens and take 8 paged decode steps at Llama-2-7B
+def check_reference(torch, M, cfg_full, dev, label, n_pre=192, n_dec=8,
+                    bk=64, width=256):
+    """Prefill 192 tokens and take 8 paged decode steps at ``cfg_full``'s
     widths (2 layers) through the kernels, and compare every logit row
     with the plain fp32 full forward over the same tokens."""
     cfg = dataclasses.replace(cfg_full, num_layers=2)
@@ -468,7 +575,7 @@ def check_reference(torch, M, cfg_full, dev, n_pre=192, n_dec=8, bk=64,
     mean_err, max_err = float(diff.mean()), float(diff.max())
     ok = bool(torch.isfinite(got).all()) and mean_err <= 0.03 \
         and max_err <= 0.25
-    log(f"reference [llama2-7b widths, 2 layers, bf16 kernel path vs fp32 "
+    log(f"reference [{label} widths, 2 layers, bf16 kernel path vs fp32 "
         f"plain forward, {n_pre}-token prefill + {n_dec} paged decode "
         f"steps]: logit std {float(ref.std()):.3f} mean_abs_err "
         f"{mean_err:.4f} (tol 0.03) max_abs_err {max_err:.4f} (tol 0.25)")
@@ -489,16 +596,17 @@ def put(port: int, body: dict, timeout: float = 600.0):
         return resp.status, json.loads(resp.read())
 
 
-def serve(torch, cfg, dev, counters, smi,
+def serve(torch, cfg, dev, counters, smi, label, need,
           lens=(64, 1024, 200, 512, 96, 777, 330, 1000), new=32):
     from megatron_llm_tpu_torch.generation import MegatronServer
     from megatron_llm_tpu_torch.models import model as M
     from megatron_llm_tpu_torch.tokenizer import NullTokenizer
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)  # this phase's peak alone
     params = M.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"serve: llama2-7b params {M.num_params(params) / 1e9:.3f}e9 "
+    log(f"serve: {label} params {M.num_params(params) / 1e9:.3f}e9 "
         f"({cfg.params_dtype}) initialised in {time.perf_counter() - t0:.1f}s")
     server = MegatronServer(cfg, params, NullTokenizer(cfg.vocab_size),
                             max_batch_size=4, engine_max_seq_len=2048,
@@ -559,7 +667,7 @@ def serve(torch, cfg, dev, counters, smi,
         dec_s = m1["timers_s"]["serving-decode"] \
             - m0["timers_s"]["serving-decode"]
         dec_tok = m1["decode_tokens"] - m0["decode_tokens"]
-        log(f"serve: {len(lens)} requests ({sum(lens)} prompt tokens, "
+        log(f"serve {label}: {len(lens)} requests ({sum(lens)} prompt tokens, "
             f"{new} new each) over 4 slots in {wall:.2f}s; prefill "
             f"{sum(lens) / pre_s:.1f} tok/s ({pre_s:.3f}s in admission "
             f"prefill), decode {dec_tok / dec_s:.1f} tok/s ({dec_tok} "
@@ -568,9 +676,8 @@ def serve(torch, cfg, dev, counters, smi,
             f"{m1['max_decode_batch']}; peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; host "
             f"clock; card {smi}")
-        log("serve kernels " + json.dumps(launches))
-        missing = [n for n in ("flash_attention_fwd", "flash_decode",
-                               "rmsnorm_fwd") if launches[n] < 1]
+        log(f"serve {label} kernels " + json.dumps(launches))
+        missing = [n for n in need if launches[n] < 1]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: "
                                f"{missing}")
@@ -591,8 +698,10 @@ TRAIN_LOSS_TOL = 0.02
 TRAIN_GRAD_RTOL = 0.05
 
 
-def check_train_reference(torch, M, dev, seq=1024):
-    from megatron_llm_tpu_torch.config import RuntimeConfig, llama2_config
+def check_train_reference(torch, M, dev, preset, label, seq=1024):
+    """The loss and every gradient of ``preset`` cut to 2 layers (bf16,
+    the kernels) against the fp32 plain path from the same weights."""
+    from megatron_llm_tpu_torch.config import RuntimeConfig
     from megatron_llm_tpu_torch.models.transformer import rope_tables
     from megatron_llm_tpu_torch.training.step import _accumulate_grads
     from megatron_llm_tpu_torch.utils.tree import (
@@ -600,9 +709,9 @@ def check_train_reference(torch, M, dev, seq=1024):
         tree_map,
     )
 
-    cfg = llama2_config("7b", num_layers=2, params_dtype="bfloat16",
-                        attention_impl="flash", norm_impl="pallas",
-                        recompute="selective")
+    cfg = preset(num_layers=2, params_dtype="bfloat16",
+                 attention_impl="flash", norm_impl="pallas",
+                 recompute="selective")
     ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
                                   attention_impl="dot", norm_impl="xla",
                                   recompute="none")
@@ -628,7 +737,7 @@ def check_train_reference(torch, M, dev, seq=1024):
         if not math.isfinite(err) or err > worst[1]:
             worst = (".".join(path), err)
     d_loss = abs(loss - ref_loss)
-    log(f"train-reference [llama2-7b widths, 2 layers, seq {seq}, bf16 "
+    log(f"train-reference [{label} widths, 2 layers, seq {seq}, bf16 "
         f"kernel path vs fp32 plain path]: loss {loss:.5f} vs {ref_loss:.5f}"
         f" |d| {d_loss:.5f} (tol {TRAIN_LOSS_TOL}); worst grad rel. "
         f"Frobenius err {worst[1]:.4f} at {worst[0]} (tol "
@@ -643,31 +752,33 @@ def check_train_reference(torch, M, dev, seq=1024):
 # ---------------------------------------------------------------------------
 
 
-def train(torch, dev, counters, smi, iters=6, seq=4096, layers=8):
+def train(torch, dev, counters, smi, model_cfg, label, need, iters=6,
+          seq=4096, global_batch=2):
+    """``iters`` steps of ``model_cfg`` (bf16, AdamW with fp32 masters)
+    on mock data through ``training.driver.pretrain``; returns the launch
+    counts and the per-step losses."""
     from megatron_llm_tpu_torch.config import (
         OptimizerConfig,
         RuntimeConfig,
         TrainConfig,
-        llama2_config,
     )
     from megatron_llm_tpu_torch.finetune import _MockDataset
     from megatron_llm_tpu_torch.models import model as M
     from megatron_llm_tpu_torch.training.driver import pretrain
 
     cfg = RuntimeConfig(
-        model=llama2_config("7b", num_layers=layers,
-                            params_dtype="bfloat16", attention_impl="flash",
-                            norm_impl="pallas", recompute="selective"),
+        model=model_cfg,
         optimizer=OptimizerConfig(lr_warmup_iters=2),
         train=TrainConfig(train_iters=iters, micro_batch_size=1,
-                          global_batch_size=2, seq_length=seq,
+                          global_batch_size=global_batch, seq_length=seq,
                           log_interval=1)).validate()
     params = M.init_params(cfg.model, seed=cfg.train.seed, device=dev)
     # bf16 matmul weights (|w| ~ 0.02, bf16 spacing ~1e-4) move visibly
     # under lr 3e-4; norm scales at 1.0 (spacing 2^-7) move in the fp32
     # master first
-    watch = {"wq": params["layers"]["attn"]["wq"][0, :4],
-             "lm_head": params["lm_head"][:4]}
+    head = params["lm_head"] if "lm_head" in params \
+        else params["embedding"]["word"]
+    watch = {"wq": params["layers"]["attn"]["wq"][0, :4], "unembed": head[:4]}
     before = {k: v.clone() for k, v in watch.items()}
     n_params = M.num_params(params)
     steps = []
@@ -683,7 +794,7 @@ def train(torch, dev, counters, smi, iters=6, seq=4096, layers=8):
                   sec)))
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    log("train kernels " + json.dumps(launches))
+    log(f"train {label} kernels " + json.dumps(launches))
     if len(steps) != iters:
         raise RuntimeError(f"train: {len(steps)} steps, want {iters}")
     for i, (loss, norm, skipped, _) in enumerate(steps):
@@ -694,25 +805,57 @@ def train(torch, dev, counters, smi, iters=6, seq=4096, layers=8):
     if unchanged:
         raise RuntimeError(f"train: params unchanged after {iters} steps: "
                            f"{unchanged}")
-    missing = [n for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                           "flash_attention_bwd_dkv", "rmsnorm_fwd",
-                           "rmsnorm_bwd") if launches[n] < 1]
+    missing = [n for n in need if launches[n] < 1]
     if missing:
         raise RuntimeError(f"kernels never launched on the training path: "
                            f"{missing}")
-    # steady steps: the first one compiles the Triton kernels
-    step_s = sorted(sec for *_, sec in steps[1:])[(iters - 1) // 2]
-    tokens = cfg.train.global_batch_size * seq
-    tflops = tokens / step_s * 3.0 * M.flops_per_token(cfg.model, seq) / 1e12
-    log(f"train: llama2-7b widths, {layers} layers ({n_params / 1e9:.3f}e9 "
-        f"params, bf16, fp32 master + AdamW), seq {seq}, global batch 2 "
-        f"(2 microbatches), {iters} steps; losses "
-        f"{[round(x[0], 4) for x in steps]}, grad norms "
-        f"{[round(x[1], 3) for x in steps]}; step (median of steps 2-{iters}) "
-        f"{step_s * 1e3:.1f} ms, first step {steps[0][3] * 1e3:.1f} ms; "
-        f"{tokens / step_s:.1f} tokens/s; model {tflops:.1f} TFLOP/s, MFU "
-        f"{tflops / (PEAK_BF16_OPS_S / 1e12):.4f} of 989 TFLOP/s; peak "
-        f"memory {peak / 2**30:.1f} GiB; host clock; card {smi}")
+    if iters > 1:
+        # steady steps: the first one compiles the Triton kernels
+        step_s = sorted(sec for *_, sec in steps[1:])[(iters - 1) // 2]
+        tokens = cfg.train.global_batch_size * seq
+        tflops = tokens / step_s * 3.0 * M.flops_per_token(cfg.model, seq) \
+            / 1e12
+        log(f"train: {label}, {cfg.model.num_layers} layers "
+            f"({n_params / 1e9:.3f}e9 params, bf16, fp32 master + AdamW), "
+            f"seq {seq}, global batch {global_batch} ({global_batch} "
+            f"microbatches), {iters} steps; losses "
+            f"{[round(x[0], 4) for x in steps]}, grad norms "
+            f"{[round(x[1], 3) for x in steps]}; step (median of steps "
+            f"2-{iters}) {step_s * 1e3:.1f} ms, first step "
+            f"{steps[0][3] * 1e3:.1f} ms; {tokens / step_s:.1f} tokens/s; "
+            f"model {tflops:.1f} TFLOP/s, MFU "
+            f"{tflops / (PEAK_BF16_OPS_S / 1e12):.4f} of 989 TFLOP/s; peak "
+            f"memory {peak / 2**30:.1f} GiB; host clock; card {smi}")
+    return launches, [x[0] for x in steps]
+
+
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def train_gpt(torch, dev, counters, smi):
+    """Phase 11: GPT-1.3B with the reference's dropout; attention dropout
+    routes attention to the einsum path, so the LayerNorm kernels are this
+    path's kernels.  A second run of one step from the same seed must give
+    the first step's loss exactly (the dropout masks depend on their keys
+    alone)."""
+    from megatron_llm_tpu_torch.config import gpt_config
+
+    cfg = gpt_config("1.3b", params_dtype="bfloat16", attention_impl="flash",
+                     norm_impl="pallas", recompute="selective",
+                     hidden_dropout=0.1, attention_dropout=0.1)
+    launches, losses = train(torch, dev, counters, smi, cfg,
+                             "gpt-1.3b (dropout 0.1)",
+                             ("layernorm_fwd", "layernorm_bwd"), iters=4,
+                             seq=1024)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, again = train(torch, dev, counters, smi, cfg, "gpt-1.3b (repeat)",
+                     (), iters=1, seq=1024)
+    log(f"train gpt-1.3b: first-step loss {losses[0]!r}, again from the "
+        f"same seed {again[0]!r}")
+    if again[0] != losses[0]:
+        raise RuntimeError("gpt: the same seed gave another first-step loss")
     return launches
 
 
@@ -724,7 +867,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from megatron_llm_tpu_torch.config import llama2_config
+    from megatron_llm_tpu_torch.config import falcon_config, llama2_config
     from megatron_llm_tpu_torch.kernels import build, launch_counters
     from megatron_llm_tpu_torch.kernels import flash_attention as fa
     from megatron_llm_tpu_torch.kernels import flash_decode as fd
@@ -757,24 +900,70 @@ def main() -> int:
                                                          gen),
             "flash_decode": check_flash_decode(torch, F, fd, dev, gen),
             "rmsnorm_fwd": check_rmsnorm(torch, F, rn, dev, gen),
+            "layernorm_fwd": check_layernorm(torch, F, rn, dev, gen),
         }
         rows.update(check_flash_attention_bwd(torch, F, fa, dev, gen))
     rows["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, F, rn, dev, gen)
+    rows["layernorm_bwd"] = check_layernorm_bwd(torch, F, rn, dev, gen)
     torch.cuda.empty_cache()
     cfg = llama2_config("7b", params_dtype="bfloat16", attention_impl="flash",
                         norm_impl="pallas", fused_decode=False)
-    check_reference(torch, M, cfg, dev)
+    check_reference(torch, M, cfg, dev, "llama2-7b")
     torch.cuda.empty_cache()
+
+    def settle():
+        gc.collect()
+        torch.cuda.empty_cache()
 
     counters = launch_counters()
-    served = serve(torch, cfg, dev, counters, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
+    paths = {}
+    t0 = time.perf_counter()
+    paths["serve llama2-7b"] = serve(
+        torch, cfg, dev, counters, smi, "llama2-7b",
+        ("flash_attention_fwd", "flash_decode", "rmsnorm_fwd"))
+    settle()
+    check_train_reference(torch, M, dev, lambda **kw: llama2_config(
+        "7b", **kw), "llama2-7b")
+    settle()
+    paths["train llama2-7b widths"], _ = train(
+        torch, dev, counters, smi,
+        llama2_config("7b", num_layers=8, params_dtype="bfloat16",
+                      attention_impl="flash", norm_impl="pallas",
+                      recompute="selective"),
+        "llama2-7b widths", TRAIN_KERNELS + ("rmsnorm_fwd", "rmsnorm_bwd"))
+    settle()
+    log(f"llama phases 5-7 in {time.perf_counter() - t0:.1f}s")
 
-    check_train_reference(torch, M, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    trained = train(torch, dev, counters, smi)
+    t0 = time.perf_counter()
+    falcon = falcon_config("7b", params_dtype="bfloat16",
+                           attention_impl="flash", norm_impl="pallas",
+                           fused_decode=False)
+    check_reference(torch, M, falcon, dev, "falcon-7b")
+    settle()
+    check_train_reference(torch, M, dev, lambda **kw: falcon_config(
+        "7b", **kw), "falcon-7b")
+    settle()
+    paths["serve falcon-7b"] = serve(torch, falcon, dev, counters, smi,
+                                     "falcon-7b",
+                                     ("flash_attention_fwd", "layernorm_fwd"))
+    log(f"serve falcon-7b: flash_decode launches "
+        f"{paths['serve falcon-7b']['flash_decode']}: its 71 query heads over "
+        f"one KV head are a group above the kernel's 8 (and the JAX "
+        f"package's predicate takes head dim 128 only), so both packages "
+        f"decode Falcon-7B on the einsum path")
+    settle()
+    paths["train falcon-7b widths"], _ = train(
+        torch, dev, counters, smi,
+        falcon_config("7b", num_layers=8, params_dtype="bfloat16",
+                      attention_impl="flash", norm_impl="pallas",
+                      recompute="selective"),
+        "falcon-7b widths", TRAIN_KERNELS + ("layernorm_fwd",
+                                             "layernorm_bwd"), seq=2048)
+    settle()
+    log(f"falcon phases 8-10 in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    paths["train gpt-1.3b"] = train_gpt(torch, dev, counters, smi)
+    log(f"gpt phase 11 in {time.perf_counter() - t0:.1f}s")
 
     meta = {
         "flash_attention_fwd": (
@@ -795,13 +984,20 @@ def main() -> int:
         "rmsnorm_bwd": (
             "triton", "megatron_llm_tpu_torch/kernels/rmsnorm_triton.py",
             "megatron_llm_tpu/kernels/rmsnorm.py:87"),
+        "layernorm_fwd": (
+            "triton", "megatron_llm_tpu_torch/kernels/rmsnorm_triton.py",
+            "megatron_llm_tpu/kernels/rmsnorm.py:65"),
+        "layernorm_bwd": (
+            "triton", "megatron_llm_tpu_torch/kernels/rmsnorm_triton.py",
+            "megatron_llm_tpu/kernels/rmsnorm.py:96"),
     }
     kernels = []
     for kname, (route, source, replaces) in meta.items():
+        by_path = {p: n[kname] for p, n in paths.items()}
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,
-                            launches=served[kname] + trained[kname],
-                            **rows[kname]))
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path, **rows[kname]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

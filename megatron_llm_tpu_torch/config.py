@@ -6,8 +6,8 @@ with torch dtypes, and the ``ParallelConfig``, ``OptimizerConfig``,
 default and preset is the same, so a config built here describes the same
 run as its JAX twin.  ``RuntimeConfig.validate`` refuses, with
 ``NotImplementedError`` naming the ROADMAP item, what the single-device
-training slice does not run: parallel degrees above 1, dropout and
-drop-path, and the fused LM head.
+training path does not run: parallel degrees above 1 and the fused LM
+head.
 """
 
 from __future__ import annotations
@@ -97,8 +97,8 @@ class ModelConfig:
     flash_block_k: int = 1024
     lima_dropout: bool = False
     drop_path_rate: float = 0.0
-    # "pallas" selects the port's Triton RMSNorm kernel (the name is the
-    # JAX package's); "xla" the plain torch math
+    # "pallas" selects the port's Triton RMSNorm / LayerNorm kernels (the
+    # name is the JAX package's); "xla" the plain torch math
     norm_impl: str = "xla"
     fused_decode: bool = True
     quantize_matmuls: str = "none"
@@ -307,12 +307,6 @@ class RuntimeConfig:
             raise NotImplementedError(
                 "fused_lm_head (fused_linear_cross_entropy) is not ported "
                 "yet (ROADMAP.md, Queue 1: decoder forward and backward)")
-        if (m.hidden_dropout or m.attention_dropout or m.lima_dropout
-                or m.drop_path_rate):
-            raise NotImplementedError(
-                "dropout, LIMA dropout and drop-path are not ported yet: the "
-                "port trains deterministically (ROADMAP.md, Queue 1: "
-                "decoder forward and backward)")
         m.validate()
         self.parallel.validate()
         mb = self.train.micro_batch_size
@@ -321,6 +315,13 @@ class RuntimeConfig:
         if gb % (mb * dp):
             raise ValueError(f"global_batch_size {gb} must divide by "
                              f"micro_batch {mb} * dp {dp}")
+        if (m.position_embedding_type == PositionEmbeddingType.ABSOLUTE
+                and self.train.seq_length > m.max_position_embeddings):
+            # an index past the learned table: torch raises (on the card, a
+            # device-side assert) where XLA's gather would clamp
+            raise ValueError(
+                f"seq_length {self.train.seq_length} exceeds the learned "
+                f"position table ({m.max_position_embeddings} rows)")
         return self
 
     @property

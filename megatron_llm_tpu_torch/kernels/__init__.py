@@ -4,7 +4,8 @@
   and backward, dQ and dK/dV (``csrc/flash_attention_bwd.cu``).
 - ``flash_decode.py``: single-token decode attention over a dense cache
   (``csrc/flash_decode.cu``).
-- ``rmsnorm.py``: RMSNorm forward and dx (Triton, ``rmsnorm_triton.py``).
+- ``rmsnorm.py``: RMSNorm and LayerNorm, forward and dx (Triton,
+  ``rmsnorm_triton.py``).
 - ``build.py``: ``nvcc`` into ``build/kernels/`` and ``ctypes`` loading.
 
 Each wrapper counts its launches in a ``launches`` attribute.
@@ -20,11 +21,18 @@ def launch_counters() -> dict:
         flash_attention_fwd,
     )
     from .flash_decode import flash_decode
-    from .rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+    from .rmsnorm import (
+        layernorm_bwd,
+        layernorm_fwd,
+        rmsnorm_bwd,
+        rmsnorm_fwd,
+    )
 
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "flash_decode": flash_decode,
             "rmsnorm_fwd": rmsnorm_fwd,
-            "rmsnorm_bwd": rmsnorm_bwd}
+            "rmsnorm_bwd": rmsnorm_bwd,
+            "layernorm_fwd": layernorm_fwd,
+            "layernorm_bwd": layernorm_bwd}

@@ -1,6 +1,8 @@
 """Causal language model: embedding → decoder stack → lm head (mirror of
 ``megatron_llm_tpu/models/model.py``).  ``forward`` serves inference and
-training (differentiable through the kernels' autograd Functions);
+training (differentiable through the kernels' autograd Functions; with a
+``DropoutKey`` it applies embedding, hidden and attention dropout as the
+JAX forward does with an rng);
 ``forward_cached`` / ``forward_cached_paged`` and the KV-cache and paged
 block-pool helpers are what the serving engine drives; ``flops_per_token``
 is the analytic count the training log reports against.
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from ..config import ModelConfig, PositionEmbeddingType
+from ..ops import dropout as drop
 from ..ops.norms import norm_apply, norm_init
 from .transformer import (
     AttnSideInputs,
@@ -70,7 +73,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 
 def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
           position_ids: Optional[torch.Tensor] = None,
-          tokentype_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+          tokentype_ids: Optional[torch.Tensor] = None,
+          dropout_key=None) -> torch.Tensor:
+    """Token (+ learned position, + tokentype) embedding, then embedding
+    dropout with ``dropout_key`` (JAX ``model.py:77-93``)."""
     word = params["embedding"]["word"]
     if isinstance(word, dict):
         raise NotImplementedError("the int8 embedding table is not ported "
@@ -84,7 +90,7 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         x = x + params["embedding"]["position"][position_ids]
     if tokentype_ids is not None and "tokentype" in params["embedding"]:
         x = x + params["embedding"]["tokentype"][tokentype_ids]
-    return x
+    return drop.dropout(x, cfg.hidden_dropout, dropout_key)
 
 
 def unembed_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -103,26 +109,45 @@ def _rope(cfg, params, rope):
     return rope_tables(cfg, device=params["embedding"]["word"].device)
 
 
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   *, position_ids: Optional[torch.Tensor] = None,
+                   segment_ids: Optional[torch.Tensor] = None,
+                   tokentype_ids: Optional[torch.Tensor] = None,
+                   rng: Optional[drop.DropoutKey] = None,
+                   rope: Optional[tuple] = None):
+    """Forward through the final norm → ``(hidden [b, s, h], moe_aux)``,
+    the aux a 0 scalar for the dense models the port runs.
+
+    Dropout is on exactly when ``rng`` is given (JAX's ``deterministic =
+    rng is None``): the key splits into the embedding's and the stack's,
+    as JAX ``model.py:137-144`` does."""
+    cos, sin = _rope(cfg, params, rope)
+    embed_key = stack_key = None
+    if rng is not None:
+        embed_key, stack_key = drop.split(rng)
+    x = embed(cfg, params, tokens, position_ids, tokentype_ids, embed_key)
+    side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
+                          position_ids=position_ids, segment_ids=segment_ids)
+    x = stack_forward(cfg, params["layers"], x, side, stack_key)
+    x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
+                   impl=cfg.norm_impl)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             position_ids: Optional[torch.Tensor] = None,
             segment_ids: Optional[torch.Tensor] = None,
             tokentype_ids: Optional[torch.Tensor] = None,
+            rng: Optional[drop.DropoutKey] = None,
             rope: Optional[tuple] = None, return_aux: bool = False):
-    """Full forward to logits ``[b, s, padded_vocab]`` (fp32).
-
-    With ``return_aux`` also returns the MoE load-balance aux loss, as in
-    JAX: a 0 scalar for the dense models the port runs."""
-    cos, sin = _rope(cfg, params, rope)
-    x = embed(cfg, params, tokens, position_ids, tokentype_ids)
-    side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
-                          position_ids=position_ids, segment_ids=segment_ids)
-    x = stack_forward(cfg, params["layers"], x, side)
-    x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
-                   impl=cfg.norm_impl)
+    """Full forward to logits ``[b, s, padded_vocab]`` (fp32), built on
+    ``forward_hidden``; with ``return_aux`` also the MoE aux loss."""
+    x, aux = forward_hidden(cfg, params, tokens, position_ids=position_ids,
+                            segment_ids=segment_ids,
+                            tokentype_ids=tokentype_ids, rng=rng, rope=rope)
     logits = unembed(cfg, params, x).float()
     if return_aux:
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=logits.device)
+        return logits, aux
     return logits
 
 

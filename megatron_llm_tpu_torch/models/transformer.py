@@ -12,9 +12,11 @@ layer runs inside ``torch.utils.checkpoint`` as ``cfg.recompute`` says:
 saves the projection matmuls' outputs (``aten.mm``) and recomputes the
 rest, as JAX's ``dots_with_no_batch_dims_saveable`` policy does, and
 ``"none"`` saves everything.  The policy changes memory and time, not the
-numbers.  The forward is deterministic: dropout and drop-path are refused
-by ``RuntimeConfig.validate``.  MoE layers and quantized weights belong to
-later slices and raise here.
+numbers, with dropout on too: ``stack_forward`` takes the stack's
+``DropoutKey`` and each layer folds in its index, so a recomputed layer
+redraws the forward's masks from the same keys (``ops/dropout.py``).
+Without a key the forward is deterministic.  MoE layers and quantized
+weights belong to later slices and raise here.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..config import ModelConfig, PositionEmbeddingType
+from ..ops import dropout as drop
 from ..ops.activations import get_activation, is_glu
 from ..ops.attention import attention, decode_attention
 from ..ops.kv_quant import cache_update
@@ -147,9 +150,12 @@ class AttnSideInputs:
 
 
 def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                    side: AttnSideInputs, kv_cache: Optional[tuple] = None):
+                    side: AttnSideInputs, layer_key=None,
+                    kv_cache: Optional[tuple] = None):
     """QKV projection → RoPE → attention → output projection.
 
+    With a ``layer_key`` and ``cfg.attention_dropout`` the attention
+    probabilities are dropped with the key folded with 1, as in JAX.
     ``kv_cache`` is ``(k_cache, v_cache, cache_len)`` with head-major
     caches ``[b, nkv, max_len, d]``; the new rows are written into the
     caches in place (``ops/kv_quant.cache_update``) and the call returns
@@ -175,6 +181,9 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
         q = apply_rope(q, side.rope_cos, side.rope_sin, position_ids)
         k = apply_rope(k, side.rope_cos, side.rope_sin, position_ids)
     softmax_scale = 1.0 / (d ** 0.5)
+    drop_key = None
+    if layer_key is not None and cfg.attention_dropout > 0.0:
+        drop_key = drop.fold_in(layer_key, 1)
 
     new_rows = None
     if kv_cache is not None:
@@ -195,7 +204,10 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
         ctx = attention(q, k.contiguous(), v.contiguous(),
                         impl=cfg.attention_impl, causal=side.causal,
                         segment_ids=side.segment_ids,
-                        softmax_scale=softmax_scale, bias=side.attn_bias)
+                        softmax_scale=softmax_scale,
+                        dropout_rate=(0.0 if layer_key is None
+                                      else cfg.attention_dropout),
+                        dropout_key=drop_key, bias=side.attn_bias)
     out = proj(cfg, ctx.reshape(b, s, nq * d), p["wo"])
     if "bo" in p:
         out = out + p["bo"]
@@ -226,29 +238,46 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                  side: AttnSideInputs, kv_cache: Optional[tuple] = None):
-    """One pre-LN residual block (sequential or Falcon-parallel), without
-    dropout.  Returns ``out``, or ``(out, new_rows)`` with ``kv_cache``."""
+                  side: AttnSideInputs, layer_key=None,
+                  kv_cache: Optional[tuple] = None, layer_idx: int = 0):
+    """One pre-LN residual block (sequential or Falcon-parallel).  Returns
+    ``out``, or ``(out, new_rows)`` with ``kv_cache``.
+
+    With a ``layer_key`` each residual branch takes dropout then
+    drop-path (reference order: residual + drop_path(dropout(out)),
+    transformer.py:717-734) at ``layer_idx``'s rates: the parallel block
+    one mask on ``attn_out + mlp_out`` (salt 2), the sequential block one
+    per branch (salts 2 and 3), drop-path at salt + 2."""
+    hidden_rate, path_rate = drop.layer_rates(cfg, layer_idx)
+
+    def branch_drop(out, salt):
+        if layer_key is None:
+            return out
+        out = drop.dropout(out, hidden_rate, drop.fold_in(layer_key, salt))
+        return drop.drop_path(out, path_rate,
+                              drop.fold_in(layer_key, salt + 2))
+
     residual = x
     h1 = norm_apply(cfg.norm_type, x, p["input_norm"], cfg.norm_eps,
                     impl=cfg.norm_impl)
     new_rows = None
     if kv_cache is not None:
         attn_out, new_rows = attention_block(cfg, p["attn"], h1, side,
-                                             kv_cache)
+                                             kv_cache=kv_cache)
     else:
-        attn_out = attention_block(cfg, p["attn"], h1, side)
+        attn_out = attention_block(cfg, p["attn"], h1, side, layer_key)
     if cfg.parallel_attn:
         mlp_in = h1
         if cfg.parallel_layernorm:
             mlp_in = norm_apply(cfg.norm_type, x, p["mlp_norm"], cfg.norm_eps,
                                 impl=cfg.norm_impl)
-        result = residual + (attn_out + mlp_block(cfg, p["mlp"], mlp_in))
+        result = residual + branch_drop(
+            attn_out + mlp_block(cfg, p["mlp"], mlp_in), 2)
     else:
-        x = residual + attn_out
+        x = residual + branch_drop(attn_out, 2)
         h2 = norm_apply(cfg.norm_type, x, p["post_attn_norm"], cfg.norm_eps,
                         impl=cfg.norm_impl)
-        result = x + mlp_block(cfg, p["mlp"], h2)
+        result = x + branch_drop(mlp_block(cfg, p["mlp"], h2), 3)
     if kv_cache is not None:
         return result, new_rows
     return result
@@ -264,30 +293,32 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 
 
 def _layer_runner(cfg: ModelConfig):
-    """``run(fn, x, p)`` for one layer under ``cfg.recompute``."""
+    """``run(fn, *args)`` for one layer under ``cfg.recompute``."""
     if cfg.recompute not in ("none", "selective", "full"):
         raise ValueError(f"unknown recompute {cfg.recompute!r} "
                          "(want 'none'|'selective'|'full')")
     if cfg.recompute == "none" or not torch.is_grad_enabled():
-        return lambda fn, x, p: fn(x, p)
+        return lambda fn, *args: fn(*args)
     kwargs = {"use_reentrant": False}
     if cfg.recompute == "selective":
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_matmuls)
-    return lambda fn, x, p: checkpoint(fn, x, p, **kwargs)
+    return lambda fn, *args: checkpoint(fn, *args, **kwargs)
 
 
 def stack_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
-                  side: AttnSideInputs) -> torch.Tensor:
+                  side: AttnSideInputs, key=None) -> torch.Tensor:
     """All layers, in order, each checkpointed as ``cfg.recompute`` says
-    when autograd is on."""
+    when autograd is on.  ``key`` (the stack's ``DropoutKey``, or None for
+    no dropout) is folded with each layer's index, as JAX's scan does."""
     run = _layer_runner(cfg)
 
-    def layer(h, p):
-        return layer_forward(cfg, p, h, side)
+    def layer(h, p, layer_key, idx):
+        return layer_forward(cfg, p, h, side, layer_key, layer_idx=idx)
 
-    for p in unstack_layers(stacked):
-        x = run(layer, x, p)
+    for i, p in enumerate(unstack_layers(stacked)):
+        layer_key = None if key is None else drop.fold_in(key, i)
+        x = run(layer, x, p, layer_key, i)
     return x
 
 

@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from .dropout import dropout
+
 
 def decode_kernel_eligible(q, k_cache) -> bool:
     """The port's predicate for the decode fast path: one new token per
@@ -91,10 +93,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
 
 
 def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
-                          segment_ids=None, softmax_scale=None) -> torch.Tensor:
+                          segment_ids=None, softmax_scale=None,
+                          dropout_rate: float = 0.0,
+                          dropout_key=None) -> torch.Tensor:
     """Einsum attention, q ``[b, sq, hq, d]``, k/v ``[b, sk, hk, d]``, with
-    an fp32 softmax.  (Attention dropout is refused by
-    ``RuntimeConfig.validate``: the port trains deterministically.)"""
+    an fp32 softmax.  Attention dropout (JAX ``ops/attention.py:488-490``)
+    drops the probabilities, in v's dtype, with the mask of
+    ``dropout_key`` over ``[b, kv_heads, group, sq, sk]``."""
     b, sq, n_heads, d = q.shape
     _, sk, kv_heads, _ = k.shape
     group = n_heads // kv_heads
@@ -118,20 +123,29 @@ def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
     probs = torch.softmax(scores.float(), dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
     probs = probs.to(v.dtype)
+    probs = dropout(probs, dropout_rate, dropout_key)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, n_heads, d)
 
 
 def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
-              segment_ids=None, softmax_scale=None, bias=None,
-              cp_axis: str | None = None, mesh=None) -> torch.Tensor:
+              segment_ids=None, softmax_scale=None, dropout_rate: float = 0.0,
+              dropout_key=None, bias=None, cp_axis: str | None = None,
+              mesh=None) -> torch.Tensor:
     """Dispatcher: ``"flash"`` → the flash kernel module, ``"dot"`` → the
-    einsum path.  A bias rules the flash kernel out (as in JAX)."""
+    einsum path.
+
+    The flash kernel takes neither a bias nor attention dropout, so a bias
+    or a nonzero ``dropout_rate`` routes ``"flash"`` to the einsum path:
+    the JAX package's own routing (``ops/attention.py:542``), where the
+    reference also applies attention dropout outside its fused kernel.
+    Training GPT with ``attention_dropout`` therefore runs einsum
+    attention; evaluation and serving (no key, rate 0) keep the kernel."""
     if cp_axis is not None or mesh is not None:
         raise NotImplementedError(
             "ring attention / context parallelism is not ported yet "
             "(ROADMAP.md, Queue 1: pipeline, context and expert parallelism)")
-    if impl == "flash" and bias is None:
+    if impl == "flash" and bias is None and dropout_rate == 0.0:
         from ..kernels.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=causal,
@@ -139,4 +153,5 @@ def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
                                softmax_scale=softmax_scale)
     return dot_product_attention(
         q, k, v, causal=causal, segment_ids=segment_ids,
-        softmax_scale=softmax_scale, bias=bias)
+        softmax_scale=softmax_scale, dropout_rate=dropout_rate,
+        dropout_key=dropout_key, bias=bias)

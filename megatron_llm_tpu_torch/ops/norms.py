@@ -3,11 +3,9 @@
 
 ``impl="xla"`` is the plain torch math (the JAX package's XLA path);
 ``impl="pallas"`` keeps the JAX package's name and selects the port's
-RMSNorm autograd Function (``kernels/rmsnorm.py``: the Triton forward and
-dx kernels on CUDA tensors, their plain versions on CPU tensors), so the
-same call serves inference and training.  LayerNorm has no kernel in the
-port yet: under ``impl="pallas"`` it raises rather than silently running
-plain math.
+autograd Functions of ``kernels/rmsnorm.py``, RMSNorm's or LayerNorm's:
+the Triton forward and dx kernels on CUDA tensors, their plain versions
+on CPU tensors, so the same call serves inference and training.
 """
 
 from __future__ import annotations
@@ -48,9 +46,10 @@ def norm_apply(norm_type: str, x, params: dict, eps: float,
         return rmsnorm_ref(x, params["scale"], eps)
     if norm_type == "layernorm":
         if impl == "pallas":
-            raise NotImplementedError(
-                "the LayerNorm kernel is not ported yet (ROADMAP.md, "
-                "Queue 2: rmsnorm.py:layernorm_pallas); use norm_impl='xla'")
+            from ..kernels.rmsnorm import layernorm
+
+            return layernorm(x.contiguous(), params["scale"],
+                             params.get("bias"), eps)
         return layernorm_ref(x, params["scale"], params.get("bias"), eps)
     raise ValueError(f"unknown norm type {norm_type}")
 

@@ -1,11 +1,13 @@
 """Where a served request's device time goes, on one CUDA card.
 
-    python3 -m megatron_llm_tpu_torch.serving.profile [--layers N]
+    python3 -m megatron_llm_tpu_torch.serving.profile [--model M]
+        [--layers N]
 
-Serves Llama-2-7B widths (bf16, random weights from a seed, the flash /
-RMSNorm kernels, 4 slots, 64-token KV blocks: the configuration
-``chip_smoke.py`` serves) through ``ServingEngine`` and traces two windows
-with ``torch.profiler`` (CUDA activity only):
+Serves Llama-2-7B (``--model llama2``) or Falcon-7B (``falcon``) widths
+(bf16, random weights from a seed, the flash and norm kernels, 4 slots,
+64-token KV blocks: the configurations ``chip_smoke.py`` serves) through
+``ServingEngine`` and traces two windows with ``torch.profiler`` (CUDA
+activity only):
 
 1. **prefill**: the admission of one 1024-token prompt;
 2. **decode**: steady batched decode of 4 requests (prompts of 512-1024
@@ -13,7 +15,7 @@ with ``torch.profiler`` (CUDA activity only):
 
 For each window it prints the host-clock window, the device's busy time
 (the union of its kernel and copy intervals) and idle share, and the
-device time by kernel family (the port's three kernels, cuBLAS matmuls,
+device time by kernel family (the port's kernels, cuBLAS matmuls,
 copies, the largest other kernels), per prefill or per decode step.  The
 profiler slows the host's launches, so where the host bounds the step
 the traced window, and with it the idle share, is longer than an
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..config import llama2_config
+from ..config import falcon_config, llama2_config
 from ..models import model as model_lib
 from .engine import EngineConfig, ServingEngine
 
@@ -43,7 +45,9 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _FAMILIES = (("flash_attention_fwd", ("flash_fwd_kernel",)),
              ("flash_decode", ("flash_decode_kernel",)),
              ("rmsnorm_fwd", ("rms_fwd_kernel",)),
+             ("layernorm_fwd", ("ln_fwd_kernel",)),
              ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet")))
+_MODELS = {"llama2": llama2_config, "falcon": falcon_config}
 
 
 def _family(name: str, cat: str, families=_FAMILIES) -> str:
@@ -108,8 +112,9 @@ def _traced(name: str, run):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="llama2", choices=sorted(_MODELS))
     ap.add_argument("--layers", type=int, default=32,
-                    help="depth (Llama-2-7B has 32)")
+                    help="depth (both 7B models have 32)")
     ap.add_argument("--decode-steps", type=int, default=48)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -120,9 +125,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    cfg = llama2_config("7b", params_dtype="bfloat16", attention_impl="flash",
-                        norm_impl="pallas", fused_decode=False,
-                        num_layers=args.layers)
+    cfg = _MODELS[args.model]("7b", params_dtype="bfloat16",
+                              attention_impl="flash", norm_impl="pallas",
+                              fused_decode=False, num_layers=args.layers)
     params = model_lib.init_params(cfg, seed=0, device=dev)
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
@@ -139,7 +144,7 @@ def main(argv=None) -> int:
                                      for n in (64, 1024)]):
             h.result(600)
 
-        pre_path, pre_s, _ = _traced("prefill", lambda: engine.submit(
+        pre_path, pre_s, _ = _traced(f"prefill-{args.model}", lambda: engine.submit(
             prompt(1024), 1, use_eos_stop=False).result(600))
         report = {"prefill_1024": device_summary(pre_path, pre_s, 1)}
 
@@ -162,14 +167,15 @@ def main(argv=None) -> int:
                 time.sleep(0.001)
             return engine.metrics.snapshot()["decode_iterations"] - it0
 
-        dec_path, dec_s, steps = _traced("decode", decode_window)
+        dec_path, dec_s, steps = _traced(f"decode-{args.model}",
+                                         decode_window)
         for h in handles:
             h.result(600)
         report["decode_step_batch4"] = device_summary(dec_path, dec_s, steps)
     finally:
         engine.shutdown()
-    print(f"card: {smi}; llama2-7b widths, {args.layers} layers, bf16; "
-          f"traces in {TRACE_DIR}")
+    print(f"card: {smi}; {args.model}-7b widths, {args.layers} layers, "
+          f"bf16; traces in {TRACE_DIR}")
     print(json.dumps(report, indent=1))
     return 0
 

@@ -30,6 +30,7 @@ from ..config import RuntimeConfig
 from ..data.samplers import BatchIterator
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
+from ..ops import dropout as drop
 from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
 from ..utils.timers import Timers
 from ..utils.writers import build_writer
@@ -368,6 +369,8 @@ def pretrain(
                         _PersistentEvalIterator(cfg, valid_dataset, eod_token))
 
     log = _LogState()
+    # the step folds in the iteration (dropout masks; JAX driver.py:664)
+    base_rng = drop.key(cfg.train.seed)
     skip_set = set(cfg.train.skip_iters)
     exit_reason = None
     print_rank_0(f" training starts at iteration {iteration} / "
@@ -408,7 +411,7 @@ def pretrain(
 
             t0 = time.perf_counter()
             timers("train-step").start()
-            state, step_metrics = art.step_fn(state, dev_batch)
+            state, step_metrics = art.step_fn(state, dev_batch, base_rng)
             timers("train-step").stop(wait_for=step_metrics)
             if on_step is not None:
                 on_step(iteration + 1, step_metrics, time.perf_counter() - t0)

@@ -11,6 +11,10 @@ updates only) → the in-place optimizer update.  An anomalous step
 (non-finite grads or loss, or a loss spike) is decided on the host (the
 step's one synchronization) and leaves params and optimizer state bitwise
 untouched; only the guard, the counters and the loss scaler move.
+
+Dropout follows JAX's key chain: the step folds ``base_rng`` with the
+iteration and each microbatch's key with its index; without a key the
+step is deterministic.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from ..config import RuntimeConfig
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
+from ..ops import dropout as drop
 from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
 from ..resilience.anomaly import GuardState, guard_update, init_guard_state
 from ..utils.tree import tree_leaves, tree_unflatten
@@ -52,24 +57,26 @@ def init_train_state(cfg: RuntimeConfig, params: PyTree) -> TrainState:
     )
 
 
-def compute_loss(cfg: RuntimeConfig, params, batch: dict, rope=None):
+def compute_loss(cfg: RuntimeConfig, params, batch: dict, rng=None,
+                 rope=None):
     """Forward + masked LM loss for one microbatch: ``batch`` holds tokens,
     labels and a float loss_mask ``[b, s]``, optionally position_ids and
-    segment_ids."""
+    segment_ids.  ``rng`` turns dropout on."""
     logits, _ = model_lib.forward(
         cfg.model, params, batch["tokens"],
         position_ids=batch.get("position_ids"),
         segment_ids=batch.get("segment_ids"),
-        rope=rope, return_aux=True)
+        rng=rng, rope=rope, return_aux=True)
     per_token = cross_entropy(logits, batch["labels"],
                               vocab_size=cfg.model.vocab_size)
     return masked_mean_loss(per_token, batch["loss_mask"])
 
 
 def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
-                      loss_scale: float, loss_fn=None):
+                      loss_scale: float, loss_fn=None, rng=None):
     """``(fp32 grads, mean loss)`` over the ``[accum, micro_batch, ...]``
-    batch.  ``loss_fn(cfg, params, microbatch)`` overrides the decoder-LM
+    batch; microbatch ``i`` gets ``rng`` folded with ``i``.
+    ``loss_fn(cfg, params, microbatch, rng)`` overrides the decoder-LM
     loss, as in JAX."""
     accum = batch["tokens"].shape[0]
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -78,10 +85,11 @@ def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
     loss_sum = None
     for i in range(accum):
         mb = {k: v[i] for k, v in batch.items()}
+        mb_rng = None if rng is None else drop.fold_in(rng, i)
         if loss_fn is not None:
-            loss = loss_fn(cfg, live, mb)
+            loss = loss_fn(cfg, live, mb, mb_rng)
         else:
-            loss = compute_loss(cfg, live, mb, rope=rope)
+            loss = compute_loss(cfg, live, mb, rng=mb_rng, rope=rope)
         step_grads = torch.autograd.grad(loss * loss_scale, leaves)
         if grads is None:  # the first cast copies, the rest add in place
             grads = [g.to(torch.float32, copy=True) for g in step_grads]
@@ -100,13 +108,16 @@ def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
 
 
 def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
-               rope=None, loss_fn=None):
+               base_rng=None, rope=None, loss_fn=None):
     """One optimizer step over the batch's microbatches → ``(new_state,
-    metrics)``.  Params and optimizer state are updated in place."""
+    metrics)``.  Params and optimizer state are updated in place.
+    ``base_rng`` (a ``DropoutKey``) is folded with the iteration."""
     scaler = state.opt.scaler
     loss_scale = scaler.scale if scaler is not None else 1.0
+    rng = None if base_rng is None else drop.fold_in(base_rng,
+                                                     state.iteration)
     grads, loss = _accumulate_grads(cfg, state.params, batch, rope,
-                                    loss_scale, loss_fn)
+                                    loss_scale, loss_fn, rng)
     if loss_scale != 1.0:
         for g in tree_leaves(grads):
             g.div_(loss_scale)
@@ -151,14 +162,15 @@ def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
 
 
 def make_train_step(cfg: RuntimeConfig, device=None, loss_fn=None):
-    """``step(state, batch) -> (state, metrics)`` with the RoPE tables
-    built once on ``device`` (default ``cuda``) and closed over, as the
-    JAX step closes over them as constants."""
+    """``step(state, batch, base_rng=None) -> (state, metrics)`` with the
+    RoPE tables built once on ``device`` (default ``cuda``) and closed
+    over, as the JAX step closes over them as constants."""
     device = model_lib.default_device(device)
     rope = rope_tables(cfg.model, device=device)
 
-    def step(state: TrainState, batch: dict):
-        return train_step(cfg, state, batch, rope=rope, loss_fn=loss_fn)
+    def step(state: TrainState, batch: dict, base_rng=None):
+        return train_step(cfg, state, batch, base_rng, rope=rope,
+                          loss_fn=loss_fn)
 
     return step
 

@@ -97,6 +97,61 @@ def test_rmsnorm_matches_plain(cuda_device, rows, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,h", [(37, 4544), (1, 64), (300, 2048)])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_fwd_bwd_match_plain(cuda_device, rows, h, bias, dtype):
+    """K6 and K7 against their plain versions: Falcon-7B's hidden 4544 (a
+    block of 8192 lanes, 3648 of them masked), a one-row call and GPT-1.3B's
+    2048, with and without bias."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = (2.0 * _card((rows, h), gen, cuda_device, torch.float32)
+         + 0.5).to(dtype)
+    w = (1.0 + 0.1 * _card((h,), gen, cuda_device, torch.float32)).to(dtype)
+    b = (0.1 * _card((h,), gen, cuda_device, torch.float32)).to(dtype) \
+        if bias else None
+    dy = _card((rows, h), gen, cuda_device, dtype)
+    n_fwd, n_bwd = trn.layernorm_fwd.launches, trn.layernorm_bwd.launches
+    y, mean, rstd = trn.layernorm_fwd(x, w, b, 1e-5)
+    got = trn.layernorm_bwd(x, w, mean, rstd, dy, has_bias=bias)
+    torch.cuda.synchronize()
+    assert trn.layernorm_fwd.launches == n_fwd + 1
+    assert trn.layernorm_bwd.launches == n_bwd + 1
+    y_ref, mean_ref, rstd_ref = trn.layernorm_plain(x, w, b, 1e-5)
+    want = trn.layernorm_bwd_plain(x, w, mean, rstd, dy, has_bias=bias)
+    # fp32: only the order of the fp32 row sums differs
+    tol = CARD_TOL if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    torch.testing.assert_close(mean, mean_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0.0)
+    assert (got[2] is None) == (not bias)
+    for g, r in zip(got, want):
+        if r is not None:
+            torch.testing.assert_close(g.float(), r.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_falcon_shape(cuda_device):
+    """K1, K2 and K3 at Falcon-7B's attention: 71 query heads over one KV
+    head (a group that is not a power of two), head dim 64, causal, bf16,
+    against the plain versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do, _ = _bwd_inputs(gen, cuda_device, 1, 512, 512, 71, 1, 64,
+                                 torch.bfloat16, False)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), o_ref.float(), **CARD_TOL)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    # dK and dV sum 71 heads x 512 rows of O(1) products
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2 ** -6,
+                                   atol=5e-2, msg=name)
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     q = _card((1, 16, 2, 96), gen, cuda_device)     # head dim 96
@@ -158,7 +213,8 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                         "flash_attention_bwd_dkv": 0,
                         "flash_decode": 4 * cfg.num_layers,
                         "rmsnorm_fwd": 5 * (2 * cfg.num_layers + 1),
-                        "rmsnorm_bwd": 0}, launches
+                        "rmsnorm_bwd": 0, "layernorm_fwd": 0,
+                        "layernorm_bwd": 0}, launches
 
 
 def _bwd_inputs(gen, dev, b, sq, sk, hq, hk, d, dtype, segs):

@@ -31,6 +31,7 @@ def test_port_imports_no_jax():
     assert "megatron_llm_tpu_torch.serving.engine" in names
     assert "megatron_llm_tpu_torch.kernels.flash_decode" in names
     assert "megatron_llm_tpu_torch.training.driver" in names
+    assert "megatron_llm_tpu_torch.ops.dropout" in names
     assert "megatron_llm_tpu_torch.finetune" in names
     code = (
         "import importlib, json, sys\n"

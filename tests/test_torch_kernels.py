@@ -1,7 +1,8 @@
 """The port's kernels against the JAX package's Pallas kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
-runs the Pallas kernel in interpret mode.  Inputs are made with numpy from
+runs the Pallas kernel in interpret mode (K1, K4, K6 and K8 here; the
+backward kernels in ``test_torch_train_kernels.py``).  Inputs are made with numpy from
 a seed and handed to both.  ``test_torch_cuda.py`` holds the hand-written
 kernels against these plain versions on the card.
 """
@@ -199,3 +200,51 @@ def test_rmsnorm_plain_matches_pallas(shape, dtype):
         _f32(trn.rmsnorm(_torch(x), _torch(w), 1e-5)),
         _f32(jrn.rmsnorm_pallas(jnp.asarray(x), jnp.asarray(w), 1e-5,
                                 True)), **tol)
+
+
+# ---------------------------------------------------------------------------
+# K6 LayerNorm forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,bias", [
+    ((5, 72), True),          # hidden 72: not a power of two
+    ((5, 72), False),
+    ((3, 7, 72), True),       # ragged rows (21) over leading dims
+    ((2, 9, 256), False),
+])
+def test_layernorm_plain_matches_pallas(shape, bias):
+    rng = np.random.default_rng(5)
+    x = 2.0 * _np(rng, shape) + 0.5          # rows with a nonzero mean
+    w = 1.0 + 0.1 * _np(rng, shape[-1:])
+    b = 0.1 * _np(rng, shape[-1:]) if bias else None
+    jb = None if b is None else jnp.asarray(b)
+    y_jax, res = jrn._ln_fwd(jnp.asarray(x), jnp.asarray(w), jb, 1e-5, True)
+    rows = int(np.prod(shape[:-1]))
+    tb = None if b is None else _torch(b)
+    y, mean, rstd = trn.layernorm_fwd(_torch(x), _torch(w), tb, 1e-5)
+    assert mean.dtype == rstd.dtype == torch.float32
+    assert tuple(mean.shape) == tuple(rstd.shape) == shape[:-1] + (1,)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), **FP32_TOL)
+    for got, want in ((mean, res[2]), (rstd, res[3])):
+        np.testing.assert_allclose(got.numpy().reshape(rows, 1),
+                                   np.asarray(want)[:rows], rtol=1e-5,
+                                   atol=1e-5)
+    np.testing.assert_allclose(
+        trn.layernorm(_torch(x), _torch(w), tb, 1e-5).numpy(),
+        np.asarray(jrn.layernorm_pallas(jnp.asarray(x), jnp.asarray(w), jb,
+                                        1e-5, True)), **FP32_TOL)
+
+
+def test_norm_wrappers_refuse_devices_they_do_not_run():
+    """A CPU tensor takes the plain version; a tensor on any other device
+    than CUDA is refused, not run through it."""
+    x = torch.zeros(4, 64, device="meta")
+    w = torch.ones(64, device="meta")
+    stat = torch.zeros(4, 1, device="meta")
+    with pytest.raises(ValueError):
+        trn.layernorm_fwd(x, w, w)
+    with pytest.raises(ValueError):
+        trn.layernorm_bwd(x, w, stat, stat, x)
+    with pytest.raises(ValueError):
+        trn.rmsnorm_fwd(x, w)

@@ -65,17 +65,13 @@ def test_norm_apply(norm_type):
                             {k: torch.from_numpy(v)
                              for k, v in params.items()}, 1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    if norm_type == "rmsnorm":  # the kernel route's plain version on CPU
-        got_k = tnorms.norm_apply(norm_type, torch.from_numpy(x),
-                                  {"scale": torch.from_numpy(params["scale"])},
-                                  1e-5, impl="pallas")
-        np.testing.assert_allclose(got_k.numpy(), np.asarray(want), **TOL)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tnorms.norm_apply(norm_type, torch.from_numpy(x),
+    # the kernel route (RMSNorm's or LayerNorm's autograd Function) takes
+    # its plain version on CPU tensors
+    got_k = tnorms.norm_apply(norm_type, torch.from_numpy(x),
                               {k: torch.from_numpy(v)
                                for k, v in params.items()}, 1e-5,
                               impl="pallas")
+    np.testing.assert_allclose(got_k.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("name", sorted(tact.ACTIVATIONS))

@@ -279,8 +279,8 @@ def test_guard_update_matches_jax():
             assert float(t) == pytest.approx(float(j), rel=1e-6, abs=1e-7)
 
 
-def _nan_loss(cfg, params, mb):
-    return tstep.compute_loss(cfg, params, mb) * float("nan")
+def _nan_loss(cfg, params, mb, rng):
+    return tstep.compute_loss(cfg, params, mb, rng) * float("nan")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -496,7 +496,7 @@ def test_pretrain_refuses_what_is_not_ported(train_kw, match):
     dict(parallel=TPar(tensor_parallel=2)),
     dict(parallel=TPar(pipeline_parallel=2)),
     dict(parallel=TPar(data_parallel=2)),
-    dict(model=ttiny(hidden_dropout=0.1)),
+    dict(parallel=TPar(context_parallel=2)),
     dict(model=ttiny(fused_lm_head=True)),
 ])
 def test_runtime_config_refuses_what_is_not_ported(kw):

@@ -2,9 +2,10 @@
 against the JAX package's Pallas backward kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
-differentiates ``flash_attention`` / ``rmsnorm_pallas`` with ``jax.vjp``,
-which runs the Pallas backward kernels (``_dq_kernel``, ``_dkv_kernel``,
-``_rms_bwd_kernel``) in interpret mode.  Inputs are made with numpy from a
+differentiates ``flash_attention`` / ``rmsnorm_pallas`` /
+``layernorm_pallas`` with ``jax.vjp``, which runs the Pallas backward
+kernels (``_dq_kernel``, ``_dkv_kernel``, ``_rms_bwd_kernel``,
+``_ln_bwd_kernel``) in interpret mode.  Inputs are made with numpy from a
 seed and handed to both.  ``test_torch_cuda.py`` holds the hand-written
 CUDA / Triton kernels against these plain versions on the card.
 """
@@ -195,3 +196,63 @@ def test_rmsnorm_function_matches_autograd_of_plain_forward():
     want = torch.autograd.grad(trn.rmsnorm_plain(x, w)[0], (x, w), dy)
     torch.testing.assert_close(got[0], want[0], **FP32_TOL)
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K7 LayerNorm backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,bias", [((5, 72), True), ((5, 72), False),
+                                        ((3, 7, 72), True),
+                                        ((2, 30, 256), False)])
+def test_layernorm_bwd_plain_matches_pallas(shape, bias):
+    rng = np.random.default_rng(18)
+    x = 2.0 * _np(rng, shape) + 0.5
+    w = (1.0 + 0.1 * _np(rng, shape[-1:])).astype(np.float32)
+    b = (0.1 * _np(rng, shape[-1:])).astype(np.float32) if bias else None
+    dy = _np(rng, shape)
+    args = [jnp.asarray(x), jnp.asarray(w)] + ([jnp.asarray(b)] if bias
+                                               else [])
+    y_jax, vjp = jax.vjp(
+        lambda x_, w_, *b_: jrn.layernorm_pallas(
+            x_, w_, b_[0] if b_ else None, 1e-5, True), *args)
+    want = vjp(jnp.asarray(dy))
+    tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
+    tb = None if b is None else torch.from_numpy(b)
+    y, mean, rstd = trn.layernorm_fwd(tx, tw, tb, 1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), **FP32_TOL)
+    dx, dw, db = trn.layernorm_bwd(tx, tw, mean, rstd, tdy, has_bias=bias)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    assert (db is None) == (not bias)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want[0]), **FP32_TOL)
+    for got, w_ in zip((dw, db) if bias else (dw,), want[1:]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w_), **FP32_TOL)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_layernorm_function_gradcheck(bias):
+    gen = torch.Generator().manual_seed(19)
+    x = torch.randn(3, 4, 12, generator=gen, dtype=torch.float64)
+    w = 1.0 + 0.1 * torch.randn(12, generator=gen, dtype=torch.float64)
+    b = 0.1 * torch.randn(12, generator=gen, dtype=torch.float64)
+    inputs = (x, w, b) if bias else (x, w)
+    assert torch.autograd.gradcheck(
+        lambda x_, w_, *b_: trn.layernorm(x_, w_, b_[0] if b_ else None,
+                                          1e-5),
+        tuple(t.requires_grad_(True) for t in inputs), eps=1e-6, atol=1e-6,
+        rtol=1e-5)
+
+
+def test_layernorm_function_matches_autograd_of_plain_forward():
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(_np(rng, (5, 9, 72))).requires_grad_(True)
+    w = torch.from_numpy(1.0 + 0.1 * _np(rng, (72,))).requires_grad_(True)
+    b = torch.from_numpy(0.1 * _np(rng, (72,))).requires_grad_(True)
+    dy = torch.from_numpy(_np(rng, (5, 9, 72)))
+    got = torch.autograd.grad(trn.layernorm(x, w, b), (x, w, b), dy)
+    want = torch.autograd.grad(trn.layernorm_plain(x, w, b)[0], (x, w, b),
+                               dy)
+    torch.testing.assert_close(got[0], want[0], **FP32_TOL)
+    for g, w_ in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-4)
