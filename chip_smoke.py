@@ -33,14 +33,25 @@ it goes wrong:
 10. falcon-train: phase 7 with Falcon-7B widths cut to 8 layers, seq 2048;
 11. gpt-train: GPT-1.3B at full width and depth with hidden and attention
     dropout 0.1, seq 1024, 4 iterations, then the first step again from
-    the same seed, which must give the same loss.
+    the same seed, which must give the same loss;
+12. quant-reference: Llama-2-7B widths cut to 2 layers with an int8 KV
+    cache and the ``mixed`` weight policy (int8 attention, int4 MLP, int8
+    embedding), prefill then paged decode steps, bf16 kernel path against
+    the fp32 plain path from the same quantized weights;
+13. quant-serve: phase 5 with an int8 KV cache and int8 weights (the
+    serving CLI's default ``--quantize int8``): K9 in place of K8;
+14. paged-attention: bf16 and int8 pools filled by the engine's prefill
+    and paged decode code at 2-layer 7B widths, then
+    ``ops.attention.paged_decode_attention`` over each layer (K10, K11),
+    equal to the gather route bit for bit.
 
-Phases 5, 7, 9, 10 and 11 are the main paths: every kernel's launch
-counter is reset just before each and read just after, and each kernel of
-a path must have been launched in it.  The line before the last is the
-``{"kernels": [...]}`` JSON object (``launches`` sums the paths' counts,
-``launches_by_path`` lists them); the last line is ``{"ok": true,
-"device": {...}}``.
+Phase 3 covers K1-K11; K10 and K11 must equal K8 and K9 bit for bit on
+the same logical cache.  Phases 5, 7, 9, 10, 11, 13 and 14 are the main
+paths: every kernel's launch counter is reset just before each and read
+just after, and each kernel of a path must have been launched in it.  The
+line before the last is the ``{"kernels": [...]}`` JSON object
+(``launches`` sums the paths' counts, ``launches_by_path`` lists them);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -256,6 +267,115 @@ def check_flash_decode(torch, F, fd, dev, gen):
             head = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=library_ms)
     return head
+
+
+def _int8_cache(torch, shape, gen, dev):
+    """int8 codes and fp32 row scales (dequantized values O(1))."""
+    q = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                      dtype=torch.int8)
+    scale = 0.002 + 0.01 * torch.rand(shape[:-1], generator=gen, device=dev)
+    return q, scale
+
+
+def _paged(torch, dense, tables):
+    """Dense leaves ``[b, kv, width(, d)]`` scattered into a pool at the
+    tables' block ids (ids past a row's fill are the trash block 0, never
+    written); the rest of the pool holds large finite garbage."""
+    b, n_tbl = tables.shape
+    block = dense.shape[2] // n_tbl
+    pool = torch.full((1 + b * n_tbl, dense.shape[1], block)
+                      + tuple(dense.shape[3:]), 100,
+                      dtype=dense.dtype, device=dense.device)
+    for bi in range(b):
+        for j in range(n_tbl):
+            if int(tables[bi, j]):
+                pool[int(tables[bi, j])] = dense[bi, :, j * block:
+                                                 (j + 1) * block]
+    return pool
+
+
+def check_decode_family(torch, F, fd, dev, gen):
+    """K9, K10 and K11 at K8's serving row (b4, nq32 kv32, max_len 2048,
+    d128, fills 1/97/1056/2048): K9 over an int8 cache with fp32 row
+    scales, K10/K11 over a shuffled pool of 64-token blocks read through
+    tables whose entries past each fill point at the trash block.  K10
+    must equal K8 and K11 equal K9 bit for bit on the same logical cache.
+    The yardstick is SDPA over a bf16 copy of what each kernel reads (the
+    int8 cache dequantized, the tables gathered; that copy is not
+    timed)."""
+    b, nq, kv, d, max_len, block = 4, 32, 32, 128, 2048, 64
+    fills = [1, 97, 1056, 2048]
+    n_tbl = max_len // block
+    lens = torch.tensor(fills, dtype=torch.int32, device=dev)
+    q = torch.randn(b, nq, d, generator=gen, device=dev, dtype=torch.bfloat16)
+    kc, vc = (torch.randn(b, kv, max_len, d, generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    kq, ks = _int8_cache(torch, (b, kv, max_len, d), gen, dev)
+    vq, vs = _int8_cache(torch, (b, kv, max_len, d), gen, dev)
+    perm = 1 + torch.randperm(b * n_tbl, generator=gen, device=dev)
+    tables = perm.reshape(b, n_tbl).to(torch.int32)
+    for i, n in enumerate(fills):
+        tables[i, -(-n // block):] = 0
+    live = sum(-(-n // block) for n in fills)
+    kp, vp = _paged(torch, kc, tables), _paged(torch, vc, tables)
+    int8_pool = [_paged(torch, t, tables) for t in (kq, ks, vq, vs)]
+    mask = (torch.arange(max_len, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    k_deq = (kq.float() * ks[..., None]).to(torch.bfloat16)
+    v_deq = (vq.float() * vs[..., None]).to(torch.bfloat16)
+    fill = float(lens.sum())
+    q_out = 2 * q.numel() * 2 + b * 4      # q read, out written, lens
+    cases = {
+        "flash_decode_int8": (
+            lambda: fd.flash_decode_int8(q, kq, ks, vq, vs, lens),
+            lambda: fd.flash_decode_int8_plain(q, kq, ks, vq, vs, lens),
+            (k_deq, v_deq), q_out + 2 * fill * kv * (d + 4),
+            "int8 cache, fp32 row scales"),
+        "flash_decode_paged": (
+            lambda: fd.flash_decode_paged(q, kp, vp, tables, lens),
+            lambda: fd.flash_decode_paged_plain(q, kp, vp, tables, lens),
+            (kc, vc), q_out + 2 * fill * kv * d * 2 + live * 4,
+            "bf16 pool, 64-token blocks"),
+        "flash_decode_paged_int8": (
+            lambda: fd.flash_decode_paged_int8(q, *int8_pool, tables, lens),
+            lambda: fd.flash_decode_paged_int8_plain(q, *int8_pool, tables,
+                                                     lens),
+            (k_deq, v_deq), q_out + 2 * fill * kv * (d + 4) + live * 4,
+            "int8 pool, 64-token blocks"),
+    }
+    dense = {"flash_decode_paged": fd.flash_decode(q, kc, vc, lens),
+             "flash_decode_paged_int8": fd.flash_decode_int8(q, kq, ks, vq,
+                                                             vs, lens)}
+    rows = {}
+    for name, (kern, plain, lib_kv, nbytes, what) in cases.items():
+        out = kern()
+        torch.cuda.synchronize()
+        err, ok = close_enough(torch, out, plain(), BF16_ATOL, BF16_RTOL)
+        if not ok:
+            raise RuntimeError(f"{name}: err {err} beyond tolerance")
+        same = ""
+        if name in dense:
+            twin = "flash_decode" if name == "flash_decode_paged" \
+                else "flash_decode_int8"
+            if not torch.equal(out, dense[name]):
+                raise RuntimeError(f"{name} differs from {twin} over the same "
+                                   "logical cache")
+            same = f"; bitwise equal to {twin} over the same logical cache"
+        ms = cuda_ms(torch, kern)
+        plain_ms = cuda_ms(torch, plain, iters=5)
+        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], lib_kv[0], lib_kv[1], attn_mask=mask))
+        bms, by = bound_ms(nbytes, 4.0 * fill * nq * d)
+        log(f"kernel {name} [b4 nq32 kv32 max_len 2048 d128, fills "
+            f"1/97/1056/2048, {what}]: max_abs_err {err:.3e} (tol atol "
+            f"{BF16_ATOL} rtol {BF16_RTOL:.4f}){same}; ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} sdpa_over_bf16_copy_ms {library_ms:.4f} "
+            f"bound_ms {bms:.4f} ({by})")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=library_ms,
+                          library_computes="SDPA over a bf16 copy of the "
+                          "cache (dequantized / gathered, not timed)")
+    return rows
 
 
 def check_rmsnorm(torch, F, rn, dev, gen):
@@ -584,6 +704,179 @@ def check_reference(torch, M, cfg_full, dev, label, n_pre=192, n_dec=8,
 
 
 # ---------------------------------------------------------------------------
+# Phases 12 and 14: quantized serving at 7B widths
+# ---------------------------------------------------------------------------
+
+# The bf16 path rounds the dequantized weights to bf16 where the fp32 path
+# keeps them exact, on top of phase 4's rounding of activations: at hidden
+# 2048 (2 layers, CPU, the same harness) the quantized pair differed by
+# 1.75x the unquantized pair (mean 0.0136 against 0.0078), so phase 4's
+# limits (0.03 / 0.25) grow by that
+QUANT_MEAN_TOL = 0.05
+QUANT_MAX_TOL = 0.4
+
+
+def _prefill_paged_decode(torch, M, cfg, params, toks, dev, n_pre, n_dec,
+                          bk=64, width=256):
+    """Logit rows of a ``n_pre``-token prefill and ``n_dec`` paged decode
+    steps (the engine's route: a dense prefill cache published into pool
+    blocks, then ``forward_cached_paged``)."""
+    toks = toks.to(dev)
+    k, v = M.init_kv_cache(cfg, 1, width, device=dev)
+    pre, k, v = M.forward_cached(cfg, params, toks[:, :n_pre], k, v, 0,
+                                 empty_cache=True, last_logit_only=True)
+    n_blocks = 1 + width // bk
+    k_pool, v_pool = M.init_kv_pool(cfg, n_blocks, bk, device=dev)
+    bids = torch.arange(1, n_blocks, device=dev)
+    M.cache_scatter_blocks(k_pool, k, bids)
+    M.cache_scatter_blocks(v_pool, v, bids)
+    steps = [pre[:, -1]]
+    for i in range(n_dec):
+        lg, _, _ = M.forward_cached_paged(
+            cfg, params, toks[:, n_pre + i:n_pre + i + 1], k_pool, v_pool,
+            bids[None], torch.tensor([n_pre + i], device=dev))
+        steps.append(lg[:, 0])
+    return torch.cat(steps).float().cpu()
+
+
+def check_quant_reference(torch, M, cfg_full, dev, n_pre=192, n_dec=8):
+    """Phase 12: ``cfg_full``'s widths cut to 2 layers with an int8 KV
+    cache and the ``mixed`` policy (int8 attention projections, int4 MLP,
+    int8 embedding table), so every leaf scheme runs at full width: the
+    bf16 kernel path on the card against the fp32 plain path (CPU tensors,
+    the kernels' plain versions) from the same quantized weights, a
+    prefill then paged decode steps.  The drift from the unquantized bf16
+    model is printed for information."""
+    from megatron_llm_tpu_torch.ops.quant import quantize_params
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2, kv_cache_quant="int8")
+    plain = M.init_params(cfg, seed=1, device=dev)
+    params = quantize_params(plain, "mixed")
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_pre + n_dec), generator=gen)
+
+    def to_cpu32(t):
+        if isinstance(t, dict):
+            return {k: to_cpu32(v) for k, v in t.items()}
+        t = t.cpu()
+        return t.float() if t.is_floating_point() else t
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = _prefill_paged_decode(torch, M, cfg, params, toks, dev, n_pre,
+                                    n_dec)
+        unq = _prefill_paged_decode(
+            torch, M, dataclasses.replace(cfg, kv_cache_quant="none"), plain,
+            toks, dev, n_pre, n_dec)
+        del plain
+        ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
+                                      attention_impl="dot", norm_impl="xla")
+        ref = _prefill_paged_decode(torch, M, ref_cfg, to_cpu32(params), toks,
+                                    torch.device("cpu"), n_pre, n_dec)
+    diff = (got - ref).abs()
+    drift = (got - unq).abs()
+    mean_err, max_err = float(diff.mean()), float(diff.max())
+    ok = bool(torch.isfinite(got).all()) and mean_err <= QUANT_MEAN_TOL \
+        and max_err <= QUANT_MAX_TOL
+    log(f"quant-reference [{n_pre}-token prefill + {n_dec} paged decode "
+        f"steps, 2 layers, int8 KV cache, mixed weights; bf16 kernel path "
+        f"vs fp32 plain path on the CPU]: logit std {float(ref.std()):.3f} "
+        f"mean_abs_err {mean_err:.4f} (tol {QUANT_MEAN_TOL}) max_abs_err "
+        f"{max_err:.4f} (tol {QUANT_MAX_TOL}); drift from the unquantized "
+        f"bf16 model (information) mean {float(drift.mean()):.4f} max "
+        f"{float(drift.max()):.4f}; {time.perf_counter() - t0:.1f}s")
+    if not ok:
+        raise RuntimeError("quantized kernel path disagrees with the fp32 "
+                           "plain path")
+
+
+def paged_attention_path(torch, M, dev, counters, cfg_full, bk=64,
+                         max_seq=2048, plens=(97, 1056, 64, 700), n_dec=3):
+    """Phase 14: fill a bf16 pool and an int8 pool with the engine's own
+    code (admission prefills published into shuffled 64-token blocks,
+    then ``forward_cached_paged`` decode steps) at 2-layer widths of
+    ``cfg_full``, then call ``paged_decode_attention`` on each layer with
+    the live tables: it must launch K10 / K11 and give the gather route's
+    output (``decode_attention`` over the gathered view: K8 / K9) bit for
+    bit.  Returns the launch counts of the op's calls."""
+    from megatron_llm_tpu_torch.kernels.flash_decode import gather_blocks
+    from megatron_llm_tpu_torch.ops import attention as A
+
+    b, n_tbl = len(plens), max_seq // bk
+    launches = dict.fromkeys(counters, 0)
+    for form in ("none", "int8"):
+        cfg = dataclasses.replace(cfg_full, num_layers=2, kv_cache_quant=form)
+        params = M.init_params(cfg, seed=5, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(6)
+        toks = torch.randint(0, cfg.vocab_size, (b, max(plens) + n_dec),
+                             generator=gen, device=dev)
+        order = 1 + torch.randperm(b * n_tbl, generator=gen, device=dev)
+        tables = torch.zeros(b, n_tbl, dtype=torch.long, device=dev)
+        k_pool, v_pool = M.init_kv_pool(cfg, 1 + b * n_tbl, bk, device=dev)
+        with torch.no_grad():
+            for s, plen in enumerate(plens):
+                used = -(-(plen + n_dec) // bk)
+                tables[s, :used] = order[s * n_tbl:s * n_tbl + used]
+                k, v = M.init_kv_cache(cfg, 1, max_seq, device=dev)
+                _, k, v = M.forward_cached(cfg, params, toks[s:s + 1, :plen],
+                                           k, v, 0, empty_cache=True,
+                                           last_logit_only=True)
+                publish = torch.where(
+                    torch.arange(n_tbl, device=dev) < -(-plen // bk),
+                    tables[s], 0)
+                M.cache_scatter_blocks(k_pool, k, publish)
+                M.cache_scatter_blocks(v_pool, v, publish)
+            fills = torch.tensor(plens, device=dev)
+            for i in range(n_dec):
+                step = torch.stack([toks[s, plens[s] + i]
+                                    for s in range(b)])[:, None]
+                M.forward_cached_paged(cfg, params, step, k_pool, v_pool,
+                                       tables, fills)
+                fills = fills + 1
+            pos = fills - 1          # the last row written: q's position
+            q = torch.randn(b, 1, cfg.num_attention_heads, cfg.head_dim,
+                            generator=gen, device=dev, dtype=cfg.dtype)
+
+            def layer(pool, i):
+                if isinstance(pool, dict):
+                    return {k: v[i] for k, v in pool.items()}
+                return pool[i]
+
+            def gathered(pool):
+                if isinstance(pool, dict):
+                    return {k: gather_blocks(v, tables).contiguous()
+                            for k, v in pool.items()}
+                return gather_blocks(pool, tables).contiguous()
+
+            for fn in counters.values():
+                fn.launches = 0
+            outs = [A.paged_decode_attention(q, layer(k_pool, i),
+                                             layer(v_pool, i), tables, pos)
+                    for i in range(cfg.num_layers)]
+            torch.cuda.synchronize()
+            for name, fn in counters.items():
+                launches[name] += fn.launches
+            for i, out in enumerate(outs):
+                want = A.decode_attention(q, gathered(layer(k_pool, i)),
+                                          gathered(layer(v_pool, i)), pos)
+                if not (torch.isfinite(out).all() and torch.equal(out, want)):
+                    raise RuntimeError(f"paged_decode_attention ({form} pool, "
+                                       f"layer {i}) differs from the gather "
+                                       "route")
+        del params, k_pool, v_pool
+    log(f"paged-attention [2 layers, 4 rows of fills "
+        f"{[p + n_dec for p in plens]}, shuffled 64-token blocks, bf16 and "
+        f"int8 pools filled by prefill + {n_dec} paged decode steps]: equal "
+        f"to the gather route bit for bit; kernels " + json.dumps(launches))
+    missing = [n for n in ("flash_decode_paged", "flash_decode_paged_int8")
+               if launches[n] < 1]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the paged path: "
+                           f"{missing}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: serve Llama-2-7B
 # ---------------------------------------------------------------------------
 
@@ -596,18 +889,28 @@ def put(port: int, body: dict, timeout: float = 600.0):
         return resp.status, json.loads(resp.read())
 
 
-def serve(torch, cfg, dev, counters, smi, label, need,
-          lens=(64, 1024, 200, 512, 96, 777, 330, 1000), new=32):
+def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
+          policy=None, lens=(64, 1024, 200, 512, 96, 777, 330, 1000),
+          new=32):
+    """``need`` must launch on the path, ``forbid`` must not; ``policy``
+    quantizes the random weights (``ops/quant.quantize_params``) before
+    the server gets them."""
     from megatron_llm_tpu_torch.generation import MegatronServer
     from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.ops.quant import quantize_params
     from megatron_llm_tpu_torch.tokenizer import NullTokenizer
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)  # this phase's peak alone
     params = M.init_params(cfg, seed=0, device=dev)
+    n_params = M.num_params(params)
+    if policy is not None:
+        params = quantize_params(params, policy)
     torch.cuda.synchronize()
-    log(f"serve: {label} params {M.num_params(params) / 1e9:.3f}e9 "
-        f"({cfg.params_dtype}) initialised in {time.perf_counter() - t0:.1f}s")
+    log(f"serve: {label} params {n_params / 1e9:.3f}e9 ({cfg.params_dtype}"
+        f"{', weights ' + policy if policy else ''}, KV cache "
+        f"{cfg.kv_cache_quant}) ready in {time.perf_counter() - t0:.1f}s; "
+        f"resident {torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB")
     server = MegatronServer(cfg, params, NullTokenizer(cfg.vocab_size),
                             max_batch_size=4, engine_max_seq_len=2048,
                             prefill_bucket=64, kv_block_size=64,
@@ -677,10 +980,14 @@ def serve(torch, cfg, dev, counters, smi, label, need,
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; host "
             f"clock; card {smi}")
         log(f"serve {label} kernels " + json.dumps(launches))
+        log(f"serve {label} step_routes {json.dumps(m1['step_routes'])}")
         missing = [n for n in need if launches[n] < 1]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: "
                                f"{missing}")
+        stray = [n for n in forbid if launches[n]]
+        if stray:
+            raise RuntimeError(f"kernels launched off their route: {stray}")
         return launches
     finally:
         server.shutdown()
@@ -902,6 +1209,7 @@ def main() -> int:
             "rmsnorm_fwd": check_rmsnorm(torch, F, rn, dev, gen),
             "layernorm_fwd": check_layernorm(torch, F, rn, dev, gen),
         }
+        rows.update(check_decode_family(torch, F, fd, dev, gen))
         rows.update(check_flash_attention_bwd(torch, F, fa, dev, gen))
     rows["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, F, rn, dev, gen)
     rows["layernorm_bwd"] = check_layernorm_bwd(torch, F, rn, dev, gen)
@@ -950,7 +1258,8 @@ def main() -> int:
         f"{paths['serve falcon-7b']['flash_decode']}: its 71 query heads over "
         f"one KV head are a group above the kernel's 8 (and the JAX "
         f"package's predicate takes head dim 128 only), so both packages "
-        f"decode Falcon-7B on the einsum path")
+        f"decode Falcon-7B on the einsum path; with an int8 cache K9 has the "
+        f"same cap, so Falcon-7B takes the scale-folded int8 einsum route")
     settle()
     paths["train falcon-7b widths"], _ = train(
         torch, dev, counters, smi,
@@ -964,6 +1273,20 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["train gpt-1.3b"] = train_gpt(torch, dev, counters, smi)
     log(f"gpt phase 11 in {time.perf_counter() - t0:.1f}s")
+    settle()
+
+    t0 = time.perf_counter()
+    check_quant_reference(torch, M, cfg, dev)
+    settle()
+    quant = dataclasses.replace(cfg, kv_cache_quant="int8")
+    paths["serve llama2-7b int8"] = serve(
+        torch, quant, dev, counters, smi, "llama2-7b int8",
+        ("flash_attention_fwd", "rmsnorm_fwd", "flash_decode_int8"),
+        forbid=("flash_decode",), policy="int8")
+    settle()
+    paths["paged attention"] = paged_attention_path(torch, M, dev, counters,
+                                                    cfg)
+    log(f"quantized phases 12-14 in {time.perf_counter() - t0:.1f}s")
 
     meta = {
         "flash_attention_fwd": (
@@ -978,6 +1301,15 @@ def main() -> int:
         "flash_decode": (
             "cuda", "megatron_llm_tpu_torch/csrc/flash_decode.cu",
             "megatron_llm_tpu/kernels/flash_decode.py:45"),
+        "flash_decode_int8": (
+            "cuda", "megatron_llm_tpu_torch/csrc/flash_decode.cu",
+            "megatron_llm_tpu/kernels/flash_decode.py:89"),
+        "flash_decode_paged": (
+            "cuda", "megatron_llm_tpu_torch/csrc/flash_decode.cu",
+            "megatron_llm_tpu/kernels/flash_decode.py:291"),
+        "flash_decode_paged_int8": (
+            "cuda", "megatron_llm_tpu_torch/csrc/flash_decode.cu",
+            "megatron_llm_tpu/kernels/flash_decode.py:309"),
         "rmsnorm_fwd": (
             "triton", "megatron_llm_tpu_torch/kernels/rmsnorm_triton.py",
             "megatron_llm_tpu/kernels/rmsnorm.py:56"),

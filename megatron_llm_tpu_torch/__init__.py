@@ -11,9 +11,12 @@ Two paths are ported.  Serving: ``generation.server.MegatronServer`` →
 ``kernels/``.  Training on one device: ``finetune`` →
 ``training.driver.pretrain`` → ``training.step`` → the same model, its
 backward through autograd, ``parallel.cross_entropy``,
-``resilience.anomaly`` and ``training.optimizer``.  The kernels:
-flash-attention forward and backward (dQ; dK/dV) and flash decode in CUDA
-C++ under ``csrc/``, RMSNorm forward and backward in Triton.  Entry points
+``resilience.anomaly`` and ``training.optimizer``.  Serving also runs
+quantized: an int8 KV cache (``ops.kv_quant``) and int8 / int4 weight
+policies (``ops.quant``).  The kernels: flash-attention forward and
+backward (dQ; dK/dV) and the decode-attention family (dense, int8, paged,
+paged int8) in CUDA C++ under ``csrc/``, RMSNorm and LayerNorm forward and
+backward in Triton.  Entry points
 run on ``cuda`` unless the caller passes a CPU device; on CPU tensors
 every kernel wrapper runs its plain PyTorch version.
 """

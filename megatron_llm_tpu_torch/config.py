@@ -54,7 +54,10 @@ class ModelConfig:
     each knob means.  Fields that select TPU-only machinery keep their
     names and defaults so configs round-trip between the packages:
     ``fused_decode=True`` is refused by the port's serving engine, and
-    the flash tile sizes are ignored (the CUDA kernel picks its own)."""
+    the flash tile sizes are ignored (the CUDA kernel picks its own).
+    ``kv_cache_quant="int8"`` serves from the int8 KV cache;
+    ``quantize_matmuls="int8"`` (W8A8 training) is refused by
+    ``RuntimeConfig.validate`` and the serving engine."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -307,6 +310,11 @@ class RuntimeConfig:
             raise NotImplementedError(
                 "fused_lm_head (fused_linear_cross_entropy) is not ported "
                 "yet (ROADMAP.md, Queue 1: decoder forward and backward)")
+        if m.quantize_matmuls != "none":
+            raise NotImplementedError(
+                "quantize_matmuls='int8' (W8A8 training matmuls) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 13: int8 training "
+                "matmul)")
         m.validate()
         self.parallel.validate()
         mb = self.train.micro_batch_size

@@ -12,7 +12,9 @@ shapes and ``x @ w`` orientation, leaf for leaf, as torch tensors:
   Falcon-40B, ``bias`` for LayerNorm);
 - ``final_norm.scale`` and ``lm_head``.
 
-Only numpy crosses the boundary, so this module imports no JAX.
+A tree quantized by the JAX ``ops/quant.quantize_params`` crosses the same
+way: its ``{"q", "scale"}`` leaves (int8 codes, packed int4 codes, fp32
+scales) keep their dtypes and bits.  Only numpy crosses the boundary, so this module imports no JAX.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 - ``flash_attention.py``: flash-attention forward (``csrc/flash_attention.cu``)
   and backward, dQ and dK/dV (``csrc/flash_attention_bwd.cu``).
-- ``flash_decode.py``: single-token decode attention over a dense cache
+- ``flash_decode.py``: single-token decode attention over a dense cache, an
+  int8 cache, and both read from the paged pool through block tables
   (``csrc/flash_decode.cu``).
 - ``rmsnorm.py``: RMSNorm and LayerNorm, forward and dx (Triton,
   ``rmsnorm_triton.py``).
@@ -20,7 +21,12 @@ def launch_counters() -> dict:
         flash_attention_bwd_dq,
         flash_attention_fwd,
     )
-    from .flash_decode import flash_decode
+    from .flash_decode import (
+        flash_decode,
+        flash_decode_int8,
+        flash_decode_paged,
+        flash_decode_paged_int8,
+    )
     from .rmsnorm import (
         layernorm_bwd,
         layernorm_fwd,
@@ -32,6 +38,9 @@ def launch_counters() -> dict:
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "flash_decode": flash_decode,
+            "flash_decode_int8": flash_decode_int8,
+            "flash_decode_paged": flash_decode_paged,
+            "flash_decode_paged_int8": flash_decode_paged_int8,
             "rmsnorm_fwd": rmsnorm_fwd,
             "rmsnorm_bwd": rmsnorm_bwd,
             "layernorm_fwd": layernorm_fwd,

@@ -8,7 +8,10 @@ block-pool helpers are what the serving engine drives; ``flops_per_token``
 is the analytic count the training log reports against.
 
 Cache layouts are the JAX package's: dense ``[L, b, kv_heads, max_len, d]``
-and pool ``[L, n_blocks, kv_heads, block, d]`` (block 0 = trash).  Where
+and pool ``[L, n_blocks, kv_heads, block, d]`` (block 0 = trash), or with
+``kv_cache_quant="int8"`` each side the ``{"q": int8 [.., d], "scale":
+fp32 [..]}`` pair of ``ops/kv_quant.py`` (the scale leaf lacks the ``d``
+axis); every cache helper maps over both leaves.  Where
 the JAX functions return updated arrays, these update the caches IN
 PLACE and return them, which saves a full cache copy per call; callers
 that need the old contents pass a copy.
@@ -22,7 +25,9 @@ import torch
 
 from ..config import ModelConfig, PositionEmbeddingType
 from ..ops import dropout as drop
+from ..ops.kv_quant import init_quantized_cache
 from ..ops.norms import norm_apply, norm_init
+from ..ops.quant import embedding_lookup
 from .transformer import (
     AttnSideInputs,
     Params,
@@ -76,13 +81,10 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
           tokentype_ids: Optional[torch.Tensor] = None,
           dropout_key=None) -> torch.Tensor:
     """Token (+ learned position, + tokentype) embedding, then embedding
-    dropout with ``dropout_key`` (JAX ``model.py:77-93``)."""
-    word = params["embedding"]["word"]
-    if isinstance(word, dict):
-        raise NotImplementedError("the int8 embedding table is not ported "
-                                  "yet (ROADMAP.md, Queue 1: precision "
-                                  "policies)")
-    x = word[tokens].to(cfg.dtype)
+    dropout with ``dropout_key`` (JAX ``model.py:77-93``).  The word table
+    may be the per-row int8 form of ``ops/quant.quantize_embedding``: the
+    lookup dequantizes only the gathered rows."""
+    x = embedding_lookup(params["embedding"]["word"], tokens).to(cfg.dtype)
     if "position" in params["embedding"]:
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
@@ -106,7 +108,7 @@ def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 def _rope(cfg, params, rope):
     if rope is not None:
         return rope
-    return rope_tables(cfg, device=params["embedding"]["word"].device)
+    return rope_tables(cfg, device=params["final_norm"]["scale"].device)
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -152,7 +154,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 
 def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                   k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len,
+                   k_cache, v_cache, cache_len,
                    *, rope: Optional[tuple] = None, empty_cache: bool = False,
                    last_logit_only: bool = False,
                    logit_rows: Optional[torch.Tensor] = None):
@@ -194,17 +196,17 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def forward_cached_paged(cfg: ModelConfig, params: Params,
                          tokens: torch.Tensor,   # [b, 1] pending tokens
-                         k_pool: torch.Tensor,   # [L, n_blocks, kv, blk, d]
-                         v_pool: torch.Tensor,
+                         k_pool,   # [L, n_blocks, kv, blk, d] or int8 dict
+                         v_pool,
                          tables: torch.Tensor,   # [b, T] int block tables
                          fills: torch.Tensor,    # [b] fill levels
                          *, rope: Optional[tuple] = None,
                          use_fused: bool = False):
     """Single-token decode over the paged pool, the JAX package's composed
     route: gather the tables into a dense working view, run
-    ``forward_cached`` over it (the flash-decode kernel per layer on the
-    card), and scatter each row's new K/V back to block
-    ``tables[s, fill // blk]`` at offset ``fill % blk``.  Returns
+    ``forward_cached`` over it (per layer on the card the flash-decode
+    kernel, K9 over an int8 pool), and scatter each row's new K/V back to
+    block ``tables[s, fill // blk]`` at offset ``fill % blk``.  Returns
     ``(logits [b, 1, vocab] fp32, k_pool, v_pool)``; the pools are
     updated in place."""
     if use_fused:
@@ -213,7 +215,7 @@ def forward_cached_paged(cfg: ModelConfig, params: Params,
             "(ROADMAP.md, Queue 2: decode_step.py)")
     fills = torch.as_tensor(fills, device=tokens.device).to(torch.long)
     tables = torch.as_tensor(tables, device=tokens.device).to(torch.long)
-    bk = k_pool.shape[3]
+    bk = _leaf(k_pool).shape[3]
     bids = torch.gather(tables, 1, (fills // bk)[:, None])[:, 0]
     offs = fills % bk
     k_dense = cache_gather_blocks(k_pool, tables)
@@ -227,14 +229,15 @@ def forward_cached_paged(cfg: ModelConfig, params: Params,
 
 def init_kv_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                   dtype=None, device=None):
-    """Empty stacked KV cache ``[L, b, kv_heads, max_len, d]`` x2."""
-    if cfg.kv_cache_quant == "int8":
-        from ..ops.kv_quant import _INT8_TODO
-
-        raise NotImplementedError(_INT8_TODO)
+    """Empty stacked KV cache ``[L, b, kv_heads, max_len, d]`` x2; with
+    ``cfg.kv_cache_quant == "int8"`` each side is the int8 ``{"q",
+    "scale"}`` form (half the decode cache bytes of bf16)."""
     shape = (cfg.num_layers, batch_size, cfg.kv_heads, max_len, cfg.head_dim)
-    dtype = dtype or cfg.dtype
     device = default_device(device)
+    if cfg.kv_cache_quant == "int8":
+        return (init_quantized_cache(shape, device),
+                init_quantized_cache(shape, device))
+    dtype = dtype or cfg.dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -246,54 +249,82 @@ def init_kv_pool(cfg: ModelConfig, n_blocks: int, block_size: int,
     return init_kv_cache(cfg, n_blocks, block_size, dtype, device)
 
 
-def cache_gather_blocks(pool: torch.Tensor,
-                        tables: torch.Tensor) -> torch.Tensor:
-    """Per-slot block tables ``[S, T]`` → dense ``[L, S, kv, T*blk, d]``
-    (a new tensor).  Rows from trash or past-fill blocks hold finite
+def _leaf(cache) -> torch.Tensor:
+    """The tensor that carries a cache's shape (the int8 form's codes)."""
+    return cache["q"] if isinstance(cache, dict) else cache
+
+
+def _leafwise(fn, cache, *others):
+    """``fn`` over a plain cache, or over each leaf of the int8 form (with
+    the matching leaves of ``others``), as JAX's ``tree.map``."""
+    if isinstance(cache, dict):
+        return {k: fn(v, *(o[k] for o in others)) for k, v in cache.items()}
+    return fn(cache, *others)
+
+
+def cache_gather_blocks(pool, tables: torch.Tensor):
+    """Per-slot block tables ``[S, T]`` → dense ``[L, S, kv, T*blk(, d)]``
+    (new tensors).  Rows from trash or past-fill blocks hold finite
     garbage that decode attention masks."""
     S, T = tables.shape
-    L, _, kv, bk = pool.shape[:4]
-    tail = tuple(pool.shape[4:])
-    x = pool.index_select(1, tables.reshape(-1).to(torch.long))
-    x = x.view((L, S, T, kv, bk) + tail).transpose(2, 3)
-    return x.reshape((L, S, kv, T * bk) + tail)
+    flat = tables.reshape(-1).to(torch.long)
+
+    def g(a):
+        L, _, kv, bk = a.shape[:4]
+        tail = tuple(a.shape[4:])
+        x = a.index_select(1, flat)
+        x = x.view((L, S, T, kv, bk) + tail).transpose(2, 3)
+        return x.reshape((L, S, kv, T * bk) + tail)
+
+    return _leafwise(g, pool)
 
 
-def cache_scatter_blocks(pool: torch.Tensor, dense: torch.Tensor,
-                         bids) -> torch.Tensor:
-    """Publish a batch-1 dense cache ``[L, 1, kv, T*blk, d]``: its block i
-    lands in pool block ``bids[i]`` (trash entries skip a block).  In
-    place; returns the pool."""
-    bids = torch.as_tensor(bids, device=pool.device).to(torch.long)
-    L, _, kv, W = dense.shape[:4]
-    tail = tuple(dense.shape[4:])
-    bk = pool.shape[3]
-    x = dense[:, 0].reshape((L, kv, W // bk, bk) + tail).transpose(1, 2)
-    pool[:, bids] = x.to(pool.dtype)
+def cache_scatter_blocks(pool, dense, bids):
+    """Publish a batch-1 dense cache ``[L, 1, kv, T*blk(, d)]``: its block
+    i lands in pool block ``bids[i]`` (trash entries skip a block).  In
+    place, every leaf; returns the pool."""
+    bids = torch.as_tensor(bids, device=_leaf(pool).device).to(torch.long)
+
+    def sc(p, d_):
+        L, _, kv, W = d_.shape[:4]
+        tail = tuple(d_.shape[4:])
+        bk = p.shape[3]
+        x = d_[:, 0].reshape((L, kv, W // bk, bk) + tail).transpose(1, 2)
+        p[:, bids] = x.to(p.dtype)
+
+    _leafwise(sc, pool, dense)
     return pool
 
 
-def cache_append_rows(pool: torch.Tensor, rows: torch.Tensor, bids,
-                      offs) -> torch.Tensor:
-    """Scatter one new row per slot: ``rows`` ``[L, S, kv, 1, d]``, slot s's
-    row to offset ``offs[s]`` of block ``bids[s]``.  In place."""
-    bids = torch.as_tensor(bids, device=pool.device).to(torch.long)
-    offs = torch.as_tensor(offs, device=pool.device).to(torch.long)
-    # pool[:, bids, :, offs]: separated advanced indices put the slot axis
-    # first, so the update is [S, L, kv, d]
-    pool[:, bids, :, offs] = rows[:, :, :, 0].transpose(0, 1).to(pool.dtype)
+def cache_append_rows(pool, rows, bids, offs):
+    """Scatter one new row per slot: ``rows`` ``[L, S, kv, 1(, d)]``, slot
+    s's row to offset ``offs[s]`` of block ``bids[s]``.  In place, every
+    leaf (int8 rows move verbatim, never requantized)."""
+    device = _leaf(pool).device
+    bids = torch.as_tensor(bids, device=device).to(torch.long)
+    offs = torch.as_tensor(offs, device=device).to(torch.long)
+
+    def ap(p, r):
+        # p[:, bids, :, offs]: separated advanced indices put the slot
+        # axis first, so the update is [S, L, kv(, d)]
+        p[:, bids, :, offs] = r[:, :, :, 0].transpose(0, 1).to(p.dtype)
+
+    _leafwise(ap, pool, rows)
     return pool
 
 
-def cache_rows_at(dense: torch.Tensor, fills) -> torch.Tensor:
-    """Each slot's row at its own fill: ``[L, S, kv, W, d]`` →
-    ``[L, S, kv, 1, d]``."""
-    fills = torch.as_tensor(fills, device=dense.device).to(torch.long)
-    L, S, kv = dense.shape[:3]
-    tail = tuple(dense.shape[4:])
-    idx = fills.reshape((1, S, 1, 1) + (1,) * len(tail))
-    idx = idx.expand((L, S, kv, 1) + tail)
-    return torch.gather(dense, 3, idx)
+def cache_rows_at(dense, fills):
+    """Each slot's row at its own fill: ``[L, S, kv, W(, d)]`` →
+    ``[L, S, kv, 1(, d)]``."""
+    fills = torch.as_tensor(fills, device=_leaf(dense).device).to(torch.long)
+
+    def f(a):
+        L, S, kv = a.shape[:3]
+        tail = tuple(a.shape[4:])
+        idx = fills.reshape((1, S, 1, 1) + (1,) * len(tail))
+        return torch.gather(a, 3, idx.expand((L, S, kv, 1) + tail))
+
+    return _leafwise(f, dense)
 
 
 def num_params(params: Params) -> int:

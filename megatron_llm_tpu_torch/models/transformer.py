@@ -15,8 +15,9 @@ rest, as JAX's ``dots_with_no_batch_dims_saveable`` policy does, and
 numbers, with dropout on too: ``stack_forward`` takes the stack's
 ``DropoutKey`` and each layer folds in its index, so a recomputed layer
 redraws the forward's masks from the same keys (``ops/dropout.py``).
-Without a key the forward is deterministic.  MoE layers and quantized
-weights belong to later slices and raise here.
+Without a key the forward is deterministic.  Serving-quantized weights
+(``ops/quant.py``) go through ``mm``; MoE layers and int8 training
+matmuls belong to later slices and raise here.
 """
 
 from __future__ import annotations
@@ -38,19 +39,22 @@ from ..ops.activations import get_activation, is_glu
 from ..ops.attention import attention, decode_attention
 from ..ops.kv_quant import cache_update
 from ..ops.norms import norm_apply, norm_init
+from ..ops.quant import is_quantized, mm
 from ..ops.rope import apply_rope, precompute_rope_freqs
 
 Params = dict
 
 
 def proj(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
-    """Projection matmul: plain ``x @ w`` (a large product, left to
-    torch.matmul as the JAX package left it to XLA)."""
-    if isinstance(w, dict) or cfg.quantize_matmuls != "none":
+    """Projection matmul through ``ops/quant.mm``: a plain weight is
+    ``x @ w`` (a large product, left to torch.matmul as the JAX package
+    left it to XLA); a serving-quantized ``{"q", "scale"}`` weight is
+    dequantized into the product."""
+    if cfg.quantize_matmuls != "none" and not is_quantized(w):
         raise NotImplementedError(
-            "quantized weights / int8 training matmuls are not ported yet "
-            "(ROADMAP.md, Queue 1: precision policies)")
-    return x @ w
+            "quantize_matmuls='int8' (W8A8 training matmuls) is not ported "
+            "yet (ROADMAP.md, Queue 1 item 13: int8 training matmul)")
+    return mm(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -324,14 +328,21 @@ def stack_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
 
 def stack_forward_cached(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
                          side: AttnSideInputs,
-                         k_cache: torch.Tensor,  # [L, b, nkv, max_len, d]
-                         v_cache: torch.Tensor, cache_len):
+                         k_cache,  # [L, b, nkv, max_len, d] or int8 dict
+                         v_cache, cache_len):
     """All layers threading the stacked KV cache: layer ``i`` writes its
-    new rows into ``k_cache[i]``/``v_cache[i]`` in place.  Returns
-    ``(hidden, k_cache, v_cache)``; the caller advances ``cache_len``."""
+    new rows into layer ``i`` of each cache (both leaves of the int8
+    ``{"q", "scale"}`` form) in place.  Returns ``(hidden, k_cache,
+    v_cache)``; the caller advances ``cache_len``."""
+    def layer_view(cache, i):
+        if isinstance(cache, dict):
+            return {k: v[i] for k, v in cache.items()}
+        return cache[i]
+
     for i, p in enumerate(unstack_layers(stacked)):
         x, _ = layer_forward(cfg, p, x, side,
-                             kv_cache=(k_cache[i], v_cache[i], cache_len))
+                             kv_cache=(layer_view(k_cache, i),
+                                       layer_view(v_cache, i), cache_len))
     return x, k_cache, v_cache
 
 

@@ -1,0 +1,259 @@
+"""Weight-only quantization for serving: int8, group-wise int4 and a
+per-tensor-class precision policy (mirror of the serving half of
+``megatron_llm_tpu/ops/quant.py``).
+
+Three leaf schemes, all plain ``{"q", "scale"}`` dicts:
+
+- **int8 per output channel**: ``w ≈ q * scale``, ``q`` int8 in [-127, 127]
+  ``[.., in, out]``, ``scale`` fp32 ``[.., out]`` (``max|w_col| / 127``);
+- **int4 group-wise**: ``q`` int4 packed two to a byte along the input
+  axis ``[.., in/2, out]`` (the even input row in the low nibble), ``scale``
+  fp32 ``[.., n_groups, out]``, one per ``group_size`` input rows.  An int8
+  scale drops the input axis, an int4 scale keeps it as the group axis:
+  that tells the two apart;
+- **int8 per-row embedding**: ``q`` int8 ``[v, h]``, ``scale`` fp32 ``[v]``,
+  read by ``embedding_lookup``, which dequantizes only the gathered rows.
+
+``PrecisionPolicy`` names the scheme of each class (attention projections,
+MLP projections, the embedding table); norms, biases and the lm_head are
+never quantized.  ``mm`` is the one matmul dispatch point of the
+transformer's projections.  The codes and scales are the JAX package's bit
+for bit: the same fp32 divisions and round-half-to-even.
+
+Not in this slice: ``int8_training_matmul`` (W8A8 training, ROADMAP.md
+Queue 1 item 13) and ``quantize_specs`` (sharded serving, item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+QUANT_KEYS = ("q", "scale")
+
+DEFAULT_GROUP_SIZE = 128
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, dict) and set(w) == set(QUANT_KEYS)
+
+
+def is_quantized_int4(w) -> bool:
+    """int4 leaves keep the input axis on the scale (as the group axis);
+    int8 per-channel scales drop it."""
+    return is_quantized(w) and w["scale"].ndim == w["q"].ndim
+
+
+def weight_bits(w) -> int:
+    """0 (plain tensor), 8 or 4: the resident width of ``w``."""
+    if not is_quantized(w):
+        return 0
+    return 4 if is_quantized_int4(w) else 8
+
+
+def int4_group_size(qw: dict) -> int:
+    """Rows per scale group of an int4 leaf (q is packed two per byte)."""
+    return 2 * qw["q"].shape[-2] // qw["scale"].shape[-2]
+
+
+def _nonzero(scale: torch.Tensor) -> torch.Tensor:
+    return torch.where(scale == 0, torch.ones_like(scale), scale)
+
+
+def quantize_weight(w: torch.Tensor) -> dict:
+    """[in, out] (or layer-stacked [L, in, out]) weight → {"q": int8,
+    "scale": fp32 [out] / [L, out]}: symmetric, per output channel."""
+    w32 = w.float()
+    scale = _nonzero(w32.abs().amax(dim=-2) / 127.0)
+    q = torch.clamp(torch.round(w32 / scale[..., None, :]), -127, 127)
+    return {"q": q.to(torch.int8), "scale": scale}
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7], [..., in, out] → packed int8 [..., in/2, out]:
+    the even input row in the low nibble, the odd row in the high one."""
+    *lead, rows, cols = q.shape
+    pairs = q.reshape(*lead, rows // 2, 2, cols).to(torch.int32)
+    word = ((pairs[..., 1, :] & 0xF) << 4) | (pairs[..., 0, :] & 0xF)
+    return word.to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_int4``: [..., in/2, out] → int8 [..., in, out].
+    The int8 → int32 widening sign-extends; ``(p << 28) >> 28`` and
+    ``(p << 24) >> 28`` then sign-extend each nibble, as in JAX."""
+    p32 = packed.to(torch.int32)
+    low = (p32 << 28) >> 28
+    high = (p32 << 24) >> 28
+    *lead, r2, cols = packed.shape
+    return torch.stack([low, high], dim=-2).reshape(
+        *lead, 2 * r2, cols).to(torch.int8)
+
+
+def quantize_weight_int4(w: torch.Tensor,
+                         group_size: int = DEFAULT_GROUP_SIZE) -> dict:
+    """[in, out] (or [L, in, out]) weight → int4 group-wise ``{"q": packed
+    int8 [..., in/2, out], "scale": fp32 [..., n_groups, out]}``:
+    symmetric, ``scale = max|w_group_col| / 7``."""
+    w32 = w.float()
+    *lead, rows, cols = w32.shape
+    if rows % group_size or rows % 2:
+        raise ValueError(
+            f"int4 group quantization needs group_size ({group_size}) to "
+            f"divide the (even) input dim, got {rows}")
+    grp = w32.reshape(*lead, rows // group_size, group_size, cols)
+    scale = _nonzero(grp.abs().amax(dim=-2) / 7.0)
+    q = torch.clamp(torch.round(grp / scale[..., None, :]), -7, 7)
+    q = q.reshape(*lead, rows, cols).to(torch.int8)
+    return {"q": pack_int4(q), "scale": scale}
+
+
+def dequantize_weight(qw: dict, dtype=torch.float32) -> torch.Tensor:
+    if is_quantized_int4(qw):
+        q = unpack_int4(qw["q"]).float()
+        scale = qw["scale"]
+        *lead, rows, cols = q.shape
+        ng = scale.shape[-2]
+        deq = q.reshape(*lead, ng, rows // ng, cols) * scale[..., None, :]
+        return deq.reshape(*lead, rows, cols).to(dtype)
+    return (qw["q"].float() * qw["scale"][..., None, :]).to(dtype)
+
+
+def mm(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a plain or quantized ``w``.
+
+    int8: the weight is cast to x's dtype and the per-column scale applied
+    to the product's columns, as in JAX.  int4: the group scales vary along
+    the contraction, so the weight is dequantized into x's dtype first.
+    XLA fuses either conversion into the dot's read; eager torch writes a
+    copy of the weight in x's dtype on every call (its cost is in PERF.md).
+    A plain weight is ``x @ w`` (cuBLAS)."""
+    if is_quantized(w):
+        if is_quantized_int4(w):
+            return x @ dequantize_weight(w, x.dtype)
+        y = x @ w["q"].to(x.dtype)
+        return y * w["scale"].to(x.dtype)
+    return x @ w
+
+
+# The projection leaves a policy quantizes, by tensor class.  Norm scales,
+# biases and the lm_head stay as they are; the embedding table has its own
+# per-row scheme because a gather, not mm, reads it.
+_ATTN_LEAF_NAMES = frozenset({"wq", "wk", "wv", "wo"})
+_MLP_LEAF_NAMES = frozenset({"w_gate", "w_up", "w_down"})
+_QUANT_LEAF_NAMES = _ATTN_LEAF_NAMES | _MLP_LEAF_NAMES
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionPolicy:
+    """Per-tensor-class precision for the serving quantize transform:
+    ``attn`` / ``mlp`` in {"none", "int8", "int4"}, ``embedding`` in
+    {"none", "int8"} (untied tables only), ``group_size`` the int4 group
+    width."""
+
+    attn: str = "int8"
+    mlp: str = "int8"
+    embedding: str = "none"
+    group_size: int = DEFAULT_GROUP_SIZE
+
+
+# Named presets, also the serving CLI's --weight_quant vocabulary.
+POLICIES = {
+    "int8": PrecisionPolicy(),
+    "int4": PrecisionPolicy(attn="int4", mlp="int4", embedding="int8"),
+    "mixed": PrecisionPolicy(attn="int8", mlp="int4", embedding="int8"),
+}
+
+
+def resolve_policy(policy) -> PrecisionPolicy:
+    """None (the int8 preset), a preset name, or a PrecisionPolicy."""
+    if policy is None:
+        return POLICIES["int8"]
+    if isinstance(policy, str):
+        return POLICIES[policy]
+    return policy
+
+
+def quantize_embedding(word: torch.Tensor) -> dict:
+    """[v, h] table → per-row int8 ``{"q": int8 [v, h], "scale": fp32
+    [v]}``."""
+    w32 = word.float()
+    scale = _nonzero(w32.abs().amax(dim=-1) / 127.0)
+    q = torch.clamp(torch.round(w32 / scale[..., None]), -127, 127)
+    return {"q": q.to(torch.int8), "scale": scale}
+
+
+def embedding_lookup(word, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``word[tokens]`` for a plain or int8 table; a quantized table
+    dequantizes only the gathered rows."""
+    if is_quantized(word):
+        x = word["q"][tokens].float() * word["scale"][tokens][..., None]
+        return x.to(dtype) if dtype is not None else x
+    return word[tokens]
+
+
+def quantize_params(params: dict, policy=None) -> dict:
+    """Serving transform: quantize the layer projection weights (and, under
+    the policy, an untied embedding table) of a parameter tree.  Matching
+    is by leaf name, on 2-D or layer-stacked 3-D tensors.  An int4 class
+    whose input dim the group size does not divide falls back to int8 for
+    that leaf (tiny test configs), as in JAX.  Leaves left as they are are
+    shared with ``params``, not copied."""
+    pol = resolve_policy(policy)
+    prec_of = {**{k: pol.attn for k in _ATTN_LEAF_NAMES},
+               **{k: pol.mlp for k in _MLP_LEAF_NAMES}}
+
+    def q_leaf(v, prec):
+        if prec == "int4" and v.shape[-2] % pol.group_size == 0 \
+                and v.shape[-2] % 2 == 0:
+            return quantize_weight_int4(v, pol.group_size)
+        return quantize_weight(v)
+
+    def walk(tree):
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            if (k in _QUANT_LEAF_NAMES and isinstance(v, torch.Tensor)
+                    and v.ndim in (2, 3) and prec_of[k] != "none"):
+                out[k] = q_leaf(v, prec_of[k])
+            else:
+                out[k] = walk(v)
+        return out
+
+    out = walk(params)
+    if (pol.embedding == "int8" and "lm_head" in params
+            and isinstance(params.get("embedding", {}).get("word"),
+                           torch.Tensor)):
+        out["embedding"] = dict(out["embedding"])
+        out["embedding"]["word"] = quantize_embedding(
+            params["embedding"]["word"])
+    return out
+
+
+def precision_route(params: dict) -> str:
+    """The decode precision route a tree selects: "fp32" (no quantized
+    projection: the model dtype), "int8", "int4" or "mixed".  The serving
+    engine tags its decode steps with it."""
+    bits = set()
+
+    def walk(tree):
+        if not isinstance(tree, dict) or is_quantized(tree):
+            return
+        for k, v in tree.items():
+            if k in _QUANT_LEAF_NAMES and (not isinstance(v, dict)
+                                           or is_quantized(v)):
+                bits.add(weight_bits(v))
+            else:
+                walk(v)
+
+    walk(params.get("layers", params) if isinstance(params, dict)
+         else params)
+    if not bits or bits == {0}:
+        return "fp32"
+    if bits == {8}:
+        return "int8"
+    if bits == {4}:
+        return "int4"
+    return "mixed"

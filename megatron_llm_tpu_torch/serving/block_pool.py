@@ -1,8 +1,9 @@
 """Device-resident paged KV block pool with host-side bookkeeping (mirror of
 ``megatron_llm_tpu/serving/block_pool.py``'s ``BlockPool``).
 
-The pool owns two tensors (K and V) ``[L, n_blocks, kv_heads, block, d]``;
-free list, ref counts and reservations live on the host.  Block 0 is the
+The pool owns two tensors (K and V) ``[L, n_blocks, kv_heads, block, d]``
+(with ``kv_cache_quant="int8"`` two ``{"q", "scale"}`` pairs, built by
+``models/model.init_kv_pool``; the block accounting is the same); free list, ref counts and reservations live on the host.  Block 0 is the
 permanently allocated trash block that unused table entries point at;
 decode attention masks everything past a row's fill, so trash contents
 never reach an output.  Reservations make admission sound: a request

@@ -28,11 +28,20 @@ Sampled decoding cannot match ``jax.random`` draw for draw; it keeps the
 JAX engine's invariants instead (same seed → same output, independent of
 slot and batch).
 
+Quantized serving runs as in JAX: ``cfg.kv_cache_quant="int8"`` keeps the
+pool as int8 ``{"q", "scale"}`` pairs (prefill attends over the fresh
+K/V, decode reads the int8 cache through K9), and params from
+``ops/quant.quantize_params`` (the ``int8``, ``int4`` and ``mixed``
+policies) go through ``mm``.  Every decode step is counted in
+``metrics.step_routes`` under ``precision_route(params)``, always as a
+fallback (composed) step: the fused kernel is not ported.
+
 Not in this slice, and refused at construction with ``NotImplementedError``
 naming the ROADMAP item: chunked prefill, the prefix cache, speculative
 decoding and draft models, LoRA adapters, the host KV tier,
-disaggregated roles, span tracing, sanitizers, meshes, the int8 KV cache,
-quantized weights and the fused whole-stack decode kernel.
+disaggregated roles, span tracing, sanitizers, meshes, int8 training
+matmuls (``quantize_matmuls``) and the fused whole-stack decode kernel
+(``cfg.fused_decode=True``).
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 
 from ..config import ModelConfig
 from ..models import model as model_lib
+from ..ops.quant import precision_route
 from .block_pool import BlockPool
 from .metrics import ServingMetrics
 from .queue import QueueFull, RequestQueue  # noqa: F401  (re-exported)
@@ -86,7 +96,7 @@ class EngineConfig:
     role: str = "mixed"
 
 
-def _refuse_unported(cfg: ModelConfig, params, ec: EngineConfig, *, mesh,
+def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh,
                      draft_cfg, adapters) -> None:
     """Raise for every configuration this slice of the port does not run,
     rather than silently ignoring it."""
@@ -110,10 +120,9 @@ def _refuse_unported(cfg: ModelConfig, params, ec: EngineConfig, *, mesh,
         (ec.sanitize or os.environ.get("MEGATRON_SANITIZE") == "1",
          "sanitize=True", "Queue 1: serving engine, sanitizers"),
         (mesh is not None, "a device mesh", "Queue 1: multi-GPU serving"),
-        (cfg.kv_cache_quant == "int8", "kv_cache_quant='int8'",
-         "Queue 1: int8 KV cache; Queue 2: flash_decode_int8"),
-        (_has_quantized(params), "quantized weights",
-         "Queue 1: precision policies"),
+        (cfg.quantize_matmuls != "none",
+         f"quantize_matmuls={cfg.quantize_matmuls!r} (W8A8 training matmuls)",
+         "Queue 1 item 13: int8 training matmul"),
         (cfg.fused_decode, "cfg.fused_decode=True (set it to False)",
          "Queue 2: decode_step.py fused whole-stack decode"),
     ]
@@ -122,14 +131,6 @@ def _refuse_unported(cfg: ModelConfig, params, ec: EngineConfig, *, mesh,
             raise NotImplementedError(
                 f"ServingEngine: {what} is not ported yet (ROADMAP.md, "
                 f"{item})")
-
-
-def _has_quantized(tree) -> bool:
-    if isinstance(tree, dict):
-        if set(tree) == {"q", "scale"}:
-            return True
-        return any(_has_quantized(v) for v in tree.values())
-    return False
 
 
 @dataclasses.dataclass
@@ -349,13 +350,15 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.config = engine_config or EngineConfig()
-        _refuse_unported(cfg, params, self.config, mesh=mesh,
+        _refuse_unported(cfg, self.config, mesh=mesh,
                          draft_cfg=draft_cfg, adapters=adapters)
         if self.config.max_seq_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"max_seq_len {self.config.max_seq_len} exceeds the model's "
                 f"max_position_embeddings {cfg.max_position_embeddings}")
         self.device = model_lib.default_device(device)
+        # the weight precision route that tags every decode step
+        self._precision_route = precision_route(params)
         self.metrics = metrics or ServingMetrics(self.config.max_batch_size)
         self.metrics.set_gauges(num_slots=self.config.max_batch_size)
         self.queue = RequestQueue(self.config.max_queue_size,
@@ -751,6 +754,9 @@ class ServingEngine:
                 self.metrics.observe_step_breakdown(gap_frac=gap / wall)
         self._last_dispatch_t = t0
 
+        # the composed route (the fused kernel is not ported): a fallback
+        # step, as the JAX engine counts it off a TPU
+        self.metrics.inc_step(False, self._precision_route)
         if self._inflight is None:
             # no device-resident tokens: every pending value is host-known
             pending = self._tensor(overrides)

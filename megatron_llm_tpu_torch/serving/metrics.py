@@ -80,6 +80,7 @@ _COUNTERS = (
     "submitted", "admitted", "completed", "cancelled", "timeouts",
     "rejected_queue_full", "rejected_invalid", "rejected_draining",
     "prefills", "decode_iterations", "decode_tokens",
+    "fused_steps", "fallback_steps",
 )
 
 
@@ -105,11 +106,23 @@ class ServingMetrics:
         self.device_step = LatencyHistogram()
         self.sched_host = LatencyHistogram()
         self.device_idle_frac: Optional[float] = None
+        # fused / fallback decode iterations by the weight precision route
+        # (ops/quant.py:precision_route: fp32 / int8 / int4 / mixed)
+        self.step_routes: dict = {}
         self._timers: dict = {}
 
     def inc(self, name: str, by: int = 1) -> None:
         with self._lock:
             self.counters[name] += by
+
+    def inc_step(self, fused: bool, route: str = "fp32") -> None:
+        """One decode iteration: the aggregate fused / fallback counter and
+        its per-precision-route breakdown (JAX ``metrics.py:264-272``)."""
+        with self._lock:
+            self.counters["fused_steps" if fused else "fallback_steps"] += 1
+            r = self.step_routes.setdefault(route,
+                                            {"fused": 0, "fallback": 0})
+            r["fused" if fused else "fallback"] += 1
 
     def timers(self, name: str) -> Timer:
         with self._lock:
@@ -181,6 +194,9 @@ class ServingMetrics:
                 "blocks_free": self.blocks_free,
                 "blocks_used": self.blocks_used,
                 "kv_cache_util": self.kv_cache_util,
+                # decode-step routing by weight precision (inc_step)
+                "step_routes": {route: dict(r) for route, r
+                                in sorted(self.step_routes.items())},
                 "timers_s": {name: t.elapsed_s
                              for name, t in sorted(self._timers.items())},
             })

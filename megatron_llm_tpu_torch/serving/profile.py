@@ -1,13 +1,14 @@
 """Where a served request's device time goes, on one CUDA card.
 
     python3 -m megatron_llm_tpu_torch.serving.profile [--model M]
-        [--layers N]
+        [--layers N] [--kv_quant int8] [--weight_quant int8|int4|mixed]
 
 Serves Llama-2-7B (``--model llama2``) or Falcon-7B (``falcon``) widths
 (bf16, random weights from a seed, the flash and norm kernels, 4 slots,
-64-token KV blocks: the configurations ``chip_smoke.py`` serves) through
-``ServingEngine`` and traces two windows with ``torch.profiler`` (CUDA
-activity only):
+64-token KV blocks: the configurations ``chip_smoke.py`` serves; with
+``--kv_quant int8`` an int8 KV cache, with ``--weight_quant`` the weights
+quantized by that ``ops/quant.py`` preset) through ``ServingEngine`` and
+traces two windows with ``torch.profiler`` (CUDA activity only):
 
 1. **prefill**: the admission of one 1024-token prompt;
 2. **decode**: steady batched decode of 4 requests (prompts of 512-1024
@@ -15,8 +16,10 @@ activity only):
 
 For each window it prints the host-clock window, the device's busy time
 (the union of its kernel and copy intervals) and idle share, and the
-device time by kernel family (the port's kernels, cuBLAS matmuls,
-copies, the largest other kernels), per prefill or per decode step.  The
+device time by kernel family (the port's kernels, cuBLAS matmuls, the
+``copy_`` kernels: layout copies and the casts that quantized weights
+cost ``mm`` on every call; memcpys, the largest other kernels), per
+prefill or per decode step.  The
 profiler slows the host's launches, so where the host bounds the step
 the traced window, and with it the idle share, is longer than an
 untraced run's; the device times are not.  The traces go to
@@ -38,15 +41,20 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..config import falcon_config, llama2_config
 from ..models import model as model_lib
+from ..ops.quant import quantize_params
 from .engine import EngineConfig, ServingEngine
 
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _FAMILIES = (("flash_attention_fwd", ("flash_fwd_kernel",)),
              ("flash_decode", ("flash_decode_kernel",)),
+             ("flash_decode_int8", ("flash_decode_int8_kernel",)),
              ("rmsnorm_fwd", ("rms_fwd_kernel",)),
              ("layernorm_fwd", ("ln_fwd_kernel",)),
-             ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet")))
+             ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
+             # copy_ kernels: mm's per-call bf16 copies of int8 / int4
+             # weights, and layout copies (the dense gather's reshape)
+             ("direct_copy", ("direct_copy_kernel",)))
 _MODELS = {"llama2": llama2_config, "falcon": falcon_config}
 
 
@@ -116,6 +124,9 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=32,
                     help="depth (both 7B models have 32)")
     ap.add_argument("--decode-steps", type=int, default=48)
+    ap.add_argument("--kv_quant", default="none", choices=("none", "int8"))
+    ap.add_argument("--weight_quant", default=None,
+                    choices=("int8", "int4", "mixed"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -127,8 +138,11 @@ def main(argv=None) -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     cfg = _MODELS[args.model]("7b", params_dtype="bfloat16",
                               attention_impl="flash", norm_impl="pallas",
-                              fused_decode=False, num_layers=args.layers)
+                              fused_decode=False, num_layers=args.layers,
+                              kv_cache_quant=args.kv_quant)
     params = model_lib.init_params(cfg, seed=0, device=dev)
+    if args.weight_quant:
+        params = quantize_params(params, args.weight_quant)
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
         kv_block_size=64, prefix_cache_blocks=0, trace=False), device=dev)
@@ -144,7 +158,8 @@ def main(argv=None) -> int:
                                      for n in (64, 1024)]):
             h.result(600)
 
-        pre_path, pre_s, _ = _traced(f"prefill-{args.model}", lambda: engine.submit(
+        tag = f"{args.model}-{args.weight_quant or 'bf16'}-kv{args.kv_quant}"
+        pre_path, pre_s, _ = _traced(f"prefill-{tag}", lambda: engine.submit(
             prompt(1024), 1, use_eos_stop=False).result(600))
         report = {"prefill_1024": device_summary(pre_path, pre_s, 1)}
 
@@ -167,7 +182,7 @@ def main(argv=None) -> int:
                 time.sleep(0.001)
             return engine.metrics.snapshot()["decode_iterations"] - it0
 
-        dec_path, dec_s, steps = _traced(f"decode-{args.model}",
+        dec_path, dec_s, steps = _traced(f"decode-{tag}",
                                          decode_window)
         for h in handles:
             h.result(600)
@@ -175,7 +190,8 @@ def main(argv=None) -> int:
     finally:
         engine.shutdown()
     print(f"card: {smi}; {args.model}-7b widths, {args.layers} layers, "
-          f"bf16; traces in {TRACE_DIR}")
+          f"bf16, weights {args.weight_quant or 'bf16'}, KV cache "
+          f"{args.kv_quant}; traces in {TRACE_DIR}")
     print(json.dumps(report, indent=1))
     return 0
 

@@ -17,6 +17,9 @@ from megatron_llm_tpu_torch.kernels import flash_decode as tfd
 from megatron_llm_tpu_torch.kernels import launch_counters
 from megatron_llm_tpu_torch.kernels import rmsnorm as trn
 from megatron_llm_tpu_torch.models import model as tm
+from megatron_llm_tpu_torch.ops import attention as tattn
+from megatron_llm_tpu_torch.ops import kv_quant as tkv
+from megatron_llm_tpu_torch.ops import quant as tq
 
 torch.set_num_threads(1)
 
@@ -212,6 +215,8 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                         "flash_attention_bwd_dq": 0,
                         "flash_attention_bwd_dkv": 0,
                         "flash_decode": 4 * cfg.num_layers,
+                        "flash_decode_int8": 0, "flash_decode_paged": 0,
+                        "flash_decode_paged_int8": 0,
                         "rmsnorm_fwd": 5 * (2 * cfg.num_layers + 1),
                         "rmsnorm_bwd": 0, "layernorm_fwd": 0,
                         "layernorm_bwd": 0}, launches
@@ -350,3 +355,162 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
+
+
+def _int8_cache(gen, dev, shape):
+    """int8 codes and positive fp32 row scales, as quantize_rows makes."""
+    q = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                      dtype=torch.int8)
+    scale = 0.01 + 0.05 * torch.rand(shape[:-1], generator=gen, device=dev)
+    return q, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,kv,d", [(32, 32, 128), (32, 8, 128), (8, 1, 128),
+                                     (4, 2, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_int8_matches_plain(cuda_device, nq, kv, d, dtype):
+    """K9 against its plain version: fills 0 (the mean of the dequantized
+    V), 129 and the whole cache."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q = _card((3, nq, d), gen, cuda_device, dtype)
+    kq, ks = _int8_cache(gen, cuda_device, (3, kv, 512, d))
+    vq, vs = _int8_cache(gen, cuda_device, (3, kv, 512, d))
+    lens = torch.tensor([0, 129, 512], dtype=torch.int32, device=cuda_device)
+    before = tfd.flash_decode_int8.launches
+    out = tfd.flash_decode_int8(q, kq, ks, vq, vs, lens)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_int8.launches == before + 1
+    want = tfd.flash_decode_int8_plain(q, kq, ks, vq, vs, lens)
+    tol = CARD_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+def _shuffled_tables(gen, dev, lens, n_tbl, block):
+    """Tables over a pool whose live blocks are shuffled; entries past a
+    row's fill point at the trash block 0."""
+    b = len(lens)
+    n_blocks = 1 + b * n_tbl
+    perm = 1 + torch.randperm(n_blocks - 1, generator=gen, device=dev)
+    tables = perm.reshape(b, n_tbl).to(torch.int32)
+    for i, n in enumerate(lens):
+        live = max(1, -(-n // block))
+        tables[i, live:] = 0
+    return tables, n_blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 128, 16])
+@pytest.mark.parametrize("kv,int8", [(32, False), (8, True), (8, False),
+                                     (32, True)])
+def test_paged_kernels_equal_dense_bitwise(cuda_device, block, kv, int8):
+    """K10 over a shuffled pool equals K8 over the same logical cache bit
+    for bit, and K11 equals K9; each also matches its plain version.
+    Fills: 1, a block boundary, one past it, the whole width, and 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    nq, d, n_tbl = 32, 128, 512 // block
+    width = n_tbl * block
+    lens_l = [1, block, block + 1, width, 0]
+    b = len(lens_l)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda_device)
+    tables, n_blocks = _shuffled_tables(gen, cuda_device, lens_l, n_tbl,
+                                        block)
+    q = _card((b, nq, d), gen, cuda_device)
+    shape = (n_blocks, kv, block, d)
+    if int8:
+        kq, ks = _int8_cache(gen, cuda_device, shape)
+        vq, vs = _int8_cache(gen, cuda_device, shape)
+        pools = (kq, ks, vq, vs)
+        paged, dense = tfd.flash_decode_paged_int8, tfd.flash_decode_int8
+        plain = tfd.flash_decode_paged_int8_plain
+    else:
+        pools = (_card(shape, gen, cuda_device),
+                 _card(shape, gen, cuda_device))
+        paged, dense = tfd.flash_decode_paged, tfd.flash_decode
+        plain = tfd.flash_decode_paged_plain
+    views = [tfd.gather_blocks(p, tables).contiguous() for p in pools]
+    before = paged.launches
+    got = paged(q, *pools, tables, lens)
+    torch.cuda.synchronize()
+    assert paged.launches == before + 1
+    want = dense(q, *views, lens)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(),
+                               plain(q, *pools, tables, lens).float(),
+                               **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_on_card_matches_cpu(cuda_device, dtype):
+    """The int8 codes and scales the card writes are the CPU's, bit for
+    bit (fp32 division, round half to even), and so are the fake-quantized
+    rows and their requantization (same codes; the scale as the CPU's)."""
+    gen = torch.Generator().manual_seed(10)
+    rows = (3.0 * torch.randn(2, 4, 33, 128, generator=gen)).to(dtype)
+    rows[0, 0, 0] = 0.0                              # an all-zero row
+    cpu = tkv.quantize_rows(rows)
+    card = tkv.quantize_rows(rows.to(cuda_device))
+    assert torch.equal(card["q"].cpu(), cpu["q"])
+    assert torch.equal(card["scale"].cpu(), cpu["scale"])
+    fq_cpu = tkv.fake_quantize_rows(rows.float())
+    fq = tkv.fake_quantize_rows(rows.float().to(cuda_device))
+    assert torch.equal(fq.cpu(), fq_cpu)
+    again, again_cpu = tkv.quantize_rows(fq), tkv.quantize_rows(fq_cpu)
+    assert torch.equal(again["q"], card["q"])
+    assert torch.equal(again["scale"].cpu(), again_cpu["scale"])
+
+
+@pytest.mark.cuda
+def test_quantized_model_path_on_the_card_matches_cpu(cuda_device):
+    """A prefill and paged decode steps of a small fp32 model with an int8
+    KV cache and mixed-policy weights (int8 attention, int4 MLP, int8
+    embedding) on the card, against the CPU's plain path; decode takes K9,
+    and ``paged_decode_attention`` over the filled pool takes K11 and
+    equals the gather route bit for bit."""
+    cfg = tiny_config(hidden_size=256, num_attention_heads=2, num_kv_heads=1,
+                      ffn_hidden_size=512, attention_impl="flash",
+                      norm_impl="pallas", fused_decode=False,
+                      kv_cache_quant="int8")
+    params = tq.quantize_params(tm.init_params(cfg, seed=0, device="cpu"),
+                                tq.PrecisionPolicy(attn="int8", mlp="int4",
+                                                   embedding="int8",
+                                                   group_size=128))
+    toks = torch.randint(0, cfg.vocab_size, (1, 24),
+                         generator=torch.Generator().manual_seed(0))
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        p = _to_dev(params, dev)
+        k, v = tm.init_kv_cache(cfg, 1, 32, device=dev)
+        pre, k, v = tm.forward_cached(cfg, p, toks[:, :20].to(dev), k, v, 0,
+                                      empty_cache=True)
+        k_pool, v_pool = tm.init_kv_pool(cfg, 5, 8, device=dev)
+        bids = torch.tensor([3, 1, 4, 2], device=dev)
+        tm.cache_scatter_blocks(k_pool, k, bids)
+        tm.cache_scatter_blocks(v_pool, v, bids)
+        steps = [pre[:, -1]]
+        for i in range(4):
+            lg, _, _ = tm.forward_cached_paged(
+                cfg, p, toks[:, 20 + i:21 + i].to(dev), k_pool, v_pool,
+                bids[None], torch.tensor([20 + i], device=dev))
+            steps.append(lg[:, 0])
+        outs[dev.type] = torch.cat(steps).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    assert counters["flash_decode_int8"].launches == 4 * cfg.num_layers
+    assert counters["flash_decode"].launches == 0
+    layer0 = {kk: vv[0] for kk, vv in k_pool.items()}
+    v_layer0 = {kk: vv[0] for kk, vv in v_pool.items()}
+    qd = torch.randn(1, 1, 2, 128, device=cuda_device)
+    fills = torch.tensor([23], device=cuda_device)
+    got = tattn.paged_decode_attention(qd, layer0, v_layer0, bids[None],
+                                       fills)
+    assert counters["flash_decode_paged_int8"].launches == 1
+    dense = {kk: tfd.gather_blocks(vv, bids[None]).contiguous()
+             for kk, vv in layer0.items()}
+    v_dense = {kk: tfd.gather_blocks(vv, bids[None]).contiguous()
+               for kk, vv in v_layer0.items()}
+    assert torch.equal(got, tattn.decode_attention(qd, dense, v_dense, fills))

@@ -204,7 +204,8 @@ def test_engine_config_fields_match_jax():
     (dict(trace=True), {}, "trace"),
     (dict(sanitize=True), {}, "sanitize"),
     ({}, dict(fused_decode=True), "fused_decode"),
-    ({}, dict(kv_cache_quant="int8"), "int8"),
+    # the int8 KV cache is served now; W8A8 training matmuls are not
+    ({}, dict(quantize_matmuls="int8"), "int8"),
 ])
 def test_unported_options_raise(weights, kw, cfg_kw, match):
     _, _, _, tp = weights
@@ -214,16 +215,23 @@ def test_unported_options_raise(weights, kw, cfg_kw, match):
 
 
 def test_draft_model_mesh_and_quantized_weights_raise(weights):
+    """A draft model and a mesh raise; quantized weights no longer do (they
+    are served through ``ops/quant.mm``), nor do they lift the W8A8
+    training-matmul refusal."""
+    from megatron_llm_tpu_torch.ops.quant import quantize_params
+
     _, _, tc, tp = weights
     ec = EngineConfig(**SLICE)
     with pytest.raises(NotImplementedError, match="draft.*ROADMAP"):
         ServingEngine(tc, tp, ec, draft_cfg=tc, draft_params=tp, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh.*ROADMAP"):
         ServingEngine(tc, tp, ec, mesh=object(), device="cpu")
-    quant = dict(tp, lm_head={"q": tp["lm_head"].to(torch.int8),
-                              "scale": torch.ones(1)})
-    with pytest.raises(NotImplementedError, match="quantized.*ROADMAP"):
-        ServingEngine(tc, quant, ec, device="cpu")
+    quant = quantize_params(tp, "int8")
+    engine = ServingEngine(tc, quant, ec, device="cpu")
+    assert engine._precision_route == "int8"
+    with pytest.raises(NotImplementedError, match="quantize_matmuls.*ROADMAP"):
+        ServingEngine(ttiny(fused_decode=False, quantize_matmuls="int8"),
+                      quant, ec, device="cpu")
 
 
 def test_queue_full_backpressure(weights):

@@ -32,6 +32,7 @@ def test_port_imports_no_jax():
     assert "megatron_llm_tpu_torch.kernels.flash_decode" in names
     assert "megatron_llm_tpu_torch.training.driver" in names
     assert "megatron_llm_tpu_torch.ops.dropout" in names
+    assert "megatron_llm_tpu_torch.ops.quant" in names
     assert "megatron_llm_tpu_torch.finetune" in names
     code = (
         "import importlib, json, sys\n"

@@ -189,8 +189,15 @@ def test_cache_update_in_place(pos):
 
 
 def test_int8_cache_is_refused():
+    """The int8 cache form is written now (``tests/test_torch_quant.py``
+    holds it against JAX); what is refused is a pair whose leaves are not
+    int8 codes and fp32 scales."""
     cache = {"q": torch.zeros(1, 1, 4, 8, dtype=torch.int8),
              "scale": torch.zeros(1, 1, 4)}
     assert tkv.is_quantized_cache(cache)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkv.cache_update(cache, torch.zeros(1, 1, 1, 8), 0)
+    tkv.cache_update(cache, torch.ones(1, 1, 1, 8), 2)
+    assert cache["q"][0, 0, 2].tolist() == [127] * 8
+    assert cache["scale"][0, 0].tolist() == [0.0, 0.0, tkv._RCP127, 0.0]
+    bad = {"q": torch.zeros(1, 1, 4, 8), "scale": torch.zeros(1, 1, 4)}
+    with pytest.raises(TypeError, match="int8"):
+        tkv.cache_update(bad, torch.zeros(1, 1, 1, 8), 0)
