@@ -14,7 +14,9 @@ it goes wrong:
    the card, in bf16, at the serving and training paths' shapes (Llama-2-7B
    and Falcon-7B's; LayerNorm at GPT-1.3B's too), with its time (CUDA
    events), its bound on an H100 and one PyTorch library call for the same
-   function as a yardstick (the port never calls those);
+   function as a yardstick where there is one (the port never calls
+   those; no single call computes the fused decode step, whose rows give
+   the composed route's time instead);
 4. reference: Llama-2-7B widths cut to 2 layers, bf16, prefill then paged
    decode steps through the kernels, against the plain fp32 full forward;
 5. serve: Llama-2-7B at full width and depth, random weights from a seed,
@@ -43,12 +45,23 @@ it goes wrong:
 14. paged-attention: bf16 and int8 pools filled by the engine's prefill
     and paged decode code at 2-layer 7B widths, then
     ``ops.attention.paged_decode_attention`` over each layer (K10, K11),
-    equal to the gather route bit for bit.
+    equal to the gather route bit for bit;
+15. fused-reference: phase 4 with ``fused_decode=True``: the decode steps
+    through ``forward_cached`` (K12) and ``forward_cached_paged`` (K13);
+16. fused-serve: phase 5 with the default ``fused_decode=True`` on prompts
+    that repeat a span: one K13 launch per decode step, no K8, every step
+    counted as fused;
+17. fused-quant-serve: phase 13 with ``fused_decode=True``: K13 over the
+    int8 pool with int8 weights, no K8 or K9;
+18. spec-serve: phase 16 with n-gram speculation (``spec_draft_len=3``;
+    two requests with ``spec_force``): verify steps launch K14, and the
+    greedy tokens must be phase 16's, token for token.
 
-Phase 3 covers K1-K11; K10 and K11 must equal K8 and K9 bit for bit on
-the same logical cache.  Phases 5, 7, 9, 10, 11, 13 and 14 are the main
-paths: every kernel's launch counter is reset just before each and read
-just after, and each kernel of a path must have been launched in it.  The
+Phase 3 covers K1-K14; K10 and K11 must equal K8 and K9 bit for bit on
+the same logical cache, K13 must equal K12 and K14 four K13 steps.
+Phases 5, 7, 9, 10, 11, 13 and 14-18 are the main paths: every kernel's
+launch counter is reset just before each and read just after, and each
+kernel of a path must have been launched in it.  The
 line before the last is the ``{"kernels": [...]}`` JSON object
 (``launches`` sums the paths' counts, ``launches_by_path`` lists them);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -378,6 +391,268 @@ def check_decode_family(torch, F, fd, dev, gen):
     return rows
 
 
+def _first_layers(tree, n):
+    """The first ``n`` layers of a stacked ``[L, ...]`` parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: v.clone() for k, v in tree.items()}
+    return tree.clone()
+
+
+def _leaf(w):
+    """A weight's stored payload (the int8 codes of a quantized one)."""
+    return w["q"] if isinstance(w, dict) else w
+
+
+def _pool_of(torch, dense, tables):
+    """Dense leaves ``[L, b, kv, width(, d)]`` laid out as a pool at the
+    tables' block ids (every id used; block 0 and the rest hold large
+    finite garbage)."""
+    if isinstance(dense, dict):
+        return {k: _pool_of(torch, v, tables) for k, v in dense.items()}
+    L, b, kv, width = dense.shape[:4]
+    n_tbl = tables.shape[1]
+    block = width // n_tbl
+    pool = torch.full((L, 1 + b * n_tbl, kv, block) + tuple(dense.shape[4:]),
+                      100, dtype=dense.dtype, device=dense.device)
+    for bi in range(b):
+        for j in range(n_tbl):
+            pool[:, int(tables[bi, j])] = dense[:, bi, :, j * block:
+                                                (j + 1) * block]
+    return pool
+
+
+def _same(torch, got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# The fused step rounds to bf16 where the plain version does, but its
+# fp32 sums run in another order, so now and then a value next to a
+# rounding boundary (the context, the normed inputs, the MLP input) rounds
+# the other way; at 7B widths such a flip moves the next layer's inputs by
+# a few ulps and more flips follow (a 1-layer diagnosis on the card: q, k,
+# v and the context agree to ~1e-6, gate/up then differ by up to ~3e-3).
+# So the first layer's K/V rows, one rounding from shared inputs, are held
+# to phase 3's tolerance (an int8 cache's to one code step: a raw value a
+# few ulps away can round to the neighbouring code), and the hidden state
+# and all rows to a relative (Frobenius) error; a wrong kernel errs by
+# order 1.
+FUSED_REL_LIMIT = 0.03
+
+
+def fused_errs(torch, got, want, int8_rows):
+    """[(max abs err, relative Frobenius err, ok)] for hidden, K rows and V
+    rows of a fused step against the plain version's (see
+    FUSED_REL_LIMIT)."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        rel = float(torch.linalg.vector_norm(g - w)
+                    / torch.linalg.vector_norm(w))
+        ok = rel <= FUSED_REL_LIMIT
+        if i:                                   # the first layer's rows
+            d0, w0 = diff[0], w[0]
+            if int8_rows:
+                step = w0.abs().amax(-1, keepdim=True) / 127
+                ok = ok and bool((d0 <= 1.01 * step + 1e-6).all())
+            else:
+                ok = ok and bool((d0 <= BF16_ATOL + BF16_RTOL * w0.abs())
+                                 .all())
+        out.append((float(diff.max()), rel, ok))
+    return out
+
+
+def _fused_calls(ds, cfg, st, x, k, v, kp, vp, tables, fills, rope):
+    """{name: (kernel call, plain call, window)} of K12 and K13 on the
+    first window position of ``x`` [b, W, h] and of K14 on all of it,
+    over the dense caches ``k``/``v`` and their pools ``kp``/``vp``."""
+    x0 = x[:, 0].contiguous()
+    return {
+        "fused_decode_step": (
+            lambda: ds.fused_decode_step(cfg, st, x0, k, v, fills, rope),
+            lambda: ds.fused_decode_step_plain(cfg, st, x0, k, v, fills,
+                                               rope), 1),
+        "fused_decode_step_paged": (
+            lambda: ds.fused_decode_step_paged(cfg, st, x0, kp, vp, tables,
+                                               fills, rope),
+            lambda: ds.fused_decode_step_paged_plain(cfg, st, x0, kp, vp,
+                                                     tables, fills, rope), 1),
+        "fused_decode_verify_paged": (
+            lambda: ds.fused_decode_verify_paged(cfg, st, x, kp, vp, tables,
+                                                 fills, rope),
+            lambda: ds.fused_decode_verify_paged_plain(cfg, st, x, kp, vp,
+                                                       tables, fills, rope),
+            x.shape[1]),
+    }
+
+
+def check_decode_step(torch, M, ds, dev, gen, smi):
+    """K12, K13 and K14 at Llama-2-7B's widths, 4 rows, max_len 2048, a
+    shuffled pool of 64-token blocks, a window of 4; bf16 weights with a
+    bf16 cache, and int8 weights with an int8 cache.
+
+    Against the plain versions at 2 layers (fills 1/97/1056/2044: the
+    window of the last row ends at the end of its table), bit for bit
+    K13 == K12 on the same logical cache and K14 == four K13 steps with
+    the host's pool writes between them.  Times per call at the full 32
+    layers (CUDA-graph replays; the plain version between events), beside
+    the composed route's ``forward_cached_paged`` for the same step
+    (between events: it is not one call, and it also embeds and unembeds,
+    which the fused call leaves to its caller)."""
+    from megatron_llm_tpu_torch.config import llama2_config
+    from megatron_llm_tpu_torch.ops.kv_quant import quantize_rows
+    from megatron_llm_tpu_torch.ops.quant import quantize_params
+
+    b, max_len, block, W = 4, 2048, 64, 4
+    fills_l = [1, 97, 1056, 2044]
+    rows = {}
+    for form in ("bf16", "int8"):
+        cfg = llama2_config("7b", params_dtype="bfloat16",
+                            kv_cache_quant="int8" if form == "int8"
+                            else "none")
+        params = M.init_params(cfg, seed=7, device=dev)
+        if form == "int8":
+            params = quantize_params(params, "int8")
+        stacked = params["layers"]
+        rope = M.rope_tables(cfg, device=dev)
+        L, nkv, d = cfg.num_layers, cfg.kv_heads, cfg.head_dim
+        shape = (L, b, nkv, max_len, d)
+        if form == "int8":
+            k = dict(zip(("q", "scale"), _int8_cache(torch, shape, gen, dev)))
+            v = dict(zip(("q", "scale"), _int8_cache(torch, shape, gen, dev)))
+        else:
+            k, v = (torch.randn(shape, generator=gen, device=dev,
+                                dtype=torch.bfloat16) for _ in range(2))
+        n_tbl = max_len // block
+        tables = (1 + torch.randperm(b * n_tbl, generator=gen, device=dev)
+                  ).reshape(b, n_tbl).to(torch.int32)
+        kp, vp = _pool_of(torch, k, tables), _pool_of(torch, v, tables)
+        fills = torch.tensor(fills_l, device=dev)
+        x = 0.02 * torch.randn(b, W, cfg.hidden_size, generator=gen,
+                               device=dev)
+        x = x.to(torch.bfloat16)
+        # the 2-layer checks: the stack's first two layers, caches cut alike
+        st2 = _first_layers(stacked, 2)
+        k2, v2 = _first_layers(k, 2), _first_layers(v, 2)
+        kp2, vp2 = _first_layers(kp, 2), _first_layers(vp, 2)
+        calls = _fused_calls(ds, cfg, st2, x, k2, v2, kp2, vp2, tables,
+                             fills, rope)
+        outs = {}
+        for name, (kern, plain, _) in calls.items():
+            got = kern()
+            torch.cuda.synchronize()
+            errs = fused_errs(torch, got, plain(), form == "int8")
+            if not all(ok for *_, ok in errs):
+                raise RuntimeError(f"{name} ({form}): hidden/k/v max err "
+                                   f"{[e[0] for e in errs]}, relative "
+                                   f"{[e[1] for e in errs]} beyond tolerance")
+            outs[name] = (got, max(e[0] for e in errs),
+                          max(e[1] for e in errs))
+        if not _same(torch, outs["fused_decode_step_paged"][0],
+                     outs["fused_decode_step"][0]):
+            raise RuntimeError(f"fused_decode_step_paged ({form}) differs "
+                               "from fused_decode_step on the same logical "
+                               "cache")
+        # four K13 steps over a copy of the pool, the host writing each
+        # step's rows (quantize_rows for an int8 pool) before the next
+        kps, vps = _clone(kp2), _clone(vp2)
+        seq = []
+        for j in range(W):
+            pos = fills + j
+            out = ds.fused_decode_step_paged(cfg, st2, x[:, j].contiguous(),
+                                             kps, vps, tables, pos, rope)
+            bids = tables[torch.arange(b, device=dev), pos // block]
+            for pool, r in ((kps, out[1]), (vps, out[2])):
+                M.cache_append_rows(pool, quantize_rows(r) if form == "int8"
+                                    else r, bids, pos % block)
+            seq.append(out)
+        ver = outs["fused_decode_verify_paged"][0]
+        want = (torch.stack([s[0] for s in seq], 1),
+                *(torch.stack([s[i] for s in seq], 2).reshape(ver[i].shape)
+                  for i in (1, 2)))
+        if not _same(torch, ver, want):
+            raise RuntimeError(f"fused_decode_verify_paged ({form}) differs "
+                               "from four sequential fused_decode_step_paged "
+                               "steps")
+        # full depth: times and bounds
+        full = _fused_calls(ds, cfg, stacked, x, k, v, kp, vp, tables, fills,
+                            rope)
+        # the composed route for K13's step: embed, the per-layer kernels
+        # (K8 / K9 over the gathered tables), final norm and unembedding
+        ccfg = dataclasses.replace(cfg, fused_decode=False,
+                                   attention_impl="flash", norm_impl="pallas")
+        tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                            device=dev)
+        ctables = tables.to(torch.long)
+        composed_ms = event_ms(torch, lambda: M.forward_cached_paged(
+            ccfg, params, tok, kp, vp, ctables, fills), iters=5)
+        fused_fwd_ms = event_ms(torch, lambda: M.forward_cached_paged(
+            cfg, params, tok, kp, vp, ctables, fills, use_fused=True),
+            iters=5)
+        w_bytes = _nbytes(stacked)
+        cache_item = 1 if form == "int8" else 2
+        cache_extra = 4 if form == "int8" else 0       # fp32 row scale
+        for name, (kern, plain, win) in full.items():
+            ms = cuda_ms(torch, kern, iters=5, warmup=2)
+            plain_ms = event_ms(torch, plain, iters=1, warmup=1)
+            n_rows = b * win
+            # every weight and norm read once, each slot's live cache (its
+            # fill) read once, x read, hidden and the new rows written
+            live = sum(fills_l)
+            nbytes = (w_bytes + 2 * L * live * nkv * (d * cache_item
+                                                      + cache_extra)
+                      + 2 * n_rows * cfg.hidden_size * 2
+                      + 2 * L * n_rows * nkv * d * (4 if form == "int8"
+                                                    else 2))
+            n_w = sum(_leaf(stacked[grp][n]).numel() for grp, n in (
+                ("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                ("attn", "wo"), ("mlp", "w_gate"), ("mlp", "w_up"),
+                ("mlp", "w_down")))
+            # 2 ops a weight a row, 4 a cached element a query head
+            ops = 2.0 * n_w * n_rows + 4.0 * L * (
+                live * win + (win * (win - 1)) // 2 * b) \
+                * cfg.num_attention_heads * d
+            bms, by = bound_ms(nbytes, ops)
+            err, rel = outs[name][1], outs[name][2]
+            log(f"kernel {name} [llama2-7b {form} weights and cache, {n_rows} "
+                f"rows, fills {fills_l}, 64-token pool blocks]: at 2 layers "
+                f"max_abs_err {err:.3e}, relative err {rel:.3e} (limit "
+                f"{FUSED_REL_LIMIT}; layer-0 rows atol {BF16_ATOL} rtol "
+                f"{BF16_RTOL:.4f}); 32 layers ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} bound_ms {bms:.4f} ({by}); composed route "
+                f"forward_cached_paged {composed_ms:.4f} ms and fused "
+                f"forward_cached_paged {fused_fwd_ms:.4f} ms (between "
+                f"events, not a library call); card {smi}")
+            if form == "bf16":
+                rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bms,
+                                  bound_by=by, library_ms=None,
+                                  composed_route_ms=composed_ms)
+            else:
+                rows[name]["int8"] = dict(max_abs_err=err, rel_err=rel,
+                                          ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bms,
+                                          bound_by=by,
+                                          composed_route_ms=composed_ms)
+        log(f"decode_step ({form}): K13 == K12 and K14 == 4 x K13 bit for "
+            "bit at 2 layers")
+        del params, stacked, k, v, kp, vp, st2, outs, seq, ver, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_rmsnorm(torch, F, rn, dev, gen):
     """K4 at rows=4096, plus the serving prefill (1024) and decode (4)
     row counts, hidden 4096."""
@@ -651,14 +926,25 @@ def check_layernorm_bwd(torch, F, rn, dev, gen):
 
 
 def check_reference(torch, M, cfg_full, dev, label, n_pre=192, n_dec=8,
-                    bk=64, width=256):
+                    bk=64, width=256, counters=None):
     """Prefill 192 tokens and take 8 paged decode steps at ``cfg_full``'s
     widths (2 layers) through the kernels, and compare every logit row
-    with the plain fp32 full forward over the same tokens."""
+    with the plain fp32 full forward over the same tokens.
+
+    With ``cfg_full.fused_decode`` the decode steps take the fused route:
+    the first half ``forward_cached`` over the dense prefill cache (K12),
+    the rest ``forward_cached_paged(use_fused=True)`` over the pool (K13),
+    each launched once a step (``counters``)."""
+    fused = cfg_full.fused_decode
     cfg = dataclasses.replace(cfg_full, num_layers=2)
     params = M.init_params(cfg, seed=1, device=dev)
     ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
-                                  attention_impl="dot", norm_impl="xla")
+                                  attention_impl="dot", norm_impl="xla",
+                                  fused_decode=False)
+    if counters is not None:
+        for fn in counters.values():
+            fn.launches = 0
+    n_dense = n_dec // 2 if fused else 0
 
     def to32(t):
         return ({k: to32(v) for k, v in t.items()} if isinstance(t, dict)
@@ -671,18 +957,23 @@ def check_reference(torch, M, cfg_full, dev, label, n_pre=192, n_dec=8,
         k, v = M.init_kv_cache(cfg, 1, width, device=dev)
         pre, k, v = M.forward_cached(cfg, params, toks[:, :n_pre], k, v, 0,
                                      empty_cache=True)
+        steps = [pre[:, -1]]
+        for i in range(n_dense):
+            lg, k, v = M.forward_cached(cfg, params,
+                                        toks[:, n_pre + i:n_pre + i + 1], k,
+                                        v, n_pre + i)
+            steps.append(lg[:, 0])
         n_blocks = 1 + width // bk
         k_pool, v_pool = M.init_kv_pool(cfg, n_blocks, bk, device=dev)
         bids = torch.arange(1, n_blocks, device=dev)
         M.cache_scatter_blocks(k_pool, k, bids)
         M.cache_scatter_blocks(v_pool, v, bids)
         tables = bids[None, :]
-        steps = [pre[:, -1]]
-        for i in range(n_dec):
+        for i in range(n_dense, n_dec):
             fill = torch.tensor([n_pre + i], device=dev)
             lg, _, _ = M.forward_cached_paged(
                 cfg, params, toks[:, n_pre + i:n_pre + i + 1], k_pool,
-                v_pool, tables, fill)
+                v_pool, tables, fill, use_fused=fused)
             steps.append(lg[:, 0])
         got = torch.cat(steps)                          # [1 + n_dec, V]
         del k, v, k_pool, v_pool
@@ -695,12 +986,23 @@ def check_reference(torch, M, cfg_full, dev, label, n_pre=192, n_dec=8,
     mean_err, max_err = float(diff.mean()), float(diff.max())
     ok = bool(torch.isfinite(got).all()) and mean_err <= 0.03 \
         and max_err <= 0.25
+    route = (f"{n_dense} fused dense + {n_dec - n_dense} fused paged"
+             if fused else f"{n_dec} paged")
     log(f"reference [{label} widths, 2 layers, bf16 kernel path vs fp32 "
-        f"plain forward, {n_pre}-token prefill + {n_dec} paged decode "
+        f"plain forward, {n_pre}-token prefill + {route} decode "
         f"steps]: logit std {float(ref.std()):.3f} mean_abs_err "
         f"{mean_err:.4f} (tol 0.03) max_abs_err {max_err:.4f} (tol 0.25)")
     if not ok:
         raise RuntimeError("kernel path disagrees with the fp32 reference")
+    if counters is None:
+        return None
+    launches = {name: fn.launches for name, fn in counters.items()}
+    got_n = (launches["fused_decode_step"], launches["fused_decode_step_paged"])
+    if fused and got_n != (n_dense, n_dec - n_dense):
+        raise RuntimeError(f"fused reference: K12/K13 launched {got_n} "
+                           f"times, want {(n_dense, n_dec - n_dense)}")
+    log(f"reference {label} kernels " + json.dumps(launches))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -889,12 +1191,26 @@ def put(port: int, body: dict, timeout: float = 600.0):
         return resp.status, json.loads(resp.read())
 
 
+def _span_prompt(torch, n, vocab, gen):
+    """n tokens of a 48-token random span repeated: the n-gram drafter's
+    trailing n-gram has an earlier occurrence from the first repeat on."""
+    span = torch.randint(0, vocab, (48,), generator=gen).tolist()
+    return (span * (n // 48 + 1))[:n]
+
+
 def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
           policy=None, lens=(64, 1024, 200, 512, 96, 777, 330, 1000),
-          new=32):
+          new=32, fused=False, spans=False, spec_draft_len=0, force=(),
+          record=None):
     """``need`` must launch on the path, ``forbid`` must not; ``policy``
     quantizes the random weights (``ops/quant.quantize_params``) before
-    the server gets them."""
+    the server gets them.  ``fused``: every decode step must take the
+    fused route, with one K13 launch each.  ``spans`` makes the prompts
+    repeat a span (so the n-gram drafter proposes); ``spec_draft_len``
+    turns speculation on, and the requests at the indices ``force`` go to
+    the engine directly with ``spec_force`` (the HTTP API has no such
+    field).  ``record`` (a dict) receives every request's tokens and the
+    decode rate."""
     from megatron_llm_tpu_torch.generation import MegatronServer
     from megatron_llm_tpu_torch.models import model as M
     from megatron_llm_tpu_torch.ops.quant import quantize_params
@@ -914,13 +1230,18 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
     server = MegatronServer(cfg, params, NullTokenizer(cfg.vocab_size),
                             max_batch_size=4, engine_max_seq_len=2048,
                             prefill_bucket=64, kv_block_size=64,
-                            prefix_cache_blocks=0, trace=False, device=dev)
+                            prefix_cache_blocks=0,
+                            spec_draft_len=spec_draft_len, trace=False,
+                            device=dev)
     server.run("127.0.0.1", 0, block=False)
     try:
         port = server.port
         gen = torch.Generator().manual_seed(3)
-        prompts = [" ".join(str(int(t)) for t in torch.randint(
-            0, cfg.vocab_size, (n,), generator=gen)) for n in lens]
+        ids = [_span_prompt(torch, n, cfg.vocab_size, gen) if spans
+               else torch.randint(0, cfg.vocab_size, (n,),
+                                  generator=gen).tolist() for n in lens]
+        prompts = [" ".join(str(int(t)) for t in p) for p in ids]
+
         def body(p):  # greedy (top_k = top_p = 0), no EOS stop
             return {"prompts": [p], "tokens_to_generate": new,
                     "no_early_termination": True}
@@ -937,7 +1258,14 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
 
         def client(i):
             try:
-                results[i] = put(port, body(prompts[i]))
+                if i in force:
+                    toks = engine.submit(ids[i], new, use_eos_stop=False,
+                                         spec_force=True).result(900).tokens
+                    text = " ".join(str(t) for t in toks)
+                    results[i] = (200, {"text": [text],
+                                        "segments": [toks]})
+                else:
+                    results[i] = put(port, body(prompts[i]))
             except Exception as e:  # noqa: BLE001 - reported below
                 results[i] = (None, repr(e))
 
@@ -981,6 +1309,38 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
             f"clock; card {smi}")
         log(f"serve {label} kernels " + json.dumps(launches))
         log(f"serve {label} step_routes {json.dumps(m1['step_routes'])}")
+
+        def steps(m, route):
+            return sum(r[route] for r in m["step_routes"].values())
+
+        fused_steps = steps(m1, "fused") - steps(m0, "fused")
+        fallback_steps = steps(m1, "fallback") - steps(m0, "fallback")
+        spec_steps = m1["spec_steps"] - m0["spec_steps"]
+        if spec_draft_len:
+            proposed = m1["spec_proposed"] - m0["spec_proposed"]
+            accepted = m1["spec_accepted"] - m0["spec_accepted"]
+            log(f"serve {label} speculation: {spec_steps} verify steps of "
+                f"{fused_steps + fallback_steps} decode steps, {proposed} "
+                f"draft tokens proposed, {accepted} accepted (rate "
+                f"{accepted / max(1, proposed):.3f}), "
+                f"{dec_tok / max(1, m1['decode_iterations'] - m0['decode_iterations']):.2f}"
+                f" tokens a step")
+            if spec_steps < 1:
+                raise RuntimeError("speculation on, but no verify step ran")
+        if fused:
+            # a K13 launch per plain step, a K14 launch per verify step
+            k13 = launches["fused_decode_step_paged"]
+            k14 = launches["fused_decode_verify_paged"]
+            if fallback_steps or k13 + k14 != fused_steps \
+                    or k14 != spec_steps:
+                raise RuntimeError(
+                    f"fused serving: {fused_steps} fused and "
+                    f"{fallback_steps} composed steps, {spec_steps} verify "
+                    f"steps, K13 launched {k13} and K14 {k14} times")
+        if record is not None:
+            record["tokens"] = [[int(t) for t in r[1]["text"][0].split()]
+                                for r in results]
+            record["decode_tok_s"] = dec_tok / dec_s
         missing = [n for n in need if launches[n] < 1]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: "
@@ -1176,6 +1536,7 @@ def main() -> int:
         return 2
     from megatron_llm_tpu_torch.config import falcon_config, llama2_config
     from megatron_llm_tpu_torch.kernels import build, launch_counters
+    from megatron_llm_tpu_torch.kernels import decode_step as ds
     from megatron_llm_tpu_torch.kernels import flash_attention as fa
     from megatron_llm_tpu_torch.kernels import flash_decode as fd
     from megatron_llm_tpu_torch.kernels import rmsnorm as rn
@@ -1210,6 +1571,10 @@ def main() -> int:
             "layernorm_fwd": check_layernorm(torch, F, rn, dev, gen),
         }
         rows.update(check_decode_family(torch, F, fd, dev, gen))
+        t0 = time.perf_counter()
+        rows.update(check_decode_step(torch, M, ds, dev, gen, smi))
+        log(f"decode_step checks in {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
         rows.update(check_flash_attention_bwd(torch, F, fa, dev, gen))
     rows["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, F, rn, dev, gen)
     rows["layernorm_bwd"] = check_layernorm_bwd(torch, F, rn, dev, gen)
@@ -1288,6 +1653,42 @@ def main() -> int:
                                                     cfg)
     log(f"quantized phases 12-14 in {time.perf_counter() - t0:.1f}s")
 
+    t0 = time.perf_counter()
+    fused = dataclasses.replace(cfg, fused_decode=True)
+    paths["fused reference"] = check_reference(
+        torch, M, fused, dev, "llama2-7b fused", counters=counters)
+    settle()
+    fused_out, spec_out = {}, {}
+    paths["serve llama2-7b fused"] = serve(
+        torch, fused, dev, counters, smi, "llama2-7b fused",
+        ("flash_attention_fwd", "rmsnorm_fwd", "fused_decode_step_paged"),
+        forbid=("flash_decode",), fused=True, spans=True, record=fused_out)
+    settle()
+    paths["serve llama2-7b fused int8"] = serve(
+        torch, dataclasses.replace(fused, kv_cache_quant="int8"), dev,
+        counters, smi, "llama2-7b fused int8",
+        ("flash_attention_fwd", "rmsnorm_fwd", "fused_decode_step_paged"),
+        forbid=("flash_decode", "flash_decode_int8"), policy="int8",
+        fused=True)
+    settle()
+    paths["serve llama2-7b spec"] = serve(
+        torch, fused, dev, counters, smi, "llama2-7b spec",
+        ("flash_attention_fwd", "rmsnorm_fwd", "fused_decode_verify_paged"),
+        forbid=("flash_decode",), fused=True, spans=True, spec_draft_len=3,
+        force=(1, 5), record=spec_out)
+    settle()
+    if spec_out["tokens"] != fused_out["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(spec_out["tokens"],
+                                               fused_out["tokens"]))
+               if a != b]
+        raise RuntimeError(f"speculative serving changed the greedy tokens "
+                           f"of requests {bad}")
+    log(f"spec-serve: greedy tokens identical to fused-serve's for all "
+        f"{len(spec_out['tokens'])} requests; decode "
+        f"{spec_out['decode_tok_s']:.1f} tok/s against "
+        f"{fused_out['decode_tok_s']:.1f} (host clock; card {smi})")
+    log(f"fused phases 15-18 in {time.perf_counter() - t0:.1f}s")
+
     meta = {
         "flash_attention_fwd": (
             "cuda", "megatron_llm_tpu_torch/csrc/flash_attention.cu",
@@ -1322,6 +1723,15 @@ def main() -> int:
         "layernorm_bwd": (
             "triton", "megatron_llm_tpu_torch/kernels/rmsnorm_triton.py",
             "megatron_llm_tpu/kernels/rmsnorm.py:96"),
+        "fused_decode_step": (
+            "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
+            "megatron_llm_tpu/kernels/decode_step.py:145"),
+        "fused_decode_step_paged": (
+            "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
+            "megatron_llm_tpu/kernels/decode_step.py:434"),
+        "fused_decode_verify_paged": (
+            "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
+            "megatron_llm_tpu/kernels/decode_step.py:1504"),
     }
     kernels = []
     for kname, (route, source, replaces) in meta.items():

@@ -53,8 +53,9 @@ class ModelConfig:
     Field for field the JAX ``ModelConfig``; see its comments for what
     each knob means.  Fields that select TPU-only machinery keep their
     names and defaults so configs round-trip between the packages:
-    ``fused_decode=True`` is refused by the port's serving engine, and
-    the flash tile sizes are ignored (the CUDA kernel picks its own).
+    ``fused_decode=True`` takes the whole-stack decode kernels
+    (``kernels/decode_step.py``) where their predicates accept the stack,
+    and the flash tile sizes are ignored (the CUDA kernel picks its own).
     ``kv_cache_quant="int8"`` serves from the int8 KV cache;
     ``quantize_matmuls="int8"`` (W8A8 training) is refused by
     ``RuntimeConfig.validate`` and the serving engine."""

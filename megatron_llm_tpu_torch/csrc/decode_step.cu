@@ -1,0 +1,1125 @@
+// The whole decoder stack for one new token per row, in one cooperative
+// launch: K12 (dense cache), K13 (paged pool) and K14 (paged pool, a W-wide
+// speculative window per slot), one device body for all three.
+//
+// Replaces the TPU kernels of megatron_llm_tpu/kernels/decode_step.py:
+//   K12 fused_decode_step          (_decode_step_kernel)
+//   K13 fused_decode_step_paged    (_decode_step_kernel_paged, W = 1)
+//   K14 fused_decode_verify_paged  (_decode_step_kernel_paged, linear W)
+// Per layer, for every row: RMSNorm; the q/k/v GEMVs (int8 weights: the
+// column scale after the dot; int4: group-dequantized as the tile loads);
+// interleaved-pair RoPE at the row's own position; attention over the
+// row's cache columns [0, fill) with the row's own new K/V folded in last;
+// wo and the residual; RMSNorm; gate/up; act(gate) * up in the compute
+// dtype; w_down as nm partial sums, each added to the residual in turn.
+// The residual stays fp32 from the first layer to the last.
+//
+// What bounds it on the H100: bytes.  A decode step with a handful of rows
+// does ~2 flops per weight byte it reads, and the attention a few per
+// cache byte, against the card's ~295: a step can only be as fast as it
+// streams the layer weights (13 GB for Llama-2-7B in bf16) and the live
+// cache once.  The composed route also pays hundreds of launches per step
+// and a gather of the cache; this one pays one launch and no copy.
+//
+// Design (a simple, correct first version):
+// - One cooperative launch, as many 256-thread blocks as fit on the card.
+//   A grid-wide barrier (a counter in global memory; the launch guarantees
+//   every block is resident) separates the five phases of a layer:
+//   norm+qkv | attention | wo | norm+gate/up | w_down.
+// - GEMV phases: a block owns a tile of 32 output columns and does the
+//   whole contraction over it.  The rows' inputs (normed, or the context,
+//   or act(gate) * up, each rounded to the compute dtype) are staged in
+//   shared memory once for all of the block's tiles of the phase (in
+//   pieces where they do not fit), so each weight element is read from
+//   device memory once per layer for up to 16 rows.  The contraction rows
+//   are split into 64 fixed streams, each summed in order in registers,
+//   then combined in a fixed tree (three shuffle levels, then the 8 warps
+//   in order).  A thread loads 8 columns of U rows of its stream at a time
+//   (U = 8 for bf16, 16 for int8 and packed int4: 128 bytes) and the next
+//   chunk's loads are issued before this one's products.  Nothing depends
+//   on the grid size or on how many rows the call has (rows go 16 at a
+//   time, each with its own accumulators; U depends on the weight's form
+//   alone), so a row's bits are the same in K12, K13 and K14.  Each block
+//   recomputes the rows' RMS statistics itself (identical code, identical
+//   bits), which saves two barriers a layer.
+// - Attention phase: one block per (row, kv head) at a time, laid out as
+//   csrc/flash_decode.cu's decode body: lane groups own cache columns, 16
+//   bytes a thread, each group with its own online softmax, merged in a
+//   fixed order.  Which group takes column j depends on j alone, whatever
+//   the cache layout: column j is cache[slot][head][j] (dense) or
+//   pool[table[slot][j >> shift]][head][j & (block - 1)] (paged).  For a
+//   window row j > 0, the columns fill .. fill + j - 1 are spliced from the
+//   slot's in-flight window rows, converted to exactly what a pool round
+//   trip returns (cast through the pool's dtype, or fake-quantized twice
+//   for an int8 pool), so K14's row j sees the values and columns of the
+//   j-th sequential K13 step, bit for bit.  The row's own key and value
+//   fold in last, raw.  No column past the fill is read, and a group that
+//   saw no live column keeps m = -inf, l = 0: a free slot at fill 0
+//   attends its own token only, with no 0 x inf.
+// - The int8 requantization of the new rows and of the splice rounds as
+//   ops/kv_quant.py does: scale = amax * fp32(1/127), a true division,
+//   round half to even (__fmul_rn / __fdiv_rn / rintf: no contraction).
+// Scratch (residual, q, new K/V, context, gate, up) is allocated by the
+// wrapper and stays in L2.
+//
+// Limits (kernels/decode_step.py checks them before the launch): head dim
+// 64 or 128, a GQA group up to 8, h, nq * d, nkv * d and each w_down chunk
+// in whole 32-column tiles, at most 64 rows and a window up to 8, pool
+// blocks powers of two, x fp32 or bf16 with plain weights in x's dtype.
+#include "common.cuh"
+
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileN = 32;                    // GEMV output columns
+constexpr int kStreams = 64;                  // contraction streams
+// stored rows of a weight chunk each contraction stream loads at once: 16
+// bytes a load of bf16 (8 rows), 8 of int8 or packed int4 (16), 32 of fp32
+// (4).  A property of the weight's form alone, never of the row count, so
+// a row's sums run in one order in every call.
+template <typename T, int KIND>
+constexpr int kRowsPerStream = sizeof(T) == 4 ? 4 : KIND == 0 ? 8 : 16;
+constexpr int kMaxRB = 16;                    // rows per GEMV pass
+constexpr int kMaxRows = 64;
+constexpr int kMaxGroup = 8;
+constexpr int kMaxWindow = 8;
+constexpr float kRcp127 = 1.0f / 127.0f;      // the fp32 reciprocal
+
+// shared memory, in floats: the GEMV layout and the attention layout
+// overlap (a phase uses one)
+constexpr int kXs = 32768;                    // staged inputs (128 KB)
+constexpr int kPart = kWarps * kMaxRB * kTileN;
+constexpr int kGemvFloats = kXs + kPart + 2 * kMaxRB * kTileN + kMaxRows;
+
+struct Args {
+  const void* x;           // [rows, h] T
+  void* hidden;            // [rows, h] T
+  const float* c_rows;     // [rows, d] RoPE factors
+  const float* s_rows;
+  const void* nw1;         // [L, h] T
+  const void* nw2;
+  const void* w[7];        // wq wk wv wo w_gate w_up w_down: [L, K, N]
+  const float* ws[7];      // int8 [L, N]; int4 [L, K / gsz, N]; or null
+  const void* kc;          // cache leaves
+  const void* vc;
+  const float* kcs;        // int8 cache: row scales
+  const float* vcs;
+  const int* tables;       // paged: [S, n_tbl]
+  const int* fills;        // [S]
+  void* k_rows;            // [L, rows, nkv, d]: C, or fp32 for int8
+  void* v_rows;
+  float* res;              // scratch, fp32
+  float* q;
+  float* kn;
+  float* vn;
+  float* ctx;
+  float* gate;
+  float* up;
+  unsigned* bar;
+  int L, rows, W, h, nq, nkv, d, ffn, nm, aq, mq, gsz, act;
+  int paged, n_ent, width, shift, n_tbl;
+  float eps, scale;
+};
+
+// ---------------------------------------------------------------------------
+// Elements
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <>
+__device__ __forceinline__ float round_to<int8_t>(float v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ float ld1(const T* p);
+template <>
+__device__ __forceinline__ float ld1<float>(const float* p) { return *p; }
+template <>
+__device__ __forceinline__ float ld1<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename T>
+__device__ __forceinline__ void st1(T* p, float v);
+template <>
+__device__ __forceinline__ void st1<float>(float* p, float v) { *p = v; }
+template <>
+__device__ __forceinline__ void st1<__nv_bfloat16>(__nv_bfloat16* p,
+                                                   float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ void s8x4(unsigned x, float* o) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = (float)((int)(x << (24 - 8 * i)) >> 24);
+}
+
+// eight consecutive fp32 values (an int4 group's column scales)
+__device__ __forceinline__ void ld8(const float* p, float* o) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Grid-wide barrier: every block adds one to the counter and waits for all
+// of this barrier's arrivals.  The counter only grows (zeroed before the
+// launch); the cooperative launch keeps every block resident.  Scratch that
+// another block wrote is read with __ldcg (at L2, never from this SM's L1,
+// which may hold the line from before the write).
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
+  target += gridDim.x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    while (ld_acquire(bar) < target) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float act_fn(int act, float x) {
+  switch (act) {
+    case 0: return x / (1.0f + expf(-x));                      // silu
+    case 1:                                                    // gelu tanh
+      return 0.5f * x
+             * (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x
+                                                         * x)));
+    case 2: return fmaxf(x, 0.0f);                             // relu
+    default: return x;                                         // linear
+  }
+}
+
+// ---------------------------------------------------------------------------
+// GEMV
+// ---------------------------------------------------------------------------
+
+// One layer's [K, N] weight: kind 0 plain (T), 8 int8 codes with a column
+// scale s[N], 4 int4 packed two rows a byte ([K/2, N], even row in the low
+// nibble) with group scales s[K / gsz, N].
+struct Mat {
+  const void* w;
+  const float* s;
+  int kind, N, gsz;
+};
+
+// Where a GEMV's staged inputs come from: mode 0 the residual RMS-normed
+// (res * rstd * nw), 1 a copy, 2 act(a) * b; every value rounded to T.
+struct Src {
+  int mode;
+  const float* a;
+  const float* b;
+  const void* nw;
+  const float* rs;
+  int ld, act;
+};
+
+// xs[r * ldx + i] = input row r0 + r at contraction index k0 + i, for r <
+// rb (rows from nr on are zero) and i < cnt (a multiple of 4): four
+// consecutive inputs a thread, each thread's loads issued together
+template <typename T>
+__device__ void stage(const Src& src, int r0, int nr, int rb, int k0,
+                      int cnt, int ldx, float* xs) {
+  constexpr int B = 4;
+  const int per_row = cnt / 4;
+  const int total = rb * per_row;
+  for (int i0 = threadIdx.x; i0 < total; i0 += B * kThreads) {
+    float4 av[B], bv[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      av[j] = bv[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const int idx = i0 + j * kThreads;
+      const int r = idx / per_row;
+      if (idx < total && r < nr) {
+        const size_t at = (size_t)(r0 + r) * src.ld + k0
+                          + 4 * (idx - r * per_row);
+        av[j] = __ldcg(reinterpret_cast<const float4*>(src.a + at));
+        if (src.mode == 2)
+          bv[j] = __ldcg(reinterpret_cast<const float4*>(src.b + at));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const int idx = i0 + j * kThreads;
+      if (idx >= total) break;
+      const int r = idx / per_row;
+      const int i = 4 * (idx - r * per_row);
+      const float a4[4] = {av[j].x, av[j].y, av[j].z, av[j].w};
+      const float b4[4] = {bv[j].x, bv[j].y, bv[j].z, bv[j].w};
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (r >= nr) {
+          v[e] = 0.0f;
+          continue;
+        }
+        if (src.mode == 0)
+          v[e] = __fmul_rn(__fmul_rn(a4[e], src.rs[r0 + r]),
+                           ld1<T>(static_cast<const T*>(src.nw) + k0 + i + e));
+        else if (src.mode == 1)
+          v[e] = a4[e];
+        else
+          v[e] = __fmul_rn(act_fn(src.act, a4[e]), b4[e]);
+        v[e] = round_to<T>(v[e]);
+      }
+      *reinterpret_cast<float4*>(xs + (size_t)r * ldx + i) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The stored words of 8 consecutive columns of one weight row: 16 bytes of
+// bf16, 32 of fp32 (a and b), 8 of int8 codes or packed int4 pairs (a.x,
+// a.y).
+struct Raw {
+  uint4 a, b;
+};
+
+template <typename T, int KIND>
+__device__ __forceinline__ Raw load_raw(const Mat& m, size_t at) {
+  Raw r;
+  if constexpr (KIND == 0 && sizeof(T) == 4) {
+    const uint4* p = reinterpret_cast<const uint4*>(
+        static_cast<const float*>(m.w) + at);
+    r.a = p[0];
+    r.b = p[1];
+  } else if constexpr (KIND == 0) {
+    r.a = *reinterpret_cast<const uint4*>(static_cast<const T*>(m.w) + at);
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(
+        static_cast<const int8_t*>(m.w) + at);
+    r.a.x = v.x;
+    r.a.y = v.y;
+  }
+  return r;
+}
+
+// the loads of one chunk's rows [c0, min(c0 + PER, k1)) for this thread's
+// stream (int4: packed rows, two stored rows a byte)
+template <typename T, int KIND>
+__device__ __forceinline__ void load_chunk(const Mat& m, int c0, int k1,
+                                           int st, int col, Raw* w) {
+  constexpr int U = kRowsPerStream<T, KIND>;
+  const int cnt = min((KIND == 4 ? 2 : 1) * kStreams * U, k1 - c0);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int pp = u * kStreams + st;
+    const int ii = KIND == 4 ? 2 * pp : pp;
+    if (ii < cnt) {
+      const size_t row = KIND == 4 ? (size_t)(c0 / 2 + pp) : (size_t)(c0 + ii);
+      w[u] = load_raw<T, KIND>(m, row * m.N + col);
+    }
+  }
+}
+
+// the 8 columns of a loaded plain or int8 row in fp32 (exact)
+template <typename T, int KIND>
+__device__ __forceinline__ void widen(const Raw& r, float* o) {
+  if constexpr (KIND == 8) {
+    s8x4(r.a.x, o);
+    s8x4(r.a.y, o + 4);
+  } else if constexpr (sizeof(T) == 4) {
+    o[0] = __uint_as_float(r.a.x); o[1] = __uint_as_float(r.a.y);
+    o[2] = __uint_as_float(r.a.z); o[3] = __uint_as_float(r.a.w);
+    o[4] = __uint_as_float(r.b.x); o[5] = __uint_as_float(r.b.y);
+    o[6] = __uint_as_float(r.b.z); o[7] = __uint_as_float(r.b.w);
+  } else {
+    const unsigned u[4] = {r.a.x, r.a.y, r.a.z, r.a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[2 * i] = __uint_as_float(u[i] << 16);
+      o[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+}
+
+// out[r * 32 + c] = sum_i x[r0 + r][i] * W[i][n0 + c] over i in [k0, k1),
+// fp32, before any int8 column scale.
+// ``staged``: xs already holds rows [r0, r0 + RB) of the inputs over [k0,
+// k1) (``stage_rows``); else the tile stages SUP contraction rows at a time.
+template <typename T, int KIND, int RB>
+__device__ __noinline__ void gemv_tile(const Mat m, const Src src, int r0,
+                                       int nr, int n0, int k0, int k1,
+                                       bool staged, float* smem, float* out) {
+  constexpr int U = kRowsPerStream<T, KIND>;
+  constexpr int PER = (KIND == 4 ? 2 : 1) * kStreams * U;
+  constexpr int SUP = kXs / RB / PER * PER;
+  float* xs = smem;
+  float* part = smem + kXs;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, cg = lane & 3;
+  const int st = warp * 8 + (lane >> 2);
+  const int col = n0 + cg * 8;
+  const int N = m.N;
+  float acc[RB][8];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.0f;
+
+  // The weight words of chunk c + 1 are loaded while chunk c is staged
+  // and multiplied, so a thread keeps two chunks' loads in flight.
+  Raw nxt[U];
+  load_chunk<T, KIND>(m, k0, k1, st, col, nxt);
+  const int ldx = staged ? k1 - k0 : SUP;
+  int s0 = k0;                              // first row staged in xs
+  for (int c0 = k0; c0 < k1; c0 += PER) {
+    const int cnt = min(PER, k1 - c0);
+    if (!staged && (c0 - k0) % SUP == 0) {
+      s0 = c0;
+      __syncthreads();
+      stage<T>(src, r0, nr, RB, c0, min(SUP, k1 - c0), ldx, xs);
+      __syncthreads();
+    }
+    Raw cur[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) cur[u] = nxt[u];
+    if (c0 + PER < k1) load_chunk<T, KIND>(m, c0 + PER, k1, st, col, nxt);
+    const float* xc = xs + (c0 - s0);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int pp = u * kStreams + st;     // stored row in the chunk
+      const int ii = KIND == 4 ? 2 * pp : pp;
+      if (ii >= cnt) continue;
+      if constexpr (KIND != 4) {
+        float wv[8];
+        widen<T, KIND>(cur[u], wv);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float xv = xc[r * ldx + ii];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(xv, wv[e], acc[r][e]);
+        }
+      } else {
+        const float* sc = m.s + (size_t)((c0 + ii) / m.gsz) * N + col;
+        float s8[8], lo[8], hi[8];
+        ld8(sc, s8);
+        const unsigned wd[2] = {cur[u].a.x, cur[u].a.y};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int p = (int)(signed char)((wd[e >> 2] >> (8 * (e & 3)))
+                                           & 0xffu);
+          const int nl = (int)((unsigned)p << 28) >> 28;
+          const int nh = (int)((unsigned)p << 24) >> 28;
+          lo[e] = round_to<T>(__fmul_rn((float)nl, s8[e]));
+          hi[e] = round_to<T>(__fmul_rn((float)nh, s8[e]));
+        }
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float x0 = xc[r * ldx + ii];
+          const float x1 = xc[r * ldx + ii + 1];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            acc[r][e] = fmaf(x0, lo[e], acc[r][e]);
+            acc[r][e] = fmaf(x1, hi[e], acc[r][e]);
+          }
+        }
+      }
+    }
+  }
+  // the eight streams of a warp (lane bits 2-4), then the warps in order
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float v = acc[r][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[r][e] = v;
+    }
+  if (lane < 4) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        part[(warp * RB + r) * kTileN + cg * 8 + e] = acc[r][e];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < RB * kTileN; idx += kThreads) {
+    float s = part[idx];
+    for (int w = 1; w < kWarps; ++w) s += part[w * RB * kTileN + idx];
+    out[idx] = s;
+  }
+  __syncthreads();
+}
+
+// rows of one GEMV pass: nr rounded up to 1, 2, 4, 8 or 16
+__device__ __forceinline__ int rb_of(int nr) {
+  return nr <= 1 ? 1 : nr <= 2 ? 2 : nr <= 4 ? 4 : nr <= 8 ? 8 : 16;
+}
+
+// Stage the pass's inputs over the whole contraction [k0, k1) once, for
+// every tile of the phase, when they fit; false when they do not (each
+// tile then stages them in pieces).
+template <typename T>
+__device__ bool stage_rows(const Src& src, int r0, int nr, int k0, int k1,
+                           float* smem) {
+  const int rb = rb_of(nr);
+  if (rb * (k1 - k0) > kXs) return false;
+  __syncthreads();
+  stage<T>(src, r0, nr, rb, k0, k1 - k0, k1 - k0, smem);
+  __syncthreads();
+  return true;
+}
+
+template <typename T, int KIND>
+__device__ __forceinline__ void gemv_rb(const Mat& m, const Src& src, int r0,
+                                        int nr, int n0, int k0, int k1,
+                                        bool staged, float* smem,
+                                        float* out) {
+  switch (rb_of(nr)) {
+    case 1: gemv_tile<T, KIND, 1>(m, src, r0, nr, n0, k0, k1, staged, smem,
+                                  out); break;
+    case 2: gemv_tile<T, KIND, 2>(m, src, r0, nr, n0, k0, k1, staged, smem,
+                                  out); break;
+    case 4: gemv_tile<T, KIND, 4>(m, src, r0, nr, n0, k0, k1, staged, smem,
+                                  out); break;
+    case 8: gemv_tile<T, KIND, 8>(m, src, r0, nr, n0, k0, k1, staged, smem,
+                                  out); break;
+    default: gemv_tile<T, KIND, 16>(m, src, r0, nr, n0, k0, k1, staged,
+                                    smem, out);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void gemv(const Mat& m, const Src& src, int r0,
+                                     int nr, int n0, int k0, int k1,
+                                     bool staged, float* smem, float* out) {
+  if (m.kind == 8)
+    gemv_rb<T, 8>(m, src, r0, nr, n0, k0, k1, staged, smem, out);
+  else if (m.kind == 4)
+    gemv_rb<T, 4>(m, src, r0, nr, n0, k0, k1, staged, smem, out);
+  else gemv_rb<T, 0>(m, src, r0, nr, n0, k0, k1, staged, smem, out);
+}
+
+// layer l of weight `which` (0-6), [K, N]
+template <typename T>
+__device__ __forceinline__ Mat layer_mat(const Args& a, int which, int l,
+                                         int K, int N) {
+  const int kind = which < 4 ? a.aq : a.mq;
+  Mat m;
+  m.kind = kind;
+  m.N = N;
+  m.gsz = a.gsz;
+  const size_t lkn = (size_t)l * K * N;
+  if (kind == 0) {
+    m.w = static_cast<const T*>(a.w[which]) + lkn;
+    m.s = nullptr;
+  } else if (kind == 8) {
+    m.w = static_cast<const int8_t*>(a.w[which]) + lkn;
+    m.s = a.ws[which] + (size_t)l * N;
+  } else {
+    m.w = static_cast<const int8_t*>(a.w[which]) + lkn / 2;
+    m.s = a.ws[which] + (size_t)l * (K / a.gsz) * N;
+  }
+  return m;
+}
+
+// rs[r] = 1 / sqrt(mean(res[r]^2) + eps) for every row, in every block
+// (the same code, so the same bits, everywhere)
+__device__ void row_rstd(const float* res, int rows, int h, float eps,
+                         float* rs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kWarps) {
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int i = 4 * lane; i < h; i += 128) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          res + (size_t)r * h + i));
+      acc = __fmaf_rn(v.x, v.x, acc);
+      acc = __fmaf_rn(v.y, v.y, acc);
+      acc = __fmaf_rn(v.z, v.z, acc);
+      acc = __fmaf_rn(v.w, v.w, acc);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) rs[r] = rsqrtf(__fadd_rn(__fdiv_rn(acc, (float)h), eps));
+  }
+  __syncthreads();
+}
+
+constexpr int kOut = kXs + kPart;             // GEMV result tile
+constexpr int kOut2 = kOut + kMaxRB * kTileN;
+constexpr int kRs = kOut2 + kMaxRB * kTileN;
+
+// norm + q/k/v + scale epilogue + RoPE
+template <typename T>
+__device__ void phase_qkv(const Args& a, int l, float* smem) {
+  float* out = smem + kOut;
+  float* out2 = smem + kOut2;
+  float* rs = smem + kRs;
+  const int h = a.h, d = a.d, nqd = a.nq * a.d, nkvd = a.nkv * a.d;
+  row_rstd(a.res, a.rows, h, a.eps, rs);
+  const Src src{0, a.res, nullptr,
+                static_cast<const T*>(a.nw1) + (size_t)l * h, rs, h, 0};
+  const int tiles = (nqd + 2 * nkvd) / kTileN;
+  if ((int)blockIdx.x >= tiles) return;
+  for (int r0 = 0; r0 < a.rows; r0 += kMaxRB) {
+    const int nr = min(kMaxRB, a.rows - r0);
+    const bool staged = stage_rows<T>(src, r0, nr, 0, h, smem);
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int n = t * kTileN, which, N;
+      if (n < nqd) { which = 0; N = nqd; }
+      else if (n < nqd + nkvd) { which = 1; n -= nqd; N = nkvd; }
+      else { which = 2; n -= nqd + nkvd; N = nkvd; }
+      const Mat m = layer_mat<T>(a, which, l, h, N);
+      float* dst = which == 0 ? a.q : which == 1 ? a.kn : a.vn;
+      gemv<T>(m, src, r0, nr, n, 0, h, staged, smem, out);
+      for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+        float y = out[idx];
+        if (m.kind == 8) y = __fmul_rn(y, m.s[n + (idx & 31)]);
+        out2[idx] = y;
+      }
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+        const int r = r0 + (idx >> 5), c = n + (idx & 31);
+        float y = out2[idx];
+        if (which != 2) {            // y * C + swap(y) * S
+          const int dc = c % d;
+          y = __fadd_rn(__fmul_rn(y, a.c_rows[(size_t)r * d + dc]),
+                        __fmul_rn(out2[idx ^ 1], a.s_rows[(size_t)r * d + dc]));
+        }
+        dst[(size_t)r * N + c] = y;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// y (the pass's rows x 32 columns of a GEMV, in ``out``) times an int8
+// column scale, added to the residual
+__device__ __forceinline__ void add_to_residual(const Args& a, const Mat& m,
+                                                int r0, int nr, int n,
+                                                const float* out) {
+  for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+    const int c = n + (idx & 31);
+    float y = out[idx];
+    if (m.kind == 8) y = __fmul_rn(y, m.s[c]);
+    float* rp = a.res + (size_t)(r0 + (idx >> 5)) * a.h + c;
+    *rp = __fadd_rn(__ldcg(rp), y);
+  }
+  __syncthreads();
+}
+
+// wo and the residual
+template <typename T>
+__device__ void phase_wo(const Args& a, int l, float* smem) {
+  float* out = smem + kOut;
+  const int h = a.h, nqd = a.nq * a.d;
+  const Src src{1, a.ctx, nullptr, nullptr, nullptr, nqd, 0};
+  const Mat m = layer_mat<T>(a, 3, l, nqd, h);
+  if ((int)blockIdx.x >= h / kTileN) return;
+  for (int r0 = 0; r0 < a.rows; r0 += kMaxRB) {
+    const int nr = min(kMaxRB, a.rows - r0);
+    const bool staged = stage_rows<T>(src, r0, nr, 0, nqd, smem);
+    for (int t = blockIdx.x; t < h / kTileN; t += gridDim.x) {
+      gemv<T>(m, src, r0, nr, t * kTileN, 0, nqd, staged, smem, out);
+      add_to_residual(a, m, r0, nr, t * kTileN, out);
+    }
+  }
+}
+
+// norm + gate/up
+template <typename T>
+__device__ void phase_gateup(const Args& a, int l, float* smem) {
+  float* out = smem + kOut;
+  float* rs = smem + kRs;
+  const int h = a.h, ffn = a.ffn;
+  row_rstd(a.res, a.rows, h, a.eps, rs);
+  const Src src{0, a.res, nullptr,
+                static_cast<const T*>(a.nw2) + (size_t)l * h, rs, h, 0};
+  if ((int)blockIdx.x >= 2 * ffn / kTileN) return;
+  for (int r0 = 0; r0 < a.rows; r0 += kMaxRB) {
+    const int nr = min(kMaxRB, a.rows - r0);
+    const bool staged = stage_rows<T>(src, r0, nr, 0, h, smem);
+    for (int t = blockIdx.x; t < 2 * ffn / kTileN; t += gridDim.x) {
+      int n = t * kTileN;
+      const int which = n < ffn ? 4 : 5;
+      if (which == 5) n -= ffn;
+      const Mat m = layer_mat<T>(a, which, l, h, ffn);
+      float* dst = which == 4 ? a.gate : a.up;
+      gemv<T>(m, src, r0, nr, n, 0, h, staged, smem, out);
+      for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+        const int c = n + (idx & 31);
+        float y = out[idx];
+        if (m.kind == 8) y = __fmul_rn(y, m.s[c]);
+        dst[(size_t)(r0 + (idx >> 5)) * ffn + c] = y;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// act(gate) * up, w_down in nm chunks, each added to the residual in turn
+template <typename T>
+__device__ void phase_down(const Args& a, int l, float* smem) {
+  float* out = smem + kOut;
+  const int h = a.h, ffn = a.ffn, fc = a.ffn / a.nm;
+  const Src src{2, a.gate, a.up, nullptr, nullptr, ffn, a.act};
+  const Mat m = layer_mat<T>(a, 6, l, ffn, h);
+  if ((int)blockIdx.x >= h / kTileN) return;
+  for (int r0 = 0; r0 < a.rows; r0 += kMaxRB) {
+    const int nr = min(kMaxRB, a.rows - r0);
+    for (int k = 0; k < a.nm; ++k) {
+      const bool staged = stage_rows<T>(src, r0, nr, k * fc, (k + 1) * fc,
+                                        smem);
+      for (int t = blockIdx.x; t < h / kTileN; t += gridDim.x) {
+        gemv<T>(m, src, r0, nr, t * kTileN, k * fc, (k + 1) * fc, staged,
+                smem, out);
+        add_to_residual(a, m, r0, nr, t * kTileN, out);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention
+// ---------------------------------------------------------------------------
+
+// dst = fake_quantize_rows(src) over one row of D values (block-wide;
+// dst may be src)
+__device__ void fq_row(const float* src, float* dst, int D, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float m = 0.0f;
+  for (int e = threadIdx.x; e < D; e += kThreads) m = fmaxf(m, fabsf(src[e]));
+  m = warp_max(m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  float amax = red[0];
+  for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, red[w]);
+  float sc = __fmul_rn(amax, kRcp127);
+  if (sc == 0.0f) sc = 1.0f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < D; e += kThreads) {
+    float q = rintf(__fdiv_rn(src[e], sc));
+    q = fminf(fmaxf(q, -127.0f), 127.0f);
+    dst[e] = __fmul_rn(q, sc);
+  }
+  __syncthreads();
+}
+
+// element index (times D for the d axis) of logical column col of slot s,
+// head hk, layer l
+__device__ __forceinline__ size_t cache_row(const Args& a, int l, int s,
+                                            int hk, int col) {
+  if (a.paged) {
+    const size_t blk = (size_t)a.tables[(size_t)s * a.n_tbl + (col >> a.shift)];
+    return ((((size_t)l * a.n_ent + blk) * a.nkv + hk) << a.shift)
+           + (size_t)(col & (a.width - 1));
+  }
+  return (((size_t)l * a.n_ent + s) * a.nkv + hk) * a.width + col;
+}
+
+// Words of the cache: one 16-byte load is VN elements of C, widened to fp32
+// (bf16 and int8 exactly; an int8 cache's row scale multiplies after).
+template <typename C>
+struct Word;
+template <>
+struct Word<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void to_float(const uint4& w, float* o) {
+    o[0] = __uint_as_float(w.x); o[1] = __uint_as_float(w.y);
+    o[2] = __uint_as_float(w.z); o[3] = __uint_as_float(w.w);
+  }
+};
+template <>
+struct Word<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void to_float(const uint4& w, float* o) {
+    const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[2 * i] = __uint_as_float(u[i] << 16);
+      o[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+};
+template <>
+struct Word<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void to_float(const uint4& w, float* o) {
+    s8x4(w.x, o); s8x4(w.y, o + 4); s8x4(w.z, o + 8); s8x4(w.w, o + 12);
+  }
+};
+
+// shared memory of the attention phase, in floats
+template <int D>
+struct AttnSmem {
+  static constexpr int kSplice = (kMaxWindow - 1) * D;
+  static constexpr int kGroups = kThreads / (D / 16);   // most lane groups
+  static constexpr int kFloats = 2 * kSplice + 2 * D + kWarps + 2 * kGroups
+                                 + kGroups * D + kMaxGroup;
+};
+
+// One (row r, kv head hk) of the attention phase, the whole block.  Laid out
+// as csrc/flash_decode.cu's decode body: LANES threads own one cache row at
+// a time, 16 bytes each; each of the NGRP lane groups keeps U rows in flight
+// and its own online softmax over the G query heads of the kv head; the
+// groups' states merge in a fixed order.  Logical column j is the cache's
+// for j < fill, the spliced window row j - fill for fill <= j < fill + w
+// (w = the row's window position), and the row's own K/V fold in last.
+// Which group takes which column depends on j alone, so a row gives the same
+// bits whatever the call's rows or grid.  Scores at columns past the length
+// are -inf and skipped; a group that saw none keeps m = -inf, l = 0, acc =
+// 0, and the fold of the own token (a finite score) starts from there: a
+// fill-0 row attends its own token only, and no 0 x inf arises.
+template <typename C, int D, int G>
+__device__ void attn_item(const Args& a, int l, int r, int hk, float* smem) {
+  constexpr bool Q8 = sizeof(C) == 1;
+  constexpr int VN = Word<C>::N;
+  constexpr int LANES = D / VN;
+  constexpr int NGRP = kThreads / LANES;
+  constexpr int U = Q8 ? ((G >= 8) ? 1 : (G >= 4) ? 2 : 4)
+                       : ((G >= 8) ? 2 : 4);
+  static_assert(LANES <= 32 && 32 % LANES == 0, "a row within a warp");
+  using S = AttnSmem<D>;
+  float* spk = smem;                      // spliced window rows
+  float* spv = spk + S::kSplice;
+  float* ownk = spv + S::kSplice;         // the row's own K and V
+  float* ownv = ownk + D;
+  float* red = ownv + D;
+  float* sm_m = red + kWarps;
+  float* sm_l = sm_m + S::kGroups;
+  float* sm_acc = sm_l + S::kGroups;
+  float* s_new = sm_acc + S::kGroups * D;
+  const int tid = threadIdx.x, warp = tid >> 5, wl = tid & 31;
+  const int lane = tid % LANES, grp = tid / LANES;
+  const int g = a.nq / a.nkv;
+  const int s = r / a.W, j = r - s * a.W;
+  const int fill = a.fills[s], len = fill + j;
+  const int nqd = a.nq * D, nkvd = a.nkv * D;
+  const C* kc = static_cast<const C*>(a.kc);
+  const C* vc = static_cast<const C*>(a.vc);
+
+  // the row's own K/V: folded raw (fake-quantized for an int8 cache), and
+  // returned as the cache's new rows
+  const float* kraw = a.kn + (size_t)r * nkvd + hk * D;
+  const float* vraw = a.vn + (size_t)r * nkvd + hk * D;
+  const size_t orow = ((size_t)l * a.rows + r) * nkvd + hk * D;
+  for (int e = tid; e < D; e += kThreads) {
+    ownk[e] = __ldcg(kraw + e);
+    ownv[e] = __ldcg(vraw + e);
+  }
+  // the slot's earlier window rows as a pool round trip returns them: cast
+  // through the cache's dtype, or fake-quantized twice for an int8 pool
+  for (int i = 0; i < j; ++i) {
+    const size_t at = (size_t)(s * a.W + i) * nkvd + hk * D;
+    for (int e = tid; e < D; e += kThreads) {
+      spk[i * D + e] = round_to<C>(__ldcg(a.kn + at + e));
+      spv[i * D + e] = round_to<C>(__ldcg(a.vn + at + e));
+    }
+  }
+  __syncthreads();
+  if constexpr (Q8) {
+    fq_row(ownk, ownk, D, red);
+    fq_row(ownv, ownv, D, red);
+    for (int i = 0; i < j; ++i) {
+      for (int pass = 0; pass < 2; ++pass) {
+        fq_row(spk + i * D, spk + i * D, D, red);
+        fq_row(spv + i * D, spv + i * D, D, red);
+      }
+    }
+  }
+  // the row's own K/V (raw, or fake-quantized for an int8 cache) are the
+  // cache's new rows
+  for (int e = tid; e < D; e += kThreads) {
+    if constexpr (Q8) {
+      static_cast<float*>(a.k_rows)[orow + e] = ownk[e];
+      static_cast<float*>(a.v_rows)[orow + e] = ownv[e];
+    } else {
+      st1<C>(static_cast<C*>(a.k_rows) + orow + e, ownk[e]);
+      st1<C>(static_cast<C*>(a.v_rows) + orow + e, ownv[e]);
+    }
+  }
+  __syncthreads();
+
+  // this lane's columns of the group's query heads (RoPE already applied)
+  float qf[G][VN];
+#pragma unroll
+  for (int rr = 0; rr < G; ++rr) {
+    const float* qr = a.q + (size_t)r * nqd + (hk * g + rr) * D + lane * VN;
+#pragma unroll
+    for (int e = 0; e < VN; ++e) qf[rr][e] = rr < g ? __ldcg(qr + e) : 0.0f;
+  }
+  float m[G], lsum[G], acc[G][VN];
+#pragma unroll
+  for (int rr = 0; rr < G; ++rr) {
+    m[rr] = -INFINITY;
+    lsum[rr] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < VN; ++e) acc[rr][e] = 0.0f;
+  }
+
+  // every thread runs the same trip count (len is per block), so the
+  // shuffles below always see the whole warp
+  for (int it = 0; it < len; it += NGRP * U) {
+    const int base = it + grp * U;
+    uint4 kw[U], vw[U];
+    float ksc[U], vsc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {   // issue every cache load of the step
+      ksc[u] = vsc[u] = 1.0f;
+      kw[u] = vw[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (base + u < fill) {
+        const size_t row = cache_row(a, l, s, hk, base + u);
+        kw[u] = *reinterpret_cast<const uint4*>(kc + row * D + lane * VN);
+        vw[u] = *reinterpret_cast<const uint4*>(vc + row * D + lane * VN);
+        if constexpr (Q8) {
+          ksc[u] = a.kcs[row];
+          vsc[u] = a.vcs[row];
+        }
+      }
+    }
+    float kf[U][VN], vf[U][VN];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int col = base + u;
+      if (col < fill) {
+        Word<C>::to_float(kw[u], kf[u]);
+        Word<C>::to_float(vw[u], vf[u]);
+        if constexpr (Q8) {
+#pragma unroll
+          for (int e = 0; e < VN; ++e) {
+            kf[u][e] = __fmul_rn(kf[u][e], ksc[u]);
+            vf[u][e] = __fmul_rn(vf[u][e], vsc[u]);
+          }
+        }
+      } else {
+        const int i = col - fill;
+        const bool live = col < len;
+#pragma unroll
+        for (int e = 0; e < VN; ++e) {
+          kf[u][e] = live ? spk[i * D + lane * VN + e] : 0.0f;
+          vf[u][e] = live ? spv[i * D + lane * VN + e] : 0.0f;
+        }
+      }
+    }
+    float sc[U][G];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int rr = 0; rr < G; ++rr) {
+        float part = 0.0f;
+#pragma unroll
+        for (int e = 0; e < VN; ++e) part = fmaf(qf[rr][e], kf[u][e], part);
+#pragma unroll
+        for (int off = LANES / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        sc[u][rr] = base + u < len ? __fmul_rn(part, a.scale) : -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < G; ++rr) {
+      float mx = m[rr];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, sc[u][rr]);
+      if (mx == -INFINITY) continue;            // nothing live in the group
+      const float alpha = expf(m[rr] - mx);     // exp(-inf) = 0 at first
+      float p[U], psum = 0.0f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = expf(sc[u][rr] - mx);
+        psum += p[u];
+      }
+      lsum[rr] = __fadd_rn(__fmul_rn(lsum[rr], alpha), psum);
+      m[rr] = mx;
+#pragma unroll
+      for (int e = 0; e < VN; ++e) {
+        float v = __fmul_rn(acc[rr][e], alpha);
+#pragma unroll
+        for (int u = 0; u < U; ++u) v = fmaf(p[u], vf[u][e], v);
+        acc[rr][e] = v;
+      }
+    }
+  }
+
+  // the own token's score of each query head (warp rr)
+  if (warp < g) {
+    const float* qr = a.q + (size_t)r * nqd + (hk * g + warp) * D;
+    float part = 0.0f;
+    for (int e = wl; e < D; e += 32)
+      part = fmaf(__ldcg(qr + e), ownk[e], part);
+    part = warp_sum(part);
+    if (wl == 0) s_new[warp] = __fmul_rn(part, a.scale);
+  }
+  // merge the groups in order, fold the own token, normalize
+#pragma unroll
+  for (int rr = 0; rr < G; ++rr) {
+    if (rr >= g) break;
+    if (lane == 0) {
+      sm_m[grp] = m[rr];
+      sm_l[grp] = lsum[rr];
+    }
+#pragma unroll
+    for (int e = 0; e < VN; ++e) sm_acc[grp * D + lane * VN + e] = acc[rr][e];
+    __syncthreads();
+    for (int e = tid; e < D; e += kThreads) {
+      float mt = -INFINITY;
+      for (int g2 = 0; g2 < NGRP; ++g2) mt = fmaxf(mt, sm_m[g2]);
+      float lt = 0.0f, o = 0.0f;
+      if (mt != -INFINITY) {
+        for (int g2 = 0; g2 < NGRP; ++g2) {
+          if (sm_m[g2] == -INFINITY) continue;
+          const float w = expf(sm_m[g2] - mt);
+          lt = fmaf(sm_l[g2], w, lt);
+          o = fmaf(sm_acc[g2 * D + e], w, o);
+        }
+      }
+      const float sn = s_new[rr];
+      const float mf = fmaxf(mt, sn);
+      const float alpha = expf(mt - mf);        // 0 when no column lived
+      const float pn = expf(sn - mf);
+      const float lf = __fadd_rn(__fmul_rn(lt, alpha), pn);
+      const float v = __fadd_rn(__fmul_rn(o, alpha), __fmul_rn(pn, ownv[e]));
+      a.ctx[(size_t)r * nqd + (hk * g + rr) * D + e] = __fdiv_rn(v, lf);
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+template <typename C, int D>
+__device__ void attend_d(const Args& a, int l, int r, int hk, float* smem) {
+  const int g = a.nq / a.nkv;
+  if (g <= 1) attn_item<C, D, 1>(a, l, r, hk, smem);
+  else if (g <= 2) attn_item<C, D, 2>(a, l, r, hk, smem);
+  else if (g <= 4) attn_item<C, D, 4>(a, l, r, hk, smem);
+  else attn_item<C, D, 8>(a, l, r, hk, smem);
+}
+
+template <typename C>
+__device__ void attend(const Args& a, int l, int r, int hk, float* smem) {
+  if (a.d == 64) attend_d<C, 64>(a, l, r, hk, smem);
+  else attend_d<C, 128>(a, l, r, hk, smem);
+}
+
+// the GEMV and attention phases overlap in shared memory (a phase uses one)
+constexpr int kSmemFloats =
+    kGemvFloats > AttnSmem<64>::kFloats
+        ? (kGemvFloats > AttnSmem<128>::kFloats ? kGemvFloats
+                                                : AttnSmem<128>::kFloats)
+        : AttnSmem<64>::kFloats;
+constexpr int kSmemBytes = kSmemFloats * 4;
+
+template <typename T, typename C>
+__global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  unsigned target = 0;
+  const int nthr = gridDim.x * kThreads;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  for (int i = first; i < a.rows * a.h; i += nthr)
+    a.res[i] = ld1<T>(static_cast<const T*>(a.x) + i);
+  grid_sync(a.bar, target);
+  for (int l = 0; l < a.L; ++l) {
+    phase_qkv<T>(a, l, smem);
+    grid_sync(a.bar, target);
+    for (int it = blockIdx.x; it < a.rows * a.nkv; it += gridDim.x)
+      attend<C>(a, l, it / a.nkv, it % a.nkv, smem);
+    grid_sync(a.bar, target);
+    phase_wo<T>(a, l, smem);
+    grid_sync(a.bar, target);
+    phase_gateup<T>(a, l, smem);
+    grid_sync(a.bar, target);
+    phase_down<T>(a, l, smem);
+    grid_sync(a.bar, target);
+  }
+  for (int i = first; i < a.rows * a.h; i += nthr)
+    st1<T>(static_cast<T*>(a.hidden) + i, __ldcg(a.res + i));
+}
+
+template <typename T, typename C>
+int launch(const Args* a, cudaStream_t stream) {
+  auto kern = decode_step_kernel<T, C>;
+  static int per_sm = -1;  // blocks per SM, found once per instantiation
+  cudaError_t err;
+  if (per_sm < 0) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads,
+                                                        kSmemBytes);
+    if (err != cudaSuccess) return err;
+    per_sm = n;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaMemsetAsync(a->bar, 0, sizeof(unsigned), stream);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(per_sm * sms);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, *a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The C interface: ``args`` points at one Args describing the call (every
+// pointer a contiguous CUDA buffer), dtype 0 fp32 / 1 bf16 for x, weights
+// and norms, int8_cache 0 for a cache in x's dtype, 1 for the int8 form.
+// Returns the launch's cudaError_t (0 = launched).
+extern "C" int decode_step_launch(const void* args, int dtype,
+                                  int int8_cache, void* stream) {
+  const Args* a = static_cast<const Args*>(args);
+  const int g = a->nkv > 0 ? a->nq / a->nkv : 0;
+  if ((a->d != 64 && a->d != 128) || a->nkv <= 0 || a->nq % a->nkv
+      || g > kMaxGroup || a->rows < 1 || a->rows > kMaxRows || a->W < 1
+      || a->W > kMaxWindow || a->rows % a->W || a->h % kTileN
+      || a->nm < 1 || a->ffn % (a->nm * kTileN)
+      || (a->paged && a->width != (1 << a->shift)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return int8_cache ? launch<float, int8_t>(a, s) : launch<float, float>(a, s);
+  if (dtype == kBFloat16)
+    return int8_cache ? launch<__nv_bfloat16, int8_t>(a, s)
+                      : launch<__nv_bfloat16, __nv_bfloat16>(a, s);
+  return cudaErrorInvalidValue;
+}

@@ -52,6 +52,8 @@ class GenerationService:
                  prefix_cache_blocks: int | None = None,
                  kv_block_size: int | None = None,
                  kv_pool_blocks: int | None = None,
+                 spec_draft_len: int = 0,
+                 spec_ngram: int = 3,
                  default_priority: int = 0,
                  trace: bool = True,
                  tensor_parallel: int = 1,
@@ -84,6 +86,8 @@ class GenerationService:
         self.prefix_cache_blocks = prefix_cache_blocks
         self.kv_block_size = kv_block_size
         self.kv_pool_blocks = kv_pool_blocks
+        self.spec_draft_len = spec_draft_len
+        self.spec_ngram = spec_ngram
         self.default_priority = default_priority
         self.trace_enabled = trace
         self.device = device
@@ -114,6 +118,8 @@ class GenerationService:
                     prefill_bucket=self.prefill_bucket,
                     prefill_chunk=self.prefill_chunk,
                     pipeline_decode=self.pipeline_decode,
+                    spec_draft_len=self.spec_draft_len,
+                    spec_ngram=self.spec_ngram,
                     trace=self.trace_enabled,
                     **extra)
                 self._engine = ServingEngine(self.cfg, self.params,

@@ -7,6 +7,9 @@
   (``csrc/flash_decode.cu``).
 - ``rmsnorm.py``: RMSNorm and LayerNorm, forward and dx (Triton,
   ``rmsnorm_triton.py``).
+- ``decode_step.py``: the whole decoder stack for one new token per row in
+  one cooperative launch, over a dense cache, the paged pool, and a
+  speculative verify window (``csrc/decode_step.cu``).
 - ``build.py``: ``nvcc`` into ``build/kernels/`` and ``ctypes`` loading.
 
 Each wrapper counts its launches in a ``launches`` attribute.
@@ -16,6 +19,11 @@ Each wrapper counts its launches in a ``launches`` attribute.
 def launch_counters() -> dict:
     """``{kernel name: wrapper}`` of every kernel wrapper with a launch
     counter (read and reset through ``wrapper.launches``)."""
+    from .decode_step import (
+        fused_decode_step,
+        fused_decode_step_paged,
+        fused_decode_verify_paged,
+    )
     from .flash_attention import (
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
@@ -44,4 +52,7 @@ def launch_counters() -> dict:
             "rmsnorm_fwd": rmsnorm_fwd,
             "rmsnorm_bwd": rmsnorm_bwd,
             "layernorm_fwd": layernorm_fwd,
-            "layernorm_bwd": layernorm_bwd}
+            "layernorm_bwd": layernorm_bwd,
+            "fused_decode_step": fused_decode_step,
+            "fused_decode_step_paged": fused_decode_step_paged,
+            "fused_decode_verify_paged": fused_decode_verify_paged}

@@ -25,7 +25,14 @@ import torch
 
 from ..config import ModelConfig, PositionEmbeddingType
 from ..ops import dropout as drop
-from ..ops.kv_quant import init_quantized_cache
+from ..kernels.decode_step import (
+    fused_decode_eligible,
+    fused_decode_step,
+    fused_decode_step_paged,
+    fused_decode_verify_paged,
+)
+from ..ops.kv_quant import cache_update, init_quantized_cache, \
+    is_quantized_cache, quantize_rows
 from ..ops.norms import norm_apply, norm_init
 from ..ops.quant import embedding_lookup
 from .transformer import (
@@ -166,9 +173,15 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``empty_cache=True`` promises ``cache_len == 0``: attention is then
     plain causal attention over the window (the flash kernel under
     ``attention_impl="flash"``).  ``logit_rows`` [b] unembeds one row per
-    batch row; ``last_logit_only`` the last.  The JAX package's fused
-    whole-stack decode kernel is a later slice, so this is always the
-    composed per-layer path (the one JAX itself takes at 7B width)."""
+    batch row; ``last_logit_only`` the last.
+
+    One new token per row (``s == 1``) of a stack that
+    ``kernels/decode_step.fused_decode_eligible`` accepts takes the fused
+    whole-stack route (K12: one launch for every layer on the card, its
+    plain version on the CPU), whose new rows are then written with
+    ``cache_update`` (an int8 cache requantizes the kernel's
+    fake-quantized rows to the same codes).  Everything else takes the
+    composed per-layer path."""
     cos, sin = _rope(cfg, params, rope)
     b, s = tokens.shape
     offs = torch.arange(s, device=tokens.device, dtype=torch.long)
@@ -179,11 +192,19 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         position_ids = (cache_len.to(torch.long).reshape(-1, 1)
                         + offs[None, :]).expand(b, s)
     x = embed(cfg, params, tokens, position_ids)
-    side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
-                          position_ids=position_ids,
-                          cache_is_empty=empty_cache)
-    x, k_cache, v_cache = stack_forward_cached(
-        cfg, params["layers"], x, side, k_cache, v_cache, cache_len)
+    if fused_decode_eligible(cfg, params, k_cache, s):
+        hidden, k_rows, v_rows = fused_decode_step(
+            cfg, params["layers"], x[:, 0], k_cache, v_cache, cache_len,
+            (cos, sin))
+        x = hidden[:, None, :]
+        cache_update(k_cache, k_rows, cache_len)
+        cache_update(v_cache, v_rows, cache_len)
+    else:
+        side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
+                              position_ids=position_ids,
+                              cache_is_empty=empty_cache)
+        x, k_cache, v_cache = stack_forward_cached(
+            cfg, params["layers"], x, side, k_cache, v_cache, cache_len)
     if last_logit_only:
         x = x[:, -1:]
     elif logit_rows is not None:
@@ -202,29 +223,113 @@ def forward_cached_paged(cfg: ModelConfig, params: Params,
                          fills: torch.Tensor,    # [b] fill levels
                          *, rope: Optional[tuple] = None,
                          use_fused: bool = False):
-    """Single-token decode over the paged pool, the JAX package's composed
-    route: gather the tables into a dense working view, run
-    ``forward_cached`` over it (per layer on the card the flash-decode
-    kernel, K9 over an int8 pool), and scatter each row's new K/V back to
-    block ``tables[s, fill // blk]`` at offset ``fill % blk``.  Returns
-    ``(logits [b, 1, vocab] fp32, k_pool, v_pool)``; the pools are
+    """Single-token decode over the paged pool: each slot's token attends
+    the blocks its table names and its new K/V row lands in block
+    ``tables[s, fill // blk]`` at offset ``fill % blk``.  Two routes, one
+    contract (the JAX package's):
+
+    * ``use_fused=True``: the whole-stack kernel reads the pool through
+      the tables (K13), no dense view is built; an int8 pool's rows are
+      requantized with ``quantize_rows`` before the append;
+    * ``use_fused=False``: gather the tables into a dense working view,
+      run ``forward_cached`` over it (per layer on the card the
+      flash-decode kernel, K9 over an int8 pool) and scatter the new rows
+      back.
+
+    Returns ``(logits [b, 1, vocab] fp32, k_pool, v_pool)``; the pools are
     updated in place."""
-    if use_fused:
-        raise NotImplementedError(
-            "the fused whole-stack paged decode kernel is not ported yet "
-            "(ROADMAP.md, Queue 2: decode_step.py)")
+    cos, sin = _rope(cfg, params, rope)
     fills = torch.as_tensor(fills, device=tokens.device).to(torch.long)
     tables = torch.as_tensor(tables, device=tokens.device).to(torch.long)
     bk = _leaf(k_pool).shape[3]
     bids = torch.gather(tables, 1, (fills // bk)[:, None])[:, 0]
     offs = fills % bk
+    if use_fused:
+        x = embed(cfg, params, tokens, fills[:, None])
+        hidden, k_rows, v_rows = fused_decode_step_paged(
+            cfg, params["layers"], x[:, 0], k_pool, v_pool, tables, fills,
+            (cos, sin))
+        _append_fused_rows(k_pool, v_pool, k_rows, v_rows, bids, offs)
+        return _logits(cfg, params, hidden[:, None, :]), k_pool, v_pool
     k_dense = cache_gather_blocks(k_pool, tables)
     v_dense = cache_gather_blocks(v_pool, tables)
     logits, k_dense, v_dense = forward_cached(
-        cfg, params, tokens, k_dense, v_dense, fills, rope=rope)
+        cfg, params, tokens, k_dense, v_dense, fills, rope=(cos, sin))
     cache_append_rows(k_pool, cache_rows_at(k_dense, fills), bids, offs)
     cache_append_rows(v_pool, cache_rows_at(v_dense, fills), bids, offs)
     return logits, k_pool, v_pool
+
+
+def _append_fused_rows(k_pool, v_pool, k_rows, v_rows, bids, offs) -> None:
+    """Scatter a fused kernel's new rows into the pools: an int8 pool takes
+    them through ``quantize_rows`` (they are already fake-quantized, so
+    the codes are the ones the kernel attended)."""
+    if is_quantized_cache(k_pool):
+        k_rows, v_rows = quantize_rows(k_rows), quantize_rows(v_rows)
+    cache_append_rows(k_pool, k_rows, bids, offs)
+    cache_append_rows(v_pool, v_rows, bids, offs)
+
+
+def _logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor):
+    x = norm_apply(cfg.norm_type, hidden, params["final_norm"], cfg.norm_eps,
+                   impl=cfg.norm_impl)
+    return unembed(cfg, params, x).float()
+
+
+def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
+                                window: torch.Tensor,  # [S, W] tokens
+                                k_pool, v_pool,
+                                tables: torch.Tensor,  # [S, T]
+                                fills: torch.Tensor,   # [S]
+                                bids: torch.Tensor,    # [S*W] dest blocks
+                                offs: torch.Tensor,    # [S*W] dest offsets
+                                *, rope: Optional[tuple] = None,
+                                use_fused: bool = False, tree=None):
+    """Speculative verify over the paged pool: row s of ``window`` holds
+    ``[pending, draft_1 .. draft_{W-1}]`` at positions ``fills[s] ..
+    fills[s] + W - 1``.  Returns logits for every window position ``[S,
+    W, vocab]`` fp32 and appends the window's K/V rows at ``(bids,
+    offs)`` (row ``s*W + j``); the caller rolls back by not advancing a
+    slot's fill past its accepted prefix.  Each position equals the
+    corresponding sequential single-token step:
+
+    * ``use_fused=True``: one K14 launch splices the in-flight window
+      rows over the columns the sequential steps would have written;
+    * ``use_fused=False``: W ``forward_cached`` steps over one gathered
+      dense view (not padded: the caller keeps the window inside the
+      tables).
+
+    ``tree`` (the resident draft model's candidate trees) is not ported
+    yet."""
+    if tree is not None:
+        raise NotImplementedError(
+            "tree verify is not ported yet (ROADMAP.md, Queue 1: serving "
+            "engine, speculative decoding with a resident draft model)")
+    cos, sin = _rope(cfg, params, rope)
+    S, W = window.shape
+    fills = torch.as_tensor(fills, device=window.device).to(torch.long)
+    tables = torch.as_tensor(tables, device=window.device).to(torch.long)
+    bids = torch.as_tensor(bids, device=window.device).reshape(S * W)
+    offs = torch.as_tensor(offs, device=window.device).reshape(S * W)
+    if use_fused:
+        pos = fills[:, None] + torch.arange(W, device=window.device)[None, :]
+        x = embed(cfg, params, window, pos)
+        hidden, k_rows, v_rows = fused_decode_verify_paged(
+            cfg, params["layers"], x, k_pool, v_pool, tables, fills,
+            (cos, sin))
+        _append_fused_rows(k_pool, v_pool, k_rows, v_rows, bids, offs)
+        return _logits(cfg, params, hidden), k_pool, v_pool
+    k_dense = cache_gather_blocks(k_pool, tables)
+    v_dense = cache_gather_blocks(v_pool, tables)
+    steps = []
+    for j in range(W):
+        lj, k_dense, v_dense = forward_cached(
+            cfg, params, window[:, j:j + 1], k_dense, v_dense, fills + j,
+            rope=(cos, sin))
+        steps.append(lj)
+    cache_append_rows(k_pool, cache_rows_range(k_dense, fills, W), bids, offs)
+    cache_append_rows(v_pool, cache_rows_range(v_dense, fills, W), bids, offs)
+    return torch.cat(steps, dim=1), k_pool, v_pool
 
 
 def init_kv_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -323,6 +428,24 @@ def cache_rows_at(dense, fills):
         tail = tuple(a.shape[4:])
         idx = fills.reshape((1, S, 1, 1) + (1,) * len(tail))
         return torch.gather(a, 3, idx.expand((L, S, kv, 1) + tail))
+
+    return _leafwise(f, dense)
+
+
+def cache_rows_range(dense, fills, width: int):
+    """``width`` consecutive rows from each slot's own fill: ``[L, S, kv,
+    Wd(, d)]`` → ``[L, S*width, kv, 1(, d)]``, row ``s*width + j`` slot s's
+    window position j (the layout ``cache_append_rows`` takes)."""
+    fills = torch.as_tensor(fills, device=_leaf(dense).device).to(torch.long)
+
+    def f(a):
+        L, S, kv = a.shape[:3]
+        tail = tuple(a.shape[4:])
+        idx = fills[:, None] + torch.arange(width, device=a.device)[None, :]
+        idx = idx.reshape((1, S, 1, width) + (1,) * len(tail))
+        rows = torch.gather(a, 3, idx.expand((L, S, kv, width) + tail))
+        rows = rows.movedim(3, 2)                    # [L, S, W, kv(, d)]
+        return rows.reshape((L, S * width, kv, 1) + tail)
 
     return _leafwise(f, dense)
 

@@ -28,20 +28,32 @@ Sampled decoding cannot match ``jax.random`` draw for draw; it keeps the
 JAX engine's invariants instead (same seed → same output, independent of
 slot and batch).
 
-Quantized serving runs as in JAX: ``cfg.kv_cache_quant="int8"`` keeps the
-pool as int8 ``{"q", "scale"}`` pairs (prefill attends over the fresh
-K/V, decode reads the int8 cache through K9), and params from
+Decode routes are resolved at ``start()`` as in JAX: a stack that
+``kernels/decode_step.fused_paged_decode_eligible`` accepts (the default
+``cfg.fused_decode=True`` on a Llama-family model) decodes each step in
+one whole-stack launch over the pool (K13); anything else, or
+``fused_decode=False``, takes the composed per-layer route.  Quantized
+serving runs as in JAX: ``cfg.kv_cache_quant="int8"`` keeps the pool as
+int8 ``{"q", "scale"}`` pairs, and params from
 ``ops/quant.quantize_params`` (the ``int8``, ``int4`` and ``mixed``
-policies) go through ``mm``.  Every decode step is counted in
-``metrics.step_routes`` under ``precision_route(params)``, always as a
-fallback (composed) step: the fused kernel is not ported.
+policies) go through ``mm`` on the composed route and are dequantized
+inside the fused kernel.  Every decode step is counted in
+``metrics.step_routes`` under ``precision_route(params)`` as fused or
+fallback.
+
+Speculative decoding with the host n-gram drafter
+(``EngineConfig.spec_draft_len > 0``): when some greedy slot's context
+repeats its trailing n-gram, the pipeline is flushed and one verify step
+feeds every slot's ``[pending, draft...]`` window (K14 on the fused route,
+W sequential composed steps otherwise), accepts the longest draft prefix
+that greedy decoding would have produced, and commits it plus one token.
+Greedy outputs are the same tokens as without speculation.
 
 Not in this slice, and refused at construction with ``NotImplementedError``
-naming the ROADMAP item: chunked prefill, the prefix cache, speculative
-decoding and draft models, LoRA adapters, the host KV tier,
-disaggregated roles, span tracing, sanitizers, meshes, int8 training
-matmuls (``quantize_matmuls``) and the fused whole-stack decode kernel
-(``cfg.fused_decode=True``).
+naming the ROADMAP item: chunked prefill, the prefix cache, the resident
+draft model (its tree verify), LoRA adapters, the host KV tier,
+disaggregated roles, span tracing, sanitizers, meshes and int8 training
+matmuls (``quantize_matmuls``).
 """
 
 from __future__ import annotations
@@ -57,6 +69,10 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..kernels.decode_step import (
+    fused_paged_decode_eligible,
+    fused_paged_verify_eligible,
+)
 from ..models import model as model_lib
 from ..ops.quant import precision_route
 from .block_pool import BlockPool
@@ -105,10 +121,9 @@ def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh,
          "Queue 1: serving engine, chunked prefill"),
         (ec.prefix_cache_blocks > 0, "prefix_cache_blocks > 0 (set it to 0)",
          "Queue 1: serving engine, prefix cache"),
-        (ec.spec_draft_len > 0, "spec_draft_len > 0",
-         "Queue 1: serving engine, speculative decoding"),
-        (draft_cfg is not None, "a resident draft model",
-         "Queue 1: serving engine, speculative decoding"),
+        (draft_cfg is not None, "a resident draft model (tree verify)",
+         "Queue 1: serving engine, speculative decoding with a resident "
+         "draft model"),
         (ec.adapter_cache_slots > 0 or adapters is not None, "LoRA adapters",
          "Queue 1: serving engine, multi-tenant LoRA"),
         (ec.host_kv_blocks > 0, "host_kv_blocks > 0 (tiered KV)",
@@ -123,8 +138,6 @@ def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh,
         (cfg.quantize_matmuls != "none",
          f"quantize_matmuls={cfg.quantize_matmuls!r} (W8A8 training matmuls)",
          "Queue 1 item 13: int8 training matmul"),
-        (cfg.fused_decode, "cfg.fused_decode=True (set it to False)",
-         "Queue 2: decode_step.py fused whole-stack decode"),
     ]
     for bad, what, item in todo:
         if bad:
@@ -154,6 +167,7 @@ class _Request:
                  on_token: Optional[Callable[[int], None]] = None,
                  deadline_s: Optional[float] = None,
                  adapter_id: Optional[str] = None,
+                 spec_force: bool = False,
                  priority: int = 0):
         self.id = next(self._ids)
         self.rid = f"req-{self.id}"
@@ -171,6 +185,9 @@ class _Request:
         self.return_logprobs = bool(return_logprobs)
         self.on_token = on_token
         self.adapter_id = adapter_id
+        # warm-probe knob: draft even without an n-gram match (a wrong
+        # draft is simply rejected), so a verify step runs on demand
+        self.spec_force = bool(spec_force)
         self.priority = int(priority)
         self.generated: List[int] = []
         self.logprobs: List[float] = []
@@ -282,6 +299,59 @@ def _sample_slots(logits: torch.Tensor, seeds, counters, greedy, temps,
     return tok, tok_lp
 
 
+# speculative decoding policy: weight of the newest per-slot acceptance
+# observation in the EWMA that scales the draft budget (the re-probe
+# interval for collapsed slots is EngineConfig.spec_reprobe_interval)
+_SPEC_EWMA_ALPHA = 0.3
+
+
+def _ngram_draft_host(ctx: Sequence[int], ngram: int,
+                      draft_len: int) -> List[int]:
+    """Prompt-lookup draft: the tokens that followed the most recent
+    EARLIER occurrence of the context's trailing ``ngram`` tokens, up to
+    ``draft_len`` of them (possibly none).  Draft quality only moves
+    throughput: any draft verifies exactly."""
+    n = len(ctx)
+    if draft_len < 1 or n < ngram + 1:
+        return []
+    a = np.asarray(ctx, np.int64)
+    tail = a[-ngram:]
+    # windows over a[:-1] so the trailing n-gram cannot match itself
+    wins = np.lib.stride_tricks.sliding_window_view(a[:-1], ngram)
+    hits = np.flatnonzero((wins == tail).all(axis=1))
+    if hits.size == 0:
+        return []
+    j = int(hits[-1])
+    return [int(t) for t in a[j + ngram:j + ngram + draft_len]]
+
+
+def _verify_step(cfg: ModelConfig, params, pool, tables, window, fills,
+                 bids, offs, seeds, counters, greedy, temps, top_ks, top_ps,
+                 *, rope, use_fused: bool):
+    """One speculative verify step over every slot: score each slot's
+    ``[pending, draft...]`` window in one forward
+    (``forward_cached_paged_verify``).  Position 0 samples exactly as a
+    plain decode step does (same ``_sample_slots``, same stream), so a
+    slot riding with no draft takes an unchanged plain step; positions
+    >= 1 only ever commit under greedy acceptance, so their pad-masked
+    argmax is all they need.  Returns ``([S, W] tokens, [S, W]
+    logprobs)`` on the device."""
+    logits, _, _ = model_lib.forward_cached_paged_verify(
+        cfg, params, window, pool.k_pool, pool.v_pool, tables, fills, bids,
+        offs, rope=rope, use_fused=use_fused)
+    tok0, tok0_lp = _sample_slots(logits[:, 0], seeds, counters, greedy,
+                                  temps, top_ks, top_ps, cfg.vocab_size)
+    pad = torch.arange(logits.shape[-1], device=logits.device) \
+        >= cfg.vocab_size
+    masked = logits.masked_fill(pad, NEG_INF)
+    g_tok = torch.argmax(masked, dim=-1)
+    g_lp = torch.gather(torch.log_softmax(masked, dim=-1), 2,
+                        g_tok[..., None])[..., 0]
+    g_tok[:, 0] = tok0
+    g_lp[:, 0] = tok0_lp
+    return g_tok, g_lp
+
+
 class _SlotState:
     """Host-side per-slot bookkeeping.  ``fill`` and ``count`` advance at
     dispatch; ``pending`` is the host copy of the slot's last sampled
@@ -294,6 +364,10 @@ class _SlotState:
         self.count = 1
         self.pending = pending
         self.fresh = True
+        # acceptance EWMA scaling the slot's draft budget (1.0 at admission)
+        # and the iterations it carried no draft (drives the re-probe)
+        self.spec_ewma = 1.0
+        self.spec_stall = 0
 
 
 class _Inflight:
@@ -379,6 +453,10 @@ class ServingEngine:
         self._drain_cond = threading.Condition()
         self._last_dispatch_t: Optional[float] = None
         self._last_ready_t: Optional[float] = None
+        # decode routes, resolved at start(): the fused whole-stack kernel
+        # for plain steps (K13) and for verify steps (K14)
+        self._fused_decode = False
+        self._fused_verify = False
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -396,6 +474,14 @@ class ServingEngine:
                                            ec.max_seq_len, pool)
                 self._rope = model_lib.rope_tables(self.cfg,
                                                    device=self.device)
+                self._fused_decode = fused_paged_decode_eligible(
+                    self.cfg, self.params, pool.k_pool, ec.max_batch_size,
+                    table_blocks)
+                self._fused_verify = ec.spec_draft_len > 0 and \
+                    fused_paged_verify_eligible(
+                        self.cfg, self.params, pool.k_pool,
+                        ec.max_batch_size, ec.spec_draft_len + 1,
+                        table_blocks)
                 self._update_pool_gauges()
                 self._thread = threading.Thread(
                     target=self._loop, name="serving-engine", daemon=True)
@@ -462,13 +548,15 @@ class ServingEngine:
                on_token: Optional[Callable[[int], None]] = None,
                deadline_s: Optional[float] = None,
                adapter_id: Optional[str] = None,
+               spec_force: bool = False,
                priority: int = 0) -> RequestHandle:
         return self.submit_many([dict(
             prompt=prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
             use_eos_stop=use_eos_stop, return_logprobs=return_logprobs,
             on_token=on_token, deadline_s=deadline_s,
-            adapter_id=adapter_id, priority=priority)])[0]
+            adapter_id=adapter_id, spec_force=spec_force,
+            priority=priority)])[0]
 
     def submit_many(self, specs: Sequence[dict]) -> List[RequestHandle]:
         """Validate + enqueue a batch of requests all-or-nothing.  Raises
@@ -700,7 +788,19 @@ class ServingEngine:
     def _step(self) -> None:
         """One decode iteration: dispatch step N+1, then process step N's
         tokens (computed, and streaming back, meanwhile).  Without
-        ``pipeline_decode`` the same step is dispatched and processed."""
+        ``pipeline_decode`` the same step is dispatched and processed.
+
+        With speculative decoding on, an iteration where some slot can
+        carry a draft takes a verify step instead: the pipeline is flushed
+        (drafts match against committed context, and the next fill depends
+        on how many land) and up to ``spec_draft_len + 1`` tokens commit
+        per slot."""
+        if self.config.spec_draft_len > 0 and self._plan_spec():
+            self._flush_inflight()
+            drafts = self._build_drafts()
+            if drafts:
+                self._spec_step(drafts)
+                return
         it0 = time.perf_counter()
         t = self.metrics.timers("serving-decode")
         t.start()
@@ -754,9 +854,7 @@ class ServingEngine:
                 self.metrics.observe_step_breakdown(gap_frac=gap / wall)
         self._last_dispatch_t = t0
 
-        # the composed route (the fused kernel is not ported): a fallback
-        # step, as the JAX engine counts it off a TPU
-        self.metrics.inc_step(False, self._precision_route)
+        self.metrics.inc_step(self._fused_decode, self._precision_route)
         if self._inflight is None:
             # no device-resident tokens: every pending value is host-known
             pending = self._tensor(overrides)
@@ -769,7 +867,8 @@ class ServingEngine:
         logits, _, _ = model_lib.forward_cached_paged(
             self.cfg, self.params, pending[:, None], pool.k_pool,
             pool.v_pool, self._tensor(self.slots.tables.astype(np.int64)),
-            self._tensor(fills), rope=self._rope)
+            self._tensor(fills), rope=self._rope,
+            use_fused=self._fused_decode)
         tok, tok_lp = _sample_slots(logits[:, 0], seeds, counters, greedy,
                                     temps, top_ks, top_ps,
                                     self.cfg.vocab_size)
@@ -809,6 +908,170 @@ class ServingEngine:
             return
         if any(self._active.get(s) is st for s, st in prev.slots.items()):
             self._process_step_results(prev)
+
+    # -- speculative decoding ---------------------------------------------
+
+    def _spec_budget(self, st: _SlotState) -> int:
+        """Draft tokens for a slot, from its acceptance EWMA; a slot the
+        policy collapsed to zero re-probes with one token every
+        ``spec_reprobe_interval`` iterations."""
+        k = int(round(st.spec_ewma * self.config.spec_draft_len))
+        if k < 1:
+            return (1 if st.spec_stall >= self.config.spec_reprobe_interval
+                    else 0)
+        return k
+
+    def _plan_spec(self) -> bool:
+        """The per-iteration gate, run BEFORE breaking the decode pipeline:
+        stall bookkeeping and an n-gram probe on the host context (which
+        lacks at most the one in-flight token), so the engine only pays a
+        flush when some slot can plausibly carry a draft."""
+        if not self._active:
+            return False
+        W = self.config.spec_draft_len + 1
+        if any(st.fill + W > self.slots.width
+               for st in self._active.values()):
+            # a verify step writes (masked) rows at fill .. fill + W - 1 of
+            # every rider: near a slot's table end the batch takes plain
+            # steps, at most W iterations per request
+            return False
+        want = False
+        for st in self._active.values():
+            if not st.req.greedy or st.count > st.req.max_new_tokens - 2:
+                continue
+            if not st.req.spec_force and self._spec_budget(st) < 1:
+                st.spec_stall += 1
+                continue
+            if st.req.spec_force or _ngram_draft_host(
+                    st.req.prompt + st.req.generated,
+                    self.config.spec_ngram, 1):
+                want = True
+            else:
+                st.spec_stall += 1
+        return want
+
+    def _build_drafts(self) -> dict:
+        """slot -> draft tokens for this verify step, on fully committed
+        contexts (the pipeline is flushed)."""
+        drafts = {}
+        for slot, st in self._active.items():
+            if not st.req.greedy:
+                continue
+            rem = st.req.max_new_tokens - len(st.req.generated)
+            budget = (self.config.spec_draft_len if st.req.spec_force
+                      else self._spec_budget(st))
+            k_cap = min(self.config.spec_draft_len, budget, rem - 1)
+            if k_cap < 1:
+                continue
+            ctx = st.req.prompt + st.req.generated
+            d = _ngram_draft_host(ctx, self.config.spec_ngram, k_cap)
+            if not d and st.req.spec_force:
+                # no organic match: repeat the last token.  Almost surely
+                # rejected, but verify commits the right token anyway
+                d = [int(ctx[-1])] * k_cap
+            if d:
+                drafts[slot] = d
+                st.spec_stall = 0
+        return drafts
+
+    def _spec_step(self, drafts: dict) -> None:
+        """One verify iteration (pipeline flushed): feed every slot's
+        ``[pending, draft...]`` window, accept the longest draft prefix
+        that greedy decoding would have produced, commit it and the next
+        token, and roll the rest back by not advancing ``fill`` past them
+        (the rejected rows sit past the fill, masked, and are overwritten
+        later)."""
+        it0 = time.perf_counter()
+        t = self.metrics.timers("serving-decode")
+        t.start()
+        S = self.config.max_batch_size
+        W = self.config.spec_draft_len + 1
+        window = np.zeros((S, W), np.int64)
+        fills = np.zeros((S,), np.int64)
+        seeds = np.zeros((S,), np.int64)
+        counters = np.zeros((S,), np.int64)
+        greedy = np.ones((S,), bool)
+        temps = np.ones((S,), np.float32)
+        top_ks = np.zeros((S,), np.int64)
+        top_ps = np.zeros((S,), np.float32)
+        bids = np.zeros((S * W,), np.int64)   # default: the trash block
+        offs = np.zeros((S * W,), np.int64)
+        bk = self.slots.pool.block_size
+        for slot, st in self._active.items():
+            d = drafts.get(slot, ())
+            window[slot, 0] = st.pending
+            window[slot, 1:1 + len(d)] = d
+            fills[slot] = st.fill
+            seeds[slot] = st.req.seed
+            counters[slot] = st.count
+            greedy[slot] = st.req.greedy
+            temps[slot] = st.req.temperature
+            top_ks[slot] = st.req.top_k
+            top_ps[slot] = st.req.top_p
+            st.fresh = False
+            # the rows that may commit get their blocks before the tables
+            # are read; rows past the draft go to the trash block
+            for j in range(len(d) + 1):
+                pos = st.fill + j
+                bids[slot * W + j] = self.slots.append_block_id(slot, pos)
+                offs[slot * W + j] = pos % bk
+        t0 = time.perf_counter()
+        if self._last_dispatch_t is not None:
+            wall = t0 - self._last_dispatch_t
+            if wall > 0 and self._last_ready_t is not None:
+                gap = min(wall, t0 - self._last_ready_t)
+                self.metrics.observe_step_breakdown(gap_frac=gap / wall)
+        self._last_dispatch_t = t0
+        self.metrics.inc_step(self._fused_verify, self._precision_route)
+        g_tok, g_lp = _verify_step(
+            self.cfg, self.params, self.slots.pool,
+            self._tensor(self.slots.tables.astype(np.int64)),
+            self._tensor(window), self._tensor(fills), self._tensor(bids),
+            self._tensor(offs), seeds, counters, greedy, temps, top_ks,
+            top_ps, rope=self._rope, use_fused=self._fused_verify)
+        # synchronous by design: the next fills depend on the acceptances
+        g_tok, g_lp = g_tok.cpu().numpy(), g_lp.cpu().numpy()
+        t_ready = time.perf_counter()
+        self._last_ready_t = t_ready
+        device_s = t_ready - t0
+        total_committed = proposed = accepted_total = 0
+        per_slot_committed = []
+        slot_ewmas = {}
+        for slot, st in list(self._active.items()):
+            d = drafts.get(slot, ())
+            acc = 0
+            while acc < len(d) and int(g_tok[slot, acc]) == d[acc]:
+                acc += 1
+            proposed += len(d)
+            accepted_total += acc
+            if d:
+                st.spec_ewma = ((1.0 - _SPEC_EWMA_ALPHA) * st.spec_ewma
+                                + _SPEC_EWMA_ALPHA * acc / len(d))
+                slot_ewmas[slot] = st.spec_ewma
+            # rows of the pending token and the accepted drafts landed; the
+            # next token's row is the next step's write
+            st.fill += acc + 1
+            st.count += acc + 1
+            st.fresh = True
+            committed_here = 0
+            for j in range(acc + 1):
+                if self._active.get(slot) is not st:
+                    break  # EOS / budget retired the slot mid-window
+                st.pending = int(g_tok[slot, j])
+                committed_here += 1
+                self._commit_token(slot, st.pending, float(g_lp[slot, j]))
+            total_committed += committed_here
+            if d:
+                per_slot_committed.append(committed_here)
+        t.stop()
+        self.metrics.observe_spec_step(proposed, accepted_total,
+                                       per_slot_committed, source="ngram",
+                                       slot_ewmas=slot_ewmas)
+        self.metrics.observe_decode_iteration(total_committed, device_s)
+        self.metrics.observe_step_breakdown(device_s=device_s)
+        host_s = max(0.0, (time.perf_counter() - it0) - device_s)
+        self.metrics.observe_step_breakdown(host_s=host_s)
+        self.metrics.set_gauges(slots_active=self.slots.active_slots)
 
     def _commit_token(self, slot: int, token: int, logprob: float) -> None:
         """Append a sampled token, stream it, retire on EOS / budget."""

@@ -3,7 +3,7 @@
 use).  Host-side and lock-guarded: the scheduler thread and HTTP threads
 write, tests and pollers read.  The Prometheus exposition, SLO tracker
 and the counters of features this slice does not port (prefix cache,
-speculation, adapters, shipping, tiered KV) come with those features.
+adapters, shipping, tiered KV) come with those features.
 """
 
 from __future__ import annotations
@@ -81,6 +81,9 @@ _COUNTERS = (
     "rejected_queue_full", "rejected_invalid", "rejected_draining",
     "prefills", "decode_iterations", "decode_tokens",
     "fused_steps", "fallback_steps",
+    # speculative decoding: draft tokens the host n-gram drafter proposed,
+    # those the verify steps accepted, and verify steps run
+    "spec_proposed", "spec_accepted", "spec_steps",
 )
 
 
@@ -109,6 +112,12 @@ class ServingMetrics:
         # fused / fallback decode iterations by the weight precision route
         # (ops/quant.py:precision_route: fp32 / int8 / int4 / mixed)
         self.step_routes: dict = {}
+        # tokens committed per participating slot per verify step (samples
+        # are token counts), the speculative counters by draft source, and
+        # each slot's acceptance EWMA (what the draft budget steers on)
+        self.accepted_per_step = LatencyHistogram()
+        self.spec_by_source: dict = {}
+        self.slot_spec_ewma: dict = {}
         self._timers: dict = {}
 
     def inc(self, name: str, by: int = 1) -> None:
@@ -166,6 +175,27 @@ class ServingMetrics:
                     gap_frac if self.device_idle_frac is None
                     else 0.9 * self.device_idle_frac + 0.1 * gap_frac)
 
+    def observe_spec_step(self, proposed: int, accepted: int, committed,
+                          source: str = "ngram",
+                          slot_ewmas: Optional[dict] = None) -> None:
+        """One verify step: ``proposed`` draft tokens over the batch,
+        ``accepted`` of them confirmed, ``committed`` tokens landed per
+        participating slot (accepted prefix + the next token, cut by
+        EOS/budget); ``source`` names the drafter."""
+        with self._lock:
+            self.counters["spec_steps"] += 1
+            self.counters["spec_proposed"] += proposed
+            self.counters["spec_accepted"] += accepted
+            src = self.spec_by_source.setdefault(
+                source, {"steps": 0, "proposed": 0, "accepted": 0})
+            src["steps"] += 1
+            src["proposed"] += proposed
+            src["accepted"] += accepted
+            if slot_ewmas:
+                self.slot_spec_ewma.update(slot_ewmas)
+            for n in committed:
+                self.accepted_per_step.observe(float(n))
+
     def observe_ttft(self, seconds: float) -> None:
         with self._lock:
             self.ttft.observe(seconds)
@@ -197,6 +227,17 @@ class ServingMetrics:
                 # decode-step routing by weight precision (inc_step)
                 "step_routes": {route: dict(r) for route, r
                                 in sorted(self.step_routes.items())},
+                "spec_acceptance_rate": (
+                    self.counters["spec_accepted"]
+                    / max(1, self.counters["spec_proposed"])),
+                "spec_by_source": {
+                    source: dict(src)
+                    for source, src in sorted(self.spec_by_source.items())},
+                "slot_spec_ewma": {
+                    str(slot): ewma
+                    for slot, ewma in sorted(self.slot_spec_ewma.items())},
+                "accepted_tokens_per_step":
+                    self.accepted_per_step.snapshot(suffix=""),
                 "timers_s": {name: t.elapsed_s
                              for name, t in sorted(self._timers.items())},
             })

@@ -2,13 +2,19 @@
 
     python3 -m megatron_llm_tpu_torch.serving.profile [--model M]
         [--layers N] [--kv_quant int8] [--weight_quant int8|int4|mixed]
+        [--fused_decode] [--spec_draft_len K]
 
 Serves Llama-2-7B (``--model llama2``) or Falcon-7B (``falcon``) widths
 (bf16, random weights from a seed, the flash and norm kernels, 4 slots,
 64-token KV blocks: the configurations ``chip_smoke.py`` serves; with
 ``--kv_quant int8`` an int8 KV cache, with ``--weight_quant`` the weights
 quantized by that ``ops/quant.py`` preset) through ``ServingEngine`` and
-traces two windows with ``torch.profiler`` (CUDA activity only):
+traces two windows with ``torch.profiler`` (CUDA activity only).  Decode
+takes the composed per-layer route unless ``--fused_decode`` asks for the
+whole-stack kernel (K13, one launch a step); ``--spec_draft_len K`` turns
+on n-gram speculation (verify steps of K + 1 tokens a slot, through K14
+when fused) and gives the decode prompts repeated spans so that the
+drafter proposes:
 
 1. **prefill**: the admission of one 1024-token prompt;
 2. **decode**: steady batched decode of 4 requests (prompts of 512-1024
@@ -46,7 +52,8 @@ from .engine import EngineConfig, ServingEngine
 
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-_FAMILIES = (("flash_attention_fwd", ("flash_fwd_kernel",)),
+_FAMILIES = (("fused_decode_step", ("decode_step_kernel",)),
+             ("flash_attention_fwd", ("flash_fwd_kernel",)),
              ("flash_decode", ("flash_decode_kernel",)),
              ("flash_decode_int8", ("flash_decode_int8_kernel",)),
              ("rmsnorm_fwd", ("rms_fwd_kernel",)),
@@ -127,6 +134,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kv_quant", default="none", choices=("none", "int8"))
     ap.add_argument("--weight_quant", default=None,
                     choices=("int8", "int4", "mixed"))
+    ap.add_argument("--fused_decode", action="store_true",
+                    help="decode through the whole-stack kernel")
+    ap.add_argument("--spec_draft_len", type=int, default=0,
+                    help="n-gram draft tokens a slot (0: no speculation)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -138,18 +149,26 @@ def main(argv=None) -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     cfg = _MODELS[args.model]("7b", params_dtype="bfloat16",
                               attention_impl="flash", norm_impl="pallas",
-                              fused_decode=False, num_layers=args.layers,
+                              fused_decode=args.fused_decode,
+                              num_layers=args.layers,
                               kv_cache_quant=args.kv_quant)
     params = model_lib.init_params(cfg, seed=0, device=dev)
     if args.weight_quant:
         params = quantize_params(params, args.weight_quant)
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
-        kv_block_size=64, prefix_cache_blocks=0, trace=False), device=dev)
+        kv_block_size=64, prefix_cache_blocks=0,
+        spec_draft_len=args.spec_draft_len, trace=False), device=dev)
     rng = np.random.default_rng(0)
 
     def prompt(n):
         return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    def spec_prompt(n):
+        """n tokens of a 64-token span repeated: the n-gram drafter's
+        trailing n-gram always has an earlier occurrence."""
+        span = prompt(64)
+        return (span * (n // 64 + 1))[:n]
 
     try:
         # warm-up: Triton compile, cuBLAS handles, pinned staging buffers
@@ -158,14 +177,17 @@ def main(argv=None) -> int:
                                      for n in (64, 1024)]):
             h.result(600)
 
-        tag = f"{args.model}-{args.weight_quant or 'bf16'}-kv{args.kv_quant}"
+        route = "fused" if args.fused_decode else "composed"
+        tag = (f"{args.model}-{args.weight_quant or 'bf16'}-kv{args.kv_quant}"
+               f"-{route}-spec{args.spec_draft_len}")
         pre_path, pre_s, _ = _traced(f"prefill-{tag}", lambda: engine.submit(
             prompt(1024), 1, use_eos_stop=False).result(600))
         report = {"prefill_1024": device_summary(pre_path, pre_s, 1)}
 
         new = args.decode_steps + 40
         snap0 = engine.metrics.snapshot()
-        handles = engine.submit_many([dict(prompt=prompt(n), max_new_tokens=new,
+        make = spec_prompt if args.spec_draft_len else prompt
+        handles = engine.submit_many([dict(prompt=make(n), max_new_tokens=new,
                                            use_eos_stop=False)
                                       for n in (512, 640, 768, 1024)])
         while True:  # all four admitted, decode under way
@@ -176,22 +198,33 @@ def main(argv=None) -> int:
             time.sleep(0.005)
 
         def decode_window():
+            # (verify steps commit several tokens: the requests may end
+            # before the window does)
             it0 = engine.metrics.snapshot()["decode_iterations"]
             while engine.metrics.snapshot()["decode_iterations"] \
-                    < it0 + args.decode_steps:
+                    < it0 + args.decode_steps \
+                    and not all(h.done() for h in handles):
                 time.sleep(0.001)
             return engine.metrics.snapshot()["decode_iterations"] - it0
 
+        m0 = engine.metrics.snapshot()
         dec_path, dec_s, steps = _traced(f"decode-{tag}",
                                          decode_window)
+        m1 = engine.metrics.snapshot()
         for h in handles:
             h.result(600)
         report["decode_step_batch4"] = device_summary(dec_path, dec_s, steps)
+        report["decode_step_batch4"].update(
+            tokens_per_step=(m1["decode_tokens"] - m0["decode_tokens"])
+            / max(1, m1["decode_iterations"] - m0["decode_iterations"]),
+            verify_steps=m1["spec_steps"] - m0["spec_steps"],
+            step_routes=m1["step_routes"])
     finally:
         engine.shutdown()
     print(f"card: {smi}; {args.model}-7b widths, {args.layers} layers, "
           f"bf16, weights {args.weight_quant or 'bf16'}, KV cache "
-          f"{args.kv_quant}; traces in {TRACE_DIR}")
+          f"{args.kv_quant}, {route} decode, spec_draft_len "
+          f"{args.spec_draft_len}; traces in {TRACE_DIR}")
     print(json.dumps(report, indent=1))
     return 0
 

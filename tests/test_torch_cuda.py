@@ -219,7 +219,9 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                         "flash_decode_paged_int8": 0,
                         "rmsnorm_fwd": 5 * (2 * cfg.num_layers + 1),
                         "rmsnorm_bwd": 0, "layernorm_fwd": 0,
-                        "layernorm_bwd": 0}, launches
+                        "layernorm_bwd": 0, "fused_decode_step": 0,
+                        "fused_decode_step_paged": 0,
+                        "fused_decode_verify_paged": 0}, launches
 
 
 def _bwd_inputs(gen, dev, b, sq, sk, hq, hk, d, dtype, segs):
@@ -514,3 +516,277 @@ def test_quantized_model_path_on_the_card_matches_cpu(cuda_device):
     v_dense = {kk: tfd.gather_blocks(vv, bids[None]).contiguous()
                for kk, vv in v_layer0.items()}
     assert torch.equal(got, tattn.decode_attention(qd, dense, v_dense, fills))
+
+
+# ---------------------------------------------------------------------------
+# The fused whole-stack decode step: K12 (dense), K13 (paged), K14 (verify)
+# ---------------------------------------------------------------------------
+
+
+def _fused_setup(dev, kv=8, policy=None, int8_cache=False, dtype="bfloat16",
+                 hidden=1024, heads=8, ffn=1536, layers=2):
+    """A Llama-style stack at head dim 128 (2 layers), its params on the
+    card, quantized under ``policy``; ``(cfg, stacked params, rope)``."""
+    from megatron_llm_tpu_torch.config import llama2_config
+
+    cfg = llama2_config("7b", hidden_size=hidden, num_layers=layers,
+                        num_attention_heads=heads, num_kv_heads=kv,
+                        ffn_hidden_size=ffn, vocab_size=256,
+                        params_dtype=dtype,
+                        kv_cache_quant="int8" if int8_cache else "none")
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    if policy is not None:
+        params = tq.quantize_params(params, tq.PrecisionPolicy(
+            attn=policy[0], mlp=policy[1], group_size=128))
+    params = _to_dev(params, dev)
+    return cfg, params["layers"], tm.rope_tables(cfg, device=dev)
+
+
+def _fused_cache(gen, dev, cfg, shape, int8_cache):
+    if int8_cache:
+        q, s = _int8_cache(gen, dev, shape)
+        return {"q": q, "scale": s}
+    return _card(shape, gen, dev, cfg.dtype)
+
+
+def _pool_from_dense(dense, tables, block):
+    """Dense leaves ``[L, b, kv, width(, d)]`` laid out as a pool at the
+    tables' ids (the rest of the pool holds large finite values)."""
+    if isinstance(dense, dict):
+        return {k: _pool_from_dense(v, tables, block)
+                for k, v in dense.items()}
+    L, b, kv, width = dense.shape[:4]
+    n_tbl = width // block
+    pool = torch.full((L, 1 + b * n_tbl, kv, block) + tuple(dense.shape[4:]),
+                      100, dtype=dense.dtype, device=dense.device)
+    for bi in range(b):
+        for j in range(n_tbl):
+            pool[:, int(tables[bi, j])] = dense[:, bi, :, j * block:
+                                                (j + 1) * block]
+    return pool
+
+
+def _assert_fused_close(got, want, int8_cache=False):
+    """Hidden and K/V rows of a fused step against the plain version's.
+    bf16 and fp32 caches: within CARD_TOL.  An int8 cache's fp32 rows are
+    fake-quantized, and a raw value a few ulps from the plain version's can
+    round to the neighbouring code: the first layer's rows may differ by
+    one code step (the row's max / 127); such a flip then moves the next
+    layer's inputs, so the hidden state and all rows are held to a
+    relative (Frobenius) error of 1e-2 (a wrong kernel errs by order 1)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        g, w = g.float(), w.float()
+        if not int8_cache:
+            torch.testing.assert_close(g, w, **CARD_TOL)
+            continue
+        rel = torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)
+        assert float(rel) <= 1e-2, (i, float(rel))
+        if i:
+            step = w[0].abs().amax(-1, keepdim=True) / 127
+            assert ((g[0] - w[0]).abs() <= 1.01 * step + 1e-6).all()
+
+
+FUSED_CASES = {
+    "bf16": dict(),
+    "gqa-int8-cache-int8-weights": dict(kv=2, policy=("int8", "int8"),
+                                        int8_cache=True),
+    "mqa-int4-weights": dict(kv=1, policy=("int4", "int4")),
+    "mixed-weights-int8-cache": dict(policy=("int8", "int4"),
+                                     int8_cache=True),
+    "fp32": dict(dtype="float32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FUSED_CASES))
+def test_fused_decode_kernels_match_plain(cuda_device, name):
+    """K12, K13 and K14 (W = 4) against their plain versions on the same
+    card tensors: fills 0, 1, 97 and the whole width of 256."""
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    c = FUSED_CASES[name]
+    cfg, stacked, rope = _fused_setup(cuda_device, **c)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    fills = torch.tensor([0, 1, 97, 256 - 4], device=cuda_device)
+    b, width, block = 4, 256, 64
+    shape = (cfg.num_layers, b, cfg.kv_heads, width, cfg.head_dim)
+    k = _fused_cache(gen, cuda_device, cfg, shape, c.get("int8_cache"))
+    v = _fused_cache(gen, cuda_device, cfg, shape, c.get("int8_cache"))
+    x = _card((b, cfg.hidden_size), gen, cuda_device, cfg.dtype)
+    counters = {n: getattr(tds, n) for n in (
+        "fused_decode_step", "fused_decode_step_paged",
+        "fused_decode_verify_paged")}
+    before = {n: f.launches for n, f in counters.items()}
+    got = tds.fused_decode_step(cfg, stacked, x, k, v, fills, rope)
+    q8 = c.get("int8_cache", False)
+    _assert_fused_close(got, tds.fused_decode_step_plain(
+        cfg, stacked, x, k, v, fills, rope), q8)
+    tables = (1 + torch.randperm(b * width // block, generator=gen,
+                                 device=cuda_device)).reshape(b, -1)
+    kp = _pool_from_dense(k, tables, block)
+    vp = _pool_from_dense(v, tables, block)
+    got = tds.fused_decode_step_paged(cfg, stacked, x, kp, vp, tables, fills,
+                                      rope)
+    _assert_fused_close(got, tds.fused_decode_step_paged_plain(
+        cfg, stacked, x, kp, vp, tables, fills, rope), q8)
+    xw = _card((b, 4, cfg.hidden_size), gen, cuda_device, cfg.dtype)
+    got = tds.fused_decode_verify_paged(cfg, stacked, xw, kp, vp, tables,
+                                        fills, rope)
+    _assert_fused_close(got, tds.fused_decode_verify_paged_plain(
+        cfg, stacked, xw, kp, vp, tables, fills, rope), q8)
+    torch.cuda.synchronize()
+    assert {n: f.launches - before[n] for n, f in counters.items()} == \
+        dict.fromkeys(counters, 1)
+
+
+def _append_rows(pool, rows, tables, pos, block):
+    """The host's write of a fused step's rows into the pool."""
+    bids = tables[torch.arange(tables.shape[0], device=tables.device),
+                  pos // block]
+    if isinstance(pool, dict):
+        rows = tkv.quantize_rows(rows)
+    tm.cache_append_rows(pool, rows, bids, pos % block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 64, 128])
+@pytest.mark.parametrize("kv,int8_cache,policy", [
+    (32, False, None), (8, True, None), (8, False, ("int8", "int8")),
+    (32, True, ("int4", "int4"))])
+def test_fused_paged_equals_dense_and_verify_equals_steps(
+        cuda_device, block, kv, int8_cache, policy):
+    """K13 over a shuffled pool equals K12 over the same logical cache bit
+    for bit, and K14 over a W = 4 window equals four K13 steps with the
+    host's pool writes between them bit for bit (hidden and rows), at
+    Llama-2-7B's heads (32 x 128).  Fills: 0, 1, a block boundary, one past
+    it, and the width less the window."""
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    cfg, stacked, rope = _fused_setup(cuda_device, kv=kv, policy=policy,
+                                      int8_cache=int8_cache, hidden=4096,
+                                      heads=32, ffn=1024)
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    width, W = 512, 4
+    fills = torch.tensor([0, 1, block, block + 1, width - W],
+                         device=cuda_device)
+    b = len(fills)
+    shape = (cfg.num_layers, b, kv, width, cfg.head_dim)
+    k = _fused_cache(gen, cuda_device, cfg, shape, int8_cache)
+    v = _fused_cache(gen, cuda_device, cfg, shape, int8_cache)
+    tables = (1 + torch.randperm(b * width // block, generator=gen,
+                                 device=cuda_device)).reshape(b, -1)
+    kp = _pool_from_dense(k, tables, block)
+    vp = _pool_from_dense(v, tables, block)
+    x = _card((b, W, cfg.hidden_size), gen, cuda_device, cfg.dtype)
+    dense = tds.fused_decode_step(cfg, stacked, x[:, 0].contiguous(), k, v,
+                                  fills, rope)
+    paged = tds.fused_decode_step_paged(cfg, stacked, x[:, 0].contiguous(),
+                                        kp, vp, tables, fills, rope)
+    for a, d in zip(paged, dense):
+        assert torch.equal(a, d)
+    verify = tds.fused_decode_verify_paged(cfg, stacked, x, kp, vp, tables,
+                                           fills, rope)
+
+    def copy(p):
+        return {n: t.clone() for n, t in p.items()} if isinstance(p, dict) \
+            else p.clone()
+
+    kp2, vp2 = copy(kp), copy(vp)
+    steps = []
+    for j in range(W):
+        out = tds.fused_decode_step_paged(cfg, stacked, x[:, j].contiguous(),
+                                          kp2, vp2, tables, fills + j, rope)
+        _append_rows(kp2, out[1], tables, fills + j, block)
+        _append_rows(vp2, out[2], tables, fills + j, block)
+        steps.append(out)
+    assert torch.equal(verify[0], torch.stack([s[0] for s in steps], 1))
+    for i in (1, 2):
+        seq = torch.stack([s[i] for s in steps], 2).reshape(verify[i].shape)
+        assert torch.equal(verify[i], seq)
+
+
+@pytest.mark.cuda
+def test_fused_model_paths_on_the_card_match_cpu(cuda_device):
+    """``forward_cached`` at s = 1 (K12) and ``forward_cached_paged`` and
+    ``forward_cached_paged_verify`` on the fused route (K13, K14) of a
+    small fp32 model on the card, against the same calls on the CPU (the
+    kernels' plain versions)."""
+    from megatron_llm_tpu_torch.config import llama2_config
+
+    cfg = llama2_config("7b", hidden_size=256, num_layers=2,
+                        num_attention_heads=2, ffn_hidden_size=512,
+                        vocab_size=256, params_dtype="float32",
+                        attention_impl="flash", norm_impl="pallas")
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(0))
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        p = _to_dev(params, dev)
+        t = toks.to(dev)
+        k, v = tm.init_kv_cache(cfg, 2, 32, device=dev)
+        pre, k, v = tm.forward_cached(cfg, p, t[:, :16], k, v, 0,
+                                      empty_cache=True, last_logit_only=True)
+        lg, k, v = tm.forward_cached(cfg, p, t[:, 16:17], k, v, 16)
+        k_pool, v_pool = tm.init_kv_pool(cfg, 5, 16, device=dev)
+        bids = torch.tensor([[3, 1], [4, 2]], device=dev)
+        for s in range(2):
+            tm.cache_scatter_blocks(k_pool, k[:, s:s + 1], bids[s])
+            tm.cache_scatter_blocks(v_pool, v[:, s:s + 1], bids[s])
+        fills = torch.tensor([17, 17], device=dev)
+        st, _, _ = tm.forward_cached_paged(cfg, p, t[:, 17:18], k_pool,
+                                           v_pool, bids, fills,
+                                           use_fused=True)
+        pos = (fills + 1)[:, None] + torch.arange(3, device=dev)[None, :]
+        vb = torch.gather(bids, 1, pos // 16).reshape(-1)
+        vf, _, _ = tm.forward_cached_paged_verify(
+            cfg, p, t[:, 18:21], k_pool, v_pool, bids, fills + 1, vb,
+            (pos % 16).reshape(-1), use_fused=True)
+        outs[dev.type] = [o.cpu() for o in (pre, lg, st, vf)]
+    for c, g in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-4)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    assert launches["fused_decode_step"] == 1
+    assert launches["fused_decode_step_paged"] == 1
+    assert launches["fused_decode_verify_paged"] == 1
+    assert launches["flash_decode"] == 0
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    cfg, stacked, rope = _fused_setup(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = _card((2, cfg.hidden_size), gen, cuda_device)
+    shape = (cfg.num_layers, 2, cfg.kv_heads, 64, cfg.head_dim)
+    k, v = _card(shape, gen, cuda_device), _card(shape, gen, cuda_device)
+    fills = torch.tensor([3, 5], device=cuda_device)
+    with pytest.raises(ValueError):                 # x in another dtype
+        tds.fused_decode_step(cfg, stacked, x.float(), k, v, fills, rope)
+    with pytest.raises(ValueError):                 # a cache in fp32
+        tds.fused_decode_step(cfg, stacked, x, k.float(), v.float(), fills,
+                              rope)
+    tables = torch.ones(2, 8, dtype=torch.int32, device=cuda_device)
+    pool = _card((cfg.num_layers, 4, cfg.kv_heads, 8, cfg.head_dim), gen,
+                 cuda_device)
+    with pytest.raises(ValueError):                 # pool block 8
+        tds.fused_decode_step_paged(cfg, stacked, x, pool, pool, tables,
+                                    fills, rope)
+    pool = _card((cfg.num_layers, 4, cfg.kv_heads, 16, cfg.head_dim), gen,
+                 cuda_device)
+    with pytest.raises(ValueError):                 # a window of 9
+        tds.fused_decode_verify_paged(
+            cfg, stacked, _card((2, 9, cfg.hidden_size), gen, cuda_device),
+            pool, pool, tables, fills, rope)
+    odd, ostacked, orope = _fused_setup(cuda_device, hidden=768, heads=8)
+    with pytest.raises(ValueError):                 # head dim 96
+        tds.fused_decode_step(odd, ostacked,
+                              _card((2, 768), gen, cuda_device),
+                              _card((2, 2, 8, 64, 96), gen, cuda_device),
+                              _card((2, 2, 8, 64, 96), gen, cuda_device),
+                              fills, orope)

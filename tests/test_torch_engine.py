@@ -197,13 +197,11 @@ def test_engine_config_fields_match_jax():
 @pytest.mark.parametrize("kw,cfg_kw,match", [
     (dict(prefill_chunk=16), {}, "prefill_chunk"),
     (dict(prefix_cache_blocks=4), {}, "prefix_cache_blocks"),
-    (dict(spec_draft_len=2), {}, "spec_draft_len"),
     (dict(adapter_cache_slots=2), {}, "LoRA"),
     (dict(host_kv_blocks=4), {}, "host_kv_blocks"),
     (dict(role="prefill"), {}, "role"),
     (dict(trace=True), {}, "trace"),
     (dict(sanitize=True), {}, "sanitize"),
-    ({}, dict(fused_decode=True), "fused_decode"),
     # the int8 KV cache is served now; W8A8 training matmuls are not
     ({}, dict(quantize_matmuls="int8"), "int8"),
 ])

@@ -30,6 +30,8 @@ def test_port_imports_no_jax():
     names = _modules()
     assert "megatron_llm_tpu_torch.serving.engine" in names
     assert "megatron_llm_tpu_torch.kernels.flash_decode" in names
+    assert "megatron_llm_tpu_torch.kernels.decode_step" in names
+    assert "megatron_llm_tpu_torch.serving.profile" in names
     assert "megatron_llm_tpu_torch.training.driver" in names
     assert "megatron_llm_tpu_torch.ops.dropout" in names
     assert "megatron_llm_tpu_torch.ops.quant" in names
