@@ -55,11 +55,25 @@ it goes wrong:
     int8 pool with int8 weights, no K8 or K9;
 18. spec-serve: phase 16 with n-gram speculation (``spec_draft_len=3``;
     two requests with ``spec_force``): verify steps launch K14, and the
-    greedy tokens must be phase 16's, token for token.
+    greedy tokens must be phase 16's, token for token;
+19. default-serve: ``MegatronServer(cfg, params, tokenizer)`` at the
+    engine's defaults (prefix cache, span tracing) but for its sizes,
+    Llama-2-7B at full depth: a cold 1024-token request, then four that
+    share its first 960 tokens; prefix hits, the repeat's tokens equal to
+    the cold run's, K13 once a decode step, prefix_match spans in GET
+    /trace, and TTFT on a hit against cold;
+20-21. draft-serve: phase 16 with a resident draft model
+    (``spec_draft_len=3``): the tiny preset (random, bf16) and the target
+    itself; every verify step is one launch of K14's tree mode, the greedy
+    tokens must be phase 16's, and the self-draft's chains are accepted.
 
-Phase 3 covers K1-K14; K10 and K11 must equal K8 and K9 bit for bit on
-the same logical cache, K13 must equal K12 and K14 four K13 steps.
-Phases 5, 7, 9, 10, 11, 13 and 14-18 are the main paths: every kernel's
+Every serving phase runs the engine's defaults but for its sizes (4
+slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
+K1-K14 and K14's tree mode; K10 and K11 must equal K8 and K9 bit for bit
+on the same logical cache, K13 must equal K12 and K14 four K13 steps, a
+chain tree the linear K14 window and each path of a hedged tree
+sequential K13 steps.
+Phases 5, 7, 9, 10, 11, 13 and 14-21 are the main paths: every kernel's
 launch counter is reset just before each and read just after, and each
 kernel of a path must have been launched in it.  The
 line before the last is the ``{"kernels": [...]}`` JSON object
@@ -498,15 +512,40 @@ def _fused_calls(ds, cfg, st, x, k, v, kp, vp, tables, fills, rope):
     }
 
 
+# K14's tree mode in phase 3: per slot a depth-1 hedge beside a two-deep
+# chain (the engine's tree for a 3-token budget), the chain alone, and a
+# rider (a root-only tree, as the engine gives a sampled slot)
+TREE_HEDGE = ([0, 1, 1, 2], {(3, 1): 1})
+TREE_CHAIN = ([0, 1, 2, 3], {(j, dd): dd for j in range(4)
+                             for dd in range(j)})
+TREE_RIDER = ([0, 0, 0, 0], {})
+TREE_PATHS = ([0, 1, 3], [0, 2])
+
+
+def _tree(torch, specs, dev):
+    """``(depths [S, 4], anc [S, 4, 4])`` int32 on ``dev``, one
+    ``(depths, {(node, depth): ancestor})`` spec per slot."""
+    depths = torch.zeros(len(specs), 4, dtype=torch.int32)
+    anc = torch.zeros(len(specs), 4, 4, dtype=torch.int32)
+    for s_, (dep, links) in enumerate(specs):
+        depths[s_] = torch.tensor(dep)
+        for (j, dd), a in links.items():
+            anc[s_, j, dd] = a
+    return depths.to(dev), anc.to(dev)
+
+
 def check_decode_step(torch, M, ds, dev, gen, smi):
-    """K12, K13 and K14 at Llama-2-7B's widths, 4 rows, max_len 2048, a
-    shuffled pool of 64-token blocks, a window of 4; bf16 weights with a
-    bf16 cache, and int8 weights with an int8 cache.
+    """K12, K13, K14 and K14's tree mode at Llama-2-7B's widths, 4 rows,
+    max_len 2048, a shuffled pool of 64-token blocks, a window of 4; bf16
+    weights with a bf16 cache, and int8 weights with an int8 cache.
 
     Against the plain versions at 2 layers (fills 1/97/1056/2044: the
     window of the last row ends at the end of its table), bit for bit
     K13 == K12 on the same logical cache and K14 == four K13 steps with
-    the host's pool writes between them.  Times per call at the full 32
+    the host's pool writes between them; K14's tree mode (hedge, chain,
+    rider and hedge trees on the four slots) against its plain version,
+    a chain tree on every slot == the linear K14 window, and every node of
+    a hedged tree == sequential K13 steps down its root path.  Times per call at the full 32
     layers (CUDA-graph replays; the plain version between events), beside
     the composed route's ``forward_cached_paged`` for the same step
     (between events: it is not one call, and it also embeds and unembeds,
@@ -586,9 +625,66 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
             raise RuntimeError(f"fused_decode_verify_paged ({form}) differs "
                                "from four sequential fused_decode_step_paged "
                                "steps")
+        # K14's tree mode: against its plain version, chain == linear, and
+        # each root path of a hedged tree == sequential K13 steps
+        mixed = _tree(torch, (TREE_HEDGE, TREE_CHAIN, TREE_RIDER,
+                              TREE_HEDGE), dev)
+        tree_calls = {
+            "fused_decode_verify_tree_paged": (
+                lambda st_, k_, v_: ds.fused_decode_verify_tree_paged(
+                    cfg, st_, x, k_, v_, tables, fills, rope, *mixed),
+                lambda st_, k_, v_: ds.fused_decode_verify_tree_paged_plain(
+                    cfg, st_, x, k_, v_, tables, fills, rope, *mixed), W)}
+        got = tree_calls["fused_decode_verify_tree_paged"][0](st2, kp2, vp2)
+        torch.cuda.synchronize()
+        errs = fused_errs(torch, got, tree_calls[
+            "fused_decode_verify_tree_paged"][1](st2, kp2, vp2),
+            form == "int8")
+        if not all(ok for *_, ok in errs):
+            raise RuntimeError(f"fused_decode_verify_tree_paged ({form}): "
+                               f"hidden/k/v max err {[e[0] for e in errs]}, "
+                               f"relative {[e[1] for e in errs]} beyond "
+                               "tolerance")
+        outs["fused_decode_verify_tree_paged"] = (
+            got, max(e[0] for e in errs), max(e[1] for e in errs))
+        chain = ds.fused_decode_verify_tree_paged(
+            cfg, st2, x, kp2, vp2, tables, fills, rope,
+            *_tree(torch, (TREE_CHAIN,) * b, dev))
+        if not _same(torch, chain, ver):
+            raise RuntimeError(f"K14's tree mode ({form}): a chain tree "
+                               "differs from the linear window")
+        tree = ds.fused_decode_verify_tree_paged(
+            cfg, st2, x, kp2, vp2, tables, fills, rope,
+            *_tree(torch, (TREE_HEDGE,) * b, dev))
+        node_rows = torch.arange(b, device=dev) * W
+        for path in TREE_PATHS:
+            kps, vps = _clone(kp2), _clone(vp2)
+            for t, node in enumerate(path):
+                pos = fills + t
+                out = ds.fused_decode_step_paged(
+                    cfg, st2, x[:, node].contiguous(), kps, vps, tables, pos,
+                    rope)
+                if not (torch.equal(tree[0][:, node], out[0])
+                        and torch.equal(tree[1][:, node_rows + node], out[1])
+                        and torch.equal(tree[2][:, node_rows + node],
+                                        out[2])):
+                    raise RuntimeError(
+                        f"K14's tree mode ({form}): node {node} of path "
+                        f"{path} differs from sequential K13 steps")
+                bids = tables[torch.arange(b, device=dev), pos // block]
+                for pool, r in ((kps, out[1]), (vps, out[2])):
+                    M.cache_append_rows(pool, quantize_rows(r)
+                                        if form == "int8" else r, bids,
+                                        pos % block)
+        log(f"decode_step ({form}): K14's tree mode within tolerance of its "
+            "plain version; chain tree == linear K14 and each hedged-tree "
+            "path == sequential K13 steps, bit for bit, at 2 layers")
         # full depth: times and bounds
         full = _fused_calls(ds, cfg, stacked, x, k, v, kp, vp, tables, fills,
                             rope)
+        full["fused_decode_verify_tree_paged"] = tuple(
+            (lambda f: (lambda: f(stacked, kp, vp)))(f) for f in
+            tree_calls["fused_decode_verify_tree_paged"][:2]) + (W,)
         # the composed route for K13's step: embed, the per-layer kernels
         # (K8 / K9 over the gathered tables), final norm and unembedding
         ccfg = dataclasses.replace(cfg, fused_decode=False,
@@ -605,9 +701,17 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
         cache_item = 1 if form == "int8" else 2
         cache_extra = 4 if form == "int8" else 0       # fp32 row scale
         for name, (kern, plain, win) in full.items():
-            ms = cuda_ms(torch, kern, iters=5, warmup=2)
+            is_tree = name == "fused_decode_verify_tree_paged"
+            # the tree launch checks the tree on the host (a copy and a
+            # stream sync a graph cannot capture): between events instead
+            ms = (event_ms(torch, kern, iters=5, warmup=2) if is_tree
+                  else cuda_ms(torch, kern, iters=5, warmup=2))
             plain_ms = event_ms(torch, plain, iters=1, warmup=1)
             n_rows = b * win
+            # spliced window columns a slot's rows attend: 0+1+..+(W-1)
+            # for the linear window, each node's depth in the tree
+            spliced = (sum(int(dd) for dd in mixed[0].reshape(-1))
+                       if is_tree else (win * (win - 1)) // 2 * b)
             # every weight and norm read once, each slot's live cache (its
             # fill) read once, x read, hidden and the new rows written
             live = sum(fills_l)
@@ -621,8 +725,7 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
                 ("attn", "wo"), ("mlp", "w_gate"), ("mlp", "w_up"),
                 ("mlp", "w_down")))
             # 2 ops a weight a row, 4 a cached element a query head
-            ops = 2.0 * n_w * n_rows + 4.0 * L * (
-                live * win + (win * (win - 1)) // 2 * b) \
+            ops = 2.0 * n_w * n_rows + 4.0 * L * (live * win + spliced) \
                 * cfg.num_attention_heads * d
             bms, by = bound_ms(nbytes, ops)
             err, rel = outs[name][1], outs[name][2]
@@ -630,11 +733,12 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
                 f"rows, fills {fills_l}, 64-token pool blocks]: at 2 layers "
                 f"max_abs_err {err:.3e}, relative err {rel:.3e} (limit "
                 f"{FUSED_REL_LIMIT}; layer-0 rows atol {BF16_ATOL} rtol "
-                f"{BF16_RTOL:.4f}); 32 layers ms {ms:.4f} plain_ms "
-                f"{plain_ms:.4f} bound_ms {bms:.4f} ({by}); composed route "
-                f"forward_cached_paged {composed_ms:.4f} ms and fused "
-                f"forward_cached_paged {fused_fwd_ms:.4f} ms (between "
-                f"events, not a library call); card {smi}")
+                f"{BF16_RTOL:.4f}); 32 layers ms {ms:.4f} "
+                f"({'between events' if is_tree else 'graph replays'}) "
+                f"plain_ms {plain_ms:.4f} bound_ms {bms:.4f} ({by}); "
+                f"composed route forward_cached_paged {composed_ms:.4f} ms "
+                f"and fused forward_cached_paged {fused_fwd_ms:.4f} ms "
+                f"(between events, not a library call); card {smi}")
             if form == "bf16":
                 rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms,
                                   plain_ms=plain_ms, bound_ms=bms,
@@ -1201,18 +1305,23 @@ def _span_prompt(torch, n, vocab, gen):
 def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
           policy=None, lens=(64, 1024, 200, 512, 96, 777, 330, 1000),
           new=32, fused=False, spans=False, spec_draft_len=0, force=(),
-          record=None):
+          record=None, draft=None):
     """``need`` must launch on the path, ``forbid`` must not; ``policy``
     quantizes the random weights (``ops/quant.quantize_params``) before
-    the server gets them.  ``fused``: every decode step must take the
-    fused route, with one K13 launch each.  ``spans`` makes the prompts
-    repeat a span (so the n-gram drafter proposes); ``spec_draft_len``
-    turns speculation on, and the requests at the indices ``force`` go to
-    the engine directly with ``spec_force`` (the HTTP API has no such
-    field).  ``record`` (a dict) receives every request's tokens and the
-    decode rate."""
+    the server gets them.  The server has the engine's defaults (prefix
+    cache, span tracing) but for its sizes.  ``fused``: every decode step
+    must take the fused route, with one K13 launch each.  ``spans`` makes
+    the prompts repeat a span (so the n-gram drafter proposes);
+    ``spec_draft_len`` turns speculation on, and the requests at the
+    indices ``force`` go to the engine directly with ``spec_force`` (the
+    HTTP API has no such field).  ``draft`` ("tiny": the tiny preset,
+    random, bf16; "self": the target) makes the server keep a resident
+    draft model: every verify step is then one launch of K14's tree mode.
+    ``record`` (a dict) receives every request's tokens, the decode rate
+    and, with speculation, the acceptance."""
     from megatron_llm_tpu_torch.generation import MegatronServer
     from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.models.families import draft_model
     from megatron_llm_tpu_torch.ops.quant import quantize_params
     from megatron_llm_tpu_torch.tokenizer import NullTokenizer
 
@@ -1222,17 +1331,24 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
     n_params = M.num_params(params)
     if policy is not None:
         params = quantize_params(params, policy)
+    draft_kw = {}
+    if draft == "self":
+        draft_kw = dict(draft_cfg=cfg, draft_params=params)
+    elif draft == "tiny":
+        dcfg = draft_model("tiny", cfg, params_dtype="bfloat16")
+        draft_kw = dict(draft_cfg=dcfg, draft_params=M.init_params(
+            dcfg, seed=1, device=dev))
     torch.cuda.synchronize()
     log(f"serve: {label} params {n_params / 1e9:.3f}e9 ({cfg.params_dtype}"
         f"{', weights ' + policy if policy else ''}, KV cache "
-        f"{cfg.kv_cache_quant}) ready in {time.perf_counter() - t0:.1f}s; "
-        f"resident {torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB")
+        f"{cfg.kv_cache_quant}{', draft ' + draft if draft else ''}) ready "
+        f"in {time.perf_counter() - t0:.1f}s; resident "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB")
     server = MegatronServer(cfg, params, NullTokenizer(cfg.vocab_size),
                             max_batch_size=4, engine_max_seq_len=2048,
                             prefill_bucket=64, kv_block_size=64,
-                            prefix_cache_blocks=0,
-                            spec_draft_len=spec_draft_len, trace=False,
-                            device=dev)
+                            spec_draft_len=spec_draft_len, device=dev,
+                            **draft_kw)
     server.run("127.0.0.1", 0, block=False)
     try:
         port = server.port
@@ -1253,6 +1369,7 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
         for fn in counters.values():
             fn.launches = 0
         engine = server.service.engine
+        engine.trace.clear()
         m0 = engine.metrics.snapshot()
         results = [None] * len(prompts)
 
@@ -1279,6 +1396,7 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
         wall = time.perf_counter() - t1
         launches = {name: fn.launches for name, fn in counters.items()}
         m1 = engine.metrics.snapshot()
+        spans = engine.trace.chrome_trace()["traceEvents"]
         for i, (n, res) in enumerate(zip(lens, results)):
             if res is None or res[0] != 200:
                 raise RuntimeError(f"request {i} failed: {res}")
@@ -1316,31 +1434,67 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
         fused_steps = steps(m1, "fused") - steps(m0, "fused")
         fallback_steps = steps(m1, "fallback") - steps(m0, "fallback")
         spec_steps = m1["spec_steps"] - m0["spec_steps"]
+        tok_step = dec_tok / max(1, m1["decode_iterations"]
+                                 - m0["decode_iterations"])
         if spec_draft_len:
             proposed = m1["spec_proposed"] - m0["spec_proposed"]
             accepted = m1["spec_accepted"] - m0["spec_accepted"]
             log(f"serve {label} speculation: {spec_steps} verify steps of "
                 f"{fused_steps + fallback_steps} decode steps, {proposed} "
                 f"draft tokens proposed, {accepted} accepted (rate "
-                f"{accepted / max(1, proposed):.3f}), "
-                f"{dec_tok / max(1, m1['decode_iterations'] - m0['decode_iterations']):.2f}"
-                f" tokens a step")
+                f"{accepted / max(1, proposed):.3f}), {tok_step:.2f} tokens "
+                f"a step")
             if spec_steps < 1:
                 raise RuntimeError("speculation on, but no verify step ran")
+        # draft forwards: one per draft_absorb / draft_expand span
+        draft_fwd = sum(1 for e in spans
+                        if e["name"] in ("draft_absorb", "draft_expand"))
+        if draft:
+            src = m1["spec_by_source"].get("model", {})
+            if src.get("steps", 0) - m0["spec_by_source"].get(
+                    "model", {}).get("steps", 0) != spec_steps:
+                raise RuntimeError(f"draft serving: verify steps not all "
+                                   f"from the draft model: "
+                                   f"{m1['spec_by_source']}")
+            # the main chain of each slot's tree (a 3-token budget spends
+            # one token on the depth-1 hedge), from the decode spans
+            tree_spans = [e["args"] for e in spans if e["name"] == "decode"
+                          and e.get("args", {}).get("tree")
+                          and e["args"]["proposed"]]
+            chain = sum(a["proposed"] - (a["proposed"] >= 3)
+                        for a in tree_spans)
+            acc_chain = sum(a["accepted"] for a in tree_spans) / max(1, chain)
+            log(f"serve {label} draft: {draft_fwd} draft forwards, chain "
+                f"acceptance {acc_chain:.3f} ({chain} chain tokens over "
+                f"{len(tree_spans)} slot-steps)")
         if fused:
-            # a K13 launch per plain step, a K14 launch per verify step
+            # a K13 launch per plain step; a verify step is a K14 launch
+            # (n-gram) or a launch of K14's tree mode (draft model), and a
+            # draft model on the fused route adds a K14 launch a forward
             k13 = launches["fused_decode_step_paged"]
             k14 = launches["fused_decode_verify_paged"]
-            if fallback_steps or k13 + k14 != fused_steps \
-                    or k14 != spec_steps:
+            k14t = launches["fused_decode_verify_tree_paged"]
+            verify = k14t if draft else k14
+            draft_k14 = k14 if draft else 0
+            fused_draft = draft and engine._fused_draft
+            if fallback_steps or k13 + verify != fused_steps \
+                    or verify != spec_steps \
+                    or draft_k14 != (draft_fwd if fused_draft else 0):
                 raise RuntimeError(
                     f"fused serving: {fused_steps} fused and "
                     f"{fallback_steps} composed steps, {spec_steps} verify "
-                    f"steps, K13 launched {k13} and K14 {k14} times")
+                    f"steps, {draft_fwd} draft forwards; K13 launched "
+                    f"{k13}, K14 {k14} and K14's tree mode {k14t} times")
         if record is not None:
             record["tokens"] = [[int(t) for t in r[1]["text"][0].split()]
                                 for r in results]
             record["decode_tok_s"] = dec_tok / dec_s
+            record["tokens_per_step"] = tok_step
+            if spec_draft_len:
+                record["acceptance"] = accepted / max(1, proposed)
+            if draft:
+                record["chain_acceptance"] = acc_chain
+            record["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         missing = [n for n in need if launches[n] < 1]
         if missing:
             raise RuntimeError(f"kernels never launched on the main path: "
@@ -1351,6 +1505,134 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
         return launches
     finally:
         server.shutdown()
+
+
+def _ttft_ms(spans):
+    """request id -> (TTFT ms, cached prompt tokens) from the engine's
+    spans: submission (the ``queued`` span's start) to the end of the
+    ``prefill`` span, which samples the first token."""
+    queued = {e["args"]["request_id"]: e["ts"] for e in spans
+              if e["name"] == "queued"}
+    return {e["args"]["request_id"]: (
+        (e["ts"] + e["dur"] - queued[e["args"]["request_id"]]) / 1e3,
+        e["args"]["cached_tokens"]) for e in spans if e["name"] == "prefill"}
+
+
+def default_serve(torch, cfg, dev, counters, smi, new=32):
+    """Phase 19: ``MegatronServer(cfg, params, tokenizer)`` with the
+    engine's defaults (prefix cache of 256 blocks, span tracing) but for
+    its sizes, Llama-2-7B at full depth.  A cold 1024-token PUT /api, then
+    four concurrent requests that share its first 960 tokens (15 blocks of
+    64: a match stays strictly shorter than the prompt): the prompt again,
+    and three with their own last 64 tokens.  The repeat's greedy tokens
+    must be the cold run's, each hit must have matched 960 tokens, K13
+    must launch once a decode step, and GET /trace must hold the
+    prefix_match spans.  Returns the launches and the TTFTs."""
+    from megatron_llm_tpu_torch.generation import MegatronServer
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.tokenizer import NullTokenizer
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init_params(cfg, seed=0, device=dev)
+    server = MegatronServer(cfg, params, NullTokenizer(cfg.vocab_size),
+                            max_batch_size=4, engine_max_seq_len=2048,
+                            prefill_bucket=64, kv_block_size=64, device=dev)
+    server.run("127.0.0.1", 0, block=False)
+    try:
+        port = server.port
+        engine = server.service.engine
+        ec = engine.config
+        if (ec.prefix_cache_blocks, ec.trace) != (256, True):
+            raise RuntimeError(f"not the engine's defaults: {ec}")
+        gen = torch.Generator().manual_seed(5)
+
+        def text(ids):
+            return " ".join(str(int(t)) for t in ids)
+
+        def body(ids):
+            return {"prompts": [text(ids)], "tokens_to_generate": new,
+                    "no_early_termination": True}
+
+        warm = torch.randint(0, cfg.vocab_size, (96,), generator=gen)
+        if put(port, body(warm))[0] != 200:
+            raise RuntimeError("default-serve warm-up failed")
+        base = torch.randint(0, cfg.vocab_size, (1024,), generator=gen)
+        hits = [base] + [torch.cat([base[:960], torch.randint(
+            0, cfg.vocab_size, (64,), generator=gen)]) for _ in range(3)]
+        for fn in counters.values():
+            fn.launches = 0
+        engine.trace.clear()
+        m0 = engine.metrics.snapshot()
+        cold = put(port, body(base))
+        m_cold = engine.metrics.snapshot()
+        results = [None] * len(hits)
+
+        def client(i):
+            try:
+                results[i] = put(port, body(hits[i]))
+            except Exception as e:  # noqa: BLE001 - reported below
+                results[i] = (None, repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(hits))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        m1 = engine.metrics.snapshot()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/trace",
+                                    timeout=120) as resp:
+            trace = json.loads(resp.read())
+    finally:
+        server.shutdown()
+    for i, res in enumerate([cold] + results):
+        if res is None or res[0] != 200:
+            raise RuntimeError(f"default-serve request {i} failed: {res}")
+        out = res[1]["text"][0].split()
+        if len(out) != 1024 + new or not all(
+                0 <= int(t) < cfg.vocab_size for t in out):
+            raise RuntimeError(f"default-serve request {i}: {len(out)} "
+                               "tokens or a token out of the vocabulary")
+    if results[0][1]["text"] != cold[1]["text"]:
+        raise RuntimeError("a prefix hit changed the greedy tokens of the "
+                           "cold run")
+    n_hits = m1["prefix_hits"] - m_cold["prefix_hits"]
+    if m_cold["prefix_hits"] != m0["prefix_hits"] or n_hits != 4:
+        raise RuntimeError(f"prefix hits: cold {m_cold['prefix_hits'] - m0['prefix_hits']}, "
+                           f"then {n_hits} of 4")
+    spans = trace["traceEvents"]
+    matches = [e["args"] for e in spans if e["name"] == "prefix_match"]
+    if sorted(a["matched_tokens"] for a in matches) != [0, 960, 960, 960,
+                                                        960]:
+        raise RuntimeError(f"prefix_match spans: {matches}")
+    steps = sum(r["fused"] for r in m1["step_routes"].values()) \
+        - sum(r["fused"] for r in m0["step_routes"].values())
+    fallback = sum(r["fallback"] for r in m1["step_routes"].values()) \
+        - sum(r["fallback"] for r in m0["step_routes"].values())
+    if fallback or launches["fused_decode_step_paged"] != steps \
+            or launches["flash_decode"]:
+        raise RuntimeError(f"default-serve: {steps} fused and {fallback} "
+                           f"composed steps, K13 launched "
+                           f"{launches['fused_decode_step_paged']} times, K8 "
+                           f"{launches['flash_decode']}")
+    ttft = _ttft_ms(spans)
+    cold_ms = [ms for ms, cached in ttft.values() if cached == 0]
+    hit_ms = [ms for ms, cached in ttft.values() if cached == 960]
+    if len(cold_ms) != 1 or len(hit_ms) != 4:
+        raise RuntimeError(f"TTFT spans: {ttft}")
+    log(f"default-serve llama2-7b ({cfg.num_layers} layers, "
+        f"{cfg.params_dtype}, prefix cache 256 blocks, tracing on): cold 1024-token TTFT {cold_ms[0]:.2f} ms; four "
+        f"concurrent hits of 960 cached tokens TTFT "
+        f"{', '.join(f'{x:.2f}' for x in sorted(hit_ms))} ms (mean "
+        f"{sum(hit_ms) / 4:.2f}; they queue behind each other's prefill); "
+        f"{n_hits} hits, {len(matches)} prefix_match spans in GET /trace, "
+        f"{steps} decode steps with K13 once each; cow copies "
+        f"{m1['cow_copies_total'] - m0['cow_copies_total']}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; host "
+        f"clock; card {smi}")
+    log("default-serve kernels " + json.dumps(launches))
+    return launches, dict(cold_ms=cold_ms[0], hit_ms=sorted(hit_ms))
 
 
 # ---------------------------------------------------------------------------
@@ -1689,6 +1971,47 @@ def main() -> int:
         f"{fused_out['decode_tok_s']:.1f} (host clock; card {smi})")
     log(f"fused phases 15-18 in {time.perf_counter() - t0:.1f}s")
 
+    t0 = time.perf_counter()
+    paths["serve llama2-7b defaults"], ttft = default_serve(
+        torch, fused, dev, counters, smi)
+    settle()
+    drafts = {}
+    # the tiny draft's forwards take the composed route (head dim 16), and
+    # the rejected drafts collapse the budgets, so plain steps (K13) come
+    # back; a self-draft's forwards are K14 launches, and every step is a
+    # tree verify
+    draft_need = {"tiny": ("fused_decode_step_paged",),
+                  "self": ("fused_decode_verify_paged",)}
+    for draft in ("tiny", "self"):
+        drafts[draft] = {}
+        paths[f"serve llama2-7b draft {draft}"] = serve(
+            torch, fused, dev, counters, smi, f"llama2-7b draft {draft}",
+            ("flash_attention_fwd", "rmsnorm_fwd",
+             "fused_decode_verify_tree_paged") + draft_need[draft],
+            forbid=("flash_decode",), fused=True, spans=True,
+            spec_draft_len=3, record=drafts[draft], draft=draft)
+        settle()
+        if drafts[draft]["tokens"] != fused_out["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(drafts[draft]["tokens"],
+                                                   fused_out["tokens"]))
+                   if a != b]
+            raise RuntimeError(f"draft-model serving ({draft}) changed the "
+                               f"greedy tokens of requests {bad}")
+    if drafts["self"]["chain_acceptance"] < 0.9:
+        raise RuntimeError(f"a self-draft's chains were accepted at "
+                           f"{drafts['self']['chain_acceptance']:.3f}, not "
+                           "near 1")
+    for draft, rec in drafts.items():
+        log(f"draft-serve ({draft}): greedy tokens identical to "
+            f"fused-serve's for all {len(rec['tokens'])} requests; decode "
+            f"{rec['decode_tok_s']:.1f} tok/s against "
+            f"{fused_out['decode_tok_s']:.1f}, {rec['tokens_per_step']:.2f} "
+            f"tokens a step, acceptance {rec['acceptance']:.3f} of proposed "
+            f"({rec['chain_acceptance']:.3f} of chain tokens), peak "
+            f"{rec['peak_gib']:.1f} GiB (host clock; card {smi})")
+    log(f"default and draft phases 19-21 in {time.perf_counter() - t0:.1f}s; "
+        f"TTFT cold {ttft['cold_ms']:.2f} ms, hits {ttft['hit_ms']}")
+
     meta = {
         "flash_attention_fwd": (
             "cuda", "megatron_llm_tpu_torch/csrc/flash_attention.cu",
@@ -1732,6 +2055,9 @@ def main() -> int:
         "fused_decode_verify_paged": (
             "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
             "megatron_llm_tpu/kernels/decode_step.py:1504"),
+        "fused_decode_verify_tree_paged": (
+            "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
+            "megatron_llm_tpu/kernels/decode_step.py:1516"),
     }
     kernels = []
     for kname, (route, source, replaces) in meta.items():

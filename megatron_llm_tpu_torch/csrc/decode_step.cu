@@ -1,11 +1,13 @@
 // The whole decoder stack for one new token per row, in one cooperative
 // launch: K12 (dense cache), K13 (paged pool) and K14 (paged pool, a W-wide
-// speculative window per slot), one device body for all three.
+// speculative window per slot, a linear run or a candidate tree), one
+// device body for all of them.
 //
 // Replaces the TPU kernels of megatron_llm_tpu/kernels/decode_step.py:
 //   K12 fused_decode_step          (_decode_step_kernel)
 //   K13 fused_decode_step_paged    (_decode_step_kernel_paged, W = 1)
-//   K14 fused_decode_verify_paged  (_decode_step_kernel_paged, linear W)
+//   K14 fused_decode_verify_paged  (_decode_step_kernel_paged, linear W,
+//       and its tree mode: depths / anc, the splice of :638-673)
 // Per layer, for every row: RMSNorm; the q/k/v GEMVs (int8 weights: the
 // column scale after the dot; int4: group-dequantized as the tile loads);
 // interleaved-pair RoPE at the row's own position; attention over the
@@ -48,12 +50,16 @@
 //   fixed order.  Which group takes column j depends on j alone, whatever
 //   the cache layout: column j is cache[slot][head][j] (dense) or
 //   pool[table[slot][j >> shift]][head][j & (block - 1)] (paged).  For a
-//   window row j > 0, the columns fill .. fill + j - 1 are spliced from the
-//   slot's in-flight window rows, converted to exactly what a pool round
-//   trip returns (cast through the pool's dtype, or fake-quantized twice
-//   for an int8 pool), so K14's row j sees the values and columns of the
-//   j-th sequential K13 step, bit for bit.  The row's own key and value
-//   fold in last, raw.  No column past the fill is read, and a group that
+//   window row j at depth t > 0 (t = j in a linear window), the columns
+//   fill .. fill + t - 1 are spliced from the slot's in-flight window rows
+//   (a linear window: rows 0 .. j - 1; a tree: the row's ancestors
+//   anc[j][0 .. t - 1]), converted to exactly what a pool round trip
+//   returns (cast through the pool's dtype, or fake-quantized twice for an
+//   int8 pool), so K14's row j sees the values and columns of the t-th
+//   sequential K13 step down its root path, bit for bit.  The row's own
+//   key and value fold in last, raw.  A tree costs no template
+//   instantiation: null depths mean the linear window, whose code and bits
+//   are the same as before the tree mode.  No column past the fill is read, and a group that
 //   saw no live column keeps m = -inf, l = 0: a free slot at fill 0
 //   attends its own token only, with no 0 x inf.
 // - The int8 requantization of the new rows and of the splice rounds as
@@ -109,6 +115,8 @@ struct Args {
   const float* vcs;
   const int* tables;       // paged: [S, n_tbl]
   const int* fills;        // [S]
+  const int* depths;       // tree: [S, W] node depths, or null (linear)
+  const int* anc;          // tree: [S, W, W] ancestor node at each depth
   void* k_rows;            // [L, rows, nkv, d]: C, or fp32 for int8
   void* v_rows;
   float* res;              // scratch, fp32
@@ -787,8 +795,10 @@ struct AttnSmem {
 // a time, 16 bytes each; each of the NGRP lane groups keeps U rows in flight
 // and its own online softmax over the G query heads of the kv head; the
 // groups' states merge in a fixed order.  Logical column j is the cache's
-// for j < fill, the spliced window row j - fill for fill <= j < fill + w
-// (w = the row's window position), and the row's own K/V fold in last.
+// for j < fill, the spliced row i = j - fill for fill <= j < fill + w, and
+// the row's own K/V fold in last.  In a linear window w is the row's window
+// position and spliced row i the slot's window row i; in a tree (a.depths
+// set) w is the row's depth and spliced row i its ancestor at depth i.
 // Which group takes which column depends on j alone, so a row gives the same
 // bits whatever the call's rows or grid.  Scores at columns past the length
 // are -inf and skipped; a group that saw none keeps m = -inf, l = 0, acc =
@@ -817,7 +827,8 @@ __device__ void attn_item(const Args& a, int l, int r, int hk, float* smem) {
   const int lane = tid % LANES, grp = tid / LANES;
   const int g = a.nq / a.nkv;
   const int s = r / a.W, j = r - s * a.W;
-  const int fill = a.fills[s], len = fill + j;
+  const int depth = a.depths ? a.depths[r] : j;
+  const int fill = a.fills[s], len = fill + depth;
   const int nqd = a.nq * D, nkvd = a.nkv * D;
   const C* kc = static_cast<const C*>(a.kc);
   const C* vc = static_cast<const C*>(a.vc);
@@ -831,10 +842,12 @@ __device__ void attn_item(const Args& a, int l, int r, int hk, float* smem) {
     ownk[e] = __ldcg(kraw + e);
     ownv[e] = __ldcg(vraw + e);
   }
-  // the slot's earlier window rows as a pool round trip returns them: cast
-  // through the cache's dtype, or fake-quantized twice for an int8 pool
-  for (int i = 0; i < j; ++i) {
-    const size_t at = (size_t)(s * a.W + i) * nkvd + hk * D;
+  // the row's root path (earlier window rows, or its tree ancestors) as a
+  // pool round trip returns them: cast through the cache's dtype, or
+  // fake-quantized twice for an int8 pool
+  for (int i = 0; i < depth; ++i) {
+    const int src = a.depths ? a.anc[(size_t)r * a.W + i] : i;
+    const size_t at = (size_t)(s * a.W + src) * nkvd + hk * D;
     for (int e = tid; e < D; e += kThreads) {
       spk[i * D + e] = round_to<C>(__ldcg(a.kn + at + e));
       spv[i * D + e] = round_to<C>(__ldcg(a.vn + at + e));
@@ -844,7 +857,7 @@ __device__ void attn_item(const Args& a, int l, int r, int hk, float* smem) {
   if constexpr (Q8) {
     fq_row(ownk, ownk, D, red);
     fq_row(ownv, ownv, D, red);
-    for (int i = 0; i < j; ++i) {
+    for (int i = 0; i < depth; ++i) {
       for (int pass = 0; pass < 2; ++pass) {
         fq_row(spk + i * D, spk + i * D, D, red);
         fq_row(spv + i * D, spv + i * D, D, red);
@@ -1101,10 +1114,39 @@ int launch(const Args* a, cudaStream_t stream) {
 
 }  // namespace
 
+// A tree the kernel takes: per slot, node 0 is the root (depth 0), depths
+// never fall with the node index and stay at or below it, and a node's
+// ancestor at each depth below its own is an earlier node.  The operands
+// are copied to the host once (a synchronisation with the stream: a verify
+// step is synchronous in any case).  0 or a cudaError_t.
+static int check_tree(const Args* a, cudaStream_t stream) {
+  if (!a->depths) return a->anc ? cudaErrorInvalidValue : 0;
+  if (!a->anc || !a->paged) return cudaErrorInvalidValue;
+  const int n = a->rows, W = a->W;
+  int dep[kMaxRows], anc[kMaxRows * kMaxWindow];
+  cudaError_t err = cudaMemcpyAsync(dep, a->depths, n * sizeof(int),
+                                    cudaMemcpyDeviceToHost, stream);
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(anc, a->anc, (size_t)n * W * sizeof(int),
+                          cudaMemcpyDeviceToHost, stream);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(stream);
+  if (err != cudaSuccess) return err;
+  for (int r = 0; r < n; ++r) {
+    const int j = r % W, t = dep[r];
+    if (t < 0 || t > j || (j == 0 && t != 0) || (j > 0 && t < dep[r - 1]))
+      return cudaErrorInvalidValue;
+    for (int i = 0; i < t; ++i)
+      if (anc[r * W + i] < 0 || anc[r * W + i] >= j)
+        return cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
 // The C interface: ``args`` points at one Args describing the call (every
 // pointer a contiguous CUDA buffer), dtype 0 fp32 / 1 bf16 for x, weights
 // and norms, int8_cache 0 for a cache in x's dtype, 1 for the int8 form.
-// Returns the launch's cudaError_t (0 = launched).
+// Returns the launch's cudaError_t (0 = launched; cudaErrorInvalidValue
+// for arguments out of the kernel's limits or a tree it does not take).
 extern "C" int decode_step_launch(const void* args, int dtype,
                                   int int8_cache, void* stream) {
   const Args* a = static_cast<const Args*>(args);
@@ -1116,6 +1158,8 @@ extern "C" int decode_step_launch(const void* args, int dtype,
       || (a->paged && a->width != (1 << a->shift)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tree_err = check_tree(a, s);
+  if (tree_err) return tree_err;
   if (dtype == kFloat32)
     return int8_cache ? launch<float, int8_t>(a, s) : launch<float, float>(a, s);
   if (dtype == kBFloat16)

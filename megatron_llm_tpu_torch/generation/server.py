@@ -5,13 +5,16 @@
 knobs) with the same validation and error strings, submits the prompts to
 the continuous-batching engine and returns ``{"text", "segments",
 "logprobs", "request_ids"}``.  ``GET /metrics`` returns the engine's JSON
-metrics snapshot.  Built on the stdlib ``ThreadingHTTPServer``.
+metrics snapshot, ``GET /trace`` its span ring as Chrome trace-event
+JSON, ``GET /kv`` the paged pool.  Built on the stdlib
+``ThreadingHTTPServer``.  ``draft_cfg``/``draft_params`` give the engine
+a resident draft model (tree speculation with ``spec_draft_len > 0``).
 
 Not in this slice, answered with an explicit error naming the ROADMAP
 item: beam search (``beam_width``), scoring (``tokens_to_generate=0``),
 prompt-lookup speculation (``speculative="pld"``), the Prometheus
-exposition, traces, and the multi-replica / sharded / disaggregated
-front-ends.
+exposition, the multi-replica / sharded / disaggregated front-ends, and
+every engine option the engine refuses (501 with its message).
 """
 
 from __future__ import annotations
@@ -52,8 +55,11 @@ class GenerationService:
                  prefix_cache_blocks: int | None = None,
                  kv_block_size: int | None = None,
                  kv_pool_blocks: int | None = None,
+                 host_kv_blocks: int = 0,
                  spec_draft_len: int = 0,
                  spec_ngram: int = 3,
+                 draft_cfg: ModelConfig | None = None,
+                 draft_params=None,
                  default_priority: int = 0,
                  trace: bool = True,
                  tensor_parallel: int = 1,
@@ -86,8 +92,11 @@ class GenerationService:
         self.prefix_cache_blocks = prefix_cache_blocks
         self.kv_block_size = kv_block_size
         self.kv_pool_blocks = kv_pool_blocks
+        self.host_kv_blocks = host_kv_blocks
         self.spec_draft_len = spec_draft_len
         self.spec_ngram = spec_ngram
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
         self.default_priority = default_priority
         self.trace_enabled = trace
         self.device = device
@@ -109,6 +118,8 @@ class GenerationService:
                     extra["kv_block_size"] = self.kv_block_size
                 if self.kv_pool_blocks is not None:
                     extra["kv_pool_blocks"] = self.kv_pool_blocks
+                if self.host_kv_blocks:
+                    extra["host_kv_blocks"] = self.host_kv_blocks
                 engine_config = EngineConfig(
                     max_batch_size=self.max_batch_size,
                     max_seq_len=self.engine_max_seq_len,
@@ -122,9 +133,10 @@ class GenerationService:
                     spec_ngram=self.spec_ngram,
                     trace=self.trace_enabled,
                     **extra)
-                self._engine = ServingEngine(self.cfg, self.params,
-                                             engine_config,
-                                             device=self.device)
+                self._engine = ServingEngine(
+                    self.cfg, self.params, engine_config,
+                    draft_cfg=self.draft_cfg,
+                    draft_params=self.draft_params, device=self.device)
             return self._engine
 
     def metrics_snapshot(self) -> dict:
@@ -137,6 +149,16 @@ class GenerationService:
 
             return ServingMetrics(self.max_batch_size).snapshot()
         return engine.metrics.snapshot()
+
+    def trace_snapshot(self) -> dict:
+        """Chrome trace-event JSON of the engine's span ring (GET /trace);
+        an engine that was never created reports an empty trace."""
+        with self._engine_init_lock:
+            engine = self._engine
+        if engine is None:
+            return {"traceEvents": [], "displayTimeUnit": "ms",
+                    "otherData": {"dropped_events": 0}}
+        return engine.trace.chrome_trace()
 
     def kv_snapshot(self) -> dict:
         with self._engine_init_lock:
@@ -295,6 +317,10 @@ class GenerationService:
                          "retry_after": int(math.ceil(e.retry_after_s))}
         except ValueError as e:
             return 400, str(e)
+        except NotImplementedError as e:
+            # an engine option this slice does not port: the refusal's
+            # message names its ROADMAP item
+            return 501, str(e)
         try:
             results = [h.result() for h in handles]
         except RuntimeError as e:
@@ -361,6 +387,10 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if route == "/kv":
             self._respond(200, self.service.kv_snapshot())
+            return
+        if route == "/trace":
+            # load in chrome://tracing or Perfetto (obs/trace.py)
+            self._respond(200, self.service.trace_snapshot())
             return
         self._respond(404, "not found")
 

@@ -9,7 +9,7 @@
   ``rmsnorm_triton.py``).
 - ``decode_step.py``: the whole decoder stack for one new token per row in
   one cooperative launch, over a dense cache, the paged pool, and a
-  speculative verify window (``csrc/decode_step.cu``).
+  speculative verify window, linear or a tree (``csrc/decode_step.cu``).
 - ``build.py``: ``nvcc`` into ``build/kernels/`` and ``ctypes`` loading.
 
 Each wrapper counts its launches in a ``launches`` attribute.
@@ -23,6 +23,7 @@ def launch_counters() -> dict:
         fused_decode_step,
         fused_decode_step_paged,
         fused_decode_verify_paged,
+        fused_decode_verify_tree_paged,
     )
     from .flash_attention import (
         flash_attention_bwd_dkv,
@@ -55,4 +56,6 @@ def launch_counters() -> dict:
             "layernorm_bwd": layernorm_bwd,
             "fused_decode_step": fused_decode_step,
             "fused_decode_step_paged": fused_decode_step_paged,
-            "fused_decode_verify_paged": fused_decode_verify_paged}
+            "fused_decode_verify_paged": fused_decode_verify_paged,
+            "fused_decode_verify_tree_paged":
+                fused_decode_verify_tree_paged}

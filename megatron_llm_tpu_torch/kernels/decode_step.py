@@ -9,9 +9,13 @@ Replaces the TPU kernels of ``megatron_llm_tpu/kernels/decode_step.py``:
   kv, block, d]`` through per-slot tables ``[b, T]``;
 - ``fused_decode_verify_paged`` (K14, the same kernel at window W): a
   W-wide speculative window per slot, each position bitwise what W
-  sequential K13 steps (with the host's pool writes between them) give.
+  sequential K13 steps (with the host's pool writes between them) give;
+- ``fused_decode_verify_tree_paged`` (K14's tree mode, the same call with
+  ``depths``/``anc``): the window columns are the nodes of a candidate
+  tree, each node bitwise what sequential K13 steps down its root path
+  give (``fused_decode_verify_paged(depths=, anc=)`` routes here).
 
-All three run ``csrc/decode_step.cu`` on a CUDA tensor (one cooperative
+All of them run ``csrc/decode_step.cu`` on a CUDA tensor (one cooperative
 launch per call; what bounds it and how it is laid out is written at the
 top of the source) and the plain PyTorch version of this module on a CPU
 tensor.  Every layer: RMSNorm, the q/k/v GEMVs (an int8 weight's column
@@ -28,10 +32,10 @@ the rows are the new K/V in the cache's dtype, or for an int8 cache fp32
 values already ``fake_quantize_rows``-ed, which the caller's
 ``quantize_rows`` maps to the very codes the kernel attended.
 
-Not ported here (each raises ``NotImplementedError`` naming its ROADMAP
-item): the LoRA epilogue (``lora=``), K14's tree mode (``depths``/``anc``)
-and the TPU kernel's ``DECODE_STEP_PHASES`` debug switch, which is not
-ported at all (its outputs are garbage by design).
+Not ported here: the LoRA epilogue (``lora=`` raises
+``NotImplementedError`` naming its ROADMAP item) and the TPU kernel's
+``DECODE_STEP_PHASES`` debug switch, which is not ported at all (its
+outputs are garbage by design).
 """
 
 from __future__ import annotations
@@ -264,12 +268,10 @@ def fused_paged_decode_eligible(cfg, params, k_pool, n_slots: int,
 
 def fused_paged_verify_eligible(cfg, params, k_pool, n_slots: int,
                                 window: int, table_blocks: int,
-                                tree: bool = False,
                                 lora_sr: int = 0) -> bool:
-    """The speculative verify route (K14, linear window): K13's checks
-    over ``n_slots * window`` rows, a window up to 8.  Tree windows (the
-    resident draft model's) are not ported: they keep the composed arm."""
-    if tree or lora_sr or window < 1 or window > KERNEL_MAX_WINDOW:
+    """The speculative verify route (K14, a linear window or a tree):
+    K13's checks over ``n_slots * window`` rows, a window up to 8."""
+    if lora_sr or window < 1 or window > KERNEL_MAX_WINDOW:
         return False
     return _pool_fits(cfg, params, k_pool, n_slots * window, table_blocks)
 
@@ -466,6 +468,69 @@ def fused_decode_verify_paged_plain(cfg, stacked, x, k_pool, v_pool, tables,
     return torch.stack(hs, dim=1), rows(ks), rows(vs)
 
 
+def check_tree(depths: torch.Tensor, anc: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless ``depths`` ``[S, W]`` / ``anc`` ``[S, W,
+    W]`` is a tree the kernel takes (what ``decode_step_launch`` checks on
+    the card): node 0 of each slot the root at depth 0, depths never
+    falling with the node index and at most the index, and each node's
+    ancestor at a depth below its own an earlier node."""
+    dep = depths.to(torch.long).cpu()
+    a = anc.to(torch.long).cpu()
+    S, W = dep.shape
+    if tuple(a.shape) != (S, W, W):
+        raise ValueError(f"anc {tuple(a.shape)} does not match depths "
+                         f"{tuple(dep.shape)}")
+    j = torch.arange(W)
+    below = j[None, None, :] < dep[:, :, None]        # [S, W, W]: dd < depth
+    if ((dep[:, 0] != 0).any() or (dep < 0).any() or (dep > j).any()
+            or (dep[:, 1:] < dep[:, :-1]).any()
+            or (below & ((a < 0) | (a >= j[None, :, None]))).any()):
+        raise ValueError("depths/anc is not a tree in breadth-first order "
+                         "(root first at depth 0, depths non-decreasing, "
+                         "ancestors before their nodes)")
+
+
+def fused_decode_verify_tree_paged_plain(cfg, stacked, x, k_pool, v_pool,
+                                         tables, fills, rope, depths, anc):
+    """K14's tree mode: node j of slot s runs at ``fills[s] + depths[s,
+    j]``, attends the slot's columns ``[0, fill)`` and, at column ``fill +
+    dd``, the row of its ancestor ``anc[s, j, dd]`` as a pool round trip
+    returns it, then its own row.  Nodes go one after the other over one
+    gathered view, each overlaying its root path first, so a chain tree
+    (``depths[j] = j``, ``anc[j, dd] = dd``) is the linear window's
+    computation.  → K14's outputs, rows in ``s*W + j`` (node) order."""
+    S, W, _ = x.shape
+    check_tree(depths, anc)
+    tables = torch.as_tensor(tables, device=x.device)
+    fills = _fills(fills, S, x.device)
+    depths = depths.to(device=x.device, dtype=torch.long)
+    anc = anc.to(device=x.device, dtype=torch.long)
+    ar = torch.arange(S, device=x.device)
+    kd, vd = _gather(k_pool, tables, W), _gather(v_pool, tables, W)
+    hs, ks, vs = [], [], []
+    for j in range(W):
+        dj = depths[:, j]
+        if j:
+            kst, vst = torch.stack(ks, 2), torch.stack(vs, 2)
+        for dd in range(j):
+            # ancestors below each slot's depth; a slot past its depth
+            # writes a column its node never reads (index 0 keeps it valid)
+            src = torch.where(dd < dj, anc[:, j, dd], 0)
+            _write_rows(kd, kst[:, ar, src], fills + dd)
+            _write_rows(vd, vst[:, ar, src], fills + dd)
+        hj, kr, vr = _plain_stack(cfg, stacked, x[:, j], kd, vd, fills + dj,
+                                  rope)
+        hs.append(hj)
+        ks.append(kr)
+        vs.append(vr)
+
+    def rows(parts):
+        r = torch.stack(parts, dim=2)                # [L, S, W, kv, 1, d]
+        return r.reshape((r.shape[0], S * W) + tuple(r.shape[3:]))
+
+    return torch.stack(hs, dim=1), rows(ks), rows(vs)
+
+
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
@@ -479,7 +544,8 @@ class _Args(ctypes.Structure):
         ("x", _P), ("hidden", _P), ("c_rows", _P), ("s_rows", _P),
         ("nw1", _P), ("nw2", _P), ("w", _P * 7), ("ws", _P * 7),
         ("kc", _P), ("vc", _P), ("kcs", _P), ("vcs", _P),
-        ("tables", _P), ("fills", _P), ("k_rows", _P), ("v_rows", _P),
+        ("tables", _P), ("fills", _P), ("depths", _P), ("anc", _P),
+        ("k_rows", _P), ("v_rows", _P),
         ("res", _P), ("q", _P), ("kn", _P), ("vn", _P), ("ctx", _P),
         ("gate", _P), ("up", _P), ("bar", _P),
         ("L", _I), ("rows", _I), ("W", _I), ("h", _I), ("nq", _I),
@@ -502,10 +568,12 @@ def _ptr(t: Optional[torch.Tensor], name: str, what: str) -> Optional[int]:
     return t.data_ptr()
 
 
-def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope):
+def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope,
+            depths=None, anc=None):
     """One cooperative launch over ``x`` ``[rows, h]`` (rows = slots x
     W).  ``tables`` None reads a dense cache whose batch row is the row;
-    ``fills`` ``[S]`` are the slots' committed fills."""
+    ``fills`` ``[S]`` are the slots' committed fills; ``depths``/``anc``
+    make the window a tree (the kernel checks it, and refuses a bad one)."""
     rows, h = x.shape
     elig = _stack_form(cfg, {"layers": stacked})
     cq8 = is_quantized_cache(k)
@@ -539,8 +607,16 @@ def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope):
                          f"row, got {n_ent} for {rows}")
     S = rows // W
     fills = fills.to(torch.int32).reshape(-1).expand(S).contiguous()
-    pos = (fills[:, None].to(torch.long)
-           + torch.arange(W, device=x.device)[None, :]).reshape(-1)
+    if depths is not None:
+        depths = depths.to(device=x.device, dtype=torch.int32).contiguous()
+        anc = anc.to(device=x.device, dtype=torch.int32).contiguous()
+        if depths.shape != (S, W) or anc.shape != (S, W, W):
+            raise ValueError(f"{name}: depths {tuple(depths.shape)} / anc "
+                             f"{tuple(anc.shape)} for {S} slots of {W}")
+        off = depths.to(torch.long)
+    else:
+        off = torch.arange(W, device=x.device)[None, :]
+    pos = (fills[:, None].to(torch.long) + off).reshape(-1)
     c_rows, s_rows = rope_rows(rope, pos, d)
     nq, ffn = cfg.num_attention_heads, cfg.ffn_size
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -575,6 +651,8 @@ def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope):
         a.vcs = _ptr(v["scale"], name, "v scales")
     a.tables = tables.data_ptr() if paged else None
     a.fills = fills.data_ptr()
+    if depths is not None:
+        a.depths, a.anc = depths.data_ptr(), anc.data_ptr()
     a.k_rows, a.v_rows = k_rows.data_ptr(), v_rows.data_ptr()
     for key, t in scratch.items():
         setattr(a, key, t.data_ptr())
@@ -594,16 +672,11 @@ def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope):
     return hidden, k_rows[:, :, :, None, :], v_rows[:, :, :, None, :]
 
 
-def _refuse(lora, depths=None):
+def _refuse(lora):
     if lora is not None:
         raise NotImplementedError(
             "the fused decode kernels' LoRA epilogue is not ported yet "
             "(ROADMAP.md, Queue 1: serving engine, multi-tenant LoRA)")
-    if depths is not None:
-        raise NotImplementedError(
-            "K14's tree mode is not ported yet (ROADMAP.md, Queue 1: "
-            "serving engine, speculative decoding with a resident draft "
-            "model)")
 
 
 # ---------------------------------------------------------------------------
@@ -654,8 +727,13 @@ def fused_decode_verify_paged(cfg, stacked, x, k_pool, v_pool, tables,
     row (s, j) of ``x`` ``[S, W, h]`` is slot s's token at position
     ``fills[s] + j``; the rows come back in ``s*W + j`` order.  Each
     position is bitwise what W sequential ``fused_decode_step_paged``
-    calls with the host's pool writes between them give."""
-    _refuse(lora, depths if depths is not None else anc)
+    calls with the host's pool writes between them give.  With
+    ``depths``/``anc`` the window is a tree
+    (``fused_decode_verify_tree_paged``)."""
+    _refuse(lora)
+    if depths is not None or anc is not None:
+        return fused_decode_verify_tree_paged(
+            cfg, stacked, x, k_pool, v_pool, tables, fills, rope, depths, anc)
     if x.device.type == "cpu":
         return fused_decode_verify_paged_plain(cfg, stacked, x, k_pool,
                                                v_pool, tables, fills, rope)
@@ -668,7 +746,31 @@ def fused_decode_verify_paged(cfg, stacked, x, k_pool, v_pool, tables,
     return hidden.reshape(S, W, h), k_rows, v_rows
 
 
+def fused_decode_verify_tree_paged(cfg, stacked, x, k_pool, v_pool, tables,
+                                   fills, rope, depths, anc):
+    """K14's tree mode → K14's outputs.  Window column j of slot s is a
+    tree node at depth ``depths[s, j]`` ``[S, W]`` whose ancestor at depth
+    ``dd`` is node ``anc[s, j, dd]`` ``[S, W, W]`` (entries at or past the
+    node's depth are ignored); nodes are in breadth-first order (the root,
+    the slot's pending token, first).  Node j runs at ``fills[s] +
+    depths[s, j]`` and attends the slot's cache plus its root path, so
+    each node is bitwise what sequential ``fused_decode_step_paged`` calls
+    down that path give; the rows come back node-indexed and the caller
+    compacts the accepted path (``models/model.cache_move_rows``)."""
+    if x.device.type == "cpu":
+        return fused_decode_verify_tree_paged_plain(
+            cfg, stacked, x, k_pool, v_pool, tables, fills, rope, depths, anc)
+    S, W, h = x.shape
+    hidden, k_rows, v_rows = _launch(
+        "fused_decode_verify_tree_paged", cfg, stacked, x.reshape(S * W, h),
+        k_pool, v_pool, torch.as_tensor(tables, device=x.device),
+        _fills(fills, S, x.device), W, rope, depths=torch.as_tensor(depths),
+        anc=torch.as_tensor(anc))
+    fused_decode_verify_tree_paged.launches += 1
+    return hidden.reshape(S, W, h), k_rows, v_rows
+
+
 for _fn in (fused_decode_step, fused_decode_step_paged,
-            fused_decode_verify_paged):
+            fused_decode_verify_paged, fused_decode_verify_tree_paged):
     _fn.launches = 0
 del _fn

@@ -1,1 +1,1 @@
-from . import model, transformer  # noqa: F401
+from . import families, model, transformer  # noqa: F401

@@ -299,28 +299,43 @@ def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
       dense view (not padded: the caller keeps the window inside the
       tables).
 
-    ``tree`` (the resident draft model's candidate trees) is not ported
-    yet."""
-    if tree is not None:
-        raise NotImplementedError(
-            "tree verify is not ported yet (ROADMAP.md, Queue 1: serving "
-            "engine, speculative decoding with a resident draft model)")
+    ``tree = (depths [S, W], anc [S, W, W])`` makes the window a candidate
+    tree (the resident draft model's): column j is a node at depth
+    ``depths[s, j]`` whose ancestor at depth ``dd`` is node ``anc[s, j,
+    dd]``, in breadth-first order (the root, the pending token, first).
+    Node j runs at ``fills[s] + depths[s, j]`` and sees the slot's cache
+    plus its own root path, so each node's logits are those of sequential
+    steps down that path; its K/V row lands at ``(bids, offs)`` row ``s*W
+    + j`` (node-indexed), and the caller compacts the accepted path with
+    ``cache_move_rows``.  The fused arm is K14's tree mode; the composed
+    arm walks the nodes over one gathered view, overlaying each node's
+    ancestors' rows at ``fills + dd`` before its single-token step (JAX's
+    walk; every index stays inside the view, where XLA would clamp)."""
     cos, sin = _rope(cfg, params, rope)
     S, W = window.shape
     fills = torch.as_tensor(fills, device=window.device).to(torch.long)
     tables = torch.as_tensor(tables, device=window.device).to(torch.long)
     bids = torch.as_tensor(bids, device=window.device).reshape(S * W)
     offs = torch.as_tensor(offs, device=window.device).reshape(S * W)
+    depths = anc = None
+    if tree is not None:
+        depths = torch.as_tensor(tree[0], device=window.device).to(torch.long)
+        anc = torch.as_tensor(tree[1], device=window.device).to(torch.long)
     if use_fused:
-        pos = fills[:, None] + torch.arange(W, device=window.device)[None, :]
-        x = embed(cfg, params, window, pos)
+        off = (torch.arange(W, device=window.device)[None, :]
+               if depths is None else depths)
+        x = embed(cfg, params, window, fills[:, None] + off)
         hidden, k_rows, v_rows = fused_decode_verify_paged(
             cfg, params["layers"], x, k_pool, v_pool, tables, fills,
-            (cos, sin))
+            (cos, sin), depths=depths, anc=anc)
         _append_fused_rows(k_pool, v_pool, k_rows, v_rows, bids, offs)
         return _logits(cfg, params, hidden), k_pool, v_pool
     k_dense = cache_gather_blocks(k_pool, tables)
     v_dense = cache_gather_blocks(v_pool, tables)
+    if tree is not None:
+        return _verify_tree_composed(cfg, params, window, k_pool, v_pool,
+                                     k_dense, v_dense, fills, bids, offs,
+                                     depths, anc, (cos, sin))
     steps = []
     for j in range(W):
         lj, k_dense, v_dense = forward_cached(
@@ -329,6 +344,64 @@ def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
         steps.append(lj)
     cache_append_rows(k_pool, cache_rows_range(k_dense, fills, W), bids, offs)
     cache_append_rows(v_pool, cache_rows_range(v_dense, fills, W), bids, offs)
+    return torch.cat(steps, dim=1), k_pool, v_pool
+
+
+def _verify_tree_composed(cfg, params, window, k_pool, v_pool, k_dense,
+                          v_dense, fills, bids, offs, depths, anc, rope):
+    """The composed tree arm of ``forward_cached_paged_verify``: before
+    node j's single-token step at ``fills + depths[:, j]``, each slot's
+    ancestors' stored rows (kept node-indexed, in the cache's own leaves,
+    so int8 codes move verbatim) are overlaid at dense columns ``fills +
+    dd``; columns past the node's position are masked by the step, so a
+    sibling path's rows there are invisible."""
+    S, W = window.shape
+    ar = torch.arange(S, device=window.device)
+
+    def overlay(dense, nodes, j):
+        dj = depths[:, j]
+        for dd in range(j):
+            live = ar[dd < dj]
+            if live.numel() == 0:
+                continue
+            src = anc[live, j, dd]
+            cols = fills[live] + dd
+
+            def put(dn, nd):
+                # nd [L, S, kv, W(, d)] node rows → dense column per slot
+                dn[:, live, :, cols] = nd[:, live, :, src].to(dn.dtype)
+
+            _leafwise(put, dense, nodes)
+
+    def new_nodes(dense):
+        return _leafwise(lambda a: a.new_zeros(a.shape[:3] + (W,)
+                                               + a.shape[4:]), dense)
+
+    k_nodes, v_nodes = new_nodes(k_dense), new_nodes(v_dense)
+    steps = []
+    for j in range(W):
+        overlay(k_dense, k_nodes, j)
+        overlay(v_dense, v_nodes, j)
+        pj = fills + depths[:, j]
+        lj, k_dense, v_dense = forward_cached(
+            cfg, params, window[:, j:j + 1], k_dense, v_dense, pj, rope=rope)
+        steps.append(lj)
+
+        def keep(nd, dn):
+            nd[:, :, :, j:j + 1] = dn
+
+        _leafwise(keep, k_nodes, cache_rows_at(k_dense, pj))
+        _leafwise(keep, v_nodes, cache_rows_at(v_dense, pj))
+
+    def node_rows(nodes):
+        def f(a):
+            tail = tuple(a.shape[4:])
+            r = a.movedim(3, 2)                      # [L, S, W, kv(, d)]
+            return r.reshape((a.shape[0], S * W, a.shape[2], 1) + tail)
+        return _leafwise(f, nodes)
+
+    cache_append_rows(k_pool, node_rows(k_nodes), bids, offs)
+    cache_append_rows(v_pool, node_rows(v_nodes), bids, offs)
     return torch.cat(steps, dim=1), k_pool, v_pool
 
 
@@ -415,6 +488,31 @@ def cache_append_rows(pool, rows, bids, offs):
         p[:, bids, :, offs] = r[:, :, :, 0].transpose(0, 1).to(p.dtype)
 
     _leafwise(ap, pool, rows)
+    return pool
+
+
+def cache_move_rows(pool, src_bids, src_offs, dst_bids, dst_offs):
+    """Copy pool rows ``(src_bids[i], src_offs[i])`` to ``(dst_bids[i],
+    dst_offs[i])``, in place, every leaf (int8 codes and scales move
+    verbatim).  Every source row is read before any destination row is
+    written, so moves whose sources and destinations overlap (a tree
+    verify's accepted path packed down to its depth positions) act at
+    once; the index assignment alone does not promise an order over
+    overlapping rows.  No-op entries point both sides at the trash block.
+    Returns the pool."""
+    device = _leaf(pool).device
+
+    def idx(t):
+        return torch.as_tensor(t, device=device).to(torch.long)
+
+    sb, so, db, do = idx(src_bids), idx(src_offs), idx(dst_bids), \
+        idx(dst_offs)
+
+    def mv(p):
+        rows = p[:, sb, :, so]       # a gathered copy [M, L, kv(, d)]
+        p[:, db, :, do] = rows
+
+    _leafwise(mv, pool)
     return pool
 
 

@@ -66,10 +66,14 @@ def make_causal_mask(seq_q: int, seq_k: int, dtype=torch.float32,
 
 def _decode_keep_mask(cache_len, s: int, max_len: int, device):
     """[b or 1, s, max_len] keep-mask: column j is visible to new token i
-    when j <= cache_len + i (cache_len scalar or [b])."""
-    cl = torch.as_tensor(cache_len, device=device).to(torch.long)
+    when j <= cache_len + i (cache_len an int, a 0-d or a [b] tensor).  An
+    int stays on the host: a tensor made from it would be a copy from
+    pageable memory, which waits for the stream at every layer."""
     i = torch.arange(s, device=device)
     j = torch.arange(max_len, device=device)
+    if isinstance(cache_len, int):
+        return (j[None, :] <= (i[:, None] + cache_len))[None]
+    cl = torch.as_tensor(cache_len, device=device).to(torch.long)
     if cl.ndim == 0:
         return (j[None, :] <= (cl + i[:, None]))[None]
     return j[None, None, :] <= (cl[:, None, None] + i[None, :, None])

@@ -8,20 +8,33 @@ permanently allocated trash block that unused table entries point at;
 decode attention masks everything past a row's fill, so trash contents
 never reach an output.  Reservations make admission sound: a request
 reserves its worst-case block count up front and per-step allocation
-draws from it, so a decode step never runs out of blocks.
+draws from it, so a decode step never runs out of blocks.  Blocks are
+ref-counted: the prefix cache holds a ref on every block it caches and a
+slot's table one per entry, and ``ensure_writable`` copies a shared block
+before a slot appends into it (copy-on-write, counted in
+``cow_copies_total``).
 
-Not in this slice: copy-on-write of shared blocks (it comes with the
-prefix cache), block export/import for shipping and the host-RAM tier
-(``HostKVTier``).
+Not in this slice: block export/import for shipping and the host-RAM
+tier (``HostKVTier``).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 from ..models import model as model_lib
+
+
+def copy_block(pool, src: int, dst: int) -> None:
+    """Copy block ``src`` of every leaf onto block ``dst`` in place (the
+    int8 ``{"q", "scale"}`` form leaf by leaf; JAX ``_copy_block_plain``)."""
+    leaves = pool.values() if isinstance(pool, dict) else (pool,)
+    for a in leaves:
+        idx = torch.tensor([dst], device=a.device)
+        a.index_copy_(1, idx, a[:, src:src + 1])
 
 
 class BlockPool:
@@ -30,7 +43,8 @@ class BlockPool:
 
     TRASH = 0
 
-    def __init__(self, cfg, n_blocks: int, block_size: int, device=None):
+    def __init__(self, cfg, n_blocks: int, block_size: int, device=None,
+                 on_cow: Optional[Callable[[], None]] = None):
         if n_blocks < 2:
             raise ValueError("BlockPool needs at least 2 blocks "
                              "(one is the reserved trash block)")
@@ -43,6 +57,8 @@ class BlockPool:
         self._ref[self.TRASH] = 1  # permanently pinned
         self._free: List[int] = list(range(n_blocks - 1, 0, -1))
         self._reserved = 0
+        self._on_cow = on_cow
+        self.cow_copies = 0
 
     # -- capacity / reservations ------------------------------------------
     @property
@@ -102,6 +118,27 @@ class BlockPool:
         self._ref[bid] -= 1
         if self._ref[bid] == 0:
             self._free.append(bid)
+
+    def ref(self, bid: int) -> int:
+        return int(self._ref[bid])
+
+    # -- copy-on-write -------------------------------------------------------
+    def ensure_writable(self, bid: int) -> int:
+        """A block id safe to append rows into: ``bid`` itself when this
+        caller owns it alone; else (shared, or the trash block) a fresh
+        block from the caller's reservation, holding a device copy of
+        ``bid``'s rows, with the caller's ref on ``bid`` dropped."""
+        if bid != self.TRASH and self._ref[bid] == 1:
+            return bid
+        new = self.alloc_reserved()
+        if bid != self.TRASH:
+            copy_block(self.k_pool, bid, new)
+            copy_block(self.v_pool, bid, new)
+            self.decref(bid)
+            self.cow_copies += 1
+            if self._on_cow is not None:
+                self._on_cow()
+        return new
 
     # -- introspection -------------------------------------------------------
     def stats(self) -> dict:

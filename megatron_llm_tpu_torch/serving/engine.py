@@ -8,7 +8,13 @@ iteration:
    can reserve the request's worst-case block count, prefill the prompt
    (padded up to a multiple of ``prefill_bucket``) into a batch-1 dense
    cache with one ``forward_cached(empty_cache=True)`` and publish it into
-   freshly allocated pool blocks;
+   freshly allocated pool blocks.  With the prefix cache (the default
+   ``prefix_cache_blocks=256``) the longest cached block-aligned prefix of
+   the prompt enters the slot's table by ref bump and only the suffix is
+   prefilled, over a gathered view of the shared blocks, at the match's
+   offset; every prompt's last piece starts at its last whole block
+   (``_prefill_cached``), so a repeated prompt commits the cold run's
+   tokens bit for bit; a retiring slot offers its prompt's blocks back;
 2. **one batched decode step** over every slot (free slots ride along
    against the trash block): ``forward_cached_paged`` with per-slot fills,
    then per-slot greedy / temperature / top-k / top-p sampling whose
@@ -41,19 +47,28 @@ inside the fused kernel.  Every decode step is counted in
 ``metrics.step_routes`` under ``precision_route(params)`` as fused or
 fallback.
 
-Speculative decoding with the host n-gram drafter
-(``EngineConfig.spec_draft_len > 0``): when some greedy slot's context
-repeats its trailing n-gram, the pipeline is flushed and one verify step
-feeds every slot's ``[pending, draft...]`` window (K14 on the fused route,
-W sequential composed steps otherwise), accepts the longest draft prefix
-that greedy decoding would have produced, and commits it plus one token.
-Greedy outputs are the same tokens as without speculation.
+Speculative decoding (``EngineConfig.spec_draft_len > 0``) with the host
+n-gram drafter: when some greedy slot's context repeats its trailing
+n-gram, the pipeline is flushed and one verify step feeds every slot's
+``[pending, draft...]`` window (K14 on the fused route, W sequential
+composed steps otherwise), accepts the longest draft prefix that greedy
+decoding would have produced, and commits it plus one token.  With a
+resident draft model (``draft_cfg``/``draft_params``) the draft model
+instead proposes a candidate tree per greedy slot: its forwards run over
+a shadow pool addressed through the target's block tables, the target
+scores every node in one tree verify (K14's tree mode), and the longest
+root path the target's argmax agrees with commits, its rows packed to
+depth positions with ``cache_move_rows``.  Greedy outputs are the same
+tokens as without speculation.
+
+Span tracing (``trace=True``, the default) records the JAX engine's
+spans into ``self.trace`` (``obs/trace.py``, GET /trace) and names the
+device phases with NVTX ranges on the card.
 
 Not in this slice, and refused at construction with ``NotImplementedError``
-naming the ROADMAP item: chunked prefill, the prefix cache, the resident
-draft model (its tree verify), LoRA adapters, the host KV tier,
-disaggregated roles, span tracing, sanitizers, meshes and int8 training
-matmuls (``quantize_matmuls``).
+naming the ROADMAP item: chunked prefill, LoRA adapters, the host KV tier,
+disaggregated roles, sanitizers, meshes and int8 training matmuls
+(``quantize_matmuls``).
 """
 
 from __future__ import annotations
@@ -74,9 +89,11 @@ from ..kernels.decode_step import (
     fused_paged_verify_eligible,
 )
 from ..models import model as model_lib
+from ..obs.trace import TraceRecorder, device_annotation
 from ..ops.quant import precision_route
 from .block_pool import BlockPool
 from .metrics import ServingMetrics
+from .prefix_cache import PrefixCache
 from .queue import QueueFull, RequestQueue  # noqa: F401  (re-exported)
 from .slots import SlotAllocator
 
@@ -113,31 +130,24 @@ class EngineConfig:
 
 
 def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh,
-                     draft_cfg, adapters) -> None:
+                     adapters) -> None:
     """Raise for every configuration this slice of the port does not run,
     rather than silently ignoring it."""
     todo = [
         (ec.prefill_chunk, "prefill_chunk (chunked prefill)",
          "Queue 1: serving engine, chunked prefill"),
-        (ec.prefix_cache_blocks > 0, "prefix_cache_blocks > 0 (set it to 0)",
-         "Queue 1: serving engine, prefix cache"),
-        (draft_cfg is not None, "a resident draft model (tree verify)",
-         "Queue 1: serving engine, speculative decoding with a resident "
-         "draft model"),
         (ec.adapter_cache_slots > 0 or adapters is not None, "LoRA adapters",
          "Queue 1: serving engine, multi-tenant LoRA"),
         (ec.host_kv_blocks > 0, "host_kv_blocks > 0 (tiered KV)",
          "Queue 1: serving engine, tiered KV"),
         (ec.role != "mixed", f"role={ec.role!r}",
          "Queue 1: multi-GPU serving, disaggregated prefill/decode"),
-        (ec.trace, "trace=True (span tracing; set trace=False)",
-         "Queue 1: serving engine, observability"),
         (ec.sanitize or os.environ.get("MEGATRON_SANITIZE") == "1",
          "sanitize=True", "Queue 1: serving engine, sanitizers"),
         (mesh is not None, "a device mesh", "Queue 1: multi-GPU serving"),
         (cfg.quantize_matmuls != "none",
          f"quantize_matmuls={cfg.quantize_matmuls!r} (W8A8 training matmuls)",
-         "Queue 1 item 13: int8 training matmul"),
+         "Queue 1 item 12: the rest, int8 training matmul"),
     ]
     for bad, what, item in todo:
         if bad:
@@ -327,9 +337,10 @@ def _ngram_draft_host(ctx: Sequence[int], ngram: int,
 
 def _verify_step(cfg: ModelConfig, params, pool, tables, window, fills,
                  bids, offs, seeds, counters, greedy, temps, top_ks, top_ps,
-                 *, rope, use_fused: bool):
+                 *, rope, use_fused: bool, tree=None):
     """One speculative verify step over every slot: score each slot's
-    ``[pending, draft...]`` window in one forward
+    ``[pending, draft...]`` window (or, with ``tree = (depths, anc)``, the
+    nodes of its candidate tree) in one forward
     (``forward_cached_paged_verify``).  Position 0 samples exactly as a
     plain decode step does (same ``_sample_slots``, same stream), so a
     slot riding with no draft takes an unchanged plain step; positions
@@ -338,7 +349,7 @@ def _verify_step(cfg: ModelConfig, params, pool, tables, window, fills,
     logprobs)`` on the device."""
     logits, _, _ = model_lib.forward_cached_paged_verify(
         cfg, params, window, pool.k_pool, pool.v_pool, tables, fills, bids,
-        offs, rope=rope, use_fused=use_fused)
+        offs, rope=rope, use_fused=use_fused, tree=tree)
     tok0, tok0_lp = _sample_slots(logits[:, 0], seeds, counters, greedy,
                                   temps, top_ks, top_ps, cfg.vocab_size)
     pad = torch.arange(logits.shape[-1], device=logits.device) \
@@ -350,6 +361,29 @@ def _verify_step(cfg: ModelConfig, params, pool, tables, window, fills,
     g_tok[:, 0] = tok0
     g_lp[:, 0] = tok0_lp
     return g_tok, g_lp
+
+
+# candidate branches the resident draft model surfaces per window position:
+# branch 0 extends the main chain, branch 1 is the depth-1 hedge leaf
+_DRAFT_TOPK = 2
+
+
+def _draft_step(cfg: ModelConfig, params, k_pool, v_pool, tables, window,
+                fills, bids, offs, *, rope, use_fused: bool) -> np.ndarray:
+    """One resident-draft forward over the draft's shadow pool: a linear
+    verify of each slot's window at its draft positions (K14 on the fused
+    route), returning the top-2 candidates per position over the unpadded
+    vocabulary, ``[S, W, 2]`` on the host.  Serves the absorb pass
+    (committed tokens landing at real blocks) and the chain expansions
+    (rows routed to the trash block).  Draft numbers never reach committed
+    tokens: they only choose what the target verifies."""
+    logits, _, _ = model_lib.forward_cached_paged_verify(
+        cfg, params, window, k_pool, v_pool, tables, fills, bids, offs,
+        rope=rope, use_fused=use_fused)
+    pad = torch.arange(logits.shape[-1], device=logits.device) \
+        >= cfg.vocab_size
+    masked = logits.masked_fill(pad, NEG_INF)
+    return torch.topk(masked, _DRAFT_TOPK, dim=-1).indices.cpu().numpy()
 
 
 class _SlotState:
@@ -364,10 +398,14 @@ class _SlotState:
         self.count = 1
         self.pending = pending
         self.fresh = True
+        # the PrefixLease pinning the request's cached prefix blocks
+        self.lease = None
         # acceptance EWMA scaling the slot's draft budget (1.0 at admission)
         # and the iterations it carried no draft (drives the re-probe)
         self.spec_ewma = 1.0
         self.spec_stall = 0
+        # rows of the slot's context in the resident draft's shadow pool
+        self.draft_fill = 0
 
 
 class _Inflight:
@@ -414,7 +452,11 @@ class ServingEngine:
     ``submit`` / ``submit_many`` are thread-safe and non-blocking (they
     raise ``QueueFull`` under backpressure); all device work happens on
     the scheduler thread.  ``device`` defaults to ``cuda``; pass ``"cpu"``
-    to run the plain versions of the kernels (the tests do)."""
+    to run the plain versions of the kernels (the tests do).
+
+    ``draft_cfg``/``draft_params``: a resident draft model sharing the
+    target's vocabulary (``models/families.draft_model``), engaged when
+    ``spec_draft_len > 0``; its params live on the engine's device."""
 
     def __init__(self, cfg: ModelConfig, params,
                  engine_config: Optional[EngineConfig] = None,
@@ -424,8 +466,16 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.config = engine_config or EngineConfig()
-        _refuse_unported(cfg, self.config, mesh=mesh,
-                         draft_cfg=draft_cfg, adapters=adapters)
+        _refuse_unported(cfg, self.config, mesh=mesh, adapters=adapters)
+        if draft_cfg is not None:
+            if draft_params is None:
+                raise ValueError("draft_cfg requires draft_params")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: draft tokens must be verifiable")
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
         if self.config.max_seq_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"max_seq_len {self.config.max_seq_len} exceeds the model's "
@@ -435,9 +485,12 @@ class ServingEngine:
         self._precision_route = precision_route(params)
         self.metrics = metrics or ServingMetrics(self.config.max_batch_size)
         self.metrics.set_gauges(num_slots=self.config.max_batch_size)
+        self.trace = TraceRecorder(capacity=self.config.trace_capacity,
+                                   enabled=self.config.trace)
         self.queue = RequestQueue(self.config.max_queue_size,
                                   self.config.retry_after_s)
         self.slots: Optional[SlotAllocator] = None  # allocated on start
+        self.prefix_cache: Optional[PrefixCache] = None  # built on start
         self._rope = None
         self._active: dict[int, _SlotState] = {}
         self._thread: Optional[threading.Thread] = None
@@ -454,9 +507,18 @@ class ServingEngine:
         self._last_dispatch_t: Optional[float] = None
         self._last_ready_t: Optional[float] = None
         # decode routes, resolved at start(): the fused whole-stack kernel
-        # for plain steps (K13) and for verify steps (K14)
+        # for plain steps (K13), for verify steps (K14, linear or tree) and
+        # for the draft model's forwards
         self._fused_decode = False
         self._fused_verify = False
+        self._fused_draft = False
+        # the resident draft: engaged with speculation on; its shadow pool
+        # (the target's block count and size, so the target's tables
+        # address both) and RoPE tables are built at start()
+        self._draft_enabled = (draft_cfg is not None
+                               and self.config.spec_draft_len > 0)
+        self._draft_kv = None
+        self._draft_rope = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -468,10 +530,17 @@ class ServingEngine:
                 bk = max(1, min(bk, ec.max_seq_len))
                 table_blocks = -(-ec.max_seq_len // bk)
                 n_blocks = int(ec.kv_pool_blocks) or (
-                    1 + ec.max_batch_size * table_blocks)
-                pool = BlockPool(self.cfg, n_blocks, bk, device=self.device)
+                    1 + ec.max_batch_size * table_blocks
+                    + ec.prefix_cache_blocks)
+                pool = BlockPool(
+                    self.cfg, n_blocks, bk, device=self.device,
+                    on_cow=lambda: self.metrics.inc("cow_copies_total"))
                 self.slots = SlotAllocator(self.cfg, ec.max_batch_size,
                                            ec.max_seq_len, pool)
+                if ec.prefix_cache_blocks:
+                    self.prefix_cache = PrefixCache(
+                        pool=pool, max_blocks=ec.prefix_cache_blocks,
+                        metrics=lambda: self.metrics)
                 self._rope = model_lib.rope_tables(self.cfg,
                                                    device=self.device)
                 self._fused_decode = fused_paged_decode_eligible(
@@ -482,6 +551,15 @@ class ServingEngine:
                         self.cfg, self.params, pool.k_pool,
                         ec.max_batch_size, ec.spec_draft_len + 1,
                         table_blocks)
+                if self._draft_enabled:
+                    self._draft_kv = model_lib.init_kv_pool(
+                        self.draft_cfg, n_blocks, bk, device=self.device)
+                    self._draft_rope = model_lib.rope_tables(
+                        self.draft_cfg, device=self.device)
+                    self._fused_draft = fused_paged_verify_eligible(
+                        self.draft_cfg, self.draft_params,
+                        self._draft_kv[0], ec.max_batch_size,
+                        ec.spec_draft_len + 1, table_blocks)
                 self._update_pool_gauges()
                 self._thread = threading.Thread(
                     target=self._loop, name="serving-engine", daemon=True)
@@ -698,8 +776,26 @@ class ServingEngine:
             return req
         req = self.queue.pop()
         if req is not None:
+            # the request's ``queued`` span: submit -> scheduler pop
+            self.trace.add("queued", req.submit_time, time.perf_counter(),
+                           request_id=req.rid, tid=req.id,
+                           args={"prompt_len": len(req.prompt)})
             self.metrics.set_gauges(queue_depth=len(self.queue))
         return req
+
+    def _try_reserve(self, need: int) -> bool:
+        """Reserve ``need`` pool blocks for an admission, squeezing the
+        prefix cache's unpinned blocks first when the pool is short."""
+        pool = self.slots.pool
+        if pool.reserve(need):
+            return True
+        if self.prefix_cache is None:
+            return False
+        short = need - (pool.free_blocks - pool.reserved_blocks)
+        if short > 0:
+            self.prefix_cache.evict_blocks(short)
+            self.metrics.set_gauges(prefix_blocks=self.prefix_cache.blocks)
+        return pool.reserve(need)
 
     def _admit(self) -> None:
         while self.slots.free_slots:
@@ -747,30 +843,110 @@ class ServingEngine:
             empty_cache=True, logit_rows=torch.tensor([plen - 1]))
         return logits[:, 0], None, k, v
 
+    def _prefill_piece(self, tokens: Sequence[int], k, v, off: int,
+                       draft: bool = False):
+        """Prefill ``tokens`` (bucket-padded) at positions ``off ..`` into
+        the batch-1 view ``k``/``v``, attending the rows before ``off``:
+        one ``forward_cached`` (``empty_cache`` at offset 0) of the target,
+        or with ``draft`` of the resident draft model.  → ``(logits [1, V]
+        of the last token, k, v)``."""
+        cfg, params, rope = ((self.draft_cfg, self.draft_params,
+                              self._draft_rope) if draft
+                             else (self.cfg, self.params, self._rope))
+        n = len(tokens)
+        bucket = max(1, self.config.prefill_bucket)
+        width = min(-(-n // bucket) * bucket, self.config.max_seq_len - off)
+        toks = np.zeros((1, width), np.int64)
+        toks[0, :n] = tokens
+        logits, k, v = model_lib.forward_cached(
+            cfg, params, self._tensor(toks), k, v, off, rope=rope,
+            empty_cache=off == 0, logit_rows=torch.tensor([n - 1]))
+        return logits[:, 0], k, v
+
+    def _split(self, plen: int) -> int:
+        """Where a prompt's last prefill piece starts with the prefix cache
+        on: its last whole block before the last token (the longest match
+        it allows), 0 with the cache off."""
+        if self.prefix_cache is None:
+            return 0
+        bk = self.slots.pool.block_size
+        return (plen - 1) // bk * bk
+
+    def _prefill_cached(self, req: _Request, lease):
+        """Admission prefill with the prefix cache on: the rows a hit
+        shares come from the lease's blocks, gathered into a batch-1 view
+        (trash past the match), and the rest of the prompt is prefilled in
+        at most two pieces split at the longest match the prompt allows
+        (``split``, its last whole block before the last token): ``[done,
+        split)`` and ``[split, plen)``.  So the last piece of a cold run,
+        and of any hit, attends the same rows the same way, and a repeat
+        of a prompt (whose match is ``split``) commits the cold run's
+        tokens bit for bit, in bf16 too; a single cold pass would give
+        the repeat other roundings.  A hit's suffix attends the shared
+        rows through the masked dense path (JAX's ``_prefill_chunk_impl``
+        with ``first=False``).  → ``(last_logits [1, V], k, v)``."""
+        split = self._split(len(req.prompt))
+        done = lease.tokens if lease is not None else 0
+        if lease is not None:
+            table = np.zeros((1, self.slots.table_blocks), np.int64)
+            table[0, :len(lease.bids)] = lease.bids
+            table = self._tensor(table)
+            pool = self.slots.pool
+            k = model_lib.cache_gather_blocks(pool.k_pool, table)
+            v = model_lib.cache_gather_blocks(pool.v_pool, table)
+        else:
+            k, v = model_lib.init_kv_cache(self.cfg, 1, self.slots.width,
+                                           device=self.device)
+        if done < split:
+            _, k, v = self._prefill_piece(req.prompt[done:split], k, v, done)
+        return self._prefill_piece(req.prompt[split:], k, v, split)
+
     def _prefill_into_slot(self, req: _Request) -> bool:
         """Whole-prompt admission.  False (request parked in ``_held``,
         nothing allocated) when the pool cannot reserve the request's
-        worst-case block count."""
+        worst-case block count.  Requests that want prompt logprobs take
+        the cold prefill (they need every prompt logit) and skip the
+        prefix cache."""
         slot = self.slots.alloc()
         plen = len(req.prompt)
         bucket = max(1, self.config.prefill_bucket)
         bk = self.slots.pool.block_size
-        need = -(-(plen + req.max_new_tokens) // bk)
-        if not self.slots.pool.reserve(need):
+        lease = None
+        if self.prefix_cache is not None and not req.return_logprobs:
+            t_pm = time.perf_counter()
+            lease = self.prefix_cache.match_and_acquire(req.prompt)
+            self.trace.add(
+                "prefix_match", t_pm, time.perf_counter(),
+                request_id=req.rid, tid=req.id,
+                args={"hit": lease is not None,
+                      "matched_tokens": lease.tokens if lease else 0})
+        n_shared = len(lease.bids) if lease is not None else 0
+        need = -(-(plen + req.max_new_tokens) // bk) - n_shared
+        if not self._try_reserve(need):
+            if self.prefix_cache is not None:
+                self.prefix_cache.release(lease)
             self.slots.release(slot)
             self._held = req
             return False
         self.slots.set_reservation(slot, need)
         t = self.metrics.timers("serving-prefill")
         t.start()
-        padded = min(-(-plen // bucket) * bucket, self.config.max_seq_len)
-        tokens = np.zeros((1, padded), np.int64)
-        tokens[0, :plen] = req.prompt
-        last_logits, picked, k_small, v_small = self._prefill(
-            tokens, plen, req.return_logprobs)
-        if req.return_logprobs:
-            req.logprobs.extend(picked[0, :plen - 1].cpu().tolist())
-        self.slots.insert(slot, k_small, v_small, plen)
+        t_pf = time.perf_counter()
+        with device_annotation("prefill", self.device):
+            if self.prefix_cache is not None and not req.return_logprobs:
+                last_logits, k_small, v_small = self._prefill_cached(
+                    req, lease)
+            else:
+                padded = min(-(-plen // bucket) * bucket,
+                             self.config.max_seq_len)
+                tokens = np.zeros((1, padded), np.int64)
+                tokens[0, :plen] = req.prompt
+                last_logits, picked, k_small, v_small = self._prefill(
+                    tokens, plen, req.return_logprobs)
+                if req.return_logprobs:
+                    req.logprobs.extend(picked[0, :plen - 1].cpu().tolist())
+        self.slots.insert(slot, k_small, v_small, plen,
+                          lease.bids if lease is not None else ())
         # first generated token: the decode step's per-request sampling rule
         tok, tok_lp = _sample_slots(
             last_logits, [req.seed], [0], [req.greedy], [req.temperature],
@@ -778,12 +954,48 @@ class ServingEngine:
         first = int(tok[0])
         first_lp = float(tok_lp[0])
         t.stop()
+        self.trace.add("prefill", t_pf, time.perf_counter(),
+                       request_id=req.rid, tid=req.id,
+                       args={"prompt_len": plen,
+                             "cached_tokens": lease.tokens if lease else 0})
         self.metrics.inc("admitted")
         self.metrics.inc("prefills")
         st = _SlotState(req, fill=plen, pending=first)
+        st.lease = lease
         self._active[slot] = st
+        if self._draft_enabled:
+            self._draft_prefill(slot, st)
         self._commit_token(slot, first, first_lp)
         return True
+
+    def _draft_prefill(self, slot: int, st: _SlotState) -> None:
+        """Absorb a slot's context into the draft's shadow pool with a
+        dense prefill in the pieces a cold target prefill takes (so a
+        self-draft's rows are the target's), published at the slot's
+        table; the pending token and later commits are absorbed by the
+        tree steps.  Blocks shared through the prefix cache get their
+        draft rows rewritten from the same tokens; after a target-side
+        copy-on-write the new block's older draft rows are stale.  Both
+        only move which tokens the target verifies, never what commits."""
+        ctx = st.req.prompt + st.req.generated
+        n = min(st.fill, len(ctx))
+        split = self._split(n)
+        with self.trace.span("draft_prefill", request_id=st.req.rid,
+                             tid=st.req.id, annotate=True,
+                             device=self.device, args={"tokens": n}):
+            k, v = model_lib.init_kv_cache(self.draft_cfg, 1,
+                                           self.slots.width,
+                                           device=self.device)
+            if split:
+                _, k, v = self._prefill_piece(ctx[:split], k, v, 0,
+                                              draft=True)
+            _, k, v = self._prefill_piece(ctx[split:n], k, v, split,
+                                          draft=True)
+            dk, dv = self._draft_kv
+            bids = self.slots.tables[slot].astype(np.int64)
+            model_lib.cache_scatter_blocks(dk, k, self._tensor(bids))
+            model_lib.cache_scatter_blocks(dv, v, self._tensor(bids))
+        st.draft_fill = n
 
     def _step(self) -> None:
         """One decode iteration: dispatch step N+1, then process step N's
@@ -797,10 +1009,16 @@ class ServingEngine:
         per slot."""
         if self.config.spec_draft_len > 0 and self._plan_spec():
             self._flush_inflight()
-            drafts = self._build_drafts()
-            if drafts:
-                self._spec_step(drafts)
-                return
+            if self._draft_enabled:
+                plans = self._plan_tree_budgets()
+                if plans:
+                    self._spec_step_tree(plans)
+                    return
+            else:
+                drafts = self._build_drafts()
+                if drafts:
+                    self._spec_step(drafts)
+                    return
         it0 = time.perf_counter()
         t = self.metrics.timers("serving-decode")
         t.start()
@@ -816,6 +1034,11 @@ class ServingEngine:
         host_s = max(0.0, (time.perf_counter() - it0) - wait_s)
         self.metrics.observe_step_breakdown(host_s=host_s)
         self.metrics.set_gauges(slots_active=self.slots.active_slots)
+        self.trace.add(
+            "engine_step", it0, time.perf_counter(), tid=0,
+            args={"batch": len(inflight.slots),
+                  "route": "fused" if self._fused_decode else "fallback",
+                  "pipelined": self.config.pipeline_decode})
 
     def _dispatch_decode(self) -> _Inflight:
         S = self.config.max_batch_size
@@ -864,14 +1087,16 @@ class ServingEngine:
         else:
             pending = self._inflight.tok  # pure device-to-device handoff
         pool = self.slots.pool
-        logits, _, _ = model_lib.forward_cached_paged(
-            self.cfg, self.params, pending[:, None], pool.k_pool,
-            pool.v_pool, self._tensor(self.slots.tables.astype(np.int64)),
-            self._tensor(fills), rope=self._rope,
-            use_fused=self._fused_decode)
-        tok, tok_lp = _sample_slots(logits[:, 0], seeds, counters, greedy,
-                                    temps, top_ks, top_ps,
-                                    self.cfg.vocab_size)
+        with device_annotation("decode", self.device):
+            logits, _, _ = model_lib.forward_cached_paged(
+                self.cfg, self.params, pending[:, None], pool.k_pool,
+                pool.v_pool,
+                self._tensor(self.slots.tables.astype(np.int64)),
+                self._tensor(fills), rope=self._rope,
+                use_fused=self._fused_decode)
+            tok, tok_lp = _sample_slots(logits[:, 0], seeds, counters,
+                                        greedy, temps, top_ks, top_ps,
+                                        self.cfg.vocab_size)
         snapshot = dict(self._active)
         for st in snapshot.values():
             st.fill += 1   # the fed token's K/V row lands this step
@@ -894,6 +1119,11 @@ class ServingEngine:
             committed += 1
             st.pending = int(tok[slot])
             st.fresh = self._inflight is None
+            if self.trace.enabled:
+                self.trace.add("decode", step.t_dispatch, t_ready,
+                               request_id=st.req.rid, tid=st.req.id,
+                               args={"slot": slot,
+                                     "token_index": len(st.req.generated)})
             self._commit_token(slot, st.pending, float(tok_lp[slot]))
         device_s = t_ready - step.t_dispatch
         self.metrics.observe_decode_iteration(committed, device_s)
@@ -942,9 +1172,10 @@ class ServingEngine:
             if not st.req.spec_force and self._spec_budget(st) < 1:
                 st.spec_stall += 1
                 continue
-            if st.req.spec_force or _ngram_draft_host(
-                    st.req.prompt + st.req.generated,
-                    self.config.spec_ngram, 1):
+            # a resident draft model always has something to propose
+            if self._draft_enabled or st.req.spec_force or \
+                    _ngram_draft_host(st.req.prompt + st.req.generated,
+                                      self.config.spec_ngram, 1):
                 want = True
             else:
                 st.spec_stall += 1
@@ -1023,14 +1254,17 @@ class ServingEngine:
                 self.metrics.observe_step_breakdown(gap_frac=gap / wall)
         self._last_dispatch_t = t0
         self.metrics.inc_step(self._fused_verify, self._precision_route)
-        g_tok, g_lp = _verify_step(
-            self.cfg, self.params, self.slots.pool,
-            self._tensor(self.slots.tables.astype(np.int64)),
-            self._tensor(window), self._tensor(fills), self._tensor(bids),
-            self._tensor(offs), seeds, counters, greedy, temps, top_ks,
-            top_ps, rope=self._rope, use_fused=self._fused_verify)
-        # synchronous by design: the next fills depend on the acceptances
-        g_tok, g_lp = g_tok.cpu().numpy(), g_lp.cpu().numpy()
+        with device_annotation("verify", self.device):
+            g_tok, g_lp = _verify_step(
+                self.cfg, self.params, self.slots.pool,
+                self._tensor(self.slots.tables.astype(np.int64)),
+                self._tensor(window), self._tensor(fills),
+                self._tensor(bids), self._tensor(offs), seeds, counters,
+                greedy, temps, top_ks, top_ps, rope=self._rope,
+                use_fused=self._fused_verify)
+            # synchronous by design: the next fills depend on the
+            # acceptances
+            g_tok, g_lp = g_tok.cpu().numpy(), g_lp.cpu().numpy()
         t_ready = time.perf_counter()
         self._last_ready_t = t_ready
         device_s = t_ready - t0
@@ -1063,6 +1297,12 @@ class ServingEngine:
             total_committed += committed_here
             if d:
                 per_slot_committed.append(committed_here)
+            if self.trace.enabled:
+                self.trace.add("decode", t0, t_ready,
+                               request_id=st.req.rid, tid=st.req.id,
+                               args={"slot": slot, "spec": True,
+                                     "proposed": len(d), "accepted": acc,
+                                     "committed": committed_here})
         t.stop()
         self.metrics.observe_spec_step(proposed, accepted_total,
                                        per_slot_committed, source="ngram",
@@ -1072,6 +1312,333 @@ class ServingEngine:
         host_s = max(0.0, (time.perf_counter() - it0) - device_s)
         self.metrics.observe_step_breakdown(host_s=host_s)
         self.metrics.set_gauges(slots_active=self.slots.active_slots)
+        self.trace.add(
+            "engine_step", it0, time.perf_counter(), tid=0,
+            args={"batch": len(drafts),
+                  "route": ("spec_fused" if self._fused_verify
+                            else "spec_fallback"),
+                  "pipelined": False, "proposed": proposed,
+                  "accepted": accepted_total})
+
+    # -- resident draft model: candidate trees ------------------------------
+
+    def _plan_tree_budgets(self) -> dict:
+        """slot -> draft-token budget (tree nodes less the root) for this
+        tree step, on fully committed contexts (the pipeline is flushed)."""
+        plans = {}
+        for slot, st in self._active.items():
+            if not st.req.greedy:
+                continue
+            rem = st.req.max_new_tokens - len(st.req.generated)
+            k_cap = min(self.config.spec_draft_len, self._spec_budget(st),
+                        rem - 1)
+            if k_cap < 1:
+                continue
+            plans[slot] = k_cap
+            st.spec_stall = 0
+        return plans
+
+    def _draft_forward(self, window, fills, bids, offs, tables):
+        """``_draft_step`` on the draft's stack and shadow pool."""
+        dk, dv = self._draft_kv
+        return _draft_step(self.draft_cfg, self.draft_params, dk, dv, tables,
+                           self._tensor(window), self._tensor(fills),
+                           self._tensor(bids), self._tensor(offs),
+                           rope=self._draft_rope,
+                           use_fused=self._fused_draft)
+
+    def _draft_absorb(self, plans: dict, tables) -> dict:
+        """Catch each planned slot's draft rows up to ``fill + 1`` (its
+        context and pending token) in W-token chunks, landing at their
+        real positions through the target's tables, and return slot ->
+        the draft's top-2 continuations of the pending token.  In steady
+        speculation a slot is ``acc + 1 <= W`` rows behind: one forward."""
+        S = self.config.max_batch_size
+        W = self.config.spec_draft_len + 1
+        bk = self.slots.pool.block_size
+        heads = {}
+        while True:
+            window = np.zeros((S, W), np.int64)
+            fills_d = np.zeros((S,), np.int64)
+            bids_d = np.zeros((S * W,), np.int64)   # default: trash
+            offs_d = np.zeros((S * W,), np.int64)
+            finishing = []
+            pending_work = False
+            for slot, st in self._active.items():
+                if slot not in plans:
+                    continue
+                seq = st.req.prompt + st.req.generated
+                lo = st.draft_fill
+                hi = min(st.fill + 1, lo + W)
+                fills_d[slot] = lo
+                if hi <= lo:
+                    continue
+                n = hi - lo
+                window[slot, :n] = seq[lo:hi]
+                for j in range(n):
+                    pos = lo + j
+                    bids_d[slot * W + j] = self.slots.tables[slot][pos // bk]
+                    offs_d[slot * W + j] = pos % bk
+                st.draft_fill = hi
+                if hi == st.fill + 1:
+                    finishing.append((slot, n))
+                else:
+                    pending_work = True
+            if not finishing and not pending_work:
+                break
+            with self.trace.span("draft_absorb", annotate=True,
+                                 device=self.device,
+                                 args={"slots": len(finishing)}):
+                cand = self._draft_forward(window, fills_d, bids_d, offs_d,
+                                           tables)
+            for slot, n in finishing:
+                heads[slot] = cand[slot, n - 1].tolist()
+        return heads
+
+    def _draft_expand(self, chains: dict, tables) -> None:
+        """Grow each planned slot's main chain to its budgeted length by
+        draft forwards over the chain so far at ``fill + 1``, every row to
+        the trash block: the in-window splice makes depth >= 2 exact with
+        no shadow-pool write, so a rejected chain leaves nothing behind.
+        The window is cut to the chain's length, which keeps every
+        position inside the slot's table.  ``chains``: slot -> (tokens,
+        target length), grown in place."""
+        S = self.config.max_batch_size
+        W = self.config.spec_draft_len + 1
+        for depth in range(1, W - 1):
+            window = np.zeros((S, depth), np.int64)
+            fills_d = np.zeros((S,), np.int64)
+            growing = []
+            for slot, (chain, want) in chains.items():
+                if len(chain) != depth or len(chain) >= want:
+                    continue
+                window[slot] = chain
+                fills_d[slot] = self._active[slot].fill + 1
+                growing.append(slot)
+            if not growing:
+                break
+            trash = np.zeros((S * depth,), np.int64)
+            with self.trace.span("draft_expand", annotate=True,
+                                 device=self.device,
+                                 args={"depth": depth,
+                                       "slots": len(growing)}):
+                cand = self._draft_forward(window, fills_d, trash, trash,
+                                           tables)
+            for slot in growing:
+                chains[slot][0].append(int(cand[slot, depth - 1, 0]))
+
+    def _spec_step_tree(self, plans: dict) -> None:
+        """One resident-draft tree-verify iteration (pipeline flushed).
+        Each planned slot spends its ``k_i``-token budget on a tree rooted
+        at its pending token: the draft's repeated top-1 chain and, when
+        ``k_i >= 3``, a depth-1 hedge leaf from its second choice.  The
+        target scores every node in one tree verify (K14's tree mode on
+        the fused route), and the longest root path whose tokens the
+        target's argmax confirms commits, plus the bonus token of its
+        deepest node: what plain greedy decoding would give.  Node rows
+        land node-indexed at ``fill + node``; rejected ones sit past the
+        new fill, and a path through the hedge is packed to depth
+        positions with ``cache_move_rows`` before any commit can retire
+        the slot.  Riders (sampled slots, collapsed budgets) take a
+        root-only tree: an unchanged plain step."""
+        it0 = time.perf_counter()
+        t = self.metrics.timers("serving-decode")
+        t.start()
+        S = self.config.max_batch_size
+        W = self.config.spec_draft_len + 1
+        bk = self.slots.pool.block_size
+        # the blocks of every node row (fill .. fill + k_i), and of the
+        # draft's pending-token row at fill, exist before the one tables
+        # snapshot both models read
+        for slot, st in self._active.items():
+            for j in range(plans.get(slot, 0) + 1):
+                self.slots.append_block_id(slot, st.fill + j)
+        tables = self._tensor(self.slots.tables.astype(np.int64))
+
+        heads = self._draft_absorb(plans, tables)
+        chains, hedges = {}, {}
+        for slot, k_i in plans.items():
+            top = heads[slot]
+            if k_i >= 3:
+                chains[slot] = ([top[0]], k_i - 1)
+                hedges[slot] = top[1]
+            else:
+                chains[slot] = ([top[0]], k_i)
+        self._draft_expand(chains, tables)
+
+        window = np.zeros((S, W), np.int64)
+        depths = np.zeros((S, W), np.int64)
+        anc = np.zeros((S, W, W), np.int64)
+        fills = np.zeros((S,), np.int64)
+        seeds = np.zeros((S,), np.int64)
+        counters = np.zeros((S,), np.int64)
+        greedy = np.ones((S,), bool)
+        temps = np.ones((S,), np.float32)
+        top_ks = np.zeros((S,), np.int64)
+        top_ps = np.zeros((S,), np.float32)
+        bids = np.zeros((S * W,), np.int64)   # default: the trash block
+        offs = np.zeros((S * W,), np.int64)
+        n_real = {}
+        for slot, st in self._active.items():
+            window[slot, 0] = st.pending
+            fills[slot] = st.fill
+            seeds[slot] = st.req.seed
+            counters[slot] = st.count
+            greedy[slot] = st.req.greedy
+            temps[slot] = st.req.temperature
+            top_ks[slot] = st.req.top_k
+            top_ps[slot] = st.req.top_p
+            st.fresh = False
+            # nodes in breadth-first order: depths non-decreasing, parents
+            # before children, the deepest node last
+            node_dep, parent, chain_nodes = [0], [0], [0]
+            hedge = hedges.get(slot)
+            chain = chains[slot][0] if slot in chains else []
+            for t_, tok in enumerate(chain):
+                node_dep.append(t_ + 1)
+                parent.append(chain_nodes[t_])
+                chain_nodes.append(len(node_dep) - 1)
+                window[slot, len(node_dep) - 1] = tok
+                if t_ == 0 and hedge is not None:
+                    node_dep.append(1)
+                    parent.append(0)
+                    window[slot, len(node_dep) - 1] = hedge
+            n = len(node_dep)
+            n_real[slot] = n
+            for j in range(1, n):
+                p = parent[j]
+                for dd in range(node_dep[j] - 1, -1, -1):
+                    anc[slot, j, dd] = p
+                    p = parent[p]
+            depths[slot, :n] = node_dep
+            # pad nodes: the deepest real depth and ancestors (a valid
+            # tree); their rows go to the trash block, their outputs unread
+            depths[slot, n:] = node_dep[-1]
+            anc[slot, n:, :] = anc[slot, n - 1, :]
+            for j in range(n):
+                pos = st.fill + j
+                bids[slot * W + j] = self.slots.tables[slot][pos // bk]
+                offs[slot * W + j] = pos % bk
+
+        t0 = time.perf_counter()
+        if self._last_dispatch_t is not None:
+            wall = t0 - self._last_dispatch_t
+            if wall > 0 and self._last_ready_t is not None:
+                gap = min(wall, t0 - self._last_ready_t)
+                self.metrics.observe_step_breakdown(gap_frac=gap / wall)
+        self._last_dispatch_t = t0
+        self.metrics.inc_step(self._fused_verify, self._precision_route)
+        with device_annotation("verify_tree", self.device):
+            g_tok, g_lp = _verify_step(
+                self.cfg, self.params, self.slots.pool, tables,
+                self._tensor(window), self._tensor(fills),
+                self._tensor(bids), self._tensor(offs), seeds, counters,
+                greedy, temps, top_ks, top_ps, rope=self._rope,
+                use_fused=self._fused_verify,
+                tree=(self._tensor(depths), self._tensor(anc)))
+            # synchronous by design: the accepted paths decide the next
+            # fills and whether rows move
+            g_tok, g_lp = g_tok.cpu().numpy(), g_lp.cpu().numpy()
+        t_ready = time.perf_counter()
+        self._last_ready_t = t_ready
+        device_s = t_ready - t0
+
+        # accept walk: the longest root path the target's argmax confirms
+        paths = {}
+        src_b = np.zeros((S * W,), np.int64)   # default trash -> trash
+        src_o = np.zeros((S * W,), np.int64)
+        dst_b = np.zeros((S * W,), np.int64)
+        dst_o = np.zeros((S * W,), np.int64)
+        any_moves = False
+        for slot, st in self._active.items():
+            cur, acc, path = 0, 0, [0]
+            while True:
+                tgt = int(g_tok[slot, cur])
+                nxt = -1
+                for c in range(1, n_real.get(slot, 1)):
+                    if (depths[slot, c] == acc + 1
+                            and anc[slot, c, acc] == cur
+                            and window[slot, c] == tgt):
+                        nxt = c
+                        break
+                if nxt < 0:
+                    break
+                cur = nxt
+                path.append(nxt)
+                acc += 1
+            paths[slot] = path
+            # pack the accepted path to depth positions: only a node whose
+            # index differs from its depth (past the hedge leaf) moves
+            for t_ in range(1, acc + 1):
+                p_t = path[t_]
+                if p_t == t_:
+                    continue
+                any_moves = True
+                src, dst = st.fill + p_t, st.fill + t_
+                src_b[slot * W + t_] = self.slots.tables[slot][src // bk]
+                src_o[slot * W + t_] = src % bk
+                dst_b[slot * W + t_] = self.slots.tables[slot][dst // bk]
+                dst_o[slot * W + t_] = dst % bk
+        if any_moves:
+            pool = self.slots.pool
+            moves = [self._tensor(a) for a in (src_b, src_o, dst_b, dst_o)]
+            with device_annotation("spec_compact", self.device):
+                model_lib.cache_move_rows(pool.k_pool, *moves)
+                model_lib.cache_move_rows(pool.v_pool, *moves)
+
+        total_committed = proposed = accepted_total = 0
+        per_slot_committed = []
+        slot_ewmas = {}
+        for slot, st in list(self._active.items()):
+            path = paths[slot]
+            acc = len(path) - 1
+            k_i = plans.get(slot, 0)
+            proposed += k_i
+            accepted_total += acc
+            if k_i:
+                chain_len = chains[slot][1]
+                st.spec_ewma = ((1.0 - _SPEC_EWMA_ALPHA) * st.spec_ewma
+                                + _SPEC_EWMA_ALPHA * acc / chain_len)
+                slot_ewmas[slot] = st.spec_ewma
+            # rows of the pending token and the accepted path landed (and
+            # were packed); the bonus token's row is the next step's write
+            st.fill += acc + 1
+            st.count += acc + 1
+            st.fresh = True
+            committed_here = 0
+            for t_ in range(acc + 1):
+                if self._active.get(slot) is not st:
+                    break  # EOS / budget retired the slot mid-path
+                st.pending = int(g_tok[slot, path[t_]])
+                committed_here += 1
+                self._commit_token(slot, st.pending,
+                                   float(g_lp[slot, path[t_]]))
+            total_committed += committed_here
+            if k_i:
+                per_slot_committed.append(committed_here)
+            if self.trace.enabled:
+                self.trace.add("decode", t0, t_ready,
+                               request_id=st.req.rid, tid=st.req.id,
+                               args={"slot": slot, "spec": True,
+                                     "tree": True, "proposed": k_i,
+                                     "accepted": acc,
+                                     "committed": committed_here})
+        t.stop()
+        self.metrics.observe_spec_step(proposed, accepted_total,
+                                       per_slot_committed, source="model",
+                                       slot_ewmas=slot_ewmas)
+        self.metrics.observe_decode_iteration(total_committed, device_s)
+        self.metrics.observe_step_breakdown(device_s=device_s)
+        host_s = max(0.0, (time.perf_counter() - it0) - device_s)
+        self.metrics.observe_step_breakdown(host_s=host_s)
+        self.metrics.set_gauges(slots_active=self.slots.active_slots)
+        self.trace.add(
+            "engine_step", it0, time.perf_counter(), tid=0,
+            args={"batch": len(plans),
+                  "route": ("spec_fused" if self._fused_verify
+                            else "spec_fallback"),
+                  "pipelined": False, "tree": True, "proposed": proposed,
+                  "accepted": accepted_total})
 
     def _commit_token(self, slot: int, token: int, logprob: float) -> None:
         """Append a sampled token, stream it, retire on EOS / budget."""
@@ -1096,6 +1663,15 @@ class ServingEngine:
 
     def _retire(self, slot: int, reason: str) -> None:
         st = self._active.pop(slot)
+        self.trace.instant("retire", request_id=st.req.rid, tid=st.req.id,
+                           args={"slot": slot, "reason": reason})
+        if self.prefix_cache is not None:
+            # donate the slot's block-aligned prompt prefix (a ref-count
+            # adoption of blocks the slot owns) before the slot lets go,
+            # then unpin the admission lease
+            self.prefix_cache.offer(st.req.prompt, self.slots.tables[slot])
+            self.prefix_cache.release(st.lease)
+            self.metrics.set_gauges(prefix_blocks=self.prefix_cache.blocks)
         self.slots.release(slot)
         self._finish(st.req, reason)
         self._update_pool_gauges()

@@ -2,8 +2,8 @@
 ``megatron_llm_tpu/serving/metrics.py`` that the engine and GET /metrics
 use).  Host-side and lock-guarded: the scheduler thread and HTTP threads
 write, tests and pollers read.  The Prometheus exposition, SLO tracker
-and the counters of features this slice does not port (prefix cache,
-adapters, shipping, tiered KV) come with those features.
+and the counters of features this slice does not port (adapters,
+shipping, tiered KV) come with those features.
 """
 
 from __future__ import annotations
@@ -81,9 +81,16 @@ _COUNTERS = (
     "rejected_queue_full", "rejected_invalid", "rejected_draining",
     "prefills", "decode_iterations", "decode_tokens",
     "fused_steps", "fallback_steps",
-    # speculative decoding: draft tokens the host n-gram drafter proposed,
-    # those the verify steps accepted, and verify steps run
+    # speculative decoding: draft tokens the drafter (host n-gram or the
+    # resident draft model) proposed, those the verify steps accepted, and
+    # verify steps run
     "spec_proposed", "spec_accepted", "spec_steps",
+    # automatic prefix caching (serving/prefix_cache.py): admissions that
+    # reused cached prefix K/V or prefilled cold, blocks LRU-evicted, and
+    # copy-on-write block copies (nonzero on a pure prefix-hit load means
+    # zero-copy sharing broke)
+    "prefix_hits", "prefix_misses", "prefix_evicted_blocks",
+    "cow_copies_total",
 )
 
 
@@ -100,6 +107,10 @@ class ServingMetrics:
         self.blocks_free = 0
         self.blocks_used = 0
         self.kv_cache_util = 0.0
+        # tokens a prefix-cache hit skipped (samples are token counts) and
+        # the blocks the cache holds
+        self.prefix_hit_tokens = LatencyHistogram()
+        self.prefix_blocks = 0
         self.ttft = LatencyHistogram()
         self.per_token = LatencyHistogram()
         self.e2e = LatencyHistogram()
@@ -142,14 +153,16 @@ class ServingMetrics:
                    blocks_free: Optional[int] = None,
                    blocks_used: Optional[int] = None,
                    kv_cache_util: Optional[float] = None,
-                   num_slots: Optional[int] = None) -> None:
+                   num_slots: Optional[int] = None,
+                   prefix_blocks: Optional[int] = None) -> None:
         with self._lock:
             for name, value in (("slots_active", slots_active),
                                 ("queue_depth", queue_depth),
                                 ("blocks_free", blocks_free),
                                 ("blocks_used", blocks_used),
                                 ("kv_cache_util", kv_cache_util),
-                                ("num_slots", num_slots)):
+                                ("num_slots", num_slots),
+                                ("prefix_blocks", prefix_blocks)):
                 if value is not None:
                     setattr(self, name, value)
 
@@ -196,6 +209,11 @@ class ServingMetrics:
             for n in committed:
                 self.accepted_per_step.observe(float(n))
 
+    def observe_prefix_hit_tokens(self, tokens: int) -> None:
+        """Tokens whose prefill one prefix-cache hit skipped."""
+        with self._lock:
+            self.prefix_hit_tokens.observe(float(tokens))
+
     def observe_ttft(self, seconds: float) -> None:
         with self._lock:
             self.ttft.observe(seconds)
@@ -224,6 +242,14 @@ class ServingMetrics:
                 "blocks_free": self.blocks_free,
                 "blocks_used": self.blocks_used,
                 "kv_cache_util": self.kv_cache_util,
+                # prefix cache (the histogram samples are token counts)
+                "prefix_hit_rate": (
+                    self.counters["prefix_hits"]
+                    / max(1, self.counters["prefix_hits"]
+                          + self.counters["prefix_misses"])),
+                "prefix_blocks": self.prefix_blocks,
+                "prefix_hit_tokens": self.prefix_hit_tokens.snapshot(
+                    suffix=""),
                 # decode-step routing by weight precision (inc_step)
                 "step_routes": {route: dict(r) for route, r
                                 in sorted(self.step_routes.items())},

@@ -2,19 +2,22 @@
 
     python3 -m megatron_llm_tpu_torch.serving.profile [--model M]
         [--layers N] [--kv_quant int8] [--weight_quant int8|int4|mixed]
-        [--fused_decode] [--spec_draft_len K]
+        [--fused_decode] [--spec_draft_len K [--draft tiny|self]]
 
 Serves Llama-2-7B (``--model llama2``) or Falcon-7B (``falcon``) widths
 (bf16, random weights from a seed, the flash and norm kernels, 4 slots,
-64-token KV blocks: the configurations ``chip_smoke.py`` serves; with
+64-token KV blocks, the engine's other defaults (prefix cache, span
+tracing): the configurations ``chip_smoke.py`` serves; with
 ``--kv_quant int8`` an int8 KV cache, with ``--weight_quant`` the weights
 quantized by that ``ops/quant.py`` preset) through ``ServingEngine`` and
 traces two windows with ``torch.profiler`` (CUDA activity only).  Decode
 takes the composed per-layer route unless ``--fused_decode`` asks for the
 whole-stack kernel (K13, one launch a step); ``--spec_draft_len K`` turns
-on n-gram speculation (verify steps of K + 1 tokens a slot, through K14
-when fused) and gives the decode prompts repeated spans so that the
-drafter proposes:
+on speculation (verify steps of K + 1 tokens a slot, through K14 when
+fused) with the n-gram drafter, or with ``--draft`` a resident draft
+model (``tiny``: the tiny preset, random; ``self``: the target itself)
+proposing trees (K14's tree mode).  The decode requests then carry
+``spec_force`` and repeated spans, so that every step drafts:
 
 1. **prefill**: the admission of one 1024-token prompt;
 2. **decode**: steady batched decode of 4 requests (prompts of 512-1024
@@ -47,6 +50,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..config import falcon_config, llama2_config
 from ..models import model as model_lib
+from ..models.families import draft_model
 from ..ops.quant import quantize_params
 from .engine import EngineConfig, ServingEngine
 
@@ -137,8 +141,12 @@ def main(argv=None) -> int:
     ap.add_argument("--fused_decode", action="store_true",
                     help="decode through the whole-stack kernel")
     ap.add_argument("--spec_draft_len", type=int, default=0,
-                    help="n-gram draft tokens a slot (0: no speculation)")
+                    help="draft tokens a slot (0: no speculation)")
+    ap.add_argument("--draft", default=None, choices=("tiny", "self"),
+                    help="a resident draft model (default: n-gram drafts)")
     args = ap.parse_args(argv)
+    if args.draft and not args.spec_draft_len:
+        ap.error("--draft needs --spec_draft_len > 0")
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 2
@@ -155,10 +163,17 @@ def main(argv=None) -> int:
     params = model_lib.init_params(cfg, seed=0, device=dev)
     if args.weight_quant:
         params = quantize_params(params, args.weight_quant)
+    draft = {}
+    if args.draft == "self":
+        draft = dict(draft_cfg=cfg, draft_params=params)
+    elif args.draft == "tiny":
+        dcfg = draft_model("tiny", cfg, params_dtype="bfloat16")
+        draft = dict(draft_cfg=dcfg, draft_params=model_lib.init_params(
+            dcfg, seed=1, device=dev))
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
-        kv_block_size=64, prefix_cache_blocks=0,
-        spec_draft_len=args.spec_draft_len, trace=False), device=dev)
+        kv_block_size=64, spec_draft_len=args.spec_draft_len), device=dev,
+        **draft)
     rng = np.random.default_rng(0)
 
     def prompt(n):
@@ -179,7 +194,8 @@ def main(argv=None) -> int:
 
         route = "fused" if args.fused_decode else "composed"
         tag = (f"{args.model}-{args.weight_quant or 'bf16'}-kv{args.kv_quant}"
-               f"-{route}-spec{args.spec_draft_len}")
+               f"-{route}-spec{args.spec_draft_len}"
+               f"{'-' + args.draft if args.draft else ''}")
         pre_path, pre_s, _ = _traced(f"prefill-{tag}", lambda: engine.submit(
             prompt(1024), 1, use_eos_stop=False).result(600))
         report = {"prefill_1024": device_summary(pre_path, pre_s, 1)}
@@ -188,7 +204,8 @@ def main(argv=None) -> int:
         snap0 = engine.metrics.snapshot()
         make = spec_prompt if args.spec_draft_len else prompt
         handles = engine.submit_many([dict(prompt=make(n), max_new_tokens=new,
-                                           use_eos_stop=False)
+                                           use_eos_stop=False,
+                                           spec_force=args.spec_draft_len > 0)
                                       for n in (512, 640, 768, 1024)])
         while True:  # all four admitted, decode under way
             snap = engine.metrics.snapshot()
@@ -224,7 +241,8 @@ def main(argv=None) -> int:
     print(f"card: {smi}; {args.model}-7b widths, {args.layers} layers, "
           f"bf16, weights {args.weight_quant or 'bf16'}, KV cache "
           f"{args.kv_quant}, {route} decode, spec_draft_len "
-          f"{args.spec_draft_len}; traces in {TRACE_DIR}")
+          f"{args.spec_draft_len}, draft {args.draft or 'n-gram'}; traces "
+          f"in {TRACE_DIR}")
     print(json.dumps(report, indent=1))
     return 0
 

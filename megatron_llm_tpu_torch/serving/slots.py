@@ -5,12 +5,14 @@ A slot is a row of the decode batch that owns an int32 block table of
 ``T = ceil(max_seq_len / block)`` entries; unused entries point at the
 trash block, so gathers and scatters always run at fixed arity.
 ``insert`` publishes an admission prefill's dense batch-1 cache into
-freshly allocated pool blocks in one scatter.
+freshly allocated pool blocks in one scatter; the blocks of a prefix-cache
+hit enter the table by ref bump, and the first append into a shared block
+copies it (``append_block_id``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -81,27 +83,37 @@ class SlotAllocator:
         return self.pool.v_pool
 
     # -- admission -----------------------------------------------------------
-    def insert(self, slot: int, k_small, v_small, n_tokens: int) -> None:
+    def insert(self, slot: int, k_small, v_small, n_tokens: int,
+               shared_bids: Sequence[int] = ()) -> None:
         """Publish a dense batch-1 cache ``[L, 1, kv, width, d]`` into the
-        slot's table: the blocks covering ``n_tokens`` are allocated from
-        the slot's reservation and written in one scatter."""
+        slot's table.  The first ``len(shared_bids)`` logical blocks come
+        from the prefix cache by ref bump, with zero copies; the rest of
+        the blocks covering ``n_tokens`` are allocated from the slot's
+        reservation and written in one scatter (the shared ones scatter
+        to the trash block, i.e. nowhere)."""
         pool = self.pool
         covered = -(-n_tokens // pool.block_size)
-        if covered > self.table_blocks:
+        n_shared = len(shared_bids)
+        if covered > self.table_blocks or n_shared > covered:
             raise ValueError("insert beyond the slot's table")
         table = np.full(self.table_blocks, BlockPool.TRASH, dtype=np.int32)
-        for i in range(covered):
-            table[i] = pool.alloc_reserved()
+        scatter = np.full(self.table_blocks, BlockPool.TRASH, dtype=np.int32)
+        for i, bid in enumerate(shared_bids):
+            pool.incref(int(bid))
+            table[i] = bid
+        for i in range(n_shared, covered):
+            table[i] = scatter[i] = pool.alloc_reserved()
             self.reserved[slot] -= 1
         self.tables[slot] = table
-        model_lib.cache_scatter_blocks(pool.k_pool, k_small, table)
-        model_lib.cache_scatter_blocks(pool.v_pool, v_small, table)
+        model_lib.cache_scatter_blocks(pool.k_pool, k_small, scatter)
+        model_lib.cache_scatter_blocks(pool.v_pool, v_small, scatter)
 
     # -- decode-time lazy growth -----------------------------------------------
     def append_block_id(self, slot: int, fill: int) -> int:
         """The block that will receive the row at position ``fill``,
-        allocated lazily from the slot's reservation.  (Every block has one
-        owner in this slice: sharing comes with the prefix cache.)"""
+        allocated lazily from the slot's reservation, or copied first when
+        it is shared (copy-on-write: a prefix-cache block the slot's
+        prompt ends in)."""
         pool = self.pool
         i = fill // pool.block_size
         bid = int(self.tables[slot][i])
@@ -109,6 +121,11 @@ class SlotAllocator:
             bid = pool.alloc_reserved()
             self.reserved[slot] -= 1
             self.tables[slot][i] = bid
+        else:
+            new = pool.ensure_writable(bid)
+            if new != bid:
+                self.reserved[slot] -= 1
+                self.tables[slot][i] = bid = new
         if self.reserved[slot] < 0:
             raise RuntimeError(f"slot {slot} allocated past its reservation")
         return bid

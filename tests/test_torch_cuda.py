@@ -221,7 +221,8 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                         "rmsnorm_bwd": 0, "layernorm_fwd": 0,
                         "layernorm_bwd": 0, "fused_decode_step": 0,
                         "fused_decode_step_paged": 0,
-                        "fused_decode_verify_paged": 0}, launches
+                        "fused_decode_verify_paged": 0,
+                        "fused_decode_verify_tree_paged": 0}, launches
 
 
 def _bwd_inputs(gen, dev, b, sq, sk, hq, hk, d, dtype, segs):
@@ -704,6 +705,141 @@ def test_fused_paged_equals_dense_and_verify_equals_steps(
     for i in (1, 2):
         seq = torch.stack([s[i] for s in steps], 2).reshape(verify[i].shape)
         assert torch.equal(verify[i], seq)
+
+
+# K14's tree mode: a chain, and a branched tree with a depth-1 hedge (the
+# engine's shape); pad slots sit at depth 0 as the engine's riders do
+TREES = {
+    "chain": ([0, 1, 2, 3], {(1, 0): 0, (2, 0): 0, (2, 1): 1, (3, 0): 0,
+                             (3, 1): 1, (3, 2): 2}),
+    "hedge": ([0, 1, 1, 2], {(3, 1): 1}),
+    "rider": ([0, 0, 0, 0], {}),
+}
+
+
+def _tree(specs, dev):
+    """``(depths [S, 4], anc [S, 4, 4])`` on ``dev`` from one ``(depths,
+    {(node, depth): ancestor})`` spec per slot."""
+    W = 4
+    depths = torch.zeros(len(specs), W, dtype=torch.int32)
+    anc = torch.zeros(len(specs), W, W, dtype=torch.int32)
+    for s, (dep, links) in enumerate(specs):
+        depths[s] = torch.tensor(dep)
+        for (j, dd), a in links.items():
+            anc[s, j, dd] = a
+    return depths.to(dev), anc.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FUSED_CASES))
+def test_fused_tree_verify_matches_plain(cuda_device, name):
+    """K14's tree mode against its plain version on the same card
+    tensors (chain, hedge and rider slots; fills 0, 1, 97, 252)."""
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    c = FUSED_CASES[name]
+    cfg, stacked, rope = _fused_setup(cuda_device, **c)
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    fills = torch.tensor([0, 1, 97, 256 - 4], device=cuda_device)
+    b, width, block = 4, 256, 64
+    shape = (cfg.num_layers, b, cfg.kv_heads, width, cfg.head_dim)
+    q8 = c.get("int8_cache", False)
+    k = _fused_cache(gen, cuda_device, cfg, shape, q8)
+    v = _fused_cache(gen, cuda_device, cfg, shape, q8)
+    tables = (1 + torch.randperm(b * width // block, generator=gen,
+                                 device=cuda_device)).reshape(b, -1)
+    kp = _pool_from_dense(k, tables, block)
+    vp = _pool_from_dense(v, tables, block)
+    xw = _card((b, 4, cfg.hidden_size), gen, cuda_device, cfg.dtype)
+    depths, anc = _tree([TREES[n] for n in ("hedge", "chain", "rider",
+                                            "hedge")], cuda_device)
+    before = tds.fused_decode_verify_tree_paged.launches
+    got = tds.fused_decode_verify_paged(cfg, stacked, xw, kp, vp, tables,
+                                        fills, rope, depths=depths, anc=anc)
+    torch.cuda.synchronize()
+    assert tds.fused_decode_verify_tree_paged.launches == before + 1
+    _assert_fused_close(got, tds.fused_decode_verify_tree_paged_plain(
+        cfg, stacked, xw, kp, vp, tables, fills, rope, depths, anc), q8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,int8_cache,policy", [
+    (32, False, None), (8, True, None), (8, False, ("int8", "int8")),
+    (32, True, ("int4", "int4"))])
+def test_fused_tree_chain_equals_linear_and_branches_equal_steps(
+        cuda_device, kv, int8_cache, policy):
+    """At Llama-2-7B's heads: a chain tree through K14's tree mode equals
+    the linear K14 window bit for bit, and every node of a hedged tree
+    equals sequential K13 steps down its root path (with the host's pool
+    writes between them) bit for bit.  Fills 0, 1, a block boundary less
+    one (the depth-2 nodes cross it) and the width less the window."""
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    cfg, stacked, rope = _fused_setup(cuda_device, kv=kv, policy=policy,
+                                      int8_cache=int8_cache, hidden=4096,
+                                      heads=32, ffn=1024)
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    width, W, block = 512, 4, 64
+    fills = torch.tensor([0, 1, block - 1, width - W], device=cuda_device)
+    b = len(fills)
+    shape = (cfg.num_layers, b, kv, width, cfg.head_dim)
+    k = _fused_cache(gen, cuda_device, cfg, shape, int8_cache)
+    v = _fused_cache(gen, cuda_device, cfg, shape, int8_cache)
+    tables = (1 + torch.randperm(b * width // block, generator=gen,
+                                 device=cuda_device)).reshape(b, -1)
+    kp = _pool_from_dense(k, tables, block)
+    vp = _pool_from_dense(v, tables, block)
+    x = _card((b, W, cfg.hidden_size), gen, cuda_device, cfg.dtype)
+    linear = tds.fused_decode_verify_paged(cfg, stacked, x, kp, vp, tables,
+                                           fills, rope)
+    depths, anc = _tree([TREES["chain"]] * b, cuda_device)
+    chain = tds.fused_decode_verify_paged(cfg, stacked, x, kp, vp, tables,
+                                          fills, rope, depths=depths, anc=anc)
+    for a, c in zip(chain, linear):
+        assert torch.equal(a, c)
+    depths, anc = _tree([TREES["hedge"]] * b, cuda_device)
+    tree = tds.fused_decode_verify_paged(cfg, stacked, x, kp, vp, tables,
+                                         fills, rope, depths=depths, anc=anc)
+
+    def copy(p):
+        return {n: t.clone() for n, t in p.items()} if isinstance(p, dict) \
+            else p.clone()
+
+    rows = torch.arange(b, device=cuda_device) * W
+    for path in ([0, 1, 3], [0, 2]):
+        kp2, vp2 = copy(kp), copy(vp)
+        for t, node in enumerate(path):
+            out = tds.fused_decode_step_paged(
+                cfg, stacked, x[:, node].contiguous(), kp2, vp2, tables,
+                fills + t, rope)
+            assert torch.equal(tree[0][:, node], out[0])
+            assert torch.equal(tree[1][:, rows + node], out[1])
+            assert torch.equal(tree[2][:, rows + node], out[2])
+            _append_rows(kp2, out[1], tables, fills + t, block)
+            _append_rows(vp2, out[2], tables, fills + t, block)
+
+
+@pytest.mark.cuda
+def test_fused_tree_kernel_refuses_a_bad_tree(cuda_device):
+    """The launch checks the tree itself: a depth past the node index, a
+    later ancestor, or a root off depth 0 fails the launch (the wrapper
+    raises), with no fallback."""
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    cfg, stacked, rope = _fused_setup(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    pool = _card((cfg.num_layers, 5, cfg.kv_heads, 16, cfg.head_dim), gen,
+                 cuda_device)
+    tables = torch.tensor([[1, 2], [3, 4]], device=cuda_device)
+    x = _card((2, 4, cfg.hidden_size), gen, cuda_device)
+    fills = torch.tensor([3, 5], device=cuda_device)
+    for bad in (([0, 2, 2, 2], {}), ([0, 1, 1, 2], {(3, 1): 3}),
+                ([1, 1, 1, 1], {})):
+        depths, anc = _tree([bad, TREES["hedge"]], cuda_device)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tds.fused_decode_verify_tree_paged(cfg, stacked, x, pool, pool,
+                                               tables, fills, rope, depths,
+                                               anc)
 
 
 @pytest.mark.cuda

@@ -353,19 +353,17 @@ REJECTS = {
     "block-96": dict(block=96),
     "rows-65": dict(slots=65),
     "window-9": dict(window=9),
-    "tree": dict(tree=True),
 }
 
 
-def _predicates(tc, tp, block=128, slots=4, window=4, s=1, lora_sr=0,
-                tree=False):
+def _predicates(tc, tp, block=128, slots=4, window=4, s=1, lora_sr=0):
     k_cache = tmodel.init_kv_cache(tc, slots, 8, device="cpu")[0]
     k_pool = tmodel.init_kv_pool(tc, 4, block, device="cpu")[0]
     return (tds.fused_decode_eligible(tc, tp, k_cache, s, lora_sr),
             tds.fused_paged_decode_eligible(tc, tp, k_pool, slots, 2,
                                             lora_sr),
             tds.fused_paged_verify_eligible(tc, tp, k_pool, slots, window, 2,
-                                            tree, lora_sr))
+                                            lora_sr))
 
 
 @pytest.mark.parametrize("policy", [None, "int8", "int4", "mixed"])
@@ -392,9 +390,8 @@ def test_predicates_reject(name):
         tp = {**tp, "layers": {**tp["layers"], "attn": q["layers"]["attn"]}}
     got = _predicates(tc, tp, block=c.get("block", 128),
                       slots=c.get("slots", 4), window=c.get("window", 4),
-                      s=c.get("s", 1), lora_sr=c.get("lora_sr", 0),
-                      tree=c.get("tree", False))
-    if name in ("block-8", "block-96", "window-9", "tree"):
+                      s=c.get("s", 1), lora_sr=c.get("lora_sr", 0))
+    if name in ("block-8", "block-96", "window-9"):
         assert got[0] and not any(got[1 if "block" in name else 2:])
     elif name == "rows-65":
         assert got == (False, False, False)
@@ -460,6 +457,9 @@ def test_mlp_chunks_match_jax():
 
 
 def test_unported_options_raise():
+    """The LoRA epilogue is refused; K14's tree mode is ported, and a
+    window that is not a breadth-first tree is refused with ValueError
+    (the kernel's own check on the card)."""
     _, tc, _, tp = _setup()
     x = torch.zeros(1, 256)
     k, v = tmodel.init_kv_cache(tc, 1, 8, device="cpu")
@@ -467,7 +467,8 @@ def test_unported_options_raise():
         tds.fused_decode_step(tc, tp["layers"], x, k, v, 0, _trope(tc),
                               lora=({}, None))
     kp, vp = tmodel.init_kv_pool(tc, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="tree"):
+    with pytest.raises(ValueError, match="tree"):
         tds.fused_decode_verify_paged(
-            tc, tp["layers"], x[:, None], kp, vp, torch.ones(1, 1), [0],
-            _trope(tc), depths=torch.zeros(1, 1), anc=torch.zeros(1, 1, 1))
+            tc, tp["layers"], x[:, None].expand(1, 2, 256), kp, vp,
+            torch.ones(1, 1), [0], _trope(tc), depths=torch.tensor([[0, 2]]),
+            anc=torch.zeros(1, 2, 2))

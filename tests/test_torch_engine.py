@@ -196,11 +196,9 @@ def test_engine_config_fields_match_jax():
 
 @pytest.mark.parametrize("kw,cfg_kw,match", [
     (dict(prefill_chunk=16), {}, "prefill_chunk"),
-    (dict(prefix_cache_blocks=4), {}, "prefix_cache_blocks"),
     (dict(adapter_cache_slots=2), {}, "LoRA"),
     (dict(host_kv_blocks=4), {}, "host_kv_blocks"),
     (dict(role="prefill"), {}, "role"),
-    (dict(trace=True), {}, "trace"),
     (dict(sanitize=True), {}, "sanitize"),
     # the int8 KV cache is served now; W8A8 training matmuls are not
     ({}, dict(quantize_matmuls="int8"), "int8"),
@@ -213,15 +211,14 @@ def test_unported_options_raise(weights, kw, cfg_kw, match):
 
 
 def test_draft_model_mesh_and_quantized_weights_raise(weights):
-    """A draft model and a mesh raise; quantized weights no longer do (they
-    are served through ``ops/quant.mm``), nor do they lift the W8A8
-    training-matmul refusal."""
+    """A mesh raises; a resident draft model no longer does (it is
+    served, ``tests/test_torch_draft_serving.py``), nor do quantized
+    weights (they are served through ``ops/quant.mm``), which do not
+    lift the W8A8 training-matmul refusal either."""
     from megatron_llm_tpu_torch.ops.quant import quantize_params
 
     _, _, tc, tp = weights
     ec = EngineConfig(**SLICE)
-    with pytest.raises(NotImplementedError, match="draft.*ROADMAP"):
-        ServingEngine(tc, tp, ec, draft_cfg=tc, draft_params=tp, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh.*ROADMAP"):
         ServingEngine(tc, tp, ec, mesh=object(), device="cpu")
     quant = quantize_params(tp, "int8")

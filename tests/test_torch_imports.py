@@ -36,6 +36,9 @@ def test_port_imports_no_jax():
     assert "megatron_llm_tpu_torch.ops.dropout" in names
     assert "megatron_llm_tpu_torch.ops.quant" in names
     assert "megatron_llm_tpu_torch.finetune" in names
+    assert "megatron_llm_tpu_torch.serving.prefix_cache" in names
+    assert "megatron_llm_tpu_torch.obs.trace" in names
+    assert "megatron_llm_tpu_torch.models.families" in names
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"
