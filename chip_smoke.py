@@ -65,15 +65,24 @@ it goes wrong:
 20-21. draft-serve: phase 16 with a resident draft model
     (``spec_draft_len=3``): the tiny preset (random, bf16) and the target
     itself; every verify step is one launch of K14's tree mode, the greedy
-    tokens must be phase 16's, and the self-draft's chains are accepted.
+    tokens must be phase 16's, and the self-draft's chains are accepted;
+22. lora-serve: multi-tenant LoRA at Llama-2-7B full depth through
+    ``ServingEngine`` with ``adapter_cache_slots=4`` and six registered
+    adapters (rank 32, every target): eight greedy requests (six
+    adapters, two base) alone, then concurrently, then concurrently with
+    n-gram speculation and with a resident tiny draft; tokens equal their
+    alone runs and the plain run's, and every decode step is one launch of
+    K13, K14 or K14's tree mode with the arena.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
-K1-K14 and K14's tree mode; K10 and K11 must equal K8 and K9 bit for bit
-on the same logical cache, K13 must equal K12 and K14 four K13 steps, a
-chain tree the linear K14 window and each path of a hedged tree
-sequential K13 steps.
-Phases 5, 7, 9, 10, 11, 13 and 14-21 are the main paths: every kernel's
+K1-K14 and K14's tree mode, and K12-K14 with the LoRA epilogue (4 arena
+slots x rank 32, rows at slots -1, 0, 2, 3); K10 and K11 must equal K8 and
+K9 bit for bit on the same logical cache, K13 must equal K12 and K14 four
+K13 steps, a chain tree the linear K14 window and each path of a hedged
+tree sequential K13 steps, with the arena too, where a slot -1 row must
+equal the call without it and each row alone its row of the batch.
+Phases 5, 7, 9, 10, 11, 13 and 14-22 are the main paths: every kernel's
 launch counter is reset just before each and read just after, and each
 kernel of a path must have been launched in it.  The
 line before the last is the ``{"kernels": [...]}`` JSON object
@@ -698,6 +707,7 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
             cfg, params, tok, kp, vp, ctables, fills, use_fused=True),
             iters=5)
         w_bytes = _nbytes(stacked)
+        base_rows = {}
         cache_item = 1 if form == "int8" else 2
         cache_extra = 4 if form == "int8" else 0       # fp32 row scale
         for name, (kern, plain, win) in full.items():
@@ -728,6 +738,7 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
             ops = 2.0 * n_w * n_rows + 4.0 * L * (live * win + spliced) \
                 * cfg.num_attention_heads * d
             bms, by = bound_ms(nbytes, ops)
+            base_rows[name] = dict(nbytes=nbytes, ops=ops)
             err, rel = outs[name][1], outs[name][2]
             log(f"kernel {name} [llama2-7b {form} weights and cache, {n_rows} "
                 f"rows, fills {fills_l}, 64-token pool blocks]: at 2 layers "
@@ -752,8 +763,245 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
                                           composed_route_ms=composed_ms)
         log(f"decode_step ({form}): K13 == K12 and K14 == 4 x K13 bit for "
             "bit at 2 layers")
+        lrows = check_decode_step_lora(torch, M, ds, dict(
+            cfg=cfg, dev=dev, form=form, b=b, W=W, tables=tables,
+            fills=fills, rope=rope, x=x, block=block, st2=st2, k2=k2, v2=v2,
+            kp2=kp2, vp2=vp2, k13_base=outs["fused_decode_step_paged"][0],
+            stacked=stacked, params=params, k=k, v=v, kp=kp, vp=vp,
+            base_rows=base_rows), gen, smi)
+        for name, r in lrows.items():
+            if form == "bf16":
+                rows[name] = r
+            else:
+                rows[name]["int8"] = r
         del params, stacked, k, v, kp, vp, st2, outs, seq, ver, want
         torch.cuda.empty_cache()
+    return rows
+
+
+# the LoRA arena of phase 3: 4 slots x rank 32, every target; rows at
+# slots -1 (the base model), 0, 2 and 3
+LORA_SLOTS = (-1, 0, 2, 3)
+LORA_N_SLOTS, LORA_RANK = 4, 32
+
+
+def _lora_bundle(torch, cfg, dev, gen, slots=LORA_SLOTS, targets=None):
+    """``(arenas, mask)`` over ``targets`` (default every target) with a
+    random adapter in each slot (``serving/profile.random_adapter``: B ~
+    N(0, 0.02^2))."""
+    from megatron_llm_tpu_torch.ops import lora as tl
+    from megatron_llm_tpu_torch.serving.profile import random_adapter
+
+    targets = tl.LORA_TARGETS if targets is None else targets
+    arenas = tl.make_arenas(cfg, LORA_N_SLOTS, LORA_RANK, targets,
+                            device=dev)
+    for s_ in range(LORA_N_SLOTS):
+        ad = random_adapter(cfg, gen, LORA_RANK, targets)
+        tl.install_adapter(arenas, ad.factors, s_, ad.scale, LORA_RANK)
+    return arenas, tl.slot_mask(torch.tensor(slots, device=dev),
+                                LORA_N_SLOTS, LORA_RANK)
+
+
+def _lora_calls(ds, cfg, st, x, k, v, kp, vp, tables, fills, rope, lora,
+                tree):
+    """{name: (kernel call, plain call, window)} of K12, K13, K14 and K14's
+    tree mode with the LoRA bundle ``lora`` (its mask per slot)."""
+    x0 = x[:, 0].contiguous()
+    W = x.shape[1]
+    return {
+        "fused_decode_step_lora": (
+            lambda: ds.fused_decode_step(cfg, st, x0, k, v, fills, rope,
+                                         lora=lora),
+            lambda: ds.fused_decode_step_plain(cfg, st, x0, k, v, fills,
+                                               rope, lora), 1),
+        "fused_decode_step_paged_lora": (
+            lambda: ds.fused_decode_step_paged(cfg, st, x0, kp, vp, tables,
+                                               fills, rope, lora=lora),
+            lambda: ds.fused_decode_step_paged_plain(
+                cfg, st, x0, kp, vp, tables, fills, rope, lora), 1),
+        "fused_decode_verify_paged_lora": (
+            lambda: ds.fused_decode_verify_paged(cfg, st, x, kp, vp, tables,
+                                                 fills, rope, lora=lora),
+            lambda: ds.fused_decode_verify_paged_plain(
+                cfg, st, x, kp, vp, tables, fills, rope, lora), W),
+        "fused_decode_verify_tree_paged_lora": (
+            lambda: ds.fused_decode_verify_tree_paged(
+                cfg, st, x, kp, vp, tables, fills, rope, *tree, lora=lora),
+            lambda: ds.fused_decode_verify_tree_paged_plain(
+                cfg, st, x, kp, vp, tables, fills, rope, *tree, lora), W),
+    }
+
+
+def check_decode_step_lora(torch, M, ds, c, gen, smi):
+    """K12-K14 and K14's tree mode with the LoRA epilogue, in phase 3's
+    setting ``c`` (one form: bf16, or int8 weights and cache): against the
+    plain versions at 2 layers, bit for bit rows at slot -1 == the call
+    without an arena, each row alone == its row of the mixed batch, K13
+    == K12, K14 == four K13 steps, a chain tree == the linear window and
+    each hedged path == sequential K13 steps, all with the arena; times at
+    32 layers against the bound (every weight, the arena columns the rows
+    select and each row's live cache read once), the plain version and the
+    composed route with the same arena; and K13 with an arena whose rows
+    are all at slot -1 against K13 without one, in the same call."""
+    from megatron_llm_tpu_torch.ops.kv_quant import quantize_rows
+
+    cfg, dev, form, b, W = c["cfg"], c["dev"], c["form"], c["b"], c["W"]
+    tables, fills, rope, x = c["tables"], c["fills"], c["rope"], c["x"]
+    block, q8 = c["block"], c["form"] == "int8"
+    lora = _lora_bundle(torch, cfg, dev, gen)
+    lora2 = ({t: {"a": f["a"][:2], "b": f["b"][:2]}
+              for t, f in lora[0].items()}, lora[1])
+    mixed = _tree(torch, (TREE_HEDGE, TREE_CHAIN, TREE_RIDER, TREE_HEDGE),
+                  dev)
+    st2, k2, v2, kp2, vp2 = (c[n] for n in ("st2", "k2", "v2", "kp2",
+                                            "vp2"))
+    calls = _lora_calls(ds, cfg, st2, x, k2, v2, kp2, vp2, tables, fills,
+                        rope, lora2, mixed)
+    outs = {}
+    for name, (kern, plain, _) in calls.items():
+        got = kern()
+        torch.cuda.synchronize()
+        errs = fused_errs(torch, got, plain(), q8)
+        if not all(ok for *_, ok in errs):
+            raise RuntimeError(f"{name} ({form}): hidden/k/v max err "
+                               f"{[e[0] for e in errs]}, relative "
+                               f"{[e[1] for e in errs]} beyond tolerance")
+        outs[name] = (got, max(e[0] for e in errs), max(e[1] for e in errs))
+    k13 = outs["fused_decode_step_paged_lora"][0]
+    if not _same(torch, k13, outs["fused_decode_step_lora"][0]):
+        raise RuntimeError(f"LoRA ({form}): K13 differs from K12")
+    base = c["k13_base"]      # K13 at 2 layers without an arena
+    if not (torch.equal(k13[0][0], base[0][0])
+            and torch.equal(k13[1][:, 0], base[1][:, 0])
+            and torch.equal(k13[2][:, 0], base[2][:, 0])):
+        raise RuntimeError(f"LoRA ({form}): a slot -1 row differs from the "
+                           "call without an arena")
+    if torch.equal(k13[0][1:], base[0][1:]):
+        raise RuntimeError(f"LoRA ({form}): the adapters changed nothing")
+    x0 = x[:, 0].contiguous()
+    for i in range(b):
+        alone = ds.fused_decode_step_paged(
+            cfg, st2, x0[i:i + 1], kp2, vp2, tables[i:i + 1], fills[i:i + 1],
+            rope, lora=(lora2[0], lora2[1][i:i + 1]))
+        if not (torch.equal(alone[0][0], k13[0][i])
+                and torch.equal(alone[1][:, 0], k13[1][:, i])):
+            raise RuntimeError(f"LoRA ({form}): row {i} alone differs from "
+                               "its row of the mixed batch")
+
+    def steps(path_nodes, depth_of):
+        kps, vps = _clone(kp2), _clone(vp2)
+        out_ = []
+        for t_, node in enumerate(path_nodes):
+            pos = fills + depth_of(t_)
+            o = ds.fused_decode_step_paged(cfg, st2, x[:, node].contiguous(),
+                                           kps, vps, tables, pos, rope,
+                                           lora=lora2)
+            bids = tables[torch.arange(b, device=dev), pos // block]
+            for pool, r in ((kps, o[1]), (vps, o[2])):
+                M.cache_append_rows(pool, quantize_rows(r) if q8 else r,
+                                    bids, pos % block)
+            out_.append(o)
+        return out_
+
+    seq = steps(range(W), lambda t_: t_)
+    ver = outs["fused_decode_verify_paged_lora"][0]
+    want = (torch.stack([s_[0] for s_ in seq], 1),
+            *(torch.stack([s_[i] for s_ in seq], 2).reshape(ver[i].shape)
+              for i in (1, 2)))
+    if not _same(torch, ver, want):
+        raise RuntimeError(f"LoRA ({form}): K14 differs from four K13 steps")
+    chain = ds.fused_decode_verify_tree_paged(
+        cfg, st2, x, kp2, vp2, tables, fills, rope,
+        *_tree(torch, (TREE_CHAIN,) * b, dev), lora=lora2)
+    if not _same(torch, chain, ver):
+        raise RuntimeError(f"LoRA ({form}): a chain tree differs from the "
+                           "linear window")
+    tree = ds.fused_decode_verify_tree_paged(
+        cfg, st2, x, kp2, vp2, tables, fills, rope,
+        *_tree(torch, (TREE_HEDGE,) * b, dev), lora=lora2)
+    node_rows = torch.arange(b, device=dev) * W
+    for path in TREE_PATHS:
+        for t_, (node, o) in enumerate(zip(path, steps(path, lambda t: t))):
+            if not (torch.equal(tree[0][:, node], o[0])
+                    and torch.equal(tree[1][:, node_rows + node], o[1])):
+                raise RuntimeError(f"LoRA ({form}): node {node} of path "
+                                   f"{path} differs from K13 steps")
+    log(f"decode_step LoRA ({form}): K12-K14 and the tree mode within "
+        "tolerance of their plain versions; slot -1 rows == no arena, each "
+        "row alone == mixed, K13 == K12, K14 == 4 x K13, chain tree == "
+        "linear, hedged paths == K13 steps, bit for bit, at 2 layers")
+
+    # 32 layers: times and bounds
+    stacked, params = c["stacked"], c["params"]
+    full = _lora_calls(ds, cfg, stacked, x, c["k"], c["v"], c["kp"], c["vp"],
+                       tables, fills, rope, lora, mixed)
+    ccfg = dataclasses.replace(cfg, fused_decode=False,
+                               attention_impl="flash", norm_impl="pallas")
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                        device=dev)
+    ctables = tables.to(torch.long)
+    composed_ms = event_ms(torch, lambda: M.forward_cached_paged(
+        ccfg, params, tok, c["kp"], c["vp"], ctables, fills, lora=lora),
+        iters=3)
+    # the epilogue when no row selects an adapter, against no arena
+    off = (lora[0], torch.zeros_like(lora[1]))
+    k13_off = cuda_ms(torch, lambda: ds.fused_decode_step_paged(
+        cfg, stacked, x0, c["kp"], c["vp"], tables, fills, rope, lora=off),
+        iters=5, warmup=2)
+    k13_none = cuda_ms(torch, lambda: ds.fused_decode_step_paged(
+        cfg, stacked, x0, c["kp"], c["vp"], tables, fills, rope),
+        iters=5, warmup=2)
+    k13_mixed = cuda_ms(torch, full["fused_decode_step_paged_lora"][0],
+                        iters=5, warmup=2)
+    # the PEFT default targets (q and v: one x·A phase of three columns)
+    qv = _lora_bundle(torch, cfg, dev, gen, targets=("wq", "wv"))
+    k13_qv = cuda_ms(torch, lambda: ds.fused_decode_step_paged(
+        cfg, stacked, x0, c["kp"], c["vp"], tables, fills, rope, lora=qv),
+        iters=5, warmup=2)
+    del qv
+    log(f"decode_step LoRA ({form}): K13 with an arena and every row at "
+        f"slot -1 {k13_off:.4f} ms against K13 without an arena "
+        f"{k13_none:.4f} ms (ratio {k13_off / k13_none:.4f}); with rows at "
+        f"slots {list(LORA_SLOTS)} {k13_mixed:.4f} ms (ratio "
+        f"{k13_mixed / k13_none:.4f}), over wq and wv only {k13_qv:.4f} ms "
+        f"(ratio {k13_qv / k13_none:.4f}); graph replays, 32 layers; card "
+        f"{smi}")
+    L, sr = cfg.num_layers, LORA_N_SLOTS * LORA_RANK
+    used = len({s_ for s_ in LORA_SLOTS if s_ >= 0})
+    # the arena columns of the slots some row selects: A [in, Sr] and B
+    # [Sr, out] of every target, fp32
+    arena_bytes = sum(f["a"].numel() + f["b"].numel()
+                      for f in lora[0].values()) * 4 * used // LORA_N_SLOTS
+    io = sum(i_ + o_ for i_, o_ in (
+        (f["a"].shape[1], f["b"].shape[2]) for f in lora[0].values()))
+    rows = {}
+    for name, (kern, plain, win) in full.items():
+        is_tree = name == "fused_decode_verify_tree_paged_lora"
+        ms = (event_ms(torch, kern, iters=5, warmup=2) if is_tree
+              else cuda_ms(torch, kern, iters=5, warmup=2))
+        plain_ms = event_ms(torch, plain, iters=1, warmup=1)
+        n_rows = b * win
+        base_row = c["base_rows"][name[:-len("_lora")]]
+        nbytes = base_row["nbytes"] + arena_bytes
+        # each row's x·A over its slot's rank and the B product
+        ops = base_row["ops"] + 2.0 * L * n_rows * LORA_RANK * io
+        bms, by = bound_ms(nbytes, ops)
+        err, rel = outs[name][1], outs[name][2]
+        log(f"kernel {name} [llama2-7b {form}, {n_rows} rows at slots "
+            f"{list(LORA_SLOTS)} (window {win}), arena {LORA_N_SLOTS} x rank "
+            f"{LORA_RANK} = Sr {sr}, every target]: at 2 layers max_abs_err "
+            f"{err:.3e}, relative err {rel:.3e} (limit {FUSED_REL_LIMIT}); "
+            f"32 layers ms {ms:.4f} "
+            f"({'between events' if is_tree else 'graph replays'}) plain_ms "
+            f"{plain_ms:.4f} bound_ms {bms:.4f} ({by}; arena "
+            f"{arena_bytes / 1e6:.2f} MB of it); composed route "
+            f"forward_cached_paged with the arena {composed_ms:.4f} ms "
+            f"(between events, not a library call); card {smi}")
+        rows[name] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=None, composed_route_ms=composed_ms,
+                          no_row_selects_ratio=k13_off / k13_none,
+                          wq_wv_only_ratio=k13_qv / k13_none)
     return rows
 
 
@@ -1637,6 +1885,160 @@ def default_serve(torch, cfg, dev, counters, smi, new=32):
 
 # ---------------------------------------------------------------------------
 # Phase 6: the training kernel path against the fp32 plain path, 7B widths
+
+
+LORA_IDS = ("t0", "t1", None, "t2", "t3", None, "t4", "t5")
+
+
+def lora_serve(torch, cfg, dev, counters, smi, base_rate,
+               lens=(64, 1024, 200, 512, 96, 777, 330, 1000), new=32):
+    """Multi-tenant LoRA serving at full width and depth: the engine's
+    defaults but for its sizes, plus ``adapter_cache_slots=4`` and a
+    registry of six adapters (rank 32, every target).  Eight greedy
+    requests, six under six adapters and two under none, each first run
+    alone, then all at once (more adapters than arena slots: installs,
+    evictions, parking), then all at once again with n-gram speculation
+    (``spec_draft_len=3``, ``spec_force`` on two) and with a resident
+    ``tiny`` draft (random, bf16; the draft proposes under the base model,
+    the target verifies under each requester's adapter).  Each request's
+    tokens must equal its alone run, the adapters must move the tokens,
+    the speculative tokens must equal the plain ones, and every decode
+    step must be fused: one K13 launch with the arena a plain step, one
+    K14 launch with it an n-gram verify step, one launch of K14's tree
+    mode with it a tree verify step, no launch without it (the tiny
+    draft's forwards are composed).  Returns the three concurrent runs'
+    launch counts."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.models.families import draft_model
+    from megatron_llm_tpu_torch.serving import EngineConfig, ServingEngine
+    from megatron_llm_tpu_torch.serving.profile import adapter_registry
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init_params(cfg, seed=0, device=dev)
+    reg = adapter_registry(cfg, 4, LORA_RANK, device=dev, seed=5,
+                           n_adapters=6)
+    arena_bytes = sum(t.numel() * 4 for f in reg.arenas.values()
+                      for t in f.values())
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lens]
+    log(f"lora-serve: llama2-7b bf16 params and a registry of 6 adapters "
+        f"(rank {LORA_RANK}, every target; arena of 4 slots, "
+        f"{arena_bytes / 1e9:.3f} GB fp32) ready in "
+        f"{time.perf_counter() - t0:.1f}s")
+    dcfg = draft_model("tiny", cfg, params_dtype="bfloat16")
+    tiny = dict(draft_cfg=dcfg, draft_params=M.init_params(dcfg, seed=1,
+                                                           device=dev))
+    out, launches_by_run = {}, []
+    for spec, draft in ((0, {}), (3, {}), (3, tiny)):
+        registry = reg if not spec else reg.clone()
+        engine = ServingEngine(cfg, params, EngineConfig(
+            max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
+            kv_block_size=64, adapter_cache_slots=4, spec_draft_len=spec),
+            adapters=registry, device=dev, **draft).start()
+        try:
+            if engine.adapters.sr and not (engine._fused_decode and (
+                    engine._fused_verify or not spec)):
+                raise RuntimeError("lora-serve: the fused predicates "
+                                   "declined the arena")
+            # warm-up (Triton compile, cuBLAS handles, the installs' copies)
+            for h in [engine.submit(prompts[0], 4, use_eos_stop=False,
+                                    adapter_id=a) for a in ("t0", None)]:
+                h.result(600)
+            if not spec:
+                alone = [engine.submit(p, new, use_eos_stop=False,
+                                       adapter_id=a).result(900).tokens
+                         for p, a in zip(prompts, LORA_IDS)]
+                base0 = engine.submit(prompts[0], new, use_eos_stop=False
+                                      ).result(900).tokens
+            for fn in counters.values():
+                fn.launches = 0
+            engine.trace.clear()
+            m0 = engine.metrics.snapshot()
+            t1 = time.perf_counter()
+            hs = [engine.submit(p, new, use_eos_stop=False, adapter_id=a,
+                                spec_force=bool(spec and not draft
+                                                and i in (1, 5)))
+                  for i, (p, a) in enumerate(zip(prompts, LORA_IDS))]
+            toks = [h.result(900).tokens for h in hs]
+            wall = time.perf_counter() - t1
+            launches = {name: fn.launches for name, fn in counters.items()}
+            m1 = engine.metrics.snapshot()
+            spans = engine.trace.chrome_trace()["traceEvents"]
+        finally:
+            engine.shutdown()
+        launches_by_run.append(launches)
+
+        def d(key, m1=m1, m0=m0):
+            return m1[key] - m0[key]
+
+        fused = sum(r["fused"] for r in m1["step_routes"].values()) \
+            - sum(r["fused"] for r in m0["step_routes"].values())
+        fallback = sum(r["fallback"] for r in m1["step_routes"].values()) \
+            - sum(r["fallback"] for r in m0["step_routes"].values())
+        k13l = launches["fused_decode_step_paged_lora"]
+        k14l = launches["fused_decode_verify_paged_lora"
+                        if not draft else
+                        "fused_decode_verify_tree_paged_lora"]
+        plain = [n for n in ("fused_decode_step_paged",
+                             "fused_decode_verify_paged",
+                             "fused_decode_verify_tree_paged", "flash_decode")
+                 if launches[n]]
+        label = f"spec {spec}{', tiny draft' if draft else ''}"
+        if fallback or plain or k13l + k14l != fused \
+                or k14l != d("spec_steps") or (spec and k14l < 1):
+            raise RuntimeError(
+                f"lora-serve ({label}): {fused} fused and {fallback} "
+                f"composed steps, {d('spec_steps')} verify steps; K13 with "
+                f"the arena {k13l}, K14 (tree mode with a draft) with it "
+                f"{k14l}; launched without it: {plain}")
+        if not spec:
+            if toks != alone:
+                bad = [i for i, (a, b_) in enumerate(zip(toks, alone))
+                       if a != b_]
+                raise RuntimeError(f"lora-serve: requests {bad} differ "
+                                   "from their alone runs")
+            if base0 == alone[0]:
+                raise RuntimeError("lora-serve: adapter t0 left request 0's "
+                                   "tokens as the base model's")
+            out["tokens"] = toks
+        elif toks != out["tokens"]:
+            bad = [i for i, (a, b_) in enumerate(zip(toks, out["tokens"]))
+                   if a != b_]
+            raise RuntimeError(f"lora-serve: speculation changed the tokens "
+                               f"of requests {bad}")
+        for i, t in enumerate(toks):
+            if len(t) != lens[i] + new:
+                raise RuntimeError(f"lora-serve: request {i} has {len(t)} "
+                                   "tokens")
+        dec_s = m1["timers_s"]["serving-decode"] \
+            - m0["timers_s"]["serving-decode"]
+        ttft = sorted(ms for ms, _ in _ttft_ms(spans).values())
+        log(f"lora-serve ({label}): 8 requests (6 adapters, 2 "
+            f"base; {sum(lens)} prompt tokens, {new} new each) over 4 slots "
+            f"in {wall:.2f}s; decode {d('decode_tokens') / dec_s:.1f} tok/s "
+            f"({d('decode_tokens')} tokens in {d('decode_iterations')} steps"
+            f", {dec_s:.3f}s) against fused-serve's {base_rate:.1f}; TTFT "
+            f"ms {[round(x, 2) for x in ttft]}; K13 with the arena {k13l}, "
+            f"K14{' tree mode' if draft else ''} with it {k14l}; adapter "
+            f"hits {d('adapter_hits')}, misses "
+            f"{d('adapter_misses')}, installs {d('adapter_installs')}, "
+            f"evictions {d('adapter_evictions')}, resident "
+            f"{m1['adapter_resident']} ({m1['adapter_resident_bytes'] / 1e9:.3f}"
+            f" GB of factors); arena {arena_bytes / 1e9:.3f} GB; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; host "
+            f"clock; card {smi}")
+        if not spec and (d("adapter_evictions") < 1
+                         or d("adapter_installs") < 2):
+            raise RuntimeError("lora-serve: six adapters over four slots "
+                               "never evicted")
+    log("lora-serve: every request's tokens equal its alone run, the "
+        "adapters moved them off the base model's, and speculation kept "
+        "them")
+    return launches_by_run
+
+
 # ---------------------------------------------------------------------------
 
 # bf16 weights and activations against fp32 from the same weights: each
@@ -2012,6 +2414,24 @@ def main() -> int:
     log(f"default and draft phases 19-21 in {time.perf_counter() - t0:.1f}s; "
         f"TTFT cold {ttft['cold_ms']:.2f} ms, hits {ttft['hit_ms']}")
 
+    t0 = time.perf_counter()
+    lora_need = ("flash_attention_fwd", "rmsnorm_fwd")
+    for label, launches, kern in zip(
+            ("serve llama2-7b lora", "serve llama2-7b lora spec",
+             "serve llama2-7b lora draft tiny"),
+            lora_serve(torch, fused, dev, counters, smi,
+                       fused_out["decode_tok_s"]),
+            ("fused_decode_step_paged_lora",
+             "fused_decode_verify_paged_lora",
+             "fused_decode_verify_tree_paged_lora")):
+        missing = [n for n in lora_need + (kern,) if launches[n] < 1]
+        if missing:
+            raise RuntimeError(f"{label}: kernels never launched on the "
+                               f"main path: {missing}")
+        paths[label] = launches
+    settle()
+    log(f"lora phase 22 in {time.perf_counter() - t0:.1f}s")
+
     meta = {
         "flash_attention_fwd": (
             "cuda", "megatron_llm_tpu_torch/csrc/flash_attention.cu",
@@ -2058,6 +2478,19 @@ def main() -> int:
         "fused_decode_verify_tree_paged": (
             "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
             "megatron_llm_tpu/kernels/decode_step.py:1516"),
+        # the LoRA epilogue (lora_add) of each
+        "fused_decode_step_lora": (
+            "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
+            "megatron_llm_tpu/kernels/decode_step.py:214"),
+        "fused_decode_step_paged_lora": (
+            "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
+            "megatron_llm_tpu/kernels/decode_step.py:524"),
+        "fused_decode_verify_paged_lora": (
+            "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
+            "megatron_llm_tpu/kernels/decode_step.py:1562"),
+        "fused_decode_verify_tree_paged_lora": (
+            "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
+            "megatron_llm_tpu/kernels/decode_step.py:1562"),
     }
     kernels = []
     for kname, (route, source, replaces) in meta.items():

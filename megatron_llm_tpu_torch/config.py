@@ -314,8 +314,8 @@ class RuntimeConfig:
         if m.quantize_matmuls != "none":
             raise NotImplementedError(
                 "quantize_matmuls='int8' (W8A8 training matmuls) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 13: int8 training "
-                "matmul)")
+                "ported yet (ROADMAP.md, Queue 1 item 12: the rest, int8 "
+                "training matmul)")
         m.validate()
         self.parallel.validate()
         mb = self.train.micro_batch_size

@@ -14,7 +14,9 @@ shapes and ``x @ w`` orientation, leaf for leaf, as torch tensors:
 
 A tree quantized by the JAX ``ops/quant.quantize_params`` crosses the same
 way: its ``{"q", "scale"}`` leaves (int8 codes, packed int4 codes, fp32
-scales) keep their dtypes and bits.  Only numpy crosses the boundary, so this module imports no JAX.
+scales) keep their dtypes and bits.  ``adapter_from_jax`` carries a LoRA
+adapter the same way.  Only numpy crosses the boundary, so this module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -39,3 +41,20 @@ def params_from_jax(tree, device=None):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _to_torch(tree, device)
+
+
+def adapter_from_jax(adapter_np, device=None):
+    """A JAX ``LoRAAdapter``'s hyperparameters and factors as numpy (an
+    object with ``rank``, ``alpha``, ``targets`` and ``factors`` of
+    ``{target: {"a", "b"}}`` arrays, or the same keys in a dict) → the
+    port's ``ops.lora.LoRAAdapter`` with fp32 tensors on ``device``
+    (default ``cuda``)."""
+    from .ops.lora import LoRAAdapter
+
+    get = (adapter_np.get if isinstance(adapter_np, dict)
+           else lambda k: getattr(adapter_np, k))
+    factors = params_from_jax(
+        {t: {k: np.asarray(v[k], np.float32) for k in ("a", "b")}
+         for t, v in get("factors").items()}, device)
+    return LoRAAdapter(rank=int(get("rank")), alpha=float(get("alpha")),
+                       targets=tuple(get("targets")), factors=factors)

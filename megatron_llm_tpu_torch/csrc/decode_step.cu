@@ -68,10 +68,36 @@
 // Scratch (residual, q, new K/V, context, gate, up) is allocated by the
 // wrapper and stays in L2.
 //
+// The LoRA epilogue (JAX _decode_step_kernel's lora_add, with the arenas of
+// ops/lora.py): for each target t with an arena, y_t += ((x_t . A_t) (.)
+// mask) . B_t in fp32, where x_t is the projection's fp32 input before any
+// rounding (the normed residual, the context, act(gate) * up: the staged
+// GEMV copy is rounded to T, so the epilogue never reads it), A_t [in, Sr]
+// and B_t [Sr, out] are the layer's arena slices (alpha / r folded into B)
+// and the mask [rows, Sr] selects each row's adapter columns.
+// - x . A needs the whole contraction before any B column can use it, so
+//   it is a phase of its own before each consumer (a grid barrier between):
+//   q/k/v (before RoPE), wo, gate/up, and w_down (added to the residual
+//   once, after the last MLP chunk).  A work item is (target, 512-row
+//   contraction chunk, 32 arena columns) for every row: its sum runs in a
+//   fixed order (32 streams of 16 rows, the streams of a warp by shuffles,
+//   the warps in order) into a partial-sum scratch; the consumer adds a
+//   column's chunks in chunk order.  Items of 32 columns that no row's mask
+//   selects are skipped, and a launch whose mask is all zero takes no
+//   LoRA phase at all.
+// - The consumer's tile (32 output columns, up to 16 rows) sums, per row,
+//   (x . A)[j] * mask[j] * B[j][col] over the arena columns j in order,
+//   skipping zero terms (each would add +-0), and adds it to y; a row whose
+//   mask row is zero keeps y as it is, so it has the no-arena bits.
+// - Nothing of it depends on T or C: the functions are shared by the four
+//   instantiations.  Bits depend on a row's own inputs only, as above.
+//
 // Limits (kernels/decode_step.py checks them before the launch): head dim
 // 64 or 128, a GQA group up to 8, h, nq * d, nkv * d and each w_down chunk
 // in whole 32-column tiles, at most 64 rows and a window up to 8, pool
-// blocks powers of two, x fp32 or bf16 with plain weights in x's dtype.
+// blocks powers of two, x fp32 or bf16 with plain weights in x's dtype;
+// a LoRA arena of whole 32-column tiles, at most 1024 columns (one bit per
+// tile in a 32-bit word).
 #include "common.cuh"
 
 #include <math.h>
@@ -93,12 +119,20 @@ constexpr int kMaxRows = 64;
 constexpr int kMaxGroup = 8;
 constexpr int kMaxWindow = 8;
 constexpr float kRcp127 = 1.0f / 127.0f;      // the fp32 reciprocal
+constexpr int kLoraChunk = 512;               // x . A contraction rows
+constexpr int kLoraPiece = 256;               // arena columns staged at once
+constexpr int kMaxLoraSr = 1024;
 
 // shared memory, in floats: the GEMV layout and the attention layout
 // overlap (a phase uses one)
 constexpr int kXs = 32768;                    // staged inputs (128 KB)
 constexpr int kPart = kWarps * kMaxRB * kTileN;
-constexpr int kGemvFloats = kXs + kPart + 2 * kMaxRB * kTileN + kMaxRows;
+// the LoRA epilogue's products [kMaxRB][kLoraPiece], delta tile, live rows
+// and the key of the products held
+constexpr int kLoraFloats =
+    kMaxRB * kLoraPiece + kMaxRB * kTileN + kMaxRB + 1;
+constexpr int kGemvFloats =
+    kXs + kPart + 2 * kMaxRB * kTileN + kMaxRows + kLoraFloats;
 
 struct Args {
   const void* x;           // [rows, h] T
@@ -127,8 +161,12 @@ struct Args {
   float* gate;
   float* up;
   unsigned* bar;
+  const float* la[7];      // LoRA arenas: A [L, K, lsr], B [L, lsr, N] of
+  const float* lb[7];      //   each target, or null (not adapted)
+  const float* lmask;      // [rows, lsr], or null (no LoRA)
+  float* lpart;            // scratch: x . A partials [7, lch, rows, lsr]
   int L, rows, W, h, nq, nkv, d, ffn, nm, aq, mq, gsz, act;
-  int paged, n_ent, width, shift, n_tbl;
+  int paged, n_ent, width, shift, n_tbl, lsr, lch;
   float eps, scale;
 };
 
@@ -580,10 +618,283 @@ __device__ void row_rstd(const float* res, int rows, int h, float eps,
 constexpr int kOut = kXs + kPart;             // GEMV result tile
 constexpr int kOut2 = kOut + kMaxRB * kTileN;
 constexpr int kRs = kOut2 + kMaxRB * kTileN;
+constexpr int kLs = kRs + kMaxRows;           // the LoRA epilogue's floats
 
-// norm + q/k/v + scale epilogue + RoPE
+// ---------------------------------------------------------------------------
+// The LoRA epilogue (nothing here depends on T or C)
+// ---------------------------------------------------------------------------
+
+// Where an x . A pass reads its fp32 inputs, never rounded: mode 0 the
+// residual RMS-normed (res * rstd * nw, nw bf16 when nwb), 1 a copy, 2
+// act(a) * b.  The same products as ``stage`` before its rounding.
+struct LSrc {
+  int mode;
+  const float* a;
+  const float* b;
+  const void* nw;
+  int nwb;
+  const float* rs;
+  int ld, act;
+};
+
+// 32-bit word of the arena's 32-column tiles that some row's mask selects
+// (every block computes the same word)
+__device__ __noinline__ unsigned lora_tiles(const Args& a, float* smem) {
+  if (threadIdx.x == 0)  // no products held yet
+    reinterpret_cast<int*>(smem + kLs)[kMaxRB * kLoraPiece + kMaxRB * kTileN
+                                       + kMaxRB] = -1;
+  unsigned used = 0;
+  for (int i = threadIdx.x; i < a.rows * a.lsr; i += kThreads)
+    if (a.lmask[i] != 0.0f) used |= 1u << ((i % a.lsr) >> 5);
+  used = __reduce_or_sync(0xffffffffu, used);
+  unsigned* red = reinterpret_cast<unsigned*>(smem);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = used;
+  __syncthreads();
+  used = 0;
+  for (int w = 0; w < kWarps; ++w) used |= red[w];
+  __syncthreads();
+  return used;
+}
+
+// xs[r * kLoraChunk + i] = fp32 input row r0 + r at index k0 + i, for r <
+// kMaxRB (rows from nr on zero) and i < cnt (a multiple of 4)
+__device__ __noinline__ void lora_stage(const LSrc& src, int r0, int nr,
+                                        int k0, int cnt, float* xs) {
+  const int per_row = cnt / 4;
+  for (int idx = threadIdx.x; idx < kMaxRB * per_row; idx += kThreads) {
+    const int r = idx / per_row, i = 4 * (idx - r * per_row);
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (r < nr) {
+      const size_t at = (size_t)(r0 + r) * src.ld + k0 + i;
+      const float4 av = __ldcg(reinterpret_cast<const float4*>(src.a + at));
+      float4 bv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (src.mode == 2)
+        bv = __ldcg(reinterpret_cast<const float4*>(src.b + at));
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (src.mode == 0) {
+          const size_t wi = (size_t)k0 + i + e;
+          const float nw =
+              src.nwb ? __bfloat162float(
+                            static_cast<const __nv_bfloat16*>(src.nw)[wi])
+                      : static_cast<const float*>(src.nw)[wi];
+          v[e] = __fmul_rn(__fmul_rn(a4[e], src.rs[r0 + r]), nw);
+        } else if (src.mode == 1) {
+          v[e] = a4[e];
+        } else {
+          v[e] = __fmul_rn(act_fn(src.act, a4[e]), b4[e]);
+        }
+      }
+    }
+    *reinterpret_cast<float4*>(xs + (size_t)r * kLoraChunk + i) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// One x . A item: contraction rows [k0, k0 + cnt) of the layer's A [in,
+// lsr] and arena columns [c0, c0 + 32), for every row of the call, into
+// part [rows, lsr].  A thread owns 4 columns of one of 32 streams, which
+// sums rows k0 + st, k0 + st + 32, ... in order; the warp's 4 streams add
+// by shuffles, then the 8 warps in order.
+__device__ __noinline__ void lora_xa_item(const Args& a, const LSrc& src,
+                                          const float* A, int k0, int cnt,
+                                          int c0, float* part, float* smem) {
+  constexpr int PER = kLoraChunk / 32;
+  float* xs = smem;                             // [kMaxRB][kLoraChunk]
+  float* red = smem + kMaxRB * kLoraChunk;      // [kWarps][kMaxRB][32]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = lane & 7, st = tid >> 3;
+  const int lsr = a.lsr;
+  for (int r0 = 0; r0 < a.rows; r0 += kMaxRB) {
+    const int nr = min(kMaxRB, a.rows - r0);
+    float4 av[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int k = st + 32 * i;
+      av[i] = k < cnt ? __ldg(reinterpret_cast<const float4*>(
+                            A + (size_t)(k0 + k) * lsr + c0 + 4 * cg))
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
+    lora_stage(src, r0, nr, k0, cnt, xs);
+    __syncthreads();
+    float acc[kMaxRB][4];
+#pragma unroll
+    for (int r = 0; r < kMaxRB; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int k = st + 32 * i;
+      if (k < cnt) {
+        const float w4[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+#pragma unroll
+        for (int r = 0; r < kMaxRB; ++r) {
+          const float xv = xs[r * kLoraChunk + k];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(xv, w4[e], acc[r][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRB; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = acc[r][e];
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        acc[r][e] = v;
+      }
+    if (lane < 8) {
+#pragma unroll
+      for (int r = 0; r < kMaxRB; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[(warp * kMaxRB + r) * kTileN + 4 * cg + e] = acc[r][e];
+    }
+    __syncthreads();
+    for (int idx = tid; idx < nr * kTileN; idx += kThreads) {
+      const int r = idx >> 5, c = idx & 31;
+      float sum = red[r * kTileN + c];
+      for (int w = 1; w < kWarps; ++w) sum += red[(w * kMaxRB + r) * kTileN + c];
+      part[(size_t)(r0 + r) * lsr + c0 + c] = sum;
+    }
+  }
+  __syncthreads();
+}
+
+// The x . A phase of targets [t0, t1), which share the contraction ``in``
+// and the inputs ``src``: items (target, chunk, 32-column tile) over the
+// grid, a tile no row selects skipped.
+__device__ void lora_xa_phase(const Args& a, int l, int t0, int t1, int in,
+                              const LSrc& src, unsigned used, float* smem) {
+  const int ntile = a.lsr / kTileN;
+  const int nch = (in + kLoraChunk - 1) / kLoraChunk;
+  const int per_t = nch * ntile;
+  for (int it = blockIdx.x; it < (t1 - t0) * per_t; it += gridDim.x) {
+    const int t = t0 + it / per_t, rem = it % per_t;
+    const int ch = rem / ntile, tile = rem % ntile;
+    if (!a.la[t] || !((used >> tile) & 1u)) continue;
+    const int k0 = ch * kLoraChunk;
+    lora_xa_item(a, src, a.la[t] + (size_t)l * in * a.lsr, k0,
+                 min(kLoraChunk, in - k0), tile * kTileN,
+                 a.lpart + ((size_t)t * a.lch + ch) * a.rows * a.lsr, smem);
+  }
+}
+
+// The B product of target t for rows [r0, r0 + nr) and output columns [n,
+// n + 32): dl[r * 32 + c] = sum over arena columns j in order of
+// (x . A)[j] * mask[j] * B[j][n + c], zero terms skipped; live[r] = 1 when
+// row r0 + r's mask row is not all zero.  (x . A)[j] adds the chunks'
+// partials in chunk order (their loads issued 8 at a time).  ``ls`` holds
+// the pass's products (x . A) * mask, dl, live and the products' key: a
+// block's next tile of the same layer, target and rows reuses them when
+// the arena fits one piece.
+__device__ __noinline__ void lora_delta(const Args& a, int t, int l, int in,
+                                        int N, int r0, int nr, int n,
+                                        float* ls) {
+  float* xm = ls;                               // [kMaxRB][kLoraPiece]
+  float* dl = xm + kMaxRB * kLoraPiece;         // [kMaxRB][32]
+  int* live = reinterpret_cast<int*>(dl + kMaxRB * kTileN);
+  int* key = live + kMaxRB;
+  const float* B = a.lb[t] + (size_t)l * a.lsr * N;
+  const int nch = (in + kLoraChunk - 1) / kLoraChunk;
+  const size_t cstride = (size_t)a.rows * a.lsr;
+  const float* part = a.lpart + (size_t)t * a.lch * cstride;
+  const int tid = threadIdx.x, c = tid & 31, rr = tid >> 5;
+  const bool one_piece = a.lsr <= kLoraPiece;
+  const int want = (l * 8 + t) * kMaxRows + r0;
+  __syncthreads();
+  const bool held = one_piece && *key == want;
+  __syncthreads();                              // key read before rewritten
+  if (!held && tid < kMaxRB) live[tid] = 0;
+  float acc[2] = {0.0f, 0.0f};
+  for (int p0 = 0; p0 < a.lsr; p0 += kLoraPiece) {
+    const int pw = min(kLoraPiece, a.lsr - p0);
+    if (!held) {
+      __syncthreads();
+      for (int idx = tid; idx < kMaxRB * pw; idx += kThreads) {
+        const int r = idx / pw, j = idx - r * pw;
+        float v = 0.0f;
+        if (r < nr) {
+          const size_t at = (size_t)(r0 + r) * a.lsr + p0 + j;
+          const float m = a.lmask[at];
+          if (m != 0.0f) {
+            float sum = 0.0f;
+            for (int c0 = 0; c0 < nch; c0 += 8) {
+              float pv[8];
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                pv[e] = c0 + e < nch
+                            ? __ldcg(part + (size_t)(c0 + e) * cstride + at)
+                            : 0.0f;
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                if (c0 + e < nch) sum = c0 + e ? __fadd_rn(sum, pv[e]) : pv[e];
+            }
+            v = __fmul_rn(sum, m);
+            live[r] = 1;
+          }
+        }
+        xm[r * kLoraPiece + j] = v;
+      }
+      __syncthreads();
+      if (tid == 0) *key = one_piece ? want : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = rr + 8 * q;
+      if (r >= nr) continue;                    // the same for the warp
+      const float* xr = xm + r * kLoraPiece;
+      for (int j0 = 0; j0 < pw; j0 += 32) {
+        float xv[32];
+        bool any = false;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          xv[e] = xr[j0 + e];
+          any |= xv[e] != 0.0f;
+        }
+        if (!any) continue;                     // the same for the warp
+        float bv[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          bv[e] = __ldg(B + (size_t)(p0 + j0 + e) * N + n + c);
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if (xv[e] != 0.0f) acc[q] = fmaf(xv[e], bv[e], acc[q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    if (rr + 8 * q < nr) dl[(rr + 8 * q) * kTileN + c] = acc[q];
+  __syncthreads();
+}
+
+// the epilogue's delta for output tile [n, n + 32) of target t, or null
+// (no arena for t, or no LoRA in this launch); then y + dl[idx] for a live
+// row (lora_add's site)
+__device__ __forceinline__ const float* lora_tile(const Args& a, bool on,
+                                                  int t, int l, int in, int N,
+                                                  int r0, int nr, int n,
+                                                  float* smem) {
+  if (!on || !a.la[t]) return nullptr;
+  lora_delta(a, t, l, in, N, r0, nr, n, smem + kLs);
+  return smem + kLs + kMaxRB * kLoraPiece;
+}
+
+__device__ __forceinline__ float lora_add(const float* dl, int idx, float y) {
+  if (!dl) return y;
+  const int* live = reinterpret_cast<const int*>(dl + kMaxRB * kTileN);
+  return live[idx >> 5] ? __fadd_rn(y, dl[idx]) : y;
+}
+
+// norm + q/k/v + scale epilogue (+ the LoRA delta) + RoPE
 template <typename T>
-__device__ void phase_qkv(const Args& a, int l, float* smem) {
+__device__ void phase_qkv(const Args& a, int l, bool lora, float* smem) {
   float* out = smem + kOut;
   float* out2 = smem + kOut2;
   float* rs = smem + kRs;
@@ -604,10 +915,11 @@ __device__ void phase_qkv(const Args& a, int l, float* smem) {
       const Mat m = layer_mat<T>(a, which, l, h, N);
       float* dst = which == 0 ? a.q : which == 1 ? a.kn : a.vn;
       gemv<T>(m, src, r0, nr, n, 0, h, staged, smem, out);
+      const float* dl = lora_tile(a, lora, which, l, h, N, r0, nr, n, smem);
       for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
         float y = out[idx];
         if (m.kind == 8) y = __fmul_rn(y, m.s[n + (idx & 31)]);
-        out2[idx] = y;
+        out2[idx] = lora_add(dl, idx, y);
       }
       __syncthreads();
       for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
@@ -626,23 +938,25 @@ __device__ void phase_qkv(const Args& a, int l, float* smem) {
 }
 
 // y (the pass's rows x 32 columns of a GEMV, in ``out``) times an int8
-// column scale, added to the residual
+// column scale, plus the LoRA delta ``dl`` (or none), added to the residual
 __device__ __forceinline__ void add_to_residual(const Args& a, const Mat& m,
                                                 int r0, int nr, int n,
-                                                const float* out) {
+                                                const float* out,
+                                                const float* dl) {
   for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
     const int c = n + (idx & 31);
     float y = out[idx];
     if (m.kind == 8) y = __fmul_rn(y, m.s[c]);
+    y = lora_add(dl, idx, y);
     float* rp = a.res + (size_t)(r0 + (idx >> 5)) * a.h + c;
     *rp = __fadd_rn(__ldcg(rp), y);
   }
   __syncthreads();
 }
 
-// wo and the residual
+// wo (+ the LoRA delta) and the residual
 template <typename T>
-__device__ void phase_wo(const Args& a, int l, float* smem) {
+__device__ void phase_wo(const Args& a, int l, bool lora, float* smem) {
   float* out = smem + kOut;
   const int h = a.h, nqd = a.nq * a.d;
   const Src src{1, a.ctx, nullptr, nullptr, nullptr, nqd, 0};
@@ -653,14 +967,16 @@ __device__ void phase_wo(const Args& a, int l, float* smem) {
     const bool staged = stage_rows<T>(src, r0, nr, 0, nqd, smem);
     for (int t = blockIdx.x; t < h / kTileN; t += gridDim.x) {
       gemv<T>(m, src, r0, nr, t * kTileN, 0, nqd, staged, smem, out);
-      add_to_residual(a, m, r0, nr, t * kTileN, out);
+      add_to_residual(a, m, r0, nr, t * kTileN, out,
+                      lora_tile(a, lora, 3, l, nqd, h, r0, nr, t * kTileN,
+                                smem));
     }
   }
 }
 
-// norm + gate/up
+// norm + gate/up (+ the LoRA deltas)
 template <typename T>
-__device__ void phase_gateup(const Args& a, int l, float* smem) {
+__device__ void phase_gateup(const Args& a, int l, bool lora, float* smem) {
   float* out = smem + kOut;
   float* rs = smem + kRs;
   const int h = a.h, ffn = a.ffn;
@@ -678,20 +994,22 @@ __device__ void phase_gateup(const Args& a, int l, float* smem) {
       const Mat m = layer_mat<T>(a, which, l, h, ffn);
       float* dst = which == 4 ? a.gate : a.up;
       gemv<T>(m, src, r0, nr, n, 0, h, staged, smem, out);
+      const float* dl = lora_tile(a, lora, which, l, h, ffn, r0, nr, n, smem);
       for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
         const int c = n + (idx & 31);
         float y = out[idx];
         if (m.kind == 8) y = __fmul_rn(y, m.s[c]);
-        dst[(size_t)(r0 + (idx >> 5)) * ffn + c] = y;
+        dst[(size_t)(r0 + (idx >> 5)) * ffn + c] = lora_add(dl, idx, y);
       }
       __syncthreads();
     }
   }
 }
 
-// act(gate) * up, w_down in nm chunks, each added to the residual in turn
+// act(gate) * up, w_down in nm chunks, each added to the residual in turn,
+// then the LoRA delta of w_down (over the whole ffn contraction) once
 template <typename T>
-__device__ void phase_down(const Args& a, int l, float* smem) {
+__device__ void phase_down(const Args& a, int l, bool lora, float* smem) {
   float* out = smem + kOut;
   const int h = a.h, ffn = a.ffn, fc = a.ffn / a.nm;
   const Src src{2, a.gate, a.up, nullptr, nullptr, ffn, a.act};
@@ -705,8 +1023,20 @@ __device__ void phase_down(const Args& a, int l, float* smem) {
       for (int t = blockIdx.x; t < h / kTileN; t += gridDim.x) {
         gemv<T>(m, src, r0, nr, t * kTileN, k * fc, (k + 1) * fc, staged,
                 smem, out);
-        add_to_residual(a, m, r0, nr, t * kTileN, out);
+        add_to_residual(a, m, r0, nr, t * kTileN, out, nullptr);
       }
+    }
+    if (!lora || !a.la[6]) continue;
+    // the same block owns tile t in every chunk, so its chunks are in
+    for (int t = blockIdx.x; t < h / kTileN; t += gridDim.x) {
+      const float* dl = lora_tile(a, lora, 6, l, ffn, h, r0, nr, t * kTileN,
+                                  smem);
+      for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+        float* rp = a.res + (size_t)(r0 + (idx >> 5)) * h + t * kTileN
+                    + (idx & 31);
+        *rp = lora_add(dl, idx, __ldcg(rp));
+      }
+      __syncthreads();
     }
   }
 }
@@ -1057,18 +1387,53 @@ __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Args a) 
   const int first = blockIdx.x * kThreads + threadIdx.x;
   for (int i = first; i < a.rows * a.h; i += nthr)
     a.res[i] = ld1<T>(static_cast<const T*>(a.x) + i);
+  // LoRA: the arena tiles some row selects (none: no LoRA phase at all)
+  const unsigned used = a.lsr ? lora_tiles(a, smem) : 0u;
+  const bool lora = used != 0u;
+  const bool lq = lora && (a.la[0] || a.la[1] || a.la[2]);
+  const bool lo = lora && a.la[3];
+  const bool lgu = lora && (a.la[4] || a.la[5]);
+  const bool ld = lora && a.la[6];
+  const int nwb = sizeof(T) == 2;
   grid_sync(a.bar, target);
   for (int l = 0; l < a.L; ++l) {
-    phase_qkv<T>(a, l, smem);
+    const size_t lh = (size_t)l * a.h;
+    if (lq) {
+      row_rstd(a.res, a.rows, a.h, a.eps, smem + kRs);
+      lora_xa_phase(a, l, 0, 3, a.h,
+                    LSrc{0, a.res, nullptr, static_cast<const T*>(a.nw1) + lh,
+                         nwb, smem + kRs, a.h, 0}, used, smem);
+      grid_sync(a.bar, target);
+    }
+    phase_qkv<T>(a, l, lq, smem);
     grid_sync(a.bar, target);
     for (int it = blockIdx.x; it < a.rows * a.nkv; it += gridDim.x)
       attend<C>(a, l, it / a.nkv, it % a.nkv, smem);
     grid_sync(a.bar, target);
-    phase_wo<T>(a, l, smem);
+    if (lo) {
+      lora_xa_phase(a, l, 3, 4, a.nq * a.d,
+                    LSrc{1, a.ctx, nullptr, nullptr, 0, nullptr,
+                         a.nq * a.d, 0}, used, smem);
+      grid_sync(a.bar, target);
+    }
+    phase_wo<T>(a, l, lo, smem);
     grid_sync(a.bar, target);
-    phase_gateup<T>(a, l, smem);
+    if (lgu) {
+      row_rstd(a.res, a.rows, a.h, a.eps, smem + kRs);
+      lora_xa_phase(a, l, 4, 6, a.h,
+                    LSrc{0, a.res, nullptr, static_cast<const T*>(a.nw2) + lh,
+                         nwb, smem + kRs, a.h, 0}, used, smem);
+      grid_sync(a.bar, target);
+    }
+    phase_gateup<T>(a, l, lgu, smem);
     grid_sync(a.bar, target);
-    phase_down<T>(a, l, smem);
+    if (ld) {
+      lora_xa_phase(a, l, 6, 7, a.ffn,
+                    LSrc{2, a.gate, a.up, nullptr, 0, nullptr, a.ffn, a.act},
+                    used, smem);
+      grid_sync(a.bar, target);
+    }
+    phase_down<T>(a, l, ld, smem);
     grid_sync(a.bar, target);
   }
   for (int i = first; i < a.rows * a.h; i += nthr)
@@ -1157,6 +1522,16 @@ extern "C" int decode_step_launch(const void* args, int dtype,
       || a->nm < 1 || a->ffn % (a->nm * kTileN)
       || (a->paged && a->width != (1 << a->shift)))
     return cudaErrorInvalidValue;
+  if (a->lsr) {
+    const int nqd = a->nq * a->d;
+    const int in_max = a->ffn > nqd ? (a->ffn > a->h ? a->ffn : a->h)
+                                    : (nqd > a->h ? nqd : a->h);
+    if (a->lsr < 0 || a->lsr % kTileN || a->lsr > kMaxLoraSr || !a->lmask
+        || !a->lpart || a->lch * kLoraChunk < in_max)
+      return cudaErrorInvalidValue;
+    for (int t = 0; t < 7; ++t)
+      if (!a->la[t] != !a->lb[t]) return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tree_err = check_tree(a, s);
   if (tree_err) return tree_err;

@@ -12,13 +12,17 @@
   speculative verify window, linear or a tree (``csrc/decode_step.cu``).
 - ``build.py``: ``nvcc`` into ``build/kernels/`` and ``ctypes`` loading.
 
-Each wrapper counts its launches in a ``launches`` attribute.
+Each wrapper counts its launches in a ``launches`` attribute; the fused
+decode step's wrappers count their launches with a LoRA arena apart, in
+``<wrapper>.lora.launches``.
 """
 
 
 def launch_counters() -> dict:
-    """``{kernel name: wrapper}`` of every kernel wrapper with a launch
-    counter (read and reset through ``wrapper.launches``)."""
+    """``{kernel name: counter}`` of every kernel wrapper's launch counter
+    (read and reset through ``counter.launches``): the wrappers
+    themselves, and ``<name>_lora`` for the fused decode step's launches
+    with a LoRA arena."""
     from .decode_step import (
         fused_decode_step,
         fused_decode_step_paged,
@@ -58,4 +62,9 @@ def launch_counters() -> dict:
             "fused_decode_step_paged": fused_decode_step_paged,
             "fused_decode_verify_paged": fused_decode_verify_paged,
             "fused_decode_verify_tree_paged":
-                fused_decode_verify_tree_paged}
+                fused_decode_verify_tree_paged,
+            "fused_decode_step_lora": fused_decode_step.lora,
+            "fused_decode_step_paged_lora": fused_decode_step_paged.lora,
+            "fused_decode_verify_paged_lora": fused_decode_verify_paged.lora,
+            "fused_decode_verify_tree_paged_lora":
+                fused_decode_verify_tree_paged.lora}

@@ -32,9 +32,19 @@ the rows are the new K/V in the cache's dtype, or for an int8 cache fp32
 values already ``fake_quantize_rows``-ed, which the caller's
 ``quantize_rows`` maps to the very codes the kernel attended.
 
-Not ported here: the LoRA epilogue (``lora=`` raises
-``NotImplementedError`` naming its ROADMAP item) and the TPU kernel's
-``DECODE_STEP_PHASES`` debug switch, which is not ported at all (its
+``lora=(arenas, mask)`` adds the multi-tenant LoRA epilogue of
+``ops/lora.py`` (JAX ``_decode_step_kernel``'s ``lora_add``): for every
+target in the arenas, ``y += ((x·A) ⊙ mask)·B`` in fp32 with the fp32
+input (the normed residual, the context, ``act(gate) * up``), never the
+compute-dtype copy the base product reads; q/k/v take it after the int8
+scale and before RoPE, wo and gate/up after their products, and w_down
+once after the last MLP chunk.  The mask is ``[rows, Sr]`` (K14: per slot
+``[S, Sr]``, repeated over the window, so drafts verify under the
+requester's adapter).  A row whose mask row is zero gets the no-arena
+numbers.  The wrappers count a launch with an arena apart
+(``<wrapper>.lora.launches``).
+
+Not ported: the TPU kernel's ``DECODE_STEP_PHASES`` debug switch (its
 outputs are garbage by design).
 """
 
@@ -42,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import types
 from typing import Optional
 
 import torch
@@ -50,6 +61,7 @@ import torch.nn.functional as F
 from ..ops.activations import is_glu
 from ..ops.kv_quant import fake_quantize_rows, is_quantized_cache, \
     quantize_rows
+from ..ops.lora import LORA_TARGETS, arena_sr, lora_delta
 from ..ops.quant import int4_group_size, is_quantized, weight_bits
 from . import build
 
@@ -72,6 +84,11 @@ KERNEL_MAX_ROWS = 64      # rows of one call: slots x window
 KERNEL_MAX_WINDOW = 8
 KERNEL_TILE = 32          # GEMV output columns per tile
 KERNEL_MIN_BLOCK = 16     # pool blocks: powers of two from 16
+# LoRA arenas: the stacked rank in whole 32-column tiles, at most 32 tiles
+# (one bit each in the kernel's 32-bit word of tiles some row selects);
+# x·A runs in 512-row contraction chunks
+KERNEL_MAX_LORA_SR = 1024
+KERNEL_LORA_CHUNK = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -234,12 +251,22 @@ def _cache_fits(cfg, cache) -> bool:
     return is_quantized_cache(cache) or cache.dtype == cfg.dtype
 
 
+def lora_fits(lora_sr: int) -> bool:
+    """A stacked LoRA rank the kernel takes (0: no arena): whole 32-column
+    tiles, at most ``KERNEL_MAX_LORA_SR`` (JAX's ``% 128`` is a TPU lane
+    term and its VMEM arena term has no counterpart: the arenas stream
+    from device memory and the x·A partial sums live in scratch)."""
+    return lora_sr == 0 or (lora_sr % KERNEL_TILE == 0
+                            and 0 < lora_sr <= KERNEL_MAX_LORA_SR)
+
+
 def fused_decode_eligible(cfg, params, k_cache, s: int,
                           lora_sr: int = 0) -> bool:
     """The dense fused route (K12) for ``forward_cached``: one new token
-    (``s == 1``), the stack checks, and a batch the kernel takes.  It does
-    not look at the device: on the CPU the route runs the plain version."""
-    if s != 1 or lora_sr:
+    (``s == 1``), the stack checks, a batch and a LoRA arena the kernel
+    takes.  It does not look at the device: on the CPU the route runs the
+    plain version."""
+    if s != 1 or not lora_fits(lora_sr):
         return False
     if _stack_eligible(cfg, params) is None or not _cache_fits(cfg, k_cache):
         return False
@@ -260,10 +287,10 @@ def fused_paged_decode_eligible(cfg, params, k_pool, n_slots: int,
                                 table_blocks: int,
                                 lora_sr: int = 0) -> bool:
     """The paged fused route (K13) for the engine's decode step: the stack
-    checks, a power-of-two pool block from 16, and a slot count the kernel
-    takes."""
-    return not lora_sr and _pool_fits(cfg, params, k_pool, n_slots,
-                                      table_blocks)
+    checks, a power-of-two pool block from 16, a slot count and a LoRA
+    arena the kernel takes."""
+    return lora_fits(lora_sr) and _pool_fits(cfg, params, k_pool, n_slots,
+                                             table_blocks)
 
 
 def fused_paged_verify_eligible(cfg, params, k_pool, n_slots: int,
@@ -271,7 +298,7 @@ def fused_paged_verify_eligible(cfg, params, k_pool, n_slots: int,
                                 lora_sr: int = 0) -> bool:
     """The speculative verify route (K14, a linear window or a tree):
     K13's checks over ``n_slots * window`` rows, a window up to 8."""
-    if lora_sr or window < 1 or window > KERNEL_MAX_WINDOW:
+    if not lora_fits(lora_sr) or window < 1 or window > KERNEL_MAX_WINDOW:
         return False
     return _pool_fits(cfg, params, k_pool, n_slots * window, table_blocks)
 
@@ -335,13 +362,28 @@ def _attend_row(q, kc, vc, kn, vn, g: int, scale: float):
     return ctx.reshape(nkv * g * d)
 
 
-def _plain_stack(cfg, stacked, x, k_view, v_view, fills, rope):
+def _lora_epi(lora, target: str, layer: int, x32: torch.Tensor):
+    """The LoRA delta of ``target`` at ``layer`` for fp32 inputs ``x32``
+    ``[rows, in]`` (None without an arena for it)."""
+    if lora is None or target not in lora[0]:
+        return None
+    f = lora[0][target]
+    return lora_delta(x32, f["a"][layer], f["b"][layer], lora[1])
+
+
+def _plus(y: torch.Tensor, delta) -> torch.Tensor:
+    return y if delta is None else y + delta
+
+
+def _plain_stack(cfg, stacked, x, k_view, v_view, fills, rope, lora=None):
     """The stack for one new token per row over dense views ``[L, rows,
     kv, width(, d)]`` (row r attends its columns ``[0, fills[r])`` and sits
     at position ``fills[r]``) → ``(hidden, k_rows, v_rows)`` as the
     wrappers return them.  Each row's attention reads exactly its own
     columns, so a row's numbers do not depend on the view's width: over
-    the tables' gathered view the paged step gives the dense step's bits."""
+    the tables' gathered view the paged step gives the dense step's bits.
+    ``lora`` is ``(arenas, [rows, Sr] mask)``; each delta is added where
+    the kernel adds it, from the fp32 input the kernel reads."""
     L = _leaf(k_view).shape[0]
     rows, h = x.shape
     nq, nkv, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
@@ -361,10 +403,14 @@ def _plain_stack(cfg, stacked, x, k_view, v_view, fills, rope):
     v_out = torch.empty_like(k_out)
     x32 = x.float()
     for li in range(L):
-        xn = _rms(x32, stacked["input_norm"]["scale"][li], eps).to(cdt)
-        q = _dot(xn, attn["wq"], li, cdt).reshape(rows, nq, d)
-        k = _dot(xn, attn["wk"], li, cdt).reshape(rows, nkv, d)
-        v = _dot(xn, attn["wv"], li, cdt).reshape(rows, nkv, d)
+        xn32 = _rms(x32, stacked["input_norm"]["scale"][li], eps)
+        xn = xn32.to(cdt)
+        q = _plus(_dot(xn, attn["wq"], li, cdt),
+                  _lora_epi(lora, "wq", li, xn32)).reshape(rows, nq, d)
+        k = _plus(_dot(xn, attn["wk"], li, cdt),
+                  _lora_epi(lora, "wk", li, xn32)).reshape(rows, nkv, d)
+        v = _plus(_dot(xn, attn["wv"], li, cdt),
+                  _lora_epi(lora, "wv", li, xn32)).reshape(rows, nkv, d)
         q = _rope_apply(q, c_rows, s_rows)
         k = _rope_apply(k, c_rows, s_rows)
         if cq8:
@@ -375,13 +421,19 @@ def _plain_stack(cfg, stacked, x, k_view, v_view, fills, rope):
             _attend_row(q[r], _cache_cols(k_view, li, r, fills_l[r]),
                         _cache_cols(v_view, li, r, fills_l[r]), k[r], v[r],
                         g, scale) for r in range(rows)])
-        x32 = x32 + _dot(ctx.to(cdt), attn["wo"], li, cdt)
-        xn2 = _rms(x32, stacked["post_attn_norm"]["scale"][li], eps).to(cdt)
-        hid = (act(_dot(xn2, mlp["w_gate"], li, cdt))
-               * _dot(xn2, mlp["w_up"], li, cdt)).to(cdt)
+        x32 = x32 + _plus(_dot(ctx.to(cdt), attn["wo"], li, cdt),
+                          _lora_epi(lora, "wo", li, ctx))
+        xn2_32 = _rms(x32, stacked["post_attn_norm"]["scale"][li], eps)
+        xn2 = xn2_32.to(cdt)
+        hid32 = (act(_plus(_dot(xn2, mlp["w_gate"], li, cdt),
+                           _lora_epi(lora, "w_gate", li, xn2_32)))
+                 * _plus(_dot(xn2, mlp["w_up"], li, cdt),
+                         _lora_epi(lora, "w_up", li, xn2_32)))
+        hid = hid32.to(cdt)
         for c in range(nm):
             sl = slice(c * fc, (c + 1) * fc)
             x32 = x32 + _dot(hid[:, sl], mlp["w_down"], li, cdt, rows=sl)
+        x32 = _plus(x32, _lora_epi(lora, "w_down", li, hid32))
     return x32.to(x.dtype), k_out, v_out
 
 
@@ -425,27 +477,29 @@ def _fills(cache_len, b: int, device) -> torch.Tensor:
 
 
 def fused_decode_step_plain(cfg, stacked, x, k_cache, v_cache, cache_len,
-                            rope):
+                            rope, lora=None):
     """K12's function in plain torch."""
     return _plain_stack(cfg, stacked, x, k_cache, v_cache,
-                        _fills(cache_len, x.shape[0], x.device), rope)
+                        _fills(cache_len, x.shape[0], x.device), rope, lora)
 
 
 def fused_decode_step_paged_plain(cfg, stacked, x, k_pool, v_pool, tables,
-                                  fills, rope):
+                                  fills, rope, lora=None):
     """K13's function: K12's over the tables' gathered view."""
     tables = torch.as_tensor(tables, device=x.device)
     return fused_decode_step_plain(cfg, stacked, x, _gather(k_pool, tables),
-                                   _gather(v_pool, tables), fills, rope)
+                                   _gather(v_pool, tables), fills, rope,
+                                   lora)
 
 
 def fused_decode_verify_paged_plain(cfg, stacked, x, k_pool, v_pool, tables,
-                                    fills, rope):
+                                    fills, rope, lora=None):
     """K14's function: W sequential single-token steps over one gathered
     view, each step's rows written back as the host writes them into the
     pool (cast to the pool's dtype, or ``quantize_rows``), so window
     position j sees rows 0..j-1 exactly as a pool round trip returns
-    them.  → ``(hidden [S, W, h], k_rows [L, S*W, kv, 1, d], v_rows)``."""
+    them.  → ``(hidden [S, W, h], k_rows [L, S*W, kv, 1, d], v_rows)``.
+    ``lora``'s mask is per slot, ``[S, Sr]``."""
     S, W, _ = x.shape
     tables = torch.as_tensor(tables, device=x.device)
     fills = _fills(fills, S, x.device)
@@ -453,7 +507,7 @@ def fused_decode_verify_paged_plain(cfg, stacked, x, k_pool, v_pool, tables,
     hs, ks, vs = [], [], []
     for j in range(W):
         hj, kr, vr = _plain_stack(cfg, stacked, x[:, j], kd, vd, fills + j,
-                                  rope)
+                                  rope, lora)
         hs.append(hj)
         ks.append(kr)
         vs.append(vr)
@@ -491,7 +545,8 @@ def check_tree(depths: torch.Tensor, anc: torch.Tensor) -> None:
 
 
 def fused_decode_verify_tree_paged_plain(cfg, stacked, x, k_pool, v_pool,
-                                         tables, fills, rope, depths, anc):
+                                         tables, fills, rope, depths, anc,
+                                         lora=None):
     """K14's tree mode: node j of slot s runs at ``fills[s] + depths[s,
     j]``, attends the slot's columns ``[0, fill)`` and, at column ``fill +
     dd``, the row of its ancestor ``anc[s, j, dd]`` as a pool round trip
@@ -519,7 +574,7 @@ def fused_decode_verify_tree_paged_plain(cfg, stacked, x, k_pool, v_pool,
             _write_rows(kd, kst[:, ar, src], fills + dd)
             _write_rows(vd, vst[:, ar, src], fills + dd)
         hj, kr, vr = _plain_stack(cfg, stacked, x[:, j], kd, vd, fills + dj,
-                                  rope)
+                                  rope, lora)
         hs.append(hj)
         ks.append(kr)
         vs.append(vr)
@@ -548,10 +603,12 @@ class _Args(ctypes.Structure):
         ("k_rows", _P), ("v_rows", _P),
         ("res", _P), ("q", _P), ("kn", _P), ("vn", _P), ("ctx", _P),
         ("gate", _P), ("up", _P), ("bar", _P),
+        ("la", _P * 7), ("lb", _P * 7), ("lmask", _P), ("lpart", _P),
         ("L", _I), ("rows", _I), ("W", _I), ("h", _I), ("nq", _I),
         ("nkv", _I), ("d", _I), ("ffn", _I), ("nm", _I), ("aq", _I),
         ("mq", _I), ("gsz", _I), ("act", _I), ("paged", _I), ("n_ent", _I),
-        ("width", _I), ("shift", _I), ("n_tbl", _I),
+        ("width", _I), ("shift", _I), ("n_tbl", _I), ("lsr", _I),
+        ("lch", _I),
         ("eps", _F), ("scale", _F),
     ]
 
@@ -568,12 +625,49 @@ def _ptr(t: Optional[torch.Tensor], name: str, what: str) -> Optional[int]:
     return t.data_ptr()
 
 
+def _set_lora(a: "_Args", name: str, cfg, lora, rows: int, L: int,
+              device) -> list:
+    """Point ``a`` at a LoRA bundle ``(arenas, [rows, Sr] mask)`` after
+    checking the arenas (the mask's shape: ``_check_lora``), and allocate
+    the x·A partial sums; → the tensors the launch must keep alive."""
+    from ..ops.lora import lora_target_shapes
+
+    arenas, mask = lora
+    lsr = arena_sr(arenas)
+    if not lsr or not lora_fits(lsr):
+        raise ValueError(f"{name}: the kernel takes a LoRA arena of "
+                         f"{KERNEL_TILE}-column tiles up to "
+                         f"{KERNEL_MAX_LORA_SR} columns, got {lsr}")
+    mask = mask.to(torch.float32).contiguous()   # [rows, lsr]: _check_lora
+    shapes = lora_target_shapes(cfg)
+    for i, t in enumerate(LORA_TARGETS):
+        if t not in arenas:
+            continue
+        fin, fout = shapes[t]
+        fa, fb = arenas[t]["a"], arenas[t]["b"]
+        if fa.dtype != torch.float32 or fb.dtype != torch.float32 \
+                or tuple(fa.shape) != (L, fin, lsr) \
+                or tuple(fb.shape) != (L, lsr, fout):
+            raise ValueError(f"{name}: LoRA arena {t} must be fp32 "
+                             f"[{L}, {fin}, {lsr}] / [{L}, {lsr}, {fout}]")
+        a.la[i] = _ptr(fa, name, f"LoRA {t}.a")
+        a.lb[i] = _ptr(fb, name, f"LoRA {t}.b")
+    lch = -(-max(shapes.values(), key=lambda io: io[0])[0]
+            // KERNEL_LORA_CHUNK)
+    lpart = torch.empty(7 * lch * rows * lsr, dtype=torch.float32,
+                        device=device)
+    a.lmask, a.lpart = _ptr(mask, name, "LoRA mask"), lpart.data_ptr()
+    a.lsr, a.lch = lsr, lch
+    return [mask, lpart]
+
+
 def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope,
-            depths=None, anc=None):
+            depths=None, anc=None, lora=None):
     """One cooperative launch over ``x`` ``[rows, h]`` (rows = slots x
     W).  ``tables`` None reads a dense cache whose batch row is the row;
     ``fills`` ``[S]`` are the slots' committed fills; ``depths``/``anc``
-    make the window a tree (the kernel checks it, and refuses a bad one)."""
+    make the window a tree (the kernel checks it, and refuses a bad one);
+    ``lora`` is ``(arenas, [rows, Sr] mask)``."""
     rows, h = x.shape
     elig = _stack_form(cfg, {"layers": stacked})
     cq8 = is_quantized_cache(k)
@@ -662,6 +756,8 @@ def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope,
     a.paged, a.n_ent, a.width, a.shift = int(paged), n_ent, width, shift
     a.n_tbl = tables.shape[1] if paged else 0
     a.eps, a.scale = float(cfg.norm_eps), 1.0 / math.sqrt(d)
+    keep = [] if lora is None else _set_lora(a, name, cfg, lora, rows, L,
+                                             x.device)
     fn = build.load("decode_step").decode_step_launch
     if fn.argtypes is None:
         fn.argtypes = [_P, _I, _I, _P]
@@ -669,14 +765,32 @@ def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope,
     err = fn(ctypes.addressof(a), _DTYPE_CODES[x.dtype], int(cq8),
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, name)
+    del keep  # the LoRA mask and partial sums, alive until the launch
     return hidden, k_rows[:, :, :, None, :], v_rows[:, :, :, None, :]
 
 
-def _refuse(lora):
-    if lora is not None:
-        raise NotImplementedError(
-            "the fused decode kernels' LoRA epilogue is not ported yet "
-            "(ROADMAP.md, Queue 1: serving engine, multi-tenant LoRA)")
+def _check_lora(name: str, lora, rows: int) -> None:
+    """Raise unless ``lora`` is None or ``(arenas, mask)`` with a mask
+    ``[rows, Sr]`` over arenas of stacked rank Sr (both routes)."""
+    if lora is None:
+        return
+    arenas, mask = lora
+    lsr = arena_sr(arenas)
+    if not lsr or tuple(mask.shape) != (rows, lsr):
+        raise ValueError(f"{name}: LoRA mask {tuple(mask.shape)} for {rows} "
+                         f"rows of an arena of {lsr} columns")
+
+
+def _count(fn, lora) -> None:
+    """One launch of ``fn``'s kernel: with an arena on ``fn.lora``."""
+    (fn if lora is None else fn.lora).launches += 1
+
+
+def _window_lora(lora, W: int):
+    """A per-slot LoRA mask repeated over each slot's W window rows."""
+    if lora is None:
+        return None
+    return lora[0], torch.repeat_interleave(lora[1], W, dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -692,14 +806,16 @@ def fused_decode_step(cfg, stacked, x, k_cache, v_cache, cache_len, rope, *,
     ``[L, b, kv, max_len, d]`` (or the int8 form) not yet updated,
     ``cache_len`` a scalar or ``[b]`` fill (the new token's position).  The
     caller writes the rows at ``cache_len`` (``ops/kv_quant.cache_update``).
-    The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    _refuse(lora)
+    ``lora``: ``(arenas, [b, Sr] mask)``.  The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    _check_lora("fused_decode_step", lora, x.shape[0])
     if x.device.type == "cpu":
         return fused_decode_step_plain(cfg, stacked, x, k_cache, v_cache,
-                                       cache_len, rope)
+                                       cache_len, rope, lora)
     out = _launch("fused_decode_step", cfg, stacked, x, k_cache, v_cache,
-                  None, _fills(cache_len, x.shape[0], x.device), 1, rope)
-    fused_decode_step.launches += 1
+                  None, _fills(cache_len, x.shape[0], x.device), 1, rope,
+                  lora=lora)
+    _count(fused_decode_step, lora)
     return out
 
 
@@ -708,15 +824,16 @@ def fused_decode_step_paged(cfg, stacked, x, k_pool, v_pool, tables, fills,
     """K13 → K12's outputs, the cache read from the pool ``[L, n_blocks,
     kv, block, d]`` through ``tables`` ``[b, T]`` at per-slot ``fills``
     ``[b]`` (free slots at 0 over the trash block).  The caller appends
-    the rows at ``tables[s, fill // block]``, ``fill % block``."""
-    _refuse(lora)
+    the rows at ``tables[s, fill // block]``, ``fill % block``.  ``lora``:
+    ``(arenas, [b, Sr] mask)``."""
+    _check_lora("fused_decode_step_paged", lora, x.shape[0])
     if x.device.type == "cpu":
         return fused_decode_step_paged_plain(cfg, stacked, x, k_pool, v_pool,
-                                             tables, fills, rope)
+                                             tables, fills, rope, lora)
     out = _launch("fused_decode_step_paged", cfg, stacked, x, k_pool, v_pool,
                   torch.as_tensor(tables, device=x.device),
-                  _fills(fills, x.shape[0], x.device), 1, rope)
-    fused_decode_step_paged.launches += 1
+                  _fills(fills, x.shape[0], x.device), 1, rope, lora=lora)
+    _count(fused_decode_step_paged, lora)
     return out
 
 
@@ -729,25 +846,28 @@ def fused_decode_verify_paged(cfg, stacked, x, k_pool, v_pool, tables,
     position is bitwise what W sequential ``fused_decode_step_paged``
     calls with the host's pool writes between them give.  With
     ``depths``/``anc`` the window is a tree
-    (``fused_decode_verify_tree_paged``)."""
-    _refuse(lora)
+    (``fused_decode_verify_tree_paged``).  ``lora``: ``(arenas, [S, Sr]
+    mask)``, each slot's row of the mask over its whole window."""
+    _check_lora("fused_decode_verify_paged", lora, x.shape[0])
     if depths is not None or anc is not None:
         return fused_decode_verify_tree_paged(
-            cfg, stacked, x, k_pool, v_pool, tables, fills, rope, depths, anc)
+            cfg, stacked, x, k_pool, v_pool, tables, fills, rope, depths, anc,
+            lora=lora)
     if x.device.type == "cpu":
         return fused_decode_verify_paged_plain(cfg, stacked, x, k_pool,
-                                               v_pool, tables, fills, rope)
+                                               v_pool, tables, fills, rope,
+                                               lora)
     S, W, h = x.shape
     hidden, k_rows, v_rows = _launch(
         "fused_decode_verify_paged", cfg, stacked, x.reshape(S * W, h),
         k_pool, v_pool, torch.as_tensor(tables, device=x.device),
-        _fills(fills, S, x.device), W, rope)
-    fused_decode_verify_paged.launches += 1
+        _fills(fills, S, x.device), W, rope, lora=_window_lora(lora, W))
+    _count(fused_decode_verify_paged, lora)
     return hidden.reshape(S, W, h), k_rows, v_rows
 
 
 def fused_decode_verify_tree_paged(cfg, stacked, x, k_pool, v_pool, tables,
-                                   fills, rope, depths, anc):
+                                   fills, rope, depths, anc, *, lora=None):
     """K14's tree mode → K14's outputs.  Window column j of slot s is a
     tree node at depth ``depths[s, j]`` ``[S, W]`` whose ancestor at depth
     ``dd`` is node ``anc[s, j, dd]`` ``[S, W, W]`` (entries at or past the
@@ -756,21 +876,25 @@ def fused_decode_verify_tree_paged(cfg, stacked, x, k_pool, v_pool, tables,
     depths[s, j]`` and attends the slot's cache plus its root path, so
     each node is bitwise what sequential ``fused_decode_step_paged`` calls
     down that path give; the rows come back node-indexed and the caller
-    compacts the accepted path (``models/model.cache_move_rows``)."""
+    compacts the accepted path (``models/model.cache_move_rows``).
+    ``lora``: ``(arenas, [S, Sr] mask)``, per slot as K14's."""
+    _check_lora("fused_decode_verify_tree_paged", lora, x.shape[0])
     if x.device.type == "cpu":
         return fused_decode_verify_tree_paged_plain(
-            cfg, stacked, x, k_pool, v_pool, tables, fills, rope, depths, anc)
+            cfg, stacked, x, k_pool, v_pool, tables, fills, rope, depths, anc,
+            lora)
     S, W, h = x.shape
     hidden, k_rows, v_rows = _launch(
         "fused_decode_verify_tree_paged", cfg, stacked, x.reshape(S * W, h),
         k_pool, v_pool, torch.as_tensor(tables, device=x.device),
         _fills(fills, S, x.device), W, rope, depths=torch.as_tensor(depths),
-        anc=torch.as_tensor(anc))
-    fused_decode_verify_tree_paged.launches += 1
+        anc=torch.as_tensor(anc), lora=_window_lora(lora, W))
+    _count(fused_decode_verify_tree_paged, lora)
     return hidden.reshape(S, W, h), k_rows, v_rows
 
 
 for _fn in (fused_decode_step, fused_decode_step_paged,
             fused_decode_verify_paged, fused_decode_verify_tree_paged):
     _fn.launches = 0
+    _fn.lora = types.SimpleNamespace(launches=0)
 del _fn

@@ -15,6 +15,11 @@ axis); every cache helper maps over both leaves.  Where
 the JAX functions return updated arrays, these update the caches IN
 PLACE and return them, which saves a full cache copy per call; callers
 that need the old contents pass a copy.
+
+The cached forwards take ``lora=(arenas, mask)``, the multi-tenant LoRA
+bundle of ``ops/lora.py``: layer-stacked arenas and a per-row mask ``[b,
+Sr]`` (a verify window's mask is per slot).  The fused routes carry it
+into the kernels' epilogue, the composed routes into every layer.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..kernels.decode_step import (
 )
 from ..ops.kv_quant import cache_update, init_quantized_cache, \
     is_quantized_cache, quantize_rows
+from ..ops.lora import arena_sr
 from ..ops.norms import norm_apply, norm_init
 from ..ops.quant import embedding_lookup
 from .transformer import (
@@ -164,7 +170,7 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    k_cache, v_cache, cache_len,
                    *, rope: Optional[tuple] = None, empty_cache: bool = False,
                    last_logit_only: bool = False,
-                   logit_rows: Optional[torch.Tensor] = None):
+                   logit_rows: Optional[torch.Tensor] = None, lora=None):
     """Incremental forward: consume ``tokens`` [b, s] at positions
     ``cache_len .. cache_len + s`` (``cache_len`` an int or a [b] tensor of
     per-row fills), write their K/V into the caches in place, and return
@@ -181,7 +187,8 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     plain version on the CPU), whose new rows are then written with
     ``cache_update`` (an int8 cache requantizes the kernel's
     fake-quantized rows to the same codes).  Everything else takes the
-    composed per-layer path."""
+    composed per-layer path.  ``lora`` (``(arenas, mask)``) rides both
+    routes: the kernel's epilogue, or each layer's ``_lora_add``."""
     cos, sin = _rope(cfg, params, rope)
     b, s = tokens.shape
     offs = torch.arange(s, device=tokens.device, dtype=torch.long)
@@ -192,10 +199,11 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         position_ids = (cache_len.to(torch.long).reshape(-1, 1)
                         + offs[None, :]).expand(b, s)
     x = embed(cfg, params, tokens, position_ids)
-    if fused_decode_eligible(cfg, params, k_cache, s):
+    lora_sr = arena_sr(lora[0]) if lora is not None else 0
+    if fused_decode_eligible(cfg, params, k_cache, s, lora_sr):
         hidden, k_rows, v_rows = fused_decode_step(
             cfg, params["layers"], x[:, 0], k_cache, v_cache, cache_len,
-            (cos, sin))
+            (cos, sin), lora=lora)
         x = hidden[:, None, :]
         cache_update(k_cache, k_rows, cache_len)
         cache_update(v_cache, v_rows, cache_len)
@@ -204,7 +212,8 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                               position_ids=position_ids,
                               cache_is_empty=empty_cache)
         x, k_cache, v_cache = stack_forward_cached(
-            cfg, params["layers"], x, side, k_cache, v_cache, cache_len)
+            cfg, params["layers"], x, side, k_cache, v_cache, cache_len,
+            lora=lora)
     if last_logit_only:
         x = x[:, -1:]
     elif logit_rows is not None:
@@ -222,7 +231,7 @@ def forward_cached_paged(cfg: ModelConfig, params: Params,
                          tables: torch.Tensor,   # [b, T] int block tables
                          fills: torch.Tensor,    # [b] fill levels
                          *, rope: Optional[tuple] = None,
-                         use_fused: bool = False):
+                         use_fused: bool = False, lora=None):
     """Single-token decode over the paged pool: each slot's token attends
     the blocks its table names and its new K/V row lands in block
     ``tables[s, fill // blk]`` at offset ``fill % blk``.  Two routes, one
@@ -237,7 +246,8 @@ def forward_cached_paged(cfg: ModelConfig, params: Params,
       back.
 
     Returns ``(logits [b, 1, vocab] fp32, k_pool, v_pool)``; the pools are
-    updated in place."""
+    updated in place.  ``lora`` (``(arenas, [b, Sr] mask)``) rides either
+    route."""
     cos, sin = _rope(cfg, params, rope)
     fills = torch.as_tensor(fills, device=tokens.device).to(torch.long)
     tables = torch.as_tensor(tables, device=tokens.device).to(torch.long)
@@ -248,13 +258,14 @@ def forward_cached_paged(cfg: ModelConfig, params: Params,
         x = embed(cfg, params, tokens, fills[:, None])
         hidden, k_rows, v_rows = fused_decode_step_paged(
             cfg, params["layers"], x[:, 0], k_pool, v_pool, tables, fills,
-            (cos, sin))
+            (cos, sin), lora=lora)
         _append_fused_rows(k_pool, v_pool, k_rows, v_rows, bids, offs)
         return _logits(cfg, params, hidden[:, None, :]), k_pool, v_pool
     k_dense = cache_gather_blocks(k_pool, tables)
     v_dense = cache_gather_blocks(v_pool, tables)
     logits, k_dense, v_dense = forward_cached(
-        cfg, params, tokens, k_dense, v_dense, fills, rope=(cos, sin))
+        cfg, params, tokens, k_dense, v_dense, fills, rope=(cos, sin),
+        lora=lora)
     cache_append_rows(k_pool, cache_rows_at(k_dense, fills), bids, offs)
     cache_append_rows(v_pool, cache_rows_at(v_dense, fills), bids, offs)
     return logits, k_pool, v_pool
@@ -284,7 +295,8 @@ def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
                                 bids: torch.Tensor,    # [S*W] dest blocks
                                 offs: torch.Tensor,    # [S*W] dest offsets
                                 *, rope: Optional[tuple] = None,
-                                use_fused: bool = False, tree=None):
+                                use_fused: bool = False, tree=None,
+                                lora=None):
     """Speculative verify over the paged pool: row s of ``window`` holds
     ``[pending, draft_1 .. draft_{W-1}]`` at positions ``fills[s] ..
     fills[s] + W - 1``.  Returns logits for every window position ``[S,
@@ -310,7 +322,11 @@ def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
     ``cache_move_rows``.  The fused arm is K14's tree mode; the composed
     arm walks the nodes over one gathered view, overlaying each node's
     ancestors' rows at ``fills + dd`` before its single-token step (JAX's
-    walk; every index stays inside the view, where XLA would clamp)."""
+    walk; every index stays inside the view, where XLA would clamp).
+
+    ``lora = (arenas, [S, Sr] mask)``: every window row, the pending token
+    and each draft, runs under its slot's adapter (K14 repeats the mask
+    over the window; the composed steps take it per slot)."""
     cos, sin = _rope(cfg, params, rope)
     S, W = window.shape
     fills = torch.as_tensor(fills, device=window.device).to(torch.long)
@@ -327,7 +343,7 @@ def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
         x = embed(cfg, params, window, fills[:, None] + off)
         hidden, k_rows, v_rows = fused_decode_verify_paged(
             cfg, params["layers"], x, k_pool, v_pool, tables, fills,
-            (cos, sin), depths=depths, anc=anc)
+            (cos, sin), depths=depths, anc=anc, lora=lora)
         _append_fused_rows(k_pool, v_pool, k_rows, v_rows, bids, offs)
         return _logits(cfg, params, hidden), k_pool, v_pool
     k_dense = cache_gather_blocks(k_pool, tables)
@@ -335,12 +351,12 @@ def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
     if tree is not None:
         return _verify_tree_composed(cfg, params, window, k_pool, v_pool,
                                      k_dense, v_dense, fills, bids, offs,
-                                     depths, anc, (cos, sin))
+                                     depths, anc, (cos, sin), lora)
     steps = []
     for j in range(W):
         lj, k_dense, v_dense = forward_cached(
             cfg, params, window[:, j:j + 1], k_dense, v_dense, fills + j,
-            rope=(cos, sin))
+            rope=(cos, sin), lora=lora)
         steps.append(lj)
     cache_append_rows(k_pool, cache_rows_range(k_dense, fills, W), bids, offs)
     cache_append_rows(v_pool, cache_rows_range(v_dense, fills, W), bids, offs)
@@ -348,7 +364,8 @@ def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
 
 
 def _verify_tree_composed(cfg, params, window, k_pool, v_pool, k_dense,
-                          v_dense, fills, bids, offs, depths, anc, rope):
+                          v_dense, fills, bids, offs, depths, anc, rope,
+                          lora=None):
     """The composed tree arm of ``forward_cached_paged_verify``: before
     node j's single-token step at ``fills + depths[:, j]``, each slot's
     ancestors' stored rows (kept node-indexed, in the cache's own leaves,
@@ -384,7 +401,8 @@ def _verify_tree_composed(cfg, params, window, k_pool, v_pool, k_dense,
         overlay(v_dense, v_nodes, j)
         pj = fills + depths[:, j]
         lj, k_dense, v_dense = forward_cached(
-            cfg, params, window[:, j:j + 1], k_dense, v_dense, pj, rope=rope)
+            cfg, params, window[:, j:j + 1], k_dense, v_dense, pj, rope=rope,
+            lora=lora)
         steps.append(lj)
 
         def keep(nd, dn):

@@ -17,7 +17,9 @@ numbers, with dropout on too: ``stack_forward`` takes the stack's
 redraws the forward's masks from the same keys (``ops/dropout.py``).
 Without a key the forward is deterministic.  Serving-quantized weights
 (``ops/quant.py``) go through ``mm``; MoE layers and int8 training
-matmuls belong to later slices and raise here.
+matmuls belong to later slices and raise here.  ``stack_forward_cached``
+takes the multi-tenant LoRA bundle (``ops/lora.py``): each targeted
+projection gains its grouped epilogue right after the base product.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..ops import dropout as drop
 from ..ops.activations import get_activation, is_glu
 from ..ops.attention import attention, decode_attention
 from ..ops.kv_quant import cache_update
+from ..ops.lora import lora_delta
 from ..ops.norms import norm_apply, norm_init
 from ..ops.quant import is_quantized, mm
 from ..ops.rope import apply_rope, precompute_rope_freqs
@@ -53,8 +56,25 @@ def proj(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
     if cfg.quantize_matmuls != "none" and not is_quantized(w):
         raise NotImplementedError(
             "quantize_matmuls='int8' (W8A8 training matmuls) is not ported "
-            "yet (ROADMAP.md, Queue 1 item 13: int8 training matmul)")
+            "yet (ROADMAP.md, Queue 1 item 12: the rest, int8 training "
+            "matmul)")
     return mm(x, w)
+
+
+def _lora_add(y: torch.Tensor, x: torch.Tensor, lora, target: str):
+    """``y`` plus the grouped LoRA epilogue of ``target`` (input ``x``, the
+    projection's own input in the model's dtype, cast to fp32 inside
+    ``lora_delta``), back in y's dtype; ``y`` itself when the layer has no
+    bundle or the arena does not adapt ``target``.  ``lora`` is one
+    layer's ``(factors, mask)``: ``{target: {"a": [in, Sr], "b": [Sr,
+    out]}}`` and the per-row mask ``[b, Sr]``."""
+    if lora is None:
+        return y
+    factors, mask = lora
+    f = factors.get(target)
+    if f is None:
+        return y
+    return (y + lora_delta(x, f["a"], f["b"], mask)).to(y.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +175,7 @@ class AttnSideInputs:
 
 def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     side: AttnSideInputs, layer_key=None,
-                    kv_cache: Optional[tuple] = None):
+                    kv_cache: Optional[tuple] = None, lora=None):
     """QKV projection → RoPE → attention → output projection.
 
     With a ``layer_key`` and ``cfg.attention_dropout`` the attention
@@ -163,13 +183,15 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ``kv_cache`` is ``(k_cache, v_cache, cache_len)`` with head-major
     caches ``[b, nkv, max_len, d]``; the new rows are written into the
     caches in place (``ops/kv_quant.cache_update``) and the call returns
-    ``(out, (new_k_rows, new_v_rows))`` as in JAX."""
+    ``(out, (new_k_rows, new_v_rows))`` as in JAX.  ``lora`` is one layer's
+    bundle (``_lora_add``): q, k and v take their deltas before RoPE, wo
+    after its product."""
     b, s, _ = x.shape
     d = cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.kv_heads
-    q = proj(cfg, x, p["wq"])
-    k = proj(cfg, x, p["wk"])
-    v = proj(cfg, x, p["wv"])
+    q = _lora_add(proj(cfg, x, p["wq"]), x, lora, "wq")
+    k = _lora_add(proj(cfg, x, p["wk"]), x, lora, "wk")
+    v = _lora_add(proj(cfg, x, p["wv"]), x, lora, "wv")
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -212,7 +234,8 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         dropout_rate=(0.0 if layer_key is None
                                       else cfg.attention_dropout),
                         dropout_key=drop_key, bias=side.attn_bias)
-    out = proj(cfg, ctx.reshape(b, s, nq * d), p["wo"])
+    ctx2d = ctx.reshape(b, s, nq * d)
+    out = _lora_add(proj(cfg, ctx2d, p["wo"]), ctx2d, lora, "wo")
     if "bo" in p:
         out = out + p["bo"]
     if kv_cache is not None:
@@ -220,22 +243,24 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return out
 
 
-def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """(Gated) MLP with the GLU split as two projections."""
+def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              lora=None) -> torch.Tensor:
+    """(Gated) MLP with the GLU split as two projections; ``lora`` adds
+    each targeted projection's delta after its product."""
     act = get_activation(cfg.activation)
     if is_glu(cfg.activation):
-        gate = proj(cfg, x, p["w_gate"])
-        up = proj(cfg, x, p["w_up"])
+        gate = _lora_add(proj(cfg, x, p["w_gate"]), x, lora, "w_gate")
+        up = _lora_add(proj(cfg, x, p["w_up"]), x, lora, "w_up")
         if "b_gate" in p:
             gate = gate + p["b_gate"]
             up = up + p["b_up"]
         hidden = act(torch.cat([gate, up], dim=-1))
     else:
-        hidden = proj(cfg, x, p["w_up"])
+        hidden = _lora_add(proj(cfg, x, p["w_up"]), x, lora, "w_up")
         if "b_up" in p:
             hidden = hidden + p["b_up"]
         hidden = act(hidden)
-    out = proj(cfg, hidden, p["w_down"])
+    out = _lora_add(proj(cfg, hidden, p["w_down"]), hidden, lora, "w_down")
     if "b_down" in p:
         out = out + p["b_down"]
     return out
@@ -243,9 +268,11 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                   side: AttnSideInputs, layer_key=None,
-                  kv_cache: Optional[tuple] = None, layer_idx: int = 0):
+                  kv_cache: Optional[tuple] = None, layer_idx: int = 0,
+                  lora=None):
     """One pre-LN residual block (sequential or Falcon-parallel).  Returns
-    ``out``, or ``(out, new_rows)`` with ``kv_cache``.
+    ``out``, or ``(out, new_rows)`` with ``kv_cache``; ``lora`` is the
+    layer's LoRA bundle (``_lora_add``).
 
     With a ``layer_key`` each residual branch takes dropout then
     drop-path (reference order: residual + drop_path(dropout(out)),
@@ -267,7 +294,7 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     new_rows = None
     if kv_cache is not None:
         attn_out, new_rows = attention_block(cfg, p["attn"], h1, side,
-                                             kv_cache=kv_cache)
+                                             kv_cache=kv_cache, lora=lora)
     else:
         attn_out = attention_block(cfg, p["attn"], h1, side, layer_key)
     if cfg.parallel_attn:
@@ -276,12 +303,12 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
             mlp_in = norm_apply(cfg.norm_type, x, p["mlp_norm"], cfg.norm_eps,
                                 impl=cfg.norm_impl)
         result = residual + branch_drop(
-            attn_out + mlp_block(cfg, p["mlp"], mlp_in), 2)
+            attn_out + mlp_block(cfg, p["mlp"], mlp_in, lora), 2)
     else:
         x = residual + branch_drop(attn_out, 2)
         h2 = norm_apply(cfg.norm_type, x, p["post_attn_norm"], cfg.norm_eps,
                         impl=cfg.norm_impl)
-        result = x + branch_drop(mlp_block(cfg, p["mlp"], h2), 3)
+        result = x + branch_drop(mlp_block(cfg, p["mlp"], h2, lora), 3)
     if kv_cache is not None:
         return result, new_rows
     return result
@@ -329,20 +356,28 @@ def stack_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
 def stack_forward_cached(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
                          side: AttnSideInputs,
                          k_cache,  # [L, b, nkv, max_len, d] or int8 dict
-                         v_cache, cache_len):
+                         v_cache, cache_len, lora=None):
     """All layers threading the stacked KV cache: layer ``i`` writes its
     new rows into layer ``i`` of each cache (both leaves of the int8
     ``{"q", "scale"}`` form) in place.  Returns ``(hidden, k_cache,
-    v_cache)``; the caller advances ``cache_len``."""
+    v_cache)``; the caller advances ``cache_len``.  ``lora`` is ``(arenas,
+    mask)``: layer-stacked arenas (``ops/lora.make_arenas``) and the
+    per-row mask, each layer taking its arena slice."""
     def layer_view(cache, i):
         if isinstance(cache, dict):
             return {k: v[i] for k, v in cache.items()}
         return cache[i]
 
+    arenas, mask = lora if lora is not None else (None, None)
     for i, p in enumerate(unstack_layers(stacked)):
+        layer_lora = None
+        if arenas is not None:
+            layer_lora = ({t: {"a": f["a"][i], "b": f["b"][i]}
+                           for t, f in arenas.items()}, mask)
         x, _ = layer_forward(cfg, p, x, side,
                              kv_cache=(layer_view(k_cache, i),
-                                       layer_view(v_cache, i), cache_len))
+                                       layer_view(v_cache, i), cache_len),
+                             lora=layer_lora)
     return x, k_cache, v_cache
 
 

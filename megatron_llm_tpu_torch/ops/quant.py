@@ -21,7 +21,7 @@ transformer's projections.  The codes and scales are the JAX package's bit
 for bit: the same fp32 divisions and round-half-to-even.
 
 Not in this slice: ``int8_training_matmul`` (W8A8 training, ROADMAP.md
-Queue 1 item 13) and ``quantize_specs`` (sharded serving, item 10).
+Queue 1 item 12) and ``quantize_specs`` (sharded serving, item 11).
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ configuration of ``megatron_llm_tpu/serving``).
 - ``prefix_cache.py``: the radix trie of cached prompt prefixes.
 - ``queue.py``: bounded admission queue (``QueueFull``).
 - ``metrics.py``: counters, gauges and latency reservoirs.
+- ``adapters/``: the multi-tenant LoRA registry (arena residency, LRU
+  with pinning).
 - ``profile.py`` / ``prefix_profile.py``: where a served request's device
   time goes, and what a prefix hit costs and gives, on a card.
 """

@@ -65,10 +65,24 @@ Span tracing (``trace=True``, the default) records the JAX engine's
 spans into ``self.trace`` (``obs/trace.py``, GET /trace) and names the
 device phases with NVTX ranges on the card.
 
+Multi-tenant LoRA (``adapters=AdapterRegistry(...)`` with
+``EngineConfig(adapter_cache_slots=n)``): a request may name a registered
+``adapter_id``.  Admission pins the adapter in the registry's device arena
+(a request whose adapter finds every arena slot pinned parks at the queue
+head, as under pool pressure) and every step carries the arena and a
+per-slot arena-slot vector, turned into the one-hot mask on the device:
+the fused routes run the kernels' LoRA epilogue (K13 a decode step, K14 a
+verify step), the composed route each layer's ``_lora_add``, and rows of
+other adapters, or none, share the batch with bits of their own.  Adapter
+requests neither match nor seed the prefix cache (their K/V rows carry
+the adapter's wk/wv deltas), and a resident draft proposes under the base
+model while the target verifies under the requester's adapter.
+``swap_params`` replaces the base weights at an iteration boundary and
+leaves the arena as it is.
+
 Not in this slice, and refused at construction with ``NotImplementedError``
-naming the ROADMAP item: chunked prefill, LoRA adapters, the host KV tier,
-disaggregated roles, sanitizers, meshes and int8 training matmuls
-(``quantize_matmuls``).
+naming the ROADMAP item: chunked prefill, the host KV tier, disaggregated
+roles, sanitizers, meshes and int8 training matmuls (``quantize_matmuls``).
 """
 
 from __future__ import annotations
@@ -90,6 +104,7 @@ from ..kernels.decode_step import (
 )
 from ..models import model as model_lib
 from ..obs.trace import TraceRecorder, device_annotation
+from ..ops.lora import slot_mask
 from ..ops.quant import precision_route
 from .block_pool import BlockPool
 from .metrics import ServingMetrics
@@ -129,15 +144,12 @@ class EngineConfig:
     role: str = "mixed"
 
 
-def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh,
-                     adapters) -> None:
+def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh) -> None:
     """Raise for every configuration this slice of the port does not run,
     rather than silently ignoring it."""
     todo = [
         (ec.prefill_chunk, "prefill_chunk (chunked prefill)",
          "Queue 1: serving engine, chunked prefill"),
-        (ec.adapter_cache_slots > 0 or adapters is not None, "LoRA adapters",
-         "Queue 1: serving engine, multi-tenant LoRA"),
         (ec.host_kv_blocks > 0, "host_kv_blocks > 0 (tiered KV)",
          "Queue 1: serving engine, tiered KV"),
         (ec.role != "mixed", f"role={ec.role!r}",
@@ -337,7 +349,7 @@ def _ngram_draft_host(ctx: Sequence[int], ngram: int,
 
 def _verify_step(cfg: ModelConfig, params, pool, tables, window, fills,
                  bids, offs, seeds, counters, greedy, temps, top_ks, top_ps,
-                 *, rope, use_fused: bool, tree=None):
+                 *, rope, use_fused: bool, tree=None, lora=None):
     """One speculative verify step over every slot: score each slot's
     ``[pending, draft...]`` window (or, with ``tree = (depths, anc)``, the
     nodes of its candidate tree) in one forward
@@ -345,11 +357,11 @@ def _verify_step(cfg: ModelConfig, params, pool, tables, window, fills,
     plain decode step does (same ``_sample_slots``, same stream), so a
     slot riding with no draft takes an unchanged plain step; positions
     >= 1 only ever commit under greedy acceptance, so their pad-masked
-    argmax is all they need.  Returns ``([S, W] tokens, [S, W]
-    logprobs)`` on the device."""
+    argmax is all they need; ``lora`` is the per-slot LoRA bundle.
+    Returns ``([S, W] tokens, [S, W] logprobs)`` on the device."""
     logits, _, _ = model_lib.forward_cached_paged_verify(
         cfg, params, window, pool.k_pool, pool.v_pool, tables, fills, bids,
-        offs, rope=rope, use_fused=use_fused, tree=tree)
+        offs, rope=rope, use_fused=use_fused, tree=tree, lora=lora)
     tok0, tok0_lp = _sample_slots(logits[:, 0], seeds, counters, greedy,
                                   temps, top_ks, top_ps, cfg.vocab_size)
     pad = torch.arange(logits.shape[-1], device=logits.device) \
@@ -406,6 +418,8 @@ class _SlotState:
         self.spec_stall = 0
         # rows of the slot's context in the resident draft's shadow pool
         self.draft_fill = 0
+        # the LoRA arena slot serving the request (-1: the base model)
+        self.adapter_slot = -1
 
 
 class _Inflight:
@@ -456,7 +470,10 @@ class ServingEngine:
 
     ``draft_cfg``/``draft_params``: a resident draft model sharing the
     target's vocabulary (``models/families.draft_model``), engaged when
-    ``spec_draft_len > 0``; its params live on the engine's device."""
+    ``spec_draft_len > 0``; its params live on the engine's device.
+    ``adapters``: the ``serving.adapters.AdapterRegistry`` whose arena
+    (on the engine's device) serves requests that name an adapter; it
+    must have ``EngineConfig.adapter_cache_slots`` slots."""
 
     def __init__(self, cfg: ModelConfig, params,
                  engine_config: Optional[EngineConfig] = None,
@@ -466,7 +483,7 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.config = engine_config or EngineConfig()
-        _refuse_unported(cfg, self.config, mesh=mesh, adapters=adapters)
+        _refuse_unported(cfg, self.config, mesh=mesh)
         if draft_cfg is not None:
             if draft_params is None:
                 raise ValueError("draft_cfg requires draft_params")
@@ -481,6 +498,28 @@ class ServingEngine:
                 f"max_seq_len {self.config.max_seq_len} exceeds the model's "
                 f"max_position_embeddings {cfg.max_position_embeddings}")
         self.device = model_lib.default_device(device)
+        # multi-tenant LoRA: the registry owns the arena; the engine pins
+        # adapters at admission and passes the arena with a per-slot slot
+        # vector to every step
+        self.adapters = adapters
+        if self.config.adapter_cache_slots and adapters is None:
+            raise ValueError(
+                "EngineConfig.adapter_cache_slots is set but no "
+                "AdapterRegistry was passed to the engine")
+        if adapters is not None:
+            if (self.config.adapter_cache_slots
+                    and adapters.n_slots != self.config.adapter_cache_slots):
+                raise ValueError(
+                    f"AdapterRegistry has {adapters.n_slots} arena slots "
+                    f"but EngineConfig.adapter_cache_slots="
+                    f"{self.config.adapter_cache_slots}")
+            if adapters.device != self.device:
+                raise ValueError(
+                    f"AdapterRegistry's arena is on {adapters.device}, the "
+                    f"engine runs on {self.device}")
+            if adapters._metrics is None:
+                # late-bound: a caller may replace the engine's metrics
+                adapters._metrics = lambda: self.metrics
         # the weight precision route that tags every decode step
         self._precision_route = precision_route(params)
         self.metrics = metrics or ServingMetrics(self.config.max_batch_size)
@@ -519,6 +558,10 @@ class ServingEngine:
                                and self.config.spec_draft_len > 0)
         self._draft_kv = None
         self._draft_rope = None
+        # control operations run on the scheduler thread between
+        # iterations (``call_in_scheduler``)
+        self._control: list = []
+        self._control_lock = threading.Lock()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -543,14 +586,18 @@ class ServingEngine:
                         metrics=lambda: self.metrics)
                 self._rope = model_lib.rope_tables(self.cfg,
                                                    device=self.device)
+                # the arena rides inside the fused kernels as an epilogue;
+                # where a predicate declines its stacked rank, the
+                # composed route applies the adapters (never dropped)
+                lsr = 0 if self.adapters is None else self.adapters.sr
                 self._fused_decode = fused_paged_decode_eligible(
                     self.cfg, self.params, pool.k_pool, ec.max_batch_size,
-                    table_blocks)
+                    table_blocks, lsr)
                 self._fused_verify = ec.spec_draft_len > 0 and \
                     fused_paged_verify_eligible(
                         self.cfg, self.params, pool.k_pool,
                         ec.max_batch_size, ec.spec_draft_len + 1,
-                        table_blocks)
+                        table_blocks, lsr)
                 if self._draft_enabled:
                     self._draft_kv = model_lib.init_kv_pool(
                         self.draft_cfg, n_blocks, bk, device=self.device)
@@ -665,10 +712,16 @@ class ServingEngine:
                     f"({req.max_new_tokens}) exceeds the per-slot sequence "
                     f"budget ({self.config.max_seq_len})")
             if req.adapter_id is not None:
-                self.metrics.inc("rejected_invalid")
-                raise ValueError(
-                    f"request names adapter {req.adapter_id!r} but "
-                    "the engine has no adapter registry")
+                if self.adapters is None:
+                    self.metrics.inc("rejected_invalid")
+                    raise ValueError(
+                        f"request names adapter {req.adapter_id!r} but "
+                        "the engine has no adapter registry")
+                if not self.adapters.known(req.adapter_id):
+                    self.metrics.inc("rejected_invalid")
+                    raise ValueError(
+                        f"unknown adapter {req.adapter_id!r} (register "
+                        "it before submitting)")
             pool = self.slots.pool
             need = -(-(len(req.prompt) + req.max_new_tokens)
                      // pool.block_size)
@@ -694,6 +747,62 @@ class ServingEngine:
             self._finish(req, "cancelled")
             self.metrics.set_gauges(queue_depth=len(self.queue))
 
+    def call_in_scheduler(self, fn: Callable, timeout: float = 30.0):
+        """Run ``fn()`` on the scheduler thread between iterations and
+        return its result (its exception propagates to the caller).  From
+        the scheduler thread itself it runs inline."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        if self._thread is None or not self._thread.is_alive():
+            raise RuntimeError("engine scheduler is not running")
+        box = {"done": threading.Event(), "result": None, "error": None}
+        with self._control_lock:
+            self._control.append((fn, box))
+        self.queue.notify()
+        with self._wake:
+            self._wake.notify_all()
+        if not box["done"].wait(timeout):
+            raise TimeoutError(f"scheduler control op not run in {timeout}s")
+        if box["error"] is not None:
+            raise box["error"]
+        return box["result"]
+
+    def _run_control_ops(self) -> None:
+        with self._control_lock:
+            ops, self._control = self._control, []
+        for fn, box in ops:
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001 — the caller's
+                box["error"] = e
+            finally:
+                box["done"].set()
+
+    def swap_params(self, new_params):
+        """Replace the base weights at an iteration boundary and return the
+        old ones.  On the scheduler thread: the in-flight step, dispatched
+        with the old weights, is processed first, so no token is lost or
+        repeated; every later step runs the new weights.  The new tree must
+        match the resident one's structure, shapes and dtypes (the routes
+        resolved at ``start()`` carry over).  The LoRA arena is untouched:
+        adapters compose with whichever base is resident.  Callable from
+        any thread; before ``start()`` it swaps inline."""
+        if not _same_tree(self.params, new_params):
+            raise ValueError(
+                "swap_params needs a tree matching the resident params' "
+                "structure, shapes and dtypes")
+
+        def _swap():
+            self._flush_inflight()
+            old, self.params = self.params, new_params
+            self._precision_route = precision_route(self.params)
+            self.metrics.inc("param_swaps")
+            return old
+
+        if self._thread is None or not self._thread.is_alive():
+            return _swap()
+        return self.call_in_scheduler(_swap)
+
     # -- scheduler loop (engine thread only) -------------------------------
 
     def _loop(self) -> None:
@@ -702,6 +811,7 @@ class ServingEngine:
         try:
             with torch.no_grad():
                 while not self._stop.is_set():
+                    self._run_control_ops()
                     self._drain_cancellations()
                     self._expire_deadlines()
                     if self._paused.is_set():
@@ -736,7 +846,9 @@ class ServingEngine:
                 self._finish(self._held, "error")
                 self._held = None
             for slot in list(self._active):
-                self._finish(self._active.pop(slot).req, "error")
+                req = self._active.pop(slot).req
+                self._release_adapter(req)
+                self._finish(req, "error")
             while True:
                 req = self.queue.pop()
                 if req is None:
@@ -822,7 +934,30 @@ class ServingEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _prefill(self, tokens: np.ndarray, plen: int, want_logprobs: bool):
+    def _acquire_adapter(self, req: _Request) -> Optional[int]:
+        """Pin the request's adapter in the arena: its arena slot (-1 for a
+        base-model request), or None when every arena slot is pinned by
+        other requests (the caller parks the request)."""
+        if req.adapter_id is None:
+            return -1
+        return self.adapters.acquire(req.adapter_id)
+
+    def _release_adapter(self, req: _Request) -> None:
+        if req.adapter_id is not None and self.adapters is not None:
+            self.adapters.release(req.adapter_id)
+
+    def _lora(self, aslots):
+        """The ``(arenas, mask)`` operand of a step whose rows sit at arena
+        slots ``aslots`` (-1: the base model): the mask is built on the
+        device from the slot vector.  None without a registry."""
+        if self.adapters is None:
+            return None
+        slots = self._tensor(np.asarray(aslots, np.int64))
+        return self.adapters.arenas, slot_mask(
+            slots, self.adapters.n_slots, self.adapters.rank)
+
+    def _prefill(self, tokens: np.ndarray, plen: int, want_logprobs: bool,
+                 lora=None):
         """Prefill one request (batch 1, bucket-padded) into a fresh dense
         cache ``[L, 1, kv, width, d]``: ``(last_logits [1, V], picked
         prompt logprobs or None, k, v)``.  Rows past ``plen`` hold pad-token
@@ -834,13 +969,13 @@ class ServingEngine:
         if want_logprobs:
             logits, k, v = model_lib.forward_cached(
                 cfg, self.params, toks, k, v, 0, rope=self._rope,
-                empty_cache=True)
+                empty_cache=True, lora=lora)
             lp = torch.log_softmax(logits, dim=-1)
             picked = torch.gather(lp[:, :-1], 2, toks[:, 1:, None])[..., 0]
             return logits[:, plen - 1], picked, k, v
         logits, k, v = model_lib.forward_cached(
             cfg, self.params, toks, k, v, 0, rope=self._rope,
-            empty_cache=True, logit_rows=torch.tensor([plen - 1]))
+            empty_cache=True, logit_rows=torch.tensor([plen - 1]), lora=lora)
         return logits[:, 0], None, k, v
 
     def _prefill_piece(self, tokens: Sequence[int], k, v, off: int,
@@ -904,15 +1039,24 @@ class ServingEngine:
     def _prefill_into_slot(self, req: _Request) -> bool:
         """Whole-prompt admission.  False (request parked in ``_held``,
         nothing allocated) when the pool cannot reserve the request's
-        worst-case block count.  Requests that want prompt logprobs take
-        the cold prefill (they need every prompt logit) and skip the
-        prefix cache."""
+        worst-case block count, or every arena slot is pinned by other
+        adapters.  Requests that want prompt logprobs take the cold
+        prefill (they need every prompt logit) and skip the prefix cache;
+        so do adapter requests, whose K/V rows carry their adapter's
+        deltas and must not be shared."""
         slot = self.slots.alloc()
+        aslot = self._acquire_adapter(req)
+        if aslot is None:
+            self.slots.release(slot)
+            self._held = req
+            return False
         plen = len(req.prompt)
         bucket = max(1, self.config.prefill_bucket)
         bk = self.slots.pool.block_size
         lease = None
-        if self.prefix_cache is not None and not req.return_logprobs:
+        cached = (self.prefix_cache is not None and not req.return_logprobs
+                  and req.adapter_id is None)
+        if cached:
             t_pm = time.perf_counter()
             lease = self.prefix_cache.match_and_acquire(req.prompt)
             self.trace.add(
@@ -925,6 +1069,7 @@ class ServingEngine:
         if not self._try_reserve(need):
             if self.prefix_cache is not None:
                 self.prefix_cache.release(lease)
+            self._release_adapter(req)
             self.slots.release(slot)
             self._held = req
             return False
@@ -933,7 +1078,7 @@ class ServingEngine:
         t.start()
         t_pf = time.perf_counter()
         with device_annotation("prefill", self.device):
-            if self.prefix_cache is not None and not req.return_logprobs:
+            if cached:
                 last_logits, k_small, v_small = self._prefill_cached(
                     req, lease)
             else:
@@ -942,7 +1087,8 @@ class ServingEngine:
                 tokens = np.zeros((1, padded), np.int64)
                 tokens[0, :plen] = req.prompt
                 last_logits, picked, k_small, v_small = self._prefill(
-                    tokens, plen, req.return_logprobs)
+                    tokens, plen, req.return_logprobs,
+                    lora=self._lora([aslot]))
                 if req.return_logprobs:
                     req.logprobs.extend(picked[0, :plen - 1].cpu().tolist())
         self.slots.insert(slot, k_small, v_small, plen,
@@ -962,6 +1108,7 @@ class ServingEngine:
         self.metrics.inc("prefills")
         st = _SlotState(req, fill=plen, pending=first)
         st.lease = lease
+        st.adapter_slot = aslot
         self._active[slot] = st
         if self._draft_enabled:
             self._draft_prefill(slot, st)
@@ -1051,8 +1198,10 @@ class ServingEngine:
         temps = np.ones((S,), np.float32)
         top_ks = np.zeros((S,), np.int64)
         top_ps = np.zeros((S,), np.float32)
+        aslots = np.full((S,), -1, np.int64)  # -1 rows: no LoRA delta
         for slot, st in self._active.items():
             fills[slot] = st.fill
+            aslots[slot] = st.adapter_slot
             seeds[slot] = st.req.seed
             counters[slot] = st.count
             greedy[slot] = st.req.greedy
@@ -1093,7 +1242,7 @@ class ServingEngine:
                 pool.v_pool,
                 self._tensor(self.slots.tables.astype(np.int64)),
                 self._tensor(fills), rope=self._rope,
-                use_fused=self._fused_decode)
+                use_fused=self._fused_decode, lora=self._lora(aslots))
             tok, tok_lp = _sample_slots(logits[:, 0], seeds, counters,
                                         greedy, temps, top_ks, top_ps,
                                         self.cfg.vocab_size)
@@ -1227,9 +1376,11 @@ class ServingEngine:
         top_ps = np.zeros((S,), np.float32)
         bids = np.zeros((S * W,), np.int64)   # default: the trash block
         offs = np.zeros((S * W,), np.int64)
+        aslots = np.full((S,), -1, np.int64)
         bk = self.slots.pool.block_size
         for slot, st in self._active.items():
             d = drafts.get(slot, ())
+            aslots[slot] = st.adapter_slot
             window[slot, 0] = st.pending
             window[slot, 1:1 + len(d)] = d
             fills[slot] = st.fill
@@ -1261,7 +1412,7 @@ class ServingEngine:
                 self._tensor(window), self._tensor(fills),
                 self._tensor(bids), self._tensor(offs), seeds, counters,
                 greedy, temps, top_ks, top_ps, rope=self._rope,
-                use_fused=self._fused_verify)
+                use_fused=self._fused_verify, lora=self._lora(aslots))
             # synchronous by design: the next fills depend on the
             # acceptances
             g_tok, g_lp = g_tok.cpu().numpy(), g_lp.cpu().numpy()
@@ -1478,8 +1629,13 @@ class ServingEngine:
         top_ps = np.zeros((S,), np.float32)
         bids = np.zeros((S * W,), np.int64)   # default: the trash block
         offs = np.zeros((S * W,), np.int64)
+        # the draft proposed under the base model; the target verifies
+        # under each requester's adapter, so what commits is what plain
+        # adapter decoding gives
+        aslots = np.full((S,), -1, np.int64)
         n_real = {}
         for slot, st in self._active.items():
+            aslots[slot] = st.adapter_slot
             window[slot, 0] = st.pending
             fills[slot] = st.fill
             seeds[slot] = st.req.seed
@@ -1535,7 +1691,8 @@ class ServingEngine:
                 self._tensor(bids), self._tensor(offs), seeds, counters,
                 greedy, temps, top_ks, top_ps, rope=self._rope,
                 use_fused=self._fused_verify,
-                tree=(self._tensor(depths), self._tensor(anc)))
+                tree=(self._tensor(depths), self._tensor(anc)),
+                lora=self._lora(aslots))
             # synchronous by design: the accepted paths decide the next
             # fills and whether rows move
             g_tok, g_lp = g_tok.cpu().numpy(), g_lp.cpu().numpy()
@@ -1668,10 +1825,14 @@ class ServingEngine:
         if self.prefix_cache is not None:
             # donate the slot's block-aligned prompt prefix (a ref-count
             # adoption of blocks the slot owns) before the slot lets go,
-            # then unpin the admission lease
-            self.prefix_cache.offer(st.req.prompt, self.slots.tables[slot])
+            # then unpin the admission lease; an adapter request's rows
+            # carry its adapter's deltas and never seed the cache
+            if st.req.adapter_id is None:
+                self.prefix_cache.offer(st.req.prompt,
+                                        self.slots.tables[slot])
             self.prefix_cache.release(st.lease)
             self.metrics.set_gauges(prefix_blocks=self.prefix_cache.blocks)
+        self._release_adapter(st.req)
         self.slots.release(slot)
         self._finish(st.req, reason)
         self._update_pool_gauges()
@@ -1705,3 +1866,14 @@ class ServingEngine:
             self.metrics.observe_e2e(time.perf_counter() - req.submit_time)
         req.done_event.set()
         self._notify_drain()
+
+
+def _same_tree(a, b) -> bool:
+    """Whether two parameter trees (nested dicts of tensors) have the same
+    keys, shapes and dtypes."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    return (isinstance(b, torch.Tensor) and a.shape == b.shape
+            and a.dtype == b.dtype and a.device == b.device)

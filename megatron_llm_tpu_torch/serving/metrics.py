@@ -2,8 +2,8 @@
 ``megatron_llm_tpu/serving/metrics.py`` that the engine and GET /metrics
 use).  Host-side and lock-guarded: the scheduler thread and HTTP threads
 write, tests and pollers read.  The Prometheus exposition, SLO tracker
-and the counters of features this slice does not port (adapters,
-shipping, tiered KV) come with those features.
+and the counters of features this slice does not port (shipping, tiered
+KV) come with those features.
 """
 
 from __future__ import annotations
@@ -91,6 +91,13 @@ _COUNTERS = (
     # zero-copy sharing broke)
     "prefix_hits", "prefix_misses", "prefix_evicted_blocks",
     "cow_copies_total",
+    # multi-tenant LoRA (serving/adapters/): admissions whose adapter was
+    # already arena-resident vs installed cold, unpinned adapters evicted
+    # under the adapter_cache_slots budget, and arena installs
+    "adapter_hits", "adapter_misses", "adapter_evictions",
+    "adapter_installs",
+    # live base-weight swaps (engine.swap_params)
+    "param_swaps",
 )
 
 
@@ -111,6 +118,9 @@ class ServingMetrics:
         # the blocks the cache holds
         self.prefix_hit_tokens = LatencyHistogram()
         self.prefix_blocks = 0
+        # the LoRA arena's resident adapters and their factor bytes
+        self.adapter_resident = 0
+        self.adapter_resident_bytes = 0
         self.ttft = LatencyHistogram()
         self.per_token = LatencyHistogram()
         self.e2e = LatencyHistogram()
@@ -154,7 +164,9 @@ class ServingMetrics:
                    blocks_used: Optional[int] = None,
                    kv_cache_util: Optional[float] = None,
                    num_slots: Optional[int] = None,
-                   prefix_blocks: Optional[int] = None) -> None:
+                   prefix_blocks: Optional[int] = None,
+                   adapter_resident: Optional[int] = None,
+                   adapter_resident_bytes: Optional[int] = None) -> None:
         with self._lock:
             for name, value in (("slots_active", slots_active),
                                 ("queue_depth", queue_depth),
@@ -162,7 +174,10 @@ class ServingMetrics:
                                 ("blocks_used", blocks_used),
                                 ("kv_cache_util", kv_cache_util),
                                 ("num_slots", num_slots),
-                                ("prefix_blocks", prefix_blocks)):
+                                ("prefix_blocks", prefix_blocks),
+                                ("adapter_resident", adapter_resident),
+                                ("adapter_resident_bytes",
+                                 adapter_resident_bytes)):
                 if value is not None:
                     setattr(self, name, value)
 
@@ -250,6 +265,13 @@ class ServingMetrics:
                 "prefix_blocks": self.prefix_blocks,
                 "prefix_hit_tokens": self.prefix_hit_tokens.snapshot(
                     suffix=""),
+                # multi-tenant LoRA arena residency
+                "adapter_hit_rate": (
+                    self.counters["adapter_hits"]
+                    / max(1, self.counters["adapter_hits"]
+                          + self.counters["adapter_misses"])),
+                "adapter_resident": self.adapter_resident,
+                "adapter_resident_bytes": self.adapter_resident_bytes,
                 # decode-step routing by weight precision (inc_step)
                 "step_routes": {route: dict(r) for route, r
                                 in sorted(self.step_routes.items())},

@@ -3,6 +3,7 @@
     python3 -m megatron_llm_tpu_torch.serving.profile [--model M]
         [--layers N] [--kv_quant int8] [--weight_quant int8|int4|mixed]
         [--fused_decode] [--spec_draft_len K [--draft tiny|self]]
+        [--adapters N [--lora_rank R] [--lora_targets T ...]]
 
 Serves Llama-2-7B (``--model llama2``) or Falcon-7B (``falcon``) widths
 (bf16, random weights from a seed, the flash and norm kernels, 4 slots,
@@ -16,7 +17,11 @@ whole-stack kernel (K13, one launch a step); ``--spec_draft_len K`` turns
 on speculation (verify steps of K + 1 tokens a slot, through K14 when
 fused) with the n-gram drafter, or with ``--draft`` a resident draft
 model (``tiny``: the tiny preset, random; ``self``: the target itself)
-proposing trees (K14's tree mode).  The decode requests then carry
+proposing trees (K14's tree mode).  ``--adapters N`` serves multi-tenant
+LoRA: N random adapters of rank ``--lora_rank`` over ``--lora_targets``
+(all seven by default), each resident in its own arena slot, the requests
+under them in turn, so each step carries the arena (K13/K14 with the
+LoRA epilogue when fused).  With speculation the decode requests carry
 ``spec_force`` and repeated spans, so that every step drafts:
 
 1. **prefill**: the admission of one 1024-token prompt;
@@ -43,6 +48,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,7 +57,9 @@ from torch.profiler import ProfilerActivity, profile
 from ..config import falcon_config, llama2_config
 from ..models import model as model_lib
 from ..models.families import draft_model
+from ..ops.lora import LORA_TARGETS, init_lora_adapter
 from ..ops.quant import quantize_params
+from .adapters import AdapterRegistry
 from .engine import EngineConfig, ServingEngine
 
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
@@ -114,6 +122,31 @@ def device_summary(trace: Path, window_s: float, units: int,
     }
 
 
+def random_adapter(cfg, gen: torch.Generator, rank: int,
+                   targets=LORA_TARGETS, b_std: float = 0.02):
+    """``init_lora_adapter`` with B drawn N(0, b_std^2) from ``gen`` as
+    well, so the epilogue moves real numbers (a zero B would serve an
+    adapter that changes nothing), as the JAX package's LoRA bench
+    makes its adapters."""
+    ad = init_lora_adapter(cfg, gen, rank, targets)
+    for f in ad.factors.values():
+        f["b"].normal_(generator=gen).mul_(b_std)
+    return ad
+
+
+def adapter_registry(cfg, n: int, rank: int, targets=LORA_TARGETS,
+                     device=None, seed: int = 0,
+                     n_adapters: Optional[int] = None) -> AdapterRegistry:
+    """A registry of ``n`` arena slots with ``n_adapters`` (default ``n``)
+    random adapters ``t0, t1, ...`` registered (``random_adapter``, drawn
+    on ``device`` from ``seed``)."""
+    reg = AdapterRegistry(cfg, n, rank, targets, device=device)
+    gen = torch.Generator(device=reg.device).manual_seed(seed)
+    for i in range(n if n_adapters is None else n_adapters):
+        reg.register(f"t{i}", random_adapter(cfg, gen, rank, targets))
+    return reg
+
+
 def _traced(name: str, run):
     """Run ``run()`` under the profiler → (trace path, host seconds,
     whatever ``run`` returned)."""
@@ -144,6 +177,11 @@ def main(argv=None) -> int:
                     help="draft tokens a slot (0: no speculation)")
     ap.add_argument("--draft", default=None, choices=("tiny", "self"),
                     help="a resident draft model (default: n-gram drafts)")
+    ap.add_argument("--adapters", type=int, default=0,
+                    help="LoRA adapters, one arena slot each (0: none)")
+    ap.add_argument("--lora_rank", type=int, default=32)
+    ap.add_argument("--lora_targets", nargs="+", default=list(LORA_TARGETS),
+                    choices=LORA_TARGETS)
     args = ap.parse_args(argv)
     if args.draft and not args.spec_draft_len:
         ap.error("--draft needs --spec_draft_len > 0")
@@ -170,11 +208,19 @@ def main(argv=None) -> int:
         dcfg = draft_model("tiny", cfg, params_dtype="bfloat16")
         draft = dict(draft_cfg=dcfg, draft_params=model_lib.init_params(
             dcfg, seed=1, device=dev))
+    reg = None
+    if args.adapters:
+        reg = adapter_registry(cfg, args.adapters, args.lora_rank,
+                               args.lora_targets, device=dev)
     engine = ServingEngine(cfg, params, EngineConfig(
         max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
-        kv_block_size=64, spec_draft_len=args.spec_draft_len), device=dev,
+        kv_block_size=64, spec_draft_len=args.spec_draft_len,
+        adapter_cache_slots=args.adapters), device=dev, adapters=reg,
         **draft)
     rng = np.random.default_rng(0)
+
+    def aid(i):
+        return f"t{i % args.adapters}" if args.adapters else None
 
     def prompt(n):
         return rng.integers(0, cfg.vocab_size, n).tolist()
@@ -188,16 +234,19 @@ def main(argv=None) -> int:
     try:
         # warm-up: Triton compile, cuBLAS handles, pinned staging buffers
         for h in engine.submit_many([dict(prompt=prompt(n), max_new_tokens=8,
-                                          use_eos_stop=False)
-                                     for n in (64, 1024)]):
+                                          use_eos_stop=False,
+                                          adapter_id=aid(i))
+                                     for i, n in enumerate((64, 1024))]):
             h.result(600)
 
         route = "fused" if args.fused_decode else "composed"
         tag = (f"{args.model}-{args.weight_quant or 'bf16'}-kv{args.kv_quant}"
                f"-{route}-spec{args.spec_draft_len}"
-               f"{'-' + args.draft if args.draft else ''}")
+               f"{'-' + args.draft if args.draft else ''}"
+               f"{f'-lora{args.adapters}x{args.lora_rank}' if reg else ''}")
         pre_path, pre_s, _ = _traced(f"prefill-{tag}", lambda: engine.submit(
-            prompt(1024), 1, use_eos_stop=False).result(600))
+            prompt(1024), 1, use_eos_stop=False,
+            adapter_id=aid(0)).result(600))
         report = {"prefill_1024": device_summary(pre_path, pre_s, 1)}
 
         new = args.decode_steps + 40
@@ -205,8 +254,10 @@ def main(argv=None) -> int:
         make = spec_prompt if args.spec_draft_len else prompt
         handles = engine.submit_many([dict(prompt=make(n), max_new_tokens=new,
                                            use_eos_stop=False,
-                                           spec_force=args.spec_draft_len > 0)
-                                      for n in (512, 640, 768, 1024)])
+                                           spec_force=args.spec_draft_len > 0,
+                                           adapter_id=aid(i))
+                                      for i, n in enumerate((512, 640, 768,
+                                                             1024))])
         while True:  # all four admitted, decode under way
             snap = engine.metrics.snapshot()
             if snap["admitted"] >= snap0["admitted"] + 4 and \
@@ -241,7 +292,8 @@ def main(argv=None) -> int:
     print(f"card: {smi}; {args.model}-7b widths, {args.layers} layers, "
           f"bf16, weights {args.weight_quant or 'bf16'}, KV cache "
           f"{args.kv_quant}, {route} decode, spec_draft_len "
-          f"{args.spec_draft_len}, draft {args.draft or 'n-gram'}; traces "
+          f"{args.spec_draft_len}, draft {args.draft or 'n-gram'}, "
+          f"{args.adapters} LoRA adapters of rank {args.lora_rank}; traces "
           f"in {TRACE_DIR}")
     print(json.dumps(report, indent=1))
     return 0

@@ -926,3 +926,192 @@ def test_fused_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
                               _card((2, 2, 8, 64, 96), gen, cuda_device),
                               _card((2, 2, 8, 64, 96), gen, cuda_device),
                               fills, orope)
+
+
+# ---------------------------------------------------------------------------
+# The LoRA epilogue of K12-K14 (multi-tenant adapters)
+# ---------------------------------------------------------------------------
+
+# rows at slots -1 (the base model), 0, 2 and 3 of a 4-slot x rank-32 arena
+LORA_SLOTS = [-1, 0, 2, 3]
+
+
+def _lora(cfg, dev, gen, slots, n_slots=4, rank=32, targets=None):
+    """``(arenas, mask)``: every slot holds an adapter with A ~ N(0, 1/in)
+    and B ~ N(0, 0.05^2) over ``targets`` (all seven by default)."""
+    from megatron_llm_tpu_torch.ops import lora as tl
+
+    targets = tl.LORA_TARGETS if targets is None else targets
+    arenas = tl.make_arenas(cfg, n_slots, rank, targets, device=dev)
+    for s in range(n_slots):
+        ad = tl.init_lora_adapter(cfg, gen, rank, targets, device=dev)
+        for f in ad.factors.values():
+            f["b"].normal_(generator=gen).mul_(0.05)
+        tl.install_adapter(arenas, ad.factors, s, ad.scale, rank)
+    return arenas, tl.slot_mask(torch.tensor(slots, device=dev), n_slots,
+                                rank)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FUSED_CASES))
+def test_fused_lora_kernels_match_plain(cuda_device, name):
+    """K12, K13, K14 (W = 4) and K14's tree mode with a LoRA arena
+    (every target) against their plain versions on the same card
+    tensors; rows at slots -1, 0, 2, 3.  Each launch counts on its
+    wrapper's ``lora`` counter."""
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    c = FUSED_CASES[name]
+    cfg, stacked, rope = _fused_setup(cuda_device, **c)
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    fills = torch.tensor([0, 1, 97, 256 - 4], device=cuda_device)
+    b, width, block = 4, 256, 64
+    shape = (cfg.num_layers, b, cfg.kv_heads, width, cfg.head_dim)
+    q8 = c.get("int8_cache", False)
+    k = _fused_cache(gen, cuda_device, cfg, shape, q8)
+    v = _fused_cache(gen, cuda_device, cfg, shape, q8)
+    x = _card((b, cfg.hidden_size), gen, cuda_device, cfg.dtype)
+    lora = _lora(cfg, cuda_device, gen, LORA_SLOTS)
+    fns = (tds.fused_decode_step, tds.fused_decode_step_paged,
+           tds.fused_decode_verify_paged, tds.fused_decode_verify_tree_paged)
+    before = [f.lora.launches for f in fns]
+    got = tds.fused_decode_step(cfg, stacked, x, k, v, fills, rope,
+                                lora=lora)
+    _assert_fused_close(got, tds.fused_decode_step_plain(
+        cfg, stacked, x, k, v, fills, rope, lora), q8)
+    tables = (1 + torch.randperm(b * width // block, generator=gen,
+                                 device=cuda_device)).reshape(b, -1)
+    kp = _pool_from_dense(k, tables, block)
+    vp = _pool_from_dense(v, tables, block)
+    got = tds.fused_decode_step_paged(cfg, stacked, x, kp, vp, tables, fills,
+                                      rope, lora=lora)
+    _assert_fused_close(got, tds.fused_decode_step_paged_plain(
+        cfg, stacked, x, kp, vp, tables, fills, rope, lora), q8)
+    xw = _card((b, 4, cfg.hidden_size), gen, cuda_device, cfg.dtype)
+    got = tds.fused_decode_verify_paged(cfg, stacked, xw, kp, vp, tables,
+                                        fills, rope, lora=lora)
+    _assert_fused_close(got, tds.fused_decode_verify_paged_plain(
+        cfg, stacked, xw, kp, vp, tables, fills, rope, lora), q8)
+    depths, anc = _tree([TREES[n] for n in ("hedge", "chain", "rider",
+                                            "hedge")], cuda_device)
+    got = tds.fused_decode_verify_paged(cfg, stacked, xw, kp, vp, tables,
+                                        fills, rope, depths=depths, anc=anc,
+                                        lora=lora)
+    _assert_fused_close(got, tds.fused_decode_verify_tree_paged_plain(
+        cfg, stacked, xw, kp, vp, tables, fills, rope, depths, anc, lora),
+        q8)
+    torch.cuda.synchronize()
+    assert [f.lora.launches - n for f, n in zip(fns, before)] == [1] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,int8_cache,policy", [
+    (32, False, None), (8, True, ("int8", "int8")),
+    (32, False, ("int4", "int4"))])
+def test_fused_lora_contracts_bitwise(cuda_device, kv, int8_cache, policy):
+    """At Llama-2-7B's heads (32 x 128), 2 layers, with an arena on every
+    target, bit for bit: rows at slot -1 equal the call without an arena;
+    each row of a mixed batch equals that row alone; K13 equals K12; K14
+    equals four K13 steps; a chain tree equals the linear window and each
+    path of a hedged tree sequential K13 steps."""
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    cfg, stacked, rope = _fused_setup(cuda_device, kv=kv, policy=policy,
+                                      int8_cache=int8_cache, hidden=4096,
+                                      heads=32, ffn=1024)
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    width, W, block = 512, 4, 64
+    fills = torch.tensor([0, 1, block - 1, width - W], device=cuda_device)
+    b = len(fills)
+    shape = (cfg.num_layers, b, kv, width, cfg.head_dim)
+    k = _fused_cache(gen, cuda_device, cfg, shape, int8_cache)
+    v = _fused_cache(gen, cuda_device, cfg, shape, int8_cache)
+    tables = (1 + torch.randperm(b * width // block, generator=gen,
+                                 device=cuda_device)).reshape(b, -1)
+    kp = _pool_from_dense(k, tables, block)
+    vp = _pool_from_dense(v, tables, block)
+    x = _card((b, W, cfg.hidden_size), gen, cuda_device, cfg.dtype)
+    x0 = x[:, 0].contiguous()
+    lora = _lora(cfg, cuda_device, gen, LORA_SLOTS)
+
+    def eq(a, b_):
+        for p, q in zip(a, b_):
+            assert torch.equal(p, q)
+
+    paged = tds.fused_decode_step_paged(cfg, stacked, x0, kp, vp, tables,
+                                        fills, rope, lora=lora)
+    eq(paged, tds.fused_decode_step(cfg, stacked, x0, k, v, fills, rope,
+                                    lora=lora))
+    base = tds.fused_decode_step_paged(cfg, stacked, x0, kp, vp, tables,
+                                       fills, rope)
+    assert torch.equal(paged[0][0], base[0][0])
+    assert torch.equal(paged[1][:, 0], base[1][:, 0])
+    assert not torch.equal(paged[0][1], base[0][1])   # the adapters act
+    for i in range(b):
+        alone = tds.fused_decode_step_paged(
+            cfg, stacked, x0[i:i + 1], kp, vp, tables[i:i + 1],
+            fills[i:i + 1], rope, lora=(lora[0], lora[1][i:i + 1]))
+        assert torch.equal(alone[0][0], paged[0][i])
+        assert torch.equal(alone[1][:, 0], paged[1][:, i])
+    verify = tds.fused_decode_verify_paged(cfg, stacked, x, kp, vp, tables,
+                                           fills, rope, lora=lora)
+
+    def copy(p):
+        return {n: t.clone() for n, t in p.items()} if isinstance(p, dict) \
+            else p.clone()
+
+    kp2, vp2 = copy(kp), copy(vp)
+    steps = []
+    for j in range(W):
+        out = tds.fused_decode_step_paged(cfg, stacked, x[:, j].contiguous(),
+                                          kp2, vp2, tables, fills + j, rope,
+                                          lora=lora)
+        _append_rows(kp2, out[1], tables, fills + j, block)
+        _append_rows(vp2, out[2], tables, fills + j, block)
+        steps.append(out)
+    assert torch.equal(verify[0], torch.stack([s[0] for s in steps], 1))
+    for i in (1, 2):
+        seq = torch.stack([s[i] for s in steps], 2).reshape(verify[i].shape)
+        assert torch.equal(verify[i], seq)
+    depths, anc = _tree([TREES["chain"]] * b, cuda_device)
+    eq(tds.fused_decode_verify_paged(cfg, stacked, x, kp, vp, tables, fills,
+                                     rope, depths=depths, anc=anc,
+                                     lora=lora), verify)
+    depths, anc = _tree([TREES["hedge"]] * b, cuda_device)
+    tree = tds.fused_decode_verify_paged(cfg, stacked, x, kp, vp, tables,
+                                         fills, rope, depths=depths, anc=anc,
+                                         lora=lora)
+    rows = torch.arange(b, device=cuda_device) * W
+    for path in ([0, 1, 3], [0, 2]):
+        kp2, vp2 = copy(kp), copy(vp)
+        for t, node in enumerate(path):
+            out = tds.fused_decode_step_paged(
+                cfg, stacked, x[:, node].contiguous(), kp2, vp2, tables,
+                fills + t, rope, lora=lora)
+            assert torch.equal(tree[0][:, node], out[0])
+            assert torch.equal(tree[1][:, rows + node], out[1])
+            _append_rows(kp2, out[1], tables, fills + t, block)
+            _append_rows(vp2, out[2], tables, fills + t, block)
+
+
+@pytest.mark.cuda
+def test_fused_lora_wrappers_refuse_what_the_kernel_does_not_take(
+        cuda_device):
+    """An arena off 32-column tiles, or a mask of the wrong shape, raises
+    on the card (no fallback)."""
+    from megatron_llm_tpu_torch.kernels import decode_step as tds
+
+    cfg, stacked, rope = _fused_setup(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    x = _card((2, cfg.hidden_size), gen, cuda_device)
+    shape = (cfg.num_layers, 2, cfg.kv_heads, 64, cfg.head_dim)
+    k, v = _card(shape, gen, cuda_device), _card(shape, gen, cuda_device)
+    fills = torch.tensor([3, 5], device=cuda_device)
+    arenas, mask = _lora(cfg, cuda_device, gen, [0, 1], n_slots=3, rank=8)
+    with pytest.raises(ValueError, match="LoRA"):   # Sr 24
+        tds.fused_decode_step(cfg, stacked, x, k, v, fills, rope,
+                              lora=(arenas, mask))
+    arenas, mask = _lora(cfg, cuda_device, gen, [0, 1])
+    with pytest.raises(ValueError, match="LoRA"):   # 3 mask rows for 2
+        tds.fused_decode_step(cfg, stacked, x, k, v, fills, rope,
+                              lora=(arenas, torch.cat([mask, mask[:1]])))

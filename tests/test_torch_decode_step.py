@@ -347,7 +347,8 @@ REJECTS = {
     "group-16": dict(cfg=dict(hidden_size=2048, num_attention_heads=16,
                               num_kv_heads=1)),
     "half-quantized": dict(half=True),
-    "lora": dict(lora_sr=128),
+    # a stacked LoRA rank off the kernel's 32-column tiles
+    "lora": dict(lora_sr=100),
     "two-tokens": dict(s=2),
     "block-8": dict(block=8),
     "block-96": dict(block=96),
@@ -457,15 +458,19 @@ def test_mlp_chunks_match_jax():
 
 
 def test_unported_options_raise():
-    """The LoRA epilogue is refused; K14's tree mode is ported, and a
-    window that is not a breadth-first tree is refused with ValueError
-    (the kernel's own check on the card)."""
+    """The LoRA epilogue and K14's tree mode are ported: a LoRA mask that
+    does not match the rows and the arena, and a window that is not a
+    breadth-first tree, are refused with ValueError (as the kernel's own
+    checks refuse them on the card)."""
+    from megatron_llm_tpu_torch.ops import lora as tl
+
     _, tc, _, tp = _setup()
     x = torch.zeros(1, 256)
     k, v = tmodel.init_kv_cache(tc, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    arenas = tl.make_arenas(tc, 2, 16, ("wq",), device="cpu")
+    with pytest.raises(ValueError, match="LoRA"):
         tds.fused_decode_step(tc, tp["layers"], x, k, v, 0, _trope(tc),
-                              lora=({}, None))
+                              lora=(arenas, torch.zeros(2, 32)))
     kp, vp = tmodel.init_kv_pool(tc, 2, 16, device="cpu")
     with pytest.raises(ValueError, match="tree"):
         tds.fused_decode_verify_paged(

@@ -196,7 +196,6 @@ def test_engine_config_fields_match_jax():
 
 @pytest.mark.parametrize("kw,cfg_kw,match", [
     (dict(prefill_chunk=16), {}, "prefill_chunk"),
-    (dict(adapter_cache_slots=2), {}, "LoRA"),
     (dict(host_kv_blocks=4), {}, "host_kv_blocks"),
     (dict(role="prefill"), {}, "role"),
     (dict(sanitize=True), {}, "sanitize"),

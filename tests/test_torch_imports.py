@@ -39,6 +39,9 @@ def test_port_imports_no_jax():
     assert "megatron_llm_tpu_torch.serving.prefix_cache" in names
     assert "megatron_llm_tpu_torch.obs.trace" in names
     assert "megatron_llm_tpu_torch.models.families" in names
+    assert "megatron_llm_tpu_torch.ops.lora" in names
+    assert "megatron_llm_tpu_torch.serving.adapters" in names
+    assert "megatron_llm_tpu_torch.serving.adapters.registry" in names
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"
