@@ -16,7 +16,11 @@ it goes wrong:
    events), its bound on an H100 and one PyTorch library call for the same
    function as a yardstick where there is one (the port never calls
    those; no single call computes the fused decode step, whose rows give
-   the composed route's time instead);
+   the composed route's time instead); K1 and K3 also at their
+   tensor-core bodies' edges (ragged lengths, rows that see no key, head
+   dim 64, fp16), K3 with its walk split over several blocks (equal to
+   one block within the tolerance, and bit for bit from run to run), and
+   both with fp32 inputs, which take the CUDA-core bodies;
 4. reference: Llama-2-7B widths cut to 2 layers, bf16, prefill then paged
    decode steps through the kernels, against the plain fp32 full forward;
 5. serve: Llama-2-7B at full width and depth, random weights from a seed,
@@ -202,36 +206,70 @@ def _visible_pairs(torch, b, sq, sk, seg, dev):
     return float(keep.expand(b, sq, sk).sum())
 
 
+def _attn_inputs(torch, gen, dev, b, sq, sk, hq, hk, d, dtype):
+    return tuple(torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+                 for shape in ((b, sq, hq, d), (b, sk, hk, d), (b, sk, hk, d),
+                               (b, sq, hq, d)))
+
+
+def _tol(torch, dtype):
+    """(atol, rtol) of a kernel output against its plain version: a
+    16-bit result rounds once on each side (above); fp32 inputs only
+    reorder the fp32 sums."""
+    return (1e-4, 1e-4) if dtype == torch.float32 else (BF16_ATOL, BF16_RTOL)
+
+
 def check_flash_attention(torch, F, fa, dev, gen):
     """K1 at the prefill shape of Llama-2-7B, plus GQA, segment ids and
-    Falcon-7B's (MQA over 71 heads, head dim 64)."""
+    Falcon-7B's (MQA over 71 heads, head dim 64), each timed; then, checked
+    only, the tensor-core body at its edges (q and k lengths off the tile,
+    rows that see no key, head dim 64, fp16) and the CUDA-core body
+    (fp32).  A bf16 or fp16 call must take the tensor-core body (its
+    ``mma_launches``), an fp32 call must not."""
+    bf, hf, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [("prefill b1 s1024 h32 causal", 1, 1024, 1024, 32, 32, 128,
-              False),
+              False, bf, True),
              ("gqa b1 s1024 hq32 hk8 causal", 1, 1024, 1024, 32, 8, 128,
-              False),
-             ("segments b2 s512 h32", 2, 512, 512, 32, 32, 128, True),
+              False, bf, True),
+             ("segments b2 s512 h32", 2, 512, 512, 32, 32, 128, True, bf,
+              True),
              ("falcon b1 s2048 hq71 hk1 d64 causal", 1, 2048, 2048, 71, 1,
-              64, False)]
+              64, False, bf, True),
+             ("ragged b1 sq100 sk300 hq4 hk2 d64", 1, 100, 300, 4, 2, 64,
+              False, bf, False),
+             ("no-key rows b2 sq300 sk70 h4 d128", 2, 300, 70, 4, 4, 128,
+              False, bf, False),
+             ("fp16 segments b2 s200 hq4 hk2 d128", 2, 200, 200, 4, 2, 128,
+              True, hf, False),
+             ("fp16 b1 sq65 sk193 h4 d64", 1, 65, 193, 4, 4, 64, False, hf,
+              False),
+             ("fp32 b2 s130 hq4 hk1 d128", 2, 130, 130, 4, 1, 128, False,
+              f32, False)]
     head = None
-    for name, b, sq, sk, hq, hk, d, segs in cases:
-        q = torch.randn(b, sq, hq, d, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        k = torch.randn(b, sk, hk, d, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        v = torch.randn(b, sk, hk, d, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
+    for name, b, sq, sk, hq, hk, d, segs, dtype, timed in cases:
+        q, k, v, _ = _attn_inputs(torch, gen, dev, b, sq, sk, hq, hk, d,
+                                  dtype)
         seg = _segments(torch, b, sq, gen, dev) if segs else None
+        mma = fa.flash_attention_fwd.mma_launches
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
                                         segment_ids=seg)
         torch.cuda.synchronize()
+        if fa.flash_attention_fwd.mma_launches - mma != (dtype != f32):
+            raise RuntimeError(f"flash_attention {name}: {dtype} took the "
+                               "wrong body")
         o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=True,
                                                   segment_ids=seg)
-        err_o, ok_o = close_enough(torch, o, o_ref, BF16_ATOL, BF16_RTOL)
+        err_o, ok_o = close_enough(torch, o, o_ref, *_tol(torch, dtype))
         # lse is fp32 on both sides: only summation order differs
         err_l, ok_l = close_enough(torch, lse, lse_ref, 1e-4, 1e-5)
         if not (ok_o and ok_l):
             raise RuntimeError(f"flash_attention {name}: O err {err_o}, "
                                f"lse err {err_l} beyond tolerance")
+        if not timed:
+            log(f"kernel flash_attention_fwd [{name}]: max_abs_err O "
+                f"{err_o:.3e} lse {err_l:.3e} (tol atol, rtol "
+                f"{_tol(torch, dtype)})")
+            continue
         ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
             q, k, v, causal=True, segment_ids=seg))
         plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
@@ -254,7 +292,8 @@ def check_flash_attention(torch, F, fa, dev, gen):
         log(f"kernel flash_attention_fwd [{name}]: max_abs_err O {err_o:.3e} "
             f"lse {err_l:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}; "
             f"lse atol 1e-4) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"sdpa_ms {library_ms:.4f} bound_ms {bms:.4f} ({by})")
+            f"sdpa_ms {library_ms:.4f} bound_ms {bms:.4f} ({by}) "
+            f"{4.0 * d * pairs / ms / 1e9:.1f} TFLOP/s")
         if head is None:
             head = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=library_ms)
@@ -1043,37 +1082,82 @@ def check_rmsnorm(torch, F, rn, dev, gen):
 
 def check_flash_attention_bwd(torch, F, fa, dev, gen):
     """K2 (dQ) and K3 (dK, dV) at the training shape of Llama-2-7B (b1
-    s4096 h32 d128 causal), plus GQA and segment ids, against
-    ``flash_attention_bwd_plain`` on K1's own O and lse."""
-    cases = [("train b1 s4096 h32 causal", 1, 4096, 32, 32, 128, False),
-             ("gqa b1 s4096 hq32 hk8 causal", 1, 4096, 32, 8, 128, False),
-             ("segments b2 s2048 h32", 2, 2048, 32, 32, 128, True),
-             ("falcon b1 s2048 hq71 hk1 d64 causal", 1, 2048, 71, 1, 64,
+    s4096 h32 d128 causal), plus GQA, segment ids and Falcon-7B's (K3's
+    walk split over 16 blocks), against ``flash_attention_bwd_plain`` on
+    K1's own O and lse, each timed; then, checked only, K3's tensor-core
+    body at its edges (ragged, rows that see no key, head dim 64, fp16), a
+    small grid whose walk splits (equal to the unsplit result within the
+    tolerance, and bit for bit from one run to the next) and the CUDA-core
+    bodies (fp32)."""
+    bf, hf, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [("train b1 s4096 h32 causal", 1, 4096, 4096, 32, 32, 128, False,
+              bf, True),
+             ("gqa b1 s4096 hq32 hk8 causal", 1, 4096, 4096, 32, 8, 128,
+              False, bf, True),
+             ("segments b2 s2048 h32", 2, 2048, 2048, 32, 32, 128, True, bf,
+              True),
+             ("falcon b1 s2048 hq71 hk1 d64 causal", 1, 2048, 2048, 71, 1,
+              64, False, bf, True),
+             ("split b1 s256 hq8 hk1 d128", 1, 256, 256, 8, 1, 128, False,
+              bf, False),
+             ("ragged b1 sq100 sk300 hq8 hk2 d64", 1, 100, 300, 8, 2, 64,
+              False, bf, False),
+             ("no-key rows b2 sq300 sk70 h4 d128", 2, 300, 70, 4, 4, 128,
+              False, bf, False),
+             ("fp16 segments b2 s200 hq4 hk2 d128", 2, 200, 200, 4, 2, 128,
+              True, hf, False),
+             ("fp16 split b1 sq65 sk193 hq8 hk1 d64", 1, 65, 193, 8, 1, 64,
+              False, hf, False),
+             ("fp32 b2 s130 hq4 hk1 d64", 2, 130, 130, 4, 1, 64, False, f32,
               False)]
     heads = {}
-    for name, b, s, hq, hk, d, segs in cases:
-
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device=dev,
-                               dtype=torch.bfloat16)
-
-        q, k, v, do = (rnd(b, s, hq, d), rnd(b, s, hk, d), rnd(b, s, hk, d),
-                       rnd(b, s, hq, d))
-        seg = _segments(torch, b, s, gen, dev) if segs else None
+    for name, b, sq, sk, hq, hk, d, segs, dtype, timed in cases:
+        q, k, v, do = _attn_inputs(torch, gen, dev, b, sq, sk, hq, hk, d,
+                                   dtype)
+        seg = _segments(torch, b, sq, gen, dev) if segs else None
         kw = dict(causal=True, segment_ids=seg)
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        mma = fa.flash_attention_bwd_dkv.mma_launches
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
         torch.cuda.synchronize()
+        if fa.flash_attention_bwd_dkv.mma_launches - mma != (dtype != f32):
+            raise RuntimeError(f"flash_attention_bwd_dkv {name}: {dtype} "
+                               "took the wrong body")
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-        errs = [close_enough(torch, g, w, BF16_ATOL, BF16_RTOL)
+        errs = [close_enough(torch, g, w, *_tol(torch, dtype))
                 for g, w in zip((dq, dk, dv), ref)]
         if not all(ok for _, ok in errs):
             raise RuntimeError(
                 f"flash_attention backward {name}: dq/dk/dv err "
                 f"{[e for e, _ in errs]} beyond tolerance")
         del ref
+        splits = (fa._dkv_splits(b, hk, sk, hq // hk, fa._sm_count(dev))
+                  if dtype != f32 else 1)
+        if splits > 1:
+            again = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            one = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                             splits=1, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
+                raise RuntimeError(f"flash_attention_bwd_dkv {name}: two "
+                                   "runs differ")
+            e_split = [close_enough(torch, g, w, *_tol(torch, dtype))
+                       for g, w in zip((dk, dv), one)]
+            if not all(ok for _, ok in e_split):
+                raise RuntimeError(
+                    f"flash_attention_bwd_dkv {name}: {splits} splits "
+                    f"against one: {[e for e, _ in e_split]}")
+            log(f"kernel flash_attention_bwd_dkv [{name}]: {splits} splits, "
+                f"bit for bit again; against one split max_abs_err "
+                f"{max(e for e, _ in e_split):.3e}")
+            del again, one
+        if not timed:
+            log(f"kernel flash_attention_bwd [{name}]: max_abs_err dq "
+                f"{errs[0][0]:.3e} dk {errs[1][0]:.3e} dv {errs[2][0]:.3e} "
+                f"(tol atol, rtol {_tol(torch, dtype)})")
+            continue
         ms_dq = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(
             q, k, v, do, lse, delta, **kw), iters=5)
         ms_dkv = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(
@@ -1092,7 +1176,7 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=hq != hk)
         else:
-            pos = torch.arange(s, device=dev)
+            pos = torch.arange(sq, device=dev)
             mask = ((pos[None, :] <= pos[:, None])[None]
                     & (seg[:, :, None] == seg[:, None, :]))[:, None]
 
@@ -1104,7 +1188,7 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
             library_ms = event_ms(torch, lambda: torch.autograd.grad(
                 sdpa(), (qt, kt, vt), dot)) - fwd_ms
         del qt, kt, vt, dot
-        pairs = _visible_pairs(torch, b, s, s, seg, dev) * hq
+        pairs = _visible_pairs(torch, b, sq, sk, seg, dev) * hq
         # inputs q, k, v, dO, lse, delta (and seg) read once; outputs once
         common = ((q.numel() + k.numel() + v.numel() + do.numel()) * 2
                   + (lse.numel() + delta.numel()) * 4
@@ -1117,7 +1201,9 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
             f"bound_ms {b_dq[0]:.4f} ({b_dq[1]})")
         log(f"kernel flash_attention_bwd_dkv [{name}]: max_abs_err dk "
             f"{errs[1][0]:.3e} dv {errs[2][0]:.3e} ms {ms_dkv:.4f} plain_ms "
-            f"{plain_dkv_ms:.4f} bound_ms {b_dkv[0]:.4f} ({b_dkv[1]})")
+            f"{plain_dkv_ms:.4f} bound_ms {b_dkv[0]:.4f} ({b_dkv[1]}) "
+            f"{8.0 * d * pairs / ms_dkv / 1e9:.1f} TFLOP/s, {splits} "
+            f"split(s)")
         log(f"  (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}) SDPA backward "
             f"(dq, dk, dv in one call) ms {library_ms:.4f} (forward "
             f"{fwd_ms:.4f})")
@@ -2180,8 +2266,11 @@ def train(torch, dev, counters, smi, model_cfg, label, need, iters=6,
     return launches, [x[0] for x in steps]
 
 
-TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv")
+# bf16 training: K1 and K3 through their tensor-core bodies (the ``_mma``
+# counters)
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_mma",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dkv_mma")
 
 
 def train_gpt(torch, dev, counters, smi):
@@ -2208,6 +2297,21 @@ def train_gpt(torch, dev, counters, smi):
     if again[0] != losses[0]:
         raise RuntimeError("gpt: the same seed gave another first-step loss")
     return launches
+
+
+def log_hmma(build) -> None:
+    """Log the tensor-core instructions (HMMA) of the attention kernels'
+    libraries, where the toolkit's cuobjdump is present; information only."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("build: no cuobjdump beside nvcc; HMMA count not read")
+        return
+    for src in ("flash_attention", "flash_attention_bwd"):
+        res = subprocess.run([tool, "-sass", str(build._target(src))],
+                             capture_output=True, text=True, timeout=300)
+        n = sum("HMMA" in line for line in res.stdout.splitlines())
+        log(f"build: {src} holds {n} HMMA instructions (cuobjdump -sass, "
+            f"rc {res.returncode})")
 
 
 def main() -> int:
@@ -2244,6 +2348,7 @@ def main() -> int:
     build.build_all()
     log(f"build: {', '.join(build.SOURCES)} with nvcc in "
         f"{time.perf_counter() - t0:.1f}s")
+    log_hmma(build)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
@@ -2277,7 +2382,8 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["serve llama2-7b"] = serve(
         torch, cfg, dev, counters, smi, "llama2-7b",
-        ("flash_attention_fwd", "flash_decode", "rmsnorm_fwd"))
+        ("flash_attention_fwd", "flash_attention_fwd_mma", "flash_decode",
+         "rmsnorm_fwd"))
     settle()
     check_train_reference(torch, M, dev, lambda **kw: llama2_config(
         "7b", **kw), "llama2-7b")
@@ -2302,7 +2408,9 @@ def main() -> int:
     settle()
     paths["serve falcon-7b"] = serve(torch, falcon, dev, counters, smi,
                                      "falcon-7b",
-                                     ("flash_attention_fwd", "layernorm_fwd"))
+                                     ("flash_attention_fwd",
+                                      "flash_attention_fwd_mma",
+                                      "layernorm_fwd"))
     log(f"serve falcon-7b: flash_decode launches "
         f"{paths['serve falcon-7b']['flash_decode']}: its 71 query heads over "
         f"one KV head are a group above the kernel's 8 (and the JAX "
@@ -2495,10 +2603,15 @@ def main() -> int:
     kernels = []
     for kname, (route, source, replaces) in meta.items():
         by_path = {p: n[kname] for p, n in paths.items()}
+        extra = {}
+        if kname + "_mma" in counters:  # launches of the tensor-core body
+            extra["mma_launches"] = sum(n[kname + "_mma"]
+                                        for n in paths.values())
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,
                             launches=sum(by_path.values()),
-                            launches_by_path=by_path, **rows[kname]))
+                            launches_by_path=by_path, **extra,
+                            **rows[kname]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

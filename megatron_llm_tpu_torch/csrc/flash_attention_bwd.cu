@@ -7,37 +7,65 @@
 //   dP = dO V^T,  dS = P * (dP - delta) * scale,
 //   dQ = dS K,    dK = dS^T Q,    dV = P^T dO,
 // with delta = rowsum(dO * O) computed by the caller in fp32, as the JAX
-// wrapper does outside its kernels.  Masks as in the forward kernel: the
-// causal offset sk - sq (query row i sees key columns j <= i + sk - sq),
+// wrapper does outside its kernels, and the products' operands rounded
+// where JAX rounds them: dS to the input dtype before dS K and dS^T Q, P
+// before P^T dO (the identity for fp32).  Masks as in the forward kernel:
+// the causal offset sk - sq (query row i sees key columns j <= i + sk - sq),
 // packed-sequence segment ids (sq == sk) and the ragged sq / sk edges, all
 // in the kernel; the caller neither pads nor transposes.  A masked pair
 // has P = 0 exactly, so a row that sees no key (lse = -1e30) gets dQ = 0.
 // GQA by index: q head h reads kv head h / group.  dK and dV of one kv head
-// sum its whole q-head group in fp32 registers, the JAX grid
-// (b, hk, nk, group * nq): no atomics (deterministic) and no per-q-head
-// fp32 intermediate.  Outputs in the inputs' dtype.
+// sum its whole q-head group in fp32 (the JAX grid (b, hk, nk, group * nq)):
+// no atomics, so the result is deterministic.  Outputs in the inputs' dtype.
 //
 // What bounds them on the H100: operations.  Per (q tile, k tile) pair the
 // dQ kernel does three 64 x 64 x d products and the dK/dV kernel four, on
 // 64 x d tiles it loads once per pair: far above the ~295 flop/byte where
-// memory would be the limit.  With this first version's fp32 FMA math (no
-// tensor cores) the ceiling is the 67 TFLOP/s fp32 rate, not the
-// 989 TFLOP/s bf16 rate the bound in PERF.md is reckoned at.
+// memory would be the limit, so the ceiling is the tensor cores' rate
+// (989 TFLOP/s bf16 dense; mma.sync reaches roughly two thirds of it).
 //
-// Design: 256 threads per block; 64-row tiles staged in shared memory as
-// fp32, row-major with a 4-float pad.  Each thread computes a 4 x 4 patch
-// of S and dP: rows 4*ty + a and columns tx + 16*c, so that the 8 threads
-// of a quarter-warp read 8 different K rows whose 4-bank groups tile all 32
-// banks, while all of them read the same Q row (a broadcast).  The patch
-// goes to shared memory as P / dS, and each thread then accumulates 4
-// output rows x d/16 columns (columns 4*tx + 64*g: again conflict-free).
+// dK/dV, bf16 / fp16: tensor cores (flash_bwd_dkv_mma_kernel).  One block
+// per (batch, kv head, 64-key tile[, split]), 4 warps of 16 key rows each;
+// the K and V tiles are loaded once into shared memory.  The block walks
+// (q head of the group, q tile from the causal diagonal on); the Q and dO
+// tiles, with their lse and delta rows, go through a two-stage cp.async
+// ring, so item i + 1 is in flight while item i is computed.  Per item,
+// each warp computes S^T = K Q^T directly in the transposed orientation
+// (it owns key rows), P^T from the accumulators, dV += P^T dO with P^T
+// packed to b16 in registers as the A operand and dO read by
+// ldmatrix.trans, dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale, and
+// dK += dS^T Q the same way.  dK and dV stay fp32 accumulators in
+// registers (2 x 16 rows x d per warp: 128 registers a thread at d = 128).
+// A grid of b * hk * ceil(sk / 64) blocks below about twice the SM count
+// (Falcon-7B: one kv head, 32 blocks at seq 2048) splits each block's walk
+// over `splits` blocks: each writes fp32 partial dK and dV to a scratch
+// [2, splits, b, sk, hk, d] and a second small kernel sums the partials in
+// split order and writes the input dtype, so the result stays
+// deterministic.  Blocks of low key tiles (the most q tiles under the
+// causal mask) are issued first.  Shared memory at d = 128: K and V 17 KB
+// each plus the ring 2 x 2 x 17 KB and 1 KB of lse / delta, 103 KB: two
+// blocks on an SM.  nvcc -Xptxas -v (CUDA 12.8, sm_90a): 255 registers a
+// thread at d = 128 with 8 bytes spilled (the two 16 x 128 fp32
+// accumulators, P^T and dP^T live at once), 233 at d = 64 without spills.
+// What holds it back: mma.sync's rate (as the forward), the spill, and
+// the K and V operands read again from shared memory for every item.
+//
+// dQ (all dtypes) and dK/dV in fp32: CUDA-core FMAs, the bodies of the
+// first port (the tensor cores have no fp32 product but TF32, which would
+// change what fp32 computes).  256 threads per block; 64-row tiles staged
+// in shared memory as fp32, row-major with a 4-float pad.  Each thread
+// computes a 4 x 4 patch of S and dP: rows 4*ty + a and columns tx + 16*c,
+// so that the 8 threads of a quarter-warp read 8 different K rows whose
+// 4-bank groups tile all 32 banks, while all of them read the same Q row
+// (a broadcast).  The patch goes to shared memory as P / dS, and each
+// thread then accumulates 4 output rows x d/16 columns (columns
+// 4*tx + 64*g: again conflict-free).
 //   dQ kernel:   one block per (batch, q head, q tile); loops over k tiles
 //                up to the causal diagonal.
 //   dK/dV kernel: one block per (batch, kv head, k tile); loops over the
 //                q heads of the group and the q tiles from the diagonal on.
-// (mma.sync / wgmma tiles and TMA are the later work that moves these
-// toward the bound.)
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <math.h>
 
@@ -197,8 +225,28 @@ __device__ __forceinline__ void store_rows(T* out, size_t stride, int base,
   }
 }
 
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+template <>
+__device__ __forceinline__ float round_to<__half>(float x) {
+  return __half2float(__float2half(x));
+}
+
 // P and dS for this thread's 4 x 4 patch (rows qbase + r0 + a, columns
-// kbase + tx + 16 c) from the S and dP patches, into the [64][LDP] tiles.
+// kbase + tx + 16 c) from the S and dP patches, into the [64][LDP] tiles,
+// each rounded to T as the product that reads it rounds its operand.
+template <typename T>
 __device__ __forceinline__ void p_and_ds(
     const float s[4][4], const float dp[4][4], const float* rowL,
     const float* rowD, const int* seg, size_t seg_row, int qbase, int kbase,
@@ -228,8 +276,9 @@ __device__ __forceinline__ void p_and_ds(
       if (seg != nullptr) keep = keep && (qseg[a] == kseg[c]);
       // a kept pair's row saw a key, so its lse is finite and P <= 1
       const float p = keep ? __expf(s[a][c] * scale - lse) : 0.f;
-      if (Ps != nullptr) Ps[(r0 + a) * LDP + tx + 16 * c] = p;
-      dSs[(r0 + a) * LDP + tx + 16 * c] = p * (dp[a][c] - delta) * scale;
+      if (Ps != nullptr) Ps[(r0 + a) * LDP + tx + 16 * c] = round_to<T>(p);
+      dSs[(r0 + a) * LDP + tx + 16 * c] =
+          round_to<T>(p * (dp[a][c] - delta) * scale);
     }
   }
 }
@@ -289,8 +338,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[4][4], dp[4][4];
     dot_patch<D>(Qs, Ks, r0, tx, s);
     dot_patch<D>(dOs, Vs, r0, tx, dp);
-    p_and_ds(s, dp, rowL, rowD, seg, (size_t)bi * sk, qbase, kbase, r0, tx,
-             sq, sk, scale, causal, nullptr, dSs);
+    p_and_ds<T>(s, dp, rowL, rowD, seg, (size_t)bi * sk, qbase, kbase, r0,
+                tx, sq, sk, scale, causal, nullptr, dSs);
     __syncthreads();
     accumulate<D, false>(dSs, Ks, r0, tx, acc);
     __syncthreads();  // K, V and dS are overwritten by the next tile
@@ -362,8 +411,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s[4][4], dp[4][4];
       dot_patch<D>(Qs, Ks, r0, tx, s);
       dot_patch<D>(dOs, Vs, r0, tx, dp);
-      p_and_ds(s, dp, rowL, rowD, seg, (size_t)bi * sk, qbase, kbase, r0,
-               tx, sq, sk, scale, causal, Ps, dSs);
+      p_and_ds<T>(s, dp, rowL, rowD, seg, (size_t)bi * sk, qbase, kbase,
+                  r0, tx, sq, sk, scale, causal, Ps, dSs);
       __syncthreads();
       // this thread's rows are now key rows kbase + r0 + a
       accumulate<D, true>(Ps, dOs, r0, tx, acc_v);
@@ -373,6 +422,246 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, D>(dk + k_off, k_stride, kbase, sk, r0, tx, acc_k);
   store_rows<T, D>(dv + k_off, k_stride, kbase, sk, r0, tx, acc_v);
 }
+
+// ---------------------------------------------------------------------------
+// dK/dV, bf16 / fp16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+constexpr int kDkvWarps = 4;  // 16 key rows each: one 64-key tile a block
+constexpr int kDkvThreads = kDkvWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct DkvMmaSmem {  // elements of T: K, V, then 2 x {Q, dO}; 2 x {lse, delta}
+  static constexpr int LDS = mma::kLd<D>;
+  static constexpr int TILE = 64 * LDS;
+  static constexpr int ROWS_OFF = 6 * TILE * 2;  // bytes to the fp32 rows
+  static constexpr int BYTES = ROWS_OFF + 2 * 2 * 64 * 4;
+};
+
+// acc (16 x 64 as 8 n-tiles) = A B^T for one warp: A the 16 rows x D at
+// `a_rows` of a tile, B the 64 rows x D tile `b` (row n of B is column n).
+template <typename T, int D>
+__device__ __forceinline__ void rows_by_rows(float acc[8][4], const T* a_rows,
+                                             const T* b, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    mma::load_a<D>(a, a_rows, 0, kk * 16, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bb[4];
+      mma::load_b_rows<D>(bb, b, np * 16, kk * 16, lane);
+      mma::mma16816<T>(acc[2 * np], a, bb[0], bb[1]);
+      mma::mma16816<T>(acc[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// Write a warp's 16 rows x D accumulators (rows kbase + 16 warp + g and
+// + 8, columns 8 dn + 2 t) to a [.., sk, hk, D] output at `base`: T when
+// `part` is null, else fp32 to the partial sums.
+template <typename T, int D>
+__device__ __forceinline__ void store_acc(T* out, float* part,
+                                          const float acc[D / 8][4],
+                                          size_t row_stride, int row0,
+                                          int sk, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= sk) continue;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const size_t at = (size_t)row * row_stride + dn * 8 + 2 * t;
+      const float x = acc[dn][2 * half], y = acc[dn][2 * half + 1];
+      if (part != nullptr)
+        *reinterpret_cast<float2*>(part + at) = make_float2(x, y);
+      else
+        *reinterpret_cast<uint32_t*>(out + at) = mma::pack2<T>(x, y);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDkvThreads, 2)
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int* __restrict__ seg, T* __restrict__ dk,
+                         T* __restrict__ dv, float* __restrict__ part,
+                         int b, int sq, int sk, int hq, int hk, float scale,
+                         int causal, int splits) {
+  using S = DkvMmaSmem<D>;
+  constexpr int LDS = S::LDS, TILE = S::TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + TILE;
+  T* ring = Vs + TILE;  // stage s: Q at ring + 2 s TILE, dO after it
+  float* rows = reinterpret_cast<float*>(smem_raw + S::ROWS_OFF);
+  // stage s: lse at rows + 128 s, delta at rows + 128 s + 64
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int per_kt = b * hk * splits;
+  const int kt = blockIdx.x / per_kt;  // low key tiles (most work) first
+  const int rem = blockIdx.x % per_kt;
+  const int split = rem % splits;
+  const int hkv = (rem / splits) % hk, bi = rem / splits / hk;
+  const int group = hq / hk;
+  const int kbase = kt * 64;
+  const int offset = sk - sq;
+  const float scale2 = scale * kLog2e;  // exp(x) = 2^(x log2 e)
+  const size_t q_stride = (size_t)hq * D, k_stride = (size_t)hk * D;
+  const size_t k_off = (size_t)bi * sk * k_stride + (size_t)hkv * D;
+
+  // the items (q head of the group, q tile from the causal diagonal on)
+  const int n_qt = (sq + 63) / 64;
+  const int first = kbase - offset;  // first q row that sees key kbase
+  const int qt0 = (causal && first > 0) ? min(first / 64, n_qt) : 0;
+  const int n_item_q = n_qt - qt0;
+  const int total = group * n_item_q;
+  const int per_split = (total + splits - 1) / splits;
+  const int i0 = min(total, split * per_split);
+  const int i1 = min(total, i0 + per_split);
+
+  auto tile_async = [&](T* dst, const T* src, size_t stride, int base,
+                        int limit) {
+    mma::cp_async_rows<T, D, 64, kDkvThreads>(dst, src, stride, base, limit,
+                                             tid);
+  };
+  auto issue = [&](int item, int stage) {
+    const int h = hkv * group + item / n_item_q;
+    const int qbase = (qt0 + item % n_item_q) * 64;
+    const size_t q_off = (size_t)bi * sq * q_stride + (size_t)h * D;
+    T* Qd = ring + stage * 2 * TILE;
+    tile_async(Qd, q + q_off, q_stride, qbase, sq);
+    tile_async(Qd + TILE, dout + q_off, q_stride, qbase, sq);
+    const int r = tid % 64;
+    const float* src = (tid < 64 ? lse : delta) +
+                       ((size_t)bi * hq + h) * sq;
+    const bool ok = qbase + r < sq;
+    mma::cp_async4(rows + stage * 128 + tid, src + (ok ? qbase + r : 0), ok);
+  };
+
+  tile_async(Ks, k + k_off, k_stride, kbase, sk);
+  tile_async(Vs, v + k_off, k_stride, kbase, sk);
+  mma::cp_async_commit();
+  if (i0 < i1) issue(i0, 0);
+  mma::cp_async_commit();
+
+  const int key0 = kbase + warp * 16 + g, key1 = key0 + 8;
+  int kseg0 = 0, kseg1 = 0;
+  if (seg != nullptr) {
+    kseg0 = key0 < sk ? seg[(size_t)bi * sk + key0] : -1;
+    kseg1 = key1 < sk ? seg[(size_t)bi * sk + key1] : -1;
+  }
+  const T* Kw = Ks + warp * 16 * LDS;
+  const T* Vw = Vs + warp * 16 * LDS;
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[dn][e] = acc_v[dn][e] = 0.f;
+
+  for (int it = i0; it < i1; ++it) {
+    const int stage = (it - i0) & 1;
+    if (it + 1 < i1) issue(it + 1, stage ^ 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // K, V and this item have landed
+    __syncthreads();
+    const T* Qt = ring + stage * 2 * TILE;
+    const T* dOt = Qt + TILE;
+    const float* L = rows + stage * 128;
+    const float* Dl = L + 64;
+    const int qbase = (qt0 + it % n_item_q) * 64;
+
+    // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T
+    float p[8][4];
+    rows_by_rows<T, D>(p, Kw, Qt, lane);
+    const bool edge = qbase + 64 > sq || kbase + 64 > sk ||
+                      (causal && kbase + 63 > qbase + offset) ||
+                      seg != nullptr;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * t + (e & 1);  // query column in the tile
+        bool keep = true;
+        if (edge) {
+          const int key = e < 2 ? key0 : key1, row = qbase + c;
+          keep = row < sq && key < sk;
+          if (causal) keep = keep && key <= row + offset;
+          if (seg != nullptr && keep)
+            keep = seg[(size_t)bi * sk + row] == (e < 2 ? kseg0 : kseg1);
+        }
+        // a kept pair's row saw a key, so its lse is finite and P <= 1
+        p[nt][e] = keep ? mma::ex2(fmaf(p[nt][e], scale2, -L[c] * kLog2e))
+                        : 0.f;
+      }
+
+    // dV += P^T dO (P^T rounded to T in registers)
+    mma::acc_times_tile<T, D>(acc_v, p, dOt, lane);
+
+    // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale in place
+    float ds[8][4];
+    rows_by_rows<T, D>(ds, Vw, dOt, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[nt][e] = p[nt][e] * (ds[nt][e] - Dl[nt * 8 + 2 * t + (e & 1)]) *
+                    scale;
+
+    // dK += dS^T Q (dS^T rounded to T in registers)
+    mma::acc_times_tile<T, D>(acc_k, ds, Qt, lane);
+    __syncthreads();  // the stage is refilled two items on
+  }
+
+  mma::cp_async_wait<0>();  // a block with no item still has K, V landing
+  const size_t out_off = (size_t)bi * sk * k_stride + (size_t)hkv * D;
+  const size_t part_n = (size_t)b * sk * k_stride;
+  float* pk = part == nullptr ? nullptr : part + split * part_n + out_off;
+  float* pv = part == nullptr ? nullptr
+                              : part + (splits + split) * part_n + out_off;
+  store_acc<T, D>(dk + out_off, pk, acc_k, k_stride, key0, sk, t);
+  store_acc<T, D>(dv + out_off, pv, acc_v, k_stride, key0, sk, t);
+}
+
+// out[i] = sum over s of part[s][i], s in order, for dK (part[0..splits))
+// then dV (part[splits..2 splits)), written as T; n divisible by 4.
+template <typename T>
+__global__ void dkv_sum_splits_kernel(const float* __restrict__ part,
+                                      T* __restrict__ dk, T* __restrict__ dv,
+                                      size_t n, int splits) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x * 4;
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+       i < 2 * n; i += stride) {
+    const int which = i < n ? 0 : 1;
+    const size_t at = i - which * n;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          part + ((size_t)which * splits + sp) * n + at);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    T* out = (which == 0 ? dk : dv) + at;
+    reinterpret_cast<uint32_t*>(out)[0] = mma::pack2<T>(acc.x, acc.y);
+    reinterpret_cast<uint32_t*>(out)[1] = mma::pack2<T>(acc.z, acc.w);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
 
 template <typename Kern>
 cudaError_t opt_in_smem(Kern kern, int bytes, bool* done) {
@@ -400,36 +689,56 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, const int* seg, void* dk, void* dv,
-                       int b, int sq, int sk, int hq, int hk, float scale,
-                       int causal, cudaStream_t stream) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+template <int D>
+cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const int* seg, void* dk,
+                            void* dv, float* part, int b, int sq, int sk,
+                            int hq, int hk, float scale, int causal,
+                            int splits, cudaStream_t stream) {
+  if (splits != 1 || part != nullptr) return cudaErrorInvalidValue;
+  auto kern = flash_bwd_dkv_kernel<float, D>;
   static bool smem_set = false;
   cudaError_t err = opt_in_smem(kern, DkvSmem<D>::BYTES, &smem_set);
   if (err != cudaSuccess) return err;
   const int n_kt = (sk + BK - 1) / BK;
   kern<<<dim3(b * hk * n_kt), kThreads, DkvSmem<D>::BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, seg,
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, hq, hk, scale,
-      causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, seg, static_cast<float*>(dk), static_cast<float*>(dv), sq, sk,
+      hq, hk, scale, causal);
   return cudaGetLastError();
 }
 
-// Dispatch on dtype and head dim: F<T, D>(args...).
-#define BWD_DISPATCH(F, ...)                                           \
-  switch (dtype * 1000 + d) {                                          \
-    case kFloat32 * 1000 + 64: return F<float, 64>(__VA_ARGS__);       \
-    case kFloat32 * 1000 + 128: return F<float, 128>(__VA_ARGS__);     \
-    case kBFloat16 * 1000 + 64: return F<__nv_bfloat16, 64>(__VA_ARGS__);   \
-    case kBFloat16 * 1000 + 128: return F<__nv_bfloat16, 128>(__VA_ARGS__); \
-    case kFloat16 * 1000 + 64: return F<__half, 64>(__VA_ARGS__);      \
-    case kFloat16 * 1000 + 128: return F<__half, 128>(__VA_ARGS__);    \
-  }                                                                    \
-  return cudaErrorInvalidValue;
+template <typename T, int D>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, const int* seg, void* dk,
+                           void* dv, float* part, int b, int sq, int sk,
+                           int hq, int hk, float scale, int causal,
+                           int splits, cudaStream_t stream) {
+  if (splits < 1 || (splits > 1) != (part != nullptr))
+    return cudaErrorInvalidValue;
+  auto kern = flash_bwd_dkv_mma_kernel<T, D>;
+  static bool smem_set = false;
+  cudaError_t err = opt_in_smem(kern, DkvMmaSmem<D>::BYTES, &smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (sk + 63) / 64;
+  kern<<<dim3(n_kt * b * hk * splits), kDkvThreads, DkvMmaSmem<D>::BYTES,
+         stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, seg,
+      static_cast<T*>(dk), static_cast<T*>(dv), part, b, sq, sk, hq, hk,
+      scale, causal, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t n = (size_t)b * sk * hk * D;
+  const size_t want = (2 * n / 4 + 255) / 256;
+  const int blocks = want < 4096 ? (int)want : 4096;
+  dkv_sum_splits_kernel<T><<<blocks, 256, 0, stream>>>(
+      part, static_cast<T*>(dk), static_cast<T*>(dv), n, splits);
+  return cudaGetLastError();
+}
 
 bool bad_shape(int b, int sq, int sk, int hq, int hk, const void* seg) {
   return b <= 0 || sq <= 0 || sk <= 0 || hk <= 0 || hq % hk != 0 ||
@@ -448,21 +757,49 @@ extern "C" int flash_attention_bwd_dq_launch(
     int sq, int sk, int hq, int hk, int d, float scale, int causal, int dtype,
     void* stream) {
   if (bad_shape(b, sq, sk, hq, hk, seg)) return cudaErrorInvalidValue;
-  BWD_DISPATCH(launch_dq, q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta),
-               static_cast<const int*>(seg), dq, b, sq, sk, hq, hk, scale,
-               causal, static_cast<cudaStream_t>(stream))
+#define DQ_ARGS                                                           \
+  q, k, v, dout, static_cast<const float*>(lse),                          \
+      static_cast<const float*>(delta), static_cast<const int*>(seg), dq, \
+      b, sq, sk, hq, hk, scale, causal, static_cast<cudaStream_t>(stream)
+  switch (dtype * 1000 + d) {
+    case kFloat32 * 1000 + 64: return launch_dq<float, 64>(DQ_ARGS);
+    case kFloat32 * 1000 + 128: return launch_dq<float, 128>(DQ_ARGS);
+    case kBFloat16 * 1000 + 64: return launch_dq<__nv_bfloat16, 64>(DQ_ARGS);
+    case kBFloat16 * 1000 + 128:
+      return launch_dq<__nv_bfloat16, 128>(DQ_ARGS);
+    case kFloat16 * 1000 + 64: return launch_dq<__half, 64>(DQ_ARGS);
+    case kFloat16 * 1000 + 128: return launch_dq<__half, 128>(DQ_ARGS);
+  }
+#undef DQ_ARGS
+  return cudaErrorInvalidValue;
 }
 
-// As above, writing dk / dv [b, sk, hk, d] in k's dtype.
+// As above, writing dk / dv [b, sk, hk, d] in k's dtype.  fp32 runs the
+// CUDA-core body (splits 1, no scratch); bf16 and fp16 the tensor-core
+// body, whose walk is split over `splits` blocks when splits > 1, with
+// `scratch` fp32 [2, splits, b, sk, hk, d] for the partial sums (null when
+// splits == 1).
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg, void* dk, void* dv,
-    int b, int sq, int sk, int hq, int hk, int d, float scale, int causal,
-    int dtype, void* stream) {
+    void* scratch, int b, int sq, int sk, int hq, int hk, int d, float scale,
+    int causal, int splits, int dtype, void* stream) {
   if (bad_shape(b, sq, sk, hq, hk, seg)) return cudaErrorInvalidValue;
-  BWD_DISPATCH(launch_dkv, q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta),
-               static_cast<const int*>(seg), dk, dv, b, sq, sk, hq, hk,
-               scale, causal, static_cast<cudaStream_t>(stream))
+#define DKV_ARGS                                                            \
+  q, k, v, dout, static_cast<const float*>(lse),                            \
+      static_cast<const float*>(delta), static_cast<const int*>(seg), dk,   \
+      dv, static_cast<float*>(scratch), b, sq, sk, hq, hk, scale, causal,   \
+      splits, static_cast<cudaStream_t>(stream)
+  switch (dtype * 1000 + d) {
+    case kFloat32 * 1000 + 64: return launch_dkv_simt<64>(DKV_ARGS);
+    case kFloat32 * 1000 + 128: return launch_dkv_simt<128>(DKV_ARGS);
+    case kBFloat16 * 1000 + 64:
+      return launch_dkv_mma<__nv_bfloat16, 64>(DKV_ARGS);
+    case kBFloat16 * 1000 + 128:
+      return launch_dkv_mma<__nv_bfloat16, 128>(DKV_ARGS);
+    case kFloat16 * 1000 + 64: return launch_dkv_mma<__half, 64>(DKV_ARGS);
+    case kFloat16 * 1000 + 128: return launch_dkv_mma<__half, 128>(DKV_ARGS);
+  }
+#undef DKV_ARGS
+  return cudaErrorInvalidValue;
 }

@@ -14,15 +14,34 @@
 
 Each wrapper counts its launches in a ``launches`` attribute; the fused
 decode step's wrappers count their launches with a LoRA arena apart, in
-``<wrapper>.lora.launches``.
+``<wrapper>.lora.launches``, and the flash-attention forward and dK/dV
+wrappers their launches of the tensor-core body (bf16 / fp16 inputs) in
+``<wrapper>.mma_launches``.
 """
+
+
+class _AttrCounter:
+    """One integer attribute of a wrapper, read and reset as ``launches``
+    like the other counters."""
+
+    def __init__(self, fn, attr: str):
+        self._fn, self._attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self._fn, self._attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self._fn, self._attr, n)
 
 
 def launch_counters() -> dict:
     """``{kernel name: counter}`` of every kernel wrapper's launch counter
     (read and reset through ``counter.launches``): the wrappers
-    themselves, and ``<name>_lora`` for the fused decode step's launches
-    with a LoRA arena."""
+    themselves, ``<name>_lora`` for the fused decode step's launches with a
+    LoRA arena, and ``<name>_mma`` for the flash-attention forward's and
+    dK/dV's launches of their tensor-core bodies."""
     from .decode_step import (
         fused_decode_step,
         fused_decode_step_paged,
@@ -48,8 +67,12 @@ def launch_counters() -> dict:
     )
 
     return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_fwd_mma": _AttrCounter(flash_attention_fwd,
+                                                    "mma_launches"),
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+            "flash_attention_bwd_dkv_mma": _AttrCounter(
+                flash_attention_bwd_dkv, "mma_launches"),
             "flash_decode": flash_decode,
             "flash_decode_int8": flash_decode_int8,
             "flash_decode_paged": flash_decode_paged,

@@ -47,9 +47,18 @@ def _acc_dtype(x):
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
+def _rounded(x, like):
+    """``x`` rounded to ``like``'s dtype and kept in ``x``'s: where the JAX
+    kernels cast a product's operand to the input dtype (the identity for
+    fp32 and fp64 inputs)."""
+    return x.to(like.dtype).to(x.dtype)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           segment_ids=None, softmax_scale=None):
-    """The kernel's function in plain torch: ``(O, lse)`` with fp32 math."""
+    """The kernel's function in plain torch: ``(O, lse)`` with fp32 math.
+    P is rounded to v's dtype before P·V and l is the fp32 sum of the
+    unrounded P, as in JAX ``_fwd_kernel``."""
     b, sq, hq, d = q.shape
     _, sk, hk, _ = k.shape
     group = hq // hk
@@ -64,7 +73,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(acc))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", _rounded(p, v), v.to(acc))
     l_q = l.permute(0, 3, 1, 2, 4)  # [b, sq, hk, g, 1]
     o = torch.where(l_q > 0, o / torch.where(l_q > 0, l_q, 1.0), 0.0)
     lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
@@ -130,10 +139,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, segment_ids=None,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention_fwd.launches += 1
+    if q.dtype != torch.float32:   # the launcher's tensor-core body
+        flash_attention_fwd.mma_launches += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.mma_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -168,21 +180,24 @@ def _bwd_plain_parts(q, k, v, o, lse, do, causal, segment_ids,
 
 def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, *, causal: bool = True,
                                  segment_ids=None, softmax_scale=None):
-    """K2's function in plain torch: dQ in q's dtype."""
+    """K2's function in plain torch: dQ in q's dtype, with dS rounded to
+    k's dtype before dS·K (JAX ``_dq_kernel``)."""
     _, kf, _, _, ds = _bwd_plain_parts(q, k, v, o, lse, do, causal,
                                        segment_ids, softmax_scale)
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(q.shape)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", _rounded(ds, k),
+                      kf).reshape(q.shape)
     return dq.to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, o, lse, do, *, causal: bool = True,
                                   segment_ids=None, softmax_scale=None):
     """K3's function in plain torch: ``(dK, dV)`` in k's and v's dtypes,
-    summed over each kv head's q-head group."""
+    summed over each kv head's q-head group; P rounded to dO's dtype
+    before Pᵀ·dO and dS to q's before dSᵀ·Q (JAX ``_dkv_kernel``)."""
     qf, _, dof, p, ds = _bwd_plain_parts(q, k, v, o, lse, do, causal,
                                          segment_ids, softmax_scale)
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", _rounded(ds, q), qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", _rounded(p, do), dof)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -240,25 +255,79 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
 flash_attention_bwd_dq.launches = 0
 
 
+_DKV_TILE = 64         # keys per K3 block
+_DKV_MAX_SPLITS = 16
+
+
+def _dkv_splits(b: int, hk: int, sk: int, group: int, sm_count: int) -> int:
+    """Blocks over which K3's tensor-core body splits each (batch, kv
+    head, key tile)'s walk over the q-head group and the q tiles.  A grid
+    of at least twice the SM count (two blocks fit on an SM) is not split;
+    a smaller one is split towards four blocks a SM, so that the heavy
+    (early) key tiles' splits spread over the card, but never into more
+    splits than the group has heads (each split keeps whole q tiles of at
+    least one head) or 16."""
+    blocks = b * hk * -(-sk // _DKV_TILE)
+    if blocks >= 2 * sm_count:
+        return 1
+    return max(1, min(group, _DKV_MAX_SPLITS, -(-4 * sm_count // blocks)))
+
+
+_SM_COUNTS: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNTS[idx]
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
-                            segment_ids=None, softmax_scale=None):
+                            segment_ids=None, softmax_scale=None,
+                            splits=None):
     """``(dK, dV)`` from the CUDA kernel K3, summed over each kv head's
-    q-head group (CUDA tensors only; arguments as ``_dq``)."""
+    q-head group (CUDA tensors only; arguments as ``_dq``).  bf16 / fp16
+    take the tensor-core body, whose walk is split over ``splits`` blocks
+    (default ``_dkv_splits`` for this card) with fp32 partial sums added
+    in split order by a second kernel; fp32 takes the CUDA-core body,
+    unsplit."""
     _check_bwd(q, k, v, do, lse, delta, segment_ids)
-    seg_ptr, *dims = _bwd_args(q, k, segment_ids, softmax_scale)
+    seg_ptr, b, sq, sk, hq, hk, d, scale = _bwd_args(q, k, segment_ids,
+                                                     softmax_scale)
+    mma = q.dtype != torch.float32
+    if not mma:
+        if splits not in (None, 1):
+            raise ValueError("flash_attention_bwd_dkv: the fp32 body does "
+                             "not split")
+        splits = 1
+    elif splits is None:
+        splits = _dkv_splits(b, hk, sk, hq // hk, _sm_count(q.device))
+    elif splits < 1:
+        raise ValueError(f"flash_attention_bwd_dkv: splits {splits} < 1")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    scratch = None
+    if splits > 1:
+        scratch = torch.empty(2, splits, b, sk, hk, d, dtype=torch.float32,
+                              device=q.device)
     err = _bwd_lib().flash_attention_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), seg_ptr, dk.data_ptr(),
-        dv.data_ptr(), *dims, int(causal), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        b, sq, sk, hq, hk, d, scale, int(causal), splits,
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    if mma:
+        flash_attention_bwd_dkv.mma_launches += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.mma_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -323,14 +392,17 @@ def _lib():
 
 def _bwd_lib():
     lib = build.load("flash_attention_bwd")
-    for name, n_out in (("flash_attention_bwd_dq_launch", 1),
-                        ("flash_attention_bwd_dkv_launch", 2)):
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            P, I = ctypes.c_void_p, ctypes.c_int
-            # q k v dO lse delta seg + outputs; b sq sk hq hk d; scale;
-            # causal dtype; stream
-            fn.argtypes = ([P] * (7 + n_out) + [I] * 6 + [ctypes.c_float]
-                           + [I, I, P])
-            fn.restype = I
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dq, dkv = lib.flash_attention_bwd_dq_launch, \
+        lib.flash_attention_bwd_dkv_launch
+    if dq.argtypes is None:
+        # q k v dO lse delta seg dq; b sq sk hq hk d; scale; causal dtype;
+        # stream
+        dq.argtypes = [P] * 8 + [I] * 6 + [F, I, I, P]
+        dq.restype = I
+    if dkv.argtypes is None:
+        # q k v dO lse delta seg dk dv scratch; b sq sk hq hk d; scale;
+        # causal splits dtype; stream
+        dkv.argtypes = [P] * 10 + [I] * 6 + [F, I, I, I, P]
+        dkv.restype = I
     return lib

@@ -58,15 +58,49 @@ def test_flash_attention_matches_plain(cuda_device, hq, hk, sq, sk, segs,
         seg = (torch.arange(sq, device=cuda_device) // 50).repeat(2, 1)
         seg = seg.to(torch.int32).contiguous()
     before = tfa.flash_attention_fwd.launches
+    mma = tfa.flash_attention_fwd.mma_launches
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
     torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches == before + 1
+    # bf16 takes the tensor-core body, fp32 the CUDA-core one
+    assert tfa.flash_attention_fwd.mma_launches == mma + (
+        dtype != torch.float32)
     o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=True,
                                                segment_ids=seg)
     # fp32 inputs: only the order of fp32 sums differs
     tol = CARD_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(o.float(), o_ref.float(), **tol)
     torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,causal,segs,dtype", [
+    (1, 4, 2, 100, 300, 64, True, False, torch.bfloat16),   # d 64, ragged
+    (2, 4, 4, 300, 70, 128, True, False, torch.bfloat16),   # rows no key
+    (1, 8, 1, 129, 129, 64, False, False, torch.bfloat16),  # not causal
+    (2, 4, 2, 200, 200, 128, True, True, torch.float16),    # fp16, segs
+    (1, 4, 4, 65, 193, 64, True, False, torch.float16),     # fp16, d 64
+])
+def test_flash_attention_mma_edges_match_plain(cuda_device, b, hq, hk, sq,
+                                               sk, d, causal, segs, dtype):
+    """K1's tensor-core body where its tiles meet the edges: q and k
+    lengths off the 64-row tile, rows that see no key, head dim 64, fp16;
+    within CARD_TOL of the plain version, which rounds P where it does."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, _, seg = _bwd_inputs(gen, cuda_device, b, sq, sk, hq, hk, d,
+                                  dtype, segs)
+    mma = tfa.flash_attention_fwd.mma_launches
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.mma_launches == mma + 1
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                               segment_ids=seg)
+    assert o.dtype == dtype and torch.isfinite(o).all()
+    torch.testing.assert_close(o.float(), o_ref.float(), **CARD_TOL)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    if causal and sq > sk:  # rows that see no key
+        assert not o[:, :sq - sk].any()
+        assert (lse[:, :, :sq - sk] == tfa.NO_KEY_LSE).all()
 
 
 @pytest.mark.cuda
@@ -212,8 +246,10 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                                atol=1e-4)
     launches = {n: fn.launches for n, fn in counters.items()}
     assert launches == {"flash_attention_fwd": cfg.num_layers,
+                        "flash_attention_fwd_mma": 0,   # fp32: CUDA cores
                         "flash_attention_bwd_dq": 0,
                         "flash_attention_bwd_dkv": 0,
+                        "flash_attention_bwd_dkv_mma": 0,
                         "flash_decode": 4 * cfg.num_layers,
                         "flash_decode_int8": 0, "flash_decode_paged": 0,
                         "flash_decode_paged_int8": 0,
@@ -222,7 +258,11 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                         "layernorm_bwd": 0, "fused_decode_step": 0,
                         "fused_decode_step_paged": 0,
                         "fused_decode_verify_paged": 0,
-                        "fused_decode_verify_tree_paged": 0}, launches
+                        "fused_decode_verify_tree_paged": 0,
+                        "fused_decode_step_lora": 0,
+                        "fused_decode_step_paged_lora": 0,
+                        "fused_decode_verify_paged_lora": 0,
+                        "fused_decode_verify_tree_paged_lora": 0}, launches
 
 
 def _bwd_inputs(gen, dev, b, sq, sk, hq, hk, d, dtype, segs):
@@ -254,23 +294,95 @@ def test_flash_attention_bwd_matches_plain(cuda_device, hq, hk, sq, sk, d,
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
     n_dq = tfa.flash_attention_bwd_dq.launches
     n_dkv = tfa.flash_attention_bwd_dkv.launches
+    n_mma = tfa.flash_attention_bwd_dkv.mma_launches
     got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   segment_ids=seg)
     torch.cuda.synchronize()
     assert tfa.flash_attention_bwd_dq.launches == n_dq + 1
     assert tfa.flash_attention_bwd_dkv.launches == n_dkv + 1
+    assert tfa.flash_attention_bwd_dkv.mma_launches == n_mma + (
+        dtype != torch.float32)
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          segment_ids=seg)
     # grads are sums over up to sk (dQ) or group * sq (dK, dV) terms of
     # O(1) products: bf16 rounds the result once on each side; fp32 only
-    # reorders the sums
+    # reorders the sums.  dK and dV (K3's tensor-core body) round P and dS
+    # where the plain version does: CARD_TOL
     tol = (dict(rtol=2 ** -6, atol=2e-2) if dtype == torch.bfloat16
            else dict(rtol=1e-4, atol=1e-4))
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and torch.isfinite(g).all(), name
         torch.testing.assert_close(g.float(), w.float(), **tol, msg=name)
+        if dtype == torch.bfloat16 and name != "dq":
+            torch.testing.assert_close(g.float(), w.float(), **CARD_TOL,
+                                       msg=name)
     if sq > sk:  # causal rows that see no key get dQ = 0 exactly
         assert not got[0][:, :sq - sk].any()
+
+
+def _dkv(q, k, v, do, causal, seg, splits=None):
+    """K3 alone on the forward kernel's lse, and the plain (dK, dV)."""
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                                      segment_ids=seg, splits=splits)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_bwd_dkv_plain(q, k, v, o, lse, do,
+                                             causal=causal, segment_ids=seg)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,causal,segs,dtype", [
+    (1, 8, 2, 100, 300, 64, True, False, torch.bfloat16),   # d 64, ragged
+    (2, 4, 4, 300, 70, 128, True, False, torch.bfloat16),   # rows no key
+    (1, 4, 1, 129, 129, 64, False, False, torch.bfloat16),  # not causal
+    (2, 4, 2, 200, 200, 128, True, True, torch.float16),    # fp16, segs
+    (1, 8, 1, 256, 256, 128, True, False, torch.bfloat16),  # split grid
+    (1, 8, 1, 65, 193, 64, True, False, torch.float16),     # fp16, split
+])
+def test_flash_attention_dkv_mma_edges_match_plain(cuda_device, b, hq, hk,
+                                                   sq, sk, d, causal, segs,
+                                                   dtype):
+    """K3's tensor-core body where its tiles meet the edges (q and k
+    lengths off the 64-row tile, key tiles no row sees, head dim 64, fp16)
+    and with its walk split over several blocks (one kv head: a grid of
+    a few blocks), within CARD_TOL of the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v, do, seg = _bwd_inputs(gen, cuda_device, b, sq, sk, hq, hk, d,
+                                   dtype, segs)
+    n_mma = tfa.flash_attention_bwd_dkv.mma_launches
+    got, want = _dkv(q, k, v, do, causal, seg)
+    assert tfa.flash_attention_bwd_dkv.mma_launches == n_mma + 1
+    for name, g, w in zip(("dk", "dv"), got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), w.float(), **CARD_TOL,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_dkv_split_equals_unsplit_and_repeats(cuda_device):
+    """A small grid (one kv head, group 8, 4 key tiles) splits K3's walk:
+    the split result is within CARD_TOL of the unsplit one (its fp32
+    partials are summed in another order), and two runs on the same inputs
+    are equal bit for bit (no atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, do, _ = _bwd_inputs(gen, cuda_device, 1, 256, 256, 8, 1, 128,
+                                 torch.bfloat16, False)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    splits = tfa._dkv_splits(1, 1, 256, 8, sms)
+    assert splits > 1
+    split, want = _dkv(q, k, v, do, True, None)
+    again, _ = _dkv(q, k, v, do, True, None)
+    unsplit, _ = _dkv(q, k, v, do, True, None, splits=1)
+    forced, _ = _dkv(q, k, v, do, True, None, splits=3)
+    for i, name in enumerate(("dk", "dv")):
+        assert torch.equal(split[i], again[i]), name
+        for g in (split[i], forced[i]):
+            torch.testing.assert_close(g.float(), unsplit[i].float(),
+                                       **CARD_TOL, msg=name)
+            torch.testing.assert_close(g.float(), want[i].float(),
+                                       **CARD_TOL, msg=name)
 
 
 @pytest.mark.cuda

@@ -150,26 +150,36 @@ def _spans(engine, prompts):
     try:
         for p in prompts:   # one at a time: the second hits the first
             engine.submit(p, 3, use_eos_stop=False).result(300)
-        return engine.trace.chrome_trace()["traceEvents"]
     finally:
         engine.shutdown()
+    # read once the scheduler thread has been joined: a request's result
+    # resolves inside the step whose engine_step span is added after it
+    return engine.trace.chrome_trace()["traceEvents"]
 
 
 def _summary(events):
-    """Per request: (name, args without timing-dependent values) in
-    order; engine_step spans by their route."""
-    out = []
+    """Per request, its spans in order as (name, phase, args without the
+    request id); then the engine_step spans that carried a batch, in
+    order, by their args (route, batch, pipelined).  Neither depends on
+    how the scheduler thread's iterations fell against the client's."""
+    requests, steps = {}, []
     for ev in events:
         args = dict(ev.get("args", {}))
-        args.pop("request_id", None)
-        out.append((ev["name"], ev["ph"], json.dumps(args, sort_keys=True)))
-    return out
+        rid = args.pop("request_id", None)
+        if ev["name"] == "engine_step":
+            if args.get("batch"):
+                steps.append(json.dumps(args, sort_keys=True))
+            continue
+        requests.setdefault(rid, []).append(
+            (ev["name"], ev["ph"], json.dumps(args, sort_keys=True)))
+    return list(requests.values()), steps
 
 
 def test_engine_spans_match_jax(weights):
     """Both engines, the same two requests one after the other (the
-    second a prefix hit), sync decode: the same span names, phases and
-    args, in the same order."""
+    second a prefix hit), sync decode: each request's spans with the same
+    names, phases and args in the same order, and the same batched
+    engine_step spans."""
     jc, jp, tc, tp = weights
     rng = np.random.default_rng(3)
     a = rng.integers(1, 250, 10).tolist()
@@ -177,7 +187,11 @@ def test_engine_spans_match_jax(weights):
     want = _spans(JServingEngine(jc, jp, JEngineConfig(**SLICE)), prompts)
     got = _spans(ServingEngine(tc, tp, EngineConfig(**SLICE), device="cpu"),
                  prompts)
-    assert _summary(got) == _summary(want)
+    got_requests, got_steps = _summary(got)
+    want_requests, want_steps = _summary(want)
+    assert len(want_requests) == 2 and len(want_steps) == 4
+    assert got_requests == want_requests
+    assert got_steps == want_steps
     names = {ev["name"] for ev in got}
     assert {"queued", "prefix_match", "prefill", "decode", "retire",
             "engine_step"} <= names

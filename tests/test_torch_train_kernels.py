@@ -12,6 +12,7 @@ CUDA / Triton kernels against these plain versions on the card.
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -26,6 +27,12 @@ torch.set_num_threads(1)
 # fp32 on both sides, the same function, sums in another order (the TPU
 # kernels tile k/q blocks): a few fp32 ulps of O(1) values
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
+# bf16 inputs on both sides: both round dS to bf16 before dS·K and dSᵀ·Q
+# and P before Pᵀ·dO, and each gradient once; one bf16 step of the result
+# (2^-7 relative) plus, where a P or dS value rounds the other way (its
+# fp32 value differs in the last bit), one bf16 step of that term (under
+# 2^-8 absolute for these O(1) inputs)
+BF16_PALLAS_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
 
 
 def _np(rng, shape):
@@ -80,6 +87,43 @@ def test_flash_attention_bwd_plain_matches_pallas(b, sq, sk, hq, hk, d,
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("b,sq,sk,hq,hk,d,causal,segs", [
+    (2, 64, 64, 4, 4, 64, True, False),      # square causal
+    (1, 40, 100, 4, 2, 64, True, False),     # causal, sq < sk, GQA, ragged
+    (2, 96, 96, 8, 2, 128, True, True),      # segment ids, GQA, d 128
+    (1, 33, 77, 2, 1, 64, False, False),     # ragged, not causal, MQA
+])
+def test_flash_attention_bwd_plain_bf16_matches_pallas(b, sq, sk, hq, hk, d,
+                                                       causal, segs):
+    """bf16 inputs on both sides: the plain backward rounds P and dS where
+    the Pallas kernels do."""
+    rng = np.random.default_rng(14)
+    q, k, v, do = (_np(rng, s).astype(ml_dtypes.bfloat16) for s in
+                   ((b, sq, hq, d), (b, sk, hk, d), (b, sk, hk, d),
+                    (b, sq, hq, d)))
+    seg = _segments(rng, b, sq) if segs else None
+
+    def jax_attn(q_, k_, v_):
+        return jfa.flash_attention(q_, k_, v_, causal=causal,
+                                   segment_ids=seg, interpret=True)
+
+    _, vjp = jax.vjp(jax_attn, jnp.asarray(q), jnp.asarray(k),
+                     jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a.view(np.int16).copy()).view(
+        torch.bfloat16) for a in (q, k, v, do))
+    tseg = None if seg is None else torch.from_numpy(seg)
+    o, lse = tfa.flash_attention_fwd(tq, tk, tv, causal=causal,
+                                     segment_ids=tseg)
+    got = tfa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, causal=causal,
+                                  segment_ids=tseg)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   **BF16_PALLAS_TOL, err_msg=name)
+
+
 def test_flash_attention_bwd_rows_without_keys_get_zero_dq():
     """A causal query row with no key at or before it (sq > sk) has lse =
     -1e30 and gets dQ = 0, not inf or NaN."""
@@ -92,6 +136,23 @@ def test_flash_attention_bwd_rows_without_keys_get_zero_dq():
     dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
     assert not dq[:, :12].any()
+
+
+@pytest.mark.parametrize("b,hk,sk,group,sms,want", [
+    (1, 32, 4096, 1, 132, 1),     # Llama-2-7B training: 2048 blocks
+    (1, 8, 4096, 4, 132, 1),      # GQA: 512 blocks
+    (1, 1, 2048, 71, 132, 16),    # Falcon-7B: 32 blocks, capped at 16
+    (1, 1, 256, 8, 132, 8),       # 4 blocks, capped at the group
+    (1, 4, 256, 1, 132, 1),       # MHA: a split needs a second head
+    (2, 66, 128, 2, 132, 1),      # 264 blocks: two a SM already
+    (1, 131, 128, 4, 132, 3),     # 262 blocks: ceil(528 / 262)
+    (1, 1, 2048, 71, 20, 3),      # a smaller card: ceil(80 / 32)
+])
+def test_dkv_splits(b, hk, sk, group, sms, want):
+    """How many blocks share each K3 block's walk: none where the grid
+    already fills two blocks a SM, else towards four a SM, at most one a
+    head of the group and at most 16."""
+    assert tfa._dkv_splits(b, hk, sk, group, sms) == want
 
 
 @pytest.mark.parametrize("causal,segs,hk", [(True, False, 2),
