@@ -16,11 +16,12 @@ it goes wrong:
    events), its bound on an H100 and one PyTorch library call for the same
    function as a yardstick where there is one (the port never calls
    those; no single call computes the fused decode step, whose rows give
-   the composed route's time instead); K1 and K3 also at their
-   tensor-core bodies' edges (ragged lengths, rows that see no key, head
-   dim 64, fp16), K3 with its walk split over several blocks (equal to
-   one block within the tolerance, and bit for bit from run to run), and
-   both with fp32 inputs, which take the CUDA-core bodies;
+   the composed route's time instead); K1-K3 also at their tensor-core
+   bodies' edges (ragged lengths, rows that see no key, head dim 64,
+   fp16), K3 with its walk split over several blocks (equal to one block
+   within the tolerance, and bit for bit from run to run), K2 and K5
+   repeated bit for bit, and K1-K3 with fp32 inputs, which take the
+   CUDA-core bodies;
 4. reference: Llama-2-7B widths cut to 2 layers, bf16, prefill then paged
    decode steps through the kernels, against the plain fp32 full forward;
 5. serve: Llama-2-7B at full width and depth, random weights from a seed,
@@ -108,63 +109,13 @@ import time
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
-# operations/s
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_OPS_S = 989e12
-PEAK_FP32_OPS_S = 67e12  # outside the tensor cores (norms' fp32 math)
+# the package's timing helpers and the H100's peaks (kernels/_timing.py),
+# bound in main(): the script imports nothing of the package at load
+timing = None
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds of ``fn``: ``iters`` calls captured in one
-    CUDA graph and replayed between CUDA events, so the host's launch cost
-    (a Triton launch takes longer than a small kernel runs) is not timed.
-    Inputs stay where the previous call left them (L2-warm)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def event_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
-    """Mean device milliseconds of ``fn`` between CUDA events, without a
-    graph (for calls that run autograd, whose launches take far less time
-    than their kernels here)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_BF16_OPS_S):
-    """(least milliseconds, "bytes" | "operations") on an H100."""
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def close_enough(torch, out, ref, atol: float, rtol: float):
@@ -270,9 +221,9 @@ def check_flash_attention(torch, F, fa, dev, gen):
                 f"{err_o:.3e} lse {err_l:.3e} (tol atol, rtol "
                 f"{_tol(torch, dtype)})")
             continue
-        ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
+        ms = timing.cuda_ms(lambda: fa.flash_attention_fwd(
             q, k, v, causal=True, segment_ids=seg))
-        plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(
+        plain_ms = timing.cuda_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=True, segment_ids=seg), iters=5)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if seg is None:
@@ -284,11 +235,11 @@ def check_flash_attention(torch, F, fa, dev, gen):
                     & (seg[:, :, None] == seg[:, None, :]))[:, None]
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask)
-        library_ms = cuda_ms(torch, lib)
+        library_ms = timing.cuda_ms(lib)
         pairs = _visible_pairs(torch, b, sq, sk, seg, dev) * hq
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
             + lse.numel() * 4 + (seg.numel() * 4 if seg is not None else 0)
-        bms, by = bound_ms(nbytes, 4.0 * d * pairs)
+        bms, by = timing.bound_ms(nbytes, 4.0 * d * pairs)
         log(f"kernel flash_attention_fwd [{name}]: max_abs_err O {err_o:.3e} "
             f"lse {err_l:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}; "
             f"lse atol 1e-4) ms {ms:.4f} plain_ms {plain_ms:.4f} "
@@ -322,18 +273,18 @@ def check_flash_decode(torch, F, fd, dev, gen):
         if not ok:
             raise RuntimeError(f"flash_decode {name}: err {err} beyond "
                                "tolerance")
-        ms = cuda_ms(torch, lambda: fd.flash_decode(q, kc, vc, lens))
-        plain_ms = cuda_ms(torch, lambda: fd.flash_decode_plain(
+        ms = timing.cuda_ms(lambda: fd.flash_decode(q, kc, vc, lens))
+        plain_ms = timing.cuda_ms(lambda: fd.flash_decode_plain(
             q, kc, vc, lens), iters=5)
         mask = (torch.arange(max_len, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=nq != kv)
-        library_ms = cuda_ms(torch, lib)
+        library_ms = timing.cuda_ms(lib)
         fill = float(lens.sum())
         # q read and out written once, each row's K and V up to its fill
         nbytes = (2 * q.numel() + 2 * fill * kv * d) * 2 + b * 4
-        bms, by = bound_ms(nbytes, 4.0 * fill * nq * d)
+        bms, by = timing.bound_ms(nbytes, 4.0 * fill * nq * d)
         log(f"kernel flash_decode [{name}]: max_abs_err {err:.3e} (tol atol "
             f"{BF16_ATOL} rtol {BF16_RTOL:.4f}) ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} sdpa_ms {library_ms:.4f} bound_ms {bms:.4f} "
@@ -436,11 +387,11 @@ def check_decode_family(torch, F, fd, dev, gen):
                 raise RuntimeError(f"{name} differs from {twin} over the same "
                                    "logical cache")
             same = f"; bitwise equal to {twin} over the same logical cache"
-        ms = cuda_ms(torch, kern)
-        plain_ms = cuda_ms(torch, plain, iters=5)
-        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        ms = timing.cuda_ms(kern)
+        plain_ms = timing.cuda_ms(plain, iters=5)
+        library_ms = timing.cuda_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], lib_kv[0], lib_kv[1], attn_mask=mask))
-        bms, by = bound_ms(nbytes, 4.0 * fill * nq * d)
+        bms, by = timing.bound_ms(nbytes, 4.0 * fill * nq * d)
         log(f"kernel {name} [b4 nq32 kv32 max_len 2048 d128, fills "
             f"1/97/1056/2048, {what}]: max_abs_err {err:.3e} (tol atol "
             f"{BF16_ATOL} rtol {BF16_RTOL:.4f}){same}; ms {ms:.4f} plain_ms "
@@ -740,9 +691,9 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
         tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
                             device=dev)
         ctables = tables.to(torch.long)
-        composed_ms = event_ms(torch, lambda: M.forward_cached_paged(
+        composed_ms = timing.event_ms(lambda: M.forward_cached_paged(
             ccfg, params, tok, kp, vp, ctables, fills), iters=5)
-        fused_fwd_ms = event_ms(torch, lambda: M.forward_cached_paged(
+        fused_fwd_ms = timing.event_ms(lambda: M.forward_cached_paged(
             cfg, params, tok, kp, vp, ctables, fills, use_fused=True),
             iters=5)
         w_bytes = _nbytes(stacked)
@@ -753,9 +704,9 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
             is_tree = name == "fused_decode_verify_tree_paged"
             # the tree launch checks the tree on the host (a copy and a
             # stream sync a graph cannot capture): between events instead
-            ms = (event_ms(torch, kern, iters=5, warmup=2) if is_tree
-                  else cuda_ms(torch, kern, iters=5, warmup=2))
-            plain_ms = event_ms(torch, plain, iters=1, warmup=1)
+            ms = (timing.event_ms(kern, iters=5, warmup=2) if is_tree
+                  else timing.cuda_ms(kern, iters=5, warmup=2))
+            plain_ms = timing.event_ms(plain, iters=1, warmup=1)
             n_rows = b * win
             # spliced window columns a slot's rows attend: 0+1+..+(W-1)
             # for the linear window, each node's depth in the tree
@@ -776,7 +727,7 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
             # 2 ops a weight a row, 4 a cached element a query head
             ops = 2.0 * n_w * n_rows + 4.0 * L * (live * win + spliced) \
                 * cfg.num_attention_heads * d
-            bms, by = bound_ms(nbytes, ops)
+            bms, by = timing.bound_ms(nbytes, ops)
             base_rows[name] = dict(nbytes=nbytes, ops=ops)
             err, rel = outs[name][1], outs[name][2]
             log(f"kernel {name} [llama2-7b {form} weights and cache, {n_rows} "
@@ -979,22 +930,22 @@ def check_decode_step_lora(torch, M, ds, c, gen, smi):
     tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
                         device=dev)
     ctables = tables.to(torch.long)
-    composed_ms = event_ms(torch, lambda: M.forward_cached_paged(
+    composed_ms = timing.event_ms(lambda: M.forward_cached_paged(
         ccfg, params, tok, c["kp"], c["vp"], ctables, fills, lora=lora),
         iters=3)
     # the epilogue when no row selects an adapter, against no arena
     off = (lora[0], torch.zeros_like(lora[1]))
-    k13_off = cuda_ms(torch, lambda: ds.fused_decode_step_paged(
+    k13_off = timing.cuda_ms(lambda: ds.fused_decode_step_paged(
         cfg, stacked, x0, c["kp"], c["vp"], tables, fills, rope, lora=off),
         iters=5, warmup=2)
-    k13_none = cuda_ms(torch, lambda: ds.fused_decode_step_paged(
+    k13_none = timing.cuda_ms(lambda: ds.fused_decode_step_paged(
         cfg, stacked, x0, c["kp"], c["vp"], tables, fills, rope),
         iters=5, warmup=2)
-    k13_mixed = cuda_ms(torch, full["fused_decode_step_paged_lora"][0],
+    k13_mixed = timing.cuda_ms(full["fused_decode_step_paged_lora"][0],
                         iters=5, warmup=2)
     # the PEFT default targets (q and v: one x·A phase of three columns)
     qv = _lora_bundle(torch, cfg, dev, gen, targets=("wq", "wv"))
-    k13_qv = cuda_ms(torch, lambda: ds.fused_decode_step_paged(
+    k13_qv = timing.cuda_ms(lambda: ds.fused_decode_step_paged(
         cfg, stacked, x0, c["kp"], c["vp"], tables, fills, rope, lora=qv),
         iters=5, warmup=2)
     del qv
@@ -1016,15 +967,15 @@ def check_decode_step_lora(torch, M, ds, c, gen, smi):
     rows = {}
     for name, (kern, plain, win) in full.items():
         is_tree = name == "fused_decode_verify_tree_paged_lora"
-        ms = (event_ms(torch, kern, iters=5, warmup=2) if is_tree
-              else cuda_ms(torch, kern, iters=5, warmup=2))
-        plain_ms = event_ms(torch, plain, iters=1, warmup=1)
+        ms = (timing.event_ms(kern, iters=5, warmup=2) if is_tree
+              else timing.cuda_ms(kern, iters=5, warmup=2))
+        plain_ms = timing.event_ms(plain, iters=1, warmup=1)
         n_rows = b * win
         base_row = c["base_rows"][name[:-len("_lora")]]
         nbytes = base_row["nbytes"] + arena_bytes
         # each row's x·A over its slot's rank and the B product
         ops = base_row["ops"] + 2.0 * L * n_rows * LORA_RANK * io
-        bms, by = bound_ms(nbytes, ops)
+        bms, by = timing.bound_ms(nbytes, ops)
         err, rel = outs[name][1], outs[name][2]
         log(f"kernel {name} [llama2-7b {form}, {n_rows} rows at slots "
             f"{list(LORA_SLOTS)} (window {win}), arena {LORA_N_SLOTS} x rank "
@@ -1064,11 +1015,11 @@ def check_rmsnorm(torch, F, rn, dev, gen):
         if not (ok and ok_r):
             raise RuntimeError(f"rmsnorm rows={rows}: y err {err}, rstd err "
                                f"{err_r} beyond tolerance")
-        ms = cuda_ms(torch, lambda: rn.rmsnorm_fwd(x, w, 1e-5))
-        plain_ms = cuda_ms(torch, lambda: rn.rmsnorm_plain(x, w, 1e-5))
-        library_ms = cuda_ms(torch, lambda: F.rms_norm(x, (h,), w, 1e-5))
+        ms = timing.cuda_ms(lambda: rn.rmsnorm_fwd(x, w, 1e-5))
+        plain_ms = timing.cuda_ms(lambda: rn.rmsnorm_plain(x, w, 1e-5))
+        library_ms = timing.cuda_ms(lambda: F.rms_norm(x, (h,), w, 1e-5))
         nbytes = 2 * x.numel() * 2 + h * 2 + rows * 4
-        bms, by = bound_ms(nbytes, 4.0 * rows * h)
+        bms, by = timing.bound_ms(nbytes, 4.0 * rows * h)
         log(f"kernel rmsnorm_fwd [rows {rows} h {h}]: max_abs_err {err:.3e} "
             f"rstd {err_r:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}; "
             f"rstd rtol 1e-5) ms {ms:.4f} plain_ms {plain_ms:.4f} "
@@ -1088,7 +1039,9 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
     body at its edges (ragged, rows that see no key, head dim 64, fp16), a
     small grid whose walk splits (equal to the unsplit result within the
     tolerance, and bit for bit from one run to the next) and the CUDA-core
-    bodies (fp32)."""
+    bodies (fp32).  A bf16 or fp16 call must take K2's and K3's
+    tensor-core bodies, an fp32 call must not, and dQ must repeat bit for
+    bit."""
     bf, hf, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [("train b1 s4096 h32 causal", 1, 4096, 4096, 32, 32, 128, False,
               bf, True),
@@ -1119,12 +1072,21 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         mma = fa.flash_attention_bwd_dkv.mma_launches
+        mma_dq = fa.flash_attention_bwd_dq.mma_launches
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
         torch.cuda.synchronize()
         if fa.flash_attention_bwd_dkv.mma_launches - mma != (dtype != f32):
             raise RuntimeError(f"flash_attention_bwd_dkv {name}: {dtype} "
                                "took the wrong body")
+        if fa.flash_attention_bwd_dq.mma_launches - mma_dq != (dtype != f32):
+            raise RuntimeError(f"flash_attention_bwd_dq {name}: {dtype} "
+                               "took the wrong body")
+        # a block owns its dQ rows (no atomics): the same bits again
+        if not torch.equal(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                     **kw), dq):
+            raise RuntimeError(f"flash_attention_bwd_dq {name}: two runs "
+                               "differ")
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
         errs = [close_enough(torch, g, w, *_tol(torch, dtype))
                 for g, w in zip((dq, dk, dv), ref)]
@@ -1158,14 +1120,14 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
                 f"{errs[0][0]:.3e} dk {errs[1][0]:.3e} dv {errs[2][0]:.3e} "
                 f"(tol atol, rtol {_tol(torch, dtype)})")
             continue
-        ms_dq = cuda_ms(torch, lambda: fa.flash_attention_bwd_dq(
+        ms_dq = timing.cuda_ms(lambda: fa.flash_attention_bwd_dq(
             q, k, v, do, lse, delta, **kw), iters=5)
-        ms_dkv = cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+        ms_dkv = timing.cuda_ms(lambda: fa.flash_attention_bwd_dkv(
             q, k, v, do, lse, delta, **kw), iters=5)
-        plain_dq_ms = event_ms(torch, lambda: fa.flash_attention_bwd_dq_plain(
+        plain_dq_ms = timing.event_ms(lambda: fa.flash_attention_bwd_dq_plain(
             q, k, v, o, lse, do, **kw), iters=2, warmup=1)
-        plain_dkv_ms = event_ms(
-            torch, lambda: fa.flash_attention_bwd_dkv_plain(
+        plain_dkv_ms = timing.event_ms(
+            lambda: fa.flash_attention_bwd_dkv_plain(
                 q, k, v, o, lse, do, **kw), iters=2, warmup=1)
         # SDPA forward + backward minus its forward: its backward alone
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1183,9 +1145,9 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
             def sdpa():
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=mask)
-        fwd_ms = event_ms(torch, sdpa)
+        fwd_ms = timing.event_ms(sdpa)
         with torch.enable_grad():
-            library_ms = event_ms(torch, lambda: torch.autograd.grad(
+            library_ms = timing.event_ms(lambda: torch.autograd.grad(
                 sdpa(), (qt, kt, vt), dot)) - fwd_ms
         del qt, kt, vt, dot
         pairs = _visible_pairs(torch, b, sq, sk, seg, dev) * hq
@@ -1193,8 +1155,8 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
         common = ((q.numel() + k.numel() + v.numel() + do.numel()) * 2
                   + (lse.numel() + delta.numel()) * 4
                   + (seg.numel() * 4 if seg is not None else 0))
-        b_dq = bound_ms(common + dq.numel() * 2, 6.0 * d * pairs)
-        b_dkv = bound_ms(common + (dk.numel() + dv.numel()) * 2,
+        b_dq = timing.bound_ms(common + dq.numel() * 2, 6.0 * d * pairs)
+        b_dkv = timing.bound_ms(common + (dk.numel() + dv.numel()) * 2,
                          8.0 * d * pairs)
         log(f"kernel flash_attention_bwd_dq [{name}]: max_abs_err "
             f"{errs[0][0]:.3e} ms {ms_dq:.4f} plain_ms {plain_dq_ms:.4f} "
@@ -1225,7 +1187,9 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
 
 
 def check_rmsnorm_bwd(torch, F, rn, dev, gen):
-    """K5 at the training shape: 4096 rows x 4096, bf16."""
+    """K5 (dx and dweight in one pass plus the column sum of its partial
+    rows, one counted launch) at the training shape: 4096 rows x 4096,
+    bf16; a second call must give the same bits."""
     rows, h = 4096, 4096
     x = torch.randn(rows, h, generator=gen, device=dev, dtype=torch.bfloat16)
     dy = torch.randn(rows, h, generator=gen, device=dev,
@@ -1233,17 +1197,22 @@ def check_rmsnorm_bwd(torch, F, rn, dev, gen):
     w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)
          ).to(torch.bfloat16)
     _, rstd = rn.rmsnorm_fwd(x, w, 1e-5)
+    before = rn.rmsnorm_bwd.launches
     dx, dw = rn.rmsnorm_bwd(x, w, rstd, dy)
+    again = rn.rmsnorm_bwd(x, w, rstd, dy)
     torch.cuda.synchronize()
+    if rn.rmsnorm_bwd.launches != before + 2:
+        raise RuntimeError("rmsnorm backward: a call is not one launch")
+    if not (torch.equal(again[0], dx) and torch.equal(again[1], dw)):
+        raise RuntimeError("rmsnorm backward: two runs differ")
     dx_ref, dw_ref = rn.rmsnorm_bwd_plain(x, w, rstd, dy)
     err, ok = close_enough(torch, dx, dx_ref, BF16_ATOL, BF16_RTOL)
     err_w, ok_w = close_enough(torch, dw, dw_ref, BF16_ATOL, BF16_RTOL)
     if not (ok and ok_w):
         raise RuntimeError(f"rmsnorm backward: dx err {err}, dw err {err_w} "
                            "beyond tolerance")
-    ms = cuda_ms(torch, lambda: rn.rmsnorm_bwd(x, w, rstd, dy))
-    dx_ms = cuda_ms(torch, lambda: rn.launch_bwd_dx(x, w, rstd, dy))
-    plain_ms = cuda_ms(torch, lambda: rn.rmsnorm_bwd_plain(x, w, rstd, dy))
+    ms = timing.cuda_ms(lambda: rn.rmsnorm_bwd(x, w, rstd, dy))
+    plain_ms = timing.cuda_ms(lambda: rn.rmsnorm_bwd_plain(x, w, rstd, dy))
     xr = x.clone().requires_grad_(True)
     wr = w.clone().requires_grad_(True)
 
@@ -1252,40 +1221,27 @@ def check_rmsnorm_bwd(torch, F, rn, dev, gen):
                                    dy)
 
     with torch.no_grad():
-        fwd_ms = event_ms(torch, lambda: F.rms_norm(xr, (h,), wr, 1e-5),
+        fwd_ms = timing.event_ms(lambda: F.rms_norm(xr, (h,), wr, 1e-5),
                           iters=20)
-    library_ms = event_ms(torch, lib, iters=20) - fwd_ms
+    library_ms = timing.event_ms(lib, iters=20) - fwd_ms
     # x, dy read and dx written once; w and rstd read once; dw written
     nbytes = 3 * x.numel() * 2 + 2 * h * 2 + rows * 4
-    bms, by = bound_ms(nbytes, 6.0 * rows * h)
+    bms, by = timing.bound_ms(nbytes, 6.0 * rows * h)
     log(f"kernel rmsnorm_bwd [rows {rows} h {h}]: max_abs_err dx {err:.3e} "
-        f"dw {err_w:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}) ms "
-        f"{ms:.4f} (dx kernel {dx_ms:.4f} + dw reduction) plain_ms "
-        f"{plain_ms:.4f} "
-        f"rms_norm_backward_ms {library_ms:.4f} bound_ms {bms:.4f} ({by})")
+        f"dw {err_w:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}; bit "
+        f"for bit again) ms {ms:.4f} (dx and dw in one pass + the column "
+        f"sum) plain_ms {plain_ms:.4f} rms_norm_backward_ms "
+        f"{library_ms:.4f} bound_ms {bms:.4f} ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms)
-
-
-def _ln_inputs(torch, rows, h, gen, dev):
-    x = (2.0 * torch.randn(rows, h, generator=gen, device=dev) + 0.5).to(
-        torch.bfloat16)
-    w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=dev)
-         ).to(torch.bfloat16)
-    b = (0.1 * torch.randn(h, generator=gen, device=dev)).to(torch.bfloat16)
-    return x, w, b
-
-
-LN_SHAPES = (("falcon-7b rows 2048 h 4544", 2048, 4544),
-             ("gpt-1.3b rows 4096 h 2048", 4096, 2048))
 
 
 def check_layernorm(torch, F, rn, dev, gen):
     """K6 at Falcon-7B's training rows (2048 x 4544, a hidden size that is
     not a power of two) and GPT-1.3B's (4096 x 2048), with bias."""
     head = None
-    for name, rows, h in LN_SHAPES:
-        x, w, b = _ln_inputs(torch, rows, h, gen, dev)
+    for name, rows, h in timing.LN_SHAPES:
+        x, w, b = timing.ln_inputs(rows, h, gen, dev)
         y, mean, rstd = rn.layernorm_fwd(x, w, b, 1e-5)
         torch.cuda.synchronize()
         y_ref, mean_ref, rstd_ref = rn.layernorm_plain(x, w, b, 1e-5)
@@ -1295,12 +1251,13 @@ def check_layernorm(torch, F, rn, dev, gen):
         if not (ok and ok_m and ok_r):
             raise RuntimeError(f"layernorm {name}: y err {err}, mean err "
                                f"{err_m}, rstd err {err_r} beyond tolerance")
-        ms = cuda_ms(torch, lambda: rn.layernorm_fwd(x, w, b, 1e-5))
-        plain_ms = cuda_ms(torch, lambda: rn.layernorm_plain(x, w, b, 1e-5))
-        library_ms = cuda_ms(torch, lambda: F.layer_norm(x, (h,), w, b, 1e-5))
+        ms = timing.cuda_ms(lambda: rn.layernorm_fwd(x, w, b, 1e-5))
+        plain_ms = timing.cuda_ms(lambda: rn.layernorm_plain(x, w, b, 1e-5))
+        library_ms = timing.cuda_ms(lambda: F.layer_norm(x, (h,), w, b, 1e-5))
         # x read and y written once, w and b read, mean and rstd written
         nbytes = 2 * x.numel() * 2 + 2 * h * 2 + 2 * rows * 4
-        bms, by = bound_ms(nbytes, 8.0 * rows * h, PEAK_FP32_OPS_S)
+        bms, by = timing.bound_ms(nbytes, 8.0 * rows * h,
+                                  timing.PEAK_FP32_OPS_S)
         log(f"kernel layernorm_fwd [{name}]: max_abs_err {err:.3e} mean "
             f"{err_m:.3e} rstd {err_r:.3e} (tol atol {BF16_ATOL} rtol "
             f"{BF16_RTOL:.4f}; mean 1e-5, rstd rtol 1e-5) ms {ms:.4f} "
@@ -1313,10 +1270,12 @@ def check_layernorm(torch, F, rn, dev, gen):
 
 
 def check_layernorm_bwd(torch, F, rn, dev, gen):
-    """K7 (with dweight and dbias beside it) at the shapes of K6."""
+    """K7 (with dweight and dbias beside it in torch) at the shapes of K6;
+    its row's ``ms`` is the whole call and ``kernel_ms`` the dx kernel's
+    own time."""
     head = None
-    for name, rows, h in LN_SHAPES:
-        x, w, b = _ln_inputs(torch, rows, h, gen, dev)
+    for name, rows, h in timing.LN_SHAPES:
+        x, w, b = timing.ln_inputs(rows, h, gen, dev)
         dy = torch.randn(rows, h, generator=gen, device=dev,
                          dtype=torch.bfloat16)
         _, mean, rstd = rn.layernorm_fwd(x, w, b, 1e-5)
@@ -1328,10 +1287,10 @@ def check_layernorm_bwd(torch, F, rn, dev, gen):
         if not all(ok for _, ok in errs):
             raise RuntimeError(f"layernorm backward {name}: dx/dw/db err "
                                f"{[e for e, _ in errs]} beyond tolerance")
-        ms = cuda_ms(torch, lambda: rn.layernorm_bwd(x, w, mean, rstd, dy))
-        dx_ms = cuda_ms(torch, lambda: rn.launch_ln_bwd_dx(x, w, mean, rstd,
+        ms = timing.cuda_ms(lambda: rn.layernorm_bwd(x, w, mean, rstd, dy))
+        dx_ms = timing.cuda_ms(lambda: rn.launch_ln_bwd_dx(x, w, mean, rstd,
                                                            dy))
-        plain_ms = cuda_ms(torch, lambda: rn.layernorm_bwd_plain(
+        plain_ms = timing.cuda_ms(lambda: rn.layernorm_bwd_plain(
             x, w, mean, rstd, dy))
         xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
 
@@ -1340,12 +1299,13 @@ def check_layernorm_bwd(torch, F, rn, dev, gen):
                                        (xr, wr, br), dy)
 
         with torch.no_grad():
-            fwd_ms = event_ms(torch, lambda: F.layer_norm(xr, (h,), wr, br,
+            fwd_ms = timing.event_ms(lambda: F.layer_norm(xr, (h,), wr, br,
                                                           1e-5), iters=20)
-        library_ms = event_ms(torch, lib, iters=20) - fwd_ms
+        library_ms = timing.event_ms(lib, iters=20) - fwd_ms
         # x, dy read and dx written once; w, mean, rstd read; dw, db written
         nbytes = 3 * x.numel() * 2 + 3 * h * 2 + 2 * rows * 4
-        bms, by = bound_ms(nbytes, 12.0 * rows * h, PEAK_FP32_OPS_S)
+        bms, by = timing.bound_ms(nbytes, 12.0 * rows * h,
+                                  timing.PEAK_FP32_OPS_S)
         log(f"kernel layernorm_bwd [{name}]: max_abs_err dx {errs[0][0]:.3e} "
             f"dw {errs[1][0]:.3e} db {errs[2][0]:.3e} (tol atol {BF16_ATOL} "
             f"rtol {BF16_RTOL:.4f}) ms {ms:.4f} (dx kernel {dx_ms:.4f} + "
@@ -1353,8 +1313,9 @@ def check_layernorm_bwd(torch, F, rn, dev, gen):
             f"layer_norm_backward_ms {library_ms:.4f} bound_ms {bms:.4f} "
             f"({by})")
         if head is None:
-            head = dict(max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+            head = dict(max_abs_err=errs[0][0], ms=ms, kernel_ms=dx_ms,
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        library_ms=library_ms)
     return head
 
 
@@ -2246,6 +2207,12 @@ def train(torch, dev, counters, smi, model_cfg, label, need, iters=6,
     if missing:
         raise RuntimeError(f"kernels never launched on the training path: "
                            f"{missing}")
+    # bf16 training: every launch of K1-K3 on the tensor-core body
+    off_body = [n for n in need if n.endswith("_mma")
+                and launches[n] != launches[n[:-len("_mma")]]]
+    if off_body:
+        raise RuntimeError(f"training launches off the tensor-core bodies: "
+                           f"{off_body}")
     if iters > 1:
         # steady steps: the first one compiles the Triton kernels
         step_s = sorted(sec for *_, sec in steps[1:])[(iters - 1) // 2]
@@ -2261,16 +2228,17 @@ def train(torch, dev, counters, smi, model_cfg, label, need, iters=6,
             f"2-{iters}) {step_s * 1e3:.1f} ms, first step "
             f"{steps[0][3] * 1e3:.1f} ms; {tokens / step_s:.1f} tokens/s; "
             f"model {tflops:.1f} TFLOP/s, MFU "
-            f"{tflops / (PEAK_BF16_OPS_S / 1e12):.4f} of 989 TFLOP/s; peak "
-            f"memory {peak / 2**30:.1f} GiB; host clock; card {smi}")
+            f"{tflops / (timing.PEAK_BF16_OPS_S / 1e12):.4f} of 989 "
+            f"TFLOP/s; peak memory {peak / 2**30:.1f} GiB; host clock; card "
+            f"{smi}")
     return launches, [x[0] for x in steps]
 
 
-# bf16 training: K1 and K3 through their tensor-core bodies (the ``_mma``
-# counters)
+# bf16 training: K1, K2 and K3 through their tensor-core bodies (the
+# ``_mma`` counters), every launch
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_mma",
-                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dkv_mma")
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dq_mma",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_mma")
 
 
 def train_gpt(torch, dev, counters, smi):
@@ -2323,6 +2291,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from megatron_llm_tpu_torch.config import falcon_config, llama2_config
+    global timing
+    from megatron_llm_tpu_torch.kernels import _timing as timing
     from megatron_llm_tpu_torch.kernels import build, launch_counters
     from megatron_llm_tpu_torch.kernels import decode_step as ds
     from megatron_llm_tpu_torch.kernels import flash_attention as fa

@@ -50,10 +50,41 @@
 // What holds it back: mma.sync's rate (as the forward), the spill, and
 // the K and V operands read again from shared memory for every item.
 //
-// dQ (all dtypes) and dK/dV in fp32: CUDA-core FMAs, the bodies of the
-// first port (the tensor cores have no fp32 product but TF32, which would
-// change what fp32 computes).  256 threads per block; 64-row tiles staged
-// in shared memory as fp32, row-major with a 4-float pad.  Each thread
+// dQ, bf16 / fp16: tensor cores (flash_bwd_dq_mma_kernel), K1's walk with
+// K3's products.  One block per (batch, q head, 64-row q tile), 4 warps of
+// 16 q rows each, the heavy (late) q tiles issued first under the causal
+// mask.  The Q and dO tiles arrive by cp.async and their fragments are
+// loaded once with ldmatrix and held in registers for the whole walk; the
+// 64-key K and V tiles go through a two-stage cp.async ring, tile j + 1 in
+// flight while tile j is computed.  Per K/V tile each warp computes S = Q
+// K^T, P = 2^(S scale log2 e - lse log2 e) (one FFMA and one ex2 a score;
+// the mask, K1's predicate, only on tiles that cross the diagonal or the
+// key edge, or any tile with segment ids: a row that sees no key, lse
+// -1e30, always lies in such a tile), dP = dO V^T, dS = P (dP - delta)
+// scale in place, and dQ += dS K with dS packed to b16 in registers as the
+// A operand (the JAX rounding) and K read by ldmatrix.trans: dS never
+// touches shared memory.  dQ stays in fp32 registers (16 x d a warp, 64 a
+// thread at d = 128) and the epilogue stores coalesced 16-byte rows
+// through the warp's own rows of the Q tile.  A block owns its dQ rows (as
+// JAX's grid, unlike FlashAttention-2's atomicAdd dQ), so runs agree bit
+// for bit; Falcon-7B's grid is 71 x 32 = 2272 blocks, no split needed.
+// Shared memory: Q, dO and the ring, 6 tiles of 64 padded rows, 102 KB at
+// d = 128 (55 KB at d = 64): two blocks on an SM.  nvcc -Xptxas -v (CUDA
+// 12.8, sm_90a): 255 registers a thread at d = 128 with 36 bytes spilled
+// (Q and dO fragments 64, dQ 64, P and dP 64), 208 at d = 64 without
+// spills.  Reading dO from shared memory with ldmatrix for every tile
+// instead, as FlashAttention-2 does, spilled nothing (255 and 206
+// registers) but was 2.2-3.5% slower at every shape timed, d = 128 and
+// Falcon-7B's d = 64 (an earlier version of attention_probe.py built both
+// bodies; NVIDIA H100 80GB HBM3, 700 W), so dO's fragments are held.
+// What holds it back: mma.sync's rate (as K1 and K3), the spill, and K
+// and V read again from L2 by each of a head's q tiles.
+//
+// fp32: CUDA-core FMAs (flash_bwd_dq_kernel, flash_bwd_dkv_kernel), the
+// bodies of the first port (the tensor cores have no fp32 product but
+// TF32, which would change what fp32 computes).  256 threads per block;
+// 64-row tiles staged in shared memory, row-major with a 4-float pad.
+// Each thread
 // computes a 4 x 4 patch of S and dP: rows 4*ty + a and columns tx + 16*c,
 // so that the 8 threads of a quarter-warp read 8 different K rows whose
 // 4-bank groups tile all 32 banks, while all of them read the same Q row
@@ -92,27 +123,19 @@ struct DkvSmem {  // K, V, Q, dO [64][D+PAD]; P, dS; lse, delta
   static constexpr int BYTES = FLOATS * 4;
 };
 
-// Stage rows [base, base + ROWS) of one head's [seq, D] slice (row i at
-// src + i * stride) as fp32 rows of D + PAD floats; rows past `limit` are 0.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// Stage rows [base, base + ROWS) of one head's [seq, D] fp32 slice (row i
+// at src + i * stride) as rows of D + PAD floats; rows past `limit` are 0.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           size_t stride, int base, int limit,
                                           int tid) {
-  constexpr int VN = Vec16<T>::N;
-  constexpr int CH = D / VN;
+  constexpr int CH = D / 4;
   for (int idx = tid; idx < ROWS * CH; idx += kThreads) {
     const int r = idx / CH, ch = idx % CH;
-    float tmp[VN];
-    if (base + r < limit) {
-      Vec16<T>::load(src + (size_t)(base + r) * stride + ch * VN, tmp);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VN; ++e) tmp[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VN; e += 4)
-      *reinterpret_cast<float4*>(&dst[r * (D + PAD) + ch * VN + e]) =
-          make_float4(tmp[e], tmp[e + 1], tmp[e + 2], tmp[e + 3]);
+    *reinterpret_cast<float4*>(&dst[r * (D + PAD) + ch * 4]) =
+        base + r < limit ? *reinterpret_cast<const float4*>(
+                               src + (size_t)(base + r) * stride + ch * 4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -189,30 +212,9 @@ __device__ __forceinline__ void accumulate(const float* M, const float* B,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store4(T* p, const float* v);
-
-template <>
-__device__ __forceinline__ void store4<float>(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      const float* v) {
-  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(v[0], v[1]);
-  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(v[2], v[3]);
-}
-
-template <>
-__device__ __forceinline__ void store4<__half>(__half* p, const float* v) {
-  reinterpret_cast<__half2*>(p)[0] = __floats2half2_rn(v[0], v[1]);
-  reinterpret_cast<__half2*>(p)[1] = __floats2half2_rn(v[2], v[3]);
-}
-
 // Write this thread's 4 rows x d/16 columns of a [seq, heads, D] output.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, size_t stride, int base,
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, size_t stride, int base,
                                            int limit, int r0, int tx,
                                            float acc[4][D / 16]) {
 #pragma unroll
@@ -221,32 +223,15 @@ __device__ __forceinline__ void store_rows(T* out, size_t stride, int base,
     if (row >= limit) continue;
 #pragma unroll
     for (int g = 0; g < D / 64; ++g)
-      store4<T>(out + (size_t)row * stride + 64 * g + 4 * tx, &acc[a][4 * g]);
+      *reinterpret_cast<float4*>(out + (size_t)row * stride + 64 * g +
+                                 4 * tx) =
+          make_float4(acc[a][4 * g], acc[a][4 * g + 1], acc[a][4 * g + 2],
+                      acc[a][4 * g + 3]);
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <>
-__device__ __forceinline__ float round_to<__half>(float x) {
-  return __half2float(__float2half(x));
-}
-
 // P and dS for this thread's 4 x 4 patch (rows qbase + r0 + a, columns
-// kbase + tx + 16 c) from the S and dP patches, into the [64][LDP] tiles,
-// each rounded to T as the product that reads it rounds its operand.
-template <typename T>
+// kbase + tx + 16 c) from the S and dP patches, into the [64][LDP] tiles.
 __device__ __forceinline__ void p_and_ds(
     const float s[4][4], const float dp[4][4], const float* rowL,
     const float* rowD, const int* seg, size_t seg_row, int qbase, int kbase,
@@ -276,21 +261,21 @@ __device__ __forceinline__ void p_and_ds(
       if (seg != nullptr) keep = keep && (qseg[a] == kseg[c]);
       // a kept pair's row saw a key, so its lse is finite and P <= 1
       const float p = keep ? __expf(s[a][c] * scale - lse) : 0.f;
-      if (Ps != nullptr) Ps[(r0 + a) * LDP + tx + 16 * c] = round_to<T>(p);
-      dSs[(r0 + a) * LDP + tx + 16 * c] =
-          round_to<T>(p * (dp[a][c] - delta) * scale);
+      if (Ps != nullptr) Ps[(r0 + a) * LDP + tx + 16 * c] = p;
+      dSs[(r0 + a) * LDP + tx + 16 * c] = p * (dp[a][c] - delta) * scale;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const int* __restrict__ seg, T* __restrict__ dq, int sq,
-                    int sk, int hq, int hk, float scale, int causal) {
+                    const int* __restrict__ seg, float* __restrict__ dq,
+                    int sq, int sk, int hq, int hk, float scale, int causal) {
   constexpr int LD = D + PAD;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -315,8 +300,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t k_off = (size_t)bi * sk * hk * D + (size_t)hkv * D;
   const size_t row_off = ((size_t)bi * hq + h) * sq;
 
-  load_tile<T, D, BQ>(Qs, q + q_off, q_stride, qbase, sq, tid);
-  load_tile<T, D, BQ>(dOs, dout + q_off, q_stride, qbase, sq, tid);
+  load_tile<D, BQ>(Qs, q + q_off, q_stride, qbase, sq, tid);
+  load_tile<D, BQ>(dOs, dout + q_off, q_stride, qbase, sq, tid);
   for (int r = tid; r < BQ; r += kThreads) {
     const int row = qbase + r;
     rowL[r] = row < sq ? lse[row_off + row] : 0.f;
@@ -332,29 +317,30 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qlast = min(qbase + BQ, sq) - 1;
   const int kend = causal ? min(sk, qlast + (sk - sq) + 1) : sk;
   for (int kbase = 0; kbase < kend; kbase += BK) {
-    load_tile<T, D, BK>(Ks, k + k_off, k_stride, kbase, sk, tid);
-    load_tile<T, D, BK>(Vs, v + k_off, k_stride, kbase, sk, tid);
+    load_tile<D, BK>(Ks, k + k_off, k_stride, kbase, sk, tid);
+    load_tile<D, BK>(Vs, v + k_off, k_stride, kbase, sk, tid);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_patch<D>(Qs, Ks, r0, tx, s);
     dot_patch<D>(dOs, Vs, r0, tx, dp);
-    p_and_ds<T>(s, dp, rowL, rowD, seg, (size_t)bi * sk, qbase, kbase, r0,
+    p_and_ds(s, dp, rowL, rowD, seg, (size_t)bi * sk, qbase, kbase, r0,
                 tx, sq, sk, scale, causal, nullptr, dSs);
     __syncthreads();
     accumulate<D, false>(dSs, Ks, r0, tx, acc);
     __syncthreads();  // K, V and dS are overwritten by the next tile
   }
-  store_rows<T, D>(dq + q_off, q_stride, qbase, sq, r0, tx, acc);
+  store_rows<D>(dq + q_off, q_stride, qbase, sq, r0, tx, acc);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const int* __restrict__ seg, T* __restrict__ dk,
-                     T* __restrict__ dv, int sq, int sk, int hq, int hk,
+                     const int* __restrict__ seg, float* __restrict__ dk,
+                     float* __restrict__ dv, int sq, int sk, int hq, int hk,
                      float scale, int causal) {
   constexpr int LD = D + PAD;
   extern __shared__ float smem[];
@@ -379,8 +365,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_stride = (size_t)hq * D, k_stride = (size_t)hk * D;
   const size_t k_off = (size_t)bi * sk * hk * D + (size_t)hkv * D;
 
-  load_tile<T, D, BK>(Ks, k + k_off, k_stride, kbase, sk, tid);
-  load_tile<T, D, BK>(Vs, v + k_off, k_stride, kbase, sk, tid);
+  load_tile<D, BK>(Ks, k + k_off, k_stride, kbase, sk, tid);
+  load_tile<D, BK>(Vs, v + k_off, k_stride, kbase, sk, tid);
 
   float acc_k[4][D / 16], acc_v[4][D / 16];
 #pragma unroll
@@ -400,8 +386,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int qbase = qt * BQ;
       __syncthreads();  // the previous pair's readers are done
-      load_tile<T, D, BQ>(Qs, q + q_off, q_stride, qbase, sq, tid);
-      load_tile<T, D, BQ>(dOs, dout + q_off, q_stride, qbase, sq, tid);
+      load_tile<D, BQ>(Qs, q + q_off, q_stride, qbase, sq, tid);
+      load_tile<D, BQ>(dOs, dout + q_off, q_stride, qbase, sq, tid);
       for (int r = tid; r < BQ; r += kThreads) {
         const int row = qbase + r;
         rowL[r] = row < sq ? lse[row_off + row] : 0.f;
@@ -411,7 +397,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s[4][4], dp[4][4];
       dot_patch<D>(Qs, Ks, r0, tx, s);
       dot_patch<D>(dOs, Vs, r0, tx, dp);
-      p_and_ds<T>(s, dp, rowL, rowD, seg, (size_t)bi * sk, qbase, kbase,
+      p_and_ds(s, dp, rowL, rowD, seg, (size_t)bi * sk, qbase, kbase,
                   r0, tx, sq, sk, scale, causal, Ps, dSs);
       __syncthreads();
       // this thread's rows are now key rows kbase + r0 + a
@@ -419,8 +405,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       accumulate<D, true>(dSs, Qs, r0, tx, acc_k);
     }
   }
-  store_rows<T, D>(dk + k_off, k_stride, kbase, sk, r0, tx, acc_k);
-  store_rows<T, D>(dv + k_off, k_stride, kbase, sk, r0, tx, acc_v);
+  store_rows<D>(dk + k_off, k_stride, kbase, sk, r0, tx, acc_k);
+  store_rows<D>(dv + k_off, k_stride, kbase, sk, r0, tx, acc_v);
 }
 
 // ---------------------------------------------------------------------------
@@ -438,29 +424,6 @@ struct DkvMmaSmem {  // elements of T: K, V, then 2 x {Q, dO}; 2 x {lse, delta}
   static constexpr int ROWS_OFF = 6 * TILE * 2;  // bytes to the fp32 rows
   static constexpr int BYTES = ROWS_OFF + 2 * 2 * 64 * 4;
 };
-
-// acc (16 x 64 as 8 n-tiles) = A B^T for one warp: A the 16 rows x D at
-// `a_rows` of a tile, B the 64 rows x D tile `b` (row n of B is column n).
-template <typename T, int D>
-__device__ __forceinline__ void rows_by_rows(float acc[8][4], const T* a_rows,
-                                             const T* b, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    mma::load_a<D>(a, a_rows, 0, kk * 16, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bb[4];
-      mma::load_b_rows<D>(bb, b, np * 16, kk * 16, lane);
-      mma::mma16816<T>(acc[2 * np], a, bb[0], bb[1]);
-      mma::mma16816<T>(acc[2 * np + 1], a, bb[2], bb[3]);
-    }
-  }
-}
 
 // Write a warp's 16 rows x D accumulators (rows kbase + 16 warp + g and
 // + 8, columns 8 dn + 2 t) to a [.., sk, hk, D] output at `base`: T when
@@ -583,7 +546,7 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T
     float p[8][4];
-    rows_by_rows<T, D>(p, Kw, Qt, lane);
+    mma::rows_by_rows<T, D>(p, Kw, Qt, lane);
     const bool edge = qbase + 64 > sq || kbase + 64 > sk ||
                       (causal && kbase + 63 > qbase + offset) ||
                       seg != nullptr;
@@ -610,7 +573,7 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale in place
     float ds[8][4];
-    rows_by_rows<T, D>(ds, Vw, dOt, lane);
+    mma::rows_by_rows<T, D>(ds, Vw, dOt, lane);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -660,6 +623,187 @@ __global__ void dkv_sum_splits_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------------
+// dQ, bf16 / fp16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+constexpr int kDqWarps = 4;  // 16 q rows each: one 64-row q tile a block
+constexpr int kDqThreads = kDqWarps * 32;
+
+template <int D>
+struct DqMmaSmem {  // elements of T: Q, dO [64][LDS], then 2 x {K, V}
+  static constexpr int LDS = mma::kLd<D>;
+  static constexpr int TILE = 64 * LDS;
+  static constexpr int BYTES = 6 * TILE * 2;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDqThreads, 2)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ seg, T* __restrict__ dq,
+                        int sq, int sk, int hq, int hk, float scale,
+                        int causal) {
+  using S = DqMmaSmem<D>;
+  constexpr int LDS = S::LDS, TILE = S::TILE;
+  constexpr int KS = D / 16;  // k-steps of Q K^T and dO V^T
+  constexpr int DN = D / 8;   // n-tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + TILE;
+  T* ring = dOs + TILE;  // stage s: K at ring + 2 s TILE, V after it
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_qt = (sq + 63) / 64;
+  const int n_bh = gridDim.x / n_qt;            // b * hq
+  const int bh = blockIdx.x % n_bh;
+  const int qt = n_qt - 1 - blockIdx.x / n_bh;  // heavy tiles first
+  const int h = bh % hq, bi = bh / hq;
+  const int hkv = h / (hq / hk);
+  const int qbase = qt * 64;
+  const int offset = sk - sq;
+  const size_t q_stride = (size_t)hq * D, k_stride = (size_t)hk * D;
+  const size_t q_off = (size_t)bi * sq * q_stride + (size_t)h * D;
+  const T* kp = k + (size_t)bi * sk * k_stride + (size_t)hkv * D;
+  const T* vp = v + (size_t)bi * sk * k_stride + (size_t)hkv * D;
+
+  const int qlast = min(qbase + 64, sq) - 1;
+  const int kend = causal ? min(sk, qlast + offset + 1) : sk;
+  const int n_kt = kend > 0 ? (kend + 63) / 64 : 0;
+
+  mma::cp_async_rows<T, D, 64, kDqThreads>(Qs, q + q_off, q_stride, qbase,
+                                           sq, tid);
+  mma::cp_async_rows<T, D, 64, kDqThreads>(dOs, dout + q_off, q_stride,
+                                           qbase, sq, tid);
+  mma::cp_async_commit();
+  if (n_kt > 0) {
+    mma::cp_async_rows<T, D, 64, kDqThreads>(ring, kp, k_stride, 0, sk, tid);
+    mma::cp_async_rows<T, D, 64, kDqThreads>(ring + TILE, vp, k_stride, 0,
+                                             sk, tid);
+  }
+  mma::cp_async_commit();
+
+  // this thread's rows: lse in log2 units, delta, segment
+  const int row0 = qbase + warp * 16 + g, row1 = row0 + 8;
+  const float* lrow = lse + ((size_t)bi * hq + h) * sq;
+  const float* drow = delta + ((size_t)bi * hq + h) * sq;
+  const float lse0 = row0 < sq ? lrow[row0] * kLog2e : 0.f;
+  const float lse1 = row1 < sq ? lrow[row1] * kLog2e : 0.f;
+  const float delta0 = row0 < sq ? drow[row0] : 0.f;
+  const float delta1 = row1 < sq ? drow[row1] : 0.f;
+  int qseg0 = 0, qseg1 = 0;
+  if (seg != nullptr) {
+    qseg0 = row0 < sq ? seg[(size_t)bi * sk + row0] : -1;
+    qseg1 = row1 < sq ? seg[(size_t)bi * sk + row1] : -1;
+  }
+
+  mma::cp_async_wait<1>();  // the Q and dO tiles have landed
+  __syncthreads();
+  // this warp's 16 query rows as A fragments, for the whole key walk
+  uint32_t qf[KS][4];
+  uint32_t dof[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    mma::load_a<D>(qf[kk], Qs, warp * 16, kk * 16, lane);
+    mma::load_a<D>(dof[kk], dOs, warp * 16, kk * 16, lane);
+  }
+
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  const float scale2 = scale * kLog2e;  // exp(x scale) = 2^(x scale2)
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int kbase = j * 64;
+    if (j + 1 < n_kt) {  // tile j + 1 into the other stage
+      T* nk = ring + ((j + 1) & 1) * 2 * TILE;
+      mma::cp_async_rows<T, D, 64, kDqThreads>(nk, kp, k_stride, kbase + 64,
+                                               sk, tid);
+      mma::cp_async_rows<T, D, 64, kDqThreads>(nk + TILE, vp, k_stride,
+                                               kbase + 64, sk, tid);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // tile j has landed
+    __syncthreads();
+    const T* Kt = ring + (j & 1) * 2 * TILE;
+    const T* Vt = Kt + TILE;
+
+    // S = Q K^T (16 rows x 64 keys), then P = 2^(S scale2 - lse2)
+    float p[8][4];
+    mma::frags_by_rows<T, D>(p, qf, Kt, lane);
+    // the mask only where the tile crosses the diagonal or an edge (or
+    // any tile with segment ids): a row that sees no key (lse -1e30) lies
+    // in such a tile, so its overflowing exponent is never taken
+    const bool edge = kbase + 64 > sk ||
+                      (causal && kbase + 63 > qbase + offset) ||
+                      seg != nullptr;
+    if (edge) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? row0 : row1;
+          const int col = kbase + nt * 8 + 2 * t + (e & 1);
+          bool keep = col < sk;
+          if (causal) keep = keep && col <= row + offset;
+          if (seg != nullptr && keep)
+            keep = seg[(size_t)bi * sk + col] == (e < 2 ? qseg0 : qseg1);
+          p[nt][e] = keep ? mma::ex2(fmaf(p[nt][e], scale2,
+                                          -(e < 2 ? lse0 : lse1)))
+                          : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[nt][e] = mma::ex2(fmaf(p[nt][e], scale2, -(e < 2 ? lse0 : lse1)));
+    }
+
+    // dP = dO V^T, then dS = P (dP - delta) scale in place
+    float ds[8][4];
+    mma::frags_by_rows<T, D>(ds, dof, Vt, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[nt][e] = p[nt][e] * (ds[nt][e] - (e < 2 ? delta0 : delta1)) *
+                    scale;
+
+    // dQ += dS K (dS rounded to T in registers, K read by ldmatrix.trans)
+    mma::acc_times_tile<T, D>(acc, ds, Kt, lane);
+    __syncthreads();  // the stage is refilled two tiles on
+  }
+
+  // stage dQ in this warp's own rows of the Q tile (only it read them)
+  T* Os = Qs + warp * 16 * LDS;
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+    const int col = dn * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(Os + g * LDS + col) =
+        mma::pack2<T>(acc[dn][0], acc[dn][1]);
+    *reinterpret_cast<uint32_t*>(Os + (g + 8) * LDS + col) =
+        mma::pack2<T>(acc[dn][2], acc[dn][3]);
+  }
+  __syncwarp();
+  T* op = dq + q_off;
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int i = 0; i < 16 * CH / 32; ++i) {
+    const int idx = lane + i * 32;
+    const int r = idx / CH, c = idx % CH;
+    const int row = qbase + warp * 16 + r;
+    if (row < sq)
+      *reinterpret_cast<uint4*>(op + (size_t)row * q_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(Os + r * LDS + c * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -672,17 +816,37 @@ cudaError_t opt_in_smem(Kern kern, int bytes, bool* done) {
   return err;
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      const int* seg, void* dq, int b, int sq, int sk, int hq,
-                      int hk, float scale, int causal, cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
+template <int D>
+cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, const int* seg, void* dq,
+                           int b, int sq, int sk, int hq, int hk, float scale,
+                           int causal, cudaStream_t stream) {
+  auto kern = flash_bwd_dq_kernel<D>;
   static bool smem_set = false;
   cudaError_t err = opt_in_smem(kern, DqSmem<D>::BYTES, &smem_set);
   if (err != cudaSuccess) return err;
   const int n_qt = (sq + BQ - 1) / BQ;
   kern<<<dim3(b * hq * n_qt), kThreads, DqSmem<D>::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, seg, static_cast<float*>(dq), sq, sk, hq, hk, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, const int* seg, void* dq, int b,
+                          int sq, int sk, int hq, int hk, float scale,
+                          int causal, cudaStream_t stream) {
+  using S = DqMmaSmem<D>;
+  auto kern = flash_bwd_dq_mma_kernel<T, D>;
+  static bool smem_set = false;
+  cudaError_t err = opt_in_smem(kern, S::BYTES, &smem_set);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (sq + 63) / 64;
+  kern<<<dim3(b * hq * n_qt), kDqThreads, S::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, seg,
       static_cast<T*>(dq), sq, sk, hq, hk, scale, causal);
@@ -697,7 +861,7 @@ cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
                             int hq, int hk, float scale, int causal,
                             int splits, cudaStream_t stream) {
   if (splits != 1 || part != nullptr) return cudaErrorInvalidValue;
-  auto kern = flash_bwd_dkv_kernel<float, D>;
+  auto kern = flash_bwd_dkv_kernel<D>;
   static bool smem_set = false;
   cudaError_t err = opt_in_smem(kern, DkvSmem<D>::BYTES, &smem_set);
   if (err != cudaSuccess) return err;
@@ -745,30 +909,46 @@ bool bad_shape(int b, int sq, int sk, int hq, int hk, const void* seg) {
          (seg != nullptr && sq != sk);
 }
 
+// the body a launcher ran, reported through its `body` argument
+constexpr int kBodySimt = 0;  // CUDA cores (fp32)
+constexpr int kBodyMma = 1;   // tensor cores (bf16 / fp16)
+
+int ran(cudaError_t err, int which, int* body) {
+  if (err == cudaSuccess) *body = which;
+  return err;
+}
+
 }  // namespace
 
 // q / dout [b, sq, hq, d], k / v [b, sk, hk, d], lse and delta fp32
 // [b, hq, sq], seg int32 [b, sk] or null (requires sq == sk); dq
-// [b, sq, hq, d] in q's dtype.  All contiguous.  Returns the launch's
-// cudaError_t (0 = launched).
+// [b, sq, hq, d] in q's dtype.  All contiguous.  fp32 runs the CUDA-core
+// body, bf16 and fp16 the tensor-core body; *body is set to the body that
+// was launched (kBodySimt or kBodyMma), and left as it is when nothing
+// was.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg, void* dq, int b,
     int sq, int sk, int hq, int hk, int d, float scale, int causal, int dtype,
-    void* stream) {
+    void* stream, int* body) {
   if (bad_shape(b, sq, sk, hq, hk, seg)) return cudaErrorInvalidValue;
 #define DQ_ARGS                                                           \
   q, k, v, dout, static_cast<const float*>(lse),                          \
       static_cast<const float*>(delta), static_cast<const int*>(seg), dq, \
       b, sq, sk, hq, hk, scale, causal, static_cast<cudaStream_t>(stream)
   switch (dtype * 1000 + d) {
-    case kFloat32 * 1000 + 64: return launch_dq<float, 64>(DQ_ARGS);
-    case kFloat32 * 1000 + 128: return launch_dq<float, 128>(DQ_ARGS);
-    case kBFloat16 * 1000 + 64: return launch_dq<__nv_bfloat16, 64>(DQ_ARGS);
+    case kFloat32 * 1000 + 64:
+      return ran(launch_dq_simt<64>(DQ_ARGS), kBodySimt, body);
+    case kFloat32 * 1000 + 128:
+      return ran(launch_dq_simt<128>(DQ_ARGS), kBodySimt, body);
+    case kBFloat16 * 1000 + 64:
+      return ran(launch_dq_mma<__nv_bfloat16, 64>(DQ_ARGS), kBodyMma, body);
     case kBFloat16 * 1000 + 128:
-      return launch_dq<__nv_bfloat16, 128>(DQ_ARGS);
-    case kFloat16 * 1000 + 64: return launch_dq<__half, 64>(DQ_ARGS);
-    case kFloat16 * 1000 + 128: return launch_dq<__half, 128>(DQ_ARGS);
+      return ran(launch_dq_mma<__nv_bfloat16, 128>(DQ_ARGS), kBodyMma, body);
+    case kFloat16 * 1000 + 64:
+      return ran(launch_dq_mma<__half, 64>(DQ_ARGS), kBodyMma, body);
+    case kFloat16 * 1000 + 128:
+      return ran(launch_dq_mma<__half, 128>(DQ_ARGS), kBodyMma, body);
   }
 #undef DQ_ARGS
   return cudaErrorInvalidValue;
@@ -778,12 +958,12 @@ extern "C" int flash_attention_bwd_dq_launch(
 // CUDA-core body (splits 1, no scratch); bf16 and fp16 the tensor-core
 // body, whose walk is split over `splits` blocks when splits > 1, with
 // `scratch` fp32 [2, splits, b, sk, hk, d] for the partial sums (null when
-// splits == 1).
+// splits == 1).  *body as for dQ.
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg, void* dk, void* dv,
     void* scratch, int b, int sq, int sk, int hq, int hk, int d, float scale,
-    int causal, int splits, int dtype, void* stream) {
+    int causal, int splits, int dtype, void* stream, int* body) {
   if (bad_shape(b, sq, sk, hq, hk, seg)) return cudaErrorInvalidValue;
 #define DKV_ARGS                                                            \
   q, k, v, dout, static_cast<const float*>(lse),                            \
@@ -791,14 +971,19 @@ extern "C" int flash_attention_bwd_dkv_launch(
       dv, static_cast<float*>(scratch), b, sq, sk, hq, hk, scale, causal,   \
       splits, static_cast<cudaStream_t>(stream)
   switch (dtype * 1000 + d) {
-    case kFloat32 * 1000 + 64: return launch_dkv_simt<64>(DKV_ARGS);
-    case kFloat32 * 1000 + 128: return launch_dkv_simt<128>(DKV_ARGS);
+    case kFloat32 * 1000 + 64:
+      return ran(launch_dkv_simt<64>(DKV_ARGS), kBodySimt, body);
+    case kFloat32 * 1000 + 128:
+      return ran(launch_dkv_simt<128>(DKV_ARGS), kBodySimt, body);
     case kBFloat16 * 1000 + 64:
-      return launch_dkv_mma<__nv_bfloat16, 64>(DKV_ARGS);
+      return ran(launch_dkv_mma<__nv_bfloat16, 64>(DKV_ARGS), kBodyMma, body);
     case kBFloat16 * 1000 + 128:
-      return launch_dkv_mma<__nv_bfloat16, 128>(DKV_ARGS);
-    case kFloat16 * 1000 + 64: return launch_dkv_mma<__half, 64>(DKV_ARGS);
-    case kFloat16 * 1000 + 128: return launch_dkv_mma<__half, 128>(DKV_ARGS);
+      return ran(launch_dkv_mma<__nv_bfloat16, 128>(DKV_ARGS), kBodyMma,
+                 body);
+    case kFloat16 * 1000 + 64:
+      return ran(launch_dkv_mma<__half, 64>(DKV_ARGS), kBodyMma, body);
+    case kFloat16 * 1000 + 128:
+      return ran(launch_dkv_mma<__half, 128>(DKV_ARGS), kBodyMma, body);
   }
 #undef DKV_ARGS
   return cudaErrorInvalidValue;

@@ -8,7 +8,8 @@
 //   - ex2: 2^x on the special-function unit, for softmax in log2 units;
 //   - packing two fp32 values into one register of two b16 values;
 //   - b16 tiles of D-column rows in shared memory: their cp.async fill,
-//     their ldmatrix operands, and the product of a 16 x 64 block of
+//     their ldmatrix operands, a warp's 16 rows times a 64-row tile
+//     transposed (S = Q K^T), and the product of a 16 x 64 block of
 //     accumulators with a 64 x D tile.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
@@ -191,6 +192,50 @@ __device__ __forceinline__ void load_b_cols(uint32_t b[4], const T* tile,
                                             int r, int c, int lane) {
   ldmatrix_x4_trans(b,
                     tile + (r + (lane & 15)) * kLd<D> + c + (lane >> 4) * 8);
+}
+
+// acc (16 x 64 as 8 n-tiles) = A B^T for one warp: A the 16 rows x D at
+// `a_rows` of a tile, B the 64 rows x D tile `b` (row n of B is column n).
+template <typename T, int D>
+__device__ __forceinline__ void rows_by_rows(float acc[8][4], const T* a_rows,
+                                             const T* b, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    load_a<D>(a, a_rows, 0, kk * 16, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bb[4];
+      load_b_rows<D>(bb, b, np * 16, kk * 16, lane);
+      mma16816<T>(acc[2 * np], a, bb[0], bb[1]);
+      mma16816<T>(acc[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// The same with A given as its D / 16 fragments, held in registers.
+template <typename T, int D>
+__device__ __forceinline__ void frags_by_rows(float acc[8][4],
+                                              const uint32_t a[D / 16][4],
+                                              const T* b, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bb[4];
+      load_b_rows<D>(bb, b, np * 16, kk * 16, lane);
+      mma16816<T>(acc[2 * np], a[kk], bb[0], bb[1]);
+      mma16816<T>(acc[2 * np + 1], a[kk], bb[2], bb[3]);
+    }
+  }
 }
 
 // out (16 rows x D: D / 8 n-tiles) += M (16 x 64 fp32 accumulators in 8

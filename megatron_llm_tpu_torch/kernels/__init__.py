@@ -14,7 +14,7 @@
 
 Each wrapper counts its launches in a ``launches`` attribute; the fused
 decode step's wrappers count their launches with a LoRA arena apart, in
-``<wrapper>.lora.launches``, and the flash-attention forward and dK/dV
+``<wrapper>.lora.launches``, and the flash-attention forward, dQ and dK/dV
 wrappers their launches of the tensor-core body (bf16 / fp16 inputs) in
 ``<wrapper>.mma_launches``.
 """
@@ -40,8 +40,8 @@ def launch_counters() -> dict:
     """``{kernel name: counter}`` of every kernel wrapper's launch counter
     (read and reset through ``counter.launches``): the wrappers
     themselves, ``<name>_lora`` for the fused decode step's launches with a
-    LoRA arena, and ``<name>_mma`` for the flash-attention forward's and
-    dK/dV's launches of their tensor-core bodies."""
+    LoRA arena, and ``<name>_mma`` for the flash-attention forward's, dQ's
+    and dK/dV's launches of their tensor-core bodies."""
     from .decode_step import (
         fused_decode_step,
         fused_decode_step_paged,
@@ -70,6 +70,8 @@ def launch_counters() -> dict:
             "flash_attention_fwd_mma": _AttrCounter(flash_attention_fwd,
                                                     "mma_launches"),
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dq_mma": _AttrCounter(
+                flash_attention_bwd_dq, "mma_launches"),
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "flash_attention_bwd_dkv_mma": _AttrCounter(
                 flash_attention_bwd_dkv, "mma_launches"),

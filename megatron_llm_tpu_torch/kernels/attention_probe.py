@@ -1,14 +1,18 @@
-"""Tuning probe for the flash-attention kernels K1 (forward) and K3 (dK/dV)
-on one NVIDIA GPU: what ``nvcc -Xptxas -v`` reports for their sources, K1
-built at 4 and at 8 warps a block, K3 with its walk split and unsplit, K2
-beside them, and SDPA's forward as the yardstick, each at the shapes of
-``chip_smoke.py`` phase 3, bf16 and causal::
+"""Tuning probe for the flash-attention kernels K1 (forward), K2 (dQ) and
+K3 (dK/dV) on one NVIDIA GPU: what ``nvcc -Xptxas -v`` reports for their
+sources, K1 built at 4 and at 8 warps a block, K2's tensor-core body, K3
+with its walk split and unsplit, and SDPA's forward and backward as the
+yardsticks, each at the shapes of ``chip_smoke.py`` phase 3, bf16 and
+causal; then K2's fp32 CUDA-core body beside its bf16 tensor-core body at
+a small shape::
 
     python3 -m megatron_llm_tpu_torch.kernels.attention_probe
 
-Times are CUDA events around 20 (K3: 5) launches captured in a CUDA graph,
-L2-warm, each version timed twice in turns (A B B A).  The 8-warp K1 is a
-copy of ``csrc/flash_attention.cu`` with ``kFwdWarps = 8``, built into
+Times are CUDA events around 20 (K2, K3: 5) launches captured in a CUDA
+graph, L2-warm (``_timing.cuda_ms``), two versions of a kernel timed
+twice each in turns (A B B A); SDPA's backward is its forward and
+backward between events less its forward (``_timing.event_ms``).  The
+8-warp K1 is a copy of its source with one constant changed, built into
 ``build/probe/``; nothing here changes what the package builds.
 """
 
@@ -23,6 +27,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from . import _timing as tm
 from . import build
 from . import flash_attention as fa
 
@@ -58,7 +63,8 @@ def ptxas_report(log: str) -> list:
 def _demangle(name: str) -> str:
     for key in ("flash_fwd_mma_kernel", "flash_fwd_kernel",
                 "flash_bwd_dkv_mma_kernel", "flash_bwd_dkv_kernel",
-                "flash_bwd_dq_kernel", "dkv_sum_splits_kernel"):
+                "flash_bwd_dq_mma_kernel", "flash_bwd_dq_kernel",
+                "dkv_sum_splits_kernel"):
         if key in name:
             t = ("bf16" if "nv_bfloat16" in name else "fp16"
                  if "__half" in name else "fp32")
@@ -67,23 +73,31 @@ def _demangle(name: str) -> str:
     return name
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def _variant(name: str, old: str, new: str) -> Path:
+    """A copy of ``csrc/<name>.cu`` with one constant changed, in
+    ``build/probe/``."""
+    text = (build.CSRC / f"{name}.cu").read_text()
+    if old not in text:
+        raise RuntimeError(f"{name}.cu: {old!r} not found")
+    out = PROBE_DIR / f"{name}_{new.split()[2]}_{new.split()[-1][:-1]}.cu"
+    out.write_text(text.replace(old, new))
+    return out
+
+
+def sdpa_bwd_ms(qt, kt, vt, do, gqa: bool, iters: int = 5) -> float:
+    """SDPA's causal backward (dQ, dK, dV in one call): its forward and
+    backward between CUDA events less its forward."""
+    qt, kt, vt = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    dot = do.transpose(1, 2).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=gqa)
+
+    with torch.no_grad():
+        f_ms = tm.event_ms(fwd, iters)
+    return tm.event_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot),
+                       iters) - f_ms
 
 
 def main() -> int:
@@ -95,12 +109,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    w8_src = PROBE_DIR / "flash_attention_w8.cu"
-    text = (build.CSRC / "flash_attention.cu").read_text()
-    if "constexpr int kFwdWarps = 4;" not in text:
-        raise RuntimeError("flash_attention.cu: kFwdWarps is not 4")
-    w8_src.write_text(text.replace("constexpr int kFwdWarps = 4;",
-                                   "constexpr int kFwdWarps = 8;"))
+    w8_src = _variant("flash_attention", "constexpr int kFwdWarps = 4;",
+                      "constexpr int kFwdWarps = 8;")
     for name, src in (("flash_attention", build.CSRC / "flash_attention.cu"),
                       ("flash_attention_bwd",
                        build.CSRC / "flash_attention_bwd.cu"),
@@ -109,11 +119,10 @@ def main() -> int:
                 _nvcc(src, PROBE_DIR / f"{name}.so")):
             print(f"ptxas {name}: {_demangle(kern)}: {regs} registers, "
                   f"{spill} bytes spilled")
-    w8 = ctypes.CDLL(str(PROBE_DIR / "flash_attention_w8.so"))
-    fwd8 = w8.flash_attention_launch
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fwd8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I,
-                     I, P]
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd8 = ctypes.CDLL(str(PROBE_DIR / "flash_attention_w8.so")
+                       ).flash_attention_launch
+    fwd8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, Fl, I, I, P]
     fwd8.restype = I
 
     def k1_w8(q, k, v):
@@ -138,9 +147,9 @@ def main() -> int:
         o8, _ = w8f()
         torch.cuda.synchronize()
         same = torch.equal(o4, o8)
-        t = [cuda_ms(f) for f in (w4, w8f, w8f, w4)]
+        t = [tm.cuda_ms(f) for f in (w4, w8f, w8f, w4)]
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+        sdpa = tm.cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=hq != hk))
         flop = 4.0 * d * hq * b * s * (s + 1) / 2
         print(f"K1 [{name}]: 4 warps {t[0]:.4f} {t[3]:.4f} ms "
@@ -153,14 +162,29 @@ def main() -> int:
             q, k, v, do, lse, delta, causal=True)
         one = lambda: fa.flash_attention_bwd_dkv(  # noqa: E731
             q, k, v, do, lse, delta, causal=True, splits=1)
-        t = [cuda_ms(f, 5) for f in (dflt, one, one, dflt)]
-        dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, causal=True), 5)
+        t = [tm.cuda_ms(f, 5) for f in (dflt, one, one, dflt)]
         print(f"K3 [{name}]: {splits} split(s) {t[0]:.4f} {t[3]:.4f} ms "
               f"({2 * flop / min(t[0], t[3]) / 1e9:.1f} TFLOP/s), unsplit "
-              f"{t[1]:.4f} {t[2]:.4f} ms; K2 {dq:.4f} ms")
+              f"{t[1]:.4f} {t[2]:.4f} ms")
+        ms = tm.cuda_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal=True), 5)
+        print(f"K2 [{name}]: {ms:.4f} ms "
+              f"({1.5 * flop / ms / 1e9:.1f} TFLOP/s); "
+              f"SDPA backward {sdpa_bwd_ms(qt, kt, vt, do, hq != hk):.4f} "
+              "ms (dQ, dK, dV)")
         del q, k, v, do, qt, kt, vt, o4, o8, lse, delta
         torch.cuda.empty_cache()
+    # K2's two bodies on the same values: fp32 (CUDA cores) and bf16
+    b, s, h, d = 1, 1024, 8, 128
+    x32 = [torch.randn(b, s, h, d, generator=gen, device=dev)
+           for _ in range(4)]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (x.to(dtype) for x in x32)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        ms = tm.cuda_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal=True), 5)
+        print(f"K2 [b{b} s{s} h{h} d{d} {dtype}]: {ms:.4f} ms")
     return 0
 
 

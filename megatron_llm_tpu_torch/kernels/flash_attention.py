@@ -27,6 +27,7 @@ from . import build
 
 NO_KEY_LSE = -1e30  # lse of a row that sees no key (its O is 0)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_BODY_MMA = 1   # the backward launchers' report: the tensor-core body
 _HEAD_DIMS = (64, 128)
 
 
@@ -238,21 +239,27 @@ def _bwd_args(q, k, segment_ids, softmax_scale):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                            segment_ids=None, softmax_scale=None):
     """dQ from the CUDA kernel K2 (CUDA tensors only; ``delta`` fp32
-    ``[b, hq, sq]``, ``segment_ids`` contiguous int32 or None)."""
+    ``[b, hq, sq]``, ``segment_ids`` contiguous int32 or None).  The C
+    launcher sends bf16 / fp16 to the tensor-core body and fp32 to the
+    CUDA-core body, and reports the body it ran: a tensor-core launch is
+    counted in ``mma_launches`` too."""
     _check_bwd(q, k, v, do, lse, delta, segment_ids)
     seg_ptr, *dims = _bwd_args(q, k, segment_ids, softmax_scale)
     dq = torch.empty_like(q)
+    body = ctypes.c_int(-1)
     err = _bwd_lib().flash_attention_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), seg_ptr, dq.data_ptr(), *dims,
         int(causal), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(body))
     build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.mma_launches += body.value == _BODY_MMA
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.mma_launches = 0
 
 
 _DKV_TILE = 64         # keys per K3 block
@@ -293,7 +300,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     take the tensor-core body, whose walk is split over ``splits`` blocks
     (default ``_dkv_splits`` for this card) with fp32 partial sums added
     in split order by a second kernel; fp32 takes the CUDA-core body,
-    unsplit."""
+    unsplit.  As for dQ, ``mma_launches`` counts the body the C launcher
+    reports."""
     _check_bwd(q, k, v, do, lse, delta, segment_ids)
     seg_ptr, b, sq, sk, hq, hk, d, scale = _bwd_args(q, k, segment_ids,
                                                      softmax_scale)
@@ -313,16 +321,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     if splits > 1:
         scratch = torch.empty(2, splits, b, sk, hk, d, dtype=torch.float32,
                               device=q.device)
+    body = ctypes.c_int(-1)
     err = _bwd_lib().flash_attention_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), seg_ptr, dk.data_ptr(),
         dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
         b, sq, sk, hq, hk, d, scale, int(causal), splits,
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(body))
     build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
-    if mma:
-        flash_attention_bwd_dkv.mma_launches += 1
+    flash_attention_bwd_dkv.mma_launches += body.value == _BODY_MMA
     return dk, dv
 
 
@@ -397,12 +406,12 @@ def _bwd_lib():
         lib.flash_attention_bwd_dkv_launch
     if dq.argtypes is None:
         # q k v dO lse delta seg dq; b sq sk hq hk d; scale; causal dtype;
-        # stream
-        dq.argtypes = [P] * 8 + [I] * 6 + [F, I, I, P]
+        # stream; the body launched (out)
+        dq.argtypes = [P] * 8 + [I] * 6 + [F, I, I, P, P]
         dq.restype = I
     if dkv.argtypes is None:
         # q k v dO lse delta seg dk dv scratch; b sq sk hq hk d; scale;
-        # causal splits dtype; stream
-        dkv.argtypes = [P] * 10 + [I] * 6 + [F, I, I, I, P]
+        # causal splits dtype; stream; the body launched (out)
+        dkv.argtypes = [P] * 10 + [I] * 6 + [F, I, I, I, P, P]
         dkv.restype = I
     return lib

@@ -7,9 +7,11 @@ Replaces the TPU kernels of ``megatron_llm_tpu/kernels/rmsnorm.py``:
 ``y = x * rsqrt(mean(x^2) + eps) * w`` with fp32 statistics, y in x's
 dtype, plus the per-row ``rstd`` (fp32) the backward reads; and
 ``_rms_bwd_kernel`` (via ``_rms_bwd_vjp``): ``dx = rstd * (g - x̂ *
-mean(g * x̂))`` with ``g = dy * w`` and ``x̂ = x * rstd``, dx in x's dtype.
-dweight is the fp32 cross-row sum of ``dy * x̂``, cast to the weight's
-dtype, computed outside the kernel as the JAX package does.
+mean(g * x̂))`` with ``g = dy * w`` and ``x̂ = x * rstd``, dx in x's dtype,
+and dweight, the fp32 cross-row sum of ``dy * x̂`` cast to the weight's
+dtype, which the JAX package leaves to XLA beside its kernel ("cross-row
+reduction, XLA territory"; XLA fuses it into one pass over x and dy).
+Here it is in the kernel: eager torch would take four or five passes.
 
 The LayerNorm pair replaces ``_ln_fwd_kernel`` (via ``layernorm_pallas`` →
 ``_ln_fwd``): ``y = (x - mean) * rstd * w (+ b)`` with the fp32 per-row
@@ -33,7 +35,16 @@ and is bound by launch latency instead.
 
 The backward kernels are bound by bytes the same way: each reads x and dy
 once and writes dx once, with one (RMSNorm) or two (LayerNorm) row
-reductions between.
+reductions between.  K5 also sums dweight in the same pass: one program
+per block of consecutive rows (``_bwd_rows_per_program``: about four
+programs a SM) adds ``dy * x̂`` of its rows into an fp32 register row and
+stores it as its partial row; a second small kernel adds the partial rows
+column by column in a fixed order, so the result is the same bit for bit
+from run to run, with no atomics.  The partials are programs x hidden x 4
+bytes (8 MB at Llama-2-7B's training rows).  The row is held whole up to
+the 16384 cap, where it spills a little (registers, spills and times
+beside ``rms_bwd_kernel``).  K7 still leaves dweight and dbias to torch
+beside its dx kernel.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  ``triton`` is imported, and a kernel compiled, at its first
@@ -108,6 +119,38 @@ def rmsnorm_fwd(x, weight, eps: float = 1e-5):
 rmsnorm_fwd.launches = 0
 
 
+_BWD_PROGRAMS_PER_SM = 4
+# colsum_kernel's tile: partial rows x columns a step
+_COLSUM_ROWS, _COLSUM_COLS = 128, 32
+
+
+def _bwd_rows_per_program(rows: int, sm_count: int) -> int:
+    """Rows R of each program of the one-pass backward: the fewest that
+    keep the programs at about ``_BWD_PROGRAMS_PER_SM`` a SM.  Program p
+    takes rows [p R, min((p + 1) R, rows)), so ceil(rows / R) programs
+    cover every row once and none is empty."""
+    return max(1, -(-rows // (_BWD_PROGRAMS_PER_SM * sm_count)))
+
+
+def _two_stage_sum_plain(t, rows_per_program: int):
+    """The column sum of ``t`` [rows, h] in the one-pass backward's
+    partition: each program's rows summed into a partial row, then the
+    partial rows added over the programs in order (``colsum_kernel`` takes
+    them in tiles of ``_COLSUM_ROWS``, in order; the two agree to the
+    rounding of the sums)."""
+    rows, h = t.shape
+    programs = -(-rows // rows_per_program)
+    if programs == 0:
+        return t.new_zeros(h)
+    pad = programs * rows_per_program - rows
+    parts = torch.cat([t, t.new_zeros(pad, h)]).reshape(
+        programs, rows_per_program, h).sum(1)
+    out = parts[0].clone()
+    for p in range(1, programs):
+        out += parts[p]
+    return out
+
+
 def _row_stat(x):
     """An fp32 per-row statistic: x's leading dims plus a 1."""
     return torch.empty(x.shape[:-1] + (1,), dtype=torch.float32,
@@ -138,15 +181,49 @@ def _dweight(dyf, xhat, weight):
 
 
 def rmsnorm_bwd(x, weight, rstd, dy):
-    """``(dx, dweight)``: dx from the Triton kernel K5 for CUDA tensors
-    (dweight beside it in torch), the plain version for CPU tensors."""
+    """``(dx, dweight)``: the Triton kernel K5 for CUDA tensors, the plain
+    version for CPU tensors.  K5 is two launches, counted as one: one pass
+    over x and dy writes dx and each program's fp32 partial dweight row,
+    then ``colsum_kernel`` adds the partial rows in a fixed order (the
+    same bits every run) and casts to the weight's dtype."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_plain(x, weight, rstd, dy)
     _check(x, weight)
     _check_bwd(x, dy, rstd)
-    dx = launch_bwd_dx(x, weight, rstd, dy)
-    xhat = x.float() * rstd
-    return dx, _dweight(dy.float(), xhat, weight)
+    dx, dw, _ = launch_rms_bwd(x, weight, rstd, dy)
+    return dx, dw
+
+
+def launch_rms_bwd(x, weight, rstd, dy):
+    """``(dx, dweight, the compiled one-pass kernel or None)`` from K5's
+    two launches, counted as one in ``rmsnorm_bwd.launches`` (CUDA
+    operands as ``rmsnorm_bwd`` checks them)."""
+    hidden = x.shape[-1]
+    rows = x.numel() // hidden
+    dx = torch.empty_like(x)
+    dw = torch.zeros_like(weight)
+    if not rows:
+        return dx, dw, None
+    import triton
+
+    from .rmsnorm_triton import colsum_kernel, rms_bwd_kernel
+
+    block = triton.next_power_of_2(hidden)
+    per = _bwd_rows_per_program(
+        rows, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+    programs = -(-rows // per)
+    part = torch.empty(programs, hidden, dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        compiled = rms_bwd_kernel[(programs,)](
+            x, weight, dy, rstd, dx, part, rows, hidden, per, BLOCK=block,
+            num_warps=_warps(block))
+        colsum_kernel[(triton.cdiv(hidden, _COLSUM_COLS),)](
+            part, dw, programs, hidden, BLOCK_P=_COLSUM_ROWS,
+            BLOCK_C=_COLSUM_COLS, num_warps=4)
+    rmsnorm_bwd.launches += 1
+    return dx, dw, compiled
 
 
 rmsnorm_bwd.launches = 0
@@ -163,30 +240,10 @@ def _check_bwd(x, dy, *stats):
                              "be contiguous fp32 [rows, 1]")
 
 
-def launch_bwd_dx(x, weight, rstd, dy):
-    """dx from one launch of the Triton kernel K5, counted in
-    ``rmsnorm_bwd.launches`` (CUDA operands as ``rmsnorm_bwd`` checks
-    them)."""
-    hidden = x.shape[-1]
-    rows = x.numel() // hidden
-    dx = torch.empty_like(x)
-    if rows:
-        import triton
-
-        from .rmsnorm_triton import rms_bwd_kernel
-
-        block = triton.next_power_of_2(hidden)
-        with torch.cuda.device(x.device):
-            rms_bwd_kernel[(rows,)](x, weight, dy, rstd, dx, hidden,
-                                    BLOCK=block, num_warps=_warps(block))
-        rmsnorm_bwd.launches += 1
-    return dx
-
-
 class RMSNormFunction(torch.autograd.Function):
-    """y = rmsnorm(x, w) with the forward kernel K4 and, backward, the dx
-    kernel K5 (the JAX package's ``rmsnorm_pallas`` custom_vjp).  It saves
-    x, w and rstd, as the JAX residuals do."""
+    """y = rmsnorm(x, w) with the forward kernel K4 and, backward, K5 (dx
+    and dweight; the JAX package's ``rmsnorm_pallas`` custom_vjp).  It
+    saves x, w and rstd, as the JAX residuals do."""
 
     @staticmethod
     def forward(ctx, x, weight, eps):

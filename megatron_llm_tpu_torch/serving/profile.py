@@ -65,7 +65,8 @@ from .engine import EngineConfig, ServingEngine
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _FAMILIES = (("fused_decode_step", ("decode_step_kernel",)),
-             ("flash_attention_fwd", ("flash_fwd_kernel",)),
+             ("flash_attention_fwd", ("flash_fwd_kernel",
+                                      "flash_fwd_mma_kernel")),
              ("flash_decode", ("flash_decode_kernel",)),
              ("flash_decode_int8", ("flash_decode_int8_kernel",)),
              ("rmsnorm_fwd", ("rms_fwd_kernel",)),

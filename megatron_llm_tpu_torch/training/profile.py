@@ -40,11 +40,17 @@ from ..ops import dropout as drop
 from ..serving.profile import _traced, device_summary
 from .step import init_train_state, make_train_step, to_device_batch
 
-_FAMILIES = (("flash_attention_fwd", ("flash_fwd_kernel",)),
-             ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
-             ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+# each kernel's bodies (K1-K3: CUDA cores and tensor cores; K3's split
+# sum; K5's pass and its column sum)
+_FAMILIES = (("flash_attention_fwd", ("flash_fwd_kernel",
+                                      "flash_fwd_mma_kernel")),
+             ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",
+                                         "flash_bwd_dq_mma_kernel")),
+             ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",
+                                          "flash_bwd_dkv_mma_kernel",
+                                          "dkv_sum_splits_kernel")),
              ("rmsnorm_fwd", ("rms_fwd_kernel",)),
-             ("rmsnorm_bwd", ("rms_bwd_kernel",)),
+             ("rmsnorm_bwd", ("rms_bwd_kernel", "colsum_kernel")),
              ("layernorm_fwd", ("ln_fwd_kernel",)),
              ("layernorm_bwd", ("ln_bwd_kernel",)),
              ("dropout_rng", ("distribution",)),

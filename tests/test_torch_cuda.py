@@ -248,6 +248,7 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
     assert launches == {"flash_attention_fwd": cfg.num_layers,
                         "flash_attention_fwd_mma": 0,   # fp32: CUDA cores
                         "flash_attention_bwd_dq": 0,
+                        "flash_attention_bwd_dq_mma": 0,
                         "flash_attention_bwd_dkv": 0,
                         "flash_attention_bwd_dkv_mma": 0,
                         "flash_decode": 4 * cfg.num_layers,
@@ -295,6 +296,7 @@ def test_flash_attention_bwd_matches_plain(cuda_device, hq, hk, sq, sk, d,
     n_dq = tfa.flash_attention_bwd_dq.launches
     n_dkv = tfa.flash_attention_bwd_dkv.launches
     n_mma = tfa.flash_attention_bwd_dkv.mma_launches
+    n_dq_mma = tfa.flash_attention_bwd_dq.mma_launches
     got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   segment_ids=seg)
     torch.cuda.synchronize()
@@ -302,20 +304,18 @@ def test_flash_attention_bwd_matches_plain(cuda_device, hq, hk, sq, sk, d,
     assert tfa.flash_attention_bwd_dkv.launches == n_dkv + 1
     assert tfa.flash_attention_bwd_dkv.mma_launches == n_mma + (
         dtype != torch.float32)
+    assert tfa.flash_attention_bwd_dq.mma_launches == n_dq_mma + (
+        dtype != torch.float32)
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          segment_ids=seg)
     # grads are sums over up to sk (dQ) or group * sq (dK, dV) terms of
     # O(1) products: bf16 rounds the result once on each side; fp32 only
-    # reorders the sums.  dK and dV (K3's tensor-core body) round P and dS
-    # where the plain version does: CARD_TOL
-    tol = (dict(rtol=2 ** -6, atol=2e-2) if dtype == torch.bfloat16
-           else dict(rtol=1e-4, atol=1e-4))
+    # reorders the sums.  dQ, dK and dV (K2's and K3's tensor-core bodies)
+    # round P and dS where the plain version does: CARD_TOL
+    tol = CARD_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and torch.isfinite(g).all(), name
         torch.testing.assert_close(g.float(), w.float(), **tol, msg=name)
-        if dtype == torch.bfloat16 and name != "dq":
-            torch.testing.assert_close(g.float(), w.float(), **CARD_TOL,
-                                       msg=name)
     if sq > sk:  # causal rows that see no key get dQ = 0 exactly
         assert not got[0][:, :sq - sk].any()
 
@@ -385,6 +385,57 @@ def test_flash_attention_dkv_split_equals_unsplit_and_repeats(cuda_device):
                                        **CARD_TOL, msg=name)
 
 
+def _dq(q, k, v, do, causal, seg):
+    """K2 alone on the forward kernel's lse, and the plain dQ."""
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                     segment_ids=seg)
+    again = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                       causal=causal, segment_ids=seg)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                            causal=causal, segment_ids=seg)
+    return got, again, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,causal,segs,dtype", [
+    (1, 8, 2, 100, 300, 64, True, False, torch.bfloat16),   # d 64, ragged
+    (2, 4, 4, 300, 70, 128, True, False, torch.bfloat16),   # rows no key
+    (1, 4, 1, 129, 129, 64, False, False, torch.bfloat16),  # MQA, not causal
+    (2, 4, 2, 200, 200, 128, True, True, torch.float16),    # fp16, segs
+    (2, 8, 8, 256, 256, 128, False, True, torch.bfloat16),  # segs, no mask
+    (1, 32, 8, 512, 512, 128, True, False, torch.bfloat16),  # GQA 4
+    (1, 71, 1, 193, 193, 64, True, False, torch.bfloat16),  # MQA 71 (Falcon)
+    (1, 4, 2, 65, 193, 64, True, False, torch.float16),     # fp16, offset
+    (2, 4, 1, 130, 130, 64, True, False, torch.float32),    # CUDA cores
+])
+def test_flash_attention_dq_mma_edges_match_plain(cuda_device, b, hq, hk,
+                                                  sq, sk, d, causal, segs,
+                                                  dtype):
+    """K2 where its tiles meet the edges (q and k lengths off the 64-row
+    tile, rows that see no key, head dim 64, fp16, segment ids, GQA and
+    MQA) within CARD_TOL of the plain version; bf16 and fp16 take the
+    tensor-core body (``mma_launches``), fp32 the CUDA-core body; two runs
+    are equal bit for bit (a block owns its dQ rows: no atomics)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, do, seg = _bwd_inputs(gen, cuda_device, b, sq, sk, hq, hk, d,
+                                   dtype, segs)
+    n, n_mma = (tfa.flash_attention_bwd_dq.launches,
+                tfa.flash_attention_bwd_dq.mma_launches)
+    got, again, want = _dq(q, k, v, do, causal, seg)
+    assert tfa.flash_attention_bwd_dq.launches == n + 2
+    assert tfa.flash_attention_bwd_dq.mma_launches == n_mma + 2 * (
+        dtype != torch.float32)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    tol = CARD_TOL if dtype != torch.float32 else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if causal and sq > sk:  # rows that see no key get dQ = 0 exactly
+        assert not got[:, :sq - sk].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,h,dtype", [(37, 4096, torch.bfloat16),
                                           (1, 64, torch.bfloat16),
@@ -403,9 +454,41 @@ def test_rmsnorm_bwd_matches_plain(cuda_device, rows, h, dtype):
     tol = CARD_TOL if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(dx.float(), dx_ref.float(), **tol)
     torch.testing.assert_close(dw.float(), dw_ref.float(), **tol)
-    # the dx launch counts where it is made, whoever calls it
-    assert torch.equal(trn.launch_bwd_dx(x, w, rstd, dy), dx)
+    # dx and dweight come from one counted launch, the same bits each run
+    again = trn.rmsnorm_bwd(x, w, rstd, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
     assert trn.rmsnorm_bwd.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,h", [(4096, 2048), (4097, 4096), (37, 4544),
+                                    (1001, 8192), (531, 16384), (1, 4096)])
+def test_rmsnorm_bwd_one_pass_matches_plain_and_repeats(cuda_device, rows,
+                                                         h):
+    """K5's dx and dweight from one pass over x and dy (and the column sum
+    of its partial rows) at hidden 2048, 4096, Falcon's 4544 (masked
+    lanes), 8192 and 16384 (the whole row held, spilling registers), with
+    rows that the partition does not divide on 132 SMs (4097, 1001 and
+    531: the last program's rows run short) and a single row: within
+    CARD_TOL of the plain version, equal bit for bit from run to run, one
+    counted launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = _card((rows, h), gen, cuda_device)
+    w = (1.0 + 0.1 * _card((h,), gen, cuda_device, torch.float32)).to(
+        torch.bfloat16)
+    dy = _card((rows, h), gen, cuda_device)
+    _, rstd = trn.rmsnorm_fwd(x, w, 1e-5)
+    before = trn.rmsnorm_bwd.launches
+    got = trn.rmsnorm_bwd(x, w, rstd, dy)
+    again = trn.rmsnorm_bwd(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    assert trn.rmsnorm_bwd.launches == before + 2
+    want = trn.rmsnorm_bwd_plain(x, w, rstd, dy)
+    for name, g, a, r in zip(("dx", "dw"), got, again, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all(), name
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g.float(), r.float(), **CARD_TOL,
+                                   msg=name)
 
 
 @pytest.mark.cuda

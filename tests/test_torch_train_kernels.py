@@ -259,6 +259,60 @@ def test_rmsnorm_function_matches_autograd_of_plain_forward():
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("rows,sms", [
+    (1, 132),        # under one program
+    (7, 132),
+    (528, 132),      # one row a program, exactly
+    (529, 132),      # two rows a program, the last one short
+    (1001, 132),
+    (4096, 132),     # Llama-2-7B's training rows (micro batch 1, seq 4096)
+    (2048, 132),     # Falcon-7B's (seq 2048)
+    (4097, 132),
+    (4096, 114),     # an H100 PCIe
+    (8192, 1),
+    (10000, 8),
+])
+def test_bwd_rows_per_program_covers_every_row_once(rows, sms):
+    per = trn._bwd_rows_per_program(rows, sms)
+    programs = -(-rows // per)
+    assert per >= 1 and programs <= max(1, trn._BWD_PROGRAMS_PER_SM * sms)
+    seen = np.zeros(rows, np.int64)
+    for p in range(programs):   # the kernel's program p
+        start, end = p * per, min(p * per + per, rows)
+        assert start < end      # no program is empty
+        seen[start:end] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("shape,per,x_dtype", [
+    ((300, 256), 7, np.float32),      # the last program's 6 rows run short
+    ((3, 5, 64), 4, np.float32),
+    ((2, 300, 256), 1, np.float32),
+    ((1, 64), 8, np.float32),         # rows under one program
+    ((300, 256), 7, ml_dtypes.bfloat16),
+    ((37, 128), 16, ml_dtypes.bfloat16),
+])
+def test_rmsnorm_dweight_two_stage_matches_pallas(shape, per, x_dtype):
+    """K5's dweight order (per row block, then over the blocks) in plain
+    torch against JAX's dweight from ``jax.vjp`` of ``rmsnorm_pallas`` in
+    interpret mode.  bf16 x and dy with an fp32 weight keep dweight in
+    fp32, so both sides hold the tolerance of the fp32 test above."""
+    rng = np.random.default_rng(21)
+    x = _np(rng, shape).astype(x_dtype)
+    w = (1.0 + 0.1 * _np(rng, shape[-1:])).astype(np.float32)
+    dy = _np(rng, shape).astype(x_dtype)
+    _, vjp = jax.vjp(lambda x_, w_: jrn.rmsnorm_pallas(x_, w_, 1e-5, True),
+                     jnp.asarray(x), jnp.asarray(w))
+    _, dw_want = vjp(jnp.asarray(dy))
+    tx, tdy = (torch.from_numpy(a.astype(np.float32)) for a in (x, dy))
+    _, rstd = trn.rmsnorm_fwd(tx, torch.from_numpy(w), 1e-5)
+    h = shape[-1]
+    got = trn._two_stage_sum_plain((tdy * tx * rstd).reshape(-1, h), per)
+    assert got.dtype == torch.float32 and got.shape == (h,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(dw_want), rtol=1e-5,
+                               atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # K7 LayerNorm backward
 # ---------------------------------------------------------------------------
