@@ -8,8 +8,10 @@ it goes wrong:
 
 1. device: name, count and ``nvidia-smi`` name / power limit;
 2. build: every CUDA kernel from ``megatron_llm_tpu_torch/csrc`` with one
-   ``nvcc`` per source, all started together (the Triton kernel compiles
-   at its first launch);
+   ``nvcc`` per source, all started together, and beside them the fused
+   decode step's stamped build for ``kernels/decode_probe.py`` (each
+   ``nvcc``'s seconds are logged; the Triton kernels compile at their
+   first launch);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, in bf16, at the serving and training paths' shapes (Llama-2-7B
    and Falcon-7B's; LayerNorm at GPT-1.3B's too), with its time (CUDA
@@ -19,9 +21,11 @@ it goes wrong:
    the composed route's time instead); K1-K3 also at their tensor-core
    bodies' edges (ragged lengths, rows that see no key, head dim 64,
    fp16), K3 with its walk split over several blocks (equal to one block
-   within the tolerance, and bit for bit from run to run), K2 and K5
-   repeated bit for bit, and K1-K3 with fp32 inputs, which take the
-   CUDA-core bodies;
+   within the tolerance, and bit for bit from run to run), K2, K5 and K7
+   repeated bit for bit, K1-K3 with fp32 inputs, which take the CUDA-core
+   bodies, K7 timed against the library's backward in turns A B B A, and
+   the fused decode step's time split by phase (``decode_probe``, once,
+   K13 bf16 at 32 layers) on a line of its own;
 4. reference: Llama-2-7B widths cut to 2 layers, bf16, prefill then paged
    decode steps through the kernels, against the plain fp32 full forward;
 5. serve: Llama-2-7B at full width and depth, random weights from a seed,
@@ -89,7 +93,9 @@ tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
 Phases 5, 7, 9, 10, 11, 13 and 14-22 are the main paths: every kernel's
 launch counter is reset just before each and read just after, and each
-kernel of a path must have been launched in it.  The
+kernel of a path must have been launched in it; every bf16 launch of
+K1-K3 must have taken the tensor-core body and every launch of the fused
+decode step (all bf16) the TMA body, as the C launchers report.  The
 line before the last is the ``{"kernels": [...]}`` JSON object
 (``launches`` sums the paths' counts, ``launches_by_path`` lists them);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -553,9 +559,20 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
     from megatron_llm_tpu_torch.ops.kv_quant import quantize_rows
     from megatron_llm_tpu_torch.ops.quant import quantize_params
 
+    from megatron_llm_tpu_torch.kernels import decode_probe
+
     b, max_len, block, W = 4, 2048, 64, 4
     fills_l = [1, 97, 1056, 2044]
     rows = {}
+    wrappers = (ds.fused_decode_step, ds.fused_decode_step_paged,
+                ds.fused_decode_verify_paged,
+                ds.fused_decode_verify_tree_paged)
+
+    def counts():
+        return [(c.launches, c.tma_launches) for fn in wrappers
+                for c in (fn, fn.lora)]
+
+    before = counts()
     for form in ("bf16", "int8"):
         cfg = llama2_config("7b", params_dtype="bfloat16",
                             kv_cache_quant="int8" if form == "int8"
@@ -753,6 +770,14 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
                                           composed_route_ms=composed_ms)
         log(f"decode_step ({form}): K13 == K12 and K14 == 4 x K13 bit for "
             "bit at 2 layers")
+        if form == "bf16":
+            # where K13's time goes, phase by phase (the stamped build)
+            split = decode_probe.phase_split(cfg, stacked, x[:, 0].contiguous(),
+                                             kp, vp, tables, fills, rope)
+            decode_probe.print_split(
+                "K13 bf16 (phase 3, 32 layers)", split,
+                rows["fused_decode_step_paged"]["ms"], smi)
+            sys.stdout.flush()
         lrows = check_decode_step_lora(torch, M, ds, dict(
             cfg=cfg, dev=dev, form=form, b=b, W=W, tables=tables,
             fills=fills, rope=rope, x=x, block=block, st2=st2, k2=k2, v2=v2,
@@ -766,6 +791,15 @@ def check_decode_step(torch, M, ds, dev, gen, smi):
                 rows[name]["int8"] = r
         del params, stacked, k, v, kp, vp, st2, outs, seq, ver, want
         torch.cuda.empty_cache()
+    # every call here is bf16: each launch on the TMA body, as the C
+    # launcher reports
+    ran = [(n - n0, t - t0) for (n, t), (n0, t0) in zip(counts(), before)]
+    if any(n != t or n < 1 for n, t in ran):
+        raise RuntimeError(f"decode_step: launches and TMA-body launches of "
+                           f"K12, K13, K14, the tree mode (each, then with "
+                           f"the arena): {ran}")
+    log(f"decode_step: all {sum(n for n, _ in ran)} launches of phase 3 on "
+        "the TMA body (the C launcher's report)")
     return rows
 
 
@@ -1270,26 +1304,37 @@ def check_layernorm(torch, F, rn, dev, gen):
 
 
 def check_layernorm_bwd(torch, F, rn, dev, gen):
-    """K7 (with dweight and dbias beside it in torch) at the shapes of K6;
-    its row's ``ms`` is the whole call and ``kernel_ms`` the dx kernel's
-    own time."""
+    """K7 (dx, dweight and dbias in one pass plus the column sum of its
+    partial rows, one counted launch) at the shapes of K6; a second call
+    must give the same bits, and a call without a bias must return no
+    dbias.  Timed against ``F.layer_norm``'s backward in turns A B B A
+    (kernel, library, library, kernel); ``ms`` and ``library_ms`` are the
+    means of each pair."""
     head = None
     for name, rows, h in timing.LN_SHAPES:
         x, w, b = timing.ln_inputs(rows, h, gen, dev)
         dy = torch.randn(rows, h, generator=gen, device=dev,
                          dtype=torch.bfloat16)
         _, mean, rstd = rn.layernorm_fwd(x, w, b, 1e-5)
+        before = rn.layernorm_bwd.launches
         got = rn.layernorm_bwd(x, w, mean, rstd, dy)
+        again = rn.layernorm_bwd(x, w, mean, rstd, dy)
+        nob = rn.layernorm_bwd(x, w, mean, rstd, dy, has_bias=False)
         torch.cuda.synchronize()
+        if rn.layernorm_bwd.launches != before + 3:
+            raise RuntimeError("layernorm backward: a call is not one launch")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise RuntimeError(f"layernorm backward {name}: two runs differ")
+        if nob[2] is not None or not (torch.equal(nob[0], got[0])
+                                      and torch.equal(nob[1], got[1])):
+            raise RuntimeError(f"layernorm backward {name}: without a bias "
+                               "dx or dw changed, or a dbias came back")
         want = rn.layernorm_bwd_plain(x, w, mean, rstd, dy)
         errs = [close_enough(torch, g, r, BF16_ATOL, BF16_RTOL)
                 for g, r in zip(got, want)]
         if not all(ok for _, ok in errs):
             raise RuntimeError(f"layernorm backward {name}: dx/dw/db err "
                                f"{[e for e, _ in errs]} beyond tolerance")
-        ms = timing.cuda_ms(lambda: rn.layernorm_bwd(x, w, mean, rstd, dy))
-        dx_ms = timing.cuda_ms(lambda: rn.launch_ln_bwd_dx(x, w, mean, rstd,
-                                                           dy))
         plain_ms = timing.cuda_ms(lambda: rn.layernorm_bwd_plain(
             x, w, mean, rstd, dy))
         xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
@@ -1298,24 +1343,32 @@ def check_layernorm_bwd(torch, F, rn, dev, gen):
             return torch.autograd.grad(F.layer_norm(xr, (h,), wr, br, 1e-5),
                                        (xr, wr, br), dy)
 
-        with torch.no_grad():
-            fwd_ms = timing.event_ms(lambda: F.layer_norm(xr, (h,), wr, br,
-                                                          1e-5), iters=20)
-        library_ms = timing.event_ms(lib, iters=20) - fwd_ms
+        def lib_ms():
+            with torch.no_grad():
+                fwd_ms = timing.event_ms(lambda: F.layer_norm(
+                    xr, (h,), wr, br, 1e-5), iters=20)
+            return timing.event_ms(lib, iters=20) - fwd_ms
+
+        def kern_ms():
+            return timing.cuda_ms(lambda: rn.layernorm_bwd(x, w, mean, rstd,
+                                                           dy))
+
+        t = [kern_ms(), lib_ms(), lib_ms(), kern_ms()]
+        ms, library_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         # x, dy read and dx written once; w, mean, rstd read; dw, db written
         nbytes = 3 * x.numel() * 2 + 3 * h * 2 + 2 * rows * 4
         bms, by = timing.bound_ms(nbytes, 12.0 * rows * h,
                                   timing.PEAK_FP32_OPS_S)
         log(f"kernel layernorm_bwd [{name}]: max_abs_err dx {errs[0][0]:.3e} "
             f"dw {errs[1][0]:.3e} db {errs[2][0]:.3e} (tol atol {BF16_ATOL} "
-            f"rtol {BF16_RTOL:.4f}) ms {ms:.4f} (dx kernel {dx_ms:.4f} + "
-            f"dw, db reductions) plain_ms {plain_ms:.4f} "
-            f"layer_norm_backward_ms {library_ms:.4f} bound_ms {bms:.4f} "
-            f"({by})")
+            f"rtol {BF16_RTOL:.4f}; bit for bit again; no dbias without a "
+            f"bias) A B B A ms {t[0]:.4f} {t[1]:.4f} {t[2]:.4f} {t[3]:.4f} "
+            f"(kernel: dx, dw, db in one pass + the column sum; library: "
+            f"layer_norm backward) factor {ms / library_ms:.3f} plain_ms "
+            f"{plain_ms:.4f} bound_ms {bms:.4f} ({by})")
         if head is None:
-            head = dict(max_abs_err=errs[0][0], ms=ms, kernel_ms=dx_ms,
-                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                        library_ms=library_ms)
+            head = dict(max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=library_ms)
     return head
 
 
@@ -2294,6 +2347,7 @@ def main() -> int:
     global timing
     from megatron_llm_tpu_torch.kernels import _timing as timing
     from megatron_llm_tpu_torch.kernels import build, launch_counters
+    from megatron_llm_tpu_torch.kernels import decode_probe
     from megatron_llm_tpu_torch.kernels import decode_step as ds
     from megatron_llm_tpu_torch.kernels import flash_attention as fa
     from megatron_llm_tpu_torch.kernels import flash_decode as fd
@@ -2315,9 +2369,12 @@ def main() -> int:
     log(smi)
 
     t0 = time.perf_counter()
-    build.build_all()
-    log(f"build: {', '.join(build.SOURCES)} with nvcc in "
-        f"{time.perf_counter() - t0:.1f}s")
+    logs = build.build_all(extra=(decode_probe.stamped_build(),))
+    log(f"build: {', '.join(build.SOURCES)} and the stamped decode_step "
+        f"with nvcc in {time.perf_counter() - t0:.1f}s; nvcc seconds by "
+        f"source " + json.dumps({n: round(v, 1) for n, v
+                                 in build.NVCC_SECONDS.items()}))
+    decode_probe.print_ptxas(logs.get("decode_step_stamps", ""))
     log_hmma(build)
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2570,12 +2627,22 @@ def main() -> int:
             "cuda", "megatron_llm_tpu_torch/csrc/decode_step.cu",
             "megatron_llm_tpu/kernels/decode_step.py:1562"),
     }
+    # every fused decode launch of a main path (all bf16) on the TMA body
+    off_tma = {p: [n for n in n_ if n + "_tma" in n_
+                   and n_[n] != n_[n + "_tma"]] for p, n_ in paths.items()}
+    off_tma = {p: v for p, v in off_tma.items() if v}
+    if off_tma:
+        raise RuntimeError(f"fused decode launches off the TMA body: "
+                           f"{off_tma}")
     kernels = []
     for kname, (route, source, replaces) in meta.items():
         by_path = {p: n[kname] for p, n in paths.items()}
         extra = {}
         if kname + "_mma" in counters:  # launches of the tensor-core body
             extra["mma_launches"] = sum(n[kname + "_mma"]
+                                        for n in paths.values())
+        if kname + "_tma" in counters:  # launches of the TMA body
+            extra["tma_launches"] = sum(n[kname + "_tma"]
                                         for n in paths.values())
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,

@@ -10,6 +10,17 @@
 // dtype codes shared with the Python wrappers
 enum DType { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
+// the body a launcher ran, reported through its `body` argument
+constexpr int kBodySimt = 0;  // CUDA cores
+constexpr int kBodyMma = 1;   // tensor cores (mma.sync)
+constexpr int kBodyTma = 2;   // a TMA weight stream (the fused decode step)
+
+// err, after setting *body to `which` when the launch went out
+inline int ran(cudaError_t err, int which, int* body) {
+  if (err == cudaSuccess) *body = which;
+  return err;
+}
+
 template <typename T>
 struct Vec16;  // one 16-byte access = N elements of T
 

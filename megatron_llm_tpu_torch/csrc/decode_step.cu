@@ -23,27 +23,69 @@
 // cache once.  The composed route also pays hundreds of launches per step
 // and a gather of the cache; this one pays one launch and no copy.
 //
-// Design (a simple, correct first version):
-// - One cooperative launch, as many 256-thread blocks as fit on the card.
-//   A grid-wide barrier (a counter in global memory; the launch guarantees
-//   every block is resident) separates the five phases of a layer:
-//   norm+qkv | attention | wo | norm+gate/up | w_down.
-// - GEMV phases: a block owns a tile of 32 output columns and does the
-//   whole contraction over it.  The rows' inputs (normed, or the context,
-//   or act(gate) * up, each rounded to the compute dtype) are staged in
-//   shared memory once for all of the block's tiles of the phase (in
-//   pieces where they do not fit), so each weight element is read from
+// Design.  One cooperative launch, one block a SM.  A grid-wide barrier (a
+// counter in global memory; the launch guarantees every block is
+// resident) separates the five phases of a layer: norm+qkv | attention |
+// wo | norm+gate/up | w_down.  Two bodies run the GEMV phases, chosen by
+// dtype in the C launcher, which reports the one it ran:
+// - bf16: the TMA weight stream (kernels/decode_probe.py split the
+//   CUDA-core body's time by phase: its GEMV phases ran at 0.8-1.1 TB/s,
+//   one chunk of loads in flight a thread and the stream idle behind
+//   every barrier and restaging).
+//   * Tiles of 1 KB of a stored weight row (512 bf16 or 1024 int8 / packed
+//     int4 columns; 1 KB contiguous runs of device memory), contraction
+//     chunks of 128 stored rows; an item is (tile, chunk).  Items are dealt
+//     round robin over the blocks, so the phases are balanced whatever the
+//     matrix widths (wo's and w_down's too).
+//   * Each stage of a 3-stage ring in shared memory is 16 stored rows of a
+//     tile (48 KB in flight a SM; a 5-stage ring timed slower on the
+//     H100, PERF.md: it leaves the L1 less room for register spills):
+//     TMA boxes (cp.async.bulk.tensor, one 3-D map [L, K, N] per
+//     weight built on the host through cudaGetDriverEntryPoint, passed as
+//     __grid_constant__) land on an mbarrier with their byte count.  The
+//     zero fill past the matrix edges covers ragged tiles; the epilogue
+//     masks its stores.
+//   * A producer warpgroup whose first thread issues every box of every
+//     item the block will take (the schedule is fixed by the shapes), in
+//     order, across phases and layers: it waits only for a free stage, so
+//     the next phase's and the next layer's boxes land while the compute
+//     warps attend, run a LoRA x . A phase or wait at a grid barrier.  The
+//     compute warps synchronise on named barrier 1 (csync); registers move
+//     to them (setmaxnreg).
+//   * The products on the CUDA cores: at 4 rows a weight byte takes 4 FMAs
+//     (bf16: 2), under the card's FMA rate at 3.35 TB/s; at K14's 16 rows
+//     about its rate.  mma.sync would have to widen every int8 and int4
+//     weight to bf16 anyway and pad 4 rows to 16; it is left for a later
+//     PR.  A thread owns 4 columns of 8 (bf16) or 16 rows of each stage
+//     and sums each row over the chunk in order in registers.  Weights
+//     widen exactly (int8 through 2^23 + byte); an int8 column scale comes
+//     after the combine, an int4 group scale per nibble as before.
+//   * Each item's fp32 partial goes to scratch (it stays in L2).  After a
+//     grid barrier every block takes its share of the phase's (tile, 32
+//     columns) units, adds their chunks in chunk order and runs the
+//     epilogue (RoPE, the residual, the LoRA delta, w_down's nm segment
+//     sums added to the residual in turn): one more barrier a GEMV phase,
+//     which the producer streams through, and no block waits for another's
+//     chunks.
+//   * The rows' inputs are staged as fp32 values rounded to T: whole when
+//     16 rows x K fit 64 KB (K13's q/k/v, wo, gate/up), else each item's
+//     chunk.  A row's bits depend on the chunk partition (the shapes'), its
+//     own inputs and the fixed orders above, never on the grid or the row
+//     count, so K12, K13 and K14 give a row the same bits.
+// - fp32: the CUDA-core body.  A block owns a tile of 32 output columns
+//   and does the whole contraction over it.  The rows' inputs (normed, or
+//   the context, or act(gate) * up, each rounded to the compute dtype) are
+//   staged in shared memory once for all of the block's tiles of the phase
+//   (in pieces where they do not fit), so each weight element is read from
 //   device memory once per layer for up to 16 rows.  The contraction rows
 //   are split into 64 fixed streams, each summed in order in registers,
 //   then combined in a fixed tree (three shuffle levels, then the 8 warps
-//   in order).  A thread loads 8 columns of U rows of its stream at a time
-//   (U = 8 for bf16, 16 for int8 and packed int4: 128 bytes) and the next
-//   chunk's loads are issued before this one's products.  Nothing depends
-//   on the grid size or on how many rows the call has (rows go 16 at a
-//   time, each with its own accumulators; U depends on the weight's form
-//   alone), so a row's bits are the same in K12, K13 and K14.  Each block
-//   recomputes the rows' RMS statistics itself (identical code, identical
-//   bits), which saves two barriers a layer.
+//   in order).  A thread loads 8 columns of 4 rows of its stream at a time
+//   and the next chunk's loads are issued before this one's products.
+//   Nothing depends on the grid size or on how many rows the call has
+//   (rows go 16 at a time, each with its own accumulators).
+// Each block recomputes the rows' RMS statistics itself (identical code,
+// identical bits), which saves two barriers a layer.
 // - Attention phase: one block per (row, kv head) at a time, laid out as
 //   csrc/flash_decode.cu's decode body: lane groups own cache columns, 16
 //   bytes a thread, each group with its own online softmax, merged in a
@@ -100,7 +142,11 @@
 // tile in a 32-bit word).
 #include "common.cuh"
 
+#include <cuda.h>
 #include <math.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -108,12 +154,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileN = 32;                    // GEMV output columns
 constexpr int kStreams = 64;                  // contraction streams
-// stored rows of a weight chunk each contraction stream loads at once: 16
-// bytes a load of bf16 (8 rows), 8 of int8 or packed int4 (16), 32 of fp32
-// (4).  A property of the weight's form alone, never of the row count, so
-// a row's sums run in one order in every call.
+// stored rows of a weight chunk each contraction stream of the fp32 body
+// loads at once (32 bytes of fp32, 8 of int8 or packed int4 columns).  A
+// constant, never a function of the row count, so a row's sums run in one
+// order in every call.
 template <typename T, int KIND>
-constexpr int kRowsPerStream = sizeof(T) == 4 ? 4 : KIND == 0 ? 8 : 16;
+constexpr int kRowsPerStream = 4;
 constexpr int kMaxRB = 16;                    // rows per GEMV pass
 constexpr int kMaxRows = 64;
 constexpr int kMaxGroup = 8;
@@ -165,8 +211,10 @@ struct Args {
   const float* lb[7];      //   each target, or null (not adapted)
   const float* lmask;      // [rows, lsr], or null (no LoRA)
   float* lpart;            // scratch: x . A partials [7, lch, rows, lsr]
+  float* gpart;            // bf16: GEMV chunk partials, gcap floats
   int L, rows, W, h, nq, nkv, d, ffn, nm, aq, mq, gsz, act;
   int paged, n_ent, width, shift, n_tbl, lsr, lch;
+  int gcap;
   float eps, scale;
 };
 
@@ -217,6 +265,13 @@ __device__ __forceinline__ void ld8(const float* p, float* o) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
+// The block's compute threads (kThreads) synchronise among themselves on
+// named barrier 1: the bf16 kernel's producer warpgroup runs ahead and
+// never joins them.
+__device__ __forceinline__ void csync() {
+  asm volatile("bar.sync 1, %0;" :: "n"(kThreads) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -245,15 +300,65 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 // which may hold the line from before the write).
 __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
   target += gridDim.x;
-  __syncthreads();
+  csync();
   if (threadIdx.x == 0) {
     __threadfence();
     atomicAdd(bar, 1u);
     while (ld_acquire(bar) < target) __nanosleep(64);
     __threadfence();
   }
-  __syncthreads();
+  csync();
 }
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Per-phase time stamps, in a probe build only (nvcc -DDECODE_STEP_STAMPS,
+// kernels/decode_probe.py), into [L][kStampPhases][kStampGrid][kStampSlots]
+// u64 at g_stamps (set by decode_step_stamps; null: no stamps): for each
+// layer, phase and block, %globaltimer at the phase's entry (slot 0), at
+// the end of the block's work (1) and at the exit of the grid barrier after
+// it (2); and for the bf16 body's GEMV phases, thread 0's nanoseconds
+// waiting for boxes to land (3), staging inputs (4), in the items
+// otherwise (5), in the grid barrier before the combine (6), and in the
+// combine (7).  The package's build compiles none of it.
+constexpr int kStampPhases = 9;  // xa_qkv qkv attn xa_wo wo xa_gu gu xa_dn dn
+constexpr int kStampGrid = 1024;
+constexpr int kStampSlots = 8;
+// the stamp phase of GEMV phase 0-3 (q/k/v, wo, gate/up, w_down)
+__device__ __forceinline__ int stamp_of(int ph) {
+  return ph == 0 ? 1 : ph == 1 ? 4 : ph == 2 ? 6 : 8;
+}
+#ifdef DECODE_STEP_STAMPS
+__device__ unsigned long long* g_stamps;
+__device__ unsigned long long g_box_wait[kStampGrid];  // slot 3, running
+__device__ __forceinline__ unsigned long long* stamp_at(int l, int ph,
+                                                        int k) {
+  return g_stamps + (((size_t)l * kStampPhases + ph) * kStampGrid
+                     + blockIdx.x) * kStampSlots + k;
+}
+__device__ __forceinline__ void stamp(int l, int ph, int k) {
+  if (threadIdx.x == 0 && g_stamps && blockIdx.x < kStampGrid)
+    *stamp_at(l, ph, k) = now_ns();
+}
+// thread 0: add the ns since t0 to slot k (t0 = 0: read the clock only)
+__device__ __forceinline__ unsigned long long stamp_add(int l, int ph, int k,
+                                                        unsigned long long t0) {
+  if (threadIdx.x != 0 || !g_stamps || blockIdx.x >= kStampGrid) return 0;
+  const unsigned long long t = now_ns();
+  if (t0) *stamp_at(l, ph, k) += t - t0;
+  return t;
+}
+#else
+__device__ __forceinline__ void stamp(int, int, int) {}
+__device__ __forceinline__ unsigned long long stamp_add(int, int, int,
+                                                        unsigned long long) {
+  return 0;
+}
+#endif
 
 __device__ __forceinline__ float act_fn(int act, float x) {
   switch (act) {
@@ -444,9 +549,9 @@ __device__ __noinline__ void gemv_tile(const Mat m, const Src src, int r0,
     const int cnt = min(PER, k1 - c0);
     if (!staged && (c0 - k0) % SUP == 0) {
       s0 = c0;
-      __syncthreads();
+      csync();
       stage<T>(src, r0, nr, RB, c0, min(SUP, k1 - c0), ldx, xs);
-      __syncthreads();
+      csync();
     }
     Raw cur[U];
 #pragma unroll
@@ -512,13 +617,13 @@ __device__ __noinline__ void gemv_tile(const Mat m, const Src src, int r0,
       for (int e = 0; e < 8; ++e)
         part[(warp * RB + r) * kTileN + cg * 8 + e] = acc[r][e];
   }
-  __syncthreads();
+  csync();
   for (int idx = tid; idx < RB * kTileN; idx += kThreads) {
     float s = part[idx];
     for (int w = 1; w < kWarps; ++w) s += part[w * RB * kTileN + idx];
     out[idx] = s;
   }
-  __syncthreads();
+  csync();
 }
 
 // rows of one GEMV pass: nr rounded up to 1, 2, 4, 8 or 16
@@ -534,9 +639,9 @@ __device__ bool stage_rows(const Src& src, int r0, int nr, int k0, int k1,
                            float* smem) {
   const int rb = rb_of(nr);
   if (rb * (k1 - k0) > kXs) return false;
-  __syncthreads();
+  csync();
   stage<T>(src, r0, nr, rb, k0, k1 - k0, k1 - k0, smem);
-  __syncthreads();
+  csync();
   return true;
 }
 
@@ -612,7 +717,7 @@ __device__ void row_rstd(const float* res, int rows, int h, float eps,
     acc = warp_sum(acc);
     if (lane == 0) rs[r] = rsqrtf(__fadd_rn(__fdiv_rn(acc, (float)h), eps));
   }
-  __syncthreads();
+  csync();
 }
 
 constexpr int kOut = kXs + kPart;             // GEMV result tile
@@ -639,21 +744,24 @@ struct LSrc {
 
 // 32-bit word of the arena's 32-column tiles that some row's mask selects
 // (every block computes the same word)
-__device__ __noinline__ unsigned lora_tiles(const Args& a, float* smem) {
+// (``red``: kWarps scratch words; ``ls``: the epilogue's floats, whose
+// products key is cleared)
+__device__ __noinline__ unsigned lora_tiles(const Args& a, float* red_f,
+                                            float* ls) {
   if (threadIdx.x == 0)  // no products held yet
-    reinterpret_cast<int*>(smem + kLs)[kMaxRB * kLoraPiece + kMaxRB * kTileN
-                                       + kMaxRB] = -1;
+    reinterpret_cast<int*>(ls)[kMaxRB * kLoraPiece + kMaxRB * kTileN
+                               + kMaxRB] = -1;
   unsigned used = 0;
   for (int i = threadIdx.x; i < a.rows * a.lsr; i += kThreads)
     if (a.lmask[i] != 0.0f) used |= 1u << ((i % a.lsr) >> 5);
   used = __reduce_or_sync(0xffffffffu, used);
-  unsigned* red = reinterpret_cast<unsigned*>(smem);
-  __syncthreads();
+  unsigned* red = reinterpret_cast<unsigned*>(red_f);
+  csync();
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = used;
-  __syncthreads();
+  csync();
   used = 0;
   for (int w = 0; w < kWarps; ++w) used |= red[w];
-  __syncthreads();
+  csync();
   return used;
 }
 
@@ -718,9 +826,9 @@ __device__ __noinline__ void lora_xa_item(const Args& a, const LSrc& src,
                             A + (size_t)(k0 + k) * lsr + c0 + 4 * cg))
                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    __syncthreads();
+    csync();
     lora_stage(src, r0, nr, k0, cnt, xs);
-    __syncthreads();
+    csync();
     float acc[kMaxRB][4];
 #pragma unroll
     for (int r = 0; r < kMaxRB; ++r)
@@ -755,7 +863,7 @@ __device__ __noinline__ void lora_xa_item(const Args& a, const LSrc& src,
         for (int e = 0; e < 4; ++e)
           red[(warp * kMaxRB + r) * kTileN + 4 * cg + e] = acc[r][e];
     }
-    __syncthreads();
+    csync();
     for (int idx = tid; idx < nr * kTileN; idx += kThreads) {
       const int r = idx >> 5, c = idx & 31;
       float sum = red[r * kTileN + c];
@@ -763,7 +871,7 @@ __device__ __noinline__ void lora_xa_item(const Args& a, const LSrc& src,
       part[(size_t)(r0 + r) * lsr + c0 + c] = sum;
     }
   }
-  __syncthreads();
+  csync();
 }
 
 // The x . A phase of targets [t0, t1), which share the contraction ``in``
@@ -807,15 +915,15 @@ __device__ __noinline__ void lora_delta(const Args& a, int t, int l, int in,
   const int tid = threadIdx.x, c = tid & 31, rr = tid >> 5;
   const bool one_piece = a.lsr <= kLoraPiece;
   const int want = (l * 8 + t) * kMaxRows + r0;
-  __syncthreads();
+  csync();
   const bool held = one_piece && *key == want;
-  __syncthreads();                              // key read before rewritten
+  csync();                              // key read before rewritten
   if (!held && tid < kMaxRB) live[tid] = 0;
   float acc[2] = {0.0f, 0.0f};
   for (int p0 = 0; p0 < a.lsr; p0 += kLoraPiece) {
     const int pw = min(kLoraPiece, a.lsr - p0);
     if (!held) {
-      __syncthreads();
+      csync();
       for (int idx = tid; idx < kMaxRB * pw; idx += kThreads) {
         const int r = idx / pw, j = idx - r * pw;
         float v = 0.0f;
@@ -841,7 +949,7 @@ __device__ __noinline__ void lora_delta(const Args& a, int t, int l, int in,
         }
         xm[r * kLoraPiece + j] = v;
       }
-      __syncthreads();
+      csync();
       if (tid == 0) *key = one_piece ? want : -1;
     }
 #pragma unroll
@@ -871,19 +979,19 @@ __device__ __noinline__ void lora_delta(const Args& a, int t, int l, int in,
 #pragma unroll
   for (int q = 0; q < 2; ++q)
     if (rr + 8 * q < nr) dl[(rr + 8 * q) * kTileN + c] = acc[q];
-  __syncthreads();
+  csync();
 }
 
 // the epilogue's delta for output tile [n, n + 32) of target t, or null
-// (no arena for t, or no LoRA in this launch); then y + dl[idx] for a live
-// row (lora_add's site)
+// (no arena for t, or no LoRA in this launch), in the epilogue's floats
+// ``ls``; then y + dl[idx] for a live row (lora_add's site)
 __device__ __forceinline__ const float* lora_tile(const Args& a, bool on,
                                                   int t, int l, int in, int N,
                                                   int r0, int nr, int n,
-                                                  float* smem) {
+                                                  float* ls) {
   if (!on || !a.la[t]) return nullptr;
-  lora_delta(a, t, l, in, N, r0, nr, n, smem + kLs);
-  return smem + kLs + kMaxRB * kLoraPiece;
+  lora_delta(a, t, l, in, N, r0, nr, n, ls);
+  return ls + kMaxRB * kLoraPiece;
 }
 
 __device__ __forceinline__ float lora_add(const float* dl, int idx, float y) {
@@ -915,13 +1023,14 @@ __device__ void phase_qkv(const Args& a, int l, bool lora, float* smem) {
       const Mat m = layer_mat<T>(a, which, l, h, N);
       float* dst = which == 0 ? a.q : which == 1 ? a.kn : a.vn;
       gemv<T>(m, src, r0, nr, n, 0, h, staged, smem, out);
-      const float* dl = lora_tile(a, lora, which, l, h, N, r0, nr, n, smem);
+      const float* dl = lora_tile(a, lora, which, l, h, N, r0, nr, n,
+                                      smem + kLs);
       for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
         float y = out[idx];
         if (m.kind == 8) y = __fmul_rn(y, m.s[n + (idx & 31)]);
         out2[idx] = lora_add(dl, idx, y);
       }
-      __syncthreads();
+      csync();
       for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
         const int r = r0 + (idx >> 5), c = n + (idx & 31);
         float y = out2[idx];
@@ -932,7 +1041,7 @@ __device__ void phase_qkv(const Args& a, int l, bool lora, float* smem) {
         }
         dst[(size_t)r * N + c] = y;
       }
-      __syncthreads();
+      csync();
     }
   }
 }
@@ -951,7 +1060,7 @@ __device__ __forceinline__ void add_to_residual(const Args& a, const Mat& m,
     float* rp = a.res + (size_t)(r0 + (idx >> 5)) * a.h + c;
     *rp = __fadd_rn(__ldcg(rp), y);
   }
-  __syncthreads();
+  csync();
 }
 
 // wo (+ the LoRA delta) and the residual
@@ -969,7 +1078,7 @@ __device__ void phase_wo(const Args& a, int l, bool lora, float* smem) {
       gemv<T>(m, src, r0, nr, t * kTileN, 0, nqd, staged, smem, out);
       add_to_residual(a, m, r0, nr, t * kTileN, out,
                       lora_tile(a, lora, 3, l, nqd, h, r0, nr, t * kTileN,
-                                smem));
+                                smem + kLs));
     }
   }
 }
@@ -994,14 +1103,15 @@ __device__ void phase_gateup(const Args& a, int l, bool lora, float* smem) {
       const Mat m = layer_mat<T>(a, which, l, h, ffn);
       float* dst = which == 4 ? a.gate : a.up;
       gemv<T>(m, src, r0, nr, n, 0, h, staged, smem, out);
-      const float* dl = lora_tile(a, lora, which, l, h, ffn, r0, nr, n, smem);
+      const float* dl = lora_tile(a, lora, which, l, h, ffn, r0, nr, n,
+                                      smem + kLs);
       for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
         const int c = n + (idx & 31);
         float y = out[idx];
         if (m.kind == 8) y = __fmul_rn(y, m.s[c]);
         dst[(size_t)(r0 + (idx >> 5)) * ffn + c] = lora_add(dl, idx, y);
       }
-      __syncthreads();
+      csync();
     }
   }
 }
@@ -1030,13 +1140,13 @@ __device__ void phase_down(const Args& a, int l, bool lora, float* smem) {
     // the same block owns tile t in every chunk, so its chunks are in
     for (int t = blockIdx.x; t < h / kTileN; t += gridDim.x) {
       const float* dl = lora_tile(a, lora, 6, l, ffn, h, r0, nr, t * kTileN,
-                                  smem);
+                                  smem + kLs);
       for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
         float* rp = a.res + (size_t)(r0 + (idx >> 5)) * h + t * kTileN
                     + (idx & 31);
         *rp = lora_add(dl, idx, __ldcg(rp));
       }
-      __syncthreads();
+      csync();
     }
   }
 }
@@ -1053,18 +1163,18 @@ __device__ void fq_row(const float* src, float* dst, int D, float* red) {
   for (int e = threadIdx.x; e < D; e += kThreads) m = fmaxf(m, fabsf(src[e]));
   m = warp_max(m);
   if (lane == 0) red[warp] = m;
-  __syncthreads();
+  csync();
   float amax = red[0];
   for (int w = 1; w < kWarps; ++w) amax = fmaxf(amax, red[w]);
   float sc = __fmul_rn(amax, kRcp127);
   if (sc == 0.0f) sc = 1.0f;
-  __syncthreads();
+  csync();
   for (int e = threadIdx.x; e < D; e += kThreads) {
     float q = rintf(__fdiv_rn(src[e], sc));
     q = fminf(fmaxf(q, -127.0f), 127.0f);
     dst[e] = __fmul_rn(q, sc);
   }
-  __syncthreads();
+  csync();
 }
 
 // element index (times D for the d axis) of logical column col of slot s,
@@ -1183,7 +1293,7 @@ __device__ void attn_item(const Args& a, int l, int r, int hk, float* smem) {
       spv[i * D + e] = round_to<C>(__ldcg(a.vn + at + e));
     }
   }
-  __syncthreads();
+  csync();
   if constexpr (Q8) {
     fq_row(ownk, ownk, D, red);
     fq_row(ownv, ownv, D, red);
@@ -1205,7 +1315,7 @@ __device__ void attn_item(const Args& a, int l, int r, int hk, float* smem) {
       st1<C>(static_cast<C*>(a.v_rows) + orow + e, ownv[e]);
     }
   }
-  __syncthreads();
+  csync();
 
   // this lane's columns of the group's query heads (RoPE already applied)
   float qf[G][VN];
@@ -1326,7 +1436,7 @@ __device__ void attn_item(const Args& a, int l, int r, int hk, float* smem) {
     }
 #pragma unroll
     for (int e = 0; e < VN; ++e) sm_acc[grp * D + lane * VN + e] = acc[rr][e];
-    __syncthreads();
+    csync();
     for (int e = tid; e < D; e += kThreads) {
       float mt = -INFINITY;
       for (int g2 = 0; g2 < NGRP; ++g2) mt = fmaxf(mt, sm_m[g2]);
@@ -1347,7 +1457,603 @@ __device__ void attn_item(const Args& a, int l, int r, int hk, float* smem) {
       const float v = __fadd_rn(__fmul_rn(o, alpha), __fmul_rn(pn, ownv[e]));
       a.ctx[(size_t)r * nqd + (hk * g + rr) * D + e] = __fdiv_rn(v, lf);
     }
-    __syncthreads();
+    csync();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 weight stream: TMA boxes into a shared-memory ring, a producer
+// warpgroup, split contraction chunks combined in a fixed order
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 3;                    // ring stages
+constexpr int kStageRows = 16;                // stored rows a stage
+constexpr int kRowBytes = 1024;               // a tile's stored row
+constexpr int kStageBytes = kStageRows * kRowBytes;
+constexpr int kBoxCols = 256;                 // a box: 16 rows x 256 elements
+constexpr int kStagesPerItem = 8;             // an item: 128 stored rows
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kBarBytes = 256;                // full[kStages], empty[kStages]
+constexpr int kXsT = 16384;                   // staged inputs, fp32 (64 KB)
+constexpr int cmax(int x, int y) { return x > y ? x : y; }
+// the compute warps' floats: the staged inputs, overlapping the attention
+// and x . A layouts (a phase uses one), then the epilogue's tile, rstd and
+// the LoRA epilogue's floats
+constexpr int kUnionT =
+    cmax(kXsT, cmax(kMaxRB * kLoraChunk + kWarps * kMaxRB * kTileN,
+                    cmax(AttnSmem<64>::kFloats, AttnSmem<128>::kFloats)));
+constexpr int kOutT = kUnionT;
+constexpr int kRsT = kOutT + kMaxRB * kTileN;
+constexpr int kLsT = kRsT + kMaxRows;
+constexpr int kTmaSmemBytes = kRingBytes + kBarBytes + 4 * (kLsT + kLoraFloats);
+static_assert(kTmaSmemBytes <= 232448, "one block a SM: 227 KB");
+static_assert(2 * kStages * 8 <= kBarBytes, "the ring's barriers");
+static_assert(kMaxRB * 2 * kStagesPerItem * kStageRows <= kXsT,
+              "an item's inputs (int4: two rows a stored row) fit");
+
+// one tensor map a weight: [L, K, N] (packed int4: [L, K / 2, N]), boxes of
+// kStageRows stored rows x kBoxCols elements
+struct Maps {
+  CUtensorMap w[7];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+// wait until the barrier's phase with parity `parity` has completed; a
+// box that never lands (a schedule fault) traps after 4 s instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const unsigned long long t0 = now_ns();
+  while (!mbar_try(bar, parity))
+    if (now_ns() - t0 > 4000000000ull) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// box (c0 columns, c1 stored rows, c2 layer) of `map` into shared `dst`,
+// completing its bytes on barrier `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// One GEMV phase's work (the same arithmetic in the producer, the compute
+// warps, the launcher's scratch check and decode_step.py's gemv_plan).
+// Phase 0 q/k/v, 1 wo, 2 gate/up, 3 w_down (nm contraction segments, each
+// added to the residual in turn).  Each matrix is cut into tiles of `cols`
+// output columns, 1 KB of a stored row (512 bf16, 1024 int8 / int4; the
+// last tile ragged, its columns past N zero-filled by the TMA); the
+// contraction of each segment into chunks of 128 stored rows (`ci` rows:
+// 128, int4 256; the last of a segment may be short).  An item is (tile,
+// chunk), numbered tile-major; block b of a grid of G takes items b, b + G,
+// b + 2 G, ...  Nothing but the assignment depends on G.
+struct Geo {
+  int kind, cols, rps, K, kseg, ci, cps, nch, nmat, ntiles, items;
+  int which[3], N[3], t0[4];
+};
+
+__host__ __device__ inline Geo geo(const Args& a, int ph) {
+  Geo g;
+  const int nqd = a.nq * a.d, nkvd = a.nkv * a.d;
+  int nseg = 1;
+  if (ph == 0) {
+    g.kind = a.aq; g.K = a.h; g.nmat = 3;
+    g.which[0] = 0; g.N[0] = nqd;
+    g.which[1] = 1; g.N[1] = nkvd;
+    g.which[2] = 2; g.N[2] = nkvd;
+  } else if (ph == 1) {
+    g.kind = a.aq; g.K = nqd; g.nmat = 1;
+    g.which[0] = 3; g.N[0] = a.h;
+  } else if (ph == 2) {
+    g.kind = a.mq; g.K = a.h; g.nmat = 2;
+    g.which[0] = 4; g.N[0] = a.ffn;
+    g.which[1] = 5; g.N[1] = a.ffn;
+  } else {
+    g.kind = a.mq; g.K = a.ffn; g.nmat = 1;
+    g.which[0] = 6; g.N[0] = a.h;
+    nseg = a.nm;
+  }
+  g.cols = g.kind ? kRowBytes : kRowBytes / 2;
+  g.rps = g.kind == 4 ? 2 * kStageRows : kStageRows;   // logical rows
+  g.ci = kStagesPerItem * g.rps;
+  g.kseg = g.K / nseg;
+  g.cps = (g.kseg + g.ci - 1) / g.ci;
+  g.nch = nseg * g.cps;
+  g.t0[0] = 0;
+  for (int m = 0; m < g.nmat; ++m)
+    g.t0[m + 1] = g.t0[m] + (g.N[m] + g.cols - 1) / g.cols;
+  g.ntiles = g.t0[g.nmat];
+  g.items = g.ntiles * g.nch;
+  return g;
+}
+
+// item `it` of a phase: tile t (matrix m: weight `which`, N columns;
+// columns [n0, n0 + cols)), chunk c, contraction rows [k0, k1)
+struct Item {
+  int t, c, m, which, N, n0, k0, k1;
+};
+
+__device__ __forceinline__ Item item_of(const Geo& g, int it) {
+  Item i;
+  i.t = it / g.nch;
+  i.c = it - i.t * g.nch;
+  const int seg = i.c / g.cps, cc = i.c - seg * g.cps;
+  i.k0 = seg * g.kseg + cc * g.ci;
+  i.k1 = min(i.k0 + g.ci, (seg + 1) * g.kseg);
+  i.m = 0;
+  while (i.m + 1 < g.nmat && i.t >= g.t0[i.m + 1]) ++i.m;
+  i.which = g.which[i.m];
+  i.N = g.N[i.m];
+  i.n0 = (i.t - g.t0[i.m]) * g.cols;
+  return i;
+}
+
+// The producer warpgroup's one thread: every box of every item this block
+// will take, in the order the compute warps take them, across the phases, the
+// passes of 16 rows and the layers.  A stage is kRowBytes / (kBoxCols x
+// element) boxes side by side.  It waits only for a free stage, so it runs
+// ahead through the attention and LoRA phases and the grid barriers, none
+// of which reads a weight.
+__device__ void produce(const Args& a, const Maps& mp, uint32_t ring,
+                        uint32_t bars) {
+  // (the stage loop keeps what it reads in scalars: the barriers' asm
+  // clobbers memory, and a struct indexed at run time lives there)
+  int stage = 0;
+  uint32_t ph = 0;
+  const int L = a.L, rows = a.rows, G = gridDim.x;
+  for (int l = 0; l < L; ++l)
+    for (int p = 0; p < 4; ++p) {
+      const Geo g = geo(a, p);
+      const int kind = g.kind, items = g.items, rps = g.rps;
+      const int nb = kind ? kRowBytes / kBoxCols : kRowBytes / 2 / kBoxCols;
+      const int box_bytes = kStageBytes / nb;
+      for (int r0 = 0; r0 < rows; r0 += kMaxRB)
+        for (int it = blockIdx.x; it < items; it += G) {
+          const Item i = item_of(g, it);
+          const CUtensorMap* map = &mp.w[i.which];
+          const int n0 = i.n0, k1 = i.k1;
+          for (int s0 = i.k0; s0 < k1; s0 += rps) {
+            const uint32_t full = bars + 8 * stage;
+            mbar_wait(bars + 8 * (kStages + stage), ph ^ 1);
+            mbar_expect_tx(full, kStageBytes);
+            for (int b = 0; b < nb; ++b)
+              tma_load(ring + stage * kStageBytes + b * box_bytes, map,
+                       n0 + b * kBoxCols, kind == 4 ? s0 / 2 : s0, l, full);
+            if (++stage == kStages) {
+              stage = 0;
+              ph ^= 1;
+            }
+          }
+        }
+    }
+}
+
+// the compute warps' view of the ring: the next stage and its phase
+struct Ring {
+  uint32_t bars;
+  int stage;
+  uint32_t ph;
+  const unsigned char* base;
+};
+
+__device__ __forceinline__ float f4at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// One item's products on the CUDA cores (inlined, so that the ring and the
+// staged inputs are read as shared memory): each stage, as it lands, against
+// the staged inputs xs (rows at stride ldx, contraction index k at xs[k -
+// xbase]).  A thread owns E = 4 columns (8 bytes of a bf16 row, 4 of an
+// int8 or packed int4 row) of RG stored rows of each stage: lane = q + CW
+// g, chunk c = CW w + q of the tile's 1 KB row (a warp's lanes of one row
+// group read one contiguous run), row group g (rows g RG .. g RG + RG - 1;
+// bf16 two groups of 8 rows, int8 / int4 one of 16).  Each thread sums
+// each row r of the pass over its rows in order, in registers (4 RB
+// independent sums, 64 at 16 rows); at the item's end the row groups add
+// by a shuffle and the g = 0 lanes write the item's fp32 partials to
+// `gout` [nr rows at stride NT][cols].  Nothing of it depends on the row
+// count but the number of sums.  Weights widen exactly
+// (bf16 by a shift, int8 through 2^23 + byte, int4 as before: each nibble
+// times its group's scale, rounded to T); an int8 column scale comes after
+// the chunks are combined.
+template <typename T, int KIND, int RB>
+__device__ __forceinline__ void tma_item(const Args& a, const Geo& g,
+                                         const Item& it, int l, Ring& ring,
+                                         const float* xs, int ldx, int xbase,
+                                         float* gout, int NT, int nr) {
+  constexpr int E = 4;                        // columns a thread
+  constexpr int CB = KIND == 0 ? 2 * E : E;   // bytes of a thread's chunk
+  constexpr int NG = kThreads * CB / kRowBytes;   // row groups: 1-4
+  constexpr int CW = 32 / NG;                 // chunks a warp
+  constexpr int RG = kStageRows / NG;         // stored rows a group
+  constexpr int CPR = kBoxCols * (KIND == 0 ? 2 : 1) / CB;  // a box row
+  constexpr int BOX = kStageRows * CPR * CB;
+  constexpr int LR = KIND == 4 ? 2 * RG : RG; // logical rows a group
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q = lane % CW, grp = lane / CW;
+  const int c = warp * CW + q;
+  // byte offset of this thread's chunk in its group's first row
+  const int off = (c / CPR) * BOX + grp * RG * CPR * CB + (c % CPR) * CB;
+  float acc[RB][E];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.0f;
+  // the loop reads scalars only (the barriers' asm clobbers memory, and
+  // the structs the phase indexes at run time live there)
+  const int k0 = it.k0, k1 = it.k1, rps = g.rps, gsz = a.gsz;
+  const uint32_t bars = ring.bars;
+  const unsigned char* base = ring.base;
+  int stage = ring.stage;
+  uint32_t ph = ring.ph;
+  // int4: this thread's group scales, [L, K / gsz, N] (a ragged tile's
+  // columns past N read none: their codes are zero-filled)
+  const int N = it.N;
+  const int col = it.n0 + E * c;
+  const float* sc = nullptr;
+  if constexpr (KIND == 4)
+    sc = a.ws[it.which] + (size_t)l * (g.K / gsz) * N + col;
+  for (int s0 = k0; s0 < k1; s0 += rps) {
+#ifdef DECODE_STEP_STAMPS
+    const unsigned long long tw = threadIdx.x == 0 ? now_ns() : 0;
+#endif
+    mbar_wait(bars + 8 * stage, ph);
+#ifdef DECODE_STEP_STAMPS
+    if (threadIdx.x == 0 && blockIdx.x < kStampGrid)
+      g_box_wait[blockIdx.x] += now_ns() - tw;
+#endif
+    const unsigned char* wp = base + stage * kStageBytes + off;
+    // (an item's bounds are whole multiples of 32 rows: every row of each
+    // of its stages is live)
+    const float* xw = xs + (s0 + grp * LR - xbase);
+    // the words of this thread's chunk of its RG rows
+    using Chunk = typename std::conditional<CB == 8, uint2, unsigned>::type;
+    Chunk wv[RG];
+#pragma unroll
+    for (int i = 0; i < RG; ++i)
+      wv[i] = *reinterpret_cast<const Chunk*>(wp + i * CPR * CB);
+    if constexpr (KIND != 4) {
+#pragma unroll
+      for (int i4 = 0; i4 < RG / 4; ++i4) {
+        float4 xv[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          xv[r] = *reinterpret_cast<const float4*>(xw + r * ldx + 4 * i4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          unsigned u[CB / 4];
+          memcpy(u, &wv[4 * i4 + i], CB);
+          float wf[E];
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            if constexpr (KIND == 0)
+              wf[e] = __uint_as_float(e & 1 ? u[e >> 1] & 0xffff0000u
+                                            : u[e >> 1] << 16);
+            else                                    // 2^23 + (byte + 128)
+              wf[e] = __uint_as_float(__byte_perm(u[e >> 2] ^ 0x80808080u,
+                                                  0x4B000000u,
+                                                  0x7650u + (e & 3)))
+                      - 8388736.0f;
+          }
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const float x = f4at(xv[r], i);
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[r][e] = fmaf(x, wf[e], acc[r][e]);
+          }
+        }
+      }
+    } else {
+      int gcur = -1;
+      float se[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) se[e] = 0.0f;
+#pragma unroll
+      for (int i4 = 0; i4 < RG / 2; ++i4) {       // 2 packed rows each
+        float4 xv[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          xv[r] = *reinterpret_cast<const float4*>(xw + r * ldx + 4 * i4);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int gi = (s0 + grp * LR + 4 * i4 + 2 * i) / gsz;
+          if (gi != gcur) {
+            gcur = gi;
+            if (col < N) {
+              const float4* sp =
+                  reinterpret_cast<const float4*>(sc + (size_t)gi * N);
+#pragma unroll
+              for (int e4 = 0; e4 < E / 4; ++e4) {
+                const float4 v = __ldg(sp + e4);
+                se[4 * e4] = v.x; se[4 * e4 + 1] = v.y;
+                se[4 * e4 + 2] = v.z; se[4 * e4 + 3] = v.w;
+              }
+            }
+          }
+          unsigned u[CB / 4];
+          memcpy(u, &wv[2 * i4 + i], CB);
+          float lo[E], hi[E];
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const int p = (int)(signed char)((u[e >> 2] >> (8 * (e & 3)))
+                                             & 0xffu);
+            const int nl = (int)((unsigned)p << 28) >> 28;
+            const int nh = (int)((unsigned)p << 24) >> 28;
+            lo[e] = round_to<T>(__fmul_rn((float)nl, se[e]));
+            hi[e] = round_to<T>(__fmul_rn((float)nh, se[e]));
+          }
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const float x0 = f4at(xv[r], 2 * i);
+            const float x1 = f4at(xv[r], 2 * i + 1);
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              acc[r][e] = fmaf(x0, lo[e], acc[r][e]);
+              acc[r][e] = fmaf(x1, hi[e], acc[r][e]);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + stage));
+    if (++stage == kStages) {
+      stage = 0;
+      ph ^= 1;
+    }
+  }
+  ring.stage = stage;
+  ring.ph = ph;
+  // the row groups' sums: a fixed shuffle tree over the lanes' group bits
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float v = acc[r][e];
+#pragma unroll
+      for (int m = CW; m < 32; m <<= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+      acc[r][e] = v;
+    }
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      if (r < nr) {
+        float4* o = reinterpret_cast<float4*>(gout + (size_t)r * NT + E * c);
+#pragma unroll
+        for (int e4 = 0; e4 < E / 4; ++e4)
+          o[e4] = make_float4(acc[r][4 * e4], acc[r][4 * e4 + 1],
+                              acc[r][4 * e4 + 2], acc[r][4 * e4 + 3]);
+      }
+  }
+}
+
+template <typename T, int KIND>
+__device__ __forceinline__ void tma_item_k(int rb, const Args& a,
+                                           const Geo& g, const Item& it,
+                                           int l, Ring& ring, const float* xs,
+                                           int ldx, int xbase, float* gout,
+                                           int NT, int nr) {
+  switch (rb) {
+    case 1: tma_item<T, KIND, 1>(a, g, it, l, ring, xs, ldx, xbase, gout, NT,
+                                 nr); break;
+    case 2: tma_item<T, KIND, 2>(a, g, it, l, ring, xs, ldx, xbase, gout, NT,
+                                 nr); break;
+    case 4: tma_item<T, KIND, 4>(a, g, it, l, ring, xs, ldx, xbase, gout, NT,
+                                 nr); break;
+    case 8: tma_item<T, KIND, 8>(a, g, it, l, ring, xs, ldx, xbase, gout, NT,
+                                 nr); break;
+    default: tma_item<T, KIND, 16>(a, g, it, l, ring, xs, ldx, xbase, gout,
+                                   NT, nr);
+  }
+}
+
+// out[r * 32 + c] = the sum, in chunk order, of chunks [c0, c1) of the
+// partials p (chunk stride cstr, row stride NT) at column j + c, the loads
+// of 32 chunks issued together
+__device__ __noinline__ void chunk_sum(const float* p, size_t cstr, int NT,
+                                       int j, int c0, int c1, int nr,
+                                       float* out) {
+  constexpr int B = 32;
+  for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+    const float* pp = p + (size_t)(idx >> 5) * NT + j + (idx & 31);
+    float s = 0.0f;
+    for (int b0 = c0; b0 < c1; b0 += B) {
+      float pv[B];
+#pragma unroll
+      for (int e = 0; e < B; ++e)
+        pv[e] = b0 + e < c1 ? __ldcg(pp + (size_t)(b0 + e) * cstr) : 0.0f;
+#pragma unroll
+      for (int e = 0; e < B; ++e)
+        if (b0 + e < c1) s = b0 + e == c0 ? pv[e] : __fadd_rn(s, pv[e]);
+    }
+    out[idx] = s;
+  }
+  csync();
+}
+
+// Every chunk of tile `it.t` is in: add the chunks of its 32 columns [j, j
+// + 32) in chunk order and run the phase's epilogue on them (the fp32
+// body's, after its GEMV): q/k/v the int8 scale, the LoRA delta and RoPE;
+// wo the scale, the delta and the residual; gate/up the scale and the
+// delta; w_down each segment's sum times the scale added to the residual
+// in turn, then the delta once.
+template <typename T>
+__device__ void tma_epilogue(const Args& a, const Geo& g, const Item& it,
+                             int ph, int l, bool lora, int r0, int nr, int j,
+                             float* cs) {
+  float* tile = cs + kOutT;
+  float* ls = cs + kLsT;
+  const int which = it.which, N = it.N;
+  const int h = a.h, d = a.d, nqd = a.nq * a.d;
+  const int n = it.n0 + j;                      // column in the matrix
+  const Mat m = layer_mat<T>(a, which, l, g.K, N);
+  const int NT = g.ntiles * g.cols;
+  const size_t cstr = (size_t)a.rows * NT;
+  const float* p0 = a.gpart + (size_t)r0 * NT + it.t * g.cols;
+  if (ph == 3) {
+    for (int seg = 0; seg < a.nm; ++seg) {
+      chunk_sum(p0, cstr, NT, j, seg * g.cps, (seg + 1) * g.cps, nr, tile);
+      add_to_residual(a, m, r0, nr, n, tile, nullptr);
+    }
+    const float* dl = lora_tile(a, lora, 6, l, a.ffn, h, r0, nr, n, ls);
+    if (dl) {
+      for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+        float* rp = a.res + (size_t)(r0 + (idx >> 5)) * h + n + (idx & 31);
+        *rp = lora_add(dl, idx, __ldcg(rp));
+      }
+      csync();
+    }
+    return;
+  }
+  chunk_sum(p0, cstr, NT, j, 0, g.nch, nr, tile);
+  if (ph == 1) {
+    add_to_residual(a, m, r0, nr, n, tile,
+                    lora_tile(a, lora, 3, l, nqd, h, r0, nr, n, ls));
+    return;
+  }
+  const float* dl = lora_tile(a, lora, which, l, g.K, N, r0, nr, n, ls);
+  if (ph == 2) {
+    float* dst = which == 4 ? a.gate : a.up;
+    for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+      float y = tile[idx];
+      if (m.kind == 8) y = __fmul_rn(y, m.s[n + (idx & 31)]);
+      dst[(size_t)(r0 + (idx >> 5)) * N + n + (idx & 31)] =
+          lora_add(dl, idx, y);
+    }
+    csync();
+    return;
+  }
+  for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+    float y = tile[idx];
+    if (m.kind == 8) y = __fmul_rn(y, m.s[n + (idx & 31)]);
+    tile[idx] = lora_add(dl, idx, y);
+  }
+  csync();
+  float* dst = which == 0 ? a.q : which == 1 ? a.kn : a.vn;
+  for (int idx = threadIdx.x; idx < nr * kTileN; idx += kThreads) {
+    const int r = r0 + (idx >> 5), c = n + (idx & 31);
+    float y = tile[idx];
+    if (which != 2) {                           // y * C + swap(y) * S
+      const int dc = c % d;
+      y = __fadd_rn(__fmul_rn(y, a.c_rows[(size_t)r * d + dc]),
+                    __fmul_rn(tile[idx ^ 1], a.s_rows[(size_t)r * d + dc]));
+    }
+    dst[(size_t)r * N + c] = y;
+  }
+  csync();
+}
+
+// One GEMV phase on the compute warps: for each pass of up to 16 rows,
+// the block's items in order; the inputs staged whole when the pass's rows
+// x K fit kXsT floats, else each item's chunk; each item's partials go to
+// scratch.  A grid barrier, then ``tma_combine``, finishes the phase.
+template <typename T>
+__device__ __forceinline__ void tma_phase(const Args& a, int ph, int l,
+                                          Ring& ring, float* cs) {
+  const Geo g = geo(a, ph);
+  const int G = gridDim.x;
+  if ((int)blockIdx.x >= g.items) return;
+  float* rs = cs + kRsT;
+  Src src;
+  if (ph == 0 || ph == 2) {
+    row_rstd(a.res, a.rows, a.h, a.eps, rs);
+    src = Src{0, a.res, nullptr,
+              static_cast<const T*>(ph == 0 ? a.nw1 : a.nw2)
+                  + (size_t)l * a.h,
+              rs, a.h, 0};
+  } else if (ph == 1) {
+    src = Src{1, a.ctx, nullptr, nullptr, nullptr, a.nq * a.d, 0};
+  } else {
+    src = Src{2, a.gate, a.up, nullptr, nullptr, a.ffn, a.act};
+  }
+  const int NT = g.ntiles * g.cols;
+  for (int r0 = 0; r0 < a.rows; r0 += kMaxRB) {
+    const int nr = min(kMaxRB, a.rows - r0), rb = rb_of(nr);
+    const bool whole = rb * g.K <= kXsT;
+    int s_lo = -1, s_hi = -1;                   // contraction rows staged
+    for (int it = blockIdx.x; it < g.items; it += G) {
+      const Item i = item_of(g, it);
+      unsigned long long ts = stamp_add(l, stamp_of(ph), 4, 0);
+      if (i.k0 < s_lo || i.k1 > s_hi) {
+        s_lo = whole ? 0 : i.k0;
+        s_hi = whole ? g.K : i.k1;
+        csync();
+        stage<T>(src, r0, nr, rb, s_lo, s_hi - s_lo, s_hi - s_lo, cs);
+        csync();
+      }
+      ts = stamp_add(l, stamp_of(ph), 4, ts);
+      float* gout = a.gpart + ((size_t)i.c * a.rows + r0) * NT + i.t * g.cols;
+      if (g.kind == 8)
+        tma_item_k<T, 8>(rb, a, g, i, l, ring, cs, s_hi - s_lo, s_lo, gout,
+                         NT, nr);
+      else if (g.kind == 4)
+        tma_item_k<T, 4>(rb, a, g, i, l, ring, cs, s_hi - s_lo, s_lo, gout,
+                         NT, nr);
+      else
+        tma_item_k<T, 0>(rb, a, g, i, l, ring, cs, s_hi - s_lo, s_lo, gout,
+                         NT, nr);
+#ifdef DECODE_STEP_STAMPS
+      if (threadIdx.x == 0 && g_stamps && blockIdx.x < kStampGrid) {
+        *stamp_at(l, stamp_of(ph), 3) += g_box_wait[blockIdx.x];
+        ts += g_box_wait[blockIdx.x];
+        g_box_wait[blockIdx.x] = 0;
+      }
+#endif
+      stamp_add(l, stamp_of(ph), 5, ts);
+    }
+  }
+}
+
+// The end of a GEMV phase, after a grid barrier: every (pass, tile, 32
+// output columns) unit of the phase, dealt round robin over the blocks,
+// adds its chunks' partials in chunk order and runs the phase's epilogue
+// (``tma_epilogue``).
+template <typename T>
+__device__ __forceinline__ void tma_combine(const Args& a, int ph, int l,
+                                            bool lora, float* cs) {
+  const Geo g = geo(a, ph);
+  const int sub = g.cols / kTileN;              // units a tile
+  const int passes = (a.rows + kMaxRB - 1) / kMaxRB;
+  for (int u = blockIdx.x; u < passes * g.ntiles * sub; u += gridDim.x) {
+    const int pass = u / (g.ntiles * sub), rem = u - pass * g.ntiles * sub;
+    const Item i = item_of(g, rem / sub * g.nch);
+    const int j = (rem % sub) * kTileN;
+    if (i.n0 + j >= i.N) continue;              // past a ragged tile's edge
+    const int r0 = pass * kMaxRB;
+    tma_epilogue<T>(a, g, i, ph, l, lora, r0, min(kMaxRB, a.rows - r0), j,
+                    cs);
   }
 }
 
@@ -1378,17 +2084,61 @@ constexpr int kSmemFloats =
         : AttnSmem<64>::kFloats;
 constexpr int kSmemBytes = kSmemFloats * 4;
 
+// threads and shared memory of an instantiation: the bf16 kernel has the
+// 8 compute warps and a producer warpgroup (its first warp's first thread
+// issues every load; registers move from it to the compute warps), and
+// the ring
+constexpr int kProducerRegs = 40, kComputeRegs = 232;
+static_assert(kThreads * kComputeRegs + 128 * kProducerRegs <= 65536,
+              "the register file of a SM");
+template <typename T>
+constexpr int kBlockOf = sizeof(T) == 2 ? kThreads + 128 : kThreads;
+template <typename T>
+constexpr int kSmemOf = sizeof(T) == 2 ? kTmaSmemBytes : kSmemBytes;
+
 template <typename T, typename C>
-__global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+__global__ void __launch_bounds__(kBlockOf<T>, 1)
+    decode_step_kernel(const Args a, const __grid_constant__ Maps mp) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  constexpr bool kTma = sizeof(T) == 2;
+  float* smem;                                  // the compute warps' floats
+  float* ls;                                    // the LoRA epilogue's
+  float* rs;                                    // rstd of every row
+  Ring ring{0u, 0, 0u, smem_raw};
+  if constexpr (kTma) {
+    const uint32_t ring_at = smem_u32(smem_raw);
+    const uint32_t bars = ring_at + kRingBytes;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(bars + 8 * s, 1);                     // full: the producer
+        mbar_init(bars + 8 * (kStages + s), kWarps);    // empty: each warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x >= kThreads) {              // the producer warpgroup
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
+                   :: "n"(kProducerRegs));
+      if (threadIdx.x == kThreads) produce(a, mp, ring_at, bars);
+      return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kComputeRegs));
+    ring.bars = bars;
+    smem = reinterpret_cast<float*>(smem_raw + kRingBytes + kBarBytes);
+    ls = smem + kLsT;
+    rs = smem + kRsT;
+  } else {
+    smem = reinterpret_cast<float*>(smem_raw);
+    ls = smem + kLs;
+    rs = smem + kRs;
+  }
   unsigned target = 0;
   const int nthr = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   for (int i = first; i < a.rows * a.h; i += nthr)
     a.res[i] = ld1<T>(static_cast<const T*>(a.x) + i);
   // LoRA: the arena tiles some row selects (none: no LoRA phase at all)
-  const unsigned used = a.lsr ? lora_tiles(a, smem) : 0u;
+  const unsigned used = a.lsr ? lora_tiles(a, smem, ls) : 0u;
   const bool lora = used != 0u;
   const bool lq = lora && (a.la[0] || a.la[1] || a.la[2]);
   const bool lo = lora && a.la[3];
@@ -1396,83 +2146,177 @@ __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Args a) 
   const bool ld = lora && a.la[6];
   const int nwb = sizeof(T) == 2;
   grid_sync(a.bar, target);
+  // the end of phase ph of layer l: its stamps around the grid barrier
+  auto done = [&](int l, int ph) {
+    stamp(l, ph, 1);
+    grid_sync(a.bar, target);
+    stamp(l, ph, 2);
+  };
+  // GEMV phase p (0 q/k/v, 1 wo, 2 gate/up, 3 w_down) of layer l: the
+  // bf16 body streams its items, then after a grid barrier combines them
+  auto gemv_phase = [&](int p, int l, bool lor) {
+    if constexpr (kTma) {
+      tma_phase<T>(a, p, l, ring, smem);
+      unsigned long long ts = stamp_add(l, stamp_of(p), 6, 0);
+      grid_sync(a.bar, target);
+      ts = stamp_add(l, stamp_of(p), 6, ts);
+      tma_combine<T>(a, p, l, lor, smem);
+      stamp_add(l, stamp_of(p), 7, ts);
+    } else {
+      if (p == 0) phase_qkv<T>(a, l, lor, smem);
+      else if (p == 1) phase_wo<T>(a, l, lor, smem);
+      else if (p == 2) phase_gateup<T>(a, l, lor, smem);
+      else phase_down<T>(a, l, lor, smem);
+    }
+  };
   for (int l = 0; l < a.L; ++l) {
     const size_t lh = (size_t)l * a.h;
     if (lq) {
-      row_rstd(a.res, a.rows, a.h, a.eps, smem + kRs);
+      stamp(l, 0, 0);
+      row_rstd(a.res, a.rows, a.h, a.eps, rs);
       lora_xa_phase(a, l, 0, 3, a.h,
                     LSrc{0, a.res, nullptr, static_cast<const T*>(a.nw1) + lh,
-                         nwb, smem + kRs, a.h, 0}, used, smem);
-      grid_sync(a.bar, target);
+                         nwb, rs, a.h, 0}, used, smem);
+      done(l, 0);
     }
-    phase_qkv<T>(a, l, lq, smem);
-    grid_sync(a.bar, target);
+    stamp(l, 1, 0);
+    gemv_phase(0, l, lq);
+    done(l, 1);
+    stamp(l, 2, 0);
     for (int it = blockIdx.x; it < a.rows * a.nkv; it += gridDim.x)
       attend<C>(a, l, it / a.nkv, it % a.nkv, smem);
-    grid_sync(a.bar, target);
+    done(l, 2);
     if (lo) {
+      stamp(l, 3, 0);
       lora_xa_phase(a, l, 3, 4, a.nq * a.d,
                     LSrc{1, a.ctx, nullptr, nullptr, 0, nullptr,
                          a.nq * a.d, 0}, used, smem);
-      grid_sync(a.bar, target);
+      done(l, 3);
     }
-    phase_wo<T>(a, l, lo, smem);
-    grid_sync(a.bar, target);
+    stamp(l, 4, 0);
+    gemv_phase(1, l, lo);
+    done(l, 4);
     if (lgu) {
-      row_rstd(a.res, a.rows, a.h, a.eps, smem + kRs);
+      stamp(l, 5, 0);
+      row_rstd(a.res, a.rows, a.h, a.eps, rs);
       lora_xa_phase(a, l, 4, 6, a.h,
                     LSrc{0, a.res, nullptr, static_cast<const T*>(a.nw2) + lh,
-                         nwb, smem + kRs, a.h, 0}, used, smem);
-      grid_sync(a.bar, target);
+                         nwb, rs, a.h, 0}, used, smem);
+      done(l, 5);
     }
-    phase_gateup<T>(a, l, lgu, smem);
-    grid_sync(a.bar, target);
+    stamp(l, 6, 0);
+    gemv_phase(2, l, lgu);
+    done(l, 6);
     if (ld) {
+      stamp(l, 7, 0);
       lora_xa_phase(a, l, 6, 7, a.ffn,
                     LSrc{2, a.gate, a.up, nullptr, 0, nullptr, a.ffn, a.act},
                     used, smem);
-      grid_sync(a.bar, target);
+      done(l, 7);
     }
-    phase_down<T>(a, l, ld, smem);
-    grid_sync(a.bar, target);
+    stamp(l, 8, 0);
+    gemv_phase(3, l, ld);
+    done(l, 8);
   }
   for (int i = first; i < a.rows * a.h; i += nthr)
     st1<T>(static_cast<T*>(a.hidden) + i, __ldcg(a.res + i));
 }
 
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// build links no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The seven weights' tensor maps ([L, K, N], int4 [L, K / 2, N]; boxes of
+// kStageRows stored rows x kBoxCols elements, zero fill past the edges); 0
+// or a cudaError_t.
+int make_maps(const Args& a, Maps* mp) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &q);
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const int nqd = a.nq * a.d, nkvd = a.nkv * a.d;
+  const int K[7] = {a.h, a.h, a.h, nqd, a.h, a.h, a.ffn};
+  const int N[7] = {nqd, nkvd, nkvd, a.h, a.ffn, a.ffn, a.h};
+  for (int w = 0; w < 7; ++w) {
+    const int kind = w < 4 ? a.aq : a.mq;
+    const cuuint64_t es = kind ? 1 : 2;
+    const cuuint64_t ks = kind == 4 ? K[w] / 2 : K[w];
+    if (reinterpret_cast<uintptr_t>(a.w[w]) % 16) return cudaErrorInvalidValue;
+    const cuuint64_t dim[3] = {(cuuint64_t)N[w], ks, (cuuint64_t)a.L};
+    const cuuint64_t stride[2] = {N[w] * es, ks * N[w] * es};
+    const cuuint32_t box[3] = {kBoxCols, kStageRows, 1};
+    const cuuint32_t step[3] = {1, 1, 1};
+    if (encode(&mp->w[w],
+               kind ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+               3, const_cast<void*>(a.w[w]), dim, stride, box, step,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
 template <typename T, typename C>
-int launch(const Args* a, cudaStream_t stream) {
+int launch(const Args* args, cudaStream_t stream) {
   auto kern = decode_step_kernel<T, C>;
+  constexpr int threads = kBlockOf<T>, bytes = kSmemOf<T>;
   static int per_sm = -1;  // blocks per SM, found once per instantiation
   cudaError_t err;
   if (per_sm < 0) {
     err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
+                               bytes);
     if (err != cudaSuccess) return err;
     int n = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads,
-                                                        kSmemBytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
+                                                        bytes);
     if (err != cudaSuccess) return err;
     per_sm = n;
   }
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  Args a = *args;
+  Maps mp = {};
+  if (sizeof(T) == 2) {
+    // the split-contraction partials
+    long long need = 0;
+    for (int p = 0; p < 4; ++p) {
+      const Geo g = geo(a, p);
+      const long long n = (long long)g.nch * a.rows * g.ntiles * g.cols;
+      need = n > need ? n : need;
+    }
+    if (!a.gpart || a.gcap < need) return cudaErrorInvalidValue;
+    const int bad = make_maps(a, &mp);
+    if (bad) return bad;
+  }
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaMemsetAsync(a->bar, 0, sizeof(unsigned), stream);
+  err = cudaMemsetAsync(a.bar, 0, sizeof(unsigned), stream);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(per_sm * sms);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, *a);
+  err = cudaLaunchKernelEx(&cfg, kern, a, mp);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1507,13 +2351,24 @@ static int check_tree(const Args* a, cudaStream_t stream) {
   return 0;
 }
 
+#ifdef DECODE_STEP_STAMPS
+// Probe builds only: point the kernel's stamps at `buf` (device memory of
+// L x kStampPhases x kStampGrid x 3 u64; null: none).  0 or a cudaError_t.
+extern "C" int decode_step_stamps(void* buf) {
+  return cudaMemcpyToSymbol(g_stamps, &buf, sizeof(buf));
+}
+#endif
+
 // The C interface: ``args`` points at one Args describing the call (every
 // pointer a contiguous CUDA buffer), dtype 0 fp32 / 1 bf16 for x, weights
 // and norms, int8_cache 0 for a cache in x's dtype, 1 for the int8 form.
-// Returns the launch's cudaError_t (0 = launched; cudaErrorInvalidValue
-// for arguments out of the kernel's limits or a tree it does not take).
+// fp32 runs the CUDA-core body, bf16 the TMA weight stream; *body is set to
+// the body that was launched (kBodySimt or kBodyTma), and left as it is
+// when nothing was.  Returns the launch's cudaError_t (0 = launched;
+// cudaErrorInvalidValue for arguments out of the kernel's limits, scratch
+// too small, or a tree it does not take).
 extern "C" int decode_step_launch(const void* args, int dtype,
-                                  int int8_cache, void* stream) {
+                                  int int8_cache, void* stream, int* body) {
   const Args* a = static_cast<const Args*>(args);
   const int g = a->nkv > 0 ? a->nq / a->nkv : 0;
   if ((a->d != 64 && a->d != 128) || a->nkv <= 0 || a->nq % a->nkv
@@ -1536,9 +2391,13 @@ extern "C" int decode_step_launch(const void* args, int dtype,
   const int tree_err = check_tree(a, s);
   if (tree_err) return tree_err;
   if (dtype == kFloat32)
-    return int8_cache ? launch<float, int8_t>(a, s) : launch<float, float>(a, s);
+    return ran((cudaError_t)(int8_cache ? launch<float, int8_t>(a, s)
+                                        : launch<float, float>(a, s)),
+               kBodySimt, body);
   if (dtype == kBFloat16)
-    return int8_cache ? launch<__nv_bfloat16, int8_t>(a, s)
-                      : launch<__nv_bfloat16, __nv_bfloat16>(a, s);
+    return ran((cudaError_t)(int8_cache
+                                 ? launch<__nv_bfloat16, int8_t>(a, s)
+                                 : launch<__nv_bfloat16, __nv_bfloat16>(a, s)),
+               kBodyTma, body);
   return cudaErrorInvalidValue;
 }

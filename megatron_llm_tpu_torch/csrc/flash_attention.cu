@@ -563,13 +563,15 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 // q [b, sq, hq, d], k/v [b, sk, hk, d], seg int32 [b, sk] or null (requires
 // sq == sk), out [b, sq, hq, d] in q's dtype, lse fp32 [b, hq, sq]; all
 // contiguous.  fp32 runs the CUDA-core body, bf16 and fp16 the tensor-core
-// body.  Returns the launch's cudaError_t (0 = launched).
+// body; *body is set to the body that was launched (kBodySimt or kBodyMma),
+// and left as it is when nothing was.  Returns the launch's cudaError_t (0
+// = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* seg,
                                       void* out, void* lse, int b, int sq,
                                       int sk, int hq, int hk, int d,
                                       float scale, int causal, int dtype,
-                                      void* stream) {
+                                      void* stream, int* body) {
   if (b <= 0 || sq <= 0 || sk <= 0 || hk <= 0 || hq % hk != 0)
     return cudaErrorInvalidValue;
   if (seg != nullptr && sq != sk) return cudaErrorInvalidValue;
@@ -578,13 +580,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   float* ls = static_cast<float*>(lse);
 #define FWD_ARGS q, k, v, sg, out, ls, b, sq, sk, hq, hk, scale, causal, s
   switch (dtype * 1000 + d) {
-    case kFloat32 * 1000 + 64: return launch_simt<64>(FWD_ARGS);
-    case kFloat32 * 1000 + 128: return launch_simt<128>(FWD_ARGS);
-    case kBFloat16 * 1000 + 64: return launch_mma<__nv_bfloat16, 64>(FWD_ARGS);
+    case kFloat32 * 1000 + 64:
+      return ran(launch_simt<64>(FWD_ARGS), kBodySimt, body);
+    case kFloat32 * 1000 + 128:
+      return ran(launch_simt<128>(FWD_ARGS), kBodySimt, body);
+    case kBFloat16 * 1000 + 64:
+      return ran(launch_mma<__nv_bfloat16, 64>(FWD_ARGS), kBodyMma, body);
     case kBFloat16 * 1000 + 128:
-      return launch_mma<__nv_bfloat16, 128>(FWD_ARGS);
-    case kFloat16 * 1000 + 64: return launch_mma<__half, 64>(FWD_ARGS);
-    case kFloat16 * 1000 + 128: return launch_mma<__half, 128>(FWD_ARGS);
+      return ran(launch_mma<__nv_bfloat16, 128>(FWD_ARGS), kBodyMma, body);
+    case kFloat16 * 1000 + 64:
+      return ran(launch_mma<__half, 64>(FWD_ARGS), kBodyMma, body);
+    case kFloat16 * 1000 + 128:
+      return ran(launch_mma<__half, 128>(FWD_ARGS), kBodyMma, body);
   }
 #undef FWD_ARGS
   return cudaErrorInvalidValue;

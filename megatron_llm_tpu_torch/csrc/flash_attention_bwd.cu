@@ -909,15 +909,6 @@ bool bad_shape(int b, int sq, int sk, int hq, int hk, const void* seg) {
          (seg != nullptr && sq != sk);
 }
 
-// the body a launcher ran, reported through its `body` argument
-constexpr int kBodySimt = 0;  // CUDA cores (fp32)
-constexpr int kBodyMma = 1;   // tensor cores (bf16 / fp16)
-
-int ran(cudaError_t err, int which, int* body) {
-  if (err == cudaSuccess) *body = which;
-  return err;
-}
-
 }  // namespace
 
 // q / dout [b, sq, hq, d], k / v [b, sk, hk, d], lse and delta fp32

@@ -14,9 +14,12 @@
 
 Each wrapper counts its launches in a ``launches`` attribute; the fused
 decode step's wrappers count their launches with a LoRA arena apart, in
-``<wrapper>.lora.launches``, and the flash-attention forward, dQ and dK/dV
+``<wrapper>.lora.launches``, and their launches of the TMA weight-stream
+body (bf16) in ``<wrapper>.tma_launches`` and
+``<wrapper>.lora.tma_launches``; the flash-attention forward, dQ and dK/dV
 wrappers their launches of the tensor-core body (bf16 / fp16 inputs) in
-``<wrapper>.mma_launches``.
+``<wrapper>.mma_launches``.  Each body count follows the C launcher's own
+report of the body it ran.
 """
 
 
@@ -40,8 +43,9 @@ def launch_counters() -> dict:
     """``{kernel name: counter}`` of every kernel wrapper's launch counter
     (read and reset through ``counter.launches``): the wrappers
     themselves, ``<name>_lora`` for the fused decode step's launches with a
-    LoRA arena, and ``<name>_mma`` for the flash-attention forward's, dQ's
-    and dK/dV's launches of their tensor-core bodies."""
+    LoRA arena, ``<name>_tma`` and ``<name>_lora_tma`` for its launches of
+    the TMA body, and ``<name>_mma`` for the flash-attention forward's,
+    dQ's and dK/dV's launches of their tensor-core bodies."""
     from .decode_step import (
         fused_decode_step,
         fused_decode_step_paged,
@@ -92,4 +96,9 @@ def launch_counters() -> dict:
             "fused_decode_step_paged_lora": fused_decode_step_paged.lora,
             "fused_decode_verify_paged_lora": fused_decode_verify_paged.lora,
             "fused_decode_verify_tree_paged_lora":
-                fused_decode_verify_tree_paged.lora}
+                fused_decode_verify_tree_paged.lora,
+            **{f"{fn.__name__}{sfx}_tma": _AttrCounter(c, "tma_launches")
+               for fn in (fused_decode_step, fused_decode_step_paged,
+                          fused_decode_verify_paged,
+                          fused_decode_verify_tree_paged)
+               for sfx, c in (("", fn), ("_lora", fn.lora))}}

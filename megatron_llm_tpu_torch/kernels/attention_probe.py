@@ -122,7 +122,7 @@ def main() -> int:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd8 = ctypes.CDLL(str(PROBE_DIR / "flash_attention_w8.so")
                        ).flash_attention_launch
-    fwd8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, Fl, I, I, P]
+    fwd8.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, Fl, I, I, P, P]
     fwd8.restype = I
 
     def k1_w8(q, k, v):
@@ -132,7 +132,8 @@ def main() -> int:
         build.check(fwd8(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
                          o.data_ptr(), lse.data_ptr(), b, sq, k.shape[1],
                          hq, k.shape[2], d, float(d ** -0.5), 1, 1,
-                         torch.cuda.current_stream().cuda_stream), "w8")
+                         torch.cuda.current_stream().cuda_stream,
+                         ctypes.byref(ctypes.c_int(-1))), "w8")
         return o, lse
 
     dev = torch.device("cuda", 0)

@@ -8,7 +8,8 @@ into ``<repo>/build/kernels/<name>-<hash>.so`` for ``sm_90a``::
 
 The hash covers the source and the flags, so an edited kernel rebuilds
 and an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per
-source at once; ``load`` builds (if needed) and opens one library.
+source at once (and records each one's seconds); ``load`` builds (if
+needed) and opens one library.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -53,35 +55,61 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for one source; None when the library is current."""
-    out = _target(name)
+# seconds each nvcc of the last ``build_all`` took, by name (its own wall
+# time: the builds run in parallel)
+NVCC_SECONDS: dict = {}
+
+
+def _start(name: str, src=None, out=None, flags=()):
+    """Start ``nvcc`` for one source (``csrc/<name>.cu``, or ``src`` into
+    ``out`` with extra ``flags``); None when the library is current."""
+    out = _target(name) if out is None else out
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    log = open(out.with_suffix(f".{os.getpid()}.log"), "w+")
+    src = CSRC / f"{name}.cu" if src is None else src
+    cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out, log, time.perf_counter()
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started) -> str:
+    """Wait for ``_start``'s nvcc; its output."""
     if started is None:
-        return
-    proc, tmp, out = started
-    log, _ = proc.communicate()
+        return ""
+    proc, tmp, out, log, t0 = started
+    proc.wait()
+    NVCC_SECONDS.setdefault(name, time.perf_counter() - t0)
+    log.seek(0)
+    text = log.read()
+    log.close()
+    os.unlink(log.name)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed on {name}:\n{text}")
     os.replace(tmp, out)
+    return text
 
 
-def build_all(names=SOURCES) -> None:
-    """Compile every listed source in parallel (one nvcc each)."""
+def build_all(names=SOURCES, extra=()) -> dict:
+    """Compile every listed source in parallel (one nvcc each), and beside
+    them each ``(name, src, out, flags)`` of ``extra`` (a probe's variant
+    of a source); ``{name: nvcc output}``.  Each build's own seconds go to
+    ``NVCC_SECONDS``."""
     with _lock:
+        NVCC_SECONDS.clear()
         started = {n: _start(n) for n in names}
-        for n, s in started.items():
-            _finish(n, s)
+        started.update({e[0]: _start(*e) for e in extra})
+        pending = {n: s for n, s in started.items() if s is not None}
+        while pending:
+            for n, s in list(pending.items()):
+                if s[0].poll() is not None:
+                    NVCC_SECONDS[n] = time.perf_counter() - s[4]
+                    del pending[n]
+            time.sleep(0.2)
+        return {n: _finish(n, s) for n, s in started.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

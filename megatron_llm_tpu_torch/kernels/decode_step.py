@@ -17,8 +17,11 @@ Replaces the TPU kernels of ``megatron_llm_tpu/kernels/decode_step.py``:
 
 All of them run ``csrc/decode_step.cu`` on a CUDA tensor (one cooperative
 launch per call; what bounds it and how it is laid out is written at the
-top of the source) and the plain PyTorch version of this module on a CPU
-tensor.  Every layer: RMSNorm, the q/k/v GEMVs (an int8 weight's column
+top of the source: bf16 streams the weights through TMA boxes into a ring
+fed by a producer warpgroup, fp32 runs a CUDA-core body, and the C
+launcher reports which ran, counted in ``<wrapper>.tma_launches``) and the
+plain PyTorch version of this module on a CPU tensor.  Every layer:
+RMSNorm, the q/k/v GEMVs (an int8 weight's column
 scale after the dot and before RoPE, an int4 tile dequantized group-wise
 as it loads), interleaved-pair RoPE at each row's own position, attention
 over the row's cache columns ``[0, fill)`` with the row's own new K/V
@@ -90,6 +93,7 @@ KERNEL_MIN_BLOCK = 16     # pool blocks: powers of two from 16
 KERNEL_MAX_LORA_SR = 1024
 KERNEL_LORA_CHUNK = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BODY_TMA = 2     # the launcher's report: the TMA weight stream (bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +596,66 @@ def fused_decode_verify_tree_paged_plain(cfg, stacked, x, k_pool, v_pool,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+# The bf16 body's weight stream (csrc/decode_step.cu, ``Geo``): tiles of
+# 1 KB of a stored row, stages of 16 stored rows, eight to an item
+KERNEL_ROW_BYTES = 1024
+KERNEL_STAGE_ROWS = 16
+KERNEL_STAGES_PER_ITEM = 8
+
+
+def gemv_plan(cfg, aq: int, mq: int) -> list:
+    """The four GEMV phases of a layer as the bf16 body cuts them (q/k/v,
+    wo, gate/up, w_down; the kernel's ``geo``): per phase a dict of the
+    matrices' widths ``N``, the tile width ``cols`` (1 KB of a stored row:
+    512 bf16 columns, 1024 int8 / int4; a matrix's last tile may be
+    ragged), the contraction ``K``, its segments (w_down's ``mlp_chunks``,
+    added to the residual in turn) of ``kseg`` rows cut into chunks of
+    ``ci`` rows (128 stored rows; the last of a segment may be short), and
+    the counts ``ntiles``, ``nch`` (chunks a tile) and ``items`` (tile x
+    chunk, numbered tile-major)."""
+    h, ffn = cfg.hidden_size, cfg.ffn_size
+    nqd = cfg.num_attention_heads * cfg.head_dim
+    nkvd = cfg.kv_heads * cfg.head_dim
+    out = []
+    for kind, K, N, nseg in ((aq, h, (nqd, nkvd, nkvd), 1),
+                             (aq, nqd, (h,), 1),
+                             (mq, h, (ffn, ffn), 1),
+                             (mq, ffn, (h,), mlp_chunks(ffn))):
+        cols = KERNEL_ROW_BYTES if kind else KERNEL_ROW_BYTES // 2
+        rps = KERNEL_STAGE_ROWS * (2 if kind == 4 else 1)
+        ci = KERNEL_STAGES_PER_ITEM * rps
+        kseg = K // nseg
+        cps = -(-kseg // ci)
+        ntiles = sum(-(-n // cols) for n in N)
+        out.append(dict(N=N, cols=cols, K=K, kseg=kseg, ci=ci, cps=cps,
+                        nch=nseg * cps, ntiles=ntiles,
+                        items=ntiles * nseg * cps))
+    return out
+
+
+def gemv_item(ph: dict, it: int) -> dict:
+    """Item ``it`` of a phase of ``gemv_plan``: its tile ``t`` (matrix
+    ``m``, first column ``n0``), chunk ``c`` and contraction rows ``[k0,
+    k1)`` (the kernel's ``item_of``)."""
+    t, c = divmod(it, ph["nch"])
+    seg, cc = divmod(c, ph["cps"])
+    k0 = seg * ph["kseg"] + cc * ph["ci"]
+    k1 = min(k0 + ph["ci"], (seg + 1) * ph["kseg"])
+    m, first = 0, 0
+    for m, n in enumerate(ph["N"]):
+        tiles = -(-n // ph["cols"])
+        if t < first + tiles:
+            break
+        first += tiles
+    return dict(t=t, c=c, m=m, n0=(t - first) * ph["cols"], k0=k0, k1=k1)
+
+
+def gemv_block_items(ph: dict, block: int, grid: int) -> range:
+    """The items block ``block`` of ``grid`` takes, in order: every
+    ``grid``-th from its own index (item ``it`` is at position ``it //
+    grid`` of its block)."""
+    return range(block, ph["items"], grid)
+
 
 class _Args(ctypes.Structure):
     """``Args`` of csrc/decode_step.cu, field for field."""
@@ -604,11 +668,12 @@ class _Args(ctypes.Structure):
         ("res", _P), ("q", _P), ("kn", _P), ("vn", _P), ("ctx", _P),
         ("gate", _P), ("up", _P), ("bar", _P),
         ("la", _P * 7), ("lb", _P * 7), ("lmask", _P), ("lpart", _P),
+        ("gpart", _P),
         ("L", _I), ("rows", _I), ("W", _I), ("h", _I), ("nq", _I),
         ("nkv", _I), ("d", _I), ("ffn", _I), ("nm", _I), ("aq", _I),
         ("mq", _I), ("gsz", _I), ("act", _I), ("paged", _I), ("n_ent", _I),
         ("width", _I), ("shift", _I), ("n_tbl", _I), ("lsr", _I),
-        ("lch", _I),
+        ("lch", _I), ("gcap", _I),
         ("eps", _F), ("scale", _F),
     ]
 
@@ -668,6 +733,28 @@ def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope,
     ``fills`` ``[S]`` are the slots' committed fills; ``depths``/``anc``
     make the window a tree (the kernel checks it, and refuses a bad one);
     ``lora`` is ``(arenas, [rows, Sr] mask)``."""
+    a, outs, keep = _prepare(name, cfg, stacked, x, k, v, tables, fills, W,
+                             rope, depths, anc, lora)
+    fn = build.load("decode_step").decode_step_launch
+    if fn.argtypes is None:
+        # args dtype int8_cache stream; the body launched (out)
+        fn.argtypes = [_P, _I, _I, _P, _P]
+        fn.restype = _I
+    body = ctypes.c_int(-1)
+    err = fn(ctypes.addressof(a), _DTYPE_CODES[x.dtype],
+             int(is_quantized_cache(k)),
+             torch.cuda.current_stream(x.device).cuda_stream,
+             ctypes.byref(body))
+    build.check(err, name)
+    del keep  # scratch, the tables, the LoRA mask: alive until the launch
+    return outs, body.value == _BODY_TMA
+
+
+def _prepare(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope,
+             depths=None, anc=None, lora=None):
+    """``(Args, (hidden, k_rows, v_rows), tensors the launch reads)`` of
+    ``_launch``'s call, after its checks (``kernels/decode_probe.py``
+    launches the same Args through its stamped build)."""
     rows, h = x.shape
     elig = _stack_form(cfg, {"layers": stacked})
     cq8 = is_quantized_cache(k)
@@ -749,24 +836,24 @@ def _launch(name: str, cfg, stacked, x, k, v, tables, fills, W: int, rope,
         a.depths, a.anc = depths.data_ptr(), anc.data_ptr()
     a.k_rows, a.v_rows = k_rows.data_ptr(), v_rows.data_ptr()
     for key, t in scratch.items():
-        setattr(a, key, t.data_ptr())
+        setattr(a, key, t.data_ptr())  # (gpart comes below)
     a.L, a.rows, a.W, a.h, a.nq, a.nkv, a.d = L, rows, W, h, nq, nkv, d
     a.ffn, a.nm, a.aq, a.mq, a.gsz = ffn, mlp_chunks(ffn), aq, mq, gsz
     a.act = _ACT_CODES[cfg.activation]
     a.paged, a.n_ent, a.width, a.shift = int(paged), n_ent, width, shift
     a.n_tbl = tables.shape[1] if paged else 0
     a.eps, a.scale = float(cfg.norm_eps), 1.0 / math.sqrt(d)
-    keep = [] if lora is None else _set_lora(a, name, cfg, lora, rows, L,
-                                             x.device)
-    fn = build.load("decode_step").decode_step_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _I, _P]
-        fn.restype = _I
-    err = fn(ctypes.addressof(a), _DTYPE_CODES[x.dtype], int(cq8),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, name)
-    del keep  # the LoRA mask and partial sums, alive until the launch
-    return hidden, k_rows[:, :, :, None, :], v_rows[:, :, :, None, :]
+    if x.dtype == torch.bfloat16:
+        # the bf16 body's chunk partials
+        a.gcap = max(p["nch"] * rows * p["ntiles"] * p["cols"]
+                     for p in gemv_plan(cfg, aq, mq))
+        scratch["gpart"] = torch.empty(a.gcap, **f32)
+        a.gpart = scratch["gpart"].data_ptr()
+    keep = [scratch, tables, fills, depths, anc, c_rows, s_rows]
+    if lora is not None:
+        keep += _set_lora(a, name, cfg, lora, rows, L, x.device)
+    return a, (hidden, k_rows[:, :, :, None, :],
+               v_rows[:, :, :, None, :]), keep
 
 
 def _check_lora(name: str, lora, rows: int) -> None:
@@ -781,9 +868,13 @@ def _check_lora(name: str, lora, rows: int) -> None:
                          f"rows of an arena of {lsr} columns")
 
 
-def _count(fn, lora) -> None:
-    """One launch of ``fn``'s kernel: with an arena on ``fn.lora``."""
-    (fn if lora is None else fn.lora).launches += 1
+def _count(fn, lora, tma: bool) -> None:
+    """One launch of ``fn``'s kernel: with an arena on ``fn.lora``; a
+    launch the C launcher reports on the TMA body also in
+    ``tma_launches``."""
+    c = fn if lora is None else fn.lora
+    c.launches += 1
+    c.tma_launches += tma
 
 
 def _window_lora(lora, W: int):
@@ -812,10 +903,10 @@ def fused_decode_step(cfg, stacked, x, k_cache, v_cache, cache_len, rope, *,
     if x.device.type == "cpu":
         return fused_decode_step_plain(cfg, stacked, x, k_cache, v_cache,
                                        cache_len, rope, lora)
-    out = _launch("fused_decode_step", cfg, stacked, x, k_cache, v_cache,
-                  None, _fills(cache_len, x.shape[0], x.device), 1, rope,
-                  lora=lora)
-    _count(fused_decode_step, lora)
+    out, tma = _launch("fused_decode_step", cfg, stacked, x, k_cache,
+                       v_cache, None, _fills(cache_len, x.shape[0], x.device),
+                       1, rope, lora=lora)
+    _count(fused_decode_step, lora, tma)
     return out
 
 
@@ -830,10 +921,11 @@ def fused_decode_step_paged(cfg, stacked, x, k_pool, v_pool, tables, fills,
     if x.device.type == "cpu":
         return fused_decode_step_paged_plain(cfg, stacked, x, k_pool, v_pool,
                                              tables, fills, rope, lora)
-    out = _launch("fused_decode_step_paged", cfg, stacked, x, k_pool, v_pool,
-                  torch.as_tensor(tables, device=x.device),
-                  _fills(fills, x.shape[0], x.device), 1, rope, lora=lora)
-    _count(fused_decode_step_paged, lora)
+    out, tma = _launch("fused_decode_step_paged", cfg, stacked, x, k_pool,
+                       v_pool, torch.as_tensor(tables, device=x.device),
+                       _fills(fills, x.shape[0], x.device), 1, rope,
+                       lora=lora)
+    _count(fused_decode_step_paged, lora, tma)
     return out
 
 
@@ -858,11 +950,11 @@ def fused_decode_verify_paged(cfg, stacked, x, k_pool, v_pool, tables,
                                                v_pool, tables, fills, rope,
                                                lora)
     S, W, h = x.shape
-    hidden, k_rows, v_rows = _launch(
+    (hidden, k_rows, v_rows), tma = _launch(
         "fused_decode_verify_paged", cfg, stacked, x.reshape(S * W, h),
         k_pool, v_pool, torch.as_tensor(tables, device=x.device),
         _fills(fills, S, x.device), W, rope, lora=_window_lora(lora, W))
-    _count(fused_decode_verify_paged, lora)
+    _count(fused_decode_verify_paged, lora, tma)
     return hidden.reshape(S, W, h), k_rows, v_rows
 
 
@@ -884,17 +976,18 @@ def fused_decode_verify_tree_paged(cfg, stacked, x, k_pool, v_pool, tables,
             cfg, stacked, x, k_pool, v_pool, tables, fills, rope, depths, anc,
             lora)
     S, W, h = x.shape
-    hidden, k_rows, v_rows = _launch(
+    (hidden, k_rows, v_rows), tma = _launch(
         "fused_decode_verify_tree_paged", cfg, stacked, x.reshape(S * W, h),
         k_pool, v_pool, torch.as_tensor(tables, device=x.device),
         _fills(fills, S, x.device), W, rope, depths=torch.as_tensor(depths),
         anc=torch.as_tensor(anc), lora=_window_lora(lora, W))
-    _count(fused_decode_verify_tree_paged, lora)
+    _count(fused_decode_verify_tree_paged, lora, tma)
     return hidden.reshape(S, W, h), k_rows, v_rows
 
 
 for _fn in (fused_decode_step, fused_decode_step_paged,
             fused_decode_verify_paged, fused_decode_verify_tree_paged):
     _fn.launches = 0
-    _fn.lora = types.SimpleNamespace(launches=0)
+    _fn.tma_launches = 0
+    _fn.lora = types.SimpleNamespace(launches=0, tma_launches=0)
 del _fn

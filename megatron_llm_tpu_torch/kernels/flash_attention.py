@@ -27,7 +27,7 @@ from . import build
 
 NO_KEY_LSE = -1e30  # lse of a row that sees no key (its O is 0)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_BODY_MMA = 1   # the backward launchers' report: the tensor-core body
+_BODY_MMA = 1   # the launchers' report: the tensor-core body
 _HEAD_DIMS = (64, 128)
 
 
@@ -133,15 +133,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, segment_ids=None,
     o = torch.empty_like(q)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     seg_ptr = segment_ids.data_ptr() if segment_ids is not None else None
+    body = ctypes.c_int(-1)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, o.data_ptr(),
         lse.data_ptr(), b, sq, sk, hq, hk, d, float(softmax_scale),
         int(causal), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(body))
     build.check(err, "flash_attention")
     flash_attention_fwd.launches += 1
-    if q.dtype != torch.float32:   # the launcher's tensor-core body
-        flash_attention_fwd.mma_launches += 1
+    flash_attention_fwd.mma_launches += body.value == _BODY_MMA
     return o, lse
 
 
@@ -393,8 +393,10 @@ def _lib():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
+        # q k v seg out lse; b sq sk hq hk d; scale; causal dtype; stream;
+        # the body launched (out)
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, ctypes.c_float,
-                       I, I, P]
+                       I, I, P, P]
         fn.restype = I
     return lib
 

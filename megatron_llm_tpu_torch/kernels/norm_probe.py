@@ -1,12 +1,12 @@
-"""Tuning probe for K5, the one-pass RMSNorm backward, on one NVIDIA GPU:
-the compiled kernel's registers and spills (Triton's ``n_regs`` and
-``n_spills``) and the time of ``rmsnorm_bwd`` (both launches) at hidden
-4096, 4544, 8192 and 16384 (4096 rows, bf16); then ``rmsnorm_bwd`` against
-``F.rms_norm``'s backward at Llama-2-7B's training rows (4096 x 4096), and
-``layernorm_bwd`` (K7's dx kernel and torch's dweight and dbias) against
-``F.layer_norm``'s at Falcon-7B's (2048 x 4544) and GPT-1.3B's
-(4096 x 2048), each in turns A B B A, the factor being the A times over
-the B times::
+"""Tuning probe for K5 and K7, the one-pass RMSNorm and LayerNorm
+backwards, on one NVIDIA GPU: K5's compiled kernel's registers and spills
+(Triton's ``n_regs`` and ``n_spills``) and the time of ``rmsnorm_bwd``
+(both launches) at hidden 4096, 4544, 8192 and 16384 (4096 rows, bf16);
+then ``rmsnorm_bwd`` against ``F.rms_norm``'s backward at Llama-2-7B's
+training rows (4096 x 4096), and ``layernorm_bwd`` (K7's pass and column
+sum; its registers and spills) against ``F.layer_norm``'s at Falcon-7B's
+(2048 x 4544) and GPT-1.3B's (4096 x 2048), each in turns A B B A, the
+factor being the A times over the B times::
 
     python3 -m megatron_llm_tpu_torch.kernels.norm_probe
 
@@ -81,9 +81,10 @@ def main() -> int:
                          dtype=torch.bfloat16)
         _, mean, rstd = rn.layernorm_fwd(x, w, b, 1e-5)
         xr, wr, br = (t.clone().requires_grad_(True) for t in (x, w, b))
-        dx_ms = tm.cuda_ms(lambda: rn.launch_ln_bwd_dx(x, w, mean, rstd, dy))
-        abba(f"K7 layernorm_bwd [rows {n} h {h}] (dx kernel alone "
-             f"{dx_ms:.4f} ms)",
+        k = rn.launch_ln_bwd(x, w, mean, rstd, dy)[3]
+        abba(f"K7 layernorm_bwd [rows {n} h {h}] "
+             f"({getattr(k, 'n_regs', '?')} registers, "
+             f"{getattr(k, 'n_spills', '?')} spills)",
              lambda: tm.cuda_ms(lambda: rn.layernorm_bwd(
                  x, w, mean, rstd, dy)),
              lambda: lib_ms(lambda: F.layer_norm(xr, (h,), wr, br, 1e-5),

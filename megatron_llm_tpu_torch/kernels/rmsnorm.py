@@ -19,7 +19,8 @@ The LayerNorm pair replaces ``_ln_fwd_kernel`` (via ``layernorm_pallas`` →
 ``_ln_bwd_vjp``): ``dx = rstd * (g - mean(g) - x̂ * mean(g * x̂))`` with
 ``g = dy * w`` and ``x̂ = (x - mean) * rstd``.  dweight and dbias are the
 fp32 cross-row sums of ``dy * x̂`` and ``dy``, cast to the weight's dtype,
-outside the kernel as in JAX.  The JAX package pads rows and never
+which JAX leaves to XLA beside its kernel; here they are in the kernel's
+pass, as K5's dweight.  The JAX package pads rows and never
 columns; here a row of a hidden size that is not a power of two (Falcon's
 4544) sits in a power-of-two block whose masked lanes load 0, and the
 kernels re-mask ``x - mean`` there before every row sum.
@@ -43,8 +44,9 @@ column by column in a fixed order, so the result is the same bit for bit
 from run to run, with no atomics.  The partials are programs x hidden x 4
 bytes (8 MB at Llama-2-7B's training rows).  The row is held whole up to
 the 16384 cap, where it spills a little (registers, spills and times
-beside ``rms_bwd_kernel``).  K7 still leaves dweight and dbias to torch
-beside its dx kernel.
+beside ``rms_bwd_kernel``).  K7 is the same design with a second
+partial row, Σ dy, for dbias (none without a bias); one column-sum launch
+adds both sets of partial rows.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  ``triton`` is imported, and a kernel compiled, at its first
@@ -219,7 +221,7 @@ def launch_rms_bwd(x, weight, rstd, dy):
         compiled = rms_bwd_kernel[(programs,)](
             x, weight, dy, rstd, dx, part, rows, hidden, per, BLOCK=block,
             num_warps=_warps(block))
-        colsum_kernel[(triton.cdiv(hidden, _COLSUM_COLS),)](
+        colsum_kernel[(triton.cdiv(hidden, _COLSUM_COLS), 1)](
             part, dw, programs, hidden, BLOCK_P=_COLSUM_ROWS,
             BLOCK_C=_COLSUM_COLS, num_warps=4)
     rmsnorm_bwd.launches += 1
@@ -264,7 +266,7 @@ def rmsnorm(x, weight, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
-# LayerNorm (K6 forward, K7 dx)
+# LayerNorm (K6 forward, K7 backward)
 # ---------------------------------------------------------------------------
 
 
@@ -311,9 +313,12 @@ def layernorm_fwd(x, weight, bias=None, eps: float = 1e-5):
 layernorm_fwd.launches = 0
 
 
-def layernorm_bwd_plain(x, weight, mean, rstd, dy, has_bias: bool = True):
+def layernorm_bwd_plain(x, weight, mean, rstd, dy, has_bias: bool = True,
+                        rows_per_program=None):
     """``(dx, dweight, dbias)`` in plain torch from the forward's ``mean``
-    and ``rstd``; dbias is None without a bias."""
+    and ``rstd``; dbias is None without a bias.  With ``rows_per_program``
+    the column sums run in K7's partition (``_two_stage_sum_plain``), else
+    in one sum."""
     acc = _acc_dtype(x)
     xhat = (x.to(acc) - mean.to(acc)) * rstd.to(acc)
     dyf = dy.to(acc)
@@ -321,56 +326,71 @@ def layernorm_bwd_plain(x, weight, mean, rstd, dy, has_bias: bool = True):
     c1 = torch.mean(g, dim=-1, keepdim=True)
     c2 = torch.mean(g * xhat, dim=-1, keepdim=True)
     dx = (rstd.to(acc) * (g - c1 - xhat * c2)).to(x.dtype)
-    return (dx, _dweight(dyf, xhat, weight),
-            _dbias(dyf, weight) if has_bias else None)
-
-
-def _dbias(dyf, weight):
-    """The cross-row sum of dy in fp32, cast to the weight's dtype."""
-    return dyf.reshape(-1, weight.shape[0]).sum(0).to(weight.dtype)
+    h = weight.shape[0]
+    if rows_per_program is None:
+        colsum = lambda t: t.reshape(-1, h).sum(0)  # noqa: E731
+    else:
+        colsum = lambda t: _two_stage_sum_plain(  # noqa: E731
+            t.reshape(-1, h), rows_per_program)
+    return (dx, colsum(dyf * xhat).to(weight.dtype),
+            colsum(dyf).to(weight.dtype) if has_bias else None)
 
 
 def layernorm_bwd(x, weight, mean, rstd, dy, has_bias: bool = True):
-    """``(dx, dweight, dbias)``: dx from the Triton kernel K7 for CUDA
-    tensors (dweight and dbias beside it in torch), the plain version for
-    CPU tensors."""
+    """``(dx, dweight, dbias)``: the Triton kernel K7 for CUDA tensors, the
+    plain version for CPU tensors.  K7 is two launches, counted as one:
+    one pass over x and dy writes dx and each program's fp32 partial
+    dweight (and dbias) row, then ``colsum_kernel`` adds the partial rows
+    in a fixed order and casts to the weight's dtype."""
     if x.device.type == "cpu":
         return layernorm_bwd_plain(x, weight, mean, rstd, dy, has_bias)
     _check(x, weight)
     _check_bwd(x, dy, mean, rstd)
-    dx = launch_ln_bwd_dx(x, weight, mean, rstd, dy)
-    dyf = dy.float()
-    xhat = (x.float() - mean) * rstd
-    return (dx, _dweight(dyf, xhat, weight),
-            _dbias(dyf, weight) if has_bias else None)
+    dx, dw, db, _ = launch_ln_bwd(x, weight, mean, rstd, dy, has_bias)
+    return dx, dw, db
 
 
 layernorm_bwd.launches = 0
 
 
-def launch_ln_bwd_dx(x, weight, mean, rstd, dy):
-    """dx from one launch of the Triton kernel K7, counted in
+def launch_ln_bwd(x, weight, mean, rstd, dy, has_bias: bool = True):
+    """``(dx, dweight, dbias or None, the compiled one-pass kernel or
+    None)`` from K7's two launches, counted as one in
     ``layernorm_bwd.launches`` (CUDA operands as ``layernorm_bwd`` checks
     them)."""
     hidden = x.shape[-1]
     rows = x.numel() // hidden
     dx = torch.empty_like(x)
-    if rows:
-        import triton
+    sums = torch.zeros((1 + has_bias, hidden), dtype=weight.dtype,
+                       device=x.device)
+    db = sums[1] if has_bias else None
+    if not rows:
+        return dx, sums[0], db, None
+    import triton
 
-        from .rmsnorm_triton import ln_bwd_kernel
+    from .rmsnorm_triton import colsum_kernel, ln_bwd_kernel
 
-        block = triton.next_power_of_2(hidden)
-        with torch.cuda.device(x.device):
-            ln_bwd_kernel[(rows,)](x, weight, dy, mean, rstd, dx, hidden,
-                                   BLOCK=block, num_warps=_warps(block))
-        layernorm_bwd.launches += 1
-    return dx
+    block = triton.next_power_of_2(hidden)
+    per = _bwd_rows_per_program(
+        rows, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+    programs = -(-rows // per)
+    part = torch.empty(1 + has_bias, programs, hidden, dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        compiled = ln_bwd_kernel[(programs,)](
+            x, weight, dy, mean, rstd, dx, part, rows, hidden, per,
+            HAS_BIAS=has_bias, BLOCK=block, num_warps=_warps(block))
+        colsum_kernel[(triton.cdiv(hidden, _COLSUM_COLS), 1 + has_bias)](
+            part, sums, programs, hidden, BLOCK_P=_COLSUM_ROWS,
+            BLOCK_C=_COLSUM_COLS, num_warps=4)
+    layernorm_bwd.launches += 1
+    return dx, sums[0], db, compiled
 
 
 class LayerNormFunction(torch.autograd.Function):
-    """y = layernorm(x, w, b) with the forward kernel K6 and, backward, the
-    dx kernel K7 (the JAX package's ``layernorm_pallas`` custom_vjp).  It
+    """y = layernorm(x, w, b) with the forward kernel K6 and, backward, K7
+    (dx, dweight, dbias; the JAX package's ``layernorm_pallas`` custom_vjp).  It
     saves x, w, mean and rstd, as the JAX residuals do; ``bias`` may be
     None (``has_bias``)."""
 

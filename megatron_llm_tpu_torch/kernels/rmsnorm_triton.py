@@ -1,7 +1,7 @@
-"""The Triton RMSNorm and LayerNorm kernels: forward, RMSNorm's dx and
-dweight in one pass (with a column sum of its partial rows), LayerNorm's
-dx (see ``rmsnorm.py`` for their contracts, plain versions and
-launchers).
+"""The Triton RMSNorm and LayerNorm kernels: forward, and each backward
+in one pass (RMSNorm's dx and dweight, LayerNorm's dx, dweight and dbias)
+with a column sum of its partial rows (see ``rmsnorm.py`` for their
+contracts, plain versions and launchers).
 
 This module imports ``triton`` at load, so only the launching function in
 ``rmsnorm.py`` imports it, at the first launch on a CUDA tensor.
@@ -73,10 +73,13 @@ def rms_bwd_kernel(x_ptr, w_ptr, dy_ptr, rstd_ptr, dx_ptr, part_ptr, rows,
 @triton.jit
 def colsum_kernel(part_ptr, out_ptr, programs, hidden, BLOCK_P: tl.constexpr,
                   BLOCK_C: tl.constexpr):
-    # out[c] = sum over p of part[p, c] for BLOCK_C columns a program: tiles
-    # of BLOCK_P partial rows in order, each tile summed over its rows, the
-    # fp32 total cast to out's dtype (a fixed order: the same bits every
-    # run)
+    # out[m, c] = sum over p of part[m, p, c] for BLOCK_C columns a program
+    # and sum m = program_id(1) (K7: 0 dweight, 1 dbias): tiles of BLOCK_P
+    # partial rows in order, each tile summed over its rows, the fp32 total
+    # cast to out's dtype (a fixed order: the same bits every run)
+    m = tl.program_id(1).to(tl.int64)
+    part_ptr += m * programs * hidden
+    out_ptr += m * hidden
     cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
     cmask = cols < hidden
     acc = tl.zeros([BLOCK_C], dtype=tl.float32)
@@ -115,26 +118,46 @@ def ln_fwd_kernel(x_ptr, w_ptr, b_ptr, y_ptr, mean_ptr, rstd_ptr, hidden,
 
 
 @triton.jit
-def ln_bwd_kernel(x_ptr, w_ptr, dy_ptr, mean_ptr, rstd_ptr, dx_ptr, hidden,
+def ln_bwd_kernel(x_ptr, w_ptr, dy_ptr, mean_ptr, rstd_ptr, dx_ptr, part_ptr,
+                  rows, hidden, rows_per_prog, HAS_BIAS: tl.constexpr,
                   BLOCK: tl.constexpr):
-    # one program per row: x, dy and w in registers, the forward's mean and
-    # rstd, two fp32 row sums (mean(g), mean(g * x̂)), then
-    # dx = rstd (g - mean(g) - x̂ mean(g x̂)); x̂ is masked to 0 past
-    # ``hidden`` (g is 0 there already: dy and w load 0)
-    row = tl.program_id(0).to(tl.int64)
+    # rms_bwd_kernel's layout: one program per block of ``rows_per_prog``
+    # consecutive rows, w and two fp32 accumulators in registers.  For each
+    # row, x and dy once from device memory, the forward's mean and rstd,
+    # two fp32 row sums (mean(g), mean(g * x̂)), then
+    # dx = rstd (g - mean(g) - x̂ mean(g x̂)); dy * x̂ and (with a bias) dy
+    # are added into the accumulators, stored at the end as the program's
+    # partial rows part[0, pid, :] (dweight) and part[1, pid, :] (dbias;
+    # colsum_kernel adds the partial rows).  x̂ is masked to 0 past
+    # ``hidden`` (g and dy are 0 there already: dy and w load 0), so masked
+    # lanes add 0.
+    pid = tl.program_id(0)
+    start = pid * rows_per_prog
+    end = tl.minimum(start + rows_per_prog, rows)
     offs = tl.arange(0, BLOCK)
     mask = offs < hidden
-    x = tl.load(x_ptr + row * hidden + offs, mask=mask,
-                other=0.0).to(tl.float32)
-    dy = tl.load(dy_ptr + row * hidden + offs, mask=mask,
-                 other=0.0).to(tl.float32)
     w = tl.load(w_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    mean = tl.load(mean_ptr + row)
-    rstd = tl.load(rstd_ptr + row)
-    g = dy * w
-    xhat = tl.where(mask, (x - mean) * rstd, 0.0)
-    c1 = tl.sum(g, axis=0) / hidden
-    c2 = tl.sum(g * xhat, axis=0) / hidden
-    dx = rstd * (g - c1 - xhat * c2)
-    tl.store(dx_ptr + row * hidden + offs, dx.to(dx_ptr.dtype.element_ty),
-             mask=mask)
+    acc_w = tl.zeros([BLOCK], dtype=tl.float32)
+    acc_b = tl.zeros([BLOCK], dtype=tl.float32)
+    for row in range(start, end):
+        base = row.to(tl.int64) * hidden
+        x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
+        dy = tl.load(dy_ptr + base + offs, mask=mask,
+                     other=0.0).to(tl.float32)
+        mean = tl.load(mean_ptr + row)
+        rstd = tl.load(rstd_ptr + row)
+        g = dy * w
+        xhat = tl.where(mask, (x - mean) * rstd, 0.0)
+        c1 = tl.sum(g, axis=0) / hidden
+        c2 = tl.sum(g * xhat, axis=0) / hidden
+        dx = rstd * (g - c1 - xhat * c2)
+        tl.store(dx_ptr + base + offs, dx.to(dx_ptr.dtype.element_ty),
+                 mask=mask)
+        acc_w += dy * xhat
+        if HAS_BIAS:
+            acc_b += dy
+    tl.store(part_ptr + pid.to(tl.int64) * hidden + offs, acc_w, mask=mask)
+    if HAS_BIAS:
+        programs = tl.num_programs(0).to(tl.int64)
+        tl.store(part_ptr + (programs + pid) * hidden + offs, acc_b,
+                 mask=mask)

@@ -140,7 +140,8 @@ def test_rmsnorm_matches_plain(cuda_device, rows, h):
 def test_layernorm_fwd_bwd_match_plain(cuda_device, rows, h, bias, dtype):
     """K6 and K7 against their plain versions: Falcon-7B's hidden 4544 (a
     block of 8192 lanes, 3648 of them masked), a one-row call and GPT-1.3B's
-    2048, with and without bias."""
+    2048, with and without bias.  K7 returns dx, dweight and dbias from its
+    own launches (one counted call), the same bits on a second call."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     x = (2.0 * _card((rows, h), gen, cuda_device, torch.float32)
          + 0.5).to(dtype)
@@ -151,9 +152,12 @@ def test_layernorm_fwd_bwd_match_plain(cuda_device, rows, h, bias, dtype):
     n_fwd, n_bwd = trn.layernorm_fwd.launches, trn.layernorm_bwd.launches
     y, mean, rstd = trn.layernorm_fwd(x, w, b, 1e-5)
     got = trn.layernorm_bwd(x, w, mean, rstd, dy, has_bias=bias)
+    again = trn.layernorm_bwd(x, w, mean, rstd, dy, has_bias=bias)
     torch.cuda.synchronize()
     assert trn.layernorm_fwd.launches == n_fwd + 1
-    assert trn.layernorm_bwd.launches == n_bwd + 1
+    assert trn.layernorm_bwd.launches == n_bwd + 2
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
     y_ref, mean_ref, rstd_ref = trn.layernorm_plain(x, w, b, 1e-5)
     want = trn.layernorm_bwd_plain(x, w, mean, rstd, dy, has_bias=bias)
     # fp32: only the order of the fp32 row sums differs
@@ -263,7 +267,16 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                         "fused_decode_step_lora": 0,
                         "fused_decode_step_paged_lora": 0,
                         "fused_decode_verify_paged_lora": 0,
-                        "fused_decode_verify_tree_paged_lora": 0}, launches
+                        "fused_decode_verify_tree_paged_lora": 0,
+                        "fused_decode_step_tma": 0,
+                        "fused_decode_step_lora_tma": 0,
+                        "fused_decode_step_paged_tma": 0,
+                        "fused_decode_step_paged_lora_tma": 0,
+                        "fused_decode_verify_paged_tma": 0,
+                        "fused_decode_verify_paged_lora_tma": 0,
+                        "fused_decode_verify_tree_paged_tma": 0,
+                        "fused_decode_verify_tree_paged_lora_tma": 0}, \
+        launches
 
 
 def _bwd_inputs(gen, dev, b, sq, sk, hq, hk, d, dtype, segs):
@@ -791,6 +804,12 @@ FUSED_CASES = {
     "mixed-weights-int8-cache": dict(policy=("int8", "int4"),
                                      int8_cache=True),
     "fp32": dict(dtype="float32"),
+    # widths that leave the bf16 body's TMA boxes ragged: q 320 columns
+    # (2.5 boxes of 128 int8 columns), k/v 64 (under one box), gate/up 480
+    # (7.5 boxes of 64 bf16 columns), w_down in three 160-row segments
+    "ragged-boxes": dict(kv=1, hidden=320, heads=5, ffn=480),
+    "ragged-boxes-int8": dict(kv=1, hidden=320, heads=5, ffn=480,
+                              policy=("int8", "int8"), int8_cache=True),
 }
 
 
@@ -798,7 +817,9 @@ FUSED_CASES = {
 @pytest.mark.parametrize("name", list(FUSED_CASES))
 def test_fused_decode_kernels_match_plain(cuda_device, name):
     """K12, K13 and K14 (W = 4) against their plain versions on the same
-    card tensors: fills 0, 1, 97 and the whole width of 256."""
+    card tensors: fills 0, 1, 97 and the whole width of 256.  bf16 runs
+    the TMA body (the launcher's report, ``tma_launches``), fp32 the
+    CUDA-core body; a second K13 call gives the same bits."""
     from megatron_llm_tpu_torch.kernels import decode_step as tds
 
     c = FUSED_CASES[name]
@@ -814,6 +835,7 @@ def test_fused_decode_kernels_match_plain(cuda_device, name):
         "fused_decode_step", "fused_decode_step_paged",
         "fused_decode_verify_paged")}
     before = {n: f.launches for n, f in counters.items()}
+    tma = {n: f.tma_launches for n, f in counters.items()}
     got = tds.fused_decode_step(cfg, stacked, x, k, v, fills, rope)
     q8 = c.get("int8_cache", False)
     _assert_fused_close(got, tds.fused_decode_step_plain(
@@ -826,14 +848,21 @@ def test_fused_decode_kernels_match_plain(cuda_device, name):
                                       rope)
     _assert_fused_close(got, tds.fused_decode_step_paged_plain(
         cfg, stacked, x, kp, vp, tables, fills, rope), q8)
+    again = tds.fused_decode_step_paged(cfg, stacked, x, kp, vp, tables,
+                                        fills, rope)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     xw = _card((b, 4, cfg.hidden_size), gen, cuda_device, cfg.dtype)
     got = tds.fused_decode_verify_paged(cfg, stacked, xw, kp, vp, tables,
                                         fills, rope)
     _assert_fused_close(got, tds.fused_decode_verify_paged_plain(
         cfg, stacked, xw, kp, vp, tables, fills, rope), q8)
     torch.cuda.synchronize()
-    assert {n: f.launches - before[n] for n, f in counters.items()} == \
-        dict.fromkeys(counters, 1)
+    ran = {n: f.launches - before[n] for n, f in counters.items()}
+    assert ran == {"fused_decode_step": 1, "fused_decode_step_paged": 2,
+                   "fused_decode_verify_paged": 1}
+    on_tma = {n: f.tma_launches - tma[n] for n, f in counters.items()}
+    assert on_tma == (ran if cfg.dtype == torch.bfloat16
+                      else dict.fromkeys(counters, 0))
 
 
 def _append_rows(pool, rows, tables, pos, block):
@@ -1085,6 +1114,8 @@ def test_fused_model_paths_on_the_card_match_cpu(cuda_device):
     assert launches["fused_decode_step_paged"] == 1
     assert launches["fused_decode_verify_paged"] == 1
     assert launches["flash_decode"] == 0
+    # fp32: the CUDA-core body, as the C launcher reports it
+    assert all(launches[n] == 0 for n in launches if n.endswith("_tma"))
 
 
 @pytest.mark.cuda

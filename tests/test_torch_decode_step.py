@@ -477,3 +477,95 @@ def test_unported_options_raise():
             tc, tp["layers"], x[:, None].expand(1, 2, 256), kp, vp,
             torch.ones(1, 1), [0], _trope(tc), depths=torch.tensor([[0, 2]]),
             anc=torch.zeros(1, 2, 2))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 body's work schedule and the forms it takes
+# ---------------------------------------------------------------------------
+
+# (hidden, heads, kv heads, ffn, attention bits, MLP bits, group): Llama-2-7B
+# in each weight form, and a small stack whose widths leave ragged TMA
+# boxes (q/k/v and gate/up tiles past the matrices' edges; w_down in three
+# segments whose last chunks run short)
+SCHEDULE_FORMS = {
+    "llama2-7b-bf16": (4096, 32, 32, 11008, 0, 0, 0),
+    "llama2-7b-int8": (4096, 32, 32, 11008, 8, 8, 0),
+    "llama2-7b-int4": (4096, 32, 32, 11008, 4, 4, 128),
+    "llama2-7b-mixed": (4096, 32, 32, 11008, 8, 4, 128),
+    "ragged-boxes": (320, 5, 1, 480, 8, 8, 0),
+}
+
+
+@pytest.mark.parametrize("form", list(SCHEDULE_FORMS))
+def test_gemv_schedule_covers_each_item_once_in_a_fixed_order(form):
+    """``gemv_plan`` / ``gemv_item`` / ``gemv_block_items`` (the kernel's
+    ``geo``, ``item_of`` and round-robin items): over every grid size from
+    1 to 132 blocks, each (tile, chunk) item of each phase is taken exactly
+    once; a tile's chunks, in chunk order, cut each contraction segment
+    into consecutive runs of whole 32-row pieces and tile its columns; the
+    combine's 32-column units cover each matrix once; and what a chunk
+    covers depends on neither the grid nor the row count (the plan takes no
+    row count: only the scratch sizes scale with rows)."""
+    h, nq, nkv, ffn, aq, mq, gsz = SCHEDULE_FORMS[form]
+    cfg = tllama2("7b", hidden_size=h, num_attention_heads=nq,
+                  num_kv_heads=nkv, ffn_hidden_size=ffn)
+    assert tds._kernel_fits_stack(
+        cfg, {"layers": {"attn": {"wq": torch.empty(0, dtype=cfg.dtype)}}},
+        aq, mq, gsz)
+    plan = tds.gemv_plan(cfg, aq, mq)
+    nseg = (1, 1, 1, tds.mlp_chunks(ffn))
+    for ph, segs in zip(plan, nseg):
+        items = [tds.gemv_item(ph, it) for it in range(ph["items"])]
+        chunks = {}
+        for i in items:
+            chunks.setdefault(i["t"], []).append((i["c"], i["k0"], i["k1"]))
+            # whole stages of 16 stored rows (int4: 32 rows)
+            assert i["k0"] % 32 == 0 and i["k1"] % 32 == 0
+            assert 0 <= i["k0"] < i["k1"] <= ph["K"]
+            assert i["n0"] % ph["cols"] == 0 and i["n0"] < ph["N"][i["m"]]
+        assert len(chunks) == ph["ntiles"]
+        for t, cs in chunks.items():
+            assert [c for c, _, _ in cs] == list(range(ph["nch"]))
+            kseg = ph["K"] // segs
+            for s in range(segs):
+                run = cs[s * ph["cps"]:(s + 1) * ph["cps"]]
+                assert run[0][1] == s * kseg and run[-1][2] == (s + 1) * kseg
+                assert all(a[2] == b[1] for a, b in zip(run, run[1:]))
+        cols = sorted({(i["m"], i["n0"]) for i in items})
+        assert len(cols) == ph["ntiles"]
+        for m, n in enumerate(ph["N"]):
+            starts = [n0 for mm, n0 in cols if mm == m]
+            assert starts == list(range(0, n, ph["cols"]))
+        # the combine's units: every (tile, 32 columns) inside the matrix
+        units = [(t, j) for t in range(ph["ntiles"])
+                 for j in range(0, ph["cols"], 32)
+                 if tds.gemv_item(ph, t * ph["nch"])["n0"] + j
+                 < ph["N"][tds.gemv_item(ph, t * ph["nch"])["m"]]]
+        assert len(units) == sum(n // 32 for n in ph["N"])
+        for grid in range(1, 133):
+            seen = np.zeros(ph["items"], np.int64)
+            for b in range(grid):
+                for it in tds.gemv_block_items(ph, b, grid):
+                    seen[it] += 1
+            assert (seen == 1).all(), (grid, form)
+    for rows in (1, 4, 16, 64):
+        need = max(p["nch"] * rows * p["ntiles"] * p["cols"] for p in plan)
+        assert need == rows * max(p["nch"] * p["ntiles"] * p["cols"]
+                                  for p in plan)
+
+
+@pytest.mark.parametrize("form", ["int8", "int4", "mixed", None])
+@pytest.mark.parametrize("rows,window,lora_sr", [(1, 1, 0), (64, 8, 1024),
+                                                 (16, 4, 128)])
+def test_predicates_accept_the_kernel_forms(form, rows, window, lora_sr):
+    """The predicates take every form the bf16 and fp32 bodies run:
+    plain, int8, int4 and mixed weights, rows up to 64 and windows up to
+    8 (slots x window), a LoRA arena up to 1024 columns."""
+    tc = tllama2("7b", **_kw())
+    tp = tmodel.init_params(tc, device="cpu")
+    if form:
+        tp = tquant.quantize_params(tp, dataclasses.replace(
+            tquant.POLICIES[form], group_size=64))
+    got = _predicates(tc, tp, slots=rows // window, window=window,
+                      lora_sr=lora_sr)
+    assert got == (True, True, True)

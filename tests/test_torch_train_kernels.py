@@ -345,6 +345,44 @@ def test_layernorm_bwd_plain_matches_pallas(shape, bias):
         np.testing.assert_allclose(got.numpy(), np.asarray(w_), **FP32_TOL)
 
 
+@pytest.mark.parametrize("shape,per,bias", [
+    ((64, 144), 5, True),     # Falcon-like: a width off a power of two,
+    ((64, 144), 5, False),    #   the last program's 4 rows run short
+    ((2, 48, 128), 16, True),   # GPT-like rows, whole programs
+    ((2, 48, 128), 16, False),
+    ((3, 80), 8, True),       # rows fewer than one program
+    ((3, 80), 8, False),
+    ((7, 80), 1, True),       # rows fewer than the programs a card runs:
+    ((7, 80), 1, False),      #   one row each
+])
+def test_layernorm_bwd_two_stage_matches_pallas(shape, per, bias):
+    """K7's plain backward in the kernel's partition (dweight and dbias
+    summed per block of ``per`` rows, then over the blocks in order)
+    against JAX's gradients from ``jax.vjp`` of ``layernorm_pallas`` in
+    interpret mode, fp32, at 1e-5."""
+    rng = np.random.default_rng(22)
+    x = 2.0 * _np(rng, shape) + 0.5
+    w = (1.0 + 0.1 * _np(rng, shape[-1:])).astype(np.float32)
+    b = (0.1 * _np(rng, shape[-1:])).astype(np.float32) if bias else None
+    dy = _np(rng, shape)
+    args = [jnp.asarray(x), jnp.asarray(w)] + ([jnp.asarray(b)] if bias
+                                               else [])
+    _, vjp = jax.vjp(
+        lambda x_, w_, *b_: jrn.layernorm_pallas(
+            x_, w_, b_[0] if b_ else None, 1e-5, True), *args)
+    want = vjp(jnp.asarray(dy))
+    tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
+    _, mean, rstd = trn.layernorm_fwd(
+        tx, tw, None if b is None else torch.from_numpy(b), 1e-5)
+    dx, dw, db = trn.layernorm_bwd_plain(tx, tw, mean, rstd, tdy,
+                                         has_bias=bias, rows_per_program=per)
+    assert (db is None) == (not bias)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want[0]), **FP32_TOL)
+    for got, w_ in zip((dw, db) if bias else (dw,), want[1:]):
+        assert got.dtype == torch.float32 and got.shape == w.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(w_), **FP32_TOL)
+
+
 @pytest.mark.parametrize("bias", [True, False])
 def test_layernorm_function_gradcheck(bias):
     gen = torch.Generator().manual_seed(19)
