@@ -25,7 +25,10 @@ it goes wrong:
    repeated bit for bit, K1-K3 with fp32 inputs, which take the CUDA-core
    bodies, K7 timed against the library's backward in turns A B B A, and
    the fused decode step's time split by phase (``decode_probe``, once,
-   K13 bf16 at 32 layers) on a line of its own;
+   K13 bf16 at 32 layers) on a line of its own; K8 and K9 also at 32/8
+   and 64/8 heads (Llama-3-8B's, Llama-2-70B's attention widths) and one
+   row of fill 2048, K11 at 64/8, and K8-K11 each twice in a row (the
+   same bits) and row by row (each row alone its row of the batch);
 4. reference: Llama-2-7B widths cut to 2 layers, bf16, prefill then paged
    decode steps through the kernels, against the plain fp32 full forward;
 5. serve: Llama-2-7B at full width and depth, random weights from a seed,
@@ -95,7 +98,8 @@ Phases 5, 7, 9, 10, 11, 13 and 14-22 are the main paths: every kernel's
 launch counter is reset just before each and read just after, and each
 kernel of a path must have been launched in it; every bf16 launch of
 K1-K3 must have taken the tensor-core body and every launch of the fused
-decode step (all bf16) the TMA body, as the C launchers report.  The
+decode step (all bf16) the TMA body, and every launch of K8-K11 the
+split cache walk, as the C launchers report.  The
 line before the last is the ``{"kernels": [...]}`` JSON object
 (``launches`` sums the paths' counts, ``launches_by_path`` lists them);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -257,12 +261,23 @@ def check_flash_attention(torch, F, fa, dev, gen):
     return head
 
 
+# K8's and K9's timed shapes: (label, b, q heads, kv heads, fills); the
+# first is the serving decode row of phases 5 and 13 (Llama-2-7B, 4 slots,
+# max_len 2048), then Llama-3-8B's and Llama-2-70B's / Code Llama 34B's
+# attention widths (groups 4 and 8) and one long row alone
+DECODE_CASES = (
+    ("decode b4 h32 kv32 max_len2048 ragged", 4, 32, 32, (1, 97, 1056, 2048)),
+    ("gqa b4 hq32 kv8 max_len2048 ragged", 4, 32, 8, (1, 97, 1056, 2048)),
+    ("gqa b4 hq64 kv8 max_len2048 ragged", 4, 64, 8, (1, 97, 1056, 2048)),
+    ("b1 h32 kv32 fill 2048", 1, 32, 32, (2048,)),
+)
+
+
 def check_flash_decode(torch, F, fd, dev, gen):
-    """K8 at the serving decode shape (4 slots, max_len 2048, ragged)."""
-    cases = [("decode b4 h32 kv32 max_len2048 ragged", 4, 32, 32),
-             ("gqa b4 hq32 kv8 max_len2048 ragged", 4, 32, 8)]
-    head = None
-    for name, b, nq, kv in cases:
+    """K8 at DECODE_CASES' shapes; the first is the kernels line's row, the
+    others go to its ``cases``."""
+    head, cases = None, []
+    for name, b, nq, kv, fills in DECODE_CASES:
         d, max_len = 128, 2048
         q = torch.randn(b, nq, d, generator=gen, device=dev,
                         dtype=torch.bfloat16)
@@ -270,8 +285,7 @@ def check_flash_decode(torch, F, fd, dev, gen):
                          dtype=torch.bfloat16)
         vc = torch.randn(b, kv, max_len, d, generator=gen, device=dev,
                          dtype=torch.bfloat16)
-        lens = torch.tensor([1, 97, 1056, 2048][:b], dtype=torch.int32,
-                            device=dev)
+        lens = torch.tensor(fills, dtype=torch.int32, device=dev)
         out = fd.flash_decode(q, kc, vc, lens)
         torch.cuda.synchronize()
         ref = fd.flash_decode_plain(q, kc, vc, lens)
@@ -295,9 +309,13 @@ def check_flash_decode(torch, F, fd, dev, gen):
             f"{BF16_ATOL} rtol {BF16_RTOL:.4f}) ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} sdpa_ms {library_ms:.4f} bound_ms {bms:.4f} "
             f"({by})")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=library_ms)
         if head is None:
-            head = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+            head = row
+        else:
+            cases.append(dict(case=name, **row))
+    head["cases"] = cases
     return head
 
 
@@ -408,6 +426,103 @@ def check_decode_family(torch, F, fd, dev, gen):
                           library_computes="SDPA over a bf16 copy of the "
                           "cache (dequantized / gathered, not timed)")
     return rows
+
+
+def check_decode_split(torch, F, fd, dev, gen, rows):
+    """The split body of K8-K11 beyond the serving row: K9 at
+    DECODE_CASES' other shapes and K11 at group 8 (64 q / 8 kv heads), each
+    against its plain version and timed beside SDPA over a dequantized
+    (gathered) bf16 copy and its bound (into ``rows[...]["cases"]``); then,
+    at the serving row and at group 8, each of K8-K11 twice in a row (the
+    same bits: the merge's tickets are back to zero) and each row alone
+    (its bits equal to its row of the batch)."""
+    d, max_len, block = 128, 2048, 64
+    n_tbl = max_len // block
+
+    def operands(b, nq, kv, fills):
+        lens = torch.tensor(fills, dtype=torch.int32, device=dev)
+        q = torch.randn(b, nq, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        kc, vc = (torch.randn(b, kv, max_len, d, generator=gen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        kq, ks = _int8_cache(torch, (b, kv, max_len, d), gen, dev)
+        vq, vs = _int8_cache(torch, (b, kv, max_len, d), gen, dev)
+        perm = 1 + torch.randperm(b * n_tbl, generator=gen, device=dev)
+        tables = perm.reshape(b, n_tbl).to(torch.int32)
+        for i, n in enumerate(fills):
+            tables[i, -(-n // block):] = 0
+        pools = [_paged(torch, t, tables) for t in (kc, vc, kq, ks, vq, vs)]
+        return q, lens, (kc, vc), (kq, ks, vq, vs), tables, pools
+
+    for name, b, nq, kv, fills in DECODE_CASES[1:]:
+        q, lens, _, int8, tables, pools = operands(b, nq, kv, fills)
+        k_deq = (int8[0].float() * int8[1][..., None]).to(torch.bfloat16)
+        v_deq = (int8[2].float() * int8[3][..., None]).to(torch.bfloat16)
+        fill = float(lens.sum())
+        nbytes = 2 * q.numel() * 2 + b * 4 + 2 * fill * kv * (d + 4)
+        mask = (torch.arange(max_len, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        kinds = [("flash_decode_int8",
+                  lambda: fd.flash_decode_int8(q, *int8, lens),
+                  lambda: fd.flash_decode_int8_plain(q, *int8, lens), 0)]
+        if nq // kv == 8:
+            live = sum(-(-n // block) for n in fills)
+            kinds.append((
+                "flash_decode_paged_int8",
+                lambda: fd.flash_decode_paged_int8(q, *pools[2:], tables,
+                                                   lens),
+                lambda: fd.flash_decode_paged_int8_plain(q, *pools[2:],
+                                                         tables, lens),
+                live * 4))
+        for kname, kern, plain, extra in kinds:
+            out = kern()
+            torch.cuda.synchronize()
+            err, ok = close_enough(torch, out, plain(), BF16_ATOL, BF16_RTOL)
+            if not ok:
+                raise RuntimeError(f"{kname} [{name}]: err {err} beyond "
+                                   "tolerance")
+            ms = timing.cuda_ms(kern)
+            plain_ms = timing.cuda_ms(plain, iters=5)
+            library_ms = timing.cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], k_deq, v_deq, attn_mask=mask,
+                    enable_gqa=nq != kv))
+            bms, by = timing.bound_ms(nbytes + extra, 4.0 * fill * nq * d)
+            log(f"kernel {kname} [{name}, int8 cache]: max_abs_err "
+                f"{err:.3e} (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}) ms "
+                f"{ms:.4f} plain_ms {plain_ms:.4f} sdpa_over_bf16_copy_ms "
+                f"{library_ms:.4f} bound_ms {bms:.4f} ({by})")
+            rows[kname].setdefault("cases", []).append(dict(
+                case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms))
+
+    for name, b, nq, kv, fills in (DECODE_CASES[0], DECODE_CASES[2]):
+        q, lens, dense, int8, tables, pools = operands(b, nq, kv, fills)
+        calls = {
+            "flash_decode": lambda i: fd.flash_decode(
+                q[i], *(t[i] for t in dense), lens[i]),
+            "flash_decode_int8": lambda i: fd.flash_decode_int8(
+                q[i], *(t[i] for t in int8), lens[i]),
+            "flash_decode_paged": lambda i: fd.flash_decode_paged(
+                q[i], *pools[:2], tables[i], lens[i]),
+            "flash_decode_paged_int8": lambda i: fd.flash_decode_paged_int8(
+                q[i], *pools[2:], tables[i], lens[i]),
+        }
+        for kname, call in calls.items():
+            every = slice(None)
+            first, second = call(every), call(every)
+            alone = [call(slice(i, i + 1)) for i in range(b)]
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                raise RuntimeError(f"{kname} [{name}]: two calls in a row "
+                                   "differ")
+            bad = [i for i in range(b) if not torch.equal(alone[i][0],
+                                                          first[i])]
+            if bad:
+                raise RuntimeError(f"{kname} [{name}]: rows {bad} alone "
+                                   "differ from their rows of the batch")
+        log(f"decode split body [{name}]: K8-K11 each give the same bits "
+            f"twice in a row, and each row alone its row of the batch")
 
 
 def _first_layers(tree, n):
@@ -2374,7 +2489,8 @@ def main() -> int:
         f"with nvcc in {time.perf_counter() - t0:.1f}s; nvcc seconds by "
         f"source " + json.dumps({n: round(v, 1) for n, v
                                  in build.NVCC_SECONDS.items()}))
-    decode_probe.print_ptxas(logs.get("decode_step_stamps", ""))
+    build.print_ptxas(logs.get("decode_step_stamps", ""),
+                      decode_probe.kernel_name)
     log_hmma(build)
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2387,6 +2503,7 @@ def main() -> int:
             "layernorm_fwd": check_layernorm(torch, F, rn, dev, gen),
         }
         rows.update(check_decode_family(torch, F, fd, dev, gen))
+        check_decode_split(torch, F, fd, dev, gen, rows)
         t0 = time.perf_counter()
         rows.update(check_decode_step(torch, M, ds, dev, gen, smi))
         log(f"decode_step checks in {time.perf_counter() - t0:.1f}s")
@@ -2634,6 +2751,15 @@ def main() -> int:
     if off_tma:
         raise RuntimeError(f"fused decode launches off the TMA body: "
                            f"{off_tma}")
+    # every decode-attention launch of a main path (K8, K9 in phases 5 and
+    # 13, K10, K11 in 14) on the split body
+    off_split = {p: [n for n in n_ if n + "_split" in n_
+                     and n_[n] != n_[n + "_split"]]
+                 for p, n_ in paths.items()}
+    off_split = {p: v for p, v in off_split.items() if v}
+    if off_split:
+        raise RuntimeError(f"decode-attention launches off the split body: "
+                           f"{off_split}")
     kernels = []
     for kname, (route, source, replaces) in meta.items():
         by_path = {p: n[kname] for p, n in paths.items()}
@@ -2644,6 +2770,9 @@ def main() -> int:
         if kname + "_tma" in counters:  # launches of the TMA body
             extra["tma_launches"] = sum(n[kname + "_tma"]
                                         for n in paths.values())
+        if kname + "_split" in counters:  # launches of the split body
+            extra["split_launches"] = sum(n[kname + "_split"]
+                                          for n in paths.values())
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,
                             launches=sum(by_path.values()),

@@ -1,5 +1,7 @@
 // Shared helpers for the port's CUDA kernels: 16-byte vector loads and
-// stores that widen bf16 / fp16 / fp32 to fp32 registers.
+// stores that widen bf16 / fp16 / fp32 to fp32 registers, and the
+// mbarrier / bulk-copy primitives of the kernels that stage tiles in
+// shared memory through the copy engine (decode_step.cu, flash_decode.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +16,7 @@ enum DType { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 constexpr int kBodySimt = 0;  // CUDA cores
 constexpr int kBodyMma = 1;   // tensor cores (mma.sync)
 constexpr int kBodyTma = 2;   // a TMA weight stream (the fused decode step)
+constexpr int kBodySplit = 3; // the split cache walk (decode attention)
 
 // err, after setting *body to `which` when the launch went out
 inline int ran(cudaError_t err, int which, int* body) {
@@ -81,3 +84,58 @@ struct Vec16<__half> {
     *reinterpret_cast<uint4*>(p) = raw;
   }
 };
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+// wait until the barrier's phase with parity `parity` has completed; a
+// copy that never lands (a schedule fault) traps after 4 s instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const unsigned long long t0 = now_ns();
+  while (!mbar_try(bar, parity))
+    if (now_ns() - t0 > 4000000000ull) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both
+// 16-byte aligned) by the copy engine, completing on barrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}

@@ -310,12 +310,6 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
   csync();
 }
 
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // Per-phase time stamps, in a probe build only (nvcc -DDECODE_STEP_STAMPS,
 // kernels/decode_probe.py), into [L][kStampPhases][kStampGrid][kStampSlots]
 // u64 at g_stamps (set by decode_step_stamps; null: no stamps): for each
@@ -1496,45 +1490,6 @@ static_assert(kMaxRB * 2 * kStagesPerItem * kStageRows <= kXsT,
 struct Maps {
   CUtensorMap w[7];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done;
-}
-
-// wait until the barrier's phase with parity `parity` has completed; a
-// box that never lands (a schedule fault) traps after 4 s instead of
-// hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const unsigned long long t0 = now_ns();
-  while (!mbar_try(bar, parity))
-    if (now_ns() - t0 > 4000000000ull) __trap();
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
 
 // box (c0 columns, c1 stored rows, c2 layer) of `map` into shared `dst`,
 // completing its bytes on barrier `bar`

@@ -18,8 +18,9 @@ decode step's wrappers count their launches with a LoRA arena apart, in
 body (bf16) in ``<wrapper>.tma_launches`` and
 ``<wrapper>.lora.tma_launches``; the flash-attention forward, dQ and dK/dV
 wrappers their launches of the tensor-core body (bf16 / fp16 inputs) in
-``<wrapper>.mma_launches``.  Each body count follows the C launcher's own
-report of the body it ran.
+``<wrapper>.mma_launches``; the decode-attention wrappers (K8-K11) their
+launches of the split cache walk in ``<wrapper>.split_launches``.  Each
+body count follows the C launcher's own report of the body it ran.
 """
 
 
@@ -44,8 +45,9 @@ def launch_counters() -> dict:
     (read and reset through ``counter.launches``): the wrappers
     themselves, ``<name>_lora`` for the fused decode step's launches with a
     LoRA arena, ``<name>_tma`` and ``<name>_lora_tma`` for its launches of
-    the TMA body, and ``<name>_mma`` for the flash-attention forward's,
-    dQ's and dK/dV's launches of their tensor-core bodies."""
+    the TMA body, ``<name>_mma`` for the flash-attention forward's,
+    dQ's and dK/dV's launches of their tensor-core bodies, and
+    ``<name>_split`` for K8-K11's launches of the split cache walk."""
     from .decode_step import (
         fused_decode_step,
         fused_decode_step_paged,
@@ -101,4 +103,7 @@ def launch_counters() -> dict:
                for fn in (fused_decode_step, fused_decode_step_paged,
                           fused_decode_verify_paged,
                           fused_decode_verify_tree_paged)
-               for sfx, c in (("", fn), ("_lora", fn.lora))}}
+               for sfx, c in (("", fn), ("_lora", fn.lora))},
+            **{f"{fn.__name__}_split": _AttrCounter(fn, "split_launches")
+               for fn in (flash_decode, flash_decode_int8,
+                          flash_decode_paged, flash_decode_paged_int8)}}

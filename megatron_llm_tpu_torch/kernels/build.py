@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -121,6 +122,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def print_ptxas(log: str, name=None) -> None:
+    """One line for each kernel instantiation of an ``nvcc -Xptxas -v``
+    log: its name (mangled, or through ``name``), registers, and stack
+    frame and spills."""
+    kern, frame = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kern = m.group(1) if name is None else name(m.group(1))
+            frame = ""
+        elif kern and "stack frame" in line:
+            frame = line.strip()
+        elif kern and "Used" in line and "registers" in line:
+            print(f"ptxas {kern}: {line.split(':', 1)[-1].strip()}; {frame}")
+            kern = None
 
 
 def check(err: int, what: str) -> None:

@@ -177,23 +177,13 @@ def phase_split(cfg, stacked, x, kp, vp, tables, fills, rope, lora=None):
     return out
 
 
-def print_ptxas(log: str) -> None:
-    """The stamped build's registers and spills of each kernel
-    instantiation (the package's build is the same code without the
-    stamps)."""
-    name, frame = None, ""
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            t = "bf16" if "nv_bfloat16" in name else "fp32"
-            c = "int8" if re.search(r"(13__nv_bfloat16|f)aE", name) else t
-            name = f"decode_step_kernel<{t}, cache {c}>"
-        elif name and "stack frame" in line:
-            frame = line.strip()
-        elif name and "Used" in line and "registers" in line:
-            print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}; {frame}")
-            name, frame = None, ""
+def kernel_name(mangled: str) -> str:
+    """A decode_step kernel instantiation's name for ``build.print_ptxas``
+    (the stamped build's report: the package's build is the same code
+    without the stamps)."""
+    t = "bf16" if "nv_bfloat16" in mangled else "fp32"
+    c = "int8" if re.search(r"(13__nv_bfloat16|f)aE", mangled) else t
+    return f"decode_step_kernel<{t}, cache {c}>"
 
 
 def print_split(label: str, split: dict, ms: float, smi: str) -> None:
@@ -274,7 +264,7 @@ def main(argv=None) -> int:
         extra.append(("decode_step_parent", src,
                       PROBE_DIR / f"decode_step_parent-{h}.so", ()))
     logs = build.build_all(("decode_step",), extra=extra)
-    print_ptxas(logs["decode_step_stamps"])
+    build.print_ptxas(logs["decode_step_stamps"], kernel_name)
     print(f"build: {time.perf_counter() - t0:.1f} s; nvcc seconds "
           f"{ {n: round(v, 1) for n, v in build.NVCC_SECONDS.items()} }")
     parent = None

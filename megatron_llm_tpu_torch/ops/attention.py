@@ -147,7 +147,8 @@ def paged_decode_attention(q, k_pool, v_pool, tables, cache_len, *,
     into the dense ``[b, kv, T*block, d]`` view (one gather per leaf) and
     ``decode_attention`` runs on it, so both routes share the masking and
     softmax math.  The serving engine keeps the JAX package's dense-gather
-    route and does not call this (ROADMAP.md, Queue 1 item 1)."""
+    route and does not call this (ROADMAP.md, Queue 2, "Faster paths",
+    first bullet)."""
     from ..kernels import flash_decode as fd
 
     kv_q = is_quantized_cache(k_pool)

@@ -103,15 +103,22 @@ def test_flash_attention_mma_edges_match_plain(cuda_device, b, hq, hk, sq,
         assert (lse[:, :, :sq - sk] == tfa.NO_KEY_LSE).all()
 
 
+# fills: 0 (the mean of V over the width), one split, the split boundary
+# and one past it (two splits), the whole width
+DECODE_FILLS = [0, 129, tfd.SPLIT_COLS - 1, tfd.SPLIT_COLS,
+                tfd.SPLIT_COLS + 1, 512]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,kv,d", [(32, 32, 128), (32, 8, 128), (8, 1, 128),
-                                     (4, 2, 64)])
+                                     (4, 2, 64), (64, 8, 128)])
 def test_flash_decode_matches_plain(cuda_device, nq, kv, d):
+    b = len(DECODE_FILLS)
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    q = _card((3, nq, d), gen, cuda_device)
-    kc = _card((3, kv, 512, d), gen, cuda_device)
-    vc = _card((3, kv, 512, d), gen, cuda_device)
-    lens = torch.tensor([0, 129, 512], dtype=torch.int32, device=cuda_device)
+    q = _card((b, nq, d), gen, cuda_device)
+    kc = _card((b, kv, 512, d), gen, cuda_device)
+    vc = _card((b, kv, 512, d), gen, cuda_device)
+    lens = torch.tensor(DECODE_FILLS, dtype=torch.int32, device=cuda_device)
     before = tfd.flash_decode.launches
     out = tfd.flash_decode(q, kc, vc, lens)
     torch.cuda.synchronize()
@@ -258,6 +265,10 @@ def test_model_path_on_the_card_matches_cpu(cuda_device):
                         "flash_decode": 4 * cfg.num_layers,
                         "flash_decode_int8": 0, "flash_decode_paged": 0,
                         "flash_decode_paged_int8": 0,
+                        "flash_decode_split": 4 * cfg.num_layers,
+                        "flash_decode_int8_split": 0,
+                        "flash_decode_paged_split": 0,
+                        "flash_decode_paged_int8_split": 0,
                         "rmsnorm_fwd": 5 * (2 * cfg.num_layers + 1),
                         "rmsnorm_bwd": 0, "layernorm_fwd": 0,
                         "layernorm_bwd": 0, "fused_decode_step": 0,
@@ -578,16 +589,17 @@ def _int8_cache(gen, dev, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,kv,d", [(32, 32, 128), (32, 8, 128), (8, 1, 128),
-                                     (4, 2, 64)])
+                                     (4, 2, 64), (64, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_decode_int8_matches_plain(cuda_device, nq, kv, d, dtype):
     """K9 against its plain version: fills 0 (the mean of the dequantized
-    V), 129 and the whole cache."""
+    V), 129, each side of the split boundary and the whole cache."""
+    b = len(DECODE_FILLS)
     gen = torch.Generator(device=cuda_device).manual_seed(8)
-    q = _card((3, nq, d), gen, cuda_device, dtype)
-    kq, ks = _int8_cache(gen, cuda_device, (3, kv, 512, d))
-    vq, vs = _int8_cache(gen, cuda_device, (3, kv, 512, d))
-    lens = torch.tensor([0, 129, 512], dtype=torch.int32, device=cuda_device)
+    q = _card((b, nq, d), gen, cuda_device, dtype)
+    kq, ks = _int8_cache(gen, cuda_device, (b, kv, 512, d))
+    vq, vs = _int8_cache(gen, cuda_device, (b, kv, 512, d))
+    lens = torch.tensor(DECODE_FILLS, dtype=torch.int32, device=cuda_device)
     before = tfd.flash_decode_int8.launches
     out = tfd.flash_decode_int8(q, kq, ks, vq, vs, lens)
     torch.cuda.synchronize()
@@ -649,6 +661,131 @@ def test_paged_kernels_equal_dense_bitwise(cuda_device, block, kv, int8):
     torch.testing.assert_close(got.float(),
                                plain(q, *pools, tables, lens).float(),
                                **CARD_TOL)
+
+
+def _decode_calls(kind, gen, dev, nq, kv, fills, block=64, width=1024):
+    """(call over rows ``sel``, wrapper) of K8-K11 on one seeded cache."""
+    b, d = len(fills), 128
+    q = _card((b, nq, d), gen, dev)
+    lens = torch.tensor(fills, dtype=torch.int32, device=dev)
+    if kind in ("paged", "paged_int8"):
+        tables, n_blocks = _shuffled_tables(gen, dev, fills, width // block,
+                                            block)
+        shape = (n_blocks, kv, block, d)
+    else:
+        shape = (b, kv, width, d)
+    if kind.endswith("int8"):
+        kq, ks = _int8_cache(gen, dev, shape)
+        vq, vs = _int8_cache(gen, dev, shape)
+        leaves = (kq, ks, vq, vs)
+    else:
+        leaves = (_card(shape, gen, dev), _card(shape, gen, dev))
+    fn = {"dense": tfd.flash_decode, "int8": tfd.flash_decode_int8,
+          "paged": tfd.flash_decode_paged,
+          "paged_int8": tfd.flash_decode_paged_int8}[kind]
+    if kind.startswith("paged"):
+        return (lambda sel: fn(q[sel], *leaves, tables[sel], lens[sel])), fn
+    return (lambda sel: fn(q[sel], *(t[sel] for t in leaves), lens[sel])), fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,kv", [(32, 32), (64, 8)])
+@pytest.mark.parametrize("kind", ["dense", "int8", "paged", "paged_int8"])
+def test_decode_split_bits_row_alone_and_repeat(cuda_device, kind, nq, kv):
+    """K8-K11 on the split body: each row alone equals its row in a batch
+    of other fills, bit for bit; two calls in a row give the same bits (the
+    merge's tickets are back to zero after each); the split-body counter
+    goes up by exactly the launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    fills = [1000, 1, 257, 0, 511, 1024, 256]
+    call, fn = _decode_calls(kind, gen, cuda_device, nq, kv, fills)
+    every = slice(None)
+    launches, split = fn.launches, fn.split_launches
+    first = call(every)
+    second = call(every)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for i in range(len(fills)):
+        assert torch.equal(call(slice(i, i + 1))[0], first[i]), i
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 2 + len(fills)
+    assert fn.split_launches == split + 2 + len(fills)
+
+
+@pytest.mark.cuda
+def test_split_cols_mirror_the_library(cuda_device):
+    """The Python split plan uses the columns the built kernels walk."""
+    lib = tfd.build.load("flash_decode")
+    assert lib.flash_decode_split_cols() == tfd.SPLIT_COLS
+
+
+@pytest.mark.cuda
+def test_decode_split_first_call_on_a_device(cuda_device):
+    """K8 over two splits as the first call on a device: the ticket buffer
+    is made in that call, from an emptied allocator, beside the split
+    scratch; the result matches the plain version and the next call's bits,
+    each time."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    fills = [300, 1, 512, 0, 257]
+    q = _card((len(fills), 32, 128), gen, cuda_device)
+    kc, vc = (_card((len(fills), 8, 512, 128), gen, cuda_device)
+              for _ in range(2))
+    lens = torch.tensor(fills, dtype=torch.int32, device=cuda_device)
+    want = tfd.flash_decode_plain(q, kc, vc, lens)
+    outs = []
+    for _ in range(3):
+        tfd._TICKETS.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        outs.append(tfd.flash_decode(q, kc, vc, lens))
+        outs.append(tfd.flash_decode(q, kc, vc, lens))
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got, outs[0])
+    torch.testing.assert_close(outs[0].float(), want.float(), **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 2])
+def test_int8_kernels_take_rows_not_in_fours(cuda_device, block):
+    """K9 over a max_len that is not a multiple of 4, and K11 over pool
+    blocks of 1 and 2 rows, launch (their scales are loaded row by row, not
+    bulk-copied): the bits equal K9 over a max_len in fours, where the
+    scales are copied with the tiles, and each matches its plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    fills = [301, 1, 257, 302, 256]
+    b, nq, kv, d, width = len(fills), 32, 8, 128, 302
+    q = _card((b, nq, d), gen, cuda_device)
+    lens = torch.tensor(fills, dtype=torch.int32, device=cuda_device)
+    kq, ks = _int8_cache(gen, cuda_device, (b, kv, 304, d))
+    vq, vs = _int8_cache(gen, cuda_device, (b, kv, 304, d))
+    fours = (kq, ks, vq, vs)
+    ragged = tuple(t[:, :, :width].contiguous() for t in fours)
+    assert tfd.int8_kernel_takes(q, ragged[0])
+    before = tfd.flash_decode_int8.launches
+    want = tfd.flash_decode_int8(q, *fours, lens)
+    got = tfd.flash_decode_int8(q, *ragged, lens)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_int8.launches == before + 2
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got.float(), tfd.flash_decode_int8_plain(q, *ragged, lens).float(),
+        **CARD_TOL)
+    # the same logical cache as a shuffled pool of blocks of 1 or 2 rows
+    n_tbl = width // block
+    tables, n_blocks = _shuffled_tables(gen, cuda_device, fills, n_tbl,
+                                        block)
+    pools = []
+    for leaf in ragged:
+        pool = torch.zeros((n_blocks, kv, block) + tuple(leaf.shape[3:]),
+                           dtype=leaf.dtype, device=cuda_device)
+        for i, n in enumerate(fills):
+            for j in range(-(-n // block)):
+                pool[tables[i, j]] = leaf[i, :, j * block:(j + 1) * block]
+        pools.append(pool)
+    paged = tfd.flash_decode_paged_int8(q, *pools, tables, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, got)
 
 
 @pytest.mark.cuda
