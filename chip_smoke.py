@@ -84,7 +84,30 @@ it goes wrong:
     adapters, two base) alone, then concurrently, then concurrently with
     n-gram speculation and with a resident tiny draft; tokens equal their
     alone runs and the plain run's, and every decode step is one launch of
-    K13, K14 or K14's tree mode with the arena.
+    K13, K14 or K14's tree mode with the arena;
+23. generate: KV-cached ``generate_tokens`` at Llama-2-7B full depth
+    (``fused_decode=True``), greedy, 4 prompts of 64-512 tokens with 64
+    new: K1 (its tensor-core body) for the prefill, one K12 launch (its
+    TMA body) a decode step, K4, no K8; then 4 prompts of 256 batched
+    and each alone, identical token for token;
+24. beam: ``beam_search`` width 4, 32 new on a 256-token prompt (K1,
+    K12 at b = 4, the KV reorder); width 1 equal to greedy;
+25. score: ``score_tokens`` on 4 x 1024 tokens (K1, K4);
+26. pld: ``generate_tokens_pld`` (draft 5) on prompts that repeat a
+    span: tokens a step and acceptance, and its agreement with greedy
+    ``generate_tokens`` logged (not gated: the bf16 verify window and
+    K12's step round differently);
+27. generate composed: phase 23's 256-token prompts at
+    ``fused_decode=False``, 32 new: K8 (its split body), never K12;
+28. generate gpt-1.3b: full depth, 32 new: K1, K6 and K8 (K12 refuses
+    LayerNorm stacks);
+29. generate reference: Llama-2-7B widths cut to 2 layers, the bf16
+    kernel path's generated log-probs, ``score_tokens`` and beam scores
+    against the fp32 plain scoring of the same tokens, at phase 4's
+    limits;
+30. server: phase 19's ``MegatronServer`` answers a ``beam_width`` 2 and
+    a ``tokens_to_generate`` 0 PUT /api with 200 and the direct calls'
+    results.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -94,9 +117,11 @@ K9 bit for bit on the same logical cache, K13 must equal K12 and K14 four
 K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
-Phases 5, 7, 9, 10, 11, 13 and 14-22 are the main paths: every kernel's
-launch counter is reset just before each and read just after, and each
-kernel of a path must have been launched in it; every bf16 launch of
+Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28 and 30 are the main paths:
+every kernel's launch counter is reset just before each and read just
+after, and each kernel of a path must have been launched in it (phases
+23-30 also check each kernel's count against the steps the path took);
+every bf16 launch of
 K1-K3 must have taken the tensor-core body and every launch of the fused
 decode step (all bf16) the TMA body, and every launch of K8-K11 the
 split cache walk, as the C launchers report.  The
@@ -2435,6 +2460,404 @@ def train_gpt(torch, dev, counters, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-30: KV-cached generation (generation/generation.py,
+# generation/speculative.py, the server's beam and score routes)
+# ---------------------------------------------------------------------------
+
+GEN_LENS = (64, 200, 377, 512)   # phase 23's ragged prompts
+PLD_LENS = (128, 192, 256, 320)  # phase 26's span prompts
+
+
+def _launches(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _prompts(torch, lens, new, vocab, gen, spans=False):
+    """Right-padded prompts ``[b, max(lens) + new]`` (random tokens, or a
+    48-token span repeated) and their lengths, on the host."""
+    toks = torch.zeros((len(lens), max(lens) + new), dtype=torch.long)
+    for i, n in enumerate(lens):
+        ids = (_span_prompt(torch, n, vocab, gen) if spans else
+               torch.randint(0, vocab, (n,), generator=gen).tolist())
+        toks[i, :n] = torch.tensor(ids)
+    return toks, torch.tensor(lens)
+
+
+def _timed(torch, fn):
+    """``(fn(), host seconds)`` with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _phase_done(n, t, smi):
+    """Log phase ``n``'s seconds since ``t``; returns the time now."""
+    now = time.perf_counter()
+    log(f"phase {n} in {now - t:.1f}s (host clock; card {smi})")
+    return now
+
+
+def _check_path(label, launches, want, forbid=()):
+    """``want``: kernel -> launches (an int must match, None means at least
+    one); ``forbid`` must not launch."""
+    bad = {n: (launches[n], w) for n, w in want.items()
+           if (launches[n] < 1 if w is None else launches[n] != w)}
+    bad.update({n: (launches[n], 0) for n in forbid if launches[n]})
+    log(f"{label} kernels " + json.dumps(launches))
+    if bad:
+        raise RuntimeError(f"{label}: launches (got, want) {bad}")
+
+
+def _check_tokens(torch, label, out, toks, lens, vocab):
+    """Prompts kept, every token in the vocabulary, the buffer filled."""
+    got = out.tokens.cpu()
+    for i, n in enumerate(lens.tolist()):
+        if not torch.equal(got[i, :n], toks[i, :n]):
+            raise RuntimeError(f"{label}: row {i}'s prompt changed")
+    if int(got.min()) < 0 or int(got.max()) >= vocab:
+        raise RuntimeError(f"{label}: a token out of the vocabulary")
+    if out.lengths.cpu().tolist() != [toks.shape[1]] * toks.shape[0]:
+        raise RuntimeError(f"{label}: lengths {out.lengths.tolist()}")
+
+
+def generate_llama(torch, cfg, dev, counters, smi, paths):
+    """Phases 23-27 and 30 at Llama-2-7B full width and depth, bf16, random
+    weights from a seed: ``generate_tokens`` (K1 prefill, one K12 launch a
+    decode step, K4), the batch against each row alone, ``beam_search``
+    (width 4, and width 1 against greedy), ``score_tokens`` (K1, K4),
+    ``generate_tokens_pld``, the composed route (K8, no K12), and the
+    server's beam and score routes against the direct calls.  Records
+    each main path's launches in ``paths``; returns phase 26's and 27's
+    numbers for the log."""
+    from megatron_llm_tpu_torch.generation import (
+        MegatronServer,
+        beam_search,
+        beam_search_and_post_process,
+        generate_tokens,
+        score_and_post_process,
+        score_tokens,
+    )
+    from megatron_llm_tpu_torch.generation.speculative import (
+        generate_tokens_pld,
+    )
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.tokenizer import NullTokenizer
+
+    V, L = cfg.vocab_size, cfg.num_layers
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init_params(cfg, seed=0, device=dev)
+    tp = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+    toks, lens = _prompts(torch, GEN_LENS, 64, V, gen)
+    lo, max_seq = min(GEN_LENS), toks.shape[1]
+    # warm: the shapes' cuBLAS handles and the first launches
+    generate_tokens(cfg, params, toks[:, :lo + 8], torch.full((4,), lo),
+                    use_eos_stop=False)
+    _, t_pre = _timed(torch, lambda: generate_tokens(
+        cfg, params, toks[:, :lo + 1], torch.full((4,), lo),
+        use_eos_stop=False))
+    _zero(counters)
+    out, t_all = _timed(torch, lambda: generate_tokens(
+        cfg, params, toks, lens, use_eos_stop=False))
+    launches = _launches(counters)
+    steps = max_seq - lo - 1
+    _check_path("generate llama2-7b", launches, {
+        "flash_attention_fwd": L, "flash_attention_fwd_mma": L,
+        "fused_decode_step": steps, "fused_decode_step_tma": steps,
+        "rmsnorm_fwd": None}, forbid=("flash_decode",))
+    _check_tokens(torch, "generate llama2-7b", out, toks, lens, V)
+    new_tok = sum(max_seq - n for n in GEN_LENS)
+    log(f"generate llama2-7b: 4 prompts of {GEN_LENS} tokens to {max_seq} "
+        f"({new_tok} new tokens; the shorter rows teacher-force their "
+        f"prompts first) in {t_all:.3f}s: {new_tok / t_all:.1f} new tok/s, "
+        f"prefill of the common {lo} {t_pre * 1e3:.2f} ms, "
+        f"{(t_all - t_pre) * 1e3 / steps:.2f} ms a decode step ({steps} "
+        f"steps, one K12 launch each at b = 4); host clock; card {smi}")
+    paths["generate llama2-7b"] = launches
+
+    # the batch against each row alone: K1's and K12's row bits do not
+    # depend on the batch
+    same, _ = _prompts(torch, (256,) * 4, 64, V, gen)
+    lens256 = torch.full((4,), 256)
+    batch, t_b = _timed(torch, lambda: generate_tokens(
+        cfg, params, same, lens256, use_eos_stop=False))
+    batch = batch.tokens.cpu()
+    for i in range(4):
+        alone = generate_tokens(cfg, params, same[i:i + 1], lens256[:1],
+                                use_eos_stop=False).tokens.cpu()
+        if not torch.equal(alone[0], batch[i]):
+            diff = int((alone[0] != batch[i]).nonzero()[0])
+            raise RuntimeError(f"generate: row {i} alone differs from its "
+                               f"row of the batch from position {diff}")
+    log(f"generate llama2-7b: 4 prompts of 256 + 64 new, batched "
+        f"({64 / t_b:.1f} new tok/s a row, {4 * 64 / t_b:.1f} in all; "
+        f"host clock; card {smi}) and each alone: identical, token for "
+        f"token")
+
+    tp = _phase_done("23", tp, smi)
+    # phase 24: beam search, width 4, 32 new tokens on one 256-token prompt
+    prompt = same[0, :256 + 32]
+    beam_search(cfg, params, prompt[:256 + 4], 256, beam_size=4,
+                stop_token=-1)
+    _, t_pre = _timed(torch, lambda: beam_search(
+        cfg, params, prompt[:257], 256, beam_size=4, stop_token=-1))
+    _zero(counters)
+    beams, t_all = _timed(torch, lambda: beam_search(
+        cfg, params, prompt, 256, beam_size=4, stop_token=-1,
+        num_return_gen=4))
+    launches = _launches(counters)
+    _check_path("beam llama2-7b", launches, {
+        "flash_attention_fwd": L, "flash_attention_fwd_mma": L,
+        "fused_decode_step": 31, "fused_decode_step_tma": 31,
+        "rmsnorm_fwd": None}, forbid=("flash_decode",))
+    scores = beams.scores.cpu()
+    if not (bool(torch.isfinite(scores).all())
+            and bool((scores[1:] <= scores[:-1]).all())
+            and beams.lengths.cpu().tolist() == [288] * 4
+            and torch.equal(beams.tokens.cpu()[:, :256],
+                            prompt[None, :256].expand(4, 256))):
+        raise RuntimeError(f"beam search: scores {scores.tolist()}, lengths "
+                           f"{beams.lengths.tolist()}")
+    log(f"beam llama2-7b: width 4, 256-token prompt + 32 in {t_all:.3f}s; "
+        f"prefill (b = 4) {t_pre * 1e3:.2f} ms, {(t_all - t_pre) * 1e3 / 31:.2f}"
+        f" ms a step with the KV reorder (31 steps, one K12 launch each at "
+        f"b = 4); scores {[round(float(s), 4) for s in scores]}; host "
+        f"clock; card {smi}")
+    paths["beam llama2-7b"] = launches
+    one = beam_search(cfg, params, prompt, 256, beam_size=1, stop_token=-1)
+    greedy = generate_tokens(cfg, params, prompt[None], [256],
+                             use_eos_stop=False)
+    if not torch.equal(one.tokens[0].cpu(), greedy.tokens[0].cpu()):
+        raise RuntimeError("beam search at width 1 differs from greedy "
+                           "generate_tokens")
+    log("beam llama2-7b: width 1 equals greedy generate_tokens, token for "
+        "token")
+
+    tp = _phase_done("24", tp, smi)
+    # phase 25: score_tokens on 4 x 1024 tokens
+    seqs = torch.randint(0, V, (4, 1024), generator=gen)
+    score_tokens(cfg, params, seqs)
+    _zero(counters)
+    lp, t_s = _timed(torch, lambda: score_tokens(cfg, params, seqs))
+    launches = _launches(counters)
+    _check_path("score llama2-7b", launches, {
+        "flash_attention_fwd": L, "flash_attention_fwd_mma": L,
+        "rmsnorm_fwd": 2 * L + 1}, forbid=("fused_decode_step",))
+    if tuple(lp.shape) != (4, 1023) or not bool(torch.isfinite(lp).all()) \
+            or float(lp.max()) > 0.0:
+        raise RuntimeError(f"score_tokens: shape {tuple(lp.shape)}, max "
+                           f"{float(lp.max())}")
+    log(f"score llama2-7b: 4 x 1024 tokens in {t_s * 1e3:.2f} ms, "
+        f"{4096 / t_s:.1f} tok/s, mean log-prob {float(lp.mean()):.4f}; "
+        f"host clock; card {smi}")
+    paths["score llama2-7b"] = launches
+
+    tp = _phase_done("25", tp, smi)
+    # phase 26: prompt-lookup speculation on prompts that repeat a span
+    ptoks, plens = _prompts(torch, PLD_LENS, 64, V, gen, spans=True)
+    _zero(counters)
+    pld, t_p = _timed(torch, lambda: generate_tokens_pld(
+        cfg, params, ptoks, plens, use_eos_stop=False))
+    launches = _launches(counters)
+    _check_path("pld llama2-7b", launches, {
+        "flash_attention_fwd": L, "flash_attention_fwd_mma": L,
+        "rmsnorm_fwd": None}, forbid=("flash_decode",))
+    _check_tokens(torch, "pld llama2-7b", pld, ptoks, plens, V)
+    paths["pld llama2-7b"] = launches
+    plain, t_g = _timed(torch, lambda: generate_tokens(
+        cfg, params, ptoks, plens, use_eos_stop=False))
+    new_tok = sum(ptoks.shape[1] - n for n in PLD_LENS)
+    agree = []
+    for i, n in enumerate(PLD_LENS):
+        a, b = pld.tokens[i, n:].cpu(), plain.tokens[i, n:].cpu()
+        diff = (a != b).nonzero()
+        if len(diff) == 0:
+            agree.append(f"row {i}: all {len(a)} equal")
+            continue
+        p = n + int(diff[0])
+        lg = M.forward(cfg, params, plain.tokens[i:i + 1, :p].to(dev))
+        top = torch.topk(lg[0, -1, :V], 2).values
+        agree.append(f"row {i}: first divergence at {p}, greedy's logit "
+                     f"margin there {float(top[0] - top[1]):.4f}")
+    log(f"pld llama2-7b: prompts of {PLD_LENS} (a 48-token span repeated) "
+        f"+ 64 greedy, draft 5, n-gram 3: {pld.steps} forwards for "
+        f"{new_tok} new tokens ({new_tok / pld.steps:.2f} tokens a step over "
+        f"4 rows), "
+        f"acceptance {pld.accepted / max(1, pld.proposed):.3f} "
+        f"({pld.accepted} of {pld.proposed} drafted), tail K12 launches "
+        f"{launches['fused_decode_step']}; {t_p:.3f}s ({new_tok / t_p:.1f} "
+        f"tok/s) against greedy generate_tokens' {t_g:.3f}s "
+        f"({new_tok / t_g:.1f}); host clock; card {smi}")
+    log("pld llama2-7b against greedy generate_tokens (not gated: the bf16 "
+        "verify window and K12's step round differently): "
+        + "; ".join(agree))
+    pld_rec = dict(tokens_per_step=new_tok / pld.steps,
+                   acceptance=pld.accepted / max(1, pld.proposed))
+
+    tp = _phase_done("26", tp, smi)
+    # phase 27: the composed route (fused_decode=False): K8, never K12
+    composed = dataclasses.replace(cfg, fused_decode=False)
+    short = same[:, :256 + 32]
+    generate_tokens(composed, params, short[:, :260], lens256,
+                    use_eos_stop=False)
+    _zero(counters)
+    comp, t_c = _timed(torch, lambda: generate_tokens(
+        composed, params, short, lens256, use_eos_stop=False))
+    launches = _launches(counters)
+    _check_path("generate llama2-7b composed", launches, {
+        "flash_attention_fwd": L, "flash_decode": 31 * L,
+        "flash_decode_split": 31 * L, "rmsnorm_fwd": None},
+        forbid=("fused_decode_step",))
+    _check_tokens(torch, "generate llama2-7b composed", comp, short,
+                  lens256, V)
+    same_tok = int((comp.tokens.cpu()[:, 256:]
+                    == batch[:, 256:288]).sum())
+    log(f"generate llama2-7b composed: 4 prompts of 256 + 32 in "
+        f"{t_c:.3f}s, {4 * 32 / t_c:.1f} new tok/s, "
+        f"{t_c * 1e3 / 32:.2f} ms a step (K8 once a layer); {same_tok} of "
+        f"128 new tokens equal the fused route's (not gated); host clock; "
+        f"card {smi}")
+    paths["generate llama2-7b composed"] = launches
+
+    tp = _phase_done("27", tp, smi)
+    # phase 30: the server's beam and score routes, phase 19's server
+    tok = NullTokenizer(V)
+    server = MegatronServer(cfg, params, tok, max_batch_size=4,
+                            engine_max_seq_len=2048, prefill_bucket=64,
+                            kv_block_size=64, device=dev)
+    server.run("127.0.0.1", 0, block=False)
+    try:
+        text = " ".join(str(int(t)) for t in same[1, :128])
+        texts = [text, " ".join(str(int(t)) for t in same[2, :200])]
+        _zero(counters)
+        s_beam, beam_out = put(server.port, {
+            "prompts": [text], "tokens_to_generate": 16, "beam_width": 2})
+        s_score, score_out = put(server.port, {
+            "prompts": texts, "tokens_to_generate": 0, "logprobs": True})
+        launches = _launches(counters)
+        want_beam = beam_search_and_post_process(
+            cfg, params, tok, text, tokens_to_generate=16, beam_size=2,
+            num_return_gen=2, return_segments=True)
+        want_score = score_and_post_process(cfg, params, tok, texts)
+        if (s_beam, s_score) != (200, 200) \
+                or beam_out != {"text": want_beam.texts,
+                                "segments": want_beam.segments,
+                                "scores": want_beam.scores} \
+                or score_out != {"text": want_score.texts,
+                                 "logprobs": want_score.logprobs}:
+            raise RuntimeError(f"server beam / score answered {s_beam} / "
+                               f"{s_score}, or not the direct calls' results")
+    finally:
+        server.shutdown()
+    _check_path("server beam+score llama2-7b", launches, {
+        "flash_attention_fwd": 2 * L, "fused_decode_step": None,
+        "rmsnorm_fwd": None})
+    log(f"server: PUT /api beam_width 2 and tokens_to_generate 0 answered "
+        f"200, equal to beam_search_and_post_process and "
+        f"score_and_post_process (beam scores "
+        f"{[round(s, 4) for s in beam_out['scores']]})")
+    paths["server beam+score llama2-7b"] = launches
+    _phase_done("30", tp, smi)
+    log(f"generate phases 23-27, 30 (llama2-7b) in "
+        f"{time.perf_counter() - t0:.1f}s; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; card {smi}")
+    return pld_rec
+
+
+def generate_gpt(torch, dev, counters, smi, paths):
+    """Phase 28: GPT-1.3B at full depth, bf16: K1 prefill, K6, and K8 once a
+    layer a decode step (K12 refuses LayerNorm stacks)."""
+    from megatron_llm_tpu_torch.config import gpt_config
+    from megatron_llm_tpu_torch.generation import generate_tokens
+    from megatron_llm_tpu_torch.models import model as M
+
+    tp = time.perf_counter()
+    cfg = gpt_config("1.3b", params_dtype="bfloat16", attention_impl="flash",
+                     norm_impl="pallas")
+    params = M.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(12)
+    toks, lens = _prompts(torch, (256,) * 4, 32, cfg.vocab_size, gen)
+    generate_tokens(cfg, params, toks[:, :260], lens, use_eos_stop=False)
+    _zero(counters)
+    out, t_g = _timed(torch, lambda: generate_tokens(
+        cfg, params, toks, lens, use_eos_stop=False))
+    launches = _launches(counters)
+    L = cfg.num_layers
+    _check_path("generate gpt-1.3b", launches, {
+        "flash_attention_fwd": L, "flash_decode": 31 * L,
+        "flash_decode_split": 31 * L, "layernorm_fwd": None},
+        forbid=("fused_decode_step", "rmsnorm_fwd"))
+    _check_tokens(torch, "generate gpt-1.3b", out, toks, lens,
+                  cfg.vocab_size)
+    log(f"generate gpt-1.3b: 4 prompts of 256 + 32 in {t_g:.3f}s, "
+        f"{4 * 32 / t_g:.1f} new tok/s, {t_g * 1e3 / 32:.2f} ms a step; "
+        f"host clock; card {smi}")
+    paths["generate gpt-1.3b"] = launches
+    _phase_done("28", tp, smi)
+
+
+def generate_reference(torch, cfg_full, dev, smi):
+    """Phase 29: Llama-2-7B widths cut to 2 layers, the bf16 kernel path
+    (K1, K4, K12) against the fp32 plain path from the same weights: the
+    log-probs of 16 generated tokens, ``score_tokens`` and a width-4
+    beam's scores, each held to phase 4's limits on the fp32 scoring of
+    the same tokens (mean abs err <= 0.03, max <= 0.25)."""
+    from megatron_llm_tpu_torch.generation import (
+        beam_search,
+        generate_tokens,
+        score_tokens,
+    )
+    from megatron_llm_tpu_torch.models import model as M
+
+    tp = time.perf_counter()
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    params = M.init_params(cfg, seed=1, device=dev)
+    ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
+                                  attention_impl="dot", norm_impl="xla",
+                                  fused_decode=False)
+
+    def to32(t):
+        return ({k: to32(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.float())
+
+    ref_params = to32(params)
+    gen = torch.Generator().manual_seed(13)
+    toks, lens = _prompts(torch, (192, 192), 16, cfg.vocab_size, gen)
+    out = generate_tokens(cfg, params, toks, lens, use_eos_stop=False,
+                          return_logprobs=True)
+    ref = score_tokens(ref_cfg, ref_params, out.tokens)        # [2, 207]
+    got = score_tokens(cfg, params, out.tokens)
+    beams = beam_search(cfg, params, toks[0], 192, beam_size=4,
+                        stop_token=-1, num_return_gen=4)
+    beam_ref = score_tokens(ref_cfg, ref_params, beams.tokens)[:, 191:]
+    checks = {
+        "generated log-probs": (out.logprobs[:, 191:], ref[:, 191:]),
+        "score_tokens": (got, ref),
+        "beam scores": (beams.scores, beam_ref.sum(dim=1) / 16.0),
+    }
+    for name, (a, b) in checks.items():
+        diff = (a - b).abs()
+        mean_err, max_err = float(diff.mean()), float(diff.max())
+        log(f"generate reference [llama2-7b widths, 2 layers, bf16 kernel "
+            f"path vs fp32 plain scoring of the same tokens] {name}: "
+            f"mean_abs_err {mean_err:.4f} (tol 0.03) max_abs_err "
+            f"{max_err:.4f} (tol 0.25)")
+        if not bool(torch.isfinite(a).all()) or mean_err > 0.03 \
+                or max_err > 0.25:
+            raise RuntimeError(f"generate reference: {name} disagree with "
+                               "the fp32 path")
+    _phase_done("29", tp, smi)
+
+
 def log_hmma(build) -> None:
     """Log the tensor-core instructions (HMMA) of the attention kernels'
     libraries, where the toolkit's cuobjdump is present; information only."""
@@ -2683,6 +3106,18 @@ def main() -> int:
         paths[label] = launches
     settle()
     log(f"lora phase 22 in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pld_rec = generate_llama(torch, fused, dev, counters, smi, paths)
+        settle()
+        generate_gpt(torch, dev, counters, smi, paths)
+        settle()
+        generate_reference(torch, fused, dev, smi)
+    settle()
+    log(f"generate phases 23-30 in {time.perf_counter() - t0:.1f}s "
+        f"(pld {pld_rec['tokens_per_step']:.2f} tokens a step, acceptance "
+        f"{pld_rec['acceptance']:.3f}); card {smi}")
 
     meta = {
         "flash_attention_fwd": (

@@ -11,7 +11,10 @@ Two paths are ported.  Serving: ``generation.server.MegatronServer`` →
 ``kernels/``.  Training on one device: ``finetune`` →
 ``training.driver.pretrain`` → ``training.step`` → the same model, its
 backward through autograd, ``parallel.cross_entropy``,
-``resilience.anomaly`` and ``training.optimizer``.  Serving also runs
+``resilience.anomaly`` and ``training.optimizer``.  KV-cached generation
+(``generation.generate_tokens``, ``score_tokens``, ``beam_search``,
+``generation.speculative``) runs the same model one request at a time,
+behind the server's beam, score and prompt-lookup routes.  Serving also runs
 quantized: an int8 KV cache (``ops.kv_quant``) and int8 / int4 weight
 policies (``ops.quant``).  The kernels: flash-attention forward and
 backward (dQ; dK/dV) and the decode-attention family (dense, int8, paged,

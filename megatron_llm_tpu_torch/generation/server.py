@@ -1,20 +1,26 @@
 """REST text-generation server (mirror of
-``megatron_llm_tpu/generation/server.py`` for standard generation).
+``megatron_llm_tpu/generation/server.py``).
 
 ``PUT /api`` takes the reference's JSON body (``prompts`` plus sampling
-knobs) with the same validation and error strings, submits the prompts to
-the continuous-batching engine and returns ``{"text", "segments",
-"logprobs", "request_ids"}``.  ``GET /metrics`` returns the engine's JSON
-metrics snapshot, ``GET /trace`` its span ring as Chrome trace-event
-JSON, ``GET /kv`` the paged pool.  Built on the stdlib
-``ThreadingHTTPServer``.  ``draft_cfg``/``draft_params`` give the engine
-a resident draft model (tree speculation with ``spec_draft_len > 0``).
+knobs) with the same validation and error strings.  Standard generation
+goes to the continuous-batching engine and returns ``{"text",
+"segments", "logprobs", "request_ids"}``; ``beam_width`` runs
+``beam_search`` (``{"text", "segments", "scores"}``) and
+``tokens_to_generate=0`` scores the prompts (``{"text", "logprobs"}``),
+each one request at a time under a lock, on the one-shot KV-cached path
+(``generation/generation.py``).  ``GenerationService(speculative="pld")``
+sends eligible requests (greedy, no log-probs) through prompt-lookup
+speculation under the same lock and tags each response ``"pld"`` or
+``"fallback:<why>"``.  ``GET /metrics`` returns the engine's JSON metrics
+snapshot, ``GET /trace`` its span ring as Chrome trace-event JSON, ``GET
+/kv`` the paged pool.  Built on the stdlib ``ThreadingHTTPServer``.
+``draft_cfg``/``draft_params`` give the engine a resident draft model
+(tree speculation with ``spec_draft_len > 0``).
 
 Not in this slice, answered with an explicit error naming the ROADMAP
-item: beam search (``beam_width``), scoring (``tokens_to_generate=0``),
-prompt-lookup speculation (``speculative="pld"``), the Prometheus
-exposition, the multi-replica / sharded / disaggregated front-ends, and
-every engine option the engine refuses (501 with its message).
+item: the Prometheus exposition, the multi-replica / sharded /
+disaggregated front-ends, and every engine option the engine refuses
+(501 with its message).
 """
 
 from __future__ import annotations
@@ -28,11 +34,12 @@ from urllib.parse import parse_qs, urlparse
 
 from ..config import ModelConfig
 from ..tokenizer.tokenizer import Tokenizer
-
-_BEAM_TODO = ("beam search is not ported yet (ROADMAP.md, Queue 1: "
-              "KV-cached generation, beam_search)")
-_SCORE_TODO = ("scoring (tokens_to_generate=0) is not ported yet "
-               "(ROADMAP.md, Queue 1: KV-cached generation, score_tokens)")
+from .api import (
+    beam_search_and_post_process,
+    generate_and_post_process,
+    pld_eligible,
+    score_and_post_process,
+)
 
 
 class GenerationService:
@@ -67,10 +74,6 @@ class GenerationService:
                  replicas: int = 1,
                  router: bool = False,
                  device=None):
-        if speculative is not None:
-            raise NotImplementedError(
-                "speculative='pld' is not ported yet (ROADMAP.md, Queue 1: "
-                "KV-cached generation, generation/speculative.py)")
         if tensor_parallel * pipeline_parallel * replicas > 1 or router:
             raise NotImplementedError(
                 "sharded / replicated serving is not ported yet (ROADMAP.md, "
@@ -80,6 +83,10 @@ class GenerationService:
         self.tokenizer = tokenizer
         self.max_batch_size = max_batch_size
         self.max_tokens_to_generate = max_tokens_to_generate
+        # prompt-lookup speculation (generation/speculative.py) for
+        # eligible requests; the response's "speculative" field says which
+        # path served each one
+        self.speculative = speculative
         self.queue_size = queue_size
         self.engine_max_seq_len = min(
             engine_max_seq_len or cfg.max_position_embeddings,
@@ -101,6 +108,9 @@ class GenerationService:
         self.trace_enabled = trace
         self.device = device
         self._engine = engine
+        # the one-shot paths (beam search, scoring, PLD) run one request
+        # at a time
+        self.lock = threading.Lock()
         self._engine_init_lock = threading.Lock()
         self._draining = False
 
@@ -261,9 +271,31 @@ class GenerationService:
                 return 400, "beam_width must be an integer > 0"
             if len(prompts) > 1:
                 return 400, "When doing beam_search, batch size must be 1"
-            return 501, _BEAM_TODO
+        stop_token = body.get("stop_token", None)
+        length_penalty = body.get("length_penalty", 1.0)
+
+        if beam_width is not None:
+            with self.lock:
+                try:
+                    res = beam_search_and_post_process(
+                        self.cfg, self.params, self.tokenizer, prompts[0],
+                        tokens_to_generate=tokens_to_generate,
+                        beam_size=beam_width, stop_token=stop_token,
+                        length_penalty=length_penalty,
+                        num_return_gen=beam_width, add_BOS=add_BOS,
+                        return_segments=True)
+                except ValueError as e:
+                    return 400, str(e)
+            return 200, {"text": res.texts, "segments": res.segments,
+                         "scores": res.scores}
         if tokens_to_generate == 0:
-            return 501, _SCORE_TODO
+            with self.lock:
+                try:
+                    res = score_and_post_process(
+                        self.cfg, self.params, self.tokenizer, prompts)
+                except ValueError as e:
+                    return 400, str(e)
+            return 200, {"text": res.texts, "logprobs": res.logprobs}
         return self._handle_generate(
             prompts, tokens_to_generate, logprobs=logprobs, top_k=top_k,
             top_p=top_p, temperature=temperature, add_BOS=add_BOS,
@@ -296,6 +328,29 @@ class GenerationService:
         if total_budget > budget:
             return 400, (f"prompt + tokens_to_generate = {total_budget} "
                          f"exceeds the sequence budget = {budget}")
+
+        spec_tag = None
+        if self.speculative == "pld":
+            ok, reason = pld_eligible("pld", top_k, top_p, logprobs, lengths)
+            if ok:
+                # PLD's multi-token verify loop is the one-shot path
+                with self.lock:
+                    try:
+                        res = generate_and_post_process(
+                            self.cfg, self.params, self.tokenizer, prompts,
+                            tokens_to_generate=tokens_to_generate,
+                            return_output_log_probs=logprobs,
+                            return_segments=True, top_k_sampling=top_k,
+                            top_p_sampling=top_p, temperature=temperature,
+                            add_BOS=add_BOS,
+                            use_eod_token_for_early_termination=use_eos_stop,
+                            random_seed=random_seed, speculative="pld")
+                    except ValueError as e:
+                        return 400, str(e)
+                return 200, {"text": res.texts, "segments": res.segments,
+                             "logprobs": res.logprobs,
+                             "speculative": res.speculative}
+            spec_tag = f"fallback:{reason}"
 
         from ..serving import QueueFull
 
@@ -332,9 +387,13 @@ class GenerationService:
                 [self.tokenizer.detokenize([t]) for t in r.tokens])
             if logprobs:
                 lps.append(r.logprobs)
-        return 200, {"text": texts, "segments": segments,
-                     "logprobs": lps if logprobs else None,
-                     "request_ids": [h.rid for h in handles]}
+        resp = {"text": texts, "segments": segments,
+                "logprobs": lps if logprobs else None,
+                "request_ids": [h.rid for h in handles]}
+        if spec_tag is not None:
+            # the requested speculative path did not serve these prompts
+            resp["speculative"] = spec_tag
+        return 200, resp
 
 
 class _Handler(BaseHTTPRequestHandler):

@@ -170,7 +170,8 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    k_cache, v_cache, cache_len,
                    *, rope: Optional[tuple] = None, empty_cache: bool = False,
                    last_logit_only: bool = False,
-                   logit_rows: Optional[torch.Tensor] = None, lora=None):
+                   logit_rows: Optional[torch.Tensor] = None, lora=None,
+                   position_ids: Optional[torch.Tensor] = None):
     """Incremental forward: consume ``tokens`` [b, s] at positions
     ``cache_len .. cache_len + s`` (``cache_len`` an int or a [b] tensor of
     per-row fills), write their K/V into the caches in place, and return
@@ -188,14 +189,23 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``cache_update`` (an int8 cache requantizes the kernel's
     fake-quantized rows to the same codes).  Everything else takes the
     composed per-layer path.  ``lora`` (``(arenas, mask)``) rides both
-    routes: the kernel's epilogue, or each layer's ``_lora_add``."""
+    routes: the kernel's epilogue, or each layer's ``_lora_add``.
+
+    ``position_ids`` [b, s] embeds and rotates the tokens at other
+    positions than the cache columns they are written to (a speculative
+    verify's frozen rows clamp theirs to the tables, as XLA's gather
+    clamps; the fused route rotates at ``cache_len`` clamped to the
+    table, so there they may differ only by that clamp)."""
     cos, sin = _rope(cfg, params, rope)
     b, s = tokens.shape
     offs = torch.arange(s, device=tokens.device, dtype=torch.long)
-    if isinstance(cache_len, int):
+    if not isinstance(cache_len, int):
+        cache_len = torch.as_tensor(cache_len, device=tokens.device)
+    if position_ids is not None:
+        position_ids = torch.as_tensor(position_ids, device=tokens.device)
+    elif isinstance(cache_len, int):
         position_ids = (cache_len + offs)[None, :].expand(b, s)
     else:
-        cache_len = torch.as_tensor(cache_len, device=tokens.device)
         position_ids = (cache_len.to(torch.long).reshape(-1, 1)
                         + offs[None, :]).expand(b, s)
     x = embed(cfg, params, tokens, position_ids)
@@ -473,6 +483,15 @@ def cache_gather_blocks(pool, tables: torch.Tensor):
         return x.reshape((L, S, kv, T * bk) + tail)
 
     return _leafwise(g, pool)
+
+
+def cache_take_rows(cache, idx: torch.Tensor):
+    """Batch rows ``idx`` of a dense cache ``[L, b, kv, max_len(, d)]``,
+    every leaf, as NEW tensors (JAX's ``take`` on axis 1): a beam reorder
+    must copy, since ``cache_update`` writes the caches in place and a
+    view would alias the source rows."""
+    idx = torch.as_tensor(idx, device=_leaf(cache).device).to(torch.long)
+    return _leafwise(lambda a: a.index_select(1, idx), cache)
 
 
 def cache_scatter_blocks(pool, dense, bids):

@@ -98,6 +98,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..generation.sampling import NEG_INF, generator, gumbel_argmax
 from ..kernels.decode_step import (
     fused_paged_decode_eligible,
     fused_paged_verify_eligible,
@@ -111,8 +112,6 @@ from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .queue import QueueFull, RequestQueue  # noqa: F401  (re-exported)
 from .slots import SlotAllocator
-
-NEG_INF = -1.0e10  # the JAX package's sampling mask value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,19 +261,6 @@ class RequestHandle:
 # ---------------------------------------------------------------------------
 
 
-def _stream_seed(seed: int, counter: int) -> int:
-    """The per-request random stream's seed for its ``counter``-th sampled
-    token (the port's ``fold_in(key(seed), counter)``): a splitmix64 hash
-    of both, so every bit of the result depends on both (the CPU generator
-    keeps only the low 32 bits of its seed)."""
-    mask = (1 << 64) - 1
-    z = ((int(seed) & 0xFFFFFFFF) << 32) | (int(counter) & 0xFFFFFFFF)
-    z = (z + 0x9E3779B97F4A7C15) & mask
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
-    return (z ^ (z >> 31)) >> 1  # a non-negative int64
-
-
 def _sample_slots(logits: torch.Tensor, seeds, counters, greedy, temps,
                   top_ks, top_ps, vocab: int):
     """Per-slot mixed-mode sampling over ``[S, V]`` fp32 logits → ``(tok
@@ -283,9 +269,9 @@ def _sample_slots(logits: torch.Tensor, seeds, counters, greedy, temps,
     The knob vectors are host numpy arrays.  Greedy slots take the
     padded-vocab-masked argmax; the rest apply temperature, a dynamic
     per-slot top-k rank mask and a per-slot nucleus (top-p) threshold,
-    then draw by Gumbel-max from a generator seeded by
-    ``_stream_seed(seed, counter)``: the draw depends only on the request
-    and its token index."""
+    then draw by Gumbel-max from the stream ``(seed, counter)``
+    (``generation/sampling.py``): the draw depends only on the request and
+    its token index."""
     S, V = logits.shape
     dev = logits.device
     pad = torch.arange(V, device=dev) >= vocab
@@ -311,11 +297,8 @@ def _sample_slots(logits: torch.Tensor, seeds, counters, greedy, temps,
         threshold = kept.min(dim=-1, keepdim=True).values
         scaled = scaled.masked_fill(scaled < threshold, NEG_INF)
         for i in sampled_rows:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(_stream_seed(seeds[i], counters[i]))
-            u = torch.rand(V, generator=gen, device=dev)
-            gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-            tok[i] = torch.argmax(scaled[i] + gumbel)
+            gen = generator((seeds[i], counters[i]), dev)
+            tok[i] = gumbel_argmax(scaled[i:i + 1], gen)[0]
     lp = torch.log_softmax(logits, dim=-1)
     tok_lp = torch.gather(lp, 1, tok[:, None])[:, 0]
     return tok, tok_lp

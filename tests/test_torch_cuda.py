@@ -1478,3 +1478,83 @@ def test_fused_lora_wrappers_refuse_what_the_kernel_does_not_take(
     with pytest.raises(ValueError, match="LoRA"):   # 3 mask rows for 2
         tds.fused_decode_step(cfg, stacked, x, k, v, fills, rope,
                               lora=(arenas, torch.cat([mask, mask[:1]])))
+
+
+def _generation_model(fused: bool):
+    """A small fp32 Llama-style model (head dim 128) whose single-token
+    steps take K12 at ``fused_decode=True`` and K8 at ``False``, with its
+    prefill on K1 and its norms on K4."""
+    from megatron_llm_tpu_torch.config import llama2_config
+
+    cfg = llama2_config("7b", hidden_size=256, num_layers=2,
+                        num_attention_heads=2, ffn_hidden_size=512,
+                        vocab_size=256, seq_length=128,
+                        max_position_embeddings=128, params_dtype="float32",
+                        attention_impl="flash", norm_impl="pallas",
+                        fused_decode=fused)
+    return cfg, tm.init_params(cfg, seed=3, device="cpu")
+
+
+def _zero_counts():
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+@pytest.mark.cuda
+def test_beam_search_on_the_card_matches_cpu(cuda_device):
+    """A width-4 beam through K1, K4 and K12 on the card equals the same
+    search on the CPU (the kernels' plain versions): the hypotheses token
+    for token, the scores within 1e-4 (fp32 sums in another order)."""
+    from megatron_llm_tpu_torch.generation import beam_search
+
+    cfg, params = _generation_model(True)
+    toks = torch.zeros(40, dtype=torch.long)
+    toks[:24] = torch.randint(1, 256, (24,),
+                              generator=torch.Generator().manual_seed(5))
+    cpu = beam_search(cfg, params, toks, 24, beam_size=4, stop_token=-1,
+                      num_return_gen=4)
+    counters = _zero_counts()
+    card = beam_search(cfg, _to_dev(params, cuda_device), toks, 24,
+                       beam_size=4, stop_token=-1, num_return_gen=4)
+    print("beam tokens (card):", card.tokens[:, 24:].tolist())
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+    assert torch.equal(card.lengths.cpu(), cpu.lengths)
+    torch.testing.assert_close(card.scores.cpu(), cpu.scores, rtol=1e-4,
+                               atol=1e-4)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    assert launches["fused_decode_step"] == 40 - 24 - 1
+    assert launches["flash_attention_fwd"] == cfg.num_layers
+    assert launches["rmsnorm_fwd"] > 0 and launches["flash_decode"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_generate_tokens_on_the_card_matches_cpu(cuda_device, fused):
+    """Ragged greedy generation on the card equals the CPU's: at
+    ``fused_decode=True`` each decode step is one K12 launch, at ``False``
+    each layer's decode attention a K8 launch."""
+    from megatron_llm_tpu_torch.generation import generate_tokens
+
+    cfg, params = _generation_model(fused)
+    gen = torch.Generator().manual_seed(6)
+    toks = torch.zeros((3, 48), dtype=torch.long)
+    lens = torch.tensor([20, 27, 33])
+    for i, n in enumerate(lens.tolist()):
+        toks[i, :n] = torch.randint(1, 256, (n,), generator=gen)
+    cpu = generate_tokens(cfg, params, toks, lens, use_eos_stop=False)
+    counters = _zero_counts()
+    card = generate_tokens(cfg, _to_dev(params, cuda_device), toks, lens,
+                           use_eos_stop=False)
+    print(f"fused_decode={fused} tokens (card):",
+          [card.tokens[i, n:].tolist() for i, n in enumerate(lens.tolist())])
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    steps = 48 - 20 - 1
+    if fused:
+        assert launches["fused_decode_step"] == steps
+        assert launches["flash_decode"] == 0
+    else:
+        assert launches["fused_decode_step"] == 0
+        assert launches["flash_decode"] == steps * cfg.num_layers

@@ -42,6 +42,8 @@ def test_port_imports_no_jax():
     assert "megatron_llm_tpu_torch.ops.lora" in names
     assert "megatron_llm_tpu_torch.serving.adapters" in names
     assert "megatron_llm_tpu_torch.serving.adapters.registry" in names
+    assert "megatron_llm_tpu_torch.generation.speculative" in names
+    assert "megatron_llm_tpu_torch.tools.text_generation_cli" in names
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"

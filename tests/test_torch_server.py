@@ -15,12 +15,16 @@ import pytest
 import torch
 
 from megatron_llm_tpu.config import tiny_config as jtiny
+from megatron_llm_tpu.generation.server import GenerationService as JService
 from megatron_llm_tpu.generation.server import MegatronServer as JServer
 from megatron_llm_tpu.models import model as jm
 from megatron_llm_tpu.tokenizer.tokenizer import NullTokenizer as JNull
 from megatron_llm_tpu_torch.config import tiny_config as ttiny
 from megatron_llm_tpu_torch.convert import params_from_jax
-from megatron_llm_tpu_torch.generation import MegatronServer
+from megatron_llm_tpu_torch.generation import (
+    GenerationService,
+    MegatronServer,
+)
 from megatron_llm_tpu_torch.tokenizer import NullTokenizer
 
 torch.set_num_threads(1)
@@ -115,14 +119,134 @@ def test_invalid_bodies_match_jax(servers, body):
     assert got == want
 
 
-def test_unported_modes_name_the_roadmap(servers):
+@pytest.mark.parametrize("body", [
+    {"prompts": ["3 14 15 92"], "beam_width": 2, "tokens_to_generate": 6},
+    {"prompts": ["65 35 89"], "beam_width": 3, "tokens_to_generate": 7,
+     "length_penalty": 0.5},
+    {"prompts": ["27 18 28"], "beam_width": 2, "tokens_to_generate": 8,
+     "stop_token": "first", "length_penalty": 0.0},
+    {"prompts": ["1 2"], "beam_width": 2, "tokens_to_generate": 30},
+    {"prompts": [" ".join(["5"] * 110)], "beam_width": 2,
+     "tokens_to_generate": 30},
+])
+def test_beam_bodies_match_jax(servers, body):
+    """``beam_width`` runs beam search on both servers: the same
+    hypotheses (text, segments) and scores within 1e-4; a stop token the
+    beams meet and a length penalty change them alike; a budget past the
+    position table is the same 400."""
+    jport, tport = servers
+    body = dict(body)
+    if body.get("stop_token") == "first":
+        # the prompt's first greedy token: a hypothesis finishes at once
+        _, out = _call(jport, {"prompts": body["prompts"],
+                               "tokens_to_generate": 1})
+        body["stop_token"] = int(out["text"][0].split()[-1])
+    js, jout = _call(jport, body)
+    ts, tout = _call(tport, body)
+    assert ts == js == (400 if len(body["prompts"][0]) > 100 else 200)
+    if js != 200:
+        assert tout == jout
+        return
+    assert tout.keys() == jout.keys() == {"text", "segments", "scores"}
+    assert tout["text"] == jout["text"]
+    assert tout["segments"] == jout["segments"]
+    np.testing.assert_allclose(tout["scores"], jout["scores"], rtol=1e-4,
+                               atol=1e-4)
+    assert len(tout["text"]) == body["beam_width"]
+
+
+def test_score_bodies_match_jax(servers):
+    """``tokens_to_generate=0`` scores the prompts on both servers: the
+    same text and per-token log-probs within 1e-4."""
+    jport, tport = servers
+    rng = np.random.default_rng(1)
+    prompts = [" ".join(str(t) for t in rng.integers(1, 250, n))
+               for n in (5, 12, 1)]
+    body = {"prompts": prompts, "tokens_to_generate": 0, "logprobs": True}
+    js, jout = _call(jport, body)
+    ts, tout = _call(tport, body)
+    assert js == ts == 200
+    assert tout.keys() == jout.keys() == {"text", "logprobs"}
+    assert tout["text"] == jout["text"]
+    assert [len(x) for x in tout["logprobs"]] == [4, 11, 0]
+    for got, want in zip(tout["logprobs"], jout["logprobs"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def pld_services():
+    """Plain and ``speculative="pld"`` services, the port's and JAX's, over
+    one tiny model (JAX's weights carried across)."""
+    jc = jtiny(num_layers=1, vocab_size=256, make_vocab_size_divisible_by=8,
+               fused_decode=False)
+    tc = ttiny(num_layers=1, vocab_size=256, make_vocab_size_divisible_by=8,
+               fused_decode=False)
+    jp = jm.init_params(jax.random.key(2), jc)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    kw = dict(max_batch_size=2, engine_max_seq_len=64, prefix_cache_blocks=0,
+              trace=False)
+    svcs = {"jax": JService(jc, jp, JNull(jc.vocab_size),
+                            speculative="pld", **kw),
+            "plain": GenerationService(tc, tp, NullTokenizer(tc.vocab_size),
+                                       device="cpu", **kw),
+            "pld": GenerationService(tc, tp, NullTokenizer(tc.vocab_size),
+                                     speculative="pld", device="cpu", **kw)}
+    try:
+        yield svcs
+    finally:
+        for svc in svcs.values():
+            svc.close()
+
+
+@pytest.mark.parametrize("body,tag", [
+    ({"prompts": ["7 8 9 10", "11 12 13 14"], "tokens_to_generate": 8},
+     "pld"),
+    ({"prompts": ["7 8 9", "10 11 12 13 14"], "tokens_to_generate": 4},
+     "pld"),
+    ({"prompts": ["7 8 9 10"], "tokens_to_generate": 4, "top_k": 4,
+      "random_seed": 3}, "fallback:"),
+    ({"prompts": ["7 8"], "tokens_to_generate": 4}, "fallback:"),
+    ({"prompts": ["7 8 9 10"], "tokens_to_generate": 4, "logprobs": True},
+     "fallback:"),
+])
+def test_pld_service_matches_jax(pld_services, body, tag):
+    """``speculative="pld"``: eligible bodies are served by PLD with JAX's
+    text and the plain service's, tagged ``"pld"``; the others fall back to
+    the engine with JAX's tag (a seeded sampled body gives the plain
+    service's text: JAX's draws cannot be matched)."""
+    js, jout = pld_services["jax"].handle(dict(body))
+    ps, pout = pld_services["plain"].handle(dict(body))
+    ss, sout = pld_services["pld"].handle(dict(body))
+    assert js == ps == ss == 200
+    assert sout["speculative"] == jout["speculative"]
+    assert sout["speculative"].startswith(tag)
+    assert "speculative" not in pout
+    assert sout["text"] == pout["text"]
+    if "top_k" not in body:
+        assert sout["text"] == jout["text"]
+
+
+def test_text_generation_cli(servers, monkeypatch, capsys):
+    """The REPL client against the port's server: a non-integer token
+    count asks again, a prompt prints the server's text, EOF ends it."""
+    from megatron_llm_tpu_torch.tools import text_generation_cli as cli
+
     _, tport = servers
-    status, msg = _call(tport, {"prompts": ["1 2"], "beam_width": 2,
-                                "tokens_to_generate": 4})
-    assert status == 501 and "ROADMAP" in msg
-    status, msg = _call(tport, {"prompts": ["1 2"], "tokens_to_generate": 0,
-                                "logprobs": True})
-    assert status == 501 and "ROADMAP" in msg
+    answers = iter(["5 6 7", "three", "5 6 7", "3"])
+
+    def fake_input(prompt=""):
+        try:
+            return next(answers)
+        except StopIteration:
+            raise EOFError from None
+
+    monkeypatch.setattr("builtins.input", fake_input)
+    assert cli.main([f"127.0.0.1:{tport}"]) == 0
+    out = capsys.readouterr().out
+    assert "Number of tokens must be an integer" in out
+    _, want = _call(tport, {"prompts": ["5 6 7"], "tokens_to_generate": 3})
+    assert out.splitlines()[-1] == want["text"][0]
+    assert cli.main([]) == 2
 
 
 def test_get_metrics_and_kv(servers):
