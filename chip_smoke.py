@@ -107,7 +107,31 @@ it goes wrong:
     limits;
 30. server: phase 19's ``MegatronServer`` answers a ``beam_width`` 2 and
     a ``tokens_to_generate`` 0 PUT /api with 200 and the direct calls'
-    results.
+    results;
+31. weights round trip: Llama-2-7B at full depth, bf16, random weights
+    from a seed on the card → ``llama_to_hf`` → an HF directory
+    (config.json, safetensors shards of at most 5 GB, their index) →
+    ``checkpoint_util.hf_to_native`` (a release checkpoint) →
+    ``load_params_for_inference``: every leaf bitwise equal to the
+    original and contiguous; ``native_to_hf`` again: every tensor bitwise
+    the first export's; each stage's GB/s, host RSS and card memory
+    logged, in a temporary directory removed at the end (the free disk is
+    checked first);
+32. serve imported: ``generate_tokens`` (K1, K4, K12) on 4 x (256 + 32)
+    and the engine at its defaults (K13) on four requests, on the loaded
+    params: tokens identical to the original params';
+33. trust gate: Llama-2-7B widths cut to 2 layers, fp32, a seeded
+    HF-layout state dict imported onto the card, ``verify_correctness.
+    verify`` over 2 x (1 x 128) against the host's fp32 plain forward of
+    the same weights: avg max |Δlogit| <= 1e-3 as the CLI configures it
+    (dot attention, plain norms) and through K1 and K4 in fp32; an
+    import that skips one layer's Q/K permutation must fail;
+34. train resume: Llama-2-7B widths cut to 2 layers, seq 1024, bf16 with
+    fp32 masters: 4 steps straight through ``pretrain`` (twice: the step
+    is bitwise repeatable or not, logged), then 2 steps, a timed
+    ``save_checkpoint`` and ``load_checkpoint`` into a fresh template
+    (bitwise the saved state), and ``pretrain(load=...)`` for steps 3-4:
+    losses and params bitwise the straight run's (K1-K5).
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -117,7 +141,8 @@ K9 bit for bit on the same logical cache, K13 must equal K12 and K14 four
 K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
-Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28 and 30 are the main paths:
+Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30 and 32-34 are the main
+paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -137,8 +162,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1793,7 +1820,7 @@ def _span_prompt(torch, n, vocab, gen):
 def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
           policy=None, lens=(64, 1024, 200, 512, 96, 777, 330, 1000),
           new=32, fused=False, spans=False, spec_draft_len=0, force=(),
-          record=None, draft=None):
+          record=None, draft=None, params=None):
     """``need`` must launch on the path, ``forbid`` must not; ``policy``
     quantizes the random weights (``ops/quant.quantize_params``) before
     the server gets them.  The server has the engine's defaults (prefix
@@ -1806,7 +1833,8 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
     random, bf16; "self": the target) makes the server keep a resident
     draft model: every verify step is then one launch of K14's tree mode.
     ``record`` (a dict) receives every request's tokens, the decode rate
-    and, with speculation, the acceptance."""
+    and, with speculation, the acceptance.  ``params`` replaces the random
+    weights from seed 0."""
     from megatron_llm_tpu_torch.generation import MegatronServer
     from megatron_llm_tpu_torch.models import model as M
     from megatron_llm_tpu_torch.models.families import draft_model
@@ -1815,7 +1843,8 @@ def serve(torch, cfg, dev, counters, smi, label, need, forbid=(),
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)  # this phase's peak alone
-    params = M.init_params(cfg, seed=0, device=dev)
+    if params is None:
+        params = M.init_params(cfg, seed=0, device=dev)
     n_params = M.num_params(params)
     if policy is not None:
         params = quantize_params(params, policy)
@@ -2858,6 +2887,482 @@ def generate_reference(torch, cfg_full, dev, smi):
     _phase_done("29", tp, smi)
 
 
+# ---------------------------------------------------------------------------
+# Phases 31-34: weights in and out (tools/hf_interop.py,
+# safetensors_io.py, tools/checkpoint_util.py, checkpointing.py,
+# tools/verify_correctness.py, the driver's resume)
+# ---------------------------------------------------------------------------
+
+ARCH_FIELDS = ("vocab_size", "hidden_size", "num_layers",
+               "num_attention_heads", "kv_heads", "ffn_size", "norm_eps",
+               "rope_theta", "max_position_embeddings", "tie_embed_logits",
+               "params_dtype")
+
+
+class _PeakRss:
+    """The resident set of this process (GiB; ``/proc/self/statm``),
+    sampled every 20 ms on a thread while the ``with`` block runs:
+    ``peak`` is its largest, ``peak_in(t0, t1)`` the largest between two
+    ``time.perf_counter()`` readings."""
+
+    def __init__(self):
+        self.samples = []
+        self._stop = threading.Event()
+
+    @staticmethod
+    def now() -> float:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+    def _sample(self):
+        self.samples.append((time.perf_counter(), self.now()))
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+        return False
+
+    def peak_in(self, t0: float, t1: float) -> float:
+        """The window's samples and the one before it (the state the
+        window starts from)."""
+        before = [r for t, r in self.samples if t < t0][-1:]
+        return max(before + [r for t, r in self.samples if t0 <= t <= t1])
+
+    @property
+    def peak(self) -> float:
+        return max(r for _, r in self.samples)
+
+
+def _same_bytes(a: str, b: str, chunk: int = 1 << 26) -> bool:
+    """Two files with the same bytes, read 64 MiB at a time."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(chunk), fb.read(chunk)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _leaves_equal(torch, got, want, label):
+    """Every leaf of ``got`` bitwise equal to ``want``'s and contiguous."""
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves_with_path
+
+    want = dict(tree_leaves_with_path(want))
+    got = dict(tree_leaves_with_path(got))
+    if set(got) != set(want):
+        raise RuntimeError(f"{label}: leaves differ: {set(got) ^ set(want)}")
+    bad = [".".join(k) for k, t in got.items()
+           if t.dtype != want[k].dtype or not torch.equal(t, want[k])]
+    loose = [".".join(k) for k, t in got.items() if not t.is_contiguous()]
+    if bad or loose:
+        raise RuntimeError(f"{label}: leaves not bitwise equal {bad}, not "
+                           f"contiguous {loose}")
+    return len(got)
+
+
+def weights_round_trip(torch, cfg, dev, smi, work):
+    """Phase 31: random bf16 params from a seeded generator on the card →
+    ``llama_to_hf`` → an HF directory (config.json, safetensors shards of
+    at most 5 GB, the index) → ``checkpoint_util.hf_to_native`` (a
+    release checkpoint) → ``load_params_for_inference`` onto the card,
+    every leaf bitwise equal to the original and contiguous →
+    ``checkpoint_util.native_to_hf``, its files (every tensor and the
+    index) byte for byte the first export's.  Returns ``(original params,
+    loaded params)``."""
+    from megatron_llm_tpu_torch import checkpointing, safetensors_io
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.tools import checkpoint_util, hf_interop
+
+    hf_dir, rel_dir, hf2_dir = (os.path.join(work, n)
+                                for n in ("hf", "release", "hf_again"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    rss0 = _PeakRss.now()
+    params = M.init_params(cfg, seed=0, device=dev)
+    gb = M.num_params(params) * 2 / 1e9
+    free = shutil.disk_usage(work).free / 1e9
+    log(f"weights: {cfg.num_layers} layers, {gb:.2f} GB of bf16 params; "
+        f"{free:.1f} GB free under {work} for the round trip's three "
+        f"copies; host RSS {rss0:.2f} GiB")
+    if free < 3.1 * gb:
+        raise RuntimeError(f"weights: {free:.1f} GB free, the round trip "
+                           f"needs {3.1 * gb:.1f}")
+    stage, peak = {}, {}
+
+    with _PeakRss() as rss:
+        t = time.perf_counter()
+        sd = hf_interop.llama_to_hf(params, cfg)
+        os.makedirs(hf_dir)
+        with open(os.path.join(hf_dir, "config.json"), "w") as f:
+            json.dump(checkpoint_util._hf_config_from_native(cfg, "llama"),
+                      f)
+        files = safetensors_io.save_sharded(sd, hf_dir)
+        del sd
+        stage["export"] = time.perf_counter() - t
+    peak["export"] = rss.peak
+    with _PeakRss() as rss:
+        t = time.perf_counter()
+        stats = checkpoint_util.hf_to_native(hf_dir, rel_dir, "llama",
+                                             dtype="bfloat16", device=dev)
+    stage["import"], stage["release save"] = stats["import_s"], \
+        stats["save_s"]
+    # the import's own clock starts a config read after t: each window
+    # starts early by that read
+    split = t + stats["import_s"]
+    peak["import"] = rss.peak_in(t, split)
+    peak["release save"] = rss.peak_in(split, float("inf"))
+    with _PeakRss() as rss:
+        t = time.perf_counter()
+        loaded_cfg = checkpointing.load_config_from_checkpoint(rel_dir).model
+        loaded = checkpointing.load_params_for_inference(rel_dir, loaded_cfg,
+                                                         device=dev)
+        torch.cuda.synchronize()
+        stage["load"] = time.perf_counter() - t
+    peak["load"] = rss.peak
+    arch = {f: (getattr(cfg, f), getattr(loaded_cfg, f))
+            for f in ARCH_FIELDS}
+    if any(a != b for a, b in arch.values()):
+        raise RuntimeError(f"weights: the imported config differs {arch}")
+    n = _leaves_equal(torch, loaded, params, "weights load")
+    with _PeakRss() as rss:
+        t = time.perf_counter()
+        back = checkpoint_util.native_to_hf(rel_dir, hf2_dir, device=dev)
+    stage["native-to-hf"] = back["load_s"] + back["export_s"]
+    split = t + back["load_s"]
+    peak["native-to-hf load"] = rss.peak_in(t, split)
+    peak["native-to-hf export"] = rss.peak_in(split, float("inf"))
+    # the same writer on the same tensors: the files must be the same bytes
+    names = sorted(os.listdir(hf_dir))
+    if names != sorted(os.listdir(hf2_dir)):
+        raise RuntimeError(f"weights: native-to-hf wrote other files "
+                           f"{sorted(os.listdir(hf2_dir))}")
+    with open(os.path.join(hf_dir, "config.json")) as a, \
+            open(os.path.join(hf2_dir, "config.json")) as b:
+        if json.load(a) != json.load(b):
+            raise RuntimeError("weights: native-to-hf wrote another config")
+    for name in names:
+        if name != "config.json" and not _same_bytes(
+                os.path.join(hf_dir, name), os.path.join(hf2_dir, name)):
+            raise RuntimeError(f"weights: native-to-hf's {name} differs "
+                               f"from the first export's")
+    n_tensors = len(safetensors_io.open_sharded(hf2_dir))
+    rates = ", ".join(f"{k} {gb / v:.2f} GB/s ({v:.1f}s)"
+                      for k, v in stage.items())
+    peaks = ", ".join(f"{k} {v:.2f}" for k, v in peak.items())
+    for d in (hf_dir, rel_dir, hf2_dir):
+        shutil.rmtree(d)
+    log(f"weights: {n} leaves bitwise equal and contiguous after export "
+        f"({len(files)} safetensors files), hf-to-native, the release save "
+        f"and load_params_for_inference; native-to-hf's {n_tensors} "
+        f"tensors and their index byte for byte the first export's; "
+        f"{gb:.2f} GB a stage: {rates}; peak host RSS in GiB (from "
+        f"{rss0:.2f}): {peaks}; card peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; host "
+        f"clock; card {smi}")
+    return params, loaded
+
+
+def serve_imported(torch, cfg, dev, counters, smi, params, loaded):
+    """Phase 32: ``generate_tokens`` (K1, K4, K12) on 4 x (256 + 32)
+    greedy and the engine at its defaults (K13) on four requests, on the
+    imported params: tokens identical to the same calls on the original
+    params.  Returns the imported runs' launches."""
+    from megatron_llm_tpu_torch.generation import generate_tokens
+
+    gen = torch.Generator().manual_seed(31)
+    toks, lens = _prompts(torch, (256,) * 4, 32, cfg.vocab_size, gen)
+    want = generate_tokens(cfg, params, toks, lens, use_eos_stop=False)
+    _zero(counters)
+    got = generate_tokens(cfg, loaded, toks, lens, use_eos_stop=False)
+    launches = _launches(counters)
+    _check_path("weights generate", launches, {
+        "flash_attention_fwd": cfg.num_layers, "fused_decode_step": 31,
+        "rmsnorm_fwd": None})
+    if not torch.equal(got.tokens, want.tokens):
+        raise RuntimeError("weights: generate_tokens on the imported params "
+                           "differs from the original's")
+    ref, imp = {}, {}
+    lens4 = (256, 700, 100, 1000)
+    serve(torch, cfg, dev, counters, smi, "weights original", (),
+          lens=lens4, fused=True, record=ref, params=params)
+    engine = serve(torch, cfg, dev, counters, smi, "weights imported",
+                   ("flash_attention_fwd", "rmsnorm_fwd",
+                    "fused_decode_step_paged"), forbid=("flash_decode",),
+                   lens=lens4, fused=True, record=imp, params=loaded)
+    if imp["tokens"] != ref["tokens"]:
+        raise RuntimeError("weights: the engine's tokens on the imported "
+                           "params differ from the original's")
+    log(f"weights: generate_tokens (4 x 256 + 32 greedy) and the engine "
+        f"(4 requests of {lens4} + 32) on the imported params: tokens "
+        f"identical to the original params'")
+    return {k: launches[k] + engine[k] for k in launches}
+
+
+def _hf_state_dict(torch, cfg, gen):
+    """A seeded HF-layout Llama state dict (fp32, on the generator's
+    device): weights N(0, 0.02), norm scales 1 + N(0, 0.1)."""
+    h, d = cfg.hidden_size, cfg.head_dim
+    nq, nkv, ffn, v = (cfg.num_attention_heads, cfg.kv_heads, cfg.ffn_size,
+                       cfg.vocab_size)
+    dev = gen.device
+
+    def w(*shape):
+        return 0.02 * torch.randn(shape, generator=gen, device=dev)
+
+    def norm():
+        return 1.0 + 0.1 * torch.randn((h,), generator=gen, device=dev)
+
+    sd = {"model.embed_tokens.weight": w(v, h), "model.norm.weight": norm(),
+          "lm_head.weight": w(v, h)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": norm(),
+            p + "post_attention_layernorm.weight": norm(),
+            p + "self_attn.q_proj.weight": w(nq * d, h),
+            p + "self_attn.k_proj.weight": w(nkv * d, h),
+            p + "self_attn.v_proj.weight": w(nkv * d, h),
+            p + "self_attn.o_proj.weight": w(h, nq * d),
+            p + "mlp.gate_proj.weight": w(ffn, h),
+            p + "mlp.up_proj.weight": w(ffn, h),
+            p + "mlp.down_proj.weight": w(h, ffn)})
+    return sd
+
+
+TRUST_TOL = 1e-3  # the reference's gate: avg of per-batch max |Δlogit|
+
+
+def trust_gate(torch, dev, counters, smi):
+    """Phase 33: Llama-2-7B widths cut to 2 layers, fp32.  A seeded
+    HF-layout state dict imported onto the card goes through
+    ``verify_correctness.verify`` over 2 batches of 1 x 128 against the
+    port's fp32 plain forward of the same weights on the host: as the CLI
+    configures it (dot attention, plain norms), then through K1 and K4 in
+    fp32; then an import that skips layer 1's Q/K permutation must fail.
+    Returns the K1/K4 pass's launches."""
+    from megatron_llm_tpu_torch.config import llama2_config
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.tools import hf_interop
+    from megatron_llm_tpu_torch.tools.verify_correctness import (
+        random_batches,
+        verify,
+    )
+
+    plain = llama2_config("7b", num_layers=2, params_dtype="float32",
+                          attention_impl="dot", norm_impl="xla",
+                          recompute="none", seq_length=128)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    sd = _hf_state_dict(torch, plain, gen)
+    host = hf_interop.llama_from_hf({k: v.cpu() for k, v in sd.items()},
+                                    plain, device="cpu")
+
+    def reference(tokens):  # the host's fp32 plain forward
+        return M.forward(plain, host, tokens)[..., :plain.vocab_size]
+
+    batches = random_batches(plain.vocab_size, 2, 1, 128, seed=33)
+    params = hf_interop.llama_from_hf(sd, plain, device=dev)
+    reports = {"dot + xla": verify(plain, params, reference, batches)}
+    kernels = dataclasses.replace(plain, attention_impl="flash",
+                                  norm_impl="pallas")
+    _zero(counters)
+    reports["flash + pallas"] = verify(kernels, params, reference, batches)
+    launches = _launches(counters)
+    _check_path("weights trust gate", launches, {
+        "flash_attention_fwd": 2 * plain.num_layers, "rmsnorm_fwd": None})
+    # the gate has to bite: layer 1's Q and K imported without the
+    # rotate-half inversion
+    q = "model.layers.1.self_attn.q_proj.weight"
+    k = "model.layers.1.self_attn.k_proj.weight"
+    bad = hf_interop.llama_from_hf(sd, plain, device=dev)
+    bad["layers"]["attn"]["wq"][1].copy_(sd[q].T)
+    bad["layers"]["attn"]["wk"][1].copy_(sd[k].T)
+    reports["no permutation"] = verify(plain, bad, reference, batches)
+    for name, r in reports.items():
+        log(f"trust gate {name}: avg max |dlogit| "
+            f"{r['avg_max_abs_err']:.3e} (max {r['max_abs_err']:.3e}, "
+            f"mean {r['avg_abs_err']:.3e}, loss delta "
+            f"{r['avg_loss_delta']:.3e}), passed {r['passed']}; fp32 on "
+            f"the card, no TF32, against the host's fp32; card {smi}")
+    failed = [n for n in ("dot + xla", "flash + pallas")
+              if not reports[n]["passed"]]
+    if failed:
+        raise RuntimeError(f"trust gate failed: {failed}")
+    if reports["no permutation"]["passed"]:
+        raise RuntimeError("trust gate passed an import that skipped a "
+                           "layer's Q/K permutation")
+    return launches, reports
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of a ``TrainState``: params, moments, master, guard."""
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    out = tree_leaves(state.params) + tree_leaves(state.opt.mu)
+    for tree in (state.opt.nu, state.opt.master):
+        if tree is not None:
+            out += tree_leaves(tree)
+    return out + list(state.guard)
+
+
+def train_resume(torch, dev, counters, smi, work):
+    """Phase 34: Llama-2-7B widths cut to 2 layers, seq 1024, bf16 with
+    fp32 masters, AdamW: 4 steps straight through ``pretrain`` (twice: is
+    the step bitwise repeatable on the card?), then 2 steps that exit,
+    ``save_checkpoint``, a load into a fresh template (bitwise the saved
+    state), and ``pretrain(load=...)`` for steps 3-4: losses and params
+    equal to the straight run's.  Returns the resumed run's launches."""
+    from megatron_llm_tpu_torch import checkpointing
+    from megatron_llm_tpu_torch.config import (
+        OptimizerConfig,
+        RuntimeConfig,
+        TrainConfig,
+        llama2_config,
+    )
+    from megatron_llm_tpu_torch.finetune import _MockDataset
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.training.driver import pretrain
+    from megatron_llm_tpu_torch.training.step import init_train_state
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    seq, root = 1024, os.path.join(work, "ckpt")
+    model = llama2_config("7b", num_layers=2, params_dtype="bfloat16",
+                          attention_impl="flash", norm_impl="pallas",
+                          recompute="selective")
+
+    def cfg(**train):
+        return RuntimeConfig(
+            model=model, optimizer=OptimizerConfig(lr_warmup_iters=1),
+            train=TrainConfig(train_iters=4, micro_batch_size=1,
+                              global_batch_size=1, seq_length=seq,
+                              log_interval=1, **train)).validate()
+
+    def run(c, params=None):
+        losses = []
+        state = pretrain(c, _MockDataset(model.vocab_size, seq, seed=1),
+                         params=params, device=dev,
+                         on_step=lambda it, m, s: losses.append(
+                             (it, float(m["loss"]))))
+        return state, losses
+
+    def host(state):
+        return [t.cpu() for t in tree_leaves(state.params)]
+
+    state, straight = run(cfg())
+    straight_params = host(state)
+    state, again = run(cfg())
+    repeatable = again == straight and all(
+        torch.equal(a, b) for a, b in zip(host(state), straight_params))
+    log(f"resume: the same 4 steps from the same seed twice: "
+        f"{'bitwise repeatable' if repeatable else 'NOT bitwise repeatable'}"
+        f" on the card (losses {straight} and {again})")
+    del state
+    gc.collect()
+
+    state, first = run(cfg(exit_interval=2))
+    ckpt_gb = sum(t.numel() * t.element_size()
+                  for t in _state_tensors(state)) / 1e9
+    t = time.perf_counter()
+    checkpointing.save_checkpoint(root, state, cfg(),
+                                  meta={"consumed_samples": 2})
+    t_save = time.perf_counter() - t
+    saved = [t.cpu() for t in _state_tensors(state)]
+    del state
+    gc.collect()
+    template = init_train_state(cfg(), M.init_params(model, seed=5,
+                                                     device=dev))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loaded, it = checkpointing.load_checkpoint(root, template)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t
+    back = _state_tensors(loaded)
+    if it != 2 or loaded.iteration != 2 or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(back, saved)):
+        raise RuntimeError("resume: the loaded state is not the saved one")
+    del template, loaded, back, saved
+    gc.collect()
+    _zero(counters)
+    state, second = run(cfg(load=root))
+    launches = _launches(counters)
+    _check_path("weights resume", launches, {
+        "flash_attention_fwd": None, "flash_attention_bwd_dq": None,
+        "flash_attention_bwd_dkv": None, "rmsnorm_fwd": None,
+        "rmsnorm_bwd": None})
+    resumed = first + second
+    diffs = [abs(a[1] - b[1]) for a, b in zip(resumed, straight)]
+    same_params = all(torch.equal(a, b) for a, b in zip(host(state),
+                                                         straight_params))
+    log(f"resume: straight {straight}, resumed {resumed}, |dloss| {diffs}, "
+        f"params {'bitwise equal' if same_params else 'differ'}; "
+        f"checkpoint {ckpt_gb:.2f} GB, save {ckpt_gb / t_save:.2f} GB/s "
+        f"({t_save:.1f}s), load {ckpt_gb / t_load:.2f} GB/s "
+        f"({t_load:.1f}s); host clock; card {smi}")
+    if [i for i, _ in resumed] != [1, 2, 3, 4]:
+        raise RuntimeError(f"resume: iterations {resumed}")
+    if repeatable and (resumed != straight or not same_params):
+        raise RuntimeError("resume: a bitwise repeatable step, yet the "
+                           "resumed run differs from the straight one")
+    if not repeatable and max(diffs) > RESUME_LOSS_TOL:
+        raise RuntimeError(f"resume: |dloss| {diffs} above "
+                           f"{RESUME_LOSS_TOL}")
+    return launches, {"repeatable": repeatable, "ckpt_gb": ckpt_gb,
+                      "save_gb_s": ckpt_gb / t_save,
+                      "load_gb_s": ckpt_gb / t_load}
+
+
+# when the card's step is not bitwise repeatable: the straight run's own
+# step-to-step noise bounds how far a resumed loss may move
+RESUME_LOSS_TOL = 1e-3
+
+
+# phase 31's depth: Llama-2-7B's full 32 layers
+WEIGHTS_LAYERS = 32
+
+
+def weights_phases(torch, cfg, dev, counters, smi, paths, settle):
+    """Phases 31-34 in a temporary directory that is removed at the end;
+    records the main paths' launches in ``paths``."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    try:
+        t0 = tp = time.perf_counter()
+        with torch.no_grad():
+            params, loaded = weights_round_trip(
+                torch, dataclasses.replace(cfg, num_layers=WEIGHTS_LAYERS),
+                dev, smi, work)
+            tp = _phase_done("31", tp, smi)
+            paths["weights"] = serve_imported(
+                torch, dataclasses.replace(cfg, num_layers=WEIGHTS_LAYERS),
+                dev, counters, smi, params, loaded)
+            del params, loaded
+            settle()
+            tp = _phase_done("32", tp, smi)
+            paths["weights trust gate"], _ = trust_gate(torch, dev, counters,
+                                                        smi)
+            settle()
+            tp = _phase_done("33", tp, smi)
+        paths["weights resume"], _ = train_resume(torch, dev, counters, smi,
+                                                  work)
+        settle()
+        _phase_done("34", tp, smi)
+        log(f"weights phases 31-34 in {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def log_hmma(build) -> None:
     """Log the tensor-core instructions (HMMA) of the attention kernels'
     libraries, where the toolkit's cuobjdump is present; information only."""
@@ -3118,6 +3623,8 @@ def main() -> int:
     log(f"generate phases 23-30 in {time.perf_counter() - t0:.1f}s "
         f"(pld {pld_rec['tokens_per_step']:.2f} tokens a step, acceptance "
         f"{pld_rec['acceptance']:.3f}); card {smi}")
+
+    weights_phases(torch, fused, dev, counters, smi, paths, settle)
 
     meta = {
         "flash_attention_fwd": (

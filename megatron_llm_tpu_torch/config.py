@@ -344,6 +344,24 @@ class RuntimeConfig:
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2, default=str)
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "RuntimeConfig":
+        """The inverse of ``to_dict``; JSON lists become tuples.  A
+        ``config.json`` written by either package loads into the same
+        fields."""
+        def tuples(section):
+            return {k: tuple(v) if isinstance(v, list) else v
+                    for k, v in d.get(section, {}).items()}
+
+        return cls(model=ModelConfig(**d.get("model", {})),
+                   parallel=ParallelConfig(**tuples("parallel")),
+                   optimizer=OptimizerConfig(**d.get("optimizer", {})),
+                   train=TrainConfig(**tuples("train")))
+
+    @classmethod
+    def from_json(cls, s: str) -> "RuntimeConfig":
+        return cls.from_dict(json.loads(s))
+
 
 # ---------------------------------------------------------------------------
 # Presets (the JAX package's, value for value)

@@ -4,14 +4,18 @@ GPT decoders on one NVIDIA GPU (mirror of the root ``finetune.py``).
 The same flags as the JAX entry, resolved into the port's
 ``RuntimeConfig`` and handed to ``training.driver.pretrain``.  ``--device``
 (default ``cuda``) takes the place of the JAX entry's platform selection;
-the CPU runs every kernel's plain version.  This slice trains on
-``--mock_data`` only; what it does not port raises ``NotImplementedError``
-naming the ROADMAP item: ``--data_path`` and ``--save``/``--load``
-(Queue 1: training I/O), parallel degrees above 1, MoE, LoRA and the int8
-training matmuls.
+the CPU runs every kernel's plain version.  ``--save`` / ``--load`` /
+``--save_interval`` write and resume the port's checkpoints
+(``checkpointing.py``); ``--load`` of a release checkpoint (the output of
+``tools/checkpoint_util.py hf-to-native``) finetunes imported weights, and
+``--use_checkpoint_args`` takes the model, parallel and optimizer config
+from the checkpoint.  This slice trains on ``--mock_data`` only; what it
+does not port raises ``NotImplementedError`` naming the ROADMAP item:
+``--data_path`` and tokenizers (Queue 1 item 7: training I/O), parallel
+degrees above 1, MoE, LoRA and the int8 training matmuls.
 
     python -m megatron_llm_tpu_torch.finetune --model tiny --mock_data \\
-        --train_iters 10 --device cpu --log_interval 1
+        --train_iters 10 --device cpu --log_interval 1 --save ckpt
 """
 
 from __future__ import annotations
@@ -248,8 +252,17 @@ def build_config(args):
         metrics=tuple(args.metrics),
         skip_iters=tuple(args.skip_iters),
     )
-    return RuntimeConfig(model=model, parallel=parallel, optimizer=optimizer,
-                         train=train).validate()
+    cfg = RuntimeConfig(model=model, parallel=parallel, optimizer=optimizer,
+                        train=train)
+    # --use_checkpoint_args: the checkpoint's config wins but for the
+    # training section (reference checkpointing.py:476-559)
+    if args.use_checkpoint_args and args.load:
+        from .checkpointing import load_config_from_checkpoint
+
+        saved = load_config_from_checkpoint(args.load)
+        cfg = RuntimeConfig(model=saved.model, parallel=saved.parallel,
+                            optimizer=saved.optimizer, train=train)
+    return cfg.validate()
 
 
 class _MockDataset:
@@ -277,7 +290,8 @@ def build_datasets(args, cfg):
     if args.data_path or args.instruction_data:
         raise NotImplementedError(
             "real datasets (--data_path, --instruction_data) are not ported "
-            "yet (ROADMAP.md, Queue 1: training I/O); use --mock_data")
+            "yet (ROADMAP.md, Queue 1 item 7: training I/O); use "
+            "--mock_data")
     if not args.mock_data:
         raise SystemExit("--mock_data is the only data source of the port "
                          "so far")
@@ -292,10 +306,10 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "LoRA finetuning is not ported yet (ROADMAP.md, Queue 1: the "
             "rest, training/lora.py)")
-    if args.tokenizer_type != "null" or args.use_checkpoint_args:
+    if args.tokenizer_type != "null":
         raise NotImplementedError(
-            "tokenizers and checkpoint args are not ported yet (ROADMAP.md, "
-            "Queue 1: training I/O)")
+            "tokenizers are not ported yet (ROADMAP.md, Queue 1 item 7: "
+            "training I/O)")
     cfg = build_config(args)
 
     from .training.driver import pretrain, print_rank_0

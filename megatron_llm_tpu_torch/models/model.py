@@ -63,14 +63,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     ``init_method_std``; output layers scaled by ``1/sqrt(2 L)``; norms 1),
     drawn on ``device`` (default ``cuda``) from a ``torch.Generator``
     seeded with ``seed``.  The numbers differ from ``jax.random``'s; tests
-    that compare with JAX copy JAX's weights with ``params_from_jax``."""
+    that compare with JAX copy JAX's weights with ``params_from_jax``.
+    On the ``meta`` device it costs nothing and gives the shapes and dtypes
+    alone (the checkpoint loader's template)."""
     device = default_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    gen = None
+    if device.type != "meta":  # meta tensors draw nothing
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     h, dtype, std = cfg.hidden_size, cfg.dtype, cfg.init_method_std
     v = cfg.padded_vocab_size(tp)
 
     def normal(shape):
+        if gen is None:
+            return torch.empty(shape, dtype=dtype, device=device)
         return (std * torch.randn(shape, generator=gen, device=device,
                                   dtype=torch.float32)).to(dtype)
 

@@ -83,6 +83,8 @@ def _lora_add(y: torch.Tensor, x: torch.Tensor, lora, target: str):
 
 
 def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
+    if generator is None:  # the meta device: shapes alone
+        return torch.empty(shape, dtype=dtype, device=device)
     return (std * torch.randn(shape, generator=generator, device=device,
                               dtype=torch.float32)).to(dtype)
 

@@ -4,15 +4,17 @@ megatron/training.py:55-961).
 
 - ``setup_train_state``: params (given, or drawn from the seed) and a fresh
   optimizer state on the device, plus the train step.
-- ``pretrain``: the loop: data iterator, ``skip_iters``, batch-size ramp,
-  ``training_log`` (tokens/s and model TFLOP/s), eval hooks, exit
-  conditions and the SIGTERM handler.
+- ``pretrain``: the loop: resume from ``train.load`` (``consumed_samples``
+  from the checkpoint's meta), data iterator, ``skip_iters``, batch-size
+  ramp, ``training_log`` (tokens/s and model TFLOP/s), eval hooks, saves
+  at ``save_interval`` and at the end or on exit, anomaly rollback to the
+  last complete checkpoint, exit conditions and the SIGTERM handler.
 - ``make_eval_step`` / ``evaluate``: the forward-only LM loss.
+- ``rollback_to_last_checkpoint``: the rollback's restore.
 
-Refused with ``NotImplementedError``, naming the ROADMAP item (Queue 1:
-training I/O): ``save``/``load`` and anomaly rollback (checkpointing), the
-metrics registry (``train.metrics``), the profiler window
-(``profile_dir``), and TensorBoard / wandb export.
+Refused with ``NotImplementedError``, naming the ROADMAP item (Queue 1
+item 7: training I/O): the metrics registry (``train.metrics``), the
+profiler window (``profile_dir``), and TensorBoard / wandb export.
 """
 
 from __future__ import annotations
@@ -26,12 +28,15 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from .. import checkpointing
+from .. import metrics as metrics_lib
 from ..config import RuntimeConfig
 from ..data.samplers import BatchIterator
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
 from ..ops import dropout as drop
 from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
+from ..resilience import chaos
 from ..utils.timers import Timers
 from ..utils.writers import build_writer
 from .microbatches import build_num_microbatches_calculator
@@ -39,7 +44,7 @@ from .step import TrainState, init_train_state, make_train_step, \
     to_device_batch
 
 PyTree = Any
-_TRAINING_IO = "(ROADMAP.md, Queue 1: training I/O)"
+_TRAINING_IO = "(ROADMAP.md, Queue 1 item 7: training I/O)"
 
 
 def print_rank_0(*args, **kwargs):
@@ -49,10 +54,6 @@ def print_rank_0(*args, **kwargs):
 
 def _refuse_unported(cfg: RuntimeConfig) -> None:
     t = cfg.train
-    if t.save or t.load or t.anomaly_rollback_after:
-        raise NotImplementedError(
-            f"checkpointing (--save / --load, anomaly rollback) is not "
-            f"ported yet {_TRAINING_IO}")
     if t.metrics:
         raise NotImplementedError(
             f"the eval metrics registry ({list(t.metrics)}) is not ported "
@@ -343,10 +344,32 @@ def pretrain(
     timers("setup").start()
     art = setup_train_state(cfg, params=params, device=device)
     state = art.state
-    timers("setup").stop(barrier=True)
 
+    # resume (reference load_checkpoint, checkpointing.py:562-678)
     iteration = 0
     consumed_samples = 0
+    tag = None
+    if cfg.train.load:
+        try:
+            tag = checkpointing.resolve_load_target(cfg.train.load)
+        except FileNotFoundError:
+            print_rank_0(f" no checkpoint under {cfg.train.load}; "
+                         "starting from scratch")
+    if tag is not None:
+        # the read fills the template's own tensors: a read that fails
+        # part way raises here rather than train on a half-restored state
+        state, tag = checkpointing.load_checkpoint(
+            cfg.train.load, state, tag, retries=cfg.train.checkpoint_retries)
+        # the meta of the iteration actually loaded: under a torn
+        # tracker's fallback it differs from the tracker's target
+        meta = checkpointing.load_meta(cfg.train.load, tag)
+        if tag != checkpointing.RELEASE:
+            iteration = int(tag)
+            consumed_samples = int(meta.get("consumed_samples", 0))
+        print_rank_0(f" loaded checkpoint from {cfg.train.load} at "
+                     f"iteration {tag} "
+                     f"(consumed_samples={consumed_samples})")
+    timers("setup").stop(barrier=True)
     calculator = build_num_microbatches_calculator(
         cfg.train.global_batch_size, cfg.train.micro_batch_size,
         cfg.parallel.data_parallel, cfg.train.rampup_batch_size)
@@ -373,6 +396,15 @@ def pretrain(
     base_rng = drop.key(cfg.train.seed)
     skip_set = set(cfg.train.skip_iters)
     exit_reason = None
+    # anomaly rollback needs a checkpoint to roll back to: anchor the run
+    # with a save when none exists yet
+    rollbacks = 0
+    if (cfg.train.anomaly_rollback_after and cfg.train.save
+            and checkpointing.latest_complete_iteration(cfg.train.save)
+            is None):
+        print_rank_0(" anomaly rollback enabled with no checkpoint on "
+                     "disk; writing the initial rollback anchor")
+        _save(cfg, state, iteration, consumed_samples, timers)
     print_rank_0(f" training starts at iteration {iteration} / "
                  f"{cfg.train.train_iters}")
     with DistSignalHandler() as sig:
@@ -406,6 +438,8 @@ def pretrain(
             except StopIteration:
                 train_iter = make_train_iter(consumed_samples, current_gbs)
                 batch = next(train_iter)
+            # chaos hook (inert unless a test armed poison_batches)
+            batch = chaos().corrupt_batch(batch, iteration + 1)
             dev_batch = to_device_batch(batch, art.device)
             timers("batch-generator").stop()
 
@@ -423,6 +457,22 @@ def pretrain(
             training_log(cfg, log, step_metrics, iteration, consumed_samples,
                          writer, timers)
 
+            # K consecutive data anomalies: restore the last complete
+            # checkpoint and keep consumed_samples where it is, so the
+            # replayed iterations read past the poisoned data
+            k_roll = cfg.train.anomaly_rollback_after
+            if k_roll and int(step_metrics["anomaly_run"]) >= k_roll:
+                state, iteration = rollback_to_last_checkpoint(
+                    cfg, state, rollbacks + 1)
+                rollbacks += 1
+                print_rank_0(
+                    f" ANOMALY ROLLBACK #{rollbacks}: {k_roll} consecutive "
+                    f"anomalous iterations; restored iteration {iteration} "
+                    f"and skipping the poisoned data window "
+                    f"(consumed_samples stays at {consumed_samples})")
+                log.reset_window()
+                continue
+
             if (persistent_valid is not None and cfg.train.eval_interval
                     and iteration % cfg.train.eval_interval == 0):
                 timers("eval").start()
@@ -431,6 +481,10 @@ def pretrain(
                     persistent_valid.iterator(current_gbs), eval_step,
                     art.device, writer, iteration)
                 timers("eval").stop()
+
+            if (cfg.train.save and cfg.train.save_interval
+                    and iteration % cfg.train.save_interval == 0):
+                _save(cfg, state, iteration, consumed_samples, timers)
 
             if sig.signals_received():
                 exit_reason = "signal"
@@ -446,9 +500,13 @@ def pretrain(
 
     if exit_reason:
         print_rank_0(f" exiting at iteration {iteration}: {exit_reason}")
+        if cfg.train.save:
+            _save(cfg, state, iteration, consumed_samples, timers)
         if exit_reason == "signal":
             writer.flush()
             sys.exit(0)
+    elif cfg.train.save:
+        _save(cfg, state, iteration, consumed_samples, timers)
 
     if persistent_valid is not None:
         evaluate_and_print_results(
@@ -465,3 +523,36 @@ def pretrain(
     elapsed = datetime.timedelta(seconds=int(time.time() - t_start))
     print_rank_0(f" training finished in {elapsed} at iteration {iteration}")
     return state
+
+
+def _save(cfg: RuntimeConfig, state, iteration: int, consumed_samples: int,
+          timers: Timers) -> None:
+    timers("save-checkpoint").start()
+    path = checkpointing.save_checkpoint(
+        cfg.train.save, state, cfg, iteration,
+        meta={"consumed_samples": consumed_samples},
+        retries=cfg.train.checkpoint_retries,
+        keep=cfg.train.keep_latest_checkpoints)
+    timers("save-checkpoint").stop()
+    print_rank_0(f" saved checkpoint to {path}")
+
+
+def rollback_to_last_checkpoint(cfg: RuntimeConfig, state, attempt: int = 1):
+    """Restore the newest complete checkpoint over ``state`` →
+    ``(restored_state, iteration)``.  ``attempt`` is the 1-based rollback
+    count of this run; past ``anomaly_max_rollbacks`` it aborts instead of
+    thrashing on data that never recovers."""
+    if attempt > cfg.train.anomaly_max_rollbacks:
+        raise RuntimeError(
+            f"giving up after {cfg.train.anomaly_max_rollbacks} anomaly "
+            "rollbacks: the loss anomaly persists beyond skip-ahead "
+            "recovery (bad data shard? diverged run?)")
+    root = cfg.train.save or cfg.train.load
+    if not root:
+        raise RuntimeError(
+            "anomaly_rollback_after is set but neither train.save nor "
+            "train.load provides a checkpoint root to roll back to")
+    state, tag = checkpointing.load_checkpoint(
+        root, state, retries=cfg.train.checkpoint_retries)
+    metrics_lib.RESILIENCE_EVENTS.inc("rollbacks")
+    return state, (0 if tag == checkpointing.RELEASE else int(tag))

@@ -33,5 +33,5 @@ def build_writer(tensorboard_dir: Optional[str] = None,
     if tensorboard_dir or wandb_project:
         raise NotImplementedError(
             "TensorBoard / wandb export is not ported yet (ROADMAP.md, "
-            "Queue 1: training I/O)")
+            "Queue 1 item 7: training I/O)")
     return NullWriter()

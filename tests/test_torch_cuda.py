@@ -1558,3 +1558,28 @@ def test_generate_tokens_on_the_card_matches_cpu(cuda_device, fused):
     else:
         assert launches["fused_decode_step"] == 0
         assert launches["flash_decode"] == steps * cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_safetensors_read_and_write_on_the_card_in_pieces(cuda_device,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """Leaves larger than a piece cross between the file and the card in
+    pieces, through one pinned buffer, bit for bit; a cast read and a
+    read into a non-contiguous tensor go through a temporary."""
+    from megatron_llm_tpu_torch import safetensors_io as sio
+
+    monkeypatch.setattr(sio, "_PIECE", 1000)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    t = {"a": _card((37, 129), gen, cuda_device),
+         "b": torch.randn(3001, generator=gen, device=cuda_device),
+         "c": torch.arange(5, dtype=torch.int8, device=cuda_device)}
+    sio.save_file(t, tmp_path / "x.safetensors")
+    f = sio.SafeFile(tmp_path / "x.safetensors")
+    for k, v in t.items():
+        assert torch.equal(f.get(k, cuda_device), v), k
+        assert torch.equal(f.get(k, "cpu"), v.cpu()), k
+    assert torch.equal(f.get("a", cuda_device, torch.float32),
+                       t["a"].float())
+    out = torch.empty(129, 37, dtype=torch.bfloat16, device=cuda_device).T
+    assert torch.equal(f.read_into("a", out), t["a"])

@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor anything of the JAX package."""
+"""The port imports neither JAX nor anything of the JAX package, and its
+weight tools need neither ``transformers`` nor ``safetensors``."""
 
 import json
 import pkgutil
@@ -44,13 +45,18 @@ def test_port_imports_no_jax():
     assert "megatron_llm_tpu_torch.serving.adapters.registry" in names
     assert "megatron_llm_tpu_torch.generation.speculative" in names
     assert "megatron_llm_tpu_torch.tools.text_generation_cli" in names
+    for new in ("checkpointing", "metrics", "resilience.io",
+                "resilience.chaos", "safetensors_io",
+                "tools.hf_interop", "tools.verify_correctness",
+                "tools.checkpoint_util", "tools.verify_checkpoint"):
+        assert f"megatron_llm_tpu_torch.{new}" in names
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'megatron_llm_tpu' or "
-        "m.startswith('megatron_llm_tpu.'))\n"
+        "roots = ('jax', 'megatron_llm_tpu', 'orbax', 'transformers', "
+        "'safetensors')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,

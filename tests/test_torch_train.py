@@ -480,8 +480,8 @@ def test_pretrain_loop_skip_iters_exit_and_eval(capsys):
 
 
 @pytest.mark.parametrize("train_kw,match", [
-    (dict(save="/nonexistent"), "checkpointing"),
-    (dict(load="/nonexistent"), "checkpointing"),
+    (dict(wandb_project="proj"), "wandb.*item 7"),
+    (dict(metrics=("perplexity",)), "metrics.*item 7"),
     (dict(metrics=("accuracy",)), "metrics"),
     (dict(profile_dir="trace"), "profiler"),
     (dict(tensorboard_dir="tb"), "TensorBoard"),
@@ -535,7 +535,7 @@ def test_finetune_bf16_default_flags_on_cpu(capsys):
     (["--data_path", "corpus"], "datasets"),
     (["--mock_data", "--lora_rank", "4"], "LoRA"),
     (["--mock_data", "--tp", "2"], "parallel"),
-    (["--mock_data", "--save", "ckpt"], "checkpointing"),
+    (["--mock_data", "--tokenizer_type", "sentencepiece"], "tokenizers"),
 ])
 def test_finetune_refuses_what_is_not_ported(argv, match):
     base = ["--model", "tiny", "--train_iters", "1", "--device", "cpu"]
