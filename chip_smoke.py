@@ -108,7 +108,8 @@ it goes wrong:
 30. server: phase 19's ``MegatronServer`` answers a ``beam_width`` 2 and
     a ``tokens_to_generate`` 0 PUT /api with 200 and the direct calls'
     results;
-31. weights round trip: Llama-2-7B at full depth, bf16, random weights
+31. weights round trip: Llama-2-7B cut to 8 layers (3.76 GB of bf16;
+    full depth until phases 35-38 needed the time), random weights
     from a seed on the card → ``llama_to_hf`` → an HF directory
     (config.json, safetensors shards of at most 5 GB, their index) →
     ``checkpoint_util.hf_to_native`` (a release checkpoint) →
@@ -131,7 +132,36 @@ it goes wrong:
     is bitwise repeatable or not, logged), then 2 steps, a timed
     ``save_checkpoint`` and ``load_checkpoint`` into a fresh template
     (bitwise the saved state), and ``pretrain(load=...)`` for steps 3-4:
-    losses and params bitwise the straight run's (K1-K5).
+    losses and params bitwise the straight run's (K1-K5);
+35. data: a seeded corpus (two jsonl files of ~0.5 MB of pseudo-words,
+    numbers, punctuation and some non-ASCII words, and 300
+    conversations), a byte-level BPE ``vocab.json`` + ``merges.txt``
+    trained on it by a small merge loop here, ``tools/preprocess_data``
+    (gpt2-bpe, ``--append_eod``, 4 workers; the conversations as
+    instruction data) and ``tools/merge_datasets``: documents decode to
+    their text; tokens/s of the native merge loop against the Python
+    loop, and the index builders' seconds, C++ against numpy;
+36. finetune: ``finetune.main`` on ``--data_path 0.7 a 0.3 b`` from a
+    seeded release checkpoint of Llama-2-7B widths cut to 2 layers
+    (``--use_checkpoint_args``): 6 steps at seq 4096, global batch 2 in
+    two microbatches, bf16 with fp32 masters, eval every 3 steps with
+    ``perplexity accuracy count_loss_mask``, the profiler over steps 4-5
+    (the trace must name K1-K3's tensor-core bodies and K5), ``--save``;
+    the batches drawn equal the blend's samples; a ``--load`` resume
+    takes step 7 from consumed_samples 12; the step against mock data at
+    the same shape, and eval with metrics against without, are logged;
+37. instruction: ``finetune.main --instruction_data`` on the
+    conversations (3 steps, ``instruct_accuracy count_instruct_mask``),
+    then ``verify_correctness.verify`` on batches of ``a`` read as
+    ``--data_path`` reads them: fp32 through K1 and K4 against the host's
+    fp32 plain forward, avg max |Δlogit| <= 1e-3;
+38. server entry: phase 36's checkpoint resaved as a release, then
+    ``tools/run_text_generation_server.main`` on it with phase 35's
+    tokenizer, on a thread, on a free port: three text prompts answered
+    with the greedy texts of ``GenerationService`` in-process on the same
+    params (K1, K4, K13); the time to the first byte; a clean stop.
+    Phases 36-38 are the ``training-io`` path: K1-K5 and K13 must launch
+    there.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -141,8 +171,8 @@ K9 bit for bit on the same logical cache, K13 must equal K12 and K14 four
 K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
-Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30 and 32-34 are the main
-paths:
+Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34 and 36-38 are the
+main paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -2495,7 +2525,11 @@ def train_gpt(torch, dev, counters, smi):
 # ---------------------------------------------------------------------------
 
 GEN_LENS = (64, 200, 377, 512)   # phase 23's ragged prompts
-PLD_LENS = (128, 192, 256, 320)  # phase 26's span prompts
+# phase 26's span prompts, + PLD_NEW greedy tokens (the longest row
+# sets the forwards: 128, cut from 256 to keep the smoke under 600 s
+# with phases 35-38)
+PLD_LENS = (128, 160, 192, 224)
+PLD_NEW = 32
 
 
 def _launches(counters):
@@ -2692,7 +2726,7 @@ def generate_llama(torch, cfg, dev, counters, smi, paths):
 
     tp = _phase_done("25", tp, smi)
     # phase 26: prompt-lookup speculation on prompts that repeat a span
-    ptoks, plens = _prompts(torch, PLD_LENS, 64, V, gen, spans=True)
+    ptoks, plens = _prompts(torch, PLD_LENS, PLD_NEW, V, gen, spans=True)
     _zero(counters)
     pld, t_p = _timed(torch, lambda: generate_tokens_pld(
         cfg, params, ptoks, plens, use_eos_stop=False))
@@ -2718,7 +2752,7 @@ def generate_llama(torch, cfg, dev, counters, smi, paths):
         agree.append(f"row {i}: first divergence at {p}, greedy's logit "
                      f"margin there {float(top[0] - top[1]):.4f}")
     log(f"pld llama2-7b: prompts of {PLD_LENS} (a 48-token span repeated) "
-        f"+ 64 greedy, draft 5, n-gram 3: {pld.steps} forwards for "
+        f"+ {PLD_NEW} greedy, draft 5, n-gram 3: {pld.steps} forwards for "
         f"{new_tok} new tokens ({new_tok / pld.steps:.2f} tokens a step over "
         f"4 rows), "
         f"acceptance {pld.accepted / max(1, pld.proposed):.3f} "
@@ -3329,8 +3363,9 @@ def train_resume(torch, dev, counters, smi, work):
 RESUME_LOSS_TOL = 1e-3
 
 
-# phase 31's depth: Llama-2-7B's full 32 layers
-WEIGHTS_LAYERS = 32
+# phase 31's depth: Llama-2-7B cut to 8 of its 32 layers (3.76 GB of
+# bf16), which keeps the smoke under 600 s with phases 35-38
+WEIGHTS_LAYERS = 8
 
 
 def weights_phases(torch, cfg, dev, counters, smi, paths, settle):
@@ -3359,6 +3394,621 @@ def weights_phases(torch, cfg, dev, counters, smi, paths, settle):
         settle()
         _phase_done("34", tp, smi)
         log(f"weights phases 31-34 in {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phases 35-38: training I/O
+# ---------------------------------------------------------------------------
+
+# phase 35's corpus: seeded pseudo-words (Zipf-weighted), numbers,
+# punctuation and a few non-ASCII words, ~1 MB over two jsonl files
+CORPUS_BYTES = 500_000     # a file
+BPE_MERGES = 256           # the smoke's byte-level BPE: 256 bytes + 256
+BPE_VOCAB = 32000          # merges, unused ids up to Llama-2's vocab (a
+#                            random model samples any id; each must decode)
+TIO_SEQ = 4096             # phases 36-37: Llama-2-7B widths, 2 layers
+TIO_LAYERS = 2
+TIO_METRICS = ("perplexity", "accuracy", "count_loss_mask")
+NON_ASCII = ("café", "naïve", "straße", "über", "日本", "x²", "½", "Ωmega",
+             "señor", "déjà")
+# the trace of phase 36's profiler window must name these kernels (K1-K3
+# through their tensor-core bodies, and K5)
+TRACE_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                 "flash_bwd_dkv_mma_kernel", "rms_bwd_kernel")
+
+
+def _pseudo_corpus(seed: int):
+    """Two text corpora (lists of documents) and conversations, from
+    ``seed``."""
+    import random
+
+    rng = random.Random(seed)
+    cons, vows = "bcdfghjklmnprstvwz", "aeiou"
+    lexicon = sorted({"".join(rng.choice(cons) + rng.choice(vows)
+                              for _ in range(rng.randint(1, 4)))
+                      for _ in range(2500)})
+    weights = [1.0 / (i + 1) for i in range(len(lexicon))]
+    punct = [",", ".", ";", ":", "!", "?", " -", " (x)", "'s"]
+
+    def sentence():
+        words = rng.choices(lexicon, weights, k=rng.randint(4, 18))
+        out = []
+        for w in words:
+            r = rng.random()
+            if r < 0.05:
+                w = str(rng.randint(0, 2000))
+            elif r < 0.06:
+                w = rng.choice(NON_ASCII)
+            elif r < 0.12:
+                w += rng.choice(punct)
+            out.append(w)
+        s = " ".join(out)
+        return s[0].upper() + s[1:] + rng.choice([".", ".", "!", "?"])
+
+    def document():
+        return " ".join(sentence() for _ in range(rng.randint(2, 12)))
+
+    corpora = []
+    for _ in range(2):
+        docs, size = [], 0
+        while size < CORPUS_BYTES:
+            docs.append(document())
+            size += len(docs[-1].encode())
+        corpora.append(docs)
+    chats = [[{"role": "user", "text": sentence()},
+              {"role": "assistant", "text": document()}]
+             for _ in range(300)]
+    return corpora, chats
+
+
+def _train_bpe(texts, n_merges: int):
+    """A deterministic byte-level BPE on ``texts``: the most frequent
+    adjacent pair of the pretokens' byte symbols, ties by the pair itself,
+    merged ``n_merges`` times; unused ids fill the vocabulary up to
+    ``BPE_VOCAB``, ``<|endoftext|>`` last.  Returns (vocab, merges)."""
+    from collections import Counter
+
+    from megatron_llm_tpu_torch.tokenizer.bpe import (
+        bytes_to_unicode,
+        gpt2_split,
+    )
+
+    b2u = bytes_to_unicode()
+    freq = Counter()
+    for t in texts:
+        freq.update(gpt2_split(t))
+    words = {tuple(b2u[b] for b in w.encode()): n for w, n in freq.items()}
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, n in words.items():
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] += n
+        if not pairs:
+            break
+        best = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))[0]
+        merges.append(best)
+        joined = best[0] + best[1]
+        nxt = {}
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(joined)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            nxt[tuple(out)] = nxt.get(tuple(out), 0) + n
+        words = nxt
+    toks = list(dict.fromkeys(list(b2u.values())
+                              + [a + b for a, b in merges]))
+    toks += [f"<|unused{i}|>" for i in range(BPE_VOCAB - len(toks) - 1)]
+    toks.append("<|endoftext|>")
+    return {t: i for i, t in enumerate(toks)}, merges
+
+
+def _capture(fn, *args, **kw):
+    """``(fn(*args, **kw), its standard output)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def _log_values(text: str, key: str) -> list:
+    """The numbers after ``key`` on each line of a driver log."""
+    out = []
+    for line in text.splitlines():
+        if key in line:
+            out.append(float(line.split(key)[1].split("|")[0]))
+    return out
+
+
+def data_phase(torch, work, smi):
+    """Phase 35: the corpus, its tokenizer files, ``preprocess_data`` on
+    each file (4 workers) and ``merge_datasets``; tokens/s native against
+    the Python merge loop and the index builders' seconds, C++ and numpy.
+    Returns the paths phases 36-38 read."""
+    import numpy as np
+
+    from megatron_llm_tpu_torch.data import index_helpers as ih
+    from megatron_llm_tpu_torch.data.indexed_dataset import \
+        MMapIndexedDataset
+    from megatron_llm_tpu_torch.tokenizer.bpe import GPT2BPETokenizer
+    from megatron_llm_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from megatron_llm_tpu_torch.tools import merge_datasets, preprocess_data
+
+    t = time.perf_counter()
+    corpora, chats = _pseudo_corpus(35)
+    tok_dir = os.path.join(work, "tokenizer")
+    os.makedirs(tok_dir)
+    vocab, merges = _train_bpe(corpora[0][:300], BPE_MERGES)
+    with open(os.path.join(tok_dir, "vocab.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(tok_dir, "merges.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    files = {}
+    for name, docs in (("a", corpora[0]), ("b", corpora[1])):
+        files[name] = os.path.join(work, f"{name}.jsonl")
+        with open(files[name], "w", encoding="utf-8") as f:
+            f.writelines(json.dumps({"text": d}, ensure_ascii=False) + "\n"
+                         for d in docs)
+    files["chat"] = os.path.join(work, "chat.jsonl")
+    with open(files["chat"], "w", encoding="utf-8") as f:
+        f.writelines(json.dumps({"conversation": c}, ensure_ascii=False)
+                     + "\n" for c in chats)
+    mb = sum(os.path.getsize(files[n]) for n in ("a", "b")) / 1e6
+    log(f"data: corpus {mb:.2f} MB in {len(corpora[0])} + "
+        f"{len(corpora[1])} documents, {len(chats)} conversations, "
+        f"{len(vocab)} BPE ids; {time.perf_counter() - t:.1f}s")
+
+    prefixes, rates = {}, {}
+    for name in ("a", "b", "chat"):
+        out = os.path.join(work, name)
+        flags = ["--instruction_data"] if name == "chat" else []
+        stats, _ = _capture(preprocess_data.main, [
+            "--input", files[name], "--output_prefix", out,
+            "--tokenizer_type", "gpt2-bpe", "--tokenizer_model", tok_dir,
+            "--append_eod", "--workers", "4", *flags])
+        rates[name] = stats["tokens"] / stats["seconds"]
+        prefixes[name] = out + ("" if name == "chat" else "_document")
+        log(f"data: preprocess {name}: {stats['documents']} documents, "
+            f"{stats['tokens']} tokens in {stats['seconds']:.3f}s, "
+            f"{rates[name]:.0f} tokens/s (4 workers; host clock)")
+    merged = os.path.join(work, "ab_document")
+    n, _ = _capture(merge_datasets.merge, [prefixes["a"], prefixes["b"]],
+                    merged)
+    if n != len(corpora[0]) + len(corpora[1]):
+        raise RuntimeError(f"merge_datasets: {n} documents")
+    tok = build_tokenizer("gpt2-bpe", tok_dir)
+    a_ds = MMapIndexedDataset(prefixes["a"])
+    for i in (0, len(corpora[0]) // 2, len(corpora[0]) - 1):
+        ids = a_ds[i].tolist()
+        if ids[-1] != tok.eod or tok.detokenize(ids[:-1]) != corpora[0][i]:
+            raise RuntimeError(f"preprocess: document {i} does not "
+                               "round-trip to its text")
+    ab = MMapIndexedDataset(merged)
+    if not np.array_equal(ab[len(corpora[0])], MMapIndexedDataset(
+            prefixes["b"])[0]):
+        raise RuntimeError("merge_datasets: b's first document moved")
+
+    # the merge loop alone, one process, cold caches: C++ against Python
+    texts = corpora[0]
+    enc = {}
+    for native in (True, False):
+        bpe = GPT2BPETokenizer(os.path.join(tok_dir, "vocab.json"),
+                               os.path.join(tok_dir, "merges.txt"),
+                               use_native=native)
+        t = time.perf_counter()
+        ids = [bpe.encode(x) for x in texts]
+        enc[native] = (ids, time.perf_counter() - t)
+    if enc[True][0] != enc[False][0]:
+        raise RuntimeError("the native merge loop's ids differ from the "
+                           "Python loop's")
+    n_tok = sum(len(x) for x in enc[True][0])
+    # the index builders at phase 36's shape: sample_idx over 10 shuffled
+    # epochs of a, and a 0.7 / 0.3 blend of 200k samples (the library's
+    # g++ build timed apart)
+    t = time.perf_counter()
+    ih.get_lib()
+    t_build = time.perf_counter() - t
+    sizes = np.asarray(a_ds.sizes, np.int32)
+    doc_idx = np.tile(np.arange(len(sizes), dtype=np.int32), 10)
+    np.random.RandomState(0).shuffle(doc_idx)
+    idx_s = {}
+    for native in (True, False):
+        t = time.perf_counter()
+        s_idx = ih.build_sample_idx(sizes, doc_idx, TIO_SEQ, 10,
+                                    int(sizes.sum()), native=native)
+        t_s = time.perf_counter() - t
+        t = time.perf_counter()
+        b_idx = ih.build_blending_indices(np.array([0.7, 0.3]), 200_000,
+                                          native=native)
+        idx_s[native] = (s_idx, b_idx, t_s, time.perf_counter() - t)
+    if not (np.array_equal(idx_s[True][0], idx_s[False][0])
+            and np.array_equal(idx_s[True][1][0], idx_s[False][1][0])):
+        raise RuntimeError("the C++ index builders differ from numpy's")
+    log(f"data: merge loop over {n_tok} tokens ({len(texts)} documents, "
+        f"one process, cold caches): native {n_tok / enc[True][1]:.0f} "
+        f"tokens/s ({enc[True][1]:.3f}s), Python "
+        f"{n_tok / enc[False][1]:.0f} tokens/s ({enc[False][1]:.3f}s), ids "
+        f"equal; index helpers' g++ build {t_build:.2f}s (0 when "
+        f"built earlier); sample_idx ({len(idx_s[True][0])} rows) "
+        f"C++ {idx_s[True][2] * 1e3:.2f} ms, numpy "
+        f"{idx_s[False][2] * 1e3:.2f} ms; blending (200000) C++ "
+        f"{idx_s[True][3] * 1e3:.2f} ms, numpy {idx_s[False][3] * 1e3:.2f} "
+        f"ms; host clock; card {smi}")
+    return {"tok_dir": tok_dir, "prefixes": prefixes, "texts": corpora,
+            "rates": rates}
+
+
+def _tio_model():
+    from megatron_llm_tpu_torch.config import llama2_config
+
+    return llama2_config("7b", num_layers=TIO_LAYERS,
+                         params_dtype="bfloat16", attention_impl="flash",
+                         norm_impl="pallas", recompute="selective")
+
+
+def finetune_phase(torch, dev, counters, smi, work, data):
+    """Phase 36: ``finetune.main`` on ``--data_path 0.7 a 0.3 b`` from a
+    seeded release checkpoint (``--use_checkpoint_args``): 6 steps at seq
+    4096, global batch 2 in two microbatches, bf16 with fp32 masters; eval
+    with registry metrics every 3 steps, the profiler over steps 4-5,
+    ``--save``; then a ``--load`` resume for step 7.  Returns the path's
+    launches and the release's root for phase 37."""
+    import numpy as np
+
+    from megatron_llm_tpu_torch import checkpointing
+    from megatron_llm_tpu_torch import finetune
+    from megatron_llm_tpu_torch.config import (
+        OptimizerConfig,
+        RuntimeConfig,
+        TrainConfig,
+    )
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.training import driver
+
+    model = _tio_model()
+    init = os.path.join(work, "init")
+    params = M.init_params(model, seed=36, device=dev)
+    # a finetune's lr (the preset's 3e-4 from a random init makes the
+    # loss jump about before it falls)
+    checkpointing.save_release_params(init, params, RuntimeConfig(
+        model=model, optimizer=OptimizerConfig(lr=2e-5, min_lr=2e-6,
+                                               lr_warmup_iters=2)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck, prof = os.path.join(work, "ck"), os.path.join(work, "prof")
+    p = data["prefixes"]
+    base = ["--use_checkpoint_args", "--data_path", "0.7", p["a"], "0.3",
+            p["b"], "--split", "98,1,1", "--tokenizer_type", "gpt2-bpe",
+            "--tokenizer_model", data["tok_dir"], "--seq_length",
+            str(TIO_SEQ), "--global_batch_size", "2", "--micro_batch_size",
+            "1", "--eval_interval", "3", "--eval_iters", "2", "--metrics",
+            *TIO_METRICS, "--log_interval", "1", "--device", str(dev),
+            "--data_cache_dir", os.path.join(work, "cache"), "--seed", "36"]
+    tb = os.path.join(work, "tb")
+    first = base + ["--load", init, "--train_iters", "6", "--save", ck,
+                    "--profile_dir", prof, "--profile_step_start", "4",
+                    "--profile_step_end", "5", "--tensorboard_dir", tb]
+    drawn = []
+    to_device = driver.to_device_batch
+
+    def record(batch, device):
+        drawn.append(np.array(batch["tokens"]))
+        return to_device(batch, device)
+
+    _zero(counters)
+    driver.to_device_batch = record
+    try:
+        rc, out = _capture(finetune.main, first)
+    finally:
+        driver.to_device_batch = to_device
+    losses = _log_values(out, "lm loss:")
+    if rc != 0 or len(losses) != 6 or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"finetune: rc {rc}, losses {losses}")
+    evals = [line for line in out.splitlines()
+             if "validation loss at iteration" in line]
+    for name in TIO_METRICS:
+        vals = _log_values("\n".join(evals), f"{name}:")
+        if len(vals) != 2 or not all(map(math.isfinite, vals)):
+            raise RuntimeError(f"finetune: eval {name} {vals}")
+    # the batches the driver drew are the blend's samples, in the
+    # sampler's order (RandomState(seed + epoch) over the dataset)
+    args = finetune.parse_args(first)
+    cfg = finetune.build_config(args)
+    train_ds = finetune.build_datasets(args, cfg)[0]
+    order = np.random.RandomState(36).permutation(len(train_ds))
+    for step, batch in enumerate(drawn[:2]):
+        for j, row in enumerate(batch.reshape(-1, TIO_SEQ)):
+            want = train_ds[int(order[2 * step + j])]["text"][:-1]
+            if not np.array_equal(row, want):
+                raise RuntimeError(f"finetune: step {step + 1}'s sample "
+                                   f"{j} is not the dataset's")
+    trace = os.path.join(prof, "trace_iters_4-5.json")
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    missing = [k for k in TRACE_KERNELS if not any(k in n for n in names)]
+    if missing:
+        raise RuntimeError(f"profiler: the trace names none of {missing}")
+    trace_mb = os.path.getsize(trace) / 1e6
+    # TensorBoard where the package is installed, else JAX's warning and
+    # no export
+    if os.path.isdir(tb) and os.listdir(tb):
+        writer = "TensorBoard event file written"
+    elif "WARNING: tensorboard not available" in out:
+        writer = "no tensorboard package: the warning, no export"
+    else:
+        raise RuntimeError("finetune: --tensorboard_dir wrote nothing and "
+                           "warned of nothing")
+    rc, out2 = _capture(finetune.main, base + ["--load", ck,
+                                               "--train_iters", "7"])
+    launches = _launches(counters)
+    if rc != 0 or "consumed_samples=12)" not in out2 or \
+            " iteration        7/       7 | consumed samples:           14" \
+            not in out2 or checkpointing.load_meta(ck, 6)[
+                "consumed_samples"] != 12:
+        raise RuntimeError("finetune: the resume did not take step 7 from "
+                           "consumed_samples 12")
+    step7 = _log_values(out2, "lm loss:")
+
+    # the step with indexed data against mock data at the same shape and
+    # writer, the driver's own per-iteration times (batch, step and log):
+    # iterations 2, 3 and 6 (1 compiles; 4 and 5 are profiled; eval runs
+    # after 3); and the batches alone, drawn on the host
+    it = driver._build_train_iterator(cfg, train_ds, 0, 2, True, None)
+    t = time.perf_counter()
+    for _ in range(8):
+        next(it)
+    draw_ms = (time.perf_counter() - t) / 8 * 1e3
+    per_it = _log_values(out, "elapsed time per iteration (ms):")
+    data_ms = sorted(per_it[i] for i in (1, 2, 5))[1]
+    mock_cfg = RuntimeConfig(
+        model=model, optimizer=cfg.optimizer,
+        train=TrainConfig(train_iters=4, micro_batch_size=1,
+                          global_batch_size=2, seq_length=TIO_SEQ,
+                          log_interval=1,
+                          tensorboard_dir=os.path.join(work, "tb_mock"))
+    ).validate()
+    params = checkpointing.load_params_for_inference(init, model, device=dev)
+    _, out3 = _capture(driver.pretrain, mock_cfg, finetune._MockDataset(
+        model.vocab_size, TIO_SEQ, seed=1), params=params, device=dev)
+    mock_ms = sorted(_log_values(out3, "elapsed time per iteration (ms):")
+                     [1:])[1]
+    del params
+    gc.collect()
+
+    # eval with the registry metrics against without, A B B A
+    params = checkpointing.load_params_for_inference(ck, model, device=dev)
+    valid = finetune.build_datasets(args, cfg)[1]
+    steps = {names: driver.make_eval_step(cfg, names, dev)
+             for names in ((), TIO_METRICS)}
+    eval_s = {(): [], TIO_METRICS: []}
+    for names in ((), TIO_METRICS, TIO_METRICS, ()):
+        it = driver._build_train_iterator(cfg, valid, 0, 2, False, None)
+        res, sec = _timed(torch, lambda: driver.evaluate(
+            cfg, params, it, steps[names], dev, eval_iters=2))
+        eval_s[names].append(sec)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = 2 * TIO_SEQ
+    log(f"finetune: {TIO_LAYERS} layers at Llama-2-7B widths, seq "
+        f"{TIO_SEQ}, global batch 2 (2 microbatches), bf16 + fp32 masters, "
+        f"blend 0.7 a + 0.3 b: losses {[round(x, 4) for x in losses]}, "
+        f"resumed step 7 {step7}; eval "
+        + "; ".join(line.split("|", 1)[1].strip() for line in evals)
+        + f"; step with indexed data {data_ms:.1f} ms "
+        f"({tokens / data_ms * 1e3:.1f} tokens/s) against mock data "
+        f"{mock_ms:.1f} ms ({tokens / mock_ms * 1e3:.1f} tokens/s; the "
+        f"driver's per-iteration times, median of 3); a batch drawn alone "
+        f"{draw_ms:.3f} ms; eval (2 batches) "
+        f"with metrics {min(eval_s[TIO_METRICS]) * 1e3:.1f} ms, without "
+        f"{min(eval_s[()]) * 1e3:.1f} ms; trace {trace_mb:.1f} MB names "
+        f"{list(TRACE_KERNELS)}; {writer}; host clock; card {smi}")
+    return launches, init, ck
+
+
+def instruction_phase(torch, dev, counters, smi, init, data):
+    """Phase 37: ``finetune.main --instruction_data`` on the conversations
+    (3 steps, ``instruct_accuracy`` and ``count_instruct_mask``), then
+    ``verify_correctness.verify`` on eval batches of ``a`` read as
+    ``--data_path`` reads them: Llama-2-7B widths, 2 layers, fp32 through
+    K1 and K4 on the card against the host's fp32 plain forward."""
+    import dataclasses as dc
+
+    from megatron_llm_tpu_torch import finetune
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.tools.verify_correctness import (
+        data_batches,
+        verify,
+    )
+    from megatron_llm_tpu_torch.utils.tree import tree_map
+
+    _zero(counters)
+    rc, out = _capture(finetune.main, [
+        "--load", init, "--use_checkpoint_args", "--instruction_data",
+        "--data_path", data["prefixes"]["chat"], "--split", "90,5,5",
+        "--tokenizer_type", "gpt2-bpe", "--tokenizer_model",
+        data["tok_dir"], "--seq_length", str(TIO_SEQ), "--global_batch_size",
+        "2", "--micro_batch_size", "1", "--train_iters", "3",
+        "--eval_interval", "3", "--eval_iters", "1", "--metrics",
+        "instruct_accuracy", "count_instruct_mask", "--log_interval", "1",
+        "--device", str(dev), "--seed", "37"])
+    launches = _launches(counters)
+    losses = _log_values(out, "lm loss:")
+    counts = _log_values(out, "count_instruct_mask:")
+    acc = _log_values(out, "instruct_accuracy:")
+    if rc != 0 or len(losses) != 3 or not all(map(math.isfinite, losses)) \
+            or not counts or min(counts) <= 0 or not acc:
+        raise RuntimeError(f"instruction finetune: rc {rc}, losses "
+                           f"{losses}, assistant tokens {counts}")
+    plain = dc.replace(_tio_model(), params_dtype="float32",
+                       attention_impl="dot", norm_impl="xla",
+                       recompute="none", seq_length=128)
+    params = M.init_params(plain, seed=37, device=dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    batches = data_batches(data["prefixes"]["a"], 2, 1, 128)
+    def reference(tokens):  # the host's fp32 plain forward
+        return M.forward(plain, host, tokens)[..., :plain.vocab_size]
+
+    report = verify(dc.replace(plain, attention_impl="flash",
+                               norm_impl="pallas"), params, reference,
+                    batches)
+    del params, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"instruction: losses {[round(x, 4) for x in losses]}, eval "
+        f"instruct_accuracy {acc}, assistant tokens {counts}; trust gate on "
+        f"{len(batches)} x (1 x 128) tokens of a (fp32, K1 + K4 against the "
+        f"host's fp32): avg max |dlogit| {report['avg_max_abs_err']:.3e}, "
+        f"passed {report['passed']}; card {smi}")
+    if not report["passed"]:
+        raise RuntimeError("instruction: the trust gate failed on the "
+                           "indexed batches")
+    return launches
+
+
+def server_phase(torch, dev, counters, smi, work, ck, data):
+    """Phase 38: ``checkpoint_util.resave`` of phase 36's checkpoint into a
+    release, ``run_text_generation_server.main`` on it with phase 35's
+    tokenizer, on a thread, on a free port: three text prompts PUT, the
+    greedy texts equal to ``GenerationService`` in-process on the same
+    params; the time to the first byte of a one-token answer; a clean
+    stop."""
+    import http.client
+
+    from megatron_llm_tpu_torch import checkpointing
+    from megatron_llm_tpu_torch.generation import GenerationService
+    from megatron_llm_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from megatron_llm_tpu_torch.tools import checkpoint_util
+    from megatron_llm_tpu_torch.tools import run_text_generation_server as rt
+
+    rel = os.path.join(work, "release")
+    _capture(checkpoint_util.resave, ck, rel, device=dev)
+    flags = ["--max_batch_size", "4", "--max_seq_len", "1024",
+             "--prefill_bucket", "64", "--kv_block_size", "64",
+             "--max_tokens_to_generate", "64"]
+    ready, box = threading.Event(), {}
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    def run():
+        try:
+            box["rc"], box["out"] = _capture(rt.main, [
+                "--load", rel, "--use_checkpoint_args", "--tokenizer_type",
+                "gpt2-bpe", "--tokenizer_model", data["tok_dir"], "--host",
+                "127.0.0.1", "--port", "0", "--metrics_interval_s", "0",
+                "--device", str(dev), *flags], on_ready=on_ready)
+        except BaseException as e:  # reported by the main thread
+            box["error"] = e
+            ready.set()
+
+    _zero(counters)
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    service = None
+    try:
+        if not ready.wait(600) or "error" in box:
+            raise RuntimeError(f"server entry did not start: "
+                               f"{box.get('error')}")
+        port = box["server"].port
+        prompts = [d.split(".")[0] + "." for d in data["texts"][1][:3]]
+        body = {"prompts": prompts, "tokens_to_generate": 32}
+        (status, got), t_req = _timed(torch, lambda: put(port, body))
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t = time.perf_counter()
+        conn.request("PUT", "/api", json.dumps(
+            {"prompts": [prompts[0]], "tokens_to_generate": 1}),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()  # the status line: the first byte
+        ttfb = time.perf_counter() - t
+        resp.read()
+        conn.close()
+        launches = _launches(counters)
+        cfg = checkpointing.load_config_from_checkpoint(rel).model
+        params = checkpointing.load_params_for_inference(rel, cfg,
+                                                         device=dev)
+        service = GenerationService(
+            cfg, params, build_tokenizer("gpt2-bpe", data["tok_dir"]),
+            max_batch_size=4, engine_max_seq_len=1024, prefill_bucket=64,
+            kv_block_size=64, max_tokens_to_generate=64, device=dev)
+        want_status, want = service.handle(body)
+        if status != 200 or want_status != 200 or \
+                got["text"] != want["text"]:
+            raise RuntimeError(f"server entry: {status} {got} against the "
+                               f"in-process service's {want_status} {want}")
+        if not all(t.startswith(p) for t, p in zip(got["text"], prompts)):
+            raise RuntimeError("server entry: a prompt was not kept")
+    finally:
+        if service is not None:
+            service.close()
+        if "server" in box:
+            box["server"].graceful_shutdown(30.0)
+        thread.join(60)
+    if thread.is_alive() or box.get("rc") != 0:
+        raise RuntimeError(f"server entry: did not stop cleanly "
+                           f"(rc {box.get('rc')})")
+    log(f"server entry: {len(prompts)} prompts x 32 greedy tokens, texts "
+        f"equal to the in-process service's; request {t_req:.3f}s, time to "
+        f"the first byte of a 1-token answer {ttfb * 1e3:.1f} ms; host "
+        f"clock; card {smi}")
+    return launches
+
+
+# the kernels of the training-io path: K1-K5 (K1-K3 bf16 through their
+# tensor-core bodies) in phases 36-37, K13 in the server's decode steps
+TIO_NEED = {"finetune": TRAIN_KERNELS + ("rmsnorm_fwd", "rmsnorm_bwd"),
+            "instruction": TRAIN_KERNELS + ("rmsnorm_fwd", "rmsnorm_bwd"),
+            "server": ("flash_attention_fwd", "rmsnorm_fwd",
+                       "fused_decode_step_paged")}
+
+
+def training_io_phases(torch, dev, counters, smi, paths, settle):
+    """Phases 35-38 in a temporary directory that is removed at the end;
+    records the ``training-io`` path's launches (phases 36-38 summed) in
+    ``paths``."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_tio_")
+    try:
+        t0 = tp = time.perf_counter()
+        data = data_phase(torch, work, smi)
+        tp = _phase_done("35", tp, smi)
+        by_phase = {}
+        by_phase["finetune"], init, ck = finetune_phase(
+            torch, dev, counters, smi, work, data)
+        settle()
+        tp = _phase_done("36", tp, smi)
+        by_phase["instruction"] = instruction_phase(
+            torch, dev, counters, smi, init, data)
+        settle()
+        tp = _phase_done("37", tp, smi)
+        by_phase["server"] = server_phase(torch, dev, counters, smi, work,
+                                          ck, data)
+        settle()
+        _phase_done("38", tp, smi)
+        for label, launches in by_phase.items():
+            _check_path(f"training-io {label}", launches,
+                        {n: None for n in TIO_NEED[label]})
+            off = [n for n in TIO_NEED[label] if n.endswith("_mma")
+                   and launches[n] != launches[n[:-len("_mma")]]]
+            if off:
+                raise RuntimeError(f"training-io {label}: launches off the "
+                                   f"tensor-core bodies: {off}")
+        paths["training-io"] = {n: sum(b[n] for b in by_phase.values())
+                                for n in counters}
+        log(f"training-io phases 35-38 in {time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3625,6 +4275,7 @@ def main() -> int:
         f"{pld_rec['acceptance']:.3f}); card {smi}")
 
     weights_phases(torch, fused, dev, counters, smi, paths, settle)
+    training_io_phases(torch, dev, counters, smi, paths, settle)
 
     meta = {
         "flash_attention_fwd": (

@@ -9,13 +9,20 @@ the CPU runs every kernel's plain version.  ``--save`` / ``--load`` /
 (``checkpointing.py``); ``--load`` of a release checkpoint (the output of
 ``tools/checkpoint_util.py hf-to-native``) finetunes imported weights, and
 ``--use_checkpoint_args`` takes the model, parallel and optimizer config
-from the checkpoint.  This slice trains on ``--mock_data`` only; what it
-does not port raises ``NotImplementedError`` naming the ROADMAP item:
-``--data_path`` and tokenizers (Queue 1 item 7: training I/O), parallel
-degrees above 1, MoE, LoRA and the int8 training matmuls.
+from the checkpoint.  Data: ``--mock_data``; ``--data_path [W1] P1 [W2
+P2 ...]``, one or more weighted ``.bin``/``.idx`` prefixes of
+``tools/preprocess_data.py`` split by ``--split`` (GPT samples, blended);
+or ``--instruction_data`` with one prefix of its ``_text_document`` /
+``_role_document`` pair.  ``--tokenizer_type`` / ``--tokenizer_model``
+give the end-of-document id and grow the vocab for extra ids.  What the
+port does not have raises ``NotImplementedError`` naming the ROADMAP
+item: parallel degrees above 1, MoE, LoRA and the int8 training matmuls.
 
     python -m megatron_llm_tpu_torch.finetune --model tiny --mock_data \\
         --train_iters 10 --device cpu --log_interval 1 --save ckpt
+    python -m megatron_llm_tpu_torch.finetune --model llama2 \\
+        --data_path 0.7 corpusA_text_document 0.3 corpusB_text_document \\
+        --tokenizer_type gpt2-bpe --tokenizer_model VOCAB_DIR ...
 """
 
 from __future__ import annotations
@@ -104,9 +111,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--use_checkpoint_args", action="store_true")
 
     g = p.add_argument_group("data")
-    g.add_argument("--data_path", nargs="*", default=None)
+    g.add_argument("--data_path", nargs="*", default=None,
+                   help="corpus prefix(es), optionally weighted: "
+                        "[w1 prefix1 w2 prefix2 ...]")
     g.add_argument("--split", default="969,30,1")
-    g.add_argument("--instruction_data", action="store_true")
+    g.add_argument("--instruction_data", action="store_true",
+                   help="role-tagged instruction dataset (one prefix of "
+                        "its _text_document / _role_document pair)")
     g.add_argument("--scalar_loss_mask", type=float, default=0.0)
     g.add_argument("--mock_data", action="store_true",
                    help="synthetic random tokens from the seed")
@@ -286,18 +297,49 @@ class _MockDataset:
 
 
 def build_datasets(args, cfg):
-    """``(train, valid, test)``: mock data only in this slice."""
-    if args.data_path or args.instruction_data:
-        raise NotImplementedError(
-            "real datasets (--data_path, --instruction_data) are not ported "
-            "yet (ROADMAP.md, Queue 1 item 7: training I/O); use "
-            "--mock_data")
-    if not args.mock_data:
-        raise SystemExit("--mock_data is the only data source of the port "
-                         "so far")
-    ds = _MockDataset(cfg.model.vocab_size, cfg.train.seq_length)
-    return ds, _MockDataset(cfg.model.vocab_size, cfg.train.seq_length,
-                            n=256, seed=10_000), None
+    """``(train, valid, test)`` (JAX ``finetune.py:339-383``): mock data,
+    instruction data from one prefix, or GPT datasets from each weighted
+    prefix, blended where more than one prefix gives a split."""
+    from .data.blendable_dataset import BlendableDataset, parse_data_paths
+    from .data.gpt_dataset import build_gpt_datasets
+    from .data.instruction_dataset import build_instruction_datasets
+
+    if args.mock_data:
+        ds = _MockDataset(cfg.model.vocab_size, cfg.train.seq_length)
+        return ds, _MockDataset(cfg.model.vocab_size, cfg.train.seq_length,
+                                n=256, seed=10_000), None
+    if not args.data_path:
+        raise SystemExit("--data_path or --mock_data required")
+
+    if args.instruction_data:
+        if len(args.data_path) != 1:
+            raise SystemExit("instruction data takes a single prefix")
+        return build_instruction_datasets(
+            args.data_path[0], args.split, cfg.train.seq_length,
+            cfg.train.seed, scalar_loss_mask=args.scalar_loss_mask)
+
+    weights, prefixes = parse_data_paths(args.data_path)
+    total_samples = cfg.train.train_iters * cfg.train.global_batch_size
+    eval_samples = cfg.train.eval_iters * cfg.train.global_batch_size
+    nums = [total_samples, eval_samples, eval_samples]
+    per_prefix = [
+        build_gpt_datasets(prefix, args.split, nums, cfg.train.seq_length,
+                           cfg.train.seed, args.data_cache_dir)
+        for prefix in prefixes
+    ]
+    out = []
+    for i in range(3):
+        # keep the weights aligned with the prefixes that gave this split
+        pairs = [(p[i], w) for p, w in zip(per_prefix, weights)
+                 if p[i] is not None]
+        if not pairs:
+            out.append(None)
+        elif len(pairs) == 1:
+            out.append(pairs[0][0])
+        else:
+            out.append(BlendableDataset(
+                [d for d, _ in pairs], [w for _, w in pairs], nums[i]))
+    return tuple(out)
 
 
 def main(argv=None) -> int:
@@ -306,20 +348,44 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "LoRA finetuning is not ported yet (ROADMAP.md, Queue 1: the "
             "rest, training/lora.py)")
-    if args.tokenizer_type != "null":
-        raise NotImplementedError(
-            "tokenizers are not ported yet (ROADMAP.md, Queue 1 item 7: "
-            "training I/O)")
     cfg = build_config(args)
 
     from .training.driver import pretrain, print_rank_0
+
+    eod = None
+    if args.tokenizer_type and args.tokenizer_type != "null" \
+            and args.tokenizer_model:
+        from .tokenizer.tokenizer import build_tokenizer
+
+        # extra ids as "--vocab_extra_ids_list a b" or "a,b"
+        extra = args.vocab_extra_ids_list
+        if extra:
+            extra = [t for item in extra for t in item.split(",") if t]
+        tok = build_tokenizer(args.tokenizer_type, args.tokenizer_model,
+                              extra)
+        eod = tok.eod
+        if tok.vocab_size > cfg.model.vocab_size:
+            # extra special tokens grew the tokenizer past the preset's
+            # vocab: grow the embedding so the new ids are real rows
+            import dataclasses
+
+            from .config import RuntimeConfig
+
+            cfg = RuntimeConfig(
+                model=dataclasses.replace(cfg.model,
+                                          vocab_size=tok.vocab_size),
+                parallel=cfg.parallel, optimizer=cfg.optimizer,
+                train=cfg.train).validate()
+            print_rank_0(f" vocab grown to {tok.vocab_size} "
+                         f"(tokenizer extra ids)")
 
     print_rank_0(f"model: {args.model} {args.model_size} "
                  f"({cfg.model.num_layers} layers) | device: {args.device} | "
                  f"gbs={cfg.train.global_batch_size} "
                  f"seq={cfg.train.seq_length}")
     train_ds, valid_ds, test_ds = build_datasets(args, cfg)
-    pretrain(cfg, train_ds, valid_ds, test_ds, device=args.device)
+    pretrain(cfg, train_ds, valid_ds, test_ds, eod_token=eod,
+             device=args.device)
     return 0
 
 

@@ -65,6 +65,7 @@ class GenerationService:
                  host_kv_blocks: int = 0,
                  spec_draft_len: int = 0,
                  spec_ngram: int = 3,
+                 spec_reprobe_interval: int | None = None,
                  draft_cfg: ModelConfig | None = None,
                  draft_params=None,
                  default_priority: int = 0,
@@ -73,6 +74,7 @@ class GenerationService:
                  pipeline_parallel: int = 1,
                  replicas: int = 1,
                  router: bool = False,
+                 role: str = "mixed",
                  device=None):
         if tensor_parallel * pipeline_parallel * replicas > 1 or router:
             raise NotImplementedError(
@@ -102,6 +104,8 @@ class GenerationService:
         self.host_kv_blocks = host_kv_blocks
         self.spec_draft_len = spec_draft_len
         self.spec_ngram = spec_ngram
+        self.spec_reprobe_interval = spec_reprobe_interval
+        self.role = role
         self.draft_cfg = draft_cfg
         self.draft_params = draft_params
         self.default_priority = default_priority
@@ -130,6 +134,9 @@ class GenerationService:
                     extra["kv_pool_blocks"] = self.kv_pool_blocks
                 if self.host_kv_blocks:
                     extra["host_kv_blocks"] = self.host_kv_blocks
+                if self.spec_reprobe_interval is not None:
+                    extra["spec_reprobe_interval"] = \
+                        self.spec_reprobe_interval
                 engine_config = EngineConfig(
                     max_batch_size=self.max_batch_size,
                     max_seq_len=self.engine_max_seq_len,
@@ -142,6 +149,7 @@ class GenerationService:
                     spec_draft_len=self.spec_draft_len,
                     spec_ngram=self.spec_ngram,
                     trace=self.trace_enabled,
+                    role=self.role,
                     **extra)
                 self._engine = ServingEngine(
                     self.cfg, self.params, engine_config,
@@ -479,6 +487,11 @@ class MegatronServer:
     @property
     def port(self) -> int:
         return self._httpd.server_address[1]
+
+    def serving(self) -> bool:
+        """Whether the listener thread of ``run(block=False)`` is up."""
+        t = self._thread
+        return t is not None and t.is_alive()
 
     def graceful_shutdown(self, drain_timeout_s: float = 30.0) -> bool:
         """Drain in-flight generations (new submissions get 503), then stop

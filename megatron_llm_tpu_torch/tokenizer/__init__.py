@@ -1,1 +1,9 @@
-from .tokenizer import NullTokenizer, Tokenizer  # noqa: F401
+from .tokenizer import (  # noqa: F401
+    GPT2BPENativeTokenizer,
+    HFTokenizer,
+    NullTokenizer,
+    SentencePieceTokenizer,
+    Tokenizer,
+    WordPieceNativeTokenizer,
+    build_tokenizer,
+)

@@ -24,7 +24,10 @@ which this module imports inside ``main`` alone)::
         --hf_path /weights/Llama-2-7b-hf --iters 10 --seq_length 512
 
 With ``--load`` the port's weights come from a checkpoint of
-``checkpointing.py`` instead of converting the HF weights.
+``checkpointing.py`` instead of converting the HF weights.  With
+``--data_path`` the batches are the tokens of a ``.bin``/``.idx`` dataset
+(``data_batches``: documents concatenated and cut into rows, as JAX's CLI
+does); without it, random tokens.
 """
 
 from __future__ import annotations
@@ -43,11 +46,6 @@ from ..models import model as model_lib
 from ..parallel.cross_entropy import cross_entropy
 from . import hf_interop
 from ..safetensors_io import hf_state_dict
-
-_DATA_PATH = ("real eval batches (--data_path) need the indexed dataset, "
-              "which is not ported yet (ROADMAP.md, Queue 1 item 7: "
-              "training I/O)")
-
 
 def hf_forward(hf_model, tokens) -> torch.Tensor:
     """The reference's logits ``[b, s, vocab]`` as fp32 on the host."""
@@ -119,6 +117,30 @@ def random_batches(vocab_size: int, iters: int, batch_size: int,
             for _ in range(iters)]
 
 
+def data_batches(data_path: str, iters: int, batch_size: int,
+                 seq_length: int) -> list:
+    """Up to ``iters`` batches ``[batch_size, seq_length]`` of the
+    documents of the indexed dataset at ``data_path``, concatenated in
+    order and cut into rows (JAX ``_data_batches``)."""
+    from ..data.indexed_dataset import MMapIndexedDataset
+
+    ds = MMapIndexedDataset(data_path)
+    batches, row, buf = [], [], []
+    for i in range(len(ds)):
+        buf.extend(np.asarray(ds[i]).tolist())
+        while len(buf) >= seq_length:
+            row.append(np.asarray(buf[:seq_length]))
+            buf = buf[seq_length:]
+            if len(row) == batch_size:
+                batches.append(np.stack(row))
+                row = []
+                if len(batches) == iters:
+                    return batches
+    if not batches:
+        raise ValueError(f"not enough data in {data_path} for one batch")
+    return batches
+
+
 def _hf_reference(hf_path: str):
     """The HF reference model, on the host, in eval mode."""
     import transformers
@@ -140,8 +162,8 @@ def main(argv: Optional[list] = None) -> int:
                    help="port checkpoint root; default converts the HF "
                         "weights")
     p.add_argument("--data_path", default=None,
-                   help=".bin/.idx prefix for real eval batches (not "
-                        "ported yet; default random tokens)")
+                   help=".bin/.idx prefix for real eval batches "
+                        "(default random tokens)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--seq_length", type=int, default=512)
@@ -150,8 +172,6 @@ def main(argv: Optional[list] = None) -> int:
                    help="torch device of the port's side (the tests pass "
                         "'cpu')")
     args = p.parse_args(argv)
-    if args.data_path:
-        raise NotImplementedError(_DATA_PATH)
 
     hf_cfg = json.loads((Path(args.hf_path) / "config.json").read_text())
     family = args.model_family or hf_cfg["model_type"]
@@ -165,8 +185,12 @@ def main(argv: Optional[list] = None) -> int:
         params = hf_interop.CONVERTERS_FROM_HF[family](
             hf_state_dict(args.hf_path), cfg, device=args.device)
 
-    batches = random_batches(cfg.vocab_size, args.iters, args.batch_size,
-                             args.seq_length)
+    if args.data_path:
+        batches = data_batches(args.data_path, args.iters, args.batch_size,
+                               args.seq_length)
+    else:
+        batches = random_batches(cfg.vocab_size, args.iters,
+                                 args.batch_size, args.seq_length)
     report = verify(cfg, params, _hf_reference(args.hf_path), batches,
                     tolerance=args.tolerance)
     steps = report.pop("steps")

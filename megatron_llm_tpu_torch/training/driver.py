@@ -9,17 +9,21 @@ megatron/training.py:55-961).
   ramp, ``training_log`` (tokens/s and model TFLOP/s), eval hooks, saves
   at ``save_interval`` and at the end or on exit, anomaly rollback to the
   last complete checkpoint, exit conditions and the SIGTERM handler.
-- ``make_eval_step`` / ``evaluate``: the forward-only LM loss.
+- ``make_eval_step`` / ``evaluate``: the forward-only LM loss and the
+  registry metrics of ``train.metrics`` (``metrics.py``), written to the
+  writer as ``valid/<name>`` beside ``valid/lm_loss_ppl``.
+- ``ProfilerWindow``: ``torch.profiler`` (CPU and CUDA activity) over
+  iterations ``[profile_step_start, profile_step_end]``, written as one
+  Chrome trace into ``profile_dir``.
 - ``rollback_to_last_checkpoint``: the rollback's restore.
 
-Refused with ``NotImplementedError``, naming the ROADMAP item (Queue 1
-item 7: training I/O): the metrics registry (``train.metrics``), the
-profiler window (``profile_dir``), and TensorBoard / wandb export.
+TensorBoard and wandb export go through ``utils/writers.build_writer``.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 import signal
 import sys
 import time
@@ -44,7 +48,6 @@ from .step import TrainState, init_train_state, make_train_step, \
     to_device_batch
 
 PyTree = Any
-_TRAINING_IO = "(ROADMAP.md, Queue 1 item 7: training I/O)"
 
 
 def print_rank_0(*args, **kwargs):
@@ -52,16 +55,55 @@ def print_rank_0(*args, **kwargs):
     print(*args, **kwargs, flush=True)
 
 
-def _refuse_unported(cfg: RuntimeConfig) -> None:
-    t = cfg.train
-    if t.metrics:
-        raise NotImplementedError(
-            f"the eval metrics registry ({list(t.metrics)}) is not ported "
-            f"yet {_TRAINING_IO}")
-    if t.profile_dir:
-        raise NotImplementedError(
-            f"the profiler window (profile_dir) is not ported yet "
-            f"{_TRAINING_IO}")
+class ProfilerWindow:
+    """``torch.profiler`` over the iterations ``[start, end]`` (JAX's
+    ``jax.profiler`` window, driver.py:668-698).  ``maybe_start(it)`` runs
+    before iteration ``it`` (on the skip path too), ``maybe_stop(it)``
+    after it; ``close`` ends an open window on any exit, an exception
+    included, where the partial capture is the one wanted.  The trace is
+    ``<profile_dir>/trace_iters_<first>-<last>.json`` (Chrome format).
+    The upper bound keeps a resumed run that starts past the window from
+    writing a stray trace."""
+
+    def __init__(self, profile_dir: Optional[str], start: int, end: int,
+                 device):
+        self.dir, self.start, self.end = profile_dir, start, end
+        self.device = torch.device(device)
+        self._prof = None
+        self._first = None
+
+    def maybe_start(self, next_it: int) -> None:
+        if (self.dir and self._prof is None
+                and self.start <= next_it <= self.end):
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self._first = next_it
+            print_rank_0(f" profiler: tracing iterations {next_it}.."
+                         f"{self.end} -> {self.dir}")
+
+    def maybe_stop(self, done_it: int) -> None:
+        if self._prof is not None and done_it >= self.end:
+            self.close("window complete", done_it)
+
+    def close(self, reason: str = "closed at loop exit",
+              last: Optional[int] = None) -> None:
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        last = self.end if last is None else last
+        path = os.path.join(self.dir,
+                            f"trace_iters_{self._first}-{last}.json")
+        prof.export_chrome_trace(path)
+        print_rank_0(f" profiler: trace written to {path} ({reason})")
 
 
 class DistSignalHandler:
@@ -123,11 +165,9 @@ def setup_train_state(cfg: RuntimeConfig, params: Optional[PyTree] = None,
 
 
 def make_eval_step(cfg: RuntimeConfig, metric_names=(), device=None):
-    """Forward-only ``eval_step(params, batch) -> {"lm_loss": float}``."""
-    if metric_names:
-        raise NotImplementedError(
-            f"the eval metrics registry ({list(metric_names)}) is not "
-            f"ported yet {_TRAINING_IO}")
+    """Forward-only ``eval_step(params, batch) -> {"lm_loss": ..., <name>:
+    ...}``, 0-d tensors: the LM loss and each registry metric named."""
+    metrics_lib.validate_metric_names(metric_names)
     rope = rope_tables(cfg.model, device=model_lib.default_device(device))
 
     @torch.no_grad()
@@ -138,7 +178,10 @@ def make_eval_step(cfg: RuntimeConfig, metric_names=(), device=None):
             segment_ids=batch.get("segment_ids"), rope=rope)
         per_token = cross_entropy(logits, batch["labels"],
                                   vocab_size=cfg.model.vocab_size)
-        return {"lm_loss": masked_mean_loss(per_token, batch["loss_mask"])}
+        out = {"lm_loss": masked_mean_loss(per_token, batch["loss_mask"])}
+        out.update(metrics_lib.compute_metrics(metric_names, batch, logits,
+                                               per_token))
+        return out
 
     return eval_step
 
@@ -175,7 +218,10 @@ def evaluate_and_print_results(prefix: str, cfg, params, data_iterator,
         if writer is not None:
             writer.add_scalar(f"valid/{k}", v, iteration)
         if k == "lm_loss":
-            string += f"lm loss PPL: {float(np.exp(min(20.0, v))):.6E} | "
+            ppl = float(np.exp(min(20.0, v)))
+            string += f"lm loss PPL: {ppl:.6E} | "
+            if writer is not None:
+                writer.add_scalar("valid/lm_loss_ppl", ppl, iteration)
     print_rank_0("-" * (len(string) + 1))
     print_rank_0(string)
     print_rank_0("-" * (len(string) + 1))
@@ -243,8 +289,14 @@ def training_log(cfg: RuntimeConfig, log: _LogState, metrics: dict,
         f" number of anomalous iterations: {log.anomaly_total:3d} |")
     for tag, value in (("lm_loss", avg_loss), ("learning_rate", lr),
                        ("grad_norm", grad_norm), ("loss_scale", loss_scale),
-                       ("tokens_per_sec", tokens_per_sec)):
+                       ("tokens_per_sec", tokens_per_sec),
+                       ("consumed_samples", consumed_samples),
+                       ("anomalous_iterations", log.anomaly_total)):
         writer.add_scalar(f"train/{tag}", value, iteration)
+    for name, value in sorted(
+            metrics_lib.RESILIENCE_EVENTS.snapshot().items()):
+        writer.add_scalar(f"resilience/{name}", value, iteration)
+    timers.write(writer, iteration, reset=False)
     timers.log(normalizer=max(log.count, 1))
     log.reset_window()
 
@@ -335,7 +387,6 @@ def pretrain(
     if given, sees every trained step with its wall time (the host clock
     around the step, ending in a device synchronization)."""
     cfg.validate()
-    _refuse_unported(cfg)
     t_start = time.time()
     timers = Timers()
     writer = build_writer(cfg.train.tensorboard_dir, cfg.train.wandb_project,
@@ -391,6 +442,9 @@ def pretrain(
     persistent_valid = (None if valid_dataset is None else
                         _PersistentEvalIterator(cfg, valid_dataset, eod_token))
 
+    profiler = ProfilerWindow(cfg.train.profile_dir,
+                              cfg.train.profile_step_start,
+                              cfg.train.profile_step_end, art.device)
     log = _LogState()
     # the step folds in the iteration (dropout masks; JAX driver.py:664)
     base_rng = drop.key(cfg.train.seed)
@@ -408,95 +462,105 @@ def pretrain(
     print_rank_0(f" training starts at iteration {iteration} / "
                  f"{cfg.train.train_iters}")
     with DistSignalHandler() as sig:
-        while iteration < cfg.train.train_iters:
-            # fault injection: --skip_iters (training.py:397-399,422-426)
-            if (iteration + 1) in skip_set:
+        try:
+            while iteration < cfg.train.train_iters:
+                profiler.maybe_start(iteration + 1)
+                # fault injection: --skip_iters (training.py:397-399,422-426)
+                if (iteration + 1) in skip_set:
+                    try:
+                        next(train_iter)
+                    except StopIteration:
+                        train_iter = make_train_iter(consumed_samples,
+                                                     current_gbs)
+                        next(train_iter)
+                    iteration += 1
+                    consumed_samples += current_gbs
+                    calculator.update(consumed_samples, True)
+                    state = state._replace(iteration=state.iteration + 1)
+                    print_rank_0(f" skipping iteration {iteration} (fault "
+                                 "injection)")
+                    profiler.maybe_stop(iteration)
+                    continue
+
+                # batch-size ramp: rebuild the iterator on a rung change
+                new_gbs = calculator.get_current_global_batch_size()
+                if new_gbs != current_gbs:
+                    current_gbs = new_gbs
+                    train_iter = make_train_iter(consumed_samples, current_gbs)
+                    print_rank_0(f" global batch size ramped to {current_gbs}")
+
+                timers("batch-generator", log_level=1).start()
                 try:
-                    next(train_iter)
+                    batch = next(train_iter)
                 except StopIteration:
-                    train_iter = make_train_iter(consumed_samples,
-                                                 current_gbs)
-                    next(train_iter)
+                    train_iter = make_train_iter(consumed_samples, current_gbs)
+                    batch = next(train_iter)
+                # chaos hook (inert unless a test armed poison_batches)
+                batch = chaos().corrupt_batch(batch, iteration + 1)
+                dev_batch = to_device_batch(batch, art.device)
+                timers("batch-generator").stop()
+
+                t0 = time.perf_counter()
+                timers("train-step").start()
+                state, step_metrics = art.step_fn(state, dev_batch, base_rng)
+                timers("train-step").stop(wait_for=step_metrics)
+                if on_step is not None:
+                    on_step(iteration + 1, step_metrics,
+                            time.perf_counter() - t0)
+                # stop right after the window's last step, before the eval
+                # and save hooks, so the capture holds train steps
+                profiler.maybe_stop(iteration + 1)
+
                 iteration += 1
                 consumed_samples += current_gbs
                 calculator.update(consumed_samples, True)
-                state = state._replace(iteration=state.iteration + 1)
-                print_rank_0(f" skipping iteration {iteration} (fault "
-                             "injection)")
-                continue
+                log.tokens += current_gbs * cfg.train.seq_length
+                training_log(cfg, log, step_metrics, iteration,
+                             consumed_samples, writer, timers)
 
-            # batch-size ramp: rebuild the iterator on a rung change
-            new_gbs = calculator.get_current_global_batch_size()
-            if new_gbs != current_gbs:
-                current_gbs = new_gbs
-                train_iter = make_train_iter(consumed_samples, current_gbs)
-                print_rank_0(f" global batch size ramped to {current_gbs}")
+                # K consecutive data anomalies: restore the last complete
+                # checkpoint and keep consumed_samples where it is, so the
+                # replayed iterations read past the poisoned data
+                k_roll = cfg.train.anomaly_rollback_after
+                if k_roll and int(step_metrics["anomaly_run"]) >= k_roll:
+                    state, iteration = rollback_to_last_checkpoint(
+                        cfg, state, rollbacks + 1)
+                    rollbacks += 1
+                    print_rank_0(
+                        f" ANOMALY ROLLBACK #{rollbacks}: {k_roll} "
+                        f"consecutive anomalous iterations; restored "
+                        f"iteration {iteration} "
+                        f"and skipping the poisoned data window "
+                        f"(consumed_samples stays at {consumed_samples})")
+                    log.reset_window()
+                    continue
 
-            timers("batch-generator", log_level=1).start()
-            try:
-                batch = next(train_iter)
-            except StopIteration:
-                train_iter = make_train_iter(consumed_samples, current_gbs)
-                batch = next(train_iter)
-            # chaos hook (inert unless a test armed poison_batches)
-            batch = chaos().corrupt_batch(batch, iteration + 1)
-            dev_batch = to_device_batch(batch, art.device)
-            timers("batch-generator").stop()
+                if (persistent_valid is not None and cfg.train.eval_interval
+                        and iteration % cfg.train.eval_interval == 0):
+                    timers("eval").start()
+                    evaluate_and_print_results(
+                        f"iteration {iteration}", cfg, state.params,
+                        persistent_valid.iterator(current_gbs), eval_step,
+                        art.device, writer, iteration)
+                    timers("eval").stop()
 
-            t0 = time.perf_counter()
-            timers("train-step").start()
-            state, step_metrics = art.step_fn(state, dev_batch, base_rng)
-            timers("train-step").stop(wait_for=step_metrics)
-            if on_step is not None:
-                on_step(iteration + 1, step_metrics, time.perf_counter() - t0)
+                if (cfg.train.save and cfg.train.save_interval
+                        and iteration % cfg.train.save_interval == 0):
+                    _save(cfg, state, iteration, consumed_samples, timers)
 
-            iteration += 1
-            consumed_samples += current_gbs
-            calculator.update(consumed_samples, True)
-            log.tokens += current_gbs * cfg.train.seq_length
-            training_log(cfg, log, step_metrics, iteration, consumed_samples,
-                         writer, timers)
-
-            # K consecutive data anomalies: restore the last complete
-            # checkpoint and keep consumed_samples where it is, so the
-            # replayed iterations read past the poisoned data
-            k_roll = cfg.train.anomaly_rollback_after
-            if k_roll and int(step_metrics["anomaly_run"]) >= k_roll:
-                state, iteration = rollback_to_last_checkpoint(
-                    cfg, state, rollbacks + 1)
-                rollbacks += 1
-                print_rank_0(
-                    f" ANOMALY ROLLBACK #{rollbacks}: {k_roll} consecutive "
-                    f"anomalous iterations; restored iteration {iteration} "
-                    f"and skipping the poisoned data window "
-                    f"(consumed_samples stays at {consumed_samples})")
-                log.reset_window()
-                continue
-
-            if (persistent_valid is not None and cfg.train.eval_interval
-                    and iteration % cfg.train.eval_interval == 0):
-                timers("eval").start()
-                evaluate_and_print_results(
-                    f"iteration {iteration}", cfg, state.params,
-                    persistent_valid.iterator(current_gbs), eval_step,
-                    art.device, writer, iteration)
-                timers("eval").stop()
-
-            if (cfg.train.save and cfg.train.save_interval
-                    and iteration % cfg.train.save_interval == 0):
-                _save(cfg, state, iteration, consumed_samples, timers)
-
-            if sig.signals_received():
-                exit_reason = "signal"
-            elif (cfg.train.exit_interval
-                    and iteration % cfg.train.exit_interval == 0):
-                exit_reason = "exit_interval"
-            elif (cfg.train.exit_duration_mins is not None
-                    and (time.time() - t_start) / 60.0
-                    > cfg.train.exit_duration_mins):
-                exit_reason = "exit_duration"
-            if exit_reason:
-                break
+                if sig.signals_received():
+                    exit_reason = "signal"
+                elif (cfg.train.exit_interval
+                        and iteration % cfg.train.exit_interval == 0):
+                    exit_reason = "exit_interval"
+                elif (cfg.train.exit_duration_mins is not None
+                        and (time.time() - t_start) / 60.0
+                        > cfg.train.exit_duration_mins):
+                    exit_reason = "exit_duration"
+                if exit_reason:
+                    break
+        finally:
+            profiler.close()
 
     if exit_reason:
         print_rank_0(f" exiting at iteration {iteration}: {exit_reason}")

@@ -152,3 +152,20 @@ class Timers:
         if printer is not None:
             printer(line, flush=True)
         return line
+
+    def write(self, writer, iteration: int,
+              names: Optional[Sequence[str]] = None, *,
+              normalizer: Optional[float] = None, reset: bool = False):
+        """Export to a tensorboard-style writer as ``timers/<name>``; the
+        default ``normalizer=None`` divides each timer by its own call
+        count (one-shot timers report their duration, per-iteration ones
+        their time per call)."""
+        if names is None:
+            names = list(self._timers)
+        for n in names:
+            t = self._timers.get(n)
+            if t is None:
+                continue
+            div = normalizer if normalizer is not None else max(t.count, 1)
+            writer.add_scalar(f"timers/{n}", t.elapsed(reset=reset) / div,
+                              iteration)

@@ -123,9 +123,27 @@ def test_verify_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 0, out
     assert '"passed": true' in out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        verify_correctness.main(["--hf_path", str(tmp_path / "hf"),
-                                 "--data_path", "corpus", "--device", "cpu"])
+    # --data_path: eval batches from an indexed dataset, cut as JAX's CLI
+    # cuts them
+    from megatron_llm_tpu.tools.verify_correctness import _data_batches
+    from megatron_llm_tpu_torch.data.indexed_dataset import write_dataset
+
+    rng = np.random.default_rng(4)
+    write_dataset(str(tmp_path / "corpus"),
+                  [rng.integers(0, 128, int(n)).tolist()
+                   for n in rng.integers(5, 60, 12)], np.uint16)
+    got = verify_correctness.data_batches(str(tmp_path / "corpus"), 3, 2, 32)
+    want = _data_batches(str(tmp_path / "corpus"), 3, 2, 32)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    rc = verify_correctness.main([
+        "--hf_path", str(tmp_path / "hf"), "--data_path",
+        str(tmp_path / "corpus"), "--iters", "3", "--batch_size", "2",
+        "--seq_length", "32", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert '"passed": true' in out and '"iters": 3' in out
 
 
 # ---------------------------------------------------------------------------

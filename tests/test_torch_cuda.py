@@ -1583,3 +1583,46 @@ def test_safetensors_read_and_write_on_the_card_in_pieces(cuda_device,
                        t["a"].float())
     out = torch.empty(129, 37, dtype=torch.bfloat16, device=cuda_device).T
     assert torch.equal(f.read_into("a", out), t["a"])
+
+
+@pytest.mark.cuda
+def test_finetune_on_indexed_data_traces_the_kernels(cuda_device, tmp_path):
+    """``finetune.main`` on a tiny indexed dataset on the card, from a
+    release checkpoint whose config selects the kernels (flash attention,
+    the Triton norms, bf16): the profiler window's Chrome trace names K1-K3
+    through their tensor-core bodies and K5."""
+    import json
+
+    import numpy as np
+
+    from megatron_llm_tpu_torch import checkpointing, finetune
+    from megatron_llm_tpu_torch.config import RuntimeConfig, llama2_config
+    from megatron_llm_tpu_torch.data.indexed_dataset import write_dataset
+
+    cfg = llama2_config("7b", num_layers=2, hidden_size=256,
+                        num_attention_heads=2, num_kv_heads=2,
+                        ffn_hidden_size=512, vocab_size=512,
+                        params_dtype="bfloat16", attention_impl="flash",
+                        norm_impl="pallas", recompute="selective")
+    checkpointing.save_release_params(
+        str(tmp_path / "rel"), tm.init_params(cfg, seed=3,
+                                              device=cuda_device),
+        RuntimeConfig(model=cfg))
+    rng = np.random.default_rng(0)
+    write_dataset(str(tmp_path / "corpus"),
+                  [rng.integers(0, 511, int(n)).tolist()
+                   for n in rng.integers(50, 400, 60)], np.uint16)
+    assert finetune.main([
+        "--load", str(tmp_path / "rel"), "--use_checkpoint_args",
+        "--data_path", str(tmp_path / "corpus"), "--split", "90,5,5",
+        "--seq_length", "256", "--global_batch_size", "2",
+        "--micro_batch_size", "1", "--train_iters", "3", "--eval_iters",
+        "1", "--eval_interval", "3", "--metrics", "perplexity", "accuracy",
+        "--profile_dir", str(tmp_path / "prof"), "--profile_step_start",
+        "2", "--profile_step_end", "2", "--device", "cuda"]) == 0
+    trace = json.loads((tmp_path / "prof" / "trace_iters_2-2.json")
+                       .read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                   "flash_bwd_dkv_mma_kernel", "rms_bwd_kernel"):
+        assert any(kernel in n for n in names), kernel

@@ -62,6 +62,16 @@ CASES = {
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+def grad_tol(want: np.ndarray) -> dict:
+    """A gradient leaf's limit: fp32 noise scaled to the leaf.  Run in
+    float64 (``test_forward_and_grads_match_jax_in_float64``) the two
+    sides' gradients agree to ~1e-13 absolute on leaves of size up to ~70,
+    so what parts them in fp32 is the order of sums: up to ~2.5e-5 on
+    such a leaf, about fp32's epsilon times its size.  ``atol = 1e-5 *
+    max|w|`` per leaf, never below ``TOL``'s 1e-5."""
+    return dict(rtol=1e-5, atol=1e-5 * max(1.0, float(np.abs(want).max())))
+
+
 def _jax_key(k: tdrop.DropoutKey):
     """JAX's key for the port's key: the same fold_in / split chain."""
     jk = jax.random.key(k.seed)
@@ -120,10 +130,54 @@ def test_forward_and_grads_match_jax_with_its_masks(case, jax_masks):
     assert jax_masks, "no mask was drawn"
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
     for g, w in zip(grads, jax.tree.leaves(jgrads)):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   **grad_tol(np.asarray(w)))
     # and dropout did act: the deterministic forward differs
     plain = tm.forward(tc, tp, torch.from_numpy(toks).long())
     assert not torch.allclose(plain, got.detach(), atol=1e-3)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_and_grads_match_jax_in_float64(case, monkeypatch):
+    """The evidence for ``grad_tol``: the same comparison with both sides
+    in float64 (``torch_float64.float64_everywhere``; JAX's masks drawn
+    from float64 uniforms, as its own dropout does under x64) agrees to
+    ~1e-13, so the port computes what JAX computes and the fp32 gaps are
+    the order of sums."""
+    from torch_float64 import as_float64, float64_everywhere
+
+    def keep_mask(k, keep_p, shape, device):
+        m = jax.random.bernoulli(_jax_key(k), float(keep_p), tuple(shape))
+        return torch.from_numpy(np.array(m)).to(device)
+
+    monkeypatch.setattr(tdrop, "keep_mask", keep_mask)
+    jc, jp, tc, _ = _pair(CASES[case])
+    jp = as_float64(jp)
+    toks = _tokens(jc.vocab_size)
+    proj = np.random.default_rng(1).normal(size=(2, 12,
+                                                 jc.padded_vocab_size()))
+    with float64_everywhere():
+        jp = jax.tree.map(jnp.asarray, jp)
+        tp = params_from_jax(as_float64(jp), device="cpu")
+
+        def jloss(p):
+            lg = jm.forward(jc, p, jnp.asarray(toks), rng=jax.random.key(7),
+                            deterministic=False)
+            return jnp.sum(lg * proj), lg
+
+        (_, want), jgrads = jax.value_and_grad(jloss, has_aux=True)(jp)
+        leaves = [t.requires_grad_(True) for t in tree_leaves(tp)]
+        got = tm.forward(tc, tree_unflatten(tp, leaves),
+                         torch.from_numpy(toks).long(), rng=tdrop.key(7))
+        grads = torch.autograd.grad((got * torch.from_numpy(proj)).sum(),
+                                    leaves)
+    assert got.dtype == torch.float64 and want.dtype == jnp.float64
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-12, atol=1e-12)
+    for g, w in zip(grads, jax.tree.leaves(jgrads)):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
 
 
 def _train_cfgs(model_kw):

@@ -1,5 +1,7 @@
-"""The port imports neither JAX nor anything of the JAX package, and its
-weight tools need neither ``transformers`` nor ``safetensors``."""
+"""The port imports neither JAX nor anything of the JAX package, its
+weight tools need neither ``transformers`` nor ``safetensors``, and its
+tokenizers import neither ``regex`` nor ``sentencepiece`` (nor the
+writers ``wandb``) until a constructor asks for one."""
 
 import json
 import pkgutil
@@ -48,14 +50,20 @@ def test_port_imports_no_jax():
     for new in ("checkpointing", "metrics", "resilience.io",
                 "resilience.chaos", "safetensors_io",
                 "tools.hf_interop", "tools.verify_correctness",
-                "tools.checkpoint_util", "tools.verify_checkpoint"):
+                "tools.checkpoint_util", "tools.verify_checkpoint",
+                "utils.native", "utils.writers", "data.index_helpers",
+                "data.indexed_dataset", "data.gpt_dataset",
+                "data.blendable_dataset", "data.instruction_dataset",
+                "tokenizer.bpe", "tokenizer.native_bpe",
+                "tokenizer.tokenizer", "tools.preprocess_data",
+                "tools.merge_datasets", "tools.run_text_generation_server"):
         assert f"megatron_llm_tpu_torch.{new}" in names
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
         "roots = ('jax', 'megatron_llm_tpu', 'orbax', 'transformers', "
-        "'safetensors')\n"
+        "'safetensors', 'regex', 'sentencepiece', 'wandb')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
