@@ -161,7 +161,38 @@ it goes wrong:
     with the greedy texts of ``GenerationService`` in-process on the same
     params (K1, K4, K13); the time to the first byte; a clean stop.
     Phases 36-38 are the ``training-io`` path: K1-K5 and K13 must launch
-    there.
+    there;
+39. chunked admission: Llama-2-7B widths cut to 2 layers, a 1400-token
+    prompt prefilled in chunks of 256 as the engine does (the first chunk
+    through K1, each later one at its offset over the working cache) and
+    in one pass, each logit row against the fp32 plain forward at phase
+    4's limits; then Llama-2-7B at full depth in ``ServingEngine`` at the
+    smoke's sizes with ``prefill_chunk=256``, and beside it the same
+    engine without chunking: three greedy decodes (256 + 256) run when a
+    1536-token prompt arrives; the largest inter-token gap of the three
+    and the long prompt's TTFT, chunked and whole in turns A B B A, and
+    its 6 chunks;
+40. tiered KV: a block round trip (export, the side stream's copy into
+    pinned staging, the arena, import) at 32 layers on a bf16 and an int8
+    ``{q, scale}`` pool, bitwise, the pool's tensors in place, swap-out
+    and swap-in GB/s against a plain pinned copy; then the engine of phase
+    39 with ``host_kv_blocks=64``, a 50-block pool and ``sanitize=True``:
+    a cold 960-token request leaves its prefix cached, two priority-0
+    decodes (960 + 128) fill the pool, and a priority-1 1024 + 64 request
+    spills prefix blocks, then preempts one decode, which resumes after
+    it; a repeat of the first prompt hits through promotions.  The
+    preempted request's tokens equal its lone run's on a fresh engine of
+    the same config, the repeat's the cold run's; after the drain the
+    leak report is empty, the lock-order graph has no cycle, and the
+    steady state after the warm-up round built nothing
+    (``no_recompiles``);
+41. observability: ``MegatronServer`` on a free port over an engine of
+    phase 40's config: a PUT /api, then, the engine paused, GET
+    /metrics?format=prometheus parsed as 0.0.4 text, every serving counter
+    equal to the JSON snapshot, the SLO, swap and resilience families
+    present, one request's event-log lines against its /trace spans, and
+    the scrape's time.  Phases 39-41 are the ``serving-options`` path: K1,
+    K4 and K13 must launch there.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -171,8 +202,8 @@ K9 bit for bit on the same logical cache, K13 must equal K12 and K14 four
 K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
-Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34 and 36-38 are the
-main paths:
+Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38 and 39-41 are
+the main paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -4013,6 +4044,558 @@ def training_io_phases(torch, dev, counters, smi, paths, settle):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 39-41: the serving engine's options (chunked prefill, tiered KV,
+# sanitizers, observability) at Llama-2-7B full depth
+
+
+# 3 decodes of 256 + 256 when a 1536-token prompt arrives (phase 39); the
+# engine of phases 40-41: two low-priority decodes of 960 + 128 and the
+# prefix cache fill a 49-block pool, which a priority-1 1024 + 64 request
+# must squeeze (spill, then preempt one)
+OPT = dict(block=64, seq=2048, chunk=256, short=256, short_new=256,
+           long=1536, long_new=16, low=960, low_new=128, high=1024,
+           high_new=64, warm_new=32, pool=50, host=64, ref_len=1400,
+           obs_len=600, obs_new=24)
+OPT_NEED = ("flash_attention_fwd", "flash_attention_fwd_mma", "rmsnorm_fwd",
+            "fused_decode_step_paged")
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def chunked_reference(torch, M, cfg_full, dev, n=1400, chunk=256,
+                      width=2048):
+    """Phase 39's logit gate at Llama-2-7B widths cut to 2 layers, bf16:
+    the prompt prefilled in chunks as the engine does (the first with
+    ``empty_cache``, through K1; each later one at its offset over the
+    working cache; the last padded to the chunk), and in one pass, each
+    logit row against the fp32 plain forward at phase 4's limits."""
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    params = M.init_params(cfg, seed=1, device=dev)
+    ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
+                                  attention_impl="dot", norm_impl="xla",
+                                  fused_decode=False)
+
+    def to32(t):
+        return ({k: to32(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.float())
+
+    gen = torch.Generator(device=dev).manual_seed(39)
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                         device=dev)
+    padded = -(-n // chunk) * chunk
+    with torch.no_grad():
+        k, v = M.init_kv_cache(cfg, 1, width, device=dev)
+        rows = []
+        for off in range(0, padded, chunk):
+            piece = torch.zeros((1, chunk), dtype=toks.dtype, device=dev)
+            seg = toks[:, off:off + chunk]
+            piece[:, :seg.shape[1]] = seg
+            lg, k, v = M.forward_cached(cfg, params, piece, k, v, off,
+                                        empty_cache=off == 0)
+            rows.append(lg[0, :seg.shape[1]])
+        chunked = torch.cat(rows)
+        k, v = M.init_kv_cache(cfg, 1, width, device=dev)
+        whole = M.forward_cached(cfg, params, toks, k, v, 0,
+                                 empty_cache=True)[0][0]
+        del k, v
+        ref = M.forward(ref_cfg, to32(params), toks)[0]
+    out = {}
+    for name, got in (("chunked", chunked), ("whole", whole)):
+        d = (got - ref).abs()
+        out[name] = (float(d.mean()), float(d.max()))
+    d = (chunked - whole).abs()
+    log(f"chunked reference [llama2-7b widths, 2 layers, bf16, {n} tokens "
+        f"in chunks of {chunk} vs one pass, each vs the fp32 plain forward]: "
+        f"logit std {float(ref.std()):.3f}; chunked mean_abs_err "
+        f"{out['chunked'][0]:.4f} max {out['chunked'][1]:.4f}, whole "
+        f"{out['whole'][0]:.4f} / {out['whole'][1]:.4f} (tol 0.03 / 0.25); "
+        f"chunked vs whole {float(d.mean()):.4f} / {float(d.max()):.4f}; "
+        f"last-row argmax chunked {int(chunked[-1].argmax())} whole "
+        f"{int(whole[-1].argmax())} fp32 {int(ref[-1].argmax())}")
+    bad = [k_ for k_, (mean, mx) in out.items()
+           if not (mean <= 0.03 and mx <= 0.25)]
+    if bad or not bool(torch.isfinite(chunked).all()):
+        raise RuntimeError(f"chunked reference: {bad} outside phase 4's "
+                           "limits")
+    return out
+
+
+def _stream_gaps(times, t0, t1):
+    """Largest gap between consecutive token times of one stream that
+    touches the window [t0, t1]."""
+    gaps = [b - a for a, b in zip(times, times[1:]) if b >= t0 and a <= t1]
+    return max(gaps) if gaps else 0.0
+
+
+def chunked_admission(torch, engines, cfg, dev, smi, sizes=OPT):
+    """Phase 39: on each engine (``{"chunked": e, "whole": e}``) three
+    greedy decodes run when a long prompt arrives; turns A B B A, fresh
+    random prompts each turn (so the prefix cache never hits).  The
+    largest inter-token gap of the three streams while the long prompt is
+    admitted and its TTFT, from token callbacks (host clock); and the
+    chunks the long prompt took."""
+    gen = torch.Generator().manual_seed(390)
+    res = {"chunked": [], "whole": []}
+    for turn, label in enumerate(("chunked", "whole", "whole", "chunked")):
+        engine = engines[label]
+        times = [[] for _ in range(3)]
+        firsts = [threading.Event() for _ in range(3)]
+
+        def on_tok(i):
+            def cb(_t):
+                times[i].append(time.perf_counter())
+                if len(times[i]) >= 2:
+                    firsts[i].set()
+            return cb
+
+        shorts = [torch.randint(0, cfg.vocab_size, (sizes["short"],),
+                                generator=gen).tolist() for _ in range(3)]
+        long_p = torch.randint(0, cfg.vocab_size, (sizes["long"],),
+                               generator=gen).tolist()
+        c0 = engine.metrics.snapshot()["prefill_chunks"]
+        hs = [engine.submit(p, sizes["short_new"], use_eos_stop=False,
+                            on_token=on_tok(i)) for i, p in enumerate(shorts)]
+        for e in firsts:
+            if not e.wait(600):
+                raise RuntimeError("chunked-admission: a decode never began")
+        c1 = engine.metrics.snapshot()["prefill_chunks"]
+        long_first = []
+        t_sub = time.perf_counter()
+        hl = engine.submit(long_p, sizes["long_new"], use_eos_stop=False,
+                           on_token=lambda _t: long_first.append(
+                               time.perf_counter()))
+        rl = hl.result(900)
+        rs = [h.result(900) for h in hs]
+        if len(rl.tokens) != sizes["long"] + sizes["long_new"] or any(
+                len(r.tokens) != sizes["short"] + sizes["short_new"]
+                for r in rs):
+            raise RuntimeError("chunked-admission: a request came back short")
+        if min(len(t) for t in times) < sizes["short_new"] - 1:
+            raise RuntimeError("chunked-admission: a stream lost tokens")
+        ttft = long_first[0] - t_sub
+        gap = max(_stream_gaps(t, t_sub, long_first[0]) for t in times)
+        chunks = engine.metrics.snapshot()["prefill_chunks"] - c1
+        res[label].append(dict(gap_ms=gap * 1e3, ttft_ms=ttft * 1e3,
+                               chunks=chunks, short_chunks=c1 - c0))
+        log(f"chunked-admission turn {turn} ({label}): largest inter-token "
+            f"gap of the 3 active streams while the {sizes['long']}-token "
+            f"prompt was admitted {gap * 1e3:.2f} ms; its TTFT "
+            f"{ttft * 1e3:.2f} ms; prefill chunks {chunks} (the 3 "
+            f"{sizes['short']}-token prompts {c1 - c0}); host clock; card "
+            f"{smi}")
+    want = -(-sizes["long"] // sizes["chunk"])
+    if any(r["chunks"] != want for r in res["chunked"]) or any(
+            r["chunks"] for r in res["whole"]):
+        raise RuntimeError(f"chunked-admission: chunks {res}, want {want} "
+                           "for the long prompt chunked and 0 whole")
+    return res
+
+
+def tier_round_trip(torch, cfg_full, dev, smi, n_move=16, block=64):
+    """Phase 40's block round trip at Llama-2-7B's full layer count: a
+    bf16 pool and an int8 ``{q, scale}`` pool of ``n_move + 1`` blocks,
+    random rows; ``n_move`` blocks demoted (the gather, then the side
+    stream's copies into the pinned arena), the source blocks overwritten
+    at once (the next step's writes), promoted into other blocks: bitwise,
+    the pool's tensors in place and contiguous.  Two rounds, the first a
+    warm-up (the side stream, the allocator); the second's swap-out and
+    swap-in GB/s against a plain pinned copy of the same bytes each way
+    (the second of two)."""
+    from megatron_llm_tpu_torch.serving.block_pool import BlockPool, HostKVTier
+
+    out = {}
+    for quant in ("none", "int8"):
+        cfg = dataclasses.replace(cfg_full, kv_cache_quant=quant)
+        pool = BlockPool(cfg, n_move + 1, block, device=dev)
+        leaves = [t for c in (pool.k_pool, pool.v_pool)
+                  for t in (c.values() if isinstance(c, dict) else [c])]
+        gen = torch.Generator(device=dev).manual_seed(40)
+        for t in leaves:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device=dev, dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        before = [t.clone() for t in leaves]
+        ptrs = [t.data_ptr() for t in leaves]
+        tier = HostKVTier(pool, n_move, arity=n_move)
+        ok, rounds = True, []
+        for _ in range(2):
+            for t, b in zip(leaves, before):
+                t.copy_(b)
+            pool.reserve(n_move)
+            src = [pool.alloc_reserved() for _ in range(n_move)]
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            hids = tier.begin_demote(src, owner="round-trip")
+            t_enq = time.perf_counter() - t0
+            for b in src:
+                pool.decref(b)
+            for t in leaves:  # the next step writes the freed blocks
+                t.zero_()
+            tier.pump()
+            t_out = time.perf_counter() - t0
+            pool.reserve(n_move)
+            dst = [pool.alloc_reserved() for _ in range(n_move)]
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            tier.promote(hids, dst)
+            _sync(torch, dev)
+            t_in = time.perf_counter() - t0
+            tier.free(hids)
+            ok = ok and all(torch.equal(t[:, d], b[:, s])
+                            for t, b in zip(leaves, before)
+                            for s, d in zip(src, dst))
+            for b in dst:
+                pool.decref(b)
+            rounds.append((t_enq, t_out, t_in))
+        inplace = [t.data_ptr() for t in leaves] == ptrs and all(
+            t.is_contiguous() for t in leaves)
+        nbytes = tier.block_nbytes * n_move
+        # the bound: a plain pinned copy of the same bytes each way
+        dense = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        host = torch.empty(nbytes, dtype=torch.uint8,
+                           pin_memory=dev.type == "cuda")
+        for _ in range(2):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            host.copy_(dense, non_blocking=True)
+            _sync(torch, dev)
+            b_out = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dense.copy_(host, non_blocking=True)
+            _sync(torch, dev)
+            b_in = time.perf_counter() - t0
+        del dense, host, tier, pool, leaves, before
+        (w_enq, w_out, w_in), (t_enq, t_out, t_in) = rounds
+        out[quant] = dict(gb=nbytes / 1e9, out_gbs=nbytes / t_out / 1e9,
+                          in_gbs=nbytes / t_in / 1e9,
+                          bound_out_gbs=nbytes / b_out / 1e9,
+                          bound_in_gbs=nbytes / b_in / 1e9,
+                          enqueue_ms=t_enq * 1e3)
+        log(f"tier round trip ({cfg.num_layers} layers, "
+            f"{'int8 {q, scale}' if quant == 'int8' else cfg.params_dtype} "
+            f"pool, {n_move} blocks of {block} = {nbytes / 1e9:.3f} GB): "
+            f"bitwise {ok}, pool tensors in place and contiguous "
+            f"{inplace}; swap-out {out[quant]['out_gbs']:.2f} GB/s "
+            f"(enqueued in {t_enq * 1e3:.2f} ms, then the copies) against "
+            f"a plain pinned copy {out[quant]['bound_out_gbs']:.2f}; swap-in "
+            f"{out[quant]['in_gbs']:.2f} GB/s against "
+            f"{out[quant]['bound_in_gbs']:.2f} (the warm-up round: "
+            f"{nbytes / w_out / 1e9:.2f} out, enqueued in "
+            f"{w_enq * 1e3:.2f} ms, {nbytes / w_in / 1e9:.2f} in); host "
+            f"clock; card {smi}")
+        if not (ok and inplace):
+            raise RuntimeError(f"tier round trip ({quant}): bitwise {ok}, in "
+                               f"place {inplace}")
+    return out
+
+
+def tiered_kv(torch, cfg, params, dev, smi, engine_kw, sizes=OPT):
+    """Phase 40 (module doc); returns the engine's config (phase 41 serves
+    it behind the server) and the figures."""
+    from megatron_llm_tpu_torch.analysis import sanitizers as san
+    from megatron_llm_tpu_torch.obs.logging import EVENT_LOG
+    from megatron_llm_tpu_torch.serving import EngineConfig, ServingEngine
+
+    ec = EngineConfig(**engine_kw, kv_pool_blocks=sizes["pool"],
+                      host_kv_blocks=sizes["host"], sanitize=True)
+    gen = torch.Generator().manual_seed(400)
+
+    def rand(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    p_w, p_l1, p_l2, p_h = (rand(sizes["low"]), rand(sizes["low"]),
+                            rand(sizes["low"]), rand(sizes["high"]))
+    # the preempted request served alone on an unpressured engine of the
+    # same config
+    alone_engine = ServingEngine(cfg, params, ec, device=dev).start()
+    try:
+        alone = alone_engine.submit(p_l1, sizes["low_new"],
+                                    use_eos_stop=False).result(900)
+        if alone_engine.metrics.snapshot()["preemptions_total"]:
+            raise RuntimeError("tiered-kv: the lone run was preempted")
+    finally:
+        alone_engine.shutdown()
+    del alone_engine
+    engine = ServingEngine(cfg, params, ec, device=dev).start()
+    try:
+        return ec, _tiered_run(torch, cfg, engine, dev, smi, san, EVENT_LOG,
+                               p_w, p_l1, p_l2, p_h, alone, sizes)
+    finally:
+        engine.shutdown()
+
+
+def _tiered_run(torch, cfg, engine, dev, smi, san, EVENT_LOG, p_w, p_l1,
+                p_l2, p_h, alone, sizes):
+    # warm-up round: a cold chunked admission and its decode, whose prompt
+    # blocks then sit in the prefix cache
+    cold = engine.submit(p_w, sizes["warm_new"],
+                         use_eos_stop=False).result(900)
+    m0 = engine.metrics.snapshot()
+    EVENT_LOG.clear()
+    with san.no_recompiles() as compiles:
+        began = [threading.Event(), threading.Event()]
+        h1, h2 = (engine.submit(p, sizes["low_new"], use_eos_stop=False,
+                                priority=0,
+                                on_token=lambda _t, e=e: e.set())
+                  for p, e in zip((p_l1, p_l2), began))
+        for e in began:
+            if not e.wait(600):
+                raise RuntimeError("tiered-kv: a low decode never began")
+        spilled = []  # the prefix cache's host blocks at the high request's
+        #               first token: its admission spilled them
+
+        def first_high(_t):
+            if not spilled:
+                spilled.append(engine.host_tier.owners().get(
+                    "prefix-cache", 0))
+
+        hh = engine.submit(p_h, sizes["high_new"], use_eos_stop=False,
+                           priority=1, on_token=first_high)
+        r_h = hh.result(900)
+        r1, r2 = h1.result(900), h2.result(900)
+        m1 = engine.metrics.snapshot()
+        rep = engine.submit(p_w, sizes["warm_new"],
+                            use_eos_stop=False).result(900)
+    if not engine.drain(300):
+        raise RuntimeError("tiered-kv: the engine did not drain")
+    m2 = engine.metrics.snapshot()
+    report = list(engine.sanitizer_report)
+    violations = san.lock_order_violations()
+    # the ledger audit's own cost, on the drained engine's state
+    audit = san.LedgerSanitizer()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        audit.check_engine(engine)
+    audit_ms = (time.perf_counter() - t0) / 20 * 1e3
+    pre = [ln for ln in EVENT_LOG.recent(event="preempted")]
+    res = [ln for ln in EVENT_LOG.recent(event="resumed")]
+    d = {k: m1[k] - m0[k] for k in ("preemptions_total", "resumes_total",
+                                    "swap_out_blocks_total",
+                                    "swap_in_blocks_total",
+                                    "swap_bytes_total")}
+    promos = m2["prefix_promotions_total"] - m1["prefix_promotions_total"]
+    hit = m2["prefix_hits"] - m1["prefix_hits"]
+    rid_l1 = h1.rid
+    spilled_before = spilled[0]
+    log(f"tiered-kv ({cfg.num_layers} layers, {cfg.params_dtype}, pool "
+        f"{sizes['pool']} blocks of {sizes['block']}, host tier "
+        f"{sizes['host']} blocks = "
+        f"{engine.host_tier.block_nbytes * sizes['host'] / 1e9:.2f} GB "
+        f"pinned, sanitize on): spilled prefix blocks before the priority-1 "
+        f"admission {spilled_before}, after "
+        f"{m1['swap_out_blocks_total'] - m0['swap_out_blocks_total']} "
+        f"blocks swapped out; {json.dumps(d)}; the repeat's prefix hits "
+        f"{hit}, promotions {promos}; swap bandwidth EWMA "
+        f"{engine.host_tier.stats()['swap_bw_bytes_per_s'] / 1e9:.2f} GB/s; "
+        f"compiles in the steady state {compiles.count} "
+        f"{compiles.compiled}; leak report {report}; lock-order violations "
+        f"{violations}; ledger audit {audit_ms:.3f} ms an iteration; host "
+        f"clock; card {smi}")
+    for ln in pre:
+        log(f"tiered-kv preempted {json.dumps(ln)}")
+    for ln in res:
+        log(f"tiered-kv resumed {json.dumps(ln)}")
+    if d["preemptions_total"] != 1 or d["resumes_total"] != 1 \
+            or [ln["request_id"] for ln in pre] != [rid_l1]:
+        raise RuntimeError(f"tiered-kv: want one preemption of {rid_l1} and "
+                           f"its resume: {d}, {pre}")
+    if spilled_before < 1:
+        raise RuntimeError("tiered-kv: the priority-1 admission spilled no "
+                           "prefix block")
+    if r1.tokens != alone.tokens:
+        bad = next(i for i, (a, b) in enumerate(zip(r1.tokens, alone.tokens))
+                   if a != b)
+        raise RuntimeError(f"tiered-kv: the preempted request's tokens "
+                           f"differ from its lone run's from position {bad}")
+    if promos < 1 or hit != 1 or rep.tokens != cold.tokens:
+        raise RuntimeError(f"tiered-kv: the repeat: hits {hit}, promotions "
+                           f"{promos}, tokens equal "
+                           f"{rep.tokens == cold.tokens}")
+    if report or violations or compiles.count:
+        raise RuntimeError(f"tiered-kv: leaks {report}, lock-order "
+                           f"{violations}, compiles {compiles.compiled}")
+    for r, n in ((r_h, sizes["high"] + sizes["high_new"]),
+                 (r2, sizes["low"] + sizes["low_new"])):
+        if len(r.tokens) != n or r.finish_reason != "length":
+            raise RuntimeError("tiered-kv: a request came back short")
+    return dict(
+        preempt=pre[0], resume=res[0], audit_ms=audit_ms,
+        promotions=promos, spilled=spilled_before,
+        bw_gbs=engine.host_tier.stats()["swap_bw_bytes_per_s"] / 1e9)
+
+
+def _parse_prom(text):
+    """0.0.4 text → ({family: type}, {(sample, labels): value}); raises on
+    a line it cannot parse."""
+    import re
+
+    sample_re = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$")
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    types, samples = {}, {}
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("# HELP"):
+            continue
+        if line.startswith("# TYPE"):
+            _, _, name, mtype = line.split(maxsplit=3)
+            types[name] = mtype.strip()
+            continue
+        m = sample_re.match(line)
+        if not m:
+            raise RuntimeError(f"unparseable exposition line: {line!r}")
+        name, labels, value = m.groups()
+        samples[(name, frozenset(label_re.findall(labels or "")))] = \
+            float(value)
+    return types, samples
+
+
+def observability(torch, cfg, params, ec, dev, smi, sizes=OPT):
+    """Phase 41: ``MegatronServer`` on a free port over an engine of phase
+    40's config: PUT /api (chunked admission), then, the engine paused,
+    the Prometheus scrape against the JSON snapshot, the families it must
+    hold, one request's event-log lines against its /trace spans, and the
+    scrape's time."""
+    from megatron_llm_tpu_torch.generation import MegatronServer
+    from megatron_llm_tpu_torch.obs.logging import EVENT_LOG
+    from megatron_llm_tpu_torch.serving import ServingEngine
+    from megatron_llm_tpu_torch.serving.metrics import _COUNTERS
+    from megatron_llm_tpu_torch.tokenizer import NullTokenizer
+
+    engine = ServingEngine(cfg, params, ec, device=dev)
+    server = MegatronServer(cfg, params, NullTokenizer(cfg.vocab_size),
+                            engine=engine, device=dev)
+    server.run("127.0.0.1", 0, block=False)
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        gen = torch.Generator().manual_seed(41)
+        ids = torch.randint(0, cfg.vocab_size, (sizes["obs_len"],),
+                            generator=gen)
+        status, out = put(server.port, {
+            "prompts": [" ".join(str(int(t)) for t in ids)],
+            "tokens_to_generate": sizes["obs_new"],
+            "no_early_termination": True,
+            "priority": 1})
+        if status != 200:
+            raise RuntimeError(f"observability: PUT answered {status}")
+        (rid,) = out["request_ids"]
+        engine.pause()
+        time.sleep(0.1)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+            snap = json.loads(resp.read())
+        scrape_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(base + "/metrics?format=prometheus",
+                                        timeout=60) as resp:
+                ctype = resp.headers["Content-Type"]
+                text = resp.read().decode()
+            scrape_ms.append((time.perf_counter() - t0) * 1e3)
+        with urllib.request.urlopen(base + "/trace", timeout=120) as resp:
+            trace = json.loads(resp.read())
+        engine.resume()
+    finally:
+        server.shutdown()
+    types, samples = _parse_prom(text)
+    if "version=0.0.4" not in ctype:
+        raise RuntimeError(f"observability: content type {ctype}")
+    off = {}
+    for name in _COUNTERS:
+        pname = name if name.endswith("_total") else f"{name}_total"
+        got = samples.get((f"serving_{pname}", frozenset()))
+        if got != snap[name]:
+            off[name] = (got, snap[name])
+    need = ("serving_slo_compliance", "serving_slo_burn_rate",
+            "serving_slo_healthy", "serving_swap_out_blocks_total",
+            "serving_swap_in_blocks_total", "serving_swap_bytes_total",
+            "serving_host_blocks_used", "serving_preemptions_total",
+            "resilience_events_total")
+    missing = [n for n in need if n not in types]
+    lines = EVENT_LOG.recent(request_id=rid)
+    events = [ln["event"] for ln in lines]
+    spans = [e for e in trace["traceEvents"]
+             if e.get("args", {}).get("request_id") == rid]
+    names = [e["name"] for e in spans]
+    fin = next((ln for ln in lines if ln["event"] == "finished"), {})
+    adm = next((ln for ln in lines if ln["event"] == "admitted"), {})
+    match = next((e["args"] for e in spans if e["name"] == "prefix_match"),
+                 {})
+    agree = (all(e in events for e in ("submitted", "admitted",
+                                       "first_token", "finished",
+                                       "http_response"))
+             and all(n in names for n in ("queued", "prefix_match", "decode",
+                                          "retire"))
+             and adm.get("chunked") is True
+             and any(n.startswith("prefill_chunk") for n in names)
+             and fin.get("generated") == 1 + names.count("decode")
+             and adm.get("cached_tokens") == match.get("matched_tokens"))
+    log(f"observability: GET /metrics?format=prometheus {len(text)} bytes, "
+        f"{len(types)} families, scrape {min(scrape_ms):.2f} ms (best of 5; "
+        f"median {sorted(scrape_ms)[2]:.2f}); serving counters equal to the "
+        f"JSON snapshot {not off}; missing families {missing}; request "
+        f"{rid}: log {events}, spans {sorted(set(names))}, agree {agree}; "
+        f"host clock; card {smi}")
+    if off or missing or not agree:
+        raise RuntimeError(f"observability: counters off {off}, missing "
+                           f"{missing}, log and spans agree {agree}")
+    return dict(scrape_ms=min(scrape_ms))
+
+
+def serving_options_phases(torch, cfg, dev, counters, smi, paths, settle,
+                           sizes=OPT):
+    """Phases 39-41 at Llama-2-7B full depth (bf16, the fused route, random
+    weights from a seed); records the ``serving-options`` path's
+    launches."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.serving import EngineConfig, ServingEngine
+
+    t0 = tp = time.perf_counter()
+    chunked_reference(torch, M, cfg, dev, n=sizes["ref_len"],
+                      chunk=sizes["chunk"], width=sizes["seq"])
+    settle()
+    params = M.init_params(cfg, seed=0, device=dev)
+    engine_kw = dict(max_batch_size=4, max_seq_len=sizes["seq"],
+                     kv_block_size=sizes["block"],
+                     prefill_bucket=sizes["block"],
+                     prefill_chunk=sizes["chunk"])
+    engines = {
+        "chunked": ServingEngine(cfg, params, EngineConfig(**engine_kw),
+                                 device=dev).start(),
+        "whole": ServingEngine(cfg, params, EngineConfig(
+            **{**engine_kw, "prefill_chunk": None}), device=dev).start()}
+    try:
+        warm = torch.randint(0, cfg.vocab_size, (sizes["long"],)).tolist()
+        for e in engines.values():  # Triton and cuBLAS warm, both routes
+            e.submit(warm, 4, use_eos_stop=False).result(900)
+        _zero(counters)
+        admission = chunked_admission(torch, engines, cfg, dev, smi, sizes)
+    finally:
+        for e in engines.values():
+            e.shutdown()
+    del engines
+    settle()
+    tp = _phase_done("39", tp, smi)
+    round_trip = tier_round_trip(torch, cfg, dev, smi,
+                                 block=sizes["block"])
+    settle()
+    ec, tiered = tiered_kv(torch, cfg, params, dev, smi, engine_kw, sizes)
+    settle()
+    tp = _phase_done("40", tp, smi)
+    obs = observability(torch, cfg, params, ec, dev, smi, sizes)
+    _phase_done("41", tp, smi)
+    launches = _launches(counters)
+    _check_path("serving-options", launches, {n: None for n in OPT_NEED},
+                forbid=("flash_decode",))
+    paths["serving-options"] = launches
+    log(f"serving-options phases 39-41 in {time.perf_counter() - t0:.1f}s")
+    return dict(admission=admission, round_trip=round_trip, tiered=tiered,
+                obs=obs)
+
+
 def log_hmma(build) -> None:
     """Log the tensor-core instructions (HMMA) of the attention kernels'
     libraries, where the toolkit's cuobjdump is present; information only."""
@@ -4276,6 +4859,7 @@ def main() -> int:
 
     weights_phases(torch, fused, dev, counters, smi, paths, settle)
     training_io_phases(torch, dev, counters, smi, paths, settle)
+    serving_options_phases(torch, fused, dev, counters, smi, paths, settle)
 
     meta = {
         "flash_attention_fwd": (

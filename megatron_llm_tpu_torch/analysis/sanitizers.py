@@ -1,0 +1,477 @@
+"""Opt-in runtime sanitizers (mirror of
+``megatron_llm_tpu/analysis/sanitizers.py``).
+
+Enabled by ``MEGATRON_SANITIZE=1`` in the environment or
+``EngineConfig.sanitize=True``; when disabled every hook is inert (plain
+``threading`` primitives, no extra work), so the instrumentation stays in
+the serving code.  Three checkers:
+
+* **recompilation guard**: :class:`CompileCounter` / :func:`no_recompiles`
+  count what the port compiles while a region runs: an ``nvcc`` build of
+  ``kernels/build.py``, a ``g++`` build of ``utils/native.py``, and a
+  Triton specialisation of the norm kernels seen for the first time
+  (Triton compiles anew for each new constexpr or divisibility
+  specialisation, so a shape that changes one recompiles mid-serve).  The
+  invariant is JAX's: zero compiles in the steady state after warm-up.
+* **lock-order checker**: :func:`make_lock` / :func:`make_condition` hand
+  out :class:`TrackedLock` s that record the cross-thread acquisition
+  graph; a cycle (thread A takes X then Y, thread B takes Y then X) is a
+  latent deadlock and is recorded for :func:`check_lock_order` to raise.
+* **block-pool ledger sanitizer**: :class:`LedgerSanitizer` re-derives
+  every block's expected ref count from the engine's own state (slot
+  tables, the prefix-cache trie, the host tier's owners) once per
+  scheduler iteration and raises :class:`LedgerError` at the first
+  divergence, naming the block and its last known owners;
+  :meth:`LedgerSanitizer.leak_report` is the drain / shutdown summary.
+
+JAX's ``DeliveryLedger`` (exactly-once streams across cluster failovers)
+and its compile clock (the cluster watchdog's) come with the serving
+cluster.  Sanitizers read private engine and pool fields by design: they
+are the auditors, not the API.  Stdlib only.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+from typing import Dict, Iterator, List, Set
+
+__all__ = [
+    "CompileCounter",
+    "LedgerError",
+    "LedgerSanitizer",
+    "LockOrderError",
+    "RecompilationError",
+    "TrackedLock",
+    "check_lock_order",
+    "enable_lock_tracking",
+    "env_enabled",
+    "lock_order_violations",
+    "make_condition",
+    "make_lock",
+    "no_recompiles",
+    "note_compile",
+    "note_triton_kernel",
+    "reset_lock_tracking",
+]
+
+
+def env_enabled() -> bool:
+    return os.environ.get("MEGATRON_SANITIZE", "") not in ("", "0")
+
+
+# ---------------------------------------------------------------------------
+# recompilation guard
+# ---------------------------------------------------------------------------
+
+class RecompilationError(AssertionError):
+    """A hot-path kernel compiled after warm-up."""
+
+
+_counters_mu = threading.Lock()
+_active_counters: List["CompileCounter"] = []
+# Triton kernels already counted, by id; the value keeps the object alive
+# so an id is never reused for another kernel
+_triton_seen: Dict[int, object] = {}
+
+
+def note_compile(what: str) -> None:
+    """Count one fresh compile (``what`` names it) in every active
+    :class:`CompileCounter`.  Called where the port builds a kernel: the
+    ``nvcc`` and ``g++`` builders, and :func:`note_triton_kernel`."""
+    with _counters_mu:
+        for c in _active_counters:
+            c.count += 1
+            c.compiled.append(what)
+
+
+def note_triton_kernel(kernel, name: str) -> None:
+    """Record a launched Triton kernel (the compiled object a launch
+    returns): the first sighting of an object is a compile (Triton hands
+    back the same object on a cache hit)."""
+    with _counters_mu:
+        if id(kernel) in _triton_seen:
+            return
+        _triton_seen[id(kernel)] = kernel
+    note_compile(f"triton:{name}")
+
+
+class CompileCounter:
+    """Counts the port's fresh compiles while active: ``count``, and
+    ``compiled`` naming each."""
+
+    def __init__(self) -> None:
+        self.count = 0
+        self.compiled: List[str] = []
+
+    def __enter__(self) -> "CompileCounter":
+        with _counters_mu:
+            _active_counters.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with _counters_mu:
+            _active_counters.remove(self)
+
+
+@contextlib.contextmanager
+def no_recompiles(allow: int = 0) -> Iterator[CompileCounter]:
+    """Fail the block if more than ``allow`` compiles happen inside it.
+    The serving recompilation guard: warm up outside, then run the steady
+    state under this."""
+    with CompileCounter() as counter:
+        yield counter
+    if counter.count > allow:
+        raise RecompilationError(
+            f"{counter.count} compile(s) happened inside a "
+            f"no_recompiles(allow={allow}) region: {counter.compiled} (a "
+            "hot-path kernel was built or specialised anew after warm-up)")
+
+
+# ---------------------------------------------------------------------------
+# lock-order checker
+# ---------------------------------------------------------------------------
+
+class LockOrderError(AssertionError):
+    """The acquisition graph contains a cycle — a latent deadlock."""
+
+
+class _LockOrderState:
+    def __init__(self) -> None:
+        self.mu = threading.Lock()           # guards edges/violations
+        self.edges: Dict[str, Set[str]] = {}  # held-name -> then-acquired
+        self.seen_pairs: Set[tuple] = set()
+        self.violations: List[str] = []
+        self.tls = threading.local()
+
+    def held_stack(self) -> List[str]:
+        stack = getattr(self.tls, "stack", None)
+        if stack is None:
+            stack = self.tls.stack = []
+        return stack
+
+    def _reaches(self, src: str, dst: str) -> bool:
+        stack, visited = [src], set()
+        while stack:
+            cur = stack.pop()
+            if cur == dst:
+                return True
+            if cur in visited:
+                continue
+            visited.add(cur)
+            stack.extend(self.edges.get(cur, ()))
+        return False
+
+    def note_acquire(self, name: str) -> None:
+        held = self.held_stack()
+        if not held:
+            return
+        with self.mu:
+            for h in held:
+                if h == name or (h, name) in self.seen_pairs:
+                    continue
+                self.seen_pairs.add((h, name))
+                # adding h -> name closes a cycle iff name already
+                # reaches h through previously observed orderings
+                if self._reaches(name, h):
+                    self.violations.append(
+                        f"lock-order cycle: thread "
+                        f"{threading.current_thread().name!r} acquires "
+                        f"{name!r} while holding {h!r}, but {h!r} is "
+                        f"acquired while {name!r} is held elsewhere")
+                self.edges.setdefault(h, set()).add(name)
+
+
+_lock_state = _LockOrderState()
+_tracking_enabled = env_enabled()
+
+
+def enable_lock_tracking() -> None:
+    """Make subsequent :func:`make_lock`/:func:`make_condition` calls
+    hand out tracked primitives (process-wide, sticky)."""
+    global _tracking_enabled
+    _tracking_enabled = True
+
+
+def reset_lock_tracking() -> None:
+    """Drop the recorded acquisition graph and violations (test
+    isolation; live locks keep working)."""
+    with _lock_state.mu:
+        _lock_state.edges.clear()
+        _lock_state.seen_pairs.clear()
+        _lock_state.violations.clear()
+
+
+def lock_order_violations() -> List[str]:
+    with _lock_state.mu:
+        return list(_lock_state.violations)
+
+
+def check_lock_order() -> None:
+    """Raise :class:`LockOrderError` if any acquisition cycle was
+    observed since the last reset."""
+    v = lock_order_violations()
+    if v:
+        raise LockOrderError("; ".join(v))
+
+
+class TrackedLock:
+    """A named non-reentrant lock that records acquisition order.
+
+    Shaped so ``threading.Condition(TrackedLock(name))`` works: the
+    Condition binds our ``acquire``/``release`` and falls back to its
+    own ``_is_owned`` via a non-blocking probe, which routes through
+    this class consistently.
+    """
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._lock = threading.Lock()
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        if blocking:
+            # record intent BEFORE potentially blocking: that is the
+            # moment the deadlock could happen
+            _lock_state.note_acquire(self.name)
+        ok = self._lock.acquire(blocking, timeout)
+        if ok:
+            if not blocking:
+                _lock_state.note_acquire(self.name)
+            _lock_state.held_stack().append(self.name)
+        return ok
+
+    def release(self) -> None:
+        stack = _lock_state.held_stack()
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] == self.name:
+                del stack[i]
+                break
+        self._lock.release()
+
+    def locked(self) -> bool:
+        return self._lock.locked()
+
+    def __enter__(self) -> bool:
+        return self.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def __repr__(self) -> str:
+        return f"<TrackedLock {self.name!r} locked={self.locked()}>"
+
+
+def make_lock(name: str):
+    """A ``threading.Lock`` — tracked when the sanitizer is enabled."""
+    return TrackedLock(name) if _tracking_enabled else threading.Lock()
+
+
+def make_condition(name: str):
+    """A ``threading.Condition`` — over a tracked lock when enabled.
+
+    (Subclassing Condition cannot intercept acquisition: its
+    ``__init__`` binds the lock's bound methods as instance attributes,
+    so the custom lock is the only reliable hook point.)
+    """
+    if _tracking_enabled:
+        return threading.Condition(TrackedLock(name))
+    return threading.Condition()
+
+
+# ---------------------------------------------------------------------------
+# block-pool ledger sanitizer
+# ---------------------------------------------------------------------------
+
+class LedgerError(AssertionError):
+    """Block-pool ledger invariant broken (leak / double free /
+    ref-count divergence / reservation drift)."""
+
+
+class LedgerSanitizer:
+    """Re-derives the pool ledger from engine state each iteration.
+
+    For every block id the expected ref count is: one ref per occupied
+    slot table entry pointing at it, plus one if the prefix-cache trie
+    holds it (JAX also counts in-flight shipments of the serving cluster,
+    which the port has not).  The pool's actual ``_ref`` must match
+    exactly; the free
+    list must be duplicate-free, ref-zero, and together with the
+    allocated set partition the pool; the pool's outstanding
+    reservation must equal the per-slot reservation ledger.  Runs on
+    the scheduler thread (no extra locking needed) and costs one pass
+    over the tables — enabled only under ``EngineConfig.sanitize``.
+    """
+
+    def __init__(self) -> None:
+        self.checks = 0
+        # bid -> owner labels at the LAST passing check; a leaked block
+        # has no current owner, so this is what names the culprit
+        self.owners: Dict[int, List[str]] = {}
+
+    # -- expectation ----------------------------------------------------
+    def _expected(self, engine) -> Dict[int, List[str]]:
+        slots = engine.slots
+        trash = slots.pool.TRASH
+        owners: Dict[int, List[str]] = {}
+        free_slots = set(slots._free)
+        prefilling = getattr(engine, "_prefilling", None)
+        for s in range(slots.num_slots):
+            if s in free_slots:
+                continue
+            st = engine._active.get(s)
+            if st is not None:
+                rid = st.req.rid
+            elif prefilling is not None and prefilling.slot == s:
+                rid = prefilling.req.rid
+            else:
+                rid = f"slot-{s}"
+            for bid in slots.tables[s]:
+                bid = int(bid)
+                if bid != trash:
+                    owners.setdefault(bid, []).append(rid)
+        cache = getattr(engine, "prefix_cache", None)
+        if cache is not None:
+            stack = list(cache._root.children.values())
+            while stack:
+                node = stack.pop()
+                if node.bid != trash:
+                    owners.setdefault(node.bid, []).append("prefix-cache")
+                stack.extend(node.children.values())
+        return owners
+
+    def _expected_host(self, engine) -> Dict[int, str]:
+        """Host-tier block id -> owner label (tiered KV).
+
+        Host-resident blocks are first-class owners: every arena row the
+        tier has handed out must be accounted to either a suspended
+        (preempted) request or a spilled prefix-cache node — including
+        rows whose D2H copy is still in flight."""
+        owners: Dict[int, str] = {}
+        for sus in getattr(engine, "_suspended", {}).values():
+            for hid in sus.hids:
+                owners[int(hid)] = sus.req.rid
+        cache = getattr(engine, "prefix_cache", None)
+        if cache is not None:
+            stack = list(cache._root.children.values())
+            while stack:
+                node = stack.pop()
+                if getattr(node, "hid", None) is not None:
+                    owners[int(node.hid)] = "prefix-cache"
+                stack.extend(node.children.values())
+        return owners
+
+    def _check_host_tier(self, engine, fail) -> None:
+        tier = getattr(engine, "host_tier", None)
+        if tier is None:
+            return
+        free = [int(h) for h in tier._free]
+        if len(free) != len(set(free)):
+            dup = sorted(h for h in set(free) if free.count(h) > 1)
+            fail(f"host free list contains duplicates: {dup} "
+                 "(double host free)")
+        used = set(tier._owner)
+        if used & set(free):
+            fail(f"host blocks both owned and free: "
+                 f"{sorted(used & set(free))}")
+        if len(free) + len(used) != tier.n_host_blocks:
+            fail(f"host conservation broken: {len(free)} free + "
+                 f"{len(used)} owned != {tier.n_host_blocks} host blocks")
+        stray = tier._inflight_hids - used
+        if stray:
+            fail(f"host blocks in flight but unowned: {sorted(stray)}")
+        expected = self._expected_host(engine)
+        for hid in sorted(used | set(expected)):
+            have = tier._owner.get(hid)
+            want = expected.get(hid)
+            if have is None:
+                fail(f"host block {hid} accounted to {want!r} but the "
+                     "tier does not own it — use-after-free hazard")
+            elif want is None:
+                fail(f"host block {hid} owned by {have!r} but no engine "
+                     "state accounts for it — leaked host block")
+
+    # -- the per-iteration check ---------------------------------------
+    def check_engine(self, engine) -> None:
+        slots = engine.slots
+        if slots is None:
+            return
+        pool = slots.pool
+        trash = pool.TRASH
+
+        def fail(msg: str) -> None:
+            raise LedgerError(f"block-pool ledger: {msg} "
+                              f"(after {self.checks} clean check(s))")
+
+        if int(pool._ref[trash]) != 1:
+            fail(f"trash block ref is {int(pool._ref[trash])}, not 1")
+        free = [int(b) for b in pool._free]
+        if len(free) != len(set(free)):
+            dup = sorted(b for b in set(free) if free.count(b) > 1)
+            fail(f"free list contains duplicates: {dup} (double free)")
+        for bid in free:
+            if bid == trash:
+                fail("trash block is on the free list")
+            if int(pool._ref[bid]) != 0:
+                fail(f"free block {bid} has ref {int(pool._ref[bid])}")
+        allocated = {int(b) for b in range(1, pool.n_blocks)
+                     if int(pool._ref[b]) > 0}
+        if allocated & set(free):
+            fail(f"blocks both allocated and free: "
+                 f"{sorted(allocated & set(free))}")
+        if len(free) + len(allocated) != pool.n_blocks - 1:
+            fail(f"conservation broken: {len(free)} free + "
+                 f"{len(allocated)} allocated != {pool.n_blocks - 1} "
+                 "usable blocks")
+        owners = self._expected(engine)
+        for bid in sorted(allocated | set(owners)):
+            have = int(pool._ref[bid])
+            want = len(owners.get(bid, ()))
+            if have != want:
+                last = self.owners.get(bid, [])
+                who = (f"current owners: {owners[bid]}" if bid in owners
+                       else f"no current owner; last known owners: {last}")
+                kind = ("leaked reference(s)" if have > want
+                        else "missing reference(s): use-after-free hazard")
+                fail(f"block {bid} ref is {have} but engine state "
+                     f"accounts for {want} — {kind}; {who}")
+        reserved = int(slots.reserved.sum())
+        if int(pool._reserved) != reserved:
+            fail(f"pool reservation {int(pool._reserved)} != "
+                 f"{reserved} summed over slots")
+        self._check_host_tier(engine, fail)
+        self.owners = owners
+        self.checks += 1
+
+    # -- shutdown / drain summary --------------------------------------
+    def leak_report(self, engine) -> List[dict]:
+        """Blocks still referenced but owned by nothing the engine
+        knows about — with the request ids that last owned them."""
+        slots = engine.slots
+        if slots is None:
+            return []
+        pool = slots.pool
+        owners = self._expected(engine)
+        report = []
+        for bid in range(1, pool.n_blocks):
+            have = int(pool._ref[bid])
+            want = len(owners.get(bid, ()))
+            if have > want:
+                report.append({
+                    "block": bid,
+                    "ref": have,
+                    "accounted": want,
+                    "last_owners": list(self.owners.get(bid, [])),
+                })
+        tier = getattr(engine, "host_tier", None)
+        if tier is not None:
+            expected = self._expected_host(engine)
+            for hid, label in sorted(tier._owner.items()):
+                if hid not in expected:
+                    report.append({
+                        "block": f"host:{hid}",
+                        "ref": 1,
+                        "accounted": 0,
+                        "last_owners": [label],
+                    })
+        return report

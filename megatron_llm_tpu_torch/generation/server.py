@@ -12,15 +12,18 @@ each one request at a time under a lock, on the one-shot KV-cached path
 sends eligible requests (greedy, no log-probs) through prompt-lookup
 speculation under the same lock and tags each response ``"pld"`` or
 ``"fallback:<why>"``.  ``GET /metrics`` returns the engine's JSON metrics
-snapshot, ``GET /trace`` its span ring as Chrome trace-event JSON, ``GET
-/kv`` the paged pool.  Built on the stdlib ``ThreadingHTTPServer``.
+snapshot, ``GET /metrics?format=prometheus`` the shared ``obs.REGISTRY``
+(serving, SLO and resilience families) in the Prometheus 0.0.4 text
+format, ``GET /trace`` the span ring as Chrome trace-event JSON, ``GET
+/kv`` the paged pool (and the host tier).  Each answered generation
+request leaves an ``http_response`` line in ``obs.logging.EVENT_LOG``
+under its ``request_id``.  Built on the stdlib ``ThreadingHTTPServer``.
 ``draft_cfg``/``draft_params`` give the engine a resident draft model
 (tree speculation with ``spec_draft_len > 0``).
 
 Not in this slice, answered with an explicit error naming the ROADMAP
-item: the Prometheus exposition, the multi-replica / sharded /
-disaggregated front-ends, and every engine option the engine refuses
-(501 with its message).
+item: the multi-replica / sharded / disaggregated front-ends, and every
+engine option the engine refuses (501 with its message).
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+from ..analysis.sanitizers import make_lock
 from ..config import ModelConfig
+from ..obs.logging import EVENT_LOG
+from ..obs.registry import REGISTRY
 from ..tokenizer.tokenizer import Tokenizer
 from .api import (
     beam_search_and_post_process,
@@ -114,8 +120,8 @@ class GenerationService:
         self._engine = engine
         # the one-shot paths (beam search, scoring, PLD) run one request
         # at a time
-        self.lock = threading.Lock()
-        self._engine_init_lock = threading.Lock()
+        self.lock = make_lock("server.generate")
+        self._engine_init_lock = make_lock("server.engine_init")
         self._draining = False
 
     @property
@@ -165,8 +171,20 @@ class GenerationService:
         if engine is None:
             from ..serving import ServingMetrics
 
-            return ServingMetrics(self.max_batch_size).snapshot()
+            # register=False: a throwaway must not displace a live
+            # engine's collector in the shared registry
+            return ServingMetrics(self.max_batch_size,
+                                  register=False).snapshot()
         return engine.metrics.snapshot()
+
+    def prometheus_metrics(self) -> str:
+        """The shared ``obs.REGISTRY`` in the Prometheus text format (GET
+        /metrics?format=prometheus): serving, SLO and resilience
+        metrics from one scrape."""
+        # the resilience collector registers when the module is imported
+        from .. import metrics as _resilience  # noqa: F401
+
+        return REGISTRY.prometheus_text()
 
     def trace_snapshot(self) -> dict:
         """Chrome trace-event JSON of the engine's span ring (GET /trace);
@@ -384,9 +402,13 @@ class GenerationService:
             # an engine option this slice does not port: the refusal's
             # message names its ROADMAP item
             return 501, str(e)
+        rids = [h.rid for h in handles]
         try:
             results = [h.result() for h in handles]
         except RuntimeError as e:
+            for rid in rids:
+                EVENT_LOG.emit("server", "http_response", request_id=rid,
+                               status=500)
             return 500, str(e)
         texts, segments, lps = [], [], []
         for r in results:
@@ -397,10 +419,13 @@ class GenerationService:
                 lps.append(r.logprobs)
         resp = {"text": texts, "segments": segments,
                 "logprobs": lps if logprobs else None,
-                "request_ids": [h.rid for h in handles]}
+                "request_ids": rids}
         if spec_tag is not None:
             # the requested speculative path did not serve these prompts
             resp["speculative"] = spec_tag
+        for rid, r in zip(rids, results):
+            EVENT_LOG.emit("server", "http_response", request_id=rid,
+                           status=200, finish_reason=r.finish_reason)
         return 200, resp
 
 
@@ -445,10 +470,11 @@ class _Handler(BaseHTTPRequestHandler):
         url = urlparse(self.path)
         route = url.path.rstrip("/")
         if route == "/metrics":
-            if parse_qs(url.query).get("format", ["json"])[0] != "json":
-                self._respond(501, "only format=json is ported yet "
-                                   "(ROADMAP.md, Queue 1: serving engine, "
-                                   "observability)")
+            if parse_qs(url.query).get("format", ["json"])[0] == \
+                    "prometheus":
+                self._respond(
+                    200, self.service.prometheus_metrics(),
+                    ctype="text/plain; version=0.0.4; charset=utf-8")
                 return
             self._respond(200, self.service.metrics_snapshot())
             return

@@ -7,9 +7,10 @@ into ``<repo>/build/kernels/<name>-<hash>.so`` for ``sm_90a``::
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The hash covers the source and the flags, so an edited kernel rebuilds
-and an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per
-source at once (and records each one's seconds); ``load`` builds (if
-needed) and opens one library.
+and an unchanged one is reused; each build started counts as a compile
+for the recompilation guard (``analysis/sanitizers.no_recompiles``).
+``build_all`` starts one ``nvcc`` per source at once (and records each
+one's seconds); ``load`` builds (if needed) and opens one library.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -24,6 +25,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ..analysis.sanitizers import note_compile
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -72,6 +75,7 @@ def _start(name: str, src=None, out=None, flags=()):
     log = open(out.with_suffix(f".{os.getpid()}.log"), "w+")
     src = CSRC / f"{name}.cu" if src is None else src
     cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
+    note_compile(f"nvcc:{name}")
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out, log, time.perf_counter()

@@ -50,15 +50,27 @@ adds both sets of partial rows.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  ``triton`` is imported, and a kernel compiled, at its first
-CUDA launch.
+CUDA launch; every launch goes through ``_launch``, which reports a
+specialisation seen for the first time to the recompilation guard
+(``analysis/sanitizers.no_recompiles``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..analysis.sanitizers import note_triton_kernel
+
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _MAX_HIDDEN = 16384
+
+
+def _launch(kernel, grid, *args, **kw):
+    """Launch a Triton kernel over ``grid`` and return its compiled
+    object; Triton returns the cached object unless it compiled anew."""
+    compiled = kernel[grid](*args, **kw)
+    note_triton_kernel(compiled, getattr(kernel, "__name__", "triton"))
+    return compiled
 
 
 def _acc_dtype(x):
@@ -112,8 +124,8 @@ def rmsnorm_fwd(x, weight, eps: float = 1e-5):
 
         block = triton.next_power_of_2(hidden)
         with torch.cuda.device(x.device):
-            rms_fwd_kernel[(rows,)](x, weight, y, rstd, hidden, float(eps),
-                                    BLOCK=block, num_warps=_warps(block))
+            _launch(rms_fwd_kernel, (rows,), x, weight, y, rstd, hidden,
+                    float(eps), BLOCK=block, num_warps=_warps(block))
         rmsnorm_fwd.launches += 1
     return y, rstd
 
@@ -218,12 +230,12 @@ def launch_rms_bwd(x, weight, rstd, dy):
     part = torch.empty(programs, hidden, dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
-        compiled = rms_bwd_kernel[(programs,)](
-            x, weight, dy, rstd, dx, part, rows, hidden, per, BLOCK=block,
-            num_warps=_warps(block))
-        colsum_kernel[(triton.cdiv(hidden, _COLSUM_COLS), 1)](
-            part, dw, programs, hidden, BLOCK_P=_COLSUM_ROWS,
-            BLOCK_C=_COLSUM_COLS, num_warps=4)
+        compiled = _launch(
+            rms_bwd_kernel, (programs,), x, weight, dy, rstd, dx, part,
+            rows, hidden, per, BLOCK=block, num_warps=_warps(block))
+        _launch(colsum_kernel, (triton.cdiv(hidden, _COLSUM_COLS), 1),
+                part, dw, programs, hidden, BLOCK_P=_COLSUM_ROWS,
+                BLOCK_C=_COLSUM_COLS, num_warps=4)
     rmsnorm_bwd.launches += 1
     return dx, dw, compiled
 
@@ -302,10 +314,10 @@ def layernorm_fwd(x, weight, bias=None, eps: float = 1e-5):
         block = triton.next_power_of_2(hidden)
         with torch.cuda.device(x.device):
             # without a bias the weight stands in for its pointer, unread
-            ln_fwd_kernel[(rows,)](x, weight, weight if bias is None else bias,
-                                   y, mean, rstd, hidden, float(eps),
-                                   HAS_BIAS=bias is not None, BLOCK=block,
-                                   num_warps=_warps(block))
+            _launch(ln_fwd_kernel, (rows,), x, weight,
+                    weight if bias is None else bias, y, mean, rstd, hidden,
+                    float(eps), HAS_BIAS=bias is not None, BLOCK=block,
+                    num_warps=_warps(block))
         layernorm_fwd.launches += 1
     return y, mean, rstd
 
@@ -378,12 +390,14 @@ def launch_ln_bwd(x, weight, mean, rstd, dy, has_bias: bool = True):
     part = torch.empty(1 + has_bias, programs, hidden, dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
-        compiled = ln_bwd_kernel[(programs,)](
-            x, weight, dy, mean, rstd, dx, part, rows, hidden, per,
-            HAS_BIAS=has_bias, BLOCK=block, num_warps=_warps(block))
-        colsum_kernel[(triton.cdiv(hidden, _COLSUM_COLS), 1 + has_bias)](
-            part, sums, programs, hidden, BLOCK_P=_COLSUM_ROWS,
-            BLOCK_C=_COLSUM_COLS, num_warps=4)
+        compiled = _launch(
+            ln_bwd_kernel, (programs,), x, weight, dy, mean, rstd, dx, part,
+            rows, hidden, per, HAS_BIAS=has_bias, BLOCK=block,
+            num_warps=_warps(block))
+        _launch(colsum_kernel,
+                (triton.cdiv(hidden, _COLSUM_COLS), 1 + has_bias), part,
+                sums, programs, hidden, BLOCK_P=_COLSUM_ROWS,
+                BLOCK_C=_COLSUM_COLS, num_warps=4)
     layernorm_bwd.launches += 1
     return dx, sums[0], db, compiled
 

@@ -5,8 +5,9 @@ The training driver, the checkpointing layer and the retry helper count
 their events in ``RESILIENCE_EVENTS``: ``checkpoint_saves``,
 ``io_retries``, ``io_giveups``, ``checkpoint_fallbacks``,
 ``checkpoint_gc_deleted``, ``rollbacks``.  Tests read them with ``get`` or
-``snapshot`` (a plain dict).  The collector hook on an observability
-registry is not ported yet (ROADMAP.md, Queue 1 item 6).
+``snapshot`` (a plain dict); ``obs.REGISTRY`` scrapes them as the
+``resilience_events_total{event=...}`` family (GET
+/metrics?format=prometheus).
 
 The registry (reference megatron/metrics.py:62-110): a ``MetricInput``
 with lazily derived fields and ``METRICS`` {perplexity, accuracy,
@@ -16,17 +17,19 @@ eval step on torch tensors (names checked by ``validate_metric_names``).
 
 from __future__ import annotations
 
-import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
+
+from .analysis.sanitizers import make_lock
+from .obs.registry import REGISTRY, MetricFamily
 
 
 class EventCounters:
     """Thread-safe named event counters."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("resilience.counters")
         self._counts: Dict[str, int] = {}
 
     def inc(self, name: str, by: int = 1) -> None:
@@ -45,9 +48,21 @@ class EventCounters:
         with self._lock:
             self._counts.clear()
 
+    def collect(self, family: str = "resilience_events_total",
+                help: str = "host-side resilience event counters"
+                ) -> List[MetricFamily]:
+        """``obs.REGISTRY`` collector: one labelled counter family,
+        ``<family>{event="<name>"}``."""
+        fam = MetricFamily(family, "counter", help)
+        for name, value in sorted(self.snapshot().items()):
+            fam.add(value, labels={"event": name})
+        return [fam]
 
-# the process-global resilience event stream
+
+# the process-global resilience event stream, scraped beside the serving
+# metrics through the shared registry
 RESILIENCE_EVENTS = EventCounters()
+REGISTRY.register_collector("resilience", RESILIENCE_EVENTS.collect)
 
 
 class MetricInput:

@@ -25,12 +25,13 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 import time
 from collections import deque
 from typing import Dict, Iterator, List, Optional
 
 import torch
+
+from ..analysis.sanitizers import make_lock
 
 
 def device_annotation(name: str, device=None):
@@ -47,7 +48,7 @@ class TraceRecorder:
     def __init__(self, capacity: int = 8192, enabled: bool = True):
         self.enabled = enabled
         self.capacity = capacity
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.trace")
         # (name, ph, t0, dur, tid, request_id, args); the ring drops the
         # oldest spans once it is full
         self._events: deque = deque(maxlen=capacity)

@@ -14,17 +14,17 @@ B at install.  An install writes the slot's columns in place (the tensors,
 and so their storage, stay the same), and the hot path reads the arena
 with a per-row slot vector: no per-request factor tensor is built.
 
-One plain lock guards the host-side maps (the JAX registry takes its lock
-from the sanitizers, which are not ported).  The engine calls acquire and
-release from its scheduler thread; tests and tools may call them too.
+One lock guards the host-side maps (``make_lock``: order-tracked under
+the sanitizers).  The engine calls acquire and release from its scheduler
+thread; tests and tools may call them too.
 """
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Callable, Dict, Optional, Union
 
+from ...analysis.sanitizers import make_lock
 from ...ops import lora as lora_lib
 from ..metrics import ServingMetrics
 
@@ -67,7 +67,7 @@ class AdapterRegistry:
                     f"(num_experts={cfg.num_experts}); use attention "
                     "targets only")
         self.device = torch.device("cuda" if device is None else device)
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.adapters")
         # like PrefixCache: the engine may replace its metrics object, so a
         # zero-argument callable defers the lookup to use time
         self._metrics = metrics

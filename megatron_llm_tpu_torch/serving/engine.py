@@ -80,9 +80,40 @@ model while the target verifies under the requester's adapter.
 ``swap_params`` replaces the base weights at an iteration boundary and
 leaves the arena as it is.
 
+Chunked prefill (``prefill_chunk``, Sarathi-style as in JAX): admission
+prefills at most one chunk of one prompt per scheduler iteration, between
+decode steps, so a long prompt does not freeze the active streams.  The
+first chunk is a ``forward_cached(empty_cache=True)`` (the flash kernel),
+each later one a ``forward_cached`` at its offset over the batch-1 working
+cache (the masked cached-score route); the block size defaults to the
+chunk.  Chunks start at multiples of the chunk; a prefix hit resumes at
+the last chunk start at or before its match and recomputes the shared
+rows after it, so a repeated prompt runs the cold run's last chunk on the
+same rows.  Requests that want prompt logprobs take the whole-prompt
+route.
+
+Tiered KV (``host_kv_blocks > 0``): a pinned host arena behind the pool
+(``block_pool.HostKVTier``).  The prefix cache's eviction victims spill to
+it and are promoted back at their next match; an admission that the pool
+cannot reserve for first squeezes the prefix cache, then preempts active
+decodes of strictly lower ``priority`` (their blocks swap out, their
+scheduling state is kept in ``_suspended``) within the measured swap
+bandwidth; suspended decodes resume, highest priority first, once a slot
+and a full reservation are free.  A resumed decode commits the tokens an
+unpreempted one would: its rows round-trip bitwise and sampling folds on
+the request's ``(seed, count)``.
+
+Sanitizers (``sanitize=True`` or ``MEGATRON_SANITIZE=1``,
+``analysis/sanitizers.py``): the engine's locks and conditions record the
+lock-order graph, the block ledger (pool and host tier) is audited every
+iteration, and drain / shutdown leave a leak report in
+``sanitizer_report``.  ``obs.logging.EVENT_LOG`` gets a line at each
+request's lifecycle edge (submitted, admitted, first_token, finished,
+preempted, resumed), all carrying its ``request_id``.
+
 Not in this slice, and refused at construction with ``NotImplementedError``
-naming the ROADMAP item: chunked prefill, the host KV tier, disaggregated
-roles, sanitizers, meshes and int8 training matmuls (``quantize_matmuls``).
+naming the ROADMAP item: disaggregated roles, meshes and int8 training
+matmuls (``quantize_matmuls``).
 """
 
 from __future__ import annotations
@@ -97,6 +128,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis import sanitizers
 from ..config import ModelConfig
 from ..generation.sampling import NEG_INF, generator, gumbel_argmax
 from ..kernels.decode_step import (
@@ -104,10 +136,11 @@ from ..kernels.decode_step import (
     fused_paged_verify_eligible,
 )
 from ..models import model as model_lib
+from ..obs.logging import EVENT_LOG
 from ..obs.trace import TraceRecorder, device_annotation
 from ..ops.lora import slot_mask
 from ..ops.quant import precision_route
-from .block_pool import BlockPool
+from .block_pool import BlockPool, HostKVTier
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .queue import QueueFull, RequestQueue  # noqa: F401  (re-exported)
@@ -117,9 +150,8 @@ from .slots import SlotAllocator
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Tuning knobs: every field and default of the JAX ``EngineConfig``
-    (documented there and in docs/serving.md).  The fields of features
-    this slice does not port must stay at their "off" values: see
-    ``_refuse_unported``."""
+    (documented there and in docs/serving.md).  ``role`` must stay
+    ``"mixed"``: see ``_refuse_unported``."""
     max_batch_size: int = 8
     max_seq_len: int = 1024
     max_queue_size: int = 32
@@ -147,14 +179,8 @@ def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh) -> None:
     """Raise for every configuration this slice of the port does not run,
     rather than silently ignoring it."""
     todo = [
-        (ec.prefill_chunk, "prefill_chunk (chunked prefill)",
-         "Queue 1: serving engine, chunked prefill"),
-        (ec.host_kv_blocks > 0, "host_kv_blocks > 0 (tiered KV)",
-         "Queue 1: serving engine, tiered KV"),
         (ec.role != "mixed", f"role={ec.role!r}",
          "Queue 1: multi-GPU serving, disaggregated prefill/decode"),
-        (ec.sanitize or os.environ.get("MEGATRON_SANITIZE") == "1",
-         "sanitize=True", "Queue 1: serving engine, sanitizers"),
         (mesh is not None, "a device mesh", "Queue 1: multi-GPU serving"),
         (cfg.quantize_matmuls != "none",
          f"quantize_matmuls={cfg.quantize_matmuls!r} (W8A8 training matmuls)",
@@ -405,6 +431,38 @@ class _SlotState:
         self.adapter_slot = -1
 
 
+class _Suspended:
+    """A decode preempted to the host tier: the live request, its host
+    block ids in table order and the scheduling state (fill, the sampling
+    fold count, the pending token, the speculation state) a bitwise
+    resume rebuilds the slot from."""
+
+    __slots__ = ("req", "hids", "n_live", "meta", "t_suspend")
+
+    def __init__(self, req, hids, n_live, meta, t_suspend):
+        self.req = req
+        self.hids = hids
+        self.n_live = n_live
+        self.meta = meta
+        self.t_suspend = t_suspend
+
+
+class _PrefillState:
+    """A chunked prefill in progress: the request holds a slot but is not
+    decoding yet; its batch-1 working cache grows one chunk an
+    iteration."""
+
+    def __init__(self, req: _Request, slot: int, padded: int):
+        self.req = req
+        self.slot = slot
+        self.padded = padded      # prompt rows to prefill, chunk-padded
+        self.done = 0             # rows prefilled (a hit starts further)
+        self.k_small = None       # the batch-1 working cache
+        self.v_small = None
+        self.lease = None         # the PrefixLease of a hit
+        self.adapter_slot = -1    # pinned LoRA arena slot (-1: the base)
+
+
 class _Inflight:
     """A dispatched-but-unprocessed decode step: device token vectors, the
     slot → state snapshot taken at dispatch (identity-checked at
@@ -505,6 +563,13 @@ class ServingEngine:
                 adapters._metrics = lambda: self.metrics
         # the weight precision route that tags every decode step
         self._precision_route = precision_route(params)
+        # sanitizers first, so every lock the engine and its queue make
+        # below is order-tracked
+        self._sanitize = bool(self.config.sanitize) or sanitizers.env_enabled()
+        if self._sanitize:
+            sanitizers.enable_lock_tracking()
+        self._sanitizer: Optional[sanitizers.LedgerSanitizer] = None
+        self.sanitizer_report: List[dict] = []  # leaks found at drain
         self.metrics = metrics or ServingMetrics(self.config.max_batch_size)
         self.metrics.set_gauges(num_slots=self.config.max_batch_size)
         self.trace = TraceRecorder(capacity=self.config.trace_capacity,
@@ -513,19 +578,24 @@ class ServingEngine:
                                   self.config.retry_after_s)
         self.slots: Optional[SlotAllocator] = None  # allocated on start
         self.prefix_cache: Optional[PrefixCache] = None  # built on start
+        # tiered KV: the host tier is built at start(); ``_suspended`` maps
+        # req.id -> _Suspended for decodes preempted to it, in order
+        self.host_tier: Optional[HostKVTier] = None
+        self._suspended: dict[int, _Suspended] = {}
         self._rope = None
         self._active: dict[int, _SlotState] = {}
         self._thread: Optional[threading.Thread] = None
         self._admitting: Optional[_Request] = None
         self._held: Optional[_Request] = None  # parked on pool pressure
+        self._prefilling: Optional[_PrefillState] = None  # chunked prefill
         self._inflight: Optional[_Inflight] = None
         self._scheduler_error: Optional[BaseException] = None
         self._stop = threading.Event()
         self._paused = threading.Event()
         self._draining = threading.Event()
-        self._lock = threading.Lock()
-        self._wake = threading.Condition()
-        self._drain_cond = threading.Condition()
+        self._lock = sanitizers.make_lock("engine.lifecycle")
+        self._wake = sanitizers.make_condition("engine.wake")
+        self._drain_cond = sanitizers.make_condition("engine.drain")
         self._last_dispatch_t: Optional[float] = None
         self._last_ready_t: Optional[float] = None
         # decode routes, resolved at start(): the fused whole-stack kernel
@@ -544,7 +614,7 @@ class ServingEngine:
         # control operations run on the scheduler thread between
         # iterations (``call_in_scheduler``)
         self._control: list = []
-        self._control_lock = threading.Lock()
+        self._control_lock = sanitizers.make_lock("engine.control")
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -552,7 +622,10 @@ class ServingEngine:
         with self._lock:
             if self._thread is None:
                 ec = self.config
-                bk = int(ec.kv_block_size or max(1, ec.prefill_bucket))
+                # blocks follow the admission granularity by default, so
+                # prefix-cache blocks are pool blocks
+                bk = int(ec.kv_block_size or ec.prefill_chunk
+                         or max(1, ec.prefill_bucket))
                 bk = max(1, min(bk, ec.max_seq_len))
                 table_blocks = -(-ec.max_seq_len // bk)
                 n_blocks = int(ec.kv_pool_blocks) or (
@@ -563,10 +636,16 @@ class ServingEngine:
                     on_cow=lambda: self.metrics.inc("cow_copies_total"))
                 self.slots = SlotAllocator(self.cfg, ec.max_batch_size,
                                            ec.max_seq_len, pool)
+                if ec.host_kv_blocks:
+                    self.host_tier = HostKVTier(
+                        pool, ec.host_kv_blocks,
+                        arity=self.slots.table_blocks,
+                        metrics=lambda: self.metrics)
                 if ec.prefix_cache_blocks:
                     self.prefix_cache = PrefixCache(
                         pool=pool, max_blocks=ec.prefix_cache_blocks,
-                        metrics=lambda: self.metrics)
+                        metrics=lambda: self.metrics,
+                        host_tier=self.host_tier)
                 self._rope = model_lib.rope_tables(self.cfg,
                                                    device=self.device)
                 # the arena rides inside the fused kernels as an epilogue;
@@ -591,6 +670,8 @@ class ServingEngine:
                         self._draft_kv[0], ec.max_batch_size,
                         ec.spec_draft_len + 1, table_blocks)
                 self._update_pool_gauges()
+                if self._sanitize:
+                    self._sanitizer = sanitizers.LedgerSanitizer()
                 self._thread = threading.Thread(
                     target=self._loop, name="serving-engine", daemon=True)
                 self._thread.start()
@@ -608,6 +689,10 @@ class ServingEngine:
             self._thread = None
             with self._drain_cond:
                 self._drain_cond.notify_all()
+            if self._sanitizer is not None:
+                self.sanitizer_report = self._sanitizer.leak_report(self)
+                for leak in self.sanitizer_report:
+                    EVENT_LOG.emit("sanitizer", "kv_block_leak", **leak)
 
     def pause(self) -> None:
         """Stop admitting and decoding (requests keep queueing)."""
@@ -631,6 +716,9 @@ class ServingEngine:
             while True:
                 idle = self._is_idle()
                 if idle or self._stop.is_set():
+                    if idle and self._sanitizer is not None:
+                        self.sanitizer_report = (
+                            self._sanitizer.leak_report(self))
                     return idle
                 remaining = (None if deadline is None
                              else deadline - time.perf_counter())
@@ -640,7 +728,8 @@ class ServingEngine:
 
     def _is_idle(self) -> bool:
         return (not self._active and self._admitting is None
-                and self._inflight is None and self._held is None
+                and self._prefilling is None and self._inflight is None
+                and self._held is None and not self._suspended
                 and len(self.queue) == 0)
 
     def _notify_drain(self) -> None:
@@ -722,6 +811,11 @@ class ServingEngine:
             raise
         self.metrics.inc("submitted", by=len(reqs))
         self.metrics.set_gauges(queue_depth=len(self.queue))
+        for req in reqs:
+            EVENT_LOG.emit("engine", "submitted", request_id=req.rid,
+                           prompt_len=len(req.prompt),
+                           max_new_tokens=req.max_new_tokens,
+                           queue_depth=len(self.queue))
         return [RequestHandle(r, self) for r in reqs]
 
     def _cancel(self, req: _Request) -> None:
@@ -812,10 +906,20 @@ class ServingEngine:
                         # every slot retired while the step was in flight:
                         # its tokens are all speculative
                         self._flush_inflight()
-                    else:
+                    elif self._prefilling is None:
+                        if (self.host_tier is not None
+                                and self.host_tier.in_flight):
+                            # nothing to decode: land the swap backlog,
+                            # then look at admission again (resumes)
+                            self.host_tier.pump()
+                            continue
                         self._last_dispatch_t = self._last_ready_t = None
                         self._notify_drain()
                         self.queue.wait_for_work(self.config.idle_wait_s)
+                    if self._sanitizer is not None:
+                        # the ledger audit, once an iteration; a
+                        # LedgerError fails everything below, loudly
+                        self._sanitizer.check_engine(self)
         except Exception as e:  # noqa: BLE001 — a dead scheduler must not
             # leave submitters blocked on result() forever
             logging.getLogger(__name__).exception(
@@ -825,6 +929,9 @@ class ServingEngine:
             if self._admitting is not None:
                 self._finish(self._admitting, "error")
                 self._admitting = None
+            if self._prefilling is not None:
+                self._finish(self._prefilling.req, "error")
+                self._prefilling = None
             if self._held is not None:
                 self._finish(self._held, "error")
                 self._held = None
@@ -832,6 +939,11 @@ class ServingEngine:
                 req = self._active.pop(slot).req
                 self._release_adapter(req)
                 self._finish(req, "error")
+            for key in list(self._suspended):
+                sus = self._suspended.pop(key)
+                if self.host_tier is not None:
+                    self.host_tier.free(sus.hids)
+                self._finish(sus.req, "error")
             while True:
                 req = self.queue.pop()
                 if req is None:
@@ -844,9 +956,25 @@ class ServingEngine:
         for slot in [s for s, st in self._active.items()
                      if st.req.cancel_flag.is_set()]:
             self._retire(slot, "cancelled")
+        if (self._prefilling is not None
+                and self._prefilling.req.cancel_flag.is_set()):
+            self._abort_prefill("cancelled")
         if self._held is not None and self._held.cancel_flag.is_set():
             req, self._held = self._held, None
             self._finish(req, "cancelled")
+        for key in [k for k, sus in self._suspended.items()
+                    if sus.req.cancel_flag.is_set()]:
+            self._discard_suspended(key, "cancelled")
+
+    def _abort_prefill(self, reason: str) -> None:
+        ps, self._prefilling = self._prefilling, None
+        if self.prefix_cache is not None:
+            # unpin without offering: the slot holds a partial prefill
+            self.prefix_cache.release(ps.lease)
+        self._release_adapter(ps.req)
+        self.slots.release(ps.slot)
+        self._finish(ps.req, reason)
+        self.metrics.set_gauges(slots_active=self.slots.active_slots)
 
     def _expire_deadlines(self) -> None:
         now = time.perf_counter()
@@ -856,9 +984,14 @@ class ServingEngine:
 
         for slot in [s for s, st in self._active.items() if expired(st.req)]:
             self._retire(slot, "timeout")
+        if self._prefilling is not None and expired(self._prefilling.req):
+            self._abort_prefill("timeout")
         if self._held is not None and expired(self._held):
             req, self._held = self._held, None
             self._finish(req, "timeout")
+        for key in [k for k, sus in self._suspended.items()
+                    if expired(sus.req)]:
+            self._discard_suspended(key, "timeout")
         for req in self.queue.remove_if(expired):
             self._finish(req, "timeout")
         self.metrics.set_gauges(queue_depth=len(self.queue))
@@ -878,21 +1011,62 @@ class ServingEngine:
             self.metrics.set_gauges(queue_depth=len(self.queue))
         return req
 
-    def _try_reserve(self, need: int) -> bool:
-        """Reserve ``need`` pool blocks for an admission, squeezing the
-        prefix cache's unpinned blocks first when the pool is short."""
+    def _try_reserve(self, need: int,
+                     req: Optional[_Request] = None) -> bool:
+        """Reserve ``need`` pool blocks for the admission of ``req``.
+        Under pool pressure: (1) squeeze the prefix cache's unpinned
+        blocks (which spill to the host tier when there is one); (2) with
+        a host tier, preempt active decodes of strictly lower priority to
+        it, within its capacity and measured swap bandwidth.  Parking at
+        the queue head is the caller's last resort."""
         pool = self.slots.pool
         if pool.reserve(need):
             return True
-        if self.prefix_cache is None:
-            return False
-        short = need - (pool.free_blocks - pool.reserved_blocks)
-        if short > 0:
-            self.prefix_cache.evict_blocks(short)
-            self.metrics.set_gauges(prefix_blocks=self.prefix_cache.blocks)
-        return pool.reserve(need)
+        if self.prefix_cache is not None:
+            short = need - (pool.free_blocks - pool.reserved_blocks)
+            if short > 0:
+                self.prefix_cache.evict_blocks(short)
+                self.metrics.set_gauges(
+                    prefix_blocks=self.prefix_cache.blocks)
+            if pool.reserve(need):
+                return True
+        if req is not None and self.host_tier is not None:
+            while not pool.can_reserve(need):
+                if not self.host_tier.swap_ok():
+                    break  # the swap backlog is past the bandwidth bound
+                victim = self._pick_preemption_victim(req.priority)
+                if victim is None:
+                    break
+                before = len(self._active)
+                if (not self._preempt_slot(victim)
+                        and len(self._active) == before):
+                    break  # no progress (a demote fault, a full tier)
+            if pool.reserve(need):
+                return True
+        return False
+
+    def _pick_preemption_victim(self, priority: int) -> Optional[int]:
+        """The active decode to suspend for an admission of ``priority``:
+        the lowest priority strictly below it, the oldest submission
+        within a class, whose live blocks fit in the host tier."""
+        best_key, best_slot = None, None
+        for slot, st in self._active.items():
+            if st.req.priority >= priority:
+                continue
+            if not self.host_tier.can_store(
+                    len(self.slots.live_bids(slot))):
+                continue
+            key = (st.req.priority, st.req.submit_time)
+            if best_key is None or key < best_key:
+                best_key, best_slot = key, slot
+        return best_slot
 
     def _admit(self) -> None:
+        if self.host_tier is not None:
+            self._maybe_resume()
+        if self.config.prefill_chunk:
+            self._admit_chunked()
+            return
         while self.slots.free_slots:
             req = self._next_admission()
             if req is None:
@@ -908,6 +1082,121 @@ class ServingEngine:
         self._update_pool_gauges()
         self.metrics.set_gauges(slots_active=self.slots.active_slots,
                                 queue_depth=len(self.queue))
+
+    def _admit_chunked(self) -> None:
+        """Chunked admission: at most one prefill chunk an iteration, so
+        the active streams get a decode step between chunks."""
+        if self._prefilling is None and self.slots.free_slots:
+            req = self._next_admission()
+            while req is not None and req.cancel_flag.is_set():
+                self._finish(req, "cancelled")
+                req = self._next_admission()
+            if req is not None:
+                if req.return_logprobs:
+                    # prompt logprobs need every prompt logit in one pass
+                    self._admitting = req
+                    self._prefill_into_slot(req)
+                    self._admitting = None
+                else:
+                    self._begin_chunked_prefill(req)
+        if self._prefilling is not None:
+            self._advance_prefill()
+        self._update_pool_gauges()
+        self.metrics.set_gauges(slots_active=self.slots.active_slots,
+                                queue_depth=len(self.queue))
+
+    def _begin_chunked_prefill(self, req: _Request) -> None:
+        """Claim a slot and a reservation for a chunked prefill (or park
+        the request in ``_held``, nothing allocated).  A prefix hit's
+        shared blocks are gathered into the working cache, and the chunk
+        cursor starts at the last chunk start at or before the match."""
+        claim = self._claim_slot(req)
+        if claim is None:
+            return
+        slot, aslot, lease = claim
+        chunk = max(1, int(self.config.prefill_chunk))
+        padded = min(-(-len(req.prompt) // chunk) * chunk,
+                     self.config.max_seq_len)
+        ps = _PrefillState(req, slot, padded)
+        ps.lease = lease
+        ps.adapter_slot = aslot
+        if lease is not None:
+            # the shared rows past the last chunk start are recomputed
+            # (to the same bits), so the chunks after it are the ones a
+            # cold run of the prompt takes
+            ps.done = lease.tokens // chunk * chunk
+            ps.k_small, ps.v_small = self._gather_lease(lease)
+        self._prefilling = ps
+
+    def _advance_prefill(self) -> None:
+        """Run the next chunk of the prefill in progress; after the last,
+        publish the working cache into the slot and sample the first
+        token."""
+        ps = self._prefilling
+        req = ps.req
+        chunk = max(1, int(self.config.prefill_chunk))
+        t = self.metrics.timers("serving-prefill")
+        t.start()
+        off = ps.done
+        c = min(chunk, ps.padded - off)
+        tokens = np.zeros((1, c), np.int64)
+        seg = req.prompt[off:off + c]  # shorter than c at the padded tail
+        tokens[0, :len(seg)] = seg
+        last = off + c >= ps.padded
+        if ps.k_small is None:
+            ps.k_small, ps.v_small = model_lib.init_kv_cache(
+                self.cfg, 1, self.slots.width, device=self.device)
+        with self.trace.span(f"prefill_chunk[{off // chunk}]",
+                             request_id=req.rid, tid=req.id, annotate=True,
+                             device=self.device,
+                             args={"off": off, "tokens": c}):
+            # the first chunk attends only itself (the flash kernel); a
+            # later one attends the working cache at its offset
+            kw = (dict(logit_rows=torch.tensor([len(req.prompt) - 1 - off]))
+                  if last else dict(last_logit_only=True))
+            logits, ps.k_small, ps.v_small = model_lib.forward_cached(
+                self.cfg, self.params, self._tensor(tokens), ps.k_small,
+                ps.v_small, off, rope=self._rope, empty_cache=off == 0,
+                lora=self._lora([ps.adapter_slot]), **kw)
+        ps.done = off + c
+        self.metrics.inc("prefill_chunks")
+        if not last:
+            t.stop()
+            return
+        # the chunk-padded tail rows hold pad-token K/V that the slot's
+        # fill masks
+        self._prefilling = None
+        self.slots.insert(ps.slot, ps.k_small, ps.v_small, len(req.prompt),
+                          ps.lease.bids if ps.lease is not None else ())
+        tok, tok_lp = _sample_slots(
+            logits[:, 0], [req.seed], [0], [req.greedy], [req.temperature],
+            [req.top_k], [req.top_p], self.cfg.vocab_size)
+        first = int(tok[0])
+        first_lp = float(tok_lp[0])
+        t.stop()
+        self.metrics.inc("admitted")
+        self.metrics.inc("prefills")
+        EVENT_LOG.emit("engine", "admitted", request_id=req.rid,
+                       slot=ps.slot, prompt_len=len(req.prompt),
+                       cached_tokens=ps.lease.tokens if ps.lease else 0,
+                       chunked=True)
+        st = _SlotState(req, fill=len(req.prompt), pending=first)
+        st.lease = ps.lease
+        st.adapter_slot = ps.adapter_slot
+        self._active[ps.slot] = st
+        if self._draft_enabled:
+            self._draft_prefill(ps.slot, st)
+        self._commit_token(ps.slot, first, first_lp)
+
+    def _gather_lease(self, lease):
+        """A lease's shared blocks gathered into a fresh batch-1 working
+        cache ``[L, 1, kv, width(, d)]``, trash past the match."""
+        table = np.zeros((1, self.slots.table_blocks), np.int64)
+        table[0, :len(lease.bids)] = lease.bids
+        table = self._tensor(table)
+        pool = self.slots.pool
+        return (model_lib.cache_gather_blocks(pool.k_pool, table),
+                model_lib.cache_gather_blocks(pool.v_pool, table))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """Host array → device tensor without stalling the stream (pinned
@@ -1006,18 +1295,54 @@ class ServingEngine:
         split = self._split(len(req.prompt))
         done = lease.tokens if lease is not None else 0
         if lease is not None:
-            table = np.zeros((1, self.slots.table_blocks), np.int64)
-            table[0, :len(lease.bids)] = lease.bids
-            table = self._tensor(table)
-            pool = self.slots.pool
-            k = model_lib.cache_gather_blocks(pool.k_pool, table)
-            v = model_lib.cache_gather_blocks(pool.v_pool, table)
+            k, v = self._gather_lease(lease)
         else:
             k, v = model_lib.init_kv_cache(self.cfg, 1, self.slots.width,
                                            device=self.device)
         if done < split:
             _, k, v = self._prefill_piece(req.prompt[done:split], k, v, done)
         return self._prefill_piece(req.prompt[split:], k, v, split)
+
+    def _shares_prefix(self, req: _Request) -> bool:
+        """Whether a request matches and seeds the prefix cache: not one
+        that wants prompt logprobs (every prompt logit, from a cold
+        prefill), nor an adapter request (its K/V rows carry the
+        adapter's deltas)."""
+        return (self.prefix_cache is not None and not req.return_logprobs
+                and req.adapter_id is None)
+
+    def _claim_slot(self, req: _Request):
+        """A slot, the request's arena slot and its prefix lease, with the
+        pool's reservation for the rest of its worst case: ``(slot,
+        aslot, lease)``; None (the request parked in ``_held``, nothing
+        held) when the arena or the pool cannot take it now."""
+        slot = self.slots.alloc()
+        aslot = self._acquire_adapter(req)
+        if aslot is None:
+            self.slots.release(slot)
+            self._held = req
+            return None
+        lease = None
+        if self._shares_prefix(req):
+            t_pm = time.perf_counter()
+            lease = self.prefix_cache.match_and_acquire(req.prompt)
+            self.trace.add(
+                "prefix_match", t_pm, time.perf_counter(),
+                request_id=req.rid, tid=req.id,
+                args={"hit": lease is not None,
+                      "matched_tokens": lease.tokens if lease else 0})
+        n_shared = len(lease.bids) if lease is not None else 0
+        need = (-(-(len(req.prompt) + req.max_new_tokens)
+                  // self.slots.pool.block_size) - n_shared)
+        if not self._try_reserve(need, req):
+            if self.prefix_cache is not None:
+                self.prefix_cache.release(lease)
+            self._release_adapter(req)
+            self.slots.release(slot)
+            self._held = req
+            return None
+        self.slots.set_reservation(slot, need)
+        return slot, aslot, lease
 
     def _prefill_into_slot(self, req: _Request) -> bool:
         """Whole-prompt admission.  False (request parked in ``_held``,
@@ -1027,36 +1352,13 @@ class ServingEngine:
         prefill (they need every prompt logit) and skip the prefix cache;
         so do adapter requests, whose K/V rows carry their adapter's
         deltas and must not be shared."""
-        slot = self.slots.alloc()
-        aslot = self._acquire_adapter(req)
-        if aslot is None:
-            self.slots.release(slot)
-            self._held = req
+        claim = self._claim_slot(req)
+        if claim is None:
             return False
+        slot, aslot, lease = claim
         plen = len(req.prompt)
         bucket = max(1, self.config.prefill_bucket)
-        bk = self.slots.pool.block_size
-        lease = None
-        cached = (self.prefix_cache is not None and not req.return_logprobs
-                  and req.adapter_id is None)
-        if cached:
-            t_pm = time.perf_counter()
-            lease = self.prefix_cache.match_and_acquire(req.prompt)
-            self.trace.add(
-                "prefix_match", t_pm, time.perf_counter(),
-                request_id=req.rid, tid=req.id,
-                args={"hit": lease is not None,
-                      "matched_tokens": lease.tokens if lease else 0})
-        n_shared = len(lease.bids) if lease is not None else 0
-        need = -(-(plen + req.max_new_tokens) // bk) - n_shared
-        if not self._try_reserve(need):
-            if self.prefix_cache is not None:
-                self.prefix_cache.release(lease)
-            self._release_adapter(req)
-            self.slots.release(slot)
-            self._held = req
-            return False
-        self.slots.set_reservation(slot, need)
+        cached = self._shares_prefix(req)
         t = self.metrics.timers("serving-prefill")
         t.start()
         t_pf = time.perf_counter()
@@ -1089,6 +1391,10 @@ class ServingEngine:
                              "cached_tokens": lease.tokens if lease else 0})
         self.metrics.inc("admitted")
         self.metrics.inc("prefills")
+        EVENT_LOG.emit("engine", "admitted", request_id=req.rid, slot=slot,
+                       prompt_len=plen,
+                       cached_tokens=lease.tokens if lease else 0,
+                       chunked=False)
         st = _SlotState(req, fill=plen, pending=first)
         st.lease = lease
         st.adapter_slot = aslot
@@ -1154,6 +1460,10 @@ class ServingEngine:
         t.start()
         inflight = self._dispatch_decode()
         prev, self._inflight = self._inflight, inflight
+        if self.host_tier is not None and self.host_tier.in_flight:
+            # the host phase of the pipelined step: land at most one
+            # finished demote while the card runs the dispatch
+            self.host_tier.pump(max_swaps=1)
         wait_s = 0.0
         if prev is not None:
             wait_s += self._process_step_results(prev)
@@ -1789,7 +2099,10 @@ class ServingEngine:
             req.logprobs.append(logprob)
         if req.first_token_time is None:
             req.first_token_time = time.perf_counter()
-            self.metrics.observe_ttft(req.first_token_time - req.submit_time)
+            ttft = req.first_token_time - req.submit_time
+            self.metrics.observe_ttft(ttft)
+            EVENT_LOG.emit("engine", "first_token", request_id=req.rid,
+                           ttft_s=round(ttft, 6))
         if req.on_token is not None:
             try:
                 req.on_token(token)
@@ -1826,13 +2139,28 @@ class ServingEngine:
         self.metrics.set_gauges(blocks_free=s["blocks_free"],
                                 blocks_used=s["blocks_used"],
                                 kv_cache_util=s["kv_cache_util"])
+        if self.host_tier is not None:
+            self.metrics.set_gauges(
+                host_blocks_used=self.host_tier.host_used,
+                host_blocks_free=self.host_tier.host_free)
 
     def kv_snapshot(self) -> dict:
-        """Debug view of the paged KV state (pool stats, tables, fills)."""
+        """Debug view of the paged KV state (GET /kv): pool stats, tables,
+        fills, and with a host tier its occupancy and each suspended
+        request's host block count (best effort under concurrent
+        scheduling, like /metrics)."""
         if self.slots is None:
             return {"pool": None, "slots": {}}
         fills = {s: st.fill for s, st in dict(self._active).items()}
-        return self.slots.snapshot(fills)
+        snap = self.slots.snapshot(fills)
+        if self.host_tier is not None:
+            snap["host_tier"] = self.host_tier.stats()
+            snap["host_tier"]["suspended"] = {
+                sus.req.rid: {"blocks": sus.n_live,
+                              "priority": sus.req.priority,
+                              "generated": len(sus.req.generated)}
+                for sus in list(self._suspended.values())}
+        return snap
 
     def _finish(self, req: _Request, reason: str) -> None:
         req.result = FinishedRequest(
@@ -1847,8 +2175,174 @@ class ServingEngine:
         elif reason != "error":
             self.metrics.inc("completed")
             self.metrics.observe_e2e(time.perf_counter() - req.submit_time)
+        # availability: timeouts and scheduler errors are the server's
+        # fault; eos / length / cancelled finishes are service
+        self.metrics.observe_finish(reason not in ("timeout", "error"))
+        EVENT_LOG.emit("engine", "finished", request_id=req.rid,
+                       reason=reason, generated=len(req.generated),
+                       e2e_s=round(time.perf_counter() - req.submit_time, 6))
         req.done_event.set()
         self._notify_drain()
+
+    # -- tiered KV: decode preemption to the host tier -----------------------
+
+    def _preempt_slot(self, slot: int) -> bool:
+        """Suspend an active decode to the host tier.  The demote (its
+        gather first) runs before any state changes, so a
+        ``host-swap-out`` fault returns False with the slot decoding on;
+        on success the slot's blocks free at once and its scheduling
+        state moves into ``_suspended`` for a bitwise resume."""
+        self._flush_inflight()  # may retire the victim (EOS / budget)
+        st = self._active.get(slot)
+        if st is None:
+            return False
+        req = st.req
+        bids = self.slots.live_bids(slot)
+        if not bids or not self.host_tier.can_store(len(bids)):
+            return False
+        t0 = time.perf_counter()
+        try:
+            hids = self.host_tier.begin_demote(bids, owner=req.rid)
+        except OSError as e:  # before any state changed: decode on here
+            EVENT_LOG.emit("engine", "swap_out_failed", request_id=req.rid,
+                           slot=slot, error=repr(e))
+            return False
+        self._active.pop(slot)
+        if self.prefix_cache is not None:
+            # unpin without offering: suspended, not retiring
+            self.prefix_cache.release(st.lease)
+        self._release_adapter(req)
+        self.slots.release(slot)
+        self._suspended[req.id] = _Suspended(
+            req, hids, len(bids),
+            meta={"fill": st.fill, "count": st.count,
+                  "pending": st.pending, "spec_ewma": st.spec_ewma,
+                  "spec_stall": st.spec_stall},
+            t_suspend=t0)
+        nbytes = self.host_tier.block_nbytes * len(bids)
+        self.metrics.inc("preemptions_total")
+        self._update_pool_gauges()
+        self.metrics.set_gauges(slots_active=self.slots.active_slots)
+        EVENT_LOG.emit("engine", "swapped", request_id=req.rid,
+                       direction="out", blocks=len(bids), bytes=nbytes)
+        EVENT_LOG.emit("engine", "preempted", request_id=req.rid,
+                       slot=slot, priority=req.priority,
+                       blocks=len(bids), generated=len(req.generated))
+        self.trace.add("preempt", t0, time.perf_counter(),
+                       request_id=req.rid, tid=req.id,
+                       args={"slot": slot, "blocks": len(bids),
+                             "priority": req.priority})
+        return True
+
+    def _maybe_resume(self) -> None:
+        """Bring suspended decodes back when a slot and a full reservation
+        are free: highest priority first, oldest suspension within a
+        class, never ahead of a strictly higher-priority parked
+        admission."""
+        if not self._suspended:
+            return
+        pool = self.slots.pool
+        bk = pool.block_size
+        for sus in sorted(self._suspended.values(),
+                          key=lambda s: (-s.req.priority, s.t_suspend)):
+            req = sus.req
+            if not self.slots.free_slots:
+                break
+            if (self._held is not None
+                    and self._held.priority > req.priority):
+                break
+            total = -(-(len(req.prompt) + req.max_new_tokens) // bk)
+            need = max(total, sus.n_live)
+            if not pool.can_reserve(need) and self.prefix_cache is not None:
+                # cached prefixes must not starve a suspended decode (JAX
+                # squeezes the cache for admissions only, so once nothing
+                # new arrives a decode suspended behind it never resumes)
+                self.prefix_cache.evict_blocks(
+                    need - (pool.free_blocks - pool.reserved_blocks))
+                self.metrics.set_gauges(
+                    prefix_blocks=self.prefix_cache.blocks)
+            if not pool.can_reserve(need):
+                continue  # a smaller suspended request may still fit
+            try:
+                self._resume_suspended(sus)
+            except OSError:
+                # a host-swap-in fault or adapter pressure: the host copy
+                # stays, re-fetched at a later iteration
+                break
+
+    def _discard_suspended(self, key: int, reason: str) -> None:
+        sus = self._suspended.pop(key)
+        self.host_tier.free(sus.hids)
+        self._finish(sus.req, reason)
+        self._update_pool_gauges()
+
+    def _resume_suspended(self, sus: _Suspended) -> int:
+        """Swap a suspended decode back in and rebuild its slot state; its
+        rows come back bitwise and its sampling folds on its own ``(seed,
+        count)``.  Raises ``OSError`` (the host copy intact, the ledger
+        balanced) when the swap-in faults or the adapter arena is
+        pinned shut."""
+        req = sus.req
+        pool = self.slots.pool
+        t0 = time.perf_counter()
+        slot = self.slots.alloc()
+        aslot = self._acquire_adapter(req)
+        if aslot is None:
+            self.slots.release(slot)
+            raise OSError("adapter arena fully pinned; resume deferred")
+        bk = pool.block_size
+        total = -(-(len(req.prompt) + req.max_new_tokens) // bk)
+        need = max(total, sus.n_live)
+        if not pool.reserve(need):
+            self._release_adapter(req)
+            self.slots.release(slot)
+            raise OSError("pool cannot reserve for resume")
+        self.slots.set_reservation(slot, need)
+        table = np.full(self.slots.table_blocks, BlockPool.TRASH, np.int32)
+        for i in range(sus.n_live):
+            table[i] = pool.alloc_reserved()
+            self.slots.reserved[slot] -= 1
+        self.slots.tables[slot] = table
+        try:
+            self.host_tier.promote(sus.hids, table[:sus.n_live])
+        except OSError:
+            # unwind: release drops the fresh blocks and the reservation;
+            # the host copy stays for a later re-fetch
+            self.slots.release(slot)
+            self._release_adapter(req)
+            self._update_pool_gauges()
+            raise
+        self.host_tier.free(sus.hids)
+        del self._suspended[req.id]
+        st = _SlotState(req, fill=sus.meta["fill"],
+                        pending=sus.meta["pending"])
+        st.count = sus.meta["count"]
+        st.spec_ewma = sus.meta["spec_ewma"]
+        st.spec_stall = sus.meta["spec_stall"]
+        st.adapter_slot = aslot
+        st.fresh = True  # the next dispatch feeds the host-known token
+        self._active[slot] = st
+        if self._draft_enabled:
+            # the draft's shadow rows are derived state: rebuilt
+            self._draft_prefill(slot, st)
+        dt = time.perf_counter() - t0
+        suspended_s = t0 - sus.t_suspend
+        nbytes = self.host_tier.block_nbytes * sus.n_live
+        self.metrics.inc("resumes_total")
+        self.metrics.observe_resume(dt)
+        self._update_pool_gauges()
+        self.metrics.set_gauges(slots_active=self.slots.active_slots)
+        EVENT_LOG.emit("engine", "swapped", request_id=req.rid,
+                       direction="in", blocks=sus.n_live, bytes=nbytes)
+        EVENT_LOG.emit("engine", "resumed", request_id=req.rid, slot=slot,
+                       priority=req.priority,
+                       suspended_s=round(suspended_s, 6),
+                       resume_s=round(dt, 6))
+        self.trace.add("resume", t0, time.perf_counter(),
+                       request_id=req.rid, tid=req.id,
+                       args={"slot": slot, "blocks": sus.n_live,
+                             "suspended_s": round(suspended_s, 6)})
+        return slot
 
 
 def _same_tree(a, b) -> bool:

@@ -9,9 +9,11 @@ all-or-nothing.
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 from typing import Optional
+
+from ..analysis.sanitizers import make_condition
+from ..obs.logging import EVENT_LOG
 
 
 class QueueFull(Exception):
@@ -32,7 +34,7 @@ class RequestQueue:
         self.max_size = max_size
         self.retry_after_s = retry_after_s
         self._q: deque = deque()
-        self._cond = threading.Condition()
+        self._cond = make_condition("serving.queue")
 
     def __len__(self) -> int:
         with self._cond:
@@ -42,13 +44,18 @@ class RequestQueue:
         """Admit all of ``reqs`` or raise ``QueueFull`` (all-or-nothing)."""
         reqs = list(reqs)
         if len(reqs) > self.max_size:
+            EVENT_LOG.emit("queue", "queue_full", batch=len(reqs),
+                           depth=len(self), capacity=self.max_size)
             raise QueueFull(
                 f"request batch of {len(reqs)} exceeds the queue capacity "
                 f"({self.max_size})", self.retry_after_s)
         with self._cond:
             if len(self._q) + len(reqs) > self.max_size:
+                depth = len(self._q)
+                EVENT_LOG.emit("queue", "queue_full", batch=len(reqs),
+                               depth=depth, capacity=self.max_size)
                 raise QueueFull(
-                    f"request queue full ({len(self._q)}/{self.max_size})",
+                    f"request queue full ({depth}/{self.max_size})",
                     self.retry_after_s)
             self._q.extend(reqs)
             self._cond.notify_all()

@@ -12,7 +12,7 @@ copies it (``append_block_id``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -72,6 +72,17 @@ class SlotAllocator:
         if self.reserved[slot]:
             raise RuntimeError(f"slot {slot} already holds a reservation")
         self.reserved[slot] = n
+
+    def live_bids(self, slot: int) -> List[int]:
+        """The slot's allocated block ids in table order: the entries that
+        are not trash form a prefix of the row (blocks are granted in fill
+        order), so a demote moves them as one dense slice."""
+        bids: List[int] = []
+        for b in self.tables[slot]:
+            if int(b) == BlockPool.TRASH:
+                break
+            bids.append(int(b))
+        return bids
 
     # -- cache views ---------------------------------------------------------
     @property

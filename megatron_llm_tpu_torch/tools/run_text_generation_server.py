@@ -14,12 +14,17 @@ checkpoint cut in depth, or a tiny test model).  ``--port 0`` binds a
 free port; the line ``serving on HOST:PORT`` gives the one bound.
 ``--device`` (default ``cuda``) is where the engine runs.
 
-The engine's flags are JAX's.  What the port does not run is refused by
-the engine's own checks (``serving/engine.py:_refuse_unported``) when
-the server starts: ``--prefill_chunk`` and ``--host_kv_blocks`` (ROADMAP
-Queue 1 item 6), ``--role`` other than ``mixed``; and by the service for
-``--tp`` / ``--pp`` / ``--replicas`` / ``--router``.  ``--disagg`` and
-``--supervise`` raise here (item 11: multi-GPU serving).
+The engine's flags are JAX's: ``--prefill_chunk N`` admits long prompts
+N tokens an iteration between decode steps, ``--host_kv_blocks N`` puts a
+pinned host arena of N blocks behind the pool (prefix spill, priority
+preemption; requests carry ``"priority"``, default
+``--default_priority``), ``--log_json`` streams the structured event log
+to stderr, and ``GET /metrics?format=prometheus`` serves the Prometheus
+scrape.  What the port does not run is refused by the engine's own
+checks (``serving/engine.py:_refuse_unported``) when the server starts:
+``--role`` other than ``mixed``; and by the service for ``--tp`` /
+``--pp`` / ``--replicas`` / ``--router``.  ``--disagg`` and
+``--supervise`` raise here (ROADMAP Queue 1 item 11: multi-GPU serving).
 """
 
 from __future__ import annotations
@@ -53,14 +58,20 @@ def _start_metrics_logger(service, interval_s: float):
                 "prefix_misses": snap["prefix_misses"],
                 "prefix_hit_rate": round(snap["prefix_hit_rate"], 4),
                 "prefix_blocks": snap["prefix_blocks"],
-                "prefix_promotions": snap.get(
-                    "prefix_promotions_total", 0),
+                "prefix_promotions": snap["prefix_promotions_total"],
                 "spec_proposed": snap["spec_proposed"],
                 "spec_accepted": snap["spec_accepted"],
                 "spec_acceptance_rate": round(
                     snap["spec_acceptance_rate"], 4),
                 "accepted_tokens_per_step_mean": round(
                     snap["accepted_tokens_per_step"]["mean"], 3),
+                # tiered KV (all zero without --host_kv_blocks)
+                "swap_out_blocks": snap["swap_out_blocks_total"],
+                "swap_in_blocks": snap["swap_in_blocks_total"],
+                "swap_bytes": snap["swap_bytes_total"],
+                "preemptions": snap["preemptions_total"],
+                "host_blocks_used": snap["host_blocks_used"],
+                "host_blocks_free": snap["host_blocks_free"],
             }}), flush=True)
 
     t = threading.Thread(target=loop, name="serving-metrics-log",
@@ -103,7 +114,9 @@ def get_args(argv=None):
                     help="pad prompt lengths up to a multiple of this "
                          "before the admission prefill")
     ap.add_argument("--prefill_chunk", type=int, default=None,
-                    help="chunked prefill (not ported: refused)")
+                    help="chunked prefill admission: at most this many "
+                         "prompt tokens an iteration, between decode "
+                         "steps; supersedes --prefill_bucket; default off")
     ap.add_argument("--no_pipeline_decode", action="store_true",
                     help="disable the one-step pipelined decode loop")
     ap.add_argument("--prefix_cache_blocks", type=int, default=256,
@@ -115,15 +128,23 @@ def get_args(argv=None):
     ap.add_argument("--kv_pool_blocks", type=int, default=None,
                     help="paged KV pool size in blocks")
     ap.add_argument("--host_kv_blocks", type=int, default=0,
-                    help="tiered KV host arena (not ported: refused "
-                         "above 0)")
+                    help="tiered KV: a pinned host arena of this many "
+                         "blocks behind the pool (prefix-cache spill, "
+                         "priority preemption, oversubscribed admission); "
+                         "0 = off")
     ap.add_argument("--default_priority", type=int, default=0,
-                    help="QoS class of requests without 'priority'")
+                    help="QoS class of requests without 'priority' "
+                         "(higher is admitted sooner; with "
+                         "--host_kv_blocks it may preempt lower classes)")
     ap.add_argument("--metrics_interval_s", type=float, default=60.0,
                     help="print a one-line JSON serving-metrics summary "
                          "this often; 0 disables")
     ap.add_argument("--no_trace", action="store_true",
                     help="disable per-request span tracing (GET /trace)")
+    ap.add_argument("--log_json", action="store_true",
+                    help="stream the structured JSON event log (request "
+                         "lifecycle lines with request_id correlation "
+                         "ids) to stderr")
     ap.add_argument("--retry_after_s", type=float, default=1.0,
                     help="Retry-After hint returned with 503 backpressure")
     ap.add_argument("--request_deadline_s", type=float, default=None,
@@ -244,6 +265,13 @@ def build_server(args, ap):
             ap.error("--draft_model without --draft_load would serve a "
                      "random-init draft; pass --draft_load CKPT, or "
                      "--allow_random_draft for smoke tests")
+
+    if args.log_json:
+        import sys
+
+        from ..obs.logging import EVENT_LOG
+
+        EVENT_LOG.configure(stream=sys.stderr)
 
     prefix_blocks = 0 if args.no_prefix_cache else args.prefix_cache_blocks
     server = MegatronServer(

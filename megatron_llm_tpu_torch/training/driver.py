@@ -38,6 +38,7 @@ from ..config import RuntimeConfig
 from ..data.samplers import BatchIterator
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
+from ..obs.logging import EVENT_LOG
 from ..ops import dropout as drop
 from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
 from ..resilience import chaos
@@ -287,6 +288,13 @@ def training_log(cfg: RuntimeConfig, log: _LogState, metrics: dict,
         f" grad norm: {grad_norm:.3f} |"
         f" number of skipped iterations: {log.skipped_total:3d} |"
         f" number of anomalous iterations: {log.anomaly_total:3d} |")
+    EVENT_LOG.emit(
+        "training", "log_window", iteration=iteration,
+        consumed_samples=consumed_samples, lm_loss=round(avg_loss, 6),
+        tokens_per_sec=round(tokens_per_sec, 3),
+        step_time_s=round(per_iter, 6), learning_rate=lr,
+        grad_norm=round(grad_norm, 6), skipped=log.skipped_total,
+        anomalies=log.anomaly_total)
     for tag, value in (("lm_loss", avg_loss), ("learning_rate", lr),
                        ("grad_norm", grad_norm), ("loss_scale", loss_scale),
                        ("tokens_per_sec", tokens_per_sec),
@@ -619,4 +627,6 @@ def rollback_to_last_checkpoint(cfg: RuntimeConfig, state, attempt: int = 1):
     state, tag = checkpointing.load_checkpoint(
         root, state, retries=cfg.train.checkpoint_retries)
     metrics_lib.RESILIENCE_EVENTS.inc("rollbacks")
+    EVENT_LOG.emit("training", "rollback", checkpoint_root=str(root),
+                   restored_tag=str(tag))
     return state, (0 if tag == checkpointing.RELEASE else int(tag))

@@ -26,6 +26,8 @@ import threading
 import uuid
 from pathlib import Path
 
+from ..analysis.sanitizers import note_compile
+
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -56,6 +58,7 @@ def compile_and_load(src: Path, timeout: int = 300,
         if not out.exists():
             out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.{uuid.uuid4().hex}.tmp")
+            note_compile(f"{compiler}:{src.name}")
             try:
                 done = subprocess.run(
                     [compiler, *GXX_FLAGS, "-o", str(tmp), str(src)],

@@ -1626,3 +1626,94 @@ def test_finetune_on_indexed_data_traces_the_kernels(cuda_device, tmp_path):
     for kernel in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                    "flash_bwd_dkv_mma_kernel", "rms_bwd_kernel"):
         assert any(kernel in n for n in names), kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_host_tier_async_demote_promote_on_the_card(cuda_device, quant):
+    """Tiered KV's block moves on the card: the arenas are pinned;
+    ``begin_demote`` returns with the copy on the side stream; the freed
+    source blocks are overwritten on the compute stream at once (the next
+    step's writes); the landed and promoted rows are the original bits,
+    written into the pool's own tensors (same addresses, contiguous)."""
+    from megatron_llm_tpu_torch.serving.block_pool import BlockPool, HostKVTier
+
+    cfg = tiny_config(num_layers=2, params_dtype="bfloat16",
+                      kv_cache_quant=quant)
+    pool = BlockPool(cfg, 9, 16, device=cuda_device)
+    leaves = [t for c in (pool.k_pool, pool.v_pool)
+              for t in (c.values() if isinstance(c, dict) else [c])]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for t in leaves:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=cuda_device, dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda_device))
+    before = [t.clone() for t in leaves]
+    ptrs = [t.data_ptr() for t in leaves]
+    tier = HostKVTier(pool, 8, arity=8)
+    arenas = [a for c in (tier.k_arena, tier.v_arena)
+              for a in (c.values() if isinstance(c, dict) else [c])]
+    assert all(a.is_pinned() for a in arenas)
+    pool.reserve(6)
+    src = [pool.alloc_reserved() for _ in range(6)]
+    hids = tier.begin_demote(src, owner="t")
+    assert tier.in_flight == 1
+    for b in src:
+        pool.decref(b)
+    for t in leaves:
+        t.fill_(0)
+    assert tier.pump() == 1 and tier.bw_bytes_per_s > 0
+    pool.reserve(6)
+    dst = [pool.alloc_reserved() for _ in range(6)]
+    tier.promote(hids, dst)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in leaves] == ptrs
+    assert all(t.is_contiguous() for t in leaves)
+    for t, b in zip(leaves, before):
+        for s, d in zip(src, dst):
+            assert torch.equal(t[:, d], b[:, s])
+
+
+@pytest.mark.cuda
+def test_engine_options_on_the_card(cuda_device):
+    """The engine on the card with chunked prefill, a host tier and the
+    sanitizers: a priority-1 arrival preempts a decode, which resumes and
+    commits its lone run's tokens; the ledgers end clean and the steady
+    state after a warm-up builds nothing."""
+    import threading
+
+    from megatron_llm_tpu_torch.analysis import sanitizers
+    from megatron_llm_tpu_torch.serving import EngineConfig, ServingEngine
+
+    cfg = tiny_config(num_layers=2, params_dtype="bfloat16",
+                      fused_decode=False)
+    params = tm.init_params(cfg, seed=0, device=cuda_device)
+    ec = EngineConfig(max_batch_size=2, max_seq_len=64, kv_block_size=8,
+                      prefill_chunk=8, kv_pool_blocks=7, host_kv_blocks=8,
+                      prefix_cache_blocks=0, sanitize=True)
+    low, high = list(range(3, 20)), list(range(30, 39))
+
+    def run(engine, preempt):
+        started = threading.Event()
+        h = engine.submit(low, 12, use_eos_stop=False, priority=0,
+                          on_token=lambda t: started.set())
+        if preempt:
+            assert started.wait(300)
+            engine.submit(high, 10, use_eos_stop=False,
+                          priority=1).result(300)
+        return h.result(300)
+
+    engine = ServingEngine(cfg, params, ec, device=cuda_device).start()
+    try:
+        alone = run(engine, False)
+        run(engine, True)  # warm-up of the preemption path
+        with sanitizers.no_recompiles():
+            pressed = run(engine, True)
+        assert engine.metrics.snapshot()["preemptions_total"] == 2
+        assert engine.drain(60) and engine.sanitizer_report == []
+    finally:
+        engine.shutdown()
+    assert engine._scheduler_error is None
+    assert pressed.tokens == alone.tokens

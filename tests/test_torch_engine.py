@@ -194,6 +194,12 @@ def test_engine_config_fields_match_jax():
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
+# options the engine serves: their cases check the tokens against the JAX
+# engine's with the same option (tests/test_torch_chunked_prefill.py,
+# test_torch_tiered_kv.py and test_torch_sanitizers.py go further)
+NOW_PORTED = ("prefill_chunk", "host_kv_blocks", "sanitize")
+
+
 @pytest.mark.parametrize("kw,cfg_kw,match", [
     (dict(prefill_chunk=16), {}, "prefill_chunk"),
     (dict(host_kv_blocks=4), {}, "host_kv_blocks"),
@@ -203,8 +209,16 @@ def test_engine_config_fields_match_jax():
     ({}, dict(quantize_matmuls="int8"), "int8"),
 ])
 def test_unported_options_raise(weights, kw, cfg_kw, match):
-    _, _, _, tp = weights
+    jc, jp, _, tp = weights
     tc = ttiny(**{"fused_decode": False, **cfg_kw})
+    if match in NOW_PORTED:
+        got, _ = _run(ServingEngine(tc, tp, EngineConfig(**{**SLICE, **kw}),
+                                    device="cpu"), _prompts(), NEW)
+        want, _ = _run(JServingEngine(jc, jp, JEngineConfig(**{**SLICE,
+                                                             **kw})),
+                       _prompts(), NEW)
+        assert [r.tokens for r in got] == [r.tokens for r in want]
+        return
     with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP"):
         ServingEngine(tc, tp, EngineConfig(**{**SLICE, **kw}), device="cpu")
 

@@ -358,6 +358,10 @@ def test_server_entry_answers_like_the_jax_server(corpus, release):
     assert not thread.is_alive() and box.get("rc") == 0
 
 
+# flags the entry passes through: their cases serve and match JAX's text
+NOW_SERVED = ("prefill_chunk", "host_kv_blocks")
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--prefill_chunk", "16"], "prefill_chunk"),
     (["--host_kv_blocks", "4"], "host_kv_blocks"),
@@ -367,8 +371,43 @@ def test_server_entry_answers_like_the_jax_server(corpus, release):
 ])
 def test_server_entry_refuses_what_is_not_ported(corpus, release, flags,
                                                  match):
-    root = release[0]
-    with pytest.raises(NotImplementedError, match=match):
-        rtgs.main(["--load", root, "--use_checkpoint_args",
-                   "--tokenizer_type", "gpt2-bpe", "--tokenizer_model",
-                   str(corpus), *SERVE_FLAGS, *flags])
+    root, jc, jp = release
+    argv = ["--load", root, "--use_checkpoint_args", "--tokenizer_type",
+            "gpt2-bpe", "--tokenizer_model", str(corpus), *SERVE_FLAGS,
+            *flags]
+    if match not in NOW_SERVED:
+        with pytest.raises(NotImplementedError, match=match):
+            rtgs.main(argv)
+        return
+    # ported since: the entry passes the flag through and serves the JAX
+    # server's text with the same option
+    opt = {match: int(flags[1])}
+    jserver = JServer(jc, jp, jbuild("gpt2-bpe", str(corpus)),
+                      **{**SERVE, **opt})
+    jserver.run("127.0.0.1", 0, block=False, graceful_sigterm=False)
+    ready = threading.Event()
+    box = {}
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    thread = threading.Thread(target=lambda: box.setdefault(
+        "rc", rtgs.main(argv, on_ready=on_ready)))
+    thread.start()
+    try:
+        assert ready.wait(120), "the server did not start"
+        engine = box["server"].service.engine
+        assert getattr(engine.config, match) == opt[match]
+        body = {"prompts": ["hello world", "the café, don't"],
+                "tokens_to_generate": 7}
+        js, jout = _put(jserver.port, body)
+        ts, tout = _put(box["server"].port, body)
+        assert js == ts == 200
+        assert tout["text"] == jout["text"]
+    finally:
+        if "server" in box:
+            assert box["server"].graceful_shutdown(10.0)
+        thread.join(60)
+        jserver.shutdown()
+    assert not thread.is_alive() and box.get("rc") == 0

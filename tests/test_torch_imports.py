@@ -56,7 +56,9 @@ def test_port_imports_no_jax():
                 "data.blendable_dataset", "data.instruction_dataset",
                 "tokenizer.bpe", "tokenizer.native_bpe",
                 "tokenizer.tokenizer", "tools.preprocess_data",
-                "tools.merge_datasets", "tools.run_text_generation_server"):
+                "tools.merge_datasets", "tools.run_text_generation_server",
+                "analysis.sanitizers", "obs.logging", "obs.registry",
+                "obs.slo"):
         assert f"megatron_llm_tpu_torch.{new}" in names
     code = (
         "import importlib, json, sys\n"

@@ -535,16 +535,18 @@ def test_default_server_serves(tiny):
                                 dict(prefill_chunk=8)],
                          ids=["host_kv_blocks", "prefill_chunk"])
 def test_unported_option_answers_501(tiny, kw):
-    """An engine option the port still refuses answers 501 naming its
-    ROADMAP item, not a dropped connection."""
-    _, _, tc, tp = tiny
+    """A server with ``host_kv_blocks`` or ``prefill_chunk`` answers 200
+    with the greedy tokens of JAX's reference."""
+    jc, jp, tc, tp = tiny
     server = MegatronServer(tc, tp, NullTokenizer(tc.vocab_size),
                             device="cpu", **kw)
     server.run("127.0.0.1", 0, block=False)
     try:
-        status, msg = _put(server.port, {"prompts": ["1 2 3"],
-                                         "tokens_to_generate": 2})
+        status, out = _put(server.port, {"prompts": ["1 2 3"],
+                                         "tokens_to_generate": 2,
+                                         "no_early_termination": True})
     finally:
         server.shutdown()
-    assert status == 501
-    assert "ROADMAP" in msg and "not ported" in msg
+    assert status == 200
+    assert [int(t) for t in out["text"][0].split()] == \
+        _reference(jc, jp, [1, 2, 3], 2)
