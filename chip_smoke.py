@@ -8,10 +8,12 @@ it goes wrong:
 
 1. device: name, count and ``nvidia-smi`` name / power limit;
 2. build: every CUDA kernel from ``megatron_llm_tpu_torch/csrc`` with one
-   ``nvcc`` per source, all started together, and beside them the fused
-   decode step's stamped build for ``kernels/decode_probe.py`` (each
-   ``nvcc``'s seconds are logged; the Triton kernels compile at their
-   first launch);
+   ``nvcc`` per source (``decode_step.cu`` as five translation units, one
+   a kernel instantiation, linked into its one library), all started
+   together, and beside them the fused decode step's stamped build for
+   ``kernels/decode_probe.py``, split the same way (each ``nvcc``'s
+   seconds are logged; the Triton kernels compile at their first
+   launch);
 3. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, in bf16, at the serving and training paths' shapes (Llama-2-7B
    and Falcon-7B's; LayerNorm at GPT-1.3B's too), with its time (CUDA
@@ -192,7 +194,41 @@ it goes wrong:
     equal to the JSON snapshot, the SLO, swap and resilience families
     present, one request's event-log lines against its /trace spans, and
     the scrape's time.  Phases 39-41 are the ``serving-options`` path: K1,
-    K4 and K13 must launch there.
+    K4 and K13 must launch there;
+42. fused-head: ``fused_linear_cross_entropy`` against ``cross_entropy(x
+    @ w)`` at Llama-2-7B's head (4096 rows, h 4096, vocab 32000, bf16):
+    loss, dx and dw within the limits of ``tests/test_torch_fused_head.py``
+    (set by its float64 study), the per-token loss against the float64
+    CE of the same operands at a limit that bf16-rounded block logits
+    exceed, each route's forward and backward time and peak memory (the
+    fused forward under one [4096, 32000] fp32 tensor), and one 2-layer
+    train step with the fused head on and off;
+43. lora-train: LoRA finetuning of Llama-2-7B at full width and depth
+    (32 layers, bf16 base from a seed, seq 4096, mb 1, rank 16 on wq / wv,
+    alpha 16, AdamW, selective recompute, the fused head), 6 steps on one
+    repeated batch through ``training/lora.make_lora_step``: step 0's
+    loss is the base model's bit for bit, the loss falls, every base
+    tensor's checksum is unchanged; peak memory beside the prediction,
+    step ms, tokens/s and a model-flops share with its formula;
+44. lora-serve-trained: the trained adapter saved adapter-only, loaded
+    with ``register_path`` and served to 4 greedy requests on the fused
+    route (K13 + LoRA every decode step) and the composed route: the
+    first tokens equal, and where the two first part, a near tie in the
+    training forward's logits (within twice the routes' logit gap); then
+    K13 + LoRA's decode logits after a prefill of the training batch
+    against an fp32 forward with the same factors (phase 4's limits, or
+    twice the composed bf16 route's error), the adapter's effect on them
+    at least 4x that error;
+45. int8-train: ``quantize_matmuls="int8"`` at Llama-2-7B widths, 2
+    layers, seq 4096: mean |Δlogit| against bf16 under 0.1, 4 steps whose
+    loss falls, ``_int_mm`` at 4096 x 4096 x 11008 equal to the plain
+    int8 product bit for bit with its time, bound and bf16
+    ``torch.matmul``'s time, 4 greedy requests on the composed route;
+46. lora-entry: ``finetune.main --lora_rank 8 --mock_data`` from a
+    2-layer release checkpoint with ``--save``, then ``--lora_load`` of
+    the saved adapter.  Phases 42-46 are the ``single-card-training``
+    paths: K1-K5 must launch in 42, 43, 45 and 46 (K1-K3 on their
+    tensor-core bodies), K13 + LoRA in 44.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -202,8 +238,8 @@ K9 bit for bit on the same logical cache, K13 must equal K12 and K14 four
 K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
-Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38 and 39-41 are
-the main paths:
+Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38, 39-41 and
+42-46 are the main paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -4596,6 +4632,645 @@ def serving_options_phases(torch, cfg, dev, counters, smi, paths, settle,
                 obs=obs)
 
 
+# ---------------------------------------------------------------------------
+# Phases 42-46: single-card training (the fused LM head, LoRA finetuning at
+# Llama-2-7B full depth, W8A8 int8 training matmuls, the LoRA entry)
+# ---------------------------------------------------------------------------
+
+# the fused head against the unfused bf16 route at Llama-2-7B's head:
+# ``tests/test_torch_fused_head.py``'s limits (its float64 study finds the
+# unfused route's bf16 logits within a quarter of them)
+FUSED_HEAD_MEAN_LOSS, FUSED_HEAD_MAX_LOSS, FUSED_HEAD_GRAD_REL = \
+    2e-3, 0.05, 0.02
+# the fused head's per-token loss against the float64 CE of the same bf16
+# operands (the float64 study: fp32 block logits within 1e-6, bf16-rounded
+# ones 6e-3 away), over its first rows
+FUSED_HEAD_EXACT_MAX_LOSS, FUSED_HEAD_EXACT_ROWS = 5e-4, 512
+# phase 43's run: rank, targets (JAX's default, ``ops/lora.py:53``), alpha,
+# steps, and its peak memory prediction (PERF.md section 5, written before
+# the first card run)
+LT_RANK, LT_TARGETS, LT_ALPHA, LT_STEPS = 16, ("wq", "wv"), 16.0, 6
+LT_PREDICTED_GB = (30.0, 36.0)
+# the kernels of the single-card-training paths: K1-K5 (K1-K3 bf16 through
+# their tensor-core bodies); the trained adapter served through K13 + LoRA
+SCT_TRAIN = TRAIN_KERNELS + ("rmsnorm_fwd", "rmsnorm_bwd")
+
+
+def _train_cfg(model, seq, lr=1e-3):
+    from megatron_llm_tpu_torch.config import (
+        OptimizerConfig,
+        RuntimeConfig,
+        TrainConfig,
+    )
+
+    return RuntimeConfig(
+        model=model,
+        optimizer=OptimizerConfig(lr=lr, min_lr=lr / 10, lr_warmup_iters=0,
+                                  clip_grad=1.0),
+        train=TrainConfig(train_iters=LT_STEPS, micro_batch_size=1,
+                          global_batch_size=1, seq_length=seq,
+                          log_interval=1)).validate()
+
+
+def _one_batch(torch, vocab, seq, dev, seed):
+    """One ``[accum 1, micro 1, seq]`` batch of random tokens from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, vocab, (1, 1, seq), generator=gen).to(dev)
+    return {"tokens": toks, "labels": toks.roll(-1, -1),
+            "loss_mask": torch.ones((1, 1, seq), device=dev)}
+
+
+def _rel(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _checksums(torch, tree) -> list:
+    """An exact checksum of every tensor: its bits summed as int64, a layer
+    at a time."""
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    out = []
+    for t in tree_leaves(tree):
+        bits = t.view(torch.int16) if t.element_size() == 2 \
+            else t.view(torch.int32)
+        out.append(sum(int(s.sum(dtype=torch.int64)) for s in
+                       (bits.unbind(0) if bits.dim() > 2 else (bits,))))
+    return out
+
+
+def fused_head_phase(torch, cfg, dev, counters, smi, rows=4096):
+    """Phase 42: ``fused_linear_cross_entropy`` against ``cross_entropy(x @
+    w)`` at Llama-2-7B's head (rows 4096 = mb 1 x seq 4096, h 4096, vocab
+    32000, bf16): loss, dx and dw within the stated limits; each route's
+    forward and forward + backward time and peak memory above its inputs
+    (the fused forward must stay under one [rows, vocab] fp32 tensor);
+    the per-token loss against the float64 CE of the same operands over
+    512 rows, at a limit that bf16-rounded block logits exceed (the
+    unfused route's gap is logged beside it); then one train step at 2 layers with the fused head on and off from
+    the same weights and batch.  Returns the train steps' launches."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.parallel import cross_entropy as tce
+    from megatron_llm_tpu_torch.training import step as S
+    from megatron_llm_tpu_torch.utils.tree import tree_map
+
+    h, v = cfg.hidden_size, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(42)
+    x = torch.randn((rows, h), generator=gen, device=dev).bfloat16()
+    w = (0.02 * torch.randn((h, v), generator=gen, device=dev)).bfloat16()
+    labels = torch.randint(0, v, (rows,), generator=gen, device=dev)
+    logits_fp32 = rows * v * 4
+    routes = {
+        "fused": lambda a, b: tce.fused_linear_cross_entropy(a, b, labels, v),
+        "unfused": lambda a, b: tce.cross_entropy((a @ b).float(), labels,
+                                                  vocab_size=v)}
+    res = {}
+    for name, fn in routes.items():
+        tx = x.clone().requires_grad_(True)
+        tw = w.clone().requires_grad_(True)
+
+        def fwd():
+            with torch.no_grad():
+                return fn(tx, tw)
+
+        def fwd_bwd():
+            return torch.autograd.grad(fn(tx, tw).sum(), (tx, tw))
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fwd()
+        torch.cuda.synchronize()
+        peak_f = torch.cuda.max_memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss = fn(tx, tw)
+        dx, dw = torch.autograd.grad(loss.sum(), (tx, tw))
+        torch.cuda.synchronize()
+        peak_fb = torch.cuda.max_memory_allocated(dev) - base
+        res[name] = dict(loss=loss.detach(), dx=dx, dw=dw,
+                         fwd_ms=timing.event_ms(fwd, iters=10),
+                         fwd_bwd_ms=timing.event_ms(fwd_bwd, iters=10),
+                         peak_fwd=peak_f, peak_fwd_bwd=peak_fb)
+        del loss, dx, dw
+    f, u = res["fused"], res["unfused"]
+    d = f["loss"] - u["loss"]
+    errs = dict(mean_loss=abs(float(d.mean())), max_loss=float(d.abs().max()),
+                dx_rel=_rel(torch, f["dx"], u["dx"]),
+                dw_rel=_rel(torch, f["dw"], u["dw"]))
+    log(f"fused-head: rows {rows}, h {h}, vocab {v}, bf16: fused against "
+        f"unfused |mean dloss| {errs['mean_loss']:.3e} (limit "
+        f"{FUSED_HEAD_MEAN_LOSS}), max {errs['max_loss']:.4f} (limit "
+        f"{FUSED_HEAD_MAX_LOSS}), dx rel {errs['dx_rel']:.4f}, dw rel "
+        f"{errs['dw_rel']:.4f} (limit {FUSED_HEAD_GRAD_REL})")
+    if (errs["mean_loss"] > FUSED_HEAD_MEAN_LOSS
+            or errs["max_loss"] > FUSED_HEAD_MAX_LOSS
+            or errs["dx_rel"] > FUSED_HEAD_GRAD_REL
+            or errs["dw_rel"] > FUSED_HEAD_GRAD_REL):
+        raise RuntimeError(f"fused-head: fused against unfused {errs}")
+    r = FUSED_HEAD_EXACT_ROWS
+    logits = x[:r].double() @ w.double()
+    exact = torch.logsumexp(logits, -1) - logits.gather(
+        1, labels[:r, None])[:, 0]
+    del logits
+    gap = {n: float((res[n]["loss"][:r].double() - exact).abs().max())
+           for n in routes}
+    log(f"fused-head: per-token loss against the float64 CE of the same "
+        f"bf16 operands over {r} rows: fused max |d| {gap['fused']:.3e} "
+        f"(limit {FUSED_HEAD_EXACT_MAX_LOSS}), unfused (bf16 logits) "
+        f"{gap['unfused']:.3e}")
+    if not gap["fused"] <= FUSED_HEAD_EXACT_MAX_LOSS:
+        raise RuntimeError(f"fused-head: against the float64 CE {gap}")
+    for name, r in res.items():
+        log(f"fused-head {name}: forward {r['fwd_ms']:.4f} ms, forward + "
+            f"backward {r['fwd_bwd_ms']:.4f} ms; peak above the inputs "
+            f"forward {r['peak_fwd'] / 1e6:.1f} MB, forward + backward "
+            f"{r['peak_fwd_bwd'] / 1e6:.1f} MB (CUDA events, "
+            f"max_memory_allocated; card {smi})")
+    if f["peak_fwd"] >= logits_fp32:
+        raise RuntimeError(f"fused-head: the fused forward held "
+                           f"{f['peak_fwd']} bytes, a [{rows}, {v}] fp32 "
+                           f"tensor is {logits_fp32}")
+    log(f"fused-head: the fused route saves "
+        f"{(u['peak_fwd_bwd'] - f['peak_fwd_bwd']) / 1e6:.1f} MB of peak "
+        f"(forward + backward) and never holds a [{rows}, {v}] fp32 tensor "
+        f"({logits_fp32 / 1e6:.1f} MB)")
+    del res, f, u, x, w
+    torch.cuda.empty_cache()
+
+    # one train step at 2 layers, fused head on and off
+    small = dataclasses.replace(cfg, num_layers=2)
+    batch = _one_batch(torch, v, 4096, dev, seed=43)
+    params0 = M.init_params(small, seed=0, device=dev)
+    losses = {}
+    _zero(counters)
+    for fused in (True, False):
+        c = _train_cfg(dataclasses.replace(small, fused_lm_head=fused), 4096)
+        params = tree_map(lambda t: t.clone(), params0)
+        state = S.init_train_state(c, params)
+        _, met = S.make_train_step(c, dev)(state, batch)
+        losses[fused] = float(met["loss"])
+        del state, params
+    launches = _launches(counters)
+    dl = abs(losses[True] - losses[False])
+    log(f"fused-head: a 2-layer train step, loss fused {losses[True]:.6f} "
+        f"unfused {losses[False]:.6f}, |d| {dl:.3e} (limit "
+        f"{FUSED_HEAD_MEAN_LOSS})")
+    if dl > FUSED_HEAD_MEAN_LOSS:
+        raise RuntimeError(f"fused-head: train step losses {losses}")
+    return launches
+
+
+def lora_train_phase(torch, cfg, dev, counters, smi, work):
+    """Phase 43: LoRA finetuning at Llama-2-7B full width and depth (bf16
+    base from a seed, seq 4096, mb 1, rank 16 on wq / wv, alpha 16, AdamW,
+    selective recompute, the fused head), 6 steps on one repeated batch
+    through ``training/lora.make_lora_step``: step 0's loss is the base
+    model's bit for bit, the loss falls, every base tensor's checksum is
+    unchanged; peak memory against the prediction, step ms, tokens/s and
+    the model-flops share.  Saves the trained adapter under ``work``;
+    returns ``(launches, adapter path, base params)``."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.ops import lora as lora_lib
+    from megatron_llm_tpu_torch.training import optimizer as O
+    from megatron_llm_tpu_torch.training import step as S
+    from megatron_llm_tpu_torch.training.lora import make_lora_step
+
+    seq = 4096
+    model = dataclasses.replace(cfg, recompute="selective",
+                                fused_lm_head=True)
+    tc = _train_cfg(model, seq)
+    t0 = time.perf_counter()
+    base = M.init_params(model, seed=0, device=dev)
+    sums = _checksums(torch, base)
+    gen = torch.Generator(device=dev).manual_seed(tc.train.seed)
+    adapter = lora_lib.init_lora_adapter(model, gen, LT_RANK,
+                                         targets=LT_TARGETS, alpha=LT_ALPHA)
+    batch = _one_batch(torch, model.vocab_size, seq, dev, seed=44)
+    mb = {k: t[0] for k, t in batch.items()}
+    torch.cuda.synchronize()
+    log(f"lora-train: Llama-2-7B ({model.num_layers} layers, "
+        f"{M.num_params(base) / 1e9:.3f}e9 bf16 params) and a rank "
+        f"{LT_RANK} adapter on {LT_TARGETS} ready in "
+        f"{time.perf_counter() - t0:.1f}s")
+    # the base model's loss on the batch, as the step sums it
+    base_loss = (torch.zeros((), dtype=torch.float32, device=dev)
+                 + S.compute_loss(tc, base, mb).detach()) / 1
+    step = make_lora_step(tc, base, adapter)
+    factors = {t: {k: f.clone() for k, f in fs.items()}
+               for t, fs in adapter.factors.items()}
+    opt = O.init_opt_state(factors, tc.optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    losses, secs = [], []
+    for it in range(LT_STEPS):
+        (factors, opt, met), sec = _timed(
+            torch, lambda: step(factors, opt, batch, it))
+        losses.append(met["loss"])
+        secs.append(sec)
+    launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    vals = [float(x) for x in losses]
+    if not torch.equal(losses[0], base_loss):
+        raise RuntimeError(f"lora-train: step 0's loss {vals[0]!r} is not "
+                           f"the base model's {float(base_loss)!r} bit for "
+                           "bit (B = 0)")
+    if not all(math.isfinite(x) for x in vals) or not vals[-1] < vals[0]:
+        raise RuntimeError(f"lora-train: losses {vals} do not fall")
+    if _checksums(torch, base) != sums:
+        raise RuntimeError("lora-train: a base tensor changed")
+    if not bool(torch.any(factors["wq"]["b"] != 0)):
+        raise RuntimeError("lora-train: B never left zero")
+    step_s = sorted(secs[1:])[(len(secs) - 1) // 2]
+    m = model
+    n_mat = m.num_layers * (m.hidden_size * m.num_attention_heads
+                            * m.head_dim * 2
+                            + 2 * m.hidden_size * m.kv_heads * m.head_dim
+                            + 3 * m.hidden_size * m.ffn_size) \
+        + m.hidden_size * m.padded_vocab_size()
+    attn = 4 * (seq / 2) * m.num_attention_heads * m.head_dim * m.num_layers
+    flops = 4 * n_mat + 3 * attn
+    share = seq / step_s * flops / timing.PEAK_BF16_OPS_S
+    lo, hi = LT_PREDICTED_GB
+    log(f"lora-train: {LT_STEPS} steps on one batch (seq {seq}, mb 1), "
+        f"losses {[round(x, 6) for x in vals]}; step 0 equals the base "
+        f"model's loss bit for bit ({vals[0]!r}); every base checksum "
+        f"unchanged; step (median of steps 2-{LT_STEPS}) "
+        f"{step_s * 1e3:.1f} ms, first {secs[0] * 1e3:.1f} ms; "
+        f"{seq / step_s:.1f} tokens/s; model-flops share {share:.4f} of "
+        f"989 TFLOP/s, counting 4 N + 3 A = {flops / 1e9:.2f} GFLOP a token "
+        f"(N = {n_mat / 1e9:.3f}e9 matmul params with the head: forward and "
+        f"input gradients, no base weight gradient; A = 4 (s/2) nq d L, "
+        f"the causal attention forward); peak memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated; predicted {lo:.0f}-"
+        f"{hi:.0f}); host clock; card {smi}")
+    path = os.path.join(work, "adapter")
+    lora_lib.save_adapter(path, dataclasses.replace(adapter,
+                                                    factors=factors))
+    del step, opt
+    return launches, path, base
+
+
+def lora_serve_trained(torch, cfg, dev, counters, smi, base, path,
+                       new=32, lens=(300, 1000, 64, 512), n_pre=512,
+                       n_dec=4):
+    """Phase 44: the trained adapter, saved adapter-only, registered with
+    ``register_path`` and served: 4 greedy requests through the engine at
+    the smoke's sizes on the fused route (K13 + LoRA every decode step),
+    then through the composed route with the same adapter.  Their first
+    tokens (the shared prefill) are equal; where a request's tokens first
+    part, the training forward's logits for the two tokens lie within
+    twice the routes' measured logit gap of each other (32 layers of bf16
+    round differently in K13 and the composed layers, so a near tie may
+    go either way: phase 27 logs the same comparison).  Then K13 + LoRA's own
+    numbers: ``n_dec`` decode steps (``forward_cached_paged(use_fused=
+    True)`` with the registry's arena) after a ``n_pre``-token prefill of
+    the training batch, against the forward of the same tokens through
+    an fp32 copy of the base with fp32 factors: within phase 4's limits or
+    twice the training forward's (the composed bf16 route's) error,
+    whichever is larger; and the adapter's own effect on those logits at
+    least 4x K13's error."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.ops import lora as lora_lib
+    from megatron_llm_tpu_torch.serving import EngineConfig, ServingEngine
+    from megatron_llm_tpu_torch.serving.adapters import AdapterRegistry
+    from megatron_llm_tpu_torch.utils.tree import tree_map
+
+    V = cfg.vocab_size
+    gen = torch.Generator().manual_seed(45)
+    prompts = [torch.randint(0, V, (n,), generator=gen).tolist()
+               for n in lens]
+    out, launches = {}, None
+    for route in ("fused", "composed"):
+        c = dataclasses.replace(cfg, fused_decode=route == "fused")
+        reg = AdapterRegistry(c, 2, LT_RANK, LT_TARGETS, device=dev)
+        reg.register_path("trained", path)
+        engine = ServingEngine(c, base, EngineConfig(
+            max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
+            kv_block_size=64, adapter_cache_slots=2), adapters=reg,
+            device=dev).start()
+        try:
+            engine.submit(prompts[0], 4, use_eos_stop=False,
+                          adapter_id="trained").result(600)
+            if route == "fused":
+                _zero(counters)
+            m0 = engine.metrics.snapshot()
+            hs = [engine.submit(p, new, use_eos_stop=False,
+                                adapter_id="trained") for p in prompts]
+            out[route] = [h.result(900).tokens for h in hs]
+            if route == "fused":
+                launches = _launches(counters)
+                m1 = engine.metrics.snapshot()
+                steps = sum(r["fused"] for r in m1["step_routes"].values()) \
+                    - sum(r["fused"] for r in m0["step_routes"].values())
+        finally:
+            engine.shutdown()
+    _check_path("lora-serve-trained", launches, {
+        "flash_attention_fwd": None, "rmsnorm_fwd": None,
+        "fused_decode_step_paged_lora": steps},
+        forbid=("flash_decode", "fused_decode_step_paged"))
+    firsts = [(a[n], b[n]) for a, b, n in zip(out["fused"], out["composed"],
+                                               lens)]
+    if any(a != b for a, b in firsts):
+        raise RuntimeError(f"lora-serve-trained: first tokens fused / "
+                           f"composed {firsts}")
+    same = sum(int(x == y) for a, b, n in zip(out["fused"], out["composed"],
+                                               lens)
+               for x, y in zip(a[n:], b[n:]))
+
+    # K13 + LoRA's logits against an fp32 forward of the same tokens
+    ad = lora_lib.load_adapter(path, device=dev)
+    reg = AdapterRegistry(cfg, 2, LT_RANK, LT_TARGETS, device=dev)
+    reg.register("trained", ad)
+    slot = reg.acquire("trained")
+    serve = (reg.arenas, lora_lib.slot_mask(
+        torch.tensor([slot], device=dev), 2, LT_RANK))
+    ones = torch.ones((1, LT_RANK), device=dev)
+    train = ({t: {"a": f["a"], "b": f["b"] * ad.scale}
+              for t, f in ad.factors.items()}, ones)
+    toks = _one_batch(torch, V, 4096, dev, seed=44)["tokens"][0][
+        :, :n_pre + n_dec]
+    rows = slice(n_pre, n_pre + n_dec)
+    bk, width = 64, n_pre + 64
+    k13 = counters["fused_decode_step_paged_lora"]
+    with torch.no_grad():
+        kc, vc = M.init_kv_cache(cfg, 1, width, device=dev)
+        _, kc, vc = M.forward_cached(cfg, base, toks[:, :n_pre], kc, vc, 0,
+                                     empty_cache=True, lora=serve)
+        k_pool, v_pool = M.init_kv_pool(cfg, 1 + width // bk, bk,
+                                        device=dev)
+        bids = torch.arange(1, 1 + width // bk, device=dev)
+        M.cache_scatter_blocks(k_pool, kc, bids)
+        M.cache_scatter_blocks(v_pool, vc, bids)
+        k_pool_c, v_pool_c = (tree_map(torch.clone, t)
+                              for t in (k_pool, v_pool))
+        del kc, vc
+        n0, got = k13.launches, {}
+        for fused in (True, False):
+            kp, vp = (k_pool, v_pool) if fused else (k_pool_c, v_pool_c)
+            rows_out = []
+            for i in range(n_pre, n_pre + n_dec):
+                lg, _, _ = M.forward_cached_paged(
+                    cfg, base, toks[:, i:i + 1], kp, vp, bids[None],
+                    torch.tensor([i], device=dev), use_fused=fused,
+                    lora=serve)
+                rows_out.append(lg[0, 0, :V])
+            got[fused] = torch.stack(rows_out)
+            if fused:
+                if k13.launches - n0 != n_dec:
+                    raise RuntimeError(
+                        f"lora-serve-trained: {n_dec} decode steps "
+                        f"launched K13 + LoRA {k13.launches - n0} times")
+        got, dec_composed = got[True], got[False]
+        del k_pool, v_pool, k_pool_c, v_pool_c
+        composed = M.forward(cfg, base, toks, lora=train)[0, rows, :V]
+        bare = M.forward(cfg, base, toks)[0, rows, :V]
+        gaps = []
+        for a, b, n in zip(out["fused"], out["composed"], lens):
+            p = next((j for j in range(n, len(a)) if a[j] != b[j]), None)
+            if p is None:
+                continue
+            lg = M.forward(cfg, base, torch.tensor([a[:p]], device=dev),
+                           lora=train)[0, -1]
+            gaps.append((p - n, float((lg[a[p]] - lg[b[p]]).abs())))
+        ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
+                                      attention_impl="dot", norm_impl="xla",
+                                      fused_decode=False)
+        base32 = tree_map(lambda t: t.float(), base)
+        ref = M.forward(ref_cfg, base32, toks, lora=(
+            {t: {"a": f["a"].float(), "b": f["b"].float() * ad.scale}
+             for t, f in ad.factors.items()}, ones))[0, rows, :V]
+        del base32
+    reg.release("trained")
+    torch.cuda.empty_cache()
+
+    def mean_max(d):
+        d = d.abs()
+        return float(d.mean()), float(d.max())
+
+    e_k, e_c = mean_max(got - ref), mean_max(composed - ref)
+    # the two engine routes' logits, each off the training forward's by
+    # at most route_gap: a token pair they part on lies within 2 x of a tie
+    route_gap = max(mean_max(got - composed)[1],
+                    mean_max(dec_composed - composed)[1])
+    effect = mean_max(composed - bare)[0]
+    lim = (max(0.03, 2 * e_c[0]), max(0.25, 2 * e_c[1]))
+    log(f"lora-serve-trained: 4 requests ({lens} + {new}) under the "
+        f"trained adapter, {steps} fused decode steps, each one launch of "
+        f"K13 + LoRA; the first token of each equals the composed route's, "
+        f"{same} of {4 * new} new tokens equal it; at each request's first "
+        f"parting (new-token index, |d| of the two tokens' logits in the "
+        f"training forward) {gaps} (limit 2 x {route_gap:.4f}, the largest "
+        f"|d| of K13 + LoRA's and the composed decode's logits against the "
+        f"training forward's below); card {smi}")
+    log(f"lora-serve-trained: {n_dec} K13 + LoRA decode steps after a "
+        f"{n_pre}-token prefill of the training batch, logits against the "
+        f"fp32 forward with fp32 factors: mean |d| {e_k[0]:.4f}, max "
+        f"{e_k[1]:.4f} (limits {lim[0]:.4f} / {lim[1]:.4f}: phase 4's or "
+        f"twice the training forward's own {e_c[0]:.4f} / {e_c[1]:.4f}); "
+        f"the adapter moves those logits by mean {effect:.4f} (must be "
+        f">= 4 x {e_k[0]:.4f}); logit std {float(ref.std()):.3f}")
+    if not (math.isfinite(e_k[1]) and e_k[0] <= lim[0]
+            and e_k[1] <= lim[1]):
+        raise RuntimeError(f"lora-serve-trained: K13 + LoRA against fp32 "
+                           f"{e_k}, limits {lim}")
+    if not effect >= 4 * e_k[0]:
+        raise RuntimeError(f"lora-serve-trained: the adapter moves the "
+                           f"logits by {effect}, K13's error is {e_k[0]}")
+    if any(g > 2 * route_gap for _, g in gaps):
+        raise RuntimeError(f"lora-serve-trained: tokens part where the "
+                           f"logits are not near a tie: {gaps}, routes "
+                           f"differ by at most {route_gap}")
+    return launches
+
+
+def int8_train_phase(torch, cfg, dev, counters, smi):
+    """Phase 45: W8A8 int8 training matmuls at Llama-2-7B widths, 2 layers,
+    seq 4096: 4 steps on one batch (finite, falling losses); the mean
+    |Δlogit| against the bf16 route under 0.1; ``_int_mm`` against the
+    plain int8 product at 4096 x 4096 x 11008, int32 bit for bit, timed
+    beside its bound and bf16 ``torch.matmul``; 4 greedy requests through
+    the engine at 2 layers on the composed route.  Returns the step's and
+    the engine's launches.  (``_int_mm`` is cuBLASLt's, as JAX leaves the
+    int8 dot to XLA: it is timed here, not listed as a kernel.)"""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.ops import quant as Q
+    from megatron_llm_tpu_torch.serving import EngineConfig, ServingEngine
+    from megatron_llm_tpu_torch.training import step as S
+
+    small = dataclasses.replace(cfg, num_layers=2, recompute="selective")
+    q8 = dataclasses.replace(small, quantize_matmuls="int8")
+    params = M.init_params(small, seed=0, device=dev)
+    batch = _one_batch(torch, cfg.vocab_size, 4096, dev, seed=46)
+    with torch.no_grad():
+        ref = M.forward(small, params, batch["tokens"][0])
+        got = M.forward(q8, params, batch["tokens"][0])
+    drift = float((got - ref).abs().mean())
+    del ref, got
+    if not drift < 0.1:
+        raise RuntimeError(f"int8-train: mean |dlogit| {drift} against bf16")
+    tc = _train_cfg(q8, 4096)
+    state = S.init_train_state(tc, params)
+    step = S.make_train_step(tc, dev)
+    _zero(counters)
+    losses, secs = [], []
+    for _ in range(4):
+        (state, met), sec = _timed(torch, lambda: step(state, batch))
+        losses.append(float(met["loss"]))
+        secs.append(sec)
+    train_launches = _launches(counters)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError(f"int8-train: losses {losses} do not fall")
+    log(f"int8-train: 2 layers, seq 4096, quantize_matmuls int8: mean "
+        f"|dlogit| against bf16 {drift:.4f} (limit 0.1); 4 steps, losses "
+        f"{[round(x, 5) for x in losses]}, step (median of 2-4) "
+        f"{sorted(secs[1:])[1] * 1e3:.1f} ms; host clock; card {smi}")
+    del state, step
+
+    # the int8 product at Llama-2-7B's MLP shape
+    m, k, n = 4096, 4096, 11008
+    gen = torch.Generator(device=dev).manual_seed(47)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    got = Q.int32_product(a, b)
+    plain = Q.int32_product_plain(a, b)
+    if not torch.equal(got, plain):
+        raise RuntimeError("int8-train: _int_mm differs from the plain "
+                           "int8 product")
+    ms = timing.cuda_ms(lambda: Q.int32_product(a, b))
+    plain_ms = timing.cuda_ms(lambda: Q.int32_product_plain(a, b), iters=5)
+    # the GEMM alone, its second operand laid out column-major once
+    # (int32_product copies it so on every call)
+    b_cm = b.t().contiguous().t()
+    gemm_ms = timing.cuda_ms(lambda: torch._int_mm(a, b_cm))
+    row_major_ms = timing.cuda_ms(lambda: torch._int_mm(a, b), iters=5)
+    ab, bb = a.bfloat16(), b.bfloat16()
+    bf16_ms = timing.cuda_ms(lambda: torch.matmul(ab, bb))
+    bms, by = timing.bound_ms(m * k + k * n + 4 * m * n, 2.0 * m * k * n,
+                              timing.PEAK_INT8_OPS_S)
+    log(f"int8-train: int32_product {m}x{k}x{n} (torch._int_mm) int32 "
+        f"equal to the plain fp64 product bit for bit; {ms:.4f} ms with its "
+        f"per-call column-major copy of b, the GEMM alone {gemm_ms:.4f} ms "
+        f"(b row-major {row_major_ms:.4f}; plain {plain_ms:.4f}), bound "
+        f"{bms:.4f} ms ({by}, int8 at 1979 "
+        f"TOP/s), bf16 torch.matmul at the same shape {bf16_ms:.4f} ms; "
+        f"card {smi}")
+    del a, b, b_cm, ab, bb, got, plain
+
+    gen = torch.Generator().manual_seed(48)
+    prompts = [torch.randint(0, cfg.vocab_size, (n_,), generator=gen).tolist()
+               for n_ in (64, 300, 512, 1000)]
+    engine = ServingEngine(q8, params, EngineConfig(
+        max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
+        kv_block_size=64), device=dev).start()
+    try:
+        engine.submit(prompts[0], 4, use_eos_stop=False).result(600)
+        _zero(counters)
+        toks = [engine.submit(p, 16, use_eos_stop=False) for p in prompts]
+        toks = [h.result(900).tokens for h in toks]
+        engine_launches = _launches(counters)
+    finally:
+        engine.shutdown()
+    _check_path("int8-train serve", engine_launches, {
+        "flash_attention_fwd": None, "rmsnorm_fwd": None,
+        "flash_decode": None},
+        forbid=("fused_decode_step_paged", "fused_decode_step"))
+    if [len(t) for t in toks] != [n_ + 16 for n_ in (64, 300, 512, 1000)]:
+        raise RuntimeError("int8-train serve: token counts")
+    log(f"int8-train serve: 4 greedy requests at 2 layers with "
+        f"quantize_matmuls int8 on the composed route (K8, no K13)")
+    return train_launches, engine_launches
+
+
+def lora_entry_phase(torch, cfg, dev, counters, smi, work):
+    """Phase 46: ``finetune.main --lora_rank 8 --mock_data`` from a release
+    checkpoint of Llama-2-7B widths cut to 2 layers (``--use_checkpoint_
+    args``; the base read params-only), 3 steps at seq 4096 with ``--save``,
+    then ``--lora_load`` of the saved adapter for 3 more: the resumed run
+    starts from the trained factors."""
+    from megatron_llm_tpu_torch import checkpointing, finetune
+    from megatron_llm_tpu_torch.config import RuntimeConfig
+    from megatron_llm_tpu_torch.models import model as M
+
+    small = dataclasses.replace(cfg, num_layers=2, recompute="selective")
+    rel = os.path.join(work, "entry_release")
+    checkpointing.save_release_params(
+        rel, M.init_params(small, seed=3, device=dev),
+        RuntimeConfig(model=small))
+    out = os.path.join(work, "entry_lora")
+    argv = ["--load", rel, "--use_checkpoint_args", "--mock_data",
+            "--lora_rank", "8", "--seq_length", "4096", "--train_iters",
+            "3", "--log_interval", "1", "--device", str(dev)]
+    _zero(counters)
+    _, text = _capture(finetune.main, argv + ["--save", out])
+    first = _log_values(text, "lm loss:")
+    launches = _launches(counters)
+    saved = os.path.join(out, "adapter")
+    if not os.path.exists(os.path.join(saved, "adapter.npz")):
+        raise RuntimeError("lora-entry: no adapter-only checkpoint")
+    _, text2 = _capture(finetune.main, argv + ["--lora_load", saved])
+    resumed = _log_values(text2, "lm loss:")
+    if len(first) != 3 or len(resumed) != 3 or resumed[0] == first[0] or \
+            not all(math.isfinite(x) for x in first + resumed):
+        raise RuntimeError(f"lora-entry: losses {first} then {resumed}")
+    log(f"lora-entry: finetune.main --lora_rank 8 from a 2-layer release, "
+        f"losses {first}, saved {saved}; --lora_load resumed: {resumed}; "
+        f"card {smi}")
+    return launches
+
+
+def single_card_training_phases(torch, cfg, dev, counters, smi, paths,
+                                settle):
+    """Phases 42-46 (Llama-2-7B, bf16, flash attention, the Triton norms);
+    records the ``single-card-training`` paths' launches."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_sct_")
+    try:
+        t0 = tp = time.perf_counter()
+        launches = fused_head_phase(torch, cfg, dev, counters, smi)
+        _check_path("fused-head train steps", launches,
+                    {n: None for n in SCT_TRAIN})
+        paths["fused-head"] = launches
+        settle()
+        tp = _phase_done("42", tp, smi)
+        launches, path, base = lora_train_phase(torch, cfg, dev, counters,
+                                                smi, work)
+        _check_path("lora-train", launches, {n: None for n in SCT_TRAIN})
+        paths["lora-train"] = launches
+        settle()
+        tp = _phase_done("43", tp, smi)
+        paths["lora-serve-trained"] = lora_serve_trained(
+            torch, cfg, dev, counters, smi, base, path)
+        del base
+        settle()
+        tp = _phase_done("44", tp, smi)
+        train_l, serve_l = int8_train_phase(torch, cfg, dev, counters, smi)
+        _check_path("int8-train", train_l, {n: None for n in SCT_TRAIN})
+        paths["int8-train"] = train_l
+        paths["int8-train serve"] = serve_l
+        settle()
+        tp = _phase_done("45", tp, smi)
+        launches = lora_entry_phase(torch, cfg, dev, counters, smi, work)
+        _check_path("lora-entry", launches, {n: None for n in SCT_TRAIN})
+        paths["lora-entry"] = launches
+        settle()
+        _phase_done("46", tp, smi)
+        for label in ("fused-head", "lora-train", "int8-train",
+                      "lora-entry"):
+            off = [n for n in SCT_TRAIN if n.endswith("_mma") and
+                   paths[label][n] != paths[label][n[:-len("_mma")]]]
+            if off:
+                raise RuntimeError(f"{label}: launches off the tensor-core "
+                                   f"bodies: {off}")
+        log(f"single-card-training phases 42-46 in "
+            f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def log_hmma(build) -> None:
     """Log the tensor-core instructions (HMMA) of the attention kernels'
     libraries, where the toolkit's cuobjdump is present; information only."""
@@ -4647,9 +5322,10 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all(extra=(decode_probe.stamped_build(),))
     log(f"build: {', '.join(build.SOURCES)} and the stamped decode_step "
-        f"with nvcc in {time.perf_counter() - t0:.1f}s; nvcc seconds by "
-        f"source " + json.dumps({n: round(v, 1) for n, v
-                                 in build.NVCC_SECONDS.items()}))
+        f"with nvcc in {time.perf_counter() - t0:.1f}s (decode_step in "
+        f"{build.SPLIT['decode_step'][1]} translation units); nvcc seconds "
+        f"by source and unit " + json.dumps(
+            {n: round(v, 1) for n, v in build.NVCC_SECONDS.items()}))
     build.print_ptxas(logs.get("decode_step_stamps", ""),
                       decode_probe.kernel_name)
     log_hmma(build)
@@ -4860,6 +5536,8 @@ def main() -> int:
     weights_phases(torch, fused, dev, counters, smi, paths, settle)
     training_io_phases(torch, dev, counters, smi, paths, settle)
     serving_options_phases(torch, fused, dev, counters, smi, paths, settle)
+    single_card_training_phases(torch, fused, dev, counters, smi, paths,
+                                settle)
 
     meta = {
         "flash_attention_fwd": (

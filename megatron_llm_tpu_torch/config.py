@@ -6,14 +6,14 @@ with torch dtypes, and the ``ParallelConfig``, ``OptimizerConfig``,
 default and preset is the same, so a config built here describes the same
 run as its JAX twin.  ``RuntimeConfig.validate`` refuses, with
 ``NotImplementedError`` naming the ROADMAP item, what the single-device
-training path does not run: parallel degrees above 1 and the fused LM
-head.
+training path does not run: parallel degrees above 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -57,8 +57,10 @@ class ModelConfig:
     (``kernels/decode_step.py``) where their predicates accept the stack,
     and the flash tile sizes are ignored (the CUDA kernel picks its own).
     ``kv_cache_quant="int8"`` serves from the int8 KV cache;
-    ``quantize_matmuls="int8"`` (W8A8 training) is refused by
-    ``RuntimeConfig.validate`` and the serving engine."""
+    ``quantize_matmuls="int8"`` runs every plain projection weight through
+    the W8A8 training matmul (``ops/quant.int8_training_matmul``);
+    ``fused_lm_head=True`` trains through
+    ``parallel/cross_entropy.fused_linear_cross_entropy``."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -307,17 +309,17 @@ class RuntimeConfig:
 
     def validate(self) -> "RuntimeConfig":
         m = self.model
-        if m.fused_lm_head:
-            raise NotImplementedError(
-                "fused_lm_head (fused_linear_cross_entropy) is not ported "
-                "yet (ROADMAP.md, Queue 1: decoder forward and backward)")
-        if m.quantize_matmuls != "none":
-            raise NotImplementedError(
-                "quantize_matmuls='int8' (W8A8 training matmuls) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 12: the rest, int8 "
-                "training matmul)")
         m.validate()
         self.parallel.validate()
+        if m.fused_lm_head and (self.parallel.tensor_parallel > 1
+                                or self.parallel.context_parallel > 1
+                                or self.parallel.pipeline_parallel > 1):
+            # JAX config.py:520-529; dormant while ParallelConfig.validate
+            # refuses those degrees (ROADMAP.md, Queue 1 items 9-10)
+            warnings.warn(
+                "fused_lm_head=True is inactive under tp/cp/pp "
+                "parallelism; the plain logits+CE path will run",
+                stacklevel=2)
         mb = self.train.micro_batch_size
         gb = self.train.global_batch_size
         dp = self.parallel.data_parallel

@@ -2278,6 +2278,52 @@ int launch(const Args* args, cudaStream_t stream) {
 
 }  // namespace
 
+// Translation units.  kernels/build.py compiles this file five times in
+// parallel and links one library: -DDECODE_STEP_PART=0..3 each holds one
+// instantiation of the kernel with its launcher, behind a C function of
+// its own, and -DDECODE_STEP_PART=4 the C interface, which validates a
+// call and dispatches to them.  The probe's stamped build is split the
+// same way; a stamped part points its own copy of the stamps at the buffer
+// (decode_step_stamps sets all four).
+#ifndef DECODE_STEP_PART
+#error "decode_step.cu compiles as units -DDECODE_STEP_PART=0..4 (kernels/build.py)"
+#endif
+
+#ifdef DECODE_STEP_STAMPS
+#define DECODE_STEP_STAMPS_SETTER(N)                                      \
+  extern "C" int decode_step_stamps_part##N(void* buf) {                  \
+    return cudaMemcpyToSymbol(g_stamps, &buf, sizeof(buf));               \
+  }
+#else
+#define DECODE_STEP_STAMPS_SETTER(N)
+#endif
+
+#define DECODE_STEP_INSTANCE(N, T, C)                                     \
+  extern "C" int decode_step_part##N(const void* args, void* stream) {    \
+    return launch<T, C>(static_cast<const Args*>(args),                   \
+                        static_cast<cudaStream_t>(stream));               \
+  }                                                                       \
+  DECODE_STEP_STAMPS_SETTER(N)
+
+#if DECODE_STEP_PART == 0
+DECODE_STEP_INSTANCE(0, float, int8_t)
+#endif
+#if DECODE_STEP_PART == 1
+DECODE_STEP_INSTANCE(1, float, float)
+#endif
+#if DECODE_STEP_PART == 2
+DECODE_STEP_INSTANCE(2, __nv_bfloat16, int8_t)
+#endif
+#if DECODE_STEP_PART == 3
+DECODE_STEP_INSTANCE(3, __nv_bfloat16, __nv_bfloat16)
+#endif
+
+#if DECODE_STEP_PART == 4
+extern "C" int decode_step_part0(const void* args, void* stream);
+extern "C" int decode_step_part1(const void* args, void* stream);
+extern "C" int decode_step_part2(const void* args, void* stream);
+extern "C" int decode_step_part3(const void* args, void* stream);
+
 // A tree the kernel takes: per slot, node 0 is the root (depth 0), depths
 // never fall with the node index and stay at or below it, and a node's
 // ancestor at each depth below its own is an earlier node.  The operands
@@ -2307,10 +2353,19 @@ static int check_tree(const Args* a, cudaStream_t stream) {
 }
 
 #ifdef DECODE_STEP_STAMPS
+extern "C" int decode_step_stamps_part0(void* buf);
+extern "C" int decode_step_stamps_part1(void* buf);
+extern "C" int decode_step_stamps_part2(void* buf);
+extern "C" int decode_step_stamps_part3(void* buf);
+
 // Probe builds only: point the kernel's stamps at `buf` (device memory of
 // L x kStampPhases x kStampGrid x 3 u64; null: none).  0 or a cudaError_t.
 extern "C" int decode_step_stamps(void* buf) {
-  return cudaMemcpyToSymbol(g_stamps, &buf, sizeof(buf));
+  int err = decode_step_stamps_part0(buf);
+  if (!err) err = decode_step_stamps_part1(buf);
+  if (!err) err = decode_step_stamps_part2(buf);
+  if (!err) err = decode_step_stamps_part3(buf);
+  return err;
 }
 #endif
 
@@ -2346,13 +2401,13 @@ extern "C" int decode_step_launch(const void* args, int dtype,
   const int tree_err = check_tree(a, s);
   if (tree_err) return tree_err;
   if (dtype == kFloat32)
-    return ran((cudaError_t)(int8_cache ? launch<float, int8_t>(a, s)
-                                        : launch<float, float>(a, s)),
+    return ran((cudaError_t)(int8_cache ? decode_step_part0(a, s)
+                                        : decode_step_part1(a, s)),
                kBodySimt, body);
   if (dtype == kBFloat16)
-    return ran((cudaError_t)(int8_cache
-                                 ? launch<__nv_bfloat16, int8_t>(a, s)
-                                 : launch<__nv_bfloat16, __nv_bfloat16>(a, s)),
+    return ran((cudaError_t)(int8_cache ? decode_step_part2(a, s)
+                                        : decode_step_part3(a, s)),
                kBodyTma, body);
   return cudaErrorInvalidValue;
 }
+#endif  // the C interface

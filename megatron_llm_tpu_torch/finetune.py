@@ -14,12 +14,19 @@ P2 ...]``, one or more weighted ``.bin``/``.idx`` prefixes of
 ``tools/preprocess_data.py`` split by ``--split`` (GPT samples, blended);
 or ``--instruction_data`` with one prefix of its ``_text_document`` /
 ``_role_document`` pair.  ``--tokenizer_type`` / ``--tokenizer_model``
-give the end-of-document id and grow the vocab for extra ids.  What the
-port does not have raises ``NotImplementedError`` naming the ROADMAP
-item: parallel degrees above 1, MoE, LoRA and the int8 training matmuls.
+give the end-of-document id and grow the vocab for extra ids.
+``--lora_rank R`` trains a LoRA adapter against the frozen base instead
+(``training/lora.py``): the base comes from ``--load`` (the parameters
+alone) or a fresh init from the seed (smoke runs only), ``--save``
+receives an adapter-only checkpoint at ``<save>/adapter``, and
+``--lora_load`` continues an adapter, the port's or a PEFT directory's.
+What the port does not have raises ``NotImplementedError`` naming the
+ROADMAP item: parallel degrees above 1 and MoE.
 
     python -m megatron_llm_tpu_torch.finetune --model tiny --mock_data \\
         --train_iters 10 --device cpu --log_interval 1 --save ckpt
+    python -m megatron_llm_tpu_torch.finetune --model tiny --mock_data \
+        --lora_rank 8 --train_iters 10 --device cpu --save lora_out
     python -m megatron_llm_tpu_torch.finetune --model llama2 \\
         --data_path 0.7 corpusA_text_document 0.3 corpusB_text_document \\
         --tokenizer_type gpt2-bpe --tokenizer_model VOCAB_DIR ...
@@ -65,9 +72,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     g.add_argument("--drop_path_rate", type=float, default=0.0)
 
     g = p.add_argument_group("lora")
-    g.add_argument("--lora_rank", type=int, default=0)
-    g.add_argument("--lora_targets", nargs="*", default=None)
-    g.add_argument("--lora_alpha", type=float, default=None)
+    g.add_argument("--lora_rank", type=int, default=0,
+                   help="train a LoRA adapter of this rank against the "
+                        "frozen base model instead of full finetuning "
+                        "(0 = off); checkpoints are adapter-only")
+    g.add_argument("--lora_targets", nargs="*", default=None,
+                   help="projections to adapt (default: wq wv); choose "
+                        "from wq wk wv wo w_gate w_up w_down")
+    g.add_argument("--lora_alpha", type=float, default=None,
+                   help="LoRA alpha (default: rank, i.e. scale 1.0)")
+    g.add_argument("--lora_load", default=None,
+                   help="continue this adapter: a directory written by "
+                        "--save (<save>/adapter) or a PEFT adapter "
+                        "directory (adapter_config.json and "
+                        "adapter_model.safetensors or .bin)")
 
     g = p.add_argument_group("parallelism")
     g.add_argument("--tp", "--tensor_parallel", type=int, default=1,
@@ -342,12 +360,50 @@ def build_datasets(args, cfg):
     return tuple(out)
 
 
+def load_lora_adapter(path: str, model_cfg, device):
+    """An adapter directory: the port's / JAX's ``save_adapter`` format
+    (``adapter.npz``), else a PEFT one (``tools/hf_interop.
+    load_peft_adapter``)."""
+    import os
+
+    from .ops.lora import load_adapter
+    from .tools.hf_interop import load_peft_adapter
+
+    if os.path.exists(os.path.join(path, "adapter.npz")):
+        return load_adapter(path, device=device)
+    return load_peft_adapter(path, model_cfg, device=device)
+
+
+def lora_main(args, cfg, train_ds, eod) -> int:
+    """``--lora_rank``: adapter-only finetuning against a frozen base
+    (JAX ``finetune.py:431-454``)."""
+    from . import checkpointing
+    from .models import model as model_lib
+    from .training.driver import print_rank_0
+    from .training.lora import lora_finetune
+
+    if cfg.train.load:
+        base = checkpointing.load_params_for_inference(
+            cfg.train.load, cfg.model, device=args.device)
+        print_rank_0(f" loaded frozen base from {cfg.train.load}")
+    else:
+        print_rank_0(" no --load: LoRA against a fresh random base "
+                     "(smoke runs only)")
+        base = model_lib.init_params(cfg.model, seed=cfg.train.seed,
+                                     device=args.device)
+    adapter = None
+    if args.lora_load:
+        adapter = load_lora_adapter(args.lora_load, cfg.model, args.device)
+        print_rank_0(f" continuing adapter {args.lora_load} "
+                     f"(rank {adapter.rank})")
+    lora_finetune(cfg, base, train_ds, rank=args.lora_rank,
+                  targets=args.lora_targets, alpha=args.lora_alpha,
+                  adapter=adapter, eod_token=eod, save=cfg.train.save)
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.lora_rank:
-        raise NotImplementedError(
-            "LoRA finetuning is not ported yet (ROADMAP.md, Queue 1: the "
-            "rest, training/lora.py)")
     cfg = build_config(args)
 
     from .training.driver import pretrain, print_rank_0
@@ -384,6 +440,8 @@ def main(argv=None) -> int:
                  f"gbs={cfg.train.global_batch_size} "
                  f"seq={cfg.train.seq_length}")
     train_ds, valid_ds, test_ds = build_datasets(args, cfg)
+    if args.lora_rank:
+        return lora_main(args, cfg, train_ds, eod)
     pretrain(cfg, train_ds, valid_ds, test_ds, eod_token=eod,
              device=args.device)
     return 0

@@ -6,11 +6,12 @@ from __future__ import annotations
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, tensor-core
 # operations/s
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_OPS_S = 989e12
 PEAK_FP32_OPS_S = 67e12  # outside the tensor cores (norms' fp32 math)
+PEAK_INT8_OPS_S = 1979e12  # int8 tensor-core operations/s
 
 # the LayerNorm shapes timed: Falcon-7B's and GPT-1.3B's training rows
 LN_SHAPES = (("falcon-7b rows 2048 h 4544", 2048, 4544),

@@ -9,7 +9,10 @@ into ``<repo>/build/kernels/<name>-<hash>.so`` for ``sm_90a``::
 The hash covers the source and the flags, so an edited kernel rebuilds
 and an unchanged one is reused; each build started counts as a compile
 for the recompilation guard (``analysis/sanitizers.no_recompiles``).
-``build_all`` starts one ``nvcc`` per source at once (and records each
+A source in ``SPLIT`` compiles as several translation units at once (``-c
+-D<MACRO>=i``, one kernel instantiation each) linked into the one
+library: ``decode_step.cu``'s four instantiations took ~200 s in one
+``nvcc``.  ``build_all`` starts every ``nvcc`` at once (and records each
 one's seconds); ``load`` builds (if needed) and opens one library.
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -59,9 +62,44 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
+# sources built as separate translation units in parallel and linked into
+# one library: the macro that selects a unit, and the number of units
+SPLIT = {"decode_step": ("DECODE_STEP_PART", 5)}
+
 # seconds each nvcc of the last ``build_all`` took, by name (its own wall
-# time: the builds run in parallel)
+# time: the builds run in parallel); a split source's units under
+# ``<name>.<i>`` and under its name the time to its last unit's end plus
+# its link's own seconds
 NVCC_SECONDS: dict = {}
+
+
+class _Started:
+    """The ``nvcc`` processes of one library (one, or one a unit of a split
+    source, whose objects are linked when all have ended)."""
+
+    def __init__(self, name, tmp, out, units):
+        self.name, self.tmp, self.out = name, tmp, out
+        self.units = units          # [(label, proc, log, obj or None, t0)]
+        self.t0 = min(u[4] for u in units)
+        self.last_end = self.t0
+
+    def poll(self) -> bool:
+        """True once every unit has ended; records each unit's seconds."""
+        done = True
+        for label, proc, _, _, t0 in self.units:
+            if proc.poll() is None:
+                done = False
+            elif label not in NVCC_SECONDS:
+                self.last_end = time.perf_counter()
+                NVCC_SECONDS[label] = self.last_end - t0
+        return done
+
+
+def _spawn(cmd, log_path):
+    log = open(log_path, "w+")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, log
 
 
 def _start(name: str, src=None, out=None, flags=()):
@@ -71,48 +109,79 @@ def _start(name: str, src=None, out=None, flags=()):
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = open(out.with_suffix(f".{os.getpid()}.log"), "w+")
-    src = CSRC / f"{name}.cu" if src is None else src
-    cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
     note_compile(f"nvcc:{name}")
-    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, out, log, time.perf_counter()
+    split = SPLIT.get(src.stem)
+    units = []
+    if split is None:
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
+        proc, log = _spawn(cmd, out.with_suffix(f".{os.getpid()}.log"))
+        units.append((name, proc, log, None, time.perf_counter()))
+    else:
+        macro, n = split
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        for i in range(n):
+            obj = out.with_suffix(f".{os.getpid()}.{i}.o")
+            cmd = [nvcc_path(), *compile_flags, *flags, "-c",
+                   f"-D{macro}={i}", "-o", str(obj), str(src)]
+            proc, log = _spawn(cmd,
+                               out.with_suffix(f".{os.getpid()}.{i}.log"))
+            units.append((f"{name}.{i}", proc, log, obj,
+                          time.perf_counter()))
+    return _Started(name, tmp, out, units)
 
 
 def _finish(name: str, started) -> str:
-    """Wait for ``_start``'s nvcc; its output."""
+    """Wait for ``_start``'s nvcc (and link a split source's objects); its
+    output."""
     if started is None:
         return ""
-    proc, tmp, out, log, t0 = started
-    proc.wait()
-    NVCC_SECONDS.setdefault(name, time.perf_counter() - t0)
-    log.seek(0)
-    text = log.read()
-    log.close()
-    os.unlink(log.name)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{text}")
-    os.replace(tmp, out)
+    texts, failed = [], []
+    for label, proc, log, _, _ in started.units:
+        proc.wait()
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+        os.unlink(log.name)
+        if proc.returncode != 0:
+            failed.append(label)
+    started.poll()
+    text = "".join(texts)
+    objs = [u[3] for u in started.units if u[3] is not None]
+    if failed:
+        for obj in objs:
+            if obj.exists():
+                obj.unlink()
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{text}")
+    if objs:
+        t_link = time.perf_counter()
+        res = subprocess.run([nvcc_path(), "-shared", "-o",
+                              str(started.tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        NVCC_SECONDS[name] = (started.last_end - started.t0
+                              + time.perf_counter() - t_link)
+        for obj in objs:
+            obj.unlink()
+        if res.returncode != 0:
+            raise RuntimeError(f"linking {name} failed:\n{res.stdout}"
+                               f"{res.stderr}")
+    os.replace(started.tmp, started.out)
     return text
 
 
 def build_all(names=SOURCES, extra=()) -> dict:
-    """Compile every listed source in parallel (one nvcc each), and beside
-    them each ``(name, src, out, flags)`` of ``extra`` (a probe's variant
-    of a source); ``{name: nvcc output}``.  Each build's own seconds go to
-    ``NVCC_SECONDS``."""
+    """Compile every listed source in parallel (one nvcc each, one a unit
+    of a split source), and beside them each ``(name, src, out, flags)``
+    of ``extra`` (a probe's variant of a source); ``{name: nvcc
+    output}``.  Each build's own seconds go to ``NVCC_SECONDS``."""
     with _lock:
         NVCC_SECONDS.clear()
         started = {n: _start(n) for n in names}
         started.update({e[0]: _start(*e) for e in extra})
-        pending = {n: s for n, s in started.items() if s is not None}
+        pending = [s for s in started.values() if s is not None]
         while pending:
-            for n, s in list(pending.items()):
-                if s[0].poll() is not None:
-                    NVCC_SECONDS[n] = time.perf_counter() - s[4]
-                    del pending[n]
+            pending = [s for s in pending if not s.poll()]
             time.sleep(0.2)
         return {n: _finish(n, s) for n, s in started.items()}
 

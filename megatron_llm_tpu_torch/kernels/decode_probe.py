@@ -22,7 +22,8 @@ staging inputs, the products, the grid barrier before the combine, the
 combine and epilogues).  Beside it, the package's build of
 the same call timed in a CUDA graph (``_timing.cuda_ms``).  With
 ``--parent DIR`` (another commit's ``csrc/``, e.g. unpacked with ``git
-archive``) each case is also timed against that commit's build of the
+archive``; one whose ``decode_step.cu`` has the ``DECODE_STEP_PART``
+units) each case is also timed against that commit's build of the
 kernel, in turns A B B A.
 """
 
@@ -201,20 +202,10 @@ def print_split(label: str, split: dict, ms: float, smi: str) -> None:
     print("decode_probe_split " + json.dumps({"case": label, **split}))
 
 
-# the fields the fused step's launch struct gained with the TMA body (a
-# parent build's struct is the rest, in the same order)
-_NEW_FIELDS = ("gpart", "gcap")
-
-
 def parent_call(lib, cfg, st, x, kp, vp, tables, fills, rope, lora=None):
     """A call of K13 (``x`` [b, h]) or K14 (``x`` [S, W, h]) through a build
-    of the parent commit's ``decode_step.cu`` (``lib``: its launch struct
-    is ``_Args`` without ``_NEW_FIELDS``, its launcher takes no body
-    report)."""
-
-    class Parent(ctypes.Structure):
-        _fields_ = [f for f in ds._Args._fields_ if f[0] not in _NEW_FIELDS]
-
+    of the parent commit's ``decode_step.cu`` (``lib``; a parent with the
+    translation units has this build's launch struct and body report)."""
     W = x.shape[1] if x.dim() == 3 else 1
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if lora is not None and W > 1:
@@ -223,13 +214,11 @@ def parent_call(lib, cfg, st, x, kp, vp, tables, fills, rope, lora=None):
                              torch.as_tensor(tables, device=x.device),
                              ds._fills(fills, x2.shape[0] // W, x.device),
                              W, rope, lora=lora)
-    pa = Parent()
-    for name, _ in Parent._fields_:
-        setattr(pa, name, getattr(a, name))
     build.check(lib.decode_step_launch(
-        ctypes.addressof(pa), ds._DTYPE_CODES[x.dtype],
+        ctypes.addressof(a), ds._DTYPE_CODES[x.dtype],
         int(isinstance(kp, dict)),
-        torch.cuda.current_stream(x.device).cuda_stream), "parent")
+        torch.cuda.current_stream(x.device).cuda_stream,
+        ctypes.byref(ctypes.c_int(-1))), "parent")
     del keep
 
 
@@ -270,8 +259,9 @@ def main(argv=None) -> int:
     parent = None
     if args.parent:
         parent = ctypes.CDLL(str(extra[1][2]))
-        parent.decode_step_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                              ctypes.c_int, ctypes.c_void_p]
+        parent.decode_step_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]
         parent.decode_step_launch.restype = ctypes.c_int
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)

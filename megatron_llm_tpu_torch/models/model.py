@@ -135,13 +135,18 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    segment_ids: Optional[torch.Tensor] = None,
                    tokentype_ids: Optional[torch.Tensor] = None,
                    rng: Optional[drop.DropoutKey] = None,
-                   rope: Optional[tuple] = None):
+                   rope: Optional[tuple] = None, lora=None):
     """Forward through the final norm → ``(hidden [b, s, h], moe_aux)``,
-    the aux a 0 scalar for the dense models the port runs.
+    the aux a 0 scalar for the dense models the port runs.  The split
+    before the unembedding lets the training loss take the fused head
+    (``parallel/cross_entropy.fused_linear_cross_entropy``).
 
     Dropout is on exactly when ``rng`` is given (JAX's ``deterministic =
     rng is None``): the key splits into the embedding's and the stack's,
-    as JAX ``model.py:137-144`` does."""
+    as JAX ``model.py:137-144`` does.  ``lora`` is ``(arenas, mask)``:
+    layer-stacked LoRA factors and the per-row column mask
+    (``ops/lora.py``), applied as projection epilogues down the stack;
+    None means the base weights alone."""
     cos, sin = _rope(cfg, params, rope)
     embed_key = stack_key = None
     if rng is not None:
@@ -149,7 +154,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = embed(cfg, params, tokens, position_ids, tokentype_ids, embed_key)
     side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
                           position_ids=position_ids, segment_ids=segment_ids)
-    x = stack_forward(cfg, params["layers"], x, side, stack_key)
+    x = stack_forward(cfg, params["layers"], x, side, stack_key, lora=lora)
     x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
                    impl=cfg.norm_impl)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -160,12 +165,14 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             segment_ids: Optional[torch.Tensor] = None,
             tokentype_ids: Optional[torch.Tensor] = None,
             rng: Optional[drop.DropoutKey] = None,
-            rope: Optional[tuple] = None, return_aux: bool = False):
+            rope: Optional[tuple] = None, return_aux: bool = False,
+            lora=None):
     """Full forward to logits ``[b, s, padded_vocab]`` (fp32), built on
     ``forward_hidden``; with ``return_aux`` also the MoE aux loss."""
     x, aux = forward_hidden(cfg, params, tokens, position_ids=position_ids,
                             segment_ids=segment_ids,
-                            tokentype_ids=tokentype_ids, rng=rng, rope=rope)
+                            tokentype_ids=tokentype_ids, rng=rng, rope=rope,
+                            lora=lora)
     logits = unembed(cfg, params, x).float()
     if return_aux:
         return logits, aux

@@ -9,17 +9,21 @@ a Python loop over layers in place of ``lax.scan``.
 ``stack_forward`` serves inference and training.  Under autograd each
 layer runs inside ``torch.utils.checkpoint`` as ``cfg.recompute`` says:
 ``"full"`` recomputes the whole layer in the backward, ``"selective"``
-saves the projection matmuls' outputs (``aten.mm``) and recomputes the
+saves the projection matmuls' outputs (``aten.mm``; with int8 training
+matmuls the int32 products and the int8 operands) and recomputes the
 rest, as JAX's ``dots_with_no_batch_dims_saveable`` policy does, and
 ``"none"`` saves everything.  The policy changes memory and time, not the
 numbers, with dropout on too: ``stack_forward`` takes the stack's
 ``DropoutKey`` and each layer folds in its index, so a recomputed layer
 redraws the forward's masks from the same keys (``ops/dropout.py``).
 Without a key the forward is deterministic.  Serving-quantized weights
-(``ops/quant.py``) go through ``mm``; MoE layers and int8 training
-matmuls belong to later slices and raise here.  ``stack_forward_cached``
-takes the multi-tenant LoRA bundle (``ops/lora.py``): each targeted
-projection gains its grouped epilogue right after the base product.
+(``ops/quant.py``) go through ``mm``, and ``quantize_matmuls="int8"``
+sends plain weights through ``int8_training_matmul``; MoE layers belong
+to a later slice and raise here.  ``stack_forward`` and
+``stack_forward_cached`` take the LoRA bundle (``ops/lora.py``): each
+targeted projection gains its grouped epilogue right after the base
+product, on the training path (LoRA finetuning, ``training/lora.py``)
+as in serving.
 """
 
 from __future__ import annotations
@@ -42,22 +46,21 @@ from ..ops.attention import attention, decode_attention
 from ..ops.kv_quant import cache_update
 from ..ops.lora import lora_delta
 from ..ops.norms import norm_apply, norm_init
-from ..ops.quant import is_quantized, mm
+from ..ops.quant import int8_training_matmul, is_quantized, mm
 from ..ops.rope import apply_rope, precompute_rope_freqs
 
 Params = dict
 
 
 def proj(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
-    """Projection matmul through ``ops/quant.mm``: a plain weight is
-    ``x @ w`` (a large product, left to torch.matmul as the JAX package
-    left it to XLA); a serving-quantized ``{"q", "scale"}`` weight is
-    dequantized into the product."""
-    if cfg.quantize_matmuls != "none" and not is_quantized(w):
-        raise NotImplementedError(
-            "quantize_matmuls='int8' (W8A8 training matmuls) is not ported "
-            "yet (ROADMAP.md, Queue 1 item 12: the rest, int8 training "
-            "matmul)")
+    """Projection matmul dispatch: under ``quantize_matmuls="int8"`` a
+    plain weight goes through the W8A8 ``int8_training_matmul``; else
+    ``ops/quant.mm``: a plain weight is ``x @ w`` (a large product, left
+    to torch.matmul as the JAX package left it to XLA), a
+    serving-quantized ``{"q", "scale"}`` weight is dequantized into the
+    product."""
+    if cfg.quantize_matmuls == "int8" and not is_quantized(w):
+        return int8_training_matmul(x, w)
     return mm(x, w)
 
 
@@ -298,7 +301,8 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         attn_out, new_rows = attention_block(cfg, p["attn"], h1, side,
                                              kv_cache=kv_cache, lora=lora)
     else:
-        attn_out = attention_block(cfg, p["attn"], h1, side, layer_key)
+        attn_out = attention_block(cfg, p["attn"], h1, side, layer_key,
+                                   lora=lora)
     if cfg.parallel_attn:
         mlp_in = h1
         if cfg.parallel_layernorm:
@@ -316,11 +320,19 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return result
 
 
+# what the selective policy keeps: the matmuls' outputs (a 3-D ``x @ w``
+# reaches autograd as ``aten.mm`` on a view; the LoRA epilogue's two
+# products too), and under int8 training matmuls the int32 products and
+# the int8 operands with their scales (JAX saves the int8 dot, and a
+# ``custom_vjp`` keeps its residuals)
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten._int_mm.default,
+              torch.ops.megatron_llm_tpu_torch.int8_operands.default)
+
+
 def _save_matmuls(ctx, op, *args, **kwargs):
-    """The selective policy: keep the projection matmuls' outputs (a 3-D
-    ``x @ w`` reaches autograd as ``aten.mm`` on a view), recompute the
-    rest (norms, RoPE, attention, activations)."""
-    if op is torch.ops.aten.mm.default:
+    """The selective policy: keep ``_SAVED_OPS``' outputs, recompute the
+    rest (norms, RoPE, attention, activations, int8 epilogues)."""
+    if op in _SAVED_OPS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -339,19 +351,35 @@ def _layer_runner(cfg: ModelConfig):
     return lambda fn, *args: checkpoint(fn, *args, **kwargs)
 
 
+def _layer_arenas(arenas, n: int) -> list:
+    """Each layer's ``{target: {"a", "b"}}`` slices of layer-stacked arenas
+    (``[None] * n`` without), one ``unbind`` per leaf as in
+    ``unstack_layers``: a trained factor's grads then join once."""
+    if arenas is None:
+        return [None] * n
+    return unstack_layers(arenas)
+
+
 def stack_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
-                  side: AttnSideInputs, key=None) -> torch.Tensor:
+                  side: AttnSideInputs, key=None, lora=None) -> torch.Tensor:
     """All layers, in order, each checkpointed as ``cfg.recompute`` says
     when autograd is on.  ``key`` (the stack's ``DropoutKey``, or None for
-    no dropout) is folded with each layer's index, as JAX's scan does."""
+    no dropout) is folded with each layer's index, as JAX's scan does.
+    ``lora`` is ``(arenas, mask)``: layer-stacked factors, which may
+    require grad (LoRA finetuning), and the per-row mask."""
     run = _layer_runner(cfg)
+    arenas, mask = lora if lora is not None else (None, None)
 
-    def layer(h, p, layer_key, idx):
-        return layer_forward(cfg, p, h, side, layer_key, layer_idx=idx)
+    def layer(h, p, layer_key, idx, factors):
+        layer_lora = None if factors is None else (factors, mask)
+        return layer_forward(cfg, p, h, side, layer_key, layer_idx=idx,
+                             lora=layer_lora)
 
-    for i, p in enumerate(unstack_layers(stacked)):
+    layers = unstack_layers(stacked)
+    for i, (p, factors) in enumerate(zip(
+            layers, _layer_arenas(arenas, len(layers)))):
         layer_key = None if key is None else drop.fold_in(key, i)
-        x = run(layer, x, p, layer_key, i)
+        x = run(layer, x, p, layer_key, i, factors)
     return x
 
 
@@ -371,11 +399,10 @@ def stack_forward_cached(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
         return cache[i]
 
     arenas, mask = lora if lora is not None else (None, None)
-    for i, p in enumerate(unstack_layers(stacked)):
-        layer_lora = None
-        if arenas is not None:
-            layer_lora = ({t: {"a": f["a"][i], "b": f["b"][i]}
-                           for t, f in arenas.items()}, mask)
+    layers = unstack_layers(stacked)
+    for i, (p, factors) in enumerate(zip(
+            layers, _layer_arenas(arenas, len(layers)))):
+        layer_lora = None if factors is None else (factors, mask)
         x, _ = layer_forward(cfg, p, x, side,
                              kv_cache=(layer_view(k_cache, i),
                                        layer_view(v_cache, i), cache_len),

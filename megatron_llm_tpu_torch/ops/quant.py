@@ -20,8 +20,12 @@ never quantized.  ``mm`` is the one matmul dispatch point of the
 transformer's projections.  The codes and scales are the JAX package's bit
 for bit: the same fp32 divisions and round-half-to-even.
 
-Not in this slice: ``int8_training_matmul`` (W8A8 training, ROADMAP.md
-Queue 1 item 12) and ``quantize_specs`` (sharded serving, item 11).
+``int8_training_matmul`` is the training half: W8A8 with both operands
+quantized on every call (x per row, w per output column), an int8 x int8
+-> int32 product (``torch._int_mm``: cuBLASLt's int8 GEMM on the card)
+and a backward that evaluates the dense formulas on the dequantized int8
+operands.  ``quantize_specs`` (sharded serving) comes with ROADMAP.md
+Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -135,6 +139,126 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
         y = x @ w["q"].to(x.dtype)
         return y * w["scale"].to(x.dtype)
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# int8 TRAINING matmuls (JAX ops/quant.py:184-242; reference: the optional
+# TransformerEngine FP8 path, megatron/model/transformer.py:932-951).  Both
+# operands are quantized on every call, the product is int8 x int8 -> int32
+# and the rank-1 scale epilogue gives x's dtype back.  The backward
+# evaluates dx = g @ w.T and dw = x.T @ g on the *dequantized int8*
+# operands, the tensors the forward consumed (TransformerEngine's fp8
+# wgrad/dgrad semantics), dw accumulated in fp32; the fp32 master update is
+# untouched.  ``round`` is half to even in both packages and the int32 sum
+# is exact (k * 127^2 < 2^31 for k below 133 000), so the codes, scales and
+# product are JAX's bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _int8_rowwise(x: torch.Tensor):
+    """Symmetric per-row (last-dim) quantization: [..., k] -> (int8 [...,
+    k], fp32 scale [..., 1])."""
+    x32 = x.float()
+    scale = _nonzero(x32.abs().amax(dim=-1, keepdim=True) / 127.0)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+@torch.library.custom_op("megatron_llm_tpu_torch::int8_operands",
+                         mutates_args=())
+def _int8_operands_op(x: torch.Tensor, w: torch.Tensor) -> tuple[
+        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(qx, sx, qw["q"], qw["scale"]) as one operator, so that the
+    selective recompute policy can name it (``models/transformer.py``:
+    JAX keeps a ``custom_vjp``'s residuals)."""
+    qx, sx = _int8_rowwise(x)
+    qw = quantize_weight(w)
+    return qx, sx, qw["q"], qw["scale"]
+
+
+@_int8_operands_op.register_fake
+def _(x, w):
+    return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+            torch.empty((*x.shape[:-1], 1), dtype=torch.float32,
+                        device=x.device),
+            torch.empty(w.shape, dtype=torch.int8, device=w.device),
+            torch.empty(w.shape[-1:], dtype=torch.float32, device=w.device))
+
+
+def _int8_operands(x: torch.Tensor, w: torch.Tensor):
+    qx, sx, q, scale = _int8_operands_op(x, w)
+    return qx, sx, {"q": q, "scale": scale}
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 ``a [m, k]`` x int8 ``b [k, n]`` -> exact int32 ``[m, n]``
+    through ``torch._int_mm``.  On the card cuBLASLt wants more than 16
+    rows, ``k`` and ``n`` multiples of 8 and ``b`` column-major: the rows
+    (a decode step has 1-4), ``k`` and ``n`` are padded with zeros, which
+    add exact zeros to the sums, and the result is cut back."""
+    m, k = a.shape
+    n = b.shape[1]
+    if not a.is_cuda:
+        return torch._int_mm(a, b)
+    mp, kp, np_ = max(_ceil_to(m, 8), 24), _ceil_to(k, 8), _ceil_to(n, 8)
+    if (mp, kp) != (m, k):
+        a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
+    out = torch._int_mm(a.contiguous(), b.t().contiguous().t())
+    return out[:m, :n]
+
+
+def int32_product_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``int32_product``'s plain version: the same exact sums in fp64,
+    whose 53-bit mantissa holds every partial sum of 127^2 products up to
+    k = 2^39."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def _int8_dot(qx, sx, qw, out_dtype):
+    k, n = qw["q"].shape
+    y = int32_product(qx.reshape(-1, k), qw["q"]).reshape(
+        *qx.shape[:-1], n).float()
+    return (y * sx * qw["scale"]).to(out_dtype)
+
+
+class _Int8TrainingMatmul(torch.autograd.Function):
+    """JAX's ``custom_vjp``: the residuals are the int8 operands and their
+    scales, not ``(x, w)``: half the bytes, and the tensors
+    TransformerEngine's wgrad/dgrad GEMMs consume."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        qx, sx, qw = _int8_operands(x, w)
+        ctx.save_for_backward(qx, sx, qw["q"], qw["scale"])
+        ctx.dtypes = (x.dtype, w.dtype)
+        return _int8_dot(qx, sx, qw, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        qx, sx, q, scale = ctx.saved_tensors
+        x_dtype, w_dtype = ctx.dtypes
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wd = q.to(g.dtype) * scale.to(g.dtype)
+            dx = (g @ wd.T).to(x_dtype)
+        if ctx.needs_input_grad[1]:
+            # fp32 wgrad accumulation, as the bf16 path keeps it
+            xd = (qx.float() * sx).reshape(-1, q.shape[0])
+            dw = (xd.T @ g.reshape(-1, q.shape[1]).float()).to(w_dtype)
+        return dx, dw
+
+
+def int8_training_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with both operands dynamically int8-quantized (per-token
+    rows x per-output-channel columns); the backward evaluates the dense
+    matmul formulas on the dequantized int8 operands."""
+    return _Int8TrainingMatmul.apply(x, w)
 
 
 # The projection leaves a policy quantizes, by tensor class.  Norm scales,

@@ -3,9 +3,11 @@
 ``masked_mean_loss``).
 
 Stable log-softmax CE over fp32 logits, with label smoothing (reference
-cross_entropy.py:71-86) and the padded vocabulary columns masked out.  The
-vocab-parallel forms and ``fused_linear_cross_entropy`` come with the
-parallel slices (ROADMAP.md, Queue 1).
+cross_entropy.py:71-86) and the padded vocabulary columns masked out, and
+``fused_linear_cross_entropy``: the LM head and the CE in one pass over
+vocabulary blocks, so the ``[n, vocab]`` fp32 logits never exist at once.
+The vocab-parallel forms come with the parallel slices (ROADMAP.md, Queue
+1 item 9).
 """
 
 from __future__ import annotations
@@ -47,3 +49,109 @@ def masked_mean_loss(per_token_loss: torch.Tensor,
     loss_mask = loss_mask.to(per_token_loss.dtype)
     total = torch.sum(per_token_loss * loss_mask)
     return total / torch.clamp(torch.sum(loss_mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Fused LM head (JAX parallel/cross_entropy.py:154-257): the unembedding
+# product streamed over vocabulary blocks, an online logsumexp in the
+# forward, each block's logits recomputed from the saved lse in the
+# backward.  The per-block products are plain large matrix products, which
+# JAX leaves to XLA and the port to torch.mm.
+# ---------------------------------------------------------------------------
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with fp32 output from operands in their own dtype (JAX's
+    ``preferred_element_type=float32``): bf16 operands on the card go
+    through cuBLAS with fp32 output (``aten::mm.dtype``), never a bf16
+    rounding of the product; on the CPU, which lacks that overload, the
+    operands widen exactly to fp32 first (one block at a time)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _blocks(v_padded: int, block: int):
+    """``(first column, width)`` of each vocabulary block.  The last block
+    is narrower where ``block`` does not divide ``v_padded``: JAX pads w
+    with zero columns up to whole blocks and masks them (col >=
+    vocab_size), which leaves the same sums as not visiting them."""
+    return [(c0, min(block, v_padded - c0))
+            for c0 in range(0, v_padded, block)]
+
+
+def _flce_forward(x, w, labels, vocab_size: int, block: int):
+    """``(per-token loss, lse)``: fp32 ``[n]`` each."""
+    n = x.shape[0]
+    dev = x.device
+    m = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((n,), dtype=torch.float32, device=dev)
+    tgt = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for c0, bw in _blocks(w.shape[1], block):
+        logits = _mm_f32(x, w[:, c0:c0 + bw])           # [n, bw] fp32
+        if c0 + bw > vocab_size:
+            logits[:, max(vocab_size - c0, 0):] = float("-inf")
+        in_blk = (labels >= c0) & (labels < c0 + bw)
+        idx = torch.clamp(labels - c0, 0, bw - 1)
+        tl = torch.gather(logits, 1, idx[:, None])[:, 0]
+        tgt = torch.where(in_blk, tl, tgt)
+        new_m = torch.maximum(m, logits.amax(dim=-1))
+        l = l * torch.exp(m - new_m) + \
+            logits.sub_(new_m[:, None]).exp_().sum(dim=-1)
+        m = new_m
+        del logits
+    lse = m + torch.log(l)
+    return lse - tgt, lse
+
+
+class _FusedLinearCrossEntropy(torch.autograd.Function):
+    """JAX's ``custom_vjp``: the residuals are x, the ORIGINAL w (never a
+    padded copy), the labels and the lse."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, vocab_size, block):
+        loss, lse = _flce_forward(x, w, labels, vocab_size, block)
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.vocab_size, ctx.block = vocab_size, block
+        ctx.mark_non_differentiable(lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, lse = ctx.saved_tensors
+        vocab_size = ctx.vocab_size
+        g = g.float()
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        # a frozen head (LoRA finetuning) takes no dw products
+        dw = torch.empty(w.shape, dtype=w.dtype, device=w.device) \
+            if ctx.needs_input_grad[1] else None
+        for c0, bw in _blocks(w.shape[1], ctx.block):
+            w_blk = w[:, c0:c0 + bw]
+            # p = softmax from the saved lse, 0 on the padded columns
+            p = _mm_f32(x, w_blk).sub_(lse[:, None]).exp_()
+            if c0 + bw > vocab_size:
+                p[:, max(vocab_size - c0, 0):] = 0.0
+            in_blk = (labels >= c0) & (labels < c0 + bw)
+            idx = torch.clamp(labels - c0, 0, bw - 1)
+            p.scatter_add_(1, idx[:, None], -in_blk.float()[:, None])
+            d_cast = p.mul_(g[:, None]).to(w.dtype)       # (p - onehot) g
+            del p
+            dx += _mm_f32(d_cast, w_blk.T)
+            if dw is not None:
+                dw[:, c0:c0 + bw] = _mm_f32(x.T, d_cast).to(w.dtype)
+        return dx.to(x.dtype), dw, None, None, None
+
+
+def fused_linear_cross_entropy(x: torch.Tensor, w: torch.Tensor,
+                               labels: torch.Tensor, vocab_size: int,
+                               block: int = 8192) -> torch.Tensor:
+    """Per-token CE of ``softmax(x @ w)`` (fp32 ``[n]``) without the full
+    fp32 logits: ``x [n, h]`` hidden states, ``w [h, v_padded]`` the
+    unembedding weight, ``labels [n]`` (not differentiable), columns at
+    or past ``vocab_size`` masked out.  Differentiable in x and w; dx
+    sums over the blocks in fp32, dw is each block's fp32 product cast to
+    w's dtype, as in JAX."""
+    return _FusedLinearCrossEntropy.apply(x, w, labels.long(),
+                                          int(vocab_size), int(block))

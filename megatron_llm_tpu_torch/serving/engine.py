@@ -112,8 +112,9 @@ request's lifecycle edge (submitted, admitted, first_token, finished,
 preempted, resumed), all carrying its ``request_id``.
 
 Not in this slice, and refused at construction with ``NotImplementedError``
-naming the ROADMAP item: disaggregated roles, meshes and int8 training
-matmuls (``quantize_matmuls``).
+naming the ROADMAP item: disaggregated roles and meshes.  A model with
+``quantize_matmuls="int8"`` (W8A8 training matmuls) is served on the
+composed route, as in JAX: the fused decode step does not take it.
 """
 
 from __future__ import annotations
@@ -182,9 +183,6 @@ def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh) -> None:
         (ec.role != "mixed", f"role={ec.role!r}",
          "Queue 1: multi-GPU serving, disaggregated prefill/decode"),
         (mesh is not None, "a device mesh", "Queue 1: multi-GPU serving"),
-        (cfg.quantize_matmuls != "none",
-         f"quantize_matmuls={cfg.quantize_matmuls!r} (W8A8 training matmuls)",
-         "Queue 1 item 12: the rest, int8 training matmul"),
     ]
     for bad, what, item in todo:
         if bad:

@@ -14,7 +14,9 @@ untouched; only the guard, the counters and the loss scaler move.
 
 Dropout follows JAX's key chain: the step folds ``base_rng`` with the
 iteration and each microbatch's key with its index; without a key the
-step is deterministic.
+step is deterministic.  With ``fused_lm_head`` the loss streams the head
+over vocabulary blocks (``fused_linear_cross_entropy``) and never holds
+the ``[b, s, vocab]`` fp32 logits.
 """
 
 from __future__ import annotations
@@ -27,7 +29,11 @@ from ..config import RuntimeConfig
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
 from ..ops import dropout as drop
-from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
+from ..parallel.cross_entropy import (
+    cross_entropy,
+    fused_linear_cross_entropy,
+    masked_mean_loss,
+)
 from ..resilience.anomaly import GuardState, guard_update, init_guard_state
 from ..utils.tree import tree_leaves, tree_unflatten
 from . import optimizer as opt_lib
@@ -58,17 +64,30 @@ def init_train_state(cfg: RuntimeConfig, params: PyTree) -> TrainState:
 
 
 def compute_loss(cfg: RuntimeConfig, params, batch: dict, rng=None,
-                 rope=None):
+                 rope=None, lora=None):
     """Forward + masked LM loss for one microbatch: ``batch`` holds tokens,
     labels and a float loss_mask ``[b, s]``, optionally position_ids and
-    segment_ids.  ``rng`` turns dropout on."""
-    logits, _ = model_lib.forward(
-        cfg.model, params, batch["tokens"],
-        position_ids=batch.get("position_ids"),
-        segment_ids=batch.get("segment_ids"),
-        rng=rng, rope=rope, return_aux=True)
-    per_token = cross_entropy(logits, batch["labels"],
-                              vocab_size=cfg.model.vocab_size)
+    segment_ids.  ``rng`` turns dropout on; ``lora`` (``(arenas, mask)``)
+    adds the LoRA epilogues.  ``fused_lm_head`` takes the fused head over
+    the ``b * s`` rows (JAX ``training/step.py:115-134``; tp and cp are
+    refused by ``RuntimeConfig.validate``)."""
+    kw = dict(position_ids=batch.get("position_ids"),
+              segment_ids=batch.get("segment_ids"), rng=rng, rope=rope,
+              lora=lora)
+    if cfg.model.fused_lm_head:
+        hidden, _ = model_lib.forward_hidden(cfg.model, params,
+                                             batch["tokens"], **kw)
+        b, s, h = hidden.shape
+        per_token = fused_linear_cross_entropy(
+            hidden.reshape(b * s, h),
+            model_lib.unembed_weight(cfg.model, params),
+            batch["labels"].reshape(b * s),
+            cfg.model.vocab_size).reshape(b, s)
+    else:
+        logits, _ = model_lib.forward(cfg.model, params, batch["tokens"],
+                                      return_aux=True, **kw)
+        per_token = cross_entropy(logits, batch["labels"],
+                                  vocab_size=cfg.model.vocab_size)
     return masked_mean_loss(per_token, batch["loss_mask"])
 
 

@@ -1717,3 +1717,139 @@ def test_engine_options_on_the_card(cuda_device):
         engine.shutdown()
     assert engine._scheduler_error is None
     assert pressed.tokens == alone.tokens
+
+
+# the fused head against the unfused bf16 route at Llama-2-7B's head: the
+# limits of ``tests/test_torch_fused_head.py`` (its float64 study finds
+# the unfused route's bf16 logits within a quarter of them)
+FUSED_HEAD_MEAN_LOSS, FUSED_HEAD_MAX_LOSS, FUSED_HEAD_GRAD_REL = \
+    2e-3, 0.05, 0.02
+# and against the float64 CE of the same bf16 operands: between the fp32
+# block logits' gap and the bf16-rounded ones' (the same study)
+FUSED_HEAD_EXACT_MAX_LOSS = 5e-4
+
+
+@pytest.mark.cuda
+def test_fused_head_on_the_card_matches_unfused(cuda_device):
+    """``fused_linear_cross_entropy`` (fp32 block logits from bf16
+    operands through ``torch.mm(..., out_dtype=float32)``) against
+    ``cross_entropy(x @ w)`` (bf16 logits) at h 4096, vocab 32000 with
+    padded columns, 512 rows: loss, dx and dw within the float64-derived
+    limits; and the per-token loss against the float64 CE of the same
+    operands within a limit that the bf16-rounded route exceeds."""
+    from megatron_llm_tpu_torch.parallel import cross_entropy as tce
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    n, h, v, vp = 512, 4096, 32000, 32256
+    x = _card((n, h), gen, cuda_device)
+    w = (0.02 * _card((h, vp), gen, cuda_device, torch.float32)).bfloat16()
+    labels = torch.randint(0, v, (n,), generator=gen, device=cuda_device)
+    out = {}
+    for fused in (True, False):
+        tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(
+            True)
+        if fused:
+            loss = tce.fused_linear_cross_entropy(tx, tw, labels, v)
+        else:
+            loss = tce.cross_entropy(tx @ tw, labels, vocab_size=v)
+        out[fused] = (loss.detach(), *torch.autograd.grad(loss.sum(),
+                                                          (tx, tw)))
+    d = out[True][0] - out[False][0]
+    assert abs(float(d.mean())) <= FUSED_HEAD_MEAN_LOSS
+    assert float(d.abs().max()) <= FUSED_HEAD_MAX_LOSS
+    for a, b in zip(out[True][1:], out[False][1:]):
+        a, b = a.float(), b.float()
+        assert float((a - b).norm() / b.norm()) <= FUSED_HEAD_GRAD_REL
+    assert not out[True][2][:, v:].any()
+    logits = x.double() @ w[:, :v].double()
+    exact = torch.logsumexp(logits, -1) - logits.gather(
+        1, labels[:, None])[:, 0]
+    gap = {f: float((out[f][0].double() - exact).abs().max())
+           for f in (True, False)}
+    assert gap[True] <= FUSED_HEAD_EXACT_MAX_LOSS < gap[False], gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (4, 4096, 11008),
+                                   (37, 100, 36), (4096, 4096, 11008)])
+def test_int_mm_on_the_card_matches_plain(cuda_device, m, k, n):
+    """``ops/quant.int32_product`` (cuBLASLt's int8 GEMM, rows, k and n
+    padded where it wants) against the exact fp64 plain product: int32
+    bit for bit, with every code at +-127 in one row (the widest sums)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    a[0] = 127
+    b[:, 0] = 127
+    got = tq.int32_product(a, b)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, tq.int32_product_plain(a, b))
+    assert int(got[0, 0]) == 127 * 127 * k
+
+
+@pytest.mark.cuda
+def test_lora_step_on_the_card(cuda_device):
+    """Three LoRA steps at 2 layers (bf16 base, flash attention, the
+    Triton norms, selective recompute, the fused head): step 0 is the base
+    model's loss bit for bit, the loss falls, no base tensor moves, K1-K5
+    launch, and the first loss is the CPU fp32 plain path's within phase
+    6's 0.02."""
+    import dataclasses
+
+    from megatron_llm_tpu_torch.config import (
+        OptimizerConfig, RuntimeConfig, TrainConfig, llama2_config)
+    from megatron_llm_tpu_torch.ops import lora as tlora
+    from megatron_llm_tpu_torch.training import lora as tlt
+    from megatron_llm_tpu_torch.training import optimizer as topt
+    from megatron_llm_tpu_torch.training import step as tstep
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    model = llama2_config("7b", num_layers=2, hidden_size=256,
+                          num_attention_heads=2, num_kv_heads=2,
+                          ffn_hidden_size=512, vocab_size=512,
+                          params_dtype="bfloat16", attention_impl="flash",
+                          norm_impl="pallas", recompute="selective",
+                          fused_lm_head=True)
+    cfg = RuntimeConfig(model=model, optimizer=OptimizerConfig(lr=5e-2),
+                        train=TrainConfig(train_iters=3, seq_length=256,
+                                          micro_batch_size=2,
+                                          global_batch_size=2)).validate()
+    base = tm.init_params(model, seed=0, device=cuda_device)
+    before = [t.clone() for t in tree_leaves(base)]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ad = tlora.init_lora_adapter(model, gen, 8)
+    toks = torch.randint(0, 512, (1, 2, 256), generator=gen,
+                         device=cuda_device)
+    batch = {"tokens": toks, "labels": toks.roll(-1, -1),
+             "loss_mask": torch.ones(1, 2, 256, device=cuda_device)}
+    mb = {k: v[0] for k, v in batch.items()}
+    with torch.no_grad():
+        base_loss = (torch.zeros((), device=cuda_device)
+                     + tstep.compute_loss(cfg, base, mb)) / 1
+    counters = launch_counters()
+    start = {k: c.launches for k, c in counters.items()}
+    step = tlt.make_lora_step(cfg, base, ad)
+    factors = tree_map(lambda f: f.clone(), ad.factors)
+    opt = topt.init_opt_state(factors, cfg.optimizer)
+    losses = []
+    for it in range(3):
+        factors, opt, met = step(factors, opt, batch, it)
+        losses.append(met["loss"])
+    ran = {k: c.launches - start[k] for k, c in counters.items()}
+    assert torch.equal(losses[0], base_loss)
+    assert float(losses[-1]) < float(losses[0])
+    for a, b in zip(before, tree_leaves(base)):
+        assert torch.equal(a, b)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "rmsnorm_fwd", "rmsnorm_bwd"):
+        assert ran[name] > 0, name
+    ref_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        model, params_dtype="float32", attention_impl="dot",
+        norm_impl="xla", fused_lm_head=False))
+    cpu = tree_map(lambda t: t.float().cpu(), base)
+    with torch.no_grad():
+        ref = tstep.compute_loss(ref_cfg, cpu, {k: v.cpu()
+                                                for k, v in mb.items()})
+    assert abs(float(losses[0]) - float(ref)) <= 0.02

@@ -7,6 +7,7 @@ blocks, prefill padded to 8, no prefix cache, no tracing, and
 exercise queueing, admission and retirement.
 """
 
+import dataclasses
 import threading
 import time
 
@@ -197,7 +198,7 @@ def test_engine_config_fields_match_jax():
 # options the engine serves: their cases check the tokens against the JAX
 # engine's with the same option (tests/test_torch_chunked_prefill.py,
 # test_torch_tiered_kv.py and test_torch_sanitizers.py go further)
-NOW_PORTED = ("prefill_chunk", "host_kv_blocks", "sanitize")
+NOW_PORTED = ("prefill_chunk", "host_kv_blocks", "sanitize", "int8")
 
 
 @pytest.mark.parametrize("kw,cfg_kw,match", [
@@ -205,13 +206,14 @@ NOW_PORTED = ("prefill_chunk", "host_kv_blocks", "sanitize")
     (dict(host_kv_blocks=4), {}, "host_kv_blocks"),
     (dict(role="prefill"), {}, "role"),
     (dict(sanitize=True), {}, "sanitize"),
-    # the int8 KV cache is served now; W8A8 training matmuls are not
+    # a model with W8A8 training matmuls is served on the composed route
     ({}, dict(quantize_matmuls="int8"), "int8"),
 ])
 def test_unported_options_raise(weights, kw, cfg_kw, match):
     jc, jp, _, tp = weights
     tc = ttiny(**{"fused_decode": False, **cfg_kw})
     if match in NOW_PORTED:
+        jc = dataclasses.replace(jc, **cfg_kw)
         got, _ = _run(ServingEngine(tc, tp, EngineConfig(**{**SLICE, **kw}),
                                     device="cpu"), _prompts(), NEW)
         want, _ = _run(JServingEngine(jc, jp, JEngineConfig(**{**SLICE,
@@ -226,8 +228,10 @@ def test_unported_options_raise(weights, kw, cfg_kw, match):
 def test_draft_model_mesh_and_quantized_weights_raise(weights):
     """A mesh raises; a resident draft model no longer does (it is
     served, ``tests/test_torch_draft_serving.py``), nor do quantized
-    weights (they are served through ``ops/quant.mm``), which do not
-    lift the W8A8 training-matmul refusal either."""
+    weights (they are served through ``ops/quant.mm``).  A W8A8 training
+    config over serving-quantized weights is served too: such a weight
+    goes through ``mm``, not the int8 training matmul, so its tokens are
+    the quantized engine's."""
     from megatron_llm_tpu_torch.ops.quant import quantize_params
 
     _, _, tc, tp = weights
@@ -237,9 +241,12 @@ def test_draft_model_mesh_and_quantized_weights_raise(weights):
     quant = quantize_params(tp, "int8")
     engine = ServingEngine(tc, quant, ec, device="cpu")
     assert engine._precision_route == "int8"
-    with pytest.raises(NotImplementedError, match="quantize_matmuls.*ROADMAP"):
-        ServingEngine(ttiny(fused_decode=False, quantize_matmuls="int8"),
-                      quant, ec, device="cpu")
+    w8a8 = ServingEngine(ttiny(fused_decode=False, quantize_matmuls="int8"),
+                         quant, ec, device="cpu")
+    assert w8a8._precision_route == "int8"
+    got, _ = _run(w8a8, _prompts(), NEW)
+    want, _ = _run(engine, _prompts(), NEW)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
 
 
 def test_queue_full_backpressure(weights):
