@@ -22,7 +22,16 @@ it goes wrong:
    those; no single call computes the fused decode step, whose rows give
    the composed route's time instead); K1-K3 also at their tensor-core
    bodies' edges (ragged lengths, rows that see no key, head dim 64,
-   fp16), K3 with its walk split over several blocks (equal to one block
+   fp16), K1-K3 in the encoders' mode (b 8, s 512, 16 heads of 64, not
+   causal, 0-200 pads a row in segment 0; the T5 decoder's s 128, causal
+   over pad segments; checked only, BERT-base's 12 heads at the shapes of
+   phases 50-51: b 8 s 128, b 32 s 64 and b 32 s 256: the pad rows' dQ
+   and the pad columns' dK, dV exact zeros, K2 and K3 bit for bit again,
+   SDPA with the equivalent boolean mask as the yardstick;
+   ``encoder_cases`` in their JSON rows), every K2/K3 case with no element
+   further from a float64 backward than the plain version's by more than
+   the tolerance, K6/K7 at the encoders' 4096 x 1024 and 8192 x 768,
+   K3 with its walk split over several blocks (equal to one block
    within the tolerance, and bit for bit from run to run), K2, K5 and K7
    repeated bit for bit, K1-K3 with fp32 inputs, which take the CUDA-core
    bodies, K7 timed against the library's backward in turns A B B A, and
@@ -228,7 +237,53 @@ it goes wrong:
     2-layer release checkpoint with ``--save``, then ``--lora_load`` of
     the saved adapter.  Phases 42-46 are the ``single-card-training``
     paths: K1-K5 must launch in 42, 43, 45 and 46 (K1-K3 on their
-    tensor-core bodies), K13 + LoRA in 44.
+    tensor-core bodies), K13 + LoRA in 44;
+47. encdec-reference: a seeded pseudo-text corpus cut into sentences, its
+    own WordPiece ``vocab.txt`` (30522 ids) and the sentence-per-item
+    ``.bin``/``.idx`` of the BERT, T5 and ICT datasets; then BERT-large's
+    and T5-large's widths cut to 2 layers (2 + 2) and the ICT biencoder's
+    (BERT-base towers, mean pooling, projection 128) cut to 2, bf16
+    through K1-K3 (not causal over pad segments; the kernel path's call
+    must launch them and K6/K7) and K6/K7 at dropout 0, against the fp32
+    plain path from the same weights on 4 samples of their datasets (32
+    for ICT): the loss and every gradient at phase 6's limits, or, for a
+    leaf where
+    the bf16 plain path itself errs by more than half of them (BERT's
+    tokentype gradient, a cancelling sum over every token), 1.5 times the
+    bf16 plain path's own error;
+48. bert-train: BERT-large (24 layers, h 1024, seq 512, vocab 30592) at
+    ``pretrain_bert``'s config through ``pretrain_custom`` (dropout
+    0.1/0.1, micro batch 8, 6 iterations, an eval pass at the end: K1 not
+    causal; attention dropout sends training attention to einsum, so K2/K3
+    must not launch), the loss falls, one step again from the same seed
+    gives the same first loss; median step, tokens/s, peak memory;
+49. t5-train: T5-large (24 + 24 layers, seq 512 / 128, vocab 32128) the
+    same way at ``pretrain_t5``'s config (dropout 0, micro batch 4 of 8,
+    5 iterations): K1-K3 not causal in the encoder and causal over pad
+    segments in the decoder.  Phases 48 and 49 add 2 iterations of lr
+    warmup to the entries' optimizer (the reference's examples warm up;
+    from random weights lr 1e-4 at once spikes the loss);
+50. ict-train, orqa: ``pretrain_ict``'s config (BERT-base towers, query
+    64, block 256, projection 128, mean pooling, micro batch 32) for 4
+    iterations, each step's loss within 2% of the plain path's from the
+    same seed (at the entry's lr 1e-4 from random towers both rise), then
+    6 iterations at lr 5e-6, where the loss must fall; the REALM index of
+    every evidence block
+    (``IndexBuilder``, K1 not causal), an NQ-format QA file, and
+    ``evaluate_retriever``'s top-1/5/20 hits;
+51. classification: MNLI-format files through ``glue.load_glue_rows`` and
+    ``ClassificationDataset`` (WordPiece), a BERT-base release
+    checkpoint saved and read back with ``load_release_params``,
+    ``examples/finetune_mnli.sh``'s shape (seq 128, micro batch 8 of 32)
+    for 8 iterations through ``pretrain_custom`` (K1-K3 not causal, K6 /
+    K7), then ``classification_accuracy``;
+52. entries: ``pretrain_bert.main``, ``pretrain_t5.main`` and
+    ``pretrain_ict.main`` from their command lines (``--vocab_size``, the
+    entries' defaults, 2 layers, 2 iterations) on the card by default;
+    their configs are the JAX entries' (dot attention, XLA norms), so no
+    kernel may launch.  Phases 48-51 are the ``encoder-families`` paths:
+    K1 (with ``causal=False`` launches) and K6/K7 must launch, K2/K3 (also
+    not causal) in 49 and 51; RMSNorm and the decode kernels must not.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -238,8 +293,8 @@ K9 bit for bit on the same logical cache, K13 must equal K12 and K14 four
 K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
-Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38, 39-41 and
-42-46 are the main paths:
+Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38, 39-41,
+42-46 and 48-51 are the main paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -248,7 +303,8 @@ K1-K3 must have taken the tensor-core body and every launch of the fused
 decode step (all bf16) the TMA body, and every launch of K8-K11 the
 split cache walk, as the C launchers report.  The
 line before the last is the ``{"kernels": [...]}`` JSON object
-(``launches`` sums the paths' counts, ``launches_by_path`` lists them);
+(``launches`` sums the paths' counts, ``launches_by_path`` lists them,
+``noncausal_launches`` K1-K3's launches with ``causal=False``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -296,24 +352,39 @@ BF16_RTOL = 2.0 ** -6
 BF16_ATOL = 2e-3
 
 
-def _segments(torch, b, s, gen, dev):
-    """4 packed sequences per row at random boundaries, int32 [b, s]."""
-    cuts = torch.sort(torch.randint(1, s, (b, 3), generator=gen,
-                                    device=dev), dim=1).values
-    pos = torch.arange(s, device=dev)
-    return (pos[None, :, None] >= cuts[:, None, :]).sum(-1).to(
-        torch.int32).contiguous()
+def _case_segments(torch, segs, b, s, gen, dev):
+    """A phase-3 case's segment ids: None, packed sequences (True) or the
+    encoders' pad segments (``("pad", max_pads)``), with the builders of
+    ``kernels/attention_accuracy_probe.py``."""
+    from megatron_llm_tpu_torch.kernels import attention_accuracy_probe as ap
+
+    if not segs:
+        return None
+    if segs is True:
+        return ap.packed_segments(b, s, gen, dev)
+    return ap.pad_segments(b, s, gen, dev, segs[1])
 
 
-def _visible_pairs(torch, b, sq, sk, seg, dev):
-    """(row, key) pairs a causal mask and the segment ids leave visible:
-    the work this run's inputs need."""
+def _visible_pairs(torch, b, sq, sk, seg, dev, causal=True):
+    """(row, key) pairs the causal mask (where ``causal``) and the segment
+    ids leave visible: the work this run's inputs need."""
     i = torch.arange(sq, device=dev)[:, None]
     j = torch.arange(sk, device=dev)[None, :]
-    keep = (j <= i + (sk - sq))[None]
+    keep = ((j <= i + (sk - sq)) if causal
+            else torch.ones(sq, sk, dtype=torch.bool, device=dev))[None]
     if seg is not None:
         keep = keep & (seg[:, :, None] == seg[:, None, :])
     return float(keep.expand(b, sq, sk).sum())
+
+
+def _sdpa_mask(torch, sq, seg, causal, dev):
+    """The boolean mask [b, 1, sq, sq] that gives SDPA the kernel's
+    function: the causal triangle (where ``causal``) and equal segments."""
+    keep = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        pos = torch.arange(sq, device=dev)
+        keep = keep & (pos[None, :] <= pos[:, None])[None]
+    return keep[:, None]
 
 
 def _attn_inputs(torch, gen, dev, b, sq, sk, hq, hk, d, dtype):
@@ -329,6 +400,28 @@ def _tol(torch, dtype):
     return (1e-4, 1e-4) if dtype == torch.float32 else (BF16_ATOL, BF16_RTOL)
 
 
+# the encoders' attention in phase 3 (d 64, bf16), timed: BERT-large's and
+# T5-large's encoder (b 8 x s 512 x 16 heads, not causal, 0-200 pads a row
+# in segment 0) and the T5 decoder's self-attention (s 128, causal, 0-60
+# pads), each K1 case's row under K1's JSON row, each backward case's
+# under K2's and K3's; checked only: BERT-base's at the shapes of phases 50
+# and 51 (12 heads, not causal): the classifier's (b 8, s 128, 0-120
+# pads), the ICT query tower's (b 32, s 64 below one tile, 0-56 pads) and
+# its block tower's (b 32, s 256, 0-200 pads)
+def encoder_attn_cases(torch):
+    bf = torch.bfloat16
+    return [("encoder b8 s512 h16 d64 pads", 8, 512, 512, 16, 16, 64,
+             ("pad", 200), bf, True, False),
+            ("t5-decoder b8 s128 h16 d64 causal pads", 8, 128, 128, 16, 16,
+             64, ("pad", 60), bf, True, True),
+            ("classification b8 s128 h12 d64 pads", 8, 128, 128, 12, 12, 64,
+             ("pad", 120), bf, False, False),
+            ("ict-query b32 s64 h12 d64 pads", 32, 64, 64, 12, 12, 64,
+             ("pad", 56), bf, False, False),
+            ("ict-block b32 s256 h12 d64 pads", 32, 256, 256, 12, 12, 64,
+             ("pad", 200), bf, False, False)]
+
+
 def check_flash_attention(torch, F, fa, dev, gen):
     """K1 at the prefill shape of Llama-2-7B, plus GQA, segment ids and
     Falcon-7B's (MQA over 71 heads, head dim 64), each timed; then, checked
@@ -337,6 +430,7 @@ def check_flash_attention(torch, F, fa, dev, gen):
     (fp32).  A bf16 or fp16 call must take the tensor-core body (its
     ``mma_launches``), an fp32 call must not."""
     bf, hf, f32 = torch.bfloat16, torch.float16, torch.float32
+    # (name, b, sq, sk, hq, hk, d, segments, dtype, timed[, causal])
     cases = [("prefill b1 s1024 h32 causal", 1, 1024, 1024, 32, 32, 128,
               False, bf, True),
              ("gqa b1 s1024 hq32 hk8 causal", 1, 1024, 1024, 32, 8, 128,
@@ -354,20 +448,23 @@ def check_flash_attention(torch, F, fa, dev, gen):
              ("fp16 b1 sq65 sk193 h4 d64", 1, 65, 193, 4, 4, 64, False, hf,
               False),
              ("fp32 b2 s130 hq4 hk1 d128", 2, 130, 130, 4, 1, 128, False,
-              f32, False)]
+              f32, False)] + encoder_attn_cases(torch)
     head = None
-    for name, b, sq, sk, hq, hk, d, segs, dtype, timed in cases:
+    for name, b, sq, sk, hq, hk, d, segs, dtype, timed, *rest in cases:
+        causal = rest[0] if rest else True
         q, k, v, _ = _attn_inputs(torch, gen, dev, b, sq, sk, hq, hk, d,
                                   dtype)
-        seg = _segments(torch, b, sq, gen, dev) if segs else None
+        seg = _case_segments(torch, segs, b, sq, gen, dev)
         mma = fa.flash_attention_fwd.mma_launches
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                         segment_ids=seg)
         torch.cuda.synchronize()
         if fa.flash_attention_fwd.mma_launches - mma != (dtype != f32):
             raise RuntimeError(f"flash_attention {name}: {dtype} took the "
                                "wrong body")
-        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=True,
+        if not bool(torch.isfinite(lse).all()):
+            raise RuntimeError(f"flash_attention {name}: a non-finite lse")
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal,
                                                   segment_ids=seg)
         err_o, ok_o = close_enough(torch, o, o_ref, *_tol(torch, dtype))
         # lse is fp32 on both sides: only summation order differs
@@ -381,21 +478,19 @@ def check_flash_attention(torch, F, fa, dev, gen):
                 f"{_tol(torch, dtype)})")
             continue
         ms = timing.cuda_ms(lambda: fa.flash_attention_fwd(
-            q, k, v, causal=True, segment_ids=seg))
+            q, k, v, causal=causal, segment_ids=seg))
         plain_ms = timing.cuda_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, segment_ids=seg), iters=5)
+            q, k, v, causal=causal, segment_ids=seg), iters=5)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if seg is None:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=hq != hk)
+                qt, kt, vt, is_causal=causal, enable_gqa=hq != hk)
         else:
-            pos = torch.arange(sq, device=dev)
-            mask = ((pos[None, :] <= pos[:, None])[None]
-                    & (seg[:, :, None] == seg[:, None, :]))[:, None]
+            mask = _sdpa_mask(torch, sq, seg, causal, dev)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=mask)
         library_ms = timing.cuda_ms(lib)
-        pairs = _visible_pairs(torch, b, sq, sk, seg, dev) * hq
+        pairs = _visible_pairs(torch, b, sq, sk, seg, dev, causal) * hq
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
             + lse.numel() * 4 + (seg.numel() * 4 if seg is not None else 0)
         bms, by = timing.bound_ms(nbytes, 4.0 * d * pairs)
@@ -404,9 +499,12 @@ def check_flash_attention(torch, F, fa, dev, gen):
             f"lse atol 1e-4) ms {ms:.4f} plain_ms {plain_ms:.4f} "
             f"sdpa_ms {library_ms:.4f} bound_ms {bms:.4f} ({by}) "
             f"{4.0 * d * pairs / ms / 1e9:.1f} TFLOP/s")
+        row = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, library_ms=library_ms)
         if head is None:
-            head = dict(max_abs_err=err_o, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+            head = row
+        elif isinstance(segs, tuple):
+            head.setdefault("encoder_cases", {})[name] = row
     return head
 
 
@@ -1329,11 +1427,46 @@ def check_rmsnorm(torch, F, rn, dev, gen):
     return head
 
 
+def _no_less_accurate(torch, name, got, ref, inputs, kw):
+    """Phase 3's one rule for K2 and K3: against a float64 backward of the
+    same inputs (``attention_accuracy_probe.f64_bwd``), no element of dQ,
+    dK, dV further from it than the plain version's by more than the
+    tolerance of the inputs' dtype.  A pairwise tolerance between the two
+    would depend on the draw: a rounding of P or dS to bf16 that goes the
+    other way on one side (a sum that cancels) puts a few elements past it
+    with both sides equally far from float64 (``attention_accuracy_probe``
+    on an H100, 6 draws a shape: 1-6 of 16.8 M elements at ``segments b2
+    s2048`` in 2 draws, the two sides' max and rms errors against float64
+    equal).  Returns ``[(max |kernel - plain|, ok)]`` for dQ, dK, dV."""
+    from megatron_llm_tpu_torch.kernels import attention_accuracy_probe as ap
+
+    truth = ap.f64_bwd(*inputs, kw["causal"], kw["segment_ids"])
+    atol, rtol = _tol(torch, inputs[0].dtype)
+    out, worst, past = [], [], 0
+    for g, p, t in zip(got, ref, truth):
+        e_g, e_p = (g.double() - t).abs(), (p.double() - t).abs()
+        out.append((close_enough(torch, g, p, 0.0, 0.0)[0],
+                    bool((e_g <= e_p + atol + rtol * t.abs()).all())))
+        worst.append(f"{float(e_g.max()):.3e}/{float(e_p.max()):.3e}")
+        past += int((~_pairwise_ok(g, p, atol, rtol)).sum())
+        del e_g, e_p
+    log(f"kernel flash_attention_bwd [{name}]: against float64, max err "
+        f"kernel/plain dq {worst[0]} dk {worst[1]} dv {worst[2]}; {past} "
+        f"elements past the pairwise tolerance (atol, rtol {(atol, rtol)})")
+    return out
+
+
+def _pairwise_ok(g, p, atol, rtol):
+    return (g.float() - p.float()).abs() <= atol + rtol * p.float().abs()
+
+
 def check_flash_attention_bwd(torch, F, fa, dev, gen):
     """K2 (dQ) and K3 (dK, dV) at the training shape of Llama-2-7B (b1
     s4096 h32 d128 causal), plus GQA, segment ids and Falcon-7B's (K3's
-    walk split over 16 blocks), against ``flash_attention_bwd_plain`` on
-    K1's own O and lse, each timed; then, checked only, K3's tensor-core
+    walk split over 16 blocks), on K1's own O and lse, each timed and each
+    held per element to a float64 backward no less closely than
+    ``flash_attention_bwd_plain`` (``_no_less_accurate``); then, checked
+    only, K3's tensor-core
     body at its edges (ragged, rows that see no key, head dim 64, fp16), a
     small grid whose walk splits (equal to the unsplit result within the
     tolerance, and bit for bit from one run to the next) and the CUDA-core
@@ -1360,13 +1493,20 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
              ("fp16 split b1 sq65 sk193 hq8 hk1 d64", 1, 65, 193, 8, 1, 64,
               False, hf, False),
              ("fp32 b2 s130 hq4 hk1 d64", 2, 130, 130, 4, 1, 64, False, f32,
-              False)]
+              False)] + encoder_attn_cases(torch)
     heads = {}
-    for name, b, sq, sk, hq, hk, d, segs, dtype, timed in cases:
+    for name, b, sq, sk, hq, hk, d, segs, dtype, timed, *rest in cases:
+        causal = rest[0] if rest else True
         q, k, v, do = _attn_inputs(torch, gen, dev, b, sq, sk, hq, hk, d,
                                    dtype)
-        seg = _segments(torch, b, sq, gen, dev) if segs else None
-        kw = dict(causal=True, segment_ids=seg)
+        seg = _case_segments(torch, segs, b, sq, gen, dev)
+        pad_rows = None
+        if isinstance(segs, tuple):
+            # an encoder: the pad rows' outputs reach no loss, so their dO
+            # is 0, and their dQ and the pad columns' dK, dV must be 0
+            pad_rows = (seg == 0)[:, :, None, None]
+            do = torch.where(pad_rows, torch.zeros_like(do), do)
+        kw = dict(causal=causal, segment_ids=seg)
         o, lse = fa.flash_attention_fwd(q, k, v, **kw)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         mma = fa.flash_attention_bwd_dkv.mma_launches
@@ -1385,9 +1525,24 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
                                                      **kw), dq):
             raise RuntimeError(f"flash_attention_bwd_dq {name}: two runs "
                                "differ")
+        if pad_rows is not None:
+            again = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
+                raise RuntimeError(f"flash_attention_bwd_dkv {name}: two "
+                                   "runs differ")
+            del again
+            if any(bool(g.masked_select(pad_rows.expand_as(g)).any())
+                   for g in (dq, dk, dv)):
+                raise RuntimeError(f"flash_attention backward {name}: the "
+                                   "pad rows' dQ or the pad columns' dK, "
+                                   "dV are not exact zeros")
+            log(f"kernel flash_attention_bwd [{name}]: dQ and dK/dV bit for "
+                f"bit again; pad rows' dQ and pad columns' dK, dV exact "
+                f"zeros")
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
-        errs = [close_enough(torch, g, w, *_tol(torch, dtype))
-                for g, w in zip((dq, dk, dv), ref)]
+        errs = _no_less_accurate(torch, name, (dq, dk, dv), ref,
+                                 (q, k, v, o, lse, do), kw)
         if not all(ok for _, ok in errs):
             raise RuntimeError(
                 f"flash_attention backward {name}: dq/dk/dv err "
@@ -1436,9 +1591,7 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=hq != hk)
         else:
-            pos = torch.arange(sq, device=dev)
-            mask = ((pos[None, :] <= pos[:, None])[None]
-                    & (seg[:, :, None] == seg[:, None, :]))[:, None]
+            mask = _sdpa_mask(torch, sq, seg, causal, dev)
 
             def sdpa():
                 return F.scaled_dot_product_attention(qt, kt, vt,
@@ -1448,7 +1601,7 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
             library_ms = timing.event_ms(lambda: torch.autograd.grad(
                 sdpa(), (qt, kt, vt), dot)) - fwd_ms
         del qt, kt, vt, dot
-        pairs = _visible_pairs(torch, b, sq, sk, seg, dev) * hq
+        pairs = _visible_pairs(torch, b, sq, sk, seg, dev, causal) * hq
         # inputs q, k, v, dO, lse, delta (and seg) read once; outputs once
         common = ((q.numel() + k.numel() + v.numel() + do.numel()) * 2
                   + (lse.numel() + delta.numel()) * 4
@@ -1467,18 +1620,24 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
         log(f"  (tol atol {BF16_ATOL} rtol {BF16_RTOL:.4f}) SDPA backward "
             f"(dq, dk, dv in one call) ms {library_ms:.4f} (forward "
             f"{fwd_ms:.4f})")
+        # SDPA's backward computes dQ, dK and dV in one call; no library
+        # call computes one half, so both rows carry the whole and say so
+        lib_of = "dq+dk+dv (scaled_dot_product_attention backward)"
+        dq_row = dict(
+            max_abs_err=errs[0][0], ms=ms_dq, plain_ms=plain_dq_ms,
+            bound_ms=b_dq[0], bound_by=b_dq[1], library_ms=library_ms,
+            library_computes=lib_of)
+        dkv_row = dict(
+            max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_dkv,
+            plain_ms=plain_dkv_ms, bound_ms=b_dkv[0], bound_by=b_dkv[1],
+            library_ms=library_ms, library_computes=lib_of)
         if not heads:
-            # SDPA's backward computes dQ, dK and dV in one call; no library
-            # call computes one half, so both rows carry the whole and say so
-            lib_of = "dq+dk+dv (scaled_dot_product_attention backward)"
-            heads["flash_attention_bwd_dq"] = dict(
-                max_abs_err=errs[0][0], ms=ms_dq, plain_ms=plain_dq_ms,
-                bound_ms=b_dq[0], bound_by=b_dq[1], library_ms=library_ms,
-                library_computes=lib_of)
-            heads["flash_attention_bwd_dkv"] = dict(
-                max_abs_err=max(errs[1][0], errs[2][0]), ms=ms_dkv,
-                plain_ms=plain_dkv_ms, bound_ms=b_dkv[0], bound_by=b_dkv[1],
-                library_ms=library_ms, library_computes=lib_of)
+            heads["flash_attention_bwd_dq"] = dq_row
+            heads["flash_attention_bwd_dkv"] = dkv_row
+        elif isinstance(segs, tuple):
+            for key, row in (("flash_attention_bwd_dq", dq_row),
+                             ("flash_attention_bwd_dkv", dkv_row)):
+                heads[key].setdefault("encoder_cases", {})[name] = row
         del q, k, v, do, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
     return heads
@@ -1536,7 +1695,8 @@ def check_rmsnorm_bwd(torch, F, rn, dev, gen):
 
 def check_layernorm(torch, F, rn, dev, gen):
     """K6 at Falcon-7B's training rows (2048 x 4544, a hidden size that is
-    not a power of two) and GPT-1.3B's (4096 x 2048), with bias."""
+    not a power of two), GPT-1.3B's (4096 x 2048) and the encoders' (4096 x
+    1024, 8192 x 768), with bias."""
     head = None
     for name, rows, h in timing.LN_SHAPES:
         x, w, b = timing.ln_inputs(rows, h, gen, dev)
@@ -1561,9 +1721,19 @@ def check_layernorm(torch, F, rn, dev, gen):
             f"{BF16_RTOL:.4f}; mean 1e-5, rstd rtol 1e-5) ms {ms:.4f} "
             f"plain_ms {plain_ms:.4f} layer_norm_ms {library_ms:.4f} "
             f"bound_ms {bms:.4f} ({by})")
-        if head is None:
-            head = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, library_ms=library_ms)
+        head = _head_or_encoder_case(head, name, row)
+    return head
+
+
+def _head_or_encoder_case(head, name, row):
+    """The first timed shape's row is the kernel's JSON row; the encoders'
+    shapes join it under ``encoder_cases``."""
+    if head is None:
+        return row
+    if name in [n for n, _, _ in timing.ENCODER_LN_SHAPES]:
+        head.setdefault("encoder_cases", {})[name] = row
     return head
 
 
@@ -1630,9 +1800,9 @@ def check_layernorm_bwd(torch, F, rn, dev, gen):
             f"(kernel: dx, dw, db in one pass + the column sum; library: "
             f"layer_norm backward) factor {ms / library_ms:.3f} plain_ms "
             f"{plain_ms:.4f} bound_ms {bms:.4f} ({by})")
-        if head is None:
-            head = dict(max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=library_ms)
+        row = dict(max_abs_err=errs[0][0], ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by, library_ms=library_ms)
+        head = _head_or_encoder_case(head, name, row)
     return head
 
 
@@ -5271,6 +5441,764 @@ def single_card_training_phases(torch, cfg, dev, counters, smi, paths,
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 47-52: the encoder families (models/encdec.py, biencoder.py,
+# realm_indexer.py, the BERT / T5 / ICT datasets, pretrain_custom, the
+# pretrain_* entries and the BERT tasks)
+# ---------------------------------------------------------------------------
+
+WP_VOCAB = 30522       # BERT's WordPiece vocabulary (padded to 30592)
+T5_VOCAB = 32128       # T5's (the top ids are the sentinels)
+ENC_DOC_WORDS = 700    # a document of the encoder corpus, about 1000 pieces
+ENC_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+# ict-train's kernel path against the plain path, each step's loss: at
+# the entry's lr both rise alike, and the gap grows with the steps (an H100
+# run: 0.0001, 0.0014, 0.0166, 0.030 at losses 3.5-9.2, 0.5% at most)
+ICT_LOSS_RTOL = 0.02
+# BERT-large (reference examples/pretrain_bert.sh) and T5-large (this
+# repo's examples/pretrain_t5_split_pipeline.sh) at full width and depth;
+# the ICT towers and the classifier at BERT-base (pretrain_ict.py's
+# defaults, examples/finetune_mnli.sh)
+BERT_LARGE = ["--hidden_size", "1024", "--num_layers", "24",
+              "--num_attention_heads", "16", "--seq_length", "512"]
+T5_LARGE = ["--hidden_size", "1024", "--num_layers", "24",
+            "--num_decoder_layers", "24", "--num_attention_heads", "16",
+            "--encoder_seq_length", "512", "--decoder_seq_length", "128"]
+BERT_BASE = ["--hidden_size", "768", "--num_layers", "12",
+             "--num_attention_heads", "12"]
+
+
+def _encoder_corpus(torch, work):
+    """The encoders' corpus: phase 35's pseudo-text (another seed) cut into
+    sentences and grouped into ~ENC_DOC_WORDS-word documents, a WordPiece
+    ``vocab.txt`` of its words and their characters (unused ids up to
+    BERT's 30522), and the sentence-per-item ``.bin``/``.idx`` the BERT,
+    T5 and ICT datasets read."""
+    import re
+    from collections import Counter
+
+    from megatron_llm_tpu_torch.data.indexed_dataset import (
+        MMapIndexedDatasetBuilder,
+    )
+    from megatron_llm_tpu_torch.tokenizer.bpe import WordPieceTokenizer
+    from megatron_llm_tpu_torch.tokenizer.tokenizer import (
+        WordPieceNativeTokenizer,
+    )
+
+    corpora, _ = _pseudo_corpus(17)
+    sentences = [x for doc in corpora[0]
+                 for x in re.split(r"(?<=[.!?]) ", doc) if x]
+    vocab_path = os.path.join(work, "vocab.txt")
+    with open(vocab_path, "w") as f:
+        f.write("\n".join(ENC_SPECIALS) + "\n")
+    basic = WordPieceTokenizer(vocab_path)
+    words = Counter(w for x in sentences for w in basic._basic_split(x))
+    chars = sorted({c for w in words for c in w})
+    toks = list(dict.fromkeys(
+        list(ENC_SPECIALS) + [w for w, _ in words.most_common()] + chars
+        + ["##" + c for c in chars]))[:WP_VOCAB]
+    toks += [f"[unused{i}]" for i in range(WP_VOCAB - len(toks))]
+    with open(vocab_path, "w") as f:
+        f.write("\n".join(toks) + "\n")
+    tok = WordPieceNativeTokenizer(vocab_path)
+    prefix = os.path.join(work, "encoder_sentences")
+    builder = MMapIndexedDatasetBuilder(prefix, dtype="int32")
+    docs, doc, n_words = [], [], 0
+    for x in sentences:
+        ids = tok.tokenize(x)
+        builder.add_item(ids)
+        doc.append(x)
+        n_words += len(x.split())
+        if n_words >= ENC_DOC_WORDS:
+            builder.end_document()
+            docs.append(doc)
+            doc, n_words = [], 0
+    builder.end_document()
+    docs.append(doc)
+    builder.finalize()
+    log(f"encoder corpus: {len(sentences)} sentences in {len(docs)} "
+        f"documents, WordPiece vocabulary of {len(words)} words and "
+        f"{len(chars)} characters (ids up to {WP_VOCAB})")
+    return dict(prefix=prefix, vocab=vocab_path, tok=tok, docs=docs)
+
+
+def _enc_cfg(cfg, warmup=0, **model):
+    """``cfg`` with the kernel path (flash attention, the Triton norms),
+    ``model``'s other fields and ``warmup`` iterations of lr warmup."""
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, attention_impl="flash",
+                                       norm_impl="pallas", **model),
+        optimizer=dataclasses.replace(cfg.optimizer, lr_warmup_iters=warmup))
+
+
+def _enc_forbid(counters):
+    """What no encoder path may launch: RMSNorm and the decode kernels."""
+    return [n for n in counters
+            if n.startswith(("rmsnorm", "flash_decode", "fused_decode"))]
+
+
+def _family_batch(torch, ds, n, dev):
+    """``n`` samples of ``ds`` as one ``[1, n, ...]`` batch on ``dev``."""
+    from megatron_llm_tpu_torch.training.driver import _stack_samples
+    from megatron_llm_tpu_torch.training.step import to_device_batch
+
+    return to_device_batch(_stack_samples([ds[i] for i in range(n)],
+                                          (1, n)), dev)
+
+
+def encdec_reference(torch, dev, counters, data, smi):
+    """Phase 47: BERT-large's and T5-large's widths cut to 2 layers (2 + 2),
+    and the ICT biencoder at ``pretrain_ict``'s (BERT-base towers, not
+    shared, mean pooling, projection 128) cut to 2, bf16 through K1-K3
+    and K6/K7 at dropout 0, against the fp32 plain path from the same
+    weights: the loss and every gradient.  The kernel path's call must
+    launch K1-K3 not causal and K6/K7 (counted from 0 just before it).  A
+    leaf whose bf16 plain path (einsum attention, torch norms, the same
+    bf16 weights) already errs by more than half the limit against fp32
+    is held to 1.5 times that error instead: BERT's tokentype gradient is
+    a sum over every token into two rows, which cancels, and bf16 alone
+    errs by ~0.12 there (a CPU run of this phase's batch: kernel path
+    0.1226, plain bf16 0.1231).  A leaf whose reference gradient is ~0
+    (the key bias's, the pooler's under mean pooling) is held to an
+    absolute share of the largest leaf's norm."""
+    import functools
+
+    from megatron_llm_tpu_torch import pretrain_bert, pretrain_ict, \
+        pretrain_t5
+    from megatron_llm_tpu_torch.config import RuntimeConfig
+    from megatron_llm_tpu_torch.data.bert_dataset import (
+        BertDataset,
+        BertSpecialTokens,
+    )
+    from megatron_llm_tpu_torch.data.ict_dataset import (
+        ICTDataset,
+        ICTSpecialTokens,
+    )
+    from megatron_llm_tpu_torch.data.indexed_dataset import (
+        MMapIndexedDataset,
+    )
+    from megatron_llm_tpu_torch.data.t5_dataset import (
+        T5Dataset,
+        T5SpecialTokens,
+    )
+    from megatron_llm_tpu_torch.models import biencoder, encdec
+    from megatron_llm_tpu_torch.training.step import _accumulate_grads
+    from megatron_llm_tpu_torch.utils.tree import (
+        tree_leaves_with_path,
+        tree_map,
+    )
+
+    tok, corpus = data["tok"], MMapIndexedDataset(data["prefix"])
+    # the widths' flags, then the depth cut to 2 (argparse keeps the last)
+    bert = pretrain_bert.bert_runtime_config(pretrain_bert.get_args(
+        ["--data_path", data["prefix"]] + BERT_LARGE
+        + ["--num_layers", "2"]), WP_VOCAB)
+    t5 = pretrain_t5.t5_runtime_config(pretrain_t5.get_args(
+        ["--data_path", data["prefix"], "--vocab_size", str(T5_VOCAB)]
+        + T5_LARGE + ["--num_layers", "2", "--num_decoder_layers", "2"]))
+    ict_args = pretrain_ict.get_args(
+        ["--data_path", data["prefix"], "--vocab_size", str(WP_VOCAB)]
+        + BERT_BASE + ["--num_layers", "2"])
+    ict = pretrain_ict.ict_runtime_config(ict_args, WP_VOCAB)
+    kernels = {n + "_noncausal": None for n in TRAIN_KERNELS[::2]}
+    kernels.update(layernorm_fwd=None, layernorm_bwd=None)
+    # (label, model config, init, loss, dataset, samples)
+    cases = (
+        ("bert-large widths", _enc_cfg(bert, hidden_dropout=0.0,
+                                       attention_dropout=0.0).model,
+         encdec.init_bert_params, encdec.bert_loss,
+         BertDataset(corpus, 512, WP_VOCAB, BertSpecialTokens(
+             cls=tok.cls, sep=tok.sep, mask=tok.mask, pad=tok.pad), seed=3),
+         4),
+        ("t5-large widths", _enc_cfg(t5).model, encdec.init_t5_params,
+         encdec.t5_loss,
+         T5Dataset(corpus, 512, 128, T5_VOCAB, T5SpecialTokens(
+             bos=tok.pad, eos=tok.sep, pad=tok.pad), seed=3), 4),
+        ("ict biencoder widths", _enc_cfg(ict, hidden_dropout=0.0,
+                                          attention_dropout=0.0).model,
+         functools.partial(biencoder.init_biencoder_params,
+                           projection_dim=ict_args.projection_dim,
+                           shared=ict_args.shared_query_context_model),
+         functools.partial(biencoder.retrieval_loss,
+                           pooling=ict_args.pooling),
+         ICTDataset(corpus, ict_args.query_seq_length,
+                    ict_args.block_seq_length, ICTSpecialTokens(
+                        cls=tok.cls, sep=tok.sep, pad=tok.pad),
+                    remove_prob=ict_args.remove_prob, seed=3),
+         ict_args.micro_batch_size))
+    for label, cfg, init, loss, ds, n in cases:
+        plain = dataclasses.replace(cfg, attention_impl="dot",
+                                    norm_impl="xla", recompute="none")
+        ref_cfg = dataclasses.replace(plain, params_dtype="float32")
+        params = init(cfg, seed=3, device=dev)
+        batch = _family_batch(torch, ds, n, dev)
+        pads = float(1.0 - torch.cat([batch[k].flatten() for k in batch
+                                      if k.endswith("pad_mask")]).mean())
+        out = {}
+        for key, c, p in (("kernel", cfg, params), ("plain", plain, params),
+                          ("fp32", ref_cfg, tree_map(lambda t: t.float(),
+                                                     params))):
+            _zero(counters)
+            grads, val = _accumulate_grads(
+                RuntimeConfig(model=c), p, batch, None, 1.0,
+                loss_fn=lambda rc, pp, mb, r, d: loss(rc.model, pp, mb, r, d))
+            out[key] = (float(val), tree_leaves_with_path(grads))
+            del grads
+            if key == "kernel":
+                _check_path(f"encdec-reference {label}", _launches(counters),
+                            kernels, forbid=_enc_forbid(counters))
+        ref = out["fp32"][1]
+        norms = [float(torch.linalg.vector_norm(r)) for _, r in ref]
+        floor = 1e-4 * max(norms)
+        worst, tiny, worst_plain = ("", 0.0, 0.0), ("", 0.0), ("", 0.0)
+        for i, ((path, r), norm) in enumerate(zip(ref, norms)):
+            err, err_p = (float(torch.linalg.vector_norm(
+                out[k][1][i][1].float() - r)) for k in ("kernel", "plain"))
+            name = ".".join(path)
+            if norm <= floor:   # a ~0 reference gradient (the key bias's)
+                if not math.isfinite(err) or err / max(norms) > tiny[1]:
+                    tiny = (name, err / max(norms))
+                continue
+            limit = max(TRAIN_GRAD_RTOL, 1.5 * err_p / norm)
+            if not math.isfinite(err) or err / norm / limit > worst[1] / max(
+                    worst[2], 1e-30):
+                worst = (name, err / norm, limit)
+            if err_p / norm > worst_plain[1]:
+                worst_plain = (name, err_p / norm)
+        got, want = out["kernel"][0], out["fp32"][0]
+        d_loss = abs(got - want)
+        log(f"encdec-reference [{label}, 2 layers, bf16 kernel path vs fp32 "
+            f"plain path, {n} samples, {pads:.3f} of the positions pads]: loss "
+            f"{got:.5f} vs {want:.5f} |d| {d_loss:.5f} (tol {TRAIN_LOSS_TOL}"
+            f"; bf16 plain path {out['plain'][0]:.5f}); grad rel. Frobenius "
+            f"err, the worst against its limit: {worst[1]:.4f} at {worst[0]}"
+            f" (limit {worst[2]:.4f}: {TRAIN_GRAD_RTOL}, or 1.5x the bf16 "
+            f"plain path's own, {len(ref)} leaves); the bf16 plain path's "
+            f"worst {worst_plain[1]:.4f} at {worst_plain[0]}; the ~0 leaves' "
+            f"worst err {tiny[1]:.2e} of the largest leaf norm at {tiny[0]} "
+            f"(tol 1e-3); card {smi}")
+        if not (d_loss <= TRAIN_LOSS_TOL and worst[1] <= worst[2]
+                and tiny[1] <= 1e-3):
+            raise RuntimeError(f"encdec-reference {label}: the kernel path "
+                               "disagrees with the fp32 plain path")
+        del params, batch, out, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _family_train(torch, dev, counters, smi, label, cfg, ds, init, loss_fn,
+                  tokens_per_sample, valid=None):
+    """``pretrain_custom`` over ``ds`` from ``init()``'s weights with
+    ``on_step`` timing (an eval pass at the last iteration over ``valid``);
+    checks finite, unskipped steps and a falling loss, logs the median step,
+    tokens/s, a 6·N·tokens model rate and the peak memory.  Returns the
+    launches and the losses."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.training.driver import pretrain_custom
+
+    iters = cfg.train.train_iters
+    if valid is not None:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, eval_interval=iters, eval_iters=2))
+    params = init()
+    n_params = M.num_params(params)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    def on_step(it, m, sec):
+        steps.append((float(m["loss"]), float(m["grad_norm"]),
+                      int(m["skipped"]), sec))
+
+    state = pretrain_custom(cfg, ds, params, loss_fn, valid_dataset=valid,
+                            device=dev, on_step=on_step)
+    launches = _launches(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, params
+    if len(steps) != iters:
+        raise RuntimeError(f"{label}: {len(steps)} steps, want {iters}")
+    for i, (loss, norm, skipped, _) in enumerate(steps):
+        if not (math.isfinite(loss) and math.isfinite(norm)) or skipped:
+            raise RuntimeError(f"{label} step {i + 1}: loss {loss}, grad norm "
+                               f"{norm}, skipped {skipped}")
+    losses = [x[0] for x in steps]
+    if iters > 2 and not sum(losses[-2:]) / 2 < losses[0]:
+        raise RuntimeError(f"{label}: the loss did not fall: {losses}")
+    step_s = sorted(x[3] for x in steps[1:])[(iters - 1) // 2] \
+        if iters > 1 else steps[0][3]
+    tokens = cfg.train.global_batch_size * tokens_per_sample
+    tflops = 6.0 * n_params * tokens / step_s / 1e12
+    log(f"{label}: {n_params / 1e6:.1f}M params (bf16, fp32 master + "
+        f"AdamW), global batch {cfg.train.global_batch_size} "
+        f"({cfg.grad_accum_steps} microbatch(es)), {tokens_per_sample} "
+        f"tokens a sample, {iters} steps; losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x[1], 3) for x in steps]}; step (median of steps "
+        f"2-{iters}) {step_s * 1e3:.1f} ms, first step "
+        f"{steps[0][3] * 1e3:.1f} ms; {tokens / step_s:.1f} tokens/s; "
+        f"6·N·tokens {tflops:.1f} TFLOP/s, share "
+        f"{tflops / (timing.PEAK_BF16_OPS_S / 1e12):.4f} of 989 "
+        f"(attention not counted); peak memory {peak / 2**30:.2f} GiB; host "
+        f"clock; card {smi}")
+    return launches, losses
+
+
+def _same_first_loss(torch, dev, label, cfg, ds, init, loss_fn, first):
+    """One step again from the same seed: the same first loss, exactly."""
+    from megatron_llm_tpu_torch.training.driver import pretrain_custom
+
+    again = []
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, train_iters=1))
+    state = pretrain_custom(cfg, ds, init(), loss_fn, device=dev,
+                            on_step=lambda it, m, s: again.append(
+                                float(m["loss"])))
+    del state
+    log(f"{label}: first-step loss {first!r}, again from the same seed "
+        f"{again[0]!r}")
+    if again[0] != first:
+        raise RuntimeError(f"{label}: the same seed gave another first-step "
+                           "loss")
+
+
+def _check_bodies(label, launches, names, causal_too=False):
+    """Every bf16 launch of ``names`` (K1-K3) on its tensor-core body; with
+    ``causal_too`` each also launched causal (the T5 decoder's
+    self-attention) beside its non-causal launches."""
+    off = [n for n in names if launches[n + "_mma"] != launches[n]]
+    if off:
+        raise RuntimeError(f"{label}: launches off the tensor-core bodies: "
+                           f"{off}")
+    never = [n for n in names if causal_too
+             and not launches[n] > launches[n + "_noncausal"]]
+    if never:
+        raise RuntimeError(f"{label}: never launched causal: {never}")
+
+
+def bert_train(torch, dev, counters, smi, data):
+    """Phase 48: BERT-large through ``pretrain_custom`` at the entry's
+    dropouts; returns the path's launches."""
+    from megatron_llm_tpu_torch import pretrain_bert
+    from megatron_llm_tpu_torch.data.bert_dataset import (
+        BertDataset,
+        BertSpecialTokens,
+    )
+    from megatron_llm_tpu_torch.data.indexed_dataset import (
+        MMapIndexedDataset,
+    )
+    from megatron_llm_tpu_torch.models import encdec
+
+    tok = data["tok"]
+    args = pretrain_bert.get_args(
+        ["--data_path", data["prefix"]] + BERT_LARGE + [
+            "--micro_batch_size", "8", "--global_batch_size", "8",
+            "--train_iters", "6", "--log_interval", "1", "--seed", "11"])
+    # the entry's config with 2 iterations of lr warmup (the reference's
+    # examples warm up; without it lr 1e-4 from random weights spikes)
+    cfg = _enc_cfg(pretrain_bert.bert_runtime_config(args, WP_VOCAB),
+                   warmup=2)
+    ds = BertDataset(MMapIndexedDataset(data["prefix"]), 512, WP_VOCAB,
+                     BertSpecialTokens(cls=tok.cls, sep=tok.sep,
+                                       mask=tok.mask, pad=tok.pad),
+                     seed=args.seed)
+
+    def init():
+        return encdec.init_bert_params(cfg.model, args.seed, device=dev)
+
+    launches, losses = _family_train(
+        torch, dev, counters, smi, "bert-train (BERT-large, 24 layers, seq "
+        "512, dropout 0.1/0.1)", cfg, ds, init, pretrain_bert.bert_loss_fn,
+        512, valid=ds)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _same_first_loss(torch, dev, "bert-train", cfg, ds, init,
+                     pretrain_bert.bert_loss_fn, losses[0])
+    # attention dropout routes training attention to the einsum path: the
+    # eval pass launches K1 (not causal), the backward kernels nothing
+    _check_path("bert-train", launches,
+                {"flash_attention_fwd_noncausal": None, "layernorm_fwd": None,
+                 "layernorm_bwd": None},
+                forbid=_enc_forbid(counters) + [
+                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
+    _check_bodies("bert-train", launches, ("flash_attention_fwd",))
+    return launches
+
+
+def t5_train(torch, dev, counters, smi, data):
+    """Phase 49: T5-large through ``pretrain_custom`` at the entry's
+    dropout (0): K1-K3 not causal in the encoder, causal over pad segments
+    in the decoder; returns the path's launches."""
+    from megatron_llm_tpu_torch import pretrain_t5
+    from megatron_llm_tpu_torch.data.indexed_dataset import (
+        MMapIndexedDataset,
+    )
+    from megatron_llm_tpu_torch.data.t5_dataset import (
+        T5Dataset,
+        T5SpecialTokens,
+    )
+    from megatron_llm_tpu_torch.models import encdec
+
+    tok = data["tok"]
+    args = pretrain_t5.get_args(
+        ["--data_path", data["prefix"], "--vocab_size", str(T5_VOCAB)]
+        + T5_LARGE + ["--micro_batch_size", "4", "--global_batch_size", "8",
+                      "--train_iters", "5", "--log_interval", "1",
+                      "--seed", "13"])
+    cfg = _enc_cfg(pretrain_t5.t5_runtime_config(args), warmup=2)
+    ds = T5Dataset(MMapIndexedDataset(data["prefix"]), 512, 128, T5_VOCAB,
+                   T5SpecialTokens(bos=tok.pad, eos=tok.sep, pad=tok.pad),
+                   seed=args.seed)
+
+    def init():
+        return encdec.init_t5_params(cfg.model, args.seed, device=dev)
+
+    launches, losses = _family_train(
+        torch, dev, counters, smi, "t5-train (T5-large, 24 + 24 layers, seq "
+        "512 / 128)", cfg, ds, init, pretrain_t5.t5_loss_fn, 512 + 128,
+        valid=ds)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _same_first_loss(torch, dev, "t5-train", cfg, ds, init,
+                     pretrain_t5.t5_loss_fn, losses[0])
+    _check_path("t5-train", launches,
+                {n: None for n in TRAIN_KERNELS + (
+                    "flash_attention_fwd_noncausal",
+                    "flash_attention_bwd_dq_noncausal",
+                    "flash_attention_bwd_dkv_noncausal", "layernorm_fwd",
+                    "layernorm_bwd")}, forbid=_enc_forbid(counters))
+    _check_bodies("t5-train", launches, ("flash_attention_fwd",
+                                         "flash_attention_bwd_dq",
+                                         "flash_attention_bwd_dkv"),
+                  causal_too=True)
+    return launches
+
+
+def _pack_query(tok, text, n):
+    """[CLS] text [SEP] padded to ``n`` → (ids, pad mask)."""
+    ids = [tok.cls] + tok.tokenize(text)[:n - 2] + [tok.sep]
+    return (ids + [tok.pad] * (n - len(ids)),
+            [1.0] * len(ids) + [0.0] * (n - len(ids)))
+
+
+def ict_orqa(torch, dev, counters, smi, data, work):
+    """Phase 50: ``pretrain_ict``'s config (BERT-base towers, query 64,
+    block 256, projection 128, mean pooling, micro batch 32, dropout
+    0.1/0.1) for 4 iterations through ``pretrain_custom``, and the same
+    steps on the plain path (dot attention, XLA norms) from the same seed:
+    each step's loss within ICT_LOSS_RTOL of the plain path's.  From
+    random towers the entry's lr 1e-4 at once raises the loss on both
+    paths alike (an optimizer setting, not a kernel: the reference
+    warm-starts ICT from a trained BERT), so the loss must fall in 6 more
+    iterations at lr 5e-6.  Then the REALM index over every evidence
+    block (``IndexBuilder``, the context tower without grad: K1 not
+    causal), an NQ-format QA file the smoke writes (a question a block:
+    one of its sentences, the answer its longest word), ``read_nq_file``
+    and ``evaluate_retriever`` over ``mips_search``.  Returns the two
+    paths' launches."""
+    import numpy as np
+
+    from megatron_llm_tpu_torch import pretrain_ict
+    from megatron_llm_tpu_torch.data.ict_dataset import (
+        ICTDataset,
+        ICTSpecialTokens,
+    )
+    from megatron_llm_tpu_torch.data.indexed_dataset import (
+        MMapIndexedDataset,
+    )
+    from megatron_llm_tpu_torch.models import biencoder
+    from megatron_llm_tpu_torch.models.realm_indexer import IndexBuilder
+    from megatron_llm_tpu_torch.tasks import orqa
+    from megatron_llm_tpu_torch.training.driver import pretrain_custom
+
+    tok = data["tok"]
+    args = pretrain_ict.get_args(
+        ["--data_path", data["prefix"], "--vocab_size", str(WP_VOCAB),
+         "--cls_id", str(tok.cls), "--sep_id", str(tok.sep), "--pad_id",
+         str(tok.pad), "--train_iters", "4", "--log_interval", "1"]
+        + BERT_BASE)
+    cfg = _enc_cfg(pretrain_ict.ict_runtime_config(args, WP_VOCAB))
+    corpus = MMapIndexedDataset(data["prefix"])
+    ds = ICTDataset(corpus, args.query_seq_length, args.block_seq_length,
+                    ICTSpecialTokens(cls=tok.cls, sep=tok.sep, pad=tok.pad),
+                    remove_prob=args.remove_prob, seed=args.seed)
+
+    def fit(c):
+        """``(state, losses, step seconds, launches)`` from the seed."""
+        params = biencoder.init_biencoder_params(
+            c.model, args.seed, device=dev,
+            projection_dim=args.projection_dim,
+            shared=args.shared_query_context_model)
+        steps = []
+        _zero(counters)
+        state = pretrain_custom(c, ds, params, pretrain_ict.ict_loss_fn(
+            args.pooling), device=dev, on_step=lambda it, m, sec:
+            steps.append((float(m["loss"]), sec)))
+        losses = [x for x, _ in steps]
+        if not (len(losses) == c.train.train_iters
+                and all(map(math.isfinite, losses))):
+            raise RuntimeError(f"ict-train: losses {losses}")
+        return state, losses, [x for _, x in steps], _launches(counters)
+
+    state, losses, secs, train_l = fit(cfg)
+    _check_path("ict-train", train_l,
+                {"layernorm_fwd": None, "layernorm_bwd": None},
+                forbid=_enc_forbid(counters) + [
+                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
+    # the same dropout masks, and training attention on einsum on both
+    # paths (attention dropout): only K6/K7 differ
+    plain = fit(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, attention_impl="dot", norm_impl="xla")))[1]
+    slow = fit(dataclasses.replace(
+        cfg, optimizer=dataclasses.replace(cfg.optimizer, lr=5e-6,
+                                           min_lr=5e-7),
+        train=dataclasses.replace(cfg.train, train_iters=6)))[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"ict-train: {len(losses)} steps of micro batch "
+        f"{args.micro_batch_size}, losses {[round(x, 4) for x in losses]} "
+        f"(chance ln {args.micro_batch_size} = "
+        f"{math.log(args.micro_batch_size):.4f}), step times (ms) "
+        f"{[round(x * 1e3, 1) for x in secs]}; the plain path from the same "
+        f"seed {[round(x, 4) for x in plain]} (tol {ICT_LOSS_RTOL} "
+        f"relative); at lr 5e-6, 6 steps {[round(x, 4) for x in slow]}; "
+        f"host clock; card {smi}")
+    if any(abs(k - p) > ICT_LOSS_RTOL * abs(p)
+           for k, p in zip(losses, plain)):
+        raise RuntimeError(f"ict-train: the kernel path's losses {losses} "
+                           f"against the plain path's {plain}")
+    if not sum(slow[-2:]) / 2 < slow[0]:
+        raise RuntimeError(f"ict-train: at lr 5e-6 the loss did not fall: "
+                           f"{slow}")
+
+    _zero(counters)
+    t0 = time.perf_counter()
+    store = IndexBuilder(cfg.model, state.params, ds,
+                         os.path.join(work, "evidence.npz"), batch_size=32,
+                         pooling=args.pooling).build_and_save_index()
+    ids, vecs = store.as_arrays()
+    t_index = time.perf_counter() - t0
+    rows = {int(r[3]): r for r in np.asarray(ds.mapping)}
+    texts = []
+    for bid in ids.tolist():
+        start, end, doc, _ = (int(x) for x in rows[bid])
+        t, m = ds.get_block(start, end, doc)
+        texts.append(tok.detokenize([int(x) for x, k in zip(t, m) if k
+                                     and int(x) not in (tok.cls, tok.sep)]))
+    qa_path = os.path.join(work, "nq.tsv")
+    with open(qa_path, "w") as f:
+        for bid in ids.tolist()[::max(1, len(ids) // 96)][:96]:
+            start, end, doc, _ = (int(x) for x in rows[bid])
+            sent = tok.detokenize(list(corpus[start]))
+            answer = max(sent.split(), key=len)
+            f.write(f"{sent}\t{json.dumps([answer])}\n")
+    questions, answers = orqa.read_nq_file(qa_path)
+    proj = state.params["projection"]["q"]
+
+    def encode_question(qs):
+        packed = [_pack_query(tok, q, args.query_seq_length) for q in qs]
+        return biencoder.embed_batches(
+            cfg.model, state.params["query"], np.asarray([p[0]
+                                                          for p in packed]),
+            np.asarray([p[1] for p in packed], np.float32), proj, 32,
+            args.pooling)
+
+    stats = orqa.evaluate_retriever(cfg.model, state.params, questions,
+                                    answers, texts, vecs, encode_question,
+                                    top_ks=(1, 5, 20))
+    index_l = _launches(counters)
+    log(f"orqa: {len(ids)} evidence blocks indexed in {t_index:.1f}s "
+        f"(dim {vecs.shape[1]}, context tower, mean pooling), "
+        f"{len(questions)} questions of the smoke's NQ file: top-k hits "
+        f"{json.dumps(stats)}; host clock; card {smi}")
+    hits = [stats[f"top{k}_accuracy"] for k in (1, 5, 20)]
+    if not (all(0.0 <= h <= 1.0 for h in hits) and hits == sorted(hits)
+            and np.isfinite(vecs).all()):
+        raise RuntimeError(f"orqa: top-k hits {stats}")
+    _check_path("orqa", index_l,
+                {"flash_attention_fwd_noncausal": None,
+                 "layernorm_fwd": None},
+                forbid=_enc_forbid(counters) + [
+                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                    "layernorm_bwd"])
+    return train_l, index_l
+
+
+def classification_phase(torch, dev, counters, smi, data, work):
+    """Phase 51: MNLI-format files the smoke writes (sentence pairs: the
+    same sentence, entailment; the next one, neutral; one from another
+    document, contradiction) through ``glue.load_glue_rows`` and
+    ``ClassificationDataset`` with the WordPiece tokenizer; a BERT-base
+    release checkpoint saved and read back with ``load_release_params``;
+    ``examples/finetune_mnli.sh``'s shape (seq 128, micro batch 8, global
+    32, lr 2e-5) for 8 iterations through ``pretrain_custom``, then
+    ``classification_accuracy``.  Returns the path's launches."""
+    from megatron_llm_tpu_torch import checkpointing
+    from megatron_llm_tpu_torch.config import (
+        OptimizerConfig,
+        RuntimeConfig,
+        TrainConfig,
+    )
+    from megatron_llm_tpu_torch.models import encdec
+    from megatron_llm_tpu_torch.tasks import classification as cls
+    from megatron_llm_tpu_torch.tasks import glue
+
+    tok, docs = data["tok"], data["docs"]
+    header = ("index\tpromptID\tpairID\tgenre\tsentence1_binary_parse\t"
+              "sentence2_binary_parse\tsentence1_parse\tsentence2_parse\t"
+              "sentence1\tsentence2\tlabel1\tgold_label")
+
+    def write(path, first, n):
+        lines = [header]
+        for i in range(first, first + n):
+            d = docs[i % len(docs)]
+            j = i % max(1, len(d) - 1)
+            s1 = d[j]
+            kind = ("entailment", "neutral", "contradiction")[i % 3]
+            s2 = {"entailment": s1, "neutral": d[j + 1] if j + 1 < len(d)
+                  else d[0], "contradiction":
+                  docs[(i + len(docs) // 2) % len(docs)][0]}[kind]
+            s1, s2 = (x.replace("\t", " ") for x in (s1, s2))
+            lines.append(f"{i}\t{i}p\t{i}pair\tfiction\t(p)\t(p)\t(p)\t"
+                         f"(p)\t{s1}\t{s2}\t{kind}\t{kind}")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    write(os.path.join(work, "train.tsv"), 0, 256)
+    write(os.path.join(work, "dev.tsv"), 1000, 96)
+    train_rows, label_map = glue.load_glue_rows(
+        "mnli", os.path.join(work, "train.tsv"))
+    valid_rows, _ = glue.load_glue_rows("mnli", os.path.join(work,
+                                                             "dev.tsv"))
+    ids = (tok.cls, tok.sep, tok.pad)
+    train_ds = cls.ClassificationDataset(train_rows, tok, 128, *ids,
+                                         label_map=label_map)
+    valid_ds = cls.ClassificationDataset(valid_rows, tok, 128, *ids,
+                                         label_map=label_map)
+    h, layers, heads = (int(x) for x in BERT_BASE[1::2])
+    model = dataclasses.replace(
+        cls.encoder_model_config(WP_VOCAB, h, layers, heads, 128),
+        attention_impl="flash", norm_impl="pallas")
+    cfg = RuntimeConfig(
+        model=model, optimizer=OptimizerConfig(lr=2e-5, clip_grad=1.0),
+        train=TrainConfig(train_iters=8, micro_batch_size=8,
+                          global_batch_size=32, seq_length=128, seed=21,
+                          log_interval=1)).validate()
+    bert = encdec.init_bert_params(model, seed=20, device=dev)
+    root = os.path.join(work, "bert-base")
+    checkpointing.save_release_params(root, {
+        k: v for k, v in bert.items() if k not in ("lm_head",
+                                                   "binary_head")})
+    params = cls.init_classification_params(model, train_ds.num_classes,
+                                            seed=21, device=dev)
+    params = cls.load_pretrained_trunk(root, params, "classification_head")
+    if not torch.equal(params["layers"]["mlp"]["w_up"],
+                       bert["layers"]["mlp"]["w_up"]):
+        raise RuntimeError("classification: the BERT release was not read")
+    del bert
+
+    def loss_fn(rcfg, p, mb, rng, deterministic):
+        return cls.classification_loss(rcfg.model, p, mb, rng, deterministic)
+
+    from megatron_llm_tpu_torch.training.driver import pretrain_custom
+
+    losses = []
+    _zero(counters)
+    t0 = time.perf_counter()
+    state = pretrain_custom(cfg, train_ds, params, loss_fn, device=dev,
+                            on_step=lambda it, m, s: losses.append(
+                                (float(m["loss"]), s)))
+    acc = cls.classification_accuracy(cfg.model, state.params, valid_ds)
+    launches = _launches(counters)
+    log(f"classification (BERT-base, 12 layers, seq 128, MNLI format, "
+        f"{train_ds.num_classes} classes): {len(losses)} steps in "
+        f"{time.perf_counter() - t0:.1f}s, losses "
+        f"{[round(x, 4) for x, _ in losses]}, step ms "
+        f"{[round(s * 1e3, 1) for _, s in losses]}; valid accuracy {acc:.4f} "
+        f"on {len(valid_ds)} pairs; host clock; card {smi}")
+    if not (all(math.isfinite(x) for x, _ in losses) and 0 <= acc <= 1):
+        raise RuntimeError(f"classification: losses {losses}, acc {acc}")
+    _check_path("classification", launches,
+                {n: None for n in TRAIN_KERNELS + (
+                    "flash_attention_fwd_noncausal",
+                    "flash_attention_bwd_dq_noncausal",
+                    "flash_attention_bwd_dkv_noncausal", "layernorm_fwd",
+                    "layernorm_bwd")}, forbid=_enc_forbid(counters))
+    return launches
+
+
+def entries_phase(torch, dev, counters, smi, data):
+    """Phase 52: ``pretrain_bert.main``, ``pretrain_t5.main`` and
+    ``pretrain_ict.main`` from their command lines as JAX users run them
+    (``--vocab_size``, the entries' defaults: BERT-base widths, seq 512,
+    micro batch 4 of 32; ICT micro batch 32), 2 iterations at 2 layers, on
+    the card by default; their configs take dot attention and XLA norms,
+    so no kernel may launch."""
+    from megatron_llm_tpu_torch import pretrain_bert, pretrain_ict, \
+        pretrain_t5
+
+    tok = data["tok"]
+    common = ["--data_path", data["prefix"], "--num_layers", "2",
+              "--train_iters", "2", "--log_interval", "1"]
+    runs = (("pretrain_bert", pretrain_bert, ["--vocab_size",
+                                              str(WP_VOCAB)]),
+            ("pretrain_t5", pretrain_t5, ["--vocab_size", str(T5_VOCAB),
+                                          "--num_decoder_layers", "2"]),
+            ("pretrain_ict", pretrain_ict, [
+                "--vocab_size", str(WP_VOCAB), "--cls_id", str(tok.cls),
+                "--sep_id", str(tok.sep), "--pad_id", str(tok.pad)]))
+    for name, entry, extra in runs:
+        _zero(counters)
+        t0 = time.perf_counter()
+        state = entry.main(common + extra)
+        dev_of = next(iter(state.params.values()))
+        while isinstance(dev_of, dict):
+            dev_of = next(iter(dev_of.values()))
+        launches = _launches(counters)
+        log(f"entries: {name}.main {common[2:] + extra} -> iteration "
+            f"{int(state.iteration)} on {dev_of.device} in "
+            f"{time.perf_counter() - t0:.1f}s")
+        if int(state.iteration) != 2 or dev_of.device.type != "cuda":
+            raise RuntimeError(f"entries: {name} ran {state.iteration} "
+                               f"iterations on {dev_of.device}")
+        _check_path(f"entries {name}", launches, {},
+                    forbid=[n for n in counters])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def encoder_families_phases(torch, dev, counters, smi, paths, settle):
+    """Phases 47-52 (the ``encoder-families`` paths)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_enc_")
+    try:
+        t0 = tp = time.perf_counter()
+        data = _encoder_corpus(torch, work)
+        encdec_reference(torch, dev, counters, data, smi)
+        settle()
+        tp = _phase_done("47", tp, smi)
+        paths["bert-train"] = bert_train(torch, dev, counters, smi, data)
+        settle()
+        tp = _phase_done("48", tp, smi)
+        paths["t5-train"] = t5_train(torch, dev, counters, smi, data)
+        settle()
+        tp = _phase_done("49", tp, smi)
+        paths["ict-train"], paths["orqa"] = ict_orqa(torch, dev, counters,
+                                                     smi, data, work)
+        settle()
+        tp = _phase_done("50", tp, smi)
+        paths["classification"] = classification_phase(
+            torch, dev, counters, smi, data, work)
+        settle()
+        tp = _phase_done("51", tp, smi)
+        entries_phase(torch, dev, counters, smi, data)
+        settle()
+        _phase_done("52", tp, smi)
+        log(f"encoder-families phases 47-52 in "
+            f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def log_hmma(build) -> None:
     """Log the tensor-core instructions (HMMA) of the attention kernels'
     libraries, where the toolkit's cuobjdump is present; information only."""
@@ -5538,6 +6466,7 @@ def main() -> int:
     serving_options_phases(torch, fused, dev, counters, smi, paths, settle)
     single_card_training_phases(torch, fused, dev, counters, smi, paths,
                                 settle)
+    encoder_families_phases(torch, dev, counters, smi, paths, settle)
 
     meta = {
         "flash_attention_fwd": (
@@ -5628,6 +6557,9 @@ def main() -> int:
         if kname + "_split" in counters:  # launches of the split body
             extra["split_launches"] = sum(n[kname + "_split"]
                                           for n in paths.values())
+        if kname + "_noncausal" in counters:  # causal=False launches
+            extra["noncausal_launches"] = sum(n[kname + "_noncausal"]
+                                              for n in paths.values())
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,
                             launches=sum(by_path.values()),

@@ -10,7 +10,16 @@ shapes and ``x @ w`` orientation, leaf for leaf, as torch tensors:
 - ``layers.mlp.{w_gate, w_up, w_down}``;
 - ``layers.{input_norm, post_attn_norm}.scale`` (``mlp_norm`` for
   Falcon-40B, ``bias`` for LayerNorm);
-- ``final_norm.scale`` and ``lm_head``.
+- ``final_norm.scale`` and ``lm_head``;
+- the encoder families' trees as they are (``models/encdec.py``,
+  ``biencoder.py``, ``tasks/``): BERT's ``embedding.tokentype``,
+  ``embed_norm``, ``lm_head.{dense, dense_bias, norm, bias}``, ``pooler``
+  and ``binary_head``; T5's ``encoder`` / ``decoder`` stacks, its
+  ``cross`` subtree stacked ``[n_decoder_layers, ...]``, ``enc_norm``,
+  ``dec_norm`` and ``lm_head_bias``; a biencoder's ``query`` and
+  ``context`` towers (a shared one has no ``context``) and
+  ``projection``; the tasks' ``classification_head`` and
+  ``multichoice_head``.
 
 A tree quantized by the JAX ``ops/quant.quantize_params`` crosses the same
 way: its ``{"q", "scale"}`` leaves (int8 codes, packed int4 codes, fp32

@@ -18,7 +18,8 @@ decode step's wrappers count their launches with a LoRA arena apart, in
 body (bf16) in ``<wrapper>.tma_launches`` and
 ``<wrapper>.lora.tma_launches``; the flash-attention forward, dQ and dK/dV
 wrappers their launches of the tensor-core body (bf16 / fp16 inputs) in
-``<wrapper>.mma_launches``; the decode-attention wrappers (K8-K11) their
+``<wrapper>.mma_launches`` and their non-causal launches in
+``<wrapper>.noncausal_launches``; the decode-attention wrappers (K8-K11) their
 launches of the split cache walk in ``<wrapper>.split_launches``.  Each
 body count follows the C launcher's own report of the body it ran.
 """
@@ -46,7 +47,8 @@ def launch_counters() -> dict:
     themselves, ``<name>_lora`` for the fused decode step's launches with a
     LoRA arena, ``<name>_tma`` and ``<name>_lora_tma`` for its launches of
     the TMA body, ``<name>_mma`` for the flash-attention forward's,
-    dQ's and dK/dV's launches of their tensor-core bodies, and
+    dQ's and dK/dV's launches of their tensor-core bodies,
+    ``<name>_noncausal`` for their launches with ``causal=False``, and
     ``<name>_split`` for K8-K11's launches of the split cache walk."""
     from .decode_step import (
         fused_decode_step,
@@ -81,6 +83,10 @@ def launch_counters() -> dict:
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "flash_attention_bwd_dkv_mma": _AttrCounter(
                 flash_attention_bwd_dkv, "mma_launches"),
+            **{f"{fn.__name__}_noncausal": _AttrCounter(
+                fn, "noncausal_launches")
+               for fn in (flash_attention_fwd, flash_attention_bwd_dq,
+                          flash_attention_bwd_dkv)},
             "flash_decode": flash_decode,
             "flash_decode_int8": flash_decode_int8,
             "flash_decode_paged": flash_decode_paged,

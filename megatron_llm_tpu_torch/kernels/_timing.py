@@ -13,9 +13,14 @@ PEAK_BF16_OPS_S = 989e12
 PEAK_FP32_OPS_S = 67e12  # outside the tensor cores (norms' fp32 math)
 PEAK_INT8_OPS_S = 1979e12  # int8 tensor-core operations/s
 
-# the LayerNorm shapes timed: Falcon-7B's and GPT-1.3B's training rows
+# the LayerNorm shapes timed: Falcon-7B's and GPT-1.3B's training rows,
+# then the encoders': BERT-large's / T5-large's (8 x 512 rows, h 1024) and
+# the ICT towers' BERT-base (32 x 256 rows, h 768)
 LN_SHAPES = (("falcon-7b rows 2048 h 4544", 2048, 4544),
-             ("gpt-1.3b rows 4096 h 2048", 4096, 2048))
+             ("gpt-1.3b rows 4096 h 2048", 4096, 2048),
+             ("bert-large rows 4096 h 1024", 4096, 1024),
+             ("bert-base rows 8192 h 768", 8192, 768))
+ENCODER_LN_SHAPES = LN_SHAPES[2:]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:

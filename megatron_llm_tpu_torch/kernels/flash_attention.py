@@ -13,7 +13,10 @@ fp32 outside them, as the JAX wrapper does.  What bounds each kernel on the
 H100 and how it is laid out is written at the top of its CUDA source.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises on a dtype, head size or layout the kernel does not take.
+raises on a dtype, head size or layout the kernel does not take.  Each
+wrapper counts its launches in ``launches``, those of the tensor-core body
+in ``mma_launches`` and those with ``causal=False`` (the encoders) in
+``noncausal_launches``.
 """
 
 from __future__ import annotations
@@ -142,11 +145,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, segment_ids=None,
     build.check(err, "flash_attention")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.mma_launches += body.value == _BODY_MMA
+    flash_attention_fwd.noncausal_launches += not causal
     return o, lse
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.mma_launches = 0
+flash_attention_fwd.noncausal_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -255,11 +260,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.mma_launches += body.value == _BODY_MMA
+    flash_attention_bwd_dq.noncausal_launches += not causal
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.mma_launches = 0
+flash_attention_bwd_dq.noncausal_launches = 0
 
 
 _DKV_TILE = 64         # keys per K3 block
@@ -332,11 +339,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.mma_launches += body.value == _BODY_MMA
+    flash_attention_bwd_dkv.noncausal_launches += not causal
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.mma_launches = 0
+flash_attention_bwd_dkv.noncausal_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,

@@ -1,0 +1,362 @@
+"""Encoder and encoder-decoder models: BERT and T5 (mirror of
+``megatron_llm_tpu/models/encdec.py``).
+
+- ``BertModel`` (reference megatron/model/bert_model.py): a bidirectional
+  encoder, the pooler, the MLM head (dense → gelu → LayerNorm → the tied
+  embedding's logits + a bias) and the binary (NSP) head; the loss is the
+  masked-LM cross-entropy plus the sentence-pair one.
+- ``T5Model`` (megatron/model/t5_model.py): a shared embedding, an encoder
+  and a decoder with cross-attention, learned absolute positions, tied
+  logits + a bias.
+
+Both reuse the decoder stack of ``models/transformer.py``: the encoder is
+``stack_forward`` with ``causal=False`` and the padding as segment ids
+(pads in segment 0, content in 1), so ``attention_impl="flash"`` takes the
+flash kernels in their non-causal mode; the T5 decoder adds a
+cross-attention block between self-attention and MLP, each layer run
+under ``cfg.recompute`` as ``stack_forward`` runs its layers.  Cross
+attention is the JAX package's einsum with an additive ``-inf`` bias over
+the encoder's pads, outside any kernel, as there.
+
+Parameters are the JAX package's trees (``convert.params_from_jax``
+carries them leaf for leaf; the T5 ``cross`` subtree is stacked per
+decoder layer), drawn here from a ``torch.Generator``.  Dropout is on when
+a ``DropoutKey`` is given and ``deterministic`` is False, with JAX's key
+chain: the stack folds in the layer, the T5 decoder's three residual
+branches take salts 2, 3 and 4.  The tensor-parallel ``*_param_specs``
+are not here: they wait for ROADMAP.md Queue 1 item 9.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ModelConfig
+from ..ops import dropout as drop
+from ..ops.attention import attention
+from ..ops.norms import norm_apply, norm_init
+from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
+from ..utils.tree import tree_map
+from .model import default_device
+from .transformer import (
+    AttnSideInputs,
+    Params,
+    _layer_runner,
+    _normal,
+    attention_block,
+    init_stack_params,
+    mlp_block,
+    proj,
+    stack_forward,
+    unstack_layers,
+)
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    assert not cfg.parallel_attn, "BERT/T5 use sequential residual blocks"
+    assert cfg.num_experts == 0, (
+        "MoE is not plumbed through the encoder stacks (the aux "
+        "load-balance loss would be silently dropped)")
+
+
+def _generator(seed: int, device):
+    """``(generator, device)``; no generator on the ``meta`` device, which
+    gives shapes and dtypes alone (a checkpoint template)."""
+    device = default_device(device)
+    if device.type == "meta":
+        return None, device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen, device
+
+
+def _zeros(shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _pad_segments(pad_mask: torch.Tensor) -> torch.Tensor:
+    """``[b, s]`` 1/0 pad mask → int32 segment ids, pads in segment 0 and
+    content in segment 1, so content never attends to padding (the one
+    place the mask is cast; the kernel wrapper takes it as it is)."""
+    return pad_mask.to(torch.int32).contiguous()
+
+
+def _stack_key(base_rng, deterministic: bool):
+    """The stack's ``DropoutKey``, or None when nothing is dropped."""
+    return None if deterministic else base_rng
+
+
+def _encoder_side(pad_mask: Optional[torch.Tensor]) -> AttnSideInputs:
+    return AttnSideInputs(
+        segment_ids=None if pad_mask is None else _pad_segments(pad_mask),
+        causal=False)
+
+
+def encoder_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
+                    pad_mask: Optional[torch.Tensor], base_rng=None,
+                    deterministic: bool = True) -> torch.Tensor:
+    """The bidirectional stack (no RoPE: BERT and T5 use absolute
+    positions), each layer under ``cfg.recompute``."""
+    return stack_forward(cfg, stacked, x, _encoder_side(pad_mask),
+                         _stack_key(base_rng, deterministic))
+
+
+# ---------------------------------------------------------------------------
+# BERT (reference: megatron/model/bert_model.py)
+# ---------------------------------------------------------------------------
+
+
+def _init_bert(cfg: ModelConfig, gen, device, tp: int = 1) -> Params:
+    _check_family(cfg)
+    h, dtype, std = cfg.hidden_size, cfg.dtype, cfg.init_method_std
+    v = cfg.padded_vocab_size(tp)
+
+    def normal(shape):
+        return _normal(shape, std, dtype, gen, device)
+
+    return {
+        "embedding": {
+            "word": normal((v, h)),
+            "position": normal((cfg.max_position_embeddings, h)),
+            "tokentype": normal((max(cfg.tokentype_size, 2), h)),
+        },
+        "embed_norm": norm_init(cfg.norm_type, h, dtype, device),
+        "layers": init_stack_params(cfg, gen, device),
+        "final_norm": norm_init(cfg.norm_type, h, dtype, device),
+        # the MLM transform (BertLMHead: dense, gelu, LN, tied logits + bias)
+        "lm_head": {
+            "dense": normal((h, h)),
+            "dense_bias": _zeros((h,), dtype, device),
+            "norm": norm_init(cfg.norm_type, h, dtype, device),
+            "bias": _zeros((v,), torch.float32, device),
+        },
+        # pooler + binary (NSP) head (bert_model.py pooler / binary_head)
+        "pooler": {"w": normal((h, h)), "b": _zeros((h,), dtype, device)},
+        "binary_head": {"w": normal((h, 2)),
+                        "b": _zeros((2,), dtype, device)},
+    }
+
+
+def init_bert_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                     tp: int = 1) -> Params:
+    """BERT's parameters with the JAX package's shapes and distributions,
+    drawn on ``device`` (default ``cuda``) from ``seed``."""
+    gen, device = _generator(seed, device)
+    return _init_bert(cfg, gen, device, tp)
+
+
+def bert_encode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                pad_mask: torch.Tensor,
+                tokentype_ids: Optional[torch.Tensor] = None,
+                rng=None, deterministic: bool = True):
+    """The shared BERT trunk → ``(hidden [b, s, h], pooled [CLS] [b, h])``,
+    used by the pretraining heads, the biencoder and the downstream
+    tasks."""
+    b, s = tokens.shape
+    emb = params["embedding"]
+    if tokentype_ids is None:
+        tokentype_ids = torch.zeros((b, s), dtype=torch.long,
+                                    device=tokens.device)
+    pos = torch.arange(s, device=tokens.device)[None, :]
+    x = emb["word"][tokens] + emb["position"][pos] \
+        + emb["tokentype"][tokentype_ids]
+    x = norm_apply(cfg.norm_type, x, params["embed_norm"], cfg.norm_eps,
+                   impl=cfg.norm_impl)
+    x = encoder_forward(cfg, params["layers"], x, pad_mask, rng,
+                        deterministic)
+    x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
+                   impl=cfg.norm_impl)
+    pooled = torch.tanh(x[:, 0] @ params["pooler"]["w"]
+                        + params["pooler"]["b"])
+    return x, pooled
+
+
+def bert_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 pad_mask: torch.Tensor,
+                 tokentype_ids: Optional[torch.Tensor] = None,
+                 rng=None, deterministic: bool = True):
+    """→ ``(mlm_logits [b, s, v] fp32, binary_logits [b, 2] fp32)``."""
+    x, pooled = bert_encode(cfg, params, tokens, pad_mask, tokentype_ids,
+                            rng, deterministic)
+    head = params["lm_head"]
+    t = F.gelu(x @ head["dense"] + head["dense_bias"], approximate="tanh")
+    t = norm_apply(cfg.norm_type, t, head["norm"], cfg.norm_eps,
+                   impl=cfg.norm_impl)
+    mlm_logits = (t @ params["embedding"]["word"].T).float() + head["bias"]
+    binary_logits = (pooled @ params["binary_head"]["w"]
+                     + params["binary_head"]["b"]).float()
+    return mlm_logits, binary_logits
+
+
+def bert_loss(cfg: ModelConfig, params: Params, batch: dict,
+              rng=None, deterministic: bool = True):
+    """Masked-LM + NSP loss (reference bert_model.py
+    post_language_model_processing + pretrain_bert.py forward_step)."""
+    mlm_logits, bin_logits = bert_forward(
+        cfg, params, batch["tokens"], batch["pad_mask"],
+        batch.get("tokentype_ids"), rng, deterministic)
+    lm = cross_entropy(mlm_logits, batch["labels"],
+                       vocab_size=cfg.vocab_size)
+    total = masked_mean_loss(lm, batch["loss_mask"])
+    if "is_random" in batch:
+        nsp = cross_entropy(bin_logits[:, None, :],
+                            batch["is_random"][:, None], vocab_size=2)
+        total = total + torch.mean(nsp)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# T5 (reference: megatron/model/t5_model.py)
+# ---------------------------------------------------------------------------
+
+
+def init_t5_decoder_layer_extras(cfg: ModelConfig, gen, device) -> Params:
+    """One decoder layer's cross-attention weights and their pre-norm."""
+    h, d = cfg.hidden_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.kv_heads
+    dtype, std = cfg.dtype, cfg.init_method_std
+    out_std = (std / (2.0 * cfg.num_layers) ** 0.5
+               if cfg.use_scaled_init else std)
+    return {
+        "norm": norm_init(cfg.norm_type, h, dtype, device),
+        "wq": _normal((h, nq * d), std, dtype, gen, device),
+        "wk": _normal((h, nkv * d), std, dtype, gen, device),
+        "wv": _normal((h, nkv * d), std, dtype, gen, device),
+        "wo": _normal((nq * d, h), out_std, dtype, gen, device),
+    }
+
+
+def num_decoder_layers(cfg: ModelConfig) -> int:
+    return cfg.num_decoder_layers or cfg.num_layers
+
+
+def init_t5_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                   tp: int = 1) -> Params:
+    """T5's parameters (the JAX tree: ``cross`` stacked ``[nd, ...]``)
+    drawn on ``device`` (default ``cuda``) from ``seed``."""
+    _check_family(cfg)
+    gen, device = _generator(seed, device)
+    h, dtype, std = cfg.hidden_size, cfg.dtype, cfg.init_method_std
+    v = cfg.padded_vocab_size(tp)
+    nd = num_decoder_layers(cfg)
+    word = _normal((v, h), std, dtype, gen, device)
+    position = _normal((cfg.max_position_embeddings, h), std, dtype, gen,
+                       device)
+    encoder = init_stack_params(cfg, gen, device)
+    per_layer = [init_t5_decoder_layer_extras(cfg, gen, device)
+                 for _ in range(nd)]
+
+    cross = tree_map(lambda *leaves: torch.stack(leaves), *per_layer)
+    return {
+        "embedding": {"word": word, "position": position},
+        "encoder": encoder,
+        "decoder": init_stack_params(cfg, gen, device, num_layers=nd),
+        "cross": cross,
+        "enc_norm": norm_init(cfg.norm_type, h, dtype, device),
+        "dec_norm": norm_init(cfg.norm_type, h, dtype, device),
+        "lm_head_bias": _zeros((v,), torch.float32, device),
+    }
+
+
+def cross_attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                          enc_out: torch.Tensor,
+                          enc_pad_mask: Optional[torch.Tensor]):
+    """Decoder queries over the encoder's outputs (t5_model.py decoder
+    cross-attention; the mask is the encoder's padding alone).  The einsum
+    path with an additive ``-inf`` bias, as JAX computes it."""
+    b, s, _ = x.shape
+    d = cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.kv_heads
+    se = enc_out.shape[1]
+    q = proj(cfg, x, p["wq"]).reshape(b, s, nq, d)
+    k = proj(cfg, enc_out, p["wk"]).reshape(b, se, nkv, d)
+    v = proj(cfg, enc_out, p["wv"]).reshape(b, se, nkv, d)
+    bias = None
+    if enc_pad_mask is not None:
+        bias = torch.where(enc_pad_mask[:, None, None, :] > 0, 0.0,
+                           float("-inf")).float()
+    ctx = attention(q, k, v, impl="dot", causal=False, bias=bias,
+                    softmax_scale=1.0 / (d ** 0.5))
+    return proj(cfg, ctx.reshape(b, s, nq * d), p["wo"])
+
+
+def t5_decoder_forward(cfg: ModelConfig, stacked: Params, cross: Params,
+                       x: torch.Tensor, enc_out: torch.Tensor,
+                       dec_pad_mask: Optional[torch.Tensor],
+                       enc_pad_mask: Optional[torch.Tensor],
+                       base_rng=None, deterministic: bool = True):
+    """The decoder stack: per layer self-attention (causal, the pads as
+    segments) → cross-attention → MLP, each a pre-norm residual with hidden
+    dropout at salts 2, 3 and 4 of the layer's key."""
+    side = AttnSideInputs(
+        segment_ids=(None if dec_pad_mask is None
+                     else _pad_segments(dec_pad_mask)),
+        causal=True)
+    key = _stack_key(base_rng, deterministic)
+    run = _layer_runner(cfg)
+
+    def layer(h, lp, cp, layer_key):
+        def branch(out, salt):
+            if layer_key is None:
+                return out
+            return drop.dropout(out, cfg.hidden_dropout,
+                                drop.fold_in(layer_key, salt))
+
+        h1 = norm_apply(cfg.norm_type, h, lp["input_norm"], cfg.norm_eps,
+                        impl=cfg.norm_impl)
+        h = h + branch(attention_block(cfg, lp["attn"], h1, side, layer_key),
+                       2)
+        c = norm_apply(cfg.norm_type, h, cp["norm"], cfg.norm_eps,
+                       impl=cfg.norm_impl)
+        h = h + branch(cross_attention_block(cfg, cp, c, enc_out,
+                                             enc_pad_mask), 3)
+        m = norm_apply(cfg.norm_type, h, lp["post_attn_norm"], cfg.norm_eps,
+                       impl=cfg.norm_impl)
+        return h + branch(mlp_block(cfg, lp["mlp"], m), 4)
+
+    for i, (lp, cp) in enumerate(zip(unstack_layers(stacked),
+                                     unstack_layers(cross))):
+        layer_key = None if key is None else drop.fold_in(key, i)
+        x = run(layer, x, lp, cp, layer_key)
+    return x
+
+
+def t5_forward(cfg: ModelConfig, params: Params, enc_tokens: torch.Tensor,
+               dec_tokens: torch.Tensor,
+               enc_pad_mask: Optional[torch.Tensor] = None,
+               dec_pad_mask: Optional[torch.Tensor] = None,
+               rng=None, deterministic: bool = True) -> torch.Tensor:
+    """→ decoder logits ``[b, s_dec, padded_vocab]`` fp32."""
+    emb = params["embedding"]
+
+    def embed(tokens):
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        return emb["word"][tokens] + emb["position"][pos]
+
+    enc_rng = dec_rng = None
+    if rng is not None:
+        enc_rng, dec_rng = drop.split(rng)
+    enc = encoder_forward(cfg, params["encoder"], embed(enc_tokens),
+                          enc_pad_mask, enc_rng, deterministic)
+    enc = norm_apply(cfg.norm_type, enc, params["enc_norm"], cfg.norm_eps,
+                     impl=cfg.norm_impl)
+    dec = t5_decoder_forward(cfg, params["decoder"], params["cross"],
+                             embed(dec_tokens), enc, dec_pad_mask,
+                             enc_pad_mask, dec_rng, deterministic)
+    dec = norm_apply(cfg.norm_type, dec, params["dec_norm"], cfg.norm_eps,
+                     impl=cfg.norm_impl)
+    return (dec @ emb["word"].T).float() + params["lm_head_bias"]
+
+
+def t5_loss(cfg: ModelConfig, params: Params, batch: dict,
+            rng=None, deterministic: bool = True):
+    logits = t5_forward(cfg, params, batch["enc_tokens"],
+                        batch["dec_tokens"], batch.get("enc_pad_mask"),
+                        batch.get("dec_pad_mask"), rng, deterministic)
+    per_tok = cross_entropy(logits, batch["labels"],
+                            vocab_size=cfg.vocab_size)
+    return masked_mean_loss(per_tok, batch["loss_mask"])
+

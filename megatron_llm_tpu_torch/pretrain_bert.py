@@ -1,0 +1,138 @@
+"""BERT pretraining entry point (mirror of the JAX package's
+``pretrain_bert.py``; reference: pretrain_bert.py).
+
+The corpus is a sentence-per-item ``.bin``/``.idx`` indexed dataset (one
+sentence per ``add_item``, documents closed by ``end_document``).  The
+flags and defaults are the JAX entry's; the model config is its too
+(``attention_impl="dot"``, ``norm_impl="xla"``).  The same config with
+``attention_impl="flash"`` and ``norm_impl="pallas"``, handed to
+``training.driver.pretrain_custom``, takes the flash and LayerNorm
+kernels.  ``main`` trains on the card unless its caller passes
+``device="cpu"``.
+
+Example:
+  python -m megatron_llm_tpu_torch.pretrain_bert --data_path corpus \\
+      --vocab_size 30522 --seq_length 128 --train_iters 1000 --save ckpts/
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .config import (
+    ModelConfig,
+    OptimizerConfig,
+    ParallelConfig,
+    RuntimeConfig,
+    TrainConfig,
+)
+from .data.bert_dataset import BertDataset, BertSpecialTokens
+from .data.indexed_dataset import MMapIndexedDataset
+from .models import encdec
+from .training.driver import pretrain_custom, refuse_unported_parallelism
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--data_path", required=True)
+    p.add_argument("--tokenizer_model", default="bert-base-uncased")
+    p.add_argument("--vocab_size", type=int, default=None,
+                   help="override (skips loading the tokenizer)")
+    p.add_argument("--hidden_size", type=int, default=768)
+    p.add_argument("--num_layers", type=int, default=12)
+    p.add_argument("--num_attention_heads", type=int, default=12)
+    p.add_argument("--seq_length", type=int, default=512)
+    p.add_argument("--micro_batch_size", type=int, default=4)
+    p.add_argument("--global_batch_size", type=int, default=32)
+    p.add_argument("--train_iters", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--save", default=None)
+    p.add_argument("--save_interval", type=int, default=500)
+    p.add_argument("--log_interval", type=int, default=10)
+    p.add_argument("--data_parallel", type=int, default=1)
+    p.add_argument("--tensor_parallel", type=int, default=1)
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="encoder pipeline over pp stages (not ported yet)")
+    p.add_argument("--use_distributed_optimizer", action="store_true",
+                   help="ZeRO-1: shard optimizer state over dp (not "
+                        "ported yet)")
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--masked_lm_prob", type=float, default=0.15)
+    return p.parse_args(argv)
+
+
+def bert_runtime_config(args, vocab_size: int) -> RuntimeConfig:
+    model = ModelConfig(
+        vocab_size=vocab_size,
+        hidden_size=args.hidden_size,
+        num_layers=args.num_layers,
+        num_attention_heads=args.num_attention_heads,
+        num_kv_heads=args.num_attention_heads,
+        ffn_hidden_size=4 * args.hidden_size,
+        max_position_embeddings=args.seq_length,
+        norm_type="layernorm",
+        activation="gelu",
+        position_embedding_type="absolute",
+        use_bias=True,
+        tie_embed_logits=True,
+        tokentype_size=2,
+        hidden_dropout=0.1,
+        attention_dropout=0.1,
+        seq_length=args.seq_length,
+    )
+    accum = args.global_batch_size // (args.micro_batch_size
+                                       * args.data_parallel)
+    return RuntimeConfig(
+        model=model,
+        parallel=ParallelConfig(data_parallel=args.data_parallel,
+                                tensor_parallel=args.tensor_parallel,
+                                pipeline_parallel=args.pipeline_parallel,
+                                num_microbatches=accum,
+                                use_distributed_optimizer=
+                                args.use_distributed_optimizer),
+        optimizer=OptimizerConfig(lr=args.lr, clip_grad=1.0),
+        train=TrainConfig(
+            train_iters=args.train_iters,
+            micro_batch_size=args.micro_batch_size,
+            global_batch_size=args.global_batch_size,
+            seq_length=args.seq_length,
+            save=args.save, save_interval=args.save_interval,
+            log_interval=args.log_interval, seed=args.seed,
+        ),
+    ).validate()
+
+
+def bert_loss_fn(cfg, params, mb, rng, deterministic):
+    return encdec.bert_loss(cfg.model, params, mb, rng, deterministic)
+
+
+def main(argv=None, device=None):
+    args = get_args(argv)
+    refuse_unported_parallelism(args.tensor_parallel,
+                                args.use_distributed_optimizer,
+                                args.pipeline_parallel)
+    if args.vocab_size is not None:
+        vocab = args.vocab_size
+        special = BertSpecialTokens(cls=vocab - 4, sep=vocab - 3,
+                                    mask=vocab - 2, pad=0)
+    else:
+        from .tokenizer.tokenizer import build_tokenizer
+
+        tok = build_tokenizer("huggingface", args.tokenizer_model)
+        inner = tok.inner
+        vocab = tok.vocab_size
+        special = BertSpecialTokens(
+            cls=inner.cls_token_id, sep=inner.sep_token_id,
+            mask=inner.mask_token_id, pad=inner.pad_token_id or 0)
+
+    cfg = bert_runtime_config(args, vocab)
+    ds = BertDataset(
+        MMapIndexedDataset(args.data_path), cfg.train.seq_length,
+        cfg.model.vocab_size, special,
+        masked_lm_prob=args.masked_lm_prob, seed=args.seed)
+    params = encdec.init_bert_params(cfg.model, args.seed, device=device)
+    return pretrain_custom(cfg, ds, params, bert_loss_fn, device=device)
+
+
+if __name__ == "__main__":
+    main()

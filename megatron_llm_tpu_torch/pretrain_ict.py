@@ -1,0 +1,168 @@
+"""ICT (inverse cloze task) bi-encoder pretraining entry point (mirror of
+the JAX package's ``pretrain_ict.py``; reference: pretrain_ict.py).
+
+Corpus: the sentence-per-item ``.bin``/``.idx`` format of
+``pretrain_bert``.  The flags, defaults and model config are the JAX
+entry's (``attention_impl="dot"``, ``norm_impl="xla"``).  ``main`` trains
+on the card unless its caller passes ``device="cpu"``.
+
+Example:
+  python -m megatron_llm_tpu_torch.pretrain_ict --data_path corpus \\
+      --vocab_size 30522 --query_seq_length 64 --block_seq_length 256
+"""
+
+from __future__ import annotations
+
+import argparse
+import warnings
+
+from .config import (
+    ModelConfig,
+    OptimizerConfig,
+    ParallelConfig,
+    RuntimeConfig,
+    TrainConfig,
+)
+from .data.ict_dataset import ICTDataset, ICTSpecialTokens
+from .data.indexed_dataset import MMapIndexedDataset
+from .models import biencoder
+from .training.driver import pretrain_custom, refuse_unported_parallelism
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--data_path", required=True)
+    p.add_argument("--vocab_size", type=int, default=None)
+    p.add_argument("--hidden_size", type=int, default=768)
+    p.add_argument("--num_layers", type=int, default=12)
+    p.add_argument("--num_attention_heads", type=int, default=12)
+    p.add_argument("--query_seq_length", type=int, default=64)
+    p.add_argument("--block_seq_length", type=int, default=256)
+    p.add_argument("--projection_dim", type=int, default=128)
+    p.add_argument("--shared_query_context_model", action="store_true")
+    p.add_argument("--pooling", default="mean", choices=["cls", "mean"],
+                   help="cls matches the reference (warm-started towers); "
+                        "mean trains from scratch")
+    p.add_argument("--remove_prob", type=float, default=0.9,
+                   help="probability the query sentence is removed from its "
+                        "block (1 - the reference's query_in_block_prob)")
+    # accum == 1 by default: retrieval_loss contrasts within a microbatch,
+    # so grad accumulation would shrink the in-batch-negative pool
+    p.add_argument("--micro_batch_size", type=int, default=32)
+    p.add_argument("--global_batch_size", type=int, default=32)
+    p.add_argument("--train_iters", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--save", default=None)
+    p.add_argument("--save_interval", type=int, default=500)
+    p.add_argument("--log_interval", type=int, default=10)
+    p.add_argument("--data_parallel", type=int, default=1)
+    p.add_argument("--tensor_parallel", type=int, default=1)
+    p.add_argument("--use_distributed_optimizer", action="store_true",
+                   help="ZeRO-1: shard optimizer state over dp (not "
+                        "ported yet)")
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--tokenizer_model", default=None,
+                   help="HF tokenizer path/name: derives vocab + special "
+                        "ids (otherwise pass --vocab_size and, for real "
+                        "corpora, --cls_id/--sep_id)")
+    p.add_argument("--cls_id", type=int, default=None,
+                   help="default: tokenizer cls id, else vocab_size-4 "
+                        "(pretrain_bert convention)")
+    p.add_argument("--sep_id", type=int, default=None,
+                   help="default: tokenizer sep id, else vocab_size-3")
+    p.add_argument("--pad_id", type=int, default=None)
+    return p.parse_args(argv)
+
+
+def ict_runtime_config(args, vocab: int) -> RuntimeConfig:
+    model = ModelConfig(
+        vocab_size=vocab,
+        hidden_size=args.hidden_size,
+        num_layers=args.num_layers,
+        num_attention_heads=args.num_attention_heads,
+        num_kv_heads=args.num_attention_heads,
+        ffn_hidden_size=4 * args.hidden_size,
+        max_position_embeddings=max(args.query_seq_length,
+                                    args.block_seq_length),
+        norm_type="layernorm", activation="gelu",
+        position_embedding_type="absolute", use_bias=True,
+        tie_embed_logits=True, tokentype_size=2,
+        hidden_dropout=0.1, attention_dropout=0.1,
+        seq_length=args.block_seq_length,
+    )
+    return RuntimeConfig(
+        model=model,
+        parallel=ParallelConfig(data_parallel=args.data_parallel,
+                                tensor_parallel=args.tensor_parallel,
+                                use_distributed_optimizer=
+                                args.use_distributed_optimizer),
+        optimizer=OptimizerConfig(lr=args.lr, clip_grad=1.0),
+        train=TrainConfig(
+            train_iters=args.train_iters,
+            micro_batch_size=args.micro_batch_size,
+            global_batch_size=args.global_batch_size,
+            seq_length=args.block_seq_length,
+            save=args.save, save_interval=args.save_interval,
+            log_interval=args.log_interval, seed=args.seed,
+        ),
+    ).validate()
+
+
+def ict_loss_fn(pooling: str):
+    """``loss_fn`` of ``pretrain_custom`` for the retrieval loss under
+    ``pooling``."""
+    def loss_fn(rcfg, p, mb, rng, deterministic):
+        return biencoder.retrieval_loss(rcfg.model, p, mb, rng,
+                                        deterministic, pooling=pooling)
+
+    return loss_fn
+
+
+def main(argv=None, device=None):
+    args = get_args(argv)
+    refuse_unported_parallelism(args.tensor_parallel,
+                                args.use_distributed_optimizer)
+    if args.tokenizer_model:
+        from .tokenizer.tokenizer import build_tokenizer
+
+        tok = build_tokenizer("huggingface", args.tokenizer_model)
+        inner = tok.inner
+        vocab = tok.vocab_size
+        cls_id = (args.cls_id if args.cls_id is not None
+                  else inner.cls_token_id)
+        sep_id = (args.sep_id if args.sep_id is not None
+                  else inner.sep_token_id)
+        pad_id = (args.pad_id if args.pad_id is not None
+                  else (inner.pad_token_id or 0))
+    else:
+        assert args.vocab_size, "--vocab_size required without " \
+            "--tokenizer_model"
+        vocab = args.vocab_size
+        # pretrain_bert's reserved ids without a tokenizer (cls v-4, sep v-3)
+        cls_id = args.cls_id if args.cls_id is not None else vocab - 4
+        sep_id = args.sep_id if args.sep_id is not None else vocab - 3
+        pad_id = args.pad_id if args.pad_id is not None else 0
+
+    accum = args.global_batch_size // (args.micro_batch_size
+                                       * args.data_parallel)
+    if accum > 1:
+        warnings.warn(
+            f"grad accumulation ({accum} microbatches) shrinks the "
+            f"in-batch-negative pool to micro_batch_size="
+            f"{args.micro_batch_size} per contrastive softmax")
+    cfg = ict_runtime_config(args, vocab)
+    ds = ICTDataset(
+        MMapIndexedDataset(args.data_path),
+        args.query_seq_length, args.block_seq_length,
+        ICTSpecialTokens(cls=cls_id, sep=sep_id, pad=pad_id),
+        remove_prob=args.remove_prob, seed=args.seed)
+    params = biencoder.init_biencoder_params(
+        cfg.model, args.seed, device=device,
+        projection_dim=args.projection_dim,
+        shared=args.shared_query_context_model)
+    return pretrain_custom(cfg, ds, params, ict_loss_fn(args.pooling),
+                           device=device)
+
+
+if __name__ == "__main__":
+    main()

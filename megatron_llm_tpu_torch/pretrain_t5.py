@@ -1,0 +1,156 @@
+"""T5 span-corruption pretraining entry point (mirror of the JAX
+package's ``pretrain_t5.py``; reference: pretrain_t5.py).
+
+The same sentence-per-item ``.bin``/``.idx`` corpus as ``pretrain_bert``.
+The flags and defaults are the JAX entry's, and so is the model config
+(``attention_impl="dot"``, ``norm_impl="xla"``); ``attention_impl="flash"``
+and ``norm_impl="pallas"`` in the same config, handed to
+``training.driver.pretrain_custom``, take the kernels.  The
+encoder-decoder pipeline (``--pipeline_parallel`` > 1,
+``--pipeline_split_rank``) is not ported yet and raises.  ``main`` trains
+on the card unless its caller passes ``device="cpu"``.
+
+Example:
+  python -m megatron_llm_tpu_torch.pretrain_t5 --data_path corpus \\
+      --vocab_size 32128 --encoder_seq_length 512 --decoder_seq_length 114
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .config import (
+    ModelConfig,
+    OptimizerConfig,
+    ParallelConfig,
+    RuntimeConfig,
+    TrainConfig,
+)
+from .data.indexed_dataset import MMapIndexedDataset
+from .data.t5_dataset import T5Dataset, T5SpecialTokens
+from .models import encdec
+from .training.driver import pretrain_custom, refuse_unported_parallelism
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--data_path", required=True)
+    p.add_argument("--vocab_size", type=int, default=None,
+                   help="override (skips loading the tokenizer); sentinels "
+                        "then fall back to the top vocab ids and "
+                        "pad==bos==0, eos=1")
+    p.add_argument("--tokenizer_model", default=None,
+                   help="HF tokenizer (e.g. t5-small): derives vocab size, "
+                        "bos/eos/pad and the <extra_id_i> sentinel ids")
+    p.add_argument("--hidden_size", type=int, default=768)
+    p.add_argument("--num_layers", type=int, default=12)
+    p.add_argument("--num_decoder_layers", type=int, default=None)
+    p.add_argument("--num_attention_heads", type=int, default=12)
+    p.add_argument("--encoder_seq_length", type=int, default=512)
+    p.add_argument("--decoder_seq_length", type=int, default=128)
+    p.add_argument("--micro_batch_size", type=int, default=4)
+    p.add_argument("--global_batch_size", type=int, default=32)
+    p.add_argument("--train_iters", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--save", default=None)
+    p.add_argument("--save_interval", type=int, default=500)
+    p.add_argument("--log_interval", type=int, default=10)
+    p.add_argument("--data_parallel", type=int, default=1)
+    p.add_argument("--tensor_parallel", type=int, default=1)
+    p.add_argument("--pipeline_parallel", type=int, default=1,
+                   help="encoder/decoder split-rank pipeline (not ported "
+                        "yet)")
+    p.add_argument("--pipeline_split_rank", type=int, default=None,
+                   help="stages holding the encoder (not ported yet)")
+    p.add_argument("--use_distributed_optimizer", action="store_true",
+                   help="ZeRO-1: shard optimizer state over dp (not "
+                        "ported yet)")
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--masked_lm_prob", type=float, default=0.15)
+    return p.parse_args(argv)
+
+
+def t5_runtime_config(args) -> RuntimeConfig:
+    model = ModelConfig(
+        vocab_size=args.vocab_size,
+        hidden_size=args.hidden_size,
+        num_layers=args.num_layers,
+        num_decoder_layers=args.num_decoder_layers,
+        num_attention_heads=args.num_attention_heads,
+        num_kv_heads=args.num_attention_heads,
+        ffn_hidden_size=4 * args.hidden_size,
+        max_position_embeddings=max(args.encoder_seq_length,
+                                    args.decoder_seq_length),
+        norm_type="layernorm",
+        activation="gelu",
+        position_embedding_type="absolute",
+        use_bias=True,
+        tie_embed_logits=True,
+        seq_length=args.encoder_seq_length,
+    )
+    accum = args.global_batch_size // (args.micro_batch_size
+                                       * args.data_parallel)
+    return RuntimeConfig(
+        model=model,
+        parallel=ParallelConfig(data_parallel=args.data_parallel,
+                                tensor_parallel=args.tensor_parallel,
+                                pipeline_parallel=args.pipeline_parallel,
+                                pipeline_split_rank=args.pipeline_split_rank,
+                                num_microbatches=accum,
+                                use_distributed_optimizer=
+                                args.use_distributed_optimizer),
+        optimizer=OptimizerConfig(lr=args.lr, clip_grad=1.0),
+        train=TrainConfig(
+            train_iters=args.train_iters,
+            micro_batch_size=args.micro_batch_size,
+            global_batch_size=args.global_batch_size,
+            seq_length=args.encoder_seq_length,
+            save=args.save, save_interval=args.save_interval,
+            log_interval=args.log_interval, seed=args.seed,
+        ),
+    ).validate()
+
+
+def t5_loss_fn(cfg, params, mb, rng, deterministic):
+    return encdec.t5_loss(cfg.model, params, mb, rng, deterministic)
+
+
+def main(argv=None, device=None):
+    args = get_args(argv)
+    refuse_unported_parallelism(args.tensor_parallel,
+                                args.use_distributed_optimizer,
+                                args.pipeline_parallel,
+                                args.pipeline_split_rank)
+    sentinel_ids = None
+    if args.vocab_size is not None:
+        # without a tokenizer: pad == bos == 0, eos 1, the sentinels the top
+        # vocab ids (T5's extra_ids layout for a freshly built vocab)
+        special = T5SpecialTokens(bos=0, eos=1, pad=0)
+    else:
+        if args.tokenizer_model is None:
+            raise SystemExit("pass --tokenizer_model or --vocab_size")
+        from .tokenizer.tokenizer import build_tokenizer
+
+        tok = build_tokenizer("huggingface", args.tokenizer_model)
+        inner = tok.inner
+        args.vocab_size = tok.vocab_size
+        pad = inner.pad_token_id if inner.pad_token_id is not None else 0
+        special = T5SpecialTokens(
+            bos=pad,  # the T5 decoder starts with the pad token
+            eos=inner.eos_token_id, pad=pad)
+        extra = [inner.convert_tokens_to_ids(t)
+                 for t in getattr(inner, "additional_special_tokens", [])]
+        sentinel_ids = [i for i in extra if i is not None] or None
+    cfg = t5_runtime_config(args)
+    ds = T5Dataset(
+        MMapIndexedDataset(args.data_path),
+        args.encoder_seq_length, args.decoder_seq_length,
+        cfg.model.vocab_size, special,
+        masked_lm_prob=args.masked_lm_prob, seed=args.seed,
+        sentinel_ids=sentinel_ids)
+    params = encdec.init_t5_params(cfg.model, args.seed, device=device)
+    return pretrain_custom(cfg, ds, params, t5_loss_fn, device=device)
+
+
+if __name__ == "__main__":
+    main()

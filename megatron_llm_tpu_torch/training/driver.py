@@ -16,6 +16,10 @@ megatron/training.py:55-961).
   iterations ``[profile_step_start, profile_step_end]``, written as one
   Chrome trace into ``profile_dir``.
 - ``rollback_to_last_checkpoint``: the rollback's restore.
+- ``pretrain_custom``: the loop of the families whose batches and losses
+  are not the decoder LM's (BERT, T5, the ICT biencoder and the BERT
+  tasks): ``dataset[i]`` dicts, a ``loss_fn`` and an optional
+  ``eval_loss_fn``, resume from ``save``/``load``.
 
 TensorBoard and wandb export go through ``utils/writers.build_writer``.
 """
@@ -23,6 +27,7 @@ TensorBoard and wandb export go through ``utils/writers.build_writer``.
 from __future__ import annotations
 
 import datetime
+import functools
 import os
 import signal
 import sys
@@ -43,6 +48,7 @@ from ..ops import dropout as drop
 from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
 from ..resilience import chaos
 from ..utils.timers import Timers
+from ..utils.tree import tree_map
 from ..utils.writers import build_writer
 from .microbatches import build_num_microbatches_calculator
 from .step import TrainState, init_train_state, make_train_step, \
@@ -630,3 +636,164 @@ def rollback_to_last_checkpoint(cfg: RuntimeConfig, state, attempt: int = 1):
     EVENT_LOG.emit("training", "rollback", checkpoint_root=str(root),
                    restored_tag=str(tag))
     return state, (0 if tag == checkpointing.RELEASE else int(tag))
+
+
+# ---------------------------------------------------------------------------
+# The loop of the other families (the forward_step_func hook of the
+# reference's pretrain(), training.py:55): pretrain_bert / pretrain_t5 /
+# pretrain_ict and the BERT tasks, whose batches and losses are not the
+# decoder LM's
+# ---------------------------------------------------------------------------
+
+
+def _stack_samples(samples: list, shape: tuple) -> dict:
+    """``dataset[i]`` dicts of numpy arrays → one array per key of
+    ``shape + sample shape``."""
+    return {k: np.stack([s[k] for s in samples]).reshape(
+        shape + np.asarray(samples[0][k]).shape) for k in samples[0]}
+
+
+def refuse_unported_parallelism(tensor_parallel: int = 1,
+                                use_distributed_optimizer: bool = False,
+                                pipeline_parallel: int = 1,
+                                pipeline_split_rank=None) -> None:
+    """The entries' flags for what the port does not run yet: raise
+    ``NotImplementedError`` naming the ROADMAP item."""
+    if tensor_parallel > 1 or use_distributed_optimizer:
+        raise NotImplementedError(
+            "--tensor_parallel > 1 and --use_distributed_optimizer are not "
+            "ported yet (ROADMAP.md, Queue 1 item 9: data, tensor and "
+            "sequence parallel training)")
+    if pipeline_parallel > 1 or pipeline_split_rank is not None:
+        raise NotImplementedError(
+            "--pipeline_parallel > 1 and --pipeline_split_rank are not "
+            "ported yet (ROADMAP.md, Queue 1 item 10: pipeline, context and "
+            "expert parallelism)")
+
+
+def pretrain_custom(
+    cfg: RuntimeConfig,
+    dataset,
+    params: PyTree,
+    loss_fn,
+    valid_dataset=None,
+    eval_loss_fn=None,
+    param_specs: Optional[PyTree] = None,
+    pipeline_loss_fn=None,
+    device=None,
+    on_step: Optional[Callable[[int, dict, float], None]] = None,
+) -> TrainState:
+    """The training loop of a model family with its own batches and loss
+    (JAX ``training/driver.py:pretrain_custom``), on ``device`` (default
+    ``cuda``; ``params`` are moved there).
+
+    ``dataset[i]`` yields a dict of numpy arrays; a step's samples are
+    stacked to ``[accum, micro_total, ...]`` and the step runs
+    ``loss_fn(cfg, params, microbatch, rng, deterministic)`` with dropout
+    on.  The sample order is a pure function of (seed, consumed samples):
+    one permutation per epoch, so a resume from ``train.load`` (or a
+    tracker under ``train.save``) replays it exactly.  Every
+    ``eval_interval`` iterations ``eval_loss_fn`` (else ``loss_fn``) runs
+    without dropout on ``eval_iters`` windows of ``valid_dataset``.
+    ``on_step(iteration, metrics, seconds)`` sees each step, as in
+    ``pretrain``.  ``param_specs`` (tensor parallelism and ZeRO-1) and
+    ``pipeline_loss_fn`` (the encoder-decoder pipeline) are not ported and
+    raise."""
+    cfg.validate()
+    if param_specs is not None:
+        raise NotImplementedError(
+            "pretrain_custom: param_specs (tensor-parallel and ZeRO-1 "
+            "sharding) is not ported yet (ROADMAP.md, Queue 1 item 9: "
+            "data, tensor and sequence parallel training)")
+    if pipeline_loss_fn is not None:
+        raise NotImplementedError(
+            "pretrain_custom: pipeline_loss_fn (parallel/pipeline_encdec.py)"
+            " is not ported yet (ROADMAP.md, Queue 1 item 10: pipeline, "
+            "context and expert parallelism)")
+    device = model_lib.default_device(device)
+    timers = Timers()
+    writer = build_writer(cfg.train.tensorboard_dir, cfg.train.wandb_project,
+                          cfg.train.wandb_name, config=cfg.to_dict())
+    params = tree_map(lambda t: t.to(device), params)
+    state = init_train_state(cfg, params)
+    step_fn = make_train_step(cfg, device, loss_fn=loss_fn)
+
+    iteration = 0
+    consumed = 0
+    if cfg.train.load or (cfg.train.save and checkpointing.read_tracker(
+            cfg.train.save) is not None):
+        root = cfg.train.load or cfg.train.save
+        try:
+            state, it = checkpointing.load_checkpoint(
+                root, state, retries=cfg.train.checkpoint_retries)
+            if it != checkpointing.RELEASE:
+                iteration = int(it)
+                consumed = int(checkpointing.load_meta(root, it).get(
+                    "consumed_samples", 0))
+            print_rank_0(f" loaded checkpoint from {root} at iteration "
+                         f"{it} (consumed_samples={consumed})")
+        except FileNotFoundError:
+            pass
+
+    gbs = cfg.train.global_batch_size
+    accum = cfg.grad_accum_steps
+    micro_total = gbs // accum
+    n = len(dataset)
+    log = _LogState()
+
+    @functools.lru_cache(maxsize=2)
+    def epoch_order(epoch: int) -> np.ndarray:
+        """One permutation per epoch (a batch straddles at most two):
+        resume reproduces the order, and evaluation's draws cannot move
+        it (the resumable-sampler contract of the reference's
+        data_samplers.py:49-96)."""
+        return np.random.default_rng((cfg.train.seed, epoch)).permutation(n)
+
+    def sample_index(position: int) -> int:
+        return int(epoch_order(position // n)[position % n])
+
+    eval_fn = eval_loss_fn or loss_fn
+    eval_rng = np.random.default_rng(cfg.train.seed + 977)
+    base_rng = drop.key(cfg.train.seed)
+    while iteration < cfg.train.train_iters:
+        samples = [dataset[sample_index(consumed + j)] for j in range(gbs)]
+        batch = to_device_batch(
+            _stack_samples(samples, (accum, micro_total)), device)
+        t0 = time.perf_counter()
+        timers("train-step").start()
+        state, metrics = step_fn(state, batch, base_rng)
+        timers("train-step").stop(wait_for=metrics)
+        if on_step is not None:
+            on_step(iteration + 1, metrics, time.perf_counter() - t0)
+        iteration += 1
+        consumed += gbs
+        log.tokens += gbs * cfg.train.seq_length
+        training_log(cfg, log, metrics, iteration, consumed, writer, timers)
+
+        if (cfg.train.save and cfg.train.save_interval
+                and iteration % cfg.train.save_interval == 0):
+            _save(cfg, state, iteration, consumed, timers)
+
+        if (valid_dataset is not None and cfg.train.eval_interval
+                and iteration % cfg.train.eval_interval == 0
+                and cfg.train.eval_iters):
+            nv = len(valid_dataset)
+            losses = []
+            with torch.no_grad():
+                for v0 in eval_rng.integers(0, nv,
+                                            size=cfg.train.eval_iters):
+                    vs = [valid_dataset[int((v0 + j) % nv)]
+                          for j in range(micro_total)]
+                    vb = to_device_batch(
+                        _stack_samples(vs, (micro_total,)), device)
+                    losses.append(float(eval_fn(cfg, state.params, vb, None,
+                                                True)))
+            print_rank_0(f" validation loss at iteration {iteration}: "
+                         f"{np.mean(losses):.6E}")
+            writer.add_scalar("valid/loss", float(np.mean(losses)),
+                              iteration)
+
+    if cfg.train.save:
+        _save(cfg, state, iteration, consumed, timers)
+    writer.flush()
+    return state

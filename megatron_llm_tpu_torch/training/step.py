@@ -95,9 +95,10 @@ def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
                       loss_scale: float, loss_fn=None, rng=None):
     """``(fp32 grads, mean loss)`` over the ``[accum, micro_batch, ...]``
     batch; microbatch ``i`` gets ``rng`` folded with ``i``.
-    ``loss_fn(cfg, params, microbatch, rng)`` overrides the decoder-LM
-    loss, as in JAX."""
-    accum = batch["tokens"].shape[0]
+    ``loss_fn(cfg, params, microbatch, rng, deterministic)`` overrides the
+    decoder-LM loss, as in JAX, with ``deterministic = rng is None`` (the
+    reference's ``forward_step_func``: the BERT, T5 and ICT losses)."""
+    accum = next(iter(batch.values())).shape[0]
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     live = tree_unflatten(params, leaves)
     grads = None
@@ -106,15 +107,22 @@ def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
         mb = {k: v[i] for k, v in batch.items()}
         mb_rng = None if rng is None else drop.fold_in(rng, i)
         if loss_fn is not None:
-            loss = loss_fn(cfg, live, mb, mb_rng)
+            loss = loss_fn(cfg, live, mb, mb_rng, mb_rng is None)
         else:
             loss = compute_loss(cfg, live, mb, rng=mb_rng, rope=rope)
-        step_grads = torch.autograd.grad(loss * loss_scale, leaves)
+        # under a custom loss, a leaf it does not reach (the pooler under
+        # mean pooling) has JAX's zero grad; the decoder-LM loss reaches
+        # every leaf, so one cut off there is a fault and raises
+        step_grads = torch.autograd.grad(loss * loss_scale, leaves,
+                                         allow_unused=loss_fn is not None)
         if grads is None:  # the first cast copies, the rest add in place
-            grads = [g.to(torch.float32, copy=True) for g in step_grads]
+            grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
+                     else g.to(torch.float32, copy=True)
+                     for p, g in zip(leaves, step_grads)]
         else:
             for acc, g in zip(grads, step_grads):
-                acc.add_(g)
+                if g is not None:
+                    acc.add_(g)
         del step_grads
         loss = loss.detach()
         loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -195,12 +203,15 @@ def make_train_step(cfg: RuntimeConfig, device=None, loss_fn=None):
 
 
 def to_device_batch(batch: dict, device) -> dict:
-    """numpy ``[accum, micro, ...]`` batch → tensors on ``device`` (token
-    ids as int64 for indexing, the loss mask as fp32)."""
+    """numpy ``[accum, micro, ...]`` batch → tensors on ``device``: the
+    loss mask and any float array (a custom loss's masks) as fp32, the rest
+    (token ids, labels) as int64 for indexing, as JAX's ``jnp.asarray``
+    keeps each kind."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
-        t = t.float() if k == "loss_mask" else t.long()
+        t = t.float() if k == "loss_mask" or t.is_floating_point() \
+            else t.long()
         out[k] = t.to(device, non_blocking=True)
     return out
 

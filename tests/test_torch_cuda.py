@@ -141,13 +141,15 @@ def test_rmsnorm_matches_plain(cuda_device, rows, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,h", [(37, 4544), (1, 64), (300, 2048)])
+@pytest.mark.parametrize("rows,h", [(37, 4544), (1, 64), (300, 2048),
+                                    (512, 1024), (300, 768)])
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layernorm_fwd_bwd_match_plain(cuda_device, rows, h, bias, dtype):
     """K6 and K7 against their plain versions: Falcon-7B's hidden 4544 (a
-    block of 8192 lanes, 3648 of them masked), a one-row call and GPT-1.3B's
-    2048, with and without bias.  K7 returns dx, dweight and dbias from its
+    block of 8192 lanes, 3648 of them masked), a one-row call, GPT-1.3B's
+    2048 and the encoders' 1024 (BERT-large, T5-large) and 768 (BERT-base),
+    with and without bias.  K7 returns dx, dweight and dbias from its
     own launches (one counted call), the same bits on a second call."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     x = (2.0 * _card((rows, h), gen, cuda_device, torch.float32)
@@ -1853,3 +1855,109 @@ def test_lora_step_on_the_card(cuda_device):
         ref = tstep.compute_loss(ref_cfg, cpu, {k: v.cpu()
                                                 for k, v in mb.items()})
     assert abs(float(losses[0]) - float(ref)) <= 0.02
+
+
+def _pad_segment_ids(gen, dev, b, s, max_pads):
+    """The encoders' pad segments: content in segment 1, a tail of 0 to
+    ``max_pads`` pads in segment 0 (one row without pads)."""
+    pads = torch.randint(0, max_pads + 1, (b,), generator=gen, device=dev)
+    pads[0] = 0
+    pos = torch.arange(s, device=dev)
+    return (pos[None, :] < (s - pads)[:, None]).to(torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,causal,max_pads", [
+    (2, 16, 512, False, 200),   # BERT-large / T5-large encoder attention
+    (2, 16, 128, True, 60),     # the T5 decoder: causal over pad segments
+    (3, 12, 256, False, 100)])  # BERT-base (the ICT context tower)
+def test_flash_attention_pad_segments_match_plain(cuda_device, b, h, s,
+                                                  causal, max_pads):
+    """K1-K3 in the encoders' mode, d 64 bf16: against the plain versions;
+    the non-causal launches counted; with the pad rows' dO at 0 (their
+    outputs reach no loss), dK and dV of the pad columns and dQ of the pad
+    rows come out exact zeros, and K2 and K3 repeat bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do = (_card((b, s, h, 64), gen, cuda_device) for _ in range(4))
+    seg = _pad_segment_ids(gen, cuda_device, b, s, max_pads)
+    pad = (seg == 0)[:, :, None, None]
+    do = torch.where(pad, torch.zeros_like(do), do)
+    n = {f.__name__: f.noncausal_launches
+         for f in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                   tfa.flash_attention_bwd_dkv)}
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  segment_ids=seg)
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    segment_ids=seg)
+    torch.cuda.synchronize()
+    for f in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv):
+        want_n = n[f.__name__] + (0 if causal else
+                                  (1 if f is tfa.flash_attention_fwd else 2))
+        assert f.noncausal_launches == want_n, f.__name__
+    assert torch.isfinite(lse).all()
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                               segment_ids=seg)
+    torch.testing.assert_close(o.float(), o_ref.float(), **CARD_TOL)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         segment_ids=seg)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g.float(), w.float(), **CARD_TOL,
+                                   msg=name)
+        assert not g.masked_select(pad.expand_as(g)).any(), name
+
+
+@pytest.mark.cuda
+def test_bert_loss_on_the_card_matches_cpu(cuda_device):
+    """A 2-layer BERT (hidden 256, 4 heads of 64) with pads, bf16 through
+    K1-K3 and K6/K7, against the fp32 plain path on the CPU from the same
+    weights: the loss and the embedding's gradient."""
+    import dataclasses
+
+    from megatron_llm_tpu_torch.config import ModelConfig
+    from megatron_llm_tpu_torch.models import encdec
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = ModelConfig(vocab_size=1000, hidden_size=256, num_layers=2,
+                      num_attention_heads=4, ffn_hidden_size=1024,
+                      max_position_embeddings=256, norm_type="layernorm",
+                      activation="gelu", position_embedding_type="absolute",
+                      use_bias=True, tie_embed_logits=True, tokentype_size=2,
+                      params_dtype="bfloat16", attention_impl="flash",
+                      norm_impl="pallas", seq_length=256)
+    ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
+                                  attention_impl="dot", norm_impl="xla")
+    params = encdec.init_bert_params(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    seg = _pad_segment_ids(gen, cuda_device, 4, 256, 100)
+    toks = torch.randint(0, 1000, (4, 256), generator=gen, device=cuda_device)
+    batch = {"tokens": toks, "labels": toks.roll(-1, -1),
+             "pad_mask": seg.float(),
+             "loss_mask": seg.float() * (torch.rand(
+                 4, 256, generator=gen, device=cuda_device) < 0.15),
+             "is_random": torch.tensor([0, 1, 0, 1], device=cuda_device)}
+    counters = launch_counters()
+    start = {k: c.launches for k, c in counters.items()}
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    loss = encdec.bert_loss(cfg, params, batch)
+    g = torch.autograd.grad(loss, leaves)[0]
+    ran = {k: c.launches - start[k] for k, c in counters.items()}
+    for name in ("flash_attention_fwd_noncausal",
+                 "flash_attention_bwd_dq_noncausal",
+                 "flash_attention_bwd_dkv_noncausal", "layernorm_fwd",
+                 "layernorm_bwd"):
+        assert ran[name] > 0, name
+    cpu = tree_map(lambda t: t.detach().float().cpu().requires_grad_(True),
+                   params)
+    ref = encdec.bert_loss(ref_cfg, cpu, {k: v.cpu() for k, v in
+                                          batch.items()})
+    g_ref = torch.autograd.grad(ref, tree_leaves(cpu)[0])[0]
+    # bf16 weights and activations against fp32: ~1% of the loss
+    assert abs(float(loss.detach()) - float(ref.detach())) <= 0.02 * float(
+        ref.detach())
+    rel = float(torch.linalg.vector_norm(g.float().cpu() - g_ref)
+                / torch.linalg.vector_norm(g_ref))
+    assert rel <= 0.05, rel

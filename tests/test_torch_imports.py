@@ -58,7 +58,12 @@ def test_port_imports_no_jax():
                 "tokenizer.tokenizer", "tools.preprocess_data",
                 "tools.merge_datasets", "tools.run_text_generation_server",
                 "analysis.sanitizers", "obs.logging", "obs.registry",
-                "obs.slo"):
+                "obs.slo", "models.encdec", "models.biencoder",
+                "models.realm_indexer", "data.bert_dataset",
+                "data.t5_dataset", "data.ict_dataset", "pretrain_bert",
+                "pretrain_t5", "pretrain_ict", "tasks", "tasks.main",
+                "tasks.classification", "tasks.glue", "tasks.race",
+                "tasks.orqa"):
         assert f"megatron_llm_tpu_torch.{new}" in names
     code = (
         "import importlib, json, sys\n"
@@ -101,3 +106,22 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_entries_default_to_the_card():
+    """The encoder families' entries, the BERT tasks and
+    ``pretrain_custom`` take ``device=None``, which is the card: only an
+    explicit ``device="cpu"`` keeps them on the host."""
+    import inspect
+
+    from megatron_llm_tpu_torch import pretrain_bert, pretrain_ict, \
+        pretrain_t5
+    from megatron_llm_tpu_torch.models.model import default_device
+    from megatron_llm_tpu_torch.tasks import classification, race
+    from megatron_llm_tpu_torch.training.driver import pretrain_custom
+
+    for fn in (pretrain_bert.main, pretrain_t5.main, pretrain_ict.main,
+               classification.main, race.main, pretrain_custom):
+        assert inspect.signature(fn).parameters["device"].default is None
+    assert default_device(None).type == "cuda"
+    assert default_device("cpu").type == "cpu"

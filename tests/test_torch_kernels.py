@@ -90,6 +90,7 @@ def _jax_flash_fwd(q, k, v, *, causal, segment_ids=None):
     (1, 40, 100, 4, 2, 64, True, False),     # causal with sq < sk, GQA
     (2, 96, 96, 8, 2, 128, True, True),      # segment ids, GQA, d=128
     (1, 33, 77, 2, 1, 64, False, False),     # ragged, not causal, MQA
+    (3, 96, 96, 4, 4, 64, False, "pad"),     # an encoder: pad segments
 ])
 def test_flash_attention_plain_matches_pallas(b, sq, sk, hq, hk, d, causal,
                                               segs):
@@ -97,7 +98,10 @@ def test_flash_attention_plain_matches_pallas(b, sq, sk, hq, hk, d, causal,
     q, k, v = (_np(rng, (b, sq, hq, d)), _np(rng, (b, sk, hk, d)),
                _np(rng, (b, sk, hk, d)))
     seg = None
-    if segs:
+    if segs == "pad":  # content in segment 1, a tail of pads in 0
+        lens = rng.integers(sq // 2, sq + 1, b)
+        seg = (np.arange(sq)[None, :] < lens[:, None]).astype(np.int32)
+    elif segs:
         cuts = np.sort(rng.integers(1, sq, (b, 2)), axis=1)
         seg = (np.arange(sq)[None, :, None] >= cuts[:, None, :]).sum(-1)
         seg = seg.astype(np.int32)
@@ -148,7 +152,10 @@ def test_flash_attention_plain_bf16_matches_pallas(b, sq, sk, hq, hk, d,
     q, k, v = (_np(rng, s).astype(ml_dtypes.bfloat16) for s in
                ((b, sq, hq, d), (b, sk, hk, d), (b, sk, hk, d)))
     seg = None
-    if segs:
+    if segs == "pad":  # content in segment 1, a tail of pads in 0
+        lens = rng.integers(sq // 2, sq + 1, b)
+        seg = (np.arange(sq)[None, :] < lens[:, None]).astype(np.int32)
+    elif segs:
         cuts = np.sort(rng.integers(1, sq, (b, 2)), axis=1)
         seg = (np.arange(sq)[None, :, None] >= cuts[:, None, :]).sum(-1)
         seg = seg.astype(np.int32)

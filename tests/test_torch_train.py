@@ -282,7 +282,7 @@ def test_guard_update_matches_jax():
             assert float(t) == pytest.approx(float(j), rel=1e-6, abs=1e-7)
 
 
-def _nan_loss(cfg, params, mb, rng):
+def _nan_loss(cfg, params, mb, rng, deterministic):
     return tstep.compute_loss(cfg, params, mb, rng) * float("nan")
 
 
@@ -304,6 +304,29 @@ def test_nan_loss_leaves_params_and_moments_bitwise(dtype):
     for b, a in zip(tree_leaves(before), tree_leaves(after)):
         assert torch.equal(a, b)
     assert int(new.guard.run) == 1
+
+
+def _lm_loss(cfg, params, mb, rng, deterministic):
+    return tstep.compute_loss(cfg, params, mb, rng)
+
+
+@pytest.mark.parametrize("custom", [False, True])
+def test_leaf_the_loss_does_not_reach(custom):
+    """A leaf cut off from the loss: the decoder-LM loss raises (a wiring
+    fault), a custom loss gives it JAX's zero grad (the pooler under mean
+    pooling)."""
+    _, tc = _cfgs()
+    params = dict(tm.init_params(tc.model, seed=0, device="cpu"),
+                  cut_off=torch.ones(3))
+    batch = tstep.to_device_batch(_batch(tc, 0, 1), "cpu")
+    if not custom:
+        with pytest.raises(RuntimeError, match="not have been used"):
+            tstep._accumulate_grads(tc, params, batch, None, 1.0)
+        return
+    grads, loss = tstep._accumulate_grads(tc, params, batch, None, 1.0,
+                                          loss_fn=_lm_loss)
+    assert torch.equal(grads["cut_off"], torch.zeros(3))
+    assert math.isfinite(float(loss))
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,13 @@ def _np(rng, shape):
     return rng.normal(size=shape).astype(np.float32)
 
 
-def _segments(rng, b, s):
+def _segments(rng, b, s, segs=True):
+    """Packed sequences at random boundaries, or with ``segs="pad"`` the
+    encoders' pad segments: content in segment 1, a tail of pads (none
+    to half the row) in segment 0."""
+    if segs == "pad":
+        lens = rng.integers(s - s // 2, s + 1, b)
+        return (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
     cuts = np.sort(rng.integers(1, s, (b, 2)), axis=1)
     return (np.arange(s)[None, :, None] >= cuts[:, None, :]).sum(-1).astype(
         np.int32)
@@ -57,6 +63,7 @@ def _segments(rng, b, s):
     (2, 96, 96, 8, 2, 128, True, True),      # segment ids, GQA, d 128
     (1, 33, 77, 2, 1, 64, False, False),     # ragged, not causal, MQA
     (1, 130, 130, 4, 1, 64, True, True),     # past one 128 tile, segments
+    (3, 96, 96, 4, 4, 64, False, "pad"),     # an encoder: pad segments
 ])
 def test_flash_attention_bwd_plain_matches_pallas(b, sq, sk, hq, hk, d,
                                                   causal, segs):
@@ -64,7 +71,7 @@ def test_flash_attention_bwd_plain_matches_pallas(b, sq, sk, hq, hk, d,
     q, k, v = (_np(rng, (b, sq, hq, d)), _np(rng, (b, sk, hk, d)),
                _np(rng, (b, sk, hk, d)))
     do = _np(rng, (b, sq, hq, d))
-    seg = _segments(rng, b, sq) if segs else None
+    seg = _segments(rng, b, sq, segs) if segs else None
 
     def jax_attn(q_, k_, v_):
         return jfa.flash_attention(q_, k_, v_, causal=causal,
@@ -92,6 +99,7 @@ def test_flash_attention_bwd_plain_matches_pallas(b, sq, sk, hq, hk, d,
     (1, 40, 100, 4, 2, 64, True, False),     # causal, sq < sk, GQA, ragged
     (2, 96, 96, 8, 2, 128, True, True),      # segment ids, GQA, d 128
     (1, 33, 77, 2, 1, 64, False, False),     # ragged, not causal, MQA
+    (3, 96, 96, 4, 4, 64, False, "pad"),     # an encoder: pad segments
 ])
 def test_flash_attention_bwd_plain_bf16_matches_pallas(b, sq, sk, hq, hk, d,
                                                        causal, segs):
@@ -101,7 +109,7 @@ def test_flash_attention_bwd_plain_bf16_matches_pallas(b, sq, sk, hq, hk, d,
     q, k, v, do = (_np(rng, s).astype(ml_dtypes.bfloat16) for s in
                    ((b, sq, hq, d), (b, sk, hk, d), (b, sk, hk, d),
                     (b, sq, hq, d)))
-    seg = _segments(rng, b, sq) if segs else None
+    seg = _segments(rng, b, sq, segs) if segs else None
 
     def jax_attn(q_, k_, v_):
         return jfa.flash_attention(q_, k_, v_, causal=causal,
@@ -136,6 +144,39 @@ def test_flash_attention_bwd_rows_without_keys_get_zero_dq():
     dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
     assert not dq[:, :12].any()
+
+
+@pytest.mark.parametrize("causal,kind", [(True, "seq"), (False, "pad")])
+def test_accuracy_probe_float64_backward_and_segments(causal, kind):
+    """The float64 witness of ``attention_accuracy_probe`` (and of the
+    card smoke's backward checks), a batch row at a time, equals the
+    plain backward of the whole batch in float64 (atol 1e-12: the same
+    sums); its packed rows rise 0..3, its pad rows are content (1) then a
+    tail of pads (0), row 0 unpadded."""
+    from megatron_llm_tpu_torch.kernels import attention_accuracy_probe as ap
+
+    b, s, h, d = 3, 40, 2, 16
+    gen = torch.Generator().manual_seed(0)
+    if kind == "seq":
+        seg = ap.packed_segments(b, s, gen, "cpu")
+        assert (seg[:, 0] == 0).all() and (seg.diff(dim=1) >= 0).all()
+        assert (seg.max(dim=1).values <= 3).all()
+    else:
+        seg = ap.pad_segments(b, s, gen, "cpu", s // 2)
+        assert (seg[0] == 1).all() and (seg.diff(dim=1) <= 0).all()
+        assert (seg.sum(dim=1) >= s - s // 2).all()
+    assert seg.dtype == torch.int32 and seg.is_contiguous()
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen)
+                   for _ in range(4))
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                       segment_ids=seg)
+    got = ap.f64_bwd(q, k, v, o, lse, do, causal, seg)
+    want = tfa.flash_attention_bwd_plain(
+        *(t.double() for t in (q, k, v, o, lse, do)), causal=causal,
+        segment_ids=seg)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("b,hk,sk,group,sms,want", [
