@@ -9,8 +9,9 @@ it goes wrong:
 1. device: name, count and ``nvidia-smi`` name / power limit;
 2. build: every CUDA kernel from ``megatron_llm_tpu_torch/csrc`` with one
    ``nvcc`` per source (``decode_step.cu`` as five translation units, one
-   a kernel instantiation, linked into its one library), all started
-   together, and beside them the fused decode step's stamped build for
+   a kernel instantiation, and ``flash_decode.cu`` as five, one a kernel
+   of K8-K11, each linked into its one library), all started together,
+   and beside them the fused decode step's stamped build for
    ``kernels/decode_probe.py``, split the same way (each ``nvcc``'s
    seconds are logged; the Triton kernels compile at their first
    launch);
@@ -31,6 +32,10 @@ it goes wrong:
    ``encoder_cases`` in their JSON rows), every K2/K3 case with no element
    further from a float64 backward than the plain version's by more than
    the tolerance, K6/K7 at the encoders' 4096 x 1024 and 8192 x 768,
+   K1-K3 at one rank's shape at tp = 2 (b 1, s 4096, 16 heads of 128,
+   causal), K4/K5 at its 2048 rows x 4096 under sequence parallelism and
+   K6/K7 at GPT-1.3B's 512 rows x 2048 (``parallel_cases`` in their
+   JSON rows),
    K3 with its walk split over several blocks (equal to one block
    within the tolerance, and bit for bit from run to run), K2, K5 and K7
    repeated bit for bit, K1-K3 with fp32 inputs, which take the CUDA-core
@@ -283,7 +288,29 @@ it goes wrong:
     their configs are the JAX entries' (dot attention, XLA norms), so no
     kernel may launch.  Phases 48-51 are the ``encoder-families`` paths:
     K1 (with ``causal=False`` launches) and K6/K7 must launch, K2/K3 (also
-    not causal) in 49 and 51; RMSNorm and the decode kernels must not.
+    not causal) in 49 and 51; RMSNorm and the decode kernels must not;
+53. world of one: ``initialize_distributed`` and the mesh at dp = tp = 1
+    in a world of one rank over NCCL, through finetune's path (its config
+    and mock data, Llama-2-7B widths cut to 2 layers, seq 2048, 3 steps)
+    against the same run with no world: every loss, grad norm and param
+    bit for bit, K1-K3 launched, no collective;
+54-56. two ranks on the one card over gloo (NCCL takes one rank a GPU;
+    their CUDA collectives go through ``parallel/mappings.py``'s
+    shared-device mailbox, CUDA IPC, gloo carrying the barriers), spawned
+    by the phase, each the ``pretrain`` path on mock data with
+    its kernels' launch counts (K1-K3 on the tensor-core bodies; K4/K5 or
+    K6/K7) required non-zero at the local shapes, its step ms, tokens/s
+    and peak memory logged; before each run step 1's loss and gathered
+    grads against the same model's one-device step on the card at phase
+    6's limits: 54 Llama-2-7B widths cut to 4 layers, seq 4096, tp = 2
+    with sequence parallelism, 3 steps; 55 the same model at dp = 2 with
+    ZeRO-1, 3 steps, then the replicated optimizer's 3 steps, whose
+    params must be within one bf16 rounding (2^-8 relative Frobenius a
+    leaf); 56 GPT-1.3B widths cut to 2 layers, seq 1024, tp = 2 with
+    sequence parallelism and hidden dropout 0.1 (attention dropout 0, so
+    K1-K3 run), 3 steps, and the cost of drawing a mask at the global
+    shape for one rank's block logged.  Phases 53-56 are the ``parallel-training``
+    paths (``<phase> rank <r>`` for the spawned ranks).
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -294,7 +321,7 @@ K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
 Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38, 39-41,
-42-46 and 48-51 are the main paths:
+42-46, 48-51 and 53-56 are the main paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -321,6 +348,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -422,7 +450,7 @@ def encoder_attn_cases(torch):
              ("pad", 200), bf, False, False)]
 
 
-def check_flash_attention(torch, F, fa, dev, gen):
+def check_flash_attention(torch, F, fa, dev, gen, cases=None):
     """K1 at the prefill shape of Llama-2-7B, plus GQA, segment ids and
     Falcon-7B's (MQA over 71 heads, head dim 64), each timed; then, checked
     only, the tensor-core body at its edges (q and k lengths off the tile,
@@ -448,7 +476,8 @@ def check_flash_attention(torch, F, fa, dev, gen):
              ("fp16 b1 sq65 sk193 h4 d64", 1, 65, 193, 4, 4, 64, False, hf,
               False),
              ("fp32 b2 s130 hq4 hk1 d128", 2, 130, 130, 4, 1, 128, False,
-              f32, False)] + encoder_attn_cases(torch)
+              f32, False)] + encoder_attn_cases(torch) \
+        if cases is None else cases
     head = None
     for name, b, sq, sk, hq, hk, d, segs, dtype, timed, *rest in cases:
         causal = rest[0] if rest else True
@@ -1391,11 +1420,11 @@ def check_decode_step_lora(torch, M, ds, c, gen, smi):
     return rows
 
 
-def check_rmsnorm(torch, F, rn, dev, gen):
+def check_rmsnorm(torch, F, rn, dev, gen, row_counts=(4096, 1024, 4)):
     """K4 at rows=4096, plus the serving prefill (1024) and decode (4)
     row counts, hidden 4096."""
     head = None
-    for rows in (4096, 1024, 4):
+    for rows in row_counts:
         h = 4096
         x = torch.randn(rows, h, generator=gen, device=dev,
                         dtype=torch.bfloat16)
@@ -1460,7 +1489,7 @@ def _pairwise_ok(g, p, atol, rtol):
     return (g.float() - p.float()).abs() <= atol + rtol * p.float().abs()
 
 
-def check_flash_attention_bwd(torch, F, fa, dev, gen):
+def check_flash_attention_bwd(torch, F, fa, dev, gen, cases=None):
     """K2 (dQ) and K3 (dK, dV) at the training shape of Llama-2-7B (b1
     s4096 h32 d128 causal), plus GQA, segment ids and Falcon-7B's (K3's
     walk split over 16 blocks), on K1's own O and lse, each timed and each
@@ -1493,7 +1522,8 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
              ("fp16 split b1 sq65 sk193 hq8 hk1 d64", 1, 65, 193, 8, 1, 64,
               False, hf, False),
              ("fp32 b2 s130 hq4 hk1 d64", 2, 130, 130, 4, 1, 64, False, f32,
-              False)] + encoder_attn_cases(torch)
+              False)] + encoder_attn_cases(torch) \
+        if cases is None else cases
     heads = {}
     for name, b, sq, sk, hq, hk, d, segs, dtype, timed, *rest in cases:
         causal = rest[0] if rest else True
@@ -1643,11 +1673,11 @@ def check_flash_attention_bwd(torch, F, fa, dev, gen):
     return heads
 
 
-def check_rmsnorm_bwd(torch, F, rn, dev, gen):
+def check_rmsnorm_bwd(torch, F, rn, dev, gen, rows=4096):
     """K5 (dx and dweight in one pass plus the column sum of its partial
     rows, one counted launch) at the training shape: 4096 rows x 4096,
     bf16; a second call must give the same bits."""
-    rows, h = 4096, 4096
+    h = 4096
     x = torch.randn(rows, h, generator=gen, device=dev, dtype=torch.bfloat16)
     dy = torch.randn(rows, h, generator=gen, device=dev,
                      dtype=torch.bfloat16)
@@ -1693,12 +1723,12 @@ def check_rmsnorm_bwd(torch, F, rn, dev, gen):
                 bound_by=by, library_ms=library_ms)
 
 
-def check_layernorm(torch, F, rn, dev, gen):
+def check_layernorm(torch, F, rn, dev, gen, shapes=None):
     """K6 at Falcon-7B's training rows (2048 x 4544, a hidden size that is
     not a power of two), GPT-1.3B's (4096 x 2048) and the encoders' (4096 x
     1024, 8192 x 768), with bias."""
     head = None
-    for name, rows, h in timing.LN_SHAPES:
+    for name, rows, h in shapes or timing.LN_SHAPES:
         x, w, b = timing.ln_inputs(rows, h, gen, dev)
         y, mean, rstd = rn.layernorm_fwd(x, w, b, 1e-5)
         torch.cuda.synchronize()
@@ -1727,6 +1757,41 @@ def check_layernorm(torch, F, rn, dev, gen):
     return head
 
 
+def check_parallel_shapes(torch, F, fa, rn, dev, rows):
+    """K1-K7 at one rank's shapes of phases 54-56, each checked against its
+    plain version and timed like the other phase-3 cases, under
+    ``parallel_cases`` of the kernel's JSON row: K1-K3 at tp = 2 (b 1, s
+    4096, 16 of Llama-2-7B's 32 heads, causal), K4/K5 at the 2048 rows of
+    seq 4096 under sequence parallelism (h 4096) and K6/K7 at GPT-1.3B's
+    512 rows (seq 1024, h 2048).  Their inputs come from a generator of
+    their own, so the other cases' draws stay as they were."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    bf = torch.bfloat16
+    attn = [("tp=2 local b1 s4096 h16 d128 causal", 1, 4096, 4096, 16, 16,
+             128, False, bf, True)]
+    ln = (("gpt-1.3b tp=2 sp rows 512 h 2048", 512, 2048),)
+    with torch.no_grad():
+        got = {"flash_attention_fwd": check_flash_attention(
+                   torch, F, fa, dev, gen, cases=attn),
+               "rmsnorm_fwd": check_rmsnorm(torch, F, rn, dev, gen,
+                                            row_counts=(2048,)),
+               "layernorm_fwd": check_layernorm(torch, F, rn, dev, gen,
+                                                shapes=ln)}
+        got.update(check_flash_attention_bwd(torch, F, fa, dev, gen,
+                                             cases=attn))
+    got["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, F, rn, dev, gen, rows=2048)
+    got["layernorm_bwd"] = check_layernorm_bwd(torch, F, rn, dev, gen,
+                                               shapes=ln)
+    names = {"flash_attention_fwd": attn[0][0],
+             "flash_attention_bwd_dq": attn[0][0],
+             "flash_attention_bwd_dkv": attn[0][0],
+             "rmsnorm_fwd": "tp=2 sp rows 2048 h 4096",
+             "rmsnorm_bwd": "tp=2 sp rows 2048 h 4096",
+             "layernorm_fwd": ln[0][0], "layernorm_bwd": ln[0][0]}
+    for kname, row in got.items():
+        rows[kname].setdefault("parallel_cases", {})[names[kname]] = row
+
+
 def _head_or_encoder_case(head, name, row):
     """The first timed shape's row is the kernel's JSON row; the encoders'
     shapes join it under ``encoder_cases``."""
@@ -1737,7 +1802,7 @@ def _head_or_encoder_case(head, name, row):
     return head
 
 
-def check_layernorm_bwd(torch, F, rn, dev, gen):
+def check_layernorm_bwd(torch, F, rn, dev, gen, shapes=None):
     """K7 (dx, dweight and dbias in one pass plus the column sum of its
     partial rows, one counted launch) at the shapes of K6; a second call
     must give the same bits, and a call without a bias must return no
@@ -1745,7 +1810,7 @@ def check_layernorm_bwd(torch, F, rn, dev, gen):
     (kernel, library, library, kernel); ``ms`` and ``library_ms`` are the
     means of each pair."""
     head = None
-    for name, rows, h in timing.LN_SHAPES:
+    for name, rows, h in shapes or timing.LN_SHAPES:
         x, w, b = timing.ln_inputs(rows, h, gen, dev)
         dy = torch.randn(rows, h, generator=gen, device=dev,
                          dtype=torch.bfloat16)
@@ -6199,6 +6264,571 @@ def encoder_families_phases(torch, dev, counters, smi, paths, settle):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 53-56: data, tensor and sequence parallel training with ZeRO-1
+# ---------------------------------------------------------------------------
+
+PAR_LAYERS = 4      # Llama-2-7B widths cut to 4 layers (phases 54-55)
+PAR_SEQ = 4096
+PAR_STEPS = 3
+GPT_PAR_SEQ = 1024  # GPT-1.3B's table; 512 rows a rank under SP at tp = 2
+# K1-K3 (their tensor-core bodies) with RMSNorm's K4/K5, or LayerNorm's
+# K6/K7 (GPT)
+PAR_NEED = TRAIN_KERNELS + ("rmsnorm_fwd", "rmsnorm_bwd")
+GPT_PAR_NEED = TRAIN_KERNELS + ("layernorm_fwd", "layernorm_bwd")
+
+
+def _par_cfg(model, seq, gbs, iters=PAR_STEPS, **parallel):
+    from megatron_llm_tpu_torch.config import (
+        OptimizerConfig,
+        ParallelConfig,
+        RuntimeConfig,
+        TrainConfig,
+    )
+
+    return RuntimeConfig(
+        model=model, parallel=ParallelConfig(**parallel),
+        optimizer=OptimizerConfig(lr_warmup_iters=1),
+        train=TrainConfig(train_iters=iters, micro_batch_size=1,
+                          global_batch_size=gbs, seq_length=seq,
+                          log_interval=0)).validate()
+
+
+def _llama_par(**kw):
+    from megatron_llm_tpu_torch.config import llama2_config
+
+    return llama2_config("7b", num_layers=PAR_LAYERS, params_dtype="bfloat16",
+                         attention_impl="flash", norm_impl="pallas",
+                         recompute="selective", **kw)
+
+
+def _gpt_par():
+    """GPT-1.3B cut to 2 layers with hidden dropout 0.1; attention dropout
+    0, so attention takes K1-K3 (phase 11 keeps the reference's 0.1 on the
+    einsum path)."""
+    from megatron_llm_tpu_torch.config import gpt_config
+
+    return gpt_config("1.3b", num_layers=2, params_dtype="bfloat16",
+                      attention_impl="flash", norm_impl="pallas",
+                      recompute="selective", hidden_dropout=0.1,
+                      attention_dropout=0.0)
+
+
+def _first_batch(cfg, dataset):
+    """The host batch ``pretrain`` draws for step 1 ``[accum, gbs, s]``."""
+    from megatron_llm_tpu_torch.training.driver import _build_train_iterator
+
+    return next(_build_train_iterator(cfg, dataset, 0,
+                                      cfg.train.global_batch_size, True))
+
+
+def _first_grads(torch, cfg, dev, batch, rng):
+    """Step 1's loss and whole fp32 grads (on rank 0; None elsewhere)
+    through the state ``pretrain`` builds (``setup_train_state``: whole
+    params from the seed, this rank's shards), the accumulation and the
+    plan's reductions, gathered over tp."""
+    from megatron_llm_tpu_torch.initialize import is_rank_0
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.models.transformer import rope_tables
+    from megatron_llm_tpu_torch.training import driver
+    from megatron_llm_tpu_torch.training import step as S
+
+    art = driver.setup_train_state(cfg, device=dev)
+    with art.in_mesh():
+        b = S.to_device_batch(driver._dp_block(batch, art.mesh), dev)
+        grads, loss = S._accumulate_grads(
+            cfg, art.state.params, b, rope_tables(cfg.model, device=dev), 1.0,
+            rng=rng)
+        if art.plan is not None:
+            grads, loss = S.reduce_grads(art.plan, grads, loss)
+            grads = sharding.gather_params(grads, art.plan.specs, art.mesh)
+    loss = float(loss)
+    del art, b
+    return loss, (grads if is_rank_0() else None)
+
+
+def _tp1_check(torch, cfg, dev, batch, rng, loss, grads, label):
+    """Rank 0: the same model's one-device step on the card (whole params
+    from the same seed, the global batch as one microbatch, the same
+    dropout key) against the sharded step's loss and gathered grads, at
+    phase 6's limits."""
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.models.transformer import rope_tables
+    from megatron_llm_tpu_torch.training import step as S
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves_with_path
+
+    ref = dataclasses.replace(cfg, parallel=ParallelConfig()).validate()
+    params = M.init_params(ref.model, seed=cfg.train.seed, device=dev,
+                           tp=cfg.parallel.tensor_parallel)
+    whole = {k: v.reshape((1, -1) + v.shape[2:]) for k, v in batch.items()}
+    ref_grads, ref_loss = S._accumulate_grads(
+        ref, params, S.to_device_batch(whole, dev),
+        rope_tables(ref.model, device=dev), 1.0, rng=rng)
+    ref_loss = float(ref_loss)
+    worst = ("", 0.0)
+    g_by = dict(tree_leaves_with_path(grads))
+    r_by = dict(tree_leaves_with_path(ref_grads))
+
+    def norm(t):
+        return float(torch.linalg.vector_norm(t.float()))
+
+    # the key bias's gradient is zero in exact arithmetic (softmax ignores
+    # a constant added to a row of scores): both sides hold rounding
+    # noise, each held to phase 6's limit against the query bias's
+    noise = {}
+    bk = ("layers", "attn", "bk")
+    if bk in r_by:
+        bq = ("layers", "attn", "bq")
+        noise = {side: norm(t[bk]) / norm(t[bq])
+                 for side, t in (("sharded", g_by), ("tp=1", r_by))}
+    for path, r in r_by.items():
+        if path == bk:
+            continue
+        err = norm(g_by[path] - r.float()) / norm(r)
+        if not math.isfinite(err) or err > worst[1]:
+            worst = (".".join(path), err)
+    d = abs(loss - ref_loss)
+    log(f"[rank 0] {label}: step 1 loss {loss:.5f} against the tp = 1 "
+        f"step's {ref_loss:.5f} |d| {d:.5f} (tol {TRAIN_LOSS_TOL}); worst "
+        f"gathered grad rel. Frobenius err {worst[1]:.5f} at {worst[0]} (tol "
+        f"{TRAIN_GRAD_RTOL})" + (f"; the key bias's grad norm over the query "
+                                 f"bias's {noise}" if noise else ""))
+    if not (d <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_RTOL
+            and all(v <= TRAIN_GRAD_RTOL for v in noise.values())):
+        raise RuntimeError(f"{label}: the sharded step disagrees with the "
+                           f"one-device step")
+    return dict(loss=loss, ref_loss=ref_loss, d_loss=d,
+                worst_grad_rel_err=worst[1], worst_leaf=worst[0],
+                key_bias_noise=noise)
+
+
+def _par_train(torch, cfg, dev, counters, dataset, label, need):
+    """``pretrain`` on this rank, the main path: the counters zeroed just
+    before and read just after; returns the record and the final state."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.training.driver import pretrain
+
+    steps = []
+    mark = {}
+
+    def on_step(it, m, sec):
+        steps.append((float(m["loss"]), float(m["grad_norm"]),
+                      int(m["skipped"]), sec))
+        if it == cfg.train.train_iters and cfg.train.save:
+            # the end-of-training save's own peak: counted from here
+            torch.cuda.synchronize(dev)
+            mark["train_peak"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            mark["base"] = torch.cuda.memory_allocated(dev)
+            mark["t"] = time.perf_counter()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    comm = mappings.launches
+    state = pretrain(cfg, dataset, device=dev, on_step=on_step)
+    launches = _launches(counters)
+    comm = mappings.launches - comm
+    peak = mark.get("train_peak", torch.cuda.max_memory_allocated(dev))
+    if "base" in mark:
+        save = _save_record(torch, dev, state, mark, label)
+    missing = [n for n in need if launches[n] < 1]
+    off_body = [n for n in need if n.endswith("_mma")
+                and launches[n] != launches[n[:-len("_mma")]]]
+    bad = [i for i, (lo, no, sk, _) in enumerate(steps)
+           if sk or not (math.isfinite(lo) and math.isfinite(no))]
+    if missing or off_body or bad or len(steps) != cfg.train.train_iters \
+            or comm < 1:
+        raise RuntimeError(f"{label}: kernels never launched {missing}, off "
+                           f"the tensor-core bodies {off_body}, bad steps "
+                           f"{bad} of {len(steps)}, collectives {comm}")
+    step_s = sorted(sec for *_, sec in steps[1:])[(len(steps) - 1) // 2]
+    tokens = cfg.train.global_batch_size * cfg.train.seq_length
+    rec = dict(launches=launches, collectives=comm,
+               losses=[x[0] for x in steps],
+               grad_norms=[x[1] for x in steps], step_ms=step_s * 1e3,
+               first_step_ms=steps[0][3] * 1e3,
+               tokens_per_s=tokens / step_s, peak_gib=peak / 2 ** 30,
+               n_params=M.num_params(state.params))
+    if "base" in mark:
+        rec["save"] = save
+    return rec, state
+
+
+def _save_record(torch, dev, state, mark, label) -> dict:
+    """The end-of-training save under the plan (phase 55): the card
+    memory it took above the trained state's, against ``SAVE_PEAK_LEAVES``
+    whole fp32 leaves of the largest (the params are whole at dp alone; a
+    save that gathered the whole state at once would take all of them)."""
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    sec = time.perf_counter() - mark["t"]
+    excess = torch.cuda.max_memory_allocated(dev) - mark["base"]
+    largest = max(p.numel() for p in tree_leaves(state.params)) * 4
+    limit = SAVE_PEAK_LEAVES * largest
+    log(f"{label}: the save took {sec:.1f} s and card memory "
+        f"{excess / 2 ** 30:.3f} GiB above the trained state, the largest "
+        f"whole fp32 leaf {largest / 2 ** 30:.3f} GiB (limit "
+        f"{limit / 2 ** 30:.3f})")
+    if excess > limit:
+        raise RuntimeError(f"{label}: the save held more than "
+                           f"{SAVE_PEAK_LEAVES} whole leaves on the card")
+    return dict(seconds=sec, excess_gib=excess / 2 ** 30,
+                largest_leaf_gib=largest / 2 ** 30, limit_gib=limit / 2 ** 30)
+
+
+# a whole leaf gathered, its contiguous copy for the writer, and this
+# rank's block staged for the gather
+SAVE_PEAK_LEAVES = 3
+
+
+def _resume_check(torch, cfg, dev, ds, kept, label) -> dict:
+    """Phase 55's checkpoint loaded by ``pretrain`` (a resume at the last
+    iteration: it trains nothing): every rank's params and blocks of the
+    fp32 masters and moments equal the saved run's bit for bit."""
+    from megatron_llm_tpu_torch.training.driver import pretrain
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    resumed = pretrain(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, load=cfg.train.save, save=None)), ds, device=dev)
+    got = {"params": tree_leaves(resumed.params),
+           "master": tree_leaves(resumed.opt.master),
+           "mu": tree_leaves(resumed.opt.mu), "nu": tree_leaves(resumed.opt.nu)}
+    differ = [f"{name} {i}" for name, leaves in got.items()
+              for i, (a, b) in enumerate(zip(leaves, kept[name]))
+              if not torch.equal(a, b)]
+    sec = time.perf_counter() - t0
+    log(f"{label}: resumed from its checkpoint in {sec:.1f} s; "
+        f"{len(differ)} leaves differ from the saved state")
+    if differ or resumed.opt.step != kept["step"]:
+        raise RuntimeError(f"{label}: the resumed state differs: {differ}")
+    return dict(seconds=sec, leaves_differ=len(differ))
+
+
+def _par_rank(rank, world, rdv, out_dir, smi, device="cuda"):
+    """One rank of phases 54-56 (spawned twice on the one card, gloo)."""
+    import datetime
+
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from megatron_llm_tpu_torch import initialize
+    from megatron_llm_tpu_torch.finetune import _MockDataset
+    from megatron_llm_tpu_torch.kernels import launch_counters
+    from megatron_llm_tpu_torch.ops import dropout as drop
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = initialize.initialize_distributed(
+        device, init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(minutes=10))
+    if info.backend != "gloo":
+        raise RuntimeError(f"two ranks on one card took {info.backend}")
+    dev = info.device
+    counters = launch_counters()
+    out = {}
+    try:
+        for label, model, seq, gbs, par, need, dropout in (
+                ("54 tp2-sp llama2-7b widths", _llama_par(), PAR_SEQ, 1,
+                 dict(tensor_parallel=2, sequence_parallel=True), PAR_NEED,
+                 False),
+                ("55 dp2-zero1 llama2-7b widths", _llama_par(), PAR_SEQ, 2,
+                 dict(data_parallel=2, use_distributed_optimizer=True),
+                 PAR_NEED, False),
+                ("56 tp2-sp gpt-1.3b", _gpt_par(), GPT_PAR_SEQ, 1,
+                 dict(tensor_parallel=2, sequence_parallel=True),
+                 GPT_PAR_NEED, True)):
+            t0 = time.perf_counter()
+            cfg = _par_cfg(model, seq, gbs, **par)
+            if par.get("use_distributed_optimizer"):
+                # the end of training saves under the plan (every rank)
+                cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                    cfg.train, save=os.path.join(out_dir, "ckpt55")))
+            ds = _MockDataset(model.vocab_size, seq, seed=cfg.train.seed)
+            # the step's key at iteration 0 (step.py; the accumulation
+            # folds in the microbatch)
+            rng = (drop.fold_in(drop.key(cfg.train.seed), 0) if dropout
+                   else None)
+            batch = _first_batch(cfg, ds)
+            # step 1's grads with the replicated optimizer's layout (ZeRO-1
+            # splits the optimizer state, not the grads' whole)
+            check_cfg = dataclasses.replace(
+                cfg, parallel=dataclasses.replace(
+                    cfg.parallel, use_distributed_optimizer=False),
+                train=dataclasses.replace(cfg.train, save=None)).validate()
+            loss, grads = _first_grads(torch, check_cfg, dev, batch, rng)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec = {}
+            if rank == 0:
+                rec["check"] = _tp1_check(torch, cfg, dev, batch, rng, loss,
+                                          grads, label)
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            initialize.barrier()
+            train_rec, state = _par_train(torch, cfg, dev, counters, ds,
+                                          label, need)
+            rec.update(train_rec)
+            kept = _zero_kept(state, cfg) \
+                if par.get("use_distributed_optimizer") else None
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            if par.get("use_distributed_optimizer"):
+                rec["resume"] = _resume_check(torch, cfg, dev, ds, kept,
+                                              label)
+                gc.collect()
+                torch.cuda.empty_cache()
+                rec["zero1_vs_replicated"] = _zero_vs_replicated(
+                    torch, dev, ds, kept, check_cfg)
+            del kept
+            if dropout and rank == 0:
+                rec["mask_draw"] = _mask_draw_ms(torch, dev, model, seq)
+            rec["seconds"] = time.perf_counter() - t0
+            out[label] = rec
+            log(f"[rank {rank}] {label}: losses "
+                f"{[round(x, 4) for x in rec['losses']]}; step (median of "
+                f"steps 2-{PAR_STEPS}) {rec['step_ms']:.1f} ms, first "
+                f"{rec['first_step_ms']:.1f} ms; {rec['tokens_per_s']:.1f} "
+                f"tokens/s (the global batch's); peak memory "
+                f"{rec['peak_gib']:.2f} GiB; {rec['n_params'] / 1e9:.3f}e9 "
+                f"params on this rank; {rec['collectives']} collectives; "
+                f"host clock; card {smi}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            initialize.barrier()
+    except BaseException:
+        # leave at once: the peer may wait in a collective, and the
+        # driving process's join ends it when this rank exits non-zero
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    initialize.destroy()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _mask_draw_ms(torch, dev, model, seq) -> dict:
+    """The cost of drawing a residual dropout mask at the global shape and
+    keeping this rank's sequence block (tp = 2 under sequence
+    parallelism), against drawing the block's shape alone (which would
+    drop other elements than one device does): CUDA-event ms of each."""
+    from megatron_llm_tpu_torch.kernels import _timing
+    from megatron_llm_tpu_torch.ops import dropout as drop
+
+    k = drop.key(7)
+    local = (1, seq // 2, model.hidden_size)
+    got = {"block_of_global_ms": _timing.event_ms(lambda: drop.block_mask(
+               k, 0.9, local, dev, ((1, seq, seq // 2),)), iters=20),
+           "local_only_ms": _timing.event_ms(lambda: drop.keep_mask(
+               k, 0.9, local, dev), iters=20),
+           "shape": list(local)}
+    log(f"dropout mask at {local} (tp = 2, SP): the global draw and this "
+        f"rank's block {got['block_of_global_ms']:.4f} ms against a draw "
+        f"of the block alone {got['local_only_ms']:.4f} ms (CUDA events)")
+    return got
+
+
+def _zero_kept(state, cfg) -> dict:
+    """What phase 55 holds of ZeRO-1's run: the bf16 params (whole on
+    every rank), this rank's blocks of the fp32 masters and moments, and
+    each leaf's split dim (``zero1_specs``)."""
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.training import optimizer as O
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    specs = O.zero1_specs(sharding.param_specs(cfg.model, cfg.parallel),
+                          state.params, cfg.parallel)
+    return dict(params=[p.clone() for p in tree_leaves(state.params)],
+                step=state.opt.step,
+                master=tree_leaves(state.opt.master),
+                mu=tree_leaves(state.opt.mu), nu=tree_leaves(state.opt.nu),
+                dims=[s.index("dp") if "dp" in s else None
+                      for s in tree_leaves(specs)])
+
+
+def _zero_vs_replicated(torch, dev, ds, kept, replicated_cfg):
+    """The replicated optimizer's run from the same seed and batches
+    against ZeRO-1's after the same steps, on each rank:
+
+    - published: every leaf of this rank's bf16 params is the bf16 cast
+      of the fp32 master gathered over dp, bit for bit (a dp block that
+      was never all-gathered keeps stale values);
+    - this rank's blocks of the fp32 masters, mu and nu, and the whole
+      bf16 params, each leaf within its ``ZERO1_RTOL`` relative Frobenius
+      of the replicated run's.  The runs sum the grad norm's squares in
+      another order, so the clip factor differs in its last bits; that is
+      all that differs."""
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.training.driver import pretrain
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    rep = pretrain(replicated_cfg, ds, device=dev)
+    group = dist.group.WORLD  # phase 55's world is its dp axis
+    rank, dp = dist.get_rank(), dist.get_world_size()
+    whole = {"params": tree_leaves(rep.params),
+             "master": tree_leaves(rep.opt.master),
+             "mu": tree_leaves(rep.opt.mu), "nu": tree_leaves(rep.opt.nu)}
+
+    def block(t, d):
+        if d is None:
+            return t
+        n = t.shape[d] // dp
+        return t.narrow(d, rank * n, n)
+
+    def rel(a, b):
+        dn = float((a.float() - b.float()).norm())
+        bn = float(b.float().norm())
+        return dn / bn if bn > 0 else dn
+
+    worst = {k: ("", 0.0) for k in whole}
+    unpublished, same, changed = [], 0, 0
+    for i, d in enumerate(kept["dims"]):
+        p = kept["params"][i]
+        master = kept["master"][i]
+        if d is not None:
+            master = mappings.all_gather(master, group, d)
+        if not torch.equal(master.to(p.dtype), p):
+            unpublished.append(i)
+        del master
+        same += int(torch.equal(p, whole["params"][i]))
+        changed += int((p != whole["params"][i]).sum())
+        for name, ref in whole.items():
+            got = p if name == "params" else kept[name][i]
+            err = rel(got, ref[i] if name == "params" else block(ref[i], d))
+            if not math.isfinite(err) or err > worst[name][1]:
+                worst[name] = (i, err)
+    n = len(kept["dims"])
+    log(f"[rank {rank}] zero1 vs replicated after {kept['step']} steps: "
+        f"{n - len(unpublished)} of {n} leaves published (bf16 params == "
+        f"the gathered fp32 master cast, bit for bit); params {same} of {n} "
+        f"leaves bit for bit, {changed} elements differ; worst leaf rel. "
+        f"Frobenius " + ", ".join(
+            f"{k} {v[1]:.3e} (leaf {v[0]}; tol {ZERO1_RTOL[k]:.0e})"
+            for k, v in worst.items()))
+    if unpublished or rep.opt.step != kept["step"] or any(
+            not v[1] <= ZERO1_RTOL[k] for k, v in worst.items()):
+        raise RuntimeError(f"ZeRO-1 disagrees with the replicated optimizer:"
+                           f" unpublished leaves {unpublished}, worst "
+                           f"{worst}")
+    return dict(leaves=n, published=n - len(unpublished),
+                param_leaves_bitwise=same, elements_differ=changed,
+                worst_rel_frobenius={k: v[1] for k, v in worst.items()})
+
+
+# 50-140 times the sound runs' reading on the card (params 1.961e-06,
+# masters 7.066e-09, mu 8.909e-08, nu 1.529e-07 on an H100: PERF.md); the
+# published check above is exact
+ZERO1_RTOL = {"params": 1e-4, "master": 1e-6, "mu": 1e-5, "nu": 1e-5}
+
+
+def world_of_one(torch, dev, counters, smi):
+    """Phase 53: ``initialize_distributed`` and the mesh at dp = tp = 1 in a
+    world of one over NCCL, through finetune's path (its config and mock
+    data; Llama-2-7B widths cut to 2 layers, seq 2048), against the same
+    run with no world: every loss, grad norm and param bit for bit, and no
+    collective launched."""
+    from megatron_llm_tpu_torch import finetune, initialize
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.training.driver import pretrain
+
+    args = finetune.parse_args([
+        "--model", "llama2", "--model_size", "7b", "--mock_data",
+        "--seq_length", "2048", "--micro_batch_size", "1",
+        "--global_batch_size", "2", "--train_iters", "3", "--device", "cuda",
+        "--log_interval", "0", "--eval_iters", "0"])
+    work = tempfile.mkdtemp(prefix="chip_smoke_world1_")
+    runs = {}
+    try:
+        for world in ("nccl world of one", "no world"):
+            if world != "no world":
+                info = initialize.initialize_distributed(
+                    "cuda", init_method=f"file://{work}/rdv", rank=0,
+                    world_size=1)
+                if info.backend != "nccl" or info.world_size != 1:
+                    raise RuntimeError(f"world of one: {info}")
+            cfg = finetune.build_config(args)
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, num_layers=2)).validate()
+            train_ds, _, _ = finetune.build_datasets(args, cfg)
+            steps = []
+            _zero(counters)
+            comm = mappings.launches
+            state = pretrain(cfg, train_ds, device=dev,
+                             on_step=lambda it, m, sec: steps.append(
+                                 (float(m["loss"]), float(m["grad_norm"]))))
+            launches = _launches(counters)
+            if world != "no world":
+                mesh = mesh_lib.build_mesh(cfg.parallel)
+                if mesh.groups:
+                    raise RuntimeError(f"world of one: groups {mesh.groups}")
+                initialize.destroy()
+            runs[world] = (steps, _checksums(torch, state.params), launches,
+                           mappings.launches - comm)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        initialize.destroy()
+        shutil.rmtree(work, ignore_errors=True)
+    (a_steps, a_sum, a_l, a_c), (b_steps, b_sum, _, b_c) = runs.values()
+    _check_path("world-1 nccl", a_l, {n: None for n in TRAIN_KERNELS})
+    log(f"world-1 nccl: losses {a_steps} against no world's {b_steps}; "
+        f"params {'bit for bit' if a_sum == b_sum else 'DIFFER'}; "
+        f"collectives {a_c} and {b_c}")
+    if a_steps != b_steps or a_sum != b_sum or a_c or b_c:
+        raise RuntimeError("the world of one is not the unsharded step bit "
+                           "for bit, or it communicated")
+    return a_l
+
+
+def parallel_phases(torch, dev, counters, smi, paths, settle):
+    """Phases 53-56 (the ``parallel-training`` paths)."""
+    import torch.multiprocessing as mp
+
+    t0 = tp = time.perf_counter()
+    paths["world-1 nccl"] = world_of_one(torch, dev, counters, smi)
+    settle()
+    tp = _phase_done("53", tp, smi)
+    work = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        mp.start_processes(_par_rank, args=(2, os.path.join(work, "rdv"),
+                                            work, smi),
+                           nprocs=2, join=True, start_method="spawn")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for label in ranks[0]:
+        for r, rec in enumerate(ranks):
+            paths[f"{label} rank {r}"] = rec[label]["launches"]
+            log(f"{label} rank {r} kernels " + json.dumps(
+                rec[label]["launches"]))
+        summary = {f"rank {r}": {k: v for k, v in rec[label].items()
+                                 if k != "launches"}
+                   for r, rec in enumerate(ranks)}
+        log(f"phase {label} (both ranks on the one card, gloo): "
+            + json.dumps(summary))
+        if ranks[0][label]["losses"] != ranks[1][label]["losses"]:
+            raise RuntimeError(f"{label}: the ranks logged other losses")
+    log(f"parallel phases 53-56 in {time.perf_counter() - t0:.1f}s (54-56 "
+        f"{time.perf_counter() - tp:.1f}s, two processes spawned on the "
+        f"card)")
+
+
 def log_hmma(build) -> None:
     """Log the tensor-core instructions (HMMA) of the attention kernels'
     libraries, where the toolkit's cuobjdump is present; information only."""
@@ -6250,8 +6880,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all(extra=(decode_probe.stamped_build(),))
     log(f"build: {', '.join(build.SOURCES)} and the stamped decode_step "
-        f"with nvcc in {time.perf_counter() - t0:.1f}s (decode_step in "
-        f"{build.SPLIT['decode_step'][1]} translation units); nvcc seconds "
+        f"with nvcc in {time.perf_counter() - t0:.1f}s (" + ", ".join(
+            f"{n} in {u} translation units" for n, (_, u) in
+            build.SPLIT.items()) + "); nvcc seconds "
         f"by source and unit " + json.dumps(
             {n: round(v, 1) for n, v in build.NVCC_SECONDS.items()}))
     build.print_ptxas(logs.get("decode_step_stamps", ""),
@@ -6276,6 +6907,8 @@ def main() -> int:
         rows.update(check_flash_attention_bwd(torch, F, fa, dev, gen))
     rows["rmsnorm_bwd"] = check_rmsnorm_bwd(torch, F, rn, dev, gen)
     rows["layernorm_bwd"] = check_layernorm_bwd(torch, F, rn, dev, gen)
+    torch.cuda.empty_cache()
+    check_parallel_shapes(torch, F, fa, rn, dev, rows)
     torch.cuda.empty_cache()
     cfg = llama2_config("7b", params_dtype="bfloat16", attention_impl="flash",
                         norm_impl="pallas", fused_decode=False)
@@ -6467,6 +7100,7 @@ def main() -> int:
     single_card_training_phases(torch, fused, dev, counters, smi, paths,
                                 settle)
     encoder_families_phases(torch, dev, counters, smi, paths, settle)
+    parallel_phases(torch, dev, counters, smi, paths, settle)
 
     meta = {
         "flash_attention_fwd": (

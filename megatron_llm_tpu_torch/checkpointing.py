@@ -32,10 +32,21 @@ A load is driven by a template tree: keys must match exactly, shapes and
 dtypes must agree, and each tensor is read into the template's own
 tensor (so a resume at 7B never holds two copies of the state; the
 template is consumed), or onto ``device`` for a ``meta`` template.
-There is no resharding: the port trains on one device.
 A release load refreshes the fp32 master copy from the loaded params, so
 the first optimizer step starts from them (the JAX package keeps the
 template's master there).
+
+Under data, tensor or sequence parallelism or ZeRO-1 (a ``plan``, the
+step's ``training.step.ParallelPlan``) rank 0 writes the same files a
+degree-1 run writes, one leaf at a time: as its writer asks for a leaf,
+every rank gathers that leaf whole (params over tp, the optimizer state
+over tp and dp), rank 0 copies it to the host in pieces and drops it,
+and a barrier ends the save.  A load reads each leaf whole into host
+memory on every rank and copies the rank's block into the template's
+tensor.  So a state that fits the card only sharded is saved and loaded
+with one whole leaf alive at a time, and a checkpoint moves between
+degrees, as JAX's global arrays do (the padded vocabulary must match:
+``padded_vocab_size(tp)``).
 
 Layout:  <root>/iter_0000010/{state/, config.json, meta.json}
          <root>/release/{params/, config.json}
@@ -54,9 +65,11 @@ import logging
 import os
 import shutil
 from pathlib import Path
+from collections.abc import Mapping
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from . import metrics as metrics_lib
 from . import safetensors_io as st
@@ -151,7 +164,7 @@ def _is_namedtuple(x) -> bool:
 def _encode(tree, path: str, tensors: dict):
     """The JSON node of ``tree``; tensor leaves go into ``tensors``."""
     if isinstance(tree, torch.Tensor):
-        tensors[path] = tree.detach()
+        tensors[path] = tree  # the leaf itself (the writer detaches it)
         return {"tensor": path}
     if tree is None:
         return None
@@ -176,8 +189,11 @@ def _write_payload(directory: Path, tree) -> None:
     if directory.exists():  # a retried attempt starts over
         shutil.rmtree(directory)
     directory.mkdir(parents=True)
-    tensors: dict = {}
-    node = _encode(tree, "", tensors)
+    if isinstance(tree, _GatheredLeaves):
+        node, tensors = tree.node, tree
+    else:
+        tensors = {}
+        node = _encode(tree, "", tensors)
     st.save_sharded(tensors, directory, fsync=True)
     _write_synced(directory / STATE_JSON, json.dumps(node))
     _write_synced(directory / COMMIT_MARKER, "")
@@ -192,26 +208,41 @@ def _write_synced(path: Path, text: str) -> None:
 
 class _Reader:
     """Decodes a payload against a template; counts the tensors it takes
-    so a load can refuse a file that holds more than the template."""
+    so a load can refuse a file that holds more than the template.  With
+    ``specs`` (``id(template leaf) → spec``, ``_leaf_specs``) a leaf is
+    this rank's block of the stored whole on ``mesh``."""
 
-    def __init__(self, directory: Path, device=None, cast: bool = False):
+    def __init__(self, directory: Path, device=None, cast: bool = False,
+                 specs: Optional[dict] = None, mesh=None):
         self.files = st.open_sharded(directory)
         self.device = None if device is None else torch.device(device)
         self.cast = cast
+        self.specs, self.mesh = specs or {}, mesh
         self.taken = 0
 
     def tensor(self, key: str, like, path: str):
         src = self.files.file_of(key)
         spec = src.spec(key)
-        if spec.shape != like.shape:
+        block = self.specs.get(id(like))
+        shape = tuple(like.shape) if block is None \
+            else _whole_shape(like, block, self.mesh)
+        if tuple(spec.shape) != shape:
             raise ValueError(f"checkpoint leaf {path!r} has shape "
                              f"{tuple(spec.shape)}, the template "
-                             f"{tuple(like.shape)}")
+                             f"{shape}")
         dtype = spec.dtype
         if dtype != like.dtype and not self.cast:
             raise ValueError(f"checkpoint leaf {path!r} is {dtype}, the "
                              f"template {like.dtype}")
         self.taken += 1
+        if block is not None:
+            # the whole leaf in host memory, this rank's block into the
+            # template's own tensor
+            from .models.sharding import shard_tensor
+
+            whole = src.get(key, "cpu", like.dtype)
+            with torch.no_grad():
+                return like.copy_(shard_tensor(whole, block, self.mesh))
         if like.device.type != "meta" and _same_device(self.device,
                                                        like.device):
             # into the template's own storage: a resume never holds two
@@ -268,14 +299,16 @@ def _same_device(want: Optional[torch.device], have: torch.device) -> bool:
 
 
 def _read_payload(directory: Path, template, *, device=None,
-                  cast: bool = False, subtree: Optional[str] = None):
+                  cast: bool = False, subtree: Optional[str] = None,
+                  specs: Optional[dict] = None, mesh=None):
     node = json.loads((directory / STATE_JSON).read_text())
     if subtree is not None:  # e.g. the params of a full training state
         if "namedtuple" in node:
             node = node["fields"][subtree]
         else:
             node = node["dict"][subtree]
-    reader = _Reader(directory, device=device, cast=cast)
+    reader = _Reader(directory, device=device, cast=cast, specs=specs,
+                     mesh=mesh)
     out = reader.decode(node, template)
     if subtree is None and reader.taken != len(reader.files):
         raise ValueError(
@@ -289,6 +322,125 @@ def _read_payload(directory: Path, template, *, device=None,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Sharded training states (a ParallelPlan)
+# ---------------------------------------------------------------------------
+
+
+def map_train_state(fn, state, plan):
+    """``state`` with ``fn(tensor, spec)`` applied to its params (their
+    specs) and its optimizer leaves (the specs with ZeRO-1's dp axis);
+    the host scalars and the guard stay as they are."""
+    from .utils.tree import tree_map
+
+    pspecs = tree_map(lambda p, s: s, state.params, plan.specs)
+    ospecs = pspecs if plan.zero is None else plan.zero.specs
+    opt = state.opt
+
+    def opt_leaves(tree):
+        return None if tree is None else tree_map(fn, tree, ospecs)
+
+    return state._replace(
+        params=tree_map(fn, state.params, pspecs),
+        opt=opt._replace(mu=opt_leaves(opt.mu), nu=opt_leaves(opt.nu),
+                         master=opt_leaves(opt.master)))
+
+
+def _leaf_specs(state, plan) -> dict:
+    """``id(leaf) → spec`` of the state's params and optimizer leaves."""
+    specs: dict = {}
+
+    def note(t, s):
+        specs[id(t)] = s
+        return t
+
+    map_train_state(note, state, plan)
+    return specs
+
+
+def _whole_shape(t: torch.Tensor, spec: tuple, mesh) -> tuple:
+    """The shape of the whole tensor whose block on ``mesh`` is ``t``."""
+    from .models.sharding import _axes
+
+    shape = list(t.shape)
+    for dim, entry in enumerate(spec):
+        for a in _axes(entry):
+            shape[dim] *= mesh.size(a)
+    return tuple(shape)
+
+
+def _announce(index: Optional[int]) -> int:
+    """Rank 0's ``index`` on every rank (a broadcast over the world)."""
+    box = [index]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class _GatheredLeaves(Mapping):
+    """The payload's tensors of a sharded state by path, each gathered
+    whole only when the writer asks for it.  Rank 0 writes: each
+    ``[path]`` tells the other ranks which leaf comes next, and every rank
+    gathers it; the others ``serve`` until rank 0 is ``done``.  So one
+    whole leaf is alive at a time, whatever order the writer takes and
+    however often it retries.  A leaf outside the plan (the guard's) is
+    the same on every rank and is written as it is."""
+
+    def __init__(self, state, plan):
+        self.mesh = plan.mesh
+        specs = _leaf_specs(state, plan)
+        self.local: dict = {}
+        self.node = _encode(state, "", self.local)
+        self.keys = list(self.local)
+        self.index = {k: i for i, k in enumerate(self.keys)}
+        self.specs = {k: specs.get(id(t)) for k, t in self.local.items()}
+
+    def spec(self, key: str) -> torch.Tensor:
+        t, s = self.local[key], self.specs[key]
+        shape = t.shape if s is None else _whole_shape(t, s, self.mesh)
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    def _gather(self, key: str) -> torch.Tensor:
+        from .models.sharding import gather_tensor
+
+        t, s = self.local[key], self.specs[key]
+        return t if s is None else gather_tensor(t, s, self.mesh)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        _announce(self.index[key])
+        return self._gather(key)
+
+    def __iter__(self):
+        return iter(self.keys)
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def serve(self) -> None:
+        while (i := _announce(None)) >= 0:
+            self._gather(self.keys[i])
+
+    def done(self) -> None:
+        _announce(-1)
+
+
+def _save_sharded(root: str, state, plan, iteration, **kw) -> Path:
+    """``save_checkpoint`` under ``plan`` on every rank: rank 0 writes, the
+    others gather each leaf with it, and a barrier ends the save."""
+    from .initialize import barrier, is_rank_0
+
+    leaves = _GatheredLeaves(state, plan)
+    final = checkpoint_dir(root, iteration)
+    if not is_rank_0():
+        leaves.serve()
+        barrier()
+        return final
+    try:
+        return save_checkpoint(root, leaves, iteration=iteration, **kw)
+    finally:
+        leaves.done()
+        barrier()
+
+
 def save_checkpoint(
     root: str,
     state: Any,
@@ -298,6 +450,7 @@ def save_checkpoint(
     *,
     retries: int = 3,
     keep: int = 0,
+    plan=None,
 ) -> Path:
     """Write ``state`` (a ``TrainState`` or any tree of tensors, host
     scalars and None), ``cfg`` and ``meta`` (host numbers
@@ -307,9 +460,14 @@ def save_checkpoint(
     ``os.replace`` commits it, and the tracker moves last.  The payload
     write is retried ``retries`` times with exponential backoff; with
     ``keep > 0`` complete iterations beyond the newest ``keep`` are
-    deleted."""
+    deleted.  Under ``plan`` every rank calls it: rank 0 writes the
+    whole state one gathered leaf at a time (``_GatheredLeaves``), and
+    every rank returns after a barrier."""
     if iteration is None:
         iteration = int(state.iteration)
+    if plan is not None:
+        return _save_sharded(root, state, plan, iteration, cfg=cfg,
+                             meta=meta, retries=retries, keep=keep)
     chaos().point("ckpt-begin")
     final = checkpoint_dir(root, iteration)
     staging = final.with_name(final.name + STAGING_SUFFIX)
@@ -409,6 +567,7 @@ def load_checkpoint(
     *,
     retries: int = 3,
     device=None,
+    plan=None,
 ) -> tuple[Any, int | str]:
     """Restore a tree shaped like ``template`` → ``(state, iteration)``;
     the template's tensors receive the checkpoint's values.
@@ -417,19 +576,31 @@ def load_checkpoint(
     newest complete checkpoint; a pinned incomplete iteration fails hard.
     A ``release`` checkpoint (params only, a conversion's output) restores
     ``template.params`` and keeps the template's fresh optimizer state,
-    its fp32 master refreshed from the loaded params."""
+    its fp32 master refreshed from the loaded params.
+
+    Under ``plan`` (``template`` this rank's blocks) every rank reads each
+    leaf whole into host memory and keeps its block."""
     if iteration is None:
         iteration = resolve_load_target(root)
+    specs = mesh = None
+    if plan is not None:
+        specs, mesh = _leaf_specs(template, plan), plan.mesh
     if iteration == RELEASE:
-        params = load_release_params(root, template.params, device=device)
+        params = _read_payload(_payload(root, RELEASE), template.params,
+                               device=device, specs=specs, mesh=mesh)
         state = template._replace(params=params)
         opt = getattr(state, "opt", None)
         if opt is not None and opt.master is not None:
+            from .training.optimizer import zero_block
             from .utils.tree import tree_leaves
 
+            zero = None if plan is None else plan.zero
+            dims = [None] * len(tree_leaves(params)) if zero is None \
+                else tree_leaves(zero.dims)
             with torch.no_grad():
-                for m, p in zip(tree_leaves(opt.master), tree_leaves(params)):
-                    m.copy_(p)
+                for m, p, d in zip(tree_leaves(opt.master),
+                                   tree_leaves(params), dims):
+                    m.copy_(zero_block(p, d, zero))
         return state, iteration
     path = checkpoint_dir(root, iteration)
     if not is_complete(root, iteration):
@@ -439,7 +610,8 @@ def load_checkpoint(
             "back silently from a pinned iteration (pin "
             "iteration='release' to load base weights)")
     state = with_retries(
-        lambda: _read_payload(path / "state", template, device=device),
+        lambda: _read_payload(path / "state", template, device=device,
+                              specs=specs, mesh=mesh),
         site="ckpt-restore", attempts=retries)
     return state, iteration
 

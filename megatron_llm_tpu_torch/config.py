@@ -182,8 +182,10 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Parallel degrees; see the JAX ``ParallelConfig`` for each knob.  The
-    port trains on one device: every degree above 1 is refused by
-    ``RuntimeConfig.validate``."""
+    port trains with data, tensor and sequence parallelism and ZeRO-1
+    (one process a rank, ``initialize.py`` and ``parallel/mesh.py``);
+    ``fsdp`` (the serving residency axis) and pipeline, context and
+    expert parallelism raise, naming their ROADMAP items."""
 
     data_parallel: int = 1
     pipeline_parallel: int = 1
@@ -211,26 +213,27 @@ class ParallelConfig:
         if self.context_parallel_layout not in ("contiguous", "zigzag"):
             raise ValueError(f"unknown context_parallel_layout "
                              f"{self.context_parallel_layout!r}")
-        dp_tp = {"data_parallel": self.data_parallel,
-                 "tensor_parallel": self.tensor_parallel,
-                 "fsdp": self.fsdp}
-        pp_cp_ep = {"pipeline_parallel": self.pipeline_parallel,
-                    "virtual_pipeline_stages": self.virtual_pipeline_stages,
-                    "context_parallel": self.context_parallel,
-                    "expert_parallel": self.expert_parallel}
-        for degrees, item in (
-                (dp_tp, "data, tensor and sequence parallel training"),
-                (pp_cp_ep, "pipeline, context and expert parallelism")):
-            above = {k: v for k, v in degrees.items() if v > 1}
-            if above:
-                raise NotImplementedError(
-                    f"parallel training ({above}) is not ported yet: the port "
-                    f"trains on one device (ROADMAP.md, Queue 1: {item})")
-        if self.sequence_parallel or self.use_distributed_optimizer:
+        for name in ("data_parallel", "tensor_parallel",
+                     "pipeline_parallel", "virtual_pipeline_stages",
+                     "context_parallel", "expert_parallel"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
+        if self.fsdp > 1:
             raise NotImplementedError(
-                "sequence parallelism and ZeRO-1 are not ported yet "
-                "(ROADMAP.md, Queue 1: data, tensor and sequence parallel "
-                "training)")
+                f"fsdp = {self.fsdp} (the serving weight-residency axis) is "
+                "not ported yet (ROADMAP.md, Queue 1 item 11: multi-GPU "
+                "serving)")
+        above = {k: v for k, v in (
+            ("pipeline_parallel", self.pipeline_parallel),
+            ("virtual_pipeline_stages", self.virtual_pipeline_stages),
+            ("context_parallel", self.context_parallel),
+            ("expert_parallel", self.expert_parallel)) if v > 1}
+        if above:
+            raise NotImplementedError(
+                f"parallel training ({above}) is "
+                "not ported yet (ROADMAP.md, Queue 1 item 10: pipeline, "
+                "context and expert parallelism)")
         return self
 
 
@@ -311,11 +314,39 @@ class RuntimeConfig:
         m = self.model
         m.validate()
         self.parallel.validate()
+        # sequence parallelism reaches the model as its residual-stream
+        # axis, set AND cleared (JAX config.py:511-519)
+        sp_axis = ("tp" if (self.parallel.sequence_parallel
+                            and self.parallel.tensor_parallel > 1) else None)
+        if m.sequence_parallel_axis != sp_axis:
+            m = dataclasses.replace(m, sequence_parallel_axis=sp_axis)
+            object.__setattr__(self, "model", m)
+        tp = self.parallel.tensor_parallel
+        if tp > 1:
+            if m.num_attention_heads % tp:
+                raise ValueError(f"tensor_parallel {tp} must divide "
+                                 f"num_attention_heads "
+                                 f"{m.num_attention_heads}")
+            if m.ffn_size % tp:
+                raise ValueError(f"tensor_parallel {tp} must divide the "
+                                 f"ffn width {m.ffn_size}")
+            if m.kv_heads % tp and (m.num_attention_heads // m.kv_heads) \
+                    % (m.num_attention_heads // tp):
+                raise ValueError(
+                    f"kv heads {m.kv_heads} neither divide by tp {tp} nor "
+                    "leave each rank's query heads on one kv head")
+            if m.quantize_matmuls == "int8":
+                raise NotImplementedError(
+                    "int8 training matmuls under tensor parallelism are not "
+                    "ported yet (ROADMAP.md, Queue 1 item 9's remainder: "
+                    "the JAX package has no specs for them)")
+            if sp_axis and self.train.seq_length % tp:
+                raise ValueError(f"sequence parallelism splits seq_length "
+                                 f"{self.train.seq_length} over tp {tp}")
         if m.fused_lm_head and (self.parallel.tensor_parallel > 1
                                 or self.parallel.context_parallel > 1
                                 or self.parallel.pipeline_parallel > 1):
-            # JAX config.py:520-529; dormant while ParallelConfig.validate
-            # refuses those degrees (ROADMAP.md, Queue 1 items 9-10)
+            # JAX config.py:520-529: the plain head runs under tp
             warnings.warn(
                 "fused_lm_head=True is inactive under tp/cp/pp "
                 "parallelism; the plain logits+CE path will run",

@@ -839,6 +839,60 @@ bool heads_ok(int n_heads, int kv_heads) {
 
 }  // namespace
 
+// Translation units.  kernels/build.py compiles this file five times in
+// parallel and links one library: -DFLASH_DECODE_PART=0..3 each holds one
+// kernel of the family (K8, K9, K10, K11: every dtype, head dim and group
+// of it) with its launcher, behind a C function of its own, and
+// -DFLASH_DECODE_PART=4 the C interface, which validates a call and
+// dispatches to them.  A stamped build (-DFD_STAMPS) is split the same
+// way; each part has its own copy of the stamps' pointer, and
+// flash_decode_stamps sets all four.
+#ifndef FLASH_DECODE_PART
+#error "flash_decode.cu compiles as units -DFLASH_DECODE_PART=0..4 (kernels/build.py)"
+#endif
+
+#ifdef FD_STAMPS
+#define FD_STAMPS_SETTER(N)                                               \
+  extern "C" int flash_decode_stamps_part##N(void* p) {                   \
+    return cudaMemcpyToSymbol(g_fd_stamps, &p, sizeof(p));                \
+  }
+#else
+#define FD_STAMPS_SETTER(N)
+#endif
+
+#define FD_INSTANCE(N, QUANT, PAGED)                                      \
+  extern "C" int flash_decode_part##N(const void* args, int d, int dtype, \
+                                      long long n_part, void* stream,     \
+                                      int* body) {                        \
+    return launch<QUANT, PAGED>(*static_cast<const Args*>(args), d,       \
+                                dtype, n_part,                            \
+                                static_cast<cudaStream_t>(stream), body); \
+  }                                                                       \
+  FD_STAMPS_SETTER(N)
+
+#if FLASH_DECODE_PART == 0
+FD_INSTANCE(0, false, false)  // K8
+#endif
+#if FLASH_DECODE_PART == 1
+FD_INSTANCE(1, true, false)   // K9
+#endif
+#if FLASH_DECODE_PART == 2
+FD_INSTANCE(2, false, true)   // K10
+#endif
+#if FLASH_DECODE_PART == 3
+FD_INSTANCE(3, true, true)    // K11
+#endif
+
+#if FLASH_DECODE_PART == 4
+extern "C" int flash_decode_part0(const void*, int, int, long long, void*,
+                                  int*);
+extern "C" int flash_decode_part1(const void*, int, int, long long, void*,
+                                  int*);
+extern "C" int flash_decode_part2(const void*, int, int, long long, void*,
+                                  int*);
+extern "C" int flash_decode_part3(const void*, int, int, long long, void*,
+                                  int*);
+
 // The C interface.  Every pointer is a contiguous CUDA buffer; q and out
 // are [b, n_heads, d] of one dtype (0 fp32, 1 bf16, 2 fp16); lens is int32
 // [b] (rows to attend, the new token included).  part is fp32 scratch of
@@ -849,9 +903,21 @@ bool heads_ok(int n_heads, int kv_heads) {
 // kBodySplit when the launch went out.
 
 #ifdef FD_STAMPS
+extern "C" int flash_decode_stamps_part0(void* p);
+extern "C" int flash_decode_stamps_part1(void* p);
+extern "C" int flash_decode_stamps_part2(void* p);
+extern "C" int flash_decode_stamps_part3(void* p);
+
 // the stamps' buffer ([grid][kStampSlots] u64 on the device, or null)
 extern "C" int flash_decode_stamps(void* p) {
-  return cudaMemcpyToSymbol(g_fd_stamps, &p, sizeof(p));
+  int (*const set[4])(void*) = {
+      flash_decode_stamps_part0, flash_decode_stamps_part1,
+      flash_decode_stamps_part2, flash_decode_stamps_part3};
+  for (auto f : set) {
+    const int err = f(p);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 #endif
 
@@ -869,8 +935,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, nullptr, nullptr, lens, nullptr, out,
                            part, tickets, b, n_heads, kv_heads, max_len, 0, 0,
                            scale);
-  return launch<false, false>(a, d, dtype, n_part,
-                              static_cast<cudaStream_t>(stream), body);
+  return flash_decode_part0(&a, d, dtype, n_part, stream, body);
 }
 
 // K9: kq/vq int8 [b, kv_heads, max_len, d], ks/vs fp32 [b, kv_heads,
@@ -887,8 +952,7 @@ extern "C" int flash_decode_int8_launch(const void* q, const void* kq,
   const Args a = make_args(q, kq, vq, ks, vs, lens, nullptr, out, part,
                            tickets, b, n_heads, kv_heads, max_len, 0, 0,
                            scale);
-  return launch<true, false>(a, d, dtype, n_part,
-                             static_cast<cudaStream_t>(stream), body);
+  return flash_decode_part1(&a, d, dtype, n_part, stream, body);
 }
 
 // K10: k/v pools [n_blocks, kv_heads, block, d] in q's dtype, tables int32
@@ -907,8 +971,7 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k,
   const Args a = make_args(q, k, v, nullptr, nullptr, lens, tables, out,
                            part, tickets, b, n_heads, kv_heads, n_tbl * block,
                            n_tbl, shift, scale);
-  return launch<false, true>(a, d, dtype, n_part,
-                             static_cast<cudaStream_t>(stream), body);
+  return flash_decode_part2(&a, d, dtype, n_part, stream, body);
 }
 
 // K11: kq/vq int8 pools [n_blocks, kv_heads, block, d], ks/vs fp32
@@ -926,6 +989,6 @@ extern "C" int flash_decode_paged_int8_launch(
   const Args a = make_args(q, kq, vq, ks, vs, lens, tables, out, part,
                            tickets, b, n_heads, kv_heads, n_tbl * block,
                            n_tbl, shift, scale);
-  return launch<true, true>(a, d, dtype, n_part,
-                            static_cast<cudaStream_t>(stream), body);
+  return flash_decode_part3(&a, d, dtype, n_part, stream, body);
 }
+#endif  // FLASH_DECODE_PART == 4

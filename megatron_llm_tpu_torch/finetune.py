@@ -20,8 +20,13 @@ give the end-of-document id and grow the vocab for extra ids.
 alone) or a fresh init from the seed (smoke runs only), ``--save``
 receives an adapter-only checkpoint at ``<save>/adapter``, and
 ``--lora_load`` continues an adapter, the port's or a PEFT directory's.
-What the port does not have raises ``NotImplementedError`` naming the
-ROADMAP item: parallel degrees above 1 and MoE.
+``--tp``, ``--dp``, ``--sequence_parallel`` and
+``--use_distributed_optimizer`` train one process a rank under
+``torchrun`` (``initialize.initialize_distributed`` joins the world from
+its environment; two ranks on one GPU talk over gloo, one rank a GPU over
+NCCL).  What the port does not have raises ``NotImplementedError``
+naming the ROADMAP item: pipeline, context and expert parallelism, MoE,
+and LoRA or int8 training matmuls under parallelism.
 
     python -m megatron_llm_tpu_torch.finetune --model tiny --mock_data \\
         --train_iters 10 --device cpu --log_interval 1 --save ckpt
@@ -30,6 +35,8 @@ ROADMAP item: parallel degrees above 1 and MoE.
     python -m megatron_llm_tpu_torch.finetune --model llama2 \\
         --data_path 0.7 corpusA_text_document 0.3 corpusB_text_document \\
         --tokenizer_type gpt2-bpe --tokenizer_model VOCAB_DIR ...
+    torchrun --nproc_per_node 2 -m megatron_llm_tpu_torch.finetune \
+        --model llama2 --tp 2 --sequence_parallel --mock_data ...
 """
 
 from __future__ import annotations
@@ -404,6 +411,9 @@ def lora_main(args, cfg, train_ds, eod) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    from .initialize import initialize_distributed
+
+    initialize_distributed(args.device)  # a no-op outside a launcher
     cfg = build_config(args)
 
     from .training.driver import pretrain, print_rank_0

@@ -10,7 +10,10 @@ the same bf16 inputs (max and root mean square)::
 A kernel as accurate as its plain version shows the same error against
 float64; an element past the pairwise tolerance then marks a rounding of
 P or dS that went the other way on one side (a sum that cancels), not a
-fault of either.
+fault of either.  Each draw also counts the elements where the kernel is
+further from float64 than the plain version by more than that tolerance
+(``f64_rule_violations``, the rule phase 3 holds every K2/K3 case to),
+with the first such element's three values.
 """
 
 from __future__ import annotations
@@ -96,6 +99,14 @@ def probe(name, b, s, h, d, kind, seed, dev) -> dict:
             at = tuple(torch.nonzero(bad)[0].tolist())
             rec["first"] = {"at": list(at), "kernel": float(g[at]),
                             "plain": float(p[at]), "f64": float(t[at])}
+        worse = ((g.double() - t).abs() > (p.double() - t).abs() + ATOL
+                 + RTOL * t.abs())
+        rec["f64_rule_violations"] = int(worse.sum())
+        if worse.any():
+            at = tuple(torch.nonzero(worse)[0].tolist())
+            rec["first_violation"] = {
+                "at": list(at), "kernel": float(g[at]), "plain": float(p[at]),
+                "f64": float(t[at])}
         out[g_name] = rec
     return out
 

@@ -10,9 +10,9 @@ The hash covers the source and the flags, so an edited kernel rebuilds
 and an unchanged one is reused; each build started counts as a compile
 for the recompilation guard (``analysis/sanitizers.no_recompiles``).
 A source in ``SPLIT`` compiles as several translation units at once (``-c
--D<MACRO>=i``, one kernel instantiation each) linked into the one
-library: ``decode_step.cu``'s four instantiations took ~200 s in one
-``nvcc``.  ``build_all`` starts every ``nvcc`` at once (and records each
+-D<MACRO>=i``, one kernel each, and one the C interface) linked into the
+one library: ``decode_step.cu``'s four instantiations took ~200 s in one
+``nvcc``, ``flash_decode.cu``'s four kernels (96 instantiations) ~99 s.  ``build_all`` starts every ``nvcc`` at once (and records each
 one's seconds); ``load`` builds (if needed) and opens one library.
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -64,7 +64,8 @@ def _target(name: str) -> Path:
 
 # sources built as separate translation units in parallel and linked into
 # one library: the macro that selects a unit, and the number of units
-SPLIT = {"decode_step": ("DECODE_STEP_PART", 5)}
+SPLIT = {"decode_step": ("DECODE_STEP_PART", 5),
+         "flash_decode": ("FLASH_DECODE_PART", 5)}
 
 # seconds each nvcc of the last ``build_all`` took, by name (its own wall
 # time: the builds run in parallel); a split source's units under
@@ -112,7 +113,10 @@ def _start(name: str, src=None, out=None, flags=()):
     src = CSRC / f"{name}.cu" if src is None else Path(src)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     note_compile(f"nvcc:{name}")
-    split = SPLIT.get(src.stem)
+    # a probe's copy of a split source (``flash_decode_<variant>.cu``)
+    # splits as its source does
+    split = SPLIT.get(src.stem) or next(
+        (v for k, v in SPLIT.items() if src.stem.startswith(k + "_")), None)
     units = []
     if split is None:
         cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]

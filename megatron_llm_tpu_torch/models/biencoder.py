@@ -8,9 +8,12 @@ product.  Both towers are the BERT trunk of ``models/encdec.py``
 (``bert_encode``: a non-causal stack over pad segments, so the flash
 kernels where ``attention_impl="flash"``).  Sharing is structural, as in
 JAX: a shared model has no ``context`` subtree.  ``DenseIndex``'s corpus ·
-query product is one large matrix product, left to ``torch.matmul``.  The
-tensor-parallel ``biencoder_param_specs`` waits for ROADMAP.md Queue 1
-item 9.
+query product is one large matrix product, left to ``torch.matmul``.
+``biencoder_param_specs`` (JAX ``biencoder.py:209``) lays the towers out
+as ``encdec.bert_param_specs`` does; under data parallelism the ICT loss
+scores each rank's queries against the contexts of the whole global
+batch (``mappings.gather_from_data_region``), as JAX's in-batch softmax
+over the global batch does.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 
 from ..config import ModelConfig
 from ..ops import dropout as drop
+from ..parallel import mappings
+from ..parallel.mesh import axis_info
 from . import encdec
 from .transformer import Params, _normal
 
@@ -116,9 +121,11 @@ def retrieval_loss(cfg: ModelConfig, params: Params, batch: dict,
         cfg, params, batch["query_tokens"], batch["query_pad_mask"],
         batch["context_tokens"], batch["context_pad_mask"],
         rng, deterministic, pooling)
+    group, dp, index = axis_info("dp")
+    c = mappings.gather_from_data_region(c, group)
     scores = retrieval_scores(q, c)
     logp = torch.log_softmax(scores, dim=-1)
-    return -torch.mean(torch.diagonal(logp))
+    return -torch.mean(torch.diagonal(logp, offset=index * q.shape[0]))
 
 
 def retrieval_accuracy(scores: torch.Tensor) -> torch.Tensor:
@@ -190,3 +197,27 @@ class DenseIndex:
         order = np.argsort(-part_scores, axis=-1)
         idx = np.take_along_axis(part, order, axis=-1)
         return idx, np.take_along_axis(scores, idx, axis=-1)
+
+
+def biencoder_param_specs(cfg: ModelConfig, parallel,
+                          projection_dim: int = 0,
+                          shared: bool = False) -> Params:
+    """Specs of ``init_biencoder_params``: each tower a BERT trunk
+    (``encdec.bert_param_specs`` without the MLM and NSP heads); the
+    projection heads replicated."""
+    from .sharding import P
+
+    def tower_specs():
+        t = encdec.bert_param_specs(cfg, parallel)
+        t.pop("lm_head")
+        t.pop("binary_head")
+        return t
+
+    specs: Params = {"query": tower_specs()}
+    if not shared:
+        specs["context"] = tower_specs()
+    if projection_dim:
+        specs["projection"] = {"q": P(None, None)}
+        if not shared:
+            specs["projection"]["c"] = P(None, None)
+    return specs

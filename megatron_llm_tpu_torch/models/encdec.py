@@ -23,8 +23,18 @@ carries them leaf for leaf; the T5 ``cross`` subtree is stacked per
 decoder layer), drawn here from a ``torch.Generator``.  Dropout is on when
 a ``DropoutKey`` is given and ``deterministic`` is False, with JAX's key
 chain: the stack folds in the layer, the T5 decoder's three residual
-branches take salts 2, 3 and 4.  The tensor-parallel ``*_param_specs``
-are not here: they wait for ROADMAP.md Queue 1 item 9.
+branches take salts 2, 3 and 4.
+
+Under a current mesh with tp > 1 (``bert_param_specs``,
+``t5_param_specs``; JAX ``encdec.py:367-421``) the stacks run the
+decoder's column/row-parallel blocks, the word table is vocab-parallel
+(``model.vocab_parallel_embed``), cross-attention is split like
+self-attention, and the tied heads are column-parallel products giving
+this rank's vocabulary block of the logits (with its block of the logit
+bias) for ``vocab_parallel_cross_entropy``.  The small heads (BERT's MLM
+dense and norm, the pooler, the binary head) stay replicated, as in the
+reference.  Sequence parallelism is not wired through these families
+(ROADMAP.md, Queue 1 item 9's remainder).
 """
 
 from __future__ import annotations
@@ -38,9 +48,14 @@ from ..config import ModelConfig
 from ..ops import dropout as drop
 from ..ops.attention import attention
 from ..ops.norms import norm_apply, norm_init
-from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
+from ..parallel import mappings
+from ..parallel.cross_entropy import (
+    cross_entropy,
+    masked_mean_loss,
+    vocab_parallel_cross_entropy,
+)
 from ..utils.tree import tree_map
-from .model import default_device
+from .model import default_device, vocab_parallel_embed
 from .transformer import (
     AttnSideInputs,
     Params,
@@ -48,9 +63,11 @@ from .transformer import (
     _normal,
     attention_block,
     init_stack_params,
+    local_kv_heads,
     mlp_block,
     proj,
     stack_forward,
+    tp_layout,
     unstack_layers,
 )
 
@@ -82,6 +99,44 @@ def _pad_segments(pad_mask: torch.Tensor) -> torch.Tensor:
     content in segment 1, so content never attends to padding (the one
     place the mask is cast; the kernel wrapper takes it as it is)."""
     return pad_mask.to(torch.int32).contiguous()
+
+
+def _tp(cfg: ModelConfig) -> tuple:
+    """``(group, size, index)`` of tp; the families run no sequence
+    parallelism."""
+    group, tp, rank, sp = tp_layout(cfg)
+    if sp:
+        raise NotImplementedError(
+            "sequence parallelism in the BERT / T5 / biencoder stacks is "
+            "not ported yet (ROADMAP.md, Queue 1 item 9's remainder)")
+    return group, tp, rank
+
+
+def _word_lookup(cfg: ModelConfig, word: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    group, tp, rank = _tp(cfg)
+    if tp > 1:
+        return vocab_parallel_embed(word, tokens, group, rank, False)
+    return word[tokens]
+
+
+def _tied_logits(cfg: ModelConfig, x: torch.Tensor, word: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """``x @ word.T`` (fp32) + the logit bias; under tp this rank's
+    vocabulary block, a column-parallel product."""
+    group, tp, _ = _tp(cfg)
+    if tp > 1:
+        x = mappings.copy_to_tensor_region(x, group)
+    return (x @ word.T).float() + bias
+
+
+def _lm_cross_entropy(cfg: ModelConfig, logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    group, tp, _ = _tp(cfg)
+    if tp > 1:
+        return vocab_parallel_cross_entropy(logits, labels, group,
+                                            vocab_size=cfg.vocab_size)
+    return cross_entropy(logits, labels, vocab_size=cfg.vocab_size)
 
 
 def _stack_key(base_rng, deterministic: bool):
@@ -161,7 +216,7 @@ def bert_encode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         tokentype_ids = torch.zeros((b, s), dtype=torch.long,
                                     device=tokens.device)
     pos = torch.arange(s, device=tokens.device)[None, :]
-    x = emb["word"][tokens] + emb["position"][pos] \
+    x = _word_lookup(cfg, emb["word"], tokens) + emb["position"][pos] \
         + emb["tokentype"][tokentype_ids]
     x = norm_apply(cfg.norm_type, x, params["embed_norm"], cfg.norm_eps,
                    impl=cfg.norm_impl)
@@ -185,7 +240,8 @@ def bert_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     t = F.gelu(x @ head["dense"] + head["dense_bias"], approximate="tanh")
     t = norm_apply(cfg.norm_type, t, head["norm"], cfg.norm_eps,
                    impl=cfg.norm_impl)
-    mlm_logits = (t @ params["embedding"]["word"].T).float() + head["bias"]
+    mlm_logits = _tied_logits(cfg, t, params["embedding"]["word"],
+                              head["bias"])
     binary_logits = (pooled @ params["binary_head"]["w"]
                      + params["binary_head"]["b"]).float()
     return mlm_logits, binary_logits
@@ -198,9 +254,8 @@ def bert_loss(cfg: ModelConfig, params: Params, batch: dict,
     mlm_logits, bin_logits = bert_forward(
         cfg, params, batch["tokens"], batch["pad_mask"],
         batch.get("tokentype_ids"), rng, deterministic)
-    lm = cross_entropy(mlm_logits, batch["labels"],
-                       vocab_size=cfg.vocab_size)
-    total = masked_mean_loss(lm, batch["loss_mask"])
+    lm = _lm_cross_entropy(cfg, mlm_logits, batch["labels"])
+    total = masked_mean_loss(lm, batch["loss_mask"], batch.get("loss_denom"))
     if "is_random" in batch:
         nsp = cross_entropy(bin_logits[:, None, :],
                             batch["is_random"][:, None], vocab_size=2)
@@ -267,20 +322,30 @@ def cross_attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """Decoder queries over the encoder's outputs (t5_model.py decoder
     cross-attention; the mask is the encoder's padding alone).  The einsum
     path with an additive ``-inf`` bias, as JAX computes it."""
+    group, tp, rank = _tp(cfg)
+    if tp > 1:
+        x = mappings.copy_to_tensor_region(x, group)
+        enc_out = mappings.copy_to_tensor_region(enc_out, group)
     b, s, _ = x.shape
     d = cfg.head_dim
-    nq, nkv = cfg.num_attention_heads, cfg.kv_heads
     se = enc_out.shape[1]
-    q = proj(cfg, x, p["wq"]).reshape(b, s, nq, d)
-    k = proj(cfg, enc_out, p["wk"]).reshape(b, se, nkv, d)
+    q = proj(cfg, x, p["wq"])
+    k = proj(cfg, enc_out, p["wk"])
+    nq, nkv = q.shape[-1] // d, k.shape[-1] // d  # this rank's heads
+    q = q.reshape(b, s, nq, d)
+    k = k.reshape(b, se, nkv, d)
     v = proj(cfg, enc_out, p["wv"]).reshape(b, se, nkv, d)
+    k, v, _ = local_kv_heads(cfg, k, v, nq, tp, rank)
     bias = None
     if enc_pad_mask is not None:
         bias = torch.where(enc_pad_mask[:, None, None, :] > 0, 0.0,
                            float("-inf")).float()
     ctx = attention(q, k, v, impl="dot", causal=False, bias=bias,
                     softmax_scale=1.0 / (d ** 0.5))
-    return proj(cfg, ctx.reshape(b, s, nq * d), p["wo"])
+    out = proj(cfg, ctx.reshape(b, s, nq * d), p["wo"])
+    if tp > 1:
+        out = mappings.reduce_from_tensor_region(out, group)
+    return out
 
 
 def t5_decoder_forward(cfg: ModelConfig, stacked: Params, cross: Params,
@@ -334,7 +399,7 @@ def t5_forward(cfg: ModelConfig, params: Params, enc_tokens: torch.Tensor,
 
     def embed(tokens):
         pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        return emb["word"][tokens] + emb["position"][pos]
+        return _word_lookup(cfg, emb["word"], tokens) + emb["position"][pos]
 
     enc_rng = dec_rng = None
     if rng is not None:
@@ -348,7 +413,7 @@ def t5_forward(cfg: ModelConfig, params: Params, enc_tokens: torch.Tensor,
                              enc_pad_mask, dec_rng, deterministic)
     dec = norm_apply(cfg.norm_type, dec, params["dec_norm"], cfg.norm_eps,
                      impl=cfg.norm_impl)
-    return (dec @ emb["word"].T).float() + params["lm_head_bias"]
+    return _tied_logits(cfg, dec, emb["word"], params["lm_head_bias"])
 
 
 def t5_loss(cfg: ModelConfig, params: Params, batch: dict,
@@ -356,7 +421,65 @@ def t5_loss(cfg: ModelConfig, params: Params, batch: dict,
     logits = t5_forward(cfg, params, batch["enc_tokens"],
                         batch["dec_tokens"], batch.get("enc_pad_mask"),
                         batch.get("dec_pad_mask"), rng, deterministic)
-    per_tok = cross_entropy(logits, batch["labels"],
-                            vocab_size=cfg.vocab_size)
-    return masked_mean_loss(per_tok, batch["loss_mask"])
+    per_tok = _lm_cross_entropy(cfg, logits, batch["labels"])
+    return masked_mean_loss(per_tok, batch["loss_mask"],
+                            batch.get("loss_denom"))
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel specs (JAX encdec.py:367-421): the families train through
+# the decoder's column / row / vocab layout
+# ---------------------------------------------------------------------------
+
+
+def bert_param_specs(cfg: ModelConfig, parallel) -> Params:
+    """Specs of ``init_bert_params``: the vocab-parallel embedding and the
+    column/row-parallel encoder; the small heads (MLM dense, pooler, NSP)
+    replicated as in the reference (plain ``get_linear_layer``)."""
+    from .sharding import P, _layer_specs, norm_specs
+
+    return {
+        "embedding": {
+            "word": P("tp", None),
+            "position": P(None, None),
+            "tokentype": P(None, None),
+        },
+        "embed_norm": norm_specs(cfg),
+        "layers": _layer_specs(cfg, None, parallel.tensor_parallel),
+        "final_norm": norm_specs(cfg),
+        "lm_head": {
+            "dense": P(None, None),
+            "dense_bias": P(None),
+            "norm": norm_specs(cfg),
+            "bias": P("tp"),  # the vocab-sharded tied logits' bias
+        },
+        "pooler": {"w": P(None, None), "b": P(None)},
+        "binary_head": {"w": P(None, None), "b": P(None)},
+    }
+
+
+def t5_param_specs(cfg: ModelConfig, parallel) -> Params:
+    """Specs of ``init_t5_params``: both stacks column/row-parallel,
+    cross-attention split like self-attention."""
+    from .sharding import P, _layer_specs, kv_shard_axes, norm_specs
+
+    kv_tp = kv_shard_axes(cfg, parallel.tensor_parallel)
+    return {
+        "embedding": {
+            "word": P("tp", None),
+            "position": P(None, None),
+        },
+        "encoder": _layer_specs(cfg, None, parallel.tensor_parallel),
+        "decoder": _layer_specs(cfg, None, parallel.tensor_parallel),
+        "cross": {
+            "norm": norm_specs(cfg),  # [nd, h] leaves; unsharded
+            "wq": P(None, None, "tp"),
+            "wk": P(None, None, kv_tp),
+            "wv": P(None, None, kv_tp),
+            "wo": P(None, "tp", None),
+        },
+        "enc_norm": norm_specs(cfg),
+        "dec_norm": norm_specs(cfg),
+        "lm_head_bias": P("tp"),
+    }
 

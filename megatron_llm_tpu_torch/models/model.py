@@ -16,6 +16,16 @@ the JAX functions return updated arrays, these update the caches IN
 PLACE and return them, which saves a full cache copy per call; callers
 that need the old contents pass a copy.
 
+Under a current mesh with tp > 1 (``parallel/mesh.use_mesh``) the params
+are this rank's shards (``models/sharding.py``): the word table is split
+over the vocabulary (``embed`` looks up the ids this rank owns, zeros the
+rest and sums over tp: an all-reduce, or under sequence parallelism a
+reduce-scatter to the rank's sequence block, where the learned position
+and tokentype rows of that block are added), and the lm head is
+column-parallel, so ``forward`` returns this rank's vocabulary block of
+the logits (``parallel/cross_entropy.vocab_parallel_cross_entropy`` takes
+them).  ``init_params(..., tp=)`` pads the vocabulary for the split.
+
 The cached forwards take ``lora=(arenas, mask)``, the multi-tenant LoRA
 bundle of ``ops/lora.py``: layer-stacked arenas and a per-row mask ``[b,
 Sr]`` (a verify window's mask is per slot).  The fused routes carry it
@@ -41,13 +51,16 @@ from ..ops.kv_quant import cache_update, init_quantized_cache, \
 from ..ops.lora import arena_sr
 from ..ops.norms import norm_apply, norm_init
 from ..ops.quant import embedding_lookup
+from ..parallel import mappings
 from .transformer import (
     AttnSideInputs,
     Params,
     init_stack_params,
     rope_tables,
+    seq_slices,
     stack_forward,
     stack_forward_cached,
+    tp_layout,
 )
 
 
@@ -58,15 +71,21 @@ def default_device(device=None) -> torch.device:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
-                tp: int = 1) -> Params:
+                tp: int = 1, place=None) -> Params:
     """Random parameters with the JAX package's distributions (normal, std
     ``init_method_std``; output layers scaled by ``1/sqrt(2 L)``; norms 1),
     drawn on ``device`` (default ``cuda``) from a ``torch.Generator``
     seeded with ``seed``.  The numbers differ from ``jax.random``'s; tests
     that compare with JAX copy JAX's weights with ``params_from_jax``.
     On the ``meta`` device it costs nothing and gives the shapes and dtypes
-    alone (the checkpoint loader's template)."""
+    alone (the checkpoint loader's template).
+
+    ``place(path, t)`` takes each drawn matrix (``path`` its keys in the
+    tree) as soon as it is drawn and returns what the tree keeps: a
+    sharded run keeps its block, so one whole matrix is alive at a time.
+    The draws do not change; the norms are left to the caller."""
     device = default_device(device)
+    keep = (lambda path, t: t) if place is None else place
     gen = None
     if device.type != "meta":  # meta tensors draw nothing
         gen = torch.Generator(device=device)
@@ -81,17 +100,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
                                   dtype=torch.float32)).to(dtype)
 
     params: Params = {
-        "embedding": {"word": normal((v, h))},
-        "layers": init_stack_params(cfg, gen, device),
+        "embedding": {"word": keep(("embedding", "word"), normal((v, h)))},
+        "layers": init_stack_params(
+            cfg, gen, device,
+            place=place and (lambda path, t: place(("layers",) + path, t))),
         "final_norm": norm_init(cfg.norm_type, h, dtype, device),
     }
     if cfg.position_embedding_type == PositionEmbeddingType.ABSOLUTE:
-        params["embedding"]["position"] = normal(
-            (cfg.max_position_embeddings, h))
+        params["embedding"]["position"] = keep(
+            ("embedding", "position"),
+            normal((cfg.max_position_embeddings, h)))
     if cfg.tokentype_size:
-        params["embedding"]["tokentype"] = normal((cfg.tokentype_size, h))
+        params["embedding"]["tokentype"] = keep(
+            ("embedding", "tokentype"), normal((cfg.tokentype_size, h)))
     if not cfg.tie_embed_logits:
-        params["lm_head"] = normal((h, v))
+        params["lm_head"] = keep(("lm_head",), normal((h, v)))
     return params
 
 
@@ -102,16 +125,52 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Token (+ learned position, + tokentype) embedding, then embedding
     dropout with ``dropout_key`` (JAX ``model.py:77-93``).  The word table
     may be the per-row int8 form of ``ops/quant.quantize_embedding``: the
-    lookup dequantizes only the gathered rows."""
-    x = embedding_lookup(params["embedding"]["word"], tokens).to(cfg.dtype)
+    lookup dequantizes only the gathered rows.  Under tp the word table
+    is this rank's vocabulary block (``vocab_parallel_embed``)."""
+    group, tp, rank, sp = tp_layout(cfg)
+    if tp > 1:
+        x = vocab_parallel_embed(params["embedding"]["word"], tokens, group,
+                                 rank, sp).to(cfg.dtype)
+    else:
+        x = embedding_lookup(params["embedding"]["word"],
+                             tokens).to(cfg.dtype)
     if "position" in params["embedding"]:
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
                                         device=tokens.device)[None, :]
-        x = x + params["embedding"]["position"][position_ids]
+        x = x + params["embedding"]["position"][
+            _seq_block(position_ids, x, sp, rank)]
     if tokentype_ids is not None and "tokentype" in params["embedding"]:
-        x = x + params["embedding"]["tokentype"][tokentype_ids]
-    return drop.dropout(x, cfg.hidden_dropout, dropout_key)
+        x = x + params["embedding"]["tokentype"][
+            _seq_block(tokentype_ids, x, sp, rank)]
+    return drop.dropout(x, cfg.hidden_dropout, dropout_key,
+                        seq_slices(cfg, x))
+
+
+def _seq_block(ids: torch.Tensor, x: torch.Tensor, sp: bool, rank: int):
+    """``ids [b, s]`` cut to the sequence block of ``x`` under sequence
+    parallelism."""
+    if not sp:
+        return ids
+    n = x.shape[1]
+    return ids[:, rank * n:(rank + 1) * n]
+
+
+def vocab_parallel_embed(word: torch.Tensor, tokens: torch.Tensor, group,
+                         rank: int, sequence_parallel: bool) -> torch.Tensor:
+    """The vocab-parallel lookup (reference VocabParallelEmbedding,
+    tensor_parallel/layers.py:128-220): ``word`` holds rows ``[rank * v,
+    (rank + 1) * v)``; ids outside it look up row 0 and are zeroed, and
+    the partial rows are summed over tp (all-reduced, or reduce-scattered
+    to this rank's sequence block).  One term of each sum is non-zero, so
+    the result is the one-device lookup exactly."""
+    v = word.shape[0]
+    local = tokens - rank * v
+    outside = (local < 0) | (local >= v)
+    x = word[local.clamp(0, v - 1)].masked_fill(outside[..., None], 0)
+    if sequence_parallel:
+        return mappings.reduce_scatter_to_sequence_region(x, group)
+    return mappings.reduce_from_tensor_region(x, group)
 
 
 def unembed_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -121,6 +180,12 @@ def unembed_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The lm head; under tp a column-parallel product (the sequence
+    gathered first under sequence parallelism) giving this rank's
+    vocabulary block of the logits."""
+    group, tp, _, sp = tp_layout(cfg)
+    if tp > 1:
+        x = mappings.column_input(x, group, sp)
     return x @ unembed_weight(cfg, params)
 
 

@@ -24,6 +24,21 @@ to a later slice and raise here.  ``stack_forward`` and
 targeted projection gains its grouped epilogue right after the base
 product, on the training path (LoRA finetuning, ``training/lora.py``)
 as in serving.
+
+Under a current mesh (``parallel/mesh.use_mesh``) with tp > 1 each rank
+holds its shards (``models/sharding.py``) and the blocks write out the
+collectives GSPMD derives in JAX (``parallel/mappings.py``): the column
+products (wq, wk, wv, w_gate, w_up) take their input through
+``column_input`` and the row products (wo, w_down) leave through
+``row_output``, their biases added once, after the reduction.  A rank
+runs ``nq / tp`` query heads and ``nkv / tp`` kv heads, or, where the kv
+heads do not divide by tp (Falcon-7B's MQA), the one replicated kv head
+its query heads read.  Under sequence parallelism
+(``cfg.sequence_parallel_axis``) the residual stream, the norms and the
+dropout hold this rank's ``s / tp`` block of the sequence, the column
+inputs all-gather it and the row outputs reduce-scatter it, JAX's
+``seq_constrain``.  LoRA and the KV-cached (serving) path run at tp = 1
+only.
 """
 
 from __future__ import annotations
@@ -48,6 +63,8 @@ from ..ops.lora import lora_delta
 from ..ops.norms import norm_apply, norm_init
 from ..ops.quant import int8_training_matmul, is_quantized, mm
 from ..ops.rope import apply_rope, precompute_rope_freqs
+from ..parallel import mappings
+from ..parallel.mesh import axis_info
 
 Params = dict
 
@@ -62,6 +79,46 @@ def proj(cfg: ModelConfig, x: torch.Tensor, w) -> torch.Tensor:
     if cfg.quantize_matmuls == "int8" and not is_quantized(w):
         return int8_training_matmul(x, w)
     return mm(x, w)
+
+
+def tp_layout(cfg: ModelConfig) -> tuple:
+    """``(group, size, index, sequence_parallel)`` of the current mesh's
+    tp axis; ``(None, 1, 0, False)`` without a mesh."""
+    group, size, index = axis_info("tp")
+    return group, size, index, size > 1 and \
+        cfg.sequence_parallel_axis is not None
+
+
+def seq_slices(cfg: ModelConfig, x: torch.Tensor) -> tuple:
+    """The dropout block of a ``[b, s, ...]`` tensor: this rank's sequence
+    block under sequence parallelism (``ops/dropout.block_mask``)."""
+    _, tp, index, sp = tp_layout(cfg)
+    if not sp:
+        return ()
+    s = x.shape[1]
+    return ((1, s * tp, index * s),)
+
+
+def _refuse_tp(what: str, item: str) -> None:
+    raise NotImplementedError(
+        f"{what} under tensor parallelism is not ported yet (ROADMAP.md, "
+        f"Queue 1 {item})")
+
+
+def local_kv_heads(cfg: ModelConfig, k, v, nq: int, tp: int, rank: int):
+    """``(k, v, dropout slices)`` for this rank's ``nq`` query heads.
+    Under tp the kv heads are this rank's block, or, replicated where they
+    do not divide by tp, the one kv head its query heads read; the slices
+    place the rank's ``[b, kv, group, sq, sk]`` probabilities in the
+    global mask."""
+    if tp == 1:
+        return k, v, ()
+    n_kv, n_group = cfg.kv_heads, cfg.num_attention_heads // cfg.kv_heads
+    if n_kv % tp == 0:
+        return k, v, ((1, n_kv, rank * k.shape[2]),)
+    kv_i = rank * nq // n_group
+    return (k[:, :, kv_i:kv_i + 1], v[:, :, kv_i:kv_i + 1],
+            ((1, n_kv, kv_i), (2, n_group, rank * nq % n_group)))
 
 
 def _lora_add(y: torch.Tensor, x: torch.Tensor, lora, target: str):
@@ -93,9 +150,12 @@ def _normal(shape, std: float, dtype, generator, device) -> torch.Tensor:
 
 
 def init_stack_params(cfg: ModelConfig, generator: torch.Generator,
-                      device, num_layers: Optional[int] = None) -> Params:
+                      device, num_layers: Optional[int] = None,
+                      place=None) -> Params:
     """All layers stacked on a leading axis; each layer is drawn on its
-    own so the fp32 draw never holds more than one layer."""
+    own so the fp32 draw never holds more than one layer.  ``place(path,
+    w)`` (``init_params``'s) takes each stacked matrix as soon as it is
+    drawn."""
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE layers are not ported yet "
                                   "(ROADMAP.md, Queue 1: MoE)")
@@ -118,7 +178,9 @@ def init_stack_params(cfg: ModelConfig, generator: torch.Generator,
         w = torch.empty((n,) + shape, dtype=dtype, device=device)
         for i in range(n):
             w[i] = _normal(shape, s, dtype, generator, device)
-        layers[group][name] = w
+        layers[group][name] = w if place is None \
+            else place((group, name), w)
+        del w
 
     def zeros(size):
         return torch.zeros(n, size, dtype=dtype, device=device)
@@ -191,9 +253,15 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ``(out, (new_k_rows, new_v_rows))`` as in JAX.  ``lora`` is one layer's
     bundle (``_lora_add``): q, k and v take their deltas before RoPE, wo
     after its product."""
+    group, tp, rank, sp = tp_layout(cfg)
+    if tp > 1:
+        if lora is not None:
+            _refuse_tp("LoRA", "item 9's remainder")
+        if kv_cache is not None:
+            _refuse_tp("the KV-cached forward", "item 11: multi-GPU serving")
+        x = mappings.column_input(x, group, sp)
     b, s, _ = x.shape
     d = cfg.head_dim
-    nq, nkv = cfg.num_attention_heads, cfg.kv_heads
     q = _lora_add(proj(cfg, x, p["wq"]), x, lora, "wq")
     k = _lora_add(proj(cfg, x, p["wk"]), x, lora, "wk")
     v = _lora_add(proj(cfg, x, p["wv"]), x, lora, "wv")
@@ -201,9 +269,11 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    nq, nkv = q.shape[-1] // d, k.shape[-1] // d  # this rank's heads
     q = q.reshape(b, s, nq, d)
     k = k.reshape(b, s, nkv, d)
     v = v.reshape(b, s, nkv, d)
+    k, v, drop_slices = local_kv_heads(cfg, k, v, nq, tp, rank)
     position_ids = side.position_ids
     if kv_cache is not None and position_ids is None:
         raise ValueError("kv_cache requires explicit position_ids "
@@ -238,9 +308,12 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         softmax_scale=softmax_scale,
                         dropout_rate=(0.0 if layer_key is None
                                       else cfg.attention_dropout),
-                        dropout_key=drop_key, bias=side.attn_bias)
+                        dropout_key=drop_key, bias=side.attn_bias,
+                        dropout_slices=drop_slices)
     ctx2d = ctx.reshape(b, s, nq * d)
     out = _lora_add(proj(cfg, ctx2d, p["wo"]), ctx2d, lora, "wo")
+    if tp > 1:
+        out = mappings.row_output(out, group, sp)
     if "bo" in p:
         out = out + p["bo"]
     if kv_cache is not None:
@@ -253,6 +326,11 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """(Gated) MLP with the GLU split as two projections; ``lora`` adds
     each targeted projection's delta after its product."""
     act = get_activation(cfg.activation)
+    group, tp, _, sp = tp_layout(cfg)
+    if tp > 1:
+        if lora is not None:
+            _refuse_tp("LoRA", "item 9's remainder")
+        x = mappings.column_input(x, group, sp)
     if is_glu(cfg.activation):
         gate = _lora_add(proj(cfg, x, p["w_gate"]), x, lora, "w_gate")
         up = _lora_add(proj(cfg, x, p["w_up"]), x, lora, "w_up")
@@ -266,6 +344,8 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
             hidden = hidden + p["b_up"]
         hidden = act(hidden)
     out = _lora_add(proj(cfg, hidden, p["w_down"]), hidden, lora, "w_down")
+    if tp > 1:
+        out = mappings.row_output(out, group, sp)
     if "b_down" in p:
         out = out + p["b_down"]
     return out
@@ -289,7 +369,8 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     def branch_drop(out, salt):
         if layer_key is None:
             return out
-        out = drop.dropout(out, hidden_rate, drop.fold_in(layer_key, salt))
+        out = drop.dropout(out, hidden_rate, drop.fold_in(layer_key, salt),
+                           seq_slices(cfg, out))
         return drop.drop_path(out, path_rate,
                               drop.fold_in(layer_key, salt + 2))
 

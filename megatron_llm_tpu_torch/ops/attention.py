@@ -176,11 +176,14 @@ def paged_decode_attention(q, k_pool, v_pool, tables, cache_len, *,
 def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
                           segment_ids=None, softmax_scale=None,
                           dropout_rate: float = 0.0,
-                          dropout_key=None) -> torch.Tensor:
+                          dropout_key=None,
+                          dropout_slices=()) -> torch.Tensor:
     """Einsum attention, q ``[b, sq, hq, d]``, k/v ``[b, sk, hk, d]``, with
     an fp32 softmax.  Attention dropout (JAX ``ops/attention.py:488-490``)
     drops the probabilities, in v's dtype, with the mask of
-    ``dropout_key`` over ``[b, kv_heads, group, sq, sk]``."""
+    ``dropout_key`` over ``[b, kv_heads, group, sq, sk]``; under tensor
+    parallelism ``dropout_slices`` places this rank's heads in the global
+    mask (``ops/dropout.block_mask``)."""
     b, sq, n_heads, d = q.shape
     _, sk, kv_heads, _ = k.shape
     group = n_heads // kv_heads
@@ -204,7 +207,7 @@ def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
     probs = torch.softmax(scores.float(), dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)  # fully-masked rows
     probs = probs.to(v.dtype)
-    probs = dropout(probs, dropout_rate, dropout_key)
+    probs = dropout(probs, dropout_rate, dropout_key, dropout_slices)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, n_heads, d)
 
@@ -212,7 +215,7 @@ def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
 def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
               segment_ids=None, softmax_scale=None, dropout_rate: float = 0.0,
               dropout_key=None, bias=None, cp_axis: str | None = None,
-              mesh=None) -> torch.Tensor:
+              mesh=None, dropout_slices=()) -> torch.Tensor:
     """Dispatcher: ``"flash"`` → the flash kernel module, ``"dot"`` → the
     einsum path.
 
@@ -235,4 +238,4 @@ def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
     return dot_product_attention(
         q, k, v, causal=causal, segment_ids=segment_ids,
         softmax_scale=softmax_scale, dropout_rate=dropout_rate,
-        dropout_key=dropout_key, bias=bias)
+        dropout_key=dropout_key, bias=bias, dropout_slices=dropout_slices)

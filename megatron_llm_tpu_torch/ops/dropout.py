@@ -15,6 +15,12 @@ leaning on ``torch.utils.checkpoint``'s RNG stashing (which restores only
 the default generators).  The bits are not ``jax.random.bernoulli``'s; the
 tests that compare with JAX replace ``keep_mask`` with JAX's masks for the
 same keys.
+
+A mask does not depend on the layout.  JAX draws each mask for the global
+tensor and GSPMD hands each shard its block; here each rank draws the
+mask at the global shape (the global microbatch under dp, every head
+under tp, the whole sequence under sequence parallelism) and keeps its
+block (``slices``), so a sharded run drops what the one-device run drops.
 """
 
 from __future__ import annotations
@@ -65,18 +71,51 @@ def keep_mask(k: DropoutKey, keep_p: float, shape, device) -> torch.Tensor:
     return torch.rand(tuple(shape), generator=gen, device=device) < keep_p
 
 
-def _drop(x: torch.Tensor, rate: float, k, shape) -> torch.Tensor:
+def _data_slice(shape) -> tuple:
+    """The batch block of this rank on the current mesh's dp axis."""
+    from ..parallel.mesh import axis_info
+
+    _, dp, index = axis_info("dp")
+    if dp == 1:
+        return ()
+    return ((0, shape[0] * dp, index * shape[0]),)
+
+
+def block_mask(k: DropoutKey, keep_p: float, shape, device,
+               slices=()) -> torch.Tensor:
+    """This rank's block ``shape`` of the mask drawn at the global shape:
+    ``slices`` holds ``(dim, global size, start)`` of each split dim, and
+    the batch dim (0) takes the dp block of the current mesh unless
+    ``slices`` names it."""
+    slices = tuple(slices)
+    if not any(d == 0 for d, _, _ in slices):
+        slices = _data_slice(shape) + slices
+    if not slices:
+        return keep_mask(k, keep_p, shape, device)
+    full = list(shape)
+    for dim, size, _ in slices:
+        full[dim] = size
+    mask = keep_mask(k, keep_p, full, device)
+    for dim, _, start in slices:
+        mask = mask.narrow(dim, start, shape[dim])
+    return mask
+
+
+def _drop(x: torch.Tensor, rate: float, k, shape,
+          slices=()) -> torch.Tensor:
     """``x`` scaled by 1 / keep where a ``shape`` mask (broadcast over x)
     keeps it, else 0; the identity without a key or at rate 0."""
     if k is None or rate == 0.0:
         return x
     keep_p = 1.0 - rate
-    return torch.where(keep_mask(k, keep_p, shape, x.device), x / keep_p, 0.0)
+    keep = block_mask(k, keep_p, shape, x.device, slices)
+    return torch.where(keep, x / keep_p, 0.0)
 
 
-def dropout(x: torch.Tensor, rate: float, k) -> torch.Tensor:
-    """Inverted dropout, one mask element per element of ``x``."""
-    return _drop(x, rate, k, x.shape)
+def dropout(x: torch.Tensor, rate: float, k, slices=()) -> torch.Tensor:
+    """Inverted dropout, one mask element per element of ``x``; ``slices``
+    as ``block_mask`` takes them."""
+    return _drop(x, rate, k, x.shape, slices)
 
 
 def drop_path(x: torch.Tensor, rate: float, k) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Parallel-training pieces that run on one device (cross entropy)."""
+"""Parallel training: the mesh of process groups, the collectives and
+the vocab-parallel cross entropy."""

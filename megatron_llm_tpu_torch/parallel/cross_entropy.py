@@ -1,18 +1,25 @@
-"""Cross entropy on one device (mirror of
-``megatron_llm_tpu/parallel/cross_entropy.py``'s ``cross_entropy`` and
-``masked_mean_loss``).
+"""Cross entropy (mirror of ``megatron_llm_tpu/parallel/cross_entropy.py``).
 
-Stable log-softmax CE over fp32 logits, with label smoothing (reference
-cross_entropy.py:71-86) and the padded vocabulary columns masked out, and
-``fused_linear_cross_entropy``: the LM head and the CE in one pass over
-vocabulary blocks, so the ``[n, vocab]`` fp32 logits never exist at once.
-The vocab-parallel forms come with the parallel slices (ROADMAP.md, Queue
-1 item 9).
+- ``cross_entropy``: stable log-softmax CE over fp32 logits, with label
+  smoothing (reference cross_entropy.py:71-86) and the padded vocabulary
+  columns masked out;
+- ``vocab_parallel_cross_entropy``: the same over vocab-sharded logits,
+  as an autograd Function with the reference's three all-reduces (max,
+  target logit, sum of exp; cross_entropy.py:14-130), JAX's ``_ce_shard``;
+  ``vocab_parallel_max_indices`` the greedy argmax over the shards;
+- ``masked_mean_loss``: the loss-mask weighted mean (a local helper: under
+  data parallelism the step hands it the denominator, ``loss_denom``);
+- ``fused_linear_cross_entropy``: the LM head and the CE in one pass over
+  vocabulary blocks, so the ``[n, vocab]`` fp32 logits never exist at
+  once (tp = 1 only, as JAX ``training/step.py:111-116`` gates it).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from . import mappings
 
 _MASKED = -1e30  # padded vocab columns (finite, as in JAX)
 
@@ -43,12 +50,112 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return loss
 
 
-def masked_mean_loss(per_token_loss: torch.Tensor,
-                     loss_mask: torch.Tensor) -> torch.Tensor:
-    """Loss-mask weighted mean (reference: finetune.py:196-213)."""
+def masked_mean_loss(per_token_loss: torch.Tensor, loss_mask: torch.Tensor,
+                     denom: torch.Tensor | None = None) -> torch.Tensor:
+    """Loss-mask weighted mean (reference: finetune.py:196-213).
+
+    ``denom`` replaces the mask's own sum: under data parallelism the step
+    passes the batch's ``loss_denom`` (``training/step.loss_denominators``),
+    so the mean over dp of the ranks' losses is the global masked mean."""
     loss_mask = loss_mask.to(per_token_loss.dtype)
     total = torch.sum(per_token_loss * loss_mask)
-    return total / torch.clamp(torch.sum(loss_mask), min=1.0)
+    if denom is None:
+        denom = torch.clamp(torch.sum(loss_mask), min=1.0)
+    return total / denom
+
+
+# ---------------------------------------------------------------------------
+# Vocab-parallel CE (JAX ``_ce_shard`` and
+# ``vocab_parallel_cross_entropy_shardmap``)
+# ---------------------------------------------------------------------------
+
+
+def _vocab_shard(logits, group, vocab_size):
+    """``(rank's first column, its width, the valid-column mask or None,
+    logits with the padded columns masked)``."""
+    width = logits.shape[-1]
+    start = mappings.group_rank(group) * width
+    valid = None
+    if vocab_size is not None and start + width > vocab_size:
+        valid = (start + torch.arange(width, device=logits.device)) \
+            < vocab_size
+        logits = logits.masked_fill(~valid, _MASKED)
+    return start, width, valid, logits
+
+
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, targets, group, label_smoothing, vocab_size):
+        logits = logits.float()
+        start, width, valid, logits = _vocab_shard(logits, group,
+                                                   vocab_size)
+        n_total = width * mappings.group_size(group)
+        m = mappings.all_reduce(logits.amax(dim=-1), group,
+                                dist.ReduceOp.MAX)
+        shifted = logits - m[..., None]
+        local_t = targets.long() - start
+        in_shard = (local_t >= 0) & (local_t < width)
+        idx = local_t.clamp(0, width - 1)
+        tl = torch.gather(shifted, -1, idx[..., None])[..., 0]
+        target_logit = mappings.all_reduce(
+            torch.where(in_shard, tl, 0.0), group)
+        exp = torch.exp(shifted)
+        sum_exp = mappings.all_reduce(exp.sum(dim=-1), group)
+        lse = torch.log(sum_exp)
+        loss = lse - target_logit
+        n = vocab_size if vocab_size is not None else n_total
+        smoothing = 0.0
+        if label_smoothing > 0.0:
+            smoothing = label_smoothing * n / (n - 1)
+            kept = shifted if valid is None else shifted.masked_fill(~valid,
+                                                                     0.0)
+            sum_log_probs = mappings.all_reduce(kept.sum(dim=-1),
+                                                group) - n * lse
+            loss = (1.0 - smoothing) * loss - smoothing * (sum_log_probs / n)
+        softmax = exp.div_(sum_exp[..., None])
+        ctx.save_for_backward(softmax, idx, in_shard,
+                              valid if valid is not None
+                              else torch.empty(0, dtype=torch.bool))
+        ctx.smoothing, ctx.n, ctx.has_valid = smoothing, n, valid is not None
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        softmax, idx, in_shard, valid = ctx.saved_tensors
+        # d loss / d logit_j = p_j - (1 - s) [j = t] - (s / n) [j valid]
+        grad = softmax.clone()
+        grad.scatter_add_(-1, idx[..., None],
+                          -(1.0 - ctx.smoothing) * in_shard.float()[..., None])
+        if ctx.smoothing:
+            sub = ctx.smoothing / ctx.n
+            grad -= valid.float() * sub if ctx.has_valid else sub
+        return grad * g[..., None], None, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 group, label_smoothing: float = 0.0,
+                                 vocab_size: int | None = None
+                                 ) -> torch.Tensor:
+    """Per-token CE (fp32 ``[...]``, the same on every rank of ``group``)
+    of logits whose last dim is this rank's vocabulary block; columns at
+    or past ``vocab_size`` are masked.  With ``group`` None it is the
+    one-device CE over the whole vocabulary."""
+    return _VocabParallelCrossEntropy.apply(
+        logits, targets, group, float(label_smoothing), vocab_size)
+
+
+def vocab_parallel_max_indices(logits: torch.Tensor, group) -> torch.Tensor:
+    """Greedy argmax over vocab-sharded logits (reference
+    cross_entropy.py:146-175): the largest value over the ranks, ties to
+    the lowest global index, as ``argmax`` over the whole row."""
+    width = logits.shape[-1]
+    local_max, local_idx = logits.max(dim=-1)
+    best = mappings.all_reduce(local_max.clone(), group, dist.ReduceOp.MAX)
+    big = torch.iinfo(torch.long).max
+    cand = torch.where(local_max == best,
+                       local_idx.long() + mappings.group_rank(group) * width,
+                       torch.full_like(local_idx, big, dtype=torch.long))
+    return mappings.all_reduce(cand, group, dist.ReduceOp.MIN)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,364 @@
+"""Tensor- and sequence-parallel communication, written out.
+
+The JAX package has no such module: it states the layout as one
+``PartitionSpec`` a parameter (``models/sharding.py``) and a sequence
+constraint on the residual stream (``models/transformer.py:seq_constrain``)
+and GSPMD derives the collectives.  PyTorch derives nothing, so the port
+writes them out as the reference does (megatron/core/tensor_parallel/
+mappings.py), as ``torch.autograd.Function``s, each the other's adjoint:
+
+- ``copy_to_tensor_region``: identity forward, all-reduce backward (the
+  input of a column-parallel product);
+- ``reduce_from_tensor_region``: all-reduce forward, identity backward
+  (the output of a row-parallel product);
+- ``gather_from_sequence_region``: all-gather along the sequence forward,
+  reduce-scatter backward (a sequence-parallel input of a column-parallel
+  product);
+- ``reduce_scatter_to_sequence_region``: reduce-scatter along the
+  sequence forward, all-gather backward (a row-parallel output back into
+  the sequence-sharded residual stream);
+- ``gather_from_data_region``: all-gather along the batch forward,
+  reduce-scatter backward (the ICT loss's in-batch contexts under dp).
+
+Each takes a process group; with None (an axis of size 1) each returns its
+input untouched and launches nothing.  ``launches`` counts the collectives
+that did communicate.
+
+The plain collectives below (``all_reduce``, ``all_gather``,
+``reduce_scatter``) serve the step (grad reductions, ZeRO-1) and the
+checkpoints.  NCCL takes one rank a GPU.  Several ranks sharing one GPU
+(a host with one H100) talk over gloo, which takes no CUDA tensor for
+some collectives and moved host memory at ~0.7 GB/s on an 8-core H100
+host (``parallel/transport_probe.py``): a gloo group whose ranks share one
+device exchanges through a ``DeviceMailbox`` instead, each rank's device
+buffer mapped into the others with CUDA IPC, gloo carrying the barriers.
+``initialize.pick_backend`` takes NCCL whenever each GPU has one rank, so
+a gloo group of CUDA ranks on different devices is refused.  A
+reduce-scatter under gloo is this rank's block of an all-reduce.  The
+mailbox is the transport, not a fallback: the kernels run on the card,
+and NCCL never takes this route.
+"""
+
+from __future__ import annotations
+
+import socket
+
+import torch
+import torch.distributed as dist
+
+launches = 0  # collectives that communicated (a group of size > 1)
+
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          getattr(dist, "reduce_scatter_tensor", None))
+_all_gather = getattr(dist, "all_gather_single",
+                      getattr(dist, "all_gather_into_tensor", None))
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def _count() -> None:
+    global launches
+    launches += 1
+
+
+# ---------------------------------------------------------------------------
+# gloo with CUDA tensors: a shared-device mailbox
+# ---------------------------------------------------------------------------
+
+MAILBOX_BYTES = 256 << 20  # each rank's buffer; a larger tensor goes in pieces
+
+
+class DeviceMailbox:
+    """The ranks of a gloo group that share one CUDA device exchange
+    through each other's device buffer (``boxes``, one a rank, mapped into
+    every rank with CUDA IPC), gloo carrying only the barriers: a piece is
+    written into the rank's own box, a fence (the device synchronized, a
+    barrier), every rank reads every box in rank order, a fence.  The sums
+    run in rank order, so every rank gets the same bits."""
+
+    def __init__(self, group, boxes: list, device):
+        self.group, self.boxes, self.device = group, boxes, device
+        self.rank = dist.get_rank(group)
+        self.n = len(boxes)
+
+    @classmethod
+    def for_device(cls, group, device):
+        """The group's mailbox on ``device`` when every rank of the group
+        is on it (same host, same device), else None."""
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        n = dist.get_world_size(group)
+        me = (socket.gethostname(),
+              str(torch.cuda.get_device_properties(device).uuid))
+        everyone = [None] * n
+        dist.all_gather_object(everyone, me, group=group)
+        if any(e != me for e in everyone):
+            return None
+        own = torch.empty(MAILBOX_BYTES, dtype=torch.uint8, device=device)
+        handles = [None] * n
+        dist.all_gather_object(handles, reduce_tensor(own), group=group)
+        rank = dist.get_rank(group)
+        boxes = [own if r == rank else fn(*args)
+                 for r, (fn, args) in enumerate(handles)]
+        return cls(group, boxes, device)
+
+    def _fence(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.group)
+
+    def _pieces(self, flat: torch.Tensor):
+        """``(offset, length, views)`` a piece of ``flat``: the views are
+        each box's first ``length`` elements, as ``flat``'s dtype."""
+        step = MAILBOX_BYTES // flat.element_size()
+        for off in range(0, flat.numel(), step):
+            k = min(step, flat.numel() - off)
+            nbytes = k * flat.element_size()
+            yield off, k, [b[:nbytes].view(flat.dtype) for b in self.boxes]
+
+    def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        """``t`` (contiguous) reduced in place."""
+        combine = {dist.ReduceOp.SUM: torch.add,
+                   dist.ReduceOp.MAX: torch.maximum,
+                   dist.ReduceOp.MIN: torch.minimum}[op]
+        flat = t.view(-1)
+        for off, k, views in self._pieces(flat):
+            views[self.rank].copy_(flat[off:off + k])
+            self._fence()
+            acc = views[0].clone()
+            for v in views[1:]:
+                acc = combine(acc, v)
+            flat[off:off + k].copy_(acc)
+            self._fence()
+        return t
+
+    def all_gather(self, src: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``src`` (contiguous) joined along dim 0."""
+        flat = src.view(-1)
+        m = flat.numel()
+        out = torch.empty(self.n * m, dtype=src.dtype, device=src.device)
+        for off, k, views in self._pieces(flat):
+            views[self.rank].copy_(flat[off:off + k])
+            self._fence()
+            for r, v in enumerate(views):
+                out[r * m + off:r * m + off + k].copy_(v)
+            self._fence()
+        return out.view((self.n * src.shape[0],) + tuple(src.shape[1:]))
+
+
+_MAILBOXES: dict = {}
+
+
+def _mailbox(group, t: torch.Tensor):
+    """The mailbox of a gloo group whose ranks share ``t``'s CUDA device,
+    made at the group's first such collective; None for a tensor that is
+    not on CUDA or a group that is not gloo."""
+    if not (t.is_cuda and _gloo(group)):
+        return None
+    if group not in _MAILBOXES:
+        _MAILBOXES[group] = DeviceMailbox.for_device(group, t.device)
+    if _MAILBOXES[group] is None:
+        raise RuntimeError(
+            "a gloo group's CUDA ranks are on different devices: give "
+            "each GPU one rank and use the NCCL backend")
+    return _MAILBOXES[group]
+
+
+def release_mailboxes() -> None:
+    """Drop every mailbox and its mappings of the peers' buffers (before
+    the world goes: a rank must not free a buffer its peers still map)."""
+    boxes = [b for b in _MAILBOXES.values() if b is not None]
+    _MAILBOXES.clear()
+    for box in boxes:
+        box.boxes = []
+    if boxes:
+        torch.cuda.synchronize()
+        torch.cuda.ipc_collect()
+
+
+def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
+    """``all_reduce`` without its count."""
+    box = _mailbox(group, t)
+    if box is not None:
+        return box.all_reduce(t, op) if t.is_contiguous() \
+            else t.copy_(box.all_reduce(t.contiguous(), op))
+    if not t.is_contiguous():
+        c = t.contiguous()
+        dist.all_reduce(c, op=op, group=group)
+        return t.copy_(c)
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` IN PLACE; returns it."""
+    if group_size(group) == 1:
+        return t
+    _count()
+    return _all_reduce(t, group, op)
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``t`` joined along ``dim`` in rank order (a new
+    tensor)."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    _count()
+    dim = dim % t.ndim
+    src = t.movedim(dim, 0).contiguous()
+    box = _mailbox(group, t)
+    if box is not None:
+        return box.all_gather(src).movedim(0, dim)
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=t.dtype, device=src.device)
+    _all_gather(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum over ``group`` of ``t``, this rank's block of it along
+    ``dim`` (a new tensor); ``dim`` must divide by the group size."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    _count()
+    dim = dim % t.ndim
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not divide by {n}")
+    rows = t.shape[dim] // n
+    if _gloo(group):
+        # this rank's block of an all-reduce (of a copy: t may be a grad
+        # that autograd hands to others too): gloo's own reduce-scatter
+        # takes 1.2-1.7x its all-reduce's time (parallel/transport_probe.py)
+        whole = _all_reduce(t.movedim(dim, 0).clone(
+            memory_format=torch.contiguous_format), group, dist.ReduceOp.SUM)
+        start = group_rank(group) * rows
+        out = whole[start:start + rows].clone()
+    else:
+        src = t.movedim(dim, 0).contiguous()
+        out = torch.empty((rows,) + tuple(src.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        _reduce_scatter(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def split(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (no communication)."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    size = t.shape[dim] // n
+    return t.narrow(dim, group_rank(group) * size, size)
+
+
+# ---------------------------------------------------------------------------
+# The autograd mappings
+# ---------------------------------------------------------------------------
+
+
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+SEQ_DIM = 1  # activations are [b, s, h]
+
+
+def copy_to_tensor_region(x: torch.Tensor, group) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    return _CopyToRegion.apply(x, group)
+
+
+def reduce_from_tensor_region(x: torch.Tensor, group) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    return _ReduceFromRegion.apply(x, group)
+
+
+def gather_from_sequence_region(x: torch.Tensor, group) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    return _GatherFromRegion.apply(x, group, SEQ_DIM)
+
+
+def reduce_scatter_to_sequence_region(x: torch.Tensor,
+                                      group) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    return _ReduceScatterToRegion.apply(x, group, SEQ_DIM)
+
+
+def gather_from_data_region(x: torch.Tensor, group) -> torch.Tensor:
+    """``x [b_local, ...]`` → ``[b_local * dp, ...]`` in rank order; the
+    backward sums every rank's grad of the whole and keeps this rank's
+    rows."""
+    if group_size(group) == 1:
+        return x
+    return _GatherFromRegion.apply(x, group, 0)
+
+
+def column_input(x: torch.Tensor, group, sequence_parallel: bool):
+    """The input of a column-parallel product: the sequence gathered under
+    sequence parallelism, else the tensor-region copy."""
+    if sequence_parallel:
+        return gather_from_sequence_region(x, group)
+    return copy_to_tensor_region(x, group)
+
+
+def row_output(x: torch.Tensor, group, sequence_parallel: bool):
+    """The output of a row-parallel product: reduce-scattered back to the
+    sequence shard under sequence parallelism, else all-reduced."""
+    if sequence_parallel:
+        return reduce_scatter_to_sequence_region(x, group)
+    return reduce_from_tensor_region(x, group)

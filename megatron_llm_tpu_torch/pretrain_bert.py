@@ -29,6 +29,7 @@ from .config import (
 from .data.bert_dataset import BertDataset, BertSpecialTokens
 from .data.indexed_dataset import MMapIndexedDataset
 from .models import encdec
+from .initialize import initialize_distributed
 from .training.driver import pretrain_custom, refuse_unported_parallelism
 
 
@@ -108,9 +109,8 @@ def bert_loss_fn(cfg, params, mb, rng, deterministic):
 
 def main(argv=None, device=None):
     args = get_args(argv)
-    refuse_unported_parallelism(args.tensor_parallel,
-                                args.use_distributed_optimizer,
-                                args.pipeline_parallel)
+    refuse_unported_parallelism(pipeline_parallel=args.pipeline_parallel)
+    initialize_distributed(device or "cuda")
     if args.vocab_size is not None:
         vocab = args.vocab_size
         special = BertSpecialTokens(cls=vocab - 4, sep=vocab - 3,
@@ -130,8 +130,13 @@ def main(argv=None, device=None):
         MMapIndexedDataset(args.data_path), cfg.train.seq_length,
         cfg.model.vocab_size, special,
         masked_lm_prob=args.masked_lm_prob, seed=args.seed)
-    params = encdec.init_bert_params(cfg.model, args.seed, device=device)
-    return pretrain_custom(cfg, ds, params, bert_loss_fn, device=device)
+    params = encdec.init_bert_params(cfg.model, args.seed, device=device,
+                                     tp=args.tensor_parallel)
+    specs = (encdec.bert_param_specs(cfg.model, cfg.parallel)
+             if (args.tensor_parallel > 1
+                 or args.use_distributed_optimizer) else None)
+    return pretrain_custom(cfg, ds, params, bert_loss_fn, param_specs=specs,
+                           device=device)
 
 
 if __name__ == "__main__":

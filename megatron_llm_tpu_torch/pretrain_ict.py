@@ -26,7 +26,8 @@ from .config import (
 from .data.ict_dataset import ICTDataset, ICTSpecialTokens
 from .data.indexed_dataset import MMapIndexedDataset
 from .models import biencoder
-from .training.driver import pretrain_custom, refuse_unported_parallelism
+from .initialize import initialize_distributed
+from .training.driver import pretrain_custom
 
 
 def get_args(argv=None):
@@ -120,8 +121,7 @@ def ict_loss_fn(pooling: str):
 
 def main(argv=None, device=None):
     args = get_args(argv)
-    refuse_unported_parallelism(args.tensor_parallel,
-                                args.use_distributed_optimizer)
+    initialize_distributed(device or "cuda")
     if args.tokenizer_model:
         from .tokenizer.tokenizer import build_tokenizer
 
@@ -159,9 +159,15 @@ def main(argv=None, device=None):
     params = biencoder.init_biencoder_params(
         cfg.model, args.seed, device=device,
         projection_dim=args.projection_dim,
-        shared=args.shared_query_context_model)
+        shared=args.shared_query_context_model, tp=args.tensor_parallel)
+    specs = (biencoder.biencoder_param_specs(
+                 cfg.model, cfg.parallel,
+                 projection_dim=args.projection_dim,
+                 shared=args.shared_query_context_model)
+             if (args.tensor_parallel > 1
+                 or args.use_distributed_optimizer) else None)
     return pretrain_custom(cfg, ds, params, ict_loss_fn(args.pooling),
-                           device=device)
+                           param_specs=specs, device=device)
 
 
 if __name__ == "__main__":

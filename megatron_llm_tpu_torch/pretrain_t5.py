@@ -29,6 +29,7 @@ from .config import (
 from .data.indexed_dataset import MMapIndexedDataset
 from .data.t5_dataset import T5Dataset, T5SpecialTokens
 from .models import encdec
+from .initialize import initialize_distributed
 from .training.driver import pretrain_custom, refuse_unported_parallelism
 
 
@@ -117,10 +118,9 @@ def t5_loss_fn(cfg, params, mb, rng, deterministic):
 
 def main(argv=None, device=None):
     args = get_args(argv)
-    refuse_unported_parallelism(args.tensor_parallel,
-                                args.use_distributed_optimizer,
-                                args.pipeline_parallel,
-                                args.pipeline_split_rank)
+    refuse_unported_parallelism(pipeline_parallel=args.pipeline_parallel,
+                                pipeline_split_rank=args.pipeline_split_rank)
+    initialize_distributed(device or "cuda")
     sentinel_ids = None
     if args.vocab_size is not None:
         # without a tokenizer: pad == bos == 0, eos 1, the sentinels the top
@@ -148,8 +148,13 @@ def main(argv=None, device=None):
         cfg.model.vocab_size, special,
         masked_lm_prob=args.masked_lm_prob, seed=args.seed,
         sentinel_ids=sentinel_ids)
-    params = encdec.init_t5_params(cfg.model, args.seed, device=device)
-    return pretrain_custom(cfg, ds, params, t5_loss_fn, device=device)
+    params = encdec.init_t5_params(cfg.model, args.seed, device=device,
+                                   tp=args.tensor_parallel)
+    specs = (encdec.t5_param_specs(cfg.model, cfg.parallel)
+             if (args.tensor_parallel > 1
+                 or args.use_distributed_optimizer) else None)
+    return pretrain_custom(cfg, ds, params, t5_loss_fn, param_specs=specs,
+                           device=device)
 
 
 if __name__ == "__main__":

@@ -22,10 +22,22 @@ megatron/training.py:55-961).
   ``eval_loss_fn``, resume from ``save``/``load``.
 
 TensorBoard and wandb export go through ``utils/writers.build_writer``.
+
+Data, tensor and sequence parallelism and ZeRO-1 run one process a rank
+(``torchrun``; ``initialize.initialize_distributed`` joins the world):
+``setup_train_state`` builds the mesh (``parallel/mesh.build_mesh``),
+keeps this rank's shards of the params (``models/sharding``) and of the
+optimizer state, and hands the step its ``ParallelPlan``; each rank takes
+its dp block of every ``[accum, micro_total, ...]`` batch, the loop runs
+inside the mesh, and the log, the writers, the profiler window and the
+checkpoint files are rank 0's.  Every rank reads the same data and draws
+the same full params from the seed, so the ranks agree without a
+broadcast.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import functools
 import os
@@ -41,25 +53,37 @@ from .. import checkpointing
 from .. import metrics as metrics_lib
 from ..config import RuntimeConfig
 from ..data.samplers import BatchIterator
+from ..initialize import is_rank_0
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
 from ..obs.logging import EVENT_LOG
 from ..ops import dropout as drop
+from ..parallel import mappings
+from ..parallel import mesh as mesh_lib
 from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
 from ..resilience import chaos
 from ..utils.timers import Timers
 from ..utils.tree import tree_map
-from ..utils.writers import build_writer
+from ..utils.writers import NullWriter, build_writer
 from .microbatches import build_num_microbatches_calculator
-from .step import TrainState, init_train_state, make_train_step, \
-    to_device_batch
+from .step import TrainState, init_train_state, loss_denominators, \
+    make_plan, make_train_step, to_device_batch
 
 PyTree = Any
 
 
 def print_rank_0(*args, **kwargs):
-    """One process: it always speaks."""
-    print(*args, **kwargs, flush=True)
+    """Rank 0 speaks (the only rank of a one-process run)."""
+    if is_rank_0():
+        print(*args, **kwargs, flush=True)
+
+
+def _writer(cfg: RuntimeConfig, **kw):
+    """Rank 0's writer; the other ranks write nothing."""
+    if not is_rank_0():
+        return NullWriter()
+    return build_writer(cfg.train.tensorboard_dir, cfg.train.wandb_project,
+                        cfg.train.wandb_name, **kw)
 
 
 class ProfilerWindow:
@@ -74,7 +98,9 @@ class ProfilerWindow:
 
     def __init__(self, profile_dir: Optional[str], start: int, end: int,
                  device):
-        self.dir, self.start, self.end = profile_dir, start, end
+        # one trace, rank 0's
+        self.dir = profile_dir if is_rank_0() else None
+        self.start, self.end = start, end
         self.device = torch.device(device)
         self._prof = None
         self._first = None
@@ -144,26 +170,140 @@ class DistSignalHandler:
 
 
 class TrainingArtifacts:
-    """What ``pretrain`` needs per run: state, step and device."""
+    """What ``pretrain`` needs per run: state, step, device, and under
+    parallelism the mesh and the step's plan (else None)."""
 
-    def __init__(self, cfg, state, step_fn, device):
+    def __init__(self, cfg, state, step_fn, device, mesh=None, plan=None):
         self.cfg = cfg
         self.state = state
         self.step_fn = step_fn
         self.device = device
+        self.mesh = mesh
+        self.plan = plan
+
+    def in_mesh(self):
+        """The context the loop runs in: the mesh, if there is one."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return mesh_lib.use_mesh(self.mesh)
+
+
+def _wants_mesh(cfg: RuntimeConfig, device) -> bool:
+    """Whether the run builds a mesh: a world is initialized, or the
+    degrees ask for one (then the world is joined from the launcher's
+    environment; without one ``build_mesh`` says how to launch)."""
+    import torch.distributed as dist
+
+    from ..initialize import initialize_distributed
+
+    if cfg.parallel.world_size > 1 and not dist.is_initialized():
+        initialize_distributed(device)
+    return cfg.parallel.world_size > 1 or dist.is_initialized()
+
+
+def _replicated_specs(params: PyTree) -> PyTree:
+    return tree_map(lambda t: (None,) * t.ndim, params)
 
 
 def setup_train_state(cfg: RuntimeConfig, params: Optional[PyTree] = None,
-                      device=None) -> TrainingArtifacts:
+                      device=None, param_specs: Optional[PyTree] = None,
+                      loss_fn=None) -> TrainingArtifacts:
     """Params (``params``, or ``init_params`` from ``cfg.train.seed``) and a
-    fresh optimizer state on ``device`` (default ``cuda``), and the step."""
+    fresh optimizer state on ``device`` (default ``cuda``), and the step.
+
+    In a world of several ranks (or any initialized one) the mesh of
+    ``cfg.parallel`` is built and ``params`` (whole, the same on every
+    rank) are cut to this rank's shards by ``param_specs`` (default the
+    decoder's ``models.sharding.param_specs``); the optimizer state and
+    the step follow the plan.  A mesh of one rank keeps the one-device
+    state and step."""
     device = model_lib.default_device(device)
-    if params is None:
+    tp = cfg.parallel.tensor_parallel
+    mesh = plan = None
+    if _wants_mesh(cfg, device):
+        from ..models import sharding
+
+        mesh = mesh_lib.build_mesh(cfg.parallel)
+        if param_specs is None and loss_fn is None:
+            param_specs = sharding.param_specs(cfg.model, cfg.parallel)
+        if params is None and param_specs is not None:
+            params = _init_sharded(cfg, device, param_specs, mesh)
+        else:
+            if params is None:
+                params = model_lib.init_params(cfg.model, seed=cfg.train.seed,
+                                               device=device, tp=tp)
+            if param_specs is None:
+                if tp > 1:
+                    raise ValueError("a custom loss under tensor "
+                                     "parallelism needs its param_specs")
+                param_specs = _replicated_specs(params)
+            params = sharding.shard_params(params, param_specs, mesh)
+        plan = make_plan(cfg, mesh, param_specs, params)
+    elif params is None:
         params = model_lib.init_params(cfg.model, seed=cfg.train.seed,
-                                       device=device)
-    state = init_train_state(cfg, params)
-    return TrainingArtifacts(cfg, state, make_train_step(cfg, device),
-                             device)
+                                       device=device, tp=tp)
+    state = init_train_state(cfg, params,
+                             zero=None if plan is None else plan.zero)
+    return TrainingArtifacts(cfg, state,
+                             make_train_step(cfg, device, loss_fn, plan),
+                             device, mesh, plan)
+
+
+def _init_sharded(cfg: RuntimeConfig, device, specs: PyTree,
+                  mesh) -> PyTree:
+    """``init_params`` from ``cfg.train.seed``, each drawn matrix cut to
+    this rank's block as soon as it is drawn (one whole matrix alive at a
+    time, the draws unchanged), then the norms and biases."""
+    from ..models import sharding
+
+    cut = set()
+
+    def place(path, t):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        out = sharding.shard_tensor(t, spec, mesh)
+        cut.add(id(out))
+        return out
+
+    params = model_lib.init_params(cfg.model, seed=cfg.train.seed,
+                                   device=device,
+                                   tp=cfg.parallel.tensor_parallel,
+                                   place=place)
+    return tree_map(lambda p, s: p if id(p) in cut
+                    else sharding.shard_tensor(p, s, mesh), params, specs)
+
+
+def _dp_block(batch: dict, mesh, axis: int = 1) -> dict:
+    """This rank's dp block of a host batch along ``axis`` (the microbatch
+    axis of ``[accum, micro_total, ...]``)."""
+    if mesh is None or mesh.size("dp") == 1:
+        return batch
+    dp, i = mesh.size("dp"), mesh.index("dp")
+
+    def block(v):
+        n = v.shape[axis] // dp
+        return np.take(v, np.arange(i * n, (i + 1) * n), axis=axis)
+
+    return {k: block(v) for k, v in batch.items()}
+
+
+def _eval_denominators(batch: dict, mesh) -> dict:
+    """An eval batch (one microbatch, this rank's dp block) with the
+    global loss-mask denominator, as the train step gives its own."""
+    if mesh is None:
+        return batch
+    return loss_denominators(batch, mesh.group("dp"), lead=0)
+
+
+def _dp_mean(values: dict, mesh) -> dict:
+    """Host numbers averaged over dp (every rank gets the mean)."""
+    if mesh is None or mesh.size("dp") == 1 or not values:
+        return values
+    keys = sorted(values)
+    t = torch.tensor([float(values[k]) for k in keys], dtype=torch.float64)
+    mappings.all_reduce(t, mesh.group("dp"))
+    return {k: float(v) / mesh.size("dp") for k, v in zip(keys, t.tolist())}
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +323,12 @@ def make_eval_step(cfg: RuntimeConfig, metric_names=(), device=None):
             cfg.model, params, batch["tokens"],
             position_ids=batch.get("position_ids"),
             segment_ids=batch.get("segment_ids"), rope=rope)
+        # under tp the whole vocabulary for the metrics (evaluation only)
+        logits = mappings.all_gather(logits, mesh_lib.axis_info("tp")[0], -1)
         per_token = cross_entropy(logits, batch["labels"],
                                   vocab_size=cfg.model.vocab_size)
-        out = {"lm_loss": masked_mean_loss(per_token, batch["loss_mask"])}
+        out = {"lm_loss": masked_mean_loss(per_token, batch["loss_mask"],
+                                           batch.get("loss_denom"))}
         out.update(metrics_lib.compute_metrics(metric_names, batch, logits,
                                                per_token))
         return out
@@ -196,7 +339,10 @@ def make_eval_step(cfg: RuntimeConfig, metric_names=(), device=None):
 def evaluate(cfg: RuntimeConfig, params, data_iterator, eval_step,
              device, eval_iters: Optional[int] = None) -> dict[str, float]:
     """Average eval metrics over ``eval_iters`` batches, each
-    ``[accum, micro, ...]`` flattened to ``[accum * micro, ...]``."""
+    ``[accum, micro, ...]`` flattened to ``[accum * micro, ...]``; under a
+    current mesh each rank evaluates its dp block and the averages are
+    averaged over dp."""
+    mesh = mesh_lib.current_mesh()
     if eval_iters is None:
         eval_iters = cfg.train.eval_iters
     totals: dict[str, float] = {}
@@ -206,13 +352,15 @@ def evaluate(cfg: RuntimeConfig, params, data_iterator, eval_step,
             batch = next(data_iterator)
         except StopIteration:
             break
+        batch = _dp_block(batch, mesh)
         flat = {k: np.reshape(v, (-1,) + v.shape[2:])
                 for k, v in batch.items()}
-        out = eval_step(params, to_device_batch(flat, device))
+        out = eval_step(params, _eval_denominators(
+            to_device_batch(flat, device), mesh))
         for k, v in out.items():
             totals[k] = totals.get(k, 0.0) + float(v)
         n += 1
-    return {k: v / max(n, 1) for k, v in totals.items()}
+    return _dp_mean({k: v / max(n, 1) for k, v in totals.items()}, mesh)
 
 
 def evaluate_and_print_results(prefix: str, cfg, params, data_iterator,
@@ -272,6 +420,9 @@ def training_log(cfg: RuntimeConfig, log: _LogState, metrics: dict,
     log.skipped_total += int(metrics["skipped"])
     if (not cfg.train.log_interval
             or iteration % cfg.train.log_interval != 0):
+        return
+    if not is_rank_0():  # rank 0 logs
+        log.reset_window()
         return
     elapsed = time.perf_counter() - log.t_start
     per_iter = elapsed / max(log.count, 1)
@@ -403,11 +554,19 @@ def pretrain(
     cfg.validate()
     t_start = time.time()
     timers = Timers()
-    writer = build_writer(cfg.train.tensorboard_dir, cfg.train.wandb_project,
-                          cfg.train.wandb_name)
+    writer = _writer(cfg)
 
     timers("setup").start()
     art = setup_train_state(cfg, params=params, device=device)
+    with art.in_mesh():
+        return _pretrain_loop(cfg, art, t_start, timers, writer,
+                              train_dataset, valid_dataset, test_dataset,
+                              batch_provider, shuffle, eod_token, on_step)
+
+
+def _pretrain_loop(cfg, art, t_start, timers, writer, train_dataset,
+                   valid_dataset, test_dataset, batch_provider, shuffle,
+                   eod_token, on_step) -> TrainState:
     state = art.state
 
     # resume (reference load_checkpoint, checkpointing.py:562-678)
@@ -424,7 +583,8 @@ def pretrain(
         # the read fills the template's own tensors: a read that fails
         # part way raises here rather than train on a half-restored state
         state, tag = checkpointing.load_checkpoint(
-            cfg.train.load, state, tag, retries=cfg.train.checkpoint_retries)
+            cfg.train.load, state, tag, retries=cfg.train.checkpoint_retries,
+            plan=art.plan)
         # the meta of the iteration actually loaded: under a torn
         # tracker's fallback it differs from the tracker's target
         meta = checkpointing.load_meta(cfg.train.load, tag)
@@ -472,7 +632,7 @@ def pretrain(
             is None):
         print_rank_0(" anomaly rollback enabled with no checkpoint on "
                      "disk; writing the initial rollback anchor")
-        _save(cfg, state, iteration, consumed_samples, timers)
+        _save(cfg, state, iteration, consumed_samples, timers, art.plan)
     print_rank_0(f" training starts at iteration {iteration} / "
                  f"{cfg.train.train_iters}")
     with DistSignalHandler() as sig:
@@ -511,7 +671,8 @@ def pretrain(
                     batch = next(train_iter)
                 # chaos hook (inert unless a test armed poison_batches)
                 batch = chaos().corrupt_batch(batch, iteration + 1)
-                dev_batch = to_device_batch(batch, art.device)
+                dev_batch = to_device_batch(_dp_block(batch, art.mesh),
+                                            art.device)
                 timers("batch-generator").stop()
 
                 t0 = time.perf_counter()
@@ -538,7 +699,7 @@ def pretrain(
                 k_roll = cfg.train.anomaly_rollback_after
                 if k_roll and int(step_metrics["anomaly_run"]) >= k_roll:
                     state, iteration = rollback_to_last_checkpoint(
-                        cfg, state, rollbacks + 1)
+                        cfg, state, rollbacks + 1, art.plan)
                     rollbacks += 1
                     print_rank_0(
                         f" ANOMALY ROLLBACK #{rollbacks}: {k_roll} "
@@ -560,7 +721,8 @@ def pretrain(
 
                 if (cfg.train.save and cfg.train.save_interval
                         and iteration % cfg.train.save_interval == 0):
-                    _save(cfg, state, iteration, consumed_samples, timers)
+                    _save(cfg, state, iteration, consumed_samples, timers,
+                          art.plan)
 
                 if sig.signals_received():
                     exit_reason = "signal"
@@ -579,12 +741,12 @@ def pretrain(
     if exit_reason:
         print_rank_0(f" exiting at iteration {iteration}: {exit_reason}")
         if cfg.train.save:
-            _save(cfg, state, iteration, consumed_samples, timers)
+            _save(cfg, state, iteration, consumed_samples, timers, art.plan)
         if exit_reason == "signal":
             writer.flush()
             sys.exit(0)
     elif cfg.train.save:
-        _save(cfg, state, iteration, consumed_samples, timers)
+        _save(cfg, state, iteration, consumed_samples, timers, art.plan)
 
     if persistent_valid is not None:
         evaluate_and_print_results(
@@ -604,22 +766,24 @@ def pretrain(
 
 
 def _save(cfg: RuntimeConfig, state, iteration: int, consumed_samples: int,
-          timers: Timers) -> None:
+          timers: Timers, plan=None) -> None:
     timers("save-checkpoint").start()
     path = checkpointing.save_checkpoint(
         cfg.train.save, state, cfg, iteration,
         meta={"consumed_samples": consumed_samples},
         retries=cfg.train.checkpoint_retries,
-        keep=cfg.train.keep_latest_checkpoints)
+        keep=cfg.train.keep_latest_checkpoints, plan=plan)
     timers("save-checkpoint").stop()
     print_rank_0(f" saved checkpoint to {path}")
 
 
-def rollback_to_last_checkpoint(cfg: RuntimeConfig, state, attempt: int = 1):
+def rollback_to_last_checkpoint(cfg: RuntimeConfig, state, attempt: int = 1,
+                                plan=None):
     """Restore the newest complete checkpoint over ``state`` →
     ``(restored_state, iteration)``.  ``attempt`` is the 1-based rollback
     count of this run; past ``anomaly_max_rollbacks`` it aborts instead of
-    thrashing on data that never recovers."""
+    thrashing on data that never recovers.  Under ``plan`` every rank
+    restores its blocks."""
     if attempt > cfg.train.anomaly_max_rollbacks:
         raise RuntimeError(
             f"giving up after {cfg.train.anomaly_max_rollbacks} anomaly "
@@ -631,7 +795,7 @@ def rollback_to_last_checkpoint(cfg: RuntimeConfig, state, attempt: int = 1):
             "anomaly_rollback_after is set but neither train.save nor "
             "train.load provides a checkpoint root to roll back to")
     state, tag = checkpointing.load_checkpoint(
-        root, state, retries=cfg.train.checkpoint_retries)
+        root, state, retries=cfg.train.checkpoint_retries, plan=plan)
     metrics_lib.RESILIENCE_EVENTS.inc("rollbacks")
     EVENT_LOG.emit("training", "rollback", checkpoint_root=str(root),
                    restored_tag=str(tag))
@@ -658,12 +822,9 @@ def refuse_unported_parallelism(tensor_parallel: int = 1,
                                 pipeline_parallel: int = 1,
                                 pipeline_split_rank=None) -> None:
     """The entries' flags for what the port does not run yet: raise
-    ``NotImplementedError`` naming the ROADMAP item."""
-    if tensor_parallel > 1 or use_distributed_optimizer:
-        raise NotImplementedError(
-            "--tensor_parallel > 1 and --use_distributed_optimizer are not "
-            "ported yet (ROADMAP.md, Queue 1 item 9: data, tensor and "
-            "sequence parallel training)")
+    ``NotImplementedError`` naming the ROADMAP item.  ``--tensor_parallel``
+    and ``--use_distributed_optimizer`` run (under ``torchrun``, one
+    process a rank)."""
     if pipeline_parallel > 1 or pipeline_split_rank is not None:
         raise NotImplementedError(
             "--pipeline_parallel > 1 and --pipeline_split_rank are not "
@@ -696,15 +857,12 @@ def pretrain_custom(
     ``eval_interval`` iterations ``eval_loss_fn`` (else ``loss_fn``) runs
     without dropout on ``eval_iters`` windows of ``valid_dataset``.
     ``on_step(iteration, metrics, seconds)`` sees each step, as in
-    ``pretrain``.  ``param_specs`` (tensor parallelism and ZeRO-1) and
-    ``pipeline_loss_fn`` (the encoder-decoder pipeline) are not ported and
-    raise."""
+    ``pretrain``.  ``param_specs`` (``encdec.bert_param_specs`` and its
+    kin) lays the whole ``params`` over the mesh of ``cfg.parallel``
+    (``setup_train_state``); each rank trains on its dp block of every
+    batch.  ``pipeline_loss_fn`` (the encoder-decoder pipeline) is not
+    ported and raises."""
     cfg.validate()
-    if param_specs is not None:
-        raise NotImplementedError(
-            "pretrain_custom: param_specs (tensor-parallel and ZeRO-1 "
-            "sharding) is not ported yet (ROADMAP.md, Queue 1 item 9: "
-            "data, tensor and sequence parallel training)")
     if pipeline_loss_fn is not None:
         raise NotImplementedError(
             "pretrain_custom: pipeline_loss_fn (parallel/pipeline_encdec.py)"
@@ -712,12 +870,17 @@ def pretrain_custom(
             "context and expert parallelism)")
     device = model_lib.default_device(device)
     timers = Timers()
-    writer = build_writer(cfg.train.tensorboard_dir, cfg.train.wandb_project,
-                          cfg.train.wandb_name, config=cfg.to_dict())
+    writer = _writer(cfg, config=cfg.to_dict())
     params = tree_map(lambda t: t.to(device), params)
-    state = init_train_state(cfg, params)
-    step_fn = make_train_step(cfg, device, loss_fn=loss_fn)
+    art = setup_train_state(cfg, params, device, param_specs, loss_fn)
+    with art.in_mesh():
+        return _custom_loop(cfg, art, dataset, loss_fn, valid_dataset,
+                            eval_loss_fn, on_step, timers, writer)
 
+
+def _custom_loop(cfg, art, dataset, loss_fn, valid_dataset, eval_loss_fn,
+                 on_step, timers, writer) -> TrainState:
+    state, step_fn, device = art.state, art.step_fn, art.device
     iteration = 0
     consumed = 0
     if cfg.train.load or (cfg.train.save and checkpointing.read_tracker(
@@ -725,7 +888,8 @@ def pretrain_custom(
         root = cfg.train.load or cfg.train.save
         try:
             state, it = checkpointing.load_checkpoint(
-                root, state, retries=cfg.train.checkpoint_retries)
+                root, state, retries=cfg.train.checkpoint_retries,
+                plan=art.plan)
             if it != checkpointing.RELEASE:
                 iteration = int(it)
                 consumed = int(checkpointing.load_meta(root, it).get(
@@ -757,8 +921,8 @@ def pretrain_custom(
     base_rng = drop.key(cfg.train.seed)
     while iteration < cfg.train.train_iters:
         samples = [dataset[sample_index(consumed + j)] for j in range(gbs)]
-        batch = to_device_batch(
-            _stack_samples(samples, (accum, micro_total)), device)
+        batch = to_device_batch(_dp_block(
+            _stack_samples(samples, (accum, micro_total)), art.mesh), device)
         t0 = time.perf_counter()
         timers("train-step").start()
         state, metrics = step_fn(state, batch, base_rng)
@@ -772,7 +936,7 @@ def pretrain_custom(
 
         if (cfg.train.save and cfg.train.save_interval
                 and iteration % cfg.train.save_interval == 0):
-            _save(cfg, state, iteration, consumed, timers)
+            _save(cfg, state, iteration, consumed, timers, art.plan)
 
         if (valid_dataset is not None and cfg.train.eval_interval
                 and iteration % cfg.train.eval_interval == 0
@@ -784,16 +948,18 @@ def pretrain_custom(
                                             size=cfg.train.eval_iters):
                     vs = [valid_dataset[int((v0 + j) % nv)]
                           for j in range(micro_total)]
-                    vb = to_device_batch(
-                        _stack_samples(vs, (micro_total,)), device)
+                    vb = _eval_denominators(to_device_batch(_dp_block(
+                        _stack_samples(vs, (micro_total,)), art.mesh, 0),
+                        device), art.mesh)
                     losses.append(float(eval_fn(cfg, state.params, vb, None,
                                                 True)))
+            loss = _dp_mean({"loss": float(np.mean(losses))},
+                            art.mesh)["loss"]
             print_rank_0(f" validation loss at iteration {iteration}: "
-                         f"{np.mean(losses):.6E}")
-            writer.add_scalar("valid/loss", float(np.mean(losses)),
-                              iteration)
+                         f"{loss:.6E}")
+            writer.add_scalar("valid/loss", loss, iteration)
 
     if cfg.train.save:
-        _save(cfg, state, iteration, consumed, timers)
+        _save(cfg, state, iteration, consumed, timers, art.plan)
     writer.flush()
     return state

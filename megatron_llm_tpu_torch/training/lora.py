@@ -44,6 +44,11 @@ PyTree = Any
 
 
 def _check_targets(cfg: RuntimeConfig, targets: Sequence[str]) -> None:
+    if cfg.parallel.world_size > 1:
+        raise NotImplementedError(
+            "LoRA training under data or tensor parallelism is not ported "
+            "yet (ROADMAP.md, Queue 1 item 9's remainder: the JAX package "
+            "has no specs for the adapter)")
     # the serving registry's MoE guard: the expert dispatch routes tokens
     # through per-expert weights the single stacked delta does not model,
     # so MLP targets would train against the wrong math (MoE itself is

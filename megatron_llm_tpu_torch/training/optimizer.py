@@ -9,9 +9,18 @@ functions return new trees, these update in place: the moments, the
 master, the params and (in ``clip_by_global_norm``) the grads.  At
 Llama-2-7B width that keeps one copy of each instead of two, which is what
 lets an 8-layer stack's optimizer state fit the card beside its
-activations.  ``zero1_specs`` / ``opt_state_specs`` (ZeRO-1) come with the
-parallel slice (ROADMAP.md, Queue 1: data, tensor and sequence parallel
-training).
+activations.
+
+ZeRO-1 (JAX ``zero1_specs`` / ``opt_state_specs``, reference
+distrib_optimizer.py): each ``mu``, ``nu`` and ``master`` leaf is split
+over dp on the first dimension that the param's spec leaves unsplit and
+dp divides; a leaf with no such dimension stays whole.  A ``Zero`` plan
+carries those dimensions and the dp group: ``init_opt_state`` keeps this
+rank's block of each split leaf, the step hands the update this rank's
+block of the grad (reduce-scattered), and the update all-gathers the new
+params over dp.  Under a mesh ``global_grad_norm`` and ``count_zeros``
+count each leaf once: a tp-sharded leaf's blocks summed over tp, a
+ZeRO-split grad's blocks over dp, a replicated leaf as it is.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import OptimizerConfig
+from ..config import OptimizerConfig, ParallelConfig
+from ..parallel import mappings
 from ..utils.tree import tree_leaves, tree_leaves_with_path, tree_map
 
 PyTree = Any
@@ -60,16 +70,100 @@ def init_dynamic_scaler(cfg: OptimizerConfig) -> ScalerState:
     return ScalerState(float(cfg.initial_loss_scale), 0, int(cfg.hysteresis))
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-1: the optimizer state split over dp
+# ---------------------------------------------------------------------------
+
+
+class Zero(NamedTuple):
+    """A ZeRO-1 plan: each leaf's optimizer-state spec (``zero1_specs``)
+    and split dimension (or None), and the dp group, its size and this
+    rank's index on it."""
+
+    specs: PyTree
+    dims: PyTree
+    group: Any
+    size: int
+    index: int
+
+
+def zero1_specs(param_specs: PyTree, params: PyTree,
+                parallel: ParallelConfig) -> PyTree:
+    """Each spec with ``"dp"`` on the first dimension the spec leaves
+    unsplit and dp divides (JAX ``zero1_specs``); the spec itself where
+    there is none, or without ZeRO-1.  ``params`` may be this rank's
+    blocks: an unsplit dimension is the same size in both."""
+    dp = parallel.data_parallel
+    if dp <= 1 or not parallel.use_distributed_optimizer:
+        return param_specs
+
+    def add_dp(p, spec):
+        parts = list(spec) + [None] * (p.ndim - len(spec))
+        for i, (axis, dim) in enumerate(zip(parts, p.shape)):
+            if axis is None and dim % dp == 0:
+                parts[i] = "dp"
+                return tuple(parts)
+        return spec
+
+    return tree_map(add_dp, params, param_specs)
+
+
+def opt_state_specs(param_specs: PyTree, params: PyTree,
+                    parallel: ParallelConfig, state: "OptState") -> "OptState":
+    """The spec tree of an ``OptState`` (checkpoints)."""
+    leaf_specs = zero1_specs(param_specs, params, parallel)
+    scaler = None if state.scaler is None else ScalerState((), (), ())
+    return OptState(
+        step=(), mu=leaf_specs,
+        nu=leaf_specs if state.nu is not None else None,
+        master=leaf_specs if state.master is not None else None,
+        scaler=scaler)
+
+
+def zero_plan(param_specs: PyTree, params: PyTree, parallel: ParallelConfig,
+              mesh) -> Optional[Zero]:
+    """The ``Zero`` plan of ``parallel`` on ``mesh``, or None without
+    ZeRO-1 (or at dp = 1)."""
+    if parallel.data_parallel <= 1 or not parallel.use_distributed_optimizer:
+        return None
+    specs = zero1_specs(param_specs, params, parallel)
+    dims = tree_map(lambda s: s.index("dp") if "dp" in s else None, specs)
+    return Zero(specs, dims, mesh.group("dp"), mesh.size("dp"),
+                mesh.index("dp"))
+
+
+def _zero_dims(zero: Optional[Zero], params) -> list:
+    if zero is None:
+        return [None] * len(tree_leaves(params))
+    return tree_leaves(zero.dims)
+
+
+def zero_block(t: torch.Tensor, dim: Optional[int], zero: Zero):
+    """This rank's dp block of ``t`` along ``dim`` (a view)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // zero.size
+    return t.narrow(dim, zero.index * n, n)
+
+
 def init_opt_state(params: PyTree, cfg: OptimizerConfig,
-                   use_fp16_scaler: bool = False) -> OptState:
+                   use_fp16_scaler: bool = False,
+                   zero: Optional[Zero] = None) -> OptState:
+    dims = iter(_zero_dims(zero, params))
+
+    def block(p):
+        return zero_block(p, next(dims), zero)
+
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
+    blocks = tree_map(block, params)
     master = None
     if _needs_master(params):
         # a copy even of an fp32 leaf, so master and param never alias
         master = tree_map(
-            lambda p: p.detach().to(torch.float32, copy=True), params)
+            lambda p: p.detach().to(torch.float32, copy=True), blocks)
+    params = blocks
     scaler = init_dynamic_scaler(cfg) if use_fp16_scaler else init_scaler(cfg)
     return OptState(
         step=0,
@@ -80,10 +174,38 @@ def init_opt_state(params: PyTree, cfg: OptimizerConfig,
     )
 
 
-def global_grad_norm(grads: PyTree) -> torch.Tensor:
-    """One L2 norm over every grad leaf (fp32, a 0-d tensor)."""
-    norms = [torch.linalg.vector_norm(g.float()) for g in tree_leaves(grads)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+def _mesh_sum(values: list, grads, plan) -> torch.Tensor:
+    """The sum over the mesh of per-leaf numbers counting each leaf once:
+    a tp-sharded leaf's blocks summed over tp, a ZeRO-split grad's over
+    dp (``plan``: a ``training.step.ParallelPlan``)."""
+    from ..models.sharding import has_axis
+
+    mesh = plan.mesh
+    tp_split = tree_leaves(tree_map(lambda g, spec: has_axis(spec, "tp"),
+                                    grads, plan.specs))
+    dp_split = [d is not None for d in _zero_dims(plan.zero, grads)]
+    zero = values[0] * 0
+    by = {(t, d): zero.clone() for t in (False, True) for d in (False, True)}
+    for v, t, d in zip(values, tp_split, dp_split):
+        by[(t, d)] = by[(t, d)] + v
+    dp_part = mappings.all_reduce(
+        torch.stack([by[(True, True)], by[(False, True)]]),
+        mesh.group("dp"))
+    tp_part = mappings.all_reduce(dp_part[0] + by[(True, False)],
+                                  mesh.group("tp"))
+    return tp_part + dp_part[1] + by[(False, False)]
+
+
+def global_grad_norm(grads: PyTree, plan=None) -> torch.Tensor:
+    """One L2 norm over every grad leaf (fp32, a 0-d tensor); under a
+    ``plan`` the norm of the whole model's grads."""
+    if plan is None:
+        norms = [torch.linalg.vector_norm(g.float())
+                 for g in tree_leaves(grads)]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = [torch.linalg.vector_norm(g.float()).square()
+          for g in tree_leaves(grads)]
+    return torch.sqrt(_mesh_sum(sq, grads, plan))
 
 
 def clip_by_global_norm(grads: PyTree, max_norm: float, norm=None):
@@ -97,9 +219,13 @@ def clip_by_global_norm(grads: PyTree, max_norm: float, norm=None):
     return grads, norm
 
 
-def count_zeros(grads: PyTree) -> torch.Tensor:
-    """Zero-grad diagnostic (reference clip_grads.py:110-136)."""
-    return torch.stack([torch.sum(g == 0) for g in tree_leaves(grads)]).sum()
+def count_zeros(grads: PyTree, plan=None) -> torch.Tensor:
+    """Zero-grad diagnostic (reference clip_grads.py:110-136); under a
+    ``plan`` the count over the whole model."""
+    counts = [torch.sum(g == 0) for g in tree_leaves(grads)]
+    if plan is None:
+        return torch.stack(counts).sum()
+    return _mesh_sum(counts, grads, plan)
 
 
 def _wd_mask(params: PyTree) -> PyTree:
@@ -121,19 +247,36 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _leaves(params, grads, state: OptState):
-    masters = state.master if state.master is not None else params
-    return zip(tree_leaves(params), tree_leaves(masters), tree_leaves(grads),
+def _leaves(params, grads, state: OptState, zero: Optional[Zero] = None):
+    """Per leaf ``(param, master block, grad block, mu, nu, wd mask, ZeRO
+    dim)``; without a master (fp32 params) the master block is a view of
+    the param."""
+    dims = _zero_dims(zero, params)
+    masters = tree_leaves(state.master) if state.master is not None else [
+        zero_block(p, d, zero) for p, d in zip(tree_leaves(params), dims)]
+    return zip(tree_leaves(params), masters, tree_leaves(grads),
                tree_leaves(state.mu),
                tree_leaves(state.nu) if state.nu is not None
                else [None] * len(tree_leaves(params)),
-               tree_leaves(_wd_mask(params)))
+               tree_leaves(_wd_mask(params)), dims)
+
+
+def _publish(p: torch.Tensor, m: torch.Tensor, dim, zero) -> None:
+    """The param from its updated master (block): cast, and all-gathered
+    over dp under ZeRO-1."""
+    if dim is not None:
+        p.copy_(mappings.all_gather(m.to(p.dtype), zero.group, dim))
+    elif m is not p:
+        p.copy_(m)
 
 
 def adamw_step(cfg: OptimizerConfig, params: PyTree, grads: PyTree,
-               state: OptState, lr: float, wd: float):
+               state: OptState, lr: float, wd: float,
+               zero: Optional[Zero] = None):
     """One AdamW update on the fp32 masters, in place; returns
-    ``(params, state)`` with ``state.step`` advanced (FusedAdam's math)."""
+    ``(params, state)`` with ``state.step`` advanced (FusedAdam's math).
+    Under ``zero`` each split leaf's grad, moments and master are this
+    rank's dp block."""
     if state.nu is None:
         raise ValueError("adamw requires a second-moment tree")
     step = state.step + 1
@@ -141,7 +284,8 @@ def adamw_step(cfg: OptimizerConfig, params: PyTree, grads: PyTree,
     c1 = _f32(np.float32(1.0) - np.float32(b1) ** np.float32(step))
     c2 = _f32(np.float32(1.0) - np.float32(b2) ** np.float32(step))
     with torch.no_grad():
-        for p, m, g, mu, nu, wdm in _leaves(params, grads, state):
+        for p, m, g, mu, nu, wdm, dim in _leaves(params, grads, state,
+                                                  zero):
             g = g.float()
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
@@ -149,30 +293,30 @@ def adamw_step(cfg: OptimizerConfig, params: PyTree, grads: PyTree,
             if wd * wdm:
                 update.add_(m, alpha=_f32(wd * wdm))
             m.add_(update, alpha=-lr)
-            if m is not p:
-                p.copy_(m)
+            _publish(p, m, dim, zero)
     return params, state._replace(step=step)
 
 
-def sgd_step(cfg: OptimizerConfig, params, grads, state: OptState, lr, wd):
+def sgd_step(cfg: OptimizerConfig, params, grads, state: OptState, lr, wd,
+             zero: Optional[Zero] = None):
     """Momentum SGD (reference optimizer choice 'sgd'), in place."""
     with torch.no_grad():
-        for p, m, g, mu, _, wdm in _leaves(params, grads, state):
+        for p, m, g, mu, _, wdm, dim in _leaves(params, grads, state, zero):
             g = g.float()
             if wd * wdm:
                 g = g + _f32(wd * wdm) * m
             mu.mul_(cfg.sgd_momentum).add_(g)
             m.add_(mu, alpha=-lr)
-            if m is not p:
-                p.copy_(m)
+            _publish(p, m, dim, zero)
     return params, state._replace(step=state.step + 1)
 
 
-def optimizer_step(cfg: OptimizerConfig, params, grads, state, lr, wd):
+def optimizer_step(cfg: OptimizerConfig, params, grads, state, lr, wd,
+                   zero: Optional[Zero] = None):
     if cfg.optimizer == "adamw":
-        return adamw_step(cfg, params, grads, state, lr, wd)
+        return adamw_step(cfg, params, grads, state, lr, wd, zero)
     if cfg.optimizer == "sgd":
-        return sgd_step(cfg, params, grads, state, lr, wd)
+        return sgd_step(cfg, params, grads, state, lr, wd, zero)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 

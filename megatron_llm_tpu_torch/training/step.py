@@ -17,11 +17,24 @@ iteration and each microbatch's key with its index; without a key the
 step is deterministic.  With ``fused_lm_head`` the loss streams the head
 over vocabulary blocks (``fused_linear_cross_entropy``) and never holds
 the ``[b, s, vocab]`` fp32 logits.
+
+Under a ``ParallelPlan`` (data, tensor and sequence parallelism, ZeRO-1;
+``make_plan``) the step runs inside the mesh (``parallel/mesh.use_mesh``)
+on this rank's param shards and its dp block of each microbatch, and
+after the accumulation writes out what GSPMD derives in JAX
+(``reduce_grads``): the grads each tp rank holds in part are summed over
+tp (``models/sharding.tp_partial_grads``), every grad is averaged over dp
+(all-reduced, or reduce-scattered to the rank's ZeRO-1 block), and so is
+the loss.  A rank's loss-mask count is not the global microbatch's, so
+before the accumulation the step all-reduces each microbatch's count over
+dp once (``loss_denominators``) and the losses divide by it, scaled so
+that their mean over dp is the global masked mean.  The loss, the grad norm and so the guard's ``skip`` are then
+the same on every rank, and every rank takes the same branch.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -29,13 +42,16 @@ from ..config import RuntimeConfig
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
 from ..ops import dropout as drop
+from ..parallel import mappings
+from ..parallel.mesh import axis_info, use_mesh
 from ..parallel.cross_entropy import (
     cross_entropy,
     fused_linear_cross_entropy,
     masked_mean_loss,
+    vocab_parallel_cross_entropy,
 )
 from ..resilience.anomaly import GuardState, guard_update, init_guard_state
-from ..utils.tree import tree_leaves, tree_unflatten
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from . import optimizer as opt_lib
 from . import schedule
 
@@ -50,13 +66,84 @@ class TrainState(NamedTuple):
     guard: GuardState
 
 
-def init_train_state(cfg: RuntimeConfig, params: PyTree) -> TrainState:
+class ParallelPlan(NamedTuple):
+    """What the step needs of the layout: the mesh, the param specs, the
+    leaves whose grads each tp rank holds in part, and the ZeRO-1 plan
+    (or None)."""
+
+    mesh: Any
+    specs: PyTree
+    tp_partial: PyTree
+    zero: Optional[opt_lib.Zero]
+
+
+def make_plan(cfg: RuntimeConfig, mesh, specs: PyTree,
+              params: PyTree) -> Optional[ParallelPlan]:
+    """The plan of ``cfg.parallel`` on ``mesh`` for ``params`` (this
+    rank's shards); None on a mesh of one rank, so a degree-1 run takes
+    the one-device step unchanged."""
+    from ..models.sharding import tp_partial_grads
+
+    if mesh is None or all(n == 1 for n in mesh.shape.values()):
+        return None
+    partial = tp_partial_grads(specs, cfg.model.sequence_parallel_axis
+                               is not None)
+    return ParallelPlan(
+        mesh=mesh, specs=specs,
+        tp_partial=tree_map(lambda p, f: f, params, partial),
+        zero=opt_lib.zero_plan(specs, params, cfg.parallel, mesh))
+
+
+def reduce_grads(plan: ParallelPlan, grads: PyTree, loss: torch.Tensor):
+    """``(grads, loss)`` of the whole model from this rank's: the tp-partial
+    grads summed over tp, then every grad and the loss averaged over dp
+    (a ZeRO-1 leaf reduce-scattered to this rank's block)."""
+    mesh = plan.mesh
+    tp_group, dp_group = mesh.group("tp"), mesh.group("dp")
+    dp = mesh.size("dp")
+    dims = [None] * len(tree_leaves(grads)) if plan.zero is None \
+        else tree_leaves(plan.zero.dims)
+    out = []
+    for g, partial, dim in zip(tree_leaves(grads),
+                               tree_leaves(plan.tp_partial), dims):
+        if partial:
+            mappings.all_reduce(g, tp_group)
+        if dp > 1:
+            if dim is not None:
+                g = mappings.reduce_scatter(g, dp_group, dim)
+            else:
+                mappings.all_reduce(g, dp_group)
+            g.mul_(1.0 / dp)
+        out.append(g)
+    if dp > 1:
+        loss = mappings.all_reduce(loss.clone(), dp_group) * (1.0 / dp)
+    return tree_unflatten(grads, out), loss
+
+
+def loss_denominators(batch: dict, dp_group, lead: int = 1) -> dict:
+    """``batch`` with ``loss_denom``: the loss-mask count of each
+    microbatch over the dp group (clamped at 1, as the masked mean clamps
+    it), divided by dp.  A rank's masked sum over it is its share of the
+    global masked mean times dp, which the mean over dp undoes.  The
+    first ``lead`` axes index microbatches (1 for ``[accum, micro, ...]``,
+    0 for one microbatch); a batch without a loss mask is unchanged."""
+    dp = mappings.group_size(dp_group)
+    if dp == 1 or "loss_mask" not in batch:
+        return batch
+    mask = batch["loss_mask"].to(torch.float32)
+    count = mask.sum(dim=tuple(range(lead, mask.ndim)))
+    count = mappings.all_reduce(count, dp_group)
+    return dict(batch, loss_denom=torch.clamp(count, min=1.0) / dp)
+
+
+def init_train_state(cfg: RuntimeConfig, params: PyTree,
+                     zero: Optional[opt_lib.Zero] = None) -> TrainState:
     use_scaler = cfg.model.params_dtype in ("float16", "fp16")
     device = tree_leaves(params)[0].device
     return TrainState(
         params=params,
         opt=opt_lib.init_opt_state(params, cfg.optimizer,
-                                   use_fp16_scaler=use_scaler),
+                                   use_fp16_scaler=use_scaler, zero=zero),
         iteration=0,
         skipped=0,
         guard=init_guard_state(device),
@@ -74,7 +161,8 @@ def compute_loss(cfg: RuntimeConfig, params, batch: dict, rng=None,
     kw = dict(position_ids=batch.get("position_ids"),
               segment_ids=batch.get("segment_ids"), rng=rng, rope=rope,
               lora=lora)
-    if cfg.model.fused_lm_head:
+    tp = cfg.parallel.tensor_parallel
+    if cfg.model.fused_lm_head and tp == 1:
         hidden, _ = model_lib.forward_hidden(cfg.model, params,
                                              batch["tokens"], **kw)
         b, s, h = hidden.shape
@@ -86,9 +174,15 @@ def compute_loss(cfg: RuntimeConfig, params, batch: dict, rng=None,
     else:
         logits, _ = model_lib.forward(cfg.model, params, batch["tokens"],
                                       return_aux=True, **kw)
-        per_token = cross_entropy(logits, batch["labels"],
-                                  vocab_size=cfg.model.vocab_size)
-    return masked_mean_loss(per_token, batch["loss_mask"])
+        if tp > 1:  # this rank's vocabulary block of the logits
+            per_token = vocab_parallel_cross_entropy(
+                logits, batch["labels"], axis_info("tp")[0],
+                vocab_size=cfg.model.vocab_size)
+        else:
+            per_token = cross_entropy(logits, batch["labels"],
+                                      vocab_size=cfg.model.vocab_size)
+    return masked_mean_loss(per_token, batch["loss_mask"],
+                            batch.get("loss_denom"))
 
 
 def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
@@ -135,20 +229,27 @@ def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
 
 
 def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
-               base_rng=None, rope=None, loss_fn=None):
+               base_rng=None, rope=None, loss_fn=None,
+               plan: Optional[ParallelPlan] = None):
     """One optimizer step over the batch's microbatches → ``(new_state,
     metrics)``.  Params and optimizer state are updated in place.
-    ``base_rng`` (a ``DropoutKey``) is folded with the iteration."""
+    ``base_rng`` (a ``DropoutKey``) is folded with the iteration.  Under
+    ``plan`` the batch is this rank's dp block and the step runs on the
+    current mesh."""
     scaler = state.opt.scaler
     loss_scale = scaler.scale if scaler is not None else 1.0
     rng = None if base_rng is None else drop.fold_in(base_rng,
                                                      state.iteration)
+    if plan is not None:
+        batch = loss_denominators(batch, plan.mesh.group("dp"))
     grads, loss = _accumulate_grads(cfg, state.params, batch, rope,
                                     loss_scale, loss_fn, rng)
+    if plan is not None:
+        grads, loss = reduce_grads(plan, grads, loss)
     if loss_scale != 1.0:
         for g in tree_leaves(grads):
             g.div_(loss_scale)
-    grad_norm = opt_lib.global_grad_norm(grads)
+    grad_norm = opt_lib.global_grad_norm(grads, plan)
     found_inf = ~torch.isfinite(grad_norm)
     guard, anomalous, data_anomaly = guard_update(
         state.guard, loss, found_inf,
@@ -165,8 +266,9 @@ def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
         if cfg.optimizer.clip_grad > 0:
             opt_lib.clip_by_global_norm(grads, cfg.optimizer.clip_grad,
                                         norm=grad_norm)
-        params, opt = opt_lib.optimizer_step(cfg.optimizer, params, grads,
-                                             opt, lr, wd)
+        params, opt = opt_lib.optimizer_step(
+            cfg.optimizer, params, grads, opt, lr, wd,
+            None if plan is None else plan.zero)
     del grads
     if scaler is not None:
         # the scaler reacts to overflow only, not to a data anomaly
@@ -188,16 +290,22 @@ def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
     return new_state, metrics
 
 
-def make_train_step(cfg: RuntimeConfig, device=None, loss_fn=None):
+def make_train_step(cfg: RuntimeConfig, device=None, loss_fn=None,
+                    plan: Optional[ParallelPlan] = None):
     """``step(state, batch, base_rng=None) -> (state, metrics)`` with the
     RoPE tables built once on ``device`` (default ``cuda``) and closed
-    over, as the JAX step closes over them as constants."""
+    over, as the JAX step closes over them as constants.  Under ``plan``
+    each call runs inside its mesh."""
     device = model_lib.default_device(device)
     rope = rope_tables(cfg.model, device=device)
 
     def step(state: TrainState, batch: dict, base_rng=None):
-        return train_step(cfg, state, batch, base_rng, rope=rope,
-                          loss_fn=loss_fn)
+        if plan is None:
+            return train_step(cfg, state, batch, base_rng, rope=rope,
+                              loss_fn=loss_fn)
+        with use_mesh(plan.mesh):
+            return train_step(cfg, state, batch, base_rng, rope=rope,
+                              loss_fn=loss_fn, plan=plan)
 
     return step
 

@@ -88,3 +88,25 @@ def test_the_fused_decode_step_is_split():
     assert src[guard:].split("\n")[1].startswith("#error")
     for i in range(5):
         assert f"DECODE_STEP_PART == {i}" in src
+
+
+def test_flash_decode_is_split():
+    """``flash_decode.cu`` names its units with ``FLASH_DECODE_PART``: one a
+    kernel (K8-K11, each with every dtype, head dim and group) and the C
+    interface, which dispatches to the parts; without the macro it does
+    not compile.  A probe's copy of it (``flash_decode_<variant>.cu``)
+    splits the same way."""
+    assert build.SPLIT["flash_decode"] == ("FLASH_DECODE_PART", 5)
+    src = (build.CSRC / "flash_decode.cu").read_text()
+    guard = src.index("#ifndef FLASH_DECODE_PART")
+    assert src[guard:].split("\n")[1].startswith("#error")
+    for i in range(5):
+        assert f"FLASH_DECODE_PART == {i}" in src
+    interface = src[src.index("#if FLASH_DECODE_PART == 4"):]
+    for i, launcher in enumerate(("flash_decode_launch",
+                                  "flash_decode_int8_launch",
+                                  "flash_decode_paged_launch",
+                                  "flash_decode_paged_int8_launch")):
+        body = interface[interface.index(f'extern "C" int {launcher}('):]
+        body = body[:body.index("\n}\n")]
+        assert f"flash_decode_part{i}(&a," in body, launcher

@@ -1961,3 +1961,59 @@ def test_bert_loss_on_the_card_matches_cpu(cuda_device):
     rel = float(torch.linalg.vector_norm(g.float().cpu() - g_ref)
                 / torch.linalg.vector_norm(g_ref))
     assert rel <= 0.05, rel
+
+
+@pytest.mark.cuda
+def test_world_of_one_on_the_card_launches_no_collective(cuda_device,
+                                                         tmp_path):
+    """A world of one over NCCL: the mesh's groups are all None, every
+    mapping returns its input untouched and communicates nothing, and
+    vocab-parallel CE over the whole vocabulary (no group) is the plain
+    CE on CUDA tensors, its gradient too."""
+    import datetime
+
+    from megatron_llm_tpu_torch import initialize
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.parallel import cross_entropy as ce
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+
+    info = initialize.initialize_distributed(
+        "cuda", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        assert info.backend == "nccl" and info.world_size == 1
+        mesh = mesh_lib.build_mesh(ParallelConfig())
+        assert mesh.groups == {} and mesh.backend == "nccl"
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        x = _card((2, 8, 64), gen, cuda_device, torch.float32)
+        before = mappings.launches
+        g = mesh.group("tp")
+        for fn in (mappings.copy_to_tensor_region,
+                   mappings.reduce_from_tensor_region,
+                   mappings.gather_from_sequence_region,
+                   mappings.reduce_scatter_to_sequence_region):
+            assert fn(x, g) is x
+        for sp in (False, True):
+            assert mappings.column_input(x, g, sp) is x
+            assert mappings.row_output(x, g, sp) is x
+        assert mappings.all_reduce(x, g) is x
+        assert mappings.launches == before
+        logits = (3 * _card((2, 8, 320), gen, cuda_device, torch.float32)
+                  ).requires_grad_(True)
+        targets = torch.randint(0, 300, (2, 8), generator=gen,
+                                device=cuda_device)
+        got = ce.vocab_parallel_cross_entropy(logits, targets, None,
+                                              label_smoothing=0.1,
+                                              vocab_size=300)
+        (dg,) = torch.autograd.grad(got.sum(), logits)
+        ref = ce.cross_entropy(logits, targets, label_smoothing=0.1,
+                               vocab_size=300)
+        (dr,) = torch.autograd.grad(ref.sum(), logits)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dg, dr, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(
+            ce.vocab_parallel_max_indices(logits.detach(), None),
+            logits.detach().argmax(-1))
+    finally:
+        initialize.destroy()

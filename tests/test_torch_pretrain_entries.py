@@ -225,18 +225,38 @@ def test_entries_mirror_the_jax_configs(corpus):
     (pretrain_ict, ["--use_distributed_optimizer"], "item 9"),
 ])
 def test_entries_refuse_unported_parallelism(corpus, entry, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        entry.main(["--data_path", corpus, "--vocab_size", "96", *flags],
-                   device="cpu")
+    """Pipeline flags still raise, naming item 10.  Item 9's flags are
+    ported: ``--use_distributed_optimizer`` at dp = 1 trains (ZeRO-1 over
+    one rank is the replicated optimizer, as in JAX), and
+    ``--tensor_parallel 2`` in one process asks for a launcher with two
+    ranks (``tests/test_torch_parallel_families.py`` runs the entries in
+    a world of two)."""
+    argv = ["--data_path", corpus, "--vocab_size", "96", *flags]
+    if item == "item 10":
+        with pytest.raises(NotImplementedError, match=item):
+            entry.main(argv, device="cpu")
+    elif "--tensor_parallel" in flags:
+        with pytest.raises(ValueError, match="torchrun"):
+            entry.main(argv, device="cpu")
+    else:
+        extra = next(e for m, e in ENTRY_ARGS.values() if m is entry)
+        state = entry.main(argv + ["--train_iters", "1", "--hidden_size",
+                                   "32", "--num_layers", "1",
+                                   "--num_attention_heads", "2", *extra],
+                           device="cpu")
+        assert int(state.iteration) == 1
 
 
 def test_pretrain_custom_refuses_specs_and_pipelines(corpus):
+    """``param_specs`` is ported (a degree-1 layout trains as before);
+    ``pipeline_loss_fn`` still raises, naming item 10."""
     tc = TRun(model=TModel(**MODEL, tokentype_size=2),
-              train=TTrain(**TRAIN)).validate()
+              train=TTrain(**dict(TRAIN, train_iters=0))).validate()
     params = tencdec.init_bert_params(tc.model, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdriver.pretrain_custom(tc, [], params, None, param_specs={},
-                                device="cpu")
+    state = tdriver.pretrain_custom(
+        tc, [], params, None, device="cpu",
+        param_specs=tencdec.bert_param_specs(tc.model, tc.parallel))
+    assert state.iteration == 0
     with pytest.raises(NotImplementedError, match="item 10"):
         tdriver.pretrain_custom(tc, [], params, None,
                                 pipeline_loss_fn=lambda *a: 0, device="cpu")

@@ -544,15 +544,23 @@ def test_pretrain_refuses_what_is_not_ported(train_kw, match, tmp_path,
     dict(model=ttiny(fused_lm_head=True)),
 ])
 def test_runtime_config_refuses_what_is_not_ported(kw):
-    """Parallel degrees above 1 still raise.  The fused LM head is ported:
-    its config validates and one fused step matches JAX's fused step
-    (``tests/test_torch_fused_head.py`` goes further)."""
+    """Pipeline and context parallelism still raise, naming their ROADMAP
+    item.  Data and tensor parallelism are ported: their configs validate
+    (``tests/test_torch_parallel*.py`` train them against JAX's sharded
+    step).  The fused LM head is ported: its config validates and one
+    fused step matches JAX's fused step (``tests/test_torch_fused_head.py``
+    goes further)."""
     if "model" in kw:
         assert TRun(**kw).validate().model.fused_lm_head
         _, _, out = _run_both(dict(fused_lm_head=True), steps=1, accum=1)
         assert out[0][0] == pytest.approx(out[0][1], rel=1e-5, abs=1e-5)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    par = kw["parallel"]
+    if par.tensor_parallel > 1 or par.data_parallel > 1:
+        cfg = TRun(train=TTrain(global_batch_size=8), **kw).validate()
+        assert cfg.parallel.world_size == 2
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 10"):
         TRun(**kw).validate()
 
 
@@ -586,11 +594,12 @@ def test_finetune_bf16_default_flags_on_cpu(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--mock_data", "--num_experts", "4"], "MoE"),
     (["--mock_data", "--lora_rank", "4"], "LoRA"),
-    (["--mock_data", "--tp", "2"], "parallel"),
+    (["--mock_data", "--pp", "2"], "parallel"),
     (["--mock_data", "--quantize_matmuls", "int8"], "int8 training"),
 ])
 def test_finetune_refuses_what_is_not_ported(argv, match, capsys):
-    """MoE and parallel degrees still raise.  ``--lora_rank`` and
+    """MoE and pipeline parallelism still raise (data and tensor
+    parallelism train under torchrun: ``tests/test_torch_parallel*.py``).  ``--lora_rank`` and
     ``--quantize_matmuls int8`` train now: from the same seeded base and
     first batch, a fresh adapter (B = 0) logs the full finetune's first
     loss exactly, and int8 matmuls log it within 0.05 (the W8A8 logit

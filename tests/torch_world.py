@@ -1,0 +1,444 @@
+"""A world of CPU processes for the port's parallel tests.
+
+``run_world(world, tmp_path, jobs)`` spawns ``world`` ranks once
+(``torch.multiprocessing.spawn``), joins them over gloo with a
+``file://`` rendezvous under ``tmp_path`` and runs every job on every
+rank in order: a job names a function of this module, its input file and
+its output file.  Each input is an ``.npz`` of arrays and a JSON ``meta``
+entry written by the test; rank 0 writes the job's output ``.npz``.
+
+The ranks import this module, torch and the port, never JAX: the tests
+compute JAX's side in the pytest process and pass only numpy across.
+Nested trees cross as ``a/b/c`` keys (``save_tree`` / ``load_tree``).
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+
+import numpy as np
+import torch
+
+META = "__meta__"
+
+
+# ---------------------------------------------------------------------------
+# Trees in .npz files
+# ---------------------------------------------------------------------------
+
+
+def flatten(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def unflatten(flat: dict, prefix: str = "") -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix) or key == META:
+            continue
+        node = out
+        parts = key[len(prefix):].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy()
+    return np.asarray(x)
+
+
+def save_tree(path, tree: dict, meta=None) -> None:
+    flat = {k: _np(v) for k, v in flatten(tree).items()}
+    if meta is not None:
+        flat[META] = np.asarray(json.dumps(meta))
+    np.savez(path, **flat)
+
+
+def load_tree(path) -> tuple:
+    """``(tree, meta)``."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    meta = json.loads(str(flat[META])) if META in flat else None
+    return unflatten(flat), meta
+
+
+# ---------------------------------------------------------------------------
+# The world
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(rank: int, world: int, rdv: str, jobs: list) -> None:
+    torch.set_num_threads(1)
+    from megatron_llm_tpu_torch import initialize
+
+    initialize.initialize_distributed(
+        "cpu", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        for fn_name, in_path, out_path in jobs:
+            tree, meta = load_tree(in_path)
+            out = globals()[fn_name](tree, meta)
+            if rank == 0 and out is not None:
+                save_tree(out_path, out)
+            initialize.barrier()
+    finally:
+        initialize.destroy()
+
+
+def run_world(world: int, tmp_path, jobs: list) -> list:
+    """Run ``jobs`` (``(function name, input tree, meta)``) on a world of
+    ``world`` ranks → each job's output tree (rank 0's)."""
+    import torch.multiprocessing as mp
+
+    tmp_path = str(tmp_path)
+    specs = []
+    for i, (fn_name, tree, meta) in enumerate(jobs):
+        in_path = os.path.join(tmp_path, f"in{i}.npz")
+        save_tree(in_path, tree, meta)
+        specs.append((fn_name, in_path, os.path.join(tmp_path, f"out{i}.npz")))
+    mp.spawn(_rank_main, args=(world, os.path.join(tmp_path, "rdv"), specs),
+             nprocs=world, join=True)
+    return [load_tree(out)[0] if os.path.exists(out) else None
+            for _, _, out in specs]
+
+
+# ---------------------------------------------------------------------------
+# Rank-side cases (torch and the port only)
+# ---------------------------------------------------------------------------
+
+
+def _t(tree):
+    """numpy tree → torch tree (ints as int64, floats kept)."""
+    if isinstance(tree, dict):
+        return {k: _t(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def runtime_config(meta: dict):
+    """The port's ``RuntimeConfig`` of ``meta``'s ``model`` (a preset name
+    and its kwargs), ``parallel``, ``optimizer`` and ``train`` kwargs."""
+    from megatron_llm_tpu_torch import config as C
+
+    preset, mkw = meta["model"]
+    model = getattr(C, preset)(**mkw)
+    return C.RuntimeConfig(
+        model=model, parallel=C.ParallelConfig(**meta.get("parallel", {})),
+        optimizer=C.OptimizerConfig(**meta.get("optimizer", {})),
+        train=C.TrainConfig(**meta.get("train", {}))).validate()
+
+
+def _specs(cfg, kind: str):
+    from megatron_llm_tpu_torch.models import biencoder, encdec, sharding
+
+    return {"lm": sharding.param_specs,
+            "bert": encdec.bert_param_specs,
+            "t5": encdec.t5_param_specs,
+            "ict": biencoder.biencoder_param_specs}[kind](cfg.model,
+                                                          cfg.parallel)
+
+
+def _loss(cfg, kind: str, params, batch, rng):
+    from megatron_llm_tpu_torch.models import biencoder, encdec
+    from megatron_llm_tpu_torch.training import step as st
+
+    if kind == "lm":
+        return st.compute_loss(cfg, params, batch, rng=rng)
+    fn = {"bert": encdec.bert_loss, "t5": encdec.t5_loss,
+          "ict": biencoder.retrieval_loss}[kind]
+    return fn(cfg.model, params, batch, rng, rng is None)
+
+
+def grads_case(tree: dict, meta: dict) -> dict:
+    """One microbatch's loss and whole grads on this world's mesh: the
+    params are the whole tree (cut to this rank's shards), the batch the
+    global microbatch (cut to this rank's dp block)."""
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.ops import dropout as drop
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.training import step as st
+    from megatron_llm_tpu_torch.training.driver import _dp_block
+    from megatron_llm_tpu_torch.utils.tree import tree_map
+
+    cfg = runtime_config(meta)
+    kind = meta.get("kind", "lm")
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    specs = _specs(cfg, kind)
+    params = sharding.shard_params(_t(tree["params"]), specs, mesh)
+    batch = {k: torch.from_numpy(v) for k, v in
+             _dp_block({k: np.asarray(v) for k, v in tree["batch"].items()},
+                       mesh, axis=0).items()}
+    rng = None if meta.get("seed") is None else drop.key(meta["seed"])
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    batch = st.loss_denominators(batch, mesh.group("dp"), lead=0)
+    with mesh_lib.use_mesh(mesh):
+        loss = _loss(cfg, kind, live, batch, rng)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad if p.grad is not None
+                         else torch.zeros_like(p), live)
+        plan = st.make_plan(cfg, mesh, specs, params)
+        if plan is not None:
+            grads, loss = st.reduce_grads(plan, grads, loss.detach())
+        grads = sharding.gather_params(grads, specs, mesh)
+        out = {"loss": loss.detach(), "grads": grads}
+        if meta.get("logits"):
+            from megatron_llm_tpu_torch.models import encdec
+            from megatron_llm_tpu_torch.parallel import mappings
+
+            with torch.no_grad():
+                b = batch
+                logits = encdec.t5_forward(
+                    cfg.model, params, b["enc_tokens"], b["dec_tokens"],
+                    b["enc_pad_mask"], b["dec_pad_mask"])
+                out["logits"] = mappings.all_gather(
+                    logits, mesh.group("tp"), -1)
+    return out
+
+
+def ce_case(tree: dict, meta: dict) -> dict:
+    """Vocab-parallel CE over this rank's block of whole logits: the
+    per-token loss, the gathered grad of its sum, and the greedy ids."""
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.parallel import cross_entropy as ce
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.build_mesh(ParallelConfig(
+        tensor_parallel=meta["tp"], data_parallel=meta.get("dp", 1)))
+    group = mesh.group("tp")
+    logits = mappings.split(torch.from_numpy(tree["logits"]), group, -1)
+    logits = logits.contiguous().requires_grad_(True)
+    targets = torch.from_numpy(tree["targets"])
+    loss = ce.vocab_parallel_cross_entropy(
+        logits, targets, group, label_smoothing=meta["smoothing"],
+        vocab_size=meta.get("vocab_size"))
+    loss.sum().backward()
+    return {"loss": loss.detach(),
+            "grad": mappings.all_gather(logits.grad, group, -1),
+            "argmax": ce.vocab_parallel_max_indices(logits.detach(), group)}
+
+
+def pretrain_case(tree: dict, meta: dict) -> dict:
+    """``training.driver.pretrain`` over the given whole params and global
+    batches (a ``batch_provider``): each step's loss, and the whole params
+    and moments at the end (``meta["save"]``/``["load"]`` set the
+    checkpoint roots)."""
+    from megatron_llm_tpu_torch import checkpointing
+    from megatron_llm_tpu_torch.training import driver
+
+    from megatron_llm_tpu_torch import metrics as metrics_lib
+
+    cfg = runtime_config(meta)
+    batches = [tree["batches"][str(i)] for i in range(len(tree["batches"]))]
+    provider = poisoned_provider(batches, *meta.get("poison", (0, 0)))
+    metrics_lib.RESILIENCE_EVENTS.reset()
+    losses = []
+    params = _t(tree["params"]) if "params" in tree else None
+    state = driver.pretrain(cfg, params=params, batch_provider=provider,
+                            device="cpu", on_step=lambda it, m, s:
+                            losses.append(float(m["loss"])))
+    art_plan = _plan_of(cfg, state)
+    if art_plan is not None:  # every leaf whole
+        from megatron_llm_tpu_torch.models import sharding
+
+        state = checkpointing.map_train_state(
+            lambda t, s: sharding.gather_tensor(t, s, art_plan.mesh), state,
+            art_plan)
+    out = {"losses": np.asarray(losses), "params": state.params,
+           "mu": state.opt.mu, "rollbacks": np.asarray(
+               metrics_lib.RESILIENCE_EVENTS.get("rollbacks"))}
+    if state.opt.nu is not None:
+        out["nu"] = state.opt.nu
+    return out
+
+
+def ckpt_leaves_case(tree: dict, meta: dict) -> dict:
+    """``setup_train_state``, a save and a load at ``meta``'s degrees with
+    every whole leaf of a sharded one watched (its storage's weakref): the
+    most earlier wholes still alive when the next is made, over every
+    rank (0: one whole leaf at a time), and whether every rank's loaded
+    blocks equal the saved state's bit for bit."""
+    import itertools
+    import weakref
+
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch import checkpointing
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.training import driver
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    watched: list = []
+    most = {"init": 0, "save": 0, "load": 0}
+    made = dict.fromkeys(most, 0)
+    phase = ["init"]
+
+    def alive() -> int:
+        return sum(r() is not None for r in watched)
+
+    def note(whole: torch.Tensor) -> None:
+        most[phase[0]] = max(most[phase[0]], alive())
+        made[phase[0]] += 1
+        watched.append(weakref.ref(whole.untyped_storage()))
+
+    shard, gather = sharding.shard_tensor, sharding.gather_tensor
+
+    def watched_shard(t, spec, mesh):
+        out = shard(t, spec, mesh)
+        if out is not t:  # t is the whole of a sharded leaf
+            note(t)
+        return out
+
+    def watched_gather(t, spec, mesh):
+        out = gather(t, spec, mesh)
+        if out is not t:
+            note(out)
+        return out
+
+    cfg = runtime_config(meta)
+    sharding.shard_tensor, sharding.gather_tensor = watched_shard, \
+        watched_gather
+    try:
+        art = driver.setup_train_state(cfg, device="cpu")
+        plan = art.plan
+        watched.clear()
+
+        seeds = itertools.count(1)
+
+        def fill(t, spec):  # distinct values, the same whole on every rank
+            g = torch.Generator().manual_seed(next(seeds))
+            whole = torch.randn(checkpointing._whole_shape(
+                t, spec, plan.mesh), generator=g).to(t.dtype)
+            with torch.no_grad():
+                return t.copy_(shard(whole, spec, plan.mesh))
+
+        state = checkpointing.map_train_state(fill, art.state, plan)
+        phase[0] = "save"
+        checkpointing.save_checkpoint(meta["root"], state, iteration=1,
+                                      plan=plan)
+        watched.clear()
+        phase[0] = "init"
+        template = driver.setup_train_state(
+            cfg, device="cpu").state  # new params, zero moments
+        watched.clear()
+        phase[0] = "load"
+        loaded, _ = checkpointing.load_checkpoint(meta["root"], template,
+                                                  plan=plan)
+    finally:
+        sharding.shard_tensor, sharding.gather_tensor = shard, gather
+    def leaves(st):
+        return tree_leaves(st.params) + [
+            t for tree in (st.opt.master, st.opt.mu, st.opt.nu)
+            if tree is not None for t in tree_leaves(tree)]
+
+    same = all(torch.equal(a, b) for a, b in zip(leaves(loaded),
+                                                 leaves(state)))
+    counts = torch.tensor([most["init"], most["save"], most["load"],
+                           int(not same)])
+    dist.all_reduce(counts, op=dist.ReduceOp.MAX)
+    return {"most_alive": counts[:3], "differ": counts[3],
+            "made": torch.tensor([made["init"], made["save"],
+                                  made["load"]])}
+
+
+def poisoned_provider(batches: list, lo: int = 0, hi: int = 0):
+    """A ``batch_provider`` over global batches; the samples in ``[lo,
+    hi)`` NaN-poisoned (``resilience.poison_nan``), the poison following
+    the data position as a bad corpus shard's does."""
+    from megatron_llm_tpu_torch.resilience import poison_nan
+
+    def provider(consumed, gbs):
+        i = consumed // gbs
+        while True:
+            batch = {k: np.asarray(v) for k, v in batches[i].items()}
+            if i * gbs < hi and (i + 1) * gbs > lo:
+                batch = poison_nan(batch)
+            yield batch
+            i += 1
+
+    return provider
+
+
+def _plan_of(cfg, state):
+    """The plan ``setup_train_state`` made for ``state`` (rebuilt: the
+    mesh's groups are the world's, so a second mesh is one more set)."""
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.training import step as st
+
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    return st.make_plan(cfg, mesh, sharding.param_specs(cfg.model,
+                                                        cfg.parallel),
+                        state.params)
+
+
+def entry_case(tree: dict, meta: dict) -> dict:
+    """An entry's ``main(argv, device="cpu")`` (``pretrain_bert``,
+    ``pretrain_t5``, ``pretrain_ict``, ``finetune``) on this world; the
+    log's losses (rank 0 prints them)."""
+    import contextlib
+    import importlib
+    import io
+    import re
+
+    entry = importlib.import_module(f"megatron_llm_tpu_torch.{meta['entry']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if meta["entry"] == "finetune":
+            rc = entry.main(meta["argv"])
+            iters = rc
+        else:
+            iters = int(entry.main(meta["argv"], device="cpu").iteration)
+    text = buf.getvalue()
+    losses = [float(x) for x in re.findall(r"lm loss: ([0-9.E+-]+) \|", text)]
+    valid = [float(x) for x in re.findall(
+        r"validation loss at .*? lm_loss: ([0-9.E+-]+) \|", text)]
+    return {"losses": np.asarray(losses), "valid": np.asarray(valid),
+            "iters": np.asarray(iters)}
+
+
+def mailbox_case(tree: dict, meta: dict) -> dict:
+    """``parallel.mappings.DeviceMailbox`` over boxes of shared host memory
+    (a file each rank maps), small enough that every tensor goes in
+    pieces, against gloo's own collectives on the same inputs."""
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.parallel import mappings
+
+    nbytes = 4096
+    rank, n = dist.get_rank(), dist.get_world_size()
+    paths = [os.path.join(meta["dir"], f"box{r}") for r in range(n)]
+    with open(paths[rank], "wb") as f:
+        f.write(bytes(nbytes))
+    dist.barrier()
+    boxes = [torch.from_file(p, shared=True, size=nbytes, dtype=torch.uint8)
+             for p in paths]
+    box = mappings.DeviceMailbox(dist.group.WORLD, boxes, torch.device("cpu"))
+    mappings.MAILBOX_BYTES = nbytes
+    x = torch.from_numpy(tree["x"][rank]).clone()   # [rows, cols] float32
+    out = {}
+    for name, op in (("sum", dist.ReduceOp.SUM), ("max", dist.ReduceOp.MAX)):
+        want = x.clone()
+        dist.all_reduce(want, op=op)
+        out[f"{name}_mailbox"] = box.all_reduce(x.clone(), op)
+        out[f"{name}_gloo"] = want
+    gathered = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    mappings._all_gather(gathered, x.clone(), group=dist.group.WORLD)
+    out["gather_mailbox"] = box.all_gather(x.clone())
+    out["gather_gloo"] = gathered
+    half = box.all_gather(x.to(torch.bfloat16))
+    out["gather_bf16_exact"] = torch.tensor(bool(torch.equal(
+        half, gathered.to(torch.bfloat16))))
+    return out
