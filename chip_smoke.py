@@ -303,10 +303,11 @@ it goes wrong:
     and peak memory logged; before each run step 1's loss and gathered
     grads against the same model's one-device step on the card at phase
     6's limits: 54 Llama-2-7B widths cut to 4 layers, seq 4096, tp = 2
-    with sequence parallelism, 3 steps; 55 the same model at dp = 2 with
-    ZeRO-1, 3 steps, then the replicated optimizer's 3 steps, whose
-    params must be within one bf16 rounding (2^-8 relative Frobenius a
-    leaf); 56 GPT-1.3B widths cut to 2 layers, seq 1024, tp = 2 with
+    with sequence parallelism, 3 steps; 55 the same widths cut to 2
+    layers at dp = 2 with ZeRO-1 and no grad clipping, 3 steps, a save
+    under the plan and a resume bit for bit, then the replicated
+    optimizer's 3 steps, whose params, masters and moments must be
+    within ``ZERO1_RTOL`` a leaf of ZeRO-1's; 56 GPT-1.3B widths cut to 2 layers, seq 1024, tp = 2 with
     sequence parallelism and hidden dropout 0.1 (attention dropout 0, so
     K1-K3 run), 3 steps, and the cost of drawing a mask at the global
     shape for one rank's block logged.  Phases 53-56 are the ``parallel-training``
@@ -6268,7 +6269,8 @@ def encoder_families_phases(torch, dev, counters, smi, paths, settle):
 # Phases 53-56: data, tensor and sequence parallel training with ZeRO-1
 # ---------------------------------------------------------------------------
 
-PAR_LAYERS = 4      # Llama-2-7B widths cut to 4 layers (phases 54-55)
+PAR_LAYERS = 4      # Llama-2-7B widths cut to 4 layers (phase 54)
+ZERO_LAYERS = 2     # phase 55 (its checkpoint is 3.8 GB a layer)
 PAR_SEQ = 4096
 PAR_STEPS = 3
 GPT_PAR_SEQ = 1024  # GPT-1.3B's table; 512 rows a rank under SP at tp = 2
@@ -6297,7 +6299,8 @@ def _par_cfg(model, seq, gbs, iters=PAR_STEPS, **parallel):
 def _llama_par(**kw):
     from megatron_llm_tpu_torch.config import llama2_config
 
-    return llama2_config("7b", num_layers=PAR_LAYERS, params_dtype="bfloat16",
+    kw.setdefault("num_layers", PAR_LAYERS)
+    return llama2_config("7b", params_dtype="bfloat16",
                          attention_impl="flash", norm_impl="pallas",
                          recompute="selective", **kw)
 
@@ -6347,11 +6350,14 @@ def _first_grads(torch, cfg, dev, batch, rng):
     return loss, (grads if is_rank_0() else None)
 
 
-def _tp1_check(torch, cfg, dev, batch, rng, loss, grads, label):
+def _tp1_check(torch, cfg, dev, batch, rng, loss, grads, label,
+               microbatches=False, after=None):
     """Rank 0: the same model's one-device step on the card (whole params
-    from the same seed, the global batch as one microbatch, the same
-    dropout key) against the sharded step's loss and gathered grads, at
-    phase 6's limits."""
+    from the same seed, the global batch as one microbatch, or as the
+    step's microbatches with ``microbatches``, the same dropout key)
+    against the sharded step's loss and gathered grads, at phase 6's
+    limits.  ``after(params)`` runs on the one-device params before they
+    go (its result is the record's ``"after"``)."""
     from megatron_llm_tpu_torch.config import ParallelConfig
     from megatron_llm_tpu_torch.models import model as M
     from megatron_llm_tpu_torch.models.transformer import rope_tables
@@ -6361,10 +6367,12 @@ def _tp1_check(torch, cfg, dev, batch, rng, loss, grads, label):
     ref = dataclasses.replace(cfg, parallel=ParallelConfig()).validate()
     params = M.init_params(ref.model, seed=cfg.train.seed, device=dev,
                            tp=cfg.parallel.tensor_parallel)
-    whole = {k: v.reshape((1, -1) + v.shape[2:]) for k, v in batch.items()}
+    whole = batch if microbatches else {
+        k: v.reshape((1, -1) + v.shape[2:]) for k, v in batch.items()}
     ref_grads, ref_loss = S._accumulate_grads(
         ref, params, S.to_device_batch(whole, dev),
         rope_tables(ref.model, device=dev), 1.0, rng=rng)
+    extra = after(params) if after is not None else None
     ref_loss = float(ref_loss)
     worst = ("", 0.0)
     g_by = dict(tree_leaves_with_path(grads))
@@ -6398,9 +6406,12 @@ def _tp1_check(torch, cfg, dev, batch, rng, loss, grads, label):
             and all(v <= TRAIN_GRAD_RTOL for v in noise.values())):
         raise RuntimeError(f"{label}: the sharded step disagrees with the "
                            f"one-device step")
-    return dict(loss=loss, ref_loss=ref_loss, d_loss=d,
-                worst_grad_rel_err=worst[1], worst_leaf=worst[0],
-                key_bias_noise=noise)
+    out = dict(loss=loss, ref_loss=ref_loss, d_loss=d,
+               worst_grad_rel_err=worst[1], worst_leaf=worst[0],
+               key_bias_noise=noise)
+    if extra is not None:
+        out["after"] = extra
+    return out
 
 
 def _par_train(torch, cfg, dev, counters, dataset, label, need):
@@ -6410,12 +6421,20 @@ def _par_train(torch, cfg, dev, counters, dataset, label, need):
     from megatron_llm_tpu_torch.parallel import mappings
     from megatron_llm_tpu_torch.training.driver import pretrain
 
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+
     steps = []
     mark = {}
+    extra = {"p2p_wait_ms": [], "moe": []}
 
     def on_step(it, m, sec):
         steps.append((float(m["loss"]), float(m["grad_norm"]),
                       int(m["skipped"]), sec))
+        if cfg.parallel.pipeline_parallel > 1:
+            extra["p2p_wait_ms"].append(pipe.last_p2p_seconds[0] * 1e3)
+        if "moe_aux_loss" in m:
+            extra["moe"].append({k: float(m[k]) for k in (
+                "moe_aux_loss", "moe_dropped_frac", "moe_load_imbalance")})
         if it == cfg.train.train_iters and cfg.train.save:
             # the end-of-training save's own peak: counted from here
             torch.cuda.synchronize(dev)
@@ -6456,6 +6475,7 @@ def _par_train(torch, cfg, dev, counters, dataset, label, need):
                n_params=M.num_params(state.params))
     if "base" in mark:
         rec["save"] = save
+    rec.update({k: v for k, v in extra.items() if v})
     return rec, state
 
 
@@ -6510,6 +6530,21 @@ def _resume_check(torch, cfg, dev, ds, kept, label) -> dict:
     return dict(seconds=sec, leaves_differ=len(differ))
 
 
+def _par_cases():
+    """``(label, model, seq, global batch, parallel degrees, kernels that
+    must launch, hidden dropout)`` of phases 54-56."""
+    return (
+        ("54 tp2-sp llama2-7b widths", _llama_par(), PAR_SEQ, 1,
+         dict(tensor_parallel=2, sequence_parallel=True), PAR_NEED, False),
+        ("55 dp2-zero1 llama2-7b widths", _llama_par(num_layers=ZERO_LAYERS),
+         PAR_SEQ, 2, dict(data_parallel=2, use_distributed_optimizer=True),
+         PAR_NEED, False),
+        ("56 tp2-sp gpt-1.3b", _gpt_par(), GPT_PAR_SEQ, 1,
+         dict(tensor_parallel=2, sequence_parallel=True), GPT_PAR_NEED,
+         True),
+    )
+
+
 def _par_rank(rank, world, rdv, out_dir, smi, device="cuda"):
     """One rank of phases 54-56 (spawned twice on the one card, gloo)."""
     import datetime
@@ -6534,22 +6569,18 @@ def _par_rank(rank, world, rdv, out_dir, smi, device="cuda"):
     counters = launch_counters()
     out = {}
     try:
-        for label, model, seq, gbs, par, need, dropout in (
-                ("54 tp2-sp llama2-7b widths", _llama_par(), PAR_SEQ, 1,
-                 dict(tensor_parallel=2, sequence_parallel=True), PAR_NEED,
-                 False),
-                ("55 dp2-zero1 llama2-7b widths", _llama_par(), PAR_SEQ, 2,
-                 dict(data_parallel=2, use_distributed_optimizer=True),
-                 PAR_NEED, False),
-                ("56 tp2-sp gpt-1.3b", _gpt_par(), GPT_PAR_SEQ, 1,
-                 dict(tensor_parallel=2, sequence_parallel=True),
-                 GPT_PAR_NEED, True)):
+        for label, model, seq, gbs, par, need, dropout in _par_cases():
             t0 = time.perf_counter()
             cfg = _par_cfg(model, seq, gbs, **par)
             if par.get("use_distributed_optimizer"):
-                # the end of training saves under the plan (every rank)
-                cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-                    cfg.train, save=os.path.join(out_dir, "ckpt55")))
+                # the end of training saves under the plan (every rank);
+                # no clipping, so the clip factor is 1 in the replicated
+                # run too (the two sum the grad norm in other orders)
+                cfg = dataclasses.replace(
+                    cfg, optimizer=dataclasses.replace(cfg.optimizer,
+                                                       clip_grad=0.0),
+                    train=dataclasses.replace(
+                        cfg.train, save=os.path.join(out_dir, "ckpt55")))
             ds = _MockDataset(model.vocab_size, seq, seed=cfg.train.seed)
             # the step's key at iteration 0 (step.py; the accumulation
             # folds in the microbatch)
@@ -6665,8 +6696,9 @@ def _zero_vs_replicated(torch, dev, ds, kept, replicated_cfg):
     - this rank's blocks of the fp32 masters, mu and nu, and the whole
       bf16 params, each leaf within its ``ZERO1_RTOL`` relative Frobenius
       of the replicated run's.  The runs sum the grad norm's squares in
-      another order, so the clip factor differs in its last bits; that is
-      all that differs."""
+      another order, so phase 55 trains without clipping: a clip factor
+      that differed in its last bit would flip bf16 params at step 1 and
+      grow through the later steps (mu 6.5e-3 at 2 layers: PERF.md)."""
     import torch.distributed as dist
 
     from megatron_llm_tpu_torch.parallel import mappings
@@ -6726,9 +6758,11 @@ def _zero_vs_replicated(torch, dev, ds, kept, replicated_cfg):
                 worst_rel_frobenius={k: v[1] for k, v in worst.items()})
 
 
-# 50-140 times the sound runs' reading on the card (params 1.961e-06,
-# masters 7.066e-09, mu 8.909e-08, nu 1.529e-07 on an H100: PERF.md); the
-# published check above is exact
+# 50-140 times the readings of a run that clipped (params 1.961e-06,
+# masters 7.066e-09, mu 8.909e-08, nu 1.529e-07 on an H100: PERF.md);
+# without clipping both runs read 0 at 2 and 4 layers, on the card and on
+# the CPU (``parallel/clip_order_probe.py``).  The published check above
+# is exact.
 ZERO1_RTOL = {"params": 1e-4, "master": 1e-6, "mu": 1e-5, "nu": 1e-5}
 
 
@@ -6827,6 +6861,331 @@ def parallel_phases(torch, dev, counters, smi, paths, settle):
     log(f"parallel phases 53-56 in {time.perf_counter() - t0:.1f}s (54-56 "
         f"{time.perf_counter() - tp:.1f}s, two processes spawned on the "
         f"card)")
+
+# ---------------------------------------------------------------------------
+# Phases 57-59: pipeline, context and expert parallelism
+# ---------------------------------------------------------------------------
+
+PP_LAYERS = 4       # Llama-2-7B widths cut to 4 layers (phase 57)
+PP_MICRO = 4        # microbatches a step, micro batch 1
+CP_LAYERS = 2       # phase 58
+CP_SEQ = 8192       # 4096 a rank at cp = 2
+EP_LAYERS = 2       # phase 59: about 1.08e9 expert params a layer
+EP_EXPERTS = 8
+PIPE_REL = 2 ** -8  # 1F1B against interleaved, a leaf (one bf16 rounding)
+RMS_NEED = ("rmsnorm_fwd", "rmsnorm_bwd")
+
+
+def _item10_cases():
+    """``(label, model, seq, global batch, parallel degrees, kernels that
+    must launch, kernels that must not)`` of phases 57-59."""
+    moe = dict(num_experts=EP_EXPERTS, moe_top_k=2, moe_capacity_factor=1.25,
+               moe_group_size=512)
+    pp = dict(pipeline_parallel=2, num_microbatches=PP_MICRO)
+    # RoPE tables for the 8192 positions (Llama-2's preset has 4096)
+    cp_model = _llama_par(num_layers=CP_LAYERS,
+                          max_position_embeddings=CP_SEQ)
+    return (
+        ("57 pp2-1f1b llama2-7b widths", _llama_par(num_layers=PP_LAYERS),
+         PAR_SEQ, PP_MICRO, pp, PAR_NEED, ()),
+        ("57 pp2-vpp2 llama2-7b widths", _llama_par(num_layers=PP_LAYERS),
+         PAR_SEQ, PP_MICRO, dict(pp, virtual_pipeline_stages=2), PAR_NEED,
+         ()),
+        ("58 cp2 llama2-7b widths", cp_model, CP_SEQ, 1,
+         dict(context_parallel=2), RMS_NEED, TRAIN_KERNELS),
+        ("58 cp2-zigzag llama2-7b widths", cp_model, CP_SEQ, 1,
+         dict(context_parallel=2, context_parallel_layout="zigzag"),
+         RMS_NEED, TRAIN_KERNELS),
+        ("59 ep2 moe-8x top-2 llama2-7b widths",
+         _llama_par(num_layers=EP_LAYERS, **moe), PAR_SEQ, 1,
+         dict(expert_parallel=2), PAR_NEED, ()),
+    )
+
+
+def _choices(torch, cfg, params, tokens, rope):
+    """Each MoE layer's expert choices of a no-grad forward of
+    ``tokens`` (every rank runs it; the ranks route the same tokens) and
+    the forward's routing stats, per layer on average."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.models import moe
+
+    with torch.no_grad(), moe.record_choices([]) as got:
+        _, aux = M.forward(cfg.model, params, tokens, rope=rope,
+                           return_aux=True)
+    n = cfg.model.num_layers
+    return got, {"aux": float(aux["aux"]) / n,
+                 "dropped": float(aux["dropped"]) / n,
+                 "load": [round(float(x) / n, 5) for x in aux["load"]]}
+
+
+def _item10_first(torch, cfg, dev, batch):
+    """Step 1's loss and whole grads (the ``[L, ...]`` layer stack; on rank
+    0, None elsewhere) through the state ``pretrain`` builds and the
+    step's own grads (``training/step.step_grads``: the pipeline, the cp
+    block, the expert split, the plan's reductions), and a record: the
+    card memory the grads took above the state, the pipeline's ppermute
+    wait, and on a MoE model every layer's expert choices of a no-grad
+    forward of the batch."""
+    from megatron_llm_tpu_torch.initialize import is_rank_0
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.models.transformer import rope_tables
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+    from megatron_llm_tpu_torch.training import driver
+    from megatron_llm_tpu_torch.training import step as S
+
+    art = driver.setup_train_state(cfg, device=dev)
+    rec = {}
+    with art.in_mesh():
+        b = S.to_device_batch(driver._dp_block(batch, art.mesh), dev)
+        rope = rope_tables(cfg.model, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        grads, loss, _ = S.step_grads(cfg, art.state.params, b, rope,
+                                      plan=art.plan)
+        torch.cuda.synchronize(dev)
+        rec["grads_above_state_gib"] = (
+            torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        if cfg.parallel.pipeline_parallel > 1:
+            rec["p2p_wait_ms"] = pipe.last_p2p_seconds[0] * 1e3
+        # the optimizer state goes before every rank gathers the whole
+        # grads (phase 59's would hold 20.6 GB a rank beside them)
+        art.state = art.state._replace(opt=None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        grads = pipe.from_pipeline_params(sharding.gather_params(
+            grads, art.plan.specs, art.mesh), cfg.parallel)
+        if cfg.model.num_experts:
+            rec["choices"], rec["routing"] = _choices(
+                torch, cfg, art.state.params, b["tokens"][0], rope)
+    loss = float(loss)
+    del art, b
+    return loss, (grads if is_rank_0() else None), rec
+
+
+def _pipeline_memory(cfg, rec) -> dict:
+    """Phase 57: the port's predicted activation bytes of the schedule
+    (``pipeline_activation_bytes``) plus this stage's fp32 grad
+    accumulators, against what step 1's grads took above the state; the
+    measured must stay within twice the prediction (JAX's upper bound
+    rule)."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+
+    par = cfg.parallel
+    est = pipe.pipeline_activation_bytes(
+        cfg.model, pp=par.pipeline_parallel, vpp=par.virtual_pipeline_stages,
+        M=cfg.grad_accum_steps, mb=cfg.train.micro_batch_size,
+        seq_shard=cfg.train.seq_length)
+    whole = M.num_params(M.init_params(cfg.model, device="meta"))
+    h, v = cfg.model.hidden_size, cfg.model.padded_vocab_size()
+    io = 2 * v * h + h
+    stage = io + (whole - io) // par.pipeline_parallel
+    predicted = est["total"] + 4 * stage
+    measured = rec["grads_above_state_gib"] * 2 ** 30
+    out = dict(predicted_gib=predicted / 2 ** 30,
+               measured_gib=measured / 2 ** 30,
+               ratio=measured / predicted,
+               terms_gib={k: (v_ / 2 ** 30 if k != "in_flight" else v_)
+                          for k, v_ in est.items()},
+               grad_accumulators_gib=4 * stage / 2 ** 30)
+    log(f"{cfg.parallel.virtual_pipeline_stages}-chunk pipeline memory: "
+        f"predicted {out['predicted_gib']:.3f} GiB (activations "
+        f"{est['total'] / 2 ** 30:.3f}, in flight {est['in_flight']}; fp32 "
+        f"grads {out['grad_accumulators_gib']:.3f}), measured "
+        f"{out['measured_gib']:.3f} GiB above the state, ratio "
+        f"{out['ratio']:.3f} (limit 2)")
+    if not measured <= 2 * predicted:
+        raise RuntimeError("the pipeline took more than twice the predicted "
+                           "activation memory")
+    return out
+
+
+def _flips(torch, mine, ref) -> dict:
+    """Tokens whose set of chosen experts differs between two runs'
+    choices, a layer each."""
+    out = []
+    for a, b in zip(mine, ref):
+        a_s, b_s = torch.sort(a, -1).values, torch.sort(b, -1).values
+        out.append(int((a_s != b_s).any(-1).sum()))
+    return {"tokens_flipped_by_layer": out,
+            "tokens": int(mine[0].shape[0] * mine[0].shape[1])}
+
+
+def _whole_params(torch, cfg, state):
+    """The trained params gathered whole on every rank, in ``[L, ...]``
+    layout, on the host."""
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+    from megatron_llm_tpu_torch.utils.tree import tree_map
+
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    specs = pipe.pipeline_param_specs(
+        sharding.param_specs(cfg.model, cfg.parallel), cfg.parallel)
+    whole = tree_map(lambda t, sp: sharding.gather_tensor(t, sp, mesh).cpu(),
+                     state.params, specs)
+    return pipe.from_pipeline_params(whole, cfg.parallel)
+
+
+def _schedules_agree(torch, a, b) -> dict:
+    """Phase 57: the 1F1B run's params after its steps against the
+    interleaved run's, each leaf within ``PIPE_REL`` relative Frobenius."""
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves_with_path
+
+    worst = ("", 0.0)
+    bb = dict(tree_leaves_with_path(b))
+    for path, x in tree_leaves_with_path(a):
+        y = bb[path]
+        err = float((x.float() - y.float()).norm() / y.float().norm())
+        if not math.isfinite(err) or err > worst[1]:
+            worst = (".".join(path), err)
+    log(f"57: 1F1B against interleaved after {PAR_STEPS} steps: worst leaf "
+        f"rel. Frobenius {worst[1]:.3e} at {worst[0]} (tol {PIPE_REL:.3e})")
+    if not worst[1] <= PIPE_REL:
+        raise RuntimeError("57: the 1F1B and interleaved runs disagree")
+    return dict(worst_rel_frobenius=worst[1], worst_leaf=worst[0])
+
+
+def _item10_rank(rank, world, rdv, out_dir, smi, device="cuda"):
+    """One rank of phases 57-59 (spawned twice on the one card, gloo)."""
+    import datetime
+
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from megatron_llm_tpu_torch import initialize
+    from megatron_llm_tpu_torch.finetune import _MockDataset
+    from megatron_llm_tpu_torch.kernels import launch_counters
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = initialize.initialize_distributed(
+        device, init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(minutes=10))
+    if info.backend != "gloo":
+        raise RuntimeError(f"two ranks on one card took {info.backend}")
+    dev = info.device
+    counters = launch_counters()
+    out = {}
+    trained = {}
+    try:
+        for label, model, seq, gbs, par, need, forbid in _item10_cases():
+            t0 = time.perf_counter()
+            cfg = _par_cfg(model, seq, gbs, **par)
+            ds = _MockDataset(model.vocab_size, seq, seed=cfg.train.seed)
+            batch = _first_batch(cfg, ds)
+            loss, grads, first = _item10_first(torch, cfg, dev, batch)
+            choices = first.pop("choices", None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec = {"first": first}
+            if cfg.parallel.pipeline_parallel > 1:
+                rec["memory"] = _pipeline_memory(cfg, first)
+            if rank == 0:
+                after = None
+                if choices is not None:
+                    def after(params, cfg=cfg, batch=batch):
+                        from megatron_llm_tpu_torch.config import \
+                            ParallelConfig
+                        from megatron_llm_tpu_torch.models.transformer \
+                            import rope_tables
+
+                        ref = dataclasses.replace(
+                            cfg, parallel=ParallelConfig()).validate()
+                        got, routing = _choices(
+                            torch, ref, params, torch.as_tensor(
+                                batch["tokens"][0]).to(dev),
+                            rope_tables(ref.model, device=dev))
+                        return dict(_flips(torch, choices, got),
+                                    one_device_routing=routing)
+                rec["check"] = _tp1_check(
+                    torch, cfg, dev, batch, None, loss, grads, label,
+                    microbatches=cfg.parallel.pipeline_parallel > 1,
+                    after=after)
+                if choices is not None:
+                    log(f"[rank 0] {label}: step 1's expert choices against "
+                        f"the one-device step's "
+                        f"{rec['check']['after']['tokens_flipped_by_layer']}"
+                        f" tokens of {rec['check']['after']['tokens']} a "
+                        f"layer flipped; routing (per layer) "
+                        f"{json.dumps(first['routing'])}")
+            del grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            initialize.barrier()
+            train_rec, state = _par_train(torch, cfg, dev, counters, ds,
+                                          label, need)
+            bad = [n for n in forbid if train_rec["launches"][n]]
+            if bad:
+                raise RuntimeError(f"{label}: {bad} launched under the ring")
+            rec.update(train_rec)
+            if cfg.parallel.pipeline_parallel > 1:
+                trained[label] = _whole_params(torch, cfg, state)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            if len(trained) == 2:
+                rec["vs_1f1b"] = _schedules_agree(torch, *trained.values())
+                trained.clear()
+            rec["seconds"] = time.perf_counter() - t0
+            out[label] = rec
+            ring = (" K1-K3 launched 0 times: the ring's blocks are plain "
+                    "PyTorch, as JAX's are;" if forbid else "")
+            wait = (f" ppermute wait a step {[round(x, 1) for x in rec['p2p_wait_ms']]}"
+                    f" ms;" if "p2p_wait_ms" in rec else "")
+            moe = (f" moe {rec['moe']};" if "moe" in rec else "")
+            log(f"[rank {rank}] {label}: losses "
+                f"{[round(x, 4) for x in rec['losses']]}; step (median of "
+                f"steps 2-{PAR_STEPS}) {rec['step_ms']:.1f} ms, first "
+                f"{rec['first_step_ms']:.1f} ms; {rec['tokens_per_s']:.1f} "
+                f"tokens/s (the global batch's); peak memory "
+                f"{rec['peak_gib']:.2f} GiB;{ring}{wait}{moe} "
+                f"{rec['n_params'] / 1e9:.3f}e9 params on this rank; "
+                f"{rec['collectives']} collectives; host clock; card {smi}")
+            initialize.barrier()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    initialize.destroy()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def item10_phases(torch, dev, counters, smi, paths, settle):
+    """Phases 57-59 (the ``pipeline``, ``context-parallel`` and ``experts``
+    paths): two ranks spawned on the one card, as 54-56 are."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_item10_")
+    try:
+        mp.start_processes(_item10_rank, args=(2, os.path.join(work, "rdv"),
+                                               work, smi),
+                           nprocs=2, join=True, start_method="spawn")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    settle()
+    for label in ranks[0]:
+        for r, rec in enumerate(ranks):
+            paths[f"{label} rank {r}"] = rec[label]["launches"]
+            log(f"{label} rank {r} kernels " + json.dumps(
+                rec[label]["launches"]))
+        summary = {f"rank {r}": {k: v for k, v in rec[label].items()
+                                 if k != "launches"}
+                   for r, rec in enumerate(ranks)}
+        log(f"phase {label} (both ranks on the one card, gloo): "
+            + json.dumps(summary))
+        if ranks[0][label]["losses"] != ranks[1][label]["losses"]:
+            raise RuntimeError(f"{label}: the ranks logged other losses")
+    log(f"item-10 phases 57-59 in {time.perf_counter() - t0:.1f}s (two "
+        f"processes spawned on the card; card {smi})")
 
 
 def log_hmma(build) -> None:
@@ -7101,6 +7460,7 @@ def main() -> int:
                                 settle)
     encoder_families_phases(torch, dev, counters, smi, paths, settle)
     parallel_phases(torch, dev, counters, smi, paths, settle)
+    item10_phases(torch, dev, counters, smi, paths, settle)
 
     meta = {
         "flash_attention_fwd": (

@@ -182,10 +182,14 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Parallel degrees; see the JAX ``ParallelConfig`` for each knob.  The
-    port trains with data, tensor and sequence parallelism and ZeRO-1
-    (one process a rank, ``initialize.py`` and ``parallel/mesh.py``);
-    ``fsdp`` (the serving residency axis) and pipeline, context and
-    expert parallelism raise, naming their ROADMAP items."""
+    port trains with data, tensor, sequence, pipeline (1F1B and
+    interleaved), context (ring and zigzag) and expert parallelism and
+    ZeRO-1 (one process a rank, ``initialize.py`` and
+    ``parallel/mesh.py``); ``fsdp`` (the serving residency axis) raises,
+    naming its ROADMAP item.  ``pipeline_remat_window`` is accepted and
+    validated as in JAX; the port's 1F1B schedule already bounds a
+    stage's in-flight microbatches (``parallel/pipeline.py``), so the
+    window changes nothing."""
 
     data_parallel: int = 1
     pipeline_parallel: int = 1
@@ -224,16 +228,26 @@ class ParallelConfig:
                 f"fsdp = {self.fsdp} (the serving weight-residency axis) is "
                 "not ported yet (ROADMAP.md, Queue 1 item 11: multi-GPU "
                 "serving)")
-        above = {k: v for k, v in (
-            ("pipeline_parallel", self.pipeline_parallel),
-            ("virtual_pipeline_stages", self.virtual_pipeline_stages),
-            ("context_parallel", self.context_parallel),
-            ("expert_parallel", self.expert_parallel)) if v > 1}
-        if above:
-            raise NotImplementedError(
-                f"parallel training ({above}) is "
-                "not ported yet (ROADMAP.md, Queue 1 item 10: pipeline, "
-                "context and expert parallelism)")
+        if self.pipeline_parallel > 1 and self.num_microbatches < 1:
+            raise ValueError("num_microbatches must be >= 1")
+        if self.pipeline_remat_window:
+            if not (self.pipeline_remat_window > 0
+                    or self.pipeline_remat_window == -1):
+                raise ValueError(
+                    "pipeline_remat_window: W > 0, or -1 for the "
+                    "memory-minimizing auto choice")
+            if self.virtual_pipeline_stages > 1 and \
+                    self.num_microbatches % self.pipeline_parallel:
+                raise ValueError(
+                    "pipeline_remat_window with vpp > 1 needs "
+                    "num_microbatches divisible by pipeline_parallel (JAX's "
+                    "tight interleaved schedule)")
+        if self.pipeline_split_rank is not None and not (
+                0 < self.pipeline_split_rank < self.pipeline_parallel):
+            raise ValueError(
+                f"pipeline_split_rank {self.pipeline_split_rank} must lie "
+                f"strictly inside the pipeline ({self.pipeline_parallel} "
+                "stages)")
         return self
 
 
@@ -321,6 +335,7 @@ class RuntimeConfig:
         if m.sequence_parallel_axis != sp_axis:
             m = dataclasses.replace(m, sequence_parallel_axis=sp_axis)
             object.__setattr__(self, "model", m)
+        m = self._validate_item10(m)
         tp = self.parallel.tensor_parallel
         if tp > 1:
             if m.num_attention_heads % tp:
@@ -365,6 +380,61 @@ class RuntimeConfig:
                 f"seq_length {self.train.seq_length} exceeds the learned "
                 f"position table ({m.max_position_embeddings} rows)")
         return self
+
+    def _validate_item10(self, m: ModelConfig) -> ModelConfig:
+        """Pipeline, context and expert parallelism: JAX's checks, the cp
+        axis and layout wired into the model (set AND cleared, JAX
+        config.py:479-510), and the combinations JAX runs that the port
+        does not yet, refused naming them."""
+        par = self.parallel
+        pp, cp, ep = (par.pipeline_parallel, par.context_parallel,
+                      par.expert_parallel)
+        if pp > 1 and m.num_layers % (pp * par.virtual_pipeline_stages):
+            raise ValueError(
+                f"num_layers {m.num_layers} must divide into pp * vpp = "
+                f"{pp * par.virtual_pipeline_stages} chunks")
+        axis, zigzag = None, False
+        if cp > 1:
+            axis = "cp"
+            zigzag = par.context_parallel_layout == "zigzag"
+            if m.attention_dropout != 0.0:
+                raise ValueError("ring attention (context_parallel > 1) "
+                                 "does not support attention dropout")
+            if self.train.seq_length % cp:
+                raise ValueError(f"seq_length {self.train.seq_length} must "
+                                 f"divide by context_parallel {cp}")
+            if zigzag and self.train.seq_length % (2 * cp):
+                raise ValueError("zigzag layout needs seq_length divisible "
+                                 "by 2*cp")
+            if zigzag and pp > 1:
+                raise ValueError("zigzag cp layout is not plumbed through "
+                                 "the pipeline schedule; use the contiguous "
+                                 "layout with pp > 1")
+        if (m.context_parallel_axis, m.context_parallel_zigzag) != (axis,
+                                                                   zigzag):
+            m = dataclasses.replace(m, context_parallel_axis=axis,
+                                    context_parallel_zigzag=zigzag)
+            object.__setattr__(self, "model", m)
+        if ep > 1:
+            if m.num_experts <= 0:
+                raise ValueError("expert_parallel > 1 requires a MoE model "
+                                 "(num_experts > 0)")
+            if m.num_experts % ep:
+                raise ValueError(f"num_experts {m.num_experts} must divide "
+                                 f"by expert_parallel {ep}")
+        refused = []
+        if pp > 1 and cp > 1:
+            refused.append("pipeline with context parallelism")
+        if m.num_experts > 0 and cp > 1:
+            refused.append("MoE with context parallelism")
+        if m.num_experts > 0 and par.tensor_parallel > 1 and \
+                par.sequence_parallel:
+            refused.append("MoE with sequence parallelism")
+        if refused:
+            raise NotImplementedError(
+                f"{', '.join(refused)} is not ported yet (ROADMAP.md, Queue "
+                "1 item 10's remainder)")
+        return m
 
     @property
     def grad_accum_steps(self) -> int:

@@ -20,13 +20,17 @@ give the end-of-document id and grow the vocab for extra ids.
 alone) or a fresh init from the seed (smoke runs only), ``--save``
 receives an adapter-only checkpoint at ``<save>/adapter``, and
 ``--lora_load`` continues an adapter, the port's or a PEFT directory's.
-``--tp``, ``--dp``, ``--sequence_parallel`` and
-``--use_distributed_optimizer`` train one process a rank under
-``torchrun`` (``initialize.initialize_distributed`` joins the world from
-its environment; two ranks on one GPU talk over gloo, one rank a GPU over
-NCCL).  What the port does not have raises ``NotImplementedError``
-naming the ROADMAP item: pipeline, context and expert parallelism, MoE,
-and LoRA or int8 training matmuls under parallelism.
+``--tp``, ``--dp``, ``--sequence_parallel``,
+``--use_distributed_optimizer``, ``--pp`` (with
+``--virtual_pipeline_stages``), ``--cp`` (with ``--cp_layout``) and
+``--ep`` train one process a rank under ``torchrun``
+(``initialize.initialize_distributed`` joins the world from its
+environment; two ranks on one GPU talk over gloo, one rank a GPU over
+NCCL); ``--num_experts`` makes the MLPs routed experts (``--moe_top_k``,
+``--moe_capacity_factor``, ``--moe_aux_loss_coeff``).  What the port
+does not have raises ``NotImplementedError`` naming the ROADMAP item:
+pipeline with context parallelism, MoE under sequence parallelism or cp (item 10's
+remainder), and LoRA or int8 training matmuls under parallelism.
 
     python -m megatron_llm_tpu_torch.finetune --model tiny --mock_data \\
         --train_iters 10 --device cpu --log_interval 1 --save ckpt
@@ -37,6 +41,10 @@ and LoRA or int8 training matmuls under parallelism.
         --tokenizer_type gpt2-bpe --tokenizer_model VOCAB_DIR ...
     torchrun --nproc_per_node 2 -m megatron_llm_tpu_torch.finetune \
         --model llama2 --tp 2 --sequence_parallel --mock_data ...
+    torchrun --nproc_per_node 2 -m megatron_llm_tpu_torch.finetune \
+        --model llama2 --pp 2 --global_batch_size 8 --mock_data ...
+    torchrun --nproc_per_node 2 -m megatron_llm_tpu_torch.finetune \
+        --model llama2 --num_experts 8 --ep 2 --mock_data ...
 """
 
 from __future__ import annotations

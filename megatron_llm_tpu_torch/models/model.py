@@ -202,7 +202,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    rng: Optional[drop.DropoutKey] = None,
                    rope: Optional[tuple] = None, lora=None):
     """Forward through the final norm → ``(hidden [b, s, h], moe_aux)``,
-    the aux a 0 scalar for the dense models the port runs.  The split
+    the aux the MoE stats summed over the layers (``models/moe.py``), a 0
+    scalar for a dense model.  The split
     before the unembedding lets the training loss take the fused head
     (``parallel/cross_entropy.fused_linear_cross_entropy``).
 
@@ -219,10 +220,11 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = embed(cfg, params, tokens, position_ids, tokentype_ids, embed_key)
     side = AttnSideInputs(rope_cos=cos, rope_sin=sin,
                           position_ids=position_ids, segment_ids=segment_ids)
-    x = stack_forward(cfg, params["layers"], x, side, stack_key, lora=lora)
+    x, aux = stack_forward(cfg, params["layers"], x, side, stack_key,
+                           lora=lora, return_aux=True)
     x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
                    impl=cfg.norm_impl)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

@@ -12,8 +12,10 @@ the JAX package's ``PartitionSpec`` trees leaf for leaf
 - an untied lm head ``[h, v]``                → ``(None, "tp")``
 - norms and the biases of row-parallel outputs → replicated
 
-Layer parameters carry the leading layer axis, which ``pp`` would shard
-(ROADMAP.md, Queue 1 item 10).  ``shard_params`` cuts this rank's blocks
+Layer parameters carry the leading layer axis; under pipeline
+parallelism the stack is laid ``[vpp, pp, lpc, ...]`` and split over
+``pp`` (``parallel/pipeline.pipeline_param_specs``), and a MoE model's
+expert leaves ``[L, E, ...]`` split over ``ep``.  ``shard_params`` cuts this rank's blocks
 out of a full tree; ``gather_params`` joins them back (checkpoints,
 tests).  The spec trees are the single statement of the layout: the step
 reads them for its grad reductions (``tp_partial_grads``) and ZeRO-1

@@ -18,8 +18,9 @@ numbers, with dropout on too: ``stack_forward`` takes the stack's
 redraws the forward's masks from the same keys (``ops/dropout.py``).
 Without a key the forward is deterministic.  Serving-quantized weights
 (``ops/quant.py``) go through ``mm``, and ``quantize_matmuls="int8"``
-sends plain weights through ``int8_training_matmul``; MoE layers belong
-to a later slice and raise here.  ``stack_forward`` and
+sends plain weights through ``int8_training_matmul``; a MoE model's MLP
+is ``models/moe.moe_block`` (``mlp_dispatch``), its stats summed down
+the stack.  ``stack_forward`` and
 ``stack_forward_cached`` take the LoRA bundle (``ops/lora.py``): each
 targeted projection gains its grouped epilogue right after the base
 product, on the training path (LoRA finetuning, ``training/lora.py``)
@@ -91,12 +92,17 @@ def tp_layout(cfg: ModelConfig) -> tuple:
 
 def seq_slices(cfg: ModelConfig, x: torch.Tensor) -> tuple:
     """The dropout block of a ``[b, s, ...]`` tensor: this rank's sequence
-    block under sequence parallelism (``ops/dropout.block_mask``)."""
+    block under sequence parallelism and context parallelism (the cp
+    block of the sequence as the step laid it out, then its tp block;
+    ``ops/dropout.block_mask``)."""
     _, tp, index, sp = tp_layout(cfg)
+    _, cp, cp_index = axis_info("cp")
     if not sp:
+        tp, index = 1, 0
+    if tp * cp == 1:
         return ()
     s = x.shape[1]
-    return ((1, s * tp, index * s),)
+    return ((1, s * tp * cp, (cp_index * tp + index) * s),)
 
 
 def _refuse_tp(what: str, item: str) -> None:
@@ -156,9 +162,6 @@ def init_stack_params(cfg: ModelConfig, generator: torch.Generator,
     own so the fp32 draw never holds more than one layer.  ``place(path,
     w)`` (``init_params``'s) takes each stacked matrix as soon as it is
     drawn."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet "
-                                  "(ROADMAP.md, Queue 1: MoE)")
     n = num_layers if num_layers is not None else cfg.num_layers
     h, d = cfg.hidden_size, cfg.head_dim
     nq, nkv, ffn = cfg.num_attention_heads, cfg.kv_heads, cfg.ffn_size
@@ -169,15 +172,23 @@ def init_stack_params(cfg: ModelConfig, generator: torch.Generator,
               ("attn", "wk"): ((h, nkv * d), std),
               ("attn", "wv"): ((h, nkv * d), std),
               ("attn", "wo"): ((nq * d, h), out_std)}
-    if is_glu(cfg.activation):
-        shapes[("mlp", "w_gate")] = ((h, ffn), std)
-    shapes[("mlp", "w_up")] = ((h, ffn), std)
-    shapes[("mlp", "w_down")] = ((ffn, h), out_std)
+    if cfg.num_experts > 0:
+        from .moe import expert_shapes
+
+        shapes[("mlp", "router")] = ((h, cfg.num_experts), std)
+        shapes.update({("mlp", k): v for k, v in expert_shapes(cfg).items()})
+    else:
+        if is_glu(cfg.activation):
+            shapes[("mlp", "w_gate")] = ((h, ffn), std)
+        shapes[("mlp", "w_up")] = ((h, ffn), std)
+        shapes[("mlp", "w_down")] = ((ffn, h), out_std)
     layers: Params = {"attn": {}, "mlp": {}}
     for (group, name), (shape, s) in shapes.items():
-        w = torch.empty((n,) + shape, dtype=dtype, device=device)
+        # the MoE router stays fp32 (models/moe.py)
+        wdt = torch.float32 if name == "router" else dtype
+        w = torch.empty((n,) + shape, dtype=wdt, device=device)
         for i in range(n):
-            w[i] = _normal(shape, s, dtype, generator, device)
+            w[i] = _normal(shape, s, wdt, generator, device)
         layers[group][name] = w if place is None \
             else place((group, name), w)
         del w
@@ -188,7 +199,7 @@ def init_stack_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.use_bias or cfg.qkv_bias:
         layers["attn"].update(bq=zeros(nq * d), bk=zeros(nkv * d),
                               bv=zeros(nkv * d))
-    if cfg.use_bias:
+    if cfg.use_bias:  # (MoE MLPs are bias-free: ModelConfig.validate)
         layers["attn"]["bo"] = zeros(h)
         if is_glu(cfg.activation):
             layers["mlp"]["b_gate"] = zeros(ffn)
@@ -309,6 +320,8 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         dropout_rate=(0.0 if layer_key is None
                                       else cfg.attention_dropout),
                         dropout_key=drop_key, bias=side.attn_bias,
+                        cp_axis=cfg.context_parallel_axis,
+                        cp_zigzag=cfg.context_parallel_zigzag,
                         dropout_slices=drop_slices)
     ctx2d = ctx.reshape(b, s, nq * d)
     out = _lora_add(proj(cfg, ctx2d, p["wo"]), ctx2d, lora, "wo")
@@ -351,13 +364,30 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return out
 
 
+def mlp_dispatch(cfg: ModelConfig, p: Params, x: torch.Tensor, lora=None):
+    """Dense or routed MLP → ``(out, stats)``: the stats None for a dense
+    model, the MoE stats dict (``models/moe.py``) for a routed one (JAX
+    ``_mlp_dispatch``; a MoE model's experts take no LoRA, which
+    ``training/lora.py`` and the adapter registry refuse)."""
+    if cfg.num_experts > 0:
+        from .moe import moe_block
+
+        if tp_layout(cfg)[3]:
+            raise NotImplementedError(
+                "a MoE layer under sequence parallelism is not ported yet "
+                "(ROADMAP.md, Queue 1 item 10's remainder)")
+        return moe_block(cfg, p, x)
+    return mlp_block(cfg, p, x, lora), None
+
+
 def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                   side: AttnSideInputs, layer_key=None,
                   kv_cache: Optional[tuple] = None, layer_idx: int = 0,
-                  lora=None):
+                  lora=None, return_aux: bool = False):
     """One pre-LN residual block (sequential or Falcon-parallel).  Returns
     ``out``, or ``(out, new_rows)`` with ``kv_cache``; ``lora`` is the
-    layer's LoRA bundle (``_lora_add``).
+    layer's LoRA bundle (``_lora_add``).  ``return_aux`` returns ``(out,
+    stats)`` with the MoE stats of the layer (None for a dense one).
 
     With a ``layer_key`` each residual branch takes dropout then
     drop-path (reference order: residual + drop_path(dropout(out)),
@@ -389,15 +419,18 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         if cfg.parallel_layernorm:
             mlp_in = norm_apply(cfg.norm_type, x, p["mlp_norm"], cfg.norm_eps,
                                 impl=cfg.norm_impl)
-        result = residual + branch_drop(
-            attn_out + mlp_block(cfg, p["mlp"], mlp_in, lora), 2)
+        mlp_out, aux = mlp_dispatch(cfg, p["mlp"], mlp_in, lora)
+        result = residual + branch_drop(attn_out + mlp_out, 2)
     else:
         x = residual + branch_drop(attn_out, 2)
         h2 = norm_apply(cfg.norm_type, x, p["post_attn_norm"], cfg.norm_eps,
                         impl=cfg.norm_impl)
-        result = x + branch_drop(mlp_block(cfg, p["mlp"], h2, lora), 3)
+        mlp_out, aux = mlp_dispatch(cfg, p["mlp"], h2, lora)
+        result = x + branch_drop(mlp_out, 3)
     if kv_cache is not None:
         return result, new_rows
+    if return_aux:
+        return result, aux
     return result
 
 
@@ -442,26 +475,39 @@ def _layer_arenas(arenas, n: int) -> list:
 
 
 def stack_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
-                  side: AttnSideInputs, key=None, lora=None) -> torch.Tensor:
+                  side: AttnSideInputs, key=None, lora=None,
+                  layer_offset: int = 0, return_aux: bool = False):
     """All layers, in order, each checkpointed as ``cfg.recompute`` says
     when autograd is on.  ``key`` (the stack's ``DropoutKey``, or None for
     no dropout) is folded with each layer's index, as JAX's scan does.
     ``lora`` is ``(arenas, mask)``: layer-stacked factors, which may
-    require grad (LoRA finetuning), and the per-row mask."""
+    require grad (LoRA finetuning), and the per-row mask.
+    ``layer_offset`` is the global index of the first layer (a pipeline
+    chunk's), which keeps the LIMA and drop-path ramps global.
+    ``return_aux`` returns ``(hidden, aux)``: the MoE stats summed over
+    the layers (``models/moe.py``), a 0 scalar for a dense model."""
     run = _layer_runner(cfg)
     arenas, mask = lora if lora is not None else (None, None)
 
     def layer(h, p, layer_key, idx, factors):
         layer_lora = None if factors is None else (factors, mask)
         return layer_forward(cfg, p, h, side, layer_key, layer_idx=idx,
-                             lora=layer_lora)
+                             lora=layer_lora, return_aux=True)
 
+    aux = None
     layers = unstack_layers(stacked)
     for i, (p, factors) in enumerate(zip(
             layers, _layer_arenas(arenas, len(layers)))):
         layer_key = None if key is None else drop.fold_in(key, i)
-        x = run(layer, x, p, layer_key, i, factors)
-    return x
+        x, stats = run(layer, x, p, layer_key, layer_offset + i, factors)
+        if stats is not None:
+            aux = stats if aux is None else \
+                {k: aux[k] + stats[k] for k in aux}
+    if not return_aux:
+        return x
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def stack_forward_cached(cfg: ModelConfig, stacked: Params, x: torch.Tensor,

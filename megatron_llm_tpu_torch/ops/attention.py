@@ -215,7 +215,8 @@ def dot_product_attention(q, k, v, *, causal: bool = True, bias=None,
 def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
               segment_ids=None, softmax_scale=None, dropout_rate: float = 0.0,
               dropout_key=None, bias=None, cp_axis: str | None = None,
-              mesh=None, dropout_slices=()) -> torch.Tensor:
+              cp_zigzag: bool = False, mesh=None,
+              dropout_slices=()) -> torch.Tensor:
     """Dispatcher: ``"flash"`` → the flash kernel module, ``"dot"`` → the
     einsum path.
 
@@ -224,11 +225,32 @@ def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
     the JAX package's own routing (``ops/attention.py:542``), where the
     reference also applies attention dropout outside its fused kernel.
     Training GPT with ``attention_dropout`` therefore runs einsum
-    attention; evaluation and serving (no key, rate 0) keep the kernel."""
-    if cp_axis is not None or mesh is not None:
-        raise NotImplementedError(
-            "ring attention / context parallelism is not ported yet "
-            "(ROADMAP.md, Queue 1: pipeline, context and expert parallelism)")
+    attention; evaluation and serving (no key, rate 0) keep the kernel.
+
+    ``cp_axis`` (context parallelism, the sequence split over that axis of
+    ``mesh`` or the current mesh) takes the ring
+    (``parallel/ring_attention.py``; zigzag-ordered shards with
+    ``cp_zigzag``), whatever ``impl`` says: its blocks are plain PyTorch,
+    as JAX's are (JAX ``ops/attention.py:515-540``).  It takes neither a
+    bias nor attention dropout, and raises on either."""
+    if cp_axis is not None:
+        if bias is not None or dropout_rate > 0.0:
+            raise ValueError(
+                "ring attention (context parallelism) does not support "
+                "attention bias or attention dropout; set "
+                "attention_dropout=0 or disable context_parallel")
+        from ..parallel.ring_attention import ring_attention, \
+            ring_attention_zigzag
+
+        if cp_zigzag:
+            if not causal:
+                raise ValueError("zigzag cp layout is causal-only")
+            return ring_attention_zigzag(
+                q, k, v, mesh=mesh, axis_name=cp_axis,
+                segment_ids=segment_ids, softmax_scale=softmax_scale)
+        return ring_attention(q, k, v, mesh=mesh, axis_name=cp_axis,
+                              causal=causal, segment_ids=segment_ids,
+                              softmax_scale=softmax_scale)
     if impl == "flash" and bias is None and dropout_rate == 0.0:
         from ..kernels.flash_attention import flash_attention
 

@@ -1,2 +1,3 @@
-"""Parallel training: the mesh of process groups, the collectives and
-the vocab-parallel cross entropy."""
+"""Parallel training: the mesh of process groups, the collectives (and
+``ppermute``), the pipeline schedule, ring attention and the
+vocab-parallel cross entropy."""

@@ -18,7 +18,11 @@ mappings.py), as ``torch.autograd.Function``s, each the other's adjoint:
   sequence forward, all-gather backward (a row-parallel output back into
   the sequence-sharded residual stream);
 - ``gather_from_data_region``: all-gather along the batch forward,
-  reduce-scatter backward (the ICT loss's in-batch contexts under dp).
+  reduce-scatter backward (the ICT loss's in-batch contexts under dp);
+- ``ppermute``: each rank's tensor sent to its destination in a
+  permutation of the group, the reverse permutation backward (JAX's
+  ``lax.ppermute``): the pipeline's stage-to-stage sends and the ring's
+  K/V rotation (``parallel/pipeline.py``, ``parallel/ring_attention.py``).
 
 Each takes a process group; with None (an axis of size 1) each returns its
 input untouched and launches nothing.  ``launches`` counts the collectives
@@ -36,11 +40,15 @@ buffer mapped into the others with CUDA IPC, gloo carrying the barriers.
 a gloo group of CUDA ranks on different devices is refused.  A
 reduce-scatter under gloo is this rank's block of an all-reduce.  The
 mailbox is the transport, not a fallback: the kernels run on the card,
-and NCCL never takes this route.
+and NCCL never takes this route.  A ``ppermute`` takes NCCL's
+``batch_isend_irecv`` (one rank a GPU), gloo's send and receive (CPU
+tensors) or the mailbox's point-to-point exchange (ranks sharing one
+GPU); a group none of them serves raises.
 """
 
 from __future__ import annotations
 
+import functools
 import socket
 
 import torch
@@ -155,6 +163,24 @@ class DeviceMailbox:
             self._fence()
         return out.view((self.n * src.shape[0],) + tuple(src.shape[1:]))
 
+    def permute(self, t: torch.Tensor, pairs) -> torch.Tensor:
+        """``t`` (contiguous) of the rank that sends to this one in
+        ``pairs`` (``(src, dst)`` group ranks), zeros where none does: a
+        sender writes its own box, a fence, a receiver reads its source's
+        box, a fence.  Every rank of the group calls it."""
+        src = {d: s for s, d in pairs}.get(self.rank)
+        sends = any(s == self.rank for s, _ in pairs)
+        flat = t.view(-1)
+        out = torch.zeros_like(flat)
+        for off, k, views in self._pieces(flat):
+            if sends:
+                views[self.rank].copy_(flat[off:off + k])
+            self._fence()
+            if src is not None:
+                out[off:off + k].copy_(views[src])
+            self._fence()
+        return out.view(t.shape)
+
 
 _MAILBOXES: dict = {}
 
@@ -254,6 +280,59 @@ def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def _permute(t: torch.Tensor, group, pairs) -> torch.Tensor:
+    """``ppermute`` without autograd: this rank's tensor from its source
+    in ``pairs`` (``(src, dst)`` ranks of ``group``), zeros without one; a
+    pair ``(r, r)`` is a copy.  Every rank of the group calls it with the
+    same ``pairs``; ``t`` of a rank that sends nothing only gives the
+    shape and dtype."""
+    pairs = [(int(a), int(b)) for a, b in pairs]
+    dsts = [d for _, d in pairs]
+    if len(set(dsts)) != len(dsts) or len({a for a, _ in pairs}) != \
+            len(pairs):
+        raise ValueError(f"ppermute: {pairs} is not a permutation")
+    me = group_rank(group)
+    src = {d: a for a, d in pairs}.get(me)
+    dst = {a: d for a, d in pairs}.get(me)
+    if group_size(group) == 1 or all(a == d for a, d in pairs):
+        return t.clone() if src == me else torch.zeros_like(t)
+    _count()
+    t = t.contiguous()
+    box = _mailbox(group, t)
+    if box is not None:
+        return box.permute(t, pairs)
+    gloo = _gloo(group)
+    if not gloo and not t.is_cuda:
+        # gloo's CUDA tensors took the mailbox above (or it raised)
+        raise RuntimeError(
+            f"ppermute: a {dist.get_backend(group)} group cannot move "
+            f"{t.device.type} tensors: NCCL takes CUDA tensors, one rank a "
+            "GPU; gloo takes CPU tensors, or CUDA tensors of ranks that "
+            "share one GPU")
+    out = torch.zeros_like(t)
+    if src == me:
+        out.copy_(t)
+    glob = functools.partial(dist.get_global_rank, group)
+    if gloo:
+        reqs = []
+        if dst is not None and dst != me:
+            reqs.append(dist.isend(t, glob(dst), group=group))
+        if src is not None and src != me:
+            reqs.append(dist.irecv(out, glob(src), group=group))
+        for r in reqs:
+            r.wait()
+        return out
+    ops = []
+    if dst is not None and dst != me:
+        ops.append(dist.P2POp(dist.isend, t, glob(dst), group))
+    if src is not None and src != me:
+        ops.append(dist.P2POp(dist.irecv, out, glob(src), group))
+    if ops:
+        for r in dist.batch_isend_irecv(ops):
+            r.wait()
+    return out
+
+
 def split(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """This rank's block of ``t`` along ``dim`` (no communication)."""
     n = group_size(group)
@@ -309,6 +388,30 @@ class _ReduceScatterToRegion(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, pairs):
+        ctx.group, ctx.pairs = group, pairs
+        return _permute(x, group, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, a) for a, d in ctx.pairs]
+        return _permute(g, ctx.group, back), None, None
+
+
+def ppermute(t: torch.Tensor, group, perm) -> torch.Tensor:
+    """Differentiable ``lax.ppermute``: ``perm`` is ``(src, dst)`` pairs
+    of group ranks; this rank gets the tensor of the rank that sends to
+    it (zeros where none does), and the backward sends each grad back
+    along the reverse pairs.  Every rank of ``group`` calls it with the
+    same ``perm``."""
+    perm = tuple((int(a), int(b)) for a, b in perm)
+    if not t.requires_grad:
+        return _permute(t, group, perm)
+    return _PPermute.apply(t, group, perm)
 
 
 SEQ_DIM = 1  # activations are [b, s, h]

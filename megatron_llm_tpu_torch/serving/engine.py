@@ -1271,8 +1271,10 @@ class ServingEngine:
     def _split(self, plen: int) -> int:
         """Where a prompt's last prefill piece starts with the prefix cache
         on: its last whole block before the last token (the longest match
-        it allows), 0 with the cache off."""
-        if self.prefix_cache is None:
+        it allows), 0 with the cache off.  A MoE model's cold prefill is
+        one piece, as JAX's is: its routing groups span the piece, so two
+        pieces would route the prompt's tokens in other groups."""
+        if self.prefix_cache is None or self.cfg.num_experts > 0:
             return 0
         bk = self.slots.pool.block_size
         return (plen - 1) // bk * bk

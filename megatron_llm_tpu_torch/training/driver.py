@@ -33,6 +33,14 @@ inside the mesh, and the log, the writers, the profiler window and the
 checkpoint files are rank 0's.  Every rank reads the same data and draws
 the same full params from the seed, so the ranks agree without a
 broadcast.
+
+Pipeline parallelism lays the layer stack in JAX's pipeline layout
+(``parallel/pipeline.to_pipeline_params``, its specs
+``pipeline_param_specs``: checkpoints hold ``[vpp, pp, lpc, ...]``
+leaves, as JAX's do) and evaluates through the pipelined forward
+(``make_pipeline_eval_step``); context parallelism cuts each eval
+batch's sequence as the step does, the loss summed and the metrics'
+per-token values gathered over cp.
 """
 
 from __future__ import annotations
@@ -60,14 +68,15 @@ from ..obs.logging import EVENT_LOG
 from ..ops import dropout as drop
 from ..parallel import mappings
 from ..parallel import mesh as mesh_lib
+from ..parallel import pipeline as pipe
 from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
 from ..resilience import chaos
 from ..utils.timers import Timers
 from ..utils.tree import tree_map
 from ..utils.writers import NullWriter, build_writer
 from .microbatches import build_num_microbatches_calculator
-from .step import TrainState, init_train_state, loss_denominators, \
-    make_plan, make_train_step, to_device_batch
+from .step import TrainState, context_parallel_block, init_train_state, \
+    loss_denominators, make_plan, make_train_step, to_device_batch
 
 PyTree = Any
 
@@ -225,13 +234,16 @@ def setup_train_state(cfg: RuntimeConfig, params: Optional[PyTree] = None,
 
         mesh = mesh_lib.build_mesh(cfg.parallel)
         if param_specs is None and loss_fn is None:
-            param_specs = sharding.param_specs(cfg.model, cfg.parallel)
+            param_specs = pipe.pipeline_param_specs(
+                sharding.param_specs(cfg.model, cfg.parallel), cfg.parallel)
         if params is None and param_specs is not None:
             params = _init_sharded(cfg, device, param_specs, mesh)
         else:
             if params is None:
                 params = model_lib.init_params(cfg.model, seed=cfg.train.seed,
                                                device=device, tp=tp)
+            if loss_fn is None:  # whole params in the pipeline layout
+                params = pipe.to_pipeline_params(params, cfg.parallel)
             if param_specs is None:
                 if tp > 1:
                     raise ValueError("a custom loss under tensor "
@@ -253,16 +265,23 @@ def _init_sharded(cfg: RuntimeConfig, device, specs: PyTree,
                   mesh) -> PyTree:
     """``init_params`` from ``cfg.train.seed``, each drawn matrix cut to
     this rank's block as soon as it is drawn (one whole matrix alive at a
-    time, the draws unchanged), then the norms and biases."""
+    time, the draws unchanged), then the norms and biases; under pp the
+    layer leaves in the pipeline layout first."""
     from ..models import sharding
 
     cut = set()
+    pp, vpp = (cfg.parallel.pipeline_parallel,
+               cfg.parallel.virtual_pipeline_stages)
+
+    def staged(path, t):
+        return pipe.to_stage_layers(t, pp, vpp) \
+            if pp > 1 and path[0] == "layers" else t
 
     def place(path, t):
         spec = specs
         for k in path:
             spec = spec[k]
-        out = sharding.shard_tensor(t, spec, mesh)
+        out = sharding.shard_tensor(staged(path, t), spec, mesh)
         cut.add(id(out))
         return out
 
@@ -270,8 +289,10 @@ def _init_sharded(cfg: RuntimeConfig, device, specs: PyTree,
                                    device=device,
                                    tp=cfg.parallel.tensor_parallel,
                                    place=place)
-    return tree_map(lambda p, s: p if id(p) in cut
-                    else sharding.shard_tensor(p, s, mesh), params, specs)
+    return {key: tree_map(
+        lambda p, s, k=key: p if id(p) in cut
+        else sharding.shard_tensor(staged((k,), p), s, mesh),
+        sub, specs[key]) for key, sub in params.items()}
 
 
 def _dp_block(batch: dict, mesh, axis: int = 1) -> dict:
@@ -293,7 +314,8 @@ def _eval_denominators(batch: dict, mesh) -> dict:
     global loss-mask denominator, as the train step gives its own."""
     if mesh is None:
         return batch
-    return loss_denominators(batch, mesh.group("dp"), lead=0)
+    return loss_denominators(batch, mesh.group("dp"), lead=0,
+                             whole=mesh.size("cp") > 1)
 
 
 def _dp_mean(values: dict, mesh) -> dict:
@@ -313,12 +335,17 @@ def _dp_mean(values: dict, mesh) -> dict:
 
 def make_eval_step(cfg: RuntimeConfig, metric_names=(), device=None):
     """Forward-only ``eval_step(params, batch) -> {"lm_loss": ..., <name>:
-    ...}``, 0-d tensors: the LM loss and each registry metric named."""
+    ...}``, 0-d tensors: the LM loss and each registry metric named.
+    Under cp each rank runs its block of the sequence (after the zigzag
+    permutation, JAX ``driver.py:248-250``): the loss is summed over cp
+    and the metrics see every rank's tokens."""
     metrics_lib.validate_metric_names(metric_names)
     rope = rope_tables(cfg.model, device=model_lib.default_device(device))
 
     @torch.no_grad()
     def eval_step(params, batch):
+        mesh = mesh_lib.current_mesh()
+        batch = context_parallel_block(cfg, batch, mesh)
         logits = model_lib.forward(
             cfg.model, params, batch["tokens"],
             position_ids=batch.get("position_ids"),
@@ -327,21 +354,68 @@ def make_eval_step(cfg: RuntimeConfig, metric_names=(), device=None):
         logits = mappings.all_gather(logits, mesh_lib.axis_info("tp")[0], -1)
         per_token = cross_entropy(logits, batch["labels"],
                                   vocab_size=cfg.model.vocab_size)
-        out = {"lm_loss": masked_mean_loss(per_token, batch["loss_mask"],
-                                           batch.get("loss_denom"))}
-        out.update(metrics_lib.compute_metrics(metric_names, batch, logits,
-                                               per_token))
+        loss = masked_mean_loss(per_token, batch["loss_mask"],
+                                batch.get("loss_denom"))
+        cp_group = mesh_lib.axis_info("cp")[0]
+        out = {"lm_loss": mappings.all_reduce(loss, cp_group)}
+        if metric_names and cp_group is None:
+            out.update(metrics_lib.compute_metrics(metric_names, batch,
+                                                   logits, per_token))
+        elif metric_names:
+            def whole(t):
+                return mappings.all_gather(t.contiguous(), cp_group, 1)
+
+            correct = (torch.argmax(logits, dim=-1)
+                       == batch["labels"]).float()
+            seqs = {k: whole(v) for k, v in batch.items()
+                    if v is not None and v.ndim == 2}
+            out.update(metrics_lib.compute_metrics(
+                metric_names, seqs, None, whole(per_token),
+                correct=whole(correct)))
+        return out
+
+    return eval_step
+
+
+def make_pipeline_eval_step(cfg: RuntimeConfig, metric_names=(),
+                            device=None):
+    """Forward-only loss and registry metrics through the pipelined
+    forward for pp > 1 (JAX ``make_pipeline_eval_step``): the streamed
+    head's per-token loss and correctness from the last stage, so every
+    registry metric works.  ``batch`` leaves are ``[M, mb, ...]``."""
+    metrics_lib.validate_metric_names(metric_names)
+    rope = rope_tables(cfg.model, device=model_lib.default_device(device))
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        if not metric_names:
+            return {"lm_loss": pipe.pipeline_loss(cfg, params, batch,
+                                                  rope=rope)}
+        loss, stats = pipe.pipeline_loss(cfg, params, batch, rope=rope,
+                                         return_stats=True)
+
+        def flat(v):
+            return v.reshape((-1,) + tuple(v.shape[2:]))
+
+        out = {"lm_loss": loss}
+        out.update(metrics_lib.compute_metrics(
+            metric_names, {k: flat(v) for k, v in batch.items()
+                           if v is not None and v.ndim >= 2},
+            None, flat(stats["per_token_loss"]),
+            correct=flat(stats["correct"])))
         return out
 
     return eval_step
 
 
 def evaluate(cfg: RuntimeConfig, params, data_iterator, eval_step,
-             device, eval_iters: Optional[int] = None) -> dict[str, float]:
+             device, eval_iters: Optional[int] = None,
+             flatten: bool = True) -> dict[str, float]:
     """Average eval metrics over ``eval_iters`` batches, each
-    ``[accum, micro, ...]`` flattened to ``[accum * micro, ...]``; under a
-    current mesh each rank evaluates its dp block and the averages are
-    averaged over dp."""
+    ``[accum, micro, ...]`` flattened to ``[accum * micro, ...]`` (kept
+    as it is with ``flatten=False``: the pipelined eval step's
+    microbatches); under a current mesh each rank evaluates its dp block
+    and the averages are averaged over dp."""
     mesh = mesh_lib.current_mesh()
     if eval_iters is None:
         eval_iters = cfg.train.eval_iters
@@ -353,10 +427,16 @@ def evaluate(cfg: RuntimeConfig, params, data_iterator, eval_step,
         except StopIteration:
             break
         batch = _dp_block(batch, mesh)
-        flat = {k: np.reshape(v, (-1,) + v.shape[2:])
-                for k, v in batch.items()}
-        out = eval_step(params, _eval_denominators(
-            to_device_batch(flat, device), mesh))
+        if flatten:
+            batch = {k: np.reshape(v, (-1,) + v.shape[2:])
+                     for k, v in batch.items()}
+            batch = _eval_denominators(to_device_batch(batch, device), mesh)
+        else:
+            batch = to_device_batch(batch, device)
+            if mesh is not None:
+                batch = loss_denominators(batch, mesh.group("dp"),
+                                          whole=mesh.size("cp") > 1)
+        out = eval_step(params, batch)
         for k, v in out.items():
             totals[k] = totals.get(k, 0.0) + float(v)
         n += 1
@@ -366,7 +446,8 @@ def evaluate(cfg: RuntimeConfig, params, data_iterator, eval_step,
 def evaluate_and_print_results(prefix: str, cfg, params, data_iterator,
                                eval_step, device, writer=None,
                                iteration: int = 0) -> dict[str, float]:
-    results = evaluate(cfg, params, data_iterator, eval_step, device)
+    results = evaluate(cfg, params, data_iterator, eval_step, device,
+                       flatten=cfg.parallel.pipeline_parallel == 1)
     string = f" validation loss at {prefix} | "
     for k, v in results.items():
         string += f"{k}: {v:.6E} | "
@@ -612,7 +693,10 @@ def _pretrain_loop(cfg, art, t_start, timers, writer, train_dataset,
     train_iter = make_train_iter(consumed_samples, current_gbs)
     eval_step = None
     if valid_dataset is not None or test_dataset is not None:
-        eval_step = make_eval_step(cfg, tuple(cfg.train.metrics), art.device)
+        eval_step = (make_pipeline_eval_step
+                     if cfg.parallel.pipeline_parallel > 1
+                     else make_eval_step)(cfg, tuple(cfg.train.metrics),
+                                          art.device)
     persistent_valid = (None if valid_dataset is None else
                         _PersistentEvalIterator(cfg, valid_dataset, eod_token))
 
@@ -827,9 +911,9 @@ def refuse_unported_parallelism(tensor_parallel: int = 1,
     process a rank)."""
     if pipeline_parallel > 1 or pipeline_split_rank is not None:
         raise NotImplementedError(
-            "--pipeline_parallel > 1 and --pipeline_split_rank are not "
-            "ported yet (ROADMAP.md, Queue 1 item 10: pipeline, context and "
-            "expert parallelism)")
+            "--pipeline_parallel > 1 and --pipeline_split_rank of the "
+            "encoder families are not ported yet (ROADMAP.md, Queue 1 item "
+            "10's remainder: parallel/pipeline_encdec.py)")
 
 
 def pretrain_custom(
@@ -860,14 +944,22 @@ def pretrain_custom(
     ``pretrain``.  ``param_specs`` (``encdec.bert_param_specs`` and its
     kin) lays the whole ``params`` over the mesh of ``cfg.parallel``
     (``setup_train_state``); each rank trains on its dp block of every
-    batch.  ``pipeline_loss_fn`` (the encoder-decoder pipeline) is not
-    ported and raises."""
+    batch.  ``pipeline_loss_fn`` (the encoder-decoder pipeline), and
+    pipeline, context or expert parallelism under a custom loss, are not
+    ported and raise."""
     cfg.validate()
     if pipeline_loss_fn is not None:
         raise NotImplementedError(
             "pretrain_custom: pipeline_loss_fn (parallel/pipeline_encdec.py)"
-            " is not ported yet (ROADMAP.md, Queue 1 item 10: pipeline, "
-            "context and expert parallelism)")
+            " is not ported yet (ROADMAP.md, Queue 1 item 10's remainder)")
+    par = cfg.parallel
+    if max(par.pipeline_parallel, par.context_parallel,
+           par.expert_parallel) > 1:
+        raise NotImplementedError(
+            "pretrain_custom under pipeline, context or expert parallelism "
+            "(the encoder families' pipeline and ring) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 10's remainder: "
+            "parallel/pipeline_encdec.py)")
     device = model_lib.default_device(device)
     timers = Timers()
     writer = _writer(cfg, config=cfg.to_dict())

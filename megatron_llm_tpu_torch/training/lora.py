@@ -49,10 +49,10 @@ def _check_targets(cfg: RuntimeConfig, targets: Sequence[str]) -> None:
             "LoRA training under data or tensor parallelism is not ported "
             "yet (ROADMAP.md, Queue 1 item 9's remainder: the JAX package "
             "has no specs for the adapter)")
-    # the serving registry's MoE guard: the expert dispatch routes tokens
-    # through per-expert weights the single stacked delta does not model,
-    # so MLP targets would train against the wrong math (MoE itself is
-    # refused until ROADMAP.md Queue 1 item 10)
+    # the serving registry's MoE guard (JAX lora.py:49-54): the expert
+    # dispatch routes tokens through per-expert weights the single stacked
+    # delta does not model, so MLP targets would train against the wrong
+    # math
     if cfg.model.num_experts > 0:
         moe = [t for t in targets if t in ("w_gate", "w_up", "w_down")]
         if moe:

@@ -176,24 +176,34 @@ def init_opt_state(params: PyTree, cfg: OptimizerConfig,
 
 def _mesh_sum(values: list, grads, plan) -> torch.Tensor:
     """The sum over the mesh of per-leaf numbers counting each leaf once:
-    a tp-sharded leaf's blocks summed over tp, a ZeRO-split grad's over
-    dp (``plan``: a ``training.step.ParallelPlan``)."""
+    a leaf's blocks summed over each axis that splits it (tp, pp, ep in
+    its spec; dp where ZeRO-1 splits its grad), a replicated leaf counted
+    once (``plan``: a ``training.step.ParallelPlan``).  One all-reduce an
+    axis of size above 1."""
     from ..models.sharding import has_axis
 
     mesh = plan.mesh
-    tp_split = tree_leaves(tree_map(lambda g, spec: has_axis(spec, "tp"),
-                                    grads, plan.specs))
-    dp_split = [d is not None for d in _zero_dims(plan.zero, grads)]
-    zero = values[0] * 0
-    by = {(t, d): zero.clone() for t in (False, True) for d in (False, True)}
-    for v, t, d in zip(values, tp_split, dp_split):
-        by[(t, d)] = by[(t, d)] + v
-    dp_part = mappings.all_reduce(
-        torch.stack([by[(True, True)], by[(False, True)]]),
-        mesh.group("dp"))
-    tp_part = mappings.all_reduce(dp_part[0] + by[(True, False)],
-                                  mesh.group("tp"))
-    return tp_part + dp_part[1] + by[(False, False)]
+    axes = [a for a in ("dp", "ep", "pp", "tp") if mesh.size(a) > 1]
+    specs = tree_leaves(tree_map(lambda g, spec: spec, grads, plan.specs))
+    zero_split = [d is not None for d in _zero_dims(plan.zero, grads)]
+    by: dict = {}
+    for v, spec, z in zip(values, specs, zero_split):
+        key = frozenset(a for a in axes if (a == "dp" and z) or (
+            a != "dp" and has_axis(spec, a)))
+        by[key] = by[key] + v if key in by else v
+    for a in axes:  # the same order on every rank: the specs agree
+        keys = sorted((k for k in by if a in k), key=sorted)
+        if not keys:
+            continue
+        summed = mappings.all_reduce(torch.stack([by.pop(k) for k in keys]),
+                                     mesh.group(a))
+        for k, v in zip(keys, summed):
+            k2 = k - {a}
+            by[k2] = by[k2] + v if k2 in by else v
+    total = values[0] * 0
+    for k in sorted(by, key=sorted):
+        total = total + by[k]
+    return total
 
 
 def global_grad_norm(grads: PyTree, plan=None) -> torch.Tensor:

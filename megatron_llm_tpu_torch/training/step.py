@@ -30,6 +30,17 @@ before the accumulation the step all-reduces each microbatch's count over
 dp once (``loss_denominators``) and the losses divide by it, scaled so
 that their mean over dp is the global masked mean.  The loss, the grad norm and so the guard's ``skip`` are then
 the same on every rank, and every rank takes the same branch.
+
+Pipeline parallelism (``pp > 1``) runs ``parallel/pipeline.pipeline_grads``
+in place of the accumulation: this stage's chunks' grads, and its grads
+of the embedding and head, which ``reduce_grads`` sums over pp.  Context
+parallelism (``cp > 1``) cuts each microbatch's sequence to this rank's
+block (``context_parallel_block``; the zigzag layout permutes it first,
+``zigzag_permute_batch``) after the loss denominators are counted over
+the whole sequence, so the grads and the loss are summed over cp.  A MoE
+model adds ``moe_aux_loss_coeff`` times the aux loss to the loss, and its
+routing stats to the metrics (JAX ``step.py:145-150, 164-224``; not
+under pp, as in JAX).
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ from ..config import RuntimeConfig
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
 from ..ops import dropout as drop
-from ..parallel import mappings
+from ..parallel import mappings, pipeline
 from ..parallel.mesh import axis_info, use_mesh
 from ..parallel.cross_entropy import (
     cross_entropy,
@@ -96,18 +107,28 @@ def make_plan(cfg: RuntimeConfig, mesh, specs: PyTree,
 
 def reduce_grads(plan: ParallelPlan, grads: PyTree, loss: torch.Tensor):
     """``(grads, loss)`` of the whole model from this rank's: the tp-partial
-    grads summed over tp, then every grad and the loss averaged over dp
-    (a ZeRO-1 leaf reduce-scattered to this rank's block)."""
+    grads summed over tp, the leaves replicated over pp (the embedding
+    and head) summed over pp, every grad and the loss summed over cp,
+    then averaged over dp (a ZeRO-1 leaf reduce-scattered to this rank's
+    block)."""
+    from ..models.sharding import has_axis
+
     mesh = plan.mesh
     tp_group, dp_group = mesh.group("tp"), mesh.group("dp")
+    pp_group, cp_group = mesh.group("pp"), mesh.group("cp")
     dp = mesh.size("dp")
     dims = [None] * len(tree_leaves(grads)) if plan.zero is None \
         else tree_leaves(plan.zero.dims)
+    specs = tree_leaves(tree_map(lambda g, s: s, grads, plan.specs))
     out = []
-    for g, partial, dim in zip(tree_leaves(grads),
-                               tree_leaves(plan.tp_partial), dims):
+    for g, partial, dim, spec in zip(tree_leaves(grads),
+                                     tree_leaves(plan.tp_partial), dims,
+                                     specs):
         if partial:
             mappings.all_reduce(g, tp_group)
+        if pp_group is not None and not has_axis(spec, "pp"):
+            mappings.all_reduce(g, pp_group)
+        mappings.all_reduce(g, cp_group)
         if dp > 1:
             if dim is not None:
                 g = mappings.reduce_scatter(g, dp_group, dim)
@@ -115,20 +136,69 @@ def reduce_grads(plan: ParallelPlan, grads: PyTree, loss: torch.Tensor):
                 mappings.all_reduce(g, dp_group)
             g.mul_(1.0 / dp)
         out.append(g)
+    loss = mappings.all_reduce(loss.clone(), cp_group)
     if dp > 1:
         loss = mappings.all_reduce(loss.clone(), dp_group) * (1.0 / dp)
     return tree_unflatten(grads, out), loss
 
 
-def loss_denominators(batch: dict, dp_group, lead: int = 1) -> dict:
+_SEQ_KEYS = ("tokens", "labels", "loss_mask", "segment_ids", "position_ids",
+             "assistant_mask", "pad_mask")
+
+
+def zigzag_permute_batch(cfg: RuntimeConfig, batch: dict) -> dict:
+    """The zigzag cp layout (JAX ``zigzag_permute_batch``): the batch's
+    sequence arrays permuted into chunk order ``[r, 2n-1-r]`` a cp rank,
+    and RoPE handed the global positions.  Per-token CE, masked means and
+    the registry metrics do not depend on the order.  Unchanged unless
+    ``cfg.model.context_parallel_zigzag``."""
+    if not cfg.model.context_parallel_zigzag:
+        return batch
+    from ..parallel.ring_attention import zigzag_indices
+
+    tok = batch["tokens"]
+    pi = torch.as_tensor(zigzag_indices(tok.shape[-1],
+                                        cfg.parallel.context_parallel),
+                         device=tok.device)
+    out = dict(batch)
+    for k in _SEQ_KEYS:
+        if out.get(k) is not None:
+            out[k] = out[k][..., pi]
+    if batch.get("position_ids") is None:
+        out["position_ids"] = pi.expand(tok.shape)
+    return out
+
+
+def context_parallel_block(cfg: RuntimeConfig, batch: dict, mesh) -> dict:
+    """This cp rank's block of the batch's sequence (after the zigzag
+    permutation where the layout is zigzag), with global position ids;
+    the batch itself at cp = 1."""
+    cp = 1 if mesh is None else mesh.size("cp")
+    if cp == 1:
+        return batch
+    batch = zigzag_permute_batch(cfg, batch)
+    tok = batch["tokens"]
+    if batch.get("position_ids") is None:
+        batch = dict(batch, position_ids=torch.arange(
+            tok.shape[-1], device=tok.device).expand(tok.shape))
+    n = tok.shape[-1] // cp
+    lo = mesh.index("cp") * n
+    return {k: v[..., lo:lo + n] if k in _SEQ_KEYS and v is not None else v
+            for k, v in batch.items()}
+
+
+def loss_denominators(batch: dict, dp_group, lead: int = 1,
+                      whole: bool = False) -> dict:
     """``batch`` with ``loss_denom``: the loss-mask count of each
     microbatch over the dp group (clamped at 1, as the masked mean clamps
     it), divided by dp.  A rank's masked sum over it is its share of the
     global masked mean times dp, which the mean over dp undoes.  The
     first ``lead`` axes index microbatches (1 for ``[accum, micro, ...]``,
-    0 for one microbatch); a batch without a loss mask is unchanged."""
+    0 for one microbatch); a batch without a loss mask is unchanged, and
+    so is one at dp = 1 unless ``whole`` (the batch is about to be cut
+    over cp: the count is the whole sequence's)."""
     dp = mappings.group_size(dp_group)
-    if dp == 1 or "loss_mask" not in batch:
+    if (dp == 1 and not whole) or "loss_mask" not in batch:
         return batch
     mask = batch["loss_mask"].to(torch.float32)
     count = mask.sum(dim=tuple(range(lead, mask.ndim)))
@@ -151,20 +221,23 @@ def init_train_state(cfg: RuntimeConfig, params: PyTree,
 
 
 def compute_loss(cfg: RuntimeConfig, params, batch: dict, rng=None,
-                 rope=None, lora=None):
+                 rope=None, lora=None, return_moe_stats: bool = False):
     """Forward + masked LM loss for one microbatch: ``batch`` holds tokens,
     labels and a float loss_mask ``[b, s]``, optionally position_ids and
     segment_ids.  ``rng`` turns dropout on; ``lora`` (``(arenas, mask)``)
     adds the LoRA epilogues.  ``fused_lm_head`` takes the fused head over
-    the ``b * s`` rows (JAX ``training/step.py:115-134``; tp and cp are
-    refused by ``RuntimeConfig.validate``)."""
+    the ``b * s`` rows (JAX ``training/step.py:115-134``; not under tp or
+    cp, where the plain head runs).  A MoE model's loss adds
+    ``moe_aux_loss_coeff`` times its aux loss; ``return_moe_stats``
+    returns ``(loss, stats)``, the stats summed over the layers."""
     kw = dict(position_ids=batch.get("position_ids"),
               segment_ids=batch.get("segment_ids"), rng=rng, rope=rope,
               lora=lora)
     tp = cfg.parallel.tensor_parallel
-    if cfg.model.fused_lm_head and tp == 1:
-        hidden, _ = model_lib.forward_hidden(cfg.model, params,
-                                             batch["tokens"], **kw)
+    if cfg.model.fused_lm_head and tp == 1 and \
+            cfg.parallel.context_parallel == 1:
+        hidden, moe_aux = model_lib.forward_hidden(cfg.model, params,
+                                                   batch["tokens"], **kw)
         b, s, h = hidden.shape
         per_token = fused_linear_cross_entropy(
             hidden.reshape(b * s, h),
@@ -172,8 +245,9 @@ def compute_loss(cfg: RuntimeConfig, params, batch: dict, rng=None,
             batch["labels"].reshape(b * s),
             cfg.model.vocab_size).reshape(b, s)
     else:
-        logits, _ = model_lib.forward(cfg.model, params, batch["tokens"],
-                                      return_aux=True, **kw)
+        logits, moe_aux = model_lib.forward(cfg.model, params,
+                                            batch["tokens"],
+                                            return_aux=True, **kw)
         if tp > 1:  # this rank's vocabulary block of the logits
             per_token = vocab_parallel_cross_entropy(
                 logits, batch["labels"], axis_info("tp")[0],
@@ -181,18 +255,31 @@ def compute_loss(cfg: RuntimeConfig, params, batch: dict, rng=None,
         else:
             per_token = cross_entropy(logits, batch["labels"],
                                       vocab_size=cfg.model.vocab_size)
-    return masked_mean_loss(per_token, batch["loss_mask"],
+    loss = masked_mean_loss(per_token, batch["loss_mask"],
                             batch.get("loss_denom"))
+    if cfg.model.num_experts > 0:
+        from ..models.moe import aux_loss_of
+
+        loss = loss + cfg.model.moe_aux_loss_coeff * aux_loss_of(moe_aux)
+    if return_moe_stats:
+        return loss, moe_aux
+    return loss
 
 
 def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
-                      loss_scale: float, loss_fn=None, rng=None):
+                      loss_scale: float, loss_fn=None, rng=None,
+                      return_moe_stats: bool = False):
     """``(fp32 grads, mean loss)`` over the ``[accum, micro_batch, ...]``
     batch; microbatch ``i`` gets ``rng`` folded with ``i``.
     ``loss_fn(cfg, params, microbatch, rng, deterministic)`` overrides the
     decoder-LM loss, as in JAX, with ``deterministic = rng is None`` (the
-    reference's ``forward_step_func``: the BERT, T5 and ICT losses)."""
+    reference's ``forward_step_func``: the BERT, T5 and ICT losses).  A
+    MoE model's routing stats come back as a third value with
+    ``return_moe_stats``: the per-layer mean over the microbatches (None
+    for a dense model)."""
     accum = next(iter(batch.values())).shape[0]
+    want_moe = loss_fn is None and cfg.model.num_experts > 0
+    stats = None
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     live = tree_unflatten(params, leaves)
     grads = None
@@ -202,6 +289,12 @@ def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
         mb_rng = None if rng is None else drop.fold_in(rng, i)
         if loss_fn is not None:
             loss = loss_fn(cfg, live, mb, mb_rng, mb_rng is None)
+        elif want_moe:
+            loss, mb_stats = compute_loss(cfg, live, mb, rng=mb_rng,
+                                          rope=rope, return_moe_stats=True)
+            mb_stats = {k: v.detach() for k, v in mb_stats.items()}
+            stats = mb_stats if stats is None else \
+                {k: stats[k] + mb_stats[k] for k in stats}
         else:
             loss = compute_loss(cfg, live, mb, rng=mb_rng, rope=rope)
         # under a custom loss, a leaf it does not reach (the pooler under
@@ -225,7 +318,43 @@ def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
         for g in grads:
             g.mul_(inv)
         loss_sum = loss_sum * inv
+    if stats is not None:
+        norm = 1.0 / (accum * cfg.model.num_layers)
+        stats = {k: v * norm for k, v in stats.items()}
+    if return_moe_stats:
+        return tree_unflatten(params, grads), loss_sum, stats
     return tree_unflatten(params, grads), loss_sum
+
+
+def step_grads(cfg: RuntimeConfig, params, batch: dict, rope,
+               loss_scale: float = 1.0, loss_fn=None, rng=None,
+               plan: Optional[ParallelPlan] = None):
+    """A step's ``(grads, loss, moe_stats)`` before the optimizer: the
+    batch's loss denominators and cp block under ``plan``, the pipeline
+    (pp > 1) or the microbatch accumulation, and the plan's reductions
+    (``moe_stats`` None under pp, as in JAX)."""
+    moe_stats = None
+    if plan is not None:
+        batch = loss_denominators(batch, plan.mesh.group("dp"),
+                                  whole=plan.mesh.size("cp") > 1)
+        batch = context_parallel_block(cfg, batch, plan.mesh)
+    if cfg.parallel.pipeline_parallel > 1:
+        if loss_fn is not None:
+            raise NotImplementedError(
+                "a custom loss_fn under pipeline parallelism (the encoder "
+                "families' pipeline, parallel/pipeline_encdec.py) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 10's remainder)")
+        grads, loss, aux, _ = pipeline.pipeline_grads(
+            cfg, params, batch, rng=rng, rope=rope, loss_scale=loss_scale)
+        loss = loss + pipeline.aux_term(cfg, aux,
+                                         batch["tokens"].shape[0])
+    else:
+        grads, loss, moe_stats = _accumulate_grads(
+            cfg, params, batch, rope, loss_scale, loss_fn, rng,
+            return_moe_stats=True)
+    if plan is not None:
+        grads, loss = reduce_grads(plan, grads, loss)
+    return grads, loss, moe_stats
 
 
 def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
@@ -240,12 +369,8 @@ def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
     loss_scale = scaler.scale if scaler is not None else 1.0
     rng = None if base_rng is None else drop.fold_in(base_rng,
                                                      state.iteration)
-    if plan is not None:
-        batch = loss_denominators(batch, plan.mesh.group("dp"))
-    grads, loss = _accumulate_grads(cfg, state.params, batch, rope,
-                                    loss_scale, loss_fn, rng)
-    if plan is not None:
-        grads, loss = reduce_grads(plan, grads, loss)
+    grads, loss, moe_stats = step_grads(cfg, state.params, batch, rope,
+                                        loss_scale, loss_fn, rng, plan)
     if loss_scale != 1.0:
         for g in tree_leaves(grads):
             g.div_(loss_scale)
@@ -287,6 +412,20 @@ def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
         "anomaly_run": guard.run,
         "loss_scale": loss_scale,
     }
+    if moe_stats is not None:
+        # dropped: the fraction of assignments lost to capacity;
+        # imbalance: E * max(f_e), 1.0 when balanced (JAX step.py:373-383)
+        aux = moe_stats["aux"]
+        if plan is not None and plan.mesh.size("dp") > 1:
+            # each dp rank's aux takes its own p_e (models/moe.py)
+            aux = mappings.all_reduce(aux.clone(), plan.mesh.group("dp")) \
+                / plan.mesh.size("dp")
+        load = moe_stats["load"]
+        metrics["moe_dropped_frac"] = moe_stats["dropped"]
+        metrics["moe_load_imbalance"] = (
+            cfg.model.num_experts * load.max()
+            / torch.clamp(load.sum(), min=1e-9))
+        metrics["moe_aux_loss"] = aux
     return new_state, metrics
 
 

@@ -2017,3 +2017,65 @@ def test_world_of_one_on_the_card_launches_no_collective(cuda_device,
             logits.detach().argmax(-1))
     finally:
         initialize.destroy()
+
+
+def _ppermute_rank(rank, world, rdv, out_dir):
+    """One rank of ``test_ppermute_through_the_mailbox``: gloo on the one
+    card, so ``ppermute`` takes the shared-device mailbox."""
+    import datetime
+    import os
+
+    from megatron_llm_tpu_torch import initialize
+    from megatron_llm_tpu_torch.parallel import mappings
+
+    info = initialize.initialize_distributed(
+        "cuda", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        import torch.distributed as dist
+
+        dev = info.device
+        g = dist.group.WORLD
+        res = {}
+        # 3 pieces of a small mailbox, bf16 and fp32
+        mappings.MAILBOX_BYTES = 1 << 16
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(10 + rank)
+            x = torch.randn(3, 9000, generator=gen, device=dev).to(dtype)
+            x.requires_grad_(True)
+            rot = [(r, (r + 1) % world) for r in range(world)]
+            y = mappings.ppermute(x, g, rot)
+            w = torch.randn(3, 9000, generator=gen, device=dev).to(dtype)
+            (gx,) = torch.autograd.grad((y * w).sum(), x)
+            ident = mappings.ppermute(x.detach(), g,
+                                      [(r, r) for r in range(world)])
+            res[str(dtype)] = (y.detach().cpu(), x.detach().cpu(),
+                               w.cpu(), gx.cpu(), ident.cpu())
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        initialize.destroy()
+
+
+@pytest.mark.cuda
+def test_ppermute_through_the_mailbox(cuda_device, tmp_path):
+    """Two gloo ranks on the one card: a rotation moves each rank's CUDA
+    tensor to the next bit for bit, in pieces of the mailbox, and its
+    backward moves each grad back (``w`` of the receiver, bit for bit);
+    the identity is a copy."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_ppermute_rank, args=(2, str(tmp_path / "rdv"),
+                                             str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    res = [torch.load(os.path.join(tmp_path, f"rank{r}.pt"))
+           for r in range(2)]
+    for key in res[0]:
+        for r in range(2):
+            y, x, w, gx, ident = res[r][key]
+            src = res[(r - 1) % 2][key]
+            dst = res[(r + 1) % 2][key]
+            assert torch.equal(y, src[1])      # the previous rank's x
+            assert torch.equal(gx, dst[2])     # the next rank's w
+            assert torch.equal(ident, x)

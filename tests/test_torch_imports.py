@@ -63,7 +63,8 @@ def test_port_imports_no_jax():
                 "data.t5_dataset", "data.ict_dataset", "pretrain_bert",
                 "pretrain_t5", "pretrain_ict", "tasks", "tasks.main",
                 "tasks.classification", "tasks.glue", "tasks.race",
-                "tasks.orqa"):
+                "tasks.orqa", "parallel.pipeline", "parallel.ring_attention",
+                "models.moe"):
         assert f"megatron_llm_tpu_torch.{new}" in names
     code = (
         "import importlib, json, sys\n"

@@ -544,24 +544,28 @@ def test_pretrain_refuses_what_is_not_ported(train_kw, match, tmp_path,
     dict(model=ttiny(fused_lm_head=True)),
 ])
 def test_runtime_config_refuses_what_is_not_ported(kw):
-    """Pipeline and context parallelism still raise, naming their ROADMAP
-    item.  Data and tensor parallelism are ported: their configs validate
-    (``tests/test_torch_parallel*.py`` train them against JAX's sharded
-    step).  The fused LM head is ported: its config validates and one
-    fused step matches JAX's fused step (``tests/test_torch_fused_head.py``
-    goes further)."""
+    """Data, tensor, pipeline and context parallelism are ported: their
+    configs validate (``tests/test_torch_parallel*.py``,
+    ``test_torch_pipeline*.py`` and ``test_torch_ring_attention.py``
+    train them against JAX's sharded steps); pipeline with context
+    parallelism, which JAX runs inside its pipeline, still raises, naming
+    item 10's remainder.  The fused LM head is ported: its config
+    validates and one fused step matches JAX's fused step
+    (``tests/test_torch_fused_head.py`` goes further)."""
     if "model" in kw:
         assert TRun(**kw).validate().model.fused_lm_head
         _, _, out = _run_both(dict(fused_lm_head=True), steps=1, accum=1)
         assert out[0][0] == pytest.approx(out[0][1], rel=1e-5, abs=1e-5)
         return
     par = kw["parallel"]
-    if par.tensor_parallel > 1 or par.data_parallel > 1:
-        cfg = TRun(train=TTrain(global_batch_size=8), **kw).validate()
-        assert cfg.parallel.world_size == 2
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 10"):
-        TRun(**kw).validate()
+    cfg = TRun(train=TTrain(global_batch_size=8), **kw).validate()
+    assert cfg.parallel.world_size == 2
+    assert (cfg.model.context_parallel_axis == "cp") == \
+        (par.context_parallel > 1)
+    both = dataclasses.replace(par, pipeline_parallel=2, context_parallel=2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, Queue 1 item 10's remainder"):
+        TRun(parallel=both, train=TTrain(global_batch_size=8)).validate()
 
 
 def _finetune_losses(argv, capsys):
@@ -598,8 +602,10 @@ def test_finetune_bf16_default_flags_on_cpu(capsys):
     (["--mock_data", "--quantize_matmuls", "int8"], "int8 training"),
 ])
 def test_finetune_refuses_what_is_not_ported(argv, match, capsys):
-    """MoE and pipeline parallelism still raise (data and tensor
-    parallelism train under torchrun: ``tests/test_torch_parallel*.py``).  ``--lora_rank`` and
+    """``--num_experts`` trains a MoE model now (``tests/test_torch_moe.py``
+    holds it to JAX), and ``--pp 2`` without a world says how to launch
+    one (``torchrun``; ``tests/test_torch_pipeline_train.py`` runs
+    ``finetune --pp 2`` in a world of 2).  ``--lora_rank`` and
     ``--quantize_matmuls int8`` train now: from the same seeded base and
     first batch, a fresh adapter (B = 0) logs the full finetune's first
     loss exactly, and int8 matmuls log it within 0.05 (the W8A8 logit
@@ -617,7 +623,12 @@ def test_finetune_refuses_what_is_not_ported(argv, match, capsys):
         else:
             assert abs(ported[0] - losses[0]) < 0.05
         return
-    with pytest.raises(NotImplementedError, match=match):
+    if match == "MoE":
+        run = base + ["--log_interval", "1", "--seq_length", "32"] + argv
+        moe, out = _finetune_losses(run, capsys)
+        assert len(moe) == 1 and math.isfinite(moe[0])
+        return
+    with pytest.raises(ValueError, match="torchrun"):
         tfinetune.main(base + argv)
 
 

@@ -14,6 +14,7 @@ Nested trees cross as ``a/b/c`` keys (``save_tree`` / ``load_tree``).
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import json
 import os
@@ -182,7 +183,9 @@ def grads_case(tree: dict, meta: dict) -> dict:
                        mesh, axis=0).items()}
     rng = None if meta.get("seed") is None else drop.key(meta["seed"])
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    batch = st.loss_denominators(batch, mesh.group("dp"), lead=0)
+    batch = st.loss_denominators(batch, mesh.group("dp"), lead=0,
+                                 whole=mesh.size("cp") > 1)
+    batch = st.context_parallel_block(cfg, batch, mesh)
     with mesh_lib.use_mesh(mesh):
         loss = _loss(cfg, kind, live, batch, rng)
         loss.backward()
@@ -253,9 +256,19 @@ def pretrain_case(tree: dict, meta: dict) -> dict:
     if art_plan is not None:  # every leaf whole
         from megatron_llm_tpu_torch.models import sharding
 
+        from megatron_llm_tpu_torch.parallel import pipeline as pipe
+
         state = checkpointing.map_train_state(
             lambda t, s: sharding.gather_tensor(t, s, art_plan.mesh), state,
             art_plan)
+
+        def whole(tree):  # the [L, ...] layer stack
+            return pipe.from_pipeline_params(tree, cfg.parallel)
+
+        state = state._replace(params=whole(state.params), opt=state.opt.
+                               _replace(mu=whole(state.opt.mu),
+                                        nu=state.opt.nu and whole(
+                                            state.opt.nu)))
     out = {"losses": np.asarray(losses), "params": state.params,
            "mu": state.opt.mu, "rollbacks": np.asarray(
                metrics_lib.RESILIENCE_EVENTS.get("rollbacks"))}
@@ -378,10 +391,12 @@ def _plan_of(cfg, state):
     from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
     from megatron_llm_tpu_torch.training import step as st
 
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+
     mesh = mesh_lib.build_mesh(cfg.parallel)
-    return st.make_plan(cfg, mesh, sharding.param_specs(cfg.model,
-                                                        cfg.parallel),
-                        state.params)
+    return st.make_plan(cfg, mesh, pipe.pipeline_param_specs(
+        sharding.param_specs(cfg.model, cfg.parallel), cfg.parallel),
+        state.params)
 
 
 def entry_case(tree: dict, meta: dict) -> dict:
@@ -441,4 +456,199 @@ def mailbox_case(tree: dict, meta: dict) -> dict:
     half = box.all_gather(x.to(torch.bfloat16))
     out["gather_bf16_exact"] = torch.tensor(bool(torch.equal(
         half, gathered.to(torch.bfloat16))))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline, context and expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def pipeline_case(tree: dict, meta: dict) -> dict:
+    """The pipelined loss and whole grads (``[L, ...]`` layout) of whole
+    params and a global batch ``[M, mb * dp, s]`` on this world's mesh;
+    ``meta["windows"]`` runs each window of the list too (its loss and
+    grads as ``loss_w<W>`` / ``grads_w<W>``); ``meta["metrics"]`` runs the
+    pipelined eval step instead."""
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+    from megatron_llm_tpu_torch.training import driver
+    from megatron_llm_tpu_torch.training import step as st
+
+    cfg = runtime_config(meta)
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    specs = pipe.pipeline_param_specs(
+        sharding.param_specs(cfg.model, cfg.parallel), cfg.parallel)
+    params = sharding.shard_params(
+        pipe.to_pipeline_params(_t(tree["params"]), cfg.parallel), specs,
+        mesh)
+    batch = {k: torch.from_numpy(v) for k, v in driver._dp_block(
+        {k: np.asarray(v) for k, v in tree["batch"].items()}, mesh).items()}
+    batch = st.loss_denominators(batch, mesh.group("dp"))
+    out = {}
+    with mesh_lib.use_mesh(mesh):
+        if meta.get("metrics"):
+            step = driver.make_pipeline_eval_step(cfg, tuple(meta["metrics"]),
+                                                  device="cpu")
+            res = step(params, batch)
+            return {k: driver._dp_mean({k: float(v)}, mesh)[k]
+                    for k, v in res.items()}
+        plan = st.make_plan(cfg, mesh, specs, params)
+        for w in [None] + list(meta.get("windows", ())):
+            c = cfg if w is None else dataclasses.replace(
+                cfg, parallel=dataclasses.replace(
+                    cfg.parallel, pipeline_remat_window=w)).validate()
+            grads, loss, aux, _ = pipe.pipeline_grads(c, params, batch)
+            loss = loss + pipe.aux_term(c, aux, batch["tokens"].shape[0])
+            grads, loss = st.reduce_grads(plan, grads, loss)
+            grads = pipe.from_pipeline_params(
+                sharding.gather_params(grads, specs, mesh), cfg.parallel)
+            tag = "" if w is None else f"_w{w}"
+            out["loss" + tag] = loss
+            out["grads" + tag] = grads
+    return out
+
+
+def ring_case(tree: dict, meta: dict) -> dict:
+    """Ring attention over this world's cp group on global ``q, k, v``
+    (and ``seg``): each rank's shard of the (zigzag-ordered, where
+    ``meta["zigzag"]``) sequence, the output and the grads of ``sum(out *
+    w)`` gathered back to the natural order."""
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.parallel import ring_attention as ring
+
+    n = dist.get_world_size()
+    mesh = mesh_lib.build_mesh(ParallelConfig(context_parallel=n))
+    group, r = mesh.group("cp"), mesh.index("cp")
+    s = tree["q"].shape[1]
+    order = (ring.zigzag_indices(s, n) if meta.get("zigzag")
+             else np.arange(s))
+    blk = order[r * (s // n):(r + 1) * (s // n)]
+    q, k, v = (torch.from_numpy(tree[x][:, blk]).requires_grad_(True)
+               for x in ("q", "k", "v"))
+    seg = torch.from_numpy(tree["seg"][:, blk]) if "seg" in tree else None
+    w = torch.from_numpy(tree["w"][:, blk])
+    with mesh_lib.use_mesh(mesh):
+        if meta.get("zigzag"):
+            o = ring.ring_attention_zigzag(q, k, v, segment_ids=seg)
+        else:
+            o = ring.ring_attention(q, k, v, causal=meta["causal"],
+                                    segment_ids=seg)
+    (o * w).sum().backward()
+    inv = np.argsort(order)
+
+    def whole(t):
+        return mappings.all_gather(t.detach().contiguous(), group, 1)[:, inv]
+
+    return {"out": whole(o), "dq": whole(q.grad), "dk": whole(k.grad),
+            "dv": whole(v.grad)}
+
+
+def eval_case(tree: dict, meta: dict) -> dict:
+    """``driver.make_eval_step`` on whole params and a global eval batch
+    ``[b, s]`` at this world's degrees (each rank its dp block): the
+    loss and metrics, averaged over dp."""
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.training import driver
+
+    cfg = runtime_config(meta)
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    params = sharding.shard_params(
+        _t(tree["params"]), sharding.param_specs(cfg.model, cfg.parallel),
+        mesh)
+    batch = {k: torch.from_numpy(v) for k, v in driver._dp_block(
+        {k: np.asarray(v) for k, v in tree["batch"].items()}, mesh,
+        axis=0).items()}
+    step = driver.make_eval_step(cfg, tuple(meta.get("metrics", ())),
+                                 device="cpu")
+    with mesh_lib.use_mesh(mesh):
+        res = step(params, driver._eval_denominators(batch, mesh))
+    return driver._dp_mean({k: float(v) for k, v in res.items()}, mesh)
+
+
+def moe_forward_case(tree: dict, meta: dict) -> dict:
+    """The MoE model's logits and aux on whole params and tokens at this
+    world's degrees (the expert leaves cut over ep, the batch over dp),
+    gathered over dp."""
+    from megatron_llm_tpu_torch.models import model as model_lib
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.training import driver
+
+    cfg = runtime_config(meta)
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    params = sharding.shard_params(
+        _t(tree["params"]), sharding.param_specs(cfg.model, cfg.parallel),
+        mesh)
+    tokens = torch.from_numpy(driver._dp_block(
+        {"t": np.asarray(tree["tokens"])}, mesh, axis=0)["t"])
+    with mesh_lib.use_mesh(mesh), torch.no_grad():
+        logits = model_lib.forward(cfg.model, params, tokens)
+    return {"logits": mappings.all_gather(logits, mesh.group("dp"), 0)}
+
+
+def ppermute_case(tree: dict, meta: dict) -> dict:
+    """``mappings.ppermute`` forward and backward over the world (gloo):
+    the identity, a rotation and a partial permutation against gloo's own
+    all-gather of the inputs; the shared-memory mailbox's point-to-point
+    exchange (small boxes: the tensor goes in pieces) against gloo's; and
+    the refusals (a non-permutation, an NCCL group's CPU tensor)."""
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.parallel import mappings
+
+    g = dist.group.WORLD
+    rank, n = dist.get_rank(), dist.get_world_size()
+    x = torch.from_numpy(tree["x"][rank]).clone().requires_grad_(True)
+    out = {}
+    perms = {"identity": [(r, r) for r in range(n)],
+             "rotation": [(r, (r + 1) % n) for r in range(n)],
+             "partial": [(0, n - 1)]}
+    for name, perm in perms.items():
+        y = mappings.ppermute(x, g, perm)
+        w = torch.from_numpy(tree["w"][rank])
+        (gx,) = torch.autograd.grad((y * w).sum(), x)
+        out[f"{name}_out"] = mappings.all_gather(y.detach()[None], g, 0)
+        out[f"{name}_grad"] = mappings.all_gather(gx[None], g, 0)
+    nbytes = 64
+    paths = [os.path.join(meta["dir"], f"pbox{r}") for r in range(n)]
+    with open(paths[rank], "wb") as f:
+        f.write(bytes(nbytes))
+    dist.barrier()
+    boxes = [torch.from_file(p, shared=True, size=nbytes, dtype=torch.uint8)
+             for p in paths]
+    box = mappings.DeviceMailbox(g, boxes, torch.device("cpu"))
+    old = mappings.MAILBOX_BYTES
+    mappings.MAILBOX_BYTES = nbytes
+    try:
+        rot = perms["rotation"]
+        got = box.permute(x.detach().clone(), rot)
+        want = mappings._permute(x.detach(), g, rot)
+        out["mailbox_equal"] = torch.tensor(bool(torch.equal(got, want)))
+        part = box.permute(x.detach().clone(), perms["partial"])
+        out["mailbox_partial"] = mappings.all_gather(part[None], g, 0)
+    finally:
+        mappings.MAILBOX_BYTES = old
+    refused = []
+    try:
+        mappings.ppermute(x.detach(), g, [(0, 1), (1, 1)])
+    except ValueError:
+        refused.append("not_a_permutation")
+    real = mappings._gloo
+    mappings._gloo = lambda group: False  # as an NCCL group would answer
+    try:
+        mappings.ppermute(x.detach(), g, perms["rotation"])
+    except RuntimeError as e:
+        if "cannot move cpu tensors" in str(e):
+            refused.append("nccl_cpu")
+    finally:
+        mappings._gloo = real
+    out["refused"] = np.asarray(",".join(refused))
     return out
