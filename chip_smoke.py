@@ -311,7 +311,33 @@ it goes wrong:
     sequence parallelism and hidden dropout 0.1 (attention dropout 0, so
     K1-K3 run), 3 steps, and the cost of drawing a mask at the global
     shape for one rank's block logged.  Phases 53-56 are the ``parallel-training``
-    paths (``<phase> rank <r>`` for the spawned ranks).
+    paths (``<phase> rank <r>`` for the spawned ranks);
+57-59. pipeline, context and expert parallelism, two ranks on the card,
+    each held as 54-56 are: 57 Llama-2-7B widths cut to 4 layers, seq
+    4096, pp = 2, 4 microbatches, 1F1B (against the one-device step and
+    the port's activation-memory prediction) and interleaved (vpp = 2,
+    its params after 3 steps within ``PIPE_REL`` of 1F1B's); 58 2 layers,
+    seq 8192, cp = 2, contiguous and zigzag (K1-K3 launch 0 times: the
+    ring's blocks are plain PyTorch); 59 8 experts top-2, seq 4096, ep =
+    2 (step 1's expert choices against the one-device forward's);
+60. the encoder pipelines, two ranks, ``pretrain_custom`` with the
+    family's ``pipeline_loss_fn`` for 3 steps: T5-large widths cut to 4 +
+    4 layers, split 1, s_enc 512 / s_dec 128, and BERT-large widths cut
+    to 8 layers, seq 512, each at pp = 2 with 4 microbatches; step 1's
+    loss and grads against the one-device step with the plain loss, the
+    encoder stage's cross-attention grads exactly 0, K1-K3 all not causal
+    on the encoder stages and all causal on T5's decoder stage, K6/K7;
+61. pp = 2 x cp = 2, four ranks on the card, Llama-2-7B widths cut to 2
+    layers, seq 8192 (4096 a rank), 2 microbatches, held as 57 is, K1-K3
+    0 launches;
+62. MoE under cp and under sequence parallelism, two ranks, Llama-2-7B
+    widths cut to 2 layers, top-2: (a) cp = 2, seq 8192, 4 experts, (b)
+    tp = 2 + SP, seq 4096, 8 experts; each leaf of step 1's grads against
+    the fp32 one-device step (under cp with its attention through the
+    ring's blocks) within phase 6's limit or 1.5x the bf16 one-device
+    step's own error, the expert choices counted as 59 counts them.
+    Phases 57-62 are the ``pipeline``, ``context-parallel``, ``experts``,
+    ``encoder-pipeline``, ``pipeline-ring`` and ``moe-layouts`` paths.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -322,7 +348,7 @@ K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
 Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38, 39-41,
-42-46, 48-51 and 53-56 are the main paths:
+42-46, 48-51 and 53-62 are the main paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -6350,31 +6376,67 @@ def _first_grads(torch, cfg, dev, batch, rng):
     return loss, (grads if is_rank_0() else None)
 
 
+def _one_device(cfg, ring=False):
+    """``cfg`` on one device; with ``ring`` its attention through the
+    ring's plain blocks, a ring of one (run it inside
+    ``use_mesh(single_device_mesh())``)."""
+    from megatron_llm_tpu_torch.config import ParallelConfig
+
+    ref = dataclasses.replace(cfg, parallel=ParallelConfig()).validate()
+    if ring:
+        ref = dataclasses.replace(ref, model=dataclasses.replace(
+            ref.model, context_parallel_axis="cp"))
+    return ref
+
+
 def _tp1_check(torch, cfg, dev, batch, rng, loss, grads, label,
-               microbatches=False, after=None):
+               microbatches=False, after=None, ring=False, fp32_rule=False):
     """Rank 0: the same model's one-device step on the card (whole params
     from the same seed, the global batch as one microbatch, or as the
     step's microbatches with ``microbatches``, the same dropout key)
     against the sharded step's loss and gathered grads, at phase 6's
     limits.  ``after(params)`` runs on the one-device params before they
-    go (its result is the record's ``"after"``)."""
-    from megatron_llm_tpu_torch.config import ParallelConfig
+    go (its result is the record's ``"after"``).  With ``ring`` the
+    one-device step's attention takes the ring's plain fp32 blocks (a
+    ring of one), the arithmetic of a cp run's attention.  With
+    ``fp32_rule`` (phase 62's MoE models) each grad leaf is held, as phase
+    47 holds its leaves, against the same step in fp32: within
+    ``TRAIN_GRAD_RTOL``, or 1.5x the bf16 one-device step's own error
+    where that is larger (a bf16 rounding flips near-tie routing choices,
+    and each flip moves the router's grad: on an H100 62a read 0.093
+    against K1-K3's step and 0.064 against a ring of one)."""
+    import contextlib
+
     from megatron_llm_tpu_torch.models import model as M
     from megatron_llm_tpu_torch.models.transformer import rope_tables
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
     from megatron_llm_tpu_torch.training import step as S
-    from megatron_llm_tpu_torch.utils.tree import tree_leaves_with_path
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves_with_path, \
+        tree_map
 
-    ref = dataclasses.replace(cfg, parallel=ParallelConfig()).validate()
+    ref = _one_device(cfg, ring)
     params = M.init_params(ref.model, seed=cfg.train.seed, device=dev,
                            tp=cfg.parallel.tensor_parallel)
     whole = batch if microbatches else {
         k: v.reshape((1, -1) + v.shape[2:]) for k, v in batch.items()}
-    ref_grads, ref_loss = S._accumulate_grads(
-        ref, params, S.to_device_batch(whole, dev),
-        rope_tables(ref.model, device=dev), 1.0, rng=rng)
-    extra = after(params) if after is not None else None
+    whole = S.to_device_batch(whole, dev)
+    with (mesh_lib.use_mesh(mesh_lib.single_device_mesh()) if ring
+          else contextlib.nullcontext()):
+        ref_grads, ref_loss = S._accumulate_grads(
+            ref, params, whole, rope_tables(ref.model, device=dev), 1.0,
+            rng=rng)
+        extra = after(params) if after is not None else None
+        f32 = None
+        if fp32_rule:
+            params = tree_map(lambda t: t.float(), params)
+            ref = dataclasses.replace(ref, model=dataclasses.replace(
+                ref.model, params_dtype="float32"))
+            f32, _ = S._accumulate_grads(
+                ref, params, whole, rope_tables(ref.model, device=dev), 1.0,
+                rng=rng)
+            f32 = dict(tree_leaves_with_path(f32))
+    del params
     ref_loss = float(ref_loss)
-    worst = ("", 0.0)
     g_by = dict(tree_leaves_with_path(grads))
     r_by = dict(tree_leaves_with_path(ref_grads))
 
@@ -6390,25 +6452,41 @@ def _tp1_check(torch, cfg, dev, batch, rng, loss, grads, label,
         bq = ("layers", "attn", "bq")
         noise = {side: norm(t[bk]) / norm(t[bq])
                  for side, t in (("sharded", g_by), ("tp=1", r_by))}
-    for path, r in r_by.items():
+    # each leaf against fp32 under ``ring`` (phase 47's rule), else
+    # against the bf16 one-device step at phase 6's limit
+    against, limit_of, rule = r_by, {}, ""
+    if f32 is not None:
+        against = f32
+        limit_of = {p: max(TRAIN_GRAD_RTOL, 1.5 * norm(r_by[p] - r) / norm(r))
+                    for p, r in f32.items()}
+        direct = max(norm(g_by[p] - r.float()) / norm(r)
+                     for p, r in r_by.items() if p != bk)
+        rule = (f": {TRAIN_GRAD_RTOL} or 1.5x the bf16 one-device step's "
+                f"own error against the fp32 step; against the bf16 step "
+                f"the worst leaf reads {direct:.5f}")
+    worst = ("", 0.0, TRAIN_GRAD_RTOL)
+    for path, r in against.items():
         if path == bk:
             continue
         err = norm(g_by[path] - r.float()) / norm(r)
-        if not math.isfinite(err) or err > worst[1]:
-            worst = (".".join(path), err)
+        limit = limit_of.get(path, TRAIN_GRAD_RTOL)
+        if not math.isfinite(err) or err / limit > worst[1] / worst[2]:
+            worst = (".".join(path), err, limit)
     d = abs(loss - ref_loss)
     log(f"[rank 0] {label}: step 1 loss {loss:.5f} against the tp = 1 "
-        f"step's {ref_loss:.5f} |d| {d:.5f} (tol {TRAIN_LOSS_TOL}); worst "
+        f"step's{' (attention through a ring of one)' if ring else ''} "
+        f"{ref_loss:.5f} |d| {d:.5f} (tol {TRAIN_LOSS_TOL}); worst "
         f"gathered grad rel. Frobenius err {worst[1]:.5f} at {worst[0]} (tol "
-        f"{TRAIN_GRAD_RTOL})" + (f"; the key bias's grad norm over the query "
-                                 f"bias's {noise}" if noise else ""))
-    if not (d <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_RTOL
+        f"{worst[2]:.5f}{rule})" + (
+            f"; the key bias's grad norm over the query bias's {noise}"
+            if noise else ""))
+    if not (d <= TRAIN_LOSS_TOL and worst[1] <= worst[2]
             and all(v <= TRAIN_GRAD_RTOL for v in noise.values())):
         raise RuntimeError(f"{label}: the sharded step disagrees with the "
                            f"one-device step")
     out = dict(loss=loss, ref_loss=ref_loss, d_loss=d,
                worst_grad_rel_err=worst[1], worst_leaf=worst[0],
-               key_bias_noise=noise)
+               worst_limit=worst[2], key_bias_noise=noise)
     if extra is not None:
         out["after"] = extra
     return out
@@ -6904,14 +6982,32 @@ def _item10_cases():
 
 def _choices(torch, cfg, params, tokens, rope):
     """Each MoE layer's expert choices of a no-grad forward of
-    ``tokens`` (every rank runs it; the ranks route the same tokens) and
-    the forward's routing stats, per layer on average."""
+    ``tokens`` (every rank runs it; the ranks route the same tokens; under
+    cp each rank its block of the sequence, the blocks' choices gathered
+    in order, every group lying in one block) and the forward's routing
+    stats, per layer on average."""
+    import torch.distributed as dist
+
     from megatron_llm_tpu_torch.models import model as M
     from megatron_llm_tpu_torch.models import moe
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.training.step import context_parallel_block
 
+    b = context_parallel_block(cfg, {"tokens": tokens},
+                               mesh_lib.current_mesh())
     with torch.no_grad(), moe.record_choices([]) as got:
-        _, aux = M.forward(cfg.model, params, tokens, rope=rope,
+        _, aux = M.forward(cfg.model, params, b["tokens"],
+                           position_ids=b.get("position_ids"), rope=rope,
                            return_aux=True)
+    cp_group = mesh_lib.axis_info("cp")[0]
+    if cp_group is not None:   # a rank's aux is its share
+        if got[0][..., 0].numel() < tokens.numel():   # its block's groups
+            every = [None] * dist.get_world_size(cp_group)
+            dist.all_gather_object(every, got, group=cp_group)
+            got = [torch.cat([e[i] for e in every]) for i in range(len(got))]
+        aux = dict(aux, aux=mappings.all_reduce(aux["aux"].clone(),
+                                                cp_group))
     n = cfg.model.num_layers
     return got, {"aux": float(aux["aux"]) / n,
                  "dropped": float(aux["dropped"]) / n,
@@ -6976,7 +7072,7 @@ def _pipeline_memory(cfg, rec) -> dict:
     est = pipe.pipeline_activation_bytes(
         cfg.model, pp=par.pipeline_parallel, vpp=par.virtual_pipeline_stages,
         M=cfg.grad_accum_steps, mb=cfg.train.micro_batch_size,
-        seq_shard=cfg.train.seq_length)
+        seq_shard=cfg.train.seq_length // par.context_parallel)
     whole = M.num_params(M.init_params(cfg.model, device="meta"))
     h, v = cfg.model.hidden_size, cfg.model.padded_vocab_size()
     io = 2 * v * h + h
@@ -7047,8 +7143,10 @@ def _schedules_agree(torch, a, b) -> dict:
     return dict(worst_rel_frobenius=worst[1], worst_leaf=worst[0])
 
 
-def _item10_rank(rank, world, rdv, out_dir, smi, device="cuda"):
-    """One rank of phases 57-59 (spawned twice on the one card, gloo)."""
+def _item10_rank(rank, world, rdv, out_dir, smi, device="cuda",
+                 which="57-59"):
+    """One rank of phases 57-59 (spawned twice on the one card, gloo), or
+    of 60 and 62 (``which="60-62"``, twice) or 61 (four times)."""
     import datetime
 
     sys.path.insert(0, ROOT)
@@ -7064,13 +7162,17 @@ def _item10_rank(rank, world, rdv, out_dir, smi, device="cuda"):
         device, init_method=f"file://{rdv}", rank=rank, world_size=world,
         timeout=datetime.timedelta(minutes=10))
     if info.backend != "gloo":
-        raise RuntimeError(f"two ranks on one card took {info.backend}")
+        raise RuntimeError(f"{world} ranks on one card took {info.backend}")
     dev = info.device
     counters = launch_counters()
     out = {}
     trained = {}
+    cases = {"57-59": _item10_cases, "60-62": _moe_layout_cases,
+             "61": _ppcp_cases}[which]
     try:
-        for label, model, seq, gbs, par, need, forbid in _item10_cases():
+        if which == "60-62":
+            out.update(_enc_pipe_phase(torch, rank, dev, counters, smi))
+        for label, model, seq, gbs, par, need, forbid in cases():
             t0 = time.perf_counter()
             cfg = _par_cfg(model, seq, gbs, **par)
             ds = _MockDataset(model.vocab_size, seq, seed=cfg.train.seed)
@@ -7082,17 +7184,21 @@ def _item10_rank(rank, world, rdv, out_dir, smi, device="cuda"):
             rec = {"first": first}
             if cfg.parallel.pipeline_parallel > 1:
                 rec["memory"] = _pipeline_memory(cfg, first)
-            if rank == 0:
+            # the interleaved run is held against the 1F1B run's params
+            # (PIPE_REL), which phase 57 holds against the one-device step
+            # phase 62's MoE models are held against the fp32 one-device
+            # step (``_tp1_check``'s ``fp32_rule``), under cp with its
+            # attention through the ring's blocks
+            fp32_rule = choices is not None and which == "60-62"
+            ring = fp32_rule and cfg.parallel.context_parallel > 1
+            if rank == 0 and cfg.parallel.virtual_pipeline_stages == 1:
                 after = None
                 if choices is not None:
-                    def after(params, cfg=cfg, batch=batch):
-                        from megatron_llm_tpu_torch.config import \
-                            ParallelConfig
+                    def after(params, cfg=cfg, batch=batch, ring=ring):
                         from megatron_llm_tpu_torch.models.transformer \
                             import rope_tables
 
-                        ref = dataclasses.replace(
-                            cfg, parallel=ParallelConfig()).validate()
+                        ref = _one_device(cfg, ring)
                         got, routing = _choices(
                             torch, ref, params, torch.as_tensor(
                                 batch["tokens"][0]).to(dev),
@@ -7102,7 +7208,7 @@ def _item10_rank(rank, world, rdv, out_dir, smi, device="cuda"):
                 rec["check"] = _tp1_check(
                     torch, cfg, dev, batch, None, loss, grads, label,
                     microbatches=cfg.parallel.pipeline_parallel > 1,
-                    after=after)
+                    after=after, ring=ring, fp32_rule=fp32_rule)
                 if choices is not None:
                     log(f"[rank 0] {label}: step 1's expert choices against "
                         f"the one-device step's "
@@ -7120,7 +7226,7 @@ def _item10_rank(rank, world, rdv, out_dir, smi, device="cuda"):
             if bad:
                 raise RuntimeError(f"{label}: {bad} launched under the ring")
             rec.update(train_rec)
-            if cfg.parallel.pipeline_parallel > 1:
+            if cfg.parallel.pipeline_parallel > 1 and which == "57-59":
                 trained[label] = _whole_params(torch, cfg, state)
             del state
             gc.collect()
@@ -7154,19 +7260,23 @@ def _item10_rank(rank, world, rdv, out_dir, smi, device="cuda"):
         json.dump(out, f)
 
 
-def item10_phases(torch, dev, counters, smi, paths, settle):
+def item10_phases(torch, dev, counters, smi, paths, settle, which="57-59",
+                  world=2):
     """Phases 57-59 (the ``pipeline``, ``context-parallel`` and ``experts``
-    paths): two ranks spawned on the one card, as 54-56 are."""
+    paths), or 60 and 62 (``which="60-62"``: the ``encoder-pipeline`` and
+    ``moe-layouts`` paths) or 61 (``which="61"``, ``world=4``: the
+    ``pipeline-ring`` path): the ranks spawned on the one card, as 54-56
+    are."""
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_item10_")
     try:
-        mp.start_processes(_item10_rank, args=(2, os.path.join(work, "rdv"),
-                                               work, smi),
-                           nprocs=2, join=True, start_method="spawn")
+        mp.start_processes(_item10_rank, args=(world, os.path.join(
+            work, "rdv"), work, smi, "cuda", which), nprocs=world,
+            join=True, start_method="spawn")
         ranks = []
-        for r in range(2):
+        for r in range(world):
             with open(os.path.join(work, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
     finally:
@@ -7180,12 +7290,328 @@ def item10_phases(torch, dev, counters, smi, paths, settle):
         summary = {f"rank {r}": {k: v for k, v in rec[label].items()
                                  if k != "launches"}
                    for r, rec in enumerate(ranks)}
-        log(f"phase {label} (both ranks on the one card, gloo): "
+        log(f"phase {label} ({world} ranks on the one card, gloo): "
             + json.dumps(summary))
-        if ranks[0][label]["losses"] != ranks[1][label]["losses"]:
+        if any(rec[label]["losses"] != ranks[0][label]["losses"]
+               for rec in ranks):
             raise RuntimeError(f"{label}: the ranks logged other losses")
-    log(f"item-10 phases 57-59 in {time.perf_counter() - t0:.1f}s (two "
-        f"processes spawned on the card; card {smi})")
+    log(f"item-10 phases {which} in {time.perf_counter() - t0:.1f}s "
+        f"({world} processes spawned on the card; card {smi})")
+
+
+# ---------------------------------------------------------------------------
+# Phases 60-62: the encoder pipelines, pp x cp, MoE under cp and under SP
+# ---------------------------------------------------------------------------
+
+ENC_PP_MICRO = 4    # phase 60: microbatches a step (micro batch 1)
+ENC_PP_STEPS = 3
+PPCP_LAYERS = 2     # phase 61: Llama-2-7B widths, 2 layers, pp 2 x cp 2
+PPCP_MICRO = 2
+MOE_LAYERS = 2      # phase 62
+MOE_CP_EXPERTS = 4  # 62(a): the experts replicated over cp
+
+
+def _moe_layout_cases():
+    """Phase 62's ``(label, model, seq, global batch, parallel degrees,
+    kernels that must launch, kernels that must not)``: (a) cp = 2 at seq
+    8192 (the 512-token routing groups inside each rank's 4096), (b) tp = 2
+    with sequence parallelism at seq 4096 (each expert's ffn split)."""
+    moe = dict(moe_top_k=2, moe_capacity_factor=1.25, moe_group_size=512)
+    return (
+        ("62a cp2 moe-4x top-2 llama2-7b widths",
+         _llama_par(num_layers=MOE_LAYERS, num_experts=MOE_CP_EXPERTS,
+                    max_position_embeddings=CP_SEQ, **moe), CP_SEQ, 1,
+         dict(context_parallel=2), RMS_NEED, TRAIN_KERNELS),
+        ("62b tp2-sp moe-8x top-2 llama2-7b widths",
+         _llama_par(num_layers=MOE_LAYERS, num_experts=EP_EXPERTS, **moe),
+         PAR_SEQ, 1, dict(tensor_parallel=2, sequence_parallel=True),
+         PAR_NEED, ()),
+    )
+
+
+def _ppcp_cases():
+    """Phase 61's case: pp = 2 x cp = 2 (the ring inside each stage, the
+    contiguous layout), Llama-2-7B widths cut to 2 layers, seq 8192 (4096
+    a rank), 2 microbatches; four ranks on the one card."""
+    return (("61 pp2-cp2 llama2-7b widths",
+             _llama_par(num_layers=PPCP_LAYERS,
+                        max_position_embeddings=CP_SEQ), CP_SEQ, PPCP_MICRO,
+             dict(pipeline_parallel=2, context_parallel=2,
+                  num_microbatches=PPCP_MICRO), RMS_NEED, TRAIN_KERNELS),)
+
+
+class _EncSamples:
+    """Phase 60's samples, drawn from ``(seed, index)``: BERT's (tokens,
+    pads at the tail of odd rows, 15% of the content masked for the loss,
+    two token types, the NSP label) or T5's (encoder and decoder tokens
+    and their pads)."""
+
+    def __init__(self, kind, vocab, s_enc, s_dec=0, seed=0, n=256):
+        self.kind, self.vocab, self.s, self.s_dec = kind, vocab, s_enc, s_dec
+        self.seed, self.n = seed, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        g = np.random.default_rng((self.seed, i))
+        s, sd, v = self.s, self.s_dec, self.vocab
+
+        def pads(n, tail):
+            m = np.ones(n, np.float32)
+            if i % 2:
+                m[n - tail:] = 0.0
+            return m
+
+        if self.kind == "bert":
+            pad = pads(s, 37)
+            return {"tokens": g.integers(0, v, s), "pad_mask": pad,
+                    "labels": g.integers(0, v, s),
+                    "loss_mask": pad * (g.random(s) < 0.15),
+                    "tokentype_ids": (np.arange(s) >= s // 2).astype(
+                        np.int64),
+                    "is_random": np.int64(i % 2)}
+        dpad = pads(sd, 9)
+        return {"enc_tokens": g.integers(0, v, s),
+                "dec_tokens": g.integers(0, v, sd),
+                "labels": g.integers(0, v, sd), "loss_mask": dpad,
+                "enc_pad_mask": pads(s, 37), "dec_pad_mask": dpad}
+
+
+def _enc_pipe_cases():
+    """Phase 60's ``(label, family, config, samples, tokens a sample)``:
+    T5-large widths cut to 4 + 4 layers (split 1: the encoder on rank 0,
+    the decoder on rank 1), s_enc 512, s_dec 128; BERT-large widths cut
+    to 8 layers, seq 512 (hidden dropout 0.1, attention dropout 0, so
+    K1-K3 run); both at pp = 2, 4 microbatches of 1, the entries'
+    configs with the kernel path."""
+    from megatron_llm_tpu_torch import pretrain_bert, pretrain_t5
+
+    common = ["--data_path", "unused", "--micro_batch_size", "1",
+              "--global_batch_size", str(ENC_PP_MICRO), "--train_iters",
+              str(ENC_PP_STEPS), "--log_interval", "1",
+              "--pipeline_parallel", "2"]
+    t5 = _enc_cfg(pretrain_t5.t5_runtime_config(pretrain_t5.get_args(
+        common + ["--vocab_size", str(T5_VOCAB), "--hidden_size", "1024",
+                  "--num_layers", "4", "--num_decoder_layers", "4",
+                  "--num_attention_heads", "16", "--encoder_seq_length",
+                  "512", "--decoder_seq_length", "128",
+                  "--pipeline_split_rank", "1", "--seed", "13"])),
+        warmup=1)
+    bert = _enc_cfg(pretrain_bert.bert_runtime_config(
+        pretrain_bert.get_args(common + [
+            "--vocab_size", str(WP_VOCAB), "--hidden_size", "1024",
+            "--num_layers", "8", "--num_attention_heads", "16",
+            "--seq_length", "512", "--seed", "11"]), WP_VOCAB),
+        warmup=1, attention_dropout=0.0)
+    return (("60 t5 pp2-split1 t5-large widths", "t5", t5,
+             _EncSamples("t5", T5_VOCAB, 512, 128, seed=13), 512 + 128),
+            ("60 bert pp2 bert-large widths", "bert", bert,
+             _EncSamples("bert", WP_VOCAB, 512, seed=11), 512))
+
+
+def _enc_family(kind):
+    """``(init, loss_fn, to_staged, from_staged, staged specs, pipelined
+    grads)`` of a family."""
+    from megatron_llm_tpu_torch import pretrain_bert, pretrain_t5
+    from megatron_llm_tpu_torch.models import encdec
+    from megatron_llm_tpu_torch.parallel import pipeline_encdec as pe
+
+    if kind == "t5":
+        return (encdec.init_t5_params, pretrain_t5.t5_loss_fn,
+                pe.t5_to_pipeline_params, pe.t5_from_pipeline_params,
+                pe.t5_pipeline_param_specs, pe.t5_pipeline_loss)
+    return (encdec.init_bert_params, pretrain_bert.bert_loss_fn,
+            pe.bert_to_pipeline_params, pe.bert_from_pipeline_params,
+            pe.bert_pipeline_param_specs, pe.bert_pipeline_loss)
+
+
+def _enc_pipe_first(torch, rank, label, kind, cfg, ds, dev):
+    """Phase 60's step 1 on the first ``ENC_PP_MICRO`` samples: the
+    pipelined grads through the step (``step_grads`` with the family's
+    ``pipeline_loss_fn``, the plan's reductions), gathered; the encoder
+    stage's cross-attention grads must be exactly 0; rank 0 holds the
+    loss and grads against the one-device step with the plain loss at
+    phase 6's limits (the key bias's grad, zero in exact arithmetic, as
+    noise against the query bias's, as ``_tp1_check`` does)."""
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+    from megatron_llm_tpu_torch.parallel import pipeline_encdec as pe
+    from megatron_llm_tpu_torch.training import step as S
+    from megatron_llm_tpu_torch.training.driver import _stack_samples
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves_with_path
+
+    init, loss_fn, to, back, specs_of, pipe_grads = _enc_family(kind)
+    whole = init(cfg.model, cfg.train.seed, device=dev)
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    specs = specs_of(cfg.model, cfg.parallel)
+    staged = sharding.shard_params(to(whole, cfg.parallel), specs, mesh)
+    plan = S.make_plan(cfg, mesh, specs, staged)
+    batch = S.to_device_batch(_stack_samples(
+        [ds[i] for i in range(ENC_PP_MICRO)], (ENC_PP_MICRO, 1)), dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with mesh_lib.use_mesh(mesh):
+        grads, loss, _ = S.step_grads(cfg, staged, batch, None,
+                                      loss_fn=loss_fn, plan=plan,
+                                      pipeline_loss_fn=pipe_grads)
+        torch.cuda.synchronize(dev)
+        rec = {"grads_above_state_gib": (torch.cuda.max_memory_allocated(dev)
+                                         - base) / 2 ** 30,
+               "p2p_wait_ms": pipe.last_p2p_seconds[0] * 1e3}
+        grads = sharding.gather_params(grads, specs, mesh)
+    loss = float(loss)
+    if kind == "t5":
+        split = pe.resolve_split(cfg.parallel)
+        dummy = max(float(t[:split].abs().max()) for _, t in
+                    tree_leaves_with_path(grads["cross"]))
+        rec["encoder_stage_cross_grad_max"] = dummy
+        log(f"[rank {rank}] {label}: the encoder stage's cross-attention "
+            f"grads, max |g| {dummy!r} (must be exactly 0)")
+        if dummy != 0.0:
+            raise RuntimeError(f"{label}: the encoder stage's cross grads "
+                               "are not exactly 0")
+    if rank == 0:
+        grads = back(grads, cfg.parallel)
+        ref = dataclasses.replace(cfg, parallel=ParallelConfig()).validate()
+        ref_grads, ref_loss = S._accumulate_grads(ref, whole, batch, None,
+                                                  1.0, loss_fn=loss_fn)
+        ref_loss = float(ref_loss)
+        g_by = dict(tree_leaves_with_path(grads))
+        worst, noise = ("", 0.0), {}
+
+        def norm(t):
+            return float(torch.linalg.vector_norm(t.float()))
+
+        for path, r in tree_leaves_with_path(ref_grads):
+            if path[-1] == "bk":   # softmax ignores it: rounding noise
+                bq = path[:-1] + ("bq",)
+                noise[".".join(path)] = max(
+                    norm(g_by[path]) / norm(g_by[bq]),
+                    norm(r) / norm(dict(tree_leaves_with_path(
+                        ref_grads))[bq]))
+                continue
+            err = norm(g_by[path] - r.float()) / max(norm(r), 1e-30)
+            if not math.isfinite(err) or err > worst[1]:
+                worst = (".".join(path), err)
+        d = abs(loss - ref_loss)
+        log(f"[rank 0] {label}: step 1 loss {loss:.5f} against the "
+            f"one-device step's {ref_loss:.5f} |d| {d:.5f} (tol "
+            f"{TRAIN_LOSS_TOL}); worst gathered grad rel. Frobenius err "
+            f"{worst[1]:.5f} at {worst[0]} (tol {TRAIN_GRAD_RTOL}); key "
+            f"bias grad over the query bias's {json.dumps(noise)}")
+        if not (d <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_RTOL
+                and all(v <= TRAIN_GRAD_RTOL for v in noise.values())):
+            raise RuntimeError(f"{label}: the pipelined step disagrees with "
+                               "the one-device step")
+        rec["check"] = dict(loss=loss, ref_loss=ref_loss, d_loss=d,
+                            worst_grad_rel_err=worst[1], worst_leaf=worst[0],
+                            key_bias_noise=noise)
+        del ref_grads
+    del grads, whole, staged
+    return rec
+
+
+def _enc_pipe_train(torch, rank, label, kind, cfg, ds, dev, counters,
+                    tokens_per_sample):
+    """Phase 60's main path: ``pretrain_custom`` with the family's
+    ``pipeline_loss_fn`` (the entries' route) for ``ENC_PP_STEPS`` steps,
+    the counters zeroed just before and read just after.  Rank 0 runs the
+    encoder's (non-causal) attention, rank 1 T5's decoder (causal) or
+    BERT's second half (non-causal); both the LayerNorm kernels."""
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+    from megatron_llm_tpu_torch.training.driver import pretrain_custom
+
+    init, loss_fn, to, _, specs_of, pipe_grads = _enc_family(kind)
+    params = to(init(cfg.model, cfg.train.seed, device=dev), cfg.parallel)
+    steps, p2p = [], []
+
+    def on_step(it, m, sec):
+        steps.append((float(m["loss"]), float(m["grad_norm"]),
+                      int(m["skipped"]), sec))
+        p2p.append(pipe.last_p2p_seconds[0] * 1e3)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    comm = mappings.launches
+    state = pretrain_custom(cfg, ds, params, loss_fn,
+                            param_specs=specs_of(cfg.model, cfg.parallel),
+                            pipeline_loss_fn=pipe_grads, device=dev,
+                            on_step=on_step)
+    launches = _launches(counters)
+    comm = mappings.launches - comm
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = M.num_params(state.params)
+    del state, params
+    bad = [i for i, (lo, no, sk, _) in enumerate(steps)
+           if sk or not (math.isfinite(lo) and math.isfinite(no))]
+    if bad or len(steps) != cfg.train.train_iters or comm < 1:
+        raise RuntimeError(f"{label}: bad steps {bad} of {len(steps)}, "
+                           f"collectives {comm}")
+    want = {n: None for n in TRAIN_KERNELS + ("layernorm_fwd",
+                                              "layernorm_bwd")}
+    _check_path(f"[rank {rank}] {label}", launches, want,
+                forbid=_enc_forbid(counters))
+    causal = kind == "t5" and rank == 1
+    _check_bodies(label, launches, ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv"))
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        if launches[n + "_noncausal"] != (0 if causal else launches[n]):
+            raise RuntimeError(f"{label} rank {rank}: {n} launched "
+                               f"{launches[n]} times, "
+                               f"{launches[n + '_noncausal']} not causal; "
+                               f"want all {'causal' if causal else 'not'}")
+    step_s = sorted(x[3] for x in steps[1:])[(len(steps) - 1) // 2]
+    tokens = cfg.train.global_batch_size * tokens_per_sample
+    return dict(launches=launches, collectives=comm,
+                losses=[x[0] for x in steps],
+                grad_norms=[x[1] for x in steps], step_ms=step_s * 1e3,
+                first_step_ms=steps[0][3] * 1e3, tokens_per_s=tokens / step_s,
+                peak_gib=peak / 2 ** 30, p2p_wait_ms=p2p,
+                n_params=n_params)
+
+
+def _enc_pipe_phase(torch, rank, dev, counters, smi) -> dict:
+    """Phase 60 on this rank (the ``encoder-pipeline`` path): each
+    family's step-1 check, then its main path."""
+    from megatron_llm_tpu_torch import initialize
+
+    out = {}
+    for label, kind, cfg, ds, tokens in _enc_pipe_cases():
+        t0 = time.perf_counter()
+        rec = {"first": _enc_pipe_first(torch, rank, label, kind, cfg, ds,
+                                        dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        initialize.barrier()
+        rec.update(_enc_pipe_train(torch, rank, label, kind, cfg, ds, dev,
+                                   counters, tokens))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"[rank {rank}] {label}: losses "
+            f"{[round(x, 4) for x in rec['losses']]}; step (median of steps "
+            f"2-{ENC_PP_STEPS}) {rec['step_ms']:.1f} ms, first "
+            f"{rec['first_step_ms']:.1f} ms; {rec['tokens_per_s']:.1f} "
+            f"tokens/s; peak memory {rec['peak_gib']:.2f} GiB; ppermute "
+            f"wait a step {[round(x, 1) for x in rec['p2p_wait_ms']]} ms; "
+            f"{rec['n_params'] / 1e6:.1f}M params on this rank; "
+            f"{rec['collectives']} collectives; host clock; card {smi}")
+        out[label] = rec
+        initialize.barrier()
+    return out
 
 
 def log_hmma(build) -> None:
@@ -7461,6 +7887,8 @@ def main() -> int:
     encoder_families_phases(torch, dev, counters, smi, paths, settle)
     parallel_phases(torch, dev, counters, smi, paths, settle)
     item10_phases(torch, dev, counters, smi, paths, settle)
+    item10_phases(torch, dev, counters, smi, paths, settle, "60-62")
+    item10_phases(torch, dev, counters, smi, paths, settle, "61", world=4)
 
     meta = {
         "flash_attention_fwd": (

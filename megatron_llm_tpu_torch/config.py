@@ -5,8 +5,9 @@ with torch dtypes, and the ``ParallelConfig``, ``OptimizerConfig``,
 ``TrainConfig`` and ``RuntimeConfig`` of the training path.  Every field,
 default and preset is the same, so a config built here describes the same
 run as its JAX twin.  ``RuntimeConfig.validate`` refuses, with
-``NotImplementedError`` naming the ROADMAP item, what the single-device
-training path does not run: parallel degrees above 1.
+``NotImplementedError`` naming the ROADMAP item, what the port does not
+run yet: the ``fsdp`` serving axis and int8 training matmuls under tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -382,17 +383,15 @@ class RuntimeConfig:
         return self
 
     def _validate_item10(self, m: ModelConfig) -> ModelConfig:
-        """Pipeline, context and expert parallelism: JAX's checks, the cp
-        axis and layout wired into the model (set AND cleared, JAX
-        config.py:479-510), and the combinations JAX runs that the port
-        does not yet, refused naming them."""
+        """Pipeline, context and expert parallelism: JAX's checks and the
+        cp axis and layout wired into the model (set AND cleared, JAX
+        config.py:479-510).  Every combination JAX runs, the port runs.
+        The layer counts are checked where a pipeline lays its stages
+        out, as in JAX (``parallel/mesh.pipeline_stage_layers``; the
+        encoder-decoder split, ``parallel/pipeline_encdec.py``)."""
         par = self.parallel
         pp, cp, ep = (par.pipeline_parallel, par.context_parallel,
                       par.expert_parallel)
-        if pp > 1 and m.num_layers % (pp * par.virtual_pipeline_stages):
-            raise ValueError(
-                f"num_layers {m.num_layers} must divide into pp * vpp = "
-                f"{pp * par.virtual_pipeline_stages} chunks")
         axis, zigzag = None, False
         if cp > 1:
             axis = "cp"
@@ -422,18 +421,6 @@ class RuntimeConfig:
             if m.num_experts % ep:
                 raise ValueError(f"num_experts {m.num_experts} must divide "
                                  f"by expert_parallel {ep}")
-        refused = []
-        if pp > 1 and cp > 1:
-            refused.append("pipeline with context parallelism")
-        if m.num_experts > 0 and cp > 1:
-            refused.append("MoE with context parallelism")
-        if m.num_experts > 0 and par.tensor_parallel > 1 and \
-                par.sequence_parallel:
-            refused.append("MoE with sequence parallelism")
-        if refused:
-            raise NotImplementedError(
-                f"{', '.join(refused)} is not ported yet (ROADMAP.md, Queue "
-                "1 item 10's remainder)")
         return m
 
     @property

@@ -27,10 +27,12 @@ receives an adapter-only checkpoint at ``<save>/adapter``, and
 (``initialize.initialize_distributed`` joins the world from its
 environment; two ranks on one GPU talk over gloo, one rank a GPU over
 NCCL); ``--num_experts`` makes the MLPs routed experts (``--moe_top_k``,
-``--moe_capacity_factor``, ``--moe_aux_loss_coeff``).  What the port
-does not have raises ``NotImplementedError`` naming the ROADMAP item:
-pipeline with context parallelism, MoE under sequence parallelism or cp (item 10's
-remainder), and LoRA or int8 training matmuls under parallelism.
+``--moe_capacity_factor``, ``--moe_aux_loss_coeff``).  The degrees
+combine as JAX's do: ``--pp`` with ``--cp`` (the contiguous layout; the
+zigzag layout under pp is JAX's own refusal, its ``config.py:494-498``),
+and ``--num_experts`` with ``--cp`` or ``--sequence_parallel``.  What
+the port does not have raises ``NotImplementedError`` naming the ROADMAP
+item: LoRA or int8 training matmuls under parallelism.
 
     python -m megatron_llm_tpu_torch.finetune --model tiny --mock_data \\
         --train_iters 10 --device cpu --log_interval 1 --save ckpt
@@ -45,6 +47,8 @@ remainder), and LoRA or int8 training matmuls under parallelism.
         --model llama2 --pp 2 --global_batch_size 8 --mock_data ...
     torchrun --nproc_per_node 2 -m megatron_llm_tpu_torch.finetune \
         --model llama2 --num_experts 8 --ep 2 --mock_data ...
+    torchrun --nproc_per_node 4 -m megatron_llm_tpu_torch.finetune \
+        --model llama2 --pp 2 --cp 2 --global_batch_size 4 --mock_data ...
 """
 
 from __future__ import annotations

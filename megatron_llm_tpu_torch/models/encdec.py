@@ -152,11 +152,14 @@ def _encoder_side(pad_mask: Optional[torch.Tensor]) -> AttnSideInputs:
 
 def encoder_forward(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
                     pad_mask: Optional[torch.Tensor], base_rng=None,
-                    deterministic: bool = True) -> torch.Tensor:
+                    deterministic: bool = True,
+                    layer_offset: int = 0) -> torch.Tensor:
     """The bidirectional stack (no RoPE: BERT and T5 use absolute
-    positions), each layer under ``cfg.recompute``."""
+    positions), each layer under ``cfg.recompute``; ``layer_offset`` is
+    the global index of its first layer (a pipeline stage's)."""
     return stack_forward(cfg, stacked, x, _encoder_side(pad_mask),
-                         _stack_key(base_rng, deterministic))
+                         _stack_key(base_rng, deterministic),
+                         layer_offset=layer_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -203,13 +206,10 @@ def init_bert_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     return _init_bert(cfg, gen, device, tp)
 
 
-def bert_encode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                pad_mask: torch.Tensor,
-                tokentype_ids: Optional[torch.Tensor] = None,
-                rng=None, deterministic: bool = True):
-    """The shared BERT trunk → ``(hidden [b, s, h], pooled [CLS] [b, h])``,
-    used by the pretraining heads, the biencoder and the downstream
-    tasks."""
+def bert_embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+               tokentype_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Word + position + tokentype embeddings through the embedding norm
+    (``params`` needs ``embedding`` and ``embed_norm``)."""
     b, s = tokens.shape
     emb = params["embedding"]
     if tokentype_ids is None:
@@ -218,10 +218,12 @@ def bert_encode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     pos = torch.arange(s, device=tokens.device)[None, :]
     x = _word_lookup(cfg, emb["word"], tokens) + emb["position"][pos] \
         + emb["tokentype"][tokentype_ids]
-    x = norm_apply(cfg.norm_type, x, params["embed_norm"], cfg.norm_eps,
-                   impl=cfg.norm_impl)
-    x = encoder_forward(cfg, params["layers"], x, pad_mask, rng,
-                        deterministic)
+    return norm_apply(cfg.norm_type, x, params["embed_norm"], cfg.norm_eps,
+                      impl=cfg.norm_impl)
+
+
+def _bert_tail(cfg: ModelConfig, params: Params, x: torch.Tensor):
+    """The encoder's output through the final norm, and the pooled [CLS]."""
     x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
                    impl=cfg.norm_impl)
     pooled = torch.tanh(x[:, 0] @ params["pooler"]["w"]
@@ -229,13 +231,21 @@ def bert_encode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return x, pooled
 
 
-def bert_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 pad_mask: torch.Tensor,
-                 tokentype_ids: Optional[torch.Tensor] = None,
-                 rng=None, deterministic: bool = True):
-    """→ ``(mlm_logits [b, s, v] fp32, binary_logits [b, 2] fp32)``."""
-    x, pooled = bert_encode(cfg, params, tokens, pad_mask, tokentype_ids,
-                            rng, deterministic)
+def bert_encode(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                pad_mask: torch.Tensor,
+                tokentype_ids: Optional[torch.Tensor] = None,
+                rng=None, deterministic: bool = True):
+    """The shared BERT trunk → ``(hidden [b, s, h], pooled [CLS] [b, h])``,
+    used by the pretraining heads, the biencoder and the downstream
+    tasks."""
+    x = bert_embed(cfg, params, tokens, tokentype_ids)
+    x = encoder_forward(cfg, params["layers"], x, pad_mask, rng,
+                        deterministic)
+    return _bert_tail(cfg, params, x)
+
+
+def _bert_heads(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                pooled: torch.Tensor):
     head = params["lm_head"]
     t = F.gelu(x @ head["dense"] + head["dense_bias"], approximate="tanh")
     t = norm_apply(cfg.norm_type, t, head["norm"], cfg.norm_eps,
@@ -247,13 +257,17 @@ def bert_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return mlm_logits, binary_logits
 
 
-def bert_loss(cfg: ModelConfig, params: Params, batch: dict,
-              rng=None, deterministic: bool = True):
-    """Masked-LM + NSP loss (reference bert_model.py
-    post_language_model_processing + pretrain_bert.py forward_step)."""
-    mlm_logits, bin_logits = bert_forward(
-        cfg, params, batch["tokens"], batch["pad_mask"],
-        batch.get("tokentype_ids"), rng, deterministic)
+def bert_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 pad_mask: torch.Tensor,
+                 tokentype_ids: Optional[torch.Tensor] = None,
+                 rng=None, deterministic: bool = True):
+    """→ ``(mlm_logits [b, s, v] fp32, binary_logits [b, 2] fp32)``."""
+    x, pooled = bert_encode(cfg, params, tokens, pad_mask, tokentype_ids,
+                            rng, deterministic)
+    return _bert_heads(cfg, params, x, pooled)
+
+
+def _bert_loss_of(cfg: ModelConfig, mlm_logits, bin_logits, batch: dict):
     lm = _lm_cross_entropy(cfg, mlm_logits, batch["labels"])
     total = masked_mean_loss(lm, batch["loss_mask"], batch.get("loss_denom"))
     if "is_random" in batch:
@@ -261,6 +275,25 @@ def bert_loss(cfg: ModelConfig, params: Params, batch: dict,
                             batch["is_random"][:, None], vocab_size=2)
         total = total + torch.mean(nsp)
     return total
+
+
+def bert_loss(cfg: ModelConfig, params: Params, batch: dict,
+              rng=None, deterministic: bool = True):
+    """Masked-LM + NSP loss (reference bert_model.py
+    post_language_model_processing + pretrain_bert.py forward_step)."""
+    return _bert_loss_of(cfg, *bert_forward(
+        cfg, params, batch["tokens"], batch["pad_mask"],
+        batch.get("tokentype_ids"), rng, deterministic), batch)
+
+
+def bert_head_loss(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   batch: dict):
+    """``bert_loss`` from the encoder stack's output ``x`` on (the last
+    pipeline stage's part: ``params`` needs the embedding, the final norm
+    and the heads)."""
+    return _bert_loss_of(cfg, *_bert_heads(cfg, params,
+                                           *_bert_tail(cfg, params, x)),
+                         batch)
 
 
 # ---------------------------------------------------------------------------
@@ -389,41 +422,63 @@ def t5_decoder_forward(cfg: ModelConfig, stacked: Params, cross: Params,
     return x
 
 
+def t5_embed(cfg: ModelConfig, params: Params,
+             tokens: torch.Tensor) -> torch.Tensor:
+    """The shared word embedding plus the learned positions."""
+    emb = params["embedding"]
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    return _word_lookup(cfg, emb["word"], tokens) + emb["position"][pos]
+
+
+def _t5_logits(cfg: ModelConfig, params: Params,
+               dec: torch.Tensor) -> torch.Tensor:
+    dec = norm_apply(cfg.norm_type, dec, params["dec_norm"], cfg.norm_eps,
+                     impl=cfg.norm_impl)
+    return _tied_logits(cfg, dec, params["embedding"]["word"],
+                        params["lm_head_bias"])
+
+
 def t5_forward(cfg: ModelConfig, params: Params, enc_tokens: torch.Tensor,
                dec_tokens: torch.Tensor,
                enc_pad_mask: Optional[torch.Tensor] = None,
                dec_pad_mask: Optional[torch.Tensor] = None,
                rng=None, deterministic: bool = True) -> torch.Tensor:
     """→ decoder logits ``[b, s_dec, padded_vocab]`` fp32."""
-    emb = params["embedding"]
-
-    def embed(tokens):
-        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        return _word_lookup(cfg, emb["word"], tokens) + emb["position"][pos]
-
     enc_rng = dec_rng = None
     if rng is not None:
         enc_rng, dec_rng = drop.split(rng)
-    enc = encoder_forward(cfg, params["encoder"], embed(enc_tokens),
-                          enc_pad_mask, enc_rng, deterministic)
+    enc = encoder_forward(cfg, params["encoder"],
+                          t5_embed(cfg, params, enc_tokens), enc_pad_mask,
+                          enc_rng, deterministic)
     enc = norm_apply(cfg.norm_type, enc, params["enc_norm"], cfg.norm_eps,
                      impl=cfg.norm_impl)
     dec = t5_decoder_forward(cfg, params["decoder"], params["cross"],
-                             embed(dec_tokens), enc, dec_pad_mask,
-                             enc_pad_mask, dec_rng, deterministic)
-    dec = norm_apply(cfg.norm_type, dec, params["dec_norm"], cfg.norm_eps,
-                     impl=cfg.norm_impl)
-    return _tied_logits(cfg, dec, emb["word"], params["lm_head_bias"])
+                             t5_embed(cfg, params, dec_tokens), enc,
+                             dec_pad_mask, enc_pad_mask, dec_rng,
+                             deterministic)
+    return _t5_logits(cfg, params, dec)
+
+
+def _t5_loss_of(cfg: ModelConfig, logits: torch.Tensor, batch: dict):
+    per_tok = _lm_cross_entropy(cfg, logits, batch["labels"])
+    return masked_mean_loss(per_tok, batch["loss_mask"],
+                            batch.get("loss_denom"))
 
 
 def t5_loss(cfg: ModelConfig, params: Params, batch: dict,
             rng=None, deterministic: bool = True):
-    logits = t5_forward(cfg, params, batch["enc_tokens"],
-                        batch["dec_tokens"], batch.get("enc_pad_mask"),
-                        batch.get("dec_pad_mask"), rng, deterministic)
-    per_tok = _lm_cross_entropy(cfg, logits, batch["labels"])
-    return masked_mean_loss(per_tok, batch["loss_mask"],
-                            batch.get("loss_denom"))
+    return _t5_loss_of(cfg, t5_forward(
+        cfg, params, batch["enc_tokens"], batch["dec_tokens"],
+        batch.get("enc_pad_mask"), batch.get("dec_pad_mask"), rng,
+        deterministic), batch)
+
+
+def t5_head_loss(cfg: ModelConfig, params: Params, dec: torch.Tensor,
+                 batch: dict):
+    """``t5_loss`` from the decoder stack's output ``dec`` on (the last
+    pipeline stage's part: ``params`` needs the embedding, ``dec_norm``
+    and ``lm_head_bias``)."""
+    return _t5_loss_of(cfg, _t5_logits(cfg, params, dec), batch)
 
 
 # ---------------------------------------------------------------------------

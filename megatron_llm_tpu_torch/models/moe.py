@@ -26,7 +26,36 @@ averages them over the current mesh's dp group, and the aux loss takes
 this rank's ``p_e`` against the global ``f_e``, so its mean over dp is
 JAX's global aux.  The pipeline (``parallel/pipeline.py``) runs inside
 ``shard_local_stats``, as JAX's pipeline runs ``moe_block`` inside its
-manual dp region, where each dp shard's stats are its own.
+manual dp and cp region, where each shard's stats are its own and the
+routing groups are cut from the shard's own sequence.
+
+Under context parallelism (outside the pipeline) JAX routes the whole
+sequence: ``group_size`` is taken of the whole length, and GSPMD keeps
+each group of ``g`` tokens where its tokens are.  A rank here holds a
+contiguous block of ``s / cp`` tokens of the sequence as the step laid
+it out (the zigzag layout's ``[r, 2 cp - 1 - r]`` chunks are one
+contiguous block of the permuted sequence, which JAX's groups are cut
+from too), so the groups are the same groups wherever ``g`` divides the
+block: each rank routes its own block, ``f_e`` and ``dropped`` are
+averaged over cp, and ``aux`` is this rank's share (its ``p_e`` against
+the global ``f_e``, over cp).  Where ``g`` does not divide the block (a
+group would straddle two ranks), the block gathers the cp group's
+tokens and router probabilities (``gather_from_sequence_region``, whose
+backward sums the ranks' partial grads), every cp rank routes the whole
+sequence alike, keeps its own block of the output, and takes ``1 / cp``
+of the whole aux as its share.  The step sums the loss and the aux over
+cp, as it sums the LM loss's shares.
+
+Under sequence parallelism the router runs on this rank's ``s / tp``
+block and its probabilities are gathered whole (``gather_whole``: the
+backward keeps the block's grad, so the router's grad is this rank's
+part, which the step sums over tp as it sums every replicated leaf's
+under sequence parallelism); the experts take the sequence-gathered
+input (``gather_from_sequence_region``, whose backward reduce-scatters
+the ffn shards' partial grads) and the block's output leaves as this
+rank's block (``split_region``, whose backward gathers the blocks'
+grads), so everything between is the tp path without sequence
+parallelism.
 """
 
 from __future__ import annotations
@@ -144,17 +173,32 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     load-balance loss) and ``dropped`` (the fraction of (token, choice)
     assignments lost to capacity) and ``load [E]`` (each expert's share
     of the assignments).  Under a current mesh with ep > 1 ``p``'s expert
-    leaves are this rank's ``E / ep`` experts."""
+    leaves are this rank's ``E / ep`` experts; under cp ``aux`` is this
+    rank's share of the whole sequence's."""
     ep_group, ep, ep_rank = axis_info("ep")
-    b_in, s_in, h = x.shape
-    g = group_size(cfg, s_in)
+    tp_group, tp, _ = axis_info("tp")
+    cp_group, cp, _ = axis_info("cp")
+    sp = tp > 1 and cfg.sequence_parallel_axis is not None
+    whole_cp = cp > 1 and not _SHARD_LOCAL[0]
+    E, k = cfg.num_experts, cfg.moe_top_k
+    # the router on this rank's tokens (under sequence parallelism its
+    # s / tp block), the probabilities gathered whole
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    if sp:
+        x = mappings.gather_from_sequence_region(x, tp_group)
+        probs = mappings.gather_whole(probs, tp_group)
+    b_in, s_block, h = x.shape
+    g = group_size(cfg, s_block * cp if whole_cp else s_block)
+    gather_cp = whole_cp and s_block % g != 0
+    if gather_cp:   # a group straddles cp blocks: route the whole sequence
+        x = mappings.gather_from_sequence_region(x, cp_group)
+        probs = mappings.gather_from_sequence_region(probs, cp_group)
+    s_in = x.shape[1]
     x = x.reshape(b_in * (s_in // g), g, h)
     b, s, _ = x.shape
-    E, k = cfg.num_experts, cfg.moe_top_k
     C = capacity(cfg, s)
     act = get_activation(cfg.activation)
-
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)     # [b, s, E]
+    probs = probs.reshape(b, s, E)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)         # [b, s, k]
     if k > 1:
         gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -179,27 +223,31 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     combine = sum(gate_vals[..., j, None, None] * sels[j] for j in range(k))
 
     f_e = frac / (b * s * k)
+    dropped = 1.0 - dispatch.sum() / (b * s * k)
     dp_group, dp, _ = axis_info("dp")
-    if dp > 1 and not _SHARD_LOCAL[0]:   # JAX's global fractions
-        f_e = mappings.all_reduce(f_e.clone(), dp_group) / dp
+    for group, n, on in ((dp_group, dp, not _SHARD_LOCAL[0]),
+                         (cp_group, cp, whole_cp and not gather_cp)):
+        if n > 1 and on:   # JAX's global fractions
+            f_e = mappings.all_reduce(f_e.clone(), group) / n
+            dropped = mappings.all_reduce(dropped.detach().clone(),
+                                          group) / n
     p_e = probs.mean(dim=(0, 1))
     aux = E * torch.sum(f_e * p_e)
-    dropped = 1.0 - dispatch.sum() / (b * s * k)
-    if dp > 1 and not _SHARD_LOCAL[0]:
-        dropped = mappings.all_reduce(dropped.detach().clone(),
-                                      dp_group) / dp
+    if whole_cp:
+        aux = aux / cp
 
     e_local = p["w_up"].shape[0]
-    tp_group, tp, _ = axis_info("tp")
     if ep > 1:
         # every ep rank routes the same tokens; each runs its own experts
         x = mappings.copy_to_tensor_region(x, ep_group)
         combine = mappings.copy_to_tensor_region(combine, ep_group)
     # under tp the experts' ffn is split as the dense MLP's: a column
-    # input, and the down projection's partial sums reduced before the
-    # combine (so the combine weights' grad, and the router's, are whole
-    # on every tp rank)
-    x = mappings.copy_to_tensor_region(x, tp_group)
+    # input (under sequence parallelism the gather above, whose backward
+    # sums the partial grads), and the down projection's partial sums
+    # reduced before the combine (so the combine weights' grad, and the
+    # router's, are whole on every tp rank)
+    if not sp:
+        x = mappings.copy_to_tensor_region(x, tp_group)
     lo = ep_rank * e_local if ep > 1 else 0
     disp = dispatch[:, :, lo:lo + e_local]
     comb = combine[:, :, lo:lo + e_local]
@@ -215,5 +263,10 @@ def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor):
     out = torch.einsum("ebch,bsec->bsh", xout, comb.to(x.dtype))
     if ep > 1:
         out = mappings.reduce_from_tensor_region(out, ep_group)
-    return out.reshape(b_in, s_in, h), {
-        "aux": aux, "dropped": dropped, "load": f_e}
+    out = out.reshape(b_in, s_in, h)
+    if gather_cp:   # this rank's block; the rest's grads are other ranks'
+        lo = axis_info("cp")[2] * s_block
+        out = out[:, lo:lo + s_block]
+    if sp:
+        out = mappings.split_region(out, tp_group)
+    return out, {"aux": aux, "dropped": dropped, "load": f_e}

@@ -19,8 +19,9 @@ redraws the forward's masks from the same keys (``ops/dropout.py``).
 Without a key the forward is deterministic.  Serving-quantized weights
 (``ops/quant.py``) go through ``mm``, and ``quantize_matmuls="int8"``
 sends plain weights through ``int8_training_matmul``; a MoE model's MLP
-is ``models/moe.moe_block`` (``mlp_dispatch``), its stats summed down
-the stack.  ``stack_forward`` and
+is ``models/moe.moe_block`` (``mlp_dispatch``; under sequence
+parallelism it gathers and splits the sequence itself), its stats summed
+down the stack.  ``stack_forward`` and
 ``stack_forward_cached`` take the LoRA bundle (``ops/lora.py``): each
 targeted projection gains its grouped epilogue right after the base
 product, on the training path (LoRA finetuning, ``training/lora.py``)
@@ -372,10 +373,6 @@ def mlp_dispatch(cfg: ModelConfig, p: Params, x: torch.Tensor, lora=None):
     if cfg.num_experts > 0:
         from .moe import moe_block
 
-        if tp_layout(cfg)[3]:
-            raise NotImplementedError(
-                "a MoE layer under sequence parallelism is not ported yet "
-                "(ROADMAP.md, Queue 1 item 10's remainder)")
         return moe_block(cfg, p, x)
     return mlp_block(cfg, p, x, lora), None
 

@@ -232,7 +232,10 @@ def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
     (``parallel/ring_attention.py``; zigzag-ordered shards with
     ``cp_zigzag``), whatever ``impl`` says: its blocks are plain PyTorch,
     as JAX's are (JAX ``ops/attention.py:515-540``).  It takes neither a
-    bias nor attention dropout, and raises on either."""
+    bias nor attention dropout, and raises on either.  Under
+    ``ring_attention.whole_sequence`` q, k and v are the whole sequence
+    on every cp rank (a custom loss's batch, which the step does not cut).
+    """
     if cp_axis is not None:
         if bias is not None or dropout_rate > 0.0:
             raise ValueError(
@@ -240,8 +243,16 @@ def attention(q, k, v, *, impl: str = "dot", causal: bool = True,
                 "attention bias or attention dropout; set "
                 "attention_dropout=0 or disable context_parallel")
         from ..parallel.ring_attention import ring_attention, \
-            ring_attention_zigzag
+            ring_attention_whole, ring_attention_zigzag, whole_sequence_on
 
+        if whole_sequence_on():
+            if cp_zigzag:
+                raise ValueError("the zigzag cp layout takes the LM loss's "
+                                 "permuted batch; a custom loss runs the "
+                                 "contiguous ring")
+            return ring_attention_whole(
+                q, k, v, mesh=mesh, axis_name=cp_axis, causal=causal,
+                segment_ids=segment_ids, softmax_scale=softmax_scale)
         if cp_zigzag:
             if not causal:
                 raise ValueError("zigzag cp layout is causal-only")

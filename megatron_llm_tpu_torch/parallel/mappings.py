@@ -19,6 +19,14 @@ mappings.py), as ``torch.autograd.Function``s, each the other's adjoint:
   the sequence-sharded residual stream);
 - ``gather_from_data_region``: all-gather along the batch forward,
   reduce-scatter backward (the ICT loss's in-batch contexts under dp);
+- ``gather_whole`` and ``split_region``: all-gather forward and this
+  rank's block of the grad backward, and the reverse (reference
+  ``gather_from_sequence_parallel_region(tensor_parallel_output_grad=
+  False)`` and ``scatter_to_sequence_parallel_region``): a tensor every
+  rank computes whole from the gathered blocks, such as the MoE router's
+  probabilities under sequence parallelism (``models/moe.py``) and ring
+  attention over a sequence every cp rank holds whole
+  (``parallel/ring_attention.whole_sequence``);
 - ``ppermute``: each rank's tensor sent to its destination in a
   permutation of the group, the reverse permutation backward (JAX's
   ``lax.ppermute``): the pipeline's stage-to-stage sends and the ring's
@@ -390,6 +398,28 @@ class _ReduceScatterToRegion(torch.autograd.Function):
         return all_gather(g, ctx.group, ctx.dim), None, None
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class _SplitRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return split(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, pairs):
@@ -449,6 +479,23 @@ def gather_from_data_region(x: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _GatherFromRegion.apply(x, group, 0)
+
+
+def gather_whole(x: torch.Tensor, group, dim: int = SEQ_DIM) -> torch.Tensor:
+    """The ranks' blocks joined along ``dim`` (every rank computes on the
+    whole alike); the backward keeps this rank's block of the whole's grad
+    (every rank holds the same whole grad, so nothing is summed)."""
+    if group_size(group) == 1:
+        return x
+    return _GatherWhole.apply(x, group, dim)
+
+
+def split_region(x: torch.Tensor, group, dim: int = SEQ_DIM) -> torch.Tensor:
+    """This rank's block of a tensor every rank holds whole alike; the
+    backward all-gathers the blocks' grads into the whole's."""
+    if group_size(group) == 1:
+        return x
+    return _SplitRegion.apply(x, group, dim)
 
 
 def column_input(x: torch.Tensor, group, sequence_parallel: bool):

@@ -145,8 +145,9 @@ def pipeline_stage_layers(num_layers: int, pp: int, vpp: int = 1) -> list:
     """Layers per pipeline stage (they must divide evenly, as the
     reference's num_layers // pipeline size, transformer.py:845-895)."""
     chunks = pp * vpp
-    assert num_layers % chunks == 0, (
-        f"num_layers {num_layers} must divide pipeline stages {chunks}")
+    if num_layers % chunks:
+        raise ValueError(f"num_layers {num_layers} must divide into pp * vpp"
+                         f" = {chunks} chunks")
     return [num_layers // chunks] * chunks
 
 

@@ -48,6 +48,16 @@ and correctness for the registry metrics; the MoE aux sums count every
 (stage, chunk, microbatch) once and no bubble; the dropout keys are
 folded per (microbatch, ring position ``chunk * pp + stage``), with the
 global layer offset for the LIMA and drop-path ramps.
+
+Under context parallelism (pp x cp, the contiguous layout) each rank
+runs its block of every microbatch's sequence, with global position ids
+(the step cuts the batch, ``training/step.context_parallel_block``), and
+attention's ring runs over the stage's own cp group; the head's loss is
+this rank's share of the masked mean (the denominators count the whole
+sequence), which the step sums over cp, as JAX's ``cp_sum`` does, and a
+MoE aux is a cp shard's, its mean over cp JAX's.  ``run_lockstep`` is
+the loop of the steps, shared with the encoder families' pipeline
+(``parallel/pipeline_encdec.py``).
 """
 
 from __future__ import annotations
@@ -363,6 +373,54 @@ def _boundary_shape(cfg: RuntimeConfig, mb: int, s: int) -> tuple:
     return (mb, s // tp if sp else s, cfg.model.hidden_size)
 
 
+def run_lockstep(steps: list, stage: int, vpp: int, shape: tuple, dtype,
+                 device, forward, backward) -> None:
+    """Run this stage's part of the lockstep ``steps`` (``build_schedule``;
+    every stage of the current mesh's pp group calls it with the same
+    steps): ``forward(m, c, x_in)`` (``x_in`` None at chunk 0 of stage 0)
+    returns the tensor its successor takes, or None after the last chunk;
+    ``backward(m, c, g_out)`` (``g_out`` None where the forward returned
+    None) returns the input's grad, or None at chunk 0 of stage 0.  After
+    each step the forwards' outputs move one ring position on and the
+    input grads one back, each a ``mappings.ppermute`` of ``shape`` over
+    the pp group of the pairs that send; ``last_p2p_seconds`` keeps the
+    time spent in them."""
+    pp_group, pp, _ = mesh_lib.axis_info(PP)
+    recv_f, recv_b = {}, {}
+    p2p = 0.0
+    for row in steps:
+        act = row[stage]
+        sent_f = sent_b = None
+        if act is not None:
+            kind, m, c = act
+            if kind == "F":
+                sent_f = forward(m, c, recv_f.pop((m, c), None))
+            else:
+                sent_b = backward(m, c, recv_b.pop((m, c), None))
+        t0 = time.perf_counter()
+        # the outputs one ring position on, the input grads one back
+        for kind, where, store, sent in (
+                ("F", next_position, recv_f, sent_f),
+                ("B", prev_position, recv_b, sent_b)):
+            pairs, dest = [], {}
+            for s_, a in enumerate(row):
+                if a is None or a[0] != kind:
+                    continue
+                to = where(s_, a[2], pp, vpp)
+                if to is not None:
+                    pairs.append((s_, to[0]))
+                    dest[to[0]] = (a[1], to[1])
+            if not pairs:
+                continue
+            buf = sent if sent is not None else torch.empty(
+                shape, dtype=dtype, device=device)
+            got = mappings.ppermute(buf.to(dtype), pp_group, pairs)
+            if stage in dest:
+                store[dest[stage]] = got
+        p2p += time.perf_counter() - t0
+    last_p2p_seconds[0] = p2p
+
+
 def pipeline_grads(cfg: RuntimeConfig, params: PyTree, batch: dict, *,
                    rng=None, rope=None, loss_scale: float = 1.0,
                    backward: bool = True, return_stats: bool = False):
@@ -422,7 +480,8 @@ def pipeline_grads(cfg: RuntimeConfig, params: PyTree, batch: dict, *,
 
     shape = _boundary_shape(cfg, mb, s)
     dtype = model.dtype
-    recv_f, recv_b, saved = {}, {}, {}
+    cp = mesh_lib.axis_info(mesh_lib.CONTEXT_AXIS)[1]
+    saved = {}
     loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
     aux_sum = None
     stats = None
@@ -430,19 +489,16 @@ def pipeline_grads(cfg: RuntimeConfig, params: PyTree, batch: dict, *,
         stats = (torch.zeros((M, mb, s), device=tokens.device),
                  torch.zeros((M, mb, s), device=tokens.device))
     last = stage == pp - 1
-    p2p = 0.0
 
-    def run_forward(m, c):
+    def run_forward(m, c, x_in):
         nonlocal loss_sum, aux_sum
         first = stage == 0 and c == 0
         if first:
-            x_in = None
             ek = None if embed_key is None else drop.fold_in(embed_key, m)
             x = model_lib.embed(model, io_live, tokens[m],
                                 None if pos is None else pos[m], None,
                                 ek).to(dtype)
         else:
-            x_in = recv_f.pop((m, c))
             if backward:
                 x_in.requires_grad_(True)
             x = x_in
@@ -474,15 +530,17 @@ def pipeline_grads(cfg: RuntimeConfig, params: PyTree, batch: dict, *,
             saved[(m, c)] = (x_in, target, aux)
         return None if target is not out else out.detach()
 
-    def run_backward(m, c):
+    def run_backward(m, c, g_out):
         x_in, target, aux = saved.pop((m, c))
         if last and c == vpp - 1:
             outs, grads = [target * loss_scale], [None]
         else:
-            outs, grads = [target], [recv_b.pop((m, c))]
+            outs, grads = [target], [g_out]
         if moe_on:
+            # a shard's aux over cp: the step sums the loss over cp, and
+            # JAX takes the aux's mean over its manual cp axis
             outs.append(moe.aux_loss_of(aux)
-                        * (model.moe_aux_loss_coeff * loss_scale))
+                        * (model.moe_aux_loss_coeff * loss_scale / cp))
             grads.append(None)
         chunk_leaves = tree_leaves(chunks[c])
         inputs = chunk_leaves + io_leaves + ([x_in] if x_in is not None
@@ -500,37 +558,8 @@ def pipeline_grads(cfg: RuntimeConfig, params: PyTree, batch: dict, *,
 
     ctx = torch.enable_grad() if backward else torch.no_grad()
     with ctx, moe.shard_local_stats():
-        for row in steps:
-            act = row[stage]
-            sent_f = sent_b = None
-            if act is not None:
-                kind, m, c = act
-                if kind == "F":
-                    sent_f = run_forward(m, c)
-                else:
-                    sent_b = run_backward(m, c)
-            t0 = time.perf_counter()
-            # the outputs one ring position on, the input grads one back
-            for kind, where, store, sent in (
-                    ("F", next_position, recv_f, sent_f),
-                    ("B", prev_position, recv_b, sent_b)):
-                pairs, dest = [], {}
-                for s_, a in enumerate(row):
-                    if a is None or a[0] != kind:
-                        continue
-                    to = where(s_, a[2], pp, vpp)
-                    if to is not None:
-                        pairs.append((s_, to[0]))
-                        dest[to[0]] = (a[1], to[1])
-                if not pairs:
-                    continue
-                buf = sent if sent is not None else torch.empty(
-                    shape, dtype=dtype, device=tokens.device)
-                got = mappings.ppermute(buf.to(dtype), pp_group, pairs)
-                if stage in dest:
-                    store[dest[stage]] = got
-            p2p += time.perf_counter() - t0
-    last_p2p_seconds[0] = p2p
+        run_lockstep(steps, stage, vpp, shape, dtype, tokens.device,
+                     run_forward, run_backward)
 
     loss = mappings.all_reduce(loss_sum, pp_group)
     if stats is not None:
@@ -564,12 +593,14 @@ def pipeline_loss(cfg: RuntimeConfig, params: PyTree, batch: dict, *,
 
 
 def aux_term(cfg: RuntimeConfig, aux, M: int):
-    """``coeff * aux / M`` of the aux summed over the pp group (0 for a
-    dense model)."""
+    """``coeff * aux / (M * cp)`` of the aux summed over the pp group (0
+    for a dense model): a cp shard's share, as the step sums the loss over
+    cp (JAX takes the mean over its manual cp axis)."""
     if aux is None:
         return 0.0
     from ..models import moe
 
     total = mappings.all_reduce(moe.aux_loss_of(aux).clone(),
                                 mesh_lib.axis_info(PP)[0])
-    return cfg.model.moe_aux_loss_coeff * total / M
+    cp = mesh_lib.axis_info(mesh_lib.CONTEXT_AXIS)[1]
+    return cfg.model.moe_aux_loss_coeff * total / (M * cp)

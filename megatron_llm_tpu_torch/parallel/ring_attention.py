@@ -31,10 +31,20 @@ in the future of the query chunk (JAX's zigzag skips it with
 ``lax.cond``; its contiguous ring computes it fully masked, which adds
 exact zeros).  The blocks are plain PyTorch, as JAX's are: the ring
 runs none of the attention kernels.
+
+Under ``whole_sequence`` (a custom loss under cp: the BERT, T5 and ICT
+losses, whose batches the step does not cut) every cp rank holds the
+whole sequence and computes the rest of the model whole alike, as JAX's
+step runs them: their batch is sharded over dp alone, and only the
+ring's ``shard_map`` splits the sequence over cp.  The ring then takes
+this rank's block of q, k and v (``mappings.split_region``) and
+all-gathers the output (``mappings.gather_whole``), so the attention's
+quadratic work is split over cp and every rank's grads are whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -294,3 +304,42 @@ def ring_attention_zigzag(q, k, v, *, mesh=None, axis_name: str = CP,
     return ring_attention_zigzag_local(
         q, k, v, segment_ids, segment_ids, group=_group(mesh, axis_name),
         softmax_scale=softmax_scale)
+
+
+_WHOLE = [False]
+
+
+@contextlib.contextmanager
+def whole_sequence(on: bool = True):
+    """Inside the block (with ``on``), ``ops.attention``'s ring takes q, k
+    and v that every cp rank holds whole (``ring_attention_whole``)."""
+    old = _WHOLE[0]
+    _WHOLE[0] = old or on
+    try:
+        yield
+    finally:
+        _WHOLE[0] = old
+
+
+def whole_sequence_on() -> bool:
+    return _WHOLE[0]
+
+
+def ring_attention_whole(q, k, v, *, mesh=None, axis_name: str = CP,
+                         causal: bool = True, segment_ids=None,
+                         softmax_scale: Optional[float] = None):
+    """The contiguous ring on q, k, v ``[b, s, heads, d]`` that every rank
+    of the cp group holds whole: this rank's ``s / cp`` block of each
+    through the ring, the output gathered whole (its grad's block
+    backward; the blocks' grads gathered into whole ones)."""
+    group = _group(mesh, axis_name)
+    n = mappings.group_size(group)
+    if q.shape[1] % n or k.shape[1] % n:
+        raise ValueError(f"ring attention: sequence lengths {q.shape[1]}, "
+                         f"{k.shape[1]} must divide by cp = {n}")
+    q, k, v = (mappings.split_region(t, group, 1) for t in (q, k, v))
+    seg = None if segment_ids is None else \
+        mappings.split(segment_ids, group, 1).contiguous()
+    out = ring_attention_local(q, k, v, seg, seg, group=group, causal=causal,
+                               softmax_scale=softmax_scale)
+    return mappings.gather_whole(out, group, 1)

@@ -7,7 +7,9 @@ flags and defaults are the JAX entry's; the model config is its too
 (``attention_impl="dot"``, ``norm_impl="xla"``).  The same config with
 ``attention_impl="flash"`` and ``norm_impl="pallas"``, handed to
 ``training.driver.pretrain_custom``, takes the flash and LayerNorm
-kernels.  ``main`` trains on the card unless its caller passes
+kernels.  ``--pipeline_parallel`` > 1 trains through the encoder
+pipeline (``parallel/pipeline_encdec.py``), one process a stage under
+``torchrun``.  ``main`` trains on the card unless its caller passes
 ``device="cpu"``.
 
 Example:
@@ -30,7 +32,8 @@ from .data.bert_dataset import BertDataset, BertSpecialTokens
 from .data.indexed_dataset import MMapIndexedDataset
 from .models import encdec
 from .initialize import initialize_distributed
-from .training.driver import pretrain_custom, refuse_unported_parallelism
+from .parallel import pipeline_encdec
+from .training.driver import pretrain_custom
 
 
 def get_args(argv=None):
@@ -53,10 +56,9 @@ def get_args(argv=None):
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--tensor_parallel", type=int, default=1)
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="encoder pipeline over pp stages (not ported yet)")
+                   help="encoder pipeline over pp stages")
     p.add_argument("--use_distributed_optimizer", action="store_true",
-                   help="ZeRO-1: shard optimizer state over dp (not "
-                        "ported yet)")
+                   help="ZeRO-1: shard optimizer state over dp")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--masked_lm_prob", type=float, default=0.15)
     return p.parse_args(argv)
@@ -109,7 +111,6 @@ def bert_loss_fn(cfg, params, mb, rng, deterministic):
 
 def main(argv=None, device=None):
     args = get_args(argv)
-    refuse_unported_parallelism(pipeline_parallel=args.pipeline_parallel)
     initialize_distributed(device or "cuda")
     if args.vocab_size is not None:
         vocab = args.vocab_size
@@ -135,8 +136,15 @@ def main(argv=None, device=None):
     specs = (encdec.bert_param_specs(cfg.model, cfg.parallel)
              if (args.tensor_parallel > 1
                  or args.use_distributed_optimizer) else None)
+    pipeline_loss_fn = None
+    if args.pipeline_parallel > 1:
+        params = pipeline_encdec.bert_to_pipeline_params(params,
+                                                         cfg.parallel)
+        specs = pipeline_encdec.bert_pipeline_param_specs(cfg.model,
+                                                          cfg.parallel)
+        pipeline_loss_fn = pipeline_encdec.bert_pipeline_loss
     return pretrain_custom(cfg, ds, params, bert_loss_fn, param_specs=specs,
-                           device=device)
+                           pipeline_loss_fn=pipeline_loss_fn, device=device)
 
 
 if __name__ == "__main__":

@@ -59,8 +59,7 @@ def get_args(argv=None):
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--tensor_parallel", type=int, default=1)
     p.add_argument("--use_distributed_optimizer", action="store_true",
-                   help="ZeRO-1: shard optimizer state over dp (not "
-                        "ported yet)")
+                   help="ZeRO-1: shard optimizer state over dp")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--tokenizer_model", default=None,
                    help="HF tokenizer path/name: derives vocab + special "

@@ -5,10 +5,12 @@ The same sentence-per-item ``.bin``/``.idx`` corpus as ``pretrain_bert``.
 The flags and defaults are the JAX entry's, and so is the model config
 (``attention_impl="dot"``, ``norm_impl="xla"``); ``attention_impl="flash"``
 and ``norm_impl="pallas"`` in the same config, handed to
-``training.driver.pretrain_custom``, take the kernels.  The
-encoder-decoder pipeline (``--pipeline_parallel`` > 1,
-``--pipeline_split_rank``) is not ported yet and raises.  ``main`` trains
-on the card unless its caller passes ``device="cpu"``.
+``training.driver.pretrain_custom``, take the kernels.
+``--pipeline_parallel`` > 1 trains through the split-rank pipeline
+(``parallel/pipeline_encdec.py``): the first ``--pipeline_split_rank``
+stages (default half) hold the encoder, the rest the decoder, one process
+a stage under ``torchrun``.  ``main`` trains on the card unless its caller
+passes ``device="cpu"``.
 
 Example:
   python -m megatron_llm_tpu_torch.pretrain_t5 --data_path corpus \\
@@ -30,7 +32,8 @@ from .data.indexed_dataset import MMapIndexedDataset
 from .data.t5_dataset import T5Dataset, T5SpecialTokens
 from .models import encdec
 from .initialize import initialize_distributed
-from .training.driver import pretrain_custom, refuse_unported_parallelism
+from .parallel import pipeline_encdec
+from .training.driver import pretrain_custom
 
 
 def get_args(argv=None):
@@ -59,13 +62,11 @@ def get_args(argv=None):
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--tensor_parallel", type=int, default=1)
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="encoder/decoder split-rank pipeline (not ported "
-                        "yet)")
+                   help="encoder/decoder split-rank pipeline")
     p.add_argument("--pipeline_split_rank", type=int, default=None,
-                   help="stages holding the encoder (not ported yet)")
+                   help="stages holding the encoder (default pp // 2)")
     p.add_argument("--use_distributed_optimizer", action="store_true",
-                   help="ZeRO-1: shard optimizer state over dp (not "
-                        "ported yet)")
+                   help="ZeRO-1: shard optimizer state over dp")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--masked_lm_prob", type=float, default=0.15)
     return p.parse_args(argv)
@@ -118,8 +119,6 @@ def t5_loss_fn(cfg, params, mb, rng, deterministic):
 
 def main(argv=None, device=None):
     args = get_args(argv)
-    refuse_unported_parallelism(pipeline_parallel=args.pipeline_parallel,
-                                pipeline_split_rank=args.pipeline_split_rank)
     initialize_distributed(device or "cuda")
     sentinel_ids = None
     if args.vocab_size is not None:
@@ -153,8 +152,14 @@ def main(argv=None, device=None):
     specs = (encdec.t5_param_specs(cfg.model, cfg.parallel)
              if (args.tensor_parallel > 1
                  or args.use_distributed_optimizer) else None)
+    pipeline_loss_fn = None
+    if args.pipeline_parallel > 1:
+        params = pipeline_encdec.t5_to_pipeline_params(params, cfg.parallel)
+        specs = pipeline_encdec.t5_pipeline_param_specs(cfg.model,
+                                                        cfg.parallel)
+        pipeline_loss_fn = pipeline_encdec.t5_pipeline_loss
     return pretrain_custom(cfg, ds, params, t5_loss_fn, param_specs=specs,
-                           device=device)
+                           pipeline_loss_fn=pipeline_loss_fn, device=device)
 
 
 if __name__ == "__main__":

@@ -69,6 +69,7 @@ from ..ops import dropout as drop
 from ..parallel import mappings
 from ..parallel import mesh as mesh_lib
 from ..parallel import pipeline as pipe
+from ..parallel import ring_attention
 from ..parallel.cross_entropy import cross_entropy, masked_mean_loss
 from ..resilience import chaos
 from ..utils.timers import Timers
@@ -216,7 +217,8 @@ def _replicated_specs(params: PyTree) -> PyTree:
 
 def setup_train_state(cfg: RuntimeConfig, params: Optional[PyTree] = None,
                       device=None, param_specs: Optional[PyTree] = None,
-                      loss_fn=None) -> TrainingArtifacts:
+                      loss_fn=None, pipeline_loss_fn=None
+                      ) -> TrainingArtifacts:
     """Params (``params``, or ``init_params`` from ``cfg.train.seed``) and a
     fresh optimizer state on ``device`` (default ``cuda``), and the step.
 
@@ -225,7 +227,8 @@ def setup_train_state(cfg: RuntimeConfig, params: Optional[PyTree] = None,
     rank) are cut to this rank's shards by ``param_specs`` (default the
     decoder's ``models.sharding.param_specs``); the optimizer state and
     the step follow the plan.  A mesh of one rank keeps the one-device
-    state and step."""
+    state and step.  ``pipeline_loss_fn`` goes to the step
+    (``make_train_step``)."""
     device = model_lib.default_device(device)
     tp = cfg.parallel.tensor_parallel
     mesh = plan = None
@@ -257,7 +260,8 @@ def setup_train_state(cfg: RuntimeConfig, params: Optional[PyTree] = None,
     state = init_train_state(cfg, params,
                              zero=None if plan is None else plan.zero)
     return TrainingArtifacts(cfg, state,
-                             make_train_step(cfg, device, loss_fn, plan),
+                             make_train_step(cfg, device, loss_fn, plan,
+                                             pipeline_loss_fn),
                              device, mesh, plan)
 
 
@@ -382,25 +386,30 @@ def make_pipeline_eval_step(cfg: RuntimeConfig, metric_names=(),
     """Forward-only loss and registry metrics through the pipelined
     forward for pp > 1 (JAX ``make_pipeline_eval_step``): the streamed
     head's per-token loss and correctness from the last stage, so every
-    registry metric works.  ``batch`` leaves are ``[M, mb, ...]``."""
+    registry metric works.  ``batch`` leaves are ``[M, mb, ...]``; under
+    cp each rank runs its block of the sequence, the loss is summed over
+    cp and the metrics see every rank's tokens, as ``make_eval_step``'s."""
     metrics_lib.validate_metric_names(metric_names)
     rope = rope_tables(cfg.model, device=model_lib.default_device(device))
 
     @torch.no_grad()
     def eval_step(params, batch):
+        batch = context_parallel_block(cfg, batch, mesh_lib.current_mesh())
+        cp_group = mesh_lib.axis_info("cp")[0]
         if not metric_names:
-            return {"lm_loss": pipe.pipeline_loss(cfg, params, batch,
-                                                  rope=rope)}
+            return {"lm_loss": mappings.all_reduce(pipe.pipeline_loss(
+                cfg, params, batch, rope=rope), cp_group)}
         loss, stats = pipe.pipeline_loss(cfg, params, batch, rope=rope,
                                          return_stats=True)
 
-        def flat(v):
+        def flat(v):  # [M, mb, s] → [M * mb, s], under cp the whole s
+            v = mappings.all_gather(v.contiguous(), cp_group, 2)
             return v.reshape((-1,) + tuple(v.shape[2:]))
 
-        out = {"lm_loss": loss}
+        out = {"lm_loss": mappings.all_reduce(loss, cp_group)}
         out.update(metrics_lib.compute_metrics(
             metric_names, {k: flat(v) for k, v in batch.items()
-                           if v is not None and v.ndim >= 2},
+                           if v is not None and v.ndim == 3},
             None, flat(stats["per_token_loss"]),
             correct=flat(stats["correct"])))
         return out
@@ -901,21 +910,6 @@ def _stack_samples(samples: list, shape: tuple) -> dict:
         shape + np.asarray(samples[0][k]).shape) for k in samples[0]}
 
 
-def refuse_unported_parallelism(tensor_parallel: int = 1,
-                                use_distributed_optimizer: bool = False,
-                                pipeline_parallel: int = 1,
-                                pipeline_split_rank=None) -> None:
-    """The entries' flags for what the port does not run yet: raise
-    ``NotImplementedError`` naming the ROADMAP item.  ``--tensor_parallel``
-    and ``--use_distributed_optimizer`` run (under ``torchrun``, one
-    process a rank)."""
-    if pipeline_parallel > 1 or pipeline_split_rank is not None:
-        raise NotImplementedError(
-            "--pipeline_parallel > 1 and --pipeline_split_rank of the "
-            "encoder families are not ported yet (ROADMAP.md, Queue 1 item "
-            "10's remainder: parallel/pipeline_encdec.py)")
-
-
 def pretrain_custom(
     cfg: RuntimeConfig,
     dataset,
@@ -944,34 +938,59 @@ def pretrain_custom(
     ``pretrain``.  ``param_specs`` (``encdec.bert_param_specs`` and its
     kin) lays the whole ``params`` over the mesh of ``cfg.parallel``
     (``setup_train_state``); each rank trains on its dp block of every
-    batch.  ``pipeline_loss_fn`` (the encoder-decoder pipeline), and
-    pipeline, context or expert parallelism under a custom loss, are not
-    ported and raise."""
+    batch.  Under cp every rank takes the whole batch and the ring splits
+    the attention's sequence (``training/step.py``).
+
+    With ``pipeline_loss_fn`` (``pp > 1``) the step runs the family's
+    pipeline (``parallel/pipeline_encdec.t5_pipeline_loss`` or
+    ``bert_pipeline_loss``); ``params`` and ``param_specs`` must then be
+    in its stage-stacked layout, the grad-accumulation count is the
+    schedule's microbatch count, and evaluation reuses the pipelined
+    schedule on one group of ``[1, micro_total, ...]`` (JAX's checks,
+    ``training/driver.py:935-943``).  A custom loss under pp without one
+    raises, as JAX's step does; so does ep > 1 (the families hold no
+    experts)."""
     cfg.validate()
-    if pipeline_loss_fn is not None:
-        raise NotImplementedError(
-            "pretrain_custom: pipeline_loss_fn (parallel/pipeline_encdec.py)"
-            " is not ported yet (ROADMAP.md, Queue 1 item 10's remainder)")
     par = cfg.parallel
-    if max(par.pipeline_parallel, par.context_parallel,
-           par.expert_parallel) > 1:
+    if pipeline_loss_fn is not None:
+        if par.pipeline_parallel < 2 or param_specs is None:
+            raise ValueError("pipeline_loss_fn needs pipeline_parallel > 1 "
+                             "and the stage-stacked param_specs")
+        if cfg.grad_accum_steps != par.num_microbatches:
+            raise ValueError(
+                f"global_batch_size/(micro_batch*dp) = "
+                f"{cfg.grad_accum_steps} must equal parallel.num_microbatches"
+                f" ({par.num_microbatches}) for the pipelined step")
+        if eval_loss_fn is not None:
+            raise ValueError("eval_loss_fn is not supported with "
+                             "pipeline_loss_fn — evaluation reuses the "
+                             "pipelined schedule")
+    elif par.pipeline_parallel > 1:
         raise NotImplementedError(
-            "pretrain_custom under pipeline, context or expert parallelism "
-            "(the encoder families' pipeline and ring) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10's remainder: "
-            "parallel/pipeline_encdec.py)")
+            "custom loss_fn is not supported with pipeline parallelism "
+            "(pass pipeline_loss_fn for the encdec families)")
+    if par.expert_parallel > 1:
+        raise NotImplementedError(
+            "pretrain_custom: expert_parallel > 1 has no experts to split: "
+            "MoE is not plumbed through the encoder stacks (JAX "
+            "models/encdec.py:83, :215 assert num_experts == 0)")
     device = model_lib.default_device(device)
     timers = Timers()
     writer = _writer(cfg, config=cfg.to_dict())
     params = tree_map(lambda t: t.to(device), params)
-    art = setup_train_state(cfg, params, device, param_specs, loss_fn)
+    art = setup_train_state(cfg, params, device, param_specs, loss_fn,
+                            pipeline_loss_fn)
+    if pipeline_loss_fn is not None:
+        def eval_loss_fn(c, p, mb, rng, deterministic):
+            return pipeline_loss_fn(c, p, mb, backward=False)[1]
     with art.in_mesh():
         return _custom_loop(cfg, art, dataset, loss_fn, valid_dataset,
-                            eval_loss_fn, on_step, timers, writer)
+                            eval_loss_fn, on_step, timers, writer,
+                            pipelined=pipeline_loss_fn is not None)
 
 
 def _custom_loop(cfg, art, dataset, loss_fn, valid_dataset, eval_loss_fn,
-                 on_step, timers, writer) -> TrainState:
+                 on_step, timers, writer, pipelined=False) -> TrainState:
     state, step_fn, device = art.state, art.step_fn, art.device
     iteration = 0
     consumed = 0
@@ -1035,14 +1054,21 @@ def _custom_loop(cfg, art, dataset, loss_fn, valid_dataset, eval_loss_fn,
                 and cfg.train.eval_iters):
             nv = len(valid_dataset)
             losses = []
-            with torch.no_grad():
+            # one group of microbatches [1, micro_total, ...] through the
+            # pipelined schedule, else one microbatch [micro_total, ...]
+            lead = (1,) if pipelined else ()
+            with torch.no_grad(), ring_attention.whole_sequence(
+                    art.mesh is not None and art.mesh.size("cp") > 1):
                 for v0 in eval_rng.integers(0, nv,
                                             size=cfg.train.eval_iters):
                     vs = [valid_dataset[int((v0 + j) % nv)]
                           for j in range(micro_total)]
-                    vb = _eval_denominators(to_device_batch(_dp_block(
-                        _stack_samples(vs, (micro_total,)), art.mesh, 0),
-                        device), art.mesh)
+                    vb = to_device_batch(_dp_block(
+                        _stack_samples(vs, lead + (micro_total,)), art.mesh,
+                        len(lead)), device)
+                    if art.mesh is not None:
+                        vb = loss_denominators(vb, art.mesh.group("dp"),
+                                               lead=len(lead))
                     losses.append(float(eval_fn(cfg, state.params, vb, None,
                                                 True)))
             loss = _dp_mean({"loss": float(np.mean(losses))},

@@ -33,14 +33,22 @@ the same on every rank, and every rank takes the same branch.
 
 Pipeline parallelism (``pp > 1``) runs ``parallel/pipeline.pipeline_grads``
 in place of the accumulation: this stage's chunks' grads, and its grads
-of the embedding and head, which ``reduce_grads`` sums over pp.  Context
-parallelism (``cp > 1``) cuts each microbatch's sequence to this rank's
-block (``context_parallel_block``; the zigzag layout permutes it first,
-``zigzag_permute_batch``) after the loss denominators are counted over
-the whole sequence, so the grads and the loss are summed over cp.  A MoE
-model adds ``moe_aux_loss_coeff`` times the aux loss to the loss, and its
-routing stats to the metrics (JAX ``step.py:145-150, 164-224``; not
-under pp, as in JAX).
+of the embedding and head, which ``reduce_grads`` sums over pp.  A custom
+loss runs its family's pipeline instead (``pipeline_loss_fn``:
+``parallel/pipeline_encdec.py``), and without one raises as JAX's step
+does.  Context parallelism (``cp > 1``) cuts each microbatch's sequence
+to this rank's block (``context_parallel_block``; the zigzag layout
+permutes it first, ``zigzag_permute_batch``) after the loss denominators
+are counted over the whole sequence, so the grads and the loss are
+summed over cp; inside the pipeline too (pp x cp), where each stage's
+ring runs over its own cp group.  A custom loss's batch (the BERT, T5
+and ICT losses) is not cut: every cp rank runs it whole and only the
+ring splits the sequence (``ring_attention.whole_sequence``), as JAX's
+step shards such a batch over dp alone, so its grads and loss are whole
+on every cp rank and are not summed.  A MoE model adds
+``moe_aux_loss_coeff`` times the aux loss to the loss (under cp each
+rank's share of it, summed with the loss), and its routing stats to the
+metrics (JAX ``step.py:145-150, 164-224``; not under pp, as in JAX).
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ from ..config import RuntimeConfig
 from ..models import model as model_lib
 from ..models.transformer import rope_tables
 from ..ops import dropout as drop
-from ..parallel import mappings, pipeline
+from ..parallel import mappings, pipeline, ring_attention
 from ..parallel.mesh import axis_info, use_mesh
 from ..parallel.cross_entropy import (
     cross_entropy,
@@ -105,17 +113,20 @@ def make_plan(cfg: RuntimeConfig, mesh, specs: PyTree,
         zero=opt_lib.zero_plan(specs, params, cfg.parallel, mesh))
 
 
-def reduce_grads(plan: ParallelPlan, grads: PyTree, loss: torch.Tensor):
+def reduce_grads(plan: ParallelPlan, grads: PyTree, loss: torch.Tensor,
+                 cp_sum: bool = True):
     """``(grads, loss)`` of the whole model from this rank's: the tp-partial
     grads summed over tp, the leaves replicated over pp (the embedding
-    and head) summed over pp, every grad and the loss summed over cp,
-    then averaged over dp (a ZeRO-1 leaf reduce-scattered to this rank's
+    and head) summed over pp, every grad and the loss summed over cp (not
+    with ``cp_sum=False``: a custom loss's, whole on every cp rank), then
+    averaged over dp (a ZeRO-1 leaf reduce-scattered to this rank's
     block)."""
     from ..models.sharding import has_axis
 
     mesh = plan.mesh
     tp_group, dp_group = mesh.group("tp"), mesh.group("dp")
-    pp_group, cp_group = mesh.group("pp"), mesh.group("cp")
+    pp_group = mesh.group("pp")
+    cp_group = mesh.group("cp") if cp_sum else None
     dp = mesh.size("dp")
     dims = [None] * len(tree_leaves(grads)) if plan.zero is None \
         else tree_leaves(plan.zero.dims)
@@ -328,38 +339,54 @@ def _accumulate_grads(cfg: RuntimeConfig, params, batch: dict, rope,
 
 def step_grads(cfg: RuntimeConfig, params, batch: dict, rope,
                loss_scale: float = 1.0, loss_fn=None, rng=None,
-               plan: Optional[ParallelPlan] = None):
+               plan: Optional[ParallelPlan] = None, pipeline_loss_fn=None):
     """A step's ``(grads, loss, moe_stats)`` before the optimizer: the
     batch's loss denominators and cp block under ``plan``, the pipeline
-    (pp > 1) or the microbatch accumulation, and the plan's reductions
-    (``moe_stats`` None under pp, as in JAX)."""
+    (pp > 1; a custom loss's ``pipeline_loss_fn``) or the microbatch
+    accumulation, and the plan's reductions (``moe_stats`` None under pp,
+    as in JAX)."""
+    custom = loss_fn is not None
+    if custom and cfg.model.context_parallel_zigzag:
+        # JAX step.py:281-285: the zigzag permutation is the LM loss's
+        raise NotImplementedError(
+            "custom loss_fn is not supported with the zigzag cp layout")
     moe_stats = None
+    whole_cp = False
     if plan is not None:
+        cp = plan.mesh.size("cp")
+        whole_cp = custom and cp > 1
         batch = loss_denominators(batch, plan.mesh.group("dp"),
-                                  whole=plan.mesh.size("cp") > 1)
-        batch = context_parallel_block(cfg, batch, plan.mesh)
-    if cfg.parallel.pipeline_parallel > 1:
-        if loss_fn is not None:
-            raise NotImplementedError(
-                "a custom loss_fn under pipeline parallelism (the encoder "
-                "families' pipeline, parallel/pipeline_encdec.py) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 10's remainder)")
-        grads, loss, aux, _ = pipeline.pipeline_grads(
-            cfg, params, batch, rng=rng, rope=rope, loss_scale=loss_scale)
-        loss = loss + pipeline.aux_term(cfg, aux,
-                                         batch["tokens"].shape[0])
-    else:
-        grads, loss, moe_stats = _accumulate_grads(
-            cfg, params, batch, rope, loss_scale, loss_fn, rng,
-            return_moe_stats=True)
+                                  whole=cp > 1 and not custom)
+        if not custom:
+            batch = context_parallel_block(cfg, batch, plan.mesh)
+    with ring_attention.whole_sequence(whole_cp):
+        if cfg.parallel.pipeline_parallel > 1 and custom:
+            if pipeline_loss_fn is None:
+                # JAX step.py:276-280
+                raise NotImplementedError(
+                    "custom loss_fn is not supported with pipeline "
+                    "parallelism (pass pipeline_loss_fn for the encdec "
+                    "families)")
+            grads, loss = pipeline_loss_fn(cfg, params, batch, rng=rng,
+                                           loss_scale=loss_scale)
+        elif cfg.parallel.pipeline_parallel > 1:
+            grads, loss, aux, _ = pipeline.pipeline_grads(
+                cfg, params, batch, rng=rng, rope=rope,
+                loss_scale=loss_scale)
+            loss = loss + pipeline.aux_term(cfg, aux,
+                                             batch["tokens"].shape[0])
+        else:
+            grads, loss, moe_stats = _accumulate_grads(
+                cfg, params, batch, rope, loss_scale, loss_fn, rng,
+                return_moe_stats=True)
     if plan is not None:
-        grads, loss = reduce_grads(plan, grads, loss)
+        grads, loss = reduce_grads(plan, grads, loss, cp_sum=not whole_cp)
     return grads, loss, moe_stats
 
 
 def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
                base_rng=None, rope=None, loss_fn=None,
-               plan: Optional[ParallelPlan] = None):
+               plan: Optional[ParallelPlan] = None, pipeline_loss_fn=None):
     """One optimizer step over the batch's microbatches → ``(new_state,
     metrics)``.  Params and optimizer state are updated in place.
     ``base_rng`` (a ``DropoutKey``) is folded with the iteration.  Under
@@ -370,7 +397,8 @@ def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
     rng = None if base_rng is None else drop.fold_in(base_rng,
                                                      state.iteration)
     grads, loss, moe_stats = step_grads(cfg, state.params, batch, rope,
-                                        loss_scale, loss_fn, rng, plan)
+                                        loss_scale, loss_fn, rng, plan,
+                                        pipeline_loss_fn)
     if loss_scale != 1.0:
         for g in tree_leaves(grads):
             g.div_(loss_scale)
@@ -416,10 +444,14 @@ def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
         # dropped: the fraction of assignments lost to capacity;
         # imbalance: E * max(f_e), 1.0 when balanced (JAX step.py:373-383)
         aux = moe_stats["aux"]
-        if plan is not None and plan.mesh.size("dp") > 1:
-            # each dp rank's aux takes its own p_e (models/moe.py)
-            aux = mappings.all_reduce(aux.clone(), plan.mesh.group("dp")) \
-                / plan.mesh.size("dp")
+        if plan is not None:
+            # a cp rank's aux is its share; each dp rank's takes its own
+            # p_e (models/moe.py)
+            aux = mappings.all_reduce(aux.clone(), plan.mesh.group("cp"))
+            if plan.mesh.size("dp") > 1:
+                aux = mappings.all_reduce(aux.clone(),
+                                          plan.mesh.group("dp")) \
+                    / plan.mesh.size("dp")
         load = moe_stats["load"]
         metrics["moe_dropped_frac"] = moe_stats["dropped"]
         metrics["moe_load_imbalance"] = (
@@ -430,21 +462,26 @@ def train_step(cfg: RuntimeConfig, state: TrainState, batch: dict,
 
 
 def make_train_step(cfg: RuntimeConfig, device=None, loss_fn=None,
-                    plan: Optional[ParallelPlan] = None):
+                    plan: Optional[ParallelPlan] = None,
+                    pipeline_loss_fn=None):
     """``step(state, batch, base_rng=None) -> (state, metrics)`` with the
     RoPE tables built once on ``device`` (default ``cuda``) and closed
     over, as the JAX step closes over them as constants.  Under ``plan``
-    each call runs inside its mesh."""
+    each call runs inside its mesh.  ``pipeline_loss_fn`` (a custom
+    loss's pipeline, ``parallel/pipeline_encdec.py``) gives the grads at
+    pp > 1."""
     device = model_lib.default_device(device)
     rope = rope_tables(cfg.model, device=device)
 
     def step(state: TrainState, batch: dict, base_rng=None):
         if plan is None:
             return train_step(cfg, state, batch, base_rng, rope=rope,
-                              loss_fn=loss_fn)
+                              loss_fn=loss_fn,
+                              pipeline_loss_fn=pipeline_loss_fn)
         with use_mesh(plan.mesh):
             return train_step(cfg, state, batch, base_rng, rope=rope,
-                              loss_fn=loss_fn, plan=plan)
+                              loss_fn=loss_fn, plan=plan,
+                              pipeline_loss_fn=pipeline_loss_fn)
 
     return step
 

@@ -2079,3 +2079,119 @@ def test_ppermute_through_the_mailbox(cuda_device, tmp_path):
             assert torch.equal(y, src[1])      # the previous rank's x
             assert torch.equal(gx, dst[2])     # the next rank's w
             assert torch.equal(ident, x)
+
+
+def _encdec_pipeline_rank(rank, world, rdv, out_dir):
+    """One rank of ``test_encoder_pipeline_on_the_card``: T5 at tiny widths
+    (head dim 64, fp32: the kernels' CUDA-core bodies) through the
+    split-rank pipeline, encoder on rank 0, decoder on rank 1, gloo over
+    the one card's mailbox; rank 0 also runs the unpipelined step."""
+    import datetime
+    import os
+
+    from megatron_llm_tpu_torch import initialize
+    from megatron_llm_tpu_torch.config import ModelConfig, ParallelConfig, \
+        RuntimeConfig, TrainConfig
+    from megatron_llm_tpu_torch.models import encdec, sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.parallel import pipeline_encdec as pe
+    from megatron_llm_tpu_torch.training import step as st
+    from megatron_llm_tpu_torch.utils.tree import tree_map
+
+    info = initialize.initialize_distributed(
+        "cuda", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        dev = info.device
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = ModelConfig(
+            vocab_size=128, hidden_size=128, num_layers=2,
+            num_decoder_layers=2, num_attention_heads=2, num_kv_heads=2,
+            ffn_hidden_size=256, max_position_embeddings=128,
+            norm_type="layernorm", activation="gelu",
+            position_embedding_type="absolute", use_bias=True,
+            tie_embed_logits=True, params_dtype="float32",
+            attention_impl="flash", norm_impl="pallas", recompute="none",
+            seq_length=128)
+        cfg = RuntimeConfig(model=model, parallel=ParallelConfig(
+            pipeline_parallel=2, pipeline_split_rank=1, num_microbatches=3),
+            train=TrainConfig(seq_length=128, micro_batch_size=2,
+                              global_batch_size=6)).validate()
+        params = encdec.init_t5_params(model, 3, device=dev)
+        gen = torch.Generator(device="cpu").manual_seed(4)
+        M, mb, s_enc, s_dec = 3, 2, 128, 64
+        enc_pad = torch.ones(M, mb, s_enc)
+        enc_pad[:, 1, 100:] = 0
+        dec_pad = torch.ones(M, mb, s_dec)
+        dec_pad[:, 0, 50:] = 0
+        batch = {"enc_tokens": torch.randint(0, 128, (M, mb, s_enc),
+                                             generator=gen),
+                 "dec_tokens": torch.randint(0, 128, (M, mb, s_dec),
+                                             generator=gen),
+                 "labels": torch.randint(0, 128, (M, mb, s_dec),
+                                         generator=gen),
+                 "loss_mask": dec_pad, "enc_pad_mask": enc_pad,
+                 "dec_pad_mask": dec_pad}
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        mesh = mesh_lib.build_mesh(cfg.parallel)
+        specs = pe.t5_pipeline_param_specs(model, cfg.parallel)
+        staged = sharding.shard_params(
+            pe.t5_to_pipeline_params(params, cfg.parallel), specs, mesh)
+        counters = launch_counters()
+        for c in counters.values():
+            c.launches = 0
+        with mesh_lib.use_mesh(mesh):
+            grads, loss = pe.t5_pipeline_loss(cfg, staged, batch)
+            launches = {k: c.launches for k, c in counters.items()}
+            plan = st.make_plan(cfg, mesh, specs, staged)
+            grads, loss = st.reduce_grads(plan, grads, loss)
+            grads = pe.t5_from_pipeline_params(
+                sharding.gather_params(grads, specs, mesh), cfg.parallel)
+        res = {"loss": float(loss), "launches": launches,
+               "grads": tree_map(lambda t: t.cpu(), grads)}
+        if rank == 0:
+            ref = RuntimeConfig(model=model, train=TrainConfig(
+                seq_length=128)).validate()
+            ref_grads, ref_loss = st._accumulate_grads(
+                ref, params, batch, None, 1.0,
+                loss_fn=lambda c, p, b, r, d: encdec.t5_loss(c.model, p, b))
+            res["ref_loss"] = float(ref_loss)
+            res["ref_grads"] = tree_map(lambda t: t.cpu(), ref_grads)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        initialize.destroy()
+
+
+@pytest.mark.cuda
+def test_encoder_pipeline_on_the_card(cuda_device, tmp_path):
+    """The T5 split-rank pipeline at tiny widths, two gloo ranks on the one
+    card: the flash kernels (K1-K3, non-causal on the encoder stage,
+    causal on the decoder's) and the LayerNorm kernels (K6/K7) launch on
+    both stages, and the loss and every grad equal the unpipelined step's
+    on the card (fp32: loss 1e-5 relative; grads 1e-4 of each leaf's
+    norm, the microbatch sums and the cross-stage sends reorder fp32
+    additions alone)."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves_with_path
+
+    mp.start_processes(_encdec_pipeline_rank,
+                       args=(2, str(tmp_path / "rdv"), str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    res = [torch.load(os.path.join(tmp_path, f"rank{r}.pt"))
+           for r in range(2)]
+    for r in res:
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv", "layernorm_fwd",
+                     "layernorm_bwd"):
+            assert r["launches"][name] > 0, name
+    assert res[0]["launches"]["flash_attention_fwd_noncausal"] > 0
+    assert res[1]["launches"]["flash_attention_fwd_noncausal"] == 0
+    assert res[0]["loss"] == pytest.approx(res[0]["ref_loss"], rel=1e-5)
+    want = dict(tree_leaves_with_path(res[0]["ref_grads"]))
+    for path, g in tree_leaves_with_path(res[0]["grads"]):
+        w = want[path]
+        err = float((g - w).norm() / w.norm().clamp(min=1e-12))
+        assert err <= 1e-4, (path, err)

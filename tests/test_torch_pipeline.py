@@ -405,10 +405,14 @@ def test_activation_bytes_describe_the_schedule():
 
 
 def test_combinations_left_out_raise():
-    """pp x cp (JAX runs cp inside its pipeline), MoE with cp or sequence
-    parallelism, and a
-    custom loss under the pipeline raise, naming item 10's remainder;
-    zigzag under pp is JAX's own refusal."""
+    """Every combination JAX runs validates: pp x cp (JAX runs the ring
+    inside its pipeline; ``tests/test_torch_pipeline_cp.py`` trains it),
+    and MoE with cp or sequence parallelism
+    (``tests/test_torch_moe_layouts.py``).  What JAX refuses still
+    raises: zigzag under pp (JAX ``config.py:494-498``), a layer count
+    that does not divide into the pipeline's chunks (where the stages are
+    laid out, JAX ``parallel/mesh.py:134``), and a custom loss under the
+    pipeline without a ``pipeline_loss_fn`` (JAX ``step.py:276-280``)."""
     from megatron_llm_tpu_torch.config import RuntimeConfig as TRun
     from megatron_llm_tpu_torch.config import TrainConfig as TTrain
     from megatron_llm_tpu_torch.config import tiny_config as ttiny
@@ -419,21 +423,21 @@ def test_combinations_left_out_raise():
             (ttiny(num_experts=4), TPar(context_parallel=2)),
             (ttiny(num_experts=4), TPar(tensor_parallel=2,
                                         sequence_parallel=True))):
-        with pytest.raises(NotImplementedError, match="item 10's remainder"):
-            TRun(model=model, parallel=par,
-                 train=TTrain(seq_length=32)).validate()
+        cfg = TRun(model=model, parallel=par,
+                   train=TTrain(seq_length=32)).validate()
+        assert cfg.parallel.world_size in (2, 4)
     with pytest.raises(ValueError, match="zigzag"):
         TRun(model=ttiny(num_layers=4), parallel=TPar(
             pipeline_parallel=2, context_parallel=2,
             context_parallel_layout="zigzag"),
             train=TTrain(seq_length=32)).validate()
     with pytest.raises(ValueError, match="divide"):
-        TRun(model=ttiny(num_layers=3), parallel=TPar(pipeline_parallel=2),
-             train=TTrain(seq_length=32)).validate()
+        tpipe.to_pipeline_params({"layers": {"w": torch.zeros(3, 2)}},
+                                 TPar(pipeline_parallel=2))
     from megatron_llm_tpu_torch.training import driver as tdriver
 
     cfg = TRun(model=ttiny(num_layers=4), parallel=TPar(pipeline_parallel=2),
                train=TTrain(seq_length=32)).validate()
-    with pytest.raises(NotImplementedError, match="item 10's remainder"):
+    with pytest.raises(NotImplementedError, match="pipeline_loss_fn"):
         tdriver.pretrain_custom(cfg, None, {}, lambda *a: None,
                                 device="cpu")

@@ -6,10 +6,10 @@
 - each entry's ``main`` for 2 iterations with ``--vocab_size`` (the JAX
   entry's flags, dropout on where the entry sets it), a checkpoint, and a
   resume that reproduces the straight run bit for bit;
-- the refusals: ``--tensor_parallel`` / ``--use_distributed_optimizer``
-  (Queue 1 item 9), ``--pipeline_parallel`` / ``--pipeline_split_rank``
-  (item 10), ``param_specs`` and ``pipeline_loss_fn``, and no card without
-  ``device="cpu"``.
+- the parallel flags in one process (``--tensor_parallel``,
+  ``--pipeline_parallel`` ask for a launcher; ``--pipeline_split_rank``
+  without a pipeline is JAX's refusal), ``param_specs`` and
+  ``pipeline_loss_fn``'s checks, and no card without ``device="cpu"``.
 """
 
 import re
@@ -225,17 +225,20 @@ def test_entries_mirror_the_jax_configs(corpus):
     (pretrain_ict, ["--use_distributed_optimizer"], "item 9"),
 ])
 def test_entries_refuse_unported_parallelism(corpus, entry, flags, item):
-    """Pipeline flags still raise, naming item 10.  Item 9's flags are
-    ported: ``--use_distributed_optimizer`` at dp = 1 trains (ZeRO-1 over
-    one rank is the replicated optimizer, as in JAX), and
-    ``--tensor_parallel 2`` in one process asks for a launcher with two
-    ranks (``tests/test_torch_parallel_families.py`` runs the entries in
-    a world of two)."""
+    """Item 9's and item 10's flags are ported.  ``--use_distributed_
+    optimizer`` at dp = 1 trains (ZeRO-1 over one rank is the replicated
+    optimizer, as in JAX); ``--tensor_parallel 2`` and
+    ``--pipeline_parallel 2`` in one process ask for a launcher with two
+    ranks (``tests/test_torch_parallel_families.py`` and
+    ``tests/test_torch_pipeline_encdec.py`` run the entries in a world of
+    two); ``--pipeline_split_rank`` without a pipeline is refused as
+    JAX's ``ParallelConfig`` refuses it (the split must lie in ``(0,
+    pp)``)."""
     argv = ["--data_path", corpus, "--vocab_size", "96", *flags]
-    if item == "item 10":
-        with pytest.raises(NotImplementedError, match=item):
+    if "--pipeline_split_rank" in flags:
+        with pytest.raises(ValueError, match="pipeline_split_rank"):
             entry.main(argv, device="cpu")
-    elif "--tensor_parallel" in flags:
+    elif "--tensor_parallel" in flags or "--pipeline_parallel" in flags:
         with pytest.raises(ValueError, match="torchrun"):
             entry.main(argv, device="cpu")
     else:
@@ -249,7 +252,10 @@ def test_entries_refuse_unported_parallelism(corpus, entry, flags, item):
 
 def test_pretrain_custom_refuses_specs_and_pipelines(corpus):
     """``param_specs`` is ported (a degree-1 layout trains as before);
-    ``pipeline_loss_fn`` still raises, naming item 10."""
+    ``pipeline_loss_fn`` is ported, with JAX's checks
+    (``training/driver.py:935-943``): it needs pp > 1 and the staged
+    specs, and refuses ``eval_loss_fn``; ep > 1 has no experts to split in
+    these families (JAX ``models/encdec.py:83, :215``)."""
     tc = TRun(model=TModel(**MODEL, tokentype_size=2),
               train=TTrain(**dict(TRAIN, train_iters=0))).validate()
     params = tencdec.init_bert_params(tc.model, device="cpu")
@@ -257,9 +263,26 @@ def test_pretrain_custom_refuses_specs_and_pipelines(corpus):
         tc, [], params, None, device="cpu",
         param_specs=tencdec.bert_param_specs(tc.model, tc.parallel))
     assert state.iteration == 0
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="pipeline_parallel > 1"):
         tdriver.pretrain_custom(tc, [], params, None,
                                 pipeline_loss_fn=lambda *a: 0, device="cpu")
+    from megatron_llm_tpu_torch.config import ParallelConfig as TPar
+    from megatron_llm_tpu_torch.parallel import pipeline_encdec as tpe
+
+    pc = TRun(model=tc.model, parallel=TPar(pipeline_parallel=2,
+                                            num_microbatches=2),
+              train=TTrain(**dict(TRAIN, train_iters=0))).validate()
+    with pytest.raises(ValueError, match="eval_loss_fn"):
+        tdriver.pretrain_custom(
+            pc, [], params, None, eval_loss_fn=lambda *a: 0,
+            param_specs=tpe.bert_pipeline_param_specs(pc.model, pc.parallel),
+            pipeline_loss_fn=tpe.bert_pipeline_loss, device="cpu")
+    ec = TRun(model=TModel(**dict(MODEL, use_bias=False), tokentype_size=2,
+                           num_experts=2),
+              parallel=TPar(expert_parallel=2),
+              train=TTrain(**dict(TRAIN, train_iters=0))).validate()
+    with pytest.raises(NotImplementedError, match="encoder stacks"):
+        tdriver.pretrain_custom(ec, [], params, None, device="cpu")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="this host has a card")

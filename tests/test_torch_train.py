@@ -547,9 +547,10 @@ def test_runtime_config_refuses_what_is_not_ported(kw):
     """Data, tensor, pipeline and context parallelism are ported: their
     configs validate (``tests/test_torch_parallel*.py``,
     ``test_torch_pipeline*.py`` and ``test_torch_ring_attention.py``
-    train them against JAX's sharded steps); pipeline with context
-    parallelism, which JAX runs inside its pipeline, still raises, naming
-    item 10's remainder.  The fused LM head is ported: its config
+    train them against JAX's sharded steps), and so is pipeline with
+    context parallelism, which JAX runs inside its pipeline
+    (``tests/test_torch_pipeline_cp.py``).  The fused LM head is ported:
+    its config
     validates and one fused step matches JAX's fused step
     (``tests/test_torch_fused_head.py`` goes further)."""
     if "model" in kw:
@@ -563,9 +564,10 @@ def test_runtime_config_refuses_what_is_not_ported(kw):
     assert (cfg.model.context_parallel_axis == "cp") == \
         (par.context_parallel > 1)
     both = dataclasses.replace(par, pipeline_parallel=2, context_parallel=2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, Queue 1 item 10's remainder"):
-        TRun(parallel=both, train=TTrain(global_batch_size=8)).validate()
+    cfg = TRun(parallel=both, train=TTrain(global_batch_size=8)).validate()
+    assert cfg.parallel.world_size == 4 * par.data_parallel * \
+        par.tensor_parallel
+    assert cfg.model.context_parallel_axis == "cp"
 
 
 def _finetune_losses(argv, capsys):

@@ -466,7 +466,8 @@ def mailbox_case(tree: dict, meta: dict) -> dict:
 
 def pipeline_case(tree: dict, meta: dict) -> dict:
     """The pipelined loss and whole grads (``[L, ...]`` layout) of whole
-    params and a global batch ``[M, mb * dp, s]`` on this world's mesh;
+    params and a global batch ``[M, mb * dp, s]`` on this world's mesh
+    (under cp each rank its block of the sequence, as the step cuts it);
     ``meta["windows"]`` runs each window of the list too (its loss and
     grads as ``loss_w<W>`` / ``grads_w<W>``); ``meta["metrics"]`` runs the
     pipelined eval step instead."""
@@ -485,7 +486,8 @@ def pipeline_case(tree: dict, meta: dict) -> dict:
         mesh)
     batch = {k: torch.from_numpy(v) for k, v in driver._dp_block(
         {k: np.asarray(v) for k, v in tree["batch"].items()}, mesh).items()}
-    batch = st.loss_denominators(batch, mesh.group("dp"))
+    batch = st.loss_denominators(batch, mesh.group("dp"),
+                                 whole=mesh.size("cp") > 1)
     out = {}
     with mesh_lib.use_mesh(mesh):
         if meta.get("metrics"):
@@ -495,6 +497,7 @@ def pipeline_case(tree: dict, meta: dict) -> dict:
             return {k: driver._dp_mean({k: float(v)}, mesh)[k]
                     for k, v in res.items()}
         plan = st.make_plan(cfg, mesh, specs, params)
+        batch = st.context_parallel_block(cfg, batch, mesh)
         for w in [None] + list(meta.get("windows", ())):
             c = cfg if w is None else dataclasses.replace(
                 cfg, parallel=dataclasses.replace(
@@ -652,3 +655,200 @@ def ppermute_case(tree: dict, meta: dict) -> dict:
         mappings._gloo = real
     out["refused"] = np.asarray(",".join(refused))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The encoder pipelines, custom losses under cp, MoE under cp and SP
+# ---------------------------------------------------------------------------
+
+
+def _encdec_pipeline(kind: str):
+    from megatron_llm_tpu_torch.parallel import pipeline_encdec as pe
+
+    return {"t5": (pe.t5_to_pipeline_params, pe.t5_pipeline_param_specs,
+                   pe.t5_pipeline_loss),
+            "bert": (pe.bert_to_pipeline_params, pe.bert_pipeline_param_specs,
+                     pe.bert_pipeline_loss)}[kind]
+
+
+def encdec_pipeline_case(tree: dict, meta: dict) -> dict:
+    """The split-rank (T5) or encoder (BERT) pipeline's loss and whole
+    staged grads (``[pp, lpc, ...]``) of whole params in the unpipelined
+    layout and a global batch ``[M, mb * dp, ...]`` at this world's
+    degrees, reduced as the step reduces them."""
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.training import driver
+    from megatron_llm_tpu_torch.training import step as st
+
+    cfg = runtime_config(meta)
+    to_staged, specs_of, loss_fn = _encdec_pipeline(meta["kind"])
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    specs = specs_of(cfg.model, cfg.parallel)
+    params = sharding.shard_params(
+        to_staged(_t(tree["params"]), cfg.parallel), specs, mesh)
+    batch = {k: torch.from_numpy(v) for k, v in driver._dp_block(
+        {k: np.asarray(v) for k, v in tree["batch"].items()}, mesh).items()}
+    batch = st.loss_denominators(batch, mesh.group("dp"))
+    with mesh_lib.use_mesh(mesh):
+        grads, loss = loss_fn(cfg, params, batch)
+        _, eval_loss = loss_fn(cfg, params, batch, backward=False)
+        plan = st.make_plan(cfg, mesh, specs, params)
+        grads, loss = st.reduce_grads(plan, grads, loss)
+        grads = sharding.gather_params(grads, specs, mesh)
+    return {"loss": loss, "eval_loss": driver._dp_mean(
+        {"l": float(eval_loss)}, mesh)["l"], "grads": grads}
+
+
+def _family_loss(kind: str):
+    from megatron_llm_tpu_torch.models import biencoder, encdec
+
+    fn = {"bert": encdec.bert_loss, "t5": encdec.t5_loss,
+          "ict": biencoder.retrieval_loss}[kind]
+    return lambda cfg, p, mb, rng, det: fn(cfg.model, p, mb, rng, det)
+
+
+def custom_cp_case(tree: dict, meta: dict) -> dict:
+    """A family's custom loss at this world's degrees (cp): step 1's loss
+    and whole grads through ``training/step.step_grads`` on the global
+    batch ``[1, b, ...]``, then ``pretrain_custom`` over ``tree["data"]``
+    (``[N, ...]`` arrays, one sample a row) from the same params: each
+    step's loss."""
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.training import driver
+    from megatron_llm_tpu_torch.training import step as st
+    from megatron_llm_tpu_torch.utils.tree import tree_map
+
+    cfg = runtime_config(meta)
+    loss_fn = _family_loss(meta["kind"])
+    params = _t(tree["params"])
+    art = driver.setup_train_state(cfg, tree_map(lambda t: t.clone(),
+                                                 params), "cpu",
+                                   loss_fn=loss_fn)
+    batch = {k: torch.from_numpy(np.asarray(v))[None]
+             for k, v in tree["batch"].items()}
+    with art.in_mesh():
+        grads, loss, _ = st.step_grads(cfg, art.state.params, batch, None,
+                                       loss_fn=loss_fn, plan=art.plan)
+        grads = sharding.gather_params(grads, art.plan.specs, art.mesh)
+    data = tree["data"]
+    n = len(next(iter(data.values())))
+
+    class Samples:
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return {k: v[i] for k, v in data.items()}
+
+    losses = []
+    driver.pretrain_custom(cfg, Samples(), params, loss_fn, device="cpu",
+                           on_step=lambda it, m, s: losses.append(
+                               float(m["loss"])))
+    return {"loss": loss, "grads": grads, "losses": np.asarray(losses)}
+
+
+def moe_layout_case(tree: dict, meta: dict) -> dict:
+    """``moe_block`` at this world's degrees (cp, contiguous or zigzag, or
+    tp with sequence parallelism) on a whole ``x [b, s, h]``: each rank
+    its block of the sequence as the step lays it out, the output gathered
+    back in the natural order, the stats (``aux`` summed over cp, the
+    rank's share); then one microbatch's loss and whole grads of the MoE
+    model through ``training/step.step_grads``."""
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.models import moe, sharding
+    from megatron_llm_tpu_torch.models.transformer import rope_tables
+    from megatron_llm_tpu_torch.parallel import mappings
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.parallel import pipeline as pipe
+    from megatron_llm_tpu_torch.parallel.ring_attention import \
+        zigzag_indices
+    from megatron_llm_tpu_torch.training import step as st
+    from megatron_llm_tpu_torch.training.driver import setup_train_state
+
+    cfg = runtime_config(meta)
+    mesh = mesh_lib.build_mesh(cfg.parallel)
+    cp, tp = mesh.size("cp"), mesh.size("tp")
+    x = torch.from_numpy(tree["x"])
+    s = x.shape[1]
+    order = (zigzag_indices(s, cp) if cfg.model.context_parallel_zigzag
+             else np.arange(s))
+    n = s // (cp * tp)
+    lo = (mesh.index("cp") * tp + mesh.index("tp")) * n
+    if cfg.model.sequence_parallel_axis is None:   # the tp ranks hold it all
+        n, lo = s // cp, mesh.index("cp") * (s // cp)
+    mine = order[lo:lo + n]
+    # one layer's MoE leaves: the stacked specs without their layer axis
+    layer_specs = sharding.param_specs(cfg.model,
+                                       cfg.parallel)["layers"]["mlp"]
+    layer = sharding.shard_params(
+        _t(tree["layer"]), {k: v[1:] for k, v in layer_specs.items()}, mesh)
+    with mesh_lib.use_mesh(mesh), torch.no_grad():
+        out, stats = moe.moe_block(cfg.model, layer, x[:, mine].contiguous())
+        aux = mappings.all_reduce(stats["aux"].clone(), mesh.group("cp"))
+        blocks = [torch.empty_like(out) for _ in range(dist.get_world_size())]
+        dist.all_gather(blocks, out.contiguous())
+    whole = torch.empty_like(x)
+    for r in range(dist.get_world_size()):
+        c, t = divmod(r, tp)
+        if cfg.model.sequence_parallel_axis is None:
+            idx = order[c * (s // cp):(c + 1) * (s // cp)]
+        else:
+            idx = order[(c * tp + t) * n:(c * tp + t + 1) * n]
+        whole[:, idx] = blocks[r]
+
+    art = setup_train_state(cfg, _t(tree["params"]), "cpu")
+    batch = {k: torch.from_numpy(np.asarray(v))[None]
+             for k, v in tree["batch"].items()}
+    with art.in_mesh():
+        grads, loss, moe_stats = st.step_grads(
+            cfg, art.state.params, batch,
+            rope_tables(cfg.model, device="cpu"), plan=art.plan)
+        grads = pipe.from_pipeline_params(sharding.gather_params(
+            grads, art.plan.specs, art.mesh), cfg.parallel)
+    return {"out": whole, "aux": aux, "dropped": stats["dropped"],
+            "load": stats["load"], "loss": loss, "grads": grads}
+
+
+def entry_resume_case(tree: dict, meta: dict) -> dict:
+    """An entry's ``main(argv, device="cpu")`` (``meta["argv"]`` saves at
+    iteration 2 under ``meta["root"]`` and trains 3), then the checkpoint
+    of iteration 3 removed and the run resumed from 2: the straight run's
+    logged losses, both runs' iterations, the resumed run's logged steps,
+    and whether any rank's resumed params differ from the straight run's
+    (1) or none does (0)."""
+    import contextlib
+    import importlib
+    import io
+    import re
+    import shutil
+
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch import checkpointing
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    entry = importlib.import_module(f"megatron_llm_tpu_torch.{meta['entry']}")
+    pattern = r"lm loss: ([0-9.E+-]+) \|"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        straight = entry.main(meta["argv"], device="cpu")
+    losses = [float(x) for x in re.findall(pattern, buf.getvalue())]
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(os.path.join(meta["root"], "iter_0000003"))
+        checkpointing.write_tracker(meta["root"], 2)
+    dist.barrier()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        resumed = entry.main(meta["argv"], device="cpu")
+    steps = len(re.findall(pattern, buf.getvalue()))
+    differ = torch.tensor(int(not all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(resumed.params),
+                                          tree_leaves(straight.params)))))
+    dist.all_reduce(differ, op=dist.ReduceOp.MAX)
+    return {"losses": np.asarray(losses), "iters": straight.iteration,
+            "resumed_iters": resumed.iteration, "resumed_steps": steps,
+            "differ": differ}
