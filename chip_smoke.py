@@ -124,8 +124,8 @@ it goes wrong:
 30. server: phase 19's ``MegatronServer`` answers a ``beam_width`` 2 and
     a ``tokens_to_generate`` 0 PUT /api with 200 and the direct calls'
     results;
-31. weights round trip: Llama-2-7B cut to 8 layers (3.76 GB of bf16;
-    full depth until phases 35-38 needed the time), random weights
+31. weights round trip: Llama-2-7B cut to 4 layers (2.14 GB of bf16;
+    full depth until phases 35-38 and 63-65 needed the time), random weights
     from a seed on the card → ``llama_to_hf`` → an HF directory
     (config.json, safetensors shards of at most 5 GB, their index) →
     ``checkpoint_util.hf_to_native`` (a release checkpoint) →
@@ -143,7 +143,7 @@ it goes wrong:
     the same weights: avg max |Δlogit| <= 1e-3 as the CLI configures it
     (dot attention, plain norms) and through K1 and K4 in fp32; an
     import that skips one layer's Q/K permutation must fail;
-34. train resume: Llama-2-7B widths cut to 2 layers, seq 1024, bf16 with
+34. train resume: Llama-2-7B widths cut to 1 layer, seq 1024, bf16 with
     fp32 masters: 4 steps straight through ``pretrain`` (twice: the step
     is bitwise repeatable or not, logged), then 2 steps, a timed
     ``save_checkpoint`` and ``load_checkpoint`` into a fresh template
@@ -314,10 +314,10 @@ it goes wrong:
     paths (``<phase> rank <r>`` for the spawned ranks);
 57-59. pipeline, context and expert parallelism, two ranks on the card,
     each held as 54-56 are: 57 Llama-2-7B widths cut to 4 layers, seq
-    4096, pp = 2, 4 microbatches, 1F1B (against the one-device step and
+    4096, pp = 2, 2 microbatches, 1F1B (against the one-device step and
     the port's activation-memory prediction) and interleaved (vpp = 2,
     its params after 3 steps within ``PIPE_REL`` of 1F1B's); 58 2 layers,
-    seq 8192, cp = 2, contiguous and zigzag (K1-K3 launch 0 times: the
+    seq 4096, cp = 2, contiguous and zigzag (K1-K3 launch 0 times: the
     ring's blocks are plain PyTorch); 59 8 experts top-2, seq 4096, ep =
     2 (step 1's expert choices against the one-device forward's);
 60. the encoder pipelines, two ranks, ``pretrain_custom`` with the
@@ -328,16 +328,33 @@ it goes wrong:
     encoder stage's cross-attention grads exactly 0, K1-K3 all not causal
     on the encoder stages and all causal on T5's decoder stage, K6/K7;
 61. pp = 2 x cp = 2, four ranks on the card, Llama-2-7B widths cut to 2
-    layers, seq 8192 (4096 a rank), 2 microbatches, held as 57 is, K1-K3
+    layers, seq 4096 (2048 a rank), 2 microbatches, held as 57 is, K1-K3
     0 launches;
 62. MoE under cp and under sequence parallelism, two ranks, Llama-2-7B
-    widths cut to 2 layers, top-2: (a) cp = 2, seq 8192, 4 experts, (b)
+    widths cut to 2 layers, top-2: (a) cp = 2, seq 4096, 4 experts, (b)
     tp = 2 + SP, seq 4096, 8 experts; each leaf of step 1's grads against
     the fp32 one-device step (under cp with its attention through the
     ring's blocks) within phase 6's limit or 1.5x the bf16 one-device
     step's own error, the expert choices counted as 59 counts them.
     Phases 57-62 are the ``pipeline``, ``context-parallel``, ``experts``,
-    ``encoder-pipeline``, ``pipeline-ring`` and ``moe-layouts`` paths.
+    ``encoder-pipeline``, ``pipeline-ring`` and ``moe-layouts`` paths;
+63-65. sharded serving, two ranks on the card (rank 0 drives the engine,
+    the other replays its device work, ``serving/cluster/sharded.py``),
+    each rank's K1, K4 and K8 (K9 over an int8 cache) required to launch
+    and K12-K14 (declined under a sharding mesh) to launch 0 times: 63
+    tp = 2: Llama-2-7B widths cut to 2 layers, phase 4's check on the
+    shards, then Llama-2-7B at full depth through ``build_sharded_engine``,
+    4 concurrent greedy requests of 64-1024 prompt tokens, 32 new each,
+    each first parting from the one-device engine's tokens (a first
+    token's too) a near tie (phase 44's rule, the route gap at most
+    ``SHARD_GAP_MAX``), TTFT, decode tokens/s and each rank's resident
+    bytes logged; 64 the same at pp = 2 with an int8 cache (2 layers, 1 a
+    stage, against the fp32 plain route over the same int8 cache; then
+    16 + 16 layers, two decode groups required); 65 fsdp = 2 at 2 layers
+    (phase 4's check, under 0.75 of the tree resident), then
+    ``run_text_generation_server --tp 2`` over a 2-layer fp32 checkpoint,
+    its texts equal to the one-device service's and every rank's ``main``
+    returning 0.  Phases 63-65 are the ``sharded-serving`` paths.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -348,7 +365,7 @@ K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
 Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38, 39-41,
-42-46, 48-51 and 53-62 are the main paths:
+42-46, 48-51 and 53-65 are the main paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -359,7 +376,8 @@ split cache walk, as the C launchers report.  The
 line before the last is the ``{"kernels": [...]}`` JSON object
 (``launches`` sums the paths' counts, ``launches_by_path`` lists them,
 ``noncausal_launches`` K1-K3's launches with ``causal=False``);
-the last line is ``{"ok": true, "device": {...}}``.
+the last line is ``{"ok": true, "device": {...}}``.  Before them a line
+gives each part's seconds, the total and the host's CPU model.
 """
 
 from __future__ import annotations
@@ -576,11 +594,11 @@ DECODE_CASES = (
 )
 
 
-def check_flash_decode(torch, F, fd, dev, gen):
-    """K8 at DECODE_CASES' shapes; the first is the kernels line's row, the
-    others go to its ``cases``."""
+def check_flash_decode(torch, F, fd, dev, gen, decode_cases=DECODE_CASES):
+    """K8 at ``decode_cases``' shapes; the first is the kernels line's row,
+    the others go to its ``cases``."""
     head, cases = None, []
-    for name, b, nq, kv, fills in DECODE_CASES:
+    for name, b, nq, kv, fills in decode_cases:
         d, max_len = 128, 2048
         q = torch.randn(b, nq, d, generator=gen, device=dev,
                         dtype=torch.bfloat16)
@@ -1815,6 +1833,32 @@ def check_parallel_shapes(torch, F, fa, rn, dev, rows):
              "rmsnorm_fwd": "tp=2 sp rows 2048 h 4096",
              "rmsnorm_bwd": "tp=2 sp rows 2048 h 4096",
              "layernorm_fwd": ln[0][0], "layernorm_bwd": ln[0][0]}
+    for kname, row in got.items():
+        rows[kname].setdefault("parallel_cases", {})[names[kname]] = row
+
+
+def check_serving_shapes(torch, F, fa, fd, dev, rows):
+    """K1 and K8 at one rank's shapes of phase 63 (tp = 2, 16 of
+    Llama-2-7B's 32 heads of 128), checked and timed like the other
+    phase-3 cases, under ``parallel_cases`` of the kernel's JSON row: K1
+    a 1024-token causal prefill (b 1), K8 the 4 requests' decode at the
+    fills they reach (prompts 64-1024 + 32 new).  K4 runs at every norm
+    of those phases at the full hidden 4096 (norms are not split), the
+    rows phase 3 already times; K9 runs at phase 64's 32 heads (pp = 2
+    splits layers), K8's serving row.  A generator of their own keeps
+    the other cases' draws."""
+    gen = torch.Generator(device=dev).manual_seed(63)
+    attn = [("tp=2 serving prefill b1 s1024 h16 d128 causal", 1, 1024, 1024,
+             16, 16, 128, False, torch.bfloat16, True)]
+    dec = (("tp=2 serving decode b4 h16 kv16 fills 96/332/732/1056", 4, 16,
+            16, (96, 332, 732, 1056)),)
+    with torch.no_grad():
+        got = {"flash_attention_fwd": check_flash_attention(
+                   torch, F, fa, dev, gen, cases=attn),
+               "flash_decode": check_flash_decode(torch, F, fd, dev, gen,
+                                                  decode_cases=dec)}
+    got["flash_decode"].pop("cases", None)
+    names = {"flash_attention_fwd": attn[0][0], "flash_decode": dec[0][0]}
     for kname, row in got.items():
         rows[kname].setdefault("parallel_cases", {})[names[kname]] = row
 
@@ -3582,7 +3626,7 @@ def _state_tensors(state) -> list:
 
 
 def train_resume(torch, dev, counters, smi, work):
-    """Phase 34: Llama-2-7B widths cut to 2 layers, seq 1024, bf16 with
+    """Phase 34: Llama-2-7B widths cut to 1 layer, seq 1024, bf16 with
     fp32 masters, AdamW: 4 steps straight through ``pretrain`` (twice: is
     the step bitwise repeatable on the card?), then 2 steps that exit,
     ``save_checkpoint``, a load into a fresh template (bitwise the saved
@@ -3602,7 +3646,7 @@ def train_resume(torch, dev, counters, smi, work):
     from megatron_llm_tpu_torch.utils.tree import tree_leaves
 
     seq, root = 1024, os.path.join(work, "ckpt")
-    model = llama2_config("7b", num_layers=2, params_dtype="bfloat16",
+    model = llama2_config("7b", num_layers=1, params_dtype="bfloat16",
                           attention_impl="flash", norm_impl="pallas",
                           recompute="selective")
 
@@ -3692,9 +3736,9 @@ def train_resume(torch, dev, counters, smi, work):
 RESUME_LOSS_TOL = 1e-3
 
 
-# phase 31's depth: Llama-2-7B cut to 8 of its 32 layers (3.76 GB of
-# bf16), which keeps the smoke under 600 s with phases 35-38
-WEIGHTS_LAYERS = 8
+# phase 31's depth: Llama-2-7B cut to 4 of its 32 layers (2.14 GB of
+# bf16; 8 until phases 63-65 needed the time)
+WEIGHTS_LAYERS = 4
 
 
 def weights_phases(torch, cfg, dev, counters, smi, paths, settle):
@@ -6945,9 +6989,9 @@ def parallel_phases(torch, dev, counters, smi, paths, settle):
 # ---------------------------------------------------------------------------
 
 PP_LAYERS = 4       # Llama-2-7B widths cut to 4 layers (phase 57)
-PP_MICRO = 4        # microbatches a step, micro batch 1
+PP_MICRO = 2        # microbatches a step, micro batch 1 (4 before 63-65)
 CP_LAYERS = 2       # phase 58
-CP_SEQ = 8192       # 4096 a rank at cp = 2
+CP_SEQ = 4096       # 2048 a rank at cp = 2 (58, 61, 62a; 8192 before 63-65)
 EP_LAYERS = 2       # phase 59: about 1.08e9 expert params a layer
 EP_EXPERTS = 8
 PIPE_REL = 2 ** -8  # 1F1B against interleaved, a leaf (one bf16 rounding)
@@ -6960,7 +7004,6 @@ def _item10_cases():
     moe = dict(num_experts=EP_EXPERTS, moe_top_k=2, moe_capacity_factor=1.25,
                moe_group_size=512)
     pp = dict(pipeline_parallel=2, num_microbatches=PP_MICRO)
-    # RoPE tables for the 8192 positions (Llama-2's preset has 4096)
     cp_model = _llama_par(num_layers=CP_LAYERS,
                           max_position_embeddings=CP_SEQ)
     return (
@@ -7314,7 +7357,7 @@ MOE_CP_EXPERTS = 4  # 62(a): the experts replicated over cp
 def _moe_layout_cases():
     """Phase 62's ``(label, model, seq, global batch, parallel degrees,
     kernels that must launch, kernels that must not)``: (a) cp = 2 at seq
-    8192 (the 512-token routing groups inside each rank's 4096), (b) tp = 2
+    4096 (the 512-token routing groups inside each rank's 2048), (b) tp = 2
     with sequence parallelism at seq 4096 (each expert's ffn split)."""
     moe = dict(moe_top_k=2, moe_capacity_factor=1.25, moe_group_size=512)
     return (
@@ -7331,7 +7374,7 @@ def _moe_layout_cases():
 
 def _ppcp_cases():
     """Phase 61's case: pp = 2 x cp = 2 (the ring inside each stage, the
-    contiguous layout), Llama-2-7B widths cut to 2 layers, seq 8192 (4096
+    contiguous layout), Llama-2-7B widths cut to 2 layers, seq 4096 (2048
     a rank), 2 microbatches; four ranks on the one card."""
     return (("61 pp2-cp2 llama2-7b widths",
              _llama_par(num_layers=PPCP_LAYERS,
@@ -7614,6 +7657,451 @@ def _enc_pipe_phase(torch, rank, dev, counters, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 63-65: sharded serving (tp, pp and fsdp ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+SHARD_LENS = (64, 300, 700, 1024)   # phases 63-64: the 4 requests' prompts
+SHARD_NEW = 32
+SHARD_ROUTE_PRE = 64                # the route-gap forward: prefill + steps
+SHARD_ROUTE_DEC = 4
+# the near-tie rule's ceiling on a full-depth route gap: about twice the
+# tp route's 0.28 on an H100 and under half the logit std (1.28) that a
+# wrong layer, stage or row group moves the logits by, so a broken route
+# cannot widen its own tolerance
+SHARD_GAP_MAX = 0.5
+SHARD_NEED = ("flash_attention_fwd", "rmsnorm_fwd")  # and K8 or K9
+SHARD_FUSED = ("fused_decode_step", "fused_decode_step_paged",
+               "fused_decode_verify_paged", "fused_decode_verify_tree_paged")
+SHARD_ENGINE = dict(max_batch_size=4, max_seq_len=1152, prefill_bucket=64,
+                    kv_block_size=64, kv_pool_blocks=145)
+SHARD_CLI_BODY = {"prompts": [" ".join(str(7 * i % 251) for i in range(n))
+                              for n in (40, 130)],
+                  "tokens_to_generate": 16}
+
+
+def _shard_model(**kw):
+    """Llama-2-7B as the sharded phases serve it: bf16, the kernels'
+    attention and norms, the composed decode route (the route a sharding
+    mesh takes, and the one-device reference's too)."""
+    from megatron_llm_tpu_torch.config import llama2_config
+
+    return llama2_config("7b", **dict(dict(
+        params_dtype="bfloat16", attention_impl="flash", norm_impl="pallas",
+        fused_decode=False), **kw))
+
+
+def _shard_launch_check(rank, label, launches, decode) -> None:
+    """A sharded path's launches on this rank: K1, K4 and ``decode`` (K8
+    or K9) at least once (``SHARD_NEED``), K12-K14 never."""
+    need = SHARD_NEED + ((decode,) if SHARD_NEED else ())
+    missing = [n for n in need if launches[n] < 1]
+    fused = [n for n in SHARD_FUSED if launches[n]]
+    if missing or fused:
+        raise RuntimeError(f"[rank {rank}] {label}: kernels never launched "
+                           f"{missing}; whole-stack kernels launched {fused}")
+
+
+def _decode_rate(snap) -> float:
+    """Decode tokens a second of an engine's metrics (host clock)."""
+    return snap["decode_tokens"] / max(snap["timers_s"]["serving-decode"],
+                                       1e-9)
+
+
+def _shard_logits(torch, dev, counters, rank, label, parallel,
+                  kv_quant="none", decode="flash_decode"):
+    """Phase 4's check at one sharded layout: Llama-2-7B widths cut to 2
+    layers, a 192-token prefill then 8 decode steps (4 dense, 4 paged) on
+    this rank's shards, against the fp32 plain forward of the same tokens
+    (rank 0; with an int8 cache the fp32 plain cached route over the same
+    int8 cache on the CPU, phase 12's reference), with rank 0's resident
+    bytes against the whole tree's."""
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel.mesh import use_mesh
+    from megatron_llm_tpu_torch.utils.tree import tree_map
+
+    n_pre, n_dec, bk, width = 192, 8, 64, 256
+    cfg = _shard_model(num_layers=2, kv_cache_quant=kv_quant)
+    params = M.init_params(cfg, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_pre + n_dec),
+                         generator=gen, device=dev)
+    ref = None
+    if rank == 0:
+        ref_cfg = dataclasses.replace(cfg, params_dtype="float32",
+                                      attention_impl="dot", norm_impl="xla")
+        with torch.no_grad():
+            if kv_quant == "none":
+                ref = M.forward(ref_cfg, tree_map(lambda t: t.float(), params),
+                                toks)[0, n_pre - 1:n_pre + n_dec]
+            else:
+                cpu = torch.device("cpu")
+                ref = _prefill_paged_decode(
+                    torch, M, ref_cfg,
+                    tree_map(lambda t: t.float().to(cpu), params), toks, cpu,
+                    n_pre, n_dec).to(dev)
+    local, mesh = sharding.shard_for_serving(params, cfg,
+                                             ParallelConfig(**parallel))
+    rec = {"param_bytes": _nbytes(local), "whole_bytes": _nbytes(params)}
+    del params
+    _zero(counters)
+    with torch.no_grad(), use_mesh(mesh):
+        k, v = M.init_kv_cache(cfg, 1, width, device=dev)
+        pre, k, v = M.forward_cached(cfg, local, toks[:, :n_pre], k, v, 0,
+                                     empty_cache=True)
+        steps = [pre[:, -1]]
+        for i in range(n_dec // 2):
+            lg, k, v = M.forward_cached(cfg, local,
+                                        toks[:, n_pre + i:n_pre + i + 1], k,
+                                        v, n_pre + i)
+            steps.append(lg[:, 0])
+        kp, vp = M.init_kv_pool(cfg, 1 + width // bk, bk, device=dev)
+        bids = torch.arange(1, 1 + width // bk, device=dev)
+        M.cache_scatter_blocks(kp, k, bids)
+        M.cache_scatter_blocks(vp, v, bids)
+        for i in range(n_dec // 2, n_dec):
+            lg, _, _ = M.forward_cached_paged(
+                cfg, local, toks[:, n_pre + i:n_pre + i + 1], kp, vp,
+                bids[None], torch.tensor([n_pre + i], device=dev))
+            steps.append(lg[:, 0])
+    rec["launches"] = _launches(counters)
+    _shard_launch_check(rank, label, rec["launches"], decode)
+    if rank != 0:
+        return rec
+    diff = (torch.cat(steps) - ref).abs()
+    rec.update(mean_abs_err=float(diff.mean()), max_abs_err=float(diff.max()),
+               logit_std=float(ref.std()))
+    share = rec["param_bytes"] / rec["whole_bytes"]
+    log(f"[rank 0] {label}: 2 layers, a {n_pre}-token prefill + {n_dec} "
+        f"decode steps on this rank's shards (cache {kv_quant}) against the "
+        f"fp32 plain route: mean_abs_err {rec['mean_abs_err']:.4f} (tol "
+        f"0.03), max_abs_err {rec['max_abs_err']:.4f} (tol 0.25), logit std "
+        f"{rec['logit_std']:.3f}; resident params {share:.3f} of the whole")
+    if not (math.isfinite(rec["max_abs_err"]) and rec["mean_abs_err"] <= 0.03
+            and rec["max_abs_err"] <= 0.25):
+        raise RuntimeError(f"{label}: logits against fp32 {rec}")
+    if share >= 0.75:
+        raise RuntimeError(f"{label}: rank 0 holds {share:.3f} of the tree")
+    return rec
+
+
+def _route_gap(torch, M, cfg, whole, local, mesh, dev, rank):
+    """The largest |d| of the sharded route's logits against the one-device
+    route's (rank 0's whole params) over a prefill and a few decode steps
+    at full depth: the bf16 roundings a near tie may part on."""
+    from megatron_llm_tpu_torch.parallel.mesh import use_mesh
+
+    gen = torch.Generator(device=dev).manual_seed(64)
+    n = SHARD_ROUTE_PRE + SHARD_ROUTE_DEC
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                         device=dev)
+
+    def run(params):
+        k, v = M.init_kv_cache(cfg, 1, n, device=dev)
+        lg, k, v = M.forward_cached(cfg, params, toks[:, :SHARD_ROUTE_PRE],
+                                    k, v, 0, empty_cache=True)
+        out = [lg[:, -1]]
+        for i in range(SHARD_ROUTE_PRE, n - 1):
+            lg, k, v = M.forward_cached(cfg, params, toks[:, i:i + 1], k, v,
+                                        i)
+            out.append(lg[:, 0])
+        return torch.cat(out)
+
+    with torch.no_grad():
+        with use_mesh(mesh):
+            sharded = run(local)
+        if rank != 0:
+            return None
+        return float((sharded - run(whole)).abs().max())
+
+
+def _shard_serve(torch, dev, counters, rank, label, parallel, kv_quant,
+                 decode, groups, smi):
+    """Phases 63 and 64: Llama-2-7B at full width and depth through
+    ``build_sharded_engine``, 4 concurrent greedy requests of
+    ``SHARD_LENS`` prompt tokens, ``SHARD_NEW`` new each, the decode step
+    in ``groups`` row groups.  Rank 0 first
+    serves them on one device (its whole params); then every rank keeps
+    its shards, its counters set to 0 just before the main path, rank 0
+    serving and the other rank replaying.  Where a request's tokens first
+    part from the one-device engine's, the first new token included, the
+    one-device forward's logits of the two tokens lie within twice the
+    routes' measured gap (phase 44's rule), and that gap is at most
+    ``SHARD_GAP_MAX``: the ranks' products round bf16 at other shapes (a
+    column block, another split of K8's walk), so 32 layers part on near
+    ties, a first token too (one bf16 step apart against a route gap of
+    0.28 on an H100)."""
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.serving import EngineConfig, ServingEngine
+    from megatron_llm_tpu_torch.serving.cluster import build_sharded_engine
+
+    t0 = time.perf_counter()
+    cfg = _shard_model(kv_cache_quant=kv_quant)
+    ec = EngineConfig(**SHARD_ENGINE)
+    params = M.init_params(cfg, seed=0, device=dev)  # every rank the same
+    gen = torch.Generator().manual_seed(63)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in SHARD_LENS]
+    specs = [dict(prompt=p, max_new_tokens=SHARD_NEW, use_eos_stop=False)
+             for p in prompts]
+    whole_bytes = _nbytes(params)
+    rec = {}
+    if rank == 0:
+        one = ServingEngine(cfg, params, ec, device=dev).start()
+        try:
+            ref = [h.result(900).tokens for h in one.submit_many(specs)]
+            snap = one.metrics.snapshot()
+        finally:
+            one.shutdown()
+        rec["one_device_decode_tok_s"] = _decode_rate(snap)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    eng = build_sharded_engine(cfg, params, ec, ParallelConfig(**parallel),
+                               device=dev)
+    if rank != 0:
+        # the worker keeps its shards alone (rank 0 keeps the whole tree
+        # for the one-device references)
+        eng.rebuild_spec = params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero(counters)
+    if rank != 0:
+        eng.serve()
+        rec["launches"] = _launches(counters)
+        local, mesh = eng.params, eng.mesh
+        pool_bytes = None
+    else:
+        eng.start()
+        t_serve = time.perf_counter()
+        try:
+            got = [h.result(1200).tokens for h in eng.submit_many(specs)]
+            rec["launches"] = _launches(counters)
+            rec["serve_s"] = time.perf_counter() - t_serve
+            snap = eng.metrics.snapshot()
+            rec["groups"] = eng._decode_groups
+            k = eng.slots.pool.k_pool
+            k = k["q"] if isinstance(k, dict) else k
+            pool_bytes = k.numel() * k.element_size()
+        finally:
+            eng.shutdown()
+        local, mesh = eng.params, eng.mesh
+        rec["ttft_ms"] = {q[:-2]: 1e3 * v for q, v in snap["ttft"].items()
+                          if q.endswith("_s")}
+        rec["decode_tok_s"] = _decode_rate(snap)
+    rec["param_bytes"] = _nbytes(local)
+    rec["whole_bytes"] = whole_bytes
+    gap = _route_gap(torch, M, cfg, params, local, mesh, dev, rank)
+    _shard_launch_check(rank, label, rec["launches"], decode)
+    if rank != 0:
+        return rec
+    n_same = firsts = 0
+    gaps = []
+    with torch.no_grad():
+        for a, b, n in zip(got, ref, SHARD_LENS):
+            firsts += int(a[n] == b[n])
+            n_same += sum(int(x == y) for x, y in zip(a[n:], b[n:]))
+            p = next((j for j in range(n, len(a)) if a[j] != b[j]), None)
+            if p is None:
+                continue
+            lg = M.forward(cfg, params, torch.tensor([a[:p]], device=dev))
+            gaps.append((p - n, float((lg[0, -1, a[p]]
+                                       - lg[0, -1, b[p]]).abs())))
+    rec.update(route_gap=gap, partings=gaps, same_new_tokens=n_same,
+               same_first_tokens=firsts, pool_bytes=pool_bytes,
+               seconds=time.perf_counter() - t0)
+    log(f"[rank 0] {label}: 4 requests ({SHARD_LENS} + {SHARD_NEW}) in "
+        f"{rec['serve_s']:.1f}s, decode {rec['decode_tok_s']:.1f} tok/s (one "
+        f"device {rec['one_device_decode_tok_s']:.1f}), TTFT ms "
+        f"{json.dumps(rec['ttft_ms'])}; {rec['groups']} decode group(s); "
+        f"{firsts} of {len(SHARD_LENS)} first tokens equal the one-device "
+        f"engine's, {n_same} of "
+        f"{len(SHARD_LENS) * SHARD_NEW} new tokens equal; partings "
+        f"(new-token index, |d| of the two tokens' one-device logits) "
+        f"{gaps} (limit 2 x route gap {gap:.4f}, the gap at most "
+        f"{SHARD_GAP_MAX}); resident params "
+        f"{rec['param_bytes'] / whole_bytes:.3f} of the whole, pool "
+        f"{pool_bytes / 2**30:.2f} GiB (host clock; card {smi})")
+    if not gap <= SHARD_GAP_MAX:
+        raise RuntimeError(f"{label}: the sharded route's logits differ from "
+                           f"the one-device route's by {gap}")
+    if any(g > 2 * gap for _, g in gaps):
+        raise RuntimeError(f"{label}: tokens part where the logits are not "
+                           f"near a tie: {gaps}, routes differ by {gap}")
+    if rec["groups"] != groups:
+        raise RuntimeError(f"{label}: {rec['groups']} decode groups, "
+                           f"{groups} wanted")
+    if rec["param_bytes"] >= 0.75 * whole_bytes:
+        raise RuntimeError(f"{label}: rank 0 holds {rec['param_bytes']} of "
+                           f"{whole_bytes} bytes")
+    return rec
+
+
+def _shard_cli(torch, dev, counters, rank, work, smi):
+    """Phase 65 (b): ``run_text_generation_server --tp 2`` over a 2-layer
+    Llama-2-7B-width fp32 release checkpoint on both ranks; rank 0 answers PUT
+    /api with the in-process one-device service's texts (same checkpoint,
+    ``--tp 1``), and every rank's ``main`` returns 0 after rank 0's
+    server shuts down."""
+    from megatron_llm_tpu_torch import checkpointing, initialize
+    from megatron_llm_tpu_torch.config import RuntimeConfig
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.tools import run_text_generation_server as rtgs
+
+    root = os.path.join(work, "cli_ckpt")
+    # fp32: two reduction orders of bf16 part on near ties within a few
+    # tokens of random weights, where the texts are held equal
+    cfg = _shard_model(num_layers=2, params_dtype="float32")
+    if rank == 0:
+        checkpointing.save_release_params(
+            root, M.init_params(cfg, seed=3, device=dev),
+            RuntimeConfig(model=cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+    initialize.barrier()
+    argv = ["--load", root, "--use_checkpoint_args", "--tokenizer_type",
+            "null", "--max_batch_size", "2", "--max_seq_len", "512",
+            "--prefill_bucket", "64", "--kv_block_size", "64", "--no_trace",
+            "--metrics_interval_s", "0", "--device", str(dev.type),
+            "--host", "127.0.0.1", "--port", "0"]
+
+    def serve_once(tp):
+        ready, box = threading.Event(), {}
+
+        def on_ready(server):
+            box["server"] = server
+            ready.set()
+
+        th = threading.Thread(target=lambda: box.setdefault(
+            "rc", rtgs.main(argv + ["--tp", str(tp)], on_ready=on_ready)))
+        th.start()
+        try:
+            if not ready.wait(600):
+                raise RuntimeError("the server did not start")
+            status, body = put(box["server"].port, SHARD_CLI_BODY)
+        finally:
+            if "server" in box:
+                box["server"].graceful_shutdown(30.0)
+            th.join(120)
+        if status != 200 or th.is_alive() or box.get("rc") != 0:
+            raise RuntimeError(f"server at tp = {tp}: status {status}, rc "
+                               f"{box.get('rc')}")
+        return body["text"]
+
+    want = serve_once(1) if rank == 0 else None
+    initialize.barrier()
+    _zero(counters)
+    if rank != 0:
+        if rtgs.main(argv + ["--tp", "2"]) != 0:
+            raise RuntimeError("a worker's main returned non-zero")
+        rec = {"launches": _launches(counters)}
+        _shard_launch_check(rank, "65 cli tp2", rec["launches"],
+                            "flash_decode")
+        return rec
+    got = serve_once(2)
+    rec = {"launches": _launches(counters), "texts_equal": got == want}
+    _shard_launch_check(rank, "65 cli tp2", rec["launches"], "flash_decode")
+    log(f"[rank 0] 65 cli tp2: run_text_generation_server --tp 2 (2 layers, "
+        f"Llama-2-7B widths) answered PUT /api with the one-device service's "
+        f"texts: {got == want}; every rank's main returned 0 (card {smi})")
+    if got != want:
+        raise RuntimeError(f"65 cli tp2: texts {got} against {want}")
+    return rec
+
+
+def _item11_rank(rank, world, rdv, out_dir, smi, device="cuda"):
+    """One rank of phases 63-65 (spawned twice on the one card, gloo)."""
+    import datetime
+
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from megatron_llm_tpu_torch import initialize
+    from megatron_llm_tpu_torch.kernels import launch_counters
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = initialize.initialize_distributed(
+        device, init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(minutes=10))
+    if info.backend != "gloo":
+        raise RuntimeError(f"{world} ranks on one card took {info.backend}")
+    dev = info.device
+    counters = launch_counters()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["63 logits tp2"] = _shard_logits(torch, dev, counters, rank,
+                                             "63 tp2",
+                                             dict(tensor_parallel=2))
+        out["63 serve tp2"] = _shard_serve(
+            torch, dev, counters, rank, "63 tp2 llama2-7b",
+            dict(tensor_parallel=2), "none", "flash_decode", 1, smi)
+        out["63 serve tp2"]["phase_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["64 logits pp2 int8"] = _shard_logits(
+            torch, dev, counters, rank, "64 pp2 int8 cache",
+            dict(pipeline_parallel=2), "int8", "flash_decode_int8")
+        out["64 serve pp2 int8"] = _shard_serve(
+            torch, dev, counters, rank, "64 pp2 llama2-7b int8 cache",
+            dict(pipeline_parallel=2), "int8", "flash_decode_int8", 2, smi)
+        out["64 serve pp2 int8"]["phase_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["65 logits fsdp2"] = _shard_logits(torch, dev, counters, rank,
+                                               "65 fsdp2", dict(fsdp=2))
+        out["65 cli tp2"] = _shard_cli(torch, dev, counters, rank, out_dir,
+                                       smi)
+        out["65 cli tp2"]["phase_s"] = time.perf_counter() - t0
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    initialize.destroy()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def item11_phases(torch, dev, counters, smi, paths, settle, world=2):
+    """Phases 63-65 (the ``sharded-serving`` paths): two ranks spawned on
+    the one card, as 54-62 are; each main path's launches by rank."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_item11_")
+    try:
+        mp.start_processes(_item11_rank, args=(world, os.path.join(
+            work, "rdv"), work, smi, "cuda"), nprocs=world, join=True,
+            start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    settle()
+    for label in ranks[0]:
+        for r, rec in enumerate(ranks):
+            if "launches" in rec[label]:
+                paths[f"{label} rank {r}"] = rec[label]["launches"]
+                log(f"{label} rank {r} kernels " + json.dumps(
+                    rec[label]["launches"]))
+        summary = {f"rank {r}": {k: v for k, v in rec[label].items()
+                                 if k != "launches"}
+                   for r, rec in enumerate(ranks)}
+        log(f"phase {label} ({world} ranks on the one card, gloo): "
+            + json.dumps(summary))
+    log(f"item-11 phases 63-65 in {time.perf_counter() - t0:.1f}s "
+        f"({world} processes spawned on the card; card {smi})")
+
+
 def log_hmma(build) -> None:
     """Log the tensor-core instructions (HMMA) of the attention kernels'
     libraries, where the toolkit's cuobjdump is present; information only."""
@@ -7629,7 +8117,49 @@ def log_hmma(build) -> None:
             f"rc {res.returncode})")
 
 
+def host_cpu() -> str:
+    """The host's CPU as ``/proc/cpuinfo`` (read only) gives it for the
+    first CPU: model name, vendor, family, model, stepping and MHz (a
+    virtual machine may name the model "unknown"), with the count of
+    logical CPUs."""
+    keys = ("model name", "vendor_id", "cpu family", "model", "stepping",
+            "cpu MHz")
+    first, n = {}, 0
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                n += key == "processor"
+                if n == 1 and key in keys:
+                    first.setdefault(key, value.strip())
+    except OSError:
+        return "unknown"
+    return ", ".join(f"{k} {first[k]}" for k in keys if k in first) + \
+        f"; {n} logical CPUs"
+
+
+class Laps:
+    """Each part's seconds of the run (host clock), logged together with
+    the total and the host at the end."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.parts = {}
+
+    def lap(self, label: str) -> None:
+        now = time.perf_counter()
+        self.parts[label] = round(now - self.t, 1)
+        self.t = now
+
+    def report(self, smi: str) -> None:
+        log("seconds by part: " + json.dumps(self.parts) + f"; total "
+            f"{time.perf_counter() - self.t0:.1f}s; host {host_cpu()}; "
+            f"card {smi}")
+
+
 def main() -> int:
+    laps = Laps()
     sys.path.insert(0, ROOT)
     import torch
     import torch.nn.functional as F
@@ -7673,6 +8203,7 @@ def main() -> int:
     build.print_ptxas(logs.get("decode_step_stamps", ""),
                       decode_probe.kernel_name)
     log_hmma(build)
+    laps.lap("1-2 device and build")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
@@ -7694,11 +8225,14 @@ def main() -> int:
     rows["layernorm_bwd"] = check_layernorm_bwd(torch, F, rn, dev, gen)
     torch.cuda.empty_cache()
     check_parallel_shapes(torch, F, fa, rn, dev, rows)
+    check_serving_shapes(torch, F, fa, fd, dev, rows)
     torch.cuda.empty_cache()
+    laps.lap("3 kernels")
     cfg = llama2_config("7b", params_dtype="bfloat16", attention_impl="flash",
                         norm_impl="pallas", fused_decode=False)
     check_reference(torch, M, cfg, dev, "llama2-7b")
     torch.cuda.empty_cache()
+    laps.lap("4 reference")
 
     def settle():
         gc.collect()
@@ -7723,6 +8257,7 @@ def main() -> int:
         "llama2-7b widths", TRAIN_KERNELS + ("rmsnorm_fwd", "rmsnorm_bwd"))
     settle()
     log(f"llama phases 5-7 in {time.perf_counter() - t0:.1f}s")
+    laps.lap("5-7")
 
     t0 = time.perf_counter()
     falcon = falcon_config("7b", params_dtype="bfloat16",
@@ -7754,10 +8289,12 @@ def main() -> int:
                                              "layernorm_bwd"), seq=2048)
     settle()
     log(f"falcon phases 8-10 in {time.perf_counter() - t0:.1f}s")
+    laps.lap("8-10")
     t0 = time.perf_counter()
     paths["train gpt-1.3b"] = train_gpt(torch, dev, counters, smi)
     log(f"gpt phase 11 in {time.perf_counter() - t0:.1f}s")
     settle()
+    laps.lap("11")
 
     t0 = time.perf_counter()
     check_quant_reference(torch, M, cfg, dev)
@@ -7771,6 +8308,7 @@ def main() -> int:
     paths["paged attention"] = paged_attention_path(torch, M, dev, counters,
                                                     cfg)
     log(f"quantized phases 12-14 in {time.perf_counter() - t0:.1f}s")
+    laps.lap("12-14")
 
     t0 = time.perf_counter()
     fused = dataclasses.replace(cfg, fused_decode=True)
@@ -7807,6 +8345,7 @@ def main() -> int:
         f"{spec_out['decode_tok_s']:.1f} tok/s against "
         f"{fused_out['decode_tok_s']:.1f} (host clock; card {smi})")
     log(f"fused phases 15-18 in {time.perf_counter() - t0:.1f}s")
+    laps.lap("15-18")
 
     t0 = time.perf_counter()
     paths["serve llama2-7b defaults"], ttft = default_serve(
@@ -7848,6 +8387,7 @@ def main() -> int:
             f"{rec['peak_gib']:.1f} GiB (host clock; card {smi})")
     log(f"default and draft phases 19-21 in {time.perf_counter() - t0:.1f}s; "
         f"TTFT cold {ttft['cold_ms']:.2f} ms, hits {ttft['hit_ms']}")
+    laps.lap("19-21")
 
     t0 = time.perf_counter()
     lora_need = ("flash_attention_fwd", "rmsnorm_fwd")
@@ -7866,6 +8406,7 @@ def main() -> int:
         paths[label] = launches
     settle()
     log(f"lora phase 22 in {time.perf_counter() - t0:.1f}s")
+    laps.lap("22")
 
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -7878,17 +8419,29 @@ def main() -> int:
     log(f"generate phases 23-30 in {time.perf_counter() - t0:.1f}s "
         f"(pld {pld_rec['tokens_per_step']:.2f} tokens a step, acceptance "
         f"{pld_rec['acceptance']:.3f}); card {smi}")
+    laps.lap("23-30")
 
     weights_phases(torch, fused, dev, counters, smi, paths, settle)
+    laps.lap("31-34")
     training_io_phases(torch, dev, counters, smi, paths, settle)
+    laps.lap("35-38")
     serving_options_phases(torch, fused, dev, counters, smi, paths, settle)
+    laps.lap("39-41")
     single_card_training_phases(torch, fused, dev, counters, smi, paths,
                                 settle)
+    laps.lap("42-46")
     encoder_families_phases(torch, dev, counters, smi, paths, settle)
+    laps.lap("47-52")
     parallel_phases(torch, dev, counters, smi, paths, settle)
+    laps.lap("53-56")
     item10_phases(torch, dev, counters, smi, paths, settle)
+    laps.lap("57-59")
     item10_phases(torch, dev, counters, smi, paths, settle, "60-62")
+    laps.lap("60, 62")
     item10_phases(torch, dev, counters, smi, paths, settle, "61", world=4)
+    laps.lap("61")
+    item11_phases(torch, dev, counters, smi, paths, settle)
+    laps.lap("63-65")
 
     meta = {
         "flash_attention_fwd": (
@@ -7987,6 +8540,7 @@ def main() -> int:
                             launches=sum(by_path.values()),
                             launches_by_path=by_path, **extra,
                             **rows[kname]))
+    laps.report(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -6,8 +6,7 @@ with torch dtypes, and the ``ParallelConfig``, ``OptimizerConfig``,
 default and preset is the same, so a config built here describes the same
 run as its JAX twin.  ``RuntimeConfig.validate`` refuses, with
 ``NotImplementedError`` naming the ROADMAP item, what the port does not
-run yet: the ``fsdp`` serving axis and int8 training matmuls under tensor
-parallelism.
+run yet: int8 training matmuls under tensor parallelism.
 """
 
 from __future__ import annotations
@@ -186,8 +185,9 @@ class ParallelConfig:
     port trains with data, tensor, sequence, pipeline (1F1B and
     interleaved), context (ring and zigzag) and expert parallelism and
     ZeRO-1 (one process a rank, ``initialize.py`` and
-    ``parallel/mesh.py``); ``fsdp`` (the serving residency axis) raises,
-    naming its ROADMAP item.  ``pipeline_remat_window`` is accepted and
+    ``parallel/mesh.py``); ``fsdp`` is the serving residency axis
+    (``models/sharding.serving_param_specs``), which training refuses
+    (``training/driver.setup_train_state``).  ``pipeline_remat_window`` is accepted and
     validated as in JAX; the port's 1F1B schedule already bounds a
     stage's in-flight microbatches (``parallel/pipeline.py``), so the
     window changes nothing."""
@@ -224,11 +224,6 @@ class ParallelConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got "
                                  f"{getattr(self, name)}")
-        if self.fsdp > 1:
-            raise NotImplementedError(
-                f"fsdp = {self.fsdp} (the serving weight-residency axis) is "
-                "not ported yet (ROADMAP.md, Queue 1 item 11: multi-GPU "
-                "serving)")
         if self.pipeline_parallel > 1 and self.num_microbatches < 1:
             raise ValueError("num_microbatches must be >= 1")
         if self.pipeline_remat_window:

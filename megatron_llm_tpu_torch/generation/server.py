@@ -83,9 +83,14 @@ class GenerationService:
                  role: str = "mixed",
                  device=None):
         if tensor_parallel * pipeline_parallel * replicas > 1 or router:
+            # JAX routes these through build_cluster and its Router; the
+            # launch entry serves --tp / --pp over build_sharded_engine
             raise NotImplementedError(
-                "sharded / replicated serving is not ported yet (ROADMAP.md, "
-                "Queue 1: multi-GPU serving)")
+                "MegatronServer(tensor_parallel=, pipeline_parallel=, "
+                "replicas=, router=) builds the cluster behind the router, "
+                "which is not ported yet (ROADMAP.md, Queue 1 item 11 (b)); "
+                "a sharded engine is served by "
+                "tools/run_text_generation_server --tp/--pp under torchrun")
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -124,44 +129,62 @@ class GenerationService:
         self._engine_init_lock = make_lock("server.engine_init")
         self._draining = False
 
+    def engine_config(self):
+        """The ``EngineConfig`` of this service's knobs."""
+        from ..serving import EngineConfig
+
+        extra = {}
+        if self.prefix_cache_blocks is not None:
+            extra["prefix_cache_blocks"] = self.prefix_cache_blocks
+        if self.kv_block_size is not None:
+            extra["kv_block_size"] = self.kv_block_size
+        if self.kv_pool_blocks is not None:
+            extra["kv_pool_blocks"] = self.kv_pool_blocks
+        if self.host_kv_blocks:
+            extra["host_kv_blocks"] = self.host_kv_blocks
+        if self.spec_reprobe_interval is not None:
+            extra["spec_reprobe_interval"] = self.spec_reprobe_interval
+        return EngineConfig(
+            max_batch_size=self.max_batch_size,
+            max_seq_len=self.engine_max_seq_len,
+            max_queue_size=self.queue_size,
+            retry_after_s=self.retry_after_s,
+            default_deadline_s=self.request_deadline_s,
+            prefill_bucket=self.prefill_bucket,
+            prefill_chunk=self.prefill_chunk,
+            pipeline_decode=self.pipeline_decode,
+            spec_draft_len=self.spec_draft_len,
+            spec_ngram=self.spec_ngram,
+            trace=self.trace_enabled,
+            role=self.role,
+            **extra)
+
     @property
     def engine(self):
         """The continuous-batching engine, created on first use."""
         with self._engine_init_lock:
             if self._engine is None:
-                from ..serving import EngineConfig, ServingEngine
+                from ..serving import ServingEngine
 
-                extra = {}
-                if self.prefix_cache_blocks is not None:
-                    extra["prefix_cache_blocks"] = self.prefix_cache_blocks
-                if self.kv_block_size is not None:
-                    extra["kv_block_size"] = self.kv_block_size
-                if self.kv_pool_blocks is not None:
-                    extra["kv_pool_blocks"] = self.kv_pool_blocks
-                if self.host_kv_blocks:
-                    extra["host_kv_blocks"] = self.host_kv_blocks
-                if self.spec_reprobe_interval is not None:
-                    extra["spec_reprobe_interval"] = \
-                        self.spec_reprobe_interval
-                engine_config = EngineConfig(
-                    max_batch_size=self.max_batch_size,
-                    max_seq_len=self.engine_max_seq_len,
-                    max_queue_size=self.queue_size,
-                    retry_after_s=self.retry_after_s,
-                    default_deadline_s=self.request_deadline_s,
-                    prefill_bucket=self.prefill_bucket,
-                    prefill_chunk=self.prefill_chunk,
-                    pipeline_decode=self.pipeline_decode,
-                    spec_draft_len=self.spec_draft_len,
-                    spec_ngram=self.spec_ngram,
-                    trace=self.trace_enabled,
-                    role=self.role,
-                    **extra)
                 self._engine = ServingEngine(
-                    self.cfg, self.params, engine_config,
+                    self.cfg, self.params, self.engine_config(),
                     draft_cfg=self.draft_cfg,
                     draft_params=self.draft_params, device=self.device)
             return self._engine
+
+    def use_sharded_engine(self, engine) -> None:
+        """Serve over rank 0's engine of ``build_sharded_engine`` (the
+        launch entry's ``--tp`` / ``--pp``).  The whole params are dropped:
+        beam search, scoring and prompt-lookup speculation, which run
+        them outside the engine, answer 501 (ROADMAP.md, Queue 1 item 11
+        (a)'s remainder)."""
+        if self.speculative is not None:
+            raise NotImplementedError(
+                "--speculative pld over a sharded engine is not ported yet "
+                "(ROADMAP.md, Queue 1 item 11 (a)'s remainder)")
+        with self._engine_init_lock:
+            self._engine = engine
+            self.params = None
 
     def metrics_snapshot(self) -> dict:
         """Point-in-time serving metrics (GET /metrics); an engine that was
@@ -300,6 +323,11 @@ class GenerationService:
         stop_token = body.get("stop_token", None)
         length_penalty = body.get("length_penalty", 1.0)
 
+        if self.params is None and (beam_width is not None
+                                    or tokens_to_generate == 0):
+            return 501, ("beam search and scoring over a sharded engine are "
+                         "not ported yet (ROADMAP.md, Queue 1 item 11 (a)'s "
+                         "remainder)")
         if beam_width is not None:
             with self.lock:
                 try:

@@ -264,13 +264,25 @@ def lora_fits(lora_sr: int) -> bool:
                             and 0 < lora_sr <= KERNEL_MAX_LORA_SR)
 
 
+def mesh_shards_stack(mesh) -> bool:
+    """True where ``mesh`` splits the stack's weights or cache (pp over
+    layers, tp over heads, fsdp over residency; JAX
+    ``_mesh_shards_stack``): the whole-stack kernels run one device's
+    whole stack in one launch, so such a mesh takes the composed route
+    (each layer's products, collectives and attention at the rank's
+    shapes).  A mesh of size-1 axes changes nothing."""
+    if mesh is None:
+        return False
+    return mesh.size("pp") * mesh.size("tp") * mesh.size("fsdp") > 1
+
+
 def fused_decode_eligible(cfg, params, k_cache, s: int,
-                          lora_sr: int = 0) -> bool:
+                          lora_sr: int = 0, mesh=None) -> bool:
     """The dense fused route (K12) for ``forward_cached``: one new token
     (``s == 1``), the stack checks, a batch and a LoRA arena the kernel
-    takes.  It does not look at the device: on the CPU the route runs the
-    plain version."""
-    if s != 1 or not lora_fits(lora_sr):
+    takes, and no ``mesh`` that splits the stack.  It does not look at
+    the device: on the CPU the route runs the plain version."""
+    if s != 1 or not lora_fits(lora_sr) or mesh_shards_stack(mesh):
         return False
     if _stack_eligible(cfg, params) is None or not _cache_fits(cfg, k_cache):
         return False
@@ -289,20 +301,23 @@ def _pool_fits(cfg, params, k_pool, rows: int, table_blocks: int) -> bool:
 
 def fused_paged_decode_eligible(cfg, params, k_pool, n_slots: int,
                                 table_blocks: int,
-                                lora_sr: int = 0) -> bool:
+                                lora_sr: int = 0, mesh=None) -> bool:
     """The paged fused route (K13) for the engine's decode step: the stack
     checks, a power-of-two pool block from 16, a slot count and a LoRA
-    arena the kernel takes."""
-    return lora_fits(lora_sr) and _pool_fits(cfg, params, k_pool, n_slots,
-                                             table_blocks)
+    arena the kernel takes, and no ``mesh`` that splits the stack (the
+    sharded engine's: ``mesh_shards_stack``)."""
+    return (not mesh_shards_stack(mesh) and lora_fits(lora_sr)
+            and _pool_fits(cfg, params, k_pool, n_slots, table_blocks))
 
 
 def fused_paged_verify_eligible(cfg, params, k_pool, n_slots: int,
                                 window: int, table_blocks: int,
-                                lora_sr: int = 0) -> bool:
+                                lora_sr: int = 0, mesh=None) -> bool:
     """The speculative verify route (K14, a linear window or a tree):
-    K13's checks over ``n_slots * window`` rows, a window up to 8."""
-    if not lora_fits(lora_sr) or window < 1 or window > KERNEL_MAX_WINDOW:
+    K13's checks over ``n_slots * window`` rows, a window up to 8, and
+    no ``mesh`` that splits the stack."""
+    if not lora_fits(lora_sr) or window < 1 or window > KERNEL_MAX_WINDOW \
+            or mesh_shards_stack(mesh):
         return False
     return _pool_fits(cfg, params, k_pool, n_slots * window, table_blocks)
 

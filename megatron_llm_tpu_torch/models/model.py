@@ -25,6 +25,16 @@ and tokentype rows of that block are added), and the lm head is
 column-parallel, so ``forward`` returns this rank's vocabulary block of
 the logits (``parallel/cross_entropy.vocab_parallel_cross_entropy`` takes
 them).  ``init_params(..., tp=)`` pads the vocabulary for the split.
+The cached forwards serve under the serving re-layout
+(``models/sharding.serving_param_specs``): they gather the logits over
+tp, so sampling sees the whole padded vocabulary; under pp every stage
+embeds and the stack runs stage to stage (``stack_forward_cached``);
+under fsdp the word table and the lm head are gathered whole over the
+fsdp group where they are read.  The caches and pools they take are this
+rank's slices (``sharding.kv_pool_specs``; ``init_kv_cache`` and
+``init_kv_pool`` allocate them under the current mesh), and the fused
+whole-stack kernels decline a mesh that splits the stack
+(``kernels/decode_step.mesh_shards_stack``).
 
 The cached forwards take ``lora=(arenas, mask)``, the multi-tenant LoRA
 bundle of ``ops/lora.py``: layer-stacked arenas and a per-row mask ``[b,
@@ -50,8 +60,11 @@ from ..ops.kv_quant import cache_update, init_quantized_cache, \
     is_quantized_cache, quantize_rows
 from ..ops.lora import arena_sr
 from ..ops.norms import norm_apply, norm_init
-from ..ops.quant import embedding_lookup
+from ..ops.quant import embedding_lookup, is_quantized
 from ..parallel import mappings
+from ..parallel.mesh import current_mesh
+from . import sharding
+from .sharding import FSDP, TP
 from .transformer import (
     AttnSideInputs,
     Params,
@@ -128,12 +141,12 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     lookup dequantizes only the gathered rows.  Under tp the word table
     is this rank's vocabulary block (``vocab_parallel_embed``)."""
     group, tp, rank, sp = tp_layout(cfg)
+    word = _fsdp_word(cfg, params)
     if tp > 1:
-        x = vocab_parallel_embed(params["embedding"]["word"], tokens, group,
-                                 rank, sp).to(cfg.dtype)
+        x = vocab_parallel_embed(word, tokens, group, rank,
+                                 sp).to(cfg.dtype)
     else:
-        x = embedding_lookup(params["embedding"]["word"],
-                             tokens).to(cfg.dtype)
+        x = embedding_lookup(word, tokens).to(cfg.dtype)
     if "position" in params["embedding"]:
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
@@ -164,19 +177,37 @@ def vocab_parallel_embed(word: torch.Tensor, tokens: torch.Tensor, group,
     the partial rows are summed over tp (all-reduced, or reduce-scattered
     to this rank's sequence block).  One term of each sum is non-zero, so
     the result is the one-device lookup exactly."""
-    v = word.shape[0]
+    v = (word["q"] if is_quantized(word) else word).shape[0]
     local = tokens - rank * v
     outside = (local < 0) | (local >= v)
-    x = word[local.clamp(0, v - 1)].masked_fill(outside[..., None], 0)
+    x = embedding_lookup(word, local.clamp(0, v - 1)).masked_fill(
+        outside[..., None], 0)
     if sequence_parallel:
         return mappings.reduce_scatter_to_sequence_region(x, group)
     return mappings.reduce_from_tensor_region(x, group)
 
 
+def _fsdp_word(cfg: ModelConfig, params: Params):
+    """The word table as a product reads it: this rank's tp block, gathered
+    over fsdp where the serving re-layout splits it there."""
+    word = params["embedding"]["word"]
+    mesh = current_mesh()
+    if mesh is None or mesh.size(FSDP) == 1:
+        return word
+    spec = (TP, FSDP), None
+    if is_quantized(word):
+        spec = {"q": spec, "scale": spec[:1]}
+    return sharding.fsdp_whole(word, spec, mesh)
+
+
 def unembed_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
     if cfg.tie_embed_logits:
-        return params["embedding"]["word"].T
-    return params["lm_head"]
+        return _fsdp_word(cfg, params).T
+    head = params["lm_head"]
+    mesh = current_mesh()
+    if mesh is not None and mesh.size(FSDP) > 1:
+        head = sharding.fsdp_whole(head, (FSDP, TP), mesh)
+    return head
 
 
 def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -290,7 +321,8 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                         + offs[None, :]).expand(b, s)
     x = embed(cfg, params, tokens, position_ids)
     lora_sr = arena_sr(lora[0]) if lora is not None else 0
-    if fused_decode_eligible(cfg, params, k_cache, s, lora_sr):
+    if fused_decode_eligible(cfg, params, k_cache, s, lora_sr,
+                             mesh=current_mesh()):
         hidden, k_rows, v_rows = fused_decode_step(
             cfg, params["layers"], x[:, 0], k_cache, v_cache, cache_len,
             (cos, sin), lora=lora)
@@ -309,9 +341,7 @@ def forward_cached(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     elif logit_rows is not None:
         rows = torch.as_tensor(logit_rows, device=x.device).to(torch.long)
         x = torch.gather(x, 1, rows.reshape(b, 1, 1).expand(b, 1, x.shape[2]))
-    x = norm_apply(cfg.norm_type, x, params["final_norm"], cfg.norm_eps,
-                   impl=cfg.norm_impl)
-    return unembed(cfg, params, x).float(), k_cache, v_cache
+    return _logits(cfg, params, x), k_cache, v_cache
 
 
 def forward_cached_paged(cfg: ModelConfig, params: Params,
@@ -372,9 +402,15 @@ def _append_fused_rows(k_pool, v_pool, k_rows, v_rows, bids, offs) -> None:
 
 
 def _logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor):
+    """The final norm and the lm head → fp32 logits over the whole padded
+    vocabulary (under tp each rank's block, gathered over tp)."""
     x = norm_apply(cfg.norm_type, hidden, params["final_norm"], cfg.norm_eps,
                    impl=cfg.norm_impl)
-    return unembed(cfg, params, x).float()
+    group, tp, _, _ = tp_layout(cfg)
+    logits = unembed(cfg, params, x).float()
+    if tp > 1:
+        logits = mappings.all_gather(logits, group, -1)
+    return logits
 
 
 def forward_cached_paged_verify(cfg: ModelConfig, params: Params,
@@ -517,8 +553,11 @@ def init_kv_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                   dtype=None, device=None):
     """Empty stacked KV cache ``[L, b, kv_heads, max_len, d]`` x2; with
     ``cfg.kv_cache_quant == "int8"`` each side is the int8 ``{"q",
-    "scale"}`` form (half the decode cache bytes of bf16)."""
-    shape = (cfg.num_layers, batch_size, cfg.kv_heads, max_len, cfg.head_dim)
+    "scale"}`` form (half the decode cache bytes of bf16).  Under a
+    current serving mesh, this rank's slice (``sharding.kv_local_dims``:
+    its layers under pp, its kv heads under tp)."""
+    layers, heads = sharding.kv_local_dims(cfg, current_mesh())
+    shape = (layers, batch_size, heads, max_len, cfg.head_dim)
     device = default_device(device)
     if cfg.kv_cache_quant == "int8":
         return (init_quantized_cache(shape, device),

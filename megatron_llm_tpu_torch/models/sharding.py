@@ -20,8 +20,16 @@ out of a full tree; ``gather_params`` joins them back (checkpoints,
 tests).  The spec trees are the single statement of the layout: the step
 reads them for its grad reductions (``tp_partial_grads``) and ZeRO-1
 (``training/optimizer.zero1_specs``) reads them for the optimizer state.
-The serving re-layout (``serving_param_specs``, ``kv_pool_specs``,
-``shard_for_serving``) belongs to ROADMAP.md Queue 1 item 11.
+
+The serving re-layout (``serving_param_specs``): heads over tp, the
+stacked layer axis over pp (each stage holds a contiguous slab of
+layers) and, with ``fsdp > 1``, each weight's non-tp dimension and the
+word table's vocabulary over fsdp (residency alone: the model gathers a
+leaf whole over the fsdp group just before it is used, ``fsdp_whole``).
+The paged pool splits its layer axis over pp and its kv heads over tp
+(``kv_pool_specs``); block ids stay global, so the serving engine keeps
+one host ledger.  ``shard_for_serving`` cuts this rank's blocks and
+builds the mesh; ``serving/cluster/sharded.py`` serves them.
 """
 
 from __future__ import annotations
@@ -127,6 +135,168 @@ def param_specs(cfg: ModelConfig, parallel: ParallelConfig) -> Params:
     if not cfg.tie_embed_logits:
         specs["lm_head"] = P(None, TP)
     return specs
+
+
+def serving_param_specs(cfg: ModelConfig, parallel: ParallelConfig) -> Params:
+    """The serving re-layout (JAX ``serving_param_specs``): pp splits the
+    stacked LAYER axis, tp the heads (the only head-sharding axis, so
+    heads divide tp and layers divide pp independently), fsdp each
+    weight's non-tp dimension and the word table's vocabulary along
+    ``("tp", "fsdp")``.  At pp = fsdp = 1 it is ``param_specs``."""
+    pp = parallel.pipeline_parallel
+    fsdp = parallel.fsdp
+    if pp == 1 and fsdp == 1:
+        return param_specs(cfg, parallel)
+    layer_axis = PP if pp > 1 else None
+    f = FSDP if fsdp > 1 else None
+    embed_axes = (TP, FSDP) if fsdp > 1 else TP
+    specs: Params = {
+        "embedding": {"word": P(embed_axes, None)},
+        "layers": _layer_specs(cfg, layer_axis, parallel.tensor_parallel,
+                               fsdp_axes=f),
+        "final_norm": {"scale": P(None)},
+    }
+    if cfg.norm_type == "layernorm":
+        specs["final_norm"]["bias"] = P(None)
+    if cfg.position_embedding_type == "absolute":
+        specs["embedding"]["position"] = P(None, None)
+    if cfg.tokentype_size:
+        specs["embedding"]["tokentype"] = P(None, None)
+    if not cfg.tie_embed_logits:
+        specs["lm_head"] = P(f, TP)
+    return specs
+
+
+def assert_serving_geometry(cfg: ModelConfig, parallel: ParallelConfig,
+                            what: str = "model") -> None:
+    """The serving re-layout's divisibility, one axis at a time (JAX
+    ``assert_serving_geometry``; ``ValueError`` where JAX asserts): heads
+    divide tp, layers divide pp, hidden and the padded vocabulary divide
+    the fsdp split."""
+    tp = parallel.tensor_parallel
+    pp = parallel.pipeline_parallel
+    fsdp = parallel.fsdp
+    if cfg.num_attention_heads % max(tp, 1):
+        raise ValueError(
+            f"serving re-layout shards {what} attention heads over tp = "
+            f"{tp}, which must divide num_attention_heads = "
+            f"{cfg.num_attention_heads} (pp shards layers, not heads: pick "
+            "tp that divides the head count and put the rest of the "
+            "submesh on pp/fsdp)")
+    if pp > 1 and cfg.num_layers % pp:
+        raise ValueError(
+            f"serving re-layout shards the {what} layer stack over pp = "
+            f"{pp}, which must divide num_layers = {cfg.num_layers} (each "
+            "pipeline stage owns a contiguous slab of layers)")
+    if fsdp > 1:
+        if cfg.hidden_size % fsdp:
+            raise ValueError(
+                f"fsdp = {fsdp} splits each {what} weight's non-tp dim and "
+                f"must divide hidden_size = {cfg.hidden_size}")
+        if cfg.padded_vocab_size(tp) % (tp * fsdp):
+            raise ValueError(
+                f"fsdp = {fsdp} splits the {what} word embedding along "
+                f"('tp', 'fsdp') and tp*fsdp = {tp * fsdp} must divide the "
+                f"padded vocab {cfg.padded_vocab_size(tp)}")
+
+
+def serving_specs_of(cfg: ModelConfig, parallel: ParallelConfig,
+                     params: Params) -> Params:
+    """``serving_param_specs``, mirrored through ``quantize_specs`` where
+    ``params`` holds quantized ``{"q", "scale"}`` leaves (int8, int4
+    group-wise, the int8 embedding: each scale co-sharded)."""
+    from ..ops import quant
+
+    def quantized(tree) -> bool:
+        return quant.is_quantized(tree) or (
+            isinstance(tree, dict) and any(map(quantized, tree.values())))
+
+    specs = serving_param_specs(cfg, parallel)
+    if quantized(params):
+        specs = quant.quantize_specs(specs, params)
+    return specs
+
+
+def shard_for_serving(params: Params, cfg: ModelConfig,
+                      parallel: ParallelConfig) -> tuple:
+    """Build the mesh and cut this rank's blocks of the whole tree
+    ``params`` in the serving re-layout → ``(params, mesh)``.  Every rank
+    of the world calls it (the mesh's groups are made on all ranks)."""
+    from ..parallel import mesh as mesh_lib
+
+    assert_serving_geometry(cfg, parallel)
+    mesh = mesh_lib.build_mesh(parallel)
+    specs = serving_specs_of(cfg, parallel, params)
+    return shard_params(params, specs, mesh), mesh
+
+
+def serving_head_axes(cfg: ModelConfig, mesh):
+    """The axes the pool's kv heads split over: ``("tp",)`` where tp > 1
+    divides the kv heads, else None (replicated: MQA and GQA pools whose
+    kv heads do not divide tp, as ``kv_shard_axes``).  pp splits layers
+    and fsdp never touches the pool, so block ids stay global."""
+    tp = mesh.size(TP)
+    if tp > 1 and cfg.kv_heads % tp == 0:
+        return (TP,)
+    return None
+
+
+def kv_pool_specs(cfg: ModelConfig, mesh) -> tuple:
+    """``(k_spec, v_spec)`` of the paged pool ``[L, n_blocks, kv, block,
+    d]``: the layer axis over pp (where the layers divide it; a shallow
+    stack keeps it whole), the heads over ``serving_head_axes``; blocks,
+    rows and depth whole, so block ids are global on every rank.  An int8
+    pool's ``{"q", "scale"}`` leaves (scale ``[L, n_blocks, kv, block]``)
+    split alike."""
+    ax = serving_head_axes(cfg, mesh)
+    pp = mesh.size(PP)
+    L = PP if (pp > 1 and cfg.num_layers % pp == 0) else None
+    if cfg.kv_cache_quant == "int8":
+        spec = {"q": P(L, None, ax, None, None),
+                "scale": P(L, None, ax, None)}
+    else:
+        spec = P(L, None, ax, None, None)
+    return spec, spec
+
+
+def kv_local_dims(cfg: ModelConfig, mesh) -> tuple:
+    """``(layers, kv_heads)`` of this rank's slice of a pool or dense
+    cache under ``mesh`` (``kv_pool_specs``); the whole without one."""
+    if mesh is None:
+        return cfg.num_layers, cfg.kv_heads
+    spec, _ = kv_pool_specs(cfg, mesh)
+    spec = spec["q"] if isinstance(spec, dict) else spec
+    layers, heads = cfg.num_layers, cfg.kv_heads
+    if spec[0] is not None:
+        layers //= mesh.size(PP)
+    if spec[2] is not None:
+        heads //= mesh.size(TP)
+    return layers, heads
+
+
+def shard_kv_pool(k_pool, v_pool, cfg: ModelConfig, mesh):
+    """This rank's slice of a whole pool (``kv_pool_specs``)."""
+    k_spec, v_spec = kv_pool_specs(cfg, mesh)
+    return (tree_map(lambda a, s: shard_tensor(a, s, mesh), k_pool, k_spec),
+            tree_map(lambda a, s: shard_tensor(a, s, mesh), v_pool, v_spec))
+
+
+def fsdp_whole(tree, specs, mesh):
+    """``tree`` (this rank's blocks) with every leaf whose spec splits a
+    dimension over fsdp gathered whole along it over the fsdp group (the
+    rest as they are): what a product reads under the residency split.
+    The tp split of a dimension split over ``("tp", "fsdp")`` stays."""
+    group = None if mesh is None else mesh.group(FSDP)
+    if group is None:
+        return tree
+
+    def whole(t, spec):
+        for dim, entry in enumerate(spec):
+            if FSDP in _axes(entry):
+                t = mappings.all_gather(t, group, dim)
+        return t
+
+    return tree_map(whole, tree, specs)
 
 
 def activation_spec(parallel: ParallelConfig) -> tuple:

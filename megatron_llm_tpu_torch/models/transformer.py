@@ -39,8 +39,18 @@ its query heads read.  Under sequence parallelism
 (``cfg.sequence_parallel_axis``) the residual stream, the norms and the
 dropout hold this rank's ``s / tp`` block of the sequence, the column
 inputs all-gather it and the row outputs reduce-scatter it, JAX's
-``seq_constrain``.  LoRA and the KV-cached (serving) path run at tp = 1
-only.
+``seq_constrain``.  LoRA runs at tp = 1 only.
+
+The KV-cached forward (serving) runs under the serving re-layout
+(``models/sharding.serving_param_specs``): under tp each rank runs its
+heads and caches its kv heads (all of them where they do not divide by
+tp: its query heads read their one kv head out of the whole cache);
+under pp ``stack_forward_cached`` runs this rank's contiguous slab of
+layers over its slab of the cache, the hidden state going stage to stage
+through ``mappings.ppermute`` and the last stage's sent back to every
+stage; under fsdp each layer's weights are gathered whole over the fsdp
+group just before the layer and dropped after it
+(``sharding.fsdp_whole``).
 """
 
 from __future__ import annotations
@@ -63,10 +73,13 @@ from ..ops.attention import attention, decode_attention
 from ..ops.kv_quant import cache_update
 from ..ops.lora import lora_delta
 from ..ops.norms import norm_apply, norm_init
-from ..ops.quant import int8_training_matmul, is_quantized, mm
+from ..ops.quant import int8_training_matmul, is_quantized, \
+    is_quantized_int4, mm
 from ..ops.rope import apply_rope, precompute_rope_freqs
 from ..parallel import mappings
-from ..parallel.mesh import axis_info
+from ..parallel.mesh import axis_info, current_mesh
+from ..utils.tree import tree_map
+from .sharding import fsdp_whole
 
 Params = dict
 
@@ -126,6 +139,36 @@ def local_kv_heads(cfg: ModelConfig, k, v, nq: int, tp: int, rank: int):
     kv_i = rank * nq // n_group
     return (k[:, :, kv_i:kv_i + 1], v[:, :, kv_i:kv_i + 1],
             ((1, n_kv, kv_i), (2, n_group, rank * nq % n_group)))
+
+
+def row_parallel_weight(w, tp: int, rank: int):
+    """A row-parallel weight as this rank's product reads it: an int4
+    leaf's ``q`` holds the rank's rows, but its scale keeps every group
+    (``ops/quant.quantize_specs`` leaves the group axis whole), so the
+    rank's groups are cut out here."""
+    if tp == 1 or not is_quantized_int4(w):
+        return w
+    groups = w["scale"].shape[-2]
+    if groups % tp:
+        raise ValueError(
+            f"an int4 row-parallel weight's {groups} scale groups do not "
+            f"divide over tp = {tp}")
+    n = groups // tp
+    return {"q": w["q"],
+            "scale": w["scale"][..., rank * n:(rank + 1) * n, :]}
+
+
+def _cache_heads(cache, head: int):
+    """kv head ``head`` of a ``[b, nkv, len(, d)]`` cache (each leaf of
+    the int8 form), contiguous."""
+    def one(a):
+        if a.shape[1] == 1:
+            return a
+        return a[:, head:head + 1].contiguous()
+
+    if isinstance(cache, dict):
+        return {k: one(v) for k, v in cache.items()}
+    return one(cache)
 
 
 def _lora_add(y: torch.Tensor, x: torch.Tensor, lora, target: str):
@@ -269,8 +312,6 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if tp > 1:
         if lora is not None:
             _refuse_tp("LoRA", "item 9's remainder")
-        if kv_cache is not None:
-            _refuse_tp("the KV-cached forward", "item 11: multi-GPU serving")
         x = mappings.column_input(x, group, sp)
     b, s, _ = x.shape
     d = cfg.head_dim
@@ -285,6 +326,7 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = q.reshape(b, s, nq, d)
     k = k.reshape(b, s, nkv, d)
     v = v.reshape(b, s, nkv, d)
+    k_rows, v_rows = k, v  # the heads this rank caches
     k, v, drop_slices = local_kv_heads(cfg, k, v, nq, tp, rank)
     position_ids = side.position_ids
     if kv_cache is not None and position_ids is None:
@@ -293,6 +335,11 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if cfg.position_embedding_type == PositionEmbeddingType.ROTARY:
         q = apply_rope(q, side.rope_cos, side.rope_sin, position_ids)
         k = apply_rope(k, side.rope_cos, side.rope_sin, position_ids)
+        if k_rows.shape[2] != k.shape[2]:
+            k_rows = apply_rope(k_rows, side.rope_cos, side.rope_sin,
+                                position_ids)
+    if k_rows.shape[2] == k.shape[2]:
+        k_rows, v_rows = k, v
     softmax_scale = 1.0 / (d ** 0.5)
     drop_key = None
     if layer_key is not None and cfg.attention_dropout > 0.0:
@@ -301,8 +348,8 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     new_rows = None
     if kv_cache is not None:
         k_cache, v_cache, cache_len = kv_cache
-        new_k = k.transpose(1, 2)               # [b, nkv, s, d]
-        new_v = v.transpose(1, 2)
+        new_k = k_rows.transpose(1, 2)          # [b, nkv, s, d]
+        new_v = v_rows.transpose(1, 2)
         cache_update(k_cache, new_k, cache_len)
         cache_update(v_cache, new_v, cache_len)
         new_rows = (new_k, new_v)
@@ -311,6 +358,11 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                             impl=cfg.attention_impl, causal=True,
                             softmax_scale=softmax_scale)
         else:
+            if k_rows.shape[2] != k.shape[2]:
+                # kv heads replicated over tp: this rank's query heads
+                # read their one kv head of the whole cache
+                k_cache, v_cache = (_cache_heads(c, drop_slices[0][2])
+                                    for c in (k_cache, v_cache))
             ctx = decode_attention(q, k_cache, v_cache, cache_len,
                                    softmax_scale=softmax_scale)
     else:
@@ -325,7 +377,8 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         cp_zigzag=cfg.context_parallel_zigzag,
                         dropout_slices=drop_slices)
     ctx2d = ctx.reshape(b, s, nq * d)
-    out = _lora_add(proj(cfg, ctx2d, p["wo"]), ctx2d, lora, "wo")
+    wo = row_parallel_weight(p["wo"], tp, rank)
+    out = _lora_add(proj(cfg, ctx2d, wo), ctx2d, lora, "wo")
     if tp > 1:
         out = mappings.row_output(out, group, sp)
     if "bo" in p:
@@ -340,7 +393,7 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """(Gated) MLP with the GLU split as two projections; ``lora`` adds
     each targeted projection's delta after its product."""
     act = get_activation(cfg.activation)
-    group, tp, _, sp = tp_layout(cfg)
+    group, tp, rank, sp = tp_layout(cfg)
     if tp > 1:
         if lora is not None:
             _refuse_tp("LoRA", "item 9's remainder")
@@ -357,7 +410,8 @@ def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
         if "b_up" in p:
             hidden = hidden + p["b_up"]
         hidden = act(hidden)
-    out = _lora_add(proj(cfg, hidden, p["w_down"]), hidden, lora, "w_down")
+    w_down = row_parallel_weight(p["w_down"], tp, rank)
+    out = _lora_add(proj(cfg, hidden, w_down), hidden, lora, "w_down")
     if tp > 1:
         out = mappings.row_output(out, group, sp)
     if "b_down" in p:
@@ -524,14 +578,45 @@ def stack_forward_cached(cfg: ModelConfig, stacked: Params, x: torch.Tensor,
 
     arenas, mask = lora if lora is not None else (None, None)
     layers = unstack_layers(stacked)
-    for i, (p, factors) in enumerate(zip(
-            layers, _layer_arenas(arenas, len(layers)))):
-        layer_lora = None if factors is None else (factors, mask)
-        x, _ = layer_forward(cfg, p, x, side,
-                             kv_cache=(layer_view(k_cache, i),
-                                       layer_view(v_cache, i), cache_len),
-                             lora=layer_lora)
+    fsdp_specs = _fsdp_layer_specs(cfg, stacked)
+    mesh = current_mesh()
+    pp_group, pp, stage = axis_info("pp")
+    for turn in range(pp):
+        if turn == stage:
+            for i, (p, factors) in enumerate(zip(
+                    layers, _layer_arenas(arenas, len(layers)))):
+                if fsdp_specs is not None:
+                    p = fsdp_whole(p, fsdp_specs, mesh)
+                layer_lora = None if factors is None else (factors, mask)
+                x, _ = layer_forward(cfg, p, x, side,
+                                     kv_cache=(layer_view(k_cache, i),
+                                               layer_view(v_cache, i),
+                                               cache_len),
+                                     lora=layer_lora)
+        if turn < pp - 1:
+            x = mappings.ppermute(x, pp_group, [(turn, turn + 1)])
+    if pp > 1:
+        # the last stage's hidden state to every stage
+        x = mappings.all_reduce(x if stage == pp - 1
+                                else torch.zeros_like(x), pp_group)
     return x, k_cache, v_cache
+
+
+def _fsdp_layer_specs(cfg: ModelConfig, stacked: Params):
+    """One layer's serving specs (the stacked specs less the layer axis,
+    quantized leaves mirrored) where the current mesh splits residency
+    over fsdp; None otherwise."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size("fsdp") == 1:
+        return None
+    from ..ops.quant import quantize_specs
+    from .sharding import FSDP, _layer_specs
+
+    specs = quantize_specs(
+        {"layers": _layer_specs(cfg, None, mesh.size("tp"),
+                                fsdp_axes=FSDP)},
+        {"layers": stacked})["layers"]
+    return tree_map(lambda spec: spec[1:], specs)
 
 
 def rope_tables(cfg: ModelConfig, dtype=torch.float32, device=None):

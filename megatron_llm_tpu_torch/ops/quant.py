@@ -24,8 +24,8 @@ for bit: the same fp32 divisions and round-half-to-even.
 quantized on every call (x per row, w per output column), an int8 x int8
 -> int32 product (``torch._int_mm``: cuBLASLt's int8 GEMM on the card)
 and a backward that evaluates the dense formulas on the dequantized int8
-operands.  ``quantize_specs`` (sharded serving) comes with ROADMAP.md
-Queue 1 item 11.
+operands.  ``quantize_specs`` mirrors a quantized tree's structure in a
+spec tree (sharded serving, ``serving/cluster/sharded.py``).
 """
 
 from __future__ import annotations
@@ -381,3 +381,46 @@ def precision_route(params: dict) -> str:
     if bits == {4}:
         return "int4"
     return "mixed"
+
+
+def quantize_specs(specs: dict, params: dict | None = None) -> dict:
+    """The spec tree of a quantized param tree (JAX ``quantize_specs``):
+    each quantized leaf's spec becomes ``{"q": spec, "scale": ...}``, the
+    scale co-sharded with its ``q``.  An int8 scale ``[.., out]`` takes
+    the weight's output axis; an int4 scale ``[.., n_groups, out]`` takes
+    it too and keeps the group axis whole (the group count need not
+    divide an axis the packed rows divide); the embedding's per-row scale
+    ``[v]`` takes the vocab axis.  With ``params`` the tree follows the
+    leaves that are quantized and their form (mixed policies); without,
+    every projection leaf but a MoE expert stack (rank-4 spec) is taken
+    to be int8."""
+    def scale_spec(k, t, leaf):
+        if k == "word":
+            return (t[0],) if t else ()
+        if leaf is not None and is_quantized_int4(leaf):
+            return t[:-2] + (None, t[-1]) if len(t) >= 2 else ()
+        return t[:-2] + (t[-1],) if len(t) >= 2 else ()
+
+    def walk(tree, ptree):
+        if isinstance(tree, tuple):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            pv = ptree.get(k) if isinstance(ptree, dict) else None
+            t = v if isinstance(v, tuple) else ()
+            if params is not None:
+                if is_quantized(pv):
+                    out[k] = {"q": v, "scale": scale_spec(k, t, pv)}
+                else:
+                    out[k] = walk(v, pv)
+                continue
+            if k in _QUANT_LEAF_NAMES and isinstance(v, tuple) \
+                    and len(t) != 4:
+                out[k] = {"q": v, "scale": t[:-2] + (t[-1],)
+                          if len(t) >= 2 else ()}
+            else:
+                out[k] = walk(v, pv)
+        return out
+
+    return walk(specs, params)
+

@@ -103,6 +103,15 @@ def build_mesh(parallel: ParallelConfig) -> Mesh:
                 backend=dist.get_backend() if initialized else None)
 
 
+def axis_ranks(mesh: Mesh, axis: str, index: int) -> list:
+    """The ranks whose coordinate on ``axis`` is ``index`` (a pipeline
+    stage's ranks, for instance)."""
+    shape = tuple(mesh.size(a) for a in AXIS_ORDER)
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    return sorted(int(r) for r in
+                  ranks.take(index, axis=AXIS_ORDER.index(axis)).ravel())
+
+
 def single_device_mesh() -> Mesh:
     return Mesh(shape={a: 1 for a in AXIS_ORDER},
                 coords={a: 0 for a in AXIS_ORDER}, groups={})

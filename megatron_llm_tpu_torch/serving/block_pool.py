@@ -15,7 +15,10 @@ before a slot appends into it (copy-on-write, counted in
 ``cow_copies_total``).  ``export_blocks`` / ``import_blocks`` move a
 block-table-ordered slice of blocks out of and into the pool, int8
 ``{"q", "scale"}`` leaves verbatim; the host tier below moves blocks
-through them.
+through them.  Under a serving mesh (``mesh=``) each rank holds only its
+slice of the pool, ``[L/pp, n_blocks, kv/tp, block, d]``
+(``models/sharding.kv_pool_specs``); block ids are the same on every
+rank, so the ledger is one, on rank 0.
 
 ``HostKVTier`` is tiered KV's host-RAM arena behind the pool (JAX
 ``HostKVTier``, on pinned host tensors): asynchronous demotes (a gather on
@@ -27,12 +30,14 @@ swap bandwidth.
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models import model as model_lib
+from ..parallel.mesh import use_mesh
 from ..resilience.chaos import chaos
 
 
@@ -57,21 +62,35 @@ class BlockPool:
     TRASH = 0
 
     def __init__(self, cfg, n_blocks: int, block_size: int, device=None,
-                 on_cow: Optional[Callable[[], None]] = None):
+                 on_cow: Optional[Callable[[], None]] = None, mesh=None):
         if n_blocks < 2:
             raise ValueError("BlockPool needs at least 2 blocks "
                              "(one is the reserved trash block)")
         self.cfg = cfg
         self.n_blocks = int(n_blocks)
         self.block_size = int(block_size)
-        self.k_pool, self.v_pool = model_lib.init_kv_pool(
-            cfg, n_blocks, block_size, device=device)
+        self.device = model_lib.default_device(device)
+        self.mesh = mesh
+        # this rank's slice under a serving mesh (``kv_pool_specs``: layers
+        # over pp, kv heads over tp; a stack whose layers do not divide pp
+        # keeps them whole)
+        with use_mesh(mesh) if mesh is not None else nullcontext():
+            self.k_pool, self.v_pool = model_lib.init_kv_pool(
+                cfg, n_blocks, block_size, device=self.device)
+        # copy-on-write's device copy (``copy``); the sharded engine sends
+        # it to every rank
+        self.copier: Optional[Callable[[int, int], None]] = None
         self._ref = np.zeros(n_blocks, dtype=np.int32)
         self._ref[self.TRASH] = 1  # permanently pinned
         self._free: List[int] = list(range(n_blocks - 1, 0, -1))
         self._reserved = 0
-        self._on_cow = on_cow
+        self.on_cow = on_cow
         self.cow_copies = 0
+
+    def copy(self, src: int, dst: int) -> None:
+        """Block ``src``'s rows onto block ``dst``, K and V, every leaf."""
+        copy_block(self.k_pool, src, dst)
+        copy_block(self.v_pool, src, dst)
 
     # -- capacity / reservations ------------------------------------------
     @property
@@ -145,12 +164,11 @@ class BlockPool:
             return bid
         new = self.alloc_reserved()
         if bid != self.TRASH:
-            copy_block(self.k_pool, bid, new)
-            copy_block(self.v_pool, bid, new)
+            (self.copier or self.copy)(bid, new)
             self.decref(bid)
             self.cow_copies += 1
-            if self._on_cow is not None:
-                self._on_cow()
+            if self.on_cow is not None:
+                self.on_cow()
         return new
 
     # -- moving blocks out and in --------------------------------------------

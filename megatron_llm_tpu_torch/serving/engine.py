@@ -111,8 +111,21 @@ iteration, and drain / shutdown leave a leak report in
 request's lifecycle edge (submitted, admitted, first_token, finished,
 preempted, resumed), all carrying its ``request_id``.
 
+Device work goes through one seam, ``serving/device_ops.DeviceOps``: the
+pool, every prefill piece, the publication of a prefill into pool blocks,
+the decode and verify steps and copy-on-write's block copies are its
+methods, called with host values.  A serving mesh (``mesh=``, built by
+``serving/cluster/sharded.build_sharded_engine``) makes it the driver of
+the mesh's other ranks: each call is also replayed on every rank over
+its own shards, the engine running on rank 0 with its one host ledger.
+Under a mesh with pp > 1 and a slot count that divides by pp, a decode
+step runs the slots in pp contiguous groups (``_decode_groups``, JAX's
+microbatch interleave), and ``kv_snapshot`` adds a ``stages`` section.
+The host KV tier, a resident draft model, adapters and ``swap_params``
+do not go through the seam and raise under a mesh.
+
 Not in this slice, and refused at construction with ``NotImplementedError``
-naming the ROADMAP item: disaggregated roles and meshes.  A model with
+naming the ROADMAP item: disaggregated roles.  A model with
 ``quantize_matmuls="int8"`` (W8A8 training matmuls) is served on the
 composed route, as in JAX: the fused decode step does not take it.
 """
@@ -131,7 +144,7 @@ import torch
 
 from ..analysis import sanitizers
 from ..config import ModelConfig
-from ..generation.sampling import NEG_INF, generator, gumbel_argmax
+from ..generation.sampling import NEG_INF
 from ..kernels.decode_step import (
     fused_paged_decode_eligible,
     fused_paged_verify_eligible,
@@ -142,6 +155,7 @@ from ..obs.trace import TraceRecorder, device_annotation
 from ..ops.lora import slot_mask
 from ..ops.quant import precision_route
 from .block_pool import BlockPool, HostKVTier
+from .device_ops import DeviceOps, _sample_slots, _verify_step
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .queue import QueueFull, RequestQueue  # noqa: F401  (re-exported)
@@ -176,13 +190,40 @@ class EngineConfig:
     role: str = "mixed"
 
 
-def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh) -> None:
+def check_engine_args(cfg: ModelConfig, ec: EngineConfig, *, mesh=None,
+                      draft_cfg=None, adapters=None) -> None:
+    """The engine's checks that need no device: a sequence budget past
+    the model's positions, and ``_refuse_unported``.  Every rank of a
+    sharded engine makes them first (``build_sharded_engine``), so a
+    refusal raises everywhere and no rank waits on the others."""
+    _refuse_unported(cfg, ec, mesh=mesh, draft_cfg=draft_cfg,
+                     adapters=adapters)
+    if ec.max_seq_len > cfg.max_position_embeddings:
+        raise ValueError(
+            f"max_seq_len {ec.max_seq_len} exceeds the model's "
+            f"max_position_embeddings {cfg.max_position_embeddings}")
+
+
+def _refuse_unported(cfg: ModelConfig, ec: EngineConfig, *, mesh,
+                     draft_cfg=None, adapters=None) -> None:
     """Raise for every configuration this slice of the port does not run,
-    rather than silently ignoring it."""
+    rather than silently ignoring it: disaggregated roles, and under a
+    serving mesh the options whose device work does not go through the
+    ``DeviceOps`` seam."""
+    sharded = mesh is not None and mesh.world_size > 1
     todo = [
         (ec.role != "mixed", f"role={ec.role!r}",
-         "Queue 1: multi-GPU serving, disaggregated prefill/decode"),
-        (mesh is not None, "a device mesh", "Queue 1: multi-GPU serving"),
+         "Queue 1 item 11 (c): disaggregated prefill/decode"),
+        (sharded and ec.host_kv_blocks > 0, "the host KV tier under a mesh",
+         "Queue 1 item 11 (a)'s remainder: the host tier sharded"),
+        (sharded and draft_cfg is not None,
+         "a resident draft model under a mesh",
+         "Queue 1 item 11 (a)'s remainder: the draft model sharded"),
+        (sharded and (adapters is not None or ec.adapter_cache_slots > 0),
+         "adapters under a mesh",
+         "Queue 1 item 11 (c): the cluster half of LoRA"),
+        (sharded and cfg.num_experts > 0, "a MoE model under a mesh",
+         "Queue 1 item 11 (a)'s remainder: MoE serving sharded"),
     ]
     for bad, what, item in todo:
         if bad:
@@ -285,49 +326,6 @@ class RequestHandle:
 # ---------------------------------------------------------------------------
 
 
-def _sample_slots(logits: torch.Tensor, seeds, counters, greedy, temps,
-                  top_ks, top_ps, vocab: int):
-    """Per-slot mixed-mode sampling over ``[S, V]`` fp32 logits → ``(tok
-    [S] int64, tok_logprob [S] fp32)`` on the logits' device.
-
-    The knob vectors are host numpy arrays.  Greedy slots take the
-    padded-vocab-masked argmax; the rest apply temperature, a dynamic
-    per-slot top-k rank mask and a per-slot nucleus (top-p) threshold,
-    then draw by Gumbel-max from the stream ``(seed, counter)``
-    (``generation/sampling.py``): the draw depends only on the request and
-    its token index."""
-    S, V = logits.shape
-    dev = logits.device
-    pad = torch.arange(V, device=dev) >= vocab
-    logits = logits.masked_fill(pad[None, :], NEG_INF)
-    tok = torch.argmax(logits, dim=-1)
-    sampled_rows = [i for i in range(S) if not greedy[i]]
-    if sampled_rows:
-        temps_t = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
-        top_ks_t = torch.as_tensor(np.asarray(top_ks, np.int64), device=dev)
-        top_ps_t = torch.as_tensor(np.asarray(top_ps, np.float32), device=dev)
-        scaled = logits / torch.clamp(temps_t, min=1e-6)[:, None]
-        ranks = torch.argsort(torch.argsort(-scaled, dim=-1, stable=True),
-                              dim=-1, stable=True)
-        kmask = (top_ks_t[:, None] > 0) & (ranks >= top_ks_t[:, None])
-        scaled = scaled.masked_fill(kmask, NEG_INF)
-        p_eff = torch.where(top_ps_t > 0.0, top_ps_t,
-                            torch.ones_like(top_ps_t))[:, None]
-        sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
-        sorted_probs = torch.softmax(sorted_logits, dim=-1)
-        cum = torch.cumsum(sorted_probs, dim=-1)
-        kept = sorted_logits.masked_fill((cum - sorted_probs) > p_eff,
-                                         float("inf"))
-        threshold = kept.min(dim=-1, keepdim=True).values
-        scaled = scaled.masked_fill(scaled < threshold, NEG_INF)
-        for i in sampled_rows:
-            gen = generator((seeds[i], counters[i]), dev)
-            tok[i] = gumbel_argmax(scaled[i:i + 1], gen)[0]
-    lp = torch.log_softmax(logits, dim=-1)
-    tok_lp = torch.gather(lp, 1, tok[:, None])[:, 0]
-    return tok, tok_lp
-
-
 # speculative decoding policy: weight of the newest per-slot acceptance
 # observation in the EWMA that scales the draft budget (the re-probe
 # interval for collapsed slots is EngineConfig.spec_reprobe_interval)
@@ -352,34 +350,6 @@ def _ngram_draft_host(ctx: Sequence[int], ngram: int,
         return []
     j = int(hits[-1])
     return [int(t) for t in a[j + ngram:j + ngram + draft_len]]
-
-
-def _verify_step(cfg: ModelConfig, params, pool, tables, window, fills,
-                 bids, offs, seeds, counters, greedy, temps, top_ks, top_ps,
-                 *, rope, use_fused: bool, tree=None, lora=None):
-    """One speculative verify step over every slot: score each slot's
-    ``[pending, draft...]`` window (or, with ``tree = (depths, anc)``, the
-    nodes of its candidate tree) in one forward
-    (``forward_cached_paged_verify``).  Position 0 samples exactly as a
-    plain decode step does (same ``_sample_slots``, same stream), so a
-    slot riding with no draft takes an unchanged plain step; positions
-    >= 1 only ever commit under greedy acceptance, so their pad-masked
-    argmax is all they need; ``lora`` is the per-slot LoRA bundle.
-    Returns ``([S, W] tokens, [S, W] logprobs)`` on the device."""
-    logits, _, _ = model_lib.forward_cached_paged_verify(
-        cfg, params, window, pool.k_pool, pool.v_pool, tables, fills, bids,
-        offs, rope=rope, use_fused=use_fused, tree=tree, lora=lora)
-    tok0, tok0_lp = _sample_slots(logits[:, 0], seeds, counters, greedy,
-                                  temps, top_ks, top_ps, cfg.vocab_size)
-    pad = torch.arange(logits.shape[-1], device=logits.device) \
-        >= cfg.vocab_size
-    masked = logits.masked_fill(pad, NEG_INF)
-    g_tok = torch.argmax(masked, dim=-1)
-    g_lp = torch.gather(torch.log_softmax(masked, dim=-1), 2,
-                        g_tok[..., None])[..., 0]
-    g_tok[:, 0] = tok0
-    g_lp[:, 0] = tok0_lp
-    return g_tok, g_lp
 
 
 # candidate branches the resident draft model surfaces per window position:
@@ -455,8 +425,7 @@ class _PrefillState:
         self.slot = slot
         self.padded = padded      # prompt rows to prefill, chunk-padded
         self.done = 0             # rows prefilled (a hit starts further)
-        self.k_small = None       # the batch-1 working cache
-        self.v_small = None
+        self.started = False      # its working cache (DeviceOps) exists
         self.lease = None         # the PrefixLease of a hit
         self.adapter_slot = -1    # pinned LoRA arena slot (-1: the base)
 
@@ -522,7 +491,8 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.config = engine_config or EngineConfig()
-        _refuse_unported(cfg, self.config, mesh=mesh)
+        check_engine_args(cfg, self.config, mesh=mesh, draft_cfg=draft_cfg,
+                          adapters=adapters)
         if draft_cfg is not None:
             if draft_params is None:
                 raise ValueError("draft_cfg requires draft_params")
@@ -532,11 +502,19 @@ class ServingEngine:
                     f"{cfg.vocab_size}: draft tokens must be verifiable")
         self.draft_cfg = draft_cfg
         self.draft_params = draft_params
-        if self.config.max_seq_len > cfg.max_position_embeddings:
-            raise ValueError(
-                f"max_seq_len {self.config.max_seq_len} exceeds the model's "
-                f"max_position_embeddings {cfg.max_position_embeddings}")
         self.device = model_lib.default_device(device)
+        # the device seam: this rank's DeviceOps, or under a serving mesh
+        # the driver that replays each call on the mesh's other ranks
+        self.mesh = mesh
+        self._sharded = mesh is not None and mesh.world_size > 1
+        if not self._sharded:
+            self._ops = DeviceOps(cfg, params, self.device, mesh)
+        else:
+            from .cluster.sharded import MeshDriver
+
+            self._ops = MeshDriver(cfg, params, self.device, mesh)
+        # slot groups of a decode step (pp on a pipelined mesh, start())
+        self._decode_groups = 1
         # multi-tenant LoRA: the registry owns the arena; the engine pins
         # adapters at admission and passes the arena with a per-slot slot
         # vector to every step
@@ -580,7 +558,6 @@ class ServingEngine:
         # req.id -> _Suspended for decodes preempted to it, in order
         self.host_tier: Optional[HostKVTier] = None
         self._suspended: dict[int, _Suspended] = {}
-        self._rope = None
         self._active: dict[int, _SlotState] = {}
         self._thread: Optional[threading.Thread] = None
         self._admitting: Optional[_Request] = None
@@ -619,6 +596,10 @@ class ServingEngine:
     def start(self) -> "ServingEngine":
         with self._lock:
             if self._thread is None:
+                if self.device.type == "cuda":
+                    self._cuda_index = (
+                        self.device.index if self.device.index is not None
+                        else torch.cuda.current_device())
                 ec = self.config
                 # blocks follow the admission granularity by default, so
                 # prefix-cache blocks are pool blocks
@@ -629,9 +610,12 @@ class ServingEngine:
                 n_blocks = int(ec.kv_pool_blocks) or (
                     1 + ec.max_batch_size * table_blocks
                     + ec.prefix_cache_blocks)
-                pool = BlockPool(
-                    self.cfg, n_blocks, bk, device=self.device,
-                    on_cow=lambda: self.metrics.inc("cow_copies_total"))
+                pool = self._ops.start(n_blocks, bk, table_blocks * bk)
+                pool.on_cow = lambda: self.metrics.inc("cow_copies_total")
+                if self.mesh is not None:
+                    pp = self.mesh.size("pp")
+                    if pp > 1 and ec.max_batch_size % pp == 0:
+                        self._decode_groups = pp
                 self.slots = SlotAllocator(self.cfg, ec.max_batch_size,
                                            ec.max_seq_len, pool)
                 if ec.host_kv_blocks:
@@ -644,20 +628,18 @@ class ServingEngine:
                         pool=pool, max_blocks=ec.prefix_cache_blocks,
                         metrics=lambda: self.metrics,
                         host_tier=self.host_tier)
-                self._rope = model_lib.rope_tables(self.cfg,
-                                                   device=self.device)
                 # the arena rides inside the fused kernels as an epilogue;
                 # where a predicate declines its stacked rank, the
                 # composed route applies the adapters (never dropped)
                 lsr = 0 if self.adapters is None else self.adapters.sr
                 self._fused_decode = fused_paged_decode_eligible(
                     self.cfg, self.params, pool.k_pool, ec.max_batch_size,
-                    table_blocks, lsr)
+                    table_blocks, lsr, mesh=self.mesh)
                 self._fused_verify = ec.spec_draft_len > 0 and \
                     fused_paged_verify_eligible(
                         self.cfg, self.params, pool.k_pool,
                         ec.max_batch_size, ec.spec_draft_len + 1,
-                        table_blocks, lsr)
+                        table_blocks, lsr, mesh=self.mesh)
                 if self._draft_enabled:
                     self._draft_kv = model_lib.init_kv_pool(
                         self.draft_cfg, n_blocks, bk, device=self.device)
@@ -678,6 +660,7 @@ class ServingEngine:
     def shutdown(self, timeout: float = 10.0) -> None:
         with self._lock:
             if self._thread is None:
+                self._ops.close()  # a sharded engine's ranks stop here
                 return
             self._stop.set()
             self.queue.notify()
@@ -691,6 +674,7 @@ class ServingEngine:
                 self.sanitizer_report = self._sanitizer.leak_report(self)
                 for leak in self.sanitizer_report:
                     EVENT_LOG.emit("sanitizer", "kv_block_leak", **leak)
+            self._ops.close()
 
     def pause(self) -> None:
         """Stop admitting and decoding (requests keep queueing)."""
@@ -862,6 +846,10 @@ class ServingEngine:
         resolved at ``start()`` carry over).  The LoRA arena is untouched:
         adapters compose with whichever base is resident.  Callable from
         any thread; before ``start()`` it swaps inline."""
+        if self._sharded:
+            raise NotImplementedError(
+                "swap_params under a serving mesh is not ported yet "
+                "(ROADMAP.md, Queue 1 item 11 (a)'s remainder)")
         if not _same_tree(self.params, new_params):
             raise ValueError(
                 "swap_params needs a tree matching the resident params' "
@@ -870,6 +858,7 @@ class ServingEngine:
         def _swap():
             self._flush_inflight()
             old, self.params = self.params, new_params
+            self._ops.params = new_params
             self._precision_route = precision_route(self.params)
             self.metrics.inc("param_swaps")
             return old
@@ -882,7 +871,9 @@ class ServingEngine:
 
     def _loop(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
+            # a device without an index ("cuda", the server entry's
+            # default) is the starting thread's current one
+            torch.cuda.set_device(self._cuda_index)
         try:
             with torch.no_grad():
                 while not self._stop.is_set():
@@ -924,6 +915,7 @@ class ServingEngine:
                 "serving engine scheduler died: %s", e)
             self._scheduler_error = e
             self._inflight = None
+            self._ops.abort()
             if self._admitting is not None:
                 self._finish(self._admitting, "error")
                 self._admitting = None
@@ -971,6 +963,8 @@ class ServingEngine:
             self.prefix_cache.release(ps.lease)
         self._release_adapter(ps.req)
         self.slots.release(ps.slot)
+        if ps.started:
+            self._ops.drop(ps.req.id)
         self._finish(ps.req, reason)
         self.metrics.set_gauges(slots_active=self.slots.active_slots)
 
@@ -1121,9 +1115,9 @@ class ServingEngine:
         if lease is not None:
             # the shared rows past the last chunk start are recomputed
             # (to the same bits), so the chunks after it are the ones a
-            # cold run of the prompt takes
+            # cold run of the prompt takes; the first chunk gathers the
+            # shared blocks into the working cache
             ps.done = lease.tokens // chunk * chunk
-            ps.k_small, ps.v_small = self._gather_lease(lease)
         self._prefilling = ps
 
     def _advance_prefill(self) -> None:
@@ -1141,21 +1135,19 @@ class ServingEngine:
         seg = req.prompt[off:off + c]  # shorter than c at the padded tail
         tokens[0, :len(seg)] = seg
         last = off + c >= ps.padded
-        if ps.k_small is None:
-            ps.k_small, ps.v_small = model_lib.init_kv_cache(
-                self.cfg, 1, self.slots.width, device=self.device)
         with self.trace.span(f"prefill_chunk[{off // chunk}]",
                              request_id=req.rid, tid=req.id, annotate=True,
                              device=self.device,
                              args={"off": off, "tokens": c}):
             # the first chunk attends only itself (the flash kernel); a
             # later one attends the working cache at its offset
-            kw = (dict(logit_rows=torch.tensor([len(req.prompt) - 1 - off]))
-                  if last else dict(last_logit_only=True))
-            logits, ps.k_small, ps.v_small = model_lib.forward_cached(
-                self.cfg, self.params, self._tensor(tokens), ps.k_small,
-                ps.v_small, off, rope=self._rope, empty_cache=off == 0,
-                lora=self._lora([ps.adapter_slot]), **kw)
+            logits = self._ops.prefill(
+                req.id, tokens, off, fresh=not ps.started,
+                table=(self._lease_table(ps.lease)
+                       if not ps.started and ps.lease is not None else None),
+                rows=len(req.prompt) - 1 - off if last else "last",
+                lora=self._lora([ps.adapter_slot]))
+        ps.started = True
         ps.done = off + c
         self.metrics.inc("prefill_chunks")
         if not last:
@@ -1164,8 +1156,9 @@ class ServingEngine:
         # the chunk-padded tail rows hold pad-token K/V that the slot's
         # fill masks
         self._prefilling = None
-        self.slots.insert(ps.slot, ps.k_small, ps.v_small, len(req.prompt),
-                          ps.lease.bids if ps.lease is not None else ())
+        self._ops.publish(req.id, self.slots.claim_blocks(
+            ps.slot, len(req.prompt),
+            ps.lease.bids if ps.lease is not None else ()))
         tok, tok_lp = _sample_slots(
             logits[:, 0], [req.seed], [0], [req.greedy], [req.temperature],
             [req.top_k], [req.top_p], self.cfg.vocab_size)
@@ -1186,23 +1179,20 @@ class ServingEngine:
             self._draft_prefill(ps.slot, st)
         self._commit_token(ps.slot, first, first_lp)
 
-    def _gather_lease(self, lease):
-        """A lease's shared blocks gathered into a fresh batch-1 working
-        cache ``[L, 1, kv, width(, d)]``, trash past the match."""
+    def _lease_table(self, lease) -> np.ndarray:
+        """The ``[1, T]`` table that gathers a lease's shared blocks into a
+        working cache (trash past the match)."""
         table = np.zeros((1, self.slots.table_blocks), np.int64)
         table[0, :len(lease.bids)] = lease.bids
-        table = self._tensor(table)
-        pool = self.slots.pool
-        return (model_lib.cache_gather_blocks(pool.k_pool, table),
-                model_lib.cache_gather_blocks(pool.v_pool, table))
+        return table
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        """Host array → device tensor without stalling the stream (pinned
-        staging + non-blocking copy on the card)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """Host array → device tensor (``DeviceOps.tensor``)."""
+        return self._ops.tensor(a)
+
+    @property
+    def _rope(self):
+        return self._ops.rope
 
     def _acquire_adapter(self, req: _Request) -> Optional[int]:
         """Pin the request's adapter in the arena: its arena slot (-1 for a
@@ -1227,25 +1217,21 @@ class ServingEngine:
             slots, self.adapters.n_slots, self.adapters.rank)
 
     def _prefill(self, tokens: np.ndarray, plen: int, want_logprobs: bool,
-                 lora=None):
+                 lora=None, key=None):
         """Prefill one request (batch 1, bucket-padded) into a fresh dense
-        cache ``[L, 1, kv, width, d]``: ``(last_logits [1, V], picked
-        prompt logprobs or None, k, v)``.  Rows past ``plen`` hold pad-token
-        K/V that the slot's fill masks."""
-        cfg = self.cfg
-        toks = self._tensor(tokens.astype(np.int64))
-        k, v = model_lib.init_kv_cache(cfg, 1, self.slots.width,
-                                       device=self.device)
+        working cache ``[L, 1, kv, width, d]`` (``DeviceOps`` key ``key``):
+        ``(last_logits [1, V], picked prompt logprobs or None, k, v)``.
+        Rows past ``plen`` hold pad-token K/V that the slot's fill masks."""
+        tokens = tokens.astype(np.int64)
+        logits = self._ops.prefill(key, tokens, 0, fresh=True,
+                                   rows=None if want_logprobs else plen - 1,
+                                   lora=lora)
+        k, v = self._ops.work(key)
         if want_logprobs:
-            logits, k, v = model_lib.forward_cached(
-                cfg, self.params, toks, k, v, 0, rope=self._rope,
-                empty_cache=True, lora=lora)
             lp = torch.log_softmax(logits, dim=-1)
+            toks = self._tensor(tokens)
             picked = torch.gather(lp[:, :-1], 2, toks[:, 1:, None])[..., 0]
             return logits[:, plen - 1], picked, k, v
-        logits, k, v = model_lib.forward_cached(
-            cfg, self.params, toks, k, v, 0, rope=self._rope,
-            empty_cache=True, logit_rows=torch.tensor([plen - 1]), lora=lora)
         return logits[:, 0], None, k, v
 
     def _prefill_piece(self, tokens: Sequence[int], k, v, off: int,
@@ -1259,14 +1245,21 @@ class ServingEngine:
                               self._draft_rope) if draft
                              else (self.cfg, self.params, self._rope))
         n = len(tokens)
-        bucket = max(1, self.config.prefill_bucket)
-        width = min(-(-n // bucket) * bucket, self.config.max_seq_len - off)
-        toks = np.zeros((1, width), np.int64)
-        toks[0, :n] = tokens
+        toks = self._piece_tokens(tokens, off)
         logits, k, v = model_lib.forward_cached(
             cfg, params, self._tensor(toks), k, v, off, rope=rope,
             empty_cache=off == 0, logit_rows=torch.tensor([n - 1]))
         return logits[:, 0], k, v
+
+    def _piece_tokens(self, tokens: Sequence[int], off: int) -> np.ndarray:
+        """A prefill piece's ``[1, w]`` tokens, padded to the bucket (never
+        past the slot's sequence budget)."""
+        n = len(tokens)
+        bucket = max(1, self.config.prefill_bucket)
+        width = min(-(-n // bucket) * bucket, self.config.max_seq_len - off)
+        toks = np.zeros((1, width), np.int64)
+        toks[0, :n] = tokens
+        return toks
 
     def _split(self, plen: int) -> int:
         """Where a prompt's last prefill piece starts with the prefix cache
@@ -1279,7 +1272,7 @@ class ServingEngine:
         bk = self.slots.pool.block_size
         return (plen - 1) // bk * bk
 
-    def _prefill_cached(self, req: _Request, lease):
+    def _prefill_cached(self, req: _Request, lease, key=None):
         """Admission prefill with the prefix cache on: the rows a hit
         shares come from the lease's blocks, gathered into a batch-1 view
         (trash past the match), and the rest of the prompt is prefilled in
@@ -1294,14 +1287,15 @@ class ServingEngine:
         with ``first=False``).  → ``(last_logits [1, V], k, v)``."""
         split = self._split(len(req.prompt))
         done = lease.tokens if lease is not None else 0
-        if lease is not None:
-            k, v = self._gather_lease(lease)
-        else:
-            k, v = model_lib.init_kv_cache(self.cfg, 1, self.slots.width,
-                                           device=self.device)
-        if done < split:
-            _, k, v = self._prefill_piece(req.prompt[done:split], k, v, done)
-        return self._prefill_piece(req.prompt[split:], k, v, split)
+        table = self._lease_table(lease) if lease is not None else None
+        pieces = ([(done, split)] if done < split else []) + \
+            [(split, len(req.prompt))]
+        for i, (lo, hi) in enumerate(pieces):
+            logits = self._ops.prefill(
+                key, self._piece_tokens(req.prompt[lo:hi], lo), lo,
+                fresh=i == 0, table=table, rows=hi - lo - 1)
+        k, v = self._ops.work(key)
+        return logits[:, 0], k, v
 
     def _shares_prefix(self, req: _Request) -> bool:
         """Whether a request matches and seeds the prefix cache: not one
@@ -1364,20 +1358,20 @@ class ServingEngine:
         t_pf = time.perf_counter()
         with device_annotation("prefill", self.device):
             if cached:
-                last_logits, k_small, v_small = self._prefill_cached(
-                    req, lease)
+                last_logits, _, _ = self._prefill_cached(req, lease,
+                                                         key=req.id)
             else:
                 padded = min(-(-plen // bucket) * bucket,
                              self.config.max_seq_len)
                 tokens = np.zeros((1, padded), np.int64)
                 tokens[0, :plen] = req.prompt
-                last_logits, picked, k_small, v_small = self._prefill(
+                last_logits, picked, _, _ = self._prefill(
                     tokens, plen, req.return_logprobs,
-                    lora=self._lora([aslot]))
+                    lora=self._lora([aslot]), key=req.id)
                 if req.return_logprobs:
                     req.logprobs.extend(picked[0, :plen - 1].cpu().tolist())
-        self.slots.insert(slot, k_small, v_small, plen,
-                          lease.bids if lease is not None else ())
+        self._ops.publish(req.id, self.slots.claim_blocks(
+            slot, plen, lease.bids if lease is not None else ()))
         # first generated token: the decode step's per-request sampling rule
         tok, tok_lp = _sample_slots(
             last_logits, [req.seed], [0], [req.greedy], [req.temperature],
@@ -1520,25 +1514,15 @@ class ServingEngine:
         self._last_dispatch_t = t0
 
         self.metrics.inc_step(self._fused_decode, self._precision_route)
-        if self._inflight is None:
-            # no device-resident tokens: every pending value is host-known
-            pending = self._tensor(overrides)
-        elif override_mask.any():
-            pending = torch.where(self._tensor(override_mask),
-                                  self._tensor(overrides), self._inflight.tok)
-        else:
-            pending = self._inflight.tok  # pure device-to-device handoff
-        pool = self.slots.pool
         with device_annotation("decode", self.device):
-            logits, _, _ = model_lib.forward_cached_paged(
-                self.cfg, self.params, pending[:, None], pool.k_pool,
-                pool.v_pool,
-                self._tensor(self.slots.tables.astype(np.int64)),
-                self._tensor(fills), rope=self._rope,
+            # without a step in flight every pending value is host-known;
+            # else the previous step's tokens feed this one on the device
+            # (a fresh slot's override in its row)
+            tok, tok_lp = self._ops.decode(
+                self.slots.tables.astype(np.int64), fills, overrides,
+                override_mask, self._inflight is not None, seeds, counters,
+                greedy, temps, top_ks, top_ps, groups=self._decode_groups,
                 use_fused=self._fused_decode, lora=self._lora(aslots))
-            tok, tok_lp = _sample_slots(logits[:, 0], seeds, counters,
-                                        greedy, temps, top_ks, top_ps,
-                                        self.cfg.vocab_size)
         snapshot = dict(self._active)
         for st in snapshot.values():
             st.fill += 1   # the fed token's K/V row lands this step
@@ -1699,12 +1683,9 @@ class ServingEngine:
         self._last_dispatch_t = t0
         self.metrics.inc_step(self._fused_verify, self._precision_route)
         with device_annotation("verify", self.device):
-            g_tok, g_lp = _verify_step(
-                self.cfg, self.params, self.slots.pool,
-                self._tensor(self.slots.tables.astype(np.int64)),
-                self._tensor(window), self._tensor(fills),
-                self._tensor(bids), self._tensor(offs), seeds, counters,
-                greedy, temps, top_ks, top_ps, rope=self._rope,
+            g_tok, g_lp = self._ops.verify(
+                self.slots.tables.astype(np.int64), window, fills, bids,
+                offs, seeds, counters, greedy, temps, top_ks, top_ps,
                 use_fused=self._fused_verify, lora=self._lora(aslots))
             # synchronous by design: the next fills depend on the
             # acceptances
@@ -2148,11 +2129,28 @@ class ServingEngine:
         """Debug view of the paged KV state (GET /kv): pool stats, tables,
         fills, and with a host tier its occupancy and each suspended
         request's host block count (best effort under concurrent
-        scheduling, like /metrics)."""
+        scheduling, like /metrics).  Under a mesh with pp > 1 a ``stages``
+        section gives each stage's layer range, ranks and stage-local view
+        of the ledger."""
         if self.slots is None:
             return {"pool": None, "slots": {}}
         fills = {s: st.fill for s, st in dict(self._active).items()}
         snap = self.slots.snapshot(fills)
+        pp = 1 if self.mesh is None else self.mesh.size("pp")
+        if pp > 1 and self.cfg.num_layers % pp == 0:
+            # one ledger on rank 0 and global block ids: every stage's
+            # view is the same (an imbalance would mean a stage diverged)
+            from ..parallel import mesh as mesh_lib
+
+            pool_stats = snap.get("pool") or {}
+            snap["stages"] = [
+                {"stage": s, "layers": [lo, hi],
+                 "devices": mesh_lib.axis_ranks(self.mesh, "pp", s),
+                 "blocks_free": pool_stats.get("blocks_free"),
+                 "blocks_used": pool_stats.get("blocks_used"),
+                 "fragmentation": snap.get("fragmentation")}
+                for s, (lo, hi) in enumerate(
+                    mesh_lib.stage_layer_ranges(self.cfg.num_layers, pp))]
         if self.host_tier is not None:
             snap["host_tier"] = self.host_tier.stats()
             snap["host_tier"]["suspended"] = {

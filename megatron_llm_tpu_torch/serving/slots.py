@@ -97,11 +97,19 @@ class SlotAllocator:
     def insert(self, slot: int, k_small, v_small, n_tokens: int,
                shared_bids: Sequence[int] = ()) -> None:
         """Publish a dense batch-1 cache ``[L, 1, kv, width, d]`` into the
-        slot's table.  The first ``len(shared_bids)`` logical blocks come
-        from the prefix cache by ref bump, with zero copies; the rest of
-        the blocks covering ``n_tokens`` are allocated from the slot's
-        reservation and written in one scatter (the shared ones scatter
-        to the trash block, i.e. nowhere)."""
+        slot's table (``claim_blocks``, then one scatter)."""
+        scatter = self.claim_blocks(slot, n_tokens, shared_bids)
+        model_lib.cache_scatter_blocks(self.pool.k_pool, k_small, scatter)
+        model_lib.cache_scatter_blocks(self.pool.v_pool, v_small, scatter)
+
+    def claim_blocks(self, slot: int, n_tokens: int,
+                     shared_bids: Sequence[int] = ()) -> np.ndarray:
+        """The slot's table for an admission of ``n_tokens``: the first
+        ``len(shared_bids)`` logical blocks come from the prefix cache by
+        ref bump, with zero copies; the rest of the blocks covering
+        ``n_tokens`` are allocated from the slot's reservation.  Returns
+        where each block of the admission's dense cache goes (the shared
+        ones to the trash block, i.e. nowhere)."""
         pool = self.pool
         covered = -(-n_tokens // pool.block_size)
         n_shared = len(shared_bids)
@@ -116,8 +124,7 @@ class SlotAllocator:
             table[i] = scatter[i] = pool.alloc_reserved()
             self.reserved[slot] -= 1
         self.tables[slot] = table
-        model_lib.cache_scatter_blocks(pool.k_pool, k_small, scatter)
-        model_lib.cache_scatter_blocks(pool.v_pool, v_small, scatter)
+        return scatter
 
     # -- decode-time lazy growth -----------------------------------------------
     def append_block_id(self, slot: int, fill: int) -> int:

@@ -22,9 +22,21 @@ preemption; requests carry ``"priority"``, default
 to stderr, and ``GET /metrics?format=prometheus`` serves the Prometheus
 scrape.  What the port does not run is refused by the engine's own
 checks (``serving/engine.py:_refuse_unported``) when the server starts:
-``--role`` other than ``mixed``; and by the service for ``--tp`` /
-``--pp`` / ``--replicas`` / ``--router``.  ``--disagg`` and
-``--supervise`` raise here (ROADMAP Queue 1 item 11: multi-GPU serving).
+``--role`` other than ``mixed``.  ``--replicas``, ``--router``,
+``--disagg`` and ``--supervise`` raise here, each naming its slice of
+ROADMAP Queue 1 item 11.
+
+``--tp N --pp M`` serves one model sharded over N x M ranks
+(``serving/cluster/sharded.build_sharded_engine``) under a launcher::
+
+    torchrun --nproc_per_node 2 -m \
+        megatron_llm_tpu_torch.tools.run_text_generation_server --tp 2 ...
+
+Every rank loads the checkpoint and keeps its shards; rank 0 serves PUT
+/api over the sharded engine, the other ranks replay its device work,
+and all of them return when rank 0's server shuts down.  In a world that
+is already joined (``initialize.initialize_distributed``), ``main`` runs
+on every rank alike.
 """
 
 from __future__ import annotations
@@ -185,11 +197,11 @@ def get_args(argv=None):
     ap.add_argument("--no_spec", action="store_true",
                     help="force engine-side speculative decoding off")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel shards (not ported: refused "
-                         "above 1)")
+                    help="tensor-parallel shards of the sharded engine "
+                         "(one rank each, under torchrun)")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline-parallel stages (not ported: refused "
-                         "above 1)")
+                    help="pipeline stages of the sharded engine (one "
+                         "rank each, under torchrun)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="engine replicas behind the router (not "
                          "ported: refused above 1)")
@@ -216,12 +228,27 @@ def build_server(args, ap):
     from ..generation.server import MegatronServer
     from ..models import families
     from ..models import model as model_lib
+    from ..serving import ServingEngine
     from ..tokenizer.tokenizer import build_tokenizer
 
-    if args.disagg is not None or args.supervise:
+    if args.replicas > 1 or args.router:
         raise NotImplementedError(
-            "--disagg / --supervise need the serving cluster, which is not "
-            "ported yet (ROADMAP.md, Queue 1 item 11: multi-GPU serving)")
+            "--replicas / --router (replicas of the sharded engine behind "
+            "the router) are not ported yet (ROADMAP.md, Queue 1 item 11 "
+            "(b))")
+    if args.disagg is not None:
+        raise NotImplementedError(
+            "--disagg (shipments between sharded pools) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 11 (c))")
+    if args.supervise:
+        raise NotImplementedError(
+            "--supervise (the cluster's supervisor) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 11 (d))")
+    sharded = args.tp * args.pp > 1
+    if sharded:
+        from .. import initialize
+
+        initialize.initialize_distributed(args.device)
     if args.use_checkpoint_args:
         cfg = checkpointing.load_config_from_checkpoint(args.load).model
     else:
@@ -297,12 +324,25 @@ def build_server(args, ap):
         draft_cfg=draft_cfg,
         draft_params=draft_params,
         trace=not args.no_trace,
-        tensor_parallel=args.tp,
-        pipeline_parallel=args.pp,
-        replicas=args.replicas,
-        router=args.router,
         role=args.role,
         device=args.device)
+    if sharded:
+        from ..config import ParallelConfig
+        from ..serving.cluster import build_sharded_engine
+
+        built = build_sharded_engine(
+            cfg, params, server.service.engine_config(),
+            ParallelConfig(tensor_parallel=args.tp,
+                           pipeline_parallel=args.pp),
+            device=args.device)
+        # each rank keeps its shards alone: the rebuild recipe's whole
+        # tree goes (its user, the supervisor, is item 11 (d))
+        built.rebuild_spec = params = None
+        if not isinstance(built, ServingEngine):
+            return built  # a worker rank: main runs its loop
+        server.service.use_sharded_engine(built)
+        print(f"serving layout: tp={args.tp} heads, pp={args.pp} layer "
+              "stages (rank 0 of the sharded engine)")
     try:
         server.service.engine  # created now: refusals raise at launch
     except BaseException:
@@ -319,6 +359,9 @@ def main(argv=None,
     ``server.graceful_shutdown()``)."""
     ap, args = get_args(argv)
     server = build_server(args, ap)
+    if hasattr(server, "serve"):
+        server.serve()  # a worker rank of a sharded engine
+        return 0
     prefix_blocks = 0 if args.no_prefix_cache else args.prefix_cache_blocks
     print(f"prefix cache: {prefix_blocks} blocks" if prefix_blocks
           else "prefix cache: disabled")
@@ -344,6 +387,8 @@ def main(argv=None,
     while server.serving():
         time.sleep(0.2)
     server.shutdown()
+    if args.tp * args.pp > 1:
+        server.service.close()  # the sharded engine's ranks stop
     return 0
 
 

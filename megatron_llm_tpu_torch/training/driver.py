@@ -230,6 +230,15 @@ def setup_train_state(cfg: RuntimeConfig, params: Optional[PyTree] = None,
     state and step.  ``pipeline_loss_fn`` goes to the step
     (``make_train_step``)."""
     device = model_lib.default_device(device)
+    if cfg.parallel.fsdp > 1:
+        # JAX's training specs never name the fsdp axis: its step keeps
+        # the weights and the batch whole on every fsdp rank and repeats
+        # the step there
+        raise ValueError(
+            f"fsdp = {cfg.parallel.fsdp} is the serving residency axis "
+            "(models/sharding.serving_param_specs); JAX's training step "
+            "replicates weights and batch over it and repeats the step on "
+            "each fsdp rank. Train with data_parallel instead")
     tp = cfg.parallel.tensor_parallel
     mesh = plan = None
     if _wants_mesh(cfg, device):

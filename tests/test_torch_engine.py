@@ -226,18 +226,29 @@ def test_unported_options_raise(weights, kw, cfg_kw, match):
 
 
 def test_draft_model_mesh_and_quantized_weights_raise(weights):
-    """A mesh raises; a resident draft model no longer does (it is
-    served, ``tests/test_torch_draft_serving.py``), nor do quantized
-    weights (they are served through ``ops/quant.mm``).  A W8A8 training
-    config over serving-quantized weights is served too: such a weight
-    goes through ``mm``, not the int8 training matmul, so its tokens are
-    the quantized engine's."""
+    """A mesh no longer raises: a mesh of one rank serves the plain
+    engine's tokens (sharded meshes are served,
+    ``tests/test_torch_sharded_serving.py``), while a disaggregated role
+    still raises.  A resident draft model no longer does (it is served,
+    ``tests/test_torch_draft_serving.py``), nor do quantized weights
+    (they are served through ``ops/quant.mm``).  A W8A8 training config
+    over serving-quantized weights is served too: such a weight goes
+    through ``mm``, not the int8 training matmul, so its tokens are the
+    quantized engine's."""
+    from megatron_llm_tpu_torch.config import ParallelConfig as TPar
     from megatron_llm_tpu_torch.ops.quant import quantize_params
+    from megatron_llm_tpu_torch.parallel import mesh as tmesh
 
     _, _, tc, tp = weights
     ec = EngineConfig(**SLICE)
-    with pytest.raises(NotImplementedError, match="mesh.*ROADMAP"):
-        ServingEngine(tc, tp, ec, mesh=object(), device="cpu")
+    meshed = ServingEngine(tc, tp, ec, mesh=tmesh.build_mesh(TPar()),
+                           device="cpu")
+    got, _ = _run(meshed, _prompts(), NEW)
+    want, _ = _run(ServingEngine(tc, tp, ec, device="cpu"), _prompts(), NEW)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    with pytest.raises(NotImplementedError, match="role.*ROADMAP"):
+        ServingEngine(tc, tp, EngineConfig(**SLICE, role="prefill"),
+                      device="cpu")
     quant = quantize_params(tp, "int8")
     engine = ServingEngine(tc, quant, ec, device="cpu")
     assert engine._precision_route == "int8"

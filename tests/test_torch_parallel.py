@@ -269,8 +269,14 @@ def test_sequence_parallel_axis_set_and_cleared():
         TRun(model=ttiny(), parallel=TPar(tensor_parallel=2,
                                           sequence_parallel=True),
              train=TTrain(seq_length=33)).validate()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TPar(fsdp=2).validate()
+    # fsdp, the serving residency axis, validates (sharded serving);
+    # training refuses it, stating JAX's behaviour (a replicated step)
+    assert TPar(fsdp=2).validate().world_size == 2
+    from megatron_llm_tpu_torch.training import driver as tdriver
+    with pytest.raises(ValueError, match="replicates weights and batch"):
+        tdriver.setup_train_state(
+            TRun(model=ttiny(), parallel=TPar(fsdp=2),
+                 train=TTrain(seq_length=SEQ)), device="cpu")
 
 
 def test_rendezvous_without_its_peer_raises():

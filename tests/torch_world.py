@@ -852,3 +852,240 @@ def entry_resume_case(tree: dict, meta: dict) -> dict:
     return {"losses": np.asarray(losses), "iters": straight.iteration,
             "resumed_iters": resumed.iteration, "resumed_steps": steps,
             "differ": differ}
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving (tests/test_torch_sharded_serving.py)
+# ---------------------------------------------------------------------------
+
+
+def _serving_model(meta: dict, kv_quant=None):
+    from megatron_llm_tpu_torch import config as C
+
+    preset, mkw = meta["model"]
+    cfg = getattr(C, preset)(**mkw)
+    if kv_quant:
+        cfg = dataclasses.replace(cfg, kv_cache_quant=kv_quant).validate()
+    return cfg
+
+
+def _recording(decode, log: list):
+    """``decode`` that also logs each step's sampled tokens."""
+    def run(*args, **kwargs):
+        tok, lp = decode(*args, **kwargs)
+        log.append(tok.cpu().tolist())
+        return tok, lp
+    return run
+
+
+def _nbytes(tree) -> int:
+    from megatron_llm_tpu_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def sharded_serving_case(tree: dict, meta: dict) -> dict:
+    """Each of ``meta["runs"]`` through ``build_sharded_engine`` on every
+    rank (rank 0 serves each batch of request specs in turn, the others
+    replay), as JSON: each batch's committed tokens, whether every rank
+    sampled the same tokens at every decode step, the decode groups, the
+    sanitizer's report, the prefix cache's hits, ``kv_snapshot``'s stages
+    and rank 0's resident bytes of params and pool against the whole."""
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.ops.quant import quantize_params
+    from megatron_llm_tpu_torch.serving import EngineConfig
+    from megatron_llm_tpu_torch.serving.cluster import build_sharded_engine
+
+    whole = _t(tree["params"])
+    results = {}
+    for run in meta["runs"]:
+        cfg = _serving_model(meta, run.get("kv_quant"))
+        params = (quantize_params(whole, run["weights"])
+                  if run.get("weights") else whole)
+        eng = build_sharded_engine(
+            cfg, params, EngineConfig(**run["engine"]),
+            ParallelConfig(**run["parallel"]), device="cpu")
+        log: list = []
+        res: dict = {}
+        if dist.get_rank() != 0:
+            eng.ops.decode = _recording(eng.ops.decode, log)
+            eng.serve()
+        else:
+            eng._ops.decode = _recording(eng._ops.decode, log)
+            eng.start()
+            try:
+                res["tokens"] = [
+                    [list(h.result(120).tokens)
+                     for h in eng.submit_many(specs)]
+                    for specs in run["batches"]]
+                res["groups"] = eng._decode_groups
+                res["prefix_hits"] = eng.metrics.snapshot()["prefix_hits"]
+                res["stages"] = eng.kv_snapshot().get("stages")
+                res["fused"] = [eng._fused_decode, eng._fused_verify]
+                pool = eng.slots.pool
+                k = pool.k_pool["q"] if isinstance(pool.k_pool, dict) \
+                    else pool.k_pool
+                res["bytes"] = {
+                    "params": _nbytes(eng.params), "whole": _nbytes(params),
+                    "pool": k.numel() * k.element_size(),
+                    "whole_pool": (cfg.num_layers * pool.n_blocks
+                                   * cfg.kv_heads * pool.block_size
+                                   * cfg.head_dim * k.element_size())}
+            finally:
+                eng.shutdown()
+            res["leaks"] = eng.sanitizer_report
+        logs = [None] * dist.get_world_size()
+        dist.all_gather_object(logs, log)
+        if dist.get_rank() == 0:
+            res["ranks_agree"] = all(g == logs[0] for g in logs)
+            res["steps"] = len(logs[0])
+            results[run["name"]] = res
+    return {"result": np.asarray(json.dumps(results))}
+
+
+def sharded_forward_case(tree: dict, meta: dict) -> dict:
+    """``forward_cached`` (a prefill of ``tokens`` into an empty cache,
+    then one step of ``step``) and ``forward_cached_paged`` (``step``
+    again over the prefill's rows published into a pool) under each
+    serving layout of ``meta["layouts"]``, every rank on its shards: rank
+    0's logits, which every rank agrees with (``agree``)."""
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.models import sharding
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = _serving_model(meta)
+    whole = _t(tree["params"])
+    tokens, step = _t(tree["tokens"]), _t(tree["step"])
+    b, s = tokens.shape
+    bk = meta["block"]
+    out = {}
+    for name, par in meta["layouts"].items():
+        params, mesh = sharding.shard_for_serving(whole, cfg,
+                                                  ParallelConfig(**par))
+        with torch.no_grad(), mesh_lib.use_mesh(mesh):
+            k, v = M.init_kv_cache(cfg, b, 2 * s, device="cpu")
+            pre, k, v = M.forward_cached(cfg, params, tokens, k, v, 0,
+                                         empty_cache=True)
+            one, _, _ = M.forward_cached(cfg, params, step, k.clone(),
+                                         v.clone(), s)
+            kp, vp = M.init_kv_pool(cfg, 1 + b * 2 * s // bk, bk,
+                                    device="cpu")
+            tables = 1 + torch.arange(b * 2 * s // bk).reshape(b, -1)
+            for r in range(b):
+                M.cache_scatter_blocks(kp, k[:, r:r + 1], tables[r])
+                M.cache_scatter_blocks(vp, v[:, r:r + 1], tables[r])
+            paged, _, _ = M.forward_cached_paged(
+                cfg, params, step, kp, vp, tables,
+                torch.full((b,), s, dtype=torch.long))
+        got = {"prefill": pre, "step": one, "paged": paged}
+        for key, t in got.items():
+            whole_t = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+            dist.all_gather(whole_t, t.contiguous())
+            out[f"{name}/{key}"] = t
+            out[f"{name}/{key}_agree"] = np.asarray(
+                all(torch.equal(w, t) for w in whole_t))
+    return out
+
+
+def serving_cli_case(tree: dict, meta: dict) -> dict:
+    """``run_text_generation_server.main(meta["argv"])`` on every rank:
+    rank 0 answers ``meta["body"]`` at PUT /api, then shuts the server
+    down gracefully; every rank's ``main`` must return 0."""
+    import threading
+    import urllib.request
+
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.tools import run_text_generation_server as rtgs
+
+    if dist.get_rank() != 0:
+        rc = rtgs.main(meta["argv"])
+        return {"rc": rc}
+    ready, box = threading.Event(), {}
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    thread = threading.Thread(target=lambda: box.setdefault(
+        "rc", rtgs.main(meta["argv"], on_ready=on_ready)))
+    thread.start()
+    try:
+        assert ready.wait(120), "the server did not start"
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{box['server'].port}/api",
+            data=json.dumps(meta["body"]).encode(), method="PUT",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            status, body = resp.status, json.loads(resp.read())
+    finally:
+        if "server" in box:
+            box["server"].graceful_shutdown(10.0)
+        thread.join(60)
+    return {"result": np.asarray(json.dumps(
+        {"status": status, "text": body["text"], "rc": box.get("rc"),
+         "alive": thread.is_alive()}))}
+
+
+def sharded_lifecycle_case(tree: dict, meta: dict) -> dict:
+    """The seam's lifecycle at tp = 2, the world's last job: an engine
+    idle for longer than its channel's timeout (shortened here) still
+    serves, and its shutdown ends every rank's loop; then a worker whose
+    decode raises makes rank 0's request raise with the worker's message,
+    and every rank leaves the world (so nothing waits on a dead peer)."""
+    import time
+
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.serving import EngineConfig
+    from megatron_llm_tpu_torch.serving.cluster import sharded
+
+    sharded.HEARTBEAT_S = 0.2
+    sharded.CHANNEL_TIMEOUT = datetime.timedelta(seconds=meta["timeout_s"])
+    cfg = _serving_model(meta)
+    params = _t(tree["params"])
+    ec = EngineConfig(**meta["engine"])
+    par = ParallelConfig(tensor_parallel=2)
+    rank = dist.get_rank()
+    res = {}
+    eng = sharded.build_sharded_engine(cfg, params, ec, par, device="cpu")
+    if rank != 0:
+        eng.serve()
+        res["worker_returned"] = True
+    else:
+        eng.start()
+        time.sleep(meta["idle_s"])
+        h = eng.submit(meta["prompt"], 4, use_eos_stop=False)
+        res["idle_tokens"] = list(h.result(60).tokens)
+        eng.shutdown()
+    returned = [None] * dist.get_world_size()
+    dist.all_gather_object(returned, res.get("worker_returned", True))
+    res["all_returned"] = all(returned)
+    eng = sharded.build_sharded_engine(cfg, params, ec, par, device="cpu")
+    if rank != 0:
+        def broken(*args, **kwargs):
+            raise RuntimeError("injected worker fault")
+
+        eng.ops.decode = broken
+        try:
+            eng.serve()
+        except RuntimeError as e:
+            res["worker_raised"] = str(e)
+        return None
+    eng.start()
+    t0 = time.perf_counter()
+    try:
+        eng.submit(meta["prompt"], 4, use_eos_stop=False).result(60)
+        res["fault"] = None
+    except RuntimeError as e:
+        res["fault"] = str(e)
+    res["fault_s"] = time.perf_counter() - t0
+    eng.shutdown()
+    res["world_left"] = not dist.is_initialized()
+    return {"result": np.asarray(json.dumps(res))}
