@@ -354,7 +354,30 @@ it goes wrong:
     (phase 4's check, under 0.75 of the tree resident), then
     ``run_text_generation_server --tp 2`` over a 2-layer fp32 checkpoint,
     its texts equal to the one-device service's and every rank's ``main``
-    returning 0.  Phases 63-65 are the ``sharded-serving`` paths.
+    returning 0.  Phases 63-65 are the ``sharded-serving`` paths;
+66-68. engine replicas behind the router (``serving/cluster/router.py``):
+    66 ``build_cluster(replicas=2)`` of Llama-2-7B at full depth on the
+    one card (phase 16's fused route, the engine's defaults but for phase
+    5's sizes), phase 5's 8 greedy requests in two sticky groups and four
+    unkeyed ones: each request's tokens identical to one engine's run of
+    them, both replicas dispatched, each sticky group on one replica, K13
+    launched; the router's dispatch time a request, TTFT and decode
+    tokens/s beside the one engine's logged; 67 failover: 12 sampled
+    requests (temperature 0.8, fixed seeds, 64 new) through a fresh
+    2-replica cluster in each round, ``drain_replica`` mid-stream, then
+    ``kill_replica`` mid-stream, then a chaos ``crash_at`` in one
+    replica's scheduler: every client stream bitwise the uninterrupted
+    run's, the kill resubmits, the probe finds the crash within two probe
+    intervals, the snapshots, the surviving ledgers (``sanitize=True``)
+    and the lock order clean, the kill-to-next-token time logged; 68 (a)
+    ``run_text_generation_server --replicas 2`` over a release checkpoint
+    of Llama-2-7B widths cut to 4 layers: PUT /api texts equal to the
+    one-engine server's, GET /cluster listing 2 alive replicas with their
+    dispatch counts; (b) 2 replicas x tp = 2 as three ranks sharing the
+    card (the router's rank 0 leads both replicas), 7B widths cut to 4
+    layers: phase 63's near-tie rule against the one-device engine, both
+    replicas served, one decode group each, K1, K4 and K8 on every rank,
+    every process exiting 0.  Phases 66-68 are the ``cluster`` paths.
 
 Every serving phase runs the engine's defaults but for its sizes (4
 slots, 2048 tokens, 64-token blocks and prefill bucket).  Phase 3 covers
@@ -365,7 +388,7 @@ K13 steps, a chain tree the linear K14 window and each path of a hedged
 tree sequential K13 steps, with the arena too, where a slot -1 row must
 equal the call without it and each row alone its row of the batch.
 Phases 5, 7, 9, 10, 11, 13, 14-22, 23-28, 30, 32-34, 36-38, 39-41,
-42-46, 48-51 and 53-65 are the main paths:
+42-46, 48-51 and 53-68 are the main paths:
 every kernel's launch counter is reset just before each and read just
 after, and each kernel of a path must have been launched in it (phases
 23-30 also check each kernel's count against the steps the path took);
@@ -6951,7 +6974,6 @@ def world_of_one(torch, dev, counters, smi):
 
 def parallel_phases(torch, dev, counters, smi, paths, settle):
     """Phases 53-56 (the ``parallel-training`` paths)."""
-    import torch.multiprocessing as mp
 
     t0 = tp = time.perf_counter()
     paths["world-1 nccl"] = world_of_one(torch, dev, counters, smi)
@@ -6959,9 +6981,7 @@ def parallel_phases(torch, dev, counters, smi, paths, settle):
     tp = _phase_done("53", tp, smi)
     work = tempfile.mkdtemp(prefix="chip_smoke_par_")
     try:
-        mp.start_processes(_par_rank, args=(2, os.path.join(work, "rdv"),
-                                            work, smi),
-                           nprocs=2, join=True, start_method="spawn")
+        _spawn(_par_rank, (2, os.path.join(work, "rdv"), work, smi), 2)
         ranks = []
         for r in range(2):
             with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -7310,14 +7330,12 @@ def item10_phases(torch, dev, counters, smi, paths, settle, which="57-59",
     ``moe-layouts`` paths) or 61 (``which="61"``, ``world=4``: the
     ``pipeline-ring`` path): the ranks spawned on the one card, as 54-56
     are."""
-    import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_item10_")
     try:
-        mp.start_processes(_item10_rank, args=(world, os.path.join(
-            work, "rdv"), work, smi, "cuda", which), nprocs=world,
-            join=True, start_method="spawn")
+        _spawn(_item10_rank, (world, os.path.join(work, "rdv"), work, smi,
+                              "cuda", which), world)
         ranks = []
         for r in range(world):
             with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -8072,14 +8090,12 @@ def _item11_rank(rank, world, rdv, out_dir, smi, device="cuda"):
 def item11_phases(torch, dev, counters, smi, paths, settle, world=2):
     """Phases 63-65 (the ``sharded-serving`` paths): two ranks spawned on
     the one card, as 54-62 are; each main path's launches by rank."""
-    import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_item11_")
     try:
-        mp.start_processes(_item11_rank, args=(world, os.path.join(
-            work, "rdv"), work, smi, "cuda"), nprocs=world, join=True,
-            start_method="spawn")
+        _spawn(_item11_rank, (world, os.path.join(work, "rdv"), work, smi,
+                              "cuda"), world)
         ranks = []
         for r in range(world):
             with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -8100,6 +8116,521 @@ def item11_phases(torch, dev, counters, smi, paths, settle, world=2):
             + json.dumps(summary))
     log(f"item-11 phases 63-65 in {time.perf_counter() - t0:.1f}s "
         f"({world} processes spawned on the card; card {smi})")
+
+
+# ---------------------------------------------------------------------------
+# Phases 66-68: engine replicas behind the router
+# ---------------------------------------------------------------------------
+
+CLUSTER_LENS = (64, 1024, 200, 512, 96, 777, 330, 1000)  # phase 5's
+CLUSTER_NEW = 32
+# the two sticky groups of phase 66 (request index -> key); the rest go
+# unkeyed
+CLUSTER_STICKY = {0: "conv-a", 1: "conv-a", 2: "conv-b", 3: "conv-b"}
+CLUSTER_ENGINE = dict(max_batch_size=4, max_seq_len=2048, prefill_bucket=64,
+                      kv_block_size=64)
+FAILOVER_LENS = (64, 128, 192, 256, 96, 160, 224, 80, 144, 208, 112, 240)
+FAILOVER_NEW = 64
+FAILOVER_PROBE_S = 0.05
+CLUSTER_CLI_LAYERS = 4   # phase 68's checkpoint: 7B widths cut in depth
+CLUSTER_CLI_BODY = {"prompts": [" ".join(str(11 * i % 251 + j)
+                                         for i in range(n))
+                                for j, n in enumerate((40, 130, 90))],
+                    "tokens_to_generate": 16}
+CLUSTER_SHARD_LAYERS = 4  # phase 68's 2 x tp = 2 world
+
+
+def _routed(router, specs, streams=None, at_token=None):
+    """Submit ``specs`` through ``router`` (each client's stream into
+    ``streams[i]`` with its host time); ``at_token(handles)`` runs once a
+    token has streamed, on this thread.  → (handles, results)."""
+    streams = streams if streams is not None else [[] for _ in specs]
+    first = threading.Event()
+
+    def on_token(i):
+        def fn(tok):
+            streams[i].append((int(tok), time.perf_counter()))
+            first.set()
+        return fn
+
+    handles = router.submit_many([dict(s, on_token=on_token(i))
+                                  for i, s in enumerate(specs)])
+    if at_token is not None:
+        if not first.wait(600):
+            raise RuntimeError("no token streamed")
+        at_token(handles)
+    return handles, [h.result(900) for h in handles]
+
+
+def cluster_replicas(torch, cfg, params, dev, counters, smi):
+    """Phase 66 (module doc) → its main path's launches."""
+    from megatron_llm_tpu_torch.serving import (EngineConfig, ServingEngine,
+                                                build_cluster)
+
+    t0 = time.perf_counter()
+    ec = EngineConfig(**CLUSTER_ENGINE)
+    gen = torch.Generator().manual_seed(66)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in CLUSTER_LENS]
+    specs = [dict(prompt=p, max_new_tokens=CLUSTER_NEW, use_eos_stop=False)
+             for p in prompts]
+    warm = dict(prompt=prompts[0][:64], max_new_tokens=4,
+                use_eos_stop=False)
+
+    def run(submit):
+        t = time.perf_counter()
+        res = [h.result(900) for h in submit()]
+        return res, time.perf_counter() - t
+
+    one = ServingEngine(cfg, params, ec, device=dev).start()
+    try:
+        one.submit(**warm).result(900)
+        ref, one_wall = run(lambda: one.submit_many(specs))
+        one_snap = one.metrics.snapshot()
+    finally:
+        one.shutdown()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    router = build_cluster(cfg, params, ec, replicas=2, device=dev).start()
+    try:
+        for r in router.replicas:  # each replica's first step, uncounted
+            r.engine.submit(**warm).result(900)
+        _zero(counters)
+        keyed = [dict(s, sticky_key=CLUSTER_STICKY[i])
+                 if i in CLUSTER_STICKY else s for i, s in enumerate(specs)]
+        handles = router.submit_many(keyed)
+        t = time.perf_counter()
+        got = [h.result(900) for h in handles]
+        wall = time.perf_counter() - t
+        launches = _launches(counters)
+        where = {i: h._rr.replica.id for i, h in enumerate(handles)}
+        snap = router.metrics.snapshot()
+        route_ms = [e["dur"] / 1e3 for e in
+                    router.trace.chrome_trace()["traceEvents"]
+                    if e.get("name") == "route"]
+    finally:
+        router.shutdown()
+    same = [a.tokens == b.tokens for a, b in zip(got, ref)]
+    groups = {}
+    for i, key in CLUSTER_STICKY.items():
+        groups.setdefault(key, set()).add(where[i])
+    dispatched = [r["dispatched"] for r in snap["replicas"]]
+    new = CLUSTER_NEW * len(specs)
+    ttft = {rid: 1e3 * s["ttft"]["p50_s"]
+            for rid, s in snap["per_replica"].items()}
+    log(f"66 cluster replicas: Llama-2-7B ({cfg.num_layers} layers) x 2 "
+        f"replicas on one card behind the router; {len(specs)} requests "
+        f"({sum(CLUSTER_LENS)} prompt tokens, {CLUSTER_NEW} new each) in "
+        f"{wall:.2f}s against one engine's {one_wall:.2f}s ({new / wall:.1f} "
+        f"against {new / one_wall:.1f} new tokens/s); dispatched {dispatched}"
+        f", sticky groups {json.dumps({k: sorted(v) for k, v in groups.items()})}"
+        f"; router dispatch {sum(route_ms) / len(route_ms):.3f} ms a request "
+        f"(max {max(route_ms):.3f}); TTFT p50 ms {json.dumps(ttft)} against "
+        f"one engine's {1e3 * one_snap['ttft']['p50_s']:.1f}; decode tok/s "
+        f"by replica {json.dumps({k: round(_decode_rate(s), 1) for k, s in snap['per_replica'].items()})}"
+        f" against {_decode_rate(one_snap):.1f}; tokens equal one engine's "
+        f"{sum(same)} of {len(same)} (host clock; card {smi})")
+    _check_path("66 cluster replicas", launches,
+                {"flash_attention_fwd": None, "rmsnorm_fwd": None,
+                 "fused_decode_step_paged": None}, forbid=("flash_decode",))
+    if not all(same):
+        raise RuntimeError(f"66: the router changed the tokens of requests "
+                           f"{[i for i, s in enumerate(same) if not s]}")
+    if min(dispatched) < 1:
+        raise RuntimeError(f"66: a replica got no request: {dispatched}")
+    if any(len(v) != 1 for v in groups.values()):
+        raise RuntimeError(f"66: a sticky group spans replicas: {groups}")
+    log(f"phase 66 in {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def cluster_failover(torch, cfg, params, dev, counters, smi):
+    """Phase 67 (module doc) → its main path's launches (the three rounds
+    of failover)."""
+    from megatron_llm_tpu_torch.analysis import sanitizers as san
+    from megatron_llm_tpu_torch.resilience.chaos import chaos
+    from megatron_llm_tpu_torch.serving import (EngineConfig, RouterConfig,
+                                                build_cluster)
+
+    t0 = time.perf_counter()
+    ec = EngineConfig(**CLUSTER_ENGINE, sanitize=True)
+    gen = torch.Generator().manual_seed(67)
+    specs = [dict(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                       generator=gen).tolist(),
+                  max_new_tokens=FAILOVER_NEW, use_eos_stop=False,
+                  temperature=0.8, seed=670 + i)
+             for i, n in enumerate(FAILOVER_LENS)]
+    san.reset_lock_tracking()
+
+    def cluster():
+        return build_cluster(cfg, params, ec, replicas=2, device=dev,
+                             router_config=RouterConfig(
+                                 probe_interval_s=FAILOVER_PROBE_S)).start()
+
+    def streams_of(rec):
+        return [[t for t, _ in s] for s in rec]
+
+    def serve_round(label, at_token=None):
+        """A fresh cluster's run → (tokens, streams, snapshot, each
+        replica's leak report); the cluster is freed before the next."""
+        router = cluster()
+        streams = [[] for _ in specs]
+        try:
+            res = _routed(router, specs, streams,
+                          None if at_token is None
+                          else lambda hs: at_token(router, hs))[1]
+            snap = router.snapshot()
+        finally:
+            router.shutdown()
+        reports = {r.id: r.engine.sanitizer_report for r in router.replicas}
+        tokens = [list(r.tokens) for r in res]
+        del router, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        return tokens, streams, snap, reports
+
+    want, want_streams, _, _ = serve_round("uninterrupted")
+    rounds = {}
+    marks = {}
+
+    def drain(router, handles):
+        if not router.drain_replica("replica-0", timeout=600, wait=False):
+            raise RuntimeError("67 drain: the replica did not drain")
+
+    def kill(router, handles):
+        marks["kill"] = time.perf_counter()
+        marks["orphans"] = [i for i, h in enumerate(handles)
+                            if h._rr.replica.id == "replica-0"
+                            and not h.done()]
+        marks["moved"] = router.kill_replica("replica-0")
+
+    def crash(router, handles):
+        chaos().crash_at("serve-step")
+        t = time.perf_counter()
+        while True:
+            hit = [r for r in router.replicas
+                   if r.engine._scheduler_error is not None]
+            if hit:
+                marks["crashed_at"] = time.perf_counter()
+                break
+            if time.perf_counter() - t > 60:
+                raise RuntimeError("67 crash: no scheduler crashed")
+            time.sleep(0.0005)
+        victim = hit[0]
+        while not victim.dead:
+            if time.perf_counter() - marks["crashed_at"] > 60:
+                raise RuntimeError("67 crash: the probe never found it")
+            time.sleep(0.0005)
+        marks["found_s"] = time.perf_counter() - marks["crashed_at"]
+        marks["victim"] = victim.id
+
+    _zero(counters)  # the main path: the three rounds of failover
+    for label, fn in (("drain", drain), ("kill", kill), ("crash", crash)):
+        tokens, streams, snap, reports = serve_round(label, fn)
+        chaos().reset()
+        # the killed or crashed replica's ledger is abandoned, as after a
+        # real crash; the others' must balance
+        reports = {k: v for k, v in reports.items()
+                   if label == "drain" or k != marks.get("victim",
+                                                         "replica-0")}
+        rounds[label] = dict(
+            tokens_equal=tokens == want,
+            streams_equal=streams_of(streams) == streams_of(want_streams),
+            resubmitted=snap["router"]["resubmitted_total"],
+            alive=[r["alive"] for r in snap["replicas"]],
+            pending=snap["router"]["pending"],
+            quarantined=snap["router"]["quarantined_total"],
+            leaks=sum(len(v) for v in reports.values()))
+        if label == "kill":
+            # the kill to each orphan's next new token on its new replica
+            waits = []
+            for i in marks["orphans"]:
+                after = [t for _, t in streams[i] if t > marks["kill"]]
+                if after:
+                    waits.append(after[0] - marks["kill"])
+            rounds[label]["failover_ms"] = [round(1e3 * w, 1)
+                                            for w in sorted(waits)]
+    launches = _launches(counters)
+    san.check_lock_order()
+    log(f"67 cluster failover: {len(specs)} sampled requests (temperature "
+        f"0.8, {FAILOVER_NEW} new) through 2 replicas of Llama-2-7B "
+        f"({cfg.num_layers} layers): {json.dumps(rounds)}; the kill "
+        f"orphaned {len(marks['orphans'])} requests, {marks['moved']} "
+        f"resubmitted; the crash of {marks['victim']}'s scheduler found by "
+        f"the probe in {1e3 * marks['found_s']:.1f} ms (interval "
+        f"{1e3 * FAILOVER_PROBE_S:.0f} ms); lock order clean (host clock; "
+        f"card {smi})")
+    for label, rec in rounds.items():
+        if not (rec["tokens_equal"] and rec["streams_equal"]):
+            raise RuntimeError(f"67 {label}: a client stream differs from "
+                               f"the uninterrupted run's")
+        if rec["pending"] or rec["quarantined"] or rec["leaks"]:
+            raise RuntimeError(f"67 {label}: router or ledger not clean: "
+                               f"{rec}")
+    if rounds["kill"]["resubmitted"] < 1:
+        raise RuntimeError("67 kill: nothing was resubmitted")
+    if not marks["found_s"] <= 2 * FAILOVER_PROBE_S:
+        raise RuntimeError(f"67 crash: the probe took {marks['found_s']}s")
+    _check_path("67 cluster failover", launches,
+                {"flash_attention_fwd": None, "rmsnorm_fwd": None,
+                 "fused_decode_step_paged": None}, forbid=("flash_decode",))
+    log(f"phase 67 in {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def cluster_cli(torch, cfg, dev, counters, smi, work):
+    """Phase 68 (a): ``run_text_generation_server --replicas 2`` → its
+    main path's launches."""
+    from megatron_llm_tpu_torch import checkpointing
+    from megatron_llm_tpu_torch.config import RuntimeConfig
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.tools import run_text_generation_server as rtgs
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "cluster_ckpt")
+    small = dataclasses.replace(cfg, num_layers=CLUSTER_CLI_LAYERS)
+    checkpointing.save_release_params(
+        root, M.init_params(small, seed=68, device=dev),
+        RuntimeConfig(model=small))
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--load", root, "--use_checkpoint_args", "--tokenizer_type",
+            "null", "--max_batch_size", "4", "--max_seq_len", "512",
+            "--prefill_bucket", "64", "--kv_block_size", "64",
+            "--metrics_interval_s", "0", "--device", str(dev.type),
+            "--host", "127.0.0.1", "--port", "0"]
+
+    def serve_once(flags, count=False):
+        ready, box = threading.Event(), {}
+
+        def on_ready(server):
+            box["server"] = server
+            ready.set()
+
+        th = threading.Thread(target=lambda: box.setdefault(
+            "rc", rtgs.main(argv + flags, on_ready=on_ready)))
+        th.start()
+        try:
+            if not ready.wait(600):
+                raise RuntimeError("the server did not start")
+            port = box["server"].port
+            status, _ = put(port, CLUSTER_CLI_BODY)  # warm every replica
+            if count:
+                _zero(counters)
+            status, body = put(port, CLUSTER_CLI_BODY)
+            launches = _launches(counters)
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/cluster",
+                                        timeout=60) as resp:
+                cluster = json.loads(resp.read())
+        finally:
+            if "server" in box:
+                box["server"].graceful_shutdown(30.0)
+            th.join(120)
+        if status != 200 or th.is_alive() or box.get("rc") != 0:
+            raise RuntimeError(f"server {flags}: status {status}, rc "
+                               f"{box.get('rc')}")
+        return body["text"], cluster, launches
+
+    want, _, _ = serve_once([])
+    got, cluster, launches = serve_once(["--replicas", "2"], count=True)
+    reps = cluster["replicas"]
+    log(f"68 cli replicas: run_text_generation_server --replicas 2 "
+        f"(Llama-2-7B widths, {CLUSTER_CLI_LAYERS} layers, bf16) answered "
+        f"PUT /api with the one-engine server's texts: {got == want}; GET "
+        f"/cluster: {cluster['router']['replicas']} replicas, alive "
+        f"{[r['alive'] for r in reps]}, dispatched "
+        f"{[r['dispatched'] for r in reps]} (card {smi})")
+    _check_path("68 cli replicas", launches,
+                {"flash_attention_fwd": None, "rmsnorm_fwd": None,
+                 "fused_decode_step_paged": None}, forbid=("flash_decode",))
+    if got != want:
+        raise RuntimeError(f"68 cli: texts {got} against {want}")
+    if len(reps) != 2 or not all(r["alive"] for r in reps) \
+            or min(r["dispatched"] for r in reps) < 1:
+        raise RuntimeError(f"68 cli: GET /cluster {reps}")
+    log(f"phase 68 (a) in {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def _cluster_shard_serve(torch, dev, counters, rank, smi):
+    """Phase 68 (b) on one rank of the world of 3: 2 replicas x tp = 2
+    through ``build_cluster`` (rank 0 leads both, rank 1 replays replica 0,
+    rank 2 replica 1), Llama-2-7B widths cut to ``CLUSTER_SHARD_LAYERS``;
+    rank 0 first serves the requests on one device.  Phase 63's checks:
+    each first parting from the one-device tokens a near tie within
+    twice the route gap (replica 0's mesh), the gap at most
+    ``SHARD_GAP_MAX``; both replicas served, one decode group each."""
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.models import model as M
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.serving import (EngineConfig, ServingEngine,
+                                                build_cluster)
+
+    t0 = time.perf_counter()
+    cfg = _shard_model(num_layers=CLUSTER_SHARD_LAYERS)
+    ec = EngineConfig(**SHARD_ENGINE)
+    params = M.init_params(cfg, seed=0, device=dev)  # every rank the same
+    gen = torch.Generator().manual_seed(68)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in SHARD_LENS]
+    specs = [dict(prompt=p, max_new_tokens=SHARD_NEW, use_eos_stop=False)
+             for p in prompts]
+    rec = {}
+    if rank == 0:
+        one = ServingEngine(cfg, params, ec, device=dev).start()
+        try:
+            ref = [h.result(900).tokens for h in one.submit_many(specs)]
+        finally:
+            one.shutdown()
+        del one
+    built = build_cluster(cfg, params, ec, replicas=2,
+                          parallel=ParallelConfig(tensor_parallel=2),
+                          device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero(counters)
+    if rank != 0:
+        mesh = built.mesh
+        rec["mesh_ranks"] = mesh_lib.global_ranks(mesh)
+        built.serve()
+        rec["launches"] = _launches(counters)
+        local = built.params
+    else:
+        rec["mesh_ranks"] = [mesh_lib.global_ranks(r.engine.mesh)
+                             for r in built.replicas]
+        built.start()
+        t = time.perf_counter()
+        try:
+            got = [h.result(900).tokens for h in built.submit_many(specs)]
+            rec["launches"] = _launches(counters)
+            rec["serve_s"] = time.perf_counter() - t
+            snap = built.snapshot()
+            rec["groups"] = [r.engine._decode_groups for r in built.replicas]
+        finally:
+            built.shutdown()
+        mesh = built.replicas[0].engine.mesh
+        local = built.replicas[0].engine.params
+    _shard_launch_check(rank, "68 cluster tp2", rec["launches"],
+                        "flash_decode")
+    gap = None
+    if rank in (0, 1):  # replica 0's mesh
+        gap = _route_gap(torch, M, cfg, params, local, mesh, dev, rank)
+    if rank != 0:
+        return rec
+    gaps = []
+    with torch.no_grad():
+        for a, b, n in zip(got, ref, SHARD_LENS):
+            p = next((j for j in range(n, len(a)) if a[j] != b[j]), None)
+            if p is None:
+                continue
+            lg = M.forward(cfg, params, torch.tensor([a[:p]], device=dev))
+            gaps.append((p - n, float((lg[0, -1, a[p]]
+                                       - lg[0, -1, b[p]]).abs())))
+    dispatched = [r["dispatched"] for r in snap["replicas"]]
+    rec.update(route_gap=gap, partings=gaps, dispatched=dispatched,
+               seconds=time.perf_counter() - t0)
+    log(f"[rank 0] 68 cluster tp2: 2 replicas x tp = 2 in a world of 3 "
+        f"(meshes {rec['mesh_ranks']}), Llama-2-7B widths cut to "
+        f"{CLUSTER_SHARD_LAYERS} layers: {len(specs)} requests in "
+        f"{rec['serve_s']:.1f}s, dispatched {dispatched}, decode groups "
+        f"{rec['groups']}; partings (new-token index, |d|) {gaps} (limit 2 x "
+        f"route gap {gap:.4f}, the gap at most {SHARD_GAP_MAX}) (card {smi})")
+    if not gap <= SHARD_GAP_MAX:
+        raise RuntimeError(f"68 cluster: route gap {gap}")
+    if any(g > 2 * gap for _, g in gaps):
+        raise RuntimeError(f"68 cluster: tokens part off a near tie: {gaps}")
+    if min(dispatched) < 1 or rec["groups"] != [1, 1]:
+        raise RuntimeError(f"68 cluster: dispatched {dispatched}, groups "
+                           f"{rec['groups']}")
+    return rec
+
+
+def _item11b_rank(rank, world, rdv, out_dir, smi, device="cuda"):
+    """One rank of phase 68 (b) (spawned 3 times on the one card, gloo)."""
+    import datetime
+
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from megatron_llm_tpu_torch import initialize
+    from megatron_llm_tpu_torch.kernels import launch_counters
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = initialize.initialize_distributed(
+        device, init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(minutes=10))
+    if info.backend != "gloo":
+        raise RuntimeError(f"{world} ranks on one card took {info.backend}")
+    out = {}
+    try:
+        out["68 cluster tp2"] = _cluster_shard_serve(
+            torch, info.device, launch_counters(), rank, smi)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    initialize.destroy()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def item11b_phases(torch, cfg, dev, counters, smi, paths, settle, world=3):
+    """Phases 66-68 (the ``cluster`` paths): ``cfg`` is the fused
+    Llama-2-7B of phase 16; 68 (b) spawns ``world`` ranks on the card."""
+
+    from megatron_llm_tpu_torch.models import model as M
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    paths["66 cluster replicas"] = cluster_replicas(torch, cfg, params, dev,
+                                                    counters, smi)
+    settle()
+    paths["67 cluster failover"] = cluster_failover(torch, cfg, params, dev,
+                                                    counters, smi)
+    del params
+    settle()
+    work = tempfile.mkdtemp(prefix="chip_smoke_item11b_")
+    try:
+        paths["68 cli replicas"] = cluster_cli(torch, cfg, dev, counters,
+                                               smi, work)
+        settle()
+        t1 = time.perf_counter()
+        _spawn(_item11b_rank, (world, os.path.join(work, "rdv"), work, smi,
+                               "cuda"), world)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    settle()
+    for r, rec in enumerate(ranks):
+        paths[f"68 cluster tp2 rank {r}"] = rec["68 cluster tp2"]["launches"]
+        log(f"68 cluster tp2 rank {r} kernels "
+            + json.dumps(rec["68 cluster tp2"]["launches"]))
+    log(f"phase 68 (b) in {time.perf_counter() - t1:.1f}s ({world} processes "
+        f"spawned on the card, every one exited 0; card {smi})")
+    log(f"item-11 (b) phases 66-68 in {time.perf_counter() - t0:.1f}s")
+
+
+def _spawn(fn, args, nprocs) -> None:
+    """Run ``nprocs`` ranks of ``fn(rank, *args)`` on the card and wait for
+    them.  The ranks are forked by a fork server (a clean process, which
+    never touches CUDA) with torch and the port imported once, where a
+    spawned rank would import them anew, seconds a process."""
+    import multiprocessing
+
+    import torch.multiprocessing as mp
+
+    multiprocessing.set_forkserver_preload(
+        ["torch", "megatron_llm_tpu_torch.initialize",
+         "megatron_llm_tpu_torch.training.driver",
+         "megatron_llm_tpu_torch.serving"])
+    mp.start_processes(fn, args=args, nprocs=nprocs, join=True,
+                       start_method="forkserver")
 
 
 def log_hmma(build) -> None:
@@ -8442,6 +8973,8 @@ def main() -> int:
     laps.lap("61")
     item11_phases(torch, dev, counters, smi, paths, settle)
     laps.lap("63-65")
+    item11b_phases(torch, fused, dev, counters, smi, paths, settle)
+    laps.lap("66-68")
 
     meta = {
         "flash_attention_fwd": (

@@ -21,9 +21,21 @@ under its ``request_id``.  Built on the stdlib ``ThreadingHTTPServer``.
 ``draft_cfg``/``draft_params`` give the engine a resident draft model
 (tree speculation with ``spec_draft_len > 0``).
 
+``GenerationService(replicas=N)`` (or ``router=True``) serves through
+engine replicas behind the cluster router (``serving/cluster/router.py``),
+which has the engine's surface; ``GET /cluster`` answers the router's
+snapshot (a single engine's summary otherwise), and ``GET /metrics`` the
+router-shaped one.  Beam search, scoring and prompt-lookup speculation
+run on the whole params, as JAX's server runs them over a router.  A
+sharded engine or sharded replicas (``tensor_parallel`` / ``pipeline_
+parallel`` above 1) are built on every rank, by the launch entry
+``tools/run_text_generation_server`` under torchrun, and handed to the
+service with ``use_sharded_engine``; the whole params are dropped there,
+so those three routes answer 501.
+
 Not in this slice, answered with an explicit error naming the ROADMAP
-item: the multi-replica / sharded / disaggregated front-ends, and every
-engine option the engine refuses (501 with its message).
+item: the disaggregated and supervised front-ends, and every engine
+option the engine refuses (501 with its message).
 """
 
 from __future__ import annotations
@@ -80,17 +92,9 @@ class GenerationService:
                  pipeline_parallel: int = 1,
                  replicas: int = 1,
                  router: bool = False,
+                 router_config=None,
                  role: str = "mixed",
                  device=None):
-        if tensor_parallel * pipeline_parallel * replicas > 1 or router:
-            # JAX routes these through build_cluster and its Router; the
-            # launch entry serves --tp / --pp over build_sharded_engine
-            raise NotImplementedError(
-                "MegatronServer(tensor_parallel=, pipeline_parallel=, "
-                "replicas=, router=) builds the cluster behind the router, "
-                "which is not ported yet (ROADMAP.md, Queue 1 item 11 (b)); "
-                "a sharded engine is served by "
-                "tools/run_text_generation_server --tp/--pp under torchrun")
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -117,6 +121,13 @@ class GenerationService:
         self.spec_ngram = spec_ngram
         self.spec_reprobe_interval = spec_reprobe_interval
         self.role = role
+        # replicas behind the cluster router (serving/cluster/):
+        # router=True routes even one replica (GET /cluster, drain API)
+        self.tensor_parallel = tensor_parallel
+        self.pipeline_parallel = pipeline_parallel
+        self.replicas = replicas
+        self.router = router
+        self.router_config = router_config
         self.draft_cfg = draft_cfg
         self.draft_params = draft_params
         self.default_priority = default_priority
@@ -161,23 +172,40 @@ class GenerationService:
 
     @property
     def engine(self):
-        """The continuous-batching engine, created on first use."""
+        """The continuous-batching engine (or the router over its
+        replicas), created on first use."""
         with self._engine_init_lock:
             if self._engine is None:
-                from ..serving import ServingEngine
+                from ..config import ParallelConfig
+                from ..serving import ServingEngine, build_cluster
 
-                self._engine = ServingEngine(
-                    self.cfg, self.params, self.engine_config(),
-                    draft_cfg=self.draft_cfg,
-                    draft_params=self.draft_params, device=self.device)
+                if self.tensor_parallel * self.pipeline_parallel > 1:
+                    raise ValueError(
+                        "a sharded engine is built on every rank: serve it "
+                        "through tools/run_text_generation_server --tp/--pp "
+                        "[--replicas N] under torchrun (python -m "
+                        "torch.distributed.run --nproc_per_node N ...)")
+                if self.router or self.replicas > 1:
+                    self._engine = build_cluster(
+                        self.cfg, self.params, self.engine_config(),
+                        replicas=self.replicas, parallel=ParallelConfig(),
+                        router_config=self.router_config,
+                        draft_cfg=self.draft_cfg,
+                        draft_params=self.draft_params, device=self.device)
+                else:
+                    self._engine = ServingEngine(
+                        self.cfg, self.params, self.engine_config(),
+                        draft_cfg=self.draft_cfg,
+                        draft_params=self.draft_params, device=self.device)
             return self._engine
 
     def use_sharded_engine(self, engine) -> None:
-        """Serve over rank 0's engine of ``build_sharded_engine`` (the
-        launch entry's ``--tp`` / ``--pp``).  The whole params are dropped:
-        beam search, scoring and prompt-lookup speculation, which run
-        them outside the engine, answer 501 (ROADMAP.md, Queue 1 item 11
-        (a)'s remainder)."""
+        """Serve over rank 0's engine of ``build_sharded_engine``, or its
+        Router of ``build_cluster`` (the launch entry's ``--tp`` / ``--pp``
+        [``--replicas``]).  The whole params are dropped: beam search,
+        scoring and prompt-lookup speculation, which run them outside the
+        engine, answer 501 (ROADMAP.md, Queue 1 item 11 (a)'s
+        remainder)."""
         if self.speculative is not None:
             raise NotImplementedError(
                 "--speculative pld over a sharded engine is not ported yet "
@@ -199,6 +227,26 @@ class GenerationService:
             return ServingMetrics(self.max_batch_size,
                                   register=False).snapshot()
         return engine.metrics.snapshot()
+
+    def cluster_snapshot(self) -> dict:
+        """The cluster's topology and health (GET /cluster): the router's
+        dispatch and failover counters and each replica's probe when
+        serving through the router, a single engine's summary otherwise;
+        an engine that was never created reports an empty cluster."""
+        with self._engine_init_lock:
+            engine = self._engine
+        if engine is None:
+            return {"router": None, "replicas": []}
+        if hasattr(engine, "replicas"):  # serving.cluster.Router
+            return engine.snapshot()
+        return {"router": None, "replicas": [{
+            "id": "engine-0",
+            "role": engine.config.role,
+            "alive": engine._scheduler_error is None,
+            "queue_depth": len(engine.queue),
+            "slots_active": (engine.slots.active_slots
+                             if engine.slots is not None else 0),
+        }]}
 
     def prometheus_metrics(self) -> str:
         """The shared ``obs.REGISTRY`` in the Prometheus text format (GET
@@ -513,6 +561,10 @@ class _Handler(BaseHTTPRequestHandler):
             # load in chrome://tracing or Perfetto (obs/trace.py)
             self._respond(200, self.service.trace_snapshot())
             return
+        if route == "/cluster":
+            # the router's dispatch / failover counters and replica probes
+            self._respond(200, self.service.cluster_snapshot())
+            return
         self._respond(404, "not found")
 
 
@@ -525,6 +577,9 @@ class MegatronServer:
         self.service = GenerationService(cfg, params, tokenizer, **service_kw)
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # a graceful_shutdown from a caller's thread and the launch entry's
+        # own shutdown once the listener stops may overlap
+        self._shutdown_lock = threading.Lock()
 
     def run(self, host: str = "0.0.0.0", port: int = 5000,
             block: bool = True):
@@ -555,11 +610,12 @@ class MegatronServer:
         return drained
 
     def shutdown(self):
-        if self._httpd is not None:
-            self._httpd.shutdown()
-            self._httpd.server_close()
-            self._httpd = None
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-            self._thread = None
+        with self._shutdown_lock:
+            if self._httpd is not None:
+                self._httpd.shutdown()
+                self._httpd.server_close()
+                self._httpd = None
+            if self._thread is not None:
+                self._thread.join(timeout=10)
+                self._thread = None
         self.service.close()

@@ -218,14 +218,18 @@ def serving_specs_of(cfg: ModelConfig, parallel: ParallelConfig,
 
 
 def shard_for_serving(params: Params, cfg: ModelConfig,
-                      parallel: ParallelConfig) -> tuple:
-    """Build the mesh and cut this rank's blocks of the whole tree
-    ``params`` in the serving re-layout → ``(params, mesh)``.  Every rank
-    of the world calls it (the mesh's groups are made on all ranks)."""
+                      parallel: ParallelConfig, ranks=None) -> tuple:
+    """Build the mesh (over the world, or over the global ``ranks``) and
+    cut this rank's blocks of the whole tree ``params`` in the serving
+    re-layout → ``(params, mesh)``; ``(None, None)`` on a rank outside
+    ``ranks``.  Every rank of the world calls it (the mesh's groups are
+    made on all ranks)."""
     from ..parallel import mesh as mesh_lib
 
     assert_serving_geometry(cfg, parallel)
-    mesh = mesh_lib.build_mesh(parallel)
+    mesh = mesh_lib.build_mesh(parallel, ranks=ranks)
+    if mesh is None:
+        return None, None
     specs = serving_specs_of(cfg, parallel, params)
     return shard_params(params, specs, mesh), mesh
 

@@ -208,6 +208,13 @@ def _mailbox(group, t: torch.Tensor):
     return _MAILBOXES[group]
 
 
+def release_mailbox(group) -> None:
+    """Drop ``group``'s mailbox, if it has one (the group is going)."""
+    box = _MAILBOXES.pop(group, None)
+    if box is not None:
+        box.boxes = []
+
+
 def release_mailboxes() -> None:
     """Drop every mailbox and its mappings of the peers' buffers (before
     the world goes: a rank must not free a buffer its peers still map)."""

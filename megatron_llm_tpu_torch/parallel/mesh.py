@@ -10,6 +10,13 @@ one process group per line of the mesh along it.  ``build_mesh`` returns a
 ``Mesh`` holding this rank's coordinates and its group on each axis (None
 where the axis has size 1, so a degree-1 axis launches nothing).
 
+A mesh may also be laid over an explicit list of the world's ranks
+(``build_mesh(parallel, ranks=...)``): ``replica_submeshes`` gives each
+engine replica of the serving router its own mesh, JAX's disjoint device
+slices, with one difference.  The router's process leads every replica
+(``serving/cluster/router.py``), so global rank 0 is the first rank of
+each replica's mesh; the replicas' other ranks are disjoint.
+
 ``use_mesh`` makes a mesh current for the model code, as the JAX
 package's does; the model's layers read their tp group from
 ``current_mesh()``.  Without a current mesh everything runs on one
@@ -21,7 +28,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch.distributed as dist
@@ -52,6 +59,9 @@ class Mesh:
     rank: int = 0
     world_size: int = 1
     backend: Optional[str] = None
+    # the global rank of each mesh rank, in mesh order (None: the world's
+    # ranks 0..world_size-1)
+    ranks: Optional[tuple] = None
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -69,45 +79,103 @@ def _shape(parallel: ParallelConfig) -> tuple:
             parallel.expert_parallel, parallel.tensor_parallel, 1)
 
 
-def build_mesh(parallel: ParallelConfig) -> Mesh:
+def build_mesh(parallel: ParallelConfig,
+               ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
     """The mesh of ``parallel``'s degrees over the initialized world
-    (``initialize.initialize_distributed``).  Every rank must call it, in
-    the same order as every other group creation: each axis's groups are
-    created on all ranks, and each rank keeps its own.  A world that is
-    not initialized is a world of one process, which takes only the
-    degree-1 mesh."""
+    (``initialize.initialize_distributed``), or over the global ``ranks``
+    in mesh order.  Every rank of the world must call it, in the same order
+    as every other group creation: each axis's groups are created on all
+    ranks, and each rank keeps its own.  A rank outside ``ranks`` gets
+    None.  A world that is not initialized is a world of one process,
+    which takes only the degree-1 mesh."""
     shape = _shape(parallel)
     n = int(np.prod(shape))
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
-    if n != world:
-        raise ValueError(
-            f"mesh shape {dict(zip(AXIS_ORDER, shape))} needs {n} ranks, the "
-            f"world has {world}: launch one process per rank under torchrun "
-            "(python -m torch.distributed.run --nproc_per_node N ...)")
-    rank = dist.get_rank() if initialized else 0
-    ranks = np.arange(n).reshape(shape)
-    coords = dict(zip(AXIS_ORDER, (int(c) for c in
-                                   np.unravel_index(rank, shape))))
+    me = dist.get_rank() if initialized else 0
+    if ranks is None:
+        if n != world:
+            raise ValueError(
+                f"mesh shape {dict(zip(AXIS_ORDER, shape))} needs {n} ranks, "
+                f"the world has {world}: launch one process per rank under "
+                "torchrun (python -m torch.distributed.run --nproc_per_node "
+                "N ...)")
+        glob = list(range(n))
+    else:
+        glob = [int(r) for r in ranks]
+        if len(glob) != n or len(set(glob)) != n or \
+                not all(0 <= r < world for r in glob):
+            raise ValueError(
+                f"mesh shape {dict(zip(AXIS_ORDER, shape))} needs {n} "
+                f"distinct ranks of the world of {world}, got {glob}")
+    grid = np.asarray(glob).reshape(shape)
     groups = {}
     for a, axis in enumerate(AXIS_ORDER):
         if shape[a] == 1:
             continue
-        lines = np.moveaxis(ranks, a, -1).reshape(-1, shape[a])
+        lines = np.moveaxis(grid, a, -1).reshape(-1, shape[a])
         for line in lines:  # every rank creates every group, in order
             g = dist.new_group([int(r) for r in line])
-            if rank in line:
+            if me in line:
                 groups[axis] = g
+    if me not in glob:
+        return None
+    rank = glob.index(me)
+    coords = dict(zip(AXIS_ORDER, (int(c) for c in
+                                   np.unravel_index(rank, shape))))
     return Mesh(shape=dict(zip(AXIS_ORDER, shape)), coords=coords,
-                groups=groups, rank=rank, world_size=world,
-                backend=dist.get_backend() if initialized else None)
+                groups=groups, rank=rank, world_size=n,
+                backend=dist.get_backend() if initialized else None,
+                ranks=None if ranks is None else tuple(glob))
+
+
+def replica_ranks(parallel: ParallelConfig, replicas: int,
+                  ranks: Sequence[int]) -> list:
+    """The global ranks of each of ``replicas`` engine replicas of
+    ``parallel``'s per-replica geometry (serving: pp·tp·fsdp ranks each),
+    shared out of ``ranks``: replica ``r`` takes the first rank and the
+    ``r``-th run of ``per - 1`` ranks after it.  The router's process
+    leads every replica (``serving/cluster/router.py``), so ``1 + replicas
+    * (per - 1)`` ranks serve ``replicas`` replicas of ``per``."""
+    per = (parallel.pipeline_parallel * parallel.tensor_parallel
+           * parallel.context_parallel * parallel.expert_parallel
+           * parallel.data_parallel * getattr(parallel, "fsdp", 1))
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    ranks = [int(r) for r in ranks]
+    need = 1 + replicas * (per - 1)
+    if need > len(ranks):
+        raise ValueError(
+            f"{replicas} replicas of {per} devices each need "
+            f"{need} devices, have {len(ranks)}")
+    return [[ranks[0]] + ranks[1 + r * (per - 1):1 + (r + 1) * (per - 1)]
+            for r in range(replicas)]
+
+
+def replica_submeshes(parallel: ParallelConfig, replicas: int,
+                      ranks: Optional[Sequence[int]] = None) -> list:
+    """JAX's ``replica_submeshes`` over processes: this rank's mesh of each
+    of the ``replica_ranks`` replicas (over ``ranks``, default the
+    world's), None where this rank is not in it.  Every rank of the world
+    calls it, in the same order as every other group creation."""
+    if ranks is None:
+        initialized = dist.is_available() and dist.is_initialized()
+        ranks = range(dist.get_world_size() if initialized else 1)
+    return [build_mesh(parallel, ranks=r)
+            for r in replica_ranks(parallel, replicas, ranks)]
+
+
+def global_ranks(mesh: Mesh) -> list:
+    """The global rank of each of ``mesh``'s ranks, in mesh order."""
+    return list(mesh.ranks) if mesh.ranks is not None else \
+        list(range(mesh.world_size))
 
 
 def axis_ranks(mesh: Mesh, axis: str, index: int) -> list:
-    """The ranks whose coordinate on ``axis`` is ``index`` (a pipeline
-    stage's ranks, for instance)."""
+    """The global ranks whose coordinate on ``axis`` is ``index`` (a
+    pipeline stage's ranks, for instance)."""
     shape = tuple(mesh.size(a) for a in AXIS_ORDER)
-    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    ranks = np.asarray(global_ranks(mesh)).reshape(shape)
     return sorted(int(r) for r in
                   ranks.take(index, axis=AXIS_ORDER.index(axis)).ravel())
 
@@ -188,11 +256,14 @@ def next_stage(stage: int, pp: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-# One stack for the process, not a thread's (JAX's is thread-local): the
-# backward of a CUDA tensor runs on autograd's device thread, and a layer
-# recomputed there (``recompute`` selective or full) must see the mesh its
-# forward saw.
+# A stack for each thread that makes a mesh current, and one for the
+# process that holds every current mesh: a thread that made none reads the
+# process's (the backward of a CUDA tensor runs on autograd's device
+# thread, and a layer recomputed there, ``recompute`` selective or full,
+# must see the mesh its forward saw), while the scheduler threads of the
+# router's replicas each read their own replica's mesh.
 _MESH_STACK: list = []
+_THREAD = threading.local()
 _LOCK = threading.Lock()
 
 
@@ -200,16 +271,25 @@ _LOCK = threading.Lock()
 def use_mesh(mesh: Mesh):
     """Make ``mesh`` current for the model code inside the block (and for
     the backward it starts)."""
+    own = _THREAD.__dict__.setdefault("stack", [])
+    own.append(mesh)
     with _LOCK:
         _MESH_STACK.append(mesh)
     try:
         yield mesh
     finally:
+        own.pop()
         with _LOCK:
-            _MESH_STACK.pop()
+            for i in range(len(_MESH_STACK) - 1, -1, -1):
+                if _MESH_STACK[i] is mesh:
+                    del _MESH_STACK[i]
+                    break
 
 
 def current_mesh() -> Optional[Mesh]:
+    own = _THREAD.__dict__.get("stack")
+    if own:
+        return own[-1]
     return _MESH_STACK[-1] if _MESH_STACK else None
 
 

@@ -10,10 +10,21 @@ configuration of ``megatron_llm_tpu/serving``).
 - ``metrics.py``: counters, gauges and latency reservoirs.
 - ``adapters/``: the multi-tenant LoRA registry (arena residency, LRU
   with pinning).
+- ``cluster/``: sharded engines and replicas behind the router
+  (``Router``, ``RouterConfig``, ``RouterHandle``, ``build_cluster``,
+  ``build_sharded_engine``).
 - ``profile.py`` / ``prefix_profile.py``: where a served request's device
   time goes, and what a prefix hit costs and gives, on a card.
 """
 
+from .cluster import (  # noqa: F401
+    Router,
+    RouterConfig,
+    RouterHandle,
+    build_cluster,
+    build_disagg_cluster,
+    build_sharded_engine,
+)
 from .engine import (  # noqa: F401
     EngineConfig,
     FinishedRequest,

@@ -34,9 +34,12 @@ processes.  The design: **rank 0 drives, the other ranks replay.**
   no-op every ``HEARTBEAT_S`` seconds without traffic.  ``shutdown`` on
   rank 0 sends a stop that ends every worker's loop.  A worker whose
   operation raises writes its error into the world's store and leaves
-  the world; rank 0's pending or next collective then fails at once and
-  raises with the worker's message, and rank 0 leaves the world too, so
-  no rank waits on a dead peer.
+  the mesh; rank 0's pending or next collective then fails at once and
+  raises with the worker's message, and rank 0 leaves the mesh too, so
+  no rank waits on a dead peer.  A mesh over the whole world is left by
+  leaving the world; a replica's mesh behind the router (``build_cluster``,
+  over ranks of its own) by dropping its own groups, so that the other
+  replicas serve on and the router fails the requests over.
 
 Under a mesh with pp > 1 the decode step runs the slots in pp contiguous
 groups (``ServingEngine._decode_groups``), JAX's microbatch interleave;
@@ -63,6 +66,8 @@ import torch.distributed as dist
 from ...config import ModelConfig, ParallelConfig
 from ...models import model as model_lib
 from ...models import sharding as shard_lib
+from ...parallel import mappings
+from ...parallel import mesh as mesh_lib
 from ..device_ops import DeviceOps
 from ..engine import EngineConfig, ServingEngine, check_engine_args
 from ..metrics import ServingMetrics
@@ -77,22 +82,24 @@ _ENGINES = itertools.count()  # one channel a sharded engine, in order
 
 class _Channel:
     """The control channel of one sharded engine: a gloo group over the
-    mesh's ranks of its own (its timeout bounds only the wait between
-    operations, which the heartbeat keeps short), rank 0 the source.
-    Every rank makes it at the same point of its build, in order."""
+    mesh's global ranks of its own (its timeout bounds only the wait
+    between operations, which the heartbeat keeps short), the mesh's
+    first rank the source.  Every rank of the world makes it at the same
+    point of its build, in order, those outside the mesh included."""
 
-    def __init__(self, mesh):
+    def __init__(self, ranks):
         self.seq = next(_ENGINES)
-        self.group = dist.new_group(list(range(mesh.world_size)),
+        self.src = int(ranks[0])
+        self.group = dist.new_group([int(r) for r in ranks],
                                     backend="gloo", timeout=CHANNEL_TIMEOUT)
         self.error_key = f"sharded_serving/{self.seq}/error"
 
     def send(self, msg) -> None:
-        dist.broadcast_object_list([msg], src=0, group=self.group)
+        dist.broadcast_object_list([msg], src=self.src, group=self.group)
 
     def recv(self):
         box = [None]
-        dist.broadcast_object_list(box, src=0, group=self.group)
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
         return box[0]
 
 
@@ -100,11 +107,27 @@ def _store():
     return dist.distributed_c10d._get_default_store()
 
 
-def _leave_world() -> None:
-    """Leave the world: every peer's pending collective with this rank
-    fails at once rather than waiting out its timeout."""
-    if dist.is_initialized():
+def _leave(mesh, channel: _Channel) -> None:
+    """Leave the engine's mesh: every peer's pending collective with this
+    rank fails at once rather than waiting out its timeout.  A mesh over
+    the whole world leaves the world.  A replica's mesh destroys its own
+    groups and drops this rank's every reference to them (a gloo group
+    closes its connections only when it is freed), so the world and the
+    other replicas' groups stay."""
+    if not dist.is_initialized():
+        return
+    if mesh.ranks is None:
         dist.destroy_process_group()
+        return
+    groups = [g for g in (channel.group, *mesh.groups.values())
+              if g is not None]
+    channel.group = None
+    mesh.groups.clear()
+    while groups:
+        g = groups.pop()
+        mappings.release_mailbox(g)
+        dist.destroy_process_group(g)
+        del g
 
 
 class MeshDriver(DeviceOps):
@@ -113,7 +136,7 @@ class MeshDriver(DeviceOps):
 
     def __init__(self, cfg, params, device, mesh):
         super().__init__(cfg, params, device, mesh)
-        self._channel = _Channel(mesh)
+        self._channel = _Channel(mesh_lib.global_ranks(mesh))
         self._lock = threading.RLock()
         self._last = time.monotonic()
         self._failed: Optional[BaseException] = None
@@ -151,9 +174,10 @@ class MeshDriver(DeviceOps):
         err = RuntimeError(
             f"sharded serving: operation {name!r} failed"
             + (f" on {why[0]}" if why else f": {e}"))
+        e.__traceback__ = None  # its frames may hold the groups
         self._failed = err
         self._quiet.set()
-        _leave_world()
+        _leave(self.mesh, self._channel)
         return err
 
     def _heartbeat(self) -> None:
@@ -187,7 +211,7 @@ class MeshDriver(DeviceOps):
             if self._failed is None and not self._closed:
                 self._failed = RuntimeError("rank 0's scheduler died")
                 self._quiet.set()
-                _leave_world()
+                _leave(self.mesh, self._channel)
 
 
 def _forward(name: str):
@@ -213,7 +237,7 @@ class MeshWorker:
         self.mesh = mesh
         self.device = device
         self.ops = DeviceOps(cfg, params, device, mesh)
-        self._channel = _Channel(mesh)
+        self._channel = _Channel(mesh_lib.global_ranks(mesh))
         self.rebuild_spec: Optional[dict] = None
 
     def serve(self) -> None:
@@ -234,8 +258,11 @@ class MeshWorker:
                 except BaseException as e:
                     _store().set(
                         self._channel.error_key,
-                        f"rank {self.mesh.rank}: {type(e).__name__}: {e}")
-                    _leave_world()
+                        f"rank {dist.get_rank()}: {type(e).__name__}: {e}")
+                    # the traceback's frames may hold the groups: free
+                    # them before leaving
+                    e.__traceback__ = None
+                    _leave(self.mesh, self._channel)
                     raise
 
 
@@ -245,13 +272,16 @@ def build_sharded_engine(cfg: ModelConfig, params,
                          devices: Optional[Sequence] = None,
                          metrics: Optional[ServingMetrics] = None,
                          draft_cfg: Optional[ModelConfig] = None,
-                         draft_params=None, adapters=None, *, device=None):
+                         draft_params=None, adapters=None, *, device=None,
+                         ranks: Optional[Sequence[int]] = None):
     """One engine over a tp x pp (x fsdp) mesh: every rank of the world
     calls it with the same whole ``params`` (on any device) and keeps its
-    blocks in the serving re-layout.  Rank 0 gets the ``ServingEngine``;
-    every other rank a ``MeshWorker`` whose ``serve()`` runs until rank
-    0's engine shuts down.  This rank's device is ``devices[rank]``, else
-    ``device`` (default ``cuda``).
+    blocks in the serving re-layout.  The mesh's first rank gets the
+    ``ServingEngine``; every other rank of the mesh a ``MeshWorker`` whose
+    ``serve()`` runs until the engine shuts down.  The mesh is the world,
+    or the global ``ranks`` in mesh order (a replica of ``build_cluster``),
+    and a rank outside them gets None.  This rank's device is
+    ``devices[mesh rank]``, else ``device`` (default ``cuda``).
 
     At pp·tp·fsdp == 1 it returns the plain engine (on ``devices[0]``
     where given).  ``rebuild_spec`` records the call, as JAX's does."""
@@ -273,7 +303,11 @@ def build_sharded_engine(cfg: ModelConfig, params,
     if draft_cfg is not None:
         shard_lib.assert_serving_geometry(draft_cfg, parallel,
                                           what="draft model")
-    local, mesh = shard_lib.shard_for_serving(params, cfg, parallel.validate())
+    local, mesh = shard_lib.shard_for_serving(params, cfg, parallel.validate(),
+                                              ranks=ranks)
+    if mesh is None:
+        _Channel(ranks)  # made on every rank of the world, in order
+        return None
     check_engine_args(cfg, engine_config or EngineConfig(), mesh=mesh,
                       draft_cfg=draft_cfg, adapters=adapters)
     dev = model_lib.default_device(
@@ -291,11 +325,84 @@ def build_sharded_engine(cfg: ModelConfig, params,
     return eng
 
 
-def build_cluster(*args, **kwargs):
-    """Engine replicas behind a router: ROADMAP.md Queue 1 item 11 (b)."""
-    raise NotImplementedError(
-        "build_cluster (replicas behind the router) is not ported yet "
-        "(ROADMAP.md, Queue 1 item 11 (b): the router and replicas)")
+def build_cluster(cfg: ModelConfig, params,
+                  engine_config: Optional[EngineConfig] = None,
+                  *, replicas: int = 1,
+                  parallel: Optional[ParallelConfig] = None,
+                  router_config=None,
+                  devices: Optional[Sequence] = None,
+                  draft_cfg: Optional[ModelConfig] = None,
+                  draft_params=None, adapters=None, device=None):
+    """``replicas`` engines of ``parallel``'s pp·tp·fsdp ranks each behind
+    one :class:`~.router.Router` (rank 0's); JAX's ``build_cluster``.
+
+    At degree 1 the replicas are engines of this process, replica ``i`` on
+    ``devices[i]`` where given, else on ``device`` (default ``cuda``; on
+    one card every replica shares it).  Above degree 1 every rank of the
+    world calls it with the same whole ``params``: the replicas' meshes
+    are ``parallel/mesh.replica_submeshes``'s (rank 0 leads each, the
+    router's module docstring says why), replica ``r``'s mesh rank ``j``
+    on ``devices[r * n + j]`` where given.  Rank 0 gets the Router; a
+    worker rank gets its replica's ``MeshWorker`` (to ``serve()``), and a
+    rank in no replica None.
+
+    Replica metrics are built with ``register=False`` so that they do not
+    fight over the process's ``"serving"`` collector; the router registers
+    one ``"cluster"`` collector over them.  ``adapters`` (the cluster's
+    LoRA registries) are item 11 (c)."""
+    from .router import Router, RouterConfig
+
+    if adapters is not None:
+        raise NotImplementedError(
+            "build_cluster(adapters=) is not ported yet (ROADMAP.md, Queue "
+            "1 item 11 (c): the cluster's adapters)")
+    parallel = parallel or ParallelConfig()
+    engine_config = engine_config or EngineConfig()
+    n_sub = (parallel.pipeline_parallel * parallel.tensor_parallel
+             * parallel.fsdp)
+    spec = dict(cfg=cfg, params=params, engine_config=engine_config,
+                parallel=parallel, devices=None, draft_cfg=draft_cfg,
+                draft_params=draft_params, adapters=adapters)
+
+    def metrics():
+        return ServingMetrics(engine_config.max_batch_size, register=False)
+
+    if n_sub == 1:
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas}")
+        if devices is not None and replicas > len(devices):
+            raise ValueError(
+                f"{replicas} replicas of 1 devices each need {replicas} "
+                f"devices, have {len(devices)}")
+        engines = []
+        for i in range(replicas):
+            eng = ServingEngine(
+                cfg, params, engine_config, metrics=metrics(),
+                draft_cfg=draft_cfg, draft_params=draft_params,
+                device=devices[i] if devices else device)
+            eng.rebuild_spec = dict(spec, devices=None if devices is None
+                                    else [devices[i]])
+            engines.append(eng)
+        return Router(engines, router_config or RouterConfig())
+    if not dist.is_initialized():
+        raise ValueError(
+            f"{replicas} replicas of {n_sub} ranks run one process a rank, "
+            f"{1 + replicas * (n_sub - 1)} in all: launch them under "
+            "torchrun (python -m torch.distributed.run --nproc_per_node N "
+            "...)")
+    lists = mesh_lib.replica_ranks(parallel, replicas,
+                                   range(dist.get_world_size()))
+    built = []
+    for r, ranks in enumerate(lists):
+        built.append(build_sharded_engine(
+            cfg, params, engine_config, parallel,
+            devices=(None if devices is None
+                     else list(devices[r * n_sub:(r + 1) * n_sub])),
+            metrics=metrics(), draft_cfg=draft_cfg,
+            draft_params=draft_params, device=device, ranks=ranks))
+    if dist.get_rank() != lists[0][0]:
+        return next((b for b in built if b is not None), None)
+    return Router(built, router_config or RouterConfig())
 
 
 def build_disagg_cluster(*args, **kwargs):

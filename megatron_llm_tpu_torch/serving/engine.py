@@ -154,6 +154,7 @@ from ..obs.logging import EVENT_LOG
 from ..obs.trace import TraceRecorder, device_annotation
 from ..ops.lora import slot_mask
 from ..ops.quant import precision_route
+from ..resilience.chaos import chaos
 from .block_pool import BlockPool, HostKVTier
 from .device_ops import DeviceOps, _sample_slots, _verify_step
 from .metrics import ServingMetrics
@@ -590,6 +591,15 @@ class ServingEngine:
         # iterations (``call_in_scheduler``)
         self._control: list = []
         self._control_lock = sanitizers.make_lock("engine.control")
+        # set by start() and never cleared: a started engine whose thread
+        # is gone is dead to the router's probe (``cluster.router``)
+        self._started = threading.Event()
+        # per-iteration scheduler heartbeat (perf_counter): the router's
+        # probe reports its age; a thread wedged in a step stops it
+        self.heartbeat: float = time.perf_counter()
+        # the build's recipe (``cluster.sharded.build_sharded_engine`` /
+        # ``build_cluster`` record it; the supervisor's rebuild reads it)
+        self.rebuild_spec: Optional[dict] = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -654,6 +664,7 @@ class ServingEngine:
                     self._sanitizer = sanitizers.LedgerSanitizer()
                 self._thread = threading.Thread(
                     target=self._loop, name="serving-engine", daemon=True)
+                self._started.set()
                 self._thread.start()
         return self
 
@@ -877,6 +888,8 @@ class ServingEngine:
         try:
             with torch.no_grad():
                 while not self._stop.is_set():
+                    self.heartbeat = time.perf_counter()
+                    chaos().point("serve-step")
                     self._run_control_ops()
                     self._drain_cancellations()
                     self._expire_deadlines()
@@ -939,8 +952,21 @@ class ServingEngine:
                 if req is None:
                     break
                 self._finish(req, "error")
+            with self._control_lock:  # pending control ops: fail callers
+                ops, self._control = self._control, []
+            for _, box in ops:
+                box["error"] = RuntimeError(
+                    f"serving engine scheduler died: {e!r}")
+                box["done"].set()
             self._stop.set()
             self._notify_drain()
+        except BaseException as e:  # noqa: BLE001 — a hard crash
+            # (chaos SimulatedCrash &c.) tears through cleanup the way
+            # SIGKILL would: record it for the probes, then die WITHOUT
+            # failing requests; they stay unfinished as after a real kill,
+            # and the router's probe thread fails them over
+            self._scheduler_error = e
+            self._stop.set()
 
     def _drain_cancellations(self) -> None:
         for slot in [s for s, st in self._active.items()

@@ -22,9 +22,13 @@ preemption; requests carry ``"priority"``, default
 to stderr, and ``GET /metrics?format=prometheus`` serves the Prometheus
 scrape.  What the port does not run is refused by the engine's own
 checks (``serving/engine.py:_refuse_unported``) when the server starts:
-``--role`` other than ``mixed``.  ``--replicas``, ``--router``,
-``--disagg`` and ``--supervise`` raise here, each naming its slice of
-ROADMAP Queue 1 item 11.
+``--role`` other than ``mixed``.  ``--disagg`` and ``--supervise`` raise
+here, naming their slices of ROADMAP Queue 1 item 11.
+
+``--replicas N`` serves N engine replicas behind the health-aware
+cluster router (``serving/cluster/router.py``; ``--router`` routes even
+one): GET /cluster lists them, and ``--metrics_interval_s`` prints the
+router's counters as ``{"cluster_metrics": ...}``.
 
 ``--tp N --pp M`` serves one model sharded over N x M ranks
 (``serving/cluster/sharded.build_sharded_engine``) under a launcher::
@@ -34,9 +38,12 @@ ROADMAP Queue 1 item 11.
 
 Every rank loads the checkpoint and keeps its shards; rank 0 serves PUT
 /api over the sharded engine, the other ranks replay its device work,
-and all of them return when rank 0's server shuts down.  In a world that
-is already joined (``initialize.initialize_distributed``), ``main`` runs
-on every rank alike.
+and all of them return when rank 0's server shuts down.  With
+``--replicas R`` as well the world is ``1 + R * (N * M - 1)`` ranks:
+rank 0 leads every replica behind the router, each replica's other
+ranks replay it (``serving/cluster/sharded.build_cluster``).  In a world
+that is already joined (``initialize.initialize_distributed``), ``main``
+runs on every rank alike.
 """
 
 from __future__ import annotations
@@ -60,6 +67,12 @@ def _start_metrics_logger(service, interval_s: float):
         while True:
             time.sleep(interval_s)
             snap = service.metrics_snapshot()
+            if "router" in snap:
+                # cluster mode: the router-shaped snapshot (GET /cluster
+                # has the full per-replica view)
+                print(json.dumps({"cluster_metrics": snap["router"]}),
+                      flush=True)
+                continue
             print(json.dumps({"serving_metrics": {
                 "completed": snap["completed"],
                 "running": snap["running"],
@@ -203,10 +216,17 @@ def get_args(argv=None):
                     help="pipeline stages of the sharded engine (one "
                          "rank each, under torchrun)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas behind the router (not "
-                         "ported: refused above 1)")
+                    help="engine replicas on disjoint pp·tp device slices "
+                         "behind the health-aware cluster router "
+                         "(serving/cluster/; docs/serving.md 'Multi-chip "
+                         "serving'): least-loaded dispatch, sticky streams, "
+                         "drain-based failover.  Needs replicas x tp x pp "
+                         "<= visible devices")
     ap.add_argument("--router", action="store_true",
-                    help="the cluster router (not ported: refused)")
+                    help="route through the cluster router even with a "
+                         "single replica (uniform ops surface: GET "
+                         "/cluster, per-replica drain); implied by "
+                         "--replicas > 1")
     ap.add_argument("--disagg", default=None, metavar="N:M",
                     help="disaggregated prefill/decode (not ported: "
                          "refused)")
@@ -228,14 +248,8 @@ def build_server(args, ap):
     from ..generation.server import MegatronServer
     from ..models import families
     from ..models import model as model_lib
-    from ..serving import ServingEngine
     from ..tokenizer.tokenizer import build_tokenizer
 
-    if args.replicas > 1 or args.router:
-        raise NotImplementedError(
-            "--replicas / --router (replicas of the sharded engine behind "
-            "the router) are not ported yet (ROADMAP.md, Queue 1 item 11 "
-            "(b))")
     if args.disagg is not None:
         raise NotImplementedError(
             "--disagg (shipments between sharded pools) is not ported yet "
@@ -324,25 +338,43 @@ def build_server(args, ap):
         draft_cfg=draft_cfg,
         draft_params=draft_params,
         trace=not args.no_trace,
+        replicas=args.replicas,
+        router=args.router,
         role=args.role,
         device=args.device)
+    cluster = args.replicas > 1 or args.router
     if sharded:
         from ..config import ParallelConfig
-        from ..serving.cluster import build_sharded_engine
+        from ..serving.cluster import build_cluster, build_sharded_engine
 
-        built = build_sharded_engine(
-            cfg, params, server.service.engine_config(),
-            ParallelConfig(tensor_parallel=args.tp,
-                           pipeline_parallel=args.pp),
-            device=args.device)
-        # each rank keeps its shards alone: the rebuild recipe's whole
+        par = ParallelConfig(tensor_parallel=args.tp,
+                             pipeline_parallel=args.pp)
+        if cluster:
+            built = build_cluster(
+                cfg, params, server.service.engine_config(),
+                replicas=args.replicas, parallel=par, device=args.device)
+        else:
+            built = build_sharded_engine(
+                cfg, params, server.service.engine_config(), par,
+                device=args.device)
+        # each rank keeps its shards alone: the rebuild recipes' whole
         # tree goes (its user, the supervisor, is item 11 (d))
-        built.rebuild_spec = params = None
-        if not isinstance(built, ServingEngine):
-            return built  # a worker rank: main runs its loop
+        params = None
+        if built is None or hasattr(built, "serve"):
+            if built is not None:
+                built.rebuild_spec = None
+            return built  # a worker rank (or none): main runs its loop
+        for eng in ([r.engine for r in built.replicas] if cluster
+                    else [built]):
+            eng.rebuild_spec = None
         server.service.use_sharded_engine(built)
         print(f"serving layout: tp={args.tp} heads, pp={args.pp} layer "
-              "stages (rank 0 of the sharded engine)")
+              "stages (rank 0 of the sharded engine"
+              + (f", {args.replicas} replicas behind the router)"
+                 if cluster else ")"))
+    elif cluster:
+        print(f"cluster: {args.replicas} replica(s) x tp=1 pp=1 behind the "
+              "router (GET /cluster)")
     try:
         server.service.engine  # created now: refusals raise at launch
     except BaseException:
@@ -359,6 +391,8 @@ def main(argv=None,
     ``server.graceful_shutdown()``)."""
     ap, args = get_args(argv)
     server = build_server(args, ap)
+    if server is None:
+        return 0  # a rank that no replica takes
     if hasattr(server, "serve"):
         server.serve()  # a worker rank of a sharded engine
         return 0

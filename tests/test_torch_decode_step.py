@@ -36,6 +36,20 @@ from megatron_llm_tpu_torch.ops.rope import apply_rope as tapply_rope
 
 torch.set_num_threads(1)
 
+# JAX's model functions as one program a config and shape (called eagerly,
+# each op of the model compiles on its own)
+_jforward_cached = jax.jit(jmodel.forward_cached, static_argnums=0,
+                           static_argnames="empty_cache")
+# JAX's whole-stack kernels as one program a config (around the Pallas
+# kernel in interpret mode, each op would compile on its own)
+_jfused_decode_step = jax.jit(jds.fused_decode_step, static_argnums=0,
+                               static_argnames="interpret")
+_jfused_decode_step_paged = jax.jit(
+    jds.fused_decode_step_paged, static_argnums=0, static_argnames="interpret")
+_jfused_decode_verify_paged = jax.jit(
+    jds.fused_decode_verify_paged, static_argnums=0,
+    static_argnames="interpret")
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 MAX_LEN = 256
 
@@ -134,7 +148,7 @@ def test_fused_decode_step_plain_matches_pallas(name):
     x = rng.normal(size=(b, jc.hidden_size)).astype(np.float32)
     jfill = jnp.asarray(fills, jnp.int32)
     tfill = torch.tensor(fills) if isinstance(fills, list) else fills
-    want = jds.fused_decode_step(jc, jp["layers"], jnp.asarray(x), jk, jv,
+    want = _jfused_decode_step(jc, jp["layers"], jnp.asarray(x), jk, jv,
                                  jfill, jrope_tables(jc), interpret=True)
     got = tds.fused_decode_step(tc, tp["layers"], torch.from_numpy(x), tk,
                                 tv, tfill, _trope(tc))
@@ -195,7 +209,7 @@ def test_fused_decode_step_paged_plain_matches_pallas(form):
     s = _paged_setup(form)
     b = len(s["fills"])
     x = s["rng"].normal(size=(b, 256)).astype(np.float32)
-    want = jds.fused_decode_step_paged(
+    want = _jfused_decode_step_paged(
         s["jc"], s["jp"]["layers"], jnp.asarray(x), s["jkp"], s["jvp"],
         jnp.asarray(s["tables"]), jnp.asarray(s["fills"]),
         jrope_tables(s["jc"]), interpret=True)
@@ -211,7 +225,7 @@ def test_fused_decode_verify_paged_plain_matches_pallas(form):
     s = _paged_setup(form)
     b, W = len(s["fills"]), 3
     x = s["rng"].normal(size=(b, W, 256)).astype(np.float32)
-    want = jds.fused_decode_verify_paged(
+    want = _jfused_decode_verify_paged(
         s["jc"], s["jp"]["layers"], jnp.asarray(x), s["jkp"], s["jvp"],
         jnp.asarray(s["tables"]), jnp.asarray(s["fills"]),
         jrope_tables(s["jc"]), interpret=True)
@@ -315,7 +329,7 @@ def test_forward_cached_fused_matches_jax(fills, form):
     tok = rng.integers(0, 128, (b, 1)).astype(np.int32)
     jfill = jnp.asarray(fills, jnp.int32)
     tfill = torch.tensor(fills) if isinstance(fills, list) else fills
-    want, wk, wv = jmodel.forward_cached(jc, jp, jnp.asarray(tok), jk, jv,
+    want, wk, wv = _jforward_cached(jc, jp, jnp.asarray(tok), jk, jv,
                                          jfill)
     got, gk, gv = tmodel.forward_cached(tc, tp, torch.from_numpy(tok)
                                         .long(), tk, tv, tfill)

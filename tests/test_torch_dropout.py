@@ -121,7 +121,8 @@ def test_forward_and_grads_match_jax_with_its_masks(case, jax_masks):
                         deterministic=False)
         return jnp.sum(lg * proj), lg
 
-    (_, want), jgrads = jax.value_and_grad(jloss, has_aux=True)(jp)
+    (_, want), jgrads = jax.jit(
+        jax.value_and_grad(jloss, has_aux=True))(jp)
     leaves = [t.requires_grad_(True) for t in tree_leaves(tp)]
     live = tree_unflatten(tp, leaves)
     got = tm.forward(tc, live, torch.from_numpy(toks).long(),
@@ -165,7 +166,8 @@ def test_forward_and_grads_match_jax_in_float64(case, monkeypatch):
                             deterministic=False)
             return jnp.sum(lg * proj), lg
 
-        (_, want), jgrads = jax.value_and_grad(jloss, has_aux=True)(jp)
+        (_, want), jgrads = jax.jit(
+            jax.value_and_grad(jloss, has_aux=True))(jp)
         leaves = [t.requires_grad_(True) for t in tree_leaves(tp)]
         got = tm.forward(tc, tree_unflatten(tp, leaves),
                          torch.from_numpy(toks).long(), rng=tdrop.key(7))

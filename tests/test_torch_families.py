@@ -60,6 +60,11 @@ IMPLS = [("dot", "xla"), ("flash", "pallas")]
 CASES = [(f, a, n) for f in FAMILIES for a, n in IMPLS]
 # fp32 end to end on both sides; sums in another order
 TOL = dict(rtol=1e-4, atol=1e-4)
+# JAX's forwards as one program a config (called eagerly, each op of the
+# model compiles on its own)
+_jforward = jax.jit(jm.forward, static_argnums=0)
+_jforward_cached = jax.jit(jm.forward_cached, static_argnums=0,
+                           static_argnames="empty_cache")
 
 
 def _pair(family, attn="dot", norm="xla", **kw):
@@ -137,7 +142,7 @@ def test_params_from_jax_carries_the_family_tree(family):
 def test_family_logits_match_jax(family, attn, norm):
     jc, jp, tc, tp = _pair(family, attn, norm)
     toks = _tokens(2, 11, jc.vocab_size)
-    want = jm.forward(jc, jp, jnp.asarray(toks))
+    want = _jforward(jc, jp, jnp.asarray(toks))
     got = tm.forward(tc, tp, torch.from_numpy(toks).long())
     assert got.shape == want.shape == (2, 11, jc.padded_vocab_size())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -152,7 +157,7 @@ def test_family_prefill_then_decode_match_jax(family, attn, norm):
     tk, tv = tm.init_kv_cache(tc, b, max_len, device="cpu")
     assert tuple(tk.shape) == (tc.num_layers, b, tc.kv_heads, max_len,
                                tc.head_dim)
-    want, jk, jv = jm.forward_cached(jc, jp, jnp.asarray(toks[:, :plen]), jk,
+    want, jk, jv = _jforward_cached(jc, jp, jnp.asarray(toks[:, :plen]), jk,
                                      jv, jnp.int32(0), empty_cache=True)
     got, tk, tv = tm.forward_cached(tc, tp, torch.from_numpy(toks[:, :plen]),
                                     tk, tv, 0, empty_cache=True)
@@ -160,7 +165,7 @@ def test_family_prefill_then_decode_match_jax(family, attn, norm):
     for i in range(3):
         fills = np.full((b,), plen + i, np.int32)
         step = toks[:, plen + i:plen + i + 1]
-        want, jk, jv = jm.forward_cached(jc, jp, jnp.asarray(step), jk, jv,
+        want, jk, jv = _jforward_cached(jc, jp, jnp.asarray(step), jk, jv,
                                          jnp.asarray(fills))
         got, tk, tv = tm.forward_cached(tc, tp, torch.from_numpy(step), tk,
                                         tv, torch.from_numpy(fills))

@@ -366,7 +366,9 @@ NOW_SERVED = ("prefill_chunk", "host_kv_blocks")
     (["--prefill_chunk", "16"], "prefill_chunk"),
     (["--host_kv_blocks", "4"], "host_kv_blocks"),
     (["--role", "decode"], "role"),
-    (["--tp", "2", "--replicas", "2"], "sharded"),
+    # sharded replicas serve since; their supervisor is still refused
+    pytest.param(["--tp", "2", "--replicas", "2", "--supervise"],
+                 r"item 11 \(d\)", id="flags3-sharded"),
     (["--disagg", "1:1"], "item 11"),
 ])
 def test_server_entry_refuses_what_is_not_ported(corpus, release, flags,

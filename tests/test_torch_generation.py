@@ -43,6 +43,11 @@ from megatron_llm_tpu_torch.serving import EngineConfig, ServingEngine
 
 torch.set_num_threads(1)
 
+# JAX's model functions as one program a config and shape (called eagerly,
+# each op of the model compiles on its own)
+_jforward = jax.jit(jm.forward, static_argnums=0,
+                    static_argnames="return_aux")
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 _FUSED = dict(hidden_size=256, num_layers=2, num_attention_heads=2,
               num_kv_heads=2, ffn_hidden_size=512, vocab_size=120,
@@ -98,7 +103,7 @@ def test_cached_decode_matches_full_forward(model):
     logits, the port's and JAX's."""
     jc, jp, tc, tp = model
     toks, _ = _prompts(tc, (12, 12), 12, 0)
-    full = np.asarray(jm.forward(jc, jp, jnp.asarray(toks)))
+    full = np.asarray(_jforward(jc, jp, jnp.asarray(toks)))
     t = torch.tensor(toks, dtype=torch.long)
     k, v = tm.init_kv_cache(tc, 2, 12, device="cpu")
     with torch.no_grad():

@@ -37,6 +37,23 @@ from megatron_llm_tpu_torch.ops.kv_quant import quantize_rows
 
 torch.set_num_threads(1)
 
+# JAX's model functions as one program a config and shape (called eagerly,
+# each op of the model compiles on its own)
+_jforward_cached = jax.jit(jmodel.forward_cached, static_argnums=0,
+                           static_argnames="empty_cache")
+_jforward_cached_paged = jax.jit(jmodel.forward_cached_paged, static_argnums=0)
+_jforward_cached_paged_verify = jax.jit(
+    jmodel.forward_cached_paged_verify, static_argnums=0)
+# JAX's whole-stack kernels as one program a config (around the Pallas
+# kernel in interpret mode, each op would compile on its own)
+_jfused_decode_step = jax.jit(jds.fused_decode_step, static_argnums=0,
+                               static_argnames="interpret")
+_jfused_decode_step_paged = jax.jit(
+    jds.fused_decode_step_paged, static_argnums=0, static_argnames="interpret")
+_jfused_decode_verify_paged = jax.jit(
+    jds.fused_decode_verify_paged, static_argnums=0,
+    static_argnames="interpret")
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 MAX_LEN = 256
 BLOCK = 128
@@ -181,7 +198,7 @@ def test_fused_decode_step_lora_plain_matches_pallas(name):
     x = rng.normal(size=(3, jc.hidden_size)).astype(np.float32)
     jar, tar = _arenas(jc, tc)
     jm, tm_ = _masks(SLOTS)
-    want = jds.fused_decode_step(jc, jp["layers"], jnp.asarray(x), jk, jv,
+    want = _jfused_decode_step(jc, jp["layers"], jnp.asarray(x), jk, jv,
                                  jnp.asarray(fills, jnp.int32),
                                  jrope_tables(jc), lora=(jar, jm),
                                  interpret=True)
@@ -196,7 +213,7 @@ def test_fused_decode_step_paged_lora_plain_matches_pallas(form, policy):
     s = _paged(form, policy)
     x = s["rng"].normal(size=(3, 256)).astype(np.float32)
     jm, tm_ = _masks(SLOTS)
-    want = jds.fused_decode_step_paged(
+    want = _jfused_decode_step_paged(
         s["jc"], s["jp"]["layers"], jnp.asarray(x), s["jkp"], s["jvp"],
         jnp.asarray(s["tables"]), jnp.asarray(s["fills"]),
         jrope_tables(s["jc"]), lora=(s["jar"], jm), interpret=True)
@@ -214,7 +231,7 @@ def test_fused_decode_verify_lora_plain_matches_pallas(form, policy):
     s = _paged(form, policy)
     x = s["rng"].normal(size=(3, 3, 256)).astype(np.float32)
     jm, tm_ = _masks(SLOTS)
-    want = jds.fused_decode_verify_paged(
+    want = _jfused_decode_verify_paged(
         s["jc"], s["jp"]["layers"], jnp.asarray(x), s["jkp"], s["jvp"],
         jnp.asarray(s["tables"]), jnp.asarray(s["fills"]),
         jrope_tables(s["jc"]), lora=(s["jar"], jm), interpret=True)
@@ -248,7 +265,7 @@ def test_fused_decode_verify_tree_lora_plain_matches_pallas(form):
     x = s["rng"].normal(size=(3, 4, 256)).astype(np.float32)
     depths, anc = _tree(TREES)
     jm, tm_ = _masks([3, -1, 0])
-    want = jds.fused_decode_verify_paged(
+    want = _jfused_decode_verify_paged(
         s["jc"], s["jp"]["layers"], jnp.asarray(x), s["jkp"], s["jvp"],
         jnp.asarray(s["tables"]), jnp.asarray(s["fills"]),
         jrope_tables(s["jc"]), depths=jnp.asarray(depths),
@@ -397,7 +414,7 @@ def test_forward_cached_lora_matches_jax(fused, form):
     jm, tm_ = _masks(SLOTS)
     fills = [50, 0, 127]
     tok = rng.integers(0, 128, (3, 1)).astype(np.int32)
-    want, _, _ = jmodel.forward_cached(jc, jp, jnp.asarray(tok), jk, jv,
+    want, _, _ = _jforward_cached(jc, jp, jnp.asarray(tok), jk, jv,
                                        jnp.asarray(fills, jnp.int32),
                                        lora=(jar, jm))
     got, _, _ = tmodel.forward_cached(tc, tp, torch.from_numpy(tok).long(),
@@ -408,7 +425,7 @@ def test_forward_cached_lora_matches_jax(fused, form):
     toks = rng.integers(0, 128, (3, 5)).astype(np.int32)
     jk, jv = jmodel.init_kv_cache(jc, 3, 16)
     tk, tv = tmodel.init_kv_cache(tc, 3, 16, device="cpu")
-    want, _, _ = jmodel.forward_cached(jc, jp, jnp.asarray(toks), jk, jv, 0,
+    want, _, _ = _jforward_cached(jc, jp, jnp.asarray(toks), jk, jv, 0,
                                        empty_cache=True, lora=(jar, jm))
     got, _, _ = tmodel.forward_cached(tc, tp, torch.from_numpy(toks).long(),
                                       tk, tv, 0, empty_cache=True,
@@ -428,7 +445,7 @@ def test_forward_cached_paged_lora_matches_jax(fused):
     tables = s["tables"]
     fills = s["fills"]
     tok = s["rng"].integers(0, 128, (3, 1)).astype(np.int32)
-    want, _, _ = jmodel.forward_cached_paged(
+    want, _, _ = _jforward_cached_paged(
         jc, s["jp"], jnp.asarray(tok), s["jkp"], s["jvp"],
         jnp.asarray(tables), jnp.asarray(fills), lora=(s["jar"], jm))
     got, _, _ = tmodel.forward_cached_paged(
@@ -444,7 +461,7 @@ def test_forward_cached_paged_lora_matches_jax(fused):
     offs = (pos % BLOCK).reshape(-1)
     depths, anc = _tree(TREES)
     for tree in (None, (depths, anc)):
-        want, _, _ = jmodel.forward_cached_paged_verify(
+        want, _, _ = _jforward_cached_paged_verify(
             jc, s["jp"], jnp.asarray(win), s["jkp"], s["jvp"],
             jnp.asarray(tables), jnp.asarray(fills), jnp.asarray(bids),
             jnp.asarray(offs), lora=(s["jar"], jm),

@@ -30,6 +30,14 @@ IMPLS = [("dot", "xla"), ("dot", "pallas"), ("flash", "xla"),
          ("flash", "pallas")]
 
 
+# JAX's model functions as one program a config and shape (called eagerly,
+# each op compiles on its own)
+_jforward = jax.jit(jm.forward, static_argnums=0)
+_jforward_cached = jax.jit(jm.forward_cached, static_argnums=0,
+                           static_argnames="empty_cache")
+_jforward_cached_paged = jax.jit(jm.forward_cached_paged, static_argnums=0)
+
+
 def _pair(attn="dot", norm="xla", **kw):
     jc = jtiny(attention_impl=attn, norm_impl=norm, fused_decode=False, **kw)
     tc = ttiny(attention_impl=attn, norm_impl=norm, fused_decode=False, **kw)
@@ -47,7 +55,7 @@ def _tokens(b, s, vocab, seed=0):
 def test_forward_logits(attn, norm):
     jc, jp, tc, tp = _pair(attn, norm)
     toks = _tokens(2, 11, jc.vocab_size)
-    want = jm.forward(jc, jp, jnp.asarray(toks))
+    want = _jforward(jc, jp, jnp.asarray(toks))
     got = tm.forward(tc, tp, torch.from_numpy(toks).long())
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -62,7 +70,7 @@ def test_prefill_then_decode(attn, norm):
     toks = _tokens(b, plen + steps, jc.vocab_size, seed=1)
     jk, jv = jm.init_kv_cache(jc, b, max_len)
     tk, tv = tm.init_kv_cache(tc, b, max_len, device="cpu")
-    want, jk, jv = jm.forward_cached(jc, jp, jnp.asarray(toks[:, :plen]), jk,
+    want, jk, jv = _jforward_cached(jc, jp, jnp.asarray(toks[:, :plen]), jk,
                                      jv, jnp.int32(0), empty_cache=True)
     got, tk, tv = tm.forward_cached(tc, tp, torch.from_numpy(toks[:, :plen]),
                                     tk, tv, 0, empty_cache=True)
@@ -71,7 +79,7 @@ def test_prefill_then_decode(attn, norm):
     for i in range(steps):
         fills = np.full((b,), plen + i, np.int32)
         step = toks[:, plen + i:plen + i + 1]
-        want, jk, jv = jm.forward_cached(jc, jp, jnp.asarray(step), jk, jv,
+        want, jk, jv = _jforward_cached(jc, jp, jnp.asarray(step), jk, jv,
                                          jnp.asarray(fills))
         got, tk, tv = tm.forward_cached(tc, tp, torch.from_numpy(step), tk,
                                         tv, torch.from_numpy(fills))
@@ -85,7 +93,7 @@ def test_logit_rows_and_last_logit_only():
     rows = np.array([3, 7], np.int32)
     jk, jv = jm.init_kv_cache(jc, 2, 16)
     tk, tv = tm.init_kv_cache(tc, 2, 16, device="cpu")
-    want, _, _ = jm.forward_cached(jc, jp, jnp.asarray(toks), jk, jv,
+    want, _, _ = _jforward_cached(jc, jp, jnp.asarray(toks), jk, jv,
                                    jnp.int32(0), empty_cache=True,
                                    logit_rows=jnp.asarray(rows))
     got, _, _ = tm.forward_cached(tc, tp, torch.from_numpy(toks), tk, tv, 0,
@@ -122,7 +130,7 @@ def test_paged_decode_matches_dense_and_jax(attn, norm):
         scatter = np.zeros((T,), np.int32)
         scatter[:used] = bids
         jk, jv = jm.init_kv_cache(jc, 1, width)
-        _, jk, jv = jm.forward_cached(jc, jp, jnp.asarray(toks[s:s + 1, :plen]),
+        _, jk, jv = _jforward_cached(jc, jp, jnp.asarray(toks[s:s + 1, :plen]),
                                       jk, jv, jnp.int32(0), empty_cache=True)
         jkp = jm.cache_scatter_blocks(jkp, jk, jnp.asarray(scatter))
         jvp = jm.cache_scatter_blocks(jvp, jv, jnp.asarray(scatter))
@@ -141,7 +149,7 @@ def test_paged_decode_matches_dense_and_jax(attn, norm):
     fills = np.array(plens, np.int32)
     for i in range(3):
         step = np.stack([toks[s, plens[s] + i] for s in range(b)])[:, None]
-        want, jkp, jvp = jm.forward_cached_paged(
+        want, jkp, jvp = _jforward_cached_paged(
             jc, jp, jnp.asarray(step), jkp, jvp, jnp.asarray(tables),
             jnp.asarray(fills))
         got, tkp, tvp = tm.forward_cached_paged(

@@ -42,6 +42,11 @@ import torch_world
 
 torch.set_num_threads(1)
 
+# JAX's model functions as one program a config and shape (called eagerly,
+# each op of the model compiles on its own)
+_jforward = jax.jit(jm.forward, static_argnums=0,
+                    static_argnames="return_aux")
+
 OUT_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
 STEP_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -148,8 +153,8 @@ def test_moe_tp2_ep2_loss_and_grads_match_jax(worlds):
     rt = JRun(model=_jcfg(), optimizer=JOpt(),
               train=JTrain(seq_length=32)).validate()
     jb = {k: jnp.asarray(v) for k, v in _grad_batch().items()}
-    loss, grads = jax.value_and_grad(
-        lambda p: jstep.compute_loss(rt, p, jb))(
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: jstep.compute_loss(rt, p, jb)))(
             jax.tree.map(jnp.asarray, _jparams()))
     out = worlds["tp2_ep2_grads"]
     np.testing.assert_allclose(float(out["loss"]), float(loss), **OUT_TOL)
@@ -211,10 +216,11 @@ def test_moe_model_forward_and_grad_match_jax():
     tokens = _tokens(3)
 
     def jloss(p):
-        lg, a = jm.forward(jc, p, jnp.asarray(tokens), return_aux=True)
+        lg, a = _jforward(jc, p, jnp.asarray(tokens), return_aux=True)
         return jnp.mean(lg ** 2) + 0.01 * jmoe.aux_loss_of(a), (lg, a)
 
-    (_, (jlg, jaux)), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    (_, (jlg, jaux)), jg = jax.jit(
+        jax.value_and_grad(jloss, has_aux=True))(jp)
     live = tree_map(lambda t: t.requires_grad_(True),
                     params_from_jax(jax.tree.map(np.asarray, jp),
                                     device="cpu"))
@@ -236,7 +242,7 @@ def test_moe_ep_sharded_matches_unsharded(worlds, world):
     """At ep = 2 (a world of 2) and dp = 2 x ep = 2 (a world of 4) each rank
     holds half the experts and runs them on its slice of the dispatch;
     the combine summed over ep gives JAX's unsharded logits."""
-    want = jm.forward(_jcfg(), jax.tree.map(jnp.asarray, _jparams()),
+    want = _jforward(_jcfg(), jax.tree.map(jnp.asarray, _jparams()),
                       jnp.asarray(_tokens(4, (4, 32))))
     np.testing.assert_allclose(worlds[f"forward_{world}"]["logits"],
                                np.asarray(want), **OUT_TOL)

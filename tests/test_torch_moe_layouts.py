@@ -121,8 +121,8 @@ def test_moe_step_grads_layouts_match_jax(world, name):
     rt = JRun(model=tm._jcfg(**LAYOUTS[name][0]), optimizer=JOpt(),
               train=JTrain(seq_length=32)).validate()
     jb = {k: jnp.asarray(v) for k, v in tm._grad_batch().items()}
-    loss, grads = jax.value_and_grad(
-        lambda p: jstep.compute_loss(rt, p, jb))(
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: jstep.compute_loss(rt, p, jb)))(
             jax.tree.map(jnp.asarray, tm._jparams()))
     out = world[name]
     np.testing.assert_allclose(float(out["loss"]), float(loss), **tm.OUT_TOL)

@@ -158,7 +158,7 @@ def _reference(kw, params, batch):
             return jce.masked_mean_loss(per, jb["loss_mask"][m])
         return jnp.mean(jax.vmap(one)(jnp.arange(jb["tokens"].shape[0])))
 
-    val, grads = jax.value_and_grad(loss)(params)
+    val, grads = jax.jit(jax.value_and_grad(loss))(params)
     return float(val), jax.tree.map(np.asarray, grads)
 
 

@@ -113,7 +113,7 @@ def _jax_reference(batch):
                                               in batch.items()})
                    for m in range(M)) / M
 
-    loss, grads = jax.value_and_grad(loss_of)(
+    loss, grads = jax.jit(jax.value_and_grad(loss_of))(
         jax.tree.map(jnp.asarray, tp._jparams(KW)))
     return float(loss), jax.tree.map(np.asarray, grads)
 

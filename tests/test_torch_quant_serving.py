@@ -43,6 +43,13 @@ POLICIES = {"none": None, "int8": "int8", "mixed": "mixed",
             "int4-g32": ("int4", "int4", "int8", 32)}
 
 
+# JAX's functions jitted once a config (eager, each op compiles alone)
+_jfc = jax.jit(jm.forward_cached, static_argnums=0,
+               static_argnames="empty_cache")
+_jfcp = jax.jit(jm.forward_cached_paged, static_argnums=0)
+_jscatter = jax.jit(jm.cache_scatter_blocks)
+
+
 def _pair(cfg_name, policy, seed=0):
     kw = dict(kv_cache_quant="int8", fused_decode=False, **CONFIGS[cfg_name])
     jc, tc = jtiny(**kw), ttiny(**kw)
@@ -74,7 +81,7 @@ def test_forward_cached_int8_cache_matches_jax(cfg_name, policy):
     tk, tv = tm.init_kv_cache(tc, b, max_len, device="cpu")
     assert tk["q"].dtype == torch.int8 and tk["scale"].shape == (
         tc.num_layers, b, tc.kv_heads, max_len)
-    want, jk, jv = jm.forward_cached(jc, jp, jnp.asarray(toks[:, :plen]), jk,
+    want, jk, jv = _jfc(jc, jp, jnp.asarray(toks[:, :plen]), jk,
                                      jv, jnp.int32(0), empty_cache=True)
     got, tk, tv = tm.forward_cached(tc, tp, torch.from_numpy(toks[:, :plen]),
                                     tk, tv, 0, empty_cache=True)
@@ -84,7 +91,7 @@ def test_forward_cached_int8_cache_matches_jax(cfg_name, policy):
     for i in range(steps):
         fills = np.full((b,), plen + i, np.int32)
         step = toks[:, plen + i:plen + i + 1]
-        want, jk, jv = jm.forward_cached(jc, jp, jnp.asarray(step), jk, jv,
+        want, jk, jv = _jfc(jc, jp, jnp.asarray(step), jk, jv,
                                          jnp.asarray(fills))
         got, tk, tv = tm.forward_cached(tc, tp, torch.from_numpy(step), tk,
                                         tv, torch.from_numpy(fills))
@@ -111,10 +118,10 @@ def test_forward_cached_paged_int8_pool_matches_jax(cfg_name, policy):
         scatter = np.where(np.arange(T) < -(-plen // bk), tables[s], 0)
         scatter = scatter.astype(np.int32)
         jk, jv = jm.init_kv_cache(jc, 1, T * bk)
-        _, jk, jv = jm.forward_cached(jc, jp, jnp.asarray(toks[s:s + 1, :plen]),
+        _, jk, jv = _jfc(jc, jp, jnp.asarray(toks[s:s + 1, :plen]),
                                       jk, jv, jnp.int32(0), empty_cache=True)
-        jkp = jm.cache_scatter_blocks(jkp, jk, jnp.asarray(scatter))
-        jvp = jm.cache_scatter_blocks(jvp, jv, jnp.asarray(scatter))
+        jkp = _jscatter(jkp, jk, jnp.asarray(scatter))
+        jvp = _jscatter(jvp, jv, jnp.asarray(scatter))
         tk, tv = tm.init_kv_cache(tc, 1, T * bk, device="cpu")
         _, tk, tv = tm.forward_cached(tc, tp, torch.from_numpy(
             toks[s:s + 1, :plen]), tk, tv, 0, empty_cache=True)
@@ -123,7 +130,7 @@ def test_forward_cached_paged_int8_pool_matches_jax(cfg_name, policy):
     fills = np.array(plens, np.int32)
     for i in range(3):
         step = np.stack([toks[s, plens[s] + i] for s in range(b)])[:, None]
-        want, jkp, jvp = jm.forward_cached_paged(
+        want, jkp, jvp = _jfcp(
             jc, jp, jnp.asarray(step), jkp, jvp, jnp.asarray(tables),
             jnp.asarray(fills))
         got, tkp, tvp = tm.forward_cached_paged(

@@ -183,7 +183,9 @@ def test_serving_geometry_guard_names_the_axis():
 def test_degree_one_returns_the_plain_engine():
     """At pp·tp·fsdp == 1 ``build_sharded_engine`` returns the plain
     engine (no mesh, the fused routes as they were) with its rebuild
-    recipe, and it serves the plain engine's tokens."""
+    recipe, and it serves the plain engine's tokens; ``build_cluster`` at
+    degree 1 serves them through the router, while the disaggregated
+    cluster still raises naming item 11 (c)."""
     cfg = ttiny(**LLAMA)
     params = tm.init_params(cfg, 0, device="cpu")
     ec = EngineConfig(max_batch_size=2, max_seq_len=64, prefill_bucket=8)
@@ -197,8 +199,14 @@ def test_degree_one_returns_the_plain_engine():
     want = plain.submit(prompt, 5, use_eos_stop=False).result(120).tokens
     plain.shutdown()
     assert got == want
-    with pytest.raises(NotImplementedError, match=r"item 11 \(b\)"):
-        build_cluster(cfg, params)
+    router = build_cluster(cfg, params, ec, device="cpu")
+    try:
+        assert len(router.replicas) == 1
+        assert router.replicas[0].engine.mesh is None
+        routed = router.submit(prompt, 5, use_eos_stop=False).result(120)
+    finally:
+        router.shutdown()
+    assert routed.tokens == want
     with pytest.raises(NotImplementedError, match=r"item 11 \(c\)"):
         build_disagg_cluster(cfg, params)
 

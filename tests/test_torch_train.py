@@ -54,6 +54,11 @@ from megatron_llm_tpu_torch.utils.tree import tree_leaves, tree_map
 
 torch.set_num_threads(1)
 
+# JAX's model functions as one program a config and shape (called eagerly,
+# each op of the model compiles on its own)
+_jforward = jax.jit(jm.forward, static_argnums=0,
+                    static_argnames="return_aux")
+
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
@@ -103,8 +108,8 @@ def test_cross_entropy_and_grad_match_jax(smoothing, vocab):
         per = jce.cross_entropy(lg, jnp.asarray(targets), smoothing, vocab)
         return jce.masked_mean_loss(per, jnp.asarray(mask)), per
 
-    (j_loss, j_per), j_grad = jax.value_and_grad(jloss, has_aux=True)(
-        jnp.asarray(logits))
+    (j_loss, j_per), j_grad = jax.jit(
+        jax.value_and_grad(jloss, has_aux=True))(jnp.asarray(logits))
     tl = _t(logits).requires_grad_(True)
     t_per = tce.cross_entropy(tl, _t(targets), smoothing, vocab)
     t_loss = tce.masked_mean_loss(t_per, _t(mask))
@@ -439,7 +444,7 @@ def test_forward_return_aux_and_flops_per_token_match_jax():
     jparams = jm.init_params(jax.random.key(0), jc.model)
     tparams = params_from_jax(_np_tree(jparams), device="cpu")
     toks = np.random.default_rng(4).integers(0, 256, (2, 9)).astype(np.int32)
-    j_logits, j_aux = jm.forward(jc.model, jparams, jnp.asarray(toks),
+    j_logits, j_aux = _jforward(jc.model, jparams, jnp.asarray(toks),
                                  return_aux=True)
     t_logits, t_aux = tm.forward(tc.model, tparams, torch.from_numpy(toks),
                                  return_aux=True)

@@ -24,6 +24,16 @@ from megatron_llm_tpu_torch.kernels import rmsnorm as trn
 
 torch.set_num_threads(1)
 
+
+def _jvjp(f, primals, cotangent):
+    """JAX's output and its cotangent's vjp, forward and backward as one
+    program (called eagerly, each op compiles on its own)."""
+    def both(p, c):
+        out, vjp = jax.vjp(f, *p)
+        return out, vjp(c)
+
+    return jax.jit(both)(primals, cotangent)
+
 # fp32 on both sides, the same function, sums in another order (the TPU
 # kernels tile k/q blocks): a few fp32 ulps of O(1) values
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -77,9 +87,8 @@ def test_flash_attention_bwd_plain_matches_pallas(b, sq, sk, hq, hk, d,
         return jfa.flash_attention(q_, k_, v_, causal=causal,
                                    segment_ids=seg, interpret=True)
 
-    o_jax, vjp = jax.vjp(jax_attn, jnp.asarray(q), jnp.asarray(k),
-                         jnp.asarray(v))
-    want = vjp(jnp.asarray(do))
+    o_jax, want = _jvjp(jax_attn, (jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v)), jnp.asarray(do))
 
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     tseg = None if seg is None else torch.from_numpy(seg)
@@ -115,9 +124,8 @@ def test_flash_attention_bwd_plain_bf16_matches_pallas(b, sq, sk, hq, hk, d,
         return jfa.flash_attention(q_, k_, v_, causal=causal,
                                    segment_ids=seg, interpret=True)
 
-    _, vjp = jax.vjp(jax_attn, jnp.asarray(q), jnp.asarray(k),
-                     jnp.asarray(v))
-    want = vjp(jnp.asarray(do))
+    _, want = _jvjp(jax_attn, (jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v)), jnp.asarray(do))
     tq, tk, tv, tdo = (torch.from_numpy(a.view(np.int16).copy()).view(
         torch.bfloat16) for a in (q, k, v, do))
     tseg = None if seg is None else torch.from_numpy(seg)
@@ -251,10 +259,9 @@ def test_rmsnorm_bwd_plain_matches_pallas(shape):
     x = _np(rng, shape)
     w = (1.0 + 0.1 * _np(rng, shape[-1:])).astype(np.float32)
     dy = _np(rng, shape)
-    y_jax, vjp = jax.vjp(
+    y_jax, (dx_want, dw_want) = _jvjp(
         lambda x_, w_: jrn.rmsnorm_pallas(x_, w_, 1e-5, True),
-        jnp.asarray(x), jnp.asarray(w))
-    dx_want, dw_want = vjp(jnp.asarray(dy))
+        (jnp.asarray(x), jnp.asarray(w)), jnp.asarray(dy))
     tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
     y, rstd = trn.rmsnorm_fwd(tx, tw, 1e-5)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), **FP32_TOL)
@@ -342,9 +349,9 @@ def test_rmsnorm_dweight_two_stage_matches_pallas(shape, per, x_dtype):
     x = _np(rng, shape).astype(x_dtype)
     w = (1.0 + 0.1 * _np(rng, shape[-1:])).astype(np.float32)
     dy = _np(rng, shape).astype(x_dtype)
-    _, vjp = jax.vjp(lambda x_, w_: jrn.rmsnorm_pallas(x_, w_, 1e-5, True),
-                     jnp.asarray(x), jnp.asarray(w))
-    _, dw_want = vjp(jnp.asarray(dy))
+    _, (_, dw_want) = _jvjp(
+        lambda x_, w_: jrn.rmsnorm_pallas(x_, w_, 1e-5, True),
+        (jnp.asarray(x), jnp.asarray(w)), jnp.asarray(dy))
     tx, tdy = (torch.from_numpy(a.astype(np.float32)) for a in (x, dy))
     _, rstd = trn.rmsnorm_fwd(tx, torch.from_numpy(w), 1e-5)
     h = shape[-1]
@@ -370,10 +377,10 @@ def test_layernorm_bwd_plain_matches_pallas(shape, bias):
     dy = _np(rng, shape)
     args = [jnp.asarray(x), jnp.asarray(w)] + ([jnp.asarray(b)] if bias
                                                else [])
-    y_jax, vjp = jax.vjp(
+    y_jax, want = _jvjp(
         lambda x_, w_, *b_: jrn.layernorm_pallas(
-            x_, w_, b_[0] if b_ else None, 1e-5, True), *args)
-    want = vjp(jnp.asarray(dy))
+            x_, w_, b_[0] if b_ else None, 1e-5, True), tuple(args),
+        jnp.asarray(dy))
     tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
     tb = None if b is None else torch.from_numpy(b)
     y, mean, rstd = trn.layernorm_fwd(tx, tw, tb, 1e-5)
@@ -408,10 +415,10 @@ def test_layernorm_bwd_two_stage_matches_pallas(shape, per, bias):
     dy = _np(rng, shape)
     args = [jnp.asarray(x), jnp.asarray(w)] + ([jnp.asarray(b)] if bias
                                                else [])
-    _, vjp = jax.vjp(
+    _, want = _jvjp(
         lambda x_, w_, *b_: jrn.layernorm_pallas(
-            x_, w_, b_[0] if b_ else None, 1e-5, True), *args)
-    want = vjp(jnp.asarray(dy))
+            x_, w_, b_[0] if b_ else None, 1e-5, True), tuple(args),
+        jnp.asarray(dy))
     tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
     _, mean, rstd = trn.layernorm_fwd(
         tx, tw, None if b is None else torch.from_numpy(b), 1e-5)

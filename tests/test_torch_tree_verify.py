@@ -38,6 +38,12 @@ from megatron_llm_tpu_torch.ops.kv_quant import quantize_rows
 
 torch.set_num_threads(1)
 
+# JAX's whole-stack kernels as one program a config (around the Pallas
+# kernel in interpret mode, each op would compile on its own)
+_jfused_decode_verify_paged = jax.jit(
+    jds.fused_decode_verify_paged, static_argnums=0,
+    static_argnames="interpret")
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 INT8_ROW_TOL = dict(rtol=0, atol=0.012)
 BLOCK, MAX_LEN, W = 128, 256, 4
@@ -135,7 +141,7 @@ def test_plain_tree_matches_pallas(form, policy):
     s = _setup(form, policy)
     b = len(s["fills"])
     depths, anc = _topology(b, BRANCHED)
-    want = jds.fused_decode_verify_paged(
+    want = _jfused_decode_verify_paged(
         s["jc"], s["jp"]["layers"], jnp.asarray(s["x"]), s["jk"], s["jv"],
         jnp.asarray(s["tables"]), jnp.asarray(s["fills"]),
         jrope_tables(s["jc"]), depths=jnp.asarray(depths),

@@ -99,9 +99,21 @@ def _rank_main(rank: int, world: int, rdv: str, jobs: list) -> None:
         initialize.destroy()
 
 
+# what every rank imports, loaded once into the fork server that forks
+# the ranks (a spawned rank would import torch and the port anew)
+PRELOAD = ["torch_world", "megatron_llm_tpu_torch.initialize",
+           "megatron_llm_tpu_torch.training.driver",
+           "megatron_llm_tpu_torch.serving"]
+
+
 def run_world(world: int, tmp_path, jobs: list) -> list:
     """Run ``jobs`` (``(function name, input tree, meta)``) on a world of
-    ``world`` ranks → each job's output tree (rank 0's)."""
+    ``world`` ranks → each job's output tree (rank 0's).  The ranks are
+    forked by a fork server of their own (started clean, never from the
+    pytest process with JAX's threads in it) that has ``PRELOAD``
+    imported."""
+    import multiprocessing
+
     import torch.multiprocessing as mp
 
     tmp_path = str(tmp_path)
@@ -110,8 +122,10 @@ def run_world(world: int, tmp_path, jobs: list) -> list:
         in_path = os.path.join(tmp_path, f"in{i}.npz")
         save_tree(in_path, tree, meta)
         specs.append((fn_name, in_path, os.path.join(tmp_path, f"out{i}.npz")))
-    mp.spawn(_rank_main, args=(world, os.path.join(tmp_path, "rdv"), specs),
-             nprocs=world, join=True)
+    multiprocessing.set_forkserver_preload(PRELOAD)
+    mp.start_processes(_rank_main,
+                       args=(world, os.path.join(tmp_path, "rdv"), specs),
+                       nprocs=world, join=True, start_method="forkserver")
     return [load_tree(out)[0] if os.path.exists(out) else None
             for _, _, out in specs]
 
@@ -1088,4 +1102,87 @@ def sharded_lifecycle_case(tree: dict, meta: dict) -> dict:
     res["fault_s"] = time.perf_counter() - t0
     eng.shutdown()
     res["world_left"] = not dist.is_initialized()
+    return {"result": np.asarray(json.dumps(res))}
+
+
+def cluster_serving_case(tree: dict, meta: dict) -> dict:
+    """Sharded replicas behind the router in a world of ``1 + R * (n -
+    1)`` ranks (``build_cluster(replicas=R, parallel=...)`` on every
+    rank): rank 0 routes each of ``meta["batches"]`` and records the
+    tokens, each client's stream, the replicas' global ranks and dispatch
+    counts and the decode groups; the workers replay.  Then a second
+    cluster whose replica 1 worker's decode raises (``meta["fault"]``):
+    rank 0 routes ``meta["fault_batch"]`` with streams, the router fails
+    replica 1's requests over to replica 0, and every rank returns."""
+    import torch.distributed as dist
+
+    from megatron_llm_tpu_torch.config import ParallelConfig
+    from megatron_llm_tpu_torch.parallel import mesh as mesh_lib
+    from megatron_llm_tpu_torch.serving import EngineConfig, RouterConfig
+    from megatron_llm_tpu_torch.serving.cluster import build_cluster
+
+    cfg = _serving_model(meta)
+    params = _t(tree["params"])
+    ec = EngineConfig(**meta["engine"])
+    par = ParallelConfig(**meta["parallel"])
+    rank = dist.get_rank()
+    res: dict = {}
+
+    def routed(router, specs):
+        streams = [[] for _ in specs]
+        hs = router.submit_many([
+            dict(s, on_token=(lambda i: lambda t: streams[i].append(
+                int(t)))(i)) for i, s in enumerate(specs)])
+        return [list(h.result(120).tokens) for h in hs], streams
+
+    built = build_cluster(cfg, params, ec, replicas=meta["replicas"],
+                          parallel=par, device="cpu")
+    if rank != 0:
+        res["worker_ranks"] = mesh_lib.global_ranks(built.mesh)
+        built.serve()
+    else:
+        res["mesh_ranks"] = [mesh_lib.global_ranks(r.engine.mesh)
+                             for r in built.replicas]
+        built.start()
+        try:
+            res["batches"] = [routed(built, specs)
+                              for specs in meta["batches"]]
+            snap = built.snapshot()
+            res["dispatched"] = [r["dispatched"] for r in snap["replicas"]]
+            res["groups"] = [r.engine._decode_groups
+                             for r in built.replicas]
+        finally:
+            built.shutdown()
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, res.get("worker_ranks"))
+    res["worker_ranks"] = everyone[1:]
+
+    fault_rank = meta["fault"]
+    built = build_cluster(cfg, params, ec, replicas=meta["replicas"],
+                          parallel=par, device="cpu",
+                          router_config=RouterConfig(probe_interval_s=0.02))
+    if rank != 0:
+        if rank == fault_rank:
+            def broken(*args, **kwargs):
+                raise RuntimeError("injected worker fault")
+
+            built.ops.decode = broken
+        try:
+            built.serve()
+        except RuntimeError as e:
+            res["worker_raised"] = str(e)
+    else:
+        built.start()
+        try:
+            res["fault_batch"] = routed(built, meta["fault_batch"])
+            snap = built.snapshot()
+            res["fault_snapshot"] = snap["router"]
+            res["fault_alive"] = [r["alive"] for r in snap["replicas"]]
+        finally:
+            built.shutdown()
+    raised = [None] * dist.get_world_size()
+    dist.all_gather_object(raised, res.get("worker_raised"))
+    res["worker_raised"] = raised
+    if rank != 0:
+        return None
     return {"result": np.asarray(json.dumps(res))}
